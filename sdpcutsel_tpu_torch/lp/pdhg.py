@@ -1,0 +1,253 @@
+"""Restarted, averaged PDHG for the McCormick + cuts LP (BoxQP; port of
+``sdpcutsel_tpu/lp/pdhg.py``).
+
+    min  cobj' z   s.t.  K z >= h,  z in Z
+    Z    = {x in [0,1]^n} x {X symmetric, entries in [0,1]}
+    K    = scaled McCormick rows + unit-norm cut rows (relax/)
+    cobj = (-c, -Q/2)
+
+Each checked block runs ``check_every`` iterations through the iteration-block
+kernel wrapper (lp/pdhg_kernel.py), then, in plain torch once per block: the
+ergodic average, restart-to-average when the average's KKT error is lower,
+and primal-weight (omega) rebalancing.  The JAX ``lax.while_loop`` condition
+becomes one host read per block.  Host-side scalars (step sizes, omega, the
+stopping test) are float32, as they are on the device in the reference.
+Everything outside the kernel sums the cut adjoint over the pool's cut
+index too (relax/cutbuffer.py), so a solve on CUDA repeats bit for bit.
+
+``dual_bound_f64`` recomputes the Lagrangian certificate in float64 numpy, so
+a reported bound never depends on f32 convergence.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..relax.cutbuffer import CutIndex, CutPool, build_cut_index
+from ..relax.mccormick import SA, SB, apply_K, apply_KT, project_primal
+
+_f32 = np.float32
+
+
+@dataclasses.dataclass
+class PDHGState:
+    x: torch.Tensor    # (n,)
+    X: torch.Tensor    # (n, n)
+    yA: torch.Tensor   # (n, n)
+    yB: torch.Tensor   # (n, n)
+    yC: torch.Tensor   # (M,) cut-row duals
+
+    def fields(self) -> tuple:
+        return (self.x, self.X, self.yA, self.yB, self.yC)
+
+    def map(self, fn) -> "PDHGState":
+        return PDHGState(*(fn(t) for t in self.fields()))
+
+    def add(self, other: "PDHGState") -> "PDHGState":
+        return PDHGState(*(a + b for a, b in zip(self.fields(), other.fields())))
+
+
+def init_state(n: int, capacity: int, device) -> PDHGState:
+    return PDHGState(
+        x=torch.full((n,), 0.5, device=device),
+        X=torch.full((n, n), 0.25, device=device),
+        yA=torch.zeros((n, n), device=device),
+        yB=torch.zeros((n, n), device=device),
+        yC=torch.zeros((capacity,), device=device),
+    )
+
+
+def _sym(X):
+    return 0.5 * (X + X.T)
+
+
+def estimate_norm(pool: CutPool, n: int, iters: int,
+                  generator: torch.Generator, index: CutIndex) -> float:
+    """Power iteration for ||K|| on the symmetric-X primal subspace.  The
+    start vector is drawn on the CPU from ``generator``, so CPU and CUDA runs
+    start alike (the reference draws it from jax.random.PRNGKey(0), which
+    torch cannot reproduce)."""
+    dev = pool.lin.device
+    x = torch.randn((n,), generator=generator).to(dev)
+    X = _sym(torch.randn((n, n), generator=generator).to(dev))
+    for _ in range(iters):
+        kA, kB, kC = apply_K(x, X, pool)
+        gx, gX = apply_KT(kA, kB, kC * pool.active, pool, n, index)
+        gX = _sym(gX)
+        nrm = torch.sqrt((gx * gx).sum() + (gX * gX).sum()) + 1e-30
+        x, X = gx / nrm, gX / nrm
+    kA, kB, kC = apply_K(x, X, pool)
+    lam = torch.sqrt((kA * kA).sum() + (kB * kB).sum()
+                     + ((kC * pool.active) ** 2).sum())
+    return float(lam * 1.02 + 1e-12)
+
+
+def _objective(cx, cX, x, X):
+    return torch.dot(cx, x) + (cX * X).sum()
+
+
+def _dual_bound(cx, cX, pool: CutPool, yA, yB, yC, n: int, index: CutIndex):
+    """Box-form Lagrangian lower bound on the min LP; valid for any y >= 0."""
+    gx, gX = apply_KT(yA, yB, yC, pool, n, index)
+    hy = -SB * yB.sum() + (pool.rhs * pool.active * yC).sum()
+    rx = cx - gx
+    S = (cX - gX) + (cX - gX).T
+    return hy + rx.clamp(max=0.0).sum() + 0.5 * S.clamp(max=0.0).sum()
+
+
+def _infeas(x, X, pool: CutPool):
+    kA, kB, kC = apply_K(x, X, pool)
+    vA = (-kA).clamp(min=0.0)
+    vB = (-SB - kB).clamp(min=0.0)
+    vC = (pool.rhs * pool.active - kC).clamp(min=0.0) * pool.active
+    return torch.sqrt((vA ** 2).sum() + (vB ** 2).sum() + (vC ** 2).sum())
+
+
+def _kkt_error(cx, cX, pool: CutPool, st: PDHGState, n: int, index: CutIndex):
+    p = _objective(cx, cX, st.x, st.X)
+    d = _dual_bound(cx, cX, pool, st.yA, st.yB, st.yC, n, index)
+    gap = (p - d).clamp(min=0.0)
+    return _infeas(st.x, st.X, pool) + gap, p, d
+
+
+def _one_iter(cx, cX, pool: CutPool, index: CutIndex, n: int, st: PDHGState,
+              tau, sigma):
+    gx, gX = apply_KT(st.yA, st.yB, st.yC, pool, n, index)
+    xn, Xn = project_primal(st.x - tau * (cx - gx), st.X - tau * (cX - gX))
+    xb, Xb = 2.0 * xn - st.x, 2.0 * Xn - st.X
+    kA, kB, kC = apply_K(xb, Xb, pool)
+    yA = (st.yA - sigma * kA).clamp(min=0.0)
+    yB = (st.yB + sigma * (-SB - kB)).clamp(min=0.0)
+    yC = (st.yC + sigma * (pool.rhs * pool.active - kC)).clamp(min=0.0) * pool.active
+    return PDHGState(xn, Xn, yA, yB, yC)
+
+
+def _dist2(a: PDHGState, b: PDHGState, primal: bool):
+    if primal:
+        return ((a.x - b.x) ** 2).sum() + ((a.X - b.X) ** 2).sum()
+    return (((a.yA - b.yA) ** 2).sum() + ((a.yB - b.yB) ** 2).sum()
+            + ((a.yC - b.yC) ** 2).sum())
+
+
+def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
+                normK: float, omega0: float, tol: float, step_scale: float,
+                max_iters: int, check_every: int, restart_period: int):
+    """Checked-block PDHG solve from ``st0`` with a given ``normK``; ``index``
+    is ``build_cut_index(pool, n)``.  Returns (state, info) with python
+    scalars in info."""
+    from .pdhg_kernel import pdhg_block
+
+    n = cx.shape[0]
+    eta = _f32(step_scale) / _f32(normK)
+    zeros = st0.map(torch.zeros_like)
+    st, acc, anchor, wlen, it = st0, zeros, st0, 0, 0
+    omega = _f32(omega0)
+    err, p, d = _f32(np.inf), _f32(0.0), _f32(0.0)
+    while it < max_iters and err / (_f32(1.0) + abs(p) + abs(d)) > _f32(tol):
+        tau, sigma = eta / omega, eta * omega
+        st, acc = pdhg_block(cx, cX, pool, index, st, acc, float(tau),
+                             float(sigma), check_every)
+        wlen += check_every
+        avg = acc.map(lambda t: t * float(_f32(1.0) / _f32(wlen)))
+
+        kc = _kkt_error(cx, cX, pool, st, n, index)
+        ka = _kkt_error(cx, cX, pool, avg, n, index)
+        e_c, p_c, d_c, e_a, p_a, d_a = torch.stack([*kc, *ka]).cpu().numpy()
+        use_avg = e_a < e_c
+        cand = avg if use_avg else st
+        err, p, d = (e_a, p_a, d_a) if use_avg else (e_c, p_c, d_c)
+        if use_avg or wlen >= restart_period:
+            # primal-weight rebalancing between restarts (PDLP, theta = 0.5)
+            dp, dd = (torch.stack([torch.sqrt(_dist2(cand, anchor, True)),
+                                   torch.sqrt(_dist2(cand, anchor, False))])
+                      .cpu().numpy() + _f32(1e-12))
+            omega = np.clip(np.exp(_f32(0.5) * np.log(dd / dp)
+                                   + _f32(0.5) * np.log(omega)),
+                            _f32(1e-4), _f32(1e4)).astype(_f32)
+            st = anchor = cand
+            acc, wlen = zeros, 0
+        it += check_every
+    return st, {"iters": it, "kkt_error": float(err), "primal_obj": float(p),
+                "dual_obj": float(d), "omega": float(omega)}
+
+
+def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg):
+    """Solve the current relaxation from the warm start ``state``.
+
+    Q, c: float32 tensors on the state's device; cfg: ``LPConfig``.  The
+    iteration kernel runs whenever the tensors are on CUDA (``use_kernel``
+    is not read: the device decides).  Returns (state, info); the max-form
+    bound estimate is -info['dual_obj'], the certified one dual_bound_f64.
+    """
+    n = int(c.shape[0])
+    cx = -c
+    cX = -0.5 * Q
+    index = build_cut_index(pool, n)        # the pool is constant in a solve
+    normK = estimate_norm(pool, n, cfg.power_iters,
+                          torch.Generator(device="cpu").manual_seed(0), index)
+    return _solve_impl(cx, cX, pool, index, state, normK, cfg.omega0, cfg.tol,
+                       cfg.step_scale, cfg.max_iters, cfg.check_every,
+                       cfg.restart_period)
+
+
+def dual_bound_f64(Q, c, pool: CutPool, state: PDHGState) -> float:
+    """Certified max-form upper bound from the current duals, in float64
+    numpy, with the per-block scaling polish of the reference: any block
+    scalings t >= 0 give a valid bound, so coordinate ascent over a grid
+    only tightens it."""
+
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    n = int(np.asarray(c).shape[0])
+    Q = np.asarray(Q, np.float64)
+    c = np.asarray(c, np.float64)
+    yA = np.maximum(host(state.yA), 0.0)
+    yB = np.maximum(host(state.yB), 0.0)
+    act = host(pool.active)
+    yC = np.maximum(host(state.yC), 0.0) * act
+    idx = pool.idx.detach().cpu().numpy()
+    lin, quad, rhs = host(pool.lin), host(pool.quad), host(pool.rhs)
+
+    cx = -c
+    cX = -0.5 * Q
+    gxA = SA * yA.sum(1)
+    gXA = -SA * yA
+    gxB = -SB * (yB.sum(1) + yB.sum(0))
+    gXB = SB * yB
+    hyB = -SB * yB.sum()
+    gxC = np.zeros(n)
+    np.add.at(gxC, idx.ravel(), (yC[:, None] * lin).ravel())
+    flat = np.zeros(n * n)
+    np.add.at(flat, (idx[:, :, None] * n + idx[:, None, :]).ravel(),
+              (yC[:, None, None] * quad).ravel())
+    gXC = flat.reshape(n, n)
+    hyC = float((rhs * act) @ yC)
+    blocks = [(0.0, gxA, gXA), (hyB, gxB, gXB), (hyC, gxC, gXC)]
+
+    Ssym = cX + cX.T
+    hys = np.array([b[0] for b in blocks])
+    gxs = np.stack([b[1] for b in blocks])
+    gSs = np.stack([b[2] + b[2].T for b in blocks])
+
+    def D(ts):
+        rx_t = cx - np.tensordot(ts, gxs, axes=1)
+        S_t = Ssym - np.tensordot(ts, gSs, axes=1)
+        return (float(ts @ hys) + np.minimum(rx_t, 0.0).sum()
+                + 0.5 * np.minimum(S_t, 0.0).sum())
+
+    ts = np.ones(len(blocks))
+    best = D(ts)
+    grid = np.concatenate([[1.0], np.geomspace(0.5, 2.0, 7)])
+    for _ in range(2):  # coordinate-ascent passes
+        for b in range(len(blocks)):
+            for t in grid:
+                cand = ts.copy()
+                cand[b] = ts[b] * t
+                v = D(cand)
+                if v > best:
+                    best, ts = v, cand
+    return float(-best)  # max-form upper bound

@@ -1,0 +1,78 @@
+"""Wrapper of the dense k = 3 scoring kernel (``csrc/pair_score.cu``) and its
+plain PyTorch twin.
+
+For every triple of a (T, 3) candidate table (the lexicographic
+``combinations_table(n, 3)`` on the main path) both return
+
+    nn   = scale * relu(MLP([tri(Q_rho)/scale | x_rho | tri(X_rho)]))
+    feas = -lambda_min(Z(rho))   after SWEEPS cyclic Jacobi sweeps.
+
+The kernel replaces the Pallas TPU kernel
+``sdpcutsel_tpu/ops/pair_score.py::_pair_kernel`` (launched from
+``pair_score_fused``) plus the XLA MLP over its feature planes.  The TPU
+kernel scored in a padded pair layout; here every thread gathers its own
+triple, so the candidate order is the table's own.
+
+Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
+other device raises.  ``pair_score.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..models.features import candidate_features, candidate_q_features
+from ..models.scorer import MLPScorer
+from .jacobi import min_eig_from_parts
+
+SWEEPS = 5      # Jacobi sweeps on the 4 x 4 Z(rho), as in the reference's scoring
+
+
+def pair_score_plain(x, X, Q, table, mlp: MLPScorer):
+    """Twin: features + MLP + struct-of-arrays Jacobi over the table."""
+    table = table.long()
+    triQ, scale = candidate_q_features(Q, table)
+    feats = candidate_features(triQ, x, X, table)
+    nn = scale * torch.relu(mlp(feats))
+    xr = x[table]
+    Xr = X[table[:, :, None], table[:, None, :]]
+    feas = -min_eig_from_parts(xr, Xr, sweeps=SWEEPS)
+    return nn, feas
+
+
+def _launch(x, X, Q, table, mlp: MLPScorer):
+    T, k = table.shape
+    n = x.shape[0]
+    weights = [t for lin in mlp.layers for t in (lin.weight, lin.bias)]
+    if k != 3 or [tuple(w.shape) for w in weights[::2]] != [(64, 15), (64, 64), (1, 64)]:
+        raise ValueError("pair_score kernel takes k = 3 and a 15-64-64-1 MLP")
+    if table.dtype != torch.int32:
+        raise ValueError("pair_score kernel takes an int32 table")
+    for t in (x, X, Q, *weights):
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError("pair_score kernel takes float32 tensors on one device")
+    if table.device != x.device or X.shape != (n, n) or Q.shape != (n, n):
+        raise ValueError("pair_score kernel: shape or device mismatch")
+    lib = _build.lib()
+    args = [t.contiguous() for t in (table, x, X, Q, *weights)]
+    nn = torch.empty((T,), dtype=torch.float32, device=x.device)
+    feas = torch.empty_like(nn)
+    err = lib.pair_score_launch(
+        T, n, SWEEPS, *(t.data_ptr() for t in args), nn.data_ptr(),
+        feas.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "pair_score_launch")
+    pair_score.launches += 1
+    return nn, feas
+
+
+def pair_score(x, X, Q, table, mlp: MLPScorer):
+    """(nn, feas), each (T,), for the candidates of ``table``."""
+    if x.device.type == "cpu":
+        return pair_score_plain(x, X, Q, table, mlp)
+    if x.device.type == "cuda":
+        return _launch(x, X, Q, table, mlp)
+    raise ValueError(f"pair_score: no kernel for device {x.device}")
+
+
+pair_score.launches = 0

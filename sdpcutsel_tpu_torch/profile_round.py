@@ -1,0 +1,163 @@
+"""Where the main path's time goes on one GPU.
+
+    python3 -m sdpcutsel_tpu_torch.profile_round [--rounds 10] [--out chiprun_out]
+
+The main path is chip_smoke.py's: CutSolver on spar125-100-1, strategy
+neural, default cuts, LPConfig(max_iters=20000, tol=2e-6).  After one
+warm-up round (kernel build, first cuSOLVER use), three runs of ``--rounds``
+rounds, each from a fresh solver:
+
+  1. plain: host wall time, synchronised at the end -> rounds/s;
+  2. stage split: each stage wrapped with a CUDA synchronise on both sides
+     and timed on the host clock.  The synchronises slow the run, so its
+     wall time is printed beside the plain one;
+  3. torch.profiler: the device time of every kernel and copy, summed; the
+     device's idle share is 1 - that sum / the run's wall time.  The
+     profiler's table goes to OUT/profile_table.txt.
+
+Needs a CUDA device; prints the card's nvidia-smi name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import importlib
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+from sdpcutsel_tpu.config import LPConfig, RunConfig
+from sdpcutsel_tpu.instances.boxqp import parse_boxqp
+
+from .loop import solver as solver_mod
+from .lp import pdhg as pdhg_mod
+from .lp import pdhg_kernel as pdhg_kernel_mod
+
+# ops/__init__ binds the name pair_score to the wrapper, not the module
+pair_score_mod = importlib.import_module(".ops.pair_score", __package__)
+
+INSTANCE = "spar125-100-1"
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "data", "boxqp")
+
+# (owner, attribute, label); a label indented by two spaces is part of the
+# stage above it.
+STAGES = [
+    (solver_mod, "solve_lp", "solve_lp"),
+    (pdhg_kernel_mod, "_launch", "  K2 pdhg_block"),
+    (pdhg_mod, "_kkt_error", "  _kkt_error (torch)"),
+    (pdhg_mod, "estimate_norm", "  estimate_norm"),
+    (pdhg_mod, "build_cut_index", "  build_cut_index"),
+    (solver_mod, "dual_bound_f64", "dual_bound_f64 (host numpy)"),
+    (pair_score_mod, "_launch", "K1 pair_score"),
+    (solver_mod.CutSolver, "_select_and_generate", "selection + eigh + cut rows"),
+    (solver_mod, "cut_residuals", "purge: residuals"),
+    (solver_mod, "purge_pool", "purge: compact"),
+    (solver_mod, "append_cuts", "append_cuts"),
+]
+
+
+def _run(inst, cfg, dev, rounds: int) -> float:
+    solver = solver_mod.CutSolver(inst, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run(rounds=rounds)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def stage_split(inst, cfg, dev, rounds: int):
+    """(wall seconds, {label: (seconds, calls)}) of a run with every stage
+    synchronised and timed."""
+    seconds = collections.defaultdict(float)
+    calls = collections.Counter()
+    originals = []
+
+    def timed(fn, label):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[label] += time.perf_counter() - t0
+            calls[label] += 1
+            return out
+        return wrapper
+
+    for owner, name, label in STAGES:
+        fn = getattr(owner, name)
+        originals.append((owner, name, fn))
+        setattr(owner, name, timed(fn, label))
+    try:
+        wall = _run(inst, cfg, dev, rounds)
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+    return wall, {label: (seconds[label], calls[label]) for _, _, label in STAGES}
+
+
+def device_time(inst, cfg, dev, rounds: int, out_dir: str):
+    """(wall seconds, device seconds of all kernels and copies, top rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = _run(inst, cfg, dev, rounds)
+    averages = prof.key_averages()
+    field = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+             else "self_cuda_time_total")
+    rows = []
+    for e in averages:
+        dev_us = getattr(e, field)
+        # device rows (kernels, copies) have no host time of their own
+        if dev_us > 0 and e.self_cpu_time_total == 0:
+            rows.append((dev_us * 1e-6, e.count, e.key))
+    rows.sort(reverse=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_table.txt"), "w") as f:
+        f.write(averages.table(sort_by=field, row_limit=40))
+    return wall, sum(r[0] for r in rows), rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_round: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"[env] {smi.splitlines()[0]}; torch {torch.__version__}", flush=True)
+
+    dev = torch.device("cuda", 0)
+    inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE,
+                       use_native=False)
+    cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6))
+    _run(inst, cfg, dev, 1)                                   # warm-up
+
+    wall = _run(inst, cfg, dev, args.rounds)
+    print(f"[plain] {args.rounds} rounds in {wall:.4f} s = "
+          f"{args.rounds / wall:.4f} rounds/s", flush=True)
+
+    split_wall, stages = stage_split(inst, cfg, dev, args.rounds)
+    print(f"[split] synchronised run: {split_wall:.4f} s", flush=True)
+    for label, (s, n) in stages.items():
+        print(f"[split] {label:<32} {1e3 * s:10.2f} ms {100 * s / split_wall:7.2f}%"
+              f" {n:6d} calls", flush=True)
+
+    prof_wall, busy, rows = device_time(inst, cfg, dev, args.rounds, args.out)
+    print(f"[profile] wall {prof_wall:.4f} s (with the profiler); device busy "
+          f"{busy:.4f} s; idle share {1 - busy / prof_wall:.4f}", flush=True)
+    for s, n, name in rows[:8]:
+        print(f"[profile] {1e3 * s:10.3f} ms {n:7d}x {name[:70]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
