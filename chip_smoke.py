@@ -5,19 +5,33 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
      triton; no CUDA device -> exit 2 before any result is printed;
-  2. build both kernels from csrc/ (timed as set-up);
+  2. build the three kernels from csrc/, one nvcc each, in parallel (timed
+     as set-up);
   3. check each kernel against its plain PyTorch twin on the card at the
-     main path's shapes, and time both with CUDA events:
-       pair_score  n = 125, all 317,750 candidates of spar125-100-1;
-       pdhg_block  n = 125, M = 1024 with 400 active unit cuts, blocks of
-                   7 and 100 iterations;
-  4. the round on the card against the CPU port on spar020-100-1;
-  5. the main path: CutSolver on spar125-100-1, strategy neural, default
-     cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with both launch
-     counters reset before and read after; the bounds are held to the
-     instance registry (data/boxqp/bounds.json, optima.json), and a second
-     run from a fresh solver must repeat the first bit for bit;
-  6. one JSON line of kernel results, then the last line
+     main paths' shapes, and time both with CUDA events:
+       pair_score   n = 125, all 317,750 candidates of spar125-100-1;
+       pdhg_block   n = 125, M = 1024 with 400 active unit k = 3 cuts, and
+                    n = 100 with the 25 dense rows of qcqpband100-5-25-1 and
+                    400 active k = 5 cuts (some supports repeat an index);
+                    blocks of 7 and 100 iterations;
+       fused_score  k = 2 over C(125, 2) (5 sweeps); k = 4 and 5 over the
+                    clique tables of qcqp025-25-4-2 and qcqpband100-5-25-1
+                    (6 sweeps);
+  4. the rounds on the card against the CPU port, 3 rounds each:
+     spar020-100-1 at k = 3 and at k = 2, qcqp015-30-3-1 at k = 5;
+  5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
+     default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
+     launch counters reset before and read after; the bounds are held to
+     the instance registry (data/boxqp/bounds.json, optima.json), and a
+     second run from a fresh solver must repeat the first bit for bit;
+  6. the QCQP main path: CutSolverQCQP on qcqpband100-5-25-1 in the
+     configuration of scripts/run_qcqp_suite.py (k = 5, sel_size 16,
+     capacity 1024, LPConfig(max_iters=20000, tol=2e-6), polish 60,000
+     iterations), 8 rounds, counters reset before and read after; the
+     bounds are held to data/qcqp/bounds.json and to the JAX package's
+     recorded round 0 (results/qcqp.jsonl), and a second run must repeat
+     the first bit for bit, polish included;
+  7. one JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
 TF32 is turned off for the whole process at its start: the scoring twin's
@@ -37,21 +51,32 @@ import time
 import numpy as np
 import torch
 
-from sdpcutsel_tpu.config import LPConfig, RunConfig
+from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig
 from sdpcutsel_tpu.instances.boxqp import parse_boxqp
+from sdpcutsel_tpu.instances.qcqp import load_or_generate_qcqp
+from sdpcutsel_tpu.qcqp.chordal import chordal_decomposition, clique_candidates
 from sdpcutsel_tpu_torch import _build
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
 from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch.lp.pdhg import estimate_norm, init_state
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import pdhg_block, pdhg_block_plain
+from sdpcutsel_tpu_torch.models.features import candidate_q_features
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
+from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
+from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
 from sdpcutsel_tpu_torch.relax.cutbuffer import append_cuts, build_cut_index, empty_pool
+from sdpcutsel_tpu_torch.relax.denserows import dense_from_qcqp
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, "data", "boxqp")
 INSTANCE = "spar125-100-1"
 ROUNDS = 10
+QCQP_INSTANCE = "qcqpband100-5-25-1"
+QCQP_ROUNDS = 8
+QCQP_CFG = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6),
+                     cuts=CutConfig(k=5, sel_size=16, capacity=1024),
+                     loop=LoopConfig(polish_iters=60000))
 SEED = 0
 
 
@@ -130,26 +155,30 @@ def check_pair_score(inst, dev) -> dict:
     return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
 
 
-def random_pool(n: int, M: int, active: int, rng, dev):
-    """``active`` random unit-norm cuts on distinct triples in a pool of M."""
-    tab = combinations_table(n, 3)
-    idx = tab[rng.choice(tab.shape[0], active, replace=False)]
-    lin = rng.standard_normal((active, 3))
-    quad = rng.standard_normal((active, 3, 3))
+def random_pool(table: np.ndarray, M: int, active: int, rng, dev):
+    """``active`` random unit-norm cuts on distinct rows of ``table`` (the
+    candidate supports) in a pool of M."""
+    k = table.shape[1]
+    idx = table[rng.choice(table.shape[0], active, replace=False)]
+    lin = rng.standard_normal((active, k))
+    quad = rng.standard_normal((active, k, k))
     quad = 0.5 * (quad + quad.transpose(0, 2, 1))
     nrm = np.sqrt((lin ** 2).sum(1) + (quad ** 2).sum((1, 2)))
     cuts = (idx, lin / nrm[:, None], quad / nrm[:, None, None],
             -0.1 * rng.random(active) / nrm, np.ones(active))
-    return append_cuts(empty_pool(M, 3, dev), *(
+    return append_cuts(empty_pool(M, k, dev), *(
         torch.as_tensor(a, dtype=torch.int64 if a.dtype.kind == "i" else torch.float32,
                         device=dev) for a in cuts))
 
 
-def check_pdhg_block(inst, dev) -> dict:
-    n, M = inst.n, 1024
+def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
+    """K2 against its twin from a random state, M = 1024 with 400 active
+    cuts on rows of ``table``, and the dense rows ``dense`` (or none)."""
+    n, M = c.shape[0], 1024
+    m = 0 if dense is None else dense.m
     rng = np.random.default_rng(SEED + 1)
-    pool = random_pool(n, M, 400, rng, dev)
-    st = init_state(n, M, dev)
+    pool = random_pool(table, M, 400, rng, dev)
+    st = init_state(n, M, dev, m)
     X = rng.random((n, n))
     f32 = dict(dtype=torch.float32, device=dev)
     st.x = torch.as_tensor(rng.random(n), **f32)
@@ -157,69 +186,133 @@ def check_pdhg_block(inst, dev) -> dict:
     st.yA = torch.as_tensor(0.1 * rng.random((n, n)), **f32)
     st.yB = torch.as_tensor(0.1 * rng.random((n, n)), **f32)
     st.yC = torch.as_tensor(0.05 * rng.random(M), **f32) * pool.active
-    cx = torch.as_tensor(-inst.c, **f32)
-    cX = torch.as_tensor(-0.5 * inst.Q, **f32)
+    st.yD = torch.as_tensor(0.2 * rng.random(m), **f32)
+    cx = torch.as_tensor(-c, **f32)
+    cX = torch.as_tensor(-0.5 * Q, **f32)
     index = build_cut_index(pool, n)
-    eta = 0.95 / estimate_norm(pool, n, 30, torch.Generator().manual_seed(0), index)
+    eta = 0.95 / estimate_norm(pool, n, 30, torch.Generator().manual_seed(0), index,
+                               dense)
     zero = st.map(torch.zeros_like)
+    args = (cx, cX, pool, index, st, zero, eta, eta)
     # 7 iterations: the reference's own kernel tolerance (tests/test_pdhg_kernel.py).
     # 100 iterations (one checked block of the solve): PDHG is nonexpansive, so
     # f32 rounding differences add up rather than multiply; the 7-iteration
     # tolerance scaled linearly to 100 iterations is 3e-4, and the ergodic sums
     # of 100 iterates take 100 x that as atol.
     worst = 0.0
+    nf = len(st.fields())
     for iters, tol_st, tol_acc in [(7, (2e-5, 2e-5), (2e-5, 2e-5)),
                                    (100, (3e-4, 3e-4), (3e-4, 3e-2))]:
-        sk, ak = pdhg_block(cx, cX, pool, index, st, zero, eta, eta, iters)
-        sp, ap = pdhg_block_plain(cx, cX, pool, index, st, zero, eta, eta, iters)
+        sk, ak = pdhg_block(*args, iters, dense)
+        sp, ap = pdhg_block_plain(*args, iters, dense)
         torch.cuda.synchronize()
         errs, ratio = [], 0.0
         for (got, want), (rtol, atol) in zip(
                 [*zip(sk.fields(), sp.fields()), *zip(ak.fields(), ap.fields())],
-                [tol_st] * 5 + [tol_acc] * 5):
-            e, r = excess(got, want, rtol, atol)
-            errs.append(e)
-            ratio = max(ratio, r)
-        log(f"[pdhg_block] {iters} iterations: max|err| state {max(errs[:5]):.3e} "
-            f"sums {max(errs[5:]):.3e}; {ratio:.3f} of the limit "
-            f"(state rtol/atol {tol_st}, sums {tol_acc})")
+                [tol_st] * nf + [tol_acc] * nf):
+            if got.numel():
+                e, r = excess(got, want, rtol, atol)
+                errs.append(e)
+                ratio = max(ratio, r)
+        log(f"[pdhg_block {label}] {iters} iterations: max|err| state "
+            f"{max(errs[:len(errs) // 2]):.3e} sums {max(errs[len(errs) // 2:]):.3e}; "
+            f"{ratio:.3f} of the limit (state rtol/atol {tol_st}, sums {tol_acc})")
         if ratio > 1.0:
-            raise AssertionError(f"pdhg_block kernel disagrees with its twin at {iters} iterations")
-        worst = max(errs)
-    first = pdhg_block(cx, cX, pool, index, st, zero, eta, eta, 100)
-    again = pdhg_block(cx, cX, pool, index, st, zero, eta, eta, 100)
-    same = all(torch.equal(a, b) for a, b in zip(first[0].fields(), again[0].fields()))
-    log(f"[pdhg_block] two 100-iteration runs bit-identical: {same}")
+            raise AssertionError(f"pdhg_block kernel disagrees with its twin at {iters} "
+                                 f"iterations ({label})")
+        worst = max(worst, *errs)
+    first = pdhg_block(*args, 100, dense)
+    again = pdhg_block(*args, 100, dense)
+    same = all(torch.equal(a, b) for a, b in zip([*first[0].fields(), *first[1].fields()],
+                                                 [*again[0].fields(), *again[1].fields()]))
+    log(f"[pdhg_block {label}] two 100-iteration runs bit-identical: {same}")
     if not same:
-        raise AssertionError("pdhg_block kernel is not deterministic")
-    ms = cuda_ms(lambda: pdhg_block(cx, cX, pool, index, st, zero, eta, eta, 100), reps=20)
-    plain_ms = cuda_ms(lambda: pdhg_block_plain(cx, cX, pool, index, st, zero, eta, eta, 100),
-                       reps=3, warmup=1)
-    log(f"[pdhg_block] 100-iteration block: kernel {ms:.4f} ms ({ms * 10:.2f} us/iter); "
-        f"twin {plain_ms:.4f} ms ({plain_ms * 10:.2f} us/iter)")
+        raise AssertionError(f"pdhg_block kernel is not deterministic ({label})")
+    ms = cuda_ms(lambda: pdhg_block(*args, 100, dense), reps=20)
+    plain_ms = cuda_ms(lambda: pdhg_block_plain(*args, 100, dense), reps=3, warmup=1)
+    log(f"[pdhg_block {label}] 100-iteration block: kernel {ms:.4f} ms "
+        f"({ms * 10:.2f} us/iter); twin {plain_ms:.4f} ms ({plain_ms * 10:.2f} us/iter)")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def check_small_instance(dev):
-    """The round on the card against the CPU port, which the CPU tests hold to
-    the JAX package: spar020-100-1, 3 rounds.  Round 0 precedes any selection
-    and agrees at rtol 2e-3 (tests/test_loop.py); later rounds may differ by
-    tie order only, and stay within 2% (tests/test_pair_score.py)."""
+def clique_table(inst, k: int) -> np.ndarray:
+    cliques, _ = chordal_decomposition(inst.n, inst.sparsity_graph(), use_native=False)
+    return clique_candidates(cliques, k)
+
+
+def check_fused_score(label: str, Q, table: np.ndarray, sweeps: int, dev) -> dict:
+    """K4 against its twin at the reference's kernel tolerances
+    (tests/test_fused_score.py): feas atol 5e-4, nn rtol 2e-4 / atol 2e-5."""
+    n, k = Q.shape[0], table.shape[1]
+    rng = np.random.default_rng(SEED + k)
+    x = rng.random(n)
+    X = np.clip(np.outer(x, x) + 0.3 * rng.standard_normal((n, n)), 0, 1)
+    x, X, Q = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in (x, 0.5 * (X + X.T), Q))
+    table = torch.as_tensor(table, device=dev)
+    triQ, scale = candidate_q_features(Q, table)
+    mlp = MLPScorer(load_params(k), dev)
+    args = (x, X, table, triQ, scale, mlp, sweeps)
+    nn_k, feas_k = fused_score(*args)
+    nn_p, feas_p = fused_score_plain(*args)
+    torch.cuda.synchronize()
+    err_f, r_f = excess(feas_k, feas_p, 0.0, 5e-4)
+    err_n, r_n = excess(nn_k, nn_p, 2e-4, 2e-5)
+    ms = cuda_ms(lambda: fused_score(*args), reps=50)
+    plain_ms = cuda_ms(lambda: fused_score_plain(*args), reps=5)
+    T = table.shape[0]
+    log(f"[fused_score {label}] k={k} T={T} sweeps={sweeps}: feas max|err| {err_f:.3e} "
+        f"({r_f:.3f} of atol 5e-4); nn max|err| {err_n:.3e} ({r_n:.3f} of rtol 2e-4 / "
+        f"atol 2e-5); kernel {ms:.4f} ms ({T / ms / 1e3:.1f} M cand/s), twin "
+        f"{plain_ms:.4f} ms")
+    if not (r_f <= 1.0 and r_n <= 1.0):
+        raise AssertionError(f"fused_score kernel disagrees with its twin ({label}, k={k})")
+    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
+
+
+def card_vs_cpu(label: str, solver_cls, inst, cfg, dev):
+    """A few rounds on the card against the CPU port, which the CPU tests
+    hold to the JAX package.  Round 0 precedes any selection and agrees at
+    rtol 2e-3 (tests/test_loop.py); later rounds may differ by tie order
+    only, and stay within 2% (tests/test_pair_score.py)."""
+    gpu = [h.bound for h in solver_cls(inst, cfg, device=dev).run(rounds=3)]
+    cpu = [h.bound for h in solver_cls(inst, cfg, device="cpu").run(rounds=3)]
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
+    log(f"[small] {label}: bounds on the card {gpu}, on the CPU {cpu}; rel diff {rel}")
+    if len(gpu) != len(cpu) or rel[0] > 2e-3 or max(rel) > 2e-2:
+        raise AssertionError(f"the round on the card disagrees with the CPU port ({label})")
+
+
+def check_small_instances(dev):
     name = "spar020-100-1"
     inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name, use_native=False)
-    cfg = RunConfig(lp=LPConfig(max_iters=6000, tol=1e-5))
-    gpu = [h.bound for h in CutSolver(inst, cfg, device=dev).run(rounds=3)]
-    cpu = [h.bound for h in CutSolver(inst, cfg, device="cpu").run(rounds=3)]
-    rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
-    log(f"[small] {name} bounds on the card {gpu}, on the CPU {cpu}; rel diff {rel}")
-    if len(gpu) != len(cpu) or rel[0] > 2e-3 or max(rel) > 2e-2:
-        raise AssertionError("the round on the card disagrees with the CPU port")
+    lp = LPConfig(max_iters=6000, tol=1e-5)
+    card_vs_cpu(f"{name} k=3", CutSolver, inst, RunConfig(lp=lp), dev)
+    card_vs_cpu(f"{name} k=2", CutSolver, inst, RunConfig(lp=lp, cuts=CutConfig(k=2)), dev)
+    name = "qcqp015-30-3-1"
+    card_vs_cpu(f"{name} k=5", CutSolverQCQP, load_or_generate_qcqp(name),
+                RunConfig(lp=lp, cuts=CutConfig(k=5, sel_size=8, capacity=128)), dev)
 
 
 def outcome(hist) -> list:
     """Everything a round reports except its wall time."""
     return [(h.bound, h.certificate, h.lp_iters, h.lp_kkt_error, h.cuts_added,
              h.cuts_active) for h in hist]
+
+
+def report(tag: str, hist, mc: float, sdp: float):
+    for h in hist:
+        gap = min(max((mc - h.bound) / (mc - sdp), 0.0), 1.0)
+        log(f"[{tag}] round {h.round}: bound {h.bound!r} certificate {h.certificate!r} "
+            f"cuts_added {h.cuts_added} active {h.cuts_active} lp_iters {h.lp_iters} "
+            f"kkt {h.lp_kkt_error:.3e} gap_closed {gap!r} wall {h.wall_time_s:.3f}s")
+
+
+def finish(tag: str, checks: dict):
+    for name, ok in checks.items():
+        log(f"[{tag}] check {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed")
 
 
 def main_path(inst, dev) -> dict:
@@ -230,18 +323,14 @@ def main_path(inst, dev) -> dict:
     mc, sdp = reg["mccormick"], reg["sdp"]
     cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6))
     solver = CutSolver(inst, cfg, device=dev)
-    pair_score.launches = 0
-    pdhg_block.launches = 0
+    pair_score.launches = pdhg_block.launches = fused_score.launches = 0
     t0 = time.perf_counter()
     hist = solver.run(rounds=ROUNDS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pair_score": pair_score.launches, "pdhg_block": pdhg_block.launches}
-    for h in hist:
-        gap = min(max((mc - h.bound) / (mc - sdp), 0.0), 1.0)
-        log(f"[main] round {h.round}: bound {h.bound!r} cuts_added {h.cuts_added} "
-            f"active {h.cuts_active} lp_iters {h.lp_iters} kkt {h.lp_kkt_error:.3e} "
-            f"gap_closed {gap!r} wall {h.wall_time_s:.3f}s")
+    launches = {"pair_score": pair_score.launches, "pdhg_block": pdhg_block.launches,
+                "fused_score": fused_score.launches}
+    report("main", hist, mc, sdp)
     bounds = np.array([h.bound for h in hist])
     certs = np.array([h.certificate for h in hist])
     rel0 = float((bounds[0] - mc) / abs(mc))
@@ -252,9 +341,10 @@ def main_path(inst, dev) -> dict:
     # A reported bound is the running minimum of the rounds' certificates, so
     # it cannot rise; what can fail is each certificate, checked on its own.
     again = CutSolver(inst, cfg, device=dev).run(rounds=ROUNDS)
-    checks = {
+    finish("main", {
         "10 rounds ran": len(hist) == ROUNDS,
-        "both kernels launched": min(launches.values()) > 0,
+        "pair_score and pdhg_block launched": min(launches["pair_score"],
+                                                  launches["pdhg_block"]) > 0,
         "certificates finite": bool(np.isfinite(certs).all()),
         f"every certificate >= best known {best_known}": bool((certs >= best_known).all()),
         "bounds are the running minimum of the certificates":
@@ -262,15 +352,69 @@ def main_path(inst, dev) -> dict:
         "round 0 within 1e-2 of McCormick": abs(rel0) <= 1e-2,
         "last round below round 0": bool(bounds[-1] < bounds[0]),
         "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
-    }
-    for name, ok in checks.items():
-        log(f"[main] check {name}: {'ok' if ok else 'FAILED'}")
-    if not all(checks.values()):
-        raise AssertionError("main path checks failed")
+    })
+    return launches
+
+
+def qcqp_main_path(dev) -> dict:
+    """CutSolverQCQP on qcqpband100-5-25-1 in the suite configuration."""
+    inst = load_or_generate_qcqp(QCQP_INSTANCE)
+    with open(os.path.join(REPO, "data", "qcqp", "bounds.json")) as f:
+        reg = json.load(f)[QCQP_INSTANCE]
+    mc, sdp, sdp_lower = reg["mccormick"], reg["sdp"], reg["sdp_lower"]
+    with open(os.path.join(REPO, "results", "qcqp.jsonl")) as f:
+        jax_rec = next(r for r in map(json.loads, f)
+                       if (r["instance"], r["strategy"], r.get("k")) == (QCQP_INSTANCE, "neural", 5))
+    jax0 = jax_rec["bounds"][0]          # round 0 precedes any cut
+    solver = CutSolverQCQP(inst, QCQP_CFG, device=dev)
+    log(f"[qcqp] {QCQP_INSTANCE}: n={inst.n} m={inst.m} dense rows on the card "
+        f"{tuple(solver.dense.G.shape)}, {solver.table.shape[0]} clique candidates at "
+        f"k={QCQP_CFG.cuts.k}")
+    pair_score.launches = pdhg_block.launches = fused_score.launches = 0
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=QCQP_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pair_score": pair_score.launches, "pdhg_block": pdhg_block.launches,
+                "fused_score": fused_score.launches}
+    report("qcqp", hist, mc, sdp)
+    bounds = np.array([h.bound for h in hist])
+    certs = np.array([h.certificate for h in hist])
+    round_s = sum(h.wall_time_s for h in hist)
+    d0 = float(bounds[0] - jax0)
+    log(f"[qcqp] {len(hist)} rounds in {round_s:.3f}s = {len(hist) / round_s!r} rounds/s "
+        f"(whole run with polish {wall:.3f}s); launches {launches} (pdhg_block with "
+        f"m={solver.dense.m}); polish certificate {solver.polish_certificate!r}")
+    log(f"[qcqp] round 0 {float(bounds[0])!r} vs the JAX package's recorded {jax0!r}: "
+        f"diff {d0!r}, rel {d0 / jax0!r}; gap closed vs mccormick {mc!r}, "
+        f"sdp {sdp!r}: round 0 {float((mc - bounds[0]) / (mc - sdp))!r}, final "
+        f"{float((mc - bounds[-1]) / (mc - sdp))!r} (the JAX package's record: "
+        f"{jax_rec['final_gap_closed']!r} after {len(jax_rec['bounds'])} rounds)")
+    again_solver = CutSolverQCQP(inst, QCQP_CFG, device=dev)
+    again = again_solver.run(rounds=QCQP_ROUNDS)
+    runmin = np.minimum.accumulate(certs)
+    finish("qcqp", {
+        f"{QCQP_ROUNDS} rounds ran (or the early stop ended the run)":
+            len(hist) == QCQP_ROUNDS or hist[-1].cuts_added == 0,
+        "pdhg_block and fused_score launched": min(launches["pdhg_block"],
+                                                   launches["fused_score"]) > 0,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= sdp_lower {sdp_lower}": bool((certs >= sdp_lower).all()),
+        "bounds are the running minimum of the certificates, polish lowering only "
+        "the last": bool((bounds[:-1] == runmin[:-1]).all()
+                         and bounds[-1] == min(runmin[-1], solver.polish_certificate)),
+        "round 0 within 1e-2 of the JAX package's round 0":
+            abs(d0) <= 1e-2 * abs(jax0),
+        "last bound below round 0": bool(bounds[-1] < bounds[0]),
+        "a second run repeats every round bit for bit, polish included":
+            outcome(again) == outcome(hist)
+            and again_solver.polish_certificate == solver.polish_certificate,
+    })
     return launches
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = environment()
     torch.backends.cuda.matmul.allow_tf32 = False    # see the module docstring
     dev = torch.device("cuda", 0)
@@ -280,15 +424,28 @@ def main() -> int:
     log(f"[build] {os.path.relpath(_build.library_path(), REPO)} built and loaded in "
         f"{time.perf_counter() - t0:.2f}s (nvcc {_build.build_seconds:.2f}s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
 
     inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE,
                        use_native=False)
+    band = load_or_generate_qcqp(QCQP_INSTANCE)
     k1 = check_pair_score(inst, dev)
-    k2 = check_pdhg_block(inst, dev)
-    check_small_instance(dev)
+    k2_box = check_pdhg_block(f"{INSTANCE} m=0", inst.Q, inst.c,
+                              combinations_table(inst.n, 3), None, dev)
+    k2 = check_pdhg_block(f"{QCQP_INSTANCE} m={band.m}", band.Q0, band.c0,
+                          clique_table(band, 5), dense_from_qcqp(band.Qs, band.cs, band.bs, dev),
+                          dev)
+    k4_box = check_fused_score(f"C({inst.n},2)", inst.Q, combinations_table(inst.n, 2), 5, dev)
+    k4 = [k4_box]
+    for name in ("qcqp025-25-4-2", QCQP_INSTANCE):
+        q = load_or_generate_qcqp(name)
+        for k in (4, 5):
+            k4.append(check_fused_score(name, q.Q0, clique_table(q, k), 6, dev))
+    check_small_instances(dev)
     launches = main_path(inst, dev)
+    qlaunches = qcqp_main_path(dev)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     kernels = [
         {"name": "pair_score", "route": "cuda",
@@ -298,7 +455,13 @@ def main() -> int:
         {"name": "pdhg_block", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pdhg_block.cu",
          "replaces": "sdpcutsel_tpu/lp/pdhg_kernel.py:51",
-         "launches": launches["pdhg_block"], **k2},
+         "launches": qlaunches["pdhg_block"], **k2,
+         "max_abs_err": max(k2["max_abs_err"], k2_box["max_abs_err"])},
+        {"name": "fused_score", "route": "cuda",
+         "source": "sdpcutsel_tpu_torch/csrc/fused_score.cu",
+         "replaces": "sdpcutsel_tpu/ops/fused_score.py:52",
+         "launches": qlaunches["fused_score"], **k4[-1],
+         "max_abs_err": max(r["max_abs_err"] for r in k4)},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

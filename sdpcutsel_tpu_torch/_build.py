@@ -1,14 +1,18 @@
 """Build the CUDA kernels in ``csrc/`` at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file exports plain C entry points (no PyTorch headers),
-so one ``nvcc`` call builds them all into one shared library in seconds:
+Every ``csrc/*.cu`` file exports plain C entry points (no PyTorch headers).
+One ``nvcc`` per source compiles them all at once, in parallel, and one more
+links the objects into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/cuda/libsdpcutsel_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <hash>/<name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/cuda/libsdpcutsel_kernels_<hash>.so <hash>/*.o
 
 The library lands in ``<repo>/build/cuda/`` (listed in ``.gitignore``) under
-a name keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Pointers and the stream pass as
+a name keyed by a hash of the sources (``*.cu`` and the ``*.cuh`` they
+include) and flags, so an edited source is rebuilt and an unchanged one is
+reused.  Pointers and the stream pass as
 ``c_void_p``; every entry point returns ``cudaGetLastError()`` and
 ``check`` raises when it is not 0.
 """
@@ -27,7 +31,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,23 +39,27 @@ _F = ctypes.c_float
 
 # argtypes of every C entry point in csrc/
 _SIGNATURES = {
+    # fused_score.cu
+    "fused_score_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P],
     # pair_score.cu
     "pair_score_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P],
     # pdhg_block.cu
-    "pdhg_block_launch": [_I, _I, _I, _I, _F, _F,
+    "pdhg_block_launch": [_I, _I, _I, _I, _I, _F, _F,
                           _P, _P,
                           _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P,
+                          _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P,
                           _P, _P,
                           _P],
 }
 
 _lib = None
 build_log = ""          # nvcc's output of the last build (registers, spills)
-build_seconds = 0.0     # wall time of the last nvcc run in this process
+build_seconds = 0.0     # wall time of the last build (compiles + link) in this process
 
 
 def _nvcc() -> str:
@@ -81,15 +89,39 @@ def build() -> str:
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    obj_dir = f"{tmp}.d"
+    os.makedirs(obj_dir, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-                          capture_output=True, text=True, timeout=600)
+    objs, procs = [], []
+    for src in sources():
+        objs.append(os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o"))
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], src],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs, failed = [], []
+    try:
+        for src, proc in zip(sources(), procs):
+            logs.append(proc.communicate(timeout=600)[0])
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode})")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=600)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     os.replace(tmp, out)
     return out
 

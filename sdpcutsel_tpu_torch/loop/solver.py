@@ -4,15 +4,18 @@
 One round (``do_round``):
   1. re-solve the relaxation (warm-started restarted PDHG, lp/pdhg.py);
   2. certify the f64 dual bound on the host (``dual_bound_f64``);
-  3. score all C(n, k) candidates of the lexicographic table with the
-     scoring kernel wrapper (ops/pair_score.py);
+  3. score all C(n, k) candidates of the lexicographic table with a
+     scoring kernel wrapper: ops/pair_score.py for k = 3, the generic
+     ops/fused_score.py (5 Jacobi sweeps, as the reference's k = 2 path on
+     the TPU) for any other k;
   4. support-diverse (or plain) top ``sel_size``, eigh of the selected
      Z(rho), unit-norm cut rows;
   5. purge slack cuts and append the new rows.
 
 Everything runs in float32, the kernels' one type.  On CUDA the round does
 no cuBLAS matrix product (the MLP runs inside the scoring kernel), so the
-process-wide TF32 setting does not reach it.
+process-wide TF32 setting does not reach it.  ``select_and_generate`` and
+``RoundStats`` serve the QCQP solver (qcqp/solver.py) too.
 Not ported yet (they raise): ``run_scan`` (LoopConfig.use_scan), polish,
 vertex steering, checkpoints, and strategies other than ``neural``.
 """
@@ -25,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from sdpcutsel_tpu.config import RunConfig
+from sdpcutsel_tpu.config import CutConfig, RunConfig
 from sdpcutsel_tpu.instances import BoxQPInstance
 
 from ..cuts.assemble import assemble_Z
@@ -33,8 +36,10 @@ from ..cuts.eigen import batched_eigh_small
 from ..cuts.enumerate import combinations_table
 from ..cuts.generate import cuts_from_selected
 from ..lp.pdhg import PDHGState, dual_bound_f64, init_state, solve_lp
+from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer, load_params
-from ..ops.pair_score import pair_score
+from ..ops.fused_score import fused_score
+from ..ops.pair_score import SWEEPS, pair_score
 from ..ops.topk import diverse_topk, masked_topk
 from ..relax.cutbuffer import CutPool, append_cuts, cut_residuals, empty_pool, purge_pool
 
@@ -49,6 +54,19 @@ class RoundStats:
     cuts_added: int
     cuts_active: int
     wall_time_s: float
+
+
+def select_and_generate(x, X, table, scores, cuts: CutConfig):
+    """Top sel_size by score -> eigh(Z) -> violated cut rows.  Returns
+    (rows for append_cuts, sel: selected table rows, valid: (sel_size,))."""
+    if cuts.diversity_alpha > 0.0:
+        _, sel, valid = diverse_topk(scores, table, cuts.sel_size,
+                                     cuts.diversity_alpha)
+    else:
+        _, sel, valid = masked_topk(scores, cuts.sel_size)
+    idx_sel = table[sel].long()
+    w, V = batched_eigh_small(assemble_Z(x, X, idx_sel))
+    return cuts_from_selected(idx_sel, w, V, cuts.viol_tol, sel_valid=valid), sel, valid
 
 
 class CutSolver:
@@ -71,27 +89,21 @@ class CutSolver:
         self.table = torch.as_tensor(combinations_table(n, k), device=self.device)
         params = load_params(k, cfg.scorer.weights_path)
         self.mlp = MLPScorer(params, self.device)
+        if k != 3:
+            self.triQ, self.scale = candidate_q_features(self.Q, self.table)
         self.pool: CutPool = empty_pool(cfg.cuts.capacity, k, self.device)
         self.state: PDHGState = init_state(n, cfg.cuts.capacity, self.device)
         self.history: list[RoundStats] = []
 
-    def _select_and_generate(self, x, X, scores):
-        """Top sel_size by score -> eigh(Z) -> violated cut rows."""
-        cuts = self.cfg.cuts
-        if cuts.diversity_alpha > 0.0:
-            _, sel, valid = diverse_topk(scores, self.table, cuts.sel_size,
-                                         cuts.diversity_alpha)
-        else:
-            _, sel, valid = masked_topk(scores, cuts.sel_size)
-        idx_sel = self.table[sel].long()
-        w, V = batched_eigh_small(assemble_Z(x, X, idx_sel))
-        return cuts_from_selected(idx_sel, w, V, cuts.viol_tol, sel_valid=valid)
-
     def _post_lp(self, x, X, pool: CutPool, yC):
         """Score all candidates -> select -> cut rows -> purge -> append."""
         cuts = self.cfg.cuts
-        scores, _ = pair_score(x, X, self.Q, self.table, self.mlp)
-        rows = self._select_and_generate(x, X, scores)
+        if cuts.k == 3:
+            scores, _ = pair_score(x, X, self.Q, self.table, self.mlp)
+        else:
+            scores, _ = fused_score(x, X, self.table, self.triQ, self.scale,
+                                    self.mlp, SWEEPS)
+        rows, _, _ = select_and_generate(x, X, self.table, scores, cuts)
         if cuts.purge:
             slack = cut_residuals(x, X, pool)
             pool, yC = purge_pool(pool, yC, slack, cuts.purge_slack_tol)

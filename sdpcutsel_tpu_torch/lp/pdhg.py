@@ -1,10 +1,14 @@
-"""Restarted, averaged PDHG for the McCormick + cuts LP (BoxQP; port of
+"""Restarted, averaged PDHG for the McCormick + cuts LP (port of
 ``sdpcutsel_tpu/lp/pdhg.py``).
 
     min  cobj' z   s.t.  K z >= h,  z in Z
     Z    = {x in [0,1]^n} x {X symmetric, entries in [0,1]}
     K    = scaled McCormick rows + unit-norm cut rows (relax/)
+           + for a QCQP, the normalized dense constraint rows (``dense``)
     cobj = (-c, -Q/2)
+
+``dense=None`` (BoxQP) leaves every dense term out; the state's yD is then
+empty.
 
 Each checked block runs ``check_every`` iterations through the iteration-block
 kernel wrapper (lp/pdhg_kernel.py), then, in plain torch once per block: the
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..relax.cutbuffer import CutIndex, CutPool, build_cut_index
+from ..relax.denserows import DenseRows
 from ..relax.mccormick import SA, SB, apply_K, apply_KT, project_primal
 
 _f32 = np.float32
@@ -39,9 +44,10 @@ class PDHGState:
     yA: torch.Tensor   # (n, n)
     yB: torch.Tensor   # (n, n)
     yC: torch.Tensor   # (M,) cut-row duals
+    yD: torch.Tensor   # (m,) dense-row duals (QCQP; m = 0 for BoxQP)
 
     def fields(self) -> tuple:
-        return (self.x, self.X, self.yA, self.yB, self.yC)
+        return (self.x, self.X, self.yA, self.yB, self.yC, self.yD)
 
     def map(self, fn) -> "PDHGState":
         return PDHGState(*(fn(t) for t in self.fields()))
@@ -50,13 +56,14 @@ class PDHGState:
         return PDHGState(*(a + b for a, b in zip(self.fields(), other.fields())))
 
 
-def init_state(n: int, capacity: int, device) -> PDHGState:
+def init_state(n: int, capacity: int, device, m: int = 0) -> PDHGState:
     return PDHGState(
         x=torch.full((n,), 0.5, device=device),
         X=torch.full((n, n), 0.25, device=device),
         yA=torch.zeros((n, n), device=device),
         yB=torch.zeros((n, n), device=device),
         yC=torch.zeros((capacity,), device=device),
+        yD=torch.zeros((m,), device=device),
     )
 
 
@@ -65,7 +72,8 @@ def _sym(X):
 
 
 def estimate_norm(pool: CutPool, n: int, iters: int,
-                  generator: torch.Generator, index: CutIndex) -> float:
+                  generator: torch.Generator, index: CutIndex,
+                  dense: DenseRows | None = None) -> float:
     """Power iteration for ||K|| on the symmetric-X primal subspace.  The
     start vector is drawn on the CPU from ``generator``, so CPU and CUDA runs
     start alike (the reference draws it from jax.random.PRNGKey(0), which
@@ -74,67 +82,81 @@ def estimate_norm(pool: CutPool, n: int, iters: int,
     x = torch.randn((n,), generator=generator).to(dev)
     X = _sym(torch.randn((n, n), generator=generator).to(dev))
     for _ in range(iters):
-        kA, kB, kC = apply_K(x, X, pool)
-        gx, gX = apply_KT(kA, kB, kC * pool.active, pool, n, index)
+        kA, kB, kC, *kD = apply_K(x, X, pool, dense)
+        gx, gX = apply_KT(kA, kB, kC * pool.active, pool, n, index,
+                          kD[0] if kD else None, dense)
         gX = _sym(gX)
         nrm = torch.sqrt((gx * gx).sum() + (gX * gX).sum()) + 1e-30
         x, X = gx / nrm, gX / nrm
-    kA, kB, kC = apply_K(x, X, pool)
-    lam = torch.sqrt((kA * kA).sum() + (kB * kB).sum()
-                     + ((kC * pool.active) ** 2).sum())
-    return float(lam * 1.02 + 1e-12)
+    kA, kB, kC, *kD = apply_K(x, X, pool, dense)
+    lam2 = (kA * kA).sum() + (kB * kB).sum() + ((kC * pool.active) ** 2).sum()
+    if dense is not None:
+        lam2 = lam2 + (kD[0] * kD[0]).sum()
+    return float(torch.sqrt(lam2) * 1.02 + 1e-12)
 
 
 def _objective(cx, cX, x, X):
     return torch.dot(cx, x) + (cX * X).sum()
 
 
-def _dual_bound(cx, cX, pool: CutPool, yA, yB, yC, n: int, index: CutIndex):
+def _dual_bound(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
+                n: int, index: CutIndex):
     """Box-form Lagrangian lower bound on the min LP; valid for any y >= 0."""
-    gx, gX = apply_KT(yA, yB, yC, pool, n, index)
-    hy = -SB * yB.sum() + (pool.rhs * pool.active * yC).sum()
+    gx, gX = apply_KT(st.yA, st.yB, st.yC, pool, n, index, st.yD, dense)
+    hy = -SB * st.yB.sum() + (pool.rhs * pool.active * st.yC).sum()
+    if dense is not None:
+        hy = hy + (dense.h * st.yD).sum()
     rx = cx - gx
     S = (cX - gX) + (cX - gX).T
     return hy + rx.clamp(max=0.0).sum() + 0.5 * S.clamp(max=0.0).sum()
 
 
-def _infeas(x, X, pool: CutPool):
-    kA, kB, kC = apply_K(x, X, pool)
+def _infeas(x, X, pool: CutPool, dense: DenseRows | None):
+    kA, kB, kC, *kD = apply_K(x, X, pool, dense)
     vA = (-kA).clamp(min=0.0)
     vB = (-SB - kB).clamp(min=0.0)
     vC = (pool.rhs * pool.active - kC).clamp(min=0.0) * pool.active
-    return torch.sqrt((vA ** 2).sum() + (vB ** 2).sum() + (vC ** 2).sum())
+    v2 = (vA ** 2).sum() + (vB ** 2).sum() + (vC ** 2).sum()
+    if dense is not None:
+        v2 = v2 + ((dense.h - kD[0]).clamp(min=0.0) ** 2).sum()
+    return torch.sqrt(v2)
 
 
-def _kkt_error(cx, cX, pool: CutPool, st: PDHGState, n: int, index: CutIndex):
+def _kkt_error(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
+               n: int, index: CutIndex):
     p = _objective(cx, cX, st.x, st.X)
-    d = _dual_bound(cx, cX, pool, st.yA, st.yB, st.yC, n, index)
+    d = _dual_bound(cx, cX, pool, dense, st, n, index)
     gap = (p - d).clamp(min=0.0)
-    return _infeas(st.x, st.X, pool) + gap, p, d
+    return _infeas(st.x, st.X, pool, dense) + gap, p, d
 
 
 def _one_iter(cx, cX, pool: CutPool, index: CutIndex, n: int, st: PDHGState,
-              tau, sigma):
-    gx, gX = apply_KT(st.yA, st.yB, st.yC, pool, n, index)
+              tau, sigma, dense: DenseRows | None = None):
+    gx, gX = apply_KT(st.yA, st.yB, st.yC, pool, n, index, st.yD, dense)
     xn, Xn = project_primal(st.x - tau * (cx - gx), st.X - tau * (cX - gX))
     xb, Xb = 2.0 * xn - st.x, 2.0 * Xn - st.X
-    kA, kB, kC = apply_K(xb, Xb, pool)
+    kA, kB, kC, *kD = apply_K(xb, Xb, pool, dense)
     yA = (st.yA - sigma * kA).clamp(min=0.0)
     yB = (st.yB + sigma * (-SB - kB)).clamp(min=0.0)
     yC = (st.yC + sigma * (pool.rhs * pool.active - kC)).clamp(min=0.0) * pool.active
-    return PDHGState(xn, Xn, yA, yB, yC)
+    yD = st.yD if dense is None else (st.yD + sigma * (dense.h - kD[0])).clamp(min=0.0)
+    return PDHGState(xn, Xn, yA, yB, yC, yD)
 
 
 def _dist2(a: PDHGState, b: PDHGState, primal: bool):
     if primal:
         return ((a.x - b.x) ** 2).sum() + ((a.X - b.X) ** 2).sum()
-    return (((a.yA - b.yA) ** 2).sum() + ((a.yB - b.yB) ** 2).sum()
-            + ((a.yC - b.yC) ** 2).sum())
+    d2 = (((a.yA - b.yA) ** 2).sum() + ((a.yB - b.yB) ** 2).sum()
+          + ((a.yC - b.yC) ** 2).sum())
+    if a.yD.numel():
+        d2 = d2 + ((a.yD - b.yD) ** 2).sum()
+    return d2
 
 
 def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
                 normK: float, omega0: float, tol: float, step_scale: float,
-                max_iters: int, check_every: int, restart_period: int):
+                max_iters: int, check_every: int, restart_period: int,
+                dense: DenseRows | None = None):
     """Checked-block PDHG solve from ``st0`` with a given ``normK``; ``index``
     is ``build_cut_index(pool, n)``.  Returns (state, info) with python
     scalars in info."""
@@ -149,12 +171,12 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
     while it < max_iters and err / (_f32(1.0) + abs(p) + abs(d)) > _f32(tol):
         tau, sigma = eta / omega, eta * omega
         st, acc = pdhg_block(cx, cX, pool, index, st, acc, float(tau),
-                             float(sigma), check_every)
+                             float(sigma), check_every, dense)
         wlen += check_every
         avg = acc.map(lambda t: t * float(_f32(1.0) / _f32(wlen)))
 
-        kc = _kkt_error(cx, cX, pool, st, n, index)
-        ka = _kkt_error(cx, cX, pool, avg, n, index)
+        kc = _kkt_error(cx, cX, pool, dense, st, n, index)
+        ka = _kkt_error(cx, cX, pool, dense, avg, n, index)
         e_c, p_c, d_c, e_a, p_a, d_a = torch.stack([*kc, *ka]).cpu().numpy()
         use_avg = e_a < e_c
         cand = avg if use_avg else st
@@ -174,30 +196,39 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
                 "dual_obj": float(d), "omega": float(omega)}
 
 
-def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg):
+def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
+             dense: DenseRows | None = None):
     """Solve the current relaxation from the warm start ``state``.
 
-    Q, c: float32 tensors on the state's device; cfg: ``LPConfig``.  The
-    iteration kernel runs whenever the tensors are on CUDA (``use_kernel``
-    is not read: the device decides).  Returns (state, info); the max-form
-    bound estimate is -info['dual_obj'], the certified one dual_bound_f64.
+    Q, c: float32 tensors on the state's device; cfg: ``LPConfig``; dense:
+    the QCQP's constraint rows, whose duals are ``state.yD``.  The iteration
+    kernel runs whenever the tensors are on CUDA, dense rows or not
+    (``use_kernel`` is not read: the device decides).  Returns (state,
+    info); the max-form bound estimate is -info['dual_obj'], the certified
+    one dual_bound_f64.
     """
     n = int(c.shape[0])
     cx = -c
     cX = -0.5 * Q
     index = build_cut_index(pool, n)        # the pool is constant in a solve
     normK = estimate_norm(pool, n, cfg.power_iters,
-                          torch.Generator(device="cpu").manual_seed(0), index)
+                          torch.Generator(device="cpu").manual_seed(0), index,
+                          dense)
     return _solve_impl(cx, cX, pool, index, state, normK, cfg.omega0, cfg.tol,
                        cfg.step_scale, cfg.max_iters, cfg.check_every,
-                       cfg.restart_period)
+                       cfg.restart_period, dense)
 
 
-def dual_bound_f64(Q, c, pool: CutPool, state: PDHGState) -> float:
+def dual_bound_f64(Q, c, pool: CutPool, state: PDHGState,
+                   dense_np=None) -> float:
     """Certified max-form upper bound from the current duals, in float64
     numpy, with the per-block scaling polish of the reference: any block
     scalings t >= 0 give a valid bound, so coordinate ascent over a grid
-    only tightens it."""
+    only tightens it.
+
+    ``dense_np=(G, g, h)``: a host copy of the dense rows (the QCQP solver
+    keeps one, so no round copies G off the device); it adds the fourth
+    block, with duals ``state.yD``."""
 
     def host(t):
         return t.detach().cpu().numpy().astype(np.float64)
@@ -227,6 +258,10 @@ def dual_bound_f64(Q, c, pool: CutPool, state: PDHGState) -> float:
     gXC = flat.reshape(n, n)
     hyC = float((rhs * act) @ yC)
     blocks = [(0.0, gxA, gXA), (hyB, gxB, gXB), (hyC, gxC, gXC)]
+    if dense_np is not None:
+        G, g, hD = (np.asarray(a, np.float64) for a in dense_np)
+        yD = np.maximum(host(state.yD), 0.0)[: hD.shape[0]]
+        blocks.append((float(hD @ yD), g.T @ yD, np.einsum("m,mij->ij", yD, G)))
 
     Ssym = cX + cX.T
     hys = np.array([b[0] for b in blocks])

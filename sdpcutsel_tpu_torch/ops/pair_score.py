@@ -22,23 +22,17 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..models.features import candidate_features, candidate_q_features
+from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer
-from .jacobi import min_eig_from_parts
+from .fused_score import fused_score_plain
 
 SWEEPS = 5      # Jacobi sweeps on the 4 x 4 Z(rho), as in the reference's scoring
 
 
 def pair_score_plain(x, X, Q, table, mlp: MLPScorer):
     """Twin: features + MLP + struct-of-arrays Jacobi over the table."""
-    table = table.long()
     triQ, scale = candidate_q_features(Q, table)
-    feats = candidate_features(triQ, x, X, table)
-    nn = scale * torch.relu(mlp(feats))
-    xr = x[table]
-    Xr = X[table[:, :, None], table[:, None, :]]
-    feas = -min_eig_from_parts(xr, Xr, sweeps=SWEEPS)
-    return nn, feas
+    return fused_score_plain(x, X, table, triQ, scale, mlp, SWEEPS)
 
 
 def _launch(x, X, Q, table, mlp: MLPScorer):

@@ -1,11 +1,17 @@
-"""Where the main path's time goes on one GPU.
+"""Where a main path's time goes on one GPU.
 
-    python3 -m sdpcutsel_tpu_torch.profile_round [--rounds 10] [--out chiprun_out]
+    python3 -m sdpcutsel_tpu_torch.profile_round [--instance spar125-100-1]
+        [--rounds N] [--out chiprun_out]
 
-The main path is chip_smoke.py's: CutSolver on spar125-100-1, strategy
-neural, default cuts, LPConfig(max_iters=20000, tol=2e-6).  After one
-warm-up round (kernel build, first cuSOLVER use), three runs of ``--rounds``
-rounds, each from a fresh solver:
+The main paths are chip_smoke.py's:
+  * a BoxQP name (default spar125-100-1): CutSolver, strategy neural,
+    default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds;
+  * a QCQP name (qcqp...; qcqpband100-5-25-1 in chip_smoke.py):
+    CutSolverQCQP in the suite configuration of scripts/run_qcqp_suite.py
+    (k = 5, sel_size 16, capacity 1024, the same LP), 8 rounds.  The final
+    polish re-solve is left out: it is one LP solve after the rounds.
+After one warm-up round (kernel build, first cuSOLVER use), three runs of
+``--rounds`` rounds, each from a fresh solver:
 
   1. plain: host wall time, synchronised at the end -> rounds/s;
   2. stage split: each stage wrapped with a CUDA synchronise on both sides
@@ -30,39 +36,57 @@ import time
 
 import torch
 
-from sdpcutsel_tpu.config import LPConfig, RunConfig
+from sdpcutsel_tpu.config import CutConfig, LPConfig, RunConfig
 from sdpcutsel_tpu.instances.boxqp import parse_boxqp
+from sdpcutsel_tpu.instances.qcqp import load_or_generate_qcqp
 
 from .loop import solver as solver_mod
 from .lp import pdhg as pdhg_mod
 from .lp import pdhg_kernel as pdhg_kernel_mod
+from .qcqp import solver as qcqp_mod
 
-# ops/__init__ binds the name pair_score to the wrapper, not the module
+# ops/__init__ binds the names pair_score and fused_score to the wrappers,
+# not the modules
 pair_score_mod = importlib.import_module(".ops.pair_score", __package__)
+fused_score_mod = importlib.import_module(".ops.fused_score", __package__)
 
-INSTANCE = "spar125-100-1"
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data", "boxqp")
+LP = LPConfig(max_iters=20000, tol=2e-6)
 
 # (owner, attribute, label); a label indented by two spaces is part of the
-# stage above it.
+# stage above it.  A function that both solvers import by name is patched
+# in both modules under one label.
 STAGES = [
-    (solver_mod, "solve_lp", "solve_lp"),
+    *((mod, "solve_lp", "solve_lp") for mod in (solver_mod, qcqp_mod)),
     (pdhg_kernel_mod, "_launch", "  K2 pdhg_block"),
     (pdhg_mod, "_kkt_error", "  _kkt_error (torch)"),
     (pdhg_mod, "estimate_norm", "  estimate_norm"),
     (pdhg_mod, "build_cut_index", "  build_cut_index"),
-    (solver_mod, "dual_bound_f64", "dual_bound_f64 (host numpy)"),
+    *((mod, "dual_bound_f64", "dual_bound_f64 (host numpy)")
+      for mod in (solver_mod, qcqp_mod)),
     (pair_score_mod, "_launch", "K1 pair_score"),
-    (solver_mod.CutSolver, "_select_and_generate", "selection + eigh + cut rows"),
-    (solver_mod, "cut_residuals", "purge: residuals"),
-    (solver_mod, "purge_pool", "purge: compact"),
-    (solver_mod, "append_cuts", "append_cuts"),
+    (fused_score_mod, "_launch", "K4 fused_score"),
+    *((mod, name, label) for mod in (solver_mod, qcqp_mod) for name, label in (
+        ("select_and_generate", "selection + eigh + cut rows"),
+        ("cut_residuals", "purge: residuals"),
+        ("purge_pool", "purge: compact"),
+        ("append_cuts", "append_cuts"))),
 ]
 
 
-def _run(inst, cfg, dev, rounds: int) -> float:
-    solver = solver_mod.CutSolver(inst, cfg, device=dev)
+def load(name: str):
+    """(instance, solver class, config, default rounds) of a main path."""
+    if name.startswith("qcqp"):
+        cfg = RunConfig(lp=LP, cuts=CutConfig(k=5, sel_size=16, capacity=1024))
+        return load_or_generate_qcqp(name), qcqp_mod.CutSolverQCQP, cfg, 8
+    inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name, use_native=False)
+    return inst, solver_mod.CutSolver, RunConfig(lp=LP), 10
+
+
+def _run(path, dev, rounds: int) -> float:
+    inst, solver_cls, cfg, _ = path
+    solver = solver_cls(inst, cfg, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     solver.run(rounds=rounds)
@@ -70,7 +94,7 @@ def _run(inst, cfg, dev, rounds: int) -> float:
     return time.perf_counter() - t0
 
 
-def stage_split(inst, cfg, dev, rounds: int):
+def stage_split(path, dev, rounds: int):
     """(wall seconds, {label: (seconds, calls)}) of a run with every stage
     synchronised and timed."""
     seconds = collections.defaultdict(float)
@@ -93,19 +117,19 @@ def stage_split(inst, cfg, dev, rounds: int):
         originals.append((owner, name, fn))
         setattr(owner, name, timed(fn, label))
     try:
-        wall = _run(inst, cfg, dev, rounds)
+        wall = _run(path, dev, rounds)
     finally:
         for owner, name, fn in originals:
             setattr(owner, name, fn)
     return wall, {label: (seconds[label], calls[label]) for _, _, label in STAGES}
 
 
-def device_time(inst, cfg, dev, rounds: int, out_dir: str):
+def device_time(path, dev, rounds: int, out_dir: str):
     """(wall seconds, device seconds of all kernels and copies, top rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _run(inst, cfg, dev, rounds)
+        wall = _run(path, dev, rounds)
     averages = prof.key_averages()
     field = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
              else "self_cuda_time_total")
@@ -117,14 +141,17 @@ def device_time(inst, cfg, dev, rounds: int, out_dir: str):
             rows.append((dev_us * 1e-6, e.count, e.key))
     rows.sort(reverse=True)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_table.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_table_{path[0].name}.txt"), "w") as f:
         f.write(averages.table(sort_by=field, row_limit=40))
     return wall, sum(r[0] for r in rows), rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--instance", default="spar125-100-1",
+                    help="a BoxQP name from data/boxqp or a QCQP name (qcqp...)")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="default: 10 for BoxQP, 8 for QCQP")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -136,22 +163,22 @@ def main(argv=None) -> int:
     print(f"[env] {smi.splitlines()[0]}; torch {torch.__version__}", flush=True)
 
     dev = torch.device("cuda", 0)
-    inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE,
-                       use_native=False)
-    cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6))
-    _run(inst, cfg, dev, 1)                                   # warm-up
+    path = load(args.instance)
+    rounds = args.rounds or path[3]
+    print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds", flush=True)
+    _run(path, dev, 1)                                        # warm-up
 
-    wall = _run(inst, cfg, dev, args.rounds)
-    print(f"[plain] {args.rounds} rounds in {wall:.4f} s = "
-          f"{args.rounds / wall:.4f} rounds/s", flush=True)
+    wall = _run(path, dev, rounds)
+    print(f"[plain] {rounds} rounds in {wall:.4f} s = "
+          f"{rounds / wall:.4f} rounds/s", flush=True)
 
-    split_wall, stages = stage_split(inst, cfg, dev, args.rounds)
+    split_wall, stages = stage_split(path, dev, rounds)
     print(f"[split] synchronised run: {split_wall:.4f} s", flush=True)
     for label, (s, n) in stages.items():
         print(f"[split] {label:<32} {1e3 * s:10.2f} ms {100 * s / split_wall:7.2f}%"
               f" {n:6d} calls", flush=True)
 
-    prof_wall, busy, rows = device_time(inst, cfg, dev, args.rounds, args.out)
+    prof_wall, busy, rows = device_time(path, dev, rounds, args.out)
     print(f"[profile] wall {prof_wall:.4f} s (with the profiler); device busy "
           f"{busy:.4f} s; idle share {1 - busy / prof_wall:.4f}", flush=True)
     for s, n, name in rows[:8]:

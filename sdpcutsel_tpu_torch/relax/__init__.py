@@ -8,4 +8,11 @@ from .cutbuffer import (  # noqa: F401
     empty_pool,
     purge_pool,
 )
+from .denserows import (  # noqa: F401
+    DenseRows,
+    dense_adjoint,
+    dense_from_qcqp,
+    dense_residuals,
+    empty_dense,
+)
 from .mccormick import SA, SB, apply_K, apply_KT, project_primal  # noqa: F401

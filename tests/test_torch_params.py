@@ -51,6 +51,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import sdpcutsel_tpu_torch.qcqp.solver, sdpcutsel_tpu.qcqp.chordal\n"
         "bad = [m for m in ('jax', 'flax', 'msgpack') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "assert 'sdpcutsel_tpu_torch.loop.solver' in sys.modules\n"
