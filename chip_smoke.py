@@ -5,11 +5,15 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
      triton; no CUDA device -> exit 2 before any result is printed;
-  2. build the three kernels from csrc/, one nvcc each, in parallel (timed
+  2. build the four kernels from csrc/, one nvcc each, in parallel (timed
      as set-up);
   3. check each kernel against its plain PyTorch twin on the card at the
      main paths' shapes, and time both with CUDA events:
        pair_score   n = 125, all 317,750 candidates of spar125-100-1;
+       pair_packed  n = 125, the 507,904 slots of the packed layout on
+                    spar125-100-1's Q: the 317,750 valid ones against the
+                    twin, and bit for bit against pair_score on the same
+                    triples; the rest -inf;
        pdhg_block   n = 125, M = 1024 with 400 active unit k = 3 cuts, and
                     n = 100 with the 25 dense rows of qcqpband100-5-25-1 and
                     400 active k = 5 cuts (some supports repeat an index);
@@ -18,7 +22,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     clique tables of qcqp025-25-4-2 and qcqpband100-5-25-1
                     (6 sweeps);
   4. the rounds on the card against the CPU port, 3 rounds each:
-     spar020-100-1 at k = 3 and at k = 2, qcqp015-30-3-1 at k = 5;
+     spar020-100-1 at k = 3 and at k = 2, qcqp015-30-3-1 at k = 5; and 2
+     rounds of the packed route (generate_spar(70, 100, 1), feasibility);
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -31,7 +36,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
      bounds are held to data/qcqp/bounds.json and to the JAX package's
      recorded round 0 (results/qcqp.jsonl), and a second run must repeat
      the first bit for bit, polish included;
-  7. one JSON line of kernel results, then the last line
+  7. the packed scan path: CutSolver on spar125-100-1 with
+     CutConfig(pair_layout="packed"), strategy neural, the same LP,
+     LoopConfig(use_scan=True), 10 rounds after a one-round warm-up, counters
+     reset before and read after (pair_packed and pdhg_block launched,
+     pair_score not); the same bound checks as phase 5, and a second scan
+     run and a per-round run of the same configuration must both repeat
+     every round bit for bit;
+  8. one JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
 
 TF32 is turned off for the whole process at its start: the scoring twin's
@@ -41,6 +53,7 @@ only in full float32.  The solver itself does no cuBLAS product on CUDA.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -51,8 +64,8 @@ import time
 import numpy as np
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig
-from sdpcutsel_tpu.instances.boxqp import parse_boxqp
+from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
+from sdpcutsel_tpu.instances.boxqp import generate_spar, parse_boxqp
 from sdpcutsel_tpu.instances.qcqp import load_or_generate_qcqp
 from sdpcutsel_tpu.qcqp.chordal import chordal_decomposition, clique_candidates
 from sdpcutsel_tpu_torch import _build
@@ -63,6 +76,7 @@ from sdpcutsel_tpu_torch.lp.pdhg_kernel import pdhg_block, pdhg_block_plain
 from sdpcutsel_tpu_torch.models.features import candidate_q_features
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
+from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
 from sdpcutsel_tpu_torch.relax.cutbuffer import append_cuts, build_cut_index, empty_pool
@@ -78,6 +92,8 @@ QCQP_CFG = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6),
                      cuts=CutConfig(k=5, sel_size=16, capacity=1024),
                      loop=LoopConfig(polish_iters=60000))
 SEED = 0
+WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
+            "pdhg_block": pdhg_block, "fused_score": fused_score}
 
 
 def log(*args):
@@ -129,13 +145,28 @@ def excess(got, want, rtol: float, atol: float):
     return float(d.max()), float((d / (atol + rtol * want.abs())).max())
 
 
-def check_pair_score(inst, dev) -> dict:
+def reset_launches():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def scoring_point(inst, dev):
+    """The random (x, X) of the k = 3 kernel checks, with the instance's Q."""
     n = inst.n
     rng = np.random.default_rng(SEED)
     x = rng.random(n)
     X = np.clip(np.outer(x, x) + 0.15 * rng.standard_normal((n, n)), 0, 1)
-    x, X, Q = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-               for a in (x, 0.5 * (X + X.T), inst.Q))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in (x, 0.5 * (X + X.T), inst.Q))
+
+
+def check_pair_score(inst, dev) -> dict:
+    n = inst.n
+    x, X, Q = scoring_point(inst, dev)
     table = torch.as_tensor(combinations_table(n, 3), device=dev)
     mlp = MLPScorer(load_params(3), dev)
     nn_k, feas_k = pair_score(x, X, Q, table, mlp)
@@ -152,6 +183,39 @@ def check_pair_score(inst, dev) -> dict:
     plain_ms = cuda_ms(lambda: pair_score_plain(x, X, Q, table, mlp), reps=5)
     log(f"[pair_score] kernel {ms:.4f} ms ({table.shape[0] / ms / 1e3:.1f} M cand/s); "
         f"twin {plain_ms:.4f} ms ({table.shape[0] / plain_ms / 1e3:.1f} M cand/s)")
+    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
+
+
+def check_pair_packed(inst, dev) -> dict:
+    """K3 against its twin on every valid slot (the K1 tolerances), -inf at
+    every other slot, and bit for bit against K1 on the same triples."""
+    x, X, Q = scoring_point(inst, dev)
+    lay = packed_layout(inst.n, dev)
+    mlp = MLPScorer(load_params(3), dev)
+    nn_k, feas_k = packed_score(x, X, Q, lay, mlp)
+    nn_p, feas_p = packed_score_plain(x, X, Q, lay, mlp)
+    triples = lay.table[lay.valid]
+    nn_1, feas_1 = pair_score(x, X, Q, triples, mlp)
+    torch.cuda.synchronize()
+    v = lay.valid
+    err_f, r_f = excess(feas_k[v], feas_p[v], 0.0, 5e-5)
+    err_n, r_n = excess(nn_k[v], nn_p[v], 2e-4, 2e-4)
+    inf_ok = bool((nn_k[~v] == -torch.inf).all() and (feas_k[~v] == -torch.inf).all())
+    vs_k1 = max(float((nn_k[v] - nn_1).abs().max()), float((feas_k[v] - feas_1).abs().max()))
+    log(f"[pair_packed] slots {lay.slots} (tiers of {lay.R} rows), valid {int(v.sum())}: "
+        f"feas max|err| {err_f:.3e} (atol 5e-5: {r_f:.3f} of limit); nn max|err| "
+        f"{err_n:.3e} (rtol/atol 2e-4: {r_n:.3f} of limit); invalid slots all -inf: "
+        f"{inf_ok}; largest difference from pair_score on the same triples {vs_k1!r}")
+    n = inst.n
+    if not (r_f <= 1.0 and r_n <= 1.0 and inf_ok and triples.shape[0] == n * (n - 1) * (n - 2) // 6):
+        raise AssertionError("pair_packed kernel disagrees with its twin")
+    if vs_k1 != 0.0:      # both kernels run score_common.cuh::score_triple
+        raise AssertionError("pair_packed kernel does not give pair_score's bits")
+    ms = cuda_ms(lambda: packed_score(x, X, Q, lay, mlp), reps=50)
+    k1_ms = cuda_ms(lambda: pair_score(x, X, Q, triples, mlp), reps=50)
+    plain_ms = cuda_ms(lambda: packed_score_plain(x, X, Q, lay, mlp), reps=5)
+    log(f"[pair_packed] kernel {ms:.4f} ms ({triples.shape[0] / ms / 1e3:.1f} M valid "
+        f"cand/s); pair_score on the same triples {k1_ms:.4f} ms; twin {plain_ms:.4f} ms")
     return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
 
 
@@ -270,13 +334,13 @@ def check_fused_score(label: str, Q, table: np.ndarray, sweeps: int, dev) -> dic
     return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
 
 
-def card_vs_cpu(label: str, solver_cls, inst, cfg, dev):
+def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3):
     """A few rounds on the card against the CPU port, which the CPU tests
     hold to the JAX package.  Round 0 precedes any selection and agrees at
     rtol 2e-3 (tests/test_loop.py); later rounds may differ by tie order
     only, and stay within 2% (tests/test_pair_score.py)."""
-    gpu = [h.bound for h in solver_cls(inst, cfg, device=dev).run(rounds=3)]
-    cpu = [h.bound for h in solver_cls(inst, cfg, device="cpu").run(rounds=3)]
+    gpu = [h.bound for h in solver_cls(inst, cfg, device=dev).run(rounds=rounds)]
+    cpu = [h.bound for h in solver_cls(inst, cfg, device="cpu").run(rounds=rounds)]
     rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
     log(f"[small] {label}: bounds on the card {gpu}, on the CPU {cpu}; rel diff {rel}")
     if len(gpu) != len(cpu) or rel[0] > 2e-3 or max(rel) > 2e-2:
@@ -292,6 +356,12 @@ def check_small_instances(dev):
     name = "qcqp015-30-3-1"
     card_vs_cpu(f"{name} k=5", CutSolverQCQP, load_or_generate_qcqp(name),
                 RunConfig(lp=lp, cuts=CutConfig(k=5, sel_size=8, capacity=128)), dev)
+    # the packed route in tests/test_pair_packed.py's configuration
+    cfg = RunConfig(lp=LPConfig(max_iters=3000, tol=2e-6),
+                    cuts=CutConfig(k=3, sel_size=10, capacity=256, pair_layout="packed"),
+                    scorer=ScorerConfig(strategy="feasibility"))
+    card_vs_cpu("spar070-100-1 packed feasibility", CutSolver, generate_spar(70, 100, 1),
+                cfg, dev, rounds=2)
 
 
 def outcome(hist) -> list:
@@ -315,36 +385,41 @@ def finish(tag: str, checks: dict):
         raise AssertionError(f"{tag} checks failed")
 
 
-def main_path(inst, dev) -> dict:
+def boxqp_path(tag: str, inst, cfg, dev, launched: tuple, idle: tuple = ()):
+    """CutSolver on spar125-100-1 in ``cfg``, ROUNDS rounds, counters reset
+    before and read after; the bounds are held to the instance registry and
+    a second run from a fresh solver must repeat the first bit for bit.
+    Returns (launch counts, history, checks so far)."""
     with open(os.path.join(DATA, "bounds.json")) as f:
         reg = json.load(f)[INSTANCE]
     with open(os.path.join(DATA, "optima.json")) as f:
         best_known = json.load(f)[INSTANCE]["best_known"]
     mc, sdp = reg["mccormick"], reg["sdp"]
-    cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6))
     solver = CutSolver(inst, cfg, device=dev)
-    pair_score.launches = pdhg_block.launches = fused_score.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     hist = solver.run(rounds=ROUNDS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pair_score": pair_score.launches, "pdhg_block": pdhg_block.launches,
-                "fused_score": fused_score.launches}
-    report("main", hist, mc, sdp)
+    launches = launch_counts()
+    report(tag, hist, mc, sdp)
     bounds = np.array([h.bound for h in hist])
     certs = np.array([h.certificate for h in hist])
+    round_s = sum(h.wall_time_s for h in hist)
     rel0 = float((bounds[0] - mc) / abs(mc))
-    log(f"[main] {len(hist)} rounds in {wall:.3f}s = {len(hist) / wall!r} rounds/s; "
-        f"launches {launches}; round-0 vs McCormick {mc!r}: rel {rel0!r}; "
-        f"final gap closed vs sdp {sdp!r}: {float((mc - bounds[-1]) / (mc - sdp))!r}; "
-        f"rounds whose own certificate rose: {int((np.diff(certs) > 0).sum())}")
+    log(f"[{tag}] {len(hist)} rounds in {wall:.3f}s = {len(hist) / wall!r} rounds/s; "
+        f"rounds / sum of wall_time_s {len(hist) / round_s!r} rounds/s; launches "
+        f"{launches}; round-0 vs McCormick {mc!r}: rel {rel0!r}; final gap closed vs "
+        f"sdp {sdp!r}: {float((mc - bounds[-1]) / (mc - sdp))!r}; rounds whose own "
+        f"certificate rose: {int((np.diff(certs) > 0).sum())}")
     # A reported bound is the running minimum of the rounds' certificates, so
     # it cannot rise; what can fail is each certificate, checked on its own.
     again = CutSolver(inst, cfg, device=dev).run(rounds=ROUNDS)
-    finish("main", {
-        "10 rounds ran": len(hist) == ROUNDS,
-        "pair_score and pdhg_block launched": min(launches["pair_score"],
-                                                  launches["pdhg_block"]) > 0,
+    return launches, hist, {
+        f"{ROUNDS} rounds ran": len(hist) == ROUNDS,
+        f"{' and '.join(launched)} launched": min(launches[k] for k in launched) > 0,
+        **({f"{' and '.join(idle)} not launched": all(launches[k] == 0 for k in idle)}
+           if idle else {}),
         "certificates finite": bool(np.isfinite(certs).all()),
         f"every certificate >= best known {best_known}": bool((certs >= best_known).all()),
         "bounds are the running minimum of the certificates":
@@ -352,7 +427,30 @@ def main_path(inst, dev) -> dict:
         "round 0 within 1e-2 of McCormick": abs(rel0) <= 1e-2,
         "last round below round 0": bool(bounds[-1] < bounds[0]),
         "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
-    })
+    }
+
+
+def main_path(inst, dev) -> dict:
+    """Strategy neural, default cuts (the lexicographic table), per round."""
+    cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6))
+    launches, _, checks = boxqp_path("main", inst, cfg, dev, ("pair_score", "pdhg_block"))
+    finish("main", checks)
+    return launches
+
+
+def packed_scan_path(inst, dev) -> dict:
+    """Strategy neural on the packed layout, scan mode, after a one-round
+    warm-up; a per-round run of the same configuration repeats the scan."""
+    cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6),
+                    cuts=CutConfig(pair_layout="packed"), loop=LoopConfig(use_scan=True))
+    CutSolver(inst, cfg, device=dev).run(rounds=1)
+    launches, hist, checks = boxqp_path("packed", inst, cfg, dev,
+                                        ("pair_packed", "pdhg_block"), ("pair_score",))
+    per_round_cfg = dataclasses.replace(cfg, loop=LoopConfig(use_scan=False))
+    per_round = CutSolver(inst, per_round_cfg, device=dev).run(rounds=ROUNDS)
+    checks["a per-round run repeats every round of the scan bit for bit"] = (
+        outcome(per_round) == outcome(hist))
+    finish("packed", checks)
     return launches
 
 
@@ -370,13 +468,12 @@ def qcqp_main_path(dev) -> dict:
     log(f"[qcqp] {QCQP_INSTANCE}: n={inst.n} m={inst.m} dense rows on the card "
         f"{tuple(solver.dense.G.shape)}, {solver.table.shape[0]} clique candidates at "
         f"k={QCQP_CFG.cuts.k}")
-    pair_score.launches = pdhg_block.launches = fused_score.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     hist = solver.run(rounds=QCQP_ROUNDS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pair_score": pair_score.launches, "pdhg_block": pdhg_block.launches,
-                "fused_score": fused_score.launches}
+    launches = launch_counts()
     report("qcqp", hist, mc, sdp)
     bounds = np.array([h.bound for h in hist])
     certs = np.array([h.certificate for h in hist])
@@ -431,6 +528,7 @@ def main() -> int:
                        use_native=False)
     band = load_or_generate_qcqp(QCQP_INSTANCE)
     k1 = check_pair_score(inst, dev)
+    k3 = check_pair_packed(inst, dev)
     k2_box = check_pdhg_block(f"{INSTANCE} m=0", inst.Q, inst.c,
                               combinations_table(inst.n, 3), None, dev)
     k2 = check_pdhg_block(f"{QCQP_INSTANCE} m={band.m}", band.Q0, band.c0,
@@ -445,6 +543,7 @@ def main() -> int:
     check_small_instances(dev)
     launches = main_path(inst, dev)
     qlaunches = qcqp_main_path(dev)
+    plaunches = packed_scan_path(inst, dev)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
 
     kernels = [
@@ -452,6 +551,10 @@ def main() -> int:
          "source": "sdpcutsel_tpu_torch/csrc/pair_score.cu",
          "replaces": "sdpcutsel_tpu/ops/pair_score.py:192",
          "launches": launches["pair_score"], **k1},
+        {"name": "pair_packed", "route": "cuda",
+         "source": "sdpcutsel_tpu_torch/csrc/pair_packed.cu",
+         "replaces": "sdpcutsel_tpu/ops/pair_packed.py:196",
+         "launches": plaunches["pair_packed"], **k3},
         {"name": "pdhg_block", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pdhg_block.cu",
          "replaces": "sdpcutsel_tpu/lp/pdhg_kernel.py:51",

@@ -42,6 +42,9 @@ _SIGNATURES = {
     # fused_score.cu
     "fused_score_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P],
+    # pair_packed.cu
+    "pair_packed_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _P],
     # pair_score.cu
     "pair_score_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P],

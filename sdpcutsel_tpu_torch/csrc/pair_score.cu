@@ -18,7 +18,8 @@
 // Design: one thread per candidate, 256 threads a block.  The 5,249 MLP
 // weights sit in static shared memory; the MLP and the Jacobi are the shared
 // device code of score_common.cuh (first hidden layer in 64 registers, layer
-// 2 folded into layer 3; Jacobi on the 10 unique entries of Z in registers).
+// 2 folded into layer 3; Jacobi on the 10 unique entries of Z in registers),
+// all inside score_triple, which the packed kernel pair_packed.cu shares.
 // The MLP is fused into the kernel: the TPU version wrote 15 feature planes
 // to device memory and read them back for the matmuls.
 
@@ -45,26 +46,8 @@ __global__ void __launch_bounds__(kThreads) pair_score_kernel(
 
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   if (tid >= T) return;
-  const int i = table[3 * tid];
-  const int j = table[3 * tid + 1];
-  const int l = table[3 * tid + 2];
-
-  const float qii = Q[i * n + i], qij = Q[i * n + j], qil = Q[i * n + l];
-  const float qjj = Q[j * n + j], qjl = Q[j * n + l], qll = Q[l * n + l];
-  const float xi = x[i], xj = x[j], xl = x[l];
-  const float Xii = X[i * n + i], Xij = X[i * n + j], Xil = X[i * n + l];
-  const float Xjj = X[j * n + j], Xjl = X[j * n + l], Xll = X[l * n + l];
-
-  const float scale = fmaxf(fmaxf(fmaxf(fabsf(qii), fabsf(qij)), fmaxf(fabsf(qil), fabsf(qjj))),
-                            fmaxf(fabsf(qjl), fabsf(qll)));
-  const float safe = fmaxf(scale, 1e-12f);
-  const float f[kF] = {qii / safe, qij / safe, qil / safe, qjj / safe, qjl / safe,
-                       qll / safe, xi, xj, xl, Xii, Xij, Xil, Xjj, Xjl, Xll};
-  nn_out[tid] = scale * scoring::mlp_relu(f, sw);
-
-  // ---- feasibility: cyclic Jacobi on Z(rho) ----------------------------
-  float a[10] = {1.0f, xi, xj, xl, Xii, Xij, Xil, Xjj, Xjl, Xll};
-  feas_out[tid] = -scoring::jacobi_min_eig<4>(a, sweeps);
+  scoring::score_triple(table[3 * tid], table[3 * tid + 1], table[3 * tid + 2], n, sweeps,
+                        x, X, Q, sw, nn_out[tid], feas_out[tid]);
 }
 
 }  // namespace

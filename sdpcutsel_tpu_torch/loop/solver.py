@@ -1,23 +1,37 @@
 """The cutting-plane round controller for BoxQP (port of
-``sdpcutsel_tpu/loop/solver.py``, per-round mode, strategy ``neural``).
+``sdpcutsel_tpu/loop/solver.py``: strategies neural, feasibility and
+combined; per-round and scan mode; polish).
 
 One round (``do_round``):
   1. re-solve the relaxation (warm-started restarted PDHG, lp/pdhg.py);
   2. certify the f64 dual bound on the host (``dual_bound_f64``);
-  3. score all C(n, k) candidates of the lexicographic table with a
-     scoring kernel wrapper: ops/pair_score.py for k = 3, the generic
-     ops/fused_score.py (5 Jacobi sweeps, as the reference's k = 2 path on
-     the TPU) for any other k;
+  3. score every candidate of the route's table with a scoring kernel
+     wrapper (the route is the reference's, ``loop/solver.py:173-186``):
+       packed  k = 3, 66 <= n <= 128, ``pair_layout="packed"``: the tiered
+               packed layout through ops/pair_packed.py (5 Jacobi sweeps),
+               whose invalid slots score -inf;
+       lexicographic otherwise: ops/pair_score.py for k = 3, the generic
+               ops/fused_score.py for any other k.  With k = 3, n <= 128
+               and ``pair_layout="on"`` the reference scores its pair
+               layout, whose valid slots run in this same order, with 5
+               sweeps; every other case is the reference's CPU path, with 6
+               sweeps for feasibility and combined.
+     ``feasibility`` ranks by feas, ``neural`` by nn, ``combined`` by nn
+     where feas > 0;
   4. support-diverse (or plain) top ``sel_size``, eigh of the selected
      Z(rho), unit-norm cut rows;
   5. purge slack cuts and append the new rows.
+``run_scan`` (``LoopConfig.use_scan``) runs the same device operations for
+all rounds with no per-round certificate or early stop, and certifies every
+round afterwards from the pools and duals it kept.  ``polish`` ends either
+mode when ``LoopConfig.polish_iters > 0``.
 
 Everything runs in float32, the kernels' one type.  On CUDA the round does
 no cuBLAS matrix product (the MLP runs inside the scoring kernel), so the
-process-wide TF32 setting does not reach it.  ``select_and_generate`` and
-``RoundStats`` serve the QCQP solver (qcqp/solver.py) too.
-Not ported yet (they raise): ``run_scan`` (LoopConfig.use_scan), polish,
-vertex steering, checkpoints, and strategies other than ``neural``.
+process-wide TF32 setting does not reach it.  ``select_and_generate``,
+``RoundStats`` and ``polish_lp`` serve the QCQP solver (qcqp/solver.py) too.
+Not ported yet (they raise): vertex steering, checkpoints, and strategies
+random, triangle and optimality.
 """
 
 from __future__ import annotations
@@ -28,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, RunConfig
+from sdpcutsel_tpu.config import CutConfig, LPConfig, RunConfig
 from sdpcutsel_tpu.instances import BoxQPInstance
 
 from ..cuts.assemble import assemble_Z
@@ -39,9 +53,13 @@ from ..lp.pdhg import PDHGState, dual_bound_f64, init_state, solve_lp
 from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer, load_params
 from ..ops.fused_score import fused_score
+from ..ops.pair_packed import packed_layout, packed_score
 from ..ops.pair_score import SWEEPS, pair_score
 from ..ops.topk import diverse_topk, masked_topk
 from ..relax.cutbuffer import CutPool, append_cuts, cut_residuals, empty_pool, purge_pool
+
+STRATEGIES = ("neural", "feasibility", "combined")
+LEX_SWEEPS = 6      # the reference's CPU feasibility and combined scoring (cuts/eigen.py)
 
 
 @dataclasses.dataclass
@@ -69,70 +87,110 @@ def select_and_generate(x, X, table, scores, cuts: CutConfig):
     return cuts_from_selected(idx_sel, w, V, cuts.viol_tol, sel_valid=valid), sel, valid
 
 
+def polish_lp(cfg: RunConfig) -> LPConfig:
+    """The final re-solve's LP settings: polish_iters iterations at tol / 100."""
+    return dataclasses.replace(cfg.lp, max_iters=cfg.loop.polish_iters,
+                               tol=cfg.lp.tol * 1e-2)
+
+
 class CutSolver:
     """One BoxQP instance; dense candidate set of all C(n, k) subsets."""
 
     def __init__(self, inst: BoxQPInstance, cfg: RunConfig, device):
-        if cfg.scorer.strategy != "neural":
+        strat = cfg.scorer.strategy
+        if strat not in STRATEGIES:
             raise NotImplementedError(
-                f"strategy {cfg.scorer.strategy!r} is not ported; use 'neural'")
-        loop = cfg.loop
-        if loop.use_scan or loop.polish_iters or loop.steer_eps or loop.checkpoint_every:
-            raise NotImplementedError(
-                "use_scan, polish, steering and checkpoints are not ported")
+                f"strategy {strat!r} is not ported; use one of {STRATEGIES}")
+        if cfg.loop.steer_eps or cfg.loop.checkpoint_every:
+            raise NotImplementedError("steering and checkpoints are not ported")
         self.inst = inst
         self.cfg = cfg
         self.device = torch.device(device)
         n, k = inst.n, cfg.cuts.k
         self.Q = torch.as_tensor(inst.Q, dtype=torch.float32, device=self.device)
         self.c = torch.as_tensor(inst.c, dtype=torch.float32, device=self.device)
-        self.table = torch.as_tensor(combinations_table(n, k), device=self.device)
-        params = load_params(k, cfg.scorer.weights_path)
-        self.mlp = MLPScorer(params, self.device)
+        mode = cfg.cuts.pair_layout
+        self._use_packed = k == 3 and 66 <= n <= 128 and mode == "packed"
+        if self._use_packed:
+            self.layout = packed_layout(n, self.device)
+            self.table = self.layout.table
+        else:
+            self.table = torch.as_tensor(combinations_table(n, k), device=self.device)
+        # the reference's pair route: its table's valid slots are this
+        # table in order, scored with 5 sweeps
+        pair_route = k == 3 and n <= 128 and mode == "on"
+        self._sweeps = LEX_SWEEPS if strat != "neural" and not pair_route else SWEEPS
+        self.mlp = MLPScorer(load_params(k, cfg.scorer.weights_path), self.device)
         if k != 3:
             self.triQ, self.scale = candidate_q_features(self.Q, self.table)
         self.pool: CutPool = empty_pool(cfg.cuts.capacity, k, self.device)
         self.state: PDHGState = init_state(n, cfg.cuts.capacity, self.device)
         self.history: list[RoundStats] = []
+        self.polish_certificate: float | None = None     # set by polish()
+
+    def _scores(self, x, X):
+        """The strategy's score of every slot of the route's table."""
+        if self._use_packed:
+            nn, feas = packed_score(x, X, self.Q, self.layout, self.mlp)
+        elif self.cfg.cuts.k == 3:
+            nn, feas = pair_score(x, X, self.Q, self.table, self.mlp, self._sweeps)
+        else:
+            nn, feas = fused_score(x, X, self.table, self.triQ, self.scale,
+                                   self.mlp, self._sweeps)
+        strat = self.cfg.scorer.strategy
+        if strat == "feasibility":
+            return feas
+        if strat == "combined":
+            return torch.where(feas > 0.0, nn, torch.full_like(nn, -torch.inf))
+        return nn
 
     def _post_lp(self, x, X, pool: CutPool, yC):
-        """Score all candidates -> select -> cut rows -> purge -> append."""
+        """Score all candidates -> select -> cut rows -> purge -> append.
+        Returns (pool, yC, kept: the purged pool's count, a tensor)."""
         cuts = self.cfg.cuts
-        if cuts.k == 3:
-            scores, _ = pair_score(x, X, self.Q, self.table, self.mlp)
-        else:
-            scores, _ = fused_score(x, X, self.table, self.triQ, self.scale,
-                                    self.mlp, SWEEPS)
-        rows, _, _ = select_and_generate(x, X, self.table, scores, cuts)
+        rows, _, _ = select_and_generate(x, X, self.table, self._scores(x, X), cuts)
         if cuts.purge:
             slack = cut_residuals(x, X, pool)
             pool, yC = purge_pool(pool, yC, slack, cuts.purge_slack_tol)
-        kept = int(pool.count)
-        return append_cuts(pool, *rows), yC, kept
+        return append_cuts(pool, *rows), yC, pool.count
 
-    def do_round(self) -> RoundStats:
-        t0 = time.perf_counter()
-        self.state, info = solve_lp(self.Q, self.c, self.pool, self.state,
-                                    self.cfg.lp)
-        cert = dual_bound_f64(self.inst.Q, self.inst.c, self.pool, self.state)
+    def _round(self):
+        """One round's device work: solve, then cut.  Returns (the pool the
+        solve ran on, the solve's state, its info, kept)."""
+        pool = self.pool
+        solved, info = solve_lp(self.Q, self.c, pool, self.state, self.cfg.lp)
+        self.pool, yC, kept = self._post_lp(solved.x, solved.X, pool, solved.yC)
+        self.state = dataclasses.replace(solved, yC=yC)
+        return pool, solved, info, kept
+
+    def _certify(self, pool: CutPool, state: PDHGState) -> float:
+        return dual_bound_f64(self.inst.Q, self.inst.c, pool, state)
+
+    def _record(self, cert: float, info: dict, kept, count, wall: float) -> RoundStats:
         # every certificate is valid, so the running minimum is too
         bound = min(cert, self.history[-1].bound) if self.history else cert
-        self.pool, yC, kept = self._post_lp(self.state.x, self.state.X,
-                                            self.pool, self.state.yC)
-        self.state = dataclasses.replace(self.state, yC=yC)
-        count = int(self.pool.count)
         stats = RoundStats(
             round=len(self.history), bound=bound, certificate=cert,
-            lp_iters=int(info["iters"]),
-            lp_kkt_error=float(info["kkt_error"]), cuts_added=count - kept,
-            cuts_active=count, wall_time_s=time.perf_counter() - t0,
+            lp_iters=int(info["iters"]), lp_kkt_error=float(info["kkt_error"]),
+            cuts_added=int(count) - int(kept), cuts_active=int(count),
+            wall_time_s=wall,
         )
         self.history.append(stats)
         return stats
 
+    def do_round(self) -> RoundStats:
+        t0 = time.perf_counter()
+        pool, solved, info, kept = self._round()
+        cert = self._certify(pool, solved)
+        return self._record(cert, info, kept, self.pool.count, time.perf_counter() - t0)
+
     def run(self, rounds: Optional[int] = None) -> list[RoundStats]:
-        """Per-round loop with the reference's early stop: a round that adds
-        no cut and moves the bound by less than improvement_tol ends it."""
+        """Per-round loop with the reference's early stop (a round that adds
+        no cut and moves the bound by less than improvement_tol ends it),
+        then ``polish`` when polish_iters > 0.  ``LoopConfig.use_scan``
+        hands over to ``run_scan``."""
+        if self.cfg.loop.use_scan:
+            return self.run_scan(rounds)
         rounds = rounds if rounds is not None else self.cfg.loop.rounds
         prev = None
         for _ in range(rounds):
@@ -142,4 +200,44 @@ class CutSolver:
                 if rel < self.cfg.loop.improvement_tol and s.cuts_added == 0:
                     break
             prev = s.bound
+        if self.cfg.loop.polish_iters > 0 and self.history:
+            self.polish()
         return self.history
+
+    def run_scan(self, rounds: Optional[int] = None) -> list[RoundStats]:
+        """All rounds with no per-round certificate and no early stop
+        (reference ``run_scan``).  Each round keeps the pool its solve ran
+        on and the solve's state on the device; after the loop every round
+        is certified in f64 on the host.  The device operations are
+        ``do_round``'s in the same order, so both modes certify the same
+        bits.  ``wall_time_s`` is the timed loop over the number of rounds.
+        A process's first launch builds the kernels inside that loop, as the
+        reference's first run_scan compiles inside it, so a caller that
+        times the rounds runs once before.  The solve's per-block
+        convergence check still reads the device from the host."""
+        rounds = rounds if rounds is not None else self.cfg.loop.rounds
+        t0 = time.perf_counter()
+        kept_rounds = []
+        for _ in range(rounds):
+            kept_rounds.append((*self._round(), self.pool.count))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = (time.perf_counter() - t0) / max(rounds, 1)
+        for pool, solved, info, kept, count in kept_rounds:
+            self._record(self._certify(pool, solved), info, kept, count, wall)
+        if self.cfg.loop.polish_iters > 0 and self.history:
+            self.polish()
+        return self.history
+
+    def polish(self) -> float:
+        """A final, tighter LP re-solve with no new cuts (``polish_lp``).
+        Its certificate can only lower the last round's bound; it is kept in
+        ``polish_certificate``."""
+        self.state, _ = solve_lp(self.Q, self.c, self.pool, self.state,
+                                 polish_lp(self.cfg))
+        self.polish_certificate = self._certify(self.pool, self.state)
+        b = self.polish_certificate
+        if self.history:
+            b = min(b, self.history[-1].bound)
+            self.history[-1].bound = b
+        return b

@@ -5,13 +5,16 @@ For every triple of a (T, 3) candidate table (the lexicographic
 ``combinations_table(n, 3)`` on the main path) both return
 
     nn   = scale * relu(MLP([tri(Q_rho)/scale | x_rho | tri(X_rho)]))
-    feas = -lambda_min(Z(rho))   after SWEEPS cyclic Jacobi sweeps.
+    feas = -lambda_min(Z(rho))   after ``sweeps`` cyclic Jacobi sweeps
+                                 (SWEEPS = 5 unless the caller says).
 
 The kernel replaces the Pallas TPU kernel
 ``sdpcutsel_tpu/ops/pair_score.py::_pair_kernel`` (launched from
 ``pair_score_fused``) plus the XLA MLP over its feature planes.  The TPU
 kernel scored in a padded pair layout; here every thread gathers its own
-triple, so the candidate order is the table's own.
+triple, so the candidate order is the table's own.  The pair layout's valid
+slots run in lexicographic order, so the lexicographic table selects as the
+reference's pair route does.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pair_score.launches`` counts kernel launches.
@@ -29,13 +32,13 @@ from .fused_score import fused_score_plain
 SWEEPS = 5      # Jacobi sweeps on the 4 x 4 Z(rho), as in the reference's scoring
 
 
-def pair_score_plain(x, X, Q, table, mlp: MLPScorer):
+def pair_score_plain(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS):
     """Twin: features + MLP + struct-of-arrays Jacobi over the table."""
     triQ, scale = candidate_q_features(Q, table)
-    return fused_score_plain(x, X, table, triQ, scale, mlp, SWEEPS)
+    return fused_score_plain(x, X, table, triQ, scale, mlp, sweeps)
 
 
-def _launch(x, X, Q, table, mlp: MLPScorer):
+def _launch(x, X, Q, table, mlp: MLPScorer, sweeps: int):
     T, k = table.shape
     n = x.shape[0]
     weights = [t for lin in mlp.layers for t in (lin.weight, lin.bias)]
@@ -53,19 +56,19 @@ def _launch(x, X, Q, table, mlp: MLPScorer):
     nn = torch.empty((T,), dtype=torch.float32, device=x.device)
     feas = torch.empty_like(nn)
     err = lib.pair_score_launch(
-        T, n, SWEEPS, *(t.data_ptr() for t in args), nn.data_ptr(),
+        T, n, sweeps, *(t.data_ptr() for t in args), nn.data_ptr(),
         feas.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pair_score_launch")
     pair_score.launches += 1
     return nn, feas
 
 
-def pair_score(x, X, Q, table, mlp: MLPScorer):
+def pair_score(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS):
     """(nn, feas), each (T,), for the candidates of ``table``."""
     if x.device.type == "cpu":
-        return pair_score_plain(x, X, Q, table, mlp)
+        return pair_score_plain(x, X, Q, table, mlp, sweeps)
     if x.device.type == "cuda":
-        return _launch(x, X, Q, table, mlp)
+        return _launch(x, X, Q, table, mlp, sweeps)
     raise ValueError(f"pair_score: no kernel for device {x.device}")
 
 

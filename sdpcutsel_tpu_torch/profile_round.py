@@ -1,11 +1,13 @@
 """Where a main path's time goes on one GPU.
 
     python3 -m sdpcutsel_tpu_torch.profile_round [--instance spar125-100-1]
-        [--rounds N] [--out chiprun_out]
+        [--rounds N] [--pair-layout {auto,packed}] [--scan] [--out chiprun_out]
 
 The main paths are chip_smoke.py's:
   * a BoxQP name (default spar125-100-1): CutSolver, strategy neural,
     default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds;
+    ``--pair-layout packed --scan`` is chip_smoke.py's packed scan path
+    (CutConfig(pair_layout="packed"), LoopConfig(use_scan=True));
   * a QCQP name (qcqp...; qcqpband100-5-25-1 in chip_smoke.py):
     CutSolverQCQP in the suite configuration of scripts/run_qcqp_suite.py
     (k = 5, sel_size 16, capacity 1024, the same LP), 8 rounds.  The final
@@ -13,13 +15,15 @@ The main paths are chip_smoke.py's:
 After one warm-up round (kernel build, first cuSOLVER use), three runs of
 ``--rounds`` rounds, each from a fresh solver:
 
-  1. plain: host wall time, synchronised at the end -> rounds/s;
+  1. plain: host wall time, synchronised at the end -> rounds/s, and
+     rounds / the sum of the rounds' wall_time_s (in scan mode that leaves
+     out the certificates computed after the loop);
   2. stage split: each stage wrapped with a CUDA synchronise on both sides
      and timed on the host clock.  The synchronises slow the run, so its
      wall time is printed beside the plain one;
   3. torch.profiler: the device time of every kernel and copy, summed; the
      device's idle share is 1 - that sum / the run's wall time.  The
-     profiler's table goes to OUT/profile_table.txt.
+     profiler's table goes to OUT/profile_table_<instance>[_<layout>][_scan].txt.
 
 Needs a CUDA device; prints the card's nvidia-smi name and power limit.
 """
@@ -36,7 +40,7 @@ import time
 
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LPConfig, RunConfig
+from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig
 from sdpcutsel_tpu.instances.boxqp import parse_boxqp
 from sdpcutsel_tpu.instances.qcqp import load_or_generate_qcqp
 
@@ -48,6 +52,7 @@ from .qcqp import solver as qcqp_mod
 # ops/__init__ binds the names pair_score and fused_score to the wrappers,
 # not the modules
 pair_score_mod = importlib.import_module(".ops.pair_score", __package__)
+pair_packed_mod = importlib.import_module(".ops.pair_packed", __package__)
 fused_score_mod = importlib.import_module(".ops.fused_score", __package__)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -66,6 +71,7 @@ STAGES = [
     *((mod, "dual_bound_f64", "dual_bound_f64 (host numpy)")
       for mod in (solver_mod, qcqp_mod)),
     (pair_score_mod, "_launch", "K1 pair_score"),
+    (pair_packed_mod, "_launch", "K3 pair_packed"),
     (fused_score_mod, "_launch", "K4 fused_score"),
     *((mod, name, label) for mod in (solver_mod, qcqp_mod) for name, label in (
         ("select_and_generate", "selection + eigh + cut rows"),
@@ -75,22 +81,26 @@ STAGES = [
 ]
 
 
-def load(name: str):
+def load(name: str, pair_layout: str = "auto", scan: bool = False):
     """(instance, solver class, config, default rounds) of a main path."""
     if name.startswith("qcqp"):
         cfg = RunConfig(lp=LP, cuts=CutConfig(k=5, sel_size=16, capacity=1024))
         return load_or_generate_qcqp(name), qcqp_mod.CutSolverQCQP, cfg, 8
     inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name, use_native=False)
-    return inst, solver_mod.CutSolver, RunConfig(lp=LP), 10
+    cfg = RunConfig(lp=LP, cuts=CutConfig(pair_layout=pair_layout),
+                    loop=LoopConfig(use_scan=scan))
+    return inst, solver_mod.CutSolver, cfg, 10
 
 
-def _run(path, dev, rounds: int) -> float:
+def _run(path, dev, rounds: int, history: list | None = None) -> float:
     inst, solver_cls, cfg, _ = path
     solver = solver_cls(inst, cfg, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solver.run(rounds=rounds)
+    hist = solver.run(rounds=rounds)
     torch.cuda.synchronize()
+    if history is not None:
+        history.extend(hist)
     return time.perf_counter() - t0
 
 
@@ -124,7 +134,7 @@ def stage_split(path, dev, rounds: int):
     return wall, {label: (seconds[label], calls[label]) for _, _, label in STAGES}
 
 
-def device_time(path, dev, rounds: int, out_dir: str):
+def device_time(path, dev, rounds: int, table_path: str):
     """(wall seconds, device seconds of all kernels and copies, top rows)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -140,8 +150,8 @@ def device_time(path, dev, rounds: int, out_dir: str):
         if dev_us > 0 and e.self_cpu_time_total == 0:
             rows.append((dev_us * 1e-6, e.count, e.key))
     rows.sort(reverse=True)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_table_{path[0].name}.txt"), "w") as f:
+    os.makedirs(os.path.dirname(table_path), exist_ok=True)
+    with open(table_path, "w") as f:
         f.write(averages.table(sort_by=field, row_limit=40))
     return wall, sum(r[0] for r in rows), rows
 
@@ -152,6 +162,10 @@ def main(argv=None) -> int:
                     help="a BoxQP name from data/boxqp or a QCQP name (qcqp...)")
     ap.add_argument("--rounds", type=int, default=None,
                     help="default: 10 for BoxQP, 8 for QCQP")
+    ap.add_argument("--pair-layout", default="auto", choices=("auto", "packed"),
+                    help="BoxQP only: the candidate table's layout (CutConfig.pair_layout)")
+    ap.add_argument("--scan", action="store_true",
+                    help="BoxQP only: scan mode (LoopConfig.use_scan)")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -163,14 +177,17 @@ def main(argv=None) -> int:
     print(f"[env] {smi.splitlines()[0]}; torch {torch.__version__}", flush=True)
 
     dev = torch.device("cuda", 0)
-    path = load(args.instance)
+    path = load(args.instance, args.pair_layout, args.scan)
     rounds = args.rounds or path[3]
-    print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds", flush=True)
+    print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds, cuts "
+          f"{path[2].cuts}, loop {path[2].loop}", flush=True)
     _run(path, dev, 1)                                        # warm-up
 
-    wall = _run(path, dev, rounds)
-    print(f"[plain] {rounds} rounds in {wall:.4f} s = "
-          f"{rounds / wall:.4f} rounds/s", flush=True)
+    hist = []
+    wall = _run(path, dev, rounds, hist)
+    round_s = sum(h.wall_time_s for h in hist)
+    print(f"[plain] {rounds} rounds in {wall:.4f} s = {rounds / wall:.4f} rounds/s; "
+          f"rounds / sum of wall_time_s {rounds / round_s:.4f} rounds/s", flush=True)
 
     split_wall, stages = stage_split(path, dev, rounds)
     print(f"[split] synchronised run: {split_wall:.4f} s", flush=True)
@@ -178,7 +195,10 @@ def main(argv=None) -> int:
         print(f"[split] {label:<32} {1e3 * s:10.2f} ms {100 * s / split_wall:7.2f}%"
               f" {n:6d} calls", flush=True)
 
-    prof_wall, busy, rows = device_time(path, dev, rounds, args.out)
+    tag = args.instance + ("" if args.pair_layout == "auto" else f"_{args.pair_layout}")
+    tag += "_scan" if args.scan else ""
+    prof_wall, busy, rows = device_time(path, dev, rounds,
+                                        os.path.join(args.out, f"profile_table_{tag}.txt"))
     print(f"[profile] wall {prof_wall:.4f} s (with the profiler); device busy "
           f"{busy:.4f} s; idle share {1 - busy / prof_wall:.4f}", flush=True)
     for s, n, name in rows[:8]:

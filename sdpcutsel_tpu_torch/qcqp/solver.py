@@ -40,7 +40,7 @@ from sdpcutsel_tpu.config import RunConfig
 from sdpcutsel_tpu.instances.qcqp import QCQPInstance
 from sdpcutsel_tpu.qcqp.chordal import chordal_decomposition, clique_candidates
 
-from ..loop.solver import RoundStats, select_and_generate
+from ..loop.solver import RoundStats, polish_lp, select_and_generate
 from ..lp.pdhg import PDHGState, dual_bound_f64, init_state, solve_lp
 from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer, load_params
@@ -183,13 +183,11 @@ class CutSolverQCQP:
         return self.history
 
     def polish(self) -> float:
-        """A final, tighter LP re-solve with no new cuts (polish_iters
-        iterations at tol / 100).  Its certificate can only lower the last
-        round's bound; it is kept in ``polish_certificate``."""
-        tight = dataclasses.replace(self.cfg.lp, max_iters=self.cfg.loop.polish_iters,
-                                    tol=self.cfg.lp.tol * 1e-2)
-        self.state, _ = solve_lp(self.Q, self.c, self.pool, self.state, tight,
-                                 dense=self.dense)
+        """A final, tighter LP re-solve with no new cuts (``polish_lp``:
+        polish_iters iterations at tol / 100).  Its certificate can only
+        lower the last round's bound; it is kept in ``polish_certificate``."""
+        self.state, _ = solve_lp(self.Q, self.c, self.pool, self.state,
+                                 polish_lp(self.cfg), dense=self.dense)
         self.polish_certificate = self._certify()
         b = self.polish_certificate
         if self.history:

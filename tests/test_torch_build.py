@@ -46,7 +46,8 @@ def test_library_name_tracks_sources_and_build_dir_is_ignored():
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
-@pytest.mark.parametrize("name", ["pair_score.cu", "pdhg_block.cu", "fused_score.cu"])
+@pytest.mark.parametrize("name", ["pair_score.cu", "pair_packed.cu", "pdhg_block.cu",
+                                  "fused_score.cu"])
 def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
     with open(os.path.join(_build.CSRC_DIR, name)) as f:
         head = f.read(2000)
