@@ -17,7 +17,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
        pdhg_block   n = 125, M = 1024 with 400 active unit k = 3 cuts, and
                     n = 100 with the 25 dense rows of qcqpband100-5-25-1 and
                     400 active k = 5 cuts (some supports repeat an index);
-                    blocks of 7 and 100 iterations;
+                    blocks of 7 and 100 iterations, two runs bit for bit, the
+                    inputs unchanged; its cluster plan and ptxas report, and
+                    the portable cluster of 8 checked and timed in turns
+                    with the plan's;
+     each kernel's time stands beside its bound (the larger of its
+     operations over 67 TFLOP/s fp32 and its bytes, each input read and each
+     output written once, over 3.35 TB/s) and its roofline share;
        fused_score  k = 2 over C(125, 2) (5 sweeps); k = 4 and 5 over the
                     clique tables of qcqp025-25-4-2 and qcqpband100-5-25-1
                     (6 sweeps);
@@ -64,21 +70,21 @@ import time
 import numpy as np
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
-from sdpcutsel_tpu.instances.boxqp import generate_spar, parse_boxqp
-from sdpcutsel_tpu.instances.qcqp import load_or_generate_qcqp
-from sdpcutsel_tpu.qcqp.chordal import chordal_decomposition, clique_candidates
 from sdpcutsel_tpu_torch import _build
+from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
+from sdpcutsel_tpu_torch.instances import generate_spar, load_or_generate_qcqp, parse_boxqp
 from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch.lp.pdhg import estimate_norm, init_state
-from sdpcutsel_tpu_torch.lp.pdhg_kernel import pdhg_block, pdhg_block_plain
+from sdpcutsel_tpu_torch.lp import pdhg_kernel
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import launch_plan, pdhg_block, pdhg_block_plain
 from sdpcutsel_tpu_torch.models.features import candidate_q_features
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
+from sdpcutsel_tpu_torch.qcqp.chordal import chordal_decomposition, clique_candidates
 from sdpcutsel_tpu_torch.relax.cutbuffer import append_cuts, build_cut_index, empty_pool
 from sdpcutsel_tpu_torch.relax.denserows import dense_from_qcqp
 
@@ -92,6 +98,11 @@ QCQP_CFG = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6),
                      cuts=CutConfig(k=5, sel_size=16, capacity=1024),
                      loop=LoopConfig(polish_iters=60000))
 SEED = 0
+# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# K2's microseconds an iteration before the cluster design (PERF.md, PR 3)
+K2_PR3_US = {0: 35.11, 25: 72.39}
 WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
             "pdhg_block": pdhg_block, "fused_score": fused_score}
 
@@ -145,6 +156,38 @@ def excess(got, want, rtol: float, atol: float):
     return float(d.max()), float((d / (atol + rtol * want.abs())).max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: int) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the fp32 peak and the bytes (each input read once, each output written
+    once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
+            else {"bound_ms": t_bytes, "bound_by": "bytes"})
+
+
+def score_ops(k: int, sweeps: int) -> int:
+    """Operations to score one candidate of width k: the features, `sweeps`
+    cyclic Jacobi sweeps on the (k + 1) x (k + 1) Z(rho) (about 18 + 6 (M - 2)
+    per rotation), and the F-64-64-1 relu MLP (csrc/score_common.cuh)."""
+    M, F = k + 1, k * (k + 1) + k
+    jacobi = sweeps * M * (M - 1) // 2 * (18 + 6 * (M - 2)) + M - 1
+    mlp = 2 * 64 * F + 2 * 64 * 64 + 2 * 64 + 4 * 64 + 3
+    return jacobi + mlp + 3 * (k * (k + 1) // 2)
+
+
+def mlp_bytes(mlp) -> int:
+    return nbytes(*mlp.parameters())
+
+
+def share(ms: float, b: dict) -> str:
+    return (f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}); roofline share "
+            f"{b['bound_ms'] / ms:.4%}")
+
+
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -181,9 +224,11 @@ def check_pair_score(inst, dev) -> dict:
         raise AssertionError("pair_score kernel disagrees with its twin")
     ms = cuda_ms(lambda: pair_score(x, X, Q, table, mlp), reps=50)
     plain_ms = cuda_ms(lambda: pair_score_plain(x, X, Q, table, mlp), reps=5)
-    log(f"[pair_score] kernel {ms:.4f} ms ({table.shape[0] / ms / 1e3:.1f} M cand/s); "
-        f"twin {plain_ms:.4f} ms ({table.shape[0] / plain_ms / 1e3:.1f} M cand/s)")
-    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
+    T = table.shape[0]
+    b = bound(T * score_ops(3, 5), nbytes(x, X, Q, table, nn_k, feas_k) + mlp_bytes(mlp))
+    log(f"[pair_score] kernel {ms:.4f} ms ({T / ms / 1e3:.1f} M cand/s); "
+        f"twin {plain_ms:.4f} ms ({T / plain_ms / 1e3:.1f} M cand/s); {share(ms, b)}")
+    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def check_pair_packed(inst, dev) -> dict:
@@ -214,9 +259,13 @@ def check_pair_packed(inst, dev) -> dict:
     ms = cuda_ms(lambda: packed_score(x, X, Q, lay, mlp), reps=50)
     k1_ms = cuda_ms(lambda: pair_score(x, X, Q, triples, mlp), reps=50)
     plain_ms = cuda_ms(lambda: packed_score_plain(x, X, Q, lay, mlp), reps=5)
+    # the valid slots' work; every slot writes its two scores
+    b = bound(triples.shape[0] * score_ops(3, 5),
+              nbytes(x, X, Q, lay.rows, lay.iu, lay.ju, nn_k, feas_k) + mlp_bytes(mlp))
     log(f"[pair_packed] kernel {ms:.4f} ms ({triples.shape[0] / ms / 1e3:.1f} M valid "
-        f"cand/s); pair_score on the same triples {k1_ms:.4f} ms; twin {plain_ms:.4f} ms")
-    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
+        f"cand/s); pair_score on the same triples {k1_ms:.4f} ms; twin {plain_ms:.4f} ms; "
+        f"{share(ms, b)}")
+    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def random_pool(table: np.ndarray, M: int, active: int, rng, dev):
@@ -235,13 +284,36 @@ def random_pool(table: np.ndarray, M: int, active: int, rng, dev):
                         device=dev) for a in cuts))
 
 
+def pdhg_ops(n: int, k: int, m: int, active: int, terms: int, iters: int) -> int:
+    """Operations of `iters` iterations of lp/pdhg.py::_one_iter: about 31
+    an (n, n) entry (adjoint, pre-step, projection, extrapolation, dual
+    ascent, sums) and 4 m more for the dense adjoint and residuals, 2 a
+    cut-index term, 2 k + 2 k^2 + 6 an active cut, 10 + 2 m an x entry."""
+    return iters * (n * n * (31 + 4 * m) + 2 * terms + active * (2 * k + 2 * k * k + 6)
+                    + n * (10 + 2 * m) + 4 * m)
+
+
+def ptxas_report(kernel: str) -> str:
+    """Registers, stack and spills of one kernel from the nvcc -Xptxas -v log."""
+    lines, on = [], False
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        elif on and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    return "; ".join(lines) or "not in this process's build log"
+
+
 def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
     """K2 against its twin from a random state, M = 1024 with 400 active
-    cuts on rows of ``table``, and the dense rows ``dense`` (or none)."""
+    cuts on rows of ``table``, and the dense rows ``dense`` (or none); then
+    the cluster launch's plan, its time beside the bound and PR 3's, and the
+    portable cluster of 8 timed in turns with the plan's."""
     n, M = c.shape[0], 1024
     m = 0 if dense is None else dense.m
     rng = np.random.default_rng(SEED + 1)
     pool = random_pool(table, M, 400, rng, dev)
+    k = pool.idx.shape[1]
     st = init_state(n, M, dev, m)
     X = rng.random((n, n))
     f32 = dict(dtype=torch.float32, device=dev)
@@ -258,26 +330,32 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
                                dense)
     zero = st.map(torch.zeros_like)
     args = (cx, cX, pool, index, st, zero, eta, eta)
+    inputs = [t.clone() for t in (*st.fields(), *zero.fields())]
     # 7 iterations: the reference's own kernel tolerance (tests/test_pdhg_kernel.py).
     # 100 iterations (one checked block of the solve): PDHG is nonexpansive, so
     # f32 rounding differences add up rather than multiply; the 7-iteration
     # tolerance scaled linearly to 100 iterations is 3e-4, and the ergodic sums
     # of 100 iterates take 100 x that as atol.
-    worst = 0.0
     nf = len(st.fields())
-    for iters, tol_st, tol_acc in [(7, (2e-5, 2e-5), (2e-5, 2e-5)),
-                                   (100, (3e-4, 3e-4), (3e-4, 3e-2))]:
-        sk, ak = pdhg_block(*args, iters, dense)
-        sp, ap = pdhg_block_plain(*args, iters, dense)
-        torch.cuda.synchronize()
+
+    def compare(got, want, tol_st, tol_acc):
         errs, ratio = [], 0.0
-        for (got, want), (rtol, atol) in zip(
-                [*zip(sk.fields(), sp.fields()), *zip(ak.fields(), ap.fields())],
-                [tol_st] * nf + [tol_acc] * nf):
-            if got.numel():
-                e, r = excess(got, want, rtol, atol)
+        for (g, w), (rtol, atol) in zip([*zip(got[0].fields(), want[0].fields()),
+                                         *zip(got[1].fields(), want[1].fields())],
+                                        [tol_st] * nf + [tol_acc] * nf):
+            if g.numel():
+                e, r = excess(g, w, rtol, atol)
                 errs.append(e)
                 ratio = max(ratio, r)
+        return errs, ratio
+
+    worst = 0.0
+    for iters, tol_st, tol_acc in [(7, (2e-5, 2e-5), (2e-5, 2e-5)),
+                                   (100, (3e-4, 3e-4), (3e-4, 3e-2))]:
+        got = pdhg_block(*args, iters, dense)
+        want = pdhg_block_plain(*args, iters, dense)
+        torch.cuda.synchronize()
+        errs, ratio = compare(got, want, tol_st, tol_acc)
         log(f"[pdhg_block {label}] {iters} iterations: max|err| state "
             f"{max(errs[:len(errs) // 2]):.3e} sums {max(errs[len(errs) // 2:]):.3e}; "
             f"{ratio:.3f} of the limit (state rtol/atol {tol_st}, sums {tol_acc})")
@@ -285,22 +363,53 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
             raise AssertionError(f"pdhg_block kernel disagrees with its twin at {iters} "
                                  f"iterations ({label})")
         worst = max(worst, *errs)
+    unchanged = all(torch.equal(a, b) for a, b in zip(
+        [*st.fields(), *zero.fields()], inputs))
     first = pdhg_block(*args, 100, dense)
     again = pdhg_block(*args, 100, dense)
     same = all(torch.equal(a, b) for a, b in zip([*first[0].fields(), *first[1].fields()],
                                                  [*again[0].fields(), *again[1].fields()]))
-    log(f"[pdhg_block {label}] two 100-iteration runs bit-identical: {same}")
-    if not same:
-        raise AssertionError(f"pdhg_block kernel is not deterministic ({label})")
+    log(f"[pdhg_block {label}] two 100-iteration runs bit-identical: {same}; inputs "
+        f"unchanged: {unchanged}")
+    if not (same and unchanged):
+        raise AssertionError(f"pdhg_block kernel is not deterministic or wrote its "
+                             f"inputs ({label})")
+
+    plan = launch_plan(n, M, k, m)
+    log(f"[pdhg_block {label}] cluster of {plan.cluster} CTAs x 512 threads: {plan.rows} "
+        f"rows and {plan.slots} pool slots a CTA, {plan.smem_bytes} bytes of shared "
+        f"memory a CTA ({plan.term_cap} cut-index terms); ptxas: "
+        f"{ptxas_report('pdhg_cluster_kernel')}")
+    # the portable cluster of 8 against the plan's, held to the same tolerance,
+    # then both timed in turns (plan, 8, 8, plan)
+    portable = pdhg_kernel._launch(*args, 100, dense, cluster=8)
+    errs8, ratio8 = compare(portable, want, (3e-4, 3e-4), (3e-4, 3e-2))
+    log(f"[pdhg_block {label}] cluster of 8 ({launch_plan(n, M, k, m, 8).smem_bytes} "
+        f"bytes a CTA), 100 iterations: max|err| {max(errs8):.3e}; {ratio8:.3f} of the limit")
+    if ratio8 > 1.0:
+        raise AssertionError(f"pdhg_block with a cluster of 8 disagrees with its twin ({label})")
+    t_plan, t_8 = [], []
+    for order in ((t_plan, plan.cluster), (t_8, 8), (t_8, 8), (t_plan, plan.cluster)):
+        order[0].append(cuda_ms(lambda: pdhg_kernel._launch(*args, 100, dense,
+                                                            cluster=order[1]), reps=20))
     ms = cuda_ms(lambda: pdhg_block(*args, 100, dense), reps=20)
     plain_ms = cuda_ms(lambda: pdhg_block_plain(*args, 100, dense), reps=3, warmup=1)
-    log(f"[pdhg_block {label}] 100-iteration block: kernel {ms:.4f} ms "
-        f"({ms * 10:.2f} us/iter); twin {plain_ms:.4f} ms ({plain_ms * 10:.2f} us/iter)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    b = bound(pdhg_ops(n, k, m, int(pool.active.sum()),
+                       index.Xcut.numel() + index.xcut.numel(), 100),
+              nbytes(cx, cX, index.idx, pool.lin, pool.quad, pool.rhs, pool.active,
+                     index.xoff, index.xcut, index.xcoef, index.Xoff, index.Xcut,
+                     index.Xcoef, *inputs, *first[0].fields(), *first[1].fields(),
+                     *([] if dense is None else [dense.G, dense.g, dense.h])))
+    log(f"[pdhg_block {label}] 100-iteration block: kernel {ms:.4f} ms ({ms * 10:.3f} "
+        f"us/iter; PR 3's single CTA: {K2_PR3_US[m]} us/iter); twin {plain_ms:.4f} ms "
+        f"({plain_ms * 10:.2f} us/iter); {share(ms, b)} ({b['bound_ms'] * 10:.5f} us/iter)")
+    log(f"[pdhg_block {label}] in turns: cluster of {plan.cluster} {t_plan!r} ms, "
+        f"cluster of 8 {t_8!r} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def clique_table(inst, k: int) -> np.ndarray:
-    cliques, _ = chordal_decomposition(inst.n, inst.sparsity_graph(), use_native=False)
+    cliques, _ = chordal_decomposition(inst.n, inst.sparsity_graph())
     return clique_candidates(cliques, k)
 
 
@@ -325,13 +434,15 @@ def check_fused_score(label: str, Q, table: np.ndarray, sweeps: int, dev) -> dic
     ms = cuda_ms(lambda: fused_score(*args), reps=50)
     plain_ms = cuda_ms(lambda: fused_score_plain(*args), reps=5)
     T = table.shape[0]
+    b = bound(T * score_ops(k, sweeps),
+              nbytes(x, X, table, triQ, scale, nn_k, feas_k) + mlp_bytes(mlp))
     log(f"[fused_score {label}] k={k} T={T} sweeps={sweeps}: feas max|err| {err_f:.3e} "
         f"({r_f:.3f} of atol 5e-4); nn max|err| {err_n:.3e} ({r_n:.3f} of rtol 2e-4 / "
         f"atol 2e-5); kernel {ms:.4f} ms ({T / ms / 1e3:.1f} M cand/s), twin "
-        f"{plain_ms:.4f} ms")
+        f"{plain_ms:.4f} ms; {share(ms, b)}")
     if not (r_f <= 1.0 and r_n <= 1.0):
         raise AssertionError(f"fused_score kernel disagrees with its twin ({label}, k={k})")
-    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3):
@@ -349,7 +460,7 @@ def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3):
 
 def check_small_instances(dev):
     name = "spar020-100-1"
-    inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name, use_native=False)
+    inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name)
     lp = LPConfig(max_iters=6000, tol=1e-5)
     card_vs_cpu(f"{name} k=3", CutSolver, inst, RunConfig(lp=lp), dev)
     card_vs_cpu(f"{name} k=2", CutSolver, inst, RunConfig(lp=lp, cuts=CutConfig(k=2)), dev)
@@ -524,8 +635,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
 
-    inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE,
-                       use_native=False)
+    inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
     band = load_or_generate_qcqp(QCQP_INSTANCE)
     k1 = check_pair_score(inst, dev)
     k3 = check_pair_packed(inst, dev)
@@ -566,6 +676,8 @@ def main() -> int:
          "launches": qlaunches["fused_score"], **k4[-1],
          "max_abs_err": max(r["max_abs_err"] for r in k4)},
     ]
+    for entry in kernels:
+        entry["library_ms"] = None       # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

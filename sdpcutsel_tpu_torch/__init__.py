@@ -17,9 +17,14 @@ layout so the counterpart of a module is easy to find:
 - ``qcqp``   — the sparse-QCQP round controller ``CutSolverQCQP``.
 - ``_build`` — compiles ``csrc/*.cu`` with nvcc at first use (ctypes binding).
 
-It imports ``torch`` and numpy, plus the numpy-only ``sdpcutsel_tpu.config``,
-``sdpcutsel_tpu.instances`` and ``sdpcutsel_tpu.qcqp.chordal``; never jax.  Every kernel wrapper takes its
-plain PyTorch twin for CPU tensors only; a CUDA tensor launches the kernel.
+- ``config``, ``instances``, ``qcqp/chordal.py`` — the port's own copies of
+               the reference's configuration tree, instance generators and
+               readers, and chordal decomposition (numpy).
+
+It imports ``torch`` and numpy only: nothing of ``sdpcutsel_tpu`` and no jax.
+Every kernel wrapper takes its plain PyTorch twin for CPU tensors only; a
+CUDA tensor launches the kernel.  The solvers run on ``"cuda"`` unless the
+caller passes another device.
 """
 
 __version__ = "0.1.0"

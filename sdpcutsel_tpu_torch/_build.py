@@ -49,15 +49,14 @@ _SIGNATURES = {
     "pair_score_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P],
     # pdhg_block.cu
-    "pdhg_block_launch": [_I, _I, _I, _I, _I, _F, _F,
-                          _P, _P,
-                          _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P,
-                          _P, _P,
-                          _P],
+    "pdhg_block_launch": [_I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                          _P, _P,                      # cx, cX
+                          _P, _P, _P, _P, _P,          # idx, lin, quad, rhs, act
+                          _P, _P, _P, _P, _P, _P,      # xoff xcut xcoef Xoff Xcut Xcoef
+                          _P, _P, _P,                  # G, g, h
+                          *[_P] * 12,                  # state and sums in
+                          *[_P] * 12,                  # state and sums out
+                          _P],                         # stream
 }
 
 _lib = None

@@ -42,13 +42,12 @@ from typing import Optional
 
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LPConfig, RunConfig
-from sdpcutsel_tpu.instances import BoxQPInstance
-
+from ..config import CutConfig, LPConfig, RunConfig
 from ..cuts.assemble import assemble_Z
 from ..cuts.eigen import batched_eigh_small
 from ..cuts.enumerate import combinations_table
 from ..cuts.generate import cuts_from_selected
+from ..instances import BoxQPInstance
 from ..lp.pdhg import PDHGState, dual_bound_f64, init_state, solve_lp
 from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer, load_params
@@ -94,9 +93,10 @@ def polish_lp(cfg: RunConfig) -> LPConfig:
 
 
 class CutSolver:
-    """One BoxQP instance; dense candidate set of all C(n, k) subsets."""
+    """One BoxQP instance; dense candidate set of all C(n, k) subsets.  Runs
+    on the card unless ``device`` names another (the CPU takes the twins)."""
 
-    def __init__(self, inst: BoxQPInstance, cfg: RunConfig, device):
+    def __init__(self, inst: BoxQPInstance, cfg: RunConfig, device="cuda"):
         strat = cfg.scorer.strategy
         if strat not in STRATEGIES:
             raise NotImplementedError(

@@ -2,14 +2,11 @@
 
 One dense relu MLP per submatrix dimension k (k = 3: 15 -> 64 -> 64 -> 1).
 The trained weights ship as ``artifacts/mlp_k{k}.npz``, converted once from
-the JAX package's flax msgpack artifacts with ``params_from_flax``:
-
-    JAX_PLATFORMS=cpu python -c "
-    import numpy as np
-    from sdpcutsel_tpu.models.scorer import load_params
-    from sdpcutsel_tpu_torch.models.scorer import artifact_path, params_from_flax
-    for k in (2, 3, 4, 5):
-        np.savez(artifact_path(k), **params_from_flax(load_params(k)[0]))"
+the JAX package's flax msgpack artifacts: for k = 2..5,
+``np.savez(artifact_path(k), **params_from_flax(params))`` with ``params``
+the first value that the reference's ``models/scorer.py::load_params(k)``
+returns (run with JAX on the CPU).  ``tests/test_torch_params.py`` holds the
+files equal to the reference's.
 
 A missing artifact raises: there is no silent random fallback.
 """

@@ -40,10 +40,8 @@ import time
 
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig
-from sdpcutsel_tpu.instances.boxqp import parse_boxqp
-from sdpcutsel_tpu.instances.qcqp import load_or_generate_qcqp
-
+from .config import CutConfig, LoopConfig, LPConfig, RunConfig
+from .instances import load_or_generate_qcqp, parse_boxqp
 from .loop import solver as solver_mod
 from .lp import pdhg as pdhg_mod
 from .lp import pdhg_kernel as pdhg_kernel_mod
@@ -86,7 +84,7 @@ def load(name: str, pair_layout: str = "auto", scan: bool = False):
     if name.startswith("qcqp"):
         cfg = RunConfig(lp=LP, cuts=CutConfig(k=5, sel_size=16, capacity=1024))
         return load_or_generate_qcqp(name), qcqp_mod.CutSolverQCQP, cfg, 8
-    inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name, use_native=False)
+    inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name)
     cfg = RunConfig(lp=LP, cuts=CutConfig(pair_layout=pair_layout),
                     loop=LoopConfig(use_scan=scan))
     return inst, solver_mod.CutSolver, cfg, 10

@@ -6,8 +6,7 @@ The BoxQP round (loop/solver.py) with three differences:
     1/2 <Qi, X> + ci'x <= bi as a dense block (relax/denserows.py) inside
     the PDHG solve, the f64 certificate, and the PDHG block kernel;
   * the candidates are the <= k subsets of the maximal cliques of the
-    chordal extension of the sparsity graph (``sdpcutsel_tpu.qcqp.chordal``,
-    numpy only), padded to width k by repeating the last index.  The table
+    chordal extension of the sparsity graph (``qcqp/chordal.py``), padded to width k by repeating the last index.  The table
     is not padded to a block multiple: the scoring kernel takes any T;
   * a cross-round re-selection gate (``CutConfig.sel_gate``) masks
     candidates whose cuts the LP has not enforced yet.
@@ -36,10 +35,8 @@ from typing import Optional
 
 import torch
 
-from sdpcutsel_tpu.config import RunConfig
-from sdpcutsel_tpu.instances.qcqp import QCQPInstance
-from sdpcutsel_tpu.qcqp.chordal import chordal_decomposition, clique_candidates
-
+from ..config import RunConfig
+from ..instances.qcqp import QCQPInstance
 from ..loop.solver import RoundStats, polish_lp, select_and_generate
 from ..lp.pdhg import PDHGState, dual_bound_f64, init_state, solve_lp
 from ..models.features import candidate_q_features
@@ -47,14 +44,16 @@ from ..models.scorer import MLPScorer, load_params
 from ..ops.fused_score import fused_score
 from ..relax.cutbuffer import CutPool, append_cuts, cut_residuals, empty_pool, purge_pool
 from ..relax.denserows import dense_from_qcqp, empty_dense
+from .chordal import chordal_decomposition, clique_candidates
 
 SWEEPS = 6      # Jacobi sweeps on Z(rho), as in the reference's QCQP scoring
 
 
 class CutSolverQCQP:
-    """One sparse QCQP instance; clique candidate table."""
+    """One sparse QCQP instance; clique candidate table.  Runs on the card
+    unless ``device`` names another (the CPU takes the twins)."""
 
-    def __init__(self, inst: QCQPInstance, cfg: RunConfig, device):
+    def __init__(self, inst: QCQPInstance, cfg: RunConfig, device="cuda"):
         if cfg.scorer.strategy not in ("neural", "combined"):
             raise NotImplementedError(
                 f"strategy {cfg.scorer.strategy!r} is not ported; use 'neural'")
@@ -77,8 +76,7 @@ class CutSolverQCQP:
                                   (self.dense.G, self.dense.g, self.dense.h))
         else:
             self.dense, self.dense_np = empty_dense(n, self.device), None
-        # the Python path gives the native library's cliques and builds nothing
-        cliques, _ = chordal_decomposition(n, inst.sparsity_graph(), use_native=False)
+        cliques, _ = chordal_decomposition(n, inst.sparsity_graph())
         table = clique_candidates(cliques, k)
         if table.shape[0] == 0:
             raise ValueError("no candidate subsets: sparsity graph is empty")

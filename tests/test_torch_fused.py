@@ -9,21 +9,22 @@ import numpy as np
 import pytest
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LPConfig, RunConfig
 from sdpcutsel_tpu.cuts.eigen import feasibility_scores_from_point as j_feas
-from sdpcutsel_tpu.instances import load_or_generate
 from sdpcutsel_tpu.loop import CutSolver as JaxCutSolver
 from sdpcutsel_tpu.models.features import candidate_q_features as j_q_features
 from sdpcutsel_tpu.models.scorer import load_params as flax_load_params
 from sdpcutsel_tpu.ops.fused_score import fused_score as j_fused_score
 from sdpcutsel_tpu.ops.fused_score import mlp_params_for_kernel
 from sdpcutsel_tpu.parallel.sharding import pad_table
+from sdpcutsel_tpu_torch.config import CutConfig, LPConfig, RunConfig
 from sdpcutsel_tpu_torch.cuts.eigen import feasibility_scores_from_point
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
+from sdpcutsel_tpu_torch.instances import load_or_generate
 from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch.models.features import candidate_q_features
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score
+from test_torch_portmods import reference_config
 
 FEAS = dict(rtol=0, atol=5e-4)
 NN = dict(rtol=2e-4, atol=2e-5)
@@ -105,7 +106,7 @@ def test_cut_solver_k2_matches_reference():
     sweeps); on the CPU its twin must reproduce the JAX solver's rounds."""
     inst = load_or_generate("spar020-100-1", data_dir="data/boxqp")
     cfg = RunConfig(lp=LPConfig(max_iters=6000, tol=1e-5), cuts=CutConfig(k=2))
-    ref = JaxCutSolver(inst, cfg).run(rounds=3)
+    ref = JaxCutSolver(inst, reference_config(cfg)).run(rounds=3)
     got = CutSolver(inst, cfg, device="cpu").run(rounds=3)
     assert len(got) == len(ref)
     assert got[0].lp_iters == ref[0].lp_iters

@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from sdpcutsel_tpu.instances.boxqp import generate_spar
 from sdpcutsel_tpu.lp import pdhg as jpdhg
 from sdpcutsel_tpu.relax import cutbuffer as jcb
 from sdpcutsel_tpu.relax.denserows import empty_dense
+from sdpcutsel_tpu_torch.instances import generate_spar
 from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
-from sdpcutsel_tpu_torch.lp.pdhg_kernel import pdhg_block
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import SMEM_MAX, launch_plan, pdhg_block
 from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
 from sdpcutsel_tpu_torch.relax.cutbuffer import build_cut_index
 
@@ -163,3 +163,29 @@ def test_pdhg_block_refuses_devices_without_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         pdhg_block(cx, torch.zeros(n, n, device="meta"), pool, None, st, st,
                    0.1, 0.1, 3)
+
+
+@pytest.mark.parametrize("n,M,k,m", [(125, 1024, 3, 0), (100, 1024, 5, 25),
+                                     (125, 2048, 3, 0), (128, 2048, 5, 25)])
+def test_launch_plan_covers_every_row_once(n, M, k, m):
+    """The cluster plan of the PDHG block kernel at the main paths' shapes,
+    the certifier's 2048-row buffer, and the widest case: every row of X in
+    exactly one CTA's band, every pool slot in exactly one CTA, and one
+    CTA's shared memory within the H100's 232,448 bytes."""
+    plan = launch_plan(n, M, k, m)
+    assert plan.cluster >= 8
+    rows = [i for start, stop in plan.bands(n) for i in range(start, stop)]
+    assert rows == list(range(n))
+    assert plan.slots * plan.cluster >= M > plan.slots * (plan.cluster - 1)
+    assert plan.smem_bytes <= SMEM_MAX and plan.term_cap > 0
+    assert plan.max_capacity >= max(M, 2048) and plan.max_dense >= m
+    with pytest.raises(ValueError):
+        launch_plan(n, plan.max_capacity + 1, k, m)
+    with pytest.raises(ValueError):
+        launch_plan(n, M, k, plan.max_dense + 1)
+
+
+@pytest.mark.parametrize("n", [0, 129])
+def test_launch_plan_refuses_n_outside_the_kernel(n):
+    with pytest.raises(ValueError, match="n <= 128"):
+        launch_plan(n, 1024, 3, 0)

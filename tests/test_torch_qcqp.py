@@ -9,13 +9,13 @@ import numpy as np
 import pytest
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
-from sdpcutsel_tpu.instances.qcqp import generate_qcqp, load_or_generate_qcqp
 from sdpcutsel_tpu.lp import pdhg as jpdhg
 from sdpcutsel_tpu.qcqp.solver import CutSolverQCQP as JaxCutSolverQCQP
 from sdpcutsel_tpu.relax import cutbuffer as jcb
 from sdpcutsel_tpu.relax import denserows as jdr
 from sdpcutsel_tpu.relax import mccormick as jmc
+from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
+from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp, load_or_generate_qcqp
 from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import pdhg_block
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
@@ -23,6 +23,7 @@ from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
 from sdpcutsel_tpu_torch.relax import denserows as tdr
 from sdpcutsel_tpu_torch.relax import mccormick as tmc
 from sdpcutsel_tpu_torch.relax.cutbuffer import build_cut_index
+from test_torch_portmods import reference_config
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -148,7 +149,7 @@ def test_dual_bound_f64_with_dense_rows_identical_duals():
 
 def _solvers(cfg, name="qcqp012-40-3-2"):
     inst = load_or_generate_qcqp(name)
-    return JaxCutSolverQCQP(inst, cfg), CutSolverQCQP(inst, cfg, "cpu")
+    return JaxCutSolverQCQP(inst, reference_config(cfg)), CutSolverQCQP(inst, cfg, "cpu")
 
 
 @pytest.mark.parametrize("gate", ["residual", "cooldown", "none"])

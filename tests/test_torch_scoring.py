@@ -9,7 +9,6 @@ import pytest
 import torch
 
 from sdpcutsel_tpu.cuts.enumerate import combinations_table as j_combinations
-from sdpcutsel_tpu.instances.boxqp import generate_spar
 from sdpcutsel_tpu.models.features import candidate_features, candidate_q_features
 from sdpcutsel_tpu.models.scorer import MLPScorer as FlaxMLP
 from sdpcutsel_tpu.models.scorer import load_params as flax_load_params
@@ -20,6 +19,7 @@ from sdpcutsel_tpu.ops.pair_score import (
     build_pair_layout, pair_consts_static, pair_score_jnp,
 )
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
+from sdpcutsel_tpu_torch.instances import generate_spar
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops import topk as ttopk
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score

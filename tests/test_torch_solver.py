@@ -11,12 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from sdpcutsel_tpu.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
-from sdpcutsel_tpu.instances import generate_spar, load_or_generate
-from sdpcutsel_tpu.loop import CutSolver as JaxCutSolver
+from sdpcutsel_tpu.loop import CutSolver as _JaxCutSolver
+from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
+from sdpcutsel_tpu_torch.instances import generate_spar, load_or_generate
 from sdpcutsel_tpu_torch.loop import CutSolver
+from test_torch_portmods import reference_config
 
 CFG = RunConfig(lp=LPConfig(max_iters=6000, tol=1e-5))
+
+
+def JaxCutSolver(inst, cfg):
+    """The reference solver, on the port's instance and the same config values."""
+    return _JaxCutSolver(inst, reference_config(cfg))
 
 
 @pytest.fixture(autouse=True, scope="module")
