@@ -6,10 +6,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
      triton; no CUDA device -> exit 2 before any result is printed;
   2. build the four kernels from csrc/, one nvcc each, in parallel (timed
-     as set-up);
+     as set-up); print ptxas's registers and spills, and for the k = 3
+     scoring kernels their persistent grid, their dynamic shared memory and
+     the tensor-core (HMMA) instructions that cuobjdump finds in each;
   3. check each kernel against its plain PyTorch twin on the card at the
      main paths' shapes, and time both with CUDA events:
-       pair_score   n = 125, all 317,750 candidates of spar125-100-1;
+       pair_score   n = 125, all 317,750 candidates of spar125-100-1, and
+                    the 1,140 of spar020-100-1 with 6 sweeps (checked only);
        pair_packed  n = 125, the 507,904 slots of the packed layout on
                     spar125-100-1's Q: the 317,750 valid ones against the
                     twin, and bit for bit against pair_score on the same
@@ -21,9 +24,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     inputs unchanged; its cluster plan and ptxas report, and
                     the portable cluster of 8 checked and timed in turns
                     with the plan's;
-     each kernel's time stands beside its bound (the larger of its
-     operations over 67 TFLOP/s fp32 and its bytes, each input read and each
-     output written once, over 3.35 TB/s) and its roofline share;
+     each kernel's time stands beside its bound (the largest of its
+     operations over 67 TFLOP/s fp32, those it runs on the tensor cores over
+     495 TFLOP/s dense TF32, and its bytes, each input read and each output
+     written once, over 3.35 TB/s) and its roofline share;
        fused_score  k = 2 over C(125, 2) (5 sweeps); k = 4 and 5 over the
                     clique tables of qcqp025-25-4-2 and qcqpband100-5-25-1
                     (6 sweeps);
@@ -59,6 +63,7 @@ only in full float32.  The solver itself does no cuBLAS product on CUDA.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -87,6 +92,7 @@ from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
 from sdpcutsel_tpu_torch.qcqp.chordal import chordal_decomposition, clique_candidates
 from sdpcutsel_tpu_torch.relax.cutbuffer import append_cuts, build_cut_index, empty_pool
 from sdpcutsel_tpu_torch.relax.denserows import dense_from_qcqp
+from sdpcutsel_tpu_torch.scoring_variants import scoring_point
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, "data", "boxqp")
@@ -98,9 +104,14 @@ QCQP_CFG = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6),
                      cuts=CutConfig(k=5, sel_size=16, capacity=1024),
                      loop=LoopConfig(polish_iters=60000))
 SEED = 0
-# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# the k = 3 MLP's products 15 -> 64 and 64 -> 64 a candidate, which K1 and K3
+# run on the tensor cores (the three passes of split TF32 are their own cost)
+MLP3_PRODUCT_OPS = 2 * 64 * 15 + 2 * 64 * 64
 # K2's microseconds an iteration before the cluster design (PERF.md, PR 3)
 K2_PR3_US = {0: 35.11, 25: 72.39}
 WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
@@ -160,11 +171,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, moved: int) -> dict:
-    """The least time the card could take: the larger of the operations over
-    the fp32 peak and the bytes (each input read once, each output written
-    once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+def bound(flops: float, moved: int, tc_flops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the operations
+    outside the tensor cores over the fp32 peak, those on the tensor cores
+    over the dense TF32 peak, and the bytes (each input read once, each
+    output written once) over the memory rate."""
+    t_ops = max(flops / PEAK_FLOPS, tc_flops / PEAK_TF32) * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
     return ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
             else {"bound_ms": t_bytes, "bound_by": "bytes"})
 
@@ -177,6 +190,20 @@ def score_ops(k: int, sweeps: int) -> int:
     jacobi = sweeps * M * (M - 1) // 2 * (18 + 6 * (M - 2)) + M - 1
     mlp = 2 * 64 * F + 2 * 64 * 64 + 2 * 64 + 4 * 64 + 3
     return jacobi + mlp + 3 * (k * (k + 1) // 2)
+
+
+def scoring_bound(T: int, moved: int, ms: float) -> tuple[dict, str]:
+    """K1's and K3's bound for T candidates at 5 sweeps: the MLP's products
+    on the tensor cores, the rest of score_ops(3, 5) at fp32, the bytes; and
+    the three times, with PR 4's bound (every operation at fp32) beside."""
+    tc = T * MLP3_PRODUCT_OPS
+    rest = T * score_ops(3, 5) - tc
+    fp32_only = bound(T * score_ops(3, 5), moved)["bound_ms"]
+    return bound(rest, moved, tc), (
+        f"TF32 products {tc / PEAK_TF32 * 1e3:.5f} ms, the rest at fp32 "
+        f"{rest / PEAK_FLOPS * 1e3:.5f} ms, bytes {moved / PEAK_BYTES * 1e3:.5f} ms; "
+        f"every operation at fp32 (PR 4's count) {fp32_only:.5f} ms, share "
+        f"{fp32_only / ms:.4%}")
 
 
 def mlp_bytes(mlp) -> int:
@@ -197,38 +224,38 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def scoring_point(inst, dev):
-    """The random (x, X) of the k = 3 kernel checks, with the instance's Q."""
-    n = inst.n
-    rng = np.random.default_rng(SEED)
-    x = rng.random(n)
-    X = np.clip(np.outer(x, x) + 0.15 * rng.standard_normal((n, n)), 0, 1)
-    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
-                 for a in (x, 0.5 * (X + X.T), inst.Q))
-
-
-def check_pair_score(inst, dev) -> dict:
-    n = inst.n
+def k1_twin_check(label: str, inst, sweeps: int, dev):
+    """K1 against its twin on all C(n, 3) triples of ``inst`` at the
+    scoring point: feas atol 5e-5, nn rtol/atol 2e-4 (tests/test_pair_score.py)."""
     x, X, Q = scoring_point(inst, dev)
-    table = torch.as_tensor(combinations_table(n, 3), device=dev)
+    table = torch.as_tensor(combinations_table(inst.n, 3), device=dev)
     mlp = MLPScorer(load_params(3), dev)
-    nn_k, feas_k = pair_score(x, X, Q, table, mlp)
-    nn_p, feas_p = pair_score_plain(x, X, Q, table, mlp)
+    nn_k, feas_k = pair_score(x, X, Q, table, mlp, sweeps)
+    nn_p, feas_p = pair_score_plain(x, X, Q, table, mlp, sweeps)
     torch.cuda.synchronize()
     err_f, r_f = excess(feas_k, feas_p, 0.0, 5e-5)
     err_n, r_n = excess(nn_k, nn_p, 2e-4, 2e-4)
-    log(f"[pair_score] T={table.shape[0]} feas max|err| {err_f:.3e} (atol 5e-5: "
-        f"{r_f:.3f} of limit); nn max|err| {err_n:.3e} (rtol/atol 2e-4: "
+    log(f"[pair_score {label}] T={table.shape[0]} sweeps={sweeps} feas max|err| {err_f:.3e} "
+        f"(atol 5e-5: {r_f:.3f} of limit); nn max|err| {err_n:.3e} (rtol/atol 2e-4: "
         f"{r_n:.3f} of limit)")
     if not (r_f <= 1.0 and r_n <= 1.0):
-        raise AssertionError("pair_score kernel disagrees with its twin")
-    ms = cuda_ms(lambda: pair_score(x, X, Q, table, mlp), reps=50)
-    plain_ms = cuda_ms(lambda: pair_score_plain(x, X, Q, table, mlp), reps=5)
+        raise AssertionError(f"pair_score kernel disagrees with its twin ({label})")
+    return (x, X, Q, table, mlp), max(err_f, err_n), nbytes(x, X, Q, table, nn_k, feas_k)
+
+
+def check_pair_score(inst, small, dev) -> dict:
+    """K1 at n = 125 (checked and timed) and on the small instance of the
+    card-against-CPU phase with 6 sweeps (checked)."""
+    args, err, moved = k1_twin_check(inst.name, inst, 5, dev)
+    _, err_small, _ = k1_twin_check(small.name, small, 6, dev)
+    x, X, Q, table, mlp = args
+    ms = cuda_ms(lambda: pair_score(*args), reps=50)
+    plain_ms = cuda_ms(lambda: pair_score_plain(*args), reps=5)
     T = table.shape[0]
-    b = bound(T * score_ops(3, 5), nbytes(x, X, Q, table, nn_k, feas_k) + mlp_bytes(mlp))
+    b, parts = scoring_bound(T, moved + mlp_bytes(mlp), ms)
     log(f"[pair_score] kernel {ms:.4f} ms ({T / ms / 1e3:.1f} M cand/s); "
-        f"twin {plain_ms:.4f} ms ({T / plain_ms / 1e3:.1f} M cand/s); {share(ms, b)}")
-    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms, **b}
+        f"twin {plain_ms:.4f} ms ({T / plain_ms / 1e3:.1f} M cand/s); {share(ms, b)}; {parts}")
+    return {"max_abs_err": max(err, err_small), "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def check_pair_packed(inst, dev) -> dict:
@@ -254,17 +281,24 @@ def check_pair_packed(inst, dev) -> dict:
     n = inst.n
     if not (r_f <= 1.0 and r_n <= 1.0 and inf_ok and triples.shape[0] == n * (n - 1) * (n - 2) // 6):
         raise AssertionError("pair_packed kernel disagrees with its twin")
-    if vs_k1 != 0.0:      # both kernels run score_common.cuh::score_triple
+    if vs_k1 != 0.0:      # both kernels run score_mma.cuh::score_warp
         raise AssertionError("pair_packed kernel does not give pair_score's bits")
-    ms = cuda_ms(lambda: packed_score(x, X, Q, lay, mlp), reps=50)
-    k1_ms = cuda_ms(lambda: pair_score(x, X, Q, triples, mlp), reps=50)
+    # in turns: K3, K1 on the same triples, K1, K3
+    k3_ms, k1_ms = [], []
+    for runs, fn in ((k3_ms, lambda: packed_score(x, X, Q, lay, mlp)),
+                     (k1_ms, lambda: pair_score(x, X, Q, triples, mlp)),
+                     (k1_ms, lambda: pair_score(x, X, Q, triples, mlp)),
+                     (k3_ms, lambda: packed_score(x, X, Q, lay, mlp))):
+        runs.append(cuda_ms(fn, reps=50))
+    ms = sum(k3_ms) / 2
     plain_ms = cuda_ms(lambda: packed_score_plain(x, X, Q, lay, mlp), reps=5)
     # the valid slots' work; every slot writes its two scores
-    b = bound(triples.shape[0] * score_ops(3, 5),
-              nbytes(x, X, Q, lay.rows, lay.iu, lay.ju, nn_k, feas_k) + mlp_bytes(mlp))
+    b, parts = scoring_bound(triples.shape[0], nbytes(
+        x, X, Q, lay.valid_slots, lay.rows, lay.iu, lay.ju, nn_k, feas_k) + mlp_bytes(mlp), ms)
     log(f"[pair_packed] kernel {ms:.4f} ms ({triples.shape[0] / ms / 1e3:.1f} M valid "
-        f"cand/s); pair_score on the same triples {k1_ms:.4f} ms; twin {plain_ms:.4f} ms; "
-        f"{share(ms, b)}")
+        f"cand/s); in turns K3 {k3_ms!r} ms, pair_score on the same triples {k1_ms!r} ms "
+        f"(K3 / K1 {sum(k3_ms) / sum(k1_ms):.4f}); twin {plain_ms:.4f} ms; {share(ms, b)}; "
+        f"{parts}")
     return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms, **b}
 
 
@@ -291,6 +325,39 @@ def pdhg_ops(n: int, k: int, m: int, active: int, terms: int, iters: int) -> int
     cut-index term, 2 k + 2 k^2 + 6 an active cut, 10 + 2 m an x entry."""
     return iters * (n * n * (31 + 4 * m) + 2 * terms + active * (2 * k + 2 * k * k + 6)
                     + n * (10 + 2 * m) + 4 * m)
+
+
+def sass_mma(kernels) -> dict:
+    """The tensor-core instructions (HMMA, HGMMA) of each kernel in the built
+    library, from cuobjdump -sass: {kernel: {opcode: count}}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build.library_path()], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, current = {k: {} for k in kernels}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in kernels if k in line), None)
+        elif current is not None:
+            for word in line.replace(";", " ").split():
+                if word.startswith(("HMMA", "HGMMA")):
+                    counts[current][word] = counts[current].get(word, 0) + 1
+    return counts
+
+
+def tensor_core_kernels():
+    """ptxas's registers and spills, the persistent grid and the dynamic
+    shared memory of K1 and K3, and the tensor-core instructions in each;
+    fails unless both run their products on the tensor cores."""
+    sass = sass_mma(("pair_score_kernel", "pair_packed_kernel"))
+    for name in ("pair_score", "pair_packed"):
+        out = (ctypes.c_int * 3)()
+        _build.check(getattr(_build.lib(), f"{name}_grid")(out), f"{name}_grid")
+        log(f"[build] {name}_kernel: {ptxas_report(f'{name}_kernel')}; persistent grid "
+            f"{out[0]} CTAs x {out[1]} threads, {out[2]} bytes of dynamic shared memory a CTA; "
+            f"tensor-core instructions {sass[f'{name}_kernel']}")
+        if not any(op.startswith("HMMA") and "TF32" in op
+                   for op in sass[f"{name}_kernel"]):
+            raise AssertionError(f"{name}_kernel has no TF32 HMMA instruction")
 
 
 def ptxas_report(kernel: str) -> str:
@@ -634,10 +701,12 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    tensor_core_kernels()
 
     inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
     band = load_or_generate_qcqp(QCQP_INSTANCE)
-    k1 = check_pair_score(inst, dev)
+    small = parse_boxqp(os.path.join(DATA, "spar020-100-1.in"), name="spar020-100-1")
+    k1 = check_pair_score(inst, small, dev)
     k3 = check_pair_packed(inst, dev)
     k2_box = check_pdhg_block(f"{INSTANCE} m=0", inst.Q, inst.c,
                               combinations_table(inst.n, 3), None, dev)

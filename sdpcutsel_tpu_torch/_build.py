@@ -43,9 +43,11 @@ _SIGNATURES = {
     "fused_score_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P],
     # pair_packed.cu
-    "pair_packed_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P],
+    "pair_packed_grid": [_P],
+    "pair_packed_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # pair_score.cu
+    "pair_score_grid": [_P],
     "pair_score_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P],
     # pdhg_block.cu

@@ -13,49 +13,44 @@
 // Slot (row, lane) of tier t holds the triple (iu[p], ju[p], l) with
 // p = rows_t[row][lane / (128 / per_t)]; it is valid when p >= 0, l > j and
 // l < n.  Valid slots get the per-triple score of pair_score.cu
-// (score_common.cuh score_triple); invalid slots get -inf in both outputs.
+// (score_mma.cuh score_rounds); invalid slots get -inf in both outputs.
 //
-// What bounds it on the H100: as pair_score.cu, the MLP's ~5.1k
-// multiply-adds per valid slot from shared-memory weights; at n = 125,
-// 317,750 of the 507,904 slots are valid and the invalid ones exit after
-// three small loads.
+// What bounds it on the H100: the operations of the valid slots, as in
+// pair_score.cu (the MLP's products on the tensor cores, the Jacobi's IEEE
+// chains on the CUDA cores).  At n = 125, 190,154 of the 507,904 slots (37%)
+// are invalid: one thread a slot left those lanes idle beside warp-mates
+// that scored, so the same triples took 1.38x as long as in pair_score.cu.
 //
-// Design: one thread per slot, 256 threads a block.  The thread decodes its
-// tier, row and lane from the slot number, reads its pair id from that
-// tier's row array and (i, j) from iu / ju, and takes l from the tier's
-// affine lane map: it reads no gathered (slots, 3) table.  The TPU kernel's
-// reason to pack (128-lane vectors that only row slices can fill) does not
-// hold for a thread that gathers on its own; the packing is kept because it
-// fixes the candidate order that the solver's selection ties follow.
+// Design: the valid slots are scored in dense tiles of 32, by pair_score.cu's
+// own warp-specialised device code (score_mma.cuh), so every triple gets
+// K1's bits.  The layout's valid-slot list (PackedLayout.valid_slots, built
+// once per n) gives each producer lane its slot; the lane decodes tier, row
+// and lane from it, reads its pair id from that tier's row array and (i, j)
+// from iu / ju, and takes l from the tier's affine lane map.  The scores go
+// back to the slot's position.  Before the rounds, a grid-stride pass over
+// all slots decodes each one the same way and writes -inf where it is
+// invalid.  The
+// TPU kernel's reason to pack (128-lane vectors that only row slices can
+// fill) does not hold here; the packing is kept because it fixes the
+// candidate order that the solver's selection ties follow.
 
 #include <cuda_runtime.h>
 
 #include <math_constants.h>
 
-#include "score_common.cuh"
+#include "score_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace scoring::mma3;
+
 constexpr int kLanes = 128;
-constexpr int kF = 15;   // features, k = 3
 
-// rows: the three tiers' (R_t, per_t) pair-id arrays, concatenated row-major
-__global__ void __launch_bounds__(kThreads) pair_packed_kernel(
-    int S, int n, int R0, int R1, int sweeps, const int* __restrict__ rows,
-    const int* __restrict__ iu, const int* __restrict__ ju,
-    const float* __restrict__ x, const float* __restrict__ X,
-    const float* __restrict__ Q,
-    const float* __restrict__ W1, const float* __restrict__ b1,
-    const float* __restrict__ W2, const float* __restrict__ b2,
-    const float* __restrict__ W3, const float* __restrict__ b3,
-    float* __restrict__ nn_out, float* __restrict__ feas_out) {
-  __shared__ scoring::MLPWeights<kF> sw;
-  scoring::load_mlp(sw, W1, b1, W2, b2, W3, b3);
-  __syncthreads();
-
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
+// the triple of slot s; false when the slot is invalid.  rows: the three
+// tiers' (R_t, per_t) pair-id arrays, concatenated row-major
+__device__ __forceinline__ bool decode_slot(
+    int s, int n, int R0, int R1, const int* __restrict__ rows,
+    const int* __restrict__ iu, const int* __restrict__ ju, int& i, int& j, int& l) {
   const int g = s / kLanes;            // row over all tiers
   const int lane = s % kLanes;
   int per, first, lo;                  // pairs a row, tier's first pair id entry, lane map
@@ -69,28 +64,77 @@ __global__ void __launch_bounds__(kThreads) pair_packed_kernel(
   }
   const int sub = kLanes / per;        // lanes a pair
   const int p = rows[first + r * per + lane / sub];
-  const int l = lo + lane % sub;
-  if (p < 0 || l >= n || l <= ju[p]) {
-    nn_out[s] = -CUDART_INF_F;
-    feas_out[s] = -CUDART_INF_F;
-    return;
+  l = lo + lane % sub;
+  if (p < 0 || l >= n) return false;
+  i = iu[p];
+  j = ju[p];
+  return l > j;
+}
+
+// candidate c is the valid slot valid_slots[c]
+struct ValidSlots {
+  const int* __restrict__ valid_slots;
+  int n, R0, R1;
+  const int* __restrict__ rows;
+  const int* __restrict__ iu;
+  const int* __restrict__ ju;
+  __device__ bool operator()(int c, int& i, int& j, int& l, int& pos) const {
+    pos = valid_slots[c];
+    return decode_slot(pos, n, R0, R1, rows, iu, ju, i, j, l);
   }
-  scoring::score_triple(iu[p], ju[p], l, n, sweeps, x, X, Q, sw, nn_out[s], feas_out[s]);
+};
+
+__global__ void __launch_bounds__(kThreads, 1) pair_packed_kernel(
+    int S, int V, int n, int R0, int R1, int sweeps, const int* __restrict__ valid_slots,
+    const int* __restrict__ rows, const int* __restrict__ iu, const int* __restrict__ ju,
+    const float* __restrict__ x, const float* __restrict__ X,
+    const float* __restrict__ Q,
+    const float* __restrict__ W1, const float* __restrict__ b1,
+    const float* __restrict__ W2, const float* __restrict__ b2,
+    const float* __restrict__ W3, const float* __restrict__ b3,
+    float* __restrict__ nn_out, float* __restrict__ feas_out) {
+  extern __shared__ float4 smem[];
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  load_split_mlp(sh.w, W1, b1, W2, b2, W3, b3);
+  for (int s = blockIdx.x * kThreads + threadIdx.x; s < S; s += gridDim.x * kThreads) {
+    int i, j, l;
+    if (!decode_slot(s, n, R0, R1, rows, iu, ju, i, j, l)) {
+      nn_out[s] = -CUDART_INF_F;
+      feas_out[s] = -CUDART_INF_F;
+    }
+  }
+  __syncthreads();
+  score_rounds(ValidSlots{valid_slots, n, R0, R1, rows, iu, ju}, V, n, sweeps, x, X, Q, sh,
+               nn_out, feas_out);
+}
+
+const Grid& grid() {
+  static const Grid g = persistent_grid(pair_packed_kernel);
+  return g;
 }
 
 }  // namespace
 
+// the persistent grid: out[0] CTAs of out[1] threads, out[2] bytes of dynamic
+// shared memory a CTA
+extern "C" int pair_packed_grid(int* out) {
+  out[0] = grid().ctas;
+  out[1] = kThreads;
+  out[2] = static_cast<int>(kSmemBytes);
+  return static_cast<int>(grid().err);
+}
+
 extern "C" int pair_packed_launch(
-    int S, int n, int R0, int R1, int sweeps, const int* rows, const int* iu,
-    const int* ju, const float* x, const float* X, const float* Q,
-    const float* W1, const float* b1, const float* W2, const float* b2,
-    const float* W3, const float* b3, float* nn_out, float* feas_out,
-    void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    pair_packed_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        S, n, R0, R1, sweeps, rows, iu, ju, x, X, Q, W1, b1, W2, b2, W3, b3, nn_out,
-        feas_out);
+    int S, int V, int n, int R0, int R1, int sweeps, const int* valid_slots,
+    const int* rows, const int* iu, const int* ju, const float* x, const float* X,
+    const float* Q, const float* W1, const float* b1, const float* W2, const float* b2,
+    const float* W3, const float* b3, float* nn_out, float* feas_out, void* stream) {
+  if (grid().err != cudaSuccess) return static_cast<int>(grid().err);
+  if (S > 0) {
+    pair_packed_kernel<<<ctas_for(grid(), S), kThreads, kSmemBytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+        S, V, n, R0, R1, sweeps, valid_slots, rows, iu, ju, x, X, Q, W1, b1, W2, b2, W3,
+        b3, nn_out, feas_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Dense k = 3 candidate scoring: MLP estimate and feasibility violation of
-// every triple of the lexicographic C(n, 3) table, float32.
+// every triple of a (T, 3) table (the lexicographic C(n, 3) table on the
+// main path), float32.
 //
 // Replaces the Pallas TPU kernel sdpcutsel_tpu/ops/pair_score.py::_pair_kernel
 // (launched from pair_score_fused) together with the XLA MLP that ran on its
@@ -10,29 +11,49 @@
 //           4 x 4 Z = [[1, x_rho'], [x_rho, X_rho]] (ops/jacobi.py rules,
 //           sign(0) = +1).
 //
-// What bounds it on the H100: the MLP's ~5.1k multiply-adds per candidate,
-// whose weights come from shared memory (one shared load per one to four
-// FMAs); the 24 gathered inputs per candidate hit L2 (x, X, Q ~125 KB at
-// n = 125) and the 12-byte table row is the only streamed input.
+// What bounds it on the H100: the operations, and among them the Jacobi.
+// Of a candidate's ~11.4k, 10,112 are the MLP's products 15 -> 64 and
+// 64 -> 64, which one thread a candidate ran on the CUDA cores at one
+// shared-memory weight load per one to four FMAs, while the tensor cores
+// idled.  With the products on the tensor cores, what is left is the
+// Jacobi's 30 rotations (5 sweeps), three IEEE divisions and two square
+// roots each, whose slow paths diverge inside a warp wherever a lane meets
+// an overflowing tau^2; the Jacobi must keep these semantics (feas is held
+// to its bits).  The 24 gathered inputs hit L2 (x, X, Q ~125 KB at
+// n = 125); the 12-byte table row is the only streamed input.
 //
-// Design: one thread per candidate, 256 threads a block.  The 5,249 MLP
-// weights sit in static shared memory; the MLP and the Jacobi are the shared
-// device code of score_common.cuh (first hidden layer in 64 registers, layer
-// 2 folded into layer 3; Jacobi on the 10 unique entries of Z in registers),
-// all inside score_triple, which the packed kernel pair_packed.cu shares.
-// The MLP is fused into the kernel: the TPU version wrote 15 feature planes
-// to device memory and read them back for the matmuls.
+// Design: the warp-specialised persistent CTA of score_mma.cuh, one a SM
+// (768 threads, 154 KB of dynamic shared memory): 20 producer warps at 48
+// registers gather, build the features into shared stages and run the
+// Jacobi; 4 consumer warps at 232 registers run layers 1 and 2 of the MLP as
+// m16n8k8 TF32 mma in split TF32 (hi*hi + hi*lo + lo*hi, which keeps the
+// fp32 twin's tolerance where one TF32 pass does not) and layer 3 in fp32.
+// The weights are split into hi and lo once a CTA.  The table's rows are
+// cut into tiles of 32, a producer a tile a round; the last tile is masked.
+// The MLP is fused: the TPU version wrote 15 feature planes to device
+// memory and read them back for the matmuls.
 
 #include <cuda_runtime.h>
 
-#include "score_common.cuh"
+#include "score_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kF = 15;   // features, k = 3
+using namespace scoring::mma3;
 
-__global__ void __launch_bounds__(kThreads) pair_score_kernel(
+// candidate c is row c of the table
+struct TableRows {
+  const int* __restrict__ table;
+  __device__ bool operator()(int c, int& i, int& j, int& l, int& pos) const {
+    i = table[3 * c];
+    j = table[3 * c + 1];
+    l = table[3 * c + 2];
+    pos = c;
+    return true;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1) pair_score_kernel(
     int T, int n, int sweeps, const int* __restrict__ table,
     const float* __restrict__ x, const float* __restrict__ X,
     const float* __restrict__ Q,
@@ -40,26 +61,38 @@ __global__ void __launch_bounds__(kThreads) pair_score_kernel(
     const float* __restrict__ W2, const float* __restrict__ b2,
     const float* __restrict__ W3, const float* __restrict__ b3,
     float* __restrict__ nn_out, float* __restrict__ feas_out) {
-  __shared__ scoring::MLPWeights<kF> sw;
-  scoring::load_mlp(sw, W1, b1, W2, b2, W3, b3);
+  extern __shared__ float4 smem[];
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  load_split_mlp(sh.w, W1, b1, W2, b2, W3, b3);
   __syncthreads();
+  score_rounds(TableRows{table}, T, n, sweeps, x, X, Q, sh, nn_out, feas_out);
+}
 
-  const int tid = blockIdx.x * kThreads + threadIdx.x;
-  if (tid >= T) return;
-  scoring::score_triple(table[3 * tid], table[3 * tid + 1], table[3 * tid + 2], n, sweeps,
-                        x, X, Q, sw, nn_out[tid], feas_out[tid]);
+const Grid& grid() {
+  static const Grid g = persistent_grid(pair_score_kernel);
+  return g;
 }
 
 }  // namespace
+
+// the persistent grid: out[0] CTAs of out[1] threads, out[2] bytes of dynamic
+// shared memory a CTA
+extern "C" int pair_score_grid(int* out) {
+  out[0] = grid().ctas;
+  out[1] = kThreads;
+  out[2] = static_cast<int>(kSmemBytes);
+  return static_cast<int>(grid().err);
+}
 
 extern "C" int pair_score_launch(
     int T, int n, int sweeps, const int* table, const float* x,
     const float* X, const float* Q, const float* W1, const float* b1,
     const float* W2, const float* b2, const float* W3, const float* b3,
     float* nn_out, float* feas_out, void* stream) {
-  const int blocks = (T + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    pair_score_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (grid().err != cudaSuccess) return static_cast<int>(grid().err);
+  if (T > 0) {
+    pair_score_kernel<<<ctas_for(grid(), T), kThreads, kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
         T, n, sweeps, table, x, X, Q, W1, b1, W2, b2, W3, b3, nn_out, feas_out);
   }
   return static_cast<int>(cudaGetLastError());

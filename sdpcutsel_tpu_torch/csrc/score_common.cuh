@@ -1,7 +1,8 @@
-// Device code shared by the candidate scoring kernels (pair_score.cu,
-// pair_packed.cu and fused_score.cu): cyclic Jacobi on the packed upper
-// triangle of a small symmetric matrix, the F -> 64 -> 64 -> 1 relu MLP with
-// its weights in shared memory, and the whole k = 3 score of one triple.
+// Device code shared by the candidate scoring kernels: cyclic Jacobi on the
+// packed upper triangle of a small symmetric matrix (fused_score.cu, and the
+// k = 3 kernels pair_score.cu and pair_packed.cu through score_mma.cuh), and
+// the F -> 64 -> 64 -> 1 relu MLP with its weights in shared memory, one
+// thread a candidate on the CUDA cores (fused_score.cu).
 //
 // Jacobi: the rotation formulas and the sign(0) = +1 rule of ops/jacobi.py,
 // in its cyclic order (0,1), (0,2), ..., (M-2,M-1), on the M(M+1)/2 unique
@@ -129,32 +130,6 @@ __device__ __forceinline__ float mlp_relu(const float (&f)[F], const MLPWeights<
     out += w.W3[o] * fmaxf(s + w.b2[o], 0.0f);
   }
   return fmaxf(out + w.b3, 0.0f);
-}
-
-// nn and feas of the triple rho = (i, j, l), gathered from row-major n x n
-// Q and X: the per-candidate math of the dense k = 3 kernels (pair_score.cu
-// over any table, pair_packed.cu over the packed tiers), so both give the
-// same bits for the same triple
-__device__ __forceinline__ void score_triple(
-    int i, int j, int l, int n, int sweeps, const float* __restrict__ x,
-    const float* __restrict__ X, const float* __restrict__ Q,
-    const MLPWeights<15>& sw, float& nn, float& feas) {
-  const float qii = Q[i * n + i], qij = Q[i * n + j], qil = Q[i * n + l];
-  const float qjj = Q[j * n + j], qjl = Q[j * n + l], qll = Q[l * n + l];
-  const float xi = x[i], xj = x[j], xl = x[l];
-  const float Xii = X[i * n + i], Xij = X[i * n + j], Xil = X[i * n + l];
-  const float Xjj = X[j * n + j], Xjl = X[j * n + l], Xll = X[l * n + l];
-
-  const float scale = fmaxf(fmaxf(fmaxf(fabsf(qii), fabsf(qij)), fmaxf(fabsf(qil), fabsf(qjj))),
-                            fmaxf(fabsf(qjl), fabsf(qll)));
-  const float safe = fmaxf(scale, 1e-12f);
-  const float f[15] = {qii / safe, qij / safe, qil / safe, qjj / safe, qjl / safe,
-                       qll / safe, xi, xj, xl, Xii, Xij, Xil, Xjj, Xjl, Xll};
-  nn = scale * mlp_relu(f, sw);
-
-  // feasibility: cyclic Jacobi on the 4 x 4 Z(rho)
-  float a[10] = {1.0f, xi, xj, xl, Xii, Xij, Xil, Xjj, Xjl, Xll};
-  feas = -jacobi_min_eig<4>(a, sweeps);
 }
 
 }  // namespace scoring

@@ -23,7 +23,9 @@ For every slot both the kernel and the twin return
 
 the per-triple semantics of ``pair_score``, and -inf for both at invalid
 slots (the reference computes those from zero padding and masks them before
-selection).  The kernel replaces the Pallas TPU kernel
+selection).  The kernel scores only the valid slots, in dense tiles read
+from ``PackedLayout.valid_slots``, with ``pair_score``'s device code, so a
+triple gets the same bits from both.  It replaces the Pallas TPU kernel
 ``sdpcutsel_tpu/ops/pair_packed.py::_packed_kernel`` (launched from
 ``_tier_score``) plus the XLA MLP over its feature planes.
 
@@ -50,9 +52,10 @@ LANES = 128     # slots of a row, and the multiple each tier's rows are padded t
 def build_packed_pair_layout(n: int) -> dict:
     """The reference's packed layout (numpy).  Returns iu, ju (all pairs),
     tiers = (t0, t1, t2) with t_t an (R_t, 1 | 2 | 4) int32 array of pair ids
-    (-1 pads), lmaps (each tier's lane -> l map), and the matching candidate
-    table (slots, 3) and validity mask (slots,).  Callers must not write to
-    the cached arrays."""
+    (-1 pads), lmaps (each tier's lane -> l map), the matching candidate
+    table (slots, 3) and validity mask (slots,), and the valid slots in
+    order (the kernel's dense tiles).  Callers must not write to the cached
+    arrays."""
     assert 66 <= n <= LANES, (
         "tiered packing targets the large-n regime (lane windows assume "
         f"n >= 66); got {n} — use the lexicographic table below that")
@@ -84,19 +87,21 @@ def build_packed_pair_layout(n: int) -> dict:
         valid = ok & (lmap[None, :] > ju[p]) & (lmap[None, :] < n)
         tables.append(tab.reshape(-1, 3))
         valids.append(valid.reshape(-1))
+    valid = np.concatenate(valids, axis=0)
     return {
         "iu": iu.astype(np.int32), "ju": ju.astype(np.int32),
         "tiers": (t0, t1, t2), "lmaps": lmaps,
         "table": np.concatenate(tables, axis=0).astype(np.int32),
-        "valid": np.concatenate(valids, axis=0),
+        "valid": valid, "valid_slots": np.flatnonzero(valid).astype(np.int32),
     }
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedLayout:
     """``build_packed_pair_layout(n)`` on a device: what the kernel reads
-    (tier row counts, the tiers' pair ids concatenated row-major, iu, ju) and
-    what selection reads (the slot-ordered table and mask)."""
+    (tier row counts, the tiers' pair ids concatenated row-major, iu, ju, the
+    valid slots) and what selection reads (the slot-ordered table and
+    mask)."""
     n: int
     R: tuple          # (R0, R1, R2) rows of each tier
     rows: torch.Tensor   # (R0 + 2 R1 + 4 R2,) int32 pair ids, -1 pads
@@ -104,6 +109,7 @@ class PackedLayout:
     ju: torch.Tensor
     table: torch.Tensor  # (slots, 3) int32
     valid: torch.Tensor  # (slots,) bool
+    valid_slots: torch.Tensor  # (C(n, 3),) int32 slots where valid, ascending
 
     @property
     def slots(self) -> int:
@@ -116,7 +122,8 @@ def packed_layout(n: int, device) -> PackedLayout:
     return PackedLayout(
         n=n, R=tuple(r.shape[0] for r in lay["tiers"]),
         rows=t(np.concatenate([r.ravel() for r in lay["tiers"]])),
-        iu=t(lay["iu"]), ju=t(lay["ju"]), table=t(lay["table"]), valid=t(lay["valid"]))
+        iu=t(lay["iu"]), ju=t(lay["ju"]), table=t(lay["table"]), valid=t(lay["valid"]),
+        valid_slots=t(lay["valid_slots"]))
 
 
 def slot_triples(lay: PackedLayout):
@@ -160,15 +167,17 @@ def _launch(x, X, Q, lay: PackedLayout, mlp: MLPScorer):
     for t in (x, X, Q, *weights):
         if t.dtype != torch.float32 or t.device != x.device:
             raise ValueError("pair_packed kernel takes float32 tensors on one device")
-    for t in (lay.rows, lay.iu, lay.ju):
+    for t in (lay.valid_slots, lay.rows, lay.iu, lay.ju):
         if t.dtype != torch.int32 or t.device != x.device:
             raise ValueError("pair_packed kernel takes the layout's int32 tensors on x's device")
     lib = _build.lib()
-    args = [t.contiguous() for t in (lay.rows, lay.iu, lay.ju, x, X, Q, *weights)]
+    args = [t.contiguous() for t in (lay.valid_slots, lay.rows, lay.iu, lay.ju, x, X, Q,
+                                     *weights)]
     nn = torch.empty((lay.slots,), dtype=torch.float32, device=x.device)
     feas = torch.empty_like(nn)
     err = lib.pair_packed_launch(
-        lay.slots, n, lay.R[0], lay.R[1], SWEEPS, *(t.data_ptr() for t in args),
+        lay.slots, lay.valid_slots.shape[0], n, lay.R[0], lay.R[1], SWEEPS,
+        *(t.data_ptr() for t in args),
         nn.data_ptr(), feas.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pair_packed_launch")
     packed_score.launches += 1

@@ -11,10 +11,11 @@ For every triple of a (T, 3) candidate table (the lexicographic
 The kernel replaces the Pallas TPU kernel
 ``sdpcutsel_tpu/ops/pair_score.py::_pair_kernel`` (launched from
 ``pair_score_fused``) plus the XLA MLP over its feature planes.  The TPU
-kernel scored in a padded pair layout; here every thread gathers its own
-triple, so the candidate order is the table's own.  The pair layout's valid
-slots run in lexicographic order, so the lexicographic table selects as the
-reference's pair route does.
+kernel scored in a padded pair layout; here every lane of a warp gathers its
+own triple, so the candidate order is the table's own, and the warp runs the
+MLP's two products on the tensor cores in split TF32 (``csrc/score_mma.cuh``).
+The pair layout's valid slots run in lexicographic order, so the
+lexicographic table selects as the reference's pair route does.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pair_score.launches`` counts kernel launches.

@@ -75,6 +75,20 @@ def test_packed_layout_equals_reference(n):
                                   want["table"][want["valid"]])
 
 
+@pytest.mark.parametrize("n", [66, 70, 125, 128])
+def test_valid_slots_list_the_valid_triples_in_order(n):
+    """The kernel's dense tiles: the valid slots in slot order, whose decoded
+    triples are the layout's valid triples."""
+    lay = packed_layout(n, "cpu")
+    np.testing.assert_array_equal(lay.valid_slots.numpy(),
+                                  torch.nonzero(lay.valid).flatten().numpy())
+    i, j, l, valid = slot_triples(lay)
+    s = lay.valid_slots.long()
+    assert bool(valid[s].all()) and lay.valid_slots.shape[0] == n * (n - 1) * (n - 2) // 6
+    np.testing.assert_array_equal(torch.stack([i, j, l], 1)[s].numpy(),
+                                  lay.table[s].numpy())
+
+
 @pytest.mark.parametrize("n", [3, 20, 70, 125])
 def test_pair_layout_equals_reference(n):
     """The reference's pair layout (``pair_layout="on"``) in the port: its

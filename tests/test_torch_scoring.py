@@ -22,7 +22,8 @@ from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
 from sdpcutsel_tpu_torch.instances import generate_spar
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops import topk as ttopk
-from sdpcutsel_tpu_torch.ops.pair_score import pair_score
+from sdpcutsel_tpu_torch.models import features as tfeatures
+from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
 
 FEAS = dict(rtol=0, atol=5e-5)
 NN = dict(rtol=2e-4, atol=2e-4)
@@ -131,6 +132,63 @@ def test_diverse_topk_ties_match_reference(alpha):
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+
+
+def _rna_tf32(t):
+    """cvt.rna.tf32.f32 on the fp32 bit pattern: round to 10 mantissa bits,
+    ties away from zero."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, w, passes):
+    """a @ w.T as the k = 3 kernels run it on the tensor cores: K padded to
+    k-steps of 8 with zeros in both operands, each operand split into hi =
+    rna(v) and lo = rna(v - hi), and per k-step lo*hi, hi*lo, hi*hi (3
+    passes) or hi*hi alone (1 pass) accumulated in fp32."""
+    pad = -a.shape[1] % 8
+    a, w = (torch.nn.functional.pad(t, (0, pad)) for t in (a, w))
+    ah, wh = _rna_tf32(a), _rna_tf32(w)
+    al, wl = _rna_tf32(a - ah), _rna_tf32(w - wh)
+    terms = [(al, wh), (ah, wl), (ah, wh)] if passes == 3 else [(ah, wh)]
+    out = torch.zeros(a.shape[0], w.shape[0])
+    for k in range(0, a.shape[1], 8):
+        for p, q in terms:
+            out = out + p[:, k:k + 8] @ q[:, k:k + 8].T
+    return out
+
+
+def _tf32_nn_excess(seed, passes):
+    """The k = 3 nn scores with layers 1 and 2 emulated in TF32 (layer 3,
+    the biases, relu and scale in fp32) against pair_score_plain, as a share
+    of the nn tolerance, over all C(30, 3) triples of spar030-100-1."""
+    n = 30
+    inst = generate_spar(n, 100, 1)
+    rng = np.random.default_rng(seed)
+    x = rng.random(n)
+    X = np.clip(np.outer(x, x) + 0.15 * rng.standard_normal((n, n)), 0, 1)
+    x, X, Q = (torch.as_tensor(a, dtype=torch.float32) for a in (x, 0.5 * (X + X.T), inst.Q))
+    table = torch.as_tensor(combinations_table(n, 3))
+    mlp = MLPScorer(load_params(3), "cpu")
+    want, _ = pair_score_plain(x, X, Q, table, mlp)
+    triQ, scale = tfeatures.candidate_q_features(Q, table)
+    l1, l2, l3 = mlp.layers
+    feats = tfeatures.candidate_features(triQ, x, X, table)
+    h = torch.relu(_tf32_product(feats, l1.weight, passes) + l1.bias)
+    h = torch.relu(_tf32_product(h, l2.weight, passes) + l2.bias)
+    got = scale * torch.relu(h @ l3.weight[0] + l3.bias[0])
+    return float(((got - want).abs() / (NN["atol"] + NN["rtol"] * want.abs())).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_tf32_mlp_keeps_the_twin_tolerance(seed):
+    """The kernels' split TF32 keeps nn within a quarter of the twin
+    tolerance (csrc/score_mma.cuh)."""
+    assert _tf32_nn_excess(seed, passes=3) <= 0.25
+
+
+def test_one_pass_tf32_mlp_breaks_the_twin_tolerance():
+    """Why the split: one TF32 pass, scaled by max |Q_rho|, does not keep it."""
+    assert _tf32_nn_excess(0, passes=1) > 1.0
 
 
 def test_pair_score_refuses_devices_without_kernel():
