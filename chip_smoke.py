@@ -6,11 +6,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
      triton; no CUDA device -> exit 2 before any result is printed;
   2. build the four kernels from csrc/, one nvcc each, in parallel (timed
-     as set-up); print ptxas's registers and spills, and for the k = 3
-     scoring kernels their persistent grid, their dynamic shared memory and
-     the tensor-core (HMMA) instructions that cuobjdump finds in each;
+     as set-up), and beside them a variant of the scoring kernels without
+     the Jacobi's overflow guard (scoring_variants.UNGUARDED); print
+     ptxas's registers and spills, and for the scoring kernels (K1, K3, K4
+     at k = 2..5) their persistent grid, their dynamic shared memory and
+     the tensor-core (HMMA) instructions that cuobjdump finds in each (no
+     TF32 HMMA, or a spill, fails);
   3. check each kernel against its plain PyTorch twin on the card at the
-     main paths' shapes, and time both with CUDA events:
+     main paths' shapes, and time both with CUDA events (the scoring
+     kernels also on the device, with the profiler):
        pair_score   n = 125, all 317,750 candidates of spar125-100-1, and
                     the 1,140 of spar020-100-1 with 6 sweeps (checked only);
        pair_packed  n = 125, the 507,904 slots of the packed layout on
@@ -28,12 +32,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
      operations over 67 TFLOP/s fp32, those it runs on the tensor cores over
      495 TFLOP/s dense TF32, and its bytes, each input read and each output
      written once, over 3.35 TB/s) and its roofline share;
-       fused_score  k = 2 over C(125, 2) (5 sweeps); k = 4 and 5 over the
-                    clique tables of qcqp025-25-4-2 and qcqpband100-5-25-1
-                    (6 sweeps);
+       fused_score  k = 2 over C(125, 2) and k = 3 over C(30, 3) (5 sweeps);
+                    k = 4 and 5 over the clique tables of qcqp025-25-4-2
+                    and qcqpband100-5-25-1 (6 sweeps); with its launch grid;
+     then the guard: K1 on all of C(125, 3) and K4 at k = 5 on both clique
+     tables give the unguarded variant's bits (torch.equal), timed in turns
+     (the variant's entry points called directly, outside the wrappers);
   4. the rounds on the card against the CPU port, 3 rounds each:
-     spar020-100-1 at k = 3 and at k = 2, qcqp015-30-3-1 at k = 5; and 2
+     spar020-100-1 at k = 3 and at k = 2, qcqp015-30-3-1 at k = 5; 2
      rounds of the packed route (generate_spar(70, 100, 1), feasibility);
+     and spar150-100-1 (generated), outside K2's launch plan: by default
+     its solve refuses on the card with the plan's reason, and with
+     LPConfig(use_kernel="off") 2 rounds run the plain loop there, K2 not
+     launched;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -44,8 +55,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      capacity 1024, LPConfig(max_iters=20000, tol=2e-6), polish 60,000
      iterations), 8 rounds, counters reset before and read after; the
      bounds are held to data/qcqp/bounds.json and to the JAX package's
-     recorded round 0 (results/qcqp.jsonl), and a second run must repeat
-     the first bit for bit, polish included;
+     recorded round 0 (results/qcqp.jsonl), and a second run, round by
+     round, must repeat the first bit for bit, polish included, while K4 is
+     held to its twin at every round's LP point;
   7. the packed scan path: CutSolver on spar125-100-1 with
      CutConfig(pair_layout="packed"), strategy neural, the same LP,
      LoopConfig(use_scan=True), 10 rounds after a one-round warm-up, counters
@@ -55,6 +67,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      every round bit for bit;
   8. one JSON line of kernel results, then the last line
      {"ok": true, "device": {...}}.
+Every path's launch counts include the solve's plain PDHG blocks on the
+card ("pdhg_block plain"), which must be 0 on the three main paths.
 
 TF32 is turned off for the whole process at its start: the scoring twin's
 MLP runs as cuBLAS matrix products, and it agrees with the kernel to 2e-4
@@ -78,21 +92,24 @@ import torch
 from sdpcutsel_tpu_torch import _build
 from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
-from sdpcutsel_tpu_torch.instances import generate_spar, load_or_generate_qcqp, parse_boxqp
+from sdpcutsel_tpu_torch.instances import (generate_spar, load_or_generate,
+                                           load_or_generate_qcqp, parse_boxqp)
 from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch.lp.pdhg import estimate_norm, init_state
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
-from sdpcutsel_tpu_torch.lp.pdhg_kernel import launch_plan, pdhg_block, pdhg_block_plain
-from sdpcutsel_tpu_torch.models.features import candidate_q_features
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, pdhg_block, pdhg_block_plain,
+                                                plan_refusal)
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
-from sdpcutsel_tpu_torch.qcqp.chordal import chordal_decomposition, clique_candidates
+from sdpcutsel_tpu_torch.qcqp.solver import SWEEPS as QCQP_SWEEPS
 from sdpcutsel_tpu_torch.relax.cutbuffer import append_cuts, build_cut_index, empty_pool
 from sdpcutsel_tpu_torch.relax.denserows import dense_from_qcqp
-from sdpcutsel_tpu_torch.scoring_variants import scoring_point
+from sdpcutsel_tpu_torch.scoring_variants import (UNGUARDED, clique_table, device_ms,
+                                                  fused_args, k1_call, k4_call, scoring_point,
+                                                  start_variants)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, "data", "boxqp")
@@ -109,13 +126,16 @@ SEED = 0
 PEAK_FLOPS = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
-# the k = 3 MLP's products 15 -> 64 and 64 -> 64 a candidate, which K1 and K3
-# run on the tensor cores (the three passes of split TF32 are their own cost)
-MLP3_PRODUCT_OPS = 2 * 64 * 15 + 2 * 64 * 64
 # K2's microseconds an iteration before the cluster design (PERF.md, PR 3)
 K2_PR3_US = {0: 35.11, 25: 72.39}
+# the main paths' final bounds as PERF.md records them, printed beside this run's
+BOXQP_RECORDED_FINAL = 46173.94073905878
+QCQP_RECORDED_FINAL = 2996.008999203225
 WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
             "pdhg_block": pdhg_block, "fused_score": fused_score}
+PLAIN_BLOCKS = "pdhg_block plain"     # the solve's plain PDHG blocks on the card
+SCORING_KERNELS = ("pair_score_kernel", "pair_packed_kernel",
+                   *(f"fused_score_kernelILi{k}E" for k in (2, 3, 4, 5)))
 
 
 def log(*args):
@@ -192,17 +212,26 @@ def score_ops(k: int, sweeps: int) -> int:
     return jacobi + mlp + 3 * (k * (k + 1) // 2)
 
 
-def scoring_bound(T: int, moved: int, ms: float) -> tuple[dict, str]:
-    """K1's and K3's bound for T candidates at 5 sweeps: the MLP's products
-    on the tensor cores, the rest of score_ops(3, 5) at fp32, the bytes; and
-    the three times, with PR 4's bound (every operation at fp32) beside."""
-    tc = T * MLP3_PRODUCT_OPS
-    rest = T * score_ops(3, 5) - tc
-    fp32_only = bound(T * score_ops(3, 5), moved)["bound_ms"]
+def mlp_product_ops(k: int) -> int:
+    """The MLP's products F -> 64 and 64 -> 64 a candidate of width k, which
+    the scoring kernels run on the tensor cores (the three passes of split
+    TF32 are the kernels' own cost, not more work)."""
+    return 2 * 64 * (k * (k + 1) + k) + 2 * 64 * 64
+
+
+def scoring_bound(T: int, moved: int, ms: float, k: int = 3,
+                  sweeps: int = 5) -> tuple[dict, str]:
+    """A scoring kernel's bound for T candidates of width k: the MLP's
+    products on the tensor cores, the rest of score_ops(k, sweeps) at fp32,
+    the bytes; and the three times, with the earlier bound (every operation
+    at fp32) beside."""
+    tc = T * mlp_product_ops(k)
+    rest = T * score_ops(k, sweeps) - tc
+    fp32_only = bound(T * score_ops(k, sweeps), moved)["bound_ms"]
     return bound(rest, moved, tc), (
         f"TF32 products {tc / PEAK_TF32 * 1e3:.5f} ms, the rest at fp32 "
         f"{rest / PEAK_FLOPS * 1e3:.5f} ms, bytes {moved / PEAK_BYTES * 1e3:.5f} ms; "
-        f"every operation at fp32 (PR 4's count) {fp32_only:.5f} ms, share "
+        f"every operation at fp32 (the earlier count) {fp32_only:.5f} ms, share "
         f"{fp32_only / ms:.4%}")
 
 
@@ -218,10 +247,12 @@ def share(ms: float, b: dict) -> str:
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    pdhg_block.plain_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {**{name: fn.launches for name, fn in WRAPPERS.items()},
+            PLAIN_BLOCKS: pdhg_block.plain_launches}
 
 
 def k1_twin_check(label: str, inst, sweeps: int, dev):
@@ -250,12 +281,15 @@ def check_pair_score(inst, small, dev) -> dict:
     _, err_small, _ = k1_twin_check(small.name, small, 6, dev)
     x, X, Q, table, mlp = args
     ms = cuda_ms(lambda: pair_score(*args), reps=50)
+    dev_ms = device_ms(lambda: pair_score(*args), "pair_score_kernel")
     plain_ms = cuda_ms(lambda: pair_score_plain(*args), reps=5)
     T = table.shape[0]
     b, parts = scoring_bound(T, moved + mlp_bytes(mlp), ms)
-    log(f"[pair_score] kernel {ms:.4f} ms ({T / ms / 1e3:.1f} M cand/s); "
-        f"twin {plain_ms:.4f} ms ({T / plain_ms / 1e3:.1f} M cand/s); {share(ms, b)}; {parts}")
-    return {"max_abs_err": max(err, err_small), "ms": ms, "plain_ms": plain_ms, **b}
+    log(f"[pair_score] kernel {ms:.4f} ms by events ({T / ms / 1e3:.1f} M cand/s), "
+        f"{dev_ms:.4f} ms on the device (profiler); twin {plain_ms:.4f} ms "
+        f"({T / plain_ms / 1e3:.1f} M cand/s); {share(ms, b)}; {parts}")
+    return {"max_abs_err": max(err, err_small), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **b}
 
 
 def check_pair_packed(inst, dev) -> dict:
@@ -291,15 +325,17 @@ def check_pair_packed(inst, dev) -> dict:
                      (k3_ms, lambda: packed_score(x, X, Q, lay, mlp))):
         runs.append(cuda_ms(fn, reps=50))
     ms = sum(k3_ms) / 2
+    dev_ms = device_ms(lambda: packed_score(x, X, Q, lay, mlp), "pair_packed_kernel")
     plain_ms = cuda_ms(lambda: packed_score_plain(x, X, Q, lay, mlp), reps=5)
     # the valid slots' work; every slot writes its two scores
     b, parts = scoring_bound(triples.shape[0], nbytes(
         x, X, Q, lay.valid_slots, lay.rows, lay.iu, lay.ju, nn_k, feas_k) + mlp_bytes(mlp), ms)
-    log(f"[pair_packed] kernel {ms:.4f} ms ({triples.shape[0] / ms / 1e3:.1f} M valid "
-        f"cand/s); in turns K3 {k3_ms!r} ms, pair_score on the same triples {k1_ms!r} ms "
-        f"(K3 / K1 {sum(k3_ms) / sum(k1_ms):.4f}); twin {plain_ms:.4f} ms; {share(ms, b)}; "
-        f"{parts}")
-    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms, **b}
+    log(f"[pair_packed] kernel {ms:.4f} ms by events ({triples.shape[0] / ms / 1e3:.1f} M "
+        f"valid cand/s), {dev_ms:.4f} ms on the device (profiler); in turns K3 {k3_ms!r} ms, "
+        f"pair_score on the same triples {k1_ms!r} ms (K3 / K1 "
+        f"{sum(k3_ms) / sum(k1_ms):.4f}); twin {plain_ms:.4f} ms; {share(ms, b)}; {parts}")
+    return {"max_abs_err": max(err_f, err_n), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **b}
 
 
 def random_pool(table: np.ndarray, M: int, active: int, rng, dev):
@@ -344,20 +380,35 @@ def sass_mma(kernels) -> dict:
     return counts
 
 
+def scoring_grid(kernel: str) -> tuple:
+    """(CTAs the card holds, threads a CTA, dynamic shared bytes a CTA) of a
+    scoring kernel's persistent launch (SCORING_KERNELS names)."""
+    out = (ctypes.c_int * 3)()
+    lib = _build.lib()
+    if kernel.startswith("fused_score"):
+        err = lib.fused_score_grid(int(kernel[-2]), out)
+    else:
+        err = getattr(lib, kernel.replace("_kernel", "_grid"))(out)
+    _build.check(err, f"{kernel} grid")
+    return tuple(out)
+
+
 def tensor_core_kernels():
     """ptxas's registers and spills, the persistent grid and the dynamic
-    shared memory of K1 and K3, and the tensor-core instructions in each;
-    fails unless both run their products on the tensor cores."""
-    sass = sass_mma(("pair_score_kernel", "pair_packed_kernel"))
-    for name in ("pair_score", "pair_packed"):
-        out = (ctypes.c_int * 3)()
-        _build.check(getattr(_build.lib(), f"{name}_grid")(out), f"{name}_grid")
-        log(f"[build] {name}_kernel: {ptxas_report(f'{name}_kernel')}; persistent grid "
-            f"{out[0]} CTAs x {out[1]} threads, {out[2]} bytes of dynamic shared memory a CTA; "
-            f"tensor-core instructions {sass[f'{name}_kernel']}")
-        if not any(op.startswith("HMMA") and "TF32" in op
-                   for op in sass[f"{name}_kernel"]):
-            raise AssertionError(f"{name}_kernel has no TF32 HMMA instruction")
+    shared memory of K1, K3 and K4 at k = 2..5, and the tensor-core
+    instructions in each; fails unless every one runs its products on the
+    tensor cores without spilling."""
+    sass = sass_mma(SCORING_KERNELS)
+    for name in SCORING_KERNELS:
+        ctas, threads, smem = scoring_grid(name)
+        ptxas = ptxas_report(name)
+        log(f"[build] {name}: {ptxas}; persistent grid {ctas} CTAs x {threads} threads, "
+            f"{smem} bytes of dynamic shared memory a CTA; tensor-core instructions "
+            f"{sass[name]}")
+        if not any(op.startswith("HMMA") and "TF32" in op for op in sass[name]):
+            raise AssertionError(f"{name} has no TF32 HMMA instruction")
+        if "spill" in ptxas and "0 bytes spill stores" not in ptxas:
+            raise AssertionError(f"{name} spills registers: {ptxas}")
 
 
 def ptxas_report(kernel: str) -> str:
@@ -475,41 +526,111 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b}
 
 
-def clique_table(inst, k: int) -> np.ndarray:
-    cliques, _ = chordal_decomposition(inst.n, inst.sparsity_graph())
-    return clique_candidates(cliques, k)
-
-
 def check_fused_score(label: str, Q, table: np.ndarray, sweeps: int, dev) -> dict:
     """K4 against its twin at the reference's kernel tolerances
-    (tests/test_fused_score.py): feas atol 5e-4, nn rtol 2e-4 / atol 2e-5."""
-    n, k = Q.shape[0], table.shape[1]
-    rng = np.random.default_rng(SEED + k)
-    x = rng.random(n)
-    X = np.clip(np.outer(x, x) + 0.3 * rng.standard_normal((n, n)), 0, 1)
-    x, X, Q = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-               for a in (x, 0.5 * (X + X.T), Q))
-    table = torch.as_tensor(table, device=dev)
-    triQ, scale = candidate_q_features(Q, table)
-    mlp = MLPScorer(load_params(k), dev)
-    args = (x, X, table, triQ, scale, mlp, sweeps)
+    (tests/test_fused_score.py): feas atol 5e-4, nn rtol 2e-4 / atol 2e-5;
+    its launch grid, its time by events and on the device, its bound."""
+    args = fused_args(Q, table, sweeps, dev)
+    x, X, table, triQ, scale, mlp, _ = args
+    T, k = table.shape
     nn_k, feas_k = fused_score(*args)
     nn_p, feas_p = fused_score_plain(*args)
     torch.cuda.synchronize()
     err_f, r_f = excess(feas_k, feas_p, 0.0, 5e-4)
     err_n, r_n = excess(nn_k, nn_p, 2e-4, 2e-5)
     ms = cuda_ms(lambda: fused_score(*args), reps=50)
+    dev_ms = device_ms(lambda: fused_score(*args), "fused_score_kernel")
     plain_ms = cuda_ms(lambda: fused_score_plain(*args), reps=5)
-    T = table.shape[0]
-    b = bound(T * score_ops(k, sweeps),
-              nbytes(x, X, table, triQ, scale, nn_k, feas_k) + mlp_bytes(mlp))
-    log(f"[fused_score {label}] k={k} T={T} sweeps={sweeps}: feas max|err| {err_f:.3e} "
-        f"({r_f:.3f} of atol 5e-4); nn max|err| {err_n:.3e} ({r_n:.3f} of rtol 2e-4 / "
-        f"atol 2e-5); kernel {ms:.4f} ms ({T / ms / 1e3:.1f} M cand/s), twin "
-        f"{plain_ms:.4f} ms; {share(ms, b)}")
+    ctas, threads, smem = scoring_grid(f"fused_score_kernelILi{k}E")
+    b, parts = scoring_bound(T, nbytes(x, X, table, triQ, scale, nn_k, feas_k)
+                             + mlp_bytes(mlp), dev_ms, k, sweeps)
+    log(f"[fused_score {label}] k={k} T={T} sweeps={sweeps}: {min(ctas, -(-T // 32))} CTAs "
+        f"x {threads} threads ({-(-T // 32)} tiles of 32, {smem} bytes of shared memory a "
+        f"CTA); feas max|err| {err_f:.3e} ({r_f:.3f} of atol 5e-4); nn max|err| "
+        f"{err_n:.3e} ({r_n:.3f} of rtol 2e-4 / atol 2e-5); kernel {ms:.4f} ms by events "
+        f"({T / ms / 1e3:.1f} M cand/s), {dev_ms:.4f} ms on the device (profiler); twin "
+        f"{plain_ms:.4f} ms; on the device time {share(dev_ms, b)}; {parts}")
     if not (r_f <= 1.0 and r_n <= 1.0):
         raise AssertionError(f"fused_score kernel disagrees with its twin ({label}, k={k})")
-    return {"max_abs_err": max(err_f, err_n), "ms": ms, "plain_ms": plain_ms, **b}
+    return {"max_abs_err": max(err_f, err_n), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **b}
+
+
+def check_k4(inst, dev) -> list:
+    """K4 at the shapes of its callers: k = 2 over C(125, 2) (5 sweeps), k = 4
+    and 5 over the clique tables of qcqp025-25-4-2 and qcqpband100-5-25-1 (6
+    sweeps), and k = 3 over C(30, 3) (5 sweeps; no main path takes it).  The
+    last entry is the QCQP main path's shape."""
+    small = generate_spar(30, 100, 1)
+    out = [check_fused_score(f"C({inst.n},2)", inst.Q, combinations_table(inst.n, 2), 5, dev),
+           check_fused_score("C(30,3)", small.Q, combinations_table(30, 3), 5, dev)]
+    for name in ("qcqp025-25-4-2", QCQP_INSTANCE):
+        q = load_or_generate_qcqp(name)
+        for k in (4, 5):
+            out.append(check_fused_score(name, q.Q0, clique_table(q, k), 6, dev))
+    return out
+
+
+def check_guard(inst, unguarded, dev):
+    """The overflow guard of score_common.cuh::rotate keeps the bits of the
+    build without it (``unguarded``, scoring_variants.UNGUARDED): K1 on all
+    C(n, 3) triples of ``inst`` at the scoring point, and K4 at k = 5 on the
+    clique tables of qcqpband100-5-25-1 and qcqp025-25-4-2 (torch.equal on
+    nn and feas); each timed on the device (profiler) in turns, guarded,
+    unguarded, unguarded, guarded."""
+    x, X, Q = scoring_point(inst, dev)
+    table = torch.as_tensor(combinations_table(inst.n, 3), device=dev)
+    mlp = MLPScorer(load_params(3), dev)
+    cases = [(f"K1 {inst.name}", "pair_score_kernel",
+              lambda lib: k1_call(lib, x, X, Q, table, mlp, 5))]
+    for name in (QCQP_INSTANCE, "qcqp025-25-4-2"):
+        q = load_or_generate_qcqp(name)
+        args = fused_args(q.Q0, clique_table(q, 5), 6, dev)
+        cases.append((f"K4 {name} k=5", "fused_score_kernel",
+                      lambda lib, a=args: k4_call(lib, *a)))
+    built = _build.lib()
+    for label, kernel, call in cases:
+        calls = {"guarded": call(built), "unguarded": call(unguarded)}
+        for run, *_ in calls.values():
+            run()
+        same = all(torch.equal(a, b) for a, b in zip(calls["guarded"][1:],
+                                                     calls["unguarded"][1:]))
+        guarded, plain = [], []
+        for runs, which in ((guarded, "guarded"), (plain, "unguarded"), (plain, "unguarded"),
+                            (guarded, "guarded")):
+            runs.append(device_ms(calls[which][0], kernel))
+        log(f"[guard] {label}: nn and feas bit for bit equal to the unguarded build: {same}; "
+            f"on the device in turns guarded {guarded!r} ms, unguarded {plain!r} ms (guarded / "
+            f"unguarded {sum(guarded) / sum(plain):.4f})")
+        if not same:
+            raise AssertionError(f"the overflow guard changes the scores ({label})")
+
+
+def check_large_instance(dev):
+    """A BoxQP solve outside K2's launch plan (n = 150 > 128), spar150-100-1
+    (generated): by default the solve refuses on the card with the plan's
+    reason, K2 not launched; with LPConfig(use_kernel="off") 2 rounds run
+    the plain loop on the card, against the CPU port."""
+    inst = load_or_generate("spar150-100-1")
+    lp = LPConfig(max_iters=3000, tol=1e-5)
+    why = plan_refusal(inst.n, CutConfig().capacity, 3, 0)
+    reset_launches()
+    try:
+        CutSolver(inst, RunConfig(lp=lp), device=dev).run(rounds=1)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log(f"[small] spar150-100-1, use_kernel='auto': {refused!r}; launches {launch_counts()}")
+    if refused is None or why is None or why not in refused or launch_counts()["pdhg_block"]:
+        raise AssertionError("the n = 150 solve on the card did not refuse with the plan's "
+                             "reason")
+    reset_launches()
+    card_vs_cpu("spar150-100-1 k=3 use_kernel='off'", CutSolver, inst,
+                RunConfig(lp=dataclasses.replace(lp, use_kernel="off")), dev, rounds=2)
+    launches = launch_counts()
+    log(f"[small] spar150-100-1, use_kernel='off': launches {launches}")
+    if launches["pdhg_block"] != 0 or launches[PLAIN_BLOCKS] == 0:
+        raise AssertionError("the n = 150 solve did not run the plain PDHG loop alone")
 
 
 def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3):
@@ -589,7 +710,9 @@ def boxqp_path(tag: str, inst, cfg, dev, launched: tuple, idle: tuple = ()):
         f"rounds / sum of wall_time_s {len(hist) / round_s!r} rounds/s; launches "
         f"{launches}; round-0 vs McCormick {mc!r}: rel {rel0!r}; final gap closed vs "
         f"sdp {sdp!r}: {float((mc - bounds[-1]) / (mc - sdp))!r}; rounds whose own "
-        f"certificate rose: {int((np.diff(certs) > 0).sum())}")
+        f"certificate rose: {int((np.diff(certs) > 0).sum())}; final bound "
+        f"{float(bounds[-1])!r} (recorded: {BOXQP_RECORDED_FINAL!r}, equal: "
+        f"{float(bounds[-1]) == BOXQP_RECORDED_FINAL})")
     # A reported bound is the running minimum of the rounds' certificates, so
     # it cannot rise; what can fail is each certificate, checked on its own.
     again = CutSolver(inst, cfg, device=dev).run(rounds=ROUNDS)
@@ -598,6 +721,7 @@ def boxqp_path(tag: str, inst, cfg, dev, launched: tuple, idle: tuple = ()):
         f"{' and '.join(launched)} launched": min(launches[k] for k in launched) > 0,
         **({f"{' and '.join(idle)} not launched": all(launches[k] == 0 for k in idle)}
            if idle else {}),
+        "no plain PDHG block": launches[PLAIN_BLOCKS] == 0,
         "certificates finite": bool(np.isfinite(certs).all()),
         f"every certificate >= best known {best_known}": bool((certs >= best_known).all()),
         "bounds are the running minimum of the certificates":
@@ -632,6 +756,33 @@ def packed_scan_path(inst, dev) -> dict:
     return launches
 
 
+def rerun_with_k4_checks(inst, rounds: int, dev):
+    """The QCQP main path again from a fresh solver, as run() goes: the
+    first run's number of rounds one by one, then the polish.  After each
+    round K4 and its twin score that round's LP point (x and X of the
+    state, which do_round leaves as it scored them) at check_fused_score's
+    tolerances; scoring is pure, so the run is the first one's.  Returns
+    (solver, the largest nn excess as a share of its limit)."""
+    solver = CutSolverQCQP(inst, QCQP_CFG, device=dev)
+    worst = 0.0
+    for _ in range(rounds):
+        s = solver.do_round()
+        args = (solver.state.x, solver.state.X, solver.table, solver.triQ, solver.scale,
+                solver.mlp, QCQP_SWEEPS)
+        nn_k, feas_k = fused_score(*args)
+        nn_p, feas_p = fused_score_plain(*args)
+        err_f, r_f = excess(feas_k, feas_p, 0.0, 5e-4)
+        err_n, r_n = excess(nn_k, nn_p, 2e-4, 2e-5)
+        log(f"[qcqp] round {s.round} point: K4 against its twin feas max|err| {err_f:.3e} "
+            f"({r_f:.3f} of atol 5e-4); nn max|err| {err_n:.3e} ({r_n:.3f} of rtol 2e-4 / "
+            f"atol 2e-5)")
+        if not (r_f <= 1.0 and r_n <= 1.0):
+            raise AssertionError(f"K4 disagrees with its twin at round {s.round}'s point")
+        worst = max(worst, r_n)
+    solver.polish()
+    return solver, worst
+
+
 def qcqp_main_path(dev) -> dict:
     """CutSolverQCQP on qcqpband100-5-25-1 in the suite configuration."""
     inst = load_or_generate_qcqp(QCQP_INSTANCE)
@@ -660,19 +811,24 @@ def qcqp_main_path(dev) -> dict:
     log(f"[qcqp] {len(hist)} rounds in {round_s:.3f}s = {len(hist) / round_s!r} rounds/s "
         f"(whole run with polish {wall:.3f}s); launches {launches} (pdhg_block with "
         f"m={solver.dense.m}); polish certificate {solver.polish_certificate!r}")
+    log(f"[qcqp] final bound {float(bounds[-1])!r} (recorded: {QCQP_RECORDED_FINAL!r}, equal: "
+        f"{float(bounds[-1]) == QCQP_RECORDED_FINAL})")
     log(f"[qcqp] round 0 {float(bounds[0])!r} vs the JAX package's recorded {jax0!r}: "
         f"diff {d0!r}, rel {d0 / jax0!r}; gap closed vs mccormick {mc!r}, "
         f"sdp {sdp!r}: round 0 {float((mc - bounds[0]) / (mc - sdp))!r}, final "
         f"{float((mc - bounds[-1]) / (mc - sdp))!r} (the JAX package's record: "
         f"{jax_rec['final_gap_closed']!r} after {len(jax_rec['bounds'])} rounds)")
-    again_solver = CutSolverQCQP(inst, QCQP_CFG, device=dev)
-    again = again_solver.run(rounds=QCQP_ROUNDS)
+    again_solver, worst = rerun_with_k4_checks(inst, len(hist), dev)
+    again = again_solver.history
+    log(f"[qcqp] K4's largest nn excess at the main path's round points: {worst:.3f} of the "
+        f"limit")
     runmin = np.minimum.accumulate(certs)
     finish("qcqp", {
         f"{QCQP_ROUNDS} rounds ran (or the early stop ended the run)":
             len(hist) == QCQP_ROUNDS or hist[-1].cuts_added == 0,
         "pdhg_block and fused_score launched": min(launches["pdhg_block"],
                                                    launches["fused_score"]) > 0,
+        "no plain PDHG block": launches[PLAIN_BLOCKS] == 0,
         "certificates finite": bool(np.isfinite(certs).all()),
         f"every certificate >= sdp_lower {sdp_lower}": bool((certs >= sdp_lower).all()),
         "bounds are the running minimum of the certificates, polish lowering only "
@@ -695,6 +851,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
+    # the build without the Jacobi's overflow guard, for the bit check, in
+    # parallel with the port's own
+    finish_variants = start_variants({"unguarded": ([UNGUARDED], [])},
+                                     ("pair_score", "fused_score"))
     _build.lib()
     log(f"[build] {os.path.relpath(_build.library_path(), REPO)} built and loaded in "
         f"{time.perf_counter() - t0:.2f}s (nvcc {_build.build_seconds:.2f}s)")
@@ -702,6 +862,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
     tensor_core_kernels()
+    unguarded = finish_variants()["unguarded"]
+    log(f"[build] unguarded variant ready after {time.perf_counter() - t0:.2f}s")
 
     inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
     band = load_or_generate_qcqp(QCQP_INSTANCE)
@@ -713,13 +875,10 @@ def main() -> int:
     k2 = check_pdhg_block(f"{QCQP_INSTANCE} m={band.m}", band.Q0, band.c0,
                           clique_table(band, 5), dense_from_qcqp(band.Qs, band.cs, band.bs, dev),
                           dev)
-    k4_box = check_fused_score(f"C({inst.n},2)", inst.Q, combinations_table(inst.n, 2), 5, dev)
-    k4 = [k4_box]
-    for name in ("qcqp025-25-4-2", QCQP_INSTANCE):
-        q = load_or_generate_qcqp(name)
-        for k in (4, 5):
-            k4.append(check_fused_score(name, q.Q0, clique_table(q, k), 6, dev))
+    k4 = check_k4(inst, dev)
+    check_guard(inst, unguarded, dev)
     check_small_instances(dev)
+    check_large_instance(dev)
     launches = main_path(inst, dev)
     qlaunches = qcqp_main_path(dev)
     plaunches = packed_scan_path(inst, dev)

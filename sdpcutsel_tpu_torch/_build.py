@@ -40,6 +40,7 @@ _F = ctypes.c_float
 # argtypes of every C entry point in csrc/
 _SIGNATURES = {
     # fused_score.cu
+    "fused_score_grid": [_I, _P],
     "fused_score_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P],
     # pair_packed.cu

@@ -26,7 +26,7 @@ class LPConfig:
     omega0: float = 1.0              # initial primal weight
     step_scale: float = 0.95         # eta = step_scale / ||K||
     power_iters: int = 30            # power-method iterations for ||K||
-    use_kernel: str = "auto"         # not read: the device decides
+    use_kernel: str = "auto"         # "auto"/"on": K2 on CUDA, raising outside its plan; "off": plain
     dtype: str = "float32"
 
 

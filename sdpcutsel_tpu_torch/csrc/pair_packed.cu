@@ -42,7 +42,8 @@
 
 namespace {
 
-using namespace scoring::mma3;
+using namespace scoring::mma;
+using S = Shape<3>;
 
 constexpr int kLanes = 128;
 
@@ -78,38 +79,38 @@ struct ValidSlots {
   const int* __restrict__ rows;
   const int* __restrict__ iu;
   const int* __restrict__ ju;
-  __device__ bool operator()(int c, int& i, int& j, int& l, int& pos) const {
+  const float* __restrict__ Q;
+  __device__ bool operator()(int c, int (&id)[3], float* f, float& scale, int& pos) const {
     pos = valid_slots[c];
-    return decode_slot(pos, n, R0, R1, rows, iu, ju, i, j, l);
+    if (!decode_slot(pos, n, R0, R1, rows, iu, ju, id[0], id[1], id[2])) return false;
+    q_features<3>(Q, n, id, f, scale);
+    return true;
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pair_packed_kernel(
-    int S, int V, int n, int R0, int R1, int sweeps, const int* __restrict__ valid_slots,
+__global__ void __launch_bounds__(S::kThreads, 1) pair_packed_kernel(
+    int slots, int V, int n, int R0, int R1, int sweeps, const int* __restrict__ valid_slots,
     const int* __restrict__ rows, const int* __restrict__ iu, const int* __restrict__ ju,
     const float* __restrict__ x, const float* __restrict__ X,
-    const float* __restrict__ Q,
-    const float* __restrict__ W1, const float* __restrict__ b1,
-    const float* __restrict__ W2, const float* __restrict__ b2,
-    const float* __restrict__ W3, const float* __restrict__ b3,
+    const float* __restrict__ Q, MLPArgs mlp,
     float* __restrict__ nn_out, float* __restrict__ feas_out) {
   extern __shared__ float4 smem[];
-  Shared& sh = *reinterpret_cast<Shared*>(smem);
-  load_split_mlp(sh.w, W1, b1, W2, b2, W3, b3);
-  for (int s = blockIdx.x * kThreads + threadIdx.x; s < S; s += gridDim.x * kThreads) {
+  // the invalid slots' -inf; score_rounds writes only valid slots, so no
+  // barrier is needed between the two
+  for (int s = blockIdx.x * S::kThreads + threadIdx.x; s < slots;
+       s += gridDim.x * S::kThreads) {
     int i, j, l;
     if (!decode_slot(s, n, R0, R1, rows, iu, ju, i, j, l)) {
       nn_out[s] = -CUDART_INF_F;
       feas_out[s] = -CUDART_INF_F;
     }
   }
-  __syncthreads();
-  score_rounds(ValidSlots{valid_slots, n, R0, R1, rows, iu, ju}, V, n, sweeps, x, X, Q, sh,
-               nn_out, feas_out);
+  score_rounds<3>(ValidSlots{valid_slots, n, R0, R1, rows, iu, ju, Q}, V, n, sweeps, x, X,
+                  mlp, *reinterpret_cast<Shared<3>*>(smem), nn_out, feas_out);
 }
 
 const Grid& grid() {
-  static const Grid g = persistent_grid(pair_packed_kernel);
+  static const Grid g = persistent_grid<3>(pair_packed_kernel);
   return g;
 }
 
@@ -119,22 +120,22 @@ const Grid& grid() {
 // shared memory a CTA
 extern "C" int pair_packed_grid(int* out) {
   out[0] = grid().ctas;
-  out[1] = kThreads;
-  out[2] = static_cast<int>(kSmemBytes);
+  out[1] = S::kThreads;
+  out[2] = static_cast<int>(sizeof(Shared<3>));
   return static_cast<int>(grid().err);
 }
 
 extern "C" int pair_packed_launch(
-    int S, int V, int n, int R0, int R1, int sweeps, const int* valid_slots,
+    int slots, int V, int n, int R0, int R1, int sweeps, const int* valid_slots,
     const int* rows, const int* iu, const int* ju, const float* x, const float* X,
     const float* Q, const float* W1, const float* b1, const float* W2, const float* b2,
     const float* W3, const float* b3, float* nn_out, float* feas_out, void* stream) {
   if (grid().err != cudaSuccess) return static_cast<int>(grid().err);
-  if (S > 0) {
-    pair_packed_kernel<<<ctas_for(grid(), S), kThreads, kSmemBytes,
+  if (slots > 0) {
+    pair_packed_kernel<<<ctas_for(grid(), slots), S::kThreads, sizeof(Shared<3>),
                          static_cast<cudaStream_t>(stream)>>>(
-        S, V, n, R0, R1, sweeps, valid_slots, rows, iu, ju, x, X, Q, W1, b1, W2, b2, W3,
-        b3, nn_out, feas_out);
+        slots, V, n, R0, R1, sweeps, valid_slots, rows, iu, ju, x, X, Q,
+        MLPArgs{W1, b1, W2, b2, W3, b3}, nn_out, feas_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

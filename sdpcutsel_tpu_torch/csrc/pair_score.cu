@@ -17,21 +17,22 @@
 // shared-memory weight load per one to four FMAs, while the tensor cores
 // idled.  With the products on the tensor cores, what is left is the
 // Jacobi's 30 rotations (5 sweeps), three IEEE divisions and two square
-// roots each, whose slow paths diverge inside a warp wherever a lane meets
-// an overflowing tau^2; the Jacobi must keep these semantics (feas is held
-// to its bits).  The 24 gathered inputs hit L2 (x, X, Q ~125 KB at
-// n = 125); the 12-byte table row is the only streamed input.
+// roots each, a dependent chain a triple; feas is held to its bits, so the
+// Jacobi keeps these semantics (score_common.cuh guards the rotations whose
+// tau^2 overflows, with the same bits).  The 24 gathered inputs hit L2 (x,
+// X, Q ~125 KB at n = 125); the 12-byte table row is the only streamed
+// input.
 //
-// Design: the warp-specialised persistent CTA of score_mma.cuh, one a SM
-// (768 threads, 154 KB of dynamic shared memory): 20 producer warps at 48
-// registers gather, build the features into shared stages and run the
-// Jacobi; 4 consumer warps at 232 registers run layers 1 and 2 of the MLP as
-// m16n8k8 TF32 mma in split TF32 (hi*hi + hi*lo + lo*hi, which keeps the
-// fp32 twin's tolerance where one TF32 pass does not) and layer 3 in fp32.
-// The weights are split into hi and lo once a CTA.  The table's rows are
-// cut into tiles of 32, a producer a tile a round; the last tile is masked.
-// The MLP is fused: the TPU version wrote 15 feature planes to device
-// memory and read them back for the matmuls.
+// Design: the warp-specialised persistent CTA of score_mma.cuh at K = 3, one
+// a SM (768 threads, 154 KB of dynamic shared memory): 20 producer warps at
+// 48 registers gather, build the features into shared stages and run the
+// Jacobi; 4 consumer warps at 232 registers split the weights once a CTA and
+// run layers 1 and 2 of the MLP as m16n8k8 TF32 mma in split TF32 (hi*hi +
+// hi*lo + lo*hi, which keeps the fp32 twin's tolerance where one TF32 pass
+// does not) and layer 3 in fp32.  The table's rows are cut into tiles of
+// 32, dealt over the CTAs; the last tile is masked.  The MLP is fused: the
+// TPU version wrote 15 feature planes to device memory and read them back
+// for the matmuls.
 
 #include <cuda_runtime.h>
 
@@ -39,37 +40,36 @@
 
 namespace {
 
-using namespace scoring::mma3;
+using namespace scoring::mma;
+using S = Shape<3>;
 
 // candidate c is row c of the table
 struct TableRows {
   const int* __restrict__ table;
-  __device__ bool operator()(int c, int& i, int& j, int& l, int& pos) const {
-    i = table[3 * c];
-    j = table[3 * c + 1];
-    l = table[3 * c + 2];
+  const float* __restrict__ Q;
+  int n;
+  __device__ bool operator()(int c, int (&id)[3], float* f, float& scale, int& pos) const {
+    id[0] = table[3 * c];
+    id[1] = table[3 * c + 1];
+    id[2] = table[3 * c + 2];
+    q_features<3>(Q, n, id, f, scale);
     pos = c;
     return true;
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pair_score_kernel(
+__global__ void __launch_bounds__(S::kThreads, 1) pair_score_kernel(
     int T, int n, int sweeps, const int* __restrict__ table,
     const float* __restrict__ x, const float* __restrict__ X,
-    const float* __restrict__ Q,
-    const float* __restrict__ W1, const float* __restrict__ b1,
-    const float* __restrict__ W2, const float* __restrict__ b2,
-    const float* __restrict__ W3, const float* __restrict__ b3,
+    const float* __restrict__ Q, MLPArgs mlp,
     float* __restrict__ nn_out, float* __restrict__ feas_out) {
   extern __shared__ float4 smem[];
-  Shared& sh = *reinterpret_cast<Shared*>(smem);
-  load_split_mlp(sh.w, W1, b1, W2, b2, W3, b3);
-  __syncthreads();
-  score_rounds(TableRows{table}, T, n, sweeps, x, X, Q, sh, nn_out, feas_out);
+  score_rounds<3>(TableRows{table, Q, n}, T, n, sweeps, x, X, mlp,
+                  *reinterpret_cast<Shared<3>*>(smem), nn_out, feas_out);
 }
 
 const Grid& grid() {
-  static const Grid g = persistent_grid(pair_score_kernel);
+  static const Grid g = persistent_grid<3>(pair_score_kernel);
   return g;
 }
 
@@ -79,8 +79,8 @@ const Grid& grid() {
 // shared memory a CTA
 extern "C" int pair_score_grid(int* out) {
   out[0] = grid().ctas;
-  out[1] = kThreads;
-  out[2] = static_cast<int>(kSmemBytes);
+  out[1] = S::kThreads;
+  out[2] = static_cast<int>(sizeof(Shared<3>));
   return static_cast<int>(grid().err);
 }
 
@@ -91,9 +91,9 @@ extern "C" int pair_score_launch(
     float* nn_out, float* feas_out, void* stream) {
   if (grid().err != cudaSuccess) return static_cast<int>(grid().err);
   if (T > 0) {
-    pair_score_kernel<<<ctas_for(grid(), T), kThreads, kSmemBytes,
+    pair_score_kernel<<<ctas_for(grid(), T), S::kThreads, sizeof(Shared<3>),
                         static_cast<cudaStream_t>(stream)>>>(
-        T, n, sweeps, table, x, X, Q, W1, b1, W2, b2, W3, b3, nn_out, feas_out);
+        T, n, sweeps, table, x, X, Q, MLPArgs{W1, b1, W2, b2, W3, b3}, nn_out, feas_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,9 @@ One round (``do_round``):
 ``run_scan`` (``LoopConfig.use_scan``) runs the same device operations for
 all rounds with no per-round certificate or early stop, and certifies every
 round afterwards from the pools and duals it kept.  ``polish`` ends either
-mode when ``LoopConfig.polish_iters > 0``.
+mode when ``LoopConfig.polish_iters > 0``.  ``RunConfig.debug`` checks each
+per-round state (utils/debug.py), as the reference's ``do_round`` does; its
+scan mode has no such check, and neither has this one.
 
 Everything runs in float32, the kernels' one type.  On CUDA the round does
 no cuBLAS matrix product (the MLP runs inside the scoring kernel), so the
@@ -56,6 +58,7 @@ from ..ops.pair_packed import packed_layout, packed_score
 from ..ops.pair_score import SWEEPS, pair_score
 from ..ops.topk import diverse_topk, masked_topk
 from ..relax.cutbuffer import CutPool, append_cuts, cut_residuals, empty_pool, purge_pool
+from ..utils.debug import check_round_state
 
 STRATEGIES = ("neural", "feasibility", "combined")
 LEX_SWEEPS = 6      # the reference's CPU feasibility and combined scoring (cuts/eigen.py)
@@ -182,7 +185,10 @@ class CutSolver:
         t0 = time.perf_counter()
         pool, solved, info, kept = self._round()
         cert = self._certify(pool, solved)
-        return self._record(cert, info, kept, self.pool.count, time.perf_counter() - t0)
+        stats = self._record(cert, info, kept, self.pool.count, time.perf_counter() - t0)
+        if self.cfg.debug:
+            check_round_state(self.state.x, self.state.X, self.pool, stats.bound)
+        return stats
 
     def run(self, rounds: Optional[int] = None) -> list[RoundStats]:
         """Per-round loop with the reference's early stop (a round that adds

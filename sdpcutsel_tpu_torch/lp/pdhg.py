@@ -11,7 +11,8 @@
 empty.
 
 Each checked block runs ``check_every`` iterations through the iteration-block
-kernel wrapper (lp/pdhg_kernel.py), then, in plain torch once per block: the
+kernel wrapper (lp/pdhg_kernel.py), or through the plain ``_one_iter`` loop
+where ``LPConfig.use_kernel`` says so (``kernel_route``), then, in plain torch once per block: the
 ergodic average, restart-to-average when the average's KKT error is lower,
 and primal-weight (omega) rebalancing.  The JAX ``lax.while_loop`` condition
 becomes one host read per block.  Host-side scalars (step sizes, omega, the
@@ -156,12 +157,15 @@ def _dist2(a: PDHGState, b: PDHGState, primal: bool):
 def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
                 normK: float, omega0: float, tol: float, step_scale: float,
                 max_iters: int, check_every: int, restart_period: int,
-                dense: DenseRows | None = None):
+                dense: DenseRows | None = None, kernel: bool = True):
     """Checked-block PDHG solve from ``st0`` with a given ``normK``; ``index``
-    is ``build_cut_index(pool, n)``.  Returns (state, info) with python
-    scalars in info."""
-    from .pdhg_kernel import pdhg_block
+    is ``build_cut_index(pool, n)``; ``kernel``: blocks through
+    ``pdhg_block``, else the plain loop (``kernel_route``).  Returns (state,
+    info) with python scalars in info."""
+    from .pdhg_kernel import pdhg_block, pdhg_block_plain
 
+    block = pdhg_block if kernel else pdhg_block_plain
+    plain_on_card = not kernel and cx.device.type == "cuda"
     n = cx.shape[0]
     eta = _f32(step_scale) / _f32(normK)
     zeros = st0.map(torch.zeros_like)
@@ -170,8 +174,10 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
     err, p, d = _f32(np.inf), _f32(0.0), _f32(0.0)
     while it < max_iters and err / (_f32(1.0) + abs(p) + abs(d)) > _f32(tol):
         tau, sigma = eta / omega, eta * omega
-        st, acc = pdhg_block(cx, cX, pool, index, st, acc, float(tau),
-                             float(sigma), check_every, dense)
+        st, acc = block(cx, cX, pool, index, st, acc, float(tau), float(sigma),
+                        check_every, dense)
+        if plain_on_card:
+            pdhg_block.plain_launches += 1
         wlen += check_every
         avg = acc.map(lambda t: t * float(_f32(1.0) / _f32(wlen)))
 
@@ -201,13 +207,19 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
     """Solve the current relaxation from the warm start ``state``.
 
     Q, c: float32 tensors on the state's device; cfg: ``LPConfig``; dense:
-    the QCQP's constraint rows, whose duals are ``state.yD``.  The iteration
-    kernel runs whenever the tensors are on CUDA, dense rows or not
-    (``use_kernel`` is not read: the device decides).  Returns (state,
-    info); the max-form bound estimate is -info['dual_obj'], the certified
-    one dual_bound_f64.
+    the QCQP's constraint rows, whose duals are ``state.yD``.
+    ``cfg.use_kernel`` chooses the blocks (``lp/pdhg_kernel.py::
+    kernel_route``): with "auto", the iteration kernel on CUDA, dense rows or
+    not, raising where its launch plan does not take (n, capacity, k, m); the
+    plain loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
+    bound estimate is -info['dual_obj'], the certified one dual_bound_f64.
     """
+    from .pdhg_kernel import kernel_route
+
     n = int(c.shape[0])
+    M, k = pool.idx.shape
+    kernel = kernel_route(cfg.use_kernel, c.device, n, M, k,
+                          0 if dense is None else dense.m)
     cx = -c
     cX = -0.5 * Q
     index = build_cut_index(pool, n)        # the pool is constant in a solve
@@ -216,7 +228,7 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
                           dense)
     return _solve_impl(cx, cX, pool, index, state, normK, cfg.omega0, cfg.tol,
                        cfg.step_scale, cfg.max_iters, cfg.check_every,
-                       cfg.restart_period, dense)
+                       cfg.restart_period, dense, kernel)
 
 
 def dual_bound_f64(Q, c, pool: CutPool, state: PDHGState,

@@ -14,7 +14,12 @@ in its shared memory for the whole launch, and the bands exchange what they
 need through distributed shared memory (the design is in the source).
 ``launch_plan`` gives the cluster size, the band height, the shared bytes per
 CTA and the largest pool capacity M and dense row count m the plan takes at
-a shape; it raises where the shape does not fit.
+a shape; it raises where the shape does not fit (``plan_refusal`` says why).
+``kernel_route`` chooses a solve's blocks by ``LPConfig.use_kernel`` and that
+same rule.  On CUDA, K2 is the only route unless the caller asks for the
+plain loop ("off"): a shape outside the plan (n > 128, a pool too large for
+shared memory) raises with the plan's reason.  The plain blocks a solve runs
+on CUDA are counted in ``pdhg_block.plain_launches``.
 
 The cut adjoint (scatter of yC-weighted coefficients into gx, gX) is
 deterministic in the kernel: ``build_cut_index`` (relax/cutbuffer.py) sorts,
@@ -88,23 +93,59 @@ def _largest(fits, hi: int) -> int:
     return lo
 
 
+def plan_refusal(n: int, M: int, k: int, m: int, cluster: int = CLUSTER) -> str | None:
+    """Why the cluster launch does not take n, pool capacity M, support
+    width k and m dense rows, or None where it does: the one rule of
+    ``launch_plan`` and of the solve's route (``kernel_route``)."""
+    if not 1 <= n <= NMAX:
+        return f"pdhg_block kernel takes 1 <= n <= {NMAX}, got {n}"
+    if not 2 <= k <= 5:
+        return f"pdhg_block kernel takes cuts of width k = 2..5, got {k}"
+    if not 1 <= cluster <= 16:
+        return f"pdhg_block kernel takes clusters of 1..16 CTAs, got {cluster}"
+    if 4 * _smem_words(n, M, k, m, cluster) > SMEM_MAX:
+        return (f"pdhg_block kernel: n={n}, M={M}, k={k}, m={m} exceed {SMEM_MAX} bytes "
+                f"of shared memory per CTA at a cluster of {cluster}")
+    return None
+
+
+def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> bool:
+    """Whether a solve runs its blocks through ``pdhg_block`` (K2 on CUDA,
+    the twin on the CPU) rather than the plain ``_one_iter`` loop on the
+    tensors' own device, by ``LPConfig.use_kernel``: "off" plain; "on" the
+    kernel, raising where the launch plan does not take the shape; "auto"
+    the kernel on CUDA, raising there too where the plan does not take the
+    shape, and plain on any other device.  The reference's "auto" runs its
+    plain loop on the accelerator outside its kernel's shapes
+    (``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here the plain loop runs on
+    the card only when the caller asks for it with "off"."""
+    if use_kernel == "off":
+        return False
+    why = plan_refusal(n, M, k, m)
+    if use_kernel == "on":
+        if why is not None:
+            raise ValueError(f"LPConfig.use_kernel='on': {why}")
+        return True
+    if use_kernel == "auto":
+        if torch.device(device).type != "cuda":
+            return False
+        if why is not None:
+            raise ValueError(f"LPConfig.use_kernel='auto' on CUDA: {why}; "
+                             f"use_kernel='off' runs the plain loop on the card")
+        return True
+    raise ValueError(f"LPConfig.use_kernel must be 'auto', 'on' or 'off', got {use_kernel!r}")
+
+
 def launch_plan(n: int, M: int, k: int, m: int, cluster: int = CLUSTER) -> LaunchPlan:
     """The cluster launch of the kernel at n, pool capacity M, support width
     k and m dense rows.  Raises ValueError where it does not fit."""
-    if not 1 <= n <= NMAX:
-        raise ValueError(f"pdhg_block kernel takes 1 <= n <= {NMAX}, got {n}")
-    if not 2 <= k <= 5:
-        raise ValueError(f"pdhg_block kernel takes cuts of width k = 2..5, got {k}")
-    if not 1 <= cluster <= 16:
-        raise ValueError(f"pdhg_block kernel takes clusters of 1..16 CTAs, got {cluster}")
+    why = plan_refusal(n, M, k, m, cluster)
+    if why is not None:
+        raise ValueError(why)
 
     def fits(M_, m_):
-        return 4 * _smem_words(n, M_, k, m_, cluster) <= SMEM_MAX
+        return plan_refusal(n, M_, k, m_, cluster) is None
 
-    if not fits(M, m):
-        raise ValueError(f"pdhg_block kernel: n={n}, M={M}, k={k}, m={m} exceed "
-                         f"{SMEM_MAX} bytes of shared memory per CTA at a cluster "
-                         f"of {cluster}")
     words = _smem_words(n, M, k, m, cluster)
     term_cap = min((SMEM_MAX - 4 * words) // 8, M * k * (k + 1))
     return LaunchPlan(cluster=cluster, rows=-(-n // cluster), slots=-(-M // cluster),
@@ -183,3 +224,4 @@ def pdhg_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
 
 
 pdhg_block.launches = 0
+pdhg_block.plain_launches = 0      # plain blocks a solve ran on CUDA (kernel_route)

@@ -11,7 +11,8 @@ instance.  Rows may repeat an index (the QCQP clique tables pad short
 subsets that way).  The kernel replaces the Pallas TPU kernel
 ``sdpcutsel_tpu/ops/fused_score.py::_kernel`` (launched from
 ``fused_score``), which needed the table padded to its 1024-row block; this
-one takes the table as it is.
+one takes the table as it is.  It runs K1's and K3's tensor-core body
+(``csrc/score_mma.cuh``), one instantiation per k.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``fused_score.launches`` counts kernel launches.

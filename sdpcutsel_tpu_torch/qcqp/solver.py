@@ -19,7 +19,8 @@ One round (``do_round``):
      ``ops/fused_score.py``, 6 Jacobi sweeps): the neural score is kept
      only where feas > viol_tol, and ``feas`` is also the gate's violation;
   4. gate, support-diverse top sel_size, eigh of Z(rho), cut rows;
-  5. purge slack cuts, append the new rows.
+  5. purge slack cuts, append the new rows;
+  6. under ``RunConfig.debug``, check the round's state (utils/debug.py).
 ``run`` ends with the reference's optional ``polish`` re-solve.
 
 ``neural`` and ``combined`` are the same code in the reference and here.
@@ -44,6 +45,7 @@ from ..models.scorer import MLPScorer, load_params
 from ..ops.fused_score import fused_score
 from ..relax.cutbuffer import CutPool, append_cuts, cut_residuals, empty_pool, purge_pool
 from ..relax.denserows import dense_from_qcqp, empty_dense
+from ..utils.debug import check_round_state
 from .chordal import chordal_decomposition, clique_candidates
 
 SWEEPS = 6      # Jacobi sweeps on Z(rho), as in the reference's QCQP scoring
@@ -154,6 +156,8 @@ class CutSolverQCQP:
         self.pool = append_cuts(pool, *rows)
         self.state = dataclasses.replace(self.state, yC=yC)
         count = int(self.pool.count)
+        if self.cfg.debug:
+            check_round_state(self.state.x, self.state.X, self.pool, bound)
         stats = RoundStats(
             round=len(self.history), bound=bound, certificate=cert,
             lp_iters=int(info["iters"]), lp_kkt_error=float(info["kkt_error"]),

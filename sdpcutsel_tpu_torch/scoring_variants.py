@@ -1,29 +1,40 @@
-"""Where the k = 3 scoring kernels' time goes, on the card.
+"""Where the scoring kernels' time goes, on the card.
 
     python3 -m sdpcutsel_tpu_torch.scoring_variants
 
-K1 (``csrc/pair_score.cu``) and K3 (``csrc/pair_packed.cu``) as built, timed
-in turns with variants built from the same sources into
-``build/cuda/variants/`` (ignored):
+K1 (``csrc/pair_score.cu``), K3 (``csrc/pair_packed.cu``) and K4
+(``csrc/fused_score.cu`` at k = 5 on qcqpband100-5-25-1's clique table, the
+QCQP path's shape) as built, timed on the device (profiler) in turns with
+variants built from the same sources into ``build/cuda/variants/``
+(ignored):
   - ``producers=N``: the warp-specialised CTA with N producer warps in place
-    of 20 (``kProducers`` in ``csrc/score_mma.cuh`` is the only change);
+    of 20 at K = 3 (``producers_for`` in ``csrc/score_mma.cuh`` is the only
+    change);
   - ``fast-math``: the sources as they are, compiled with
     ``nvcc -use_fast_math`` (approximate division and square root, flush to
     zero).  Its feas bits differ from the port's, so it is never a kernel of
-    the port: it measures what the Jacobi's IEEE semantics cost.
-Each at n = 125 on spar125-100-1's scoring point (the point of
-``chip_smoke.py``), with 5 Jacobi sweeps and with 0 (no Jacobi: the gathers,
-the features and the MLP alone), CUDA events over 50 launches after a
-warm-up, in the order as built, variants, variants reversed, as built.
+    the port: it measures what the Jacobi's IEEE semantics cost;
+  - ``unguarded``: ``rotate`` in ``csrc/score_common.cuh`` without its
+    overflow guard (the IEEE slow paths where tau^2 overflows), the same
+    bits.
+K1 and K3 at n = 125 on spar125-100-1's scoring point (the point of
+``chip_smoke.py``) with 5 Jacobi sweeps, K4 with 6, and each with 0 (no
+Jacobi: the gathers, the features and the MLP alone), over 50 launches after
+a warm-up, in the order as built, variants, variants reversed, as built.
 
 It also counts, in numpy float32 on the host (IEEE arithmetic, as the card's;
 the card contracts some products into FMAs, so the counts are close, not
-exact), the rotations of the 4 x 4 Jacobi where tau^2 overflows to inf.  There
-``sqrtf(1 + tau^2)`` and ``sgn / (|tau| + inf)`` take the slow paths of the
-IEEE square root and division; the share of 32-triple tiles with at least one
-such lane is the share of warps that wait on that path in that rotation.
+exact), the rotations of the 4 x 4 Jacobi where tau^2 overflows to inf.
+Unguarded, ``sqrtf(1 + tau^2)`` and ``sgn / (|tau| + inf)`` take the slow
+paths of the IEEE square root and division there; the share of 32-triple
+tiles with at least one such lane is the share of warps that would wait on
+that path in that rotation.
 
-Needs a CUDA device; exits 2 without one.
+``device_ms`` (the profiler's device time of a kernel), ``start_variants``
+(variants built from edited copies of the sources) and ``k1_call`` /
+``k4_call`` (a launch of K1 or K4 from a given library, outside the
+wrappers and their launch counts) serve ``chip_smoke.py`` too.  Needs a CUDA
+device; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -39,15 +50,20 @@ import torch
 
 from . import _build
 from .cuts.enumerate import combinations_table
-from .instances import parse_boxqp
+from .instances import load_or_generate_qcqp, parse_boxqp
+from .models.features import candidate_q_features
 from .models.scorer import MLPScorer, load_params
 from .ops.pair_packed import packed_layout
+from .qcqp.chordal import chordal_decomposition, clique_candidates
 
 INSTANCE = "spar125-100-1"
+BAND = "qcqpband100-5-25-1"
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data", "boxqp")
 VARIANT_DIR = os.path.join(_build.BUILD_DIR, "variants")
-PRODUCERS = "constexpr int kProducers = 20;"
+PRODUCERS = "return K == 5 ? 12 : K == 4 ? 16 : 20;"    # score_mma.cuh producers_for
+GUARD = "const bool over = fabsf(tau) >= kTauOverflow;"   # score_common.cuh rotate
+UNGUARDED = ("score_common.cuh", GUARD, "const bool over = false;")
 
 
 def scoring_point(inst, dev, seed: int = 0):
@@ -61,43 +77,132 @@ def scoring_point(inst, dev, seed: int = 0):
                  for a in (x, 0.5 * (X + X.T), inst.Q))
 
 
-def build_variants(variants: dict) -> dict:
-    """{name: (header substitution or None, extra nvcc flags)} -> {name:
-    ctypes library}, every variant compiled at once."""
+def clique_table(inst, k: int) -> np.ndarray:
+    """A QCQP instance's candidate table, as CutSolverQCQP builds it."""
+    cliques, _ = chordal_decomposition(inst.n, inst.sparsity_graph())
+    return clique_candidates(cliques, k)
+
+
+def fused_args(Q, table: np.ndarray, sweeps: int, dev, seed: int = 0) -> tuple:
+    """fused_score's arguments at a random point (x, X) from seed + k, with
+    the instance's Q and the candidate table (here and in chip_smoke.py)."""
+    n, k = Q.shape[0], table.shape[1]
+    rng = np.random.default_rng(seed + k)
+    x = rng.random(n)
+    X = np.clip(np.outer(x, x) + 0.3 * rng.standard_normal((n, n)), 0, 1)
+    x, X, Q = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in (x, 0.5 * (X + X.T), Q))
+    table = torch.as_tensor(table, device=dev)
+    triQ, scale = candidate_q_features(Q, table)
+    return x, X, table, triQ, scale, MLPScorer(load_params(k), dev), sweeps
+
+
+def device_ms(fn, kernel: str, reps: int = 50, sessions: int = 3) -> float:
+    """Mean device milliseconds of one launch of the kernels whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls of ``fn`` after a
+    warm-up call.  Beside the CUDA-event time of back-to-back calls it shows
+    how much of that time is host dispatch.  A profiling session on the
+    card's machine now and then returns no device records at all; such a
+    session is run again, up to ``sessions`` in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in rows)
+        if count:
+            field = ("self_device_time_total" if hasattr(rows[0], "self_device_time_total")
+                     else "self_cuda_time_total")
+            return sum(getattr(e, field) for e in rows) / count / 1e3
+        print(f"[profiler] no launch of {kernel} recorded in a session of {reps} calls; "
+              f"{len(prof.key_averages())} rows in all", flush=True)
+    raise RuntimeError(f"the profiler recorded no launch of {kernel} in {sessions} sessions")
+
+
+def _weights(mlp) -> list:
+    return [t.contiguous() for lin in mlp.layers for t in (lin.weight, lin.bias)]
+
+
+def k1_call(lib, x, X, Q, table, mlp, sweeps: int):
+    """(run, nn, feas): run() launches K1 from ``lib`` (the built library or
+    a variant) on these inputs and writes its scores into nn and feas."""
+    T, n, w = table.shape[0], x.shape[0], _weights(mlp)
+    nn, feas = torch.empty(T, device=x.device), torch.empty(T, device=x.device)
+
+    def run():
+        err = lib.pair_score_launch(
+            T, n, sweeps, *(t.data_ptr() for t in (table, x, X, Q, *w)),
+            nn.data_ptr(), feas.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "pair_score_launch")
+    return run, nn, feas
+
+
+def k4_call(lib, x, X, table, triQ, scale, mlp, sweeps: int):
+    """(run, nn, feas): run() launches K4 from ``lib`` on fused_score's
+    arguments and writes its scores into nn and feas."""
+    (T, k), n, w = table.shape, x.shape[0], _weights(mlp)
+    nn, feas = torch.empty(T, device=x.device), torch.empty(T, device=x.device)
+
+    def run():
+        err = lib.fused_score_launch(
+            T, n, k, sweeps, *(t.data_ptr() for t in (table, x, X, triQ, scale, *w)),
+            nn.data_ptr(), feas.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "fused_score_launch")
+    return run, nn, feas
+
+
+def start_variants(variants: dict, sources=("pair_score", "pair_packed")):
+    """{name: ([(header, text, replacement), ...], extra nvcc flags)}: copy
+    csrc/ once per variant, edit its headers, and start one nvcc per variant
+    and source, all at once.  Returns a function that waits for them, links
+    each variant and returns {name: ctypes library}."""
     nvcc = _build._nvcc()
     shutil.rmtree(VARIANT_DIR, ignore_errors=True)
     procs = {}
-    for name, (sub, flags) in variants.items():
+    for name, (subs, flags) in variants.items():
         d = os.path.join(VARIANT_DIR, name)
         shutil.copytree(_build.CSRC_DIR, d)
-        if sub is not None:
-            path = os.path.join(d, "score_mma.cuh")
+        for header, text, replacement in subs:
+            path = os.path.join(d, header)
             with open(path) as f:
                 src = f.read()
-            assert PRODUCERS in src
+            if text not in src:
+                raise RuntimeError(f"variant {name}: {header} no longer holds {text!r}")
             with open(path, "w") as f:
-                f.write(src.replace(PRODUCERS, sub))
+                f.write(src.replace(text, replacement))
         procs[name] = [subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, *flags, "-c", "-o", os.path.join(d, f"{k}.o"),
              os.path.join(d, f"{k}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for k in ("pair_score", "pair_packed")]
-    libs = {}
-    for name, ps in procs.items():
-        log = "".join(p.communicate(timeout=600)[0] for p in ps)
-        if any(p.returncode for p in ps):
-            raise RuntimeError(f"variant {name} does not build:\n{log}")
-        d = os.path.join(VARIANT_DIR, name)
-        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", os.path.join(d, "lib.so"),
-                        os.path.join(d, "pair_score.o"), os.path.join(d, "pair_packed.o")],
-                       check=True, capture_output=True, timeout=600)
-        regs = [line.split(":", 1)[-1].strip() for line in log.splitlines()
-                if "registers" in line or "spill" in line]
-        print(f"[variant {name}] {'; '.join(regs)}", flush=True)
-        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
-        for fn in ("pair_score_launch", "pair_packed_launch"):
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-        libs[name] = lib
-    return libs
+            text=True) for k in sources]
+
+    def finish() -> dict:
+        libs = {}
+        for name, ps in procs.items():
+            log = "".join(p.communicate(timeout=600)[0] for p in ps)
+            if any(p.returncode for p in ps):
+                raise RuntimeError(f"variant {name} does not build:\n{log}")
+            d = os.path.join(VARIANT_DIR, name)
+            subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o",
+                            os.path.join(d, "lib.so"),
+                            *(os.path.join(d, f"{k}.o") for k in sources)],
+                           check=True, capture_output=True, timeout=600)
+            regs = [line.split(":", 1)[-1].strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line]
+            print(f"[variant {name}] {'; '.join(regs)}", flush=True)
+            lib = ctypes.CDLL(os.path.join(d, "lib.so"))
+            for fn, argtypes in _build._SIGNATURES.items():
+                if fn.startswith(tuple(f"{k}_" for k in sources)):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            libs[name] = lib
+        return libs
+
+    return finish
 
 
 def overflow_counts(x, X, table, sweeps: int = 5):
@@ -153,24 +258,23 @@ def main() -> int:
     table = torch.as_tensor(table_np, device=dev)
     lay = packed_layout(n, dev)
     mlp = MLPScorer(load_params(3), dev)
-    weights = [t.contiguous() for lin in mlp.layers for t in (lin.weight, lin.bias)]
+    weights = _weights(mlp)
+    band = load_or_generate_qcqp(BAND)
+    args4 = fused_args(band.Q0, clique_table(band, 5), 6, dev)
+    sweeps4 = args4[-1]
 
-    libs = {"as built": _build.lib(), **build_variants({
-        "producers=12": ("constexpr int kProducers = 12;", []),
-        "producers=28": ("constexpr int kProducers = 28;", []),
-        "fast-math": (None, ["-use_fast_math"]),
-    })}
-    T, S, V = table.shape[0], lay.slots, lay.valid_slots.shape[0]
-    nn1, feas1 = torch.empty(T, device=dev), torch.empty(T, device=dev)
+    finish = start_variants({
+        "producers=12": ([("score_mma.cuh", PRODUCERS, PRODUCERS.replace("20", "12"))], []),
+        "producers=28": ([("score_mma.cuh", PRODUCERS, PRODUCERS.replace("20", "28"))], []),
+        "fast-math": ([], ["-use_fast_math"]),
+        "unguarded": ([UNGUARDED], []),
+    }, ("pair_score", "pair_packed", "fused_score"))
+    libs = {"as built": _build.lib(), **finish()}
+    T, S, V, T4 = table.shape[0], lay.slots, lay.valid_slots.shape[0], args4[2].shape[0]
     nn3, feas3 = torch.empty(S, device=dev), torch.empty(S, device=dev)
 
     def k1(lib, sweeps):
-        def run():
-            err = lib.pair_score_launch(
-                T, n, sweeps, *(t.data_ptr() for t in (table, x, X, Q, *weights)),
-                nn1.data_ptr(), feas1.data_ptr(), torch.cuda.current_stream().cuda_stream)
-            _build.check(err, "pair_score_launch")
-        return run
+        return k1_call(lib, x, X, Q, table, mlp, sweeps)[0]
 
     def k3(lib, sweeps):
         def run():
@@ -182,25 +286,21 @@ def main() -> int:
             _build.check(err, "pair_packed_launch")
         return run
 
-    def ms(fn, reps=50):
-        for _ in range(2):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+    def k4(lib, sweeps):
+        return k4_call(lib, *args4[:-1], sweeps)[0]
 
     times: dict = {}
     order = list(libs) + list(libs)[::-1]
     for name in order:
-        for kernel, make in (("K1", k1), ("K3", k3)):
-            for sweeps in (5, 0):
-                times.setdefault((name, kernel, sweeps), []).append(ms(make(libs[name], sweeps)))
+        for kernel, make, sweeps_on, symbol in (
+                ("K1", k1, 5, "pair_score_kernel"), ("K3", k3, 5, "pair_packed_kernel"),
+                ("K4", k4, sweeps4, "fused_score_kernel")):
+            for sweeps in (sweeps_on, 0):
+                times.setdefault((name, kernel, sweeps), []).append(
+                    device_ms(make(libs[name], sweeps), symbol))
     print(f"[variants] {INSTANCE}, n = {n}: K1 over {T} triples, K3 over {S} slots "
-          f"({V} valid); ms a launch, in turns {order}")
+          f"({V} valid); K4 over the {T4} k = 5 candidates of {BAND}; device ms a launch "
+          f"(profiler), in turns {order}")
     for (name, kernel, sweeps), ts in times.items():
         print(f"[variants] {name:>13} {kernel} sweeps={sweeps}: mean {sum(ts) / len(ts)!r} "
               f"ms, runs {ts!r}")

@@ -2,6 +2,8 @@
 estimate, f64 certificate) against sdpcutsel_tpu.lp on the same numpy
 inputs, plus the CPU check of the cut index the CUDA kernel reads."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +13,11 @@ import torch
 from sdpcutsel_tpu.lp import pdhg as jpdhg
 from sdpcutsel_tpu.relax import cutbuffer as jcb
 from sdpcutsel_tpu.relax.denserows import empty_dense
+from sdpcutsel_tpu_torch.config import LPConfig
 from sdpcutsel_tpu_torch.instances import generate_spar
 from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
-from sdpcutsel_tpu_torch.lp.pdhg_kernel import SMEM_MAX, launch_plan, pdhg_block
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import (SMEM_MAX, kernel_route, launch_plan,
+                                                pdhg_block, plan_refusal)
 from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
 from sdpcutsel_tpu_torch.relax.cutbuffer import build_cut_index
 
@@ -189,3 +193,70 @@ def test_launch_plan_covers_every_row_once(n, M, k, m):
 def test_launch_plan_refuses_n_outside_the_kernel(n):
     with pytest.raises(ValueError, match="n <= 128"):
         launch_plan(n, 1024, 3, 0)
+
+
+@pytest.mark.parametrize("use_kernel,n,M,k,m,kernel", [
+    ("auto", 125, 1024, 3, 0, True),      # the BoxQP main paths
+    ("auto", 100, 1024, 5, 25, True),     # the QCQP main path
+    ("auto", 150, 1024, 3, 0, False),     # n > 128: raises, K2 not launched
+    ("auto", 128, 1 << 16, 5, 25, False),  # a pool that does not fit shared memory
+    ("on", 125, 1024, 3, 0, True),
+    ("off", 125, 1024, 3, 0, False),
+    ("off", 150, 1024, 3, 0, False),
+])
+def test_kernel_route_on_cuda(use_kernel, n, M, k, m, kernel):
+    """LPConfig.use_kernel with launch_plan's rule for what the kernel
+    takes: on CUDA, "auto" runs K2 or raises with the plan's reason, and the
+    plain loop runs on the card only with "off"."""
+    why = plan_refusal(n, M, k, m)
+    if use_kernel == "auto":
+        assert (why is None) is kernel
+    if use_kernel == "auto" and why is not None:
+        with pytest.raises(ValueError, match=re.escape(why)):
+            kernel_route(use_kernel, torch.device("cuda"), n, M, k, m)
+    else:
+        assert kernel_route(use_kernel, torch.device("cuda"), n, M, k, m) is kernel
+
+
+def test_kernel_route_auto_is_plain_off_cuda():
+    assert kernel_route("auto", torch.device("cpu"), 125, 1024, 3, 0) is False
+
+
+@pytest.mark.parametrize("n,M,k,m", [(150, 1024, 3, 0), (128, 1 << 16, 5, 25)])
+def test_kernel_route_auto_outside_the_plan(n, M, k, m):
+    """Outside the plan "auto" is the plain loop on the CPU (the twin's
+    arithmetic either way) and refuses on CUDA, naming "off"."""
+    assert kernel_route("auto", torch.device("cpu"), n, M, k, m) is False
+    with pytest.raises(ValueError, match="use_kernel='off'"):
+        kernel_route("auto", torch.device("cuda"), n, M, k, m)
+
+
+@pytest.mark.parametrize("n,M,k,m,why", [(150, 1024, 3, 0, "n <= 128"),
+                                         (128, 1 << 16, 5, 25, "shared memory")])
+def test_kernel_route_on_raises_outside_the_plan(n, M, k, m, why):
+    for device in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match=why):
+            kernel_route("on", torch.device(device), n, M, k, m)
+    with pytest.raises(ValueError, match=why):
+        launch_plan(n, M, k, m)
+
+
+def test_solve_lp_on_refuses_n150_before_solving():
+    inst = generate_spar(150, 100, 1)
+    Q, c = (torch.as_tensor(a, dtype=torch.float32) for a in (inst.Q, inst.c))
+    pool = tcb.empty_pool(64, 3, "cpu")
+    with pytest.raises(ValueError, match="use_kernel='on'"):
+        tpdhg.solve_lp(Q, c, pool, tpdhg.init_state(150, 64, "cpu"),
+                       LPConfig(use_kernel="on"))
+
+
+def test_solve_lp_counts_plain_blocks_only_on_cuda():
+    """On the CPU the route's plain loop is the twin itself: no plain block
+    on the card is counted."""
+    inst = generate_spar(13, 100, 2)
+    Q, c = (torch.as_tensor(a, dtype=torch.float32) for a in (inst.Q, inst.c))
+    pool = tcb.empty_pool(32, 3, "cpu")
+    pdhg_block.plain_launches = 0
+    _, info = tpdhg.solve_lp(Q, c, pool, tpdhg.init_state(13, 32, "cpu"),
+                             LPConfig(max_iters=300, tol=1e-12, use_kernel="off"))
+    assert info["iters"] == 300 and pdhg_block.plain_launches == 0

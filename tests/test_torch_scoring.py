@@ -18,12 +18,16 @@ from sdpcutsel_tpu.ops.jacobi import min_eig_from_parts
 from sdpcutsel_tpu.ops.pair_score import (
     build_pair_layout, pair_consts_static, pair_score_jnp,
 )
+from sdpcutsel_tpu_torch import nn_precision
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
 from sdpcutsel_tpu_torch.instances import generate_spar
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops import topk as ttopk
 from sdpcutsel_tpu_torch.models import features as tfeatures
+from sdpcutsel_tpu_torch.ops.fused_score import fused_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
+from test_torch_fused import NN as FUSED_NN
+from test_torch_fused import _inputs as fused_inputs
 
 FEAS = dict(rtol=0, atol=5e-5)
 NN = dict(rtol=2e-4, atol=2e-4)
@@ -157,10 +161,20 @@ def _tf32_product(a, w, passes):
     return out
 
 
+def _tf32_nn(x, X, table, triQ, scale, mlp, passes):
+    """nn with layers 1 and 2 emulated in TF32 (layer 3, the biases, relu
+    and scale in fp32)."""
+    l1, l2, l3 = mlp.layers
+    feats = tfeatures.candidate_features(triQ, x, X, table)
+    h = torch.relu(_tf32_product(feats, l1.weight, passes) + l1.bias)
+    h = torch.relu(_tf32_product(h, l2.weight, passes) + l2.bias)
+    return scale * torch.relu(h @ l3.weight[0] + l3.bias[0])
+
+
 def _tf32_nn_excess(seed, passes):
-    """The k = 3 nn scores with layers 1 and 2 emulated in TF32 (layer 3,
-    the biases, relu and scale in fp32) against pair_score_plain, as a share
-    of the nn tolerance, over all C(30, 3) triples of spar030-100-1."""
+    """The k = 3 nn scores with layers 1 and 2 emulated in TF32 against
+    pair_score_plain, as a share of the nn tolerance, over all C(30, 3)
+    triples of spar030-100-1."""
     n = 30
     inst = generate_spar(n, 100, 1)
     rng = np.random.default_rng(seed)
@@ -171,12 +185,21 @@ def _tf32_nn_excess(seed, passes):
     mlp = MLPScorer(load_params(3), "cpu")
     want, _ = pair_score_plain(x, X, Q, table, mlp)
     triQ, scale = tfeatures.candidate_q_features(Q, table)
-    l1, l2, l3 = mlp.layers
-    feats = tfeatures.candidate_features(triQ, x, X, table)
-    h = torch.relu(_tf32_product(feats, l1.weight, passes) + l1.bias)
-    h = torch.relu(_tf32_product(h, l2.weight, passes) + l2.bias)
-    got = scale * torch.relu(h @ l3.weight[0] + l3.bias[0])
+    got = _tf32_nn(x, X, table, triQ, scale, mlp, passes)
     return float(((got - want).abs() / (NN["atol"] + NN["rtol"] * want.abs())).max())
+
+
+def _k4_tf32_nn_excess(k, passes):
+    """K4's nn scores at width k, F = k(k+1) + k features padded to k-steps
+    of 8 as csrc/score_mma.cuh pads them, with layers 1 and 2 emulated in
+    TF32, against fused_score_plain on tests/test_torch_fused.py's tables,
+    as a share of K4's nn tolerance (rtol 2e-4, atol 2e-5)."""
+    Q, x, X, table = (torch.as_tensor(a) for a in fused_inputs(k))
+    triQ, scale = tfeatures.candidate_q_features(Q, table)
+    mlp = MLPScorer(load_params(k), "cpu")
+    want, _ = fused_score_plain(x, X, table, triQ, scale, mlp, 6)
+    got = _tf32_nn(x, X, table, triQ, scale, mlp, passes)
+    return float(((got - want).abs() / (FUSED_NN["atol"] + FUSED_NN["rtol"] * want.abs())).max())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -189,6 +212,56 @@ def test_split_tf32_mlp_keeps_the_twin_tolerance(seed):
 def test_one_pass_tf32_mlp_breaks_the_twin_tolerance():
     """Why the split: one TF32 pass, scaled by max |Q_rho|, does not keep it."""
     assert _tf32_nn_excess(0, passes=1) > 1.0
+
+
+@pytest.mark.parametrize("k", [2, 4, 5])
+def test_split_tf32_mlp_keeps_the_k4_twin_tolerance(k):
+    """K4's instantiations of the same body keep a quarter of its tolerance."""
+    assert _k4_tf32_nn_excess(k, passes=3) <= 0.25
+
+
+@pytest.mark.parametrize("k", [2, 4, 5])
+def test_one_pass_tf32_mlp_breaks_the_k4_twin_tolerance(k):
+    assert _k4_tf32_nn_excess(k, passes=1) > 1.0
+
+
+def _k4_emulation_inputs(k):
+    Q, x, X, table = (torch.as_tensor(a) for a in fused_inputs(k))
+    triQ, scale = tfeatures.candidate_q_features(Q, table)
+    mlp = MLPScorer(load_params(k), "cpu")
+    feats = tfeatures.candidate_features(triQ, x, X, table).numpy()
+    weights = [t.detach().numpy() for lin in mlp.layers for t in (lin.weight, lin.bias)]
+    return (x, X, table, triQ, scale, mlp), feats, scale.numpy(), weights
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5])
+def test_kernel_order_emulation_agrees_with_split_tf32(k):
+    """nn_precision's emulation of K4's own order, each mma rounded to
+    nearest, agrees with the split-TF32 emulation above, and both stay
+    within a quarter of K4's limit of the float64 MLP."""
+    args, feats, scale, weights = _k4_emulation_inputs(k)
+    em = nn_precision.emulate_nn(feats, scale, weights, "rn")
+    exact = nn_precision.exact_nn(feats, scale, weights)
+    with torch.no_grad():
+        split = _tf32_nn(*args, passes=3).numpy()
+    assert nn_precision.excess(em, exact) <= 0.25
+    assert nn_precision.excess(split, exact) <= 0.25
+    assert nn_precision.excess(em, split) <= 0.25
+
+
+def test_truncating_mma_model_rounds_toward_zero():
+    """The tensor-core model "tc C/E" cuts every term and the sum toward
+    zero: never above the sum rounded to nearest where all terms are
+    positive, and within a few fp32 ulps of it."""
+    rng = np.random.default_rng(0)
+    a = nn_precision.rna_tf32(rng.random((64, 8)).astype(np.float32))
+    b = nn_precision.rna_tf32(rng.random((16, 8)).astype(np.float32))
+    c = rng.random((64, 16)).astype(np.float32)
+    rn = nn_precision.mma(c, a, b, "rn")
+    for model in ("tc 4/0", "tc 8/2"):
+        tc = nn_precision.mma(c, a, b, model)
+        assert (tc <= rn).all() and (tc < rn).any()
+        assert (np.abs(tc - rn) <= 4 * np.spacing(rn)).all()
 
 
 def test_pair_score_refuses_devices_without_kernel():
