@@ -41,10 +41,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
   4. the rounds on the card against the CPU port, 3 rounds each:
      spar020-100-1 at k = 3 and at k = 2, qcqp015-30-3-1 at k = 5; 2
      rounds of the packed route (generate_spar(70, 100, 1), feasibility);
-     and spar150-100-1 (generated), outside K2's launch plan: by default
-     its solve refuses on the card with the plan's reason, and with
-     LPConfig(use_kernel="off") 2 rounds run the plain loop there, K2 not
-     launched;
+     spar020-100-1 with strategies triangle, optimality and random, and
+     neural with vertex steering (the random draws come from a CPU
+     generator, so both devices see the same numbers); and spar150-100-1
+     (generated), outside K2's launch plan: by default its solve refuses on
+     the card with the plan's reason, and with LPConfig(use_kernel="off") 2
+     rounds run the plain loop there, K2 not launched;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -65,10 +67,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
      pair_score not); the same bound checks as phase 5, and a second scan
      run and a per-round run of the same configuration must both repeat
      every round bit for bit;
-  8. one JSON line of kernel results, then the last line
+  8. the steered QCQP scan: phase 6's configuration with use_scan and
+     steer_eps 1e-3 (4,000 steering iterations a round), 8 rounds and the
+     polish, twice, bit for bit; K2 launched exactly once a round for
+     steering beside the solves' blocks; every certificate >= sdp_lower;
+     steering's time a round; a per-round run writing a snapshot every
+     round repeats the scan bit for bit, and a fresh solver restored from
+     round 4's snapshot repeats rounds 5-8 and the polish, gate state
+     included;
+  9. resume on the BoxQP main path: a run with a snapshot every round, and
+     a fresh solver restored from round 5's, both repeat phase 5's rounds
+     bit for bit;
+ 10. the strategies at full width, each run twice, bit for bit, every
+     certificate valid: spar125-100-1 with triangle and random (5 rounds)
+     and optimality (2 rounds, with the ADMM's time a round and its
+     repeatability); qcqpband100-5-25-1 at k = 4 with feasibility, random
+     and optimality (8 rounds and the polish); gap closed printed beside the
+     JAX package's records (results/suite.jsonl, results/qcqp.jsonl);
+ 11. one JSON line of kernel results, each kernel's launches summed over
+     the main paths 5-10 (each counted from 0), then the last line
      {"ok": true, "device": {...}}.
 Every path's launch counts include the solve's plain PDHG blocks on the
-card ("pdhg_block plain"), which must be 0 on the three main paths.
+card ("pdhg_block plain"), which must be 0 on every main path.
 
 TF32 is turned off for the whole process at its start: the scoring twin's
 MLP runs as cuBLAS matrix products, and it agrees with the kernel to 2e-4
@@ -95,10 +115,11 @@ from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
 from sdpcutsel_tpu_torch.instances import (generate_spar, load_or_generate,
                                            load_or_generate_qcqp, parse_boxqp)
 from sdpcutsel_tpu_torch.loop import CutSolver
-from sdpcutsel_tpu_torch.lp.pdhg import estimate_norm, init_state
+from sdpcutsel_tpu_torch.lp.pdhg import estimate_norm, init_state, solve_setup, steer_to_vertex
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, pdhg_block, pdhg_block_plain,
                                                 plan_refusal)
+from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
@@ -117,9 +138,18 @@ INSTANCE = "spar125-100-1"
 ROUNDS = 10
 QCQP_INSTANCE = "qcqpband100-5-25-1"
 QCQP_ROUNDS = 8
+BOXQP_LP = LPConfig(max_iters=20000, tol=2e-6)      # bench.py's suite LP config
 QCQP_CFG = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6),
                      cuts=CutConfig(k=5, sel_size=16, capacity=1024),
                      loop=LoopConfig(polish_iters=60000))
+# the steered QCQP scan: results/qcqp_parity.jsonl:28's steer_eps, the
+# default 4,000 steering iterations a round
+QCQP_STEER_CFG = dataclasses.replace(QCQP_CFG, loop=dataclasses.replace(
+    QCQP_CFG.loop, use_scan=True, steer_eps=1e-3))
+RESUME_AT = {"qcqp": 4, "boxqp": 5}          # rounds before the snapshot a run resumes from
+BOXQP_STRATEGY_ROUNDS = {"triangle": 5, "random": 5, "optimality": 2}
+QCQP_STRATEGIES = ("feasibility", "random", "optimality")     # at k = 4, QCQP_ROUNDS each
+SNAPSHOTS = os.path.join(REPO, "build", "chip_smoke_snapshots")
 SEED = 0
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3
@@ -134,6 +164,7 @@ QCQP_RECORDED_FINAL = 2996.008999203225
 WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
             "pdhg_block": pdhg_block, "fused_score": fused_score}
 PLAIN_BLOCKS = "pdhg_block plain"     # the solve's plain PDHG blocks on the card
+PATH_LAUNCHES: dict = {}              # main path -> its launch counts (launch_counts())
 SCORING_KERNELS = ("pair_score_kernel", "pair_packed_kernel",
                    *(f"fused_score_kernelILi{k}E" for k in (2, 3, 4, 5)))
 
@@ -661,6 +692,26 @@ def check_small_instances(dev):
                     scorer=ScorerConfig(strategy="feasibility"))
     card_vs_cpu("spar070-100-1 packed feasibility", CutSolver, generate_spar(70, 100, 1),
                 cfg, dev, rounds=2)
+    # the strategies and steering on spar020-100-1 (inst): their random
+    # draws come from a CPU generator, so both devices see the same numbers
+    for strategy in ("triangle", "optimality", "random"):
+        card_vs_cpu(f"{inst.name} k=3 {strategy}", CutSolver, inst,
+                    RunConfig(lp=lp, scorer=ScorerConfig(strategy=strategy)), dev)
+    card_vs_cpu(f"{inst.name} k=3 neural steered (steer_eps 1e-3)", CutSolver, inst,
+                RunConfig(lp=lp, loop=LoopConfig(steer_eps=1e-3)), dev)
+
+
+def registry(family: str, name: str) -> dict:
+    """The instance registry's values for ``name``: mccormick, sdp, and the
+    floor every certificate must keep (BoxQP: the best known objective,
+    data/boxqp/optima.json; QCQP: the certified sdp_lower)."""
+    with open(os.path.join(REPO, "data", family, "bounds.json")) as f:
+        reg = json.load(f)[name]
+    if family == "qcqp":
+        return {"mc": reg["mccormick"], "sdp": reg["sdp"], "floor": reg["sdp_lower"]}
+    with open(os.path.join(DATA, "optima.json")) as f:
+        best_known = json.load(f)[name]["best_known"]
+    return {"mc": reg["mccormick"], "sdp": reg["sdp"], "floor": best_known}
 
 
 def outcome(hist) -> list:
@@ -689,11 +740,8 @@ def boxqp_path(tag: str, inst, cfg, dev, launched: tuple, idle: tuple = ()):
     before and read after; the bounds are held to the instance registry and
     a second run from a fresh solver must repeat the first bit for bit.
     Returns (launch counts, history, checks so far)."""
-    with open(os.path.join(DATA, "bounds.json")) as f:
-        reg = json.load(f)[INSTANCE]
-    with open(os.path.join(DATA, "optima.json")) as f:
-        best_known = json.load(f)[INSTANCE]["best_known"]
-    mc, sdp = reg["mccormick"], reg["sdp"]
+    reg = registry("boxqp", INSTANCE)
+    mc, sdp, best_known = reg["mc"], reg["sdp"], reg["floor"]
     solver = CutSolver(inst, cfg, device=dev)
     reset_launches()
     t0 = time.perf_counter()
@@ -732,19 +780,20 @@ def boxqp_path(tag: str, inst, cfg, dev, launched: tuple, idle: tuple = ()):
     }
 
 
-def main_path(inst, dev) -> dict:
-    """Strategy neural, default cuts (the lexicographic table), per round."""
-    cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6))
-    launches, _, checks = boxqp_path("main", inst, cfg, dev, ("pair_score", "pdhg_block"))
+def main_path(inst, dev):
+    """Strategy neural, default cuts (the lexicographic table), per round.
+    Returns (launch counts, history)."""
+    cfg = RunConfig(lp=BOXQP_LP)
+    launches, hist, checks = boxqp_path("main", inst, cfg, dev, ("pair_score", "pdhg_block"))
     finish("main", checks)
-    return launches
+    return launches, hist
 
 
 def packed_scan_path(inst, dev) -> dict:
     """Strategy neural on the packed layout, scan mode, after a one-round
     warm-up; a per-round run of the same configuration repeats the scan."""
-    cfg = RunConfig(lp=LPConfig(max_iters=20000, tol=2e-6),
-                    cuts=CutConfig(pair_layout="packed"), loop=LoopConfig(use_scan=True))
+    cfg = RunConfig(lp=BOXQP_LP, cuts=CutConfig(pair_layout="packed"),
+                    loop=LoopConfig(use_scan=True))
     CutSolver(inst, cfg, device=dev).run(rounds=1)
     launches, hist, checks = boxqp_path("packed", inst, cfg, dev,
                                         ("pair_packed", "pdhg_block"), ("pair_score",))
@@ -786,9 +835,8 @@ def rerun_with_k4_checks(inst, rounds: int, dev):
 def qcqp_main_path(dev) -> dict:
     """CutSolverQCQP on qcqpband100-5-25-1 in the suite configuration."""
     inst = load_or_generate_qcqp(QCQP_INSTANCE)
-    with open(os.path.join(REPO, "data", "qcqp", "bounds.json")) as f:
-        reg = json.load(f)[QCQP_INSTANCE]
-    mc, sdp, sdp_lower = reg["mccormick"], reg["sdp"], reg["sdp_lower"]
+    reg = registry("qcqp", QCQP_INSTANCE)
+    mc, sdp, sdp_lower = reg["mc"], reg["sdp"], reg["floor"]
     with open(os.path.join(REPO, "results", "qcqp.jsonl")) as f:
         jax_rec = next(r for r in map(json.loads, f)
                        if (r["instance"], r["strategy"], r.get("k")) == (QCQP_INSTANCE, "neural", 5))
@@ -844,6 +892,226 @@ def qcqp_main_path(dev) -> dict:
     return launches
 
 
+def gap_closed(reg: dict, bound: float) -> float:
+    return float((reg["mc"] - bound) / (reg["mc"] - reg["sdp"]))
+
+
+def recorded_gap(path: str, **match) -> str:
+    """The JAX package's final gap closed in the last row of results/``path``
+    whose keys match, with its line, for printing beside a run."""
+    found = None
+    with open(os.path.join(REPO, "results", path)) as f:
+        for line, row in enumerate(map(json.loads, f), 1):
+            if all(row.get(k) == v for k, v in match.items()):
+                found = (line, row)
+    if found is None:
+        return "no JAX record"
+    line, row = found
+    return (f"JAX record {row['final_gap_closed']!r} after {len(row['bounds'])} rounds "
+            f"(results/{path}:{line})")
+
+
+def keep_snapshot(solver, at_round: int, directory: str) -> str:
+    """Make ``solver`` keep a copy, in ``directory``, of the snapshot its
+    run writes after round ``at_round`` (each snapshot overwrites the last
+    at ``<checkpoint_dir>/<instance>.ck``).  Returns the copy's path."""
+    write = solver.checkpoint
+    copy = os.path.join(directory, os.path.basename(solver._checkpoint_path()))
+
+    def checkpoint(path):
+        write(path)
+        if len(solver.history) == at_round:
+            os.makedirs(directory, exist_ok=True)
+            shutil.copy(path, copy)
+            shutil.copy(path + ".json", copy + ".json")
+
+    solver.checkpoint = checkpoint
+    return copy
+
+
+def validity(hist, reg: dict) -> dict:
+    """Every certificate finite and above the registry's floor; the bounds
+    the certificates' running minimum (the last may be lowered by polish)."""
+    certs = np.array([h.certificate for h in hist])
+    bounds = np.array([h.bound for h in hist])
+    runmin = np.minimum.accumulate(certs)
+    return {
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= {reg['floor']}": bool((certs >= reg["floor"]).all()),
+        "bounds are the running minimum of the certificates (polish may lower the last)":
+            bool((bounds[:-1] == runmin[:-1]).all() and bounds[-1] <= runmin[-1]),
+    }
+
+
+def steered_qcqp_scan(dev) -> dict:
+    """qcqpband100-5-25-1 in QCQP_CFG with scan mode and steering (steer_eps
+    1e-3, 4,000 iterations a round), QCQP_ROUNDS rounds and the polish:
+    twice, bit for bit; once per round with a snapshot every round, which
+    repeats the scan's rounds bit for bit; and a fresh solver restored from
+    round RESUME_AT's snapshot, which repeats the rest, gate state included.
+    K2 launches exactly once a round for steering besides the solves' blocks."""
+    inst = load_or_generate_qcqp(QCQP_INSTANCE)
+    reg = registry("qcqp", QCQP_INSTANCE)
+    cfg = QCQP_STEER_CFG
+    solver = CutSolverQCQP(inst, cfg, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=QCQP_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    every = cfg.lp.check_every
+    blocks = (sum(h.lp_iters for h in hist) + solver.polish_info["iters"]) // every
+    report("steer", hist, reg["mc"], reg["sdp"])
+    final = float(hist[-1].bound)
+    log(f"[steer] {len(hist)} scan rounds + polish in {wall:.3f}s; rounds / sum of "
+        f"wall_time_s {len(hist) / sum(h.wall_time_s for h in hist)!r} rounds/s; launches "
+        f"{launches}: the solves' and the polish's blocks {blocks}, steering "
+        f"{launches['pdhg_block'] - blocks}; final bound {final!r} (PR 6's unsteered main "
+        f"path: {QCQP_RECORDED_FINAL!r}); gap closed {gap_closed(reg, final)!r} ("
+        f"{recorded_gap('qcqp.jsonl', instance=QCQP_INSTANCE, strategy='neural', k=5)}, "
+        f"unsteered)")
+    # steering's time a round at the last round's pool and solved state
+    setup = solve_setup(solver.c, solver.pool, cfg.lp, solver.dense)
+    gen = torch.Generator().manual_seed(SEED)
+    steer_ms = cuda_ms(lambda: steer_to_vertex(
+        solver.Q, solver.c, solver.pool, solver.state, cfg.lp, gen, cfg.loop.steer_eps,
+        cfg.loop.steer_iters, solver.dense, setup), reps=5, warmup=1)
+    log(f"[steer] steering a round ({cfg.loop.steer_iters} iterations, one K2 launch, "
+        f"m={inst.m}): {steer_ms:.4f} ms = {steer_ms * 1e3 / cfg.loop.steer_iters:.3f} "
+        f"us/iteration by events")
+    again = CutSolverQCQP(inst, cfg, device=dev)
+    again.run(rounds=QCQP_ROUNDS)
+    shutil.rmtree(SNAPSHOTS, ignore_errors=True)
+    per_cfg = dataclasses.replace(cfg, loop=dataclasses.replace(
+        cfg.loop, use_scan=False, checkpoint_every=1, checkpoint_dir=SNAPSHOTS))
+    per = CutSolverQCQP(inst, per_cfg, device=dev)
+    snapshot = keep_snapshot(per, RESUME_AT["qcqp"], os.path.join(SNAPSHOTS, "resume"))
+    per.run(rounds=QCQP_ROUNDS)
+    resumed = CutSolverQCQP(inst, dataclasses.replace(
+        cfg, loop=dataclasses.replace(cfg.loop, use_scan=False)), device=dev)
+    resumed.restore(snapshot)
+    resumed.run(rounds=QCQP_ROUNDS - RESUME_AT["qcqp"])
+    log(f"[steer] resumed from round {RESUME_AT['qcqp']}'s snapshot: final bound "
+        f"{float(resumed.history[-1].bound)!r}")
+    shutil.rmtree(SNAPSHOTS, ignore_errors=True)
+    finish("steer", {
+        f"{QCQP_ROUNDS} scan rounds ran": len(hist) == QCQP_ROUNDS,
+        "pdhg_block and fused_score launched": min(launches["pdhg_block"],
+                                                   launches["fused_score"]) > 0,
+        "steering is exactly one K2 launch a round": launches["pdhg_block"] == blocks + len(hist),
+        "no plain PDHG block": launches[PLAIN_BLOCKS] == 0,
+        **validity(hist, reg),
+        "a second scan run repeats every round bit for bit, polish included":
+            outcome(again.history) == outcome(hist)
+            and again.polish_certificate == solver.polish_certificate,
+        "a per-round run repeats every round of the scan bit for bit, polish included":
+            outcome(per.history) == outcome(hist)
+            and per.polish_certificate == solver.polish_certificate,
+        f"the run resumed from round {RESUME_AT['qcqp']}'s snapshot repeats it bit for bit, "
+        "polish and gate state included":
+            outcome(resumed.history) == outcome(per.history)
+            and resumed.polish_certificate == per.polish_certificate
+            and torch.equal(resumed._last_viol, per._last_viol)
+            and torch.equal(resumed._cooldown, per._cooldown),
+    })
+    return launches
+
+
+def boxqp_resume(inst, main_hist, dev) -> dict:
+    """The BoxQP main path's configuration per round with a snapshot every
+    round, and a fresh solver restored from round RESUME_AT's snapshot: both
+    repeat the main path's rounds bit for bit."""
+    cfg = RunConfig(lp=BOXQP_LP,
+                    loop=LoopConfig(checkpoint_every=1, checkpoint_dir=SNAPSHOTS))
+    shutil.rmtree(SNAPSHOTS, ignore_errors=True)
+    per = CutSolver(inst, cfg, device=dev)
+    snapshot = keep_snapshot(per, RESUME_AT["boxqp"], os.path.join(SNAPSHOTS, "resume"))
+    reset_launches()
+    per.run(rounds=ROUNDS)
+    resumed = CutSolver(inst, RunConfig(lp=cfg.lp), device=dev).restore(snapshot)
+    resumed.run(rounds=ROUNDS - RESUME_AT["boxqp"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    shutil.rmtree(SNAPSHOTS, ignore_errors=True)
+    log(f"[resume] {INSTANCE}: launches {launches}; final bound "
+        f"{float(resumed.history[-1].bound)!r}")
+    finish("resume", {
+        "pair_score and pdhg_block launched": min(launches["pair_score"],
+                                                  launches["pdhg_block"]) > 0,
+        "no plain PDHG block": launches[PLAIN_BLOCKS] == 0,
+        "the run with snapshots repeats the main path bit for bit":
+            outcome(per.history) == outcome(main_hist),
+        f"the run resumed from round {RESUME_AT['boxqp']}'s snapshot repeats the main path "
+        "bit for bit": outcome(resumed.history) == outcome(main_hist),
+    })
+    return launches
+
+
+def strategy_path(tag: str, solver_cls, inst, cfg, rounds: int, reg: dict, record: str,
+                  dev):
+    """One strategy at full width: a run, counters reset before and read
+    after, and a second run from a fresh solver that must repeat it bit for
+    bit; every certificate valid.  Returns (launch counts, solver)."""
+    solver = solver_cls(inst, cfg, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    report(tag, hist, reg["mc"], reg["sdp"])
+    final = float(hist[-1].bound)
+    log(f"[{tag}] {len(hist)} rounds in {wall:.3f}s (polish included: "
+        f"{cfg.loop.polish_iters > 0}); rounds / sum of wall_time_s "
+        f"{len(hist) / sum(h.wall_time_s for h in hist)!r} rounds/s; per-round wall "
+        f"{[round(h.wall_time_s, 4) for h in hist]} s; launches {launches}; final bound "
+        f"{final!r}, gap closed {gap_closed(reg, final)!r} ({record})")
+    again = solver_cls(inst, cfg, device=dev).run(rounds=rounds)
+    finish(tag, {
+        f"{rounds} rounds ran (or the early stop ended the run)":
+            len(hist) == rounds or hist[-1].cuts_added == 0,
+        "pdhg_block launched": launches["pdhg_block"] > 0,
+        "no plain PDHG block": launches[PLAIN_BLOCKS] == 0,
+        **validity(hist, reg),
+        "last bound below round 0": bool(hist[-1].bound < hist[0].bound),
+        "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+    })
+    return launches, solver
+
+
+def strategies(inst, dev) -> dict:
+    """Strategies triangle, random and optimality on spar125-100-1 (k = 3,
+    the BoxQP main path's LP) and feasibility, random and optimality on
+    qcqpband100-5-25-1 at k = 4 (QCQP_CFG), each run twice; the optimality
+    ADMM's time and repeatability at the last BoxQP point."""
+    out = {}
+    reg = registry("boxqp", INSTANCE)
+    for strategy, rounds in BOXQP_STRATEGY_ROUNDS.items():
+        cfg = RunConfig(lp=BOXQP_LP, scorer=ScorerConfig(strategy=strategy))
+        record = "; ".join(recorded_gap("suite.jsonl", instance=INSTANCE, strategy=strategy,
+                                        k=3, sel_size=sel) + f" at sel_size {sel}"
+                           for sel in (cfg.cuts.sel_size, 50))
+        out[f"boxqp {strategy}"], solver = strategy_path(
+            f"box-{strategy}", CutSolver, inst, cfg, rounds, reg, record, dev)
+    x, X = solver.state.x, solver.state.X            # the last optimality run's point
+    first, second = solver._exact(x, X), solver._exact(x, X)
+    admm_ms = cuda_ms(lambda: solver._exact(x, X), reps=2, warmup=0)
+    log(f"[box-optimality] the ADMM over {solver.table.shape[0]} blocks (300 iterations of "
+        f"a batched 3x3 eigh, {EIGH_CHUNK} blocks a call): {admm_ms:.2f} ms a round by "
+        f"events; two calls bit for bit: {torch.equal(first, second)}")
+    finish("box-optimality", {"the ADMM repeats bit for bit": torch.equal(first, second)})
+    qinst = load_or_generate_qcqp(QCQP_INSTANCE)
+    qreg = registry("qcqp", QCQP_INSTANCE)
+    for strategy in QCQP_STRATEGIES:
+        cfg = dataclasses.replace(QCQP_CFG, cuts=dataclasses.replace(QCQP_CFG.cuts, k=4),
+                                  scorer=ScorerConfig(strategy=strategy))
+        record = recorded_gap("qcqp.jsonl", instance=QCQP_INSTANCE, strategy=strategy, k=4)
+        out[f"qcqp {strategy}"], _ = strategy_path(
+            f"qcqp-{strategy}", CutSolverQCQP, qinst, cfg, QCQP_ROUNDS, qreg, record, dev)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
@@ -879,29 +1147,35 @@ def main() -> int:
     check_guard(inst, unguarded, dev)
     check_small_instances(dev)
     check_large_instance(dev)
-    launches = main_path(inst, dev)
-    qlaunches = qcqp_main_path(dev)
-    plaunches = packed_scan_path(inst, dev)
+    PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
+    PATH_LAUNCHES["qcqp main"] = qcqp_main_path(dev)
+    PATH_LAUNCHES["boxqp packed scan"] = packed_scan_path(inst, dev)
+    PATH_LAUNCHES["qcqp steered scan"] = steered_qcqp_scan(dev)
+    PATH_LAUNCHES["boxqp resume"] = boxqp_resume(inst, main_hist, dev)
+    PATH_LAUNCHES.update(strategies(inst, dev))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    for path, counts in PATH_LAUNCHES.items():
+        log(f"[launches] {path}: {counts}")
+    total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
 
     kernels = [
         {"name": "pair_score", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pair_score.cu",
          "replaces": "sdpcutsel_tpu/ops/pair_score.py:192",
-         "launches": launches["pair_score"], **k1},
+         "launches": total["pair_score"], **k1},
         {"name": "pair_packed", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pair_packed.cu",
          "replaces": "sdpcutsel_tpu/ops/pair_packed.py:196",
-         "launches": plaunches["pair_packed"], **k3},
+         "launches": total["pair_packed"], **k3},
         {"name": "pdhg_block", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pdhg_block.cu",
          "replaces": "sdpcutsel_tpu/lp/pdhg_kernel.py:51",
-         "launches": qlaunches["pdhg_block"], **k2,
+         "launches": total["pdhg_block"], **k2,
          "max_abs_err": max(k2["max_abs_err"], k2_box["max_abs_err"])},
         {"name": "fused_score", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/fused_score.cu",
          "replaces": "sdpcutsel_tpu/ops/fused_score.py:52",
-         "launches": qlaunches["fused_score"], **k4[-1],
+         "launches": total["fused_score"], **k4[-1],
          "max_abs_err": max(r["max_abs_err"] for r in k4)},
     ]
     for entry in kernels:

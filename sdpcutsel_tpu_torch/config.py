@@ -3,8 +3,7 @@
 Same dataclasses, field names, types and defaults as the reference, so one
 set of keyword arguments builds either package's config.  A run is described
 by one ``RunConfig`` value.  Fields the port does not read yet keep the
-reference's defaults (the solvers raise where a value asks for something not
-ported).
+reference's defaults.
 """
 
 from __future__ import annotations
@@ -50,8 +49,8 @@ class CutConfig:
 
 @dataclass(frozen=True)
 class ScorerConfig:
-    """Cut-selection strategy: "neural", "feasibility" or "combined" in the
-    port; "optimality", "random" and "triangle" are not ported."""
+    """Cut-selection strategy: "neural", "feasibility", "combined",
+    "random", "optimality" or "triangle" (k = 3 only)."""
 
     strategy: str = "neural"
     weights_path: Optional[str] = None   # default: bundled artifact for this k
@@ -67,9 +66,9 @@ class LoopConfig:
     use_scan: bool = False           # all rounds with no per-round certificate
     improvement_tol: float = 1e-5    # stop when relative bound improvement is below
     polish_iters: int = 0            # > 0: final tighter LP re-solve with this budget
-    checkpoint_every: int = 0        # not ported: must stay 0
+    checkpoint_every: int = 0        # > 0: snapshot every this many rounds of run()
     checkpoint_dir: Optional[str] = None
-    steer_eps: float = 0.0           # not ported: must stay 0
+    steer_eps: float = 0.0           # > 0: vertex steering of the scoring point
     steer_iters: int = 4000
 
 

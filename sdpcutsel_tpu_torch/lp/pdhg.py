@@ -20,6 +20,10 @@ stopping test) are float32, as they are on the device in the reference.
 Everything outside the kernel sums the cut adjoint over the pool's cut
 index too (relax/cutbuffer.py), so a solve on CUDA repeats bit for bit.
 
+``steer_to_vertex`` (vertex steering) runs one more block from a solved
+state on a perturbed objective, with the solve's route, cut index and ||K||
+(``SolveSetup``).
+
 ``dual_bound_f64`` recomputes the Lagrangian certificate in float64 numpy, so
 a reported bound never depends on f32 convergence.
 """
@@ -202,33 +206,103 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
                 "dual_obj": float(d), "omega": float(omega)}
 
 
-def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
-             dense: DenseRows | None = None):
-    """Solve the current relaxation from the warm start ``state``.
+@dataclasses.dataclass
+class SolveSetup:
+    """What a solve derives from its pool once: the blocks' route, the cut
+    index and ||K||.  Steering reuses the solve's, as the pool is the same."""
+    kernel: bool          # blocks through pdhg_block (else the plain loop)
+    index: CutIndex
+    normK: float
 
-    Q, c: float32 tensors on the state's device; cfg: ``LPConfig``; dense:
-    the QCQP's constraint rows, whose duals are ``state.yD``.
-    ``cfg.use_kernel`` chooses the blocks (``lp/pdhg_kernel.py::
-    kernel_route``): with "auto", the iteration kernel on CUDA, dense rows or
-    not, raising where its launch plan does not take (n, capacity, k, m); the
-    plain loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
-    bound estimate is -info['dual_obj'], the certified one dual_bound_f64.
-    """
+
+def solve_setup(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
+    """The route by ``cfg.use_kernel`` (``lp/pdhg_kernel.py::kernel_route``),
+    ``build_cut_index`` and ``estimate_norm`` of a solve over ``pool``."""
     from .pdhg_kernel import kernel_route
 
     n = int(c.shape[0])
     M, k = pool.idx.shape
     kernel = kernel_route(cfg.use_kernel, c.device, n, M, k,
                           0 if dense is None else dense.m)
-    cx = -c
-    cX = -0.5 * Q
     index = build_cut_index(pool, n)        # the pool is constant in a solve
     normK = estimate_norm(pool, n, cfg.power_iters,
                           torch.Generator(device="cpu").manual_seed(0), index,
                           dense)
-    return _solve_impl(cx, cX, pool, index, state, normK, cfg.omega0, cfg.tol,
-                       cfg.step_scale, cfg.max_iters, cfg.check_every,
-                       cfg.restart_period, dense, kernel)
+    return SolveSetup(kernel, index, normK)
+
+
+def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
+             dense: DenseRows | None = None, setup: SolveSetup | None = None):
+    """Solve the current relaxation from the warm start ``state``.
+
+    Q, c: float32 tensors on the state's device; cfg: ``LPConfig``; dense:
+    the QCQP's constraint rows, whose duals are ``state.yD``; setup:
+    ``solve_setup(c, pool, cfg, dense)``, computed here when None.
+    ``cfg.use_kernel`` chooses the blocks (``lp/pdhg_kernel.py::
+    kernel_route``): with "auto", the iteration kernel on CUDA, dense rows or
+    not, raising where its launch plan does not take (n, capacity, k, m); the
+    plain loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
+    bound estimate is -info['dual_obj'], the certified one dual_bound_f64.
+    """
+    if setup is None:
+        setup = solve_setup(c, pool, cfg, dense)
+    return _solve_impl(-c, -0.5 * Q, pool, setup.index, state, setup.normK, cfg.omega0,
+                       cfg.tol, cfg.step_scale, cfg.max_iters, cfg.check_every,
+                       cfg.restart_period, dense, setup.kernel)
+
+
+def rademacher_signs(n: int, generator: torch.Generator, device):
+    """Steering's perturbation signs (sx: (n,), SX: (n, n)), +-1 in float32,
+    drawn on the CPU from ``generator`` (x first) and moved to ``device``, so
+    that both devices steer alike."""
+    sx = torch.randint(0, 2, (n,), generator=generator)
+    SX = torch.randint(0, 2, (n, n), generator=generator)
+    return ((2 * sx - 1).to(torch.float32).to(device),
+            (2 * SX - 1).to(torch.float32).to(device))
+
+
+def _steer_impl(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
+                setup: SolveSetup, omega: float, step_scale: float, eps: float,
+                sx, SX, iters: int):
+    """``iters`` PDHG iterations from ``st`` on the objective perturbed by
+    eps (mean |cX| + mean |cx|) (sx, sym(SX)), at the fixed steps tau =
+    eta / omega, sigma = eta omega, eta = step_scale / normK: one block,
+    through K2 on CUDA (its ergodic sums are discarded).  Returns (x, X)."""
+    from .pdhg_kernel import pdhg_block, pdhg_block_plain
+
+    scale = float(eps) * (cX.abs().mean() + cx.abs().mean())
+    cx_p = cx + scale * sx
+    cX_p = cX + scale * _sym(SX)
+    eta = _f32(step_scale) / _f32(setup.normK)
+    tau, sigma = eta / _f32(omega), eta * _f32(omega)
+    block = pdhg_block if setup.kernel else pdhg_block_plain
+    if not setup.kernel and cx.device.type == "cuda":
+        pdhg_block.plain_launches += 1
+    st, _ = block(cx_p, cX_p, pool, setup.index, st, st.map(torch.zeros_like),
+                  float(tau), float(sigma), iters, dense)
+    return st.x, st.X
+
+
+def steer_to_vertex(Q, c, pool: CutPool, state: PDHGState, cfg, generator: torch.Generator,
+                    eps: float, iters: int, dense: DenseRows | None = None,
+                    setup: SolveSetup | None = None):
+    """Vertex steering: a scoring-only re-solve on an objective perturbed by
+    a small Rademacher vector, warm-started from the converged ``state``.
+
+    At a McCormick LP optimum the optimal face is typically large and the
+    candidates' violations tie; a simplex backend lands on a vertex of that
+    face, PDHG on an interior point of it.  The perturbation makes the
+    optimum (generically) a single vertex of the original face, so a short
+    warm-started run drives the iterate toward it.  The steered point is for
+    scoring and cut generation only: the certified bound stays the
+    unperturbed solve's.  ``setup``: the solve's (``solve_setup``), since
+    the pool is the same; ``generator``: a CPU generator (``rademacher_signs``).
+    Returns (x, X)."""
+    if setup is None:
+        setup = solve_setup(c, pool, cfg, dense)
+    sx, SX = rademacher_signs(int(c.shape[0]), generator, c.device)
+    return _steer_impl(-c, -0.5 * Q, pool, dense, state, setup, cfg.omega0,
+                       cfg.step_scale, eps, sx, SX, iters)
 
 
 def dual_bound_f64(Q, c, pool: CutPool, state: PDHGState,

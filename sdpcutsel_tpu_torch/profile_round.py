@@ -1,7 +1,8 @@
 """Where a main path's time goes on one GPU.
 
     python3 -m sdpcutsel_tpu_torch.profile_round [--instance spar125-100-1]
-        [--rounds N] [--pair-layout {auto,packed}] [--scan] [--out chiprun_out]
+        [--rounds N] [--pair-layout {auto,packed}] [--scan] [--strategy NAME]
+        [--steer-eps EPS] [--out chiprun_out]
 
 The main paths are chip_smoke.py's:
   * a BoxQP name (default spar125-100-1): CutSolver, strategy neural,
@@ -12,6 +13,9 @@ The main paths are chip_smoke.py's:
     CutSolverQCQP in the suite configuration of scripts/run_qcqp_suite.py
     (k = 5, sel_size 16, capacity 1024, the same LP), 8 rounds.  The final
     polish re-solve is left out: it is one LP solve after the rounds.
+``--strategy`` (default neural) and ``--steer-eps`` (default 0: no vertex
+steering; 1e-3 in chip_smoke.py's steered QCQP scan, 4,000 iterations a
+round) apply to either family; ``--scan`` to either too.
 After one warm-up round (kernel build, first cuSOLVER use), three runs of
 ``--rounds`` rounds, each from a fresh solver:
 
@@ -23,7 +27,8 @@ After one warm-up round (kernel build, first cuSOLVER use), three runs of
      wall time is printed beside the plain one;
   3. torch.profiler: the device time of every kernel and copy, summed; the
      device's idle share is 1 - that sum / the run's wall time.  The
-     profiler's table goes to OUT/profile_table_<instance>[_<layout>][_scan].txt.
+     profiler's table goes to
+     OUT/profile_table_<instance>[_<layout>][_scan][_<strategy>][_steer<eps>].txt.
 
 Needs a CUDA device; prints the card's nvidia-smi name and power limit.
 """
@@ -40,11 +45,12 @@ import time
 
 import torch
 
-from .config import CutConfig, LoopConfig, LPConfig, RunConfig
+from .config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
 from .instances import load_or_generate_qcqp, parse_boxqp
 from .loop import solver as solver_mod
 from .lp import pdhg as pdhg_mod
 from .lp import pdhg_kernel as pdhg_kernel_mod
+from .models import labels as labels_mod
 from .qcqp import solver as qcqp_mod
 
 # ops/__init__ binds the names pair_score and fused_score to the wrappers,
@@ -61,16 +67,21 @@ LP = LPConfig(max_iters=20000, tol=2e-6)
 # stage above it.  A function that both solvers import by name is patched
 # in both modules under one label.
 STAGES = [
-    *((mod, "solve_lp", "solve_lp") for mod in (solver_mod, qcqp_mod)),
-    (pdhg_kernel_mod, "_launch", "  K2 pdhg_block"),
-    (pdhg_mod, "_kkt_error", "  _kkt_error (torch)"),
+    (solver_mod, "solve_setup", "solve_setup"),
     (pdhg_mod, "estimate_norm", "  estimate_norm"),
     (pdhg_mod, "build_cut_index", "  build_cut_index"),
+    (solver_mod, "solve_lp", "solve_lp"),
+    (pdhg_kernel_mod, "_launch", "  K2 pdhg_block (solve and steering)"),
+    (pdhg_mod, "_kkt_error", "  _kkt_error (torch)"),
+    (solver_mod, "steer_to_vertex", "steer_to_vertex"),
     *((mod, "dual_bound_f64", "dual_bound_f64 (host numpy)")
       for mod in (solver_mod, qcqp_mod)),
     (pair_score_mod, "_launch", "K1 pair_score"),
     (pair_packed_mod, "_launch", "K3 pair_packed"),
     (fused_score_mod, "_launch", "K4 fused_score"),
+    (labels_mod, "exact_improvement", "optimality ADMM (exact_improvement)"),
+    *((mod, "triangle_select_and_generate", "triangle select + rows")
+      for mod in (solver_mod, qcqp_mod)),
     *((mod, name, label) for mod in (solver_mod, qcqp_mod) for name, label in (
         ("select_and_generate", "selection + eigh + cut rows"),
         ("cut_residuals", "purge: residuals"),
@@ -79,14 +90,17 @@ STAGES = [
 ]
 
 
-def load(name: str, pair_layout: str = "auto", scan: bool = False):
+def load(name: str, pair_layout: str = "auto", scan: bool = False,
+         strategy: str = "neural", steer_eps: float = 0.0):
     """(instance, solver class, config, default rounds) of a main path."""
+    scorer = ScorerConfig(strategy=strategy)
+    loop = LoopConfig(use_scan=scan, steer_eps=steer_eps)
     if name.startswith("qcqp"):
-        cfg = RunConfig(lp=LP, cuts=CutConfig(k=5, sel_size=16, capacity=1024))
+        cfg = RunConfig(lp=LP, cuts=CutConfig(k=5, sel_size=16, capacity=1024),
+                        scorer=scorer, loop=loop)
         return load_or_generate_qcqp(name), qcqp_mod.CutSolverQCQP, cfg, 8
     inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name)
-    cfg = RunConfig(lp=LP, cuts=CutConfig(pair_layout=pair_layout),
-                    loop=LoopConfig(use_scan=scan))
+    cfg = RunConfig(lp=LP, cuts=CutConfig(pair_layout=pair_layout), scorer=scorer, loop=loop)
     return inst, solver_mod.CutSolver, cfg, 10
 
 
@@ -162,8 +176,10 @@ def main(argv=None) -> int:
                     help="default: 10 for BoxQP, 8 for QCQP")
     ap.add_argument("--pair-layout", default="auto", choices=("auto", "packed"),
                     help="BoxQP only: the candidate table's layout (CutConfig.pair_layout)")
-    ap.add_argument("--scan", action="store_true",
-                    help="BoxQP only: scan mode (LoopConfig.use_scan)")
+    ap.add_argument("--scan", action="store_true", help="scan mode (LoopConfig.use_scan)")
+    ap.add_argument("--strategy", default="neural", help="ScorerConfig.strategy")
+    ap.add_argument("--steer-eps", type=float, default=0.0,
+                    help="LoopConfig.steer_eps (0: no vertex steering)")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -175,10 +191,10 @@ def main(argv=None) -> int:
     print(f"[env] {smi.splitlines()[0]}; torch {torch.__version__}", flush=True)
 
     dev = torch.device("cuda", 0)
-    path = load(args.instance, args.pair_layout, args.scan)
+    path = load(args.instance, args.pair_layout, args.scan, args.strategy, args.steer_eps)
     rounds = args.rounds or path[3]
     print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds, cuts "
-          f"{path[2].cuts}, loop {path[2].loop}", flush=True)
+          f"{path[2].cuts}, scorer {path[2].scorer}, loop {path[2].loop}", flush=True)
     _run(path, dev, 1)                                        # warm-up
 
     hist = []
@@ -195,6 +211,8 @@ def main(argv=None) -> int:
 
     tag = args.instance + ("" if args.pair_layout == "auto" else f"_{args.pair_layout}")
     tag += "_scan" if args.scan else ""
+    tag += "" if args.strategy == "neural" else f"_{args.strategy}"
+    tag += f"_steer{args.steer_eps:g}" if args.steer_eps > 0 else ""
     prof_wall, busy, rows = device_time(path, dev, rounds,
                                         os.path.join(args.out, f"profile_table_{tag}.txt"))
     print(f"[profile] wall {prof_wall:.4f} s (with the profiler); device busy "

@@ -1,68 +1,75 @@
 """The sparse-QCQP cutting-plane round controller (port of
-``sdpcutsel_tpu/qcqp/solver.py``, per-round mode, strategy ``neural``).
+``sdpcutsel_tpu/qcqp/solver.py``).
 
 The BoxQP round (loop/solver.py) with three differences:
   * the relaxation carries the linearized constraint rows
     1/2 <Qi, X> + ci'x <= bi as a dense block (relax/denserows.py) inside
-    the PDHG solve, the f64 certificate, and the PDHG block kernel;
+    the PDHG solve, the steering run, the f64 certificate, and the PDHG block
+    kernel;
   * the candidates are the <= k subsets of the maximal cliques of the
-    chordal extension of the sparsity graph (``qcqp/chordal.py``), padded to width k by repeating the last index.  The table
-    is not padded to a block multiple: the scoring kernel takes any T;
+    chordal extension of the sparsity graph (``qcqp/chordal.py``), padded
+    to width k by repeating the last index.  The table is not padded to a
+    block multiple: the scoring kernel takes any T;
   * a cross-round re-selection gate (``CutConfig.sel_gate``) masks
     candidates whose cuts the LP has not enforced yet.
 
 One round (``do_round``):
   1. solve the LP with the dense block (K2, ``lp/pdhg_kernel.py``);
-  2. certify the f64 dual bound, the dense rows as a fourth block, from a
+  2. with ``steer_eps > 0``, steer from the solved state (one more K2
+     launch); steps 4-6 run at the steered point;
+  3. certify the f64 dual bound, the dense rows as a fourth block, from a
      host copy of the rows kept since set-up;
-  3. score the clique table with the generic scoring kernel (K4,
-     ``ops/fused_score.py``, 6 Jacobi sweeps): the neural score is kept
-     only where feas > viol_tol, and ``feas`` is also the gate's violation;
-  4. gate, support-diverse top sel_size, eigh of Z(rho), cut rows;
-  5. purge slack cuts, append the new rows;
-  6. under ``RunConfig.debug``, check the round's state (utils/debug.py).
-``run`` ends with the reference's optional ``polish`` re-solve.
-
-``neural`` and ``combined`` are the same code in the reference and here.
-Not ported yet (they raise): other strategies, ``use_scan``, vertex
-steering and checkpoints.
+  4. score the clique table with the generic scoring kernel (K4,
+     ``ops/fused_score.py``, 6 Jacobi sweeps), whose ``feas`` is also the
+     residual gate's violation:
+       neural, combined: nn where feas > viol_tol (no other can emit a cut);
+       feasibility: feas;
+       random: uniform [0, 1) from the solver's generator;
+       optimality: the exact subproblem improvement (models/labels.py);
+       a custom ``score_fn(x, X, generator)``;
+  5. gate, support-diverse top sel_size, eigh of Z(rho), cut rows; strategy
+     ``triangle`` (k = 3) takes the most violated RLT-3 inequalities and
+     bypasses the gate, as in the reference;
+  6. purge slack cuts, append the new rows;
+  7. under ``RunConfig.debug``, check the round's state (utils/debug.py).
+``run`` (with its snapshots, gate state included), ``run_scan`` (every
+round's device work, gate included, in ``do_round``'s order; each round's
+pool and duals, yD too, kept and certified after the loop), ``polish`` and
+``restore`` are ``CheckpointableSolver``'s.  The generator's draws are the
+BoxQP solver's: steering signs, then random scores.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ..config import RunConfig
+from ..cuts.triangle import triangle_select_and_generate
 from ..instances.qcqp import QCQPInstance
-from ..loop.solver import RoundStats, polish_lp, select_and_generate
-from ..lp.pdhg import PDHGState, dual_bound_f64, init_state, solve_lp
+from ..loop.solver import (KERNEL_SCORED, CheckpointableSolver, RoundStats,
+                           check_strategy, select_and_generate)
+from ..lp.pdhg import PDHGState, dual_bound_f64, init_state
 from ..models.features import candidate_q_features
+from ..models.labels import exact_score_fn
 from ..models.scorer import MLPScorer, load_params
 from ..ops.fused_score import fused_score
 from ..relax.cutbuffer import CutPool, append_cuts, cut_residuals, empty_pool, purge_pool
 from ..relax.denserows import dense_from_qcqp, empty_dense
-from ..utils.debug import check_round_state
 from .chordal import chordal_decomposition, clique_candidates
 
 SWEEPS = 6      # Jacobi sweeps on Z(rho), as in the reference's QCQP scoring
 
 
-class CutSolverQCQP:
+class CutSolverQCQP(CheckpointableSolver):
     """One sparse QCQP instance; clique candidate table.  Runs on the card
     unless ``device`` names another (the CPU takes the twins)."""
 
-    def __init__(self, inst: QCQPInstance, cfg: RunConfig, device="cuda"):
-        if cfg.scorer.strategy not in ("neural", "combined"):
-            raise NotImplementedError(
-                f"strategy {cfg.scorer.strategy!r} is not ported; use 'neural'")
-        loop = cfg.loop
-        if loop.use_scan or loop.steer_eps or loop.checkpoint_every:
-            raise NotImplementedError(
-                "use_scan, steering and checkpoints are not ported")
+    def __init__(self, inst: QCQPInstance, cfg: RunConfig, device="cuda",
+                 score_fn: Optional[Callable] = None):
+        check_strategy(cfg, score_fn is not None)
         if cfg.cuts.sel_gate not in ("residual", "cooldown", "none"):
             raise ValueError(f"unknown sel_gate: {cfg.cuts.sel_gate!r}")
         self.inst = inst
@@ -85,8 +92,12 @@ class CutSolverQCQP:
         self.table = torch.as_tensor(table, device=self.device)
         self.triQ, self.scale = candidate_q_features(self.Q, self.table)
         self.mlp = MLPScorer(load_params(k, cfg.scorer.weights_path), self.device)
+        self._score_fn = score_fn
+        if cfg.scorer.strategy == "optimality" and score_fn is None:
+            self._exact = exact_score_fn(self.Q, self.table)
         self.pool: CutPool = empty_pool(cfg.cuts.capacity, k, self.device)
         self.state: PDHGState = init_state(n, cfg.cuts.capacity, self.device, inst.m)
+        self.generator = torch.Generator(device="cpu").manual_seed(cfg.seed)
         # re-selection gate state: "cooldown" counts rounds left before a
         # selected candidate may be re-picked; "residual" keeps each
         # candidate's violation when last selected (+inf: never selected)
@@ -95,14 +106,26 @@ class CutSolverQCQP:
         self._last_viol = torch.full((T,), torch.inf, device=self.device)
         self.history: list[RoundStats] = []
         self.polish_certificate: float | None = None     # set by polish()
+        self.polish_info: dict | None = None
 
     def _scores(self, x, X):
-        """(gated neural scores, feas): the neural score ranks only the
-        candidates violated beyond viol_tol, since no other can emit a cut."""
-        nn, feas = fused_score(x, X, self.table, self.triQ, self.scale, self.mlp,
-                               SWEEPS)
-        neg = torch.full_like(nn, -torch.inf)
-        return torch.where(feas > self.cfg.cuts.viol_tol, nn, neg), feas
+        """(the strategy's scores, feas: K4's violations, or None where
+        neither the strategy nor the gate reads them)."""
+        strat, cuts = self.cfg.scorer.strategy, self.cfg.cuts
+        feas = None
+        if (self._score_fn is None and strat in KERNEL_SCORED) or cuts.sel_gate == "residual":
+            nn, feas = fused_score(x, X, self.table, self.triQ, self.scale, self.mlp,
+                                   SWEEPS)
+        if self._score_fn is not None:
+            return self._score_fn(x, X, self.generator), feas
+        if strat == "feasibility":
+            return feas, feas
+        if strat == "random":
+            return (torch.rand((self.table.shape[0],), generator=self.generator)
+                    .to(self.device), feas)
+        if strat == "optimality":
+            return self._exact(x, X), feas
+        return torch.where(feas > cuts.viol_tol, nn, torch.full_like(nn, -torch.inf)), feas
 
     def _gate_scores(self, scores, feas, kkt_error: float):
         """Mask candidates before selection.  "residual": while the current
@@ -131,68 +154,41 @@ class CutSolverQCQP:
             self._cooldown = (self._cooldown - 1).clamp(min=0)
             self._cooldown[picked] = cuts.sel_cooldown
 
-    def _certify(self) -> float:
-        return dual_bound_f64(self.inst.Q0, self.inst.c0, self.pool, self.state,
-                              dense_np=self.dense_np)
+    def _extra_arrays(self) -> dict:
+        """The gate's state rides the snapshot: resuming without it would
+        reset the gate and leave the uninterrupted run's path."""
+        return {"cooldown": self._cooldown, "last_viol": self._last_viol}
 
-    def do_round(self) -> RoundStats:
-        t0 = time.perf_counter()
+    def _restore_extra(self, arrays: dict):
+        T = self.table.shape[0]
+        if "cooldown" in arrays and arrays["cooldown"].shape == (T,):
+            self._cooldown = arrays["cooldown"]
+        if "last_viol" in arrays and arrays["last_viol"].shape == (T,):
+            self._last_viol = arrays["last_viol"]
+
+    def _round(self):
+        """One round's device work: solve, steer, score, gate, cut.  Returns
+        (the pool the solve ran on, the solve's state, its info, kept)."""
         cuts = self.cfg.cuts
-        self.state, info = solve_lp(self.Q, self.c, self.pool, self.state,
-                                    self.cfg.lp, dense=self.dense)
-        cert = self._certify()
-        # every certificate is valid, so the running minimum is too
-        bound = min(cert, self.history[-1].bound) if self.history else cert
-        x, X = self.state.x, self.state.X
-        scores, feas = self._scores(x, X)
-        scores = self._gate_scores(scores, feas, info["kkt_error"])
-        rows, sel, valid = select_and_generate(x, X, self.table, scores, cuts)
-        self._gate_update(sel, valid, feas)
-        pool, yC = self.pool, self.state.yC
+        pool = self.pool
+        solved, info, setup = self._solve(pool)
+        x, X = self._steer(pool, solved, setup)
+        if self.cfg.scorer.strategy == "triangle":
+            rows = triangle_select_and_generate(x, X, self.table, cuts.sel_size,
+                                                cuts.viol_tol)
+        else:
+            scores, feas = self._scores(x, X)
+            scores = self._gate_scores(scores, feas, info["kkt_error"])
+            rows, sel, valid = select_and_generate(x, X, self.table, scores, cuts)
+            self._gate_update(sel, valid, feas)
+        purged, yC = pool, solved.yC
         if cuts.purge:
-            pool, yC = purge_pool(pool, yC, cut_residuals(x, X, pool),
-                                  cuts.purge_slack_tol)
-        kept = int(pool.count)
-        self.pool = append_cuts(pool, *rows)
-        self.state = dataclasses.replace(self.state, yC=yC)
-        count = int(self.pool.count)
-        if self.cfg.debug:
-            check_round_state(self.state.x, self.state.X, self.pool, bound)
-        stats = RoundStats(
-            round=len(self.history), bound=bound, certificate=cert,
-            lp_iters=int(info["iters"]), lp_kkt_error=float(info["kkt_error"]),
-            cuts_added=count - kept, cuts_active=count,
-            wall_time_s=time.perf_counter() - t0,
-        )
-        self.history.append(stats)
-        return stats
+            purged, yC = purge_pool(purged, yC, cut_residuals(x, X, purged),
+                                    cuts.purge_slack_tol)
+        self.pool = append_cuts(purged, *rows)
+        self.state = dataclasses.replace(solved, yC=yC)
+        return pool, solved, info, purged.count
 
-    def run(self, rounds: Optional[int] = None) -> list[RoundStats]:
-        """Per-round loop with the reference's early stop (a round that adds
-        no cut and moves the bound by less than improvement_tol ends it),
-        then ``polish`` when LoopConfig.polish_iters > 0."""
-        rounds = rounds if rounds is not None else self.cfg.loop.rounds
-        prev = None
-        for _ in range(rounds):
-            s = self.do_round()
-            if prev is not None:
-                rel = abs(prev - s.bound) / (1.0 + abs(prev))
-                if rel < self.cfg.loop.improvement_tol and s.cuts_added == 0:
-                    break
-            prev = s.bound
-        if self.cfg.loop.polish_iters > 0 and self.history:
-            self.polish()
-        return self.history
-
-    def polish(self) -> float:
-        """A final, tighter LP re-solve with no new cuts (``polish_lp``:
-        polish_iters iterations at tol / 100).  Its certificate can only
-        lower the last round's bound; it is kept in ``polish_certificate``."""
-        self.state, _ = solve_lp(self.Q, self.c, self.pool, self.state,
-                                 polish_lp(self.cfg), dense=self.dense)
-        self.polish_certificate = self._certify()
-        b = self.polish_certificate
-        if self.history:
-            b = min(b, self.history[-1].bound)
-            self.history[-1].bound = b
-        return b
+    def _certify(self, pool: CutPool, state: PDHGState) -> float:
+        return dual_bound_f64(self.inst.Q0, self.inst.c0, pool, state,
+                              dense_np=self.dense_np)

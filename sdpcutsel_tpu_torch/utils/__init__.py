@@ -1,1 +1,1 @@
-"""Development aids of the port (debug mode)."""
+"""Development aids of the port (debug mode) and round checkpoints."""

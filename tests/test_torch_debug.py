@@ -11,7 +11,6 @@ from sdpcutsel_tpu_torch.instances import generate_spar, load_or_generate_qcqp
 from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch.loop import solver as loop_solver
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
-from sdpcutsel_tpu_torch.qcqp import solver as qcqp_solver
 from sdpcutsel_tpu_torch.relax.cutbuffer import empty_pool
 from sdpcutsel_tpu_torch.utils.debug import check_round_state
 
@@ -41,7 +40,8 @@ def test_debug_mode_clean_boxqp_run(monkeypatch):
 
 
 def test_debug_mode_clean_qcqp_run(monkeypatch):
-    checked = _count_checks(monkeypatch, qcqp_solver)
+    # the QCQP solver runs the round loop of loop/solver.py's CheckpointableSolver
+    checked = _count_checks(monkeypatch, loop_solver)
     cfg = RunConfig(lp=LPConfig(max_iters=1000, tol=1e-5),
                     cuts=CutConfig(k=3, sel_size=4, capacity=64), debug=True)
     hist = CutSolverQCQP(load_or_generate_qcqp("qcqp015-30-3-1"), cfg, device="cpu").run(rounds=2)

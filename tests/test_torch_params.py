@@ -55,7 +55,8 @@ def test_port_imports_no_jax():
         "bad += [m for m in sys.modules\n"
         "        if m == 'sdpcutsel_tpu' or m.startswith('sdpcutsel_tpu.')]\n"
         "assert not bad, bad\n"
-        "for m in ('loop.solver', 'utils.debug', 'scoring_variants', 'nn_precision'):\n"
+        "for m in ('loop.solver', 'utils.debug', 'scoring_variants', 'nn_precision',\n"
+        "          'cuts.triangle', 'models.labels', 'utils.checkpoint'):\n"
         "    assert 'sdpcutsel_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )

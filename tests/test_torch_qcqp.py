@@ -221,11 +221,28 @@ def test_polish_lowers_only_the_last_bound():
     assert hist[-1].bound == min(certs[-1], solver.polish_certificate)
 
 
+# the three options the port refused before the round controllers' options
+# were ported; each now builds and runs one CPU round
+OPTIONS = {
+    "feasibility": RunConfig(scorer=ScorerConfig(strategy="feasibility")),
+    "scan": RunConfig(loop=LoopConfig(use_scan=True)),
+    "steering": RunConfig(loop=LoopConfig(steer_eps=1e-3)),
+}
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_options_run_one_round(option):
+    hist = CutSolverQCQP(generate_qcqp(8, 40, 2, 1), OPTIONS[option], "cpu").run(rounds=1)
+    assert len(hist) == 1 and np.isfinite(hist[0].bound)
+    assert hist[0].bound == hist[0].certificate
+
+
 @pytest.mark.parametrize("cfg", [
-    RunConfig(scorer=ScorerConfig(strategy="feasibility")),
-    RunConfig(loop=LoopConfig(use_scan=True)),
-    RunConfig(loop=LoopConfig(steer_eps=1e-3)),
+    RunConfig(scorer=ScorerConfig(strategy="nope")),
+    RunConfig(cuts=CutConfig(k=4), scorer=ScorerConfig(strategy="triangle")),
 ])
-def test_unported_options_raise(cfg):
-    with pytest.raises(NotImplementedError):
+def test_reference_value_errors(cfg):
+    """The reference's two ValueErrors: an unknown strategy, and triangle
+    with k != 3."""
+    with pytest.raises(ValueError, match="unknown strategy|requires k=3"):
         CutSolverQCQP(generate_qcqp(8, 40, 2, 1), cfg, "cpu")
