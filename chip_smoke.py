@@ -32,6 +32,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
      operations over 67 TFLOP/s fp32, those it runs on the tensor cores over
      495 TFLOP/s dense TF32, and its bytes, each input read and each output
      written once, over 3.35 TB/s) and its roofline share;
+       pdhg_block   batched: the twelve n = 125 instances of the suite bucket
+                    (below), each with its own pool of 400 random active cuts,
+                    one instance left out of the launch: against the twin, the
+                    one left out unchanged bit for bit, every other one bit for
+                    bit equal to a batch of one and to the single wrapper; the
+                    clusters of 16 and of 8 the card runs at once; the batch
+                    timed at a cluster of 16 and of 8, in turns;
        fused_score  k = 2 over C(125, 2) and k = 3 over C(30, 3) (5 sweeps);
                     k = 4 and 5 over the clique tables of qcqp025-25-4-2
                     and qcqpband100-5-25-1 (6 sweeps); with its launch grid;
@@ -84,11 +91,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
      repeatability); qcqpband100-5-25-1 at k = 4 with feasibility, random
      and optimality (8 rounds and the polish); gap closed printed beside the
      JAX package's records (results/suite.jsonl, results/qcqp.jsonl);
- 11. one JSON line of kernel results, each kernel's launches summed over
-     the main paths 5-10 (each counted from 0), then the last line
-     {"ok": true, "device": {...}}.
+ 11. the batched suite bucket (parallel/round.py): the twelve
+     spar125-{25,50,75,100}-{1,2,3} of data/boxqp as one batch in
+     scripts/bench_batched.py --suite's configuration (capacity 1024, k = 3,
+     lp_iters 400, sel_size 16, neural, Mesh(1, 1)), 10 per-round steps,
+     certify_batched_f64: every certificate finite and >= the instance's
+     best known (optima.json), the running bounds monotone, a second run
+     bit for bit, instances 0 and 7 as batches of one within rtol 2e-3 (bit
+     equality printed), gap closed printed; pdhg_block launched once a
+     checked block of the batch, pair_score once an instance a round;
+ 12. bench.py:188-223's batched configuration: 8 x generate_spar(30, 100,
+     s + 1), scan mode, 10 rounds, certify_scan_f64; the scan repeats its
+     per-round run bit for bit; instance-rounds/s, the median of 3 after a
+     warm-up, beside the card's name and power limit (not a benchmark line);
+ 13. scripts/bench_batched.py --qcqp at its defaults: generate_qcqp_family(30,
+     30, 2, 1, 8), the chordal clique table at k = 4, 2 dense rows, 6
+     per-round steps (K4 once an instance a round, the batched K2 with the
+     dense rows), the first 2 rounds within rtol 2e-3 of the CPU port;
+ 14. one JSON line of kernel results, each kernel's launches summed over
+     the main paths 5-13 (each counted from 0; K2's entry also holds the
+     batched launch's time, bound and the clusters the card runs at once),
+     then the last line {"ok": true, "device": {...}}.
 Every path's launch counts include the solve's plain PDHG blocks on the
-card ("pdhg_block plain"), which must be 0 on every main path.
+card ("pdhg_block plain") and the scoring twins called on the card
+("twin-scored"), which must be 0 on every main path.
 
 TF32 is turned off for the whole process at its start: the scoring twin's
 MLP runs as cuBLAS matrix products, and it agrees with the kernel to 2e-4
@@ -112,22 +138,30 @@ import torch
 from sdpcutsel_tpu_torch import _build
 from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
-from sdpcutsel_tpu_torch.instances import (generate_spar, load_or_generate,
-                                           load_or_generate_qcqp, parse_boxqp)
+from sdpcutsel_tpu_torch.instances import (generate_qcqp_family, generate_spar,
+                                           load_or_generate, load_or_generate_qcqp, parse_boxqp)
 from sdpcutsel_tpu_torch.loop import CutSolver
-from sdpcutsel_tpu_torch.lp.pdhg import estimate_norm, init_state, solve_setup, steer_to_vertex
+from sdpcutsel_tpu_torch.lp.pdhg import (estimate_norm, estimate_norm_batched, init_state,
+                                         solve_setup, steer_to_vertex)
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
-from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, pdhg_block, pdhg_block_plain,
-                                                plan_refusal)
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, max_active_clusters, pdhg_block,
+                                                pdhg_block_batched, pdhg_block_batched_plain,
+                                                pdhg_block_plain, plan_refusal)
 from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
+from sdpcutsel_tpu_torch.parallel import make_mesh, shard_candidates
+from sdpcutsel_tpu_torch.parallel.round import (certify_batched_f64, certify_scan_f64,
+                                                init_batched_state, make_sharded_round_step,
+                                                make_sharded_scan_step)
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
+from sdpcutsel_tpu_torch.qcqp.chordal import chordal_decomposition, clique_candidates
 from sdpcutsel_tpu_torch.qcqp.solver import SWEEPS as QCQP_SWEEPS
+from sdpcutsel_tpu_torch.relax import batched as rb
 from sdpcutsel_tpu_torch.relax.cutbuffer import append_cuts, build_cut_index, empty_pool
-from sdpcutsel_tpu_torch.relax.denserows import dense_from_qcqp
+from sdpcutsel_tpu_torch.relax.denserows import batched_dense_from_qcqp, dense_from_qcqp
 from sdpcutsel_tpu_torch.scoring_variants import (UNGUARDED, clique_table, device_ms,
                                                   fused_args, k1_call, k4_call, scoring_point,
                                                   start_variants)
@@ -150,6 +184,15 @@ RESUME_AT = {"qcqp": 4, "boxqp": 5}          # rounds before the snapshot a run 
 BOXQP_STRATEGY_ROUNDS = {"triangle": 5, "random": 5, "optimality": 2}
 QCQP_STRATEGIES = ("feasibility", "random", "optimality")     # at k = 4, QCQP_ROUNDS each
 SNAPSHOTS = os.path.join(REPO, "build", "chip_smoke_snapshots")
+# the batched paths (parallel/round.py): scripts/bench_batched.py's defaults
+# (lp_iters 400, sel_size 16, neural; capacity 1024) on a 1 x 1 mesh
+SUITE_BUCKET = [f"spar125-{d}-{s}" for d in (25, 50, 75, 100) for s in (1, 2, 3)]
+SUITE_ALONE = (0, 7)                  # bucket instances also run as batches of one
+BATCH_ROUNDS = 10
+BATCH_KNOBS = dict(lp_iters=400, sel_size=16, strategy="neural")
+BENCH_BATCH = (30, 8)                 # bench.py:188-223: 8 x generate_spar(30, 100, s + 1)
+QCQP_FAMILY = (30, 30, 2, 1, 8)       # generate_qcqp_family(n, density, m, seed, B), --qcqp
+QCQP_FAMILY_ROUNDS, QCQP_FAMILY_CPU_ROUNDS = 6, 2
 SEED = 0
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3
@@ -164,7 +207,9 @@ QCQP_RECORDED_FINAL = 2996.008999203225
 WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
             "pdhg_block": pdhg_block, "fused_score": fused_score}
 PLAIN_BLOCKS = "pdhg_block plain"     # the solve's plain PDHG blocks on the card
+TWIN_SCORED = "twin-scored"           # scoring twins called on the card (use_fused=False)
 PATH_LAUNCHES: dict = {}              # main path -> its launch counts (launch_counts())
+SMI = ""                              # the card's nvidia-smi name and power limit
 SCORING_KERNELS = ("pair_score_kernel", "pair_packed_kernel",
                    *(f"fused_score_kernelILi{k}E" for k in (2, 3, 4, 5)))
 
@@ -278,12 +323,13 @@ def share(ms: float, b: dict) -> str:
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
-    pdhg_block.plain_launches = 0
+    pdhg_block.plain_launches = pair_score.plain_launches = fused_score.plain_launches = 0
 
 
 def launch_counts() -> dict:
     return {**{name: fn.launches for name, fn in WRAPPERS.items()},
-            PLAIN_BLOCKS: pdhg_block.plain_launches}
+            PLAIN_BLOCKS: pdhg_block.plain_launches,
+            TWIN_SCORED: pair_score.plain_launches + fused_score.plain_launches}
 
 
 def k1_twin_check(label: str, inst, sweeps: int, dev):
@@ -385,6 +431,21 @@ def random_pool(table: np.ndarray, M: int, active: int, rng, dev):
                         device=dev) for a in cuts))
 
 
+def random_state(n: int, M: int, m: int, pool, rng, dev):
+    """A random PDHG state for K2's checks: x, X in [0, 1], small duals,
+    yC on the pool's active slots."""
+    st = init_state(n, M, dev, m)
+    X = rng.random((n, n))
+    f32 = dict(dtype=torch.float32, device=dev)
+    st.x = torch.as_tensor(rng.random(n), **f32)
+    st.X = torch.as_tensor(0.5 * (X + X.T), **f32)
+    st.yA = torch.as_tensor(0.1 * rng.random((n, n)), **f32)
+    st.yB = torch.as_tensor(0.1 * rng.random((n, n)), **f32)
+    st.yC = torch.as_tensor(0.05 * rng.random(M), **f32) * pool.active
+    st.yD = torch.as_tensor(0.2 * rng.random(m), **f32)
+    return st
+
+
 def pdhg_ops(n: int, k: int, m: int, active: int, terms: int, iters: int) -> int:
     """Operations of `iters` iterations of lp/pdhg.py::_one_iter: about 31
     an (n, n) entry (adjoint, pre-step, projection, extrapolation, dual
@@ -463,15 +524,8 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
     rng = np.random.default_rng(SEED + 1)
     pool = random_pool(table, M, 400, rng, dev)
     k = pool.idx.shape[1]
-    st = init_state(n, M, dev, m)
-    X = rng.random((n, n))
+    st = random_state(n, M, m, pool, rng, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    st.x = torch.as_tensor(rng.random(n), **f32)
-    st.X = torch.as_tensor(0.5 * (X + X.T), **f32)
-    st.yA = torch.as_tensor(0.1 * rng.random((n, n)), **f32)
-    st.yB = torch.as_tensor(0.1 * rng.random((n, n)), **f32)
-    st.yC = torch.as_tensor(0.05 * rng.random(M), **f32) * pool.active
-    st.yD = torch.as_tensor(0.2 * rng.random(m), **f32)
     cx = torch.as_tensor(-c, **f32)
     cX = torch.as_tensor(-0.5 * Q, **f32)
     index = build_cut_index(pool, n)
@@ -555,6 +609,103 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
     log(f"[pdhg_block {label}] in turns: cluster of {plan.cluster} {t_plan!r} ms, "
         f"cluster of 8 {t_8!r} ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def check_pdhg_block_batched(insts, single: dict, dev) -> dict:
+    """K2's instance axis at the suite bucket's shape: the B = 12 instances'
+    Q and c, each with its own pool of M = 1024 and 400 active random k = 3
+    cuts and a random state, one instance left out of ``ids``.  Against the
+    twin (pdhg_block_plain on each listed instance) at the single phase's
+    tolerances, 7 and 100 iterations; the instance left out unchanged bit for
+    bit; every listed instance bit for bit equal to a B = 1 launch of it and
+    to the single wrapper on its own cut index; how many clusters of 16 and
+    of 8 the card runs at once; 100-iteration launches of all 12 at the
+    plan's cluster and at 8, in turns, beside B x the single launch's time
+    and bound."""
+    B, n, M = len(insts), insts[0].n, 1024
+    rng = np.random.default_rng(SEED + 2)
+    table = combinations_table(n, 3)
+    pools = [random_pool(table, M, 400, rng, dev) for _ in insts]
+    P = rb.stack(pools)
+    st = rb.stack([random_state(n, M, 0, p, rng, dev) for p in pools])
+    acc = st.map(torch.zeros_like)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cx = torch.as_tensor(np.stack([-i.c for i in insts]), **f32)
+    cX = torch.as_tensor(np.stack([-0.5 * i.Q for i in insts]), **f32)
+    index = rb.build_cut_index(P, n)
+    eta = (np.float32(0.95) / estimate_norm_batched(
+        P, n, 30, torch.Generator().manual_seed(0), index).cpu().numpy()).astype(np.float32)
+    frozen = B // 2 - 1
+    ids = [b for b in range(B) if b != frozen]
+    inputs = [t.clone() for t in (*st.fields(), *acc.fields())]
+    args = (cx, cX, P, index, st, acc, eta, eta)
+    worst = 0.0
+    for iters, tol_st, tol_acc in [(7, (2e-5, 2e-5), (2e-5, 2e-5)),
+                                   (100, (3e-4, 3e-4), (3e-4, 3e-2))]:
+        got = pdhg_block_batched(*args, iters, ids)
+        want = pdhg_block_batched_plain(*args, iters, ids)
+        torch.cuda.synchronize()
+        ratio, errs = 0.0, []
+        for g, w, tol in zip([*got[0].fields(), *got[1].fields()],
+                             [*want[0].fields(), *want[1].fields()], [tol_st] * 6 + [tol_acc] * 6):
+            if g.numel():
+                e, r = excess(g[ids], w[ids], *tol)
+                errs.append(e)
+                ratio = max(ratio, r)
+        frozen_same = all(torch.equal(g[frozen], w[frozen]) for g, w in zip(
+            [*got[0].fields(), *got[1].fields()], inputs))
+        alone = single_too = True
+        for b in ids:
+            one = pdhg_kernel._launch_batched(*(t[b:b + 1] for t in (cx, cX)),
+                                              *(rb.instance(o, slice(b, b + 1))
+                                                for o in (P, index, st, acc)),
+                                              eta[b:b + 1], eta[b:b + 1], iters, [0], None)
+            ref = pdhg_block(cx[b], cX[b], pools[b], build_cut_index(pools[b], n),
+                             rb.instance(st, b), rb.instance(acc, b), float(eta[b]),
+                             float(eta[b]), iters)
+            outs = [t[b] for t in (*got[0].fields(), *got[1].fields())]
+            alone &= all(torch.equal(u[0], v) for u, v in zip((*one[0].fields(),
+                                                               *one[1].fields()), outs))
+            single_too &= all(torch.equal(u, v) for u, v in zip((*ref[0].fields(),
+                                                                 *ref[1].fields()), outs))
+        log(f"[pdhg_block batched] B={B}, n={n}, M={M}, {iters} iterations, instance {frozen} "
+            f"left out: max|err| {max(errs):.3e}, {ratio:.3f} of the limit (state {tol_st}, "
+            f"sums {tol_acc}); the instance left out unchanged bit for bit: {frozen_same}; "
+            f"each listed instance equal to a B = 1 launch of it: {alone}, and to the single "
+            f"wrapper on its own cut index: {single_too}")
+        if not (ratio <= 1.0 and frozen_same and alone and single_too):
+            raise AssertionError(f"the batched pdhg_block fails its checks at {iters} iterations")
+        worst = max(worst, *errs)
+    unchanged = all(torch.equal(a, b) for a, b in zip([*st.fields(), *acc.fields()], inputs))
+    clusters = {c: max_active_clusters(n, M, 3, 0, B, c) for c in (16, 8)}
+    everyone = list(range(B))
+    t16, t8 = [], []
+    for runs, c in ((t16, 16), (t8, 8), (t8, 8), (t16, 16)):
+        runs.append(cuda_ms(lambda: pdhg_kernel._launch_batched(*args, 100, everyone, None, c),
+                            reps=20))
+    ms, ms8 = sum(t16) / 2, sum(t8) / 2
+    out = pdhg_block_batched(*args, 100, everyone)
+    b = bound(sum(pdhg_ops(n, 3, 0, int(p.active.sum()), int(i.xoff[-1] + i.Xoff[-1]), 100)
+                  for p, i in ((p, build_cut_index(p, n)) for p in pools)),
+              nbytes(cx, cX, index.idx, P.lin, P.quad, P.rhs, P.active, index.xoff,
+                     index.xcut, index.xcoef, index.Xoff, index.Xcut, index.Xcoef, *inputs,
+                     *out[0].fields(), *out[1].fields()))
+    log(f"[pdhg_block batched] inputs unchanged: {unchanged}; clusters the card runs at once "
+        f"(cudaOccupancyMaxActiveClusters, a grid of {B}): {clusters[16]} of 16 CTAs, "
+        f"{clusters[8]} of 8")
+    log(f"[pdhg_block batched] 100-iteration launch of all {B}: cluster of 16 {ms:.4f} ms = "
+        f"{ms * 10:.3f} us a batched iteration, {ms * 10 / B:.4f} us an instance-iteration; "
+        f"cluster of 8 {ms8:.4f} ms = {ms8 * 10:.3f} us, {ms8 * 10 / B:.4f} us an "
+        f"instance-iteration (in turns: 16 {t16!r} ms, 8 {t8!r} ms); B x the single launch "
+        f"{B * single['ms']:.4f} ms ({B * single['ms'] * 10:.3f} us a batched iteration); "
+        f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}; B x the single bound "
+        f"{B * single['bound_ms']:.5f}); roofline share {b['bound_ms'] / ms:.4%}")
+    if not unchanged:
+        raise AssertionError("the batched pdhg_block wrote its inputs")
+    return {"batch": B, "batched_ms": ms, "batched_cluster8_ms": ms8,
+            "batched_bound_ms": b["bound_ms"], "batched_bound_by": b["bound_by"],
+            "max_active_clusters": clusters[16], "max_active_clusters_8": clusters[8],
+            "batched_max_abs_err": worst}
 
 
 def check_fused_score(label: str, Q, table: np.ndarray, sweeps: int, dev) -> dict:
@@ -1112,9 +1263,201 @@ def strategies(inst, dev) -> dict:
     return out
 
 
+def batched_states_equal(a, b) -> bool:
+    """Every tensor of two BatchedRoundStates equal, bit for bit."""
+    return all(torch.equal(u, v) for u, v in zip(
+        [a.Q, a.c, *rb.values(a.pool), *a.pdhg.fields(), a.bound, a.best_bound],
+        [b.Q, b.c, *rb.values(b.pool), *b.pdhg.fields(), b.bound, b.best_bound]))
+
+
+def batched_run(step, insts, table, valid, dev, rounds: int, kmax: int = 3, dense=None):
+    """Per-round steps from a fresh batched state of ``insts`` (BoxQP or
+    QCQP).  Returns (state, f32 best bound after each round (rounds, B),
+    lp_iters (rounds, B), seconds, synchronised)."""
+    qcqp = hasattr(insts[0], "Q0")
+    state = init_batched_state(np.stack([i.Q0 if qcqp else i.Q for i in insts]),
+                               np.stack([i.c0 if qcqp else i.c for i in insts]), 1024, kmax,
+                               m_dense=0 if dense is None else dense.G.shape[1], device=dev)
+    best, iters = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        state, info = step(state, table, valid, dense)
+        best.append(state.best_bound)
+        iters.append(info["lp_iters"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, torch.stack(best).cpu().numpy(), np.stack(iters), wall
+
+
+def suite_bucket_path(dev) -> dict:
+    """The n = 125 bucket of scripts/bench_batched.py --suite (the twelve
+    spar125-{25,50,75,100}-{1,2,3} of data/boxqp), capacity 1024, k = 3,
+    BATCH_KNOBS, Mesh(1, 1), BATCH_ROUNDS per-round steps, then
+    certify_batched_f64; twice, bit for bit; instances SUITE_ALONE also as
+    batches of one."""
+    insts = [parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name) for name in SUITE_BUCKET]
+    regs = [registry("boxqp", name) for name in SUITE_BUCKET]
+    B, n = len(insts), insts[0].n
+    mesh = make_mesh(1, 1)
+    table, valid = shard_candidates(combinations_table(n, 3), mesh, device=dev)
+    step = make_sharded_round_step(mesh, **BATCH_KNOBS)
+    reset_launches()
+    state, best, iters, wall = batched_run(step, insts, table, valid, dev, BATCH_ROUNDS)
+    launches = launch_counts()
+    cert = certify_batched_f64(state)
+    blocks = int(sum(it.max() // 100 for it in iters))       # checked blocks of the batch
+    again, best2, iters2, wall2 = batched_run(step, insts, table, valid, dev, BATCH_ROUNDS)
+    repeat = (batched_states_equal(state, again) and np.array_equal(best, best2)
+              and np.array_equal(iters, iters2)
+              and np.array_equal(cert, certify_batched_f64(again)))
+    alone = {}
+    for b in SUITE_ALONE:
+        one = batched_run(step, [insts[b]], table, valid, dev, BATCH_ROUNDS)[0]
+        alone[b] = (float(certify_batched_f64(one)[0]),
+                    torch.equal(one.pool.idx[0], state.pool.idx[b])
+                    and all(torch.equal(u[0], v[b]) for u, v in zip(one.pdhg.fields(),
+                                                                    state.pdhg.fields())))
+    for i, (inst, reg) in enumerate(zip(insts, regs)):
+        log(f"[suite] {inst.name}: certified f64 {float(cert[i])!r} (best known {reg['floor']!r}), "
+            f"gap closed {gap_closed(reg, cert[i])!r}; f32 bound by round "
+            f"{best[:, i].tolist()}; lp_iters by round {iters[:, i].tolist()}; cuts "
+            f"{int(state.pool.count[i])}")
+    for b, (c1, bits) in alone.items():
+        log(f"[suite] {insts[b].name} as a batch of one: certified {c1!r} against {float(cert[b])!r} "
+            f"in the batch of {B} (rel {float(abs(c1 - cert[b]) / abs(cert[b]))!r}); bit-equal pool "
+            f"and state: {bits}")
+    log(f"[suite] {B} x {BATCH_ROUNDS} rounds in {wall:.4f} s = "
+        f"{B * BATCH_ROUNDS / wall!r} instance-rounds/s, again {wall2:.4f} s = "
+        f"{B * BATCH_ROUNDS / wall2!r} ({SMI}); launches {launches}; checked blocks {blocks}")
+    finish("suite", {
+        "every certificate finite and >= its best known": bool(
+            np.isfinite(cert).all() and all(c >= r["floor"] for c, r in zip(cert, regs))),
+        "running bounds monotone over rounds": bool((np.diff(best, axis=0) <= 0).all()),
+        "f32 bound within 1e-2 of the f64 certificate":
+            bool((np.abs(best[-1] - cert) <= 1e-2 * (1 + np.abs(cert))).all()),
+        "a second run repeats every bound and pool bit for bit": repeat,
+        "the batches of one agree within rtol 2e-3":
+            all(abs(c1 - cert[b]) <= 2e-3 * abs(cert[b]) for b, (c1, _) in alone.items()),
+        "pdhg_block launched once a checked block of the batch": launches["pdhg_block"] == blocks,
+        f"pair_score launched once an instance a round ({B * BATCH_ROUNDS})":
+            launches["pair_score"] == B * BATCH_ROUNDS,
+        "no plain PDHG block, no twin-scored call":
+            launches[PLAIN_BLOCKS] == 0 and launches[TWIN_SCORED] == 0,
+    })
+    return launches
+
+
+def bench_scan_path(dev) -> dict:
+    """bench.py:188-223's configuration: 8 x generate_spar(30, 100, s + 1),
+    scan mode, BATCH_ROUNDS rounds, BATCH_KNOBS; certify_scan_f64; the scan
+    repeats a per-round run bit for bit; instance-rounds/s, the median of 3
+    after a warm-up."""
+    n, B = BENCH_BATCH
+    insts = [generate_spar(n, 100, s + 1) for s in range(B)]
+    mesh = make_mesh(1, 1)
+    table, valid = shard_candidates(combinations_table(n, 3), mesh, device=dev)
+    start = init_batched_state(np.stack([i.Q for i in insts]), np.stack([i.c for i in insts]),
+                               1024, 3, device=dev)
+    scan = make_sharded_scan_step(mesh, rounds=BATCH_ROUNDS, **BATCH_KNOBS)
+    scan(start, table, valid)                                   # warm-up
+    reset_launches()
+    final, outs = scan(start, table, valid)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    blocks = int(outs["lp_iters"].max(1).values.sum()) // 100    # checked blocks of the batch
+    bounds = certify_scan_f64(final.Q, final.c, outs)
+    step = make_sharded_round_step(mesh, **BATCH_KNOBS)
+    state, same_pools = start, True
+    for r in range(BATCH_ROUNDS):
+        same_pools &= all(torch.equal(getattr(outs["pool"], f)[r], v)
+                          for f, v in zip(("idx", "lin", "quad", "rhs", "active", "count"),
+                                          rb.values(state.pool)))
+        state, _ = step(state, table, valid)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan(start, table, valid)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rate = B * BATCH_ROUNDS / sorted(times)[1]
+    log(f"[bench-scan] {B} x generate_spar({n}, 100, s + 1), {BATCH_ROUNDS} rounds in one scan: "
+        f"certified bounds of the last round {bounds[-1].tolist()}; cuts "
+        f"{final.pool.count.tolist()}; launches {launches}")
+    log(f"[bench-scan] instance-rounds/s {rate!r} (median of 3 after a warm-up; runs "
+        f"{times!r} s) on {SMI}")
+    finish("bench-scan", {
+        "certificates finite and monotone over rounds":
+            bool(np.isfinite(bounds).all() and (np.diff(bounds, axis=0) <= 0).all()),
+        "the scan repeats a per-round run bit for bit":
+            same_pools and batched_states_equal(final, state),
+        "pdhg_block launched once a checked block of the batch": launches["pdhg_block"] == blocks,
+        f"pair_score launched once an instance a round ({B * BATCH_ROUNDS})":
+            launches["pair_score"] == B * BATCH_ROUNDS,
+        "no plain PDHG block, no twin-scored call":
+            launches[PLAIN_BLOCKS] == 0 and launches[TWIN_SCORED] == 0,
+    })
+    return launches
+
+
+def qcqp_family_path(dev) -> dict:
+    """scripts/bench_batched.py --qcqp at its defaults: the family
+    QCQP_FAMILY, the chordal clique table at k = 4, the constraints as a
+    batched dense block, BATCH_KNOBS, QCQP_FAMILY_ROUNDS per-round steps on
+    the card; the first QCQP_FAMILY_CPU_ROUNDS held to the CPU port at rtol
+    2e-3."""
+    fam = generate_qcqp_family(*QCQP_FAMILY)
+    n, m, B = fam[0].n, fam[0].m, len(fam)
+    cliques, _ = chordal_decomposition(n, fam[0].sparsity_graph())
+    table_np = clique_candidates(cliques, 4)
+    mesh = make_mesh(1, 1)
+    step = make_sharded_round_step(mesh, **BATCH_KNOBS, kmax=4, m_dense=m)
+
+    def run(device, rounds):
+        dense = batched_dense_from_qcqp(fam, device)
+        table, valid = shard_candidates(table_np, mesh, device=device)
+        state = init_batched_state(np.stack([i.Q0 for i in fam]), np.stack([i.c0 for i in fam]),
+                                   1024, 4, m_dense=m, device=device)
+        certs, best, blocks = [], [], 0
+        for _ in range(rounds):
+            state, info = step(state, table, valid, dense)
+            certs.append(certify_batched_f64(state, dense))
+            best.append(state.best_bound.cpu().numpy())
+            blocks += int(info["lp_iters"].max()) // 100
+        return state, np.stack(certs), np.stack(best), blocks
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state, certs, best, blocks = run(dev, QCQP_FAMILY_ROUNDS)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    cpu_certs = run(torch.device("cpu"), QCQP_FAMILY_CPU_ROUNDS)[1]
+    rel = np.abs(certs[:QCQP_FAMILY_CPU_ROUNDS] - cpu_certs) / np.abs(cpu_certs)
+    log(f"[qcqp-family] {B} x n={n}, m={m}, {table_np.shape[0]} clique candidates at k = 4; "
+        f"certified bounds by round {certs.tolist()}; cuts {state.pool.count.tolist()}; "
+        f"{QCQP_FAMILY_ROUNDS} rounds with the certificates in {wall:.3f} s; launches "
+        f"{launches}")
+    log(f"[qcqp-family] against the CPU port, rounds 0-{QCQP_FAMILY_CPU_ROUNDS - 1}: largest "
+        f"rel diff {float(rel.max())!r}")
+    finish("qcqp-family", {
+        "certificates finite": bool(np.isfinite(certs).all()),
+        "running bounds monotone over rounds": bool((np.diff(best, axis=0) <= 0).all()),
+        "the last certificate below round 0's": bool((certs[-1] < certs[0]).all()),
+        "within rtol 2e-3 of the CPU port": bool((rel <= 2e-3).all()),
+        f"fused_score launched once an instance a round ({B * QCQP_FAMILY_ROUNDS})":
+            launches["fused_score"] == B * QCQP_FAMILY_ROUNDS,
+        "pdhg_block launched once a checked block of the batch": launches["pdhg_block"] == blocks,
+        "no plain PDHG block, no twin-scored call":
+            launches[PLAIN_BLOCKS] == 0 and launches[TWIN_SCORED] == 0,
+    })
+    return launches
+
+
 def main() -> int:
+    global SMI
     t_start = time.perf_counter()
-    smi = environment()
+    smi = SMI = environment()
     torch.backends.cuda.matmul.allow_tf32 = False    # see the module docstring
     dev = torch.device("cuda", 0)
 
@@ -1143,6 +1486,8 @@ def main() -> int:
     k2 = check_pdhg_block(f"{QCQP_INSTANCE} m={band.m}", band.Q0, band.c0,
                           clique_table(band, 5), dense_from_qcqp(band.Qs, band.cs, band.bs, dev),
                           dev)
+    bucket = [parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name) for name in SUITE_BUCKET]
+    k2_batched = check_pdhg_block_batched(bucket, k2_box, dev)
     k4 = check_k4(inst, dev)
     check_guard(inst, unguarded, dev)
     check_small_instances(dev)
@@ -1153,6 +1498,9 @@ def main() -> int:
     PATH_LAUNCHES["qcqp steered scan"] = steered_qcqp_scan(dev)
     PATH_LAUNCHES["boxqp resume"] = boxqp_resume(inst, main_hist, dev)
     PATH_LAUNCHES.update(strategies(inst, dev))
+    PATH_LAUNCHES["batched suite bucket"] = suite_bucket_path(dev)
+    PATH_LAUNCHES["batched bench scan"] = bench_scan_path(dev)
+    PATH_LAUNCHES["batched qcqp family"] = qcqp_family_path(dev)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     for path, counts in PATH_LAUNCHES.items():
         log(f"[launches] {path}: {counts}")
@@ -1170,8 +1518,9 @@ def main() -> int:
         {"name": "pdhg_block", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pdhg_block.cu",
          "replaces": "sdpcutsel_tpu/lp/pdhg_kernel.py:51",
-         "launches": total["pdhg_block"], **k2,
-         "max_abs_err": max(k2["max_abs_err"], k2_box["max_abs_err"])},
+         "launches": total["pdhg_block"], **k2, **k2_batched,
+         "max_abs_err": max(k2["max_abs_err"], k2_box["max_abs_err"],
+                            k2_batched["batched_max_abs_err"])},
         {"name": "fused_score", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/fused_score.cu",
          "replaces": "sdpcutsel_tpu/ops/fused_score.py:52",

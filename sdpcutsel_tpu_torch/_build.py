@@ -52,7 +52,8 @@ _SIGNATURES = {
     "pair_score_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P],
     # pdhg_block.cu
-    "pdhg_block_launch": [_I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+    "pdhg_block_launch": [_I, _I, _I, _I, _I, _I, _I, _I,  # n M k m iters cluster cap smem
+                          _I, _P, _P, _P, _I, _I,      # count, ids, tau, sigma, ex, eX
                           _P, _P,                      # cx, cX
                           _P, _P, _P, _P, _P,          # idx, lin, quad, rhs, act
                           _P, _P, _P, _P, _P, _P,      # xoff xcut xcoef Xoff Xcut Xcoef
@@ -60,6 +61,7 @@ _SIGNATURES = {
                           *[_P] * 12,                  # state and sums in
                           *[_P] * 12,                  # state and sums out
                           _P],                         # stream
+    "pdhg_block_max_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -8,7 +8,6 @@
 // once per block.  The TPU kernel kept its whole working set in VMEM for the
 // block and took no dense rows; this one also takes the m dense rows
 // Gd (m, n, n), gd (m, n), hd (m,) of relax/denserows.py (m = 0: BoxQP).
-// It reads its inputs and writes its outputs; no input is changed.
 //
 // What bounds it on the H100 (chip_smoke.py pdhg_ops, bound): a launch of 100
 // iterations at n = 125, M = 1024 (400 active k = 3 cuts), m = 0 reads and
@@ -60,6 +59,18 @@
 // two runs give identical bits.  The band's cut-index segment is copied to
 // shared memory when it fits the plan's term capacity; otherwise the CTA
 // reads the same terms in the same order from global memory.
+//
+// Instance axis: one launch runs the block for a batch of B instances of one
+// shape, stacked along a leading axis of every input and output.  The grid
+// is C x (instances listed in ids): cluster s runs instance ids[s] with its
+// own tau[s] and sigma[s], and touches no other instance's data, so an
+// instance left out of ids is never read or written (a converged instance
+// stays frozen), and one cluster's arithmetic does not depend on the batch
+// or on its place in the grid.  The cut index's term arrays are padded to
+// the batch's longest (term strides ex, eX), each instance with its own
+// offsets.  A single solve is the batch of one.  Each cluster reads its
+// state at entry and writes it at exit, behind cluster barriers, so the
+// outputs may be the inputs themselves (an in-place launch).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,14 +84,14 @@ constexpr int kCols = 128;                   // n <= 128
 constexpr int kGroups = kThreads / kCols;    // row groups of a band
 constexpr int kWarpsPerRow = kCols / 32;
 constexpr int kMaxCluster = 16;
+constexpr int kMaxBatch = 128;                // instances per grid (kernel parameter arrays)
 constexpr float kSA = 0.70710678118654752440f;   // 1 / sqrt(2)
 constexpr float kSB = 0.57735026918962576451f;   // 1 / sqrt(3)
 constexpr int kErrLayout = -2;      // the caller's plan disagrees with this layout
 constexpr int kErrNoCluster = -3;   // no cluster of this shape fits on the card
 
-struct Args {
-  int n, M, k, m, iters, R, Mc, term_cap;
-  float tau, sigma;
+// The stacked arrays of a batch; instance_arrays() gives one instance's slices.
+struct Arrays {
   const float *cx, *cX;
   const int* idx;
   const float *lin, *quad, *rhs, *act;
@@ -96,6 +107,62 @@ struct Args {
   // outputs, in the same order
   float *xo, *Xo, *yAo, *yBo, *yCo, *yDo, *axo, *aXo, *aAo, *aBo, *ayCo, *ayDo;
 };
+
+struct Args {
+  int n, M, k, m, iters, R, Mc, term_cap;
+  int ex, eX;                                // per-instance strides of the term arrays
+  Arrays in;
+  // cluster s of the grid runs instance ids[s] with steps tau[s], sigma[s]
+  int ids[kMaxBatch];
+  float tau[kMaxBatch], sigma[kMaxBatch];
+};
+
+__device__ __forceinline__ Arrays instance_arrays(const Arrays& a, size_t b, int n, int M,
+                                                  int k, int m, int ex, int eX) {
+  const size_t N = n, NN = N * N;
+  Arrays p;
+  p.cx = a.cx + b * N;
+  p.cX = a.cX + b * NN;
+  p.idx = a.idx + b * M * k;
+  p.lin = a.lin + b * M * k;
+  p.quad = a.quad + b * M * k * k;
+  p.rhs = a.rhs + b * M;
+  p.act = a.act + b * M;
+  p.xoff = a.xoff + b * (N + 1);
+  p.xcut = a.xcut + b * ex;
+  p.xcoef = a.xcoef + b * ex;
+  p.Xoff = a.Xoff + b * (NN + 1);
+  p.Xcut = a.Xcut + b * eX;
+  p.Xcoef = a.Xcoef + b * eX;
+  p.G = a.G + b * m * NN;
+  p.g = a.g + b * m * N;
+  p.h = a.h + b * m;
+  p.x = a.x + b * N;
+  p.X = a.X + b * NN;
+  p.yA = a.yA + b * NN;
+  p.yB = a.yB + b * NN;
+  p.yC = a.yC + b * M;
+  p.yD = a.yD + b * m;
+  p.ax = a.ax + b * N;
+  p.aX = a.aX + b * NN;
+  p.aA = a.aA + b * NN;
+  p.aB = a.aB + b * NN;
+  p.ayC = a.ayC + b * M;
+  p.ayD = a.ayD + b * m;
+  p.xo = a.xo + b * N;
+  p.Xo = a.Xo + b * NN;
+  p.yAo = a.yAo + b * NN;
+  p.yBo = a.yBo + b * NN;
+  p.yCo = a.yCo + b * M;
+  p.yDo = a.yDo + b * m;
+  p.axo = a.axo + b * N;
+  p.aXo = a.aXo + b * NN;
+  p.aAo = a.aAo + b * NN;
+  p.aBo = a.aBo + b * NN;
+  p.ayCo = a.ayCo + b * M;
+  p.ayDo = a.ayDo + b * m;
+  return p;
+}
 
 // Offsets, in 4-byte words, of one CTA's dynamic shared memory.  The same
 // sum is lp/pdhg_kernel.py::_smem_words; the launch checks that they agree.
@@ -184,13 +251,15 @@ __device__ __forceinline__ float cut_residual(const cg::cluster_group& cluster,
   return r1 + r2;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int n = a.n, M = a.M, k = a.k, m = a.m, R = a.R, RN = R * n, nn = n * n;
-  const float tau = a.tau, sigma = a.sigma;
+  const int slot = static_cast<int>(blockIdx.x) / C;   // this cluster's place in the grid
+  const float tau = a.tau[slot], sigma = a.sigma[slot];
+  const size_t inst = static_cast<size_t>(a.ids[slot]);
   const Layout L = make_layout(n, M, k, m, C, R, a.Mc, a.term_cap);
   float* const sX = sm + L.X;
   float* const syA = sm + L.yA;
@@ -238,63 +307,72 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const Args a)
   const int p0 = rank * a.Mc;
   const int slots = max(0, min(a.Mc, M - p0));
 
+  // the band's cut-index terms, in shared memory when they fit
+  const int* xcut;
+  const int* Xcut;
+  const float* xcoef;
+  const float* Xcoef;
+  {  // this instance's arrays are addressed at entry and at exit only
+  const Arrays p = instance_arrays(a.in, inst, n, M, k, m, a.ex, a.eX);
+
   // ---- entry: the band, the owned slots and the replicas, loaded once ----
   for (int e = t; e < rows * n; e += kThreads) {
     const int ge = r0 * n + e;
-    sX[e] = a.X[ge];
-    syA[e] = a.yA[ge];
-    syB[e] = a.yB[ge];
-    scX[e] = a.cX[ge];
-    saX[e] = a.aX[ge];
-    saA[e] = a.aA[ge];
-    saB[e] = a.aB[ge];
-    for (int q = 0; q < m; ++q) sG[q * RN + e] = a.G[static_cast<size_t>(q) * nn + ge];
+    sX[e] = p.X[ge];
+    syA[e] = p.yA[ge];
+    syB[e] = p.yB[ge];
+    scX[e] = p.cX[ge];
+    saX[e] = p.aX[ge];
+    saA[e] = p.aA[ge];
+    saB[e] = p.aB[ge];
+    for (int q = 0; q < m; ++q) sG[q * RN + e] = p.G[static_cast<size_t>(q) * nn + ge];
   }
   for (int i = t; i < rows; i += kThreads) {
-    sx[i] = a.x[r0 + i];
-    sax[i] = a.ax[r0 + i];
-    scx[i] = a.cx[r0 + i];
-    for (int q = 0; q < m; ++q) sg[q * R + i] = a.g[q * n + r0 + i];
+    sx[i] = p.x[r0 + i];
+    sax[i] = p.ax[r0 + i];
+    scx[i] = p.cx[r0 + i];
+    for (int q = 0; q < m; ++q) sg[q * R + i] = p.g[q * n + r0 + i];
   }
-  for (int q = t; q < M; q += kThreads) sw[q] = a.yC[q] * a.act[q];
+  for (int q = t; q < M; q += kThreads) sw[q] = p.yC[q] * p.act[q];
   for (int s = t; s < slots; s += kThreads) {
-    const int p = p0 + s;
-    syC[s] = a.yC[p];
-    sayC[s] = a.ayC[p];
-    srhs[s] = a.rhs[p];
-    sact[s] = a.act[p];
+    const int q = p0 + s;
+    syC[s] = p.yC[q];
+    sayC[s] = p.ayC[q];
+    srhs[s] = p.rhs[q];
+    sact[s] = p.act[q];
     for (int j = 0; j < k; ++j) {
-      slin[s * k + j] = a.lin[p * k + j];
-      sidx[s * k + j] = a.idx[p * k + j];
+      slin[s * k + j] = p.lin[q * k + j];
+      sidx[s * k + j] = p.idx[q * k + j];
     }
-    for (int j = 0; j < k * k; ++j) squad[s * k * k + j] = a.quad[p * k * k + j];
+    for (int j = 0; j < k * k; ++j) squad[s * k * k + j] = p.quad[q * k * k + j];
   }
   for (int q = t; q < m; q += kThreads) {
-    sh[q] = a.h[q];
-    syD[q] = a.yD[q];
-    sayD[q] = a.ayD[q];
+    sh[q] = p.h[q];
+    syD[q] = p.yD[q];
+    sayD[q] = p.ayD[q];
   }
   // the band's segments of the cut index, offsets relative to their starts
   const int ra = min(r0, n), rb = min(r0 + R, n);
-  const int X0 = a.Xoff[ra * n], x0 = a.xoff[ra];
-  const int LX = a.Xoff[rb * n] - X0, Lx = a.xoff[rb] - x0;
+  const int X0 = p.Xoff[ra * n], x0 = p.xoff[ra];
+  const int LX = p.Xoff[rb * n] - X0, Lx = p.xoff[rb] - x0;
   const bool fits = LX + Lx <= a.term_cap;
-  for (int e = t; e <= rows * n; e += kThreads) sXoff[e] = a.Xoff[ra * n + e] - X0;
-  for (int i = t; i <= rows; i += kThreads) sxoff[i] = a.xoff[ra + i] - x0;
+  for (int e = t; e <= rows * n; e += kThreads) sXoff[e] = p.Xoff[ra * n + e] - X0;
+  for (int i = t; i <= rows; i += kThreads) sxoff[i] = p.xoff[ra + i] - x0;
   if (fits) {
     for (int q = t; q < LX; q += kThreads) {
-      tcut[q] = a.Xcut[X0 + q];
-      tcoef[q] = a.Xcoef[X0 + q];
+      tcut[q] = p.Xcut[X0 + q];
+      tcoef[q] = p.Xcoef[X0 + q];
     }
     for (int q = t; q < Lx; q += kThreads) {
-      tcut[LX + q] = a.xcut[x0 + q];
-      tcoef[LX + q] = a.xcoef[x0 + q];
+      tcut[LX + q] = p.xcut[x0 + q];
+      tcoef[LX + q] = p.xcoef[x0 + q];
     }
   }
-  const int* const Xcut = fits ? tcut : a.Xcut + X0;
-  const float* const Xcoef = fits ? tcoef : a.Xcoef + X0;
-  const int* const xcut = fits ? tcut + LX : a.xcut + x0;
-  const float* const xcoef = fits ? tcoef + LX : a.xcoef + x0;
+  Xcut = fits ? tcut : p.Xcut + X0;
+  Xcoef = fits ? tcoef : p.Xcoef + X0;
+  xcut = fits ? tcut + LX : p.xcut + x0;
+  xcoef = fits ? tcoef + LX : p.xcoef + x0;
+  }
   cluster.sync();
 
   for (int it = 0; it < a.iters; ++it) {
@@ -426,40 +504,105 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const Args a)
   __syncthreads();
 
   // ---- exit: the band, the owned slots and yD, stored once ---------------
+  {
+  const Arrays p = instance_arrays(a.in, inst, n, M, k, m, a.ex, a.eX);
   for (int e = t; e < rows * n; e += kThreads) {
     const int ge = r0 * n + e;
-    a.Xo[ge] = sX[e];
-    a.yAo[ge] = syA[e];
-    a.yBo[ge] = syB[e];
-    a.aXo[ge] = saX[e];
-    a.aAo[ge] = saA[e];
-    a.aBo[ge] = saB[e];
+    p.Xo[ge] = sX[e];
+    p.yAo[ge] = syA[e];
+    p.yBo[ge] = syB[e];
+    p.aXo[ge] = saX[e];
+    p.aAo[ge] = saA[e];
+    p.aBo[ge] = saB[e];
   }
   for (int i = t; i < rows; i += kThreads) {
-    a.xo[r0 + i] = sx[i];
-    a.axo[r0 + i] = sax[i];
+    p.xo[r0 + i] = sx[i];
+    p.axo[r0 + i] = sax[i];
   }
   for (int s = t; s < slots; s += kThreads) {
-    a.yCo[p0 + s] = syC[s];
-    a.ayCo[p0 + s] = sayC[s];
+    p.yCo[p0 + s] = syC[s];
+    p.ayCo[p0 + s] = sayC[s];
   }
   if (rank == 0) {
     for (int q = t; q < m; q += kThreads) {
-      a.yDo[q] = syD[q];
-      a.ayDo[q] = sayD[q];
+      p.yDo[q] = syD[q];
+      p.ayDo[q] = sayD[q];
     }
+  }
   }
   cluster.sync();   // no CTA leaves while another may still address it
 }
 
 }  // namespace
 
-// cluster: CTAs in the cluster (<= 16); term_cap and smem come from the
-// caller's launch plan (lp/pdhg_kernel.py launch_plan), and smem must equal
-// this file's layout.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
+namespace {
+
+cudaLaunchConfig_t launch_config(int cluster, int instances, int smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * instances, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The kernel's attributes for (cluster, smem), and the check that the card
+// holds one such cluster: done when (cluster, smem) changes, so a batch of
+// another shape than the last launch's checks again.  Nothing depends on B.
+int prepare(int cluster, int smem) {
+  static int checked_cluster = 0, checked_smem = -1;
+  if (cluster == checked_cluster && smem == checked_smem) return 0;
+  cudaError_t err = cudaFuncSetAttribute(pdhg_cluster_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(pdhg_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(cluster, 1, smem, nullptr, attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, pdhg_cluster_kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return kErrNoCluster;
+  checked_cluster = cluster;
+  checked_smem = smem;
+  return 0;
+}
+
+int check_layout(int n, int M, int k, int m, int cluster, int term_cap, int smem) {
+  if (cluster < 1 || cluster > kMaxCluster || n < 1 || n > kCols || k < 2 || k > 5 ||
+      term_cap < 0)
+    return kErrLayout;
+  const int R = (n + cluster - 1) / cluster;
+  const int Mc = (M + cluster - 1) / cluster;
+  const Layout L = make_layout(n, M, k, m, cluster, R, Mc, term_cap);
+  if (4 * static_cast<size_t>(L.words) != static_cast<size_t>(smem)) return kErrLayout;
+  return 0;
+}
+
+}  // namespace
+
+// One launch of `iters` iterations for the instances ids[0..count) of a
+// batch stacked along the leading axis of every array, instance ids[s] with
+// steps tau[s], sigma[s] (host arrays).  ex and eX are the per-instance
+// strides of xcut/xcoef and Xcut/Xcoef.  The outputs may be the inputs (the
+// launch then updates the listed instances in place).  cluster: CTAs a
+// cluster (<= 16); term_cap and smem come from the caller's launch plan
+// (lp/pdhg_kernel.py launch_plan), and smem must equal this file's layout.
+// More than kMaxBatch instances go in consecutive grids.  Returns 0, a CUDA
+// error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_block_launch(
-    int n, int M, int k, int m, int iters, float tau, float sigma,
-    int cluster, int term_cap, int smem,
+    int n, int M, int k, int m, int iters, int cluster, int term_cap, int smem,
+    int count, const int* ids, const float* tau, const float* sigma, int ex, int eX,
     const float* cx, const float* cX,
     const int* idx, const float* lin, const float* quad, const float* rhs,
     const float* act,
@@ -473,54 +616,42 @@ extern "C" int pdhg_block_launch(
     float* xo, float* Xo, float* yAo, float* yBo, float* yCo, float* yDo,
     float* axo, float* aXo, float* aAo, float* aBo, float* ayCo, float* ayDo,
     void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || n < 1 || n > kCols || k < 2 || k > 5 ||
-      term_cap < 0)
-    return kErrLayout;
-  const int R = (n + cluster - 1) / cluster;
-  const int Mc = (M + cluster - 1) / cluster;
-  const Layout L = make_layout(n, M, k, m, cluster, R, Mc, term_cap);
-  if (4 * static_cast<size_t>(L.words) != static_cast<size_t>(smem)) return kErrLayout;
+  int err = check_layout(n, M, k, m, cluster, term_cap, smem);
+  if (err == 0) err = prepare(cluster, smem);
+  if (err != 0) return err;
+  if (count < 0 || ex < 0 || eX < 0) return kErrLayout;
 
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-
-  // set up and checked once per (cluster, smem): the card must hold one
-  // such cluster
-  static int checked_cluster = 0, checked_smem = -1;
-  cudaError_t err;
-  if (cluster != checked_cluster || smem != checked_smem) {
-    err = cudaFuncSetAttribute(pdhg_cluster_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (cluster > 8) {
-      err = cudaFuncSetAttribute(pdhg_cluster_kernel,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return static_cast<int>(err);
+  Args a{n, M, k, m, iters, (n + cluster - 1) / cluster, (M + cluster - 1) / cluster,
+         term_cap, ex, eX,
+         Arrays{cx, cX, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff, Xcut, Xcoef,
+                G, g, h, x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
+                xo, Xo, yAo, yBo, yCo, yDo, axo, aXo, aAo, aBo, ayCo, ayDo},
+         {}, {}, {}};
+  for (int s0 = 0; s0 < count; s0 += kMaxBatch) {
+    const int part = count - s0 < kMaxBatch ? count - s0 : kMaxBatch;
+    for (int s = 0; s < part; ++s) {
+      a.ids[s] = ids[s0 + s];
+      a.tau[s] = tau[s0 + s];
+      a.sigma[s] = sigma[s0 + s];
     }
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, pdhg_cluster_kernel, &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (clusters < 1) return kErrNoCluster;
-    checked_cluster = cluster;
-    checked_smem = smem;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        launch_config(cluster, part, smem, static_cast<cudaStream_t>(stream), attr);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel, a);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-
-  const Args a{n, M, k, m, iters, R, Mc, term_cap, tau, sigma,
-               cx, cX, idx, lin, quad, rhs, act,
-               xoff, xcut, xcoef, Xoff, Xcut, Xcoef, G, g, h,
-               x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
-               xo, Xo, yAo, yBo, yCo, yDo, axo, aXo, aAo, aBo, ayCo, ayDo};
-  err = cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel, a);
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of this launch plan the card runs at once
+// (cudaOccupancyMaxActiveClusters for a grid of `instances` clusters).
+extern "C" int pdhg_block_max_active_clusters(int n, int M, int k, int m, int cluster,
+                                              int term_cap, int smem, int instances,
+                                              int* out) {
+  int err = check_layout(n, M, k, m, cluster, term_cap, smem);
+  if (err == 0) err = prepare(cluster, smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(cluster, instances, smem, nullptr, attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, pdhg_cluster_kernel, &cfg));
 }

@@ -1,5 +1,6 @@
 """Sparse QCQP instances (port of ``sdpcutsel_tpu/instances/qcqp.py``,
-numpy only: the instance, its generators and ``load_or_generate_qcqp``).
+numpy only: the instance, its generators, the batched family
+``generate_qcqp_family`` and ``load_or_generate_qcqp``).
 
     max 1/2 x'Q0 x + c0'x
     s.t. 1/2 x'Qi x + ci'x <= bi   (i = 1..m),   x in [0,1]^n
@@ -104,6 +105,38 @@ def generate_qcqp_band(n: int, bandwidth: int, m: int, seed: int) -> QCQPInstanc
     Q0 = rand_band_sym()
     c0 = rng.integers(-100, 101, size=n).astype(np.float64)
     return QCQPInstance(name, Q0, c0, *_constraints(rng, n, m, rand_band_sym))
+
+
+def generate_qcqp_family(n: int, density: int, m: int, seed: int,
+                         B: int) -> list[QCQPInstance]:
+    """B instances sharing one sparsity pattern, deterministic in the
+    arguments: each member rescales the base instance's objective and
+    constraint quadratics entrywise on the same support (zeros stay zero)
+    and redraws the linear terms; right-hand sides are drawn feasible at
+    x0 = 0.25 * ones.  The batched round needs one clique table for the
+    whole batch, hence one sparsity graph."""
+    base = generate_qcqp(n, density, m, seed)
+    x0 = np.full(n, 0.25)
+    out = []
+    for b in range(B):
+        key = (n << 40) | (density << 24) | (m << 16) | (seed << 8) | (b + 1)
+        rng = np.random.Generator(np.random.Philox(key=[key, 0xFA11]))
+
+        def rescale(Q):
+            S = rng.uniform(0.5, 1.5, size=Q.shape)
+            return Q * (0.5 * (S + S.T))
+
+        Q0 = rescale(base.Q0)
+        c0 = rng.integers(-100, 101, size=n).astype(np.float64)
+        Qs, cs, bs = [], [], []
+        for Qi in base.Qs:
+            Qb = rescale(Qi)
+            cb = rng.integers(-100, 101, size=n).astype(np.float64)
+            Qs.append(Qb)
+            cs.append(cb)
+            bs.append(float(0.5 * x0 @ Qb @ x0 + cb @ x0 + rng.uniform(5.0, 50.0)))
+        out.append(QCQPInstance(f"{base.name}-fam{b}", Q0, c0, tuple(Qs), tuple(cs), tuple(bs)))
+    return out
 
 
 def load_or_generate_qcqp(name: str) -> QCQPInstance:

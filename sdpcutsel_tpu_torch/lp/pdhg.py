@@ -212,7 +212,7 @@ class SolveSetup:
     index and ||K||.  Steering reuses the solve's, as the pool is the same."""
     kernel: bool          # blocks through pdhg_block (else the plain loop)
     index: CutIndex
-    normK: float
+    normK: float          # a batch's: (B,) float32 numpy (solve_setup_batched)
 
 
 def solve_setup(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
@@ -249,6 +249,171 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
     return _solve_impl(-c, -0.5 * Q, pool, setup.index, state, setup.normK, cfg.omega0,
                        cfg.tol, cfg.step_scale, cfg.max_iters, cfg.check_every,
                        cfg.restart_period, dense, setup.kernel)
+
+
+# ---- the instance axis: a batch of solves of one shape (parallel/round.py) ----
+
+def estimate_norm_batched(pool: CutPool, n: int, iters: int, generator: torch.Generator,
+                          index: CutIndex, dense: DenseRows | None = None):
+    """``estimate_norm`` of every instance of a batch (``relax/batched.py``
+    shapes) in one power iteration: each instance starts from the vector a
+    single solve draws (one CPU draw from ``generator``, broadcast).
+    Returns ||K|| of each instance, (B,) float32 on the device."""
+    from ..relax import batched as rb
+
+    dev = pool.lin.device
+    B = pool.lin.shape[0]
+    x = torch.randn((n,), generator=generator).to(dev).expand(B, n)
+    X = rb.sym(torch.randn((n, n), generator=generator).to(dev).expand(B, n, n))
+    for _ in range(iters):
+        kA, kB, kC, *kD = rb.apply_K(x, X, pool, dense)
+        gx, gX = rb.apply_KT(kA, kB, kC * pool.active, pool, n, index,
+                             kD[0] if kD else None, dense)
+        gX = rb.sym(gX)
+        nrm = torch.sqrt((gx * gx).sum(-1) + (gX * gX).sum((-2, -1))) + 1e-30
+        x, X = gx / nrm[:, None], gX / nrm[:, None, None]
+    kA, kB, kC, *kD = rb.apply_K(x, X, pool, dense)
+    lam2 = (kA * kA).sum((-2, -1)) + (kB * kB).sum((-2, -1)) + ((kC * pool.active) ** 2).sum(-1)
+    if dense is not None:
+        lam2 = lam2 + (kD[0] * kD[0]).sum(-1)
+    return torch.sqrt(lam2) * 1.02 + 1e-12
+
+
+def _dual_bound_batched(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
+                        n: int, index: CutIndex):
+    """``_dual_bound`` of every instance: (B,)."""
+    from ..relax import batched as rb
+
+    gx, gX = rb.apply_KT(st.yA, st.yB, st.yC, pool, n, index, st.yD, dense)
+    hy = -SB * st.yB.sum((-2, -1)) + (pool.rhs * pool.active * st.yC).sum(-1)
+    if dense is not None:
+        hy = hy + (dense.h * st.yD).sum(-1)
+    rx = cx - gx
+    S = (cX - gX) + (cX - gX).transpose(-1, -2)
+    return hy + rx.clamp(max=0.0).sum(-1) + 0.5 * S.clamp(max=0.0).sum((-2, -1))
+
+
+def _kkt_error_batched(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
+                       n: int, index: CutIndex):
+    """``_kkt_error`` of every instance: (err, primal, dual), each (B,)."""
+    from ..relax import batched as rb
+
+    p = (cx * st.x).sum(-1) + (cX * st.X).sum((-2, -1))
+    d = _dual_bound_batched(cx, cX, pool, dense, st, n, index)
+    kA, kB, kC, *kD = rb.apply_K(st.x, st.X, pool, dense)
+    v2 = ((-kA).clamp(min=0.0) ** 2).sum((-2, -1)) + ((-SB - kB).clamp(min=0.0) ** 2).sum((-2, -1))
+    v2 = v2 + (((pool.rhs * pool.active - kC).clamp(min=0.0) * pool.active) ** 2).sum(-1)
+    if dense is not None:
+        v2 = v2 + ((dense.h - kD[0]).clamp(min=0.0) ** 2).sum(-1)
+    return torch.sqrt(v2) + (p - d).clamp(min=0.0), p, d
+
+
+def block_check(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
+                avg: PDHGState, n: int, index: CutIndex) -> np.ndarray:
+    """The checked block's KKT errors of every instance, current iterate and
+    average, read to the host in one (B, 6) float32 array:
+    (err, primal, dual) of the current, then of the average."""
+    kc = _kkt_error_batched(cx, cX, pool, dense, st, n, index)
+    ka = _kkt_error_batched(cx, cX, pool, dense, avg, n, index)
+    return torch.stack([*kc, *ka], 1).cpu().numpy()
+
+
+def _restart_distances(cand: PDHGState, anchor: PDHGState) -> np.ndarray:
+    """(B, 2): the primal and dual distances of ``cand`` from ``anchor``,
+    read to the host in one array."""
+    dp = ((cand.x - anchor.x) ** 2).sum(-1) + ((cand.X - anchor.X) ** 2).sum((-2, -1))
+    dd = (((cand.yA - anchor.yA) ** 2).sum((-2, -1)) + ((cand.yB - anchor.yB) ** 2).sum((-2, -1))
+          + ((cand.yC - anchor.yC) ** 2).sum(-1))
+    if cand.yD.shape[-1]:
+        dd = dd + ((cand.yD - anchor.yD) ** 2).sum(-1)
+    return torch.stack([torch.sqrt(dp), torch.sqrt(dd)], 1).cpu().numpy()
+
+
+def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK,
+                   omega0: float, tol: float, step_scale: float, max_iters: int,
+                   check_every: int, restart_period: int,
+                   dense: DenseRows | None = None, kernel: bool = True):
+    """``_solve_impl`` for a batch of B instances of one shape: cx (B, n),
+    cX (B, n, n), the other arguments with the instance axis first
+    (``relax/batched.py``; ``index`` from its ``build_cut_index``), normK
+    (B,) on the host.  The semantics of the reference's vmapped
+    ``lax.while_loop``: every instance stops at its own tolerance or at
+    ``max_iters`` and is frozen from then on; omega, the restart anchor,
+    the window and the error are per instance; the loop runs while any
+    instance runs.  Each checked block is one ``pdhg_block_batched`` call
+    for the running instances (one K2 launch on CUDA; the per-instance plain
+    loop with ``kernel`` False, counted in ``pdhg_block.plain_launches`` on
+    CUDA), then one (B, 6) host read of the KKT errors and, when an instance
+    restarts, one (B, 2) read of its distances.  Returns (state, info) with
+    (B,) numpy arrays in info."""
+    from .pdhg_kernel import pdhg_block, pdhg_block_batched, pdhg_block_batched_plain
+    from ..relax import batched as rb
+
+    block = pdhg_block_batched if kernel else pdhg_block_batched_plain
+    plain_on_card = not kernel and cx.device.type == "cuda"
+    B, n = cx.shape
+    dev = cx.device
+    eta = _f32(step_scale) / np.asarray(normK, _f32)
+    zeros = st0.map(torch.zeros_like)
+    st, acc, anchor = st0, zeros, st0
+    wlen = np.zeros(B, np.int64)
+    it = np.zeros(B, np.int64)
+    omega = np.full(B, _f32(omega0), _f32)
+    err = np.full(B, np.inf, _f32)
+    p = np.zeros(B, _f32)
+    d = np.zeros(B, _f32)
+    while True:
+        running = (it < max_iters) & (err / (_f32(1.0) + np.abs(p) + np.abs(d)) > _f32(tol))
+        ids = np.flatnonzero(running)
+        if ids.size == 0:
+            break
+        st, acc = block(cx, cX, pool, index, st, acc, eta / omega, eta * omega,
+                        check_every, ids, dense)
+        if plain_on_card:
+            pdhg_block.plain_launches += 1
+        wlen[ids] += check_every
+        inv = np.where(wlen > 0, _f32(1.0) / np.maximum(wlen, 1).astype(_f32), _f32(0.0))
+        inv_t = torch.as_tensor(inv.astype(_f32)).to(dev)
+        avg = acc.map(lambda t: t * inv_t.view(-1, *[1] * (t.dim() - 1)))
+        e_c, p_c, d_c, e_a, p_a, d_a = block_check(cx, cX, pool, dense, st, avg, n, index).T
+        use_avg = e_a < e_c
+        err[ids] = np.where(use_avg, e_a, e_c)[ids]
+        p[ids] = np.where(use_avg, p_a, p_c)[ids]
+        d[ids] = np.where(use_avg, d_a, d_c)[ids]
+        restart = running & (use_avg | (wlen >= restart_period))
+        if restart.any():
+            masks = torch.as_tensor(np.stack([use_avg, restart])).to(dev)
+            cand = rb.where(masks[0], avg, st)
+            dist = _restart_distances(cand, anchor) + _f32(1e-12)
+            # primal-weight rebalancing between restarts (PDLP, theta = 0.5)
+            new_omega = np.clip(np.exp(_f32(0.5) * np.log(dist[:, 1] / dist[:, 0])
+                                       + _f32(0.5) * np.log(omega)),
+                                _f32(1e-4), _f32(1e4)).astype(_f32)
+            omega = np.where(restart, new_omega, omega).astype(_f32)
+            st = rb.where(masks[1], cand, st)
+            anchor = rb.where(masks[1], cand, anchor)
+            acc = rb.where(masks[1], zeros, acc)
+            wlen[restart] = 0
+        it[ids] += check_every
+    return st, {"iters": it, "kkt_error": err.astype(np.float64), "primal_obj": p,
+                "dual_obj": d, "omega": omega}
+
+
+def solve_setup_batched(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
+    """``solve_setup`` of a batch (c (B, n)): the route by ``cfg.use_kernel``
+    at the batch's shape, ``relax.batched.build_cut_index`` and
+    ``estimate_norm_batched`` (its (B,) result read to the host once)."""
+    from ..relax import batched as rb
+    from .pdhg_kernel import kernel_route
+
+    n = int(c.shape[1])
+    M, k = pool.idx.shape[1:]
+    kernel = kernel_route(cfg.use_kernel, c.device, n, M, k,
+                          0 if dense is None else dense.G.shape[1])
+    index = rb.build_cut_index(pool, n)
+    normK = estimate_norm_batched(pool, n, cfg.power_iters,
+                                  torch.Generator(device="cpu").manual_seed(0), index, dense)
+    return SolveSetup(kernel, index, normK.cpu().numpy())
 
 
 def rademacher_signs(n: int, generator: torch.Generator, device):

@@ -28,17 +28,30 @@ stable sort, so terms keep the reference's (t, a, b) order), and each
 destination sums its segment in that fixed order.  No atomics, so repeated
 runs give identical bits.
 
+Instance axis: ``pdhg_block_batched`` runs one block for the instances
+``ids`` of a batch of one shape (every array stacked along a leading axis,
+the cut index from ``relax/batched.py::build_cut_index``) in one launch: a
+grid of one cluster per listed instance, each with its own tau and sigma.
+The instances left out come back unchanged, bit for bit: that is how a
+batched solve freezes a converged instance.  ``pdhg_block`` is the batch of
+one of the same entry point.  ``max_active_clusters`` asks the card how many
+clusters of a plan run at once.
+
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
-other device raises.  ``pdhg_block.launches`` counts kernel launches.
+other device raises.  ``pdhg_block.launches`` counts kernel launches, one a
+call of either wrapper.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import _build
+from ..relax.batched import batch_of_one, instance
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import PDHGState, _one_iter
@@ -165,16 +178,55 @@ def pdhg_block_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
     return st, acc
 
 
-def _launch(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
-            acc: PDHGState, tau: float, sigma: float, iters: int,
-            dense: DenseRows | None, cluster: int = CLUSTER):
-    n = cx.shape[0]
-    M, k = pool.idx.shape
-    m = 0 if dense is None else dense.m
+def pdhg_block_batched_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                             acc: PDHGState, tau, sigma, iters: int, ids,
+                             dense: DenseRows | None = None):
+    """Twin of the batched launch: ``pdhg_block_plain`` on instance b of
+    every batched argument (``relax/batched.py::instance``), with steps
+    tau[b], sigma[b], for each b in ``ids``; the other instances come back
+    as they were."""
+    outs = [list(s.unbind(0)) for s in (*st.fields(), *acc.fields())]
+    for b in (int(v) for v in ids):
+        sb, ab = pdhg_block_plain(cx[b], cX[b], instance(pool, b), instance(index, b),
+                                  instance(st, b), instance(acc, b), float(tau[b]),
+                                  float(sigma[b]), iters,
+                                  None if dense is None else instance(dense, b))
+        for out, t in zip(outs, (*sb.fields(), *ab.fields())):
+            out[b] = t
+    outs = [torch.stack(o) for o in outs]
+    return PDHGState(*outs[:6]), PDHGState(*outs[6:])
+
+
+def _launch_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                    acc: PDHGState, tau, sigma, iters: int, ids,
+                    dense: DenseRows | None, cluster: int = CLUSTER):
+    """One launch for the instances ``ids`` of a batch: every argument
+    carries the instance axis first (``relax/batched.py``), ``index`` is
+    ``relax.batched.build_cut_index(pool, n)``, tau and sigma are (B,)."""
+    B, n = cx.shape
+    M, k = pool.idx.shape[1:]
+    m = 0 if dense is None else dense.G.shape[1]
     plan = launch_plan(n, M, k, m, cluster)
-    if st.yD.shape != (m,) or acc.yD.shape != (m,):
-        raise ValueError(f"pdhg_block kernel: yD has shape {tuple(st.yD.shape)}, "
-                         f"the dense block {m} rows")
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= B or (np.diff(ids) <= 0).any()):
+        raise ValueError(f"pdhg_block kernel: ids must be increasing instances of 0..{B - 1}")
+    shapes = {"cX": (cX, (B, n, n)), "pool.lin": (pool.lin, (B, M, k)),
+              "pool.quad": (pool.quad, (B, M, k, k)), "pool.rhs": (pool.rhs, (B, M)),
+              "pool.active": (pool.active, (B, M)), "index.idx": (index.idx, (B, M, k)),
+              "index.xoff": (index.xoff, (B, n + 1)), "index.Xoff": (index.Xoff, (B, n * n + 1)),
+              **{f"state.{f}": (t, s) for st_ in (st, acc) for f, t, s in zip(
+                  ("x", "X", "yA", "yB", "yC", "yD"), st_.fields(),
+                  ((B, n), (B, n, n), (B, n, n), (B, n, n), (B, M), (B, m)))}}
+    if dense is not None:
+        shapes.update({"dense.G": (dense.G, (B, m, n, n)), "dense.g": (dense.g, (B, m, n)),
+                       "dense.h": (dense.h, (B, m))})
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"pdhg_block kernel: {name} has shape {tuple(t.shape)}, "
+                             f"want {want}")
+    ex, eX = index.xcut.shape[-1], index.Xcut.shape[-1]
+    if index.xcut.shape != (B, ex) or index.Xcut.shape != (B, eX):
+        raise ValueError("pdhg_block kernel: the cut index's terms must be (B, E) arrays")
     floats = [cx, cX, pool.lin, pool.quad, pool.rhs, pool.active,
               index.xcoef, index.Xcoef, *st.fields(), *acc.fields()]
     if dense is not None:
@@ -188,14 +240,26 @@ def _launch(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
             raise ValueError("pdhg_block kernel takes an int32 cut index on one device")
     lib = _build.lib()
     ins = [t.contiguous() for t in (*st.fields(), *acc.fields())]
-    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in ins]
+    if ids.size == B:
+        outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in ins]
+    else:
+        # the instances left out keep their inputs: copy all of them in one
+        # launch, then update the listed ones in place
+        flat = torch.cat([t.reshape(-1) for t in ins])
+        outs = [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in ins]), ins)]
+        ins = outs
     c = [t.contiguous() for t in (cx, cX, index.idx, pool.lin, pool.quad, pool.rhs,
                                   pool.active, index.xoff, index.xcut, index.xcoef,
                                   index.Xoff, index.Xcut, index.Xcoef)]
     d = [] if dense is None else [t.contiguous() for t in (dense.G, dense.g, dense.h)]
     dptr = [t.data_ptr() for t in d] or [None] * 3
+    count = int(ids.size)
+    tau = np.asarray(tau, dtype=np.float32)[ids]
+    sigma = np.asarray(sigma, dtype=np.float32)[ids]
     err = lib.pdhg_block_launch(
-        n, M, k, m, iters, tau, sigma, plan.cluster, plan.term_cap, plan.smem_bytes,
+        n, M, k, m, iters, plan.cluster, plan.term_cap, plan.smem_bytes, count,
+        (ctypes.c_int * count)(*ids.tolist()), (ctypes.c_float * count)(*tau.tolist()),
+        (ctypes.c_float * count)(*sigma.tolist()), ex, eX,
         *(t.data_ptr() for t in c), *dptr,
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
         torch.cuda.current_stream(cx.device).cuda_stream,
@@ -206,6 +270,31 @@ def _launch(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
     _build.check(err, "pdhg_block_launch")
     pdhg_block.launches += 1
     return PDHGState(*outs[:6]), PDHGState(*outs[6:])
+
+
+def _launch(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+            acc: PDHGState, tau: float, sigma: float, iters: int,
+            dense: DenseRows | None, cluster: int = CLUSTER):
+    """One instance: the batched launch of a batch of one."""
+    st1, acc1 = _launch_batched(cx[None], cX[None], batch_of_one(pool), batch_of_one(index),
+                                batch_of_one(st), batch_of_one(acc), [tau], [sigma], iters,
+                                [0], None if dense is None else batch_of_one(dense), cluster)
+    return instance(st1, 0), instance(acc1, 0)
+
+
+def max_active_clusters(n: int, M: int, k: int, m: int, instances: int,
+                        cluster: int = CLUSTER) -> int:
+    """How many clusters of the launch plan at (n, M, k, m) the card runs at
+    once, for a grid of ``instances`` clusters (cudaOccupancyMaxActiveClusters)."""
+    plan = launch_plan(n, M, k, m, cluster)
+    out = ctypes.c_int(0)
+    err = _build.lib().pdhg_block_max_active_clusters(
+        n, M, k, m, plan.cluster, plan.term_cap, plan.smem_bytes, instances,
+        ctypes.byref(out))
+    if err in _ERRORS:
+        raise RuntimeError(f"pdhg_block_max_active_clusters: {_ERRORS[err]}")
+    _build.check(err, "pdhg_block_max_active_clusters")
+    return out.value
 
 
 def pdhg_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
@@ -225,3 +314,20 @@ def pdhg_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
 
 pdhg_block.launches = 0
 pdhg_block.plain_launches = 0      # plain blocks a solve ran on CUDA (kernel_route)
+
+
+def pdhg_block_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                       acc: PDHGState, tau, sigma, iters: int, ids,
+                       dense: DenseRows | None = None):
+    """``pdhg_block`` for the instances ``ids`` (increasing) of a batch, in
+    one launch on CUDA: every argument carries the instance axis first,
+    ``index`` is ``relax.batched.build_cut_index(pool, n)``, tau and sigma
+    are (B,) per-instance steps.  Returns new batched (state, acc); the
+    instances not in ``ids`` are returned unchanged, bit for bit, and the
+    inputs are left as they were.  Counted in ``pdhg_block.launches``."""
+    if cx.device.type == "cpu":
+        return pdhg_block_batched_plain(cx, cX, pool, index, st, acc, tau, sigma, iters,
+                                        ids, dense)
+    if cx.device.type == "cuda":
+        return _launch_batched(cx, cX, pool, index, st, acc, tau, sigma, iters, ids, dense)
+    raise ValueError(f"pdhg_block: no kernel for device {cx.device}")

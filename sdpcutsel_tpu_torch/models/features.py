@@ -20,13 +20,14 @@ def tri_indices(k: int, device):
 
 
 def candidate_q_features(Q, table):
-    """Per-candidate objective features: (triQ: (T, k(k+1)/2), scale: (T,))."""
+    """Per-candidate objective features: (triQ: (..., T, k(k+1)/2), scale:
+    (..., T,)); Q (..., n, n), leading axes a batch of instances."""
     table = table.long()
     i0, i1 = tri_indices(table.shape[1], Q.device)
-    Qr = Q[table[:, :, None], table[:, None, :]]        # (T, k, k)
-    scale = Qr.abs().amax(dim=(1, 2))
+    Qr = Q[..., table[:, :, None], table[:, None, :]]   # (..., T, k, k)
+    scale = Qr.abs().amax(dim=(-2, -1))
     safe = scale.clamp(min=1e-12)
-    triQ = (Qr / safe[:, None, None])[:, i0, i1]
+    triQ = (Qr / safe[..., None, None])[..., i0, i1]
     return triQ, scale
 
 

@@ -15,7 +15,9 @@ one takes the table as it is.  It runs K1's and K3's tensor-core body
 (``csrc/score_mma.cuh``), one instantiation per k.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
-other device raises.  ``fused_score.launches`` counts kernel launches.
+other device raises.  ``fused_score.launches`` counts kernel launches, and
+``fused_score.plain_launches`` the twin's calls on CUDA tensors that a caller
+asked for (the batched round's ``use_fused=False``).
 """
 
 from __future__ import annotations
@@ -73,3 +75,4 @@ def fused_score(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
 
 
 fused_score.launches = 0
+fused_score.plain_launches = 0    # calls on CUDA tensors that asked for the twin

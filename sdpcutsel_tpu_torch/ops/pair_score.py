@@ -18,11 +18,14 @@ The pair layout's valid slots run in lexicographic order, so the
 lexicographic table selects as the reference's pair route does.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
-other device raises.  ``pair_score.launches`` counts kernel launches.
+other device raises.  ``pair_score.launches`` counts kernel launches, and
+``pair_score.plain_launches`` the twin's calls on CUDA tensors that a caller
+asked for (the batched round's ``use_fused=False``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -31,6 +34,33 @@ from ..models.scorer import MLPScorer
 from .fused_score import fused_score_plain
 
 SWEEPS = 5      # Jacobi sweeps on the 4 x 4 Z(rho), as in the reference's scoring
+_LANES = 128
+
+
+def build_pair_layout(n: int, pairs_block: int = 128):
+    """The reference's pair layout (``sdpcutsel_tpu/ops/pair_score.py::
+    build_pair_layout``), numpy: (table (P_pad * 128, 3) int32, valid
+    (P_pad * 128,) bool).  Slot p * 128 + l is the triple (pi[p], pj[p],
+    min(l, n - 1)) of the p-th pair (i < j, lexicographic; padded pairs
+    repeat (0, 1)); it is valid where j < l < n and p < C(n, 2).  The valid
+    slots are the lexicographic triples in order.  The batched round's
+    ``pair_layout=True`` shards this table (``parallel/sharding.py``)."""
+    if not 3 <= n <= _LANES:
+        raise ValueError(f"pair layout requires 3 <= n <= {_LANES}, got {n}")
+    iu, ju = np.triu_indices(n, k=1)
+    P = iu.shape[0]
+    P_pad = -(-P // pairs_block) * pairs_block
+    pi = np.zeros(P_pad, np.int32)
+    pj = np.ones(P_pad, np.int32)
+    pi[:P], pj[:P] = iu, ju
+    ll = np.arange(_LANES, dtype=np.int32)
+    table = np.empty((P_pad, _LANES, 3), np.int32)
+    table[:, :, 0] = pi[:, None]
+    table[:, :, 1] = pj[:, None]
+    table[:, :, 2] = np.minimum(ll, n - 1)[None, :]
+    valid = (ll[None, :] > pj[:, None]) & (ll[None, :] < n)
+    valid[P:] = False
+    return table.reshape(-1, 3), valid.reshape(-1)
 
 
 def pair_score_plain(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS):
@@ -74,3 +104,4 @@ def pair_score(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS):
 
 
 pair_score.launches = 0
+pair_score.plain_launches = 0    # calls on CUDA tensors that asked for the twin

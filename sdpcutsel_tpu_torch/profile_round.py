@@ -16,6 +16,12 @@ The main paths are chip_smoke.py's:
 ``--strategy`` (default neural) and ``--steer-eps`` (default 0: no vertex
 steering; 1e-3 in chip_smoke.py's steered QCQP scan, 4,000 iterations a
 round) apply to either family; ``--scan`` to either too.
+``--batch`` profiles chip_smoke.py's batched suite bucket instead: the
+twelve spar125-{25,50,75,100}-{1,2,3} of data/boxqp as one batch
+(``parallel/round.py``, scripts/bench_batched.py --suite's configuration:
+capacity 1024, k = 3, lp_iters 400, sel_size 16, neural, Mesh(1, 1)), 10
+per-round steps; it prints instance-rounds/s, the batched setup, the KKT
+reads per checked block and the split of the same stages.
 After one warm-up round (kernel build, first cuSOLVER use), three runs of
 ``--rounds`` rounds, each from a fresh solver:
 
@@ -43,6 +49,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from .config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
@@ -51,7 +58,9 @@ from .loop import solver as solver_mod
 from .lp import pdhg as pdhg_mod
 from .lp import pdhg_kernel as pdhg_kernel_mod
 from .models import labels as labels_mod
+from .parallel import round as round_mod
 from .qcqp import solver as qcqp_mod
+from .relax import batched as batched_mod
 
 # ops/__init__ binds the names pair_score and fused_score to the wrappers,
 # not the modules
@@ -90,6 +99,54 @@ STAGES = [
 ]
 
 
+# the batched suite bucket's stages (--batch)
+BATCH_STAGES = [
+    (round_mod, "solve_setup_batched", "batched setup"),
+    (pdhg_mod, "estimate_norm_batched", "  estimate_norm_batched"),
+    (batched_mod, "build_cut_index", "  build_cut_index (batched)"),
+    (round_mod, "_solve_batched", "_solve_batched"),
+    (pdhg_kernel_mod, "_launch_batched", "  K2 pdhg_block (batched launch)"),
+    (pdhg_mod, "block_check", "  KKT check and its (B, 6) read"),
+    (pdhg_mod, "_restart_distances", "  restart distances and their read"),
+    (round_mod, "_dual_bound_batched", "f32 certificate"),
+    (round_mod._Round, "select", "scoring + local top-k + merge"),
+    (pair_score_mod, "_launch", "  K1 pair_score"),
+    (round_mod, "diverse_topk", "  diverse merge"),
+    (round_mod, "cuts_from_selected", "cut rows"),
+    (batched_mod, "purge_pool", "purge: compact"),
+    (batched_mod, "append_cuts", "append_cuts"),
+]
+SUITE_BUCKET = [f"spar125-{d}-{s}" for d in (25, 50, 75, 100) for s in (1, 2, 3)]
+
+
+class BatchPath:
+    """chip_smoke.py's batched suite bucket (``--batch``)."""
+    rounds = 10
+
+    def __init__(self):
+        self.insts = [parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name)
+                      for name in SUITE_BUCKET]
+        self.mesh = round_mod.Mesh(1, 1)
+        self.step = round_mod.make_sharded_round_step(self.mesh, lp_iters=400, sel_size=16,
+                                                      strategy="neural")
+
+    def run(self, dev, rounds: int) -> float:
+        from .cuts.enumerate import combinations_table
+        from .parallel.sharding import shard_candidates
+
+        table, valid = shard_candidates(combinations_table(self.insts[0].n, 3), self.mesh,
+                                        device=dev)
+        state = round_mod.init_batched_state(np.stack([i.Q for i in self.insts]),
+                                             np.stack([i.c for i in self.insts]), 1024, 3,
+                                             device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            state, _ = self.step(state, table, valid)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+
 def load(name: str, pair_layout: str = "auto", scan: bool = False,
          strategy: str = "neural", steer_eps: float = 0.0):
     """(instance, solver class, config, default rounds) of a main path."""
@@ -105,6 +162,8 @@ def load(name: str, pair_layout: str = "auto", scan: bool = False,
 
 
 def _run(path, dev, rounds: int, history: list | None = None) -> float:
+    if isinstance(path, BatchPath):
+        return path.run(dev, rounds)
     inst, solver_cls, cfg, _ = path
     solver = solver_cls(inst, cfg, device=dev)
     torch.cuda.synchronize()
@@ -116,7 +175,7 @@ def _run(path, dev, rounds: int, history: list | None = None) -> float:
     return time.perf_counter() - t0
 
 
-def stage_split(path, dev, rounds: int):
+def stage_split(path, dev, rounds: int, stages=STAGES):
     """(wall seconds, {label: (seconds, calls)}) of a run with every stage
     synchronised and timed."""
     seconds = collections.defaultdict(float)
@@ -134,7 +193,7 @@ def stage_split(path, dev, rounds: int):
             return out
         return wrapper
 
-    for owner, name, label in STAGES:
+    for owner, name, label in stages:
         fn = getattr(owner, name)
         originals.append((owner, name, fn))
         setattr(owner, name, timed(fn, label))
@@ -143,7 +202,7 @@ def stage_split(path, dev, rounds: int):
     finally:
         for owner, name, fn in originals:
             setattr(owner, name, fn)
-    return wall, {label: (seconds[label], calls[label]) for _, _, label in STAGES}
+    return wall, {label: (seconds[label], calls[label]) for _, _, label in stages}
 
 
 def device_time(path, dev, rounds: int, table_path: str):
@@ -180,6 +239,8 @@ def main(argv=None) -> int:
     ap.add_argument("--strategy", default="neural", help="ScorerConfig.strategy")
     ap.add_argument("--steer-eps", type=float, default=0.0,
                     help="LoopConfig.steer_eps (0: no vertex steering)")
+    ap.add_argument("--batch", action="store_true",
+                    help="the batched suite bucket (12 x n = 125) instead of one instance")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -191,25 +252,46 @@ def main(argv=None) -> int:
     print(f"[env] {smi.splitlines()[0]}; torch {torch.__version__}", flush=True)
 
     dev = torch.device("cuda", 0)
-    path = load(args.instance, args.pair_layout, args.scan, args.strategy, args.steer_eps)
-    rounds = args.rounds or path[3]
-    print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds, cuts "
-          f"{path[2].cuts}, scorer {path[2].scorer}, loop {path[2].loop}", flush=True)
-    _run(path, dev, 1)                                        # warm-up
+    if args.batch:
+        path = BatchPath()
+        rounds = args.rounds or path.rounds
+        B = len(path.insts)
+        print(f"[path] batched suite bucket: {B} x n = {path.insts[0].n} "
+              f"({', '.join(SUITE_BUCKET)}), {rounds} per-round steps", flush=True)
+        _run(path, dev, 1)                                    # warm-up
+        wall = _run(path, dev, rounds)
+        print(f"[plain] {rounds} rounds of {B} in {wall:.4f} s = {rounds / wall:.4f} "
+              f"rounds/s = {B * rounds / wall:.4f} instance-rounds/s", flush=True)
+        stage_list = BATCH_STAGES
+    else:
+        path = load(args.instance, args.pair_layout, args.scan, args.strategy, args.steer_eps)
+        rounds = args.rounds or path[3]
+        print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds, cuts "
+              f"{path[2].cuts}, scorer {path[2].scorer}, loop {path[2].loop}", flush=True)
+        _run(path, dev, 1)                                    # warm-up
 
-    hist = []
-    wall = _run(path, dev, rounds, hist)
-    round_s = sum(h.wall_time_s for h in hist)
-    print(f"[plain] {rounds} rounds in {wall:.4f} s = {rounds / wall:.4f} rounds/s; "
-          f"rounds / sum of wall_time_s {rounds / round_s:.4f} rounds/s", flush=True)
+        hist = []
+        wall = _run(path, dev, rounds, hist)
+        round_s = sum(h.wall_time_s for h in hist)
+        print(f"[plain] {rounds} rounds in {wall:.4f} s = {rounds / wall:.4f} rounds/s; "
+              f"rounds / sum of wall_time_s {rounds / round_s:.4f} rounds/s", flush=True)
+        stage_list = STAGES
 
-    split_wall, stages = stage_split(path, dev, rounds)
+    split_wall, stages = stage_split(path, dev, rounds, stage_list)
     print(f"[split] synchronised run: {split_wall:.4f} s", flush=True)
     for label, (s, n) in stages.items():
         print(f"[split] {label:<32} {1e3 * s:10.2f} ms {100 * s / split_wall:7.2f}%"
               f" {n:6d} calls", flush=True)
+    if args.batch:
+        blocks = stages["  K2 pdhg_block (batched launch)"][1]
+        reads = stages["  KKT check and its (B, 6) read"][1]
+        restarts = stages["  restart distances and their read"][1]
+        print(f"[split] host reads of the KKT check: {reads} for {blocks} checked blocks "
+              f"({reads / max(blocks, 1):.2f} a block, each one (B, 6) array for the whole "
+              f"batch), and {restarts} (B, 2) reads on restarts", flush=True)
 
-    tag = args.instance + ("" if args.pair_layout == "auto" else f"_{args.pair_layout}")
+    tag = "batch_suite125" if args.batch else args.instance
+    tag += "" if args.pair_layout == "auto" else f"_{args.pair_layout}"
     tag += "_scan" if args.scan else ""
     tag += "" if args.strategy == "neural" else f"_{args.strategy}"
     tag += f"_steer{args.steer_eps:g}" if args.steer_eps > 0 else ""

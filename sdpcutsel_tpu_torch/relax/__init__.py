@@ -10,6 +10,7 @@ from .cutbuffer import (  # noqa: F401
 )
 from .denserows import (  # noqa: F401
     DenseRows,
+    batched_dense_from_qcqp,
     dense_adjoint,
     dense_from_qcqp,
     dense_residuals,

@@ -49,6 +49,24 @@ def dense_from_qcqp(Qs, cs, bs, device) -> DenseRows:
                        for a in (G / nrm[:, None, None], g / nrm[:, None], h / nrm)))
 
 
+def batched_dense_from_qcqp(instances, device) -> DenseRows:
+    """Every instance's normalised block (``dense_from_qcqp``) stacked into
+    (B, m_max, n, n), (B, m_max, n), (B, m_max) for the batched round.  An
+    instance with fewer constraints gets all-zero rows (h = 0, coefficients
+    0): the residual max(h - K z, 0) is identically 0, so a padded row never
+    binds."""
+    B, n = len(instances), instances[0].n
+    m_max = max(inst.m for inst in instances)
+    out = DenseRows(G=torch.zeros((B, m_max, n, n), device=device),
+                    g=torch.zeros((B, m_max, n), device=device),
+                    h=torch.zeros((B, m_max), device=device))
+    for i, inst in enumerate(instances):
+        if inst.m:
+            d = dense_from_qcqp(inst.Qs, inst.cs, inst.bs, device)
+            out.G[i, :inst.m], out.g[i, :inst.m], out.h[i, :inst.m] = d.G, d.g, d.h
+    return out
+
+
 def dense_residuals(x, X, dense: DenseRows, include_rhs: bool = True):
     """K z (linear part) for the dense block; (m,)."""
     r = (dense.G * X).sum((1, 2)) + (dense.g * x).sum(1)

@@ -56,7 +56,8 @@ def test_port_imports_no_jax():
         "        if m == 'sdpcutsel_tpu' or m.startswith('sdpcutsel_tpu.')]\n"
         "assert not bad, bad\n"
         "for m in ('loop.solver', 'utils.debug', 'scoring_variants', 'nn_precision',\n"
-        "          'cuts.triangle', 'models.labels', 'utils.checkpoint'):\n"
+        "          'cuts.triangle', 'models.labels', 'utils.checkpoint', 'parallel.round',\n"
+        "          'parallel.sharding', 'parallel.mesh', 'bench_batched'):\n"
         "    assert 'sdpcutsel_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )

@@ -1,7 +1,7 @@
 """The port's own copies of the reference's numpy-only modules (config,
-instances, chordal decomposition) agree with ``sdpcutsel_tpu``'s: the same
-config fields and defaults, and equal instance arrays, cliques and candidate
-tables.  ``reference_config`` serves the other port tests, which build their
+instances, chordal decomposition, the batched dense block, the pair layout)
+agree with ``sdpcutsel_tpu``'s: the same config fields and defaults, and
+equal instance arrays, cliques, candidate tables and layouts.  ``reference_config`` serves the other port tests, which build their
 configs from the port and hand the reference the same values."""
 
 import dataclasses
@@ -100,3 +100,35 @@ def test_chordal_decomposition_and_candidates_match(name, k):
     np.testing.assert_array_equal(tchordal.clique_candidates(got[0], k),
                                   jchordal.clique_candidates(want[0], k))
     assert tchordal.clique_candidates([], k).shape == (0, k)
+
+
+@pytest.mark.parametrize("args", [(30, 30, 2, 1, 8), (12, 40, 3, 2, 3)])
+def test_generate_qcqp_family_matches(args):
+    want, got = jqcqp.generate_qcqp_family(*args), tqcqp.generate_qcqp_family(*args)
+    assert [g.name for g in got] == [w.name for w in want]
+    for g, w in zip(got, want):
+        for a, b in [(g.Q0, w.Q0), (g.c0, w.c0), (g.bs, w.bs), *zip(g.Qs, w.Qs),
+                     *zip(g.cs, w.cs)]:
+            np.testing.assert_array_equal(a, b)
+        assert g.sparsity_graph() == got[0].sparsity_graph()
+
+
+def test_batched_dense_from_qcqp_matches():
+    from sdpcutsel_tpu.relax.denserows import batched_dense_from_qcqp as jbatched
+    from sdpcutsel_tpu_torch.relax.denserows import batched_dense_from_qcqp as tbatched
+
+    insts = tqcqp.generate_qcqp_family(30, 30, 2, 1, 4)
+    got, want = tbatched(insts, "cpu"), jbatched(insts)
+    for f in ("G", "g", "h"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+
+
+@pytest.mark.parametrize("n", [12, 70, 125])
+def test_build_pair_layout_matches(n):
+    from sdpcutsel_tpu.ops.pair_score import build_pair_layout as jlayout
+    from sdpcutsel_tpu_torch.ops.pair_score import build_pair_layout as tlayout
+
+    _, _, table, valid = jlayout(n)
+    got_table, got_valid = tlayout(n)
+    np.testing.assert_array_equal(got_table, table)
+    np.testing.assert_array_equal(got_valid, valid)
