@@ -12,8 +12,10 @@ layout so the counterpart of a module is easy to find:
 - ``ops``    — top-k selection, struct-of-arrays Jacobi, and the wrappers of
                the scoring kernels (``csrc/pair_score.cu`` for dense k = 3,
                ``csrc/fused_score.cu`` for any (T, k) table, k = 2..5).
-- ``models`` — feature layout, the MLP scorer (weights in ``.npz``) and the
-               exact optimality oracle (batched ADMM).
+- ``models`` — feature layout, the MLP scorer (weights in ``.npz``), the
+               exact optimality oracle (batched ADMM), and training
+               (``train``: ADMM-labelled samples and harvests from real
+               runs, Adam on the device).
 - ``loop``   — the BoxQP round controller ``CutSolver`` and the round loop
                and checkpoints it shares with the QCQP solver: every
                strategy, per-round and scan mode, steering, polish; and the
@@ -25,7 +27,7 @@ layout so the counterpart of a module is easy to find:
 - ``utils``  — debug mode, the round snapshots (``.npz`` + JSON), the
                certified-bounds registries and ``JSONLLogger``.
 - ``bench``, ``cli`` — the experiment runner (``python3 -m
-               sdpcutsel_tpu_torch.cli solve|suite|sdpbound``);
+               sdpcutsel_tpu_torch.cli solve|suite|sdpbound|train``);
                ``validate_sdp_bounds``, ``validate_qcqp_bounds`` — the
                registry validators.
 - ``_build`` — compiles ``csrc/*.cu`` with nvcc at first use (ctypes binding).

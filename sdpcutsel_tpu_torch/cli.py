@@ -4,10 +4,14 @@
     python -m sdpcutsel_tpu_torch.cli solve spar020-100-1 --strategy neural --rounds 20
     python -m sdpcutsel_tpu_torch.cli suite --sizes 20,30 --strategies neural,feasibility
     python -m sdpcutsel_tpu_torch.cli sdpbound spar020-100-1
+    python -m sdpcutsel_tpu_torch.cli train --k 3 --samples 200000 --out mlp_k3.npz
 
 The flags and defaults are the reference's.  Runs go to the card unless
 ``--cpu`` is given.  ``solve --trace LOGDIR`` writes a ``torch.profiler``
 trace of the run to ``LOGDIR/trace.json`` (open with ui.perfetto.dev).
+``train`` writes the scorer's ``.npz`` to ``--out`` (default: the shipped
+``models/artifacts/mlp_k{k}.npz``), which a solve serves with
+``--set scorer.weights_path=PATH``.
 """
 
 from __future__ import annotations
@@ -100,12 +104,28 @@ def build_parser() -> argparse.ArgumentParser:
     pb = sub.add_parser("sdpbound", help="compute/cache SDP bound for instance")
     pb.add_argument("instance")
     _common(pb)
+
+    pt = sub.add_parser("train", help="train the NN cut scorer")
+    pt.add_argument("--k", type=int, default=3)
+    pt.add_argument("--samples", type=int, default=200_000)
+    pt.add_argument("--steps", type=int, default=4000)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--out", default=None)
+    pt.add_argument("--cpu", action="store_true", help="train on the CPU")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = torch.device("cpu" if args.cpu else "cuda")
+
+    if args.cmd == "train":
+        from .models.train import train_scorer
+
+        _, metrics = train_scorer(k=args.k, samples=args.samples, steps=args.steps,
+                                  seed=args.seed, out_path=args.out, device=device)
+        print(json.dumps(metrics))
+        return 0
 
     if args.cmd == "solve":
         from .bench.suite import instance_gap_closed

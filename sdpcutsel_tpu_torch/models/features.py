@@ -19,6 +19,11 @@ def tri_indices(k: int, device):
     return iu[0], iu[1]
 
 
+def feature_dim(k: int) -> int:
+    """Features a candidate of width k has: 8, 15, 24, 35 for k = 2..5."""
+    return k * (k + 1) + k
+
+
 def candidate_q_features(Q, table):
     """Per-candidate objective features: (triQ: (..., T, k(k+1)/2), scale:
     (..., T,)); Q (..., n, n), leading axes a batch of instances."""

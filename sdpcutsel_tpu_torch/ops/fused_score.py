@@ -39,7 +39,7 @@ def fused_score_plain(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
 def _launch(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
     T, k = table.shape
     n = x.shape[0]
-    weights = [t for lin in mlp.layers for t in (lin.weight, lin.bias)]
+    weights = [t.detach() for lin in mlp.layers for t in (lin.weight, lin.bias)]
     F = k * (k + 1) + k
     if k not in (2, 3, 4, 5):
         raise ValueError(f"fused_score kernel takes k = 2..5, got {k}")

@@ -161,7 +161,7 @@ def packed_score_plain(x, X, Q, lay: PackedLayout, mlp: MLPScorer):
 
 def _launch(x, X, Q, lay: PackedLayout, mlp: MLPScorer):
     n = x.shape[0]
-    weights = [t for lin in mlp.layers for t in (lin.weight, lin.bias)]
+    weights = [t.detach() for lin in mlp.layers for t in (lin.weight, lin.bias)]
     if [tuple(w.shape) for w in weights[::2]] != [(64, 15), (64, 64), (1, 64)]:
         raise ValueError("pair_packed kernel takes a 15-64-64-1 MLP")
     for t in (x, X, Q, *weights):

@@ -72,7 +72,7 @@ def pair_score_plain(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS):
 def _launch(x, X, Q, table, mlp: MLPScorer, sweeps: int):
     T, k = table.shape
     n = x.shape[0]
-    weights = [t for lin in mlp.layers for t in (lin.weight, lin.bias)]
+    weights = [t.detach() for lin in mlp.layers for t in (lin.weight, lin.bias)]
     if k != 3 or [tuple(w.shape) for w in weights[::2]] != [(64, 15), (64, 64), (1, 64)]:
         raise ValueError("pair_score kernel takes k = 3 and a 15-64-64-1 MLP")
     if table.dtype != torch.int32:

@@ -125,7 +125,7 @@ def device_ms(fn, kernel: str, reps: int = 50, sessions: int = 3) -> float:
 
 
 def _weights(mlp) -> list:
-    return [t.contiguous() for lin in mlp.layers for t in (lin.weight, lin.bias)]
+    return [t.detach().contiguous() for lin in mlp.layers for t in (lin.weight, lin.bias)]
 
 
 def k1_call(lib, x, X, Q, table, mlp, sweeps: int):

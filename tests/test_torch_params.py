@@ -60,7 +60,7 @@ def test_port_imports_no_jax():
         "          'parallel.sharding', 'parallel.mesh', 'bench_batched',\n"
         "          'loop.sdp_bound', 'loop.sdp_primal', 'loop.sdp_dual', 'utils.registry',\n"
         "          'utils.logging', 'bench.suite', 'cli', 'validate_sdp_bounds',\n"
-        "          'validate_qcqp_bounds'):\n"
+        "          'validate_qcqp_bounds', 'models.train'):\n"
         "    assert 'sdpcutsel_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )

@@ -156,3 +156,11 @@ def test_build_pair_layout_matches(n):
     got_table, got_valid = tlayout(n)
     np.testing.assert_array_equal(got_table, table)
     np.testing.assert_array_equal(got_valid, valid)
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5])
+def test_feature_dim_matches(k):
+    from sdpcutsel_tpu.models.features import feature_dim as jdim
+    from sdpcutsel_tpu_torch.models.features import feature_dim as tdim
+
+    assert tdim(k) == jdim(k)
