@@ -147,8 +147,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
      TRAIN_REPEAT's reduced setting: the weights and the metrics (but the
      time) repeat bit for bit; (e) the shipped weights and the
      registries keep their sha256;
+ 17. multi-process parallel/ (run after phase 16): every rank a subprocess of
+     python3 -m with a time limit, two ranks sharing the card over gloo:
+     (a) multichip_dryrun at 2 x 1 and 1 x 2 (its BoxQP and QCQP scans
+     within 1e-5 of Mesh(1, 1), and bit for bit against each 'data' shard's
+     batch at Mesh(1, cand)); (b) run_multihost with spar125-100-1 alone at
+     1 x 2 in the suite bucket's knobs (capacity 1024, lp_iters 400,
+     sel_size 16, neural, 10 steps), each rank scoring 158,875 of the
+     317,750 candidates through K1: bit for bit against the in-process
+     Mesh(1, 2) run, within rtol 2e-5 of Mesh(1, 1); (c) run_multihost with
+     bench.py's batched scan (8 x generate_spar(30, 100, s + 1), 10 rounds)
+     at 2 x 1: bit for bit against the two 4-instance batches run here; (d)
+     run_multihost at world size 1 over NCCL; (e) run_suite_incremental on
+     one cell (spar020-100-1, feasibility, 2 rounds) into a temporary file,
+     and a second call skips it; every rank's launches (the plain PDHG
+     blocks and the twin-scored calls 0 on each) join the kernels line;
  14. one JSON line of kernel results, each kernel's launches summed over
-     the main paths 5-13, 15 and 16 (each counted from 0; K2's entry also holds
+     the main paths 5-13 and 15-17 (each counted from 0; K2's entry also holds
      the batched launch's time, bound and the clusters the card runs at
      once), then the last line {"ok": true, "device": {...}}.
 Every path's launch counts include the solve's plain PDHG blocks on the
@@ -200,13 +215,16 @@ from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, max_active_clusters
 from sdpcutsel_tpu_torch.models import train as train_mod
 from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
+from sdpcutsel_tpu_torch.multichip_dryrun import dryrun_multichip
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
+from sdpcutsel_tpu_torch.ops.launches import (PLAIN_BLOCKS, TWIN_SCORED, WRAPPERS, launch_counts,
+                                              reset_launches)
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
-from sdpcutsel_tpu_torch.parallel import make_mesh, shard_candidates
+from sdpcutsel_tpu_torch.parallel import Mesh, distributed, make_mesh, shard_candidates
 from sdpcutsel_tpu_torch.parallel.round import (certify_batched_f64, certify_scan_f64,
-                                                init_batched_state, make_sharded_round_step,
-                                                make_sharded_scan_step)
+                                                init_batched_state, instances_of,
+                                                make_sharded_round_step, make_sharded_scan_step)
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
 from sdpcutsel_tpu_torch.qcqp.chordal import chordal_decomposition, clique_candidates
 from sdpcutsel_tpu_torch.qcqp.solver import SWEEPS as QCQP_SWEEPS
@@ -265,8 +283,46 @@ TRAIN_REF_K3 = {"holdout_spearman": 0.4651269628043434,
 TRAIN_SLACK = 0.05
 # (a) and (b) run at the reference's defaults, uncut: phase 16 took 76.1-99.9 s
 # and the whole script 444.5-542.4 s on one H100 80GB HBM3 at 700 W
-# (PERF.md section 6, PR 10), so a later phase has ~350 s of the 900 s left
+# (PERF.md section 6); with phase 17 the script took 580.1-673.2 s, so a
+# later phase has ~200 s of the 900 s left
 TRAIN_REPEAT = dict(k=3, samples=20_000, steps=500, harvest_rounds=1)   # (d)
+# phase 17, multi-process parallel/: every rank a subprocess (python3 -m ...)
+# with this time limit; two ranks share the one card over gloo
+RANK_TIMEOUT = 300
+# what gloo's two gathers of a round cost at 1 x 2 on one card: the round's
+# shapes (B = 1, sel_size 16, k = 3), 500 times after a warm-up, on the card
+# (through the host) and, for gloo's own share, on the host
+GATHER_TIMING = r"""
+import argparse, json, time, torch
+from sdpcutsel_tpu_torch.parallel import distributed as D
+from sdpcutsel_tpu_torch.parallel.mesh import make_mesh
+from sdpcutsel_tpu_torch.parallel.sharding import gather_cand
+ap = argparse.ArgumentParser()
+for a in ("--coordinator", "--num-processes", "--process-id"):
+    ap.add_argument(a)
+a = ap.parse_args()
+dev = D.initialize(a.coordinator, int(a.num_processes), int(a.process_id))
+mesh = make_mesh(1, 2)
+us = {}
+for where in (dev, torch.device("cpu")):
+    vals = torch.zeros((1, 16), device=where)
+    rows = torch.zeros((1, 16, 3), dtype=torch.int64, device=where)
+    def both():
+        gather_cand([vals], 1, mesh)
+        gather_cand([rows], 1, mesh)
+        torch.cuda.synchronize(dev)
+    for _ in range(20):
+        both()
+    D.sync("timed")
+    t0 = time.perf_counter()
+    for _ in range(500):
+        both()
+    us[where.type] = (time.perf_counter() - t0) / 500 * 1e6
+print(json.dumps({"rank": a.process_id, "backend": torch.distributed.get_backend(),
+                  "us_per_round": us}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+MULTI_FULL_KNOBS = dict(lp_iters=400, sel_size=16, strategy="neural")   # the suite bucket's
 SEED = 0
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM3
@@ -278,10 +334,6 @@ K2_PR3_US = {0: 35.11, 25: 72.39}
 # the main paths' final bounds as PERF.md records them, printed beside this run's
 BOXQP_RECORDED_FINAL = 46173.94073905878
 QCQP_RECORDED_FINAL = 2996.008999203225
-WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
-            "pdhg_block": pdhg_block, "fused_score": fused_score}
-PLAIN_BLOCKS = "pdhg_block plain"     # the solve's plain PDHG blocks on the card
-TWIN_SCORED = "twin-scored"           # scoring twins called on the card (use_fused=False)
 PATH_LAUNCHES: dict = {}              # main path -> its launch counts (launch_counts())
 SMI = ""                              # the card's nvidia-smi name and power limit
 SCORING_KERNELS = ("pair_score_kernel", "pair_packed_kernel",
@@ -392,18 +444,6 @@ def mlp_bytes(mlp) -> int:
 def share(ms: float, b: dict) -> str:
     return (f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}); roofline share "
             f"{b['bound_ms'] / ms:.4%}")
-
-
-def reset_launches():
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    pdhg_block.plain_launches = pair_score.plain_launches = fused_score.plain_launches = 0
-
-
-def launch_counts() -> dict:
-    return {**{name: fn.launches for name, fn in WRAPPERS.items()},
-            PLAIN_BLOCKS: pdhg_block.plain_launches,
-            TWIN_SCORED: pair_score.plain_launches + fused_score.plain_launches}
 
 
 def k1_twin_check(label: str, inst, sweeps: int, dev, weights_path=None):
@@ -1876,6 +1916,195 @@ def training(main_hist, dev) -> dict:
     return total
 
 
+def rank_launches(outs) -> list:
+    """Each rank's ``[launches rank R] {...}`` line."""
+    found = []
+    for r, out in enumerate(outs):
+        m = re.search(rf"^\[launches rank {r}\] (\{{.*\}})$", out, re.M)
+        if m is None:
+            raise AssertionError(f"rank {r} printed no launch counts:\n{out[-2000:]}")
+        found.append(json.loads(m.group(1)))
+    return found
+
+
+def rank_lines(tag: str, outs) -> list:
+    """Log every rank's lines; return its launch counts."""
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith(("[rank", "[launches", "dryrun_multichip", "{")):
+                log(f"[{tag}] rank {r}: {line}")
+    return rank_launches(outs)
+
+
+def clean_ranks(launches, kernels: tuple) -> dict:
+    """Every rank launched ``kernels``, and no plain PDHG block or twin."""
+    return {f"every rank launched {' and '.join(kernels)}":
+                all(min(c[k] for k in kernels) > 0 for c in launches),
+            "no plain PDHG block, no twin-scored call on any rank":
+                all(c[PLAIN_BLOCKS] == 0 and c[TWIN_SCORED] == 0 for c in launches)}
+
+
+def multihost(args, ranks: int, save: str) -> tuple:
+    """run_multihost as ``ranks`` subprocesses; (outputs, the saved npz)."""
+    t0 = time.perf_counter()
+    outs = distributed.spawn(["-m", "sdpcutsel_tpu_torch.run_multihost", *args, "--save", save],
+                             ranks, RANK_TIMEOUT)
+    log(f"[multi] run_multihost {' '.join(args)} on {ranks} ranks in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return outs, np.load(save)
+
+
+def same_bits(got, state, cert, iters) -> bool:
+    return (np.array_equal(got["idx"], state.pool.idx.cpu().numpy())
+            and np.array_equal(got["count"], state.pool.count.cpu().numpy())
+            and np.array_equal(got["best_bound"], state.best_bound.cpu().numpy())
+            and np.array_equal(got["cert"], cert) and np.array_equal(got["lp_iters"], iters))
+
+
+def multi_process(dev) -> dict:
+    """Phase 17: the multi-process paths, each rank a subprocess; returns
+    the launches summed over every rank."""
+    t_phase = time.perf_counter()
+    checks, launches = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        # (a) the dry run's two shapes of 2 ranks
+        for data in (2, 1):
+            t0 = time.perf_counter()
+            outs = dryrun_multichip(2, data, timeout=RANK_TIMEOUT)
+            counts = rank_lines("dryrun", outs)
+            launches += counts
+            line = next((ln for ln in outs[0].splitlines()
+                         if ln.startswith("dryrun_multichip ok")), "")
+            shape = f"{data}x{2 // data}"
+            log(f"[dryrun] {shape} in {time.perf_counter() - t0:.1f}s ({SMI})")
+            checks[f"(a) dry run {shape}: its checks, bit for bit per shard"] = (
+                f"mesh=({shape})" in line and "bit_equal_to_per_shard_batches=True" in line)
+            checks.update({f"(a) {shape}: {k}": v for k, v in clean_ranks(
+                counts, ("pair_score", "fused_score", "pdhg_block")).items()})
+
+        # (b) spar125-100-1 alone, 'cand' across two ranks
+        inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
+        outs, got = multihost(["--instances", INSTANCE, "--data", "1", "--cand", "2",
+                               "--capacity", "1024", "--rounds", str(BATCH_ROUNDS),
+                               "--lp-iters", "400", "--sel-size", "16"], 2,
+                              os.path.join(tmp, "full.npz"))
+        counts = rank_lines("multi-full", outs)
+        launches += counts
+        half = "158875 of 317750 candidate rows"
+        runs = {}
+        for cand in (2, 1):
+            mesh = Mesh(1, cand)
+            table, valid = shard_candidates(combinations_table(inst.n, 3), mesh, device=dev)
+            step = make_sharded_round_step(mesh, **MULTI_FULL_KNOBS)
+            state = init_batched_state(inst.Q[None], inst.c[None], 1024, 3, device=dev)
+            step(state, table, valid)                                    # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BATCH_ROUNDS):
+                state, info = step(state, table, valid)
+            torch.cuda.synchronize()
+            log(f"[multi-full] in-process Mesh(1, {cand}): {BATCH_ROUNDS} rounds in "
+                f"{time.perf_counter() - t0:.4f} s after a warm-up round ({SMI})")
+            runs[cand] = (state, certify_batched_f64(state), info["lp_iters"])
+        gathers = [json.loads(out.strip().splitlines()[-1])
+                   for out in distributed.spawn(["-c", GATHER_TIMING], 2, RANK_TIMEOUT)]
+        log(f"[multi-full] gloo's two gathers of a round at 1 x 2 on one card, us per round "
+            f"by rank, of card tensors (through the host) and of host tensors: "
+            f"{[g['us_per_round'] for g in gathers]} ({SMI})")
+        one_rel = float(np.abs(got["cert"] - runs[1][1]).max() / np.abs(runs[1][1]).max())
+        log(f"[multi-full] {INSTANCE} at 1 x 2 over 2 ranks: certified {got['cert'].tolist()} "
+            f"cuts {got['count'].tolist()}; in-process Mesh(1, 2) {runs[2][1].tolist()}, "
+            f"Mesh(1, 1) {runs[1][1].tolist()} (rel {one_rel!r}; pools equal "
+            f"{np.array_equal(got['idx'], runs[1][0].pool.idx.cpu().numpy())})")
+        checks.update({
+            "(b) each rank scores 158,875 of the 317,750 candidates":
+                all(half in out for out in outs),
+            "(b) 1 x 2 over two ranks = the in-process Mesh(1, 2) run, bit for bit":
+                same_bits(got, *runs[2]),
+            "(b) within rtol 2e-5 of Mesh(1, 1)": bool(
+                np.allclose(got["cert"], runs[1][1], rtol=2e-5, atol=0)
+                and np.allclose(got["best_bound"], runs[1][0].best_bound.cpu().numpy(),
+                                rtol=2e-5, atol=0)),
+            f"(b) K1 once a rank a round ({BATCH_ROUNDS})":
+                all(c["pair_score"] == BATCH_ROUNDS for c in counts),
+            **{f"(b) {k}": v for k, v in clean_ranks(counts, ("pair_score", "pdhg_block")).items()},
+        })
+
+        # (c) bench.py's batched scan, 'data' across two ranks
+        n, B = BENCH_BATCH
+        outs, got = multihost(["--n", str(n), "--batch", str(B), "--rounds", str(BATCH_ROUNDS),
+                               "--data", "2", "--cand", "1", "--capacity", "1024", "--lp-iters",
+                               "400", "--sel-size", "16", "--use-scan"], 2,
+                              os.path.join(tmp, "scan.npz"))
+        counts = rank_lines("multi-scan", outs)
+        launches += counts
+        insts = [generate_spar(n, 100, s + 1) for s in range(B)]
+        start = init_batched_state(np.stack([i.Q for i in insts]), np.stack([i.c for i in insts]),
+                                   1024, 3, device=dev)
+        table, valid = shard_candidates(combinations_table(n, 3), Mesh(1, 1), device=dev)
+        scan = make_sharded_scan_step(Mesh(1, 1), rounds=BATCH_ROUNDS, **MULTI_FULL_KNOBS)
+        halves = [scan(instances_of(start, h * B // 2, (h + 1) * B // 2), table, valid)
+                  for h in range(2)]
+        per_round = np.concatenate([certify_scan_f64(f.Q, f.c, o) for f, o in halves], 1)
+        idx = np.concatenate([f.pool.idx.cpu().numpy() for f, _ in halves])
+        count = np.concatenate([f.pool.count.cpu().numpy() for f, _ in halves])
+        best = np.concatenate([f.best_bound.cpu().numpy() for f, _ in halves])
+        log(f"[multi-scan] {B} x generate_spar({n}, 100, s + 1) at 2 x 1: last round "
+            f"{got['per_round'][-1].tolist()}; in-process halves {per_round[-1].tolist()}")
+        checks.update({
+            "(c) 2 x 1 over two ranks = the two 4-instance batches, bit for bit":
+                bool(np.array_equal(got["per_round"], per_round)
+                     and np.array_equal(got["idx"], idx) and np.array_equal(got["count"], count)
+                     and np.array_equal(got["best_bound"], best)),
+            f"(c) K1 once an instance a round on each rank ({B // 2 * BATCH_ROUNDS})":
+                all(c["pair_score"] == B // 2 * BATCH_ROUNDS for c in counts),
+            **{f"(c) {k}": v for k, v in clean_ranks(counts, ("pair_score", "pdhg_block")).items()},
+        })
+
+        # (d) NCCL at world size 1, the backend by the rule (a rank with its own card)
+        outs, got = multihost(["--data", "1", "--cand", "1"], 1,
+                              os.path.join(tmp, "nccl.npz"))
+        counts = rank_lines("multi-nccl", outs)
+        launches += counts
+        result = json.loads([ln for ln in outs[0].splitlines() if ln.startswith("{")][-1])
+        checks.update({
+            "(d) run_multihost over nccl, certificates finite":
+                result["backend"] == "nccl" and bool(np.isfinite(got["cert"]).all()),
+            **{f"(d) {k}": v for k, v in clean_ranks(counts, ("pair_score", "pdhg_block")).items()},
+        })
+
+        # (e) a runner on the card: one cell, then a second call skips it
+        data = os.path.join(tmp, "boxqp")
+        os.makedirs(data)
+        for name in ("spar020-100-1.in", "bounds.json"):
+            shutil.copy(os.path.join(DATA, name), data)
+        out_path = os.path.join(tmp, "suite_torch.jsonl")
+        cmd = [sys.executable, "-m", "sdpcutsel_tpu_torch.run_suite_incremental", "--sizes",
+               "20", "--densities", "100", "--seeds", "1", "--strategies", "feasibility",
+               "--rounds", "2", "--data-dir", data, "--out", out_path]
+        said = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                                 timeout=RANK_TIMEOUT)
+            if run.returncode:
+                raise AssertionError(f"run_suite_incremental failed:\n{run.stdout}{run.stderr}")
+            said.append(run.stdout)
+            log(f"[runner] run_suite_incremental in {time.perf_counter() - t0:.1f}s: "
+                f"{run.stdout.strip()!r}")
+        rows = [json.loads(line) for line in open(out_path)]
+        checks.update({
+            "(e) one record, platform cuda": len(rows) == 1 and rows[0]["platform"] == "cuda"
+                and rows[0]["final_gap_closed"] > 0,
+            "(e) the second call skips the cell": "[suite] spar020-100-1" not in said[1],
+        })
+    total = {k: sum(c[k] for c in launches) for k in launches[0]}
+    log(f"[multi] phase 17 in {time.perf_counter() - t_phase:.1f}s ({SMI}); launches over "
+        f"{len(launches)} ranks {total}")
+    finish("multi", checks)
+    return total
+
+
 def main() -> int:
     global SMI
     t_start = time.perf_counter()
@@ -1925,6 +2154,7 @@ def main() -> int:
     PATH_LAUNCHES["batched qcqp family"] = qcqp_family_path(dev)
     PATH_LAUNCHES["certifiers and the CLI"] = certifiers_and_cli(dev)
     PATH_LAUNCHES["training"] = training(main_hist, dev)
+    PATH_LAUNCHES["multi-process (every rank)"] = multi_process(dev)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     for path, counts in PATH_LAUNCHES.items():
         log(f"[launches] {path}: {counts}")

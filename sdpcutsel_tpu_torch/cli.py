@@ -5,13 +5,16 @@
     python -m sdpcutsel_tpu_torch.cli suite --sizes 20,30 --strategies neural,feasibility
     python -m sdpcutsel_tpu_torch.cli sdpbound spar020-100-1
     python -m sdpcutsel_tpu_torch.cli train --k 3 --samples 200000 --out mlp_k3.npz
+    python -m sdpcutsel_tpu_torch.cli plot results/suite_torch.jsonl --out results/figures
 
 The flags and defaults are the reference's.  Runs go to the card unless
 ``--cpu`` is given.  ``solve --trace LOGDIR`` writes a ``torch.profiler``
 trace of the run to ``LOGDIR/trace.json`` (open with ui.perfetto.dev).
 ``train`` writes the scorer's ``.npz`` to ``--out`` (default: the shipped
 ``models/artifacts/mlp_k{k}.npz``), which a solve serves with
-``--set scorer.weights_path=PATH``.
+``--set scorer.weights_path=PATH``.  ``plot`` renders the figures of a
+results JSONL (``bench/plots.py``) on the host: it alone imports
+matplotlib, which the card's host need not have.
 """
 
 from __future__ import annotations
@@ -105,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("instance")
     _common(pb)
 
+    pp = sub.add_parser("plot", help="render figures from suite JSONL results")
+    pp.add_argument("path", nargs="?", default="results/suite.jsonl")
+    pp.add_argument("--out", default="results/figures")
+
     pt = sub.add_parser("train", help="train the NN cut scorer")
     pt.add_argument("--k", type=int, default=3)
     pt.add_argument("--samples", type=int, default=200_000)
@@ -117,6 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.cmd == "plot":
+        from .bench import plots
+
+        n = plots.render_all(args.path, args.out)
+        print(json.dumps({"figures": n, "out": args.out}))
+        return 0
+
     device = torch.device("cpu" if args.cpu else "cuda")
 
     if args.cmd == "train":

@@ -75,7 +75,10 @@ class LoopConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout (instance axis, candidate axis); not ported."""
+    """Device mesh layout (instance axis, candidate axis), kept for the
+    reference's field list: neither package reads ``cfg.mesh``.  The batched
+    round takes its mesh from ``parallel.mesh.make_mesh(data, cand)``:
+    logical on one process, one rank a device over a process group."""
 
     data: int = 1
     cand: int = 1

@@ -1,4 +1,4 @@
-from .mesh import Mesh, make_mesh  # noqa: F401
+from .mesh import Mesh, default_mesh, make_mesh  # noqa: F401
 from .sharding import (  # noqa: F401
     gather_cand,
     pad_table,

@@ -1,12 +1,19 @@
 """The instance-batched cutting-plane round (port of
-``sdpcutsel_tpu/parallel/round.py`` for one process on one card).
+``sdpcutsel_tpu/parallel/round.py``).
 
 B instances of one n are solved together.  The reference ran its
 single-instance round under ``jax.vmap`` inside a ``shard_map`` over the
 mesh ('data', 'cand'); here every step is one set of tensor operations over
-the instance axis (``relax/batched.py``), on a logical mesh
-(``parallel/mesh.py``): 'data' must divide B, and 'cand' splits the
-candidate table into contiguous shards.  One round, for every instance:
+the instance axis (``relax/batched.py``), on a mesh (``parallel/mesh.py``).
+On one process the mesh is logical: 'data' must divide B, and 'cand' splits
+the candidate table into contiguous shards, all scored here.  On a
+distributed mesh a rank holds the instances of its 'data' shard
+(``shard_batched_state``) and its 'cand' shard of the table
+(``sharding.shard_candidates``), scores only that shard, and gathers the
+winners over its 'cand' group; the LP and the cut update run, replicated,
+on every rank of the group, as in the reference's ``shard_map``.  A rank's
+round is then bit for bit the one-process round of its 'data' shard's
+instances at the logical ``Mesh(1, cand)``.  One round, for every instance:
   1. ``solve_setup_batched``: the batched cut index and one power iteration
      for every instance's ||K|| (``lp/pdhg.py``);
   2. the warm-started restarted PDHG, ``_solve_batched``: one K2 launch a
@@ -38,9 +45,10 @@ per round, the pool each LP was solved on and the solve's duals, so that
 Randomness (strategy random): each instance has its own CPU
 ``torch.Generator`` (``init_batched_state``: seeds drawn from one generator
 seeded with ``seed``).  A round draws, for each instance, its shards' scores
-in shard order, one float a row of the padded table.  The stream is not the
-reference's ``jax.random`` one.  A step copies the generators, so the state
-it was given is left as it was.
+in shard order, one float a row of the padded table; a distributed rank
+draws every shard's and keeps its own, so the stream is the one-process
+stream.  The stream is not the reference's ``jax.random`` one.  A step
+copies the generators, so the state it was given is left as it was.
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ from ..relax import batched as rb
 from ..relax.cutbuffer import CutPool
 from ..relax.denserows import DenseRows
 from .mesh import Mesh
-from .sharding import gather_cand, local_topk, shards
+from .sharding import gather_cand, local_shards, local_topk
 
 
 @dataclasses.dataclass
@@ -155,7 +163,11 @@ class _Round:
         """(B, Ts): every instance's scores of one shard's rows."""
         B, T = x.shape[0], table.shape[0]
         if self.strategy == "random":
-            return torch.stack([torch.rand((T,), generator=g) for g in gens]).to(x.device)
+            # a distributed rank draws every shard's floats, in shard order,
+            # and keeps its own: the one-process stream
+            draws = [torch.stack([torch.rand((T,), generator=g) for g in gens])
+                     for _ in range(self.mesh.cand if self.mesh.distributed else 1)]
+            return draws[self.mesh.cand_index].to(x.device)
         out = []
         card = x.device.type == "cuda"
         for b in range(B):
@@ -183,15 +195,13 @@ class _Round:
         global pick.  Returns (picked rows (B, S, k), valid (B, S))."""
         B, n = x.shape
         S = self.cuts.sel_size
-        qfeat = None
-        if self.strategy != "random" and not self.pair_layout and self.kmax != 3:
-            qfeat = candidate_q_features(state.Q, table)
+        q_features = self.strategy != "random" and not self.pair_layout and self.kmax != 3
         won = []
-        for s, (tab, val) in enumerate(zip(shards(table, self.mesh), shards(valid, self.mesh))):
-            qf = None if qfeat is None else [f.chunk(self.mesh.cand, 1)[s] for f in qfeat]
+        for tab, val in local_shards(table, valid, self.mesh):
+            qf = candidate_q_features(state.Q, tab) if q_features else None    # row by row
             won.append(local_topk(self.scores(state, x, X, tab, gens, qf), val, tab, S))
-        gv = gather_cand([w[0] for w in won], 1)                  # (B, cand S)
-        gr = gather_cand([w[1] for w in won], 1)                  # (B, cand S, k)
+        gv = gather_cand([w[0] for w in won], 1, self.mesh)       # (B, cand S)
+        gr = gather_cand([w[1] for w in won], 1, self.mesh)       # (B, cand S, k)
         if self.cuts.diversity_alpha > 0.0:
             _, i, ok = diverse_topk(gv, gr, S, self.cuts.diversity_alpha)
         else:
@@ -213,7 +223,7 @@ class _Round:
     def __call__(self, state: BatchedRoundState, table, valid, dense):
         """One round of every instance.  Returns (new state, info)."""
         B, n = state.c.shape
-        if B % self.mesh.data:
+        if B % self.mesh.data and not self.mesh.distributed:
             raise ValueError(f"mesh data={self.mesh.data} does not divide the batch B={B}")
         cx, cX = -state.c, -0.5 * state.Q
         lp = self.lp
@@ -333,7 +343,9 @@ def _dense_np(dense: Optional[DenseRows]):
 
 
 def _host(obj):
-    return type(obj)(*(getattr(obj, f.name).detach().cpu() for f in dataclasses.fields(obj)))
+    """CPU tensors of a dataclass' fields (tensors or numpy arrays)."""
+    return type(obj)(*(torch.as_tensor(getattr(obj, f.name)).detach().cpu()
+                       for f in dataclasses.fields(obj)))
 
 
 def certify_scan_f64(Q, c, outs, dense: Optional[DenseRows] = None,
@@ -341,7 +353,9 @@ def certify_scan_f64(Q, c, outs, dense: Optional[DenseRows] = None,
     """Host f64 certificate (``dual_bound_f64``) of every (round, instance)
     of a scan run: round r pairs the pool its LP was solved on with the
     solve's duals.  Returns (rounds, B) max-form upper bounds, the running
-    minimum over rounds (from ``prev_best`` when given)."""
+    minimum over rounds (from ``prev_best`` when given).  After a
+    distributed run, pass ``distributed.fetch_tree``'s full values (Q, c
+    and ``fetch_tree(outs, mesh, axis=1)``)."""
     Q = np.asarray(torch.as_tensor(Q).cpu(), np.float64)
     c = np.asarray(torch.as_tensor(c).cpu(), np.float64)
     pool = _host(outs["pool"])
@@ -368,9 +382,10 @@ def certify_batched_f64(state: BatchedRoundState,
                         dense: Optional[DenseRows] = None) -> np.ndarray:
     """Host f64 certificate (``dual_bound_f64``, with its block polish) of
     every instance's current duals and pool: (B,) max-form upper bounds,
-    the numbers to report; ``state.bound`` is the same certificate in f32."""
-    Q = state.Q.detach().cpu().numpy()
-    c = state.c.detach().cpu().numpy()
+    the numbers to report; ``state.bound`` is the same certificate in f32.
+    ``state`` may be ``distributed.fetch_tree``'s full state (numpy leaves)."""
+    Q = np.asarray(torch.as_tensor(state.Q).cpu())
+    c = np.asarray(torch.as_tensor(state.c).cpu())
     pool, st = _host(state.pool), _host(state.pdhg)
     dn = _dense_np(dense)
     return np.array([dual_bound_f64(Q[i], c[i], rb.instance(pool, i), rb.instance(st, i),
@@ -387,10 +402,34 @@ def bucket_instances(instances) -> dict:
     return dict(sorted(buckets.items()))
 
 
+def instances_of(state: BatchedRoundState, lo: int, hi: int, device=None) -> BatchedRoundState:
+    """Instances lo..hi-1 of ``state`` as a batch of their own (contiguous
+    copies, with their generators' copies), on ``device`` (default: the
+    state's)."""
+    dev = device or state.c.device
+
+    def take(t):
+        return t[lo:hi].contiguous().to(dev)
+
+    def take_all(obj):
+        return type(obj)(*(take(v) for v in rb.values(obj)))
+
+    return BatchedRoundState(take(state.Q), take(state.c), take_all(state.pool),
+                             take_all(state.pdhg),
+                             [_copy_generator(g) for g in state.generators[lo:hi]],
+                             take(state.bound), take(state.best_bound))
+
+
 def shard_batched_state(state: BatchedRoundState, mesh: Mesh) -> BatchedRoundState:
-    """The state laid over ``mesh``: on one process every instance stays on
-    its device, so this checks that 'data' divides the batch."""
+    """The state laid over ``mesh``.  On one process every instance stays on
+    its device, so this checks that 'data' divides the batch.  On a
+    distributed mesh, the rank's 'data' shard of the whole batch (every
+    rank holds the same ``state``): its B / data instances and their
+    generators, on the rank's device."""
     B = state.c.shape[0]
     if B % mesh.data:
         raise ValueError(f"mesh data={mesh.data} does not divide the batch B={B}")
-    return state
+    if not mesh.distributed:
+        return state
+    per = B // mesh.data
+    return instances_of(state, mesh.data_index * per, (mesh.data_index + 1) * per, mesh.device)

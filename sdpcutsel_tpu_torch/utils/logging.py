@@ -15,6 +15,21 @@ import time
 from typing import IO, Any
 
 
+def read_records(path: str) -> list:
+    """The JSON objects of a JSONL file in order, malformed lines skipped;
+    [] when the file does not exist."""
+    if not os.path.exists(path):
+        return []
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+    return out
+
+
 class JSONLLogger:
     def __init__(self, path: str | None = None, echo: bool = False):
         self.path = path

@@ -60,7 +60,10 @@ def test_port_imports_no_jax():
         "          'parallel.sharding', 'parallel.mesh', 'bench_batched',\n"
         "          'loop.sdp_bound', 'loop.sdp_primal', 'loop.sdp_dual', 'utils.registry',\n"
         "          'utils.logging', 'bench.suite', 'cli', 'validate_sdp_bounds',\n"
-        "          'validate_qcqp_bounds', 'models.train'):\n"
+        "          'validate_qcqp_bounds', 'models.train', 'parallel.distributed',\n"
+        "          'run_multihost', 'multichip_dryrun', 'bench.plots', 'run_suite_incremental',\n"
+        "          'run_qcqp_suite', 'rerun_cell', 'run_parity', 'run_qcqp_parity',\n"
+        "          'ops.launches'):\n"
         "    assert 'sdpcutsel_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )
