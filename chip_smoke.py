@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch + CUDA port (sdpcutsel_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
      triton; no CUDA device -> exit 2 before any result is printed;
-  2. build the four kernels from csrc/, one nvcc each, in parallel (timed
+  2. build the six kernels from csrc/, one nvcc each, in parallel (timed
      as set-up), and beside them a variant of the scoring kernels without
      the Jacobi's overflow guard (scoring_variants.UNGUARDED); print
      ptxas's registers and spills, and for the scoring kernels (K1, K3, K4
@@ -28,6 +28,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     inputs unchanged; its cluster plan and ptxas report, and
                     the portable cluster of 8 checked and timed in turns
                     with the plan's;
+       pdhg_check   (K5, the checked block's control) at K2's two shapes,
+                    after one K2 block from that state: against its twin
+                    with restart_period 10^9 and 100 (err, p, d, omega,
+                    tau, sigma, the distances at rtol 1e-5, the record's
+                    ints equal, the state, sums and anchor bit for bit),
+                    twice bit for bit, a stopped record left as it is;
+       pdhg_norm    (K6, 30 power iterations in one launch) at K2's two
+                    shapes against its twin at rtol 1e-5, twice bit for bit;
+       with --parent DIR (a checkout of the parent commit): K2's bits on
+                    these inputs equal to the parent build's, 7 and 100
+                    iterations, both timed in turns;
      each kernel's time stands beside its bound (the largest of its
      operations over 67 TFLOP/s fp32, those it runs on the tensor cores over
      495 TFLOP/s dense TF32, and its bytes, each input read and each output
@@ -38,7 +49,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     one left out unchanged bit for bit, every other one bit for
                     bit equal to a batch of one and to the single wrapper; the
                     clusters of 16 and of 8 the card runs at once; the batch
-                    timed at a cluster of 16 and of 8, in turns;
+                    timed at a cluster of 16 and of 8, in turns; then K5 and
+                    K6 on the same batch after one batched K2 block, one
+                    instance's record stopped: against their twins, the
+                    stopped one unchanged, each instance equal to its
+                    single launch, timed;
        fused_score  k = 2 over C(125, 2) and k = 3 over C(30, 3) (5 sweeps);
                     k = 4 and 5 over the clique tables of qcqp025-25-4-2
                     and qcqpband100-5-25-1 (6 sweeps); with its launch grid;
@@ -98,8 +113,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      certify_batched_f64: every certificate finite and >= the instance's
      best known (optima.json), the running bounds monotone, a second run
      bit for bit, instances 0 and 7 as batches of one within rtol 2e-3 (bit
-     equality printed), gap closed printed; pdhg_block launched once a
-     checked block of the batch, pair_score once an instance a round;
+     equality printed), gap closed printed; the batched K2 launches cover
+     the batch's checked blocks, pair_score once an instance a round;
  12. bench.py:188-223's batched configuration: 8 x generate_spar(30, 100,
      s + 1), scan mode, 10 rounds, certify_scan_f64; the scan repeats its
      per-round run bit for bit; instance-rounds/s, the median of 3 after a
@@ -162,14 +177,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
      one cell (spar020-100-1, feasibility, 2 rounds) into a temporary file,
      and a second call skips it; every rank's launches (the plain PDHG
      blocks and the twin-scored calls 0 on each) join the kernels line;
- 14. one JSON line of kernel results, each kernel's launches summed over
-     the main paths 5-13 and 15-17 (each counted from 0; K2's entry also holds
-     the batched launch's time, bound and the clusters the card runs at
-     once), then the last line {"ok": true, "device": {...}}.
+ 14. one JSON line of kernel results (six entries), each kernel's launches
+     summed over the main paths 5-13 and 15-17 (each counted from 0; K2's
+     entry also holds the batched launch's time, bound and the clusters the
+     card runs at once), the total seconds beside a 900 s budget, then
+     the last line {"ok": true, "device": {...}}.
 Every path's launch counts include the solve's plain PDHG blocks on the
-card ("pdhg_block plain") and the scoring twins called on the card
-("twin-scored"), which must be 0 on every main path; phase 15's certifier
-runs (a)-(c) are the one place plain blocks run, by design.
+card ("pdhg_block plain"), its twin checks and norms there ("check/norm
+plain") and the scoring twins called on the card ("twin-scored"), which must
+be 0 on every main path; phase 15's certifier runs (a)-(c) are the one place
+plain blocks run, by design.  Every main path that runs K2 also holds the
+solves' control to the reference's structure (control_checks): K5 once a
+solve block (every K2 launch but steering's), K6 once a solve, at most one
+host read of the control record a group of GROUP_BLOCKS blocks plus one a
+solve ("solve reads", "solves").
 
 TF32 is turned off for the whole process at its start: the scoring twin's
 MLP runs as cuBLAS matrix products, and it agrees with the kernel to 2e-4
@@ -206,8 +227,15 @@ from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch.loop.sdp_bound import (bm_null_directions, sdp_relaxation_bound,
                                                 validate_sdp_bound)
 from sdpcutsel_tpu_torch.loop.sdp_primal import bm_feasible_point
-from sdpcutsel_tpu_torch.lp.pdhg import (estimate_norm, estimate_norm_batched, init_state,
-                                         solve_setup, steer_to_vertex)
+from sdpcutsel_tpu_torch.lp import pdhg as pdhg_mod
+from sdpcutsel_tpu_torch.lp.pdhg import (REC_D, REC_DD, REC_DP, REC_ERR, REC_IT, REC_OMEGA,
+                                         REC_P, REC_RESTART, REC_SIGMA, REC_STOP, REC_TAU,
+                                         REC_USE_AVG, REC_WLEN, estimate_norm_batched_plain,
+                                         estimate_norm_plain, init_state, new_record,
+                                         pdhg_check_batched_plain, pdhg_check_plain,
+                                         record_floats, solve_setup, steer_to_vertex)
+from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_check, pdhg_check_batched
+from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm, pdhg_norm_batched
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, max_active_clusters, pdhg_block,
                                                 pdhg_block_batched, pdhg_block_batched_plain,
@@ -217,7 +245,8 @@ from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.multichip_dryrun import dryrun_multichip
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
-from sdpcutsel_tpu_torch.ops.launches import (PLAIN_BLOCKS, TWIN_SCORED, WRAPPERS, launch_counts,
+from sdpcutsel_tpu_torch.ops.launches import (PLAIN_BLOCKS, PLAIN_CONTROL, READS, SOLVES,
+                                              TWIN_SCORED, WRAPPERS, launch_counts,
                                               reset_launches)
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
@@ -629,23 +658,29 @@ def ptxas_report(kernel: str) -> str:
     return "; ".join(lines) or "not in this process's build log"
 
 
+def pdhg_inputs(Q, c, table, dense, dev):
+    """Phase 3's inputs at a main path's shape: (cx, cX, pool, index,
+    state), M = 1024 with 400 active random cuts on rows of ``table`` and a
+    random state (``random_state``), dense rows ``dense`` or none."""
+    n, M = c.shape[0], 1024
+    rng = np.random.default_rng(SEED + 1)
+    pool = random_pool(table, M, 400, rng, dev)
+    st = random_state(n, M, 0 if dense is None else dense.m, pool, rng, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.as_tensor(-c, **f32), torch.as_tensor(-0.5 * Q, **f32), pool,
+            build_cut_index(pool, n), st)
+
+
 def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
     """K2 against its twin from a random state, M = 1024 with 400 active
     cuts on rows of ``table``, and the dense rows ``dense`` (or none); then
     the cluster launch's plan, its time beside the bound and PR 3's, and the
     portable cluster of 8 timed in turns with the plan's."""
-    n, M = c.shape[0], 1024
+    cx, cX, pool, index, st = pdhg_inputs(Q, c, table, dense, dev)
+    n, M, k = c.shape[0], *pool.idx.shape
     m = 0 if dense is None else dense.m
-    rng = np.random.default_rng(SEED + 1)
-    pool = random_pool(table, M, 400, rng, dev)
-    k = pool.idx.shape[1]
-    st = random_state(n, M, m, pool, rng, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    cx = torch.as_tensor(-c, **f32)
-    cX = torch.as_tensor(-0.5 * Q, **f32)
-    index = build_cut_index(pool, n)
-    eta = 0.95 / estimate_norm(pool, n, 30, torch.Generator().manual_seed(0), index,
-                               dense)
+    eta = 0.95 / estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index,
+                                     dense).item()
     zero = st.map(torch.zeros_like)
     args = (cx, cX, pool, index, st, zero, eta, eta)
     inputs = [t.clone() for t in (*st.fields(), *zero.fields())]
@@ -726,6 +761,22 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b}
 
 
+def batched_inputs(insts, dev):
+    """The batched phase-3 inputs at the suite bucket's shape: (cx, cX,
+    pool, index, state, the single pools), each instance with its own pool
+    of M = 1024 and 400 active random k = 3 cuts and a random state."""
+    n, M = insts[0].n, 1024
+    rng = np.random.default_rng(SEED + 2)
+    table = combinations_table(n, 3)
+    pools = [random_pool(table, M, 400, rng, dev) for _ in insts]
+    P = rb.stack(pools)
+    st = rb.stack([random_state(n, M, 0, p, rng, dev) for p in pools])
+    f32 = dict(dtype=torch.float32, device=dev)
+    cx = torch.as_tensor(np.stack([-i.c for i in insts]), **f32)
+    cX = torch.as_tensor(np.stack([-0.5 * i.Q for i in insts]), **f32)
+    return cx, cX, P, rb.build_cut_index(P, n), st, pools
+
+
 def check_pdhg_block_batched(insts, single: dict, dev) -> dict:
     """K2's instance axis at the suite bucket's shape: the B = 12 instances'
     Q and c, each with its own pool of M = 1024 and 400 active random k = 3
@@ -737,18 +788,10 @@ def check_pdhg_block_batched(insts, single: dict, dev) -> dict:
     of 8 the card runs at once; 100-iteration launches of all 12 at the
     plan's cluster and at 8, in turns, beside B x the single launch's time
     and bound."""
-    B, n, M = len(insts), insts[0].n, 1024
-    rng = np.random.default_rng(SEED + 2)
-    table = combinations_table(n, 3)
-    pools = [random_pool(table, M, 400, rng, dev) for _ in insts]
-    P = rb.stack(pools)
-    st = rb.stack([random_state(n, M, 0, p, rng, dev) for p in pools])
+    cx, cX, P, index, st, pools = batched_inputs(insts, dev)
+    (B, n), M = cx.shape, P.idx.shape[1]
     acc = st.map(torch.zeros_like)
-    f32 = dict(dtype=torch.float32, device=dev)
-    cx = torch.as_tensor(np.stack([-i.c for i in insts]), **f32)
-    cX = torch.as_tensor(np.stack([-0.5 * i.Q for i in insts]), **f32)
-    index = rb.build_cut_index(P, n)
-    eta = (np.float32(0.95) / estimate_norm_batched(
+    eta = (np.float32(0.95) / estimate_norm_batched_plain(
         P, n, 30, torch.Generator().manual_seed(0), index).cpu().numpy()).astype(np.float32)
     frozen = B // 2 - 1
     ids = [b for b in range(B) if b != frozen]
@@ -821,6 +864,322 @@ def check_pdhg_block_batched(insts, single: dict, dev) -> dict:
             "batched_bound_ms": b["bound_ms"], "batched_bound_by": b["bound_by"],
             "max_active_clusters": clusters[16], "max_active_clusters_8": clusters[8],
             "batched_max_abs_err": worst}
+
+
+# phase 3's K5 and K6: their twins' tolerance, the record words compared
+CONTROL_RTOL = 1e-5
+REC_INTS = {"it": REC_IT, "wlen": REC_WLEN, "stop": REC_STOP, "restart": REC_RESTART,
+            "use_avg": REC_USE_AVG}
+REC_FLOATS = {"err": REC_ERR, "p": REC_P, "d": REC_D, "omega": REC_OMEGA, "tau": REC_TAU,
+              "sigma": REC_SIGMA}
+CHECK_ARGS = dict(check_every=100, max_iters=20000, tol=2e-6)    # the main paths' LP
+
+
+def check_ops(n: int, k: int, m: int, active: int, terms: int, restart: bool) -> int:
+    """Operations of one K5 launch for one instance: two KKT evaluations,
+    about 26 an (n, n) entry (K^T y, M = cX - gX and M + M^T, the objective,
+    kA, kB and their squares) and 4 m more (the dense adjoint and residual),
+    2 a cut-index term, 2 k + 2 k^2 + 8 an active cut, 14 + 2 m an x entry;
+    on a restart 9 an (n, n) entry more (the distances, the copies)."""
+    one = n * n * (26 + 4 * m) + 2 * terms + active * (2 * k + 2 * k * k + 8) + n * (14 + 2 * m)
+    return 2 * one + (9 * n * n if restart else 0)
+
+
+def norm_ops(n: int, k: int, m: int, active: int, terms: int, iters: int) -> int:
+    """Operations of K6 for one instance: per iteration about 30 an (n, n)
+    entry (K, K^T, the symmetrisation, the norm) and 4 m more for the dense
+    rows, 2 a cut-index term, 2 k + 2 k^2 + 6 an active cut; K once more at
+    the end."""
+    per = n * n * (30 + 4 * m) + 2 * terms + active * (2 * k + 2 * k * k + 6) + n * (12 + 2 * m)
+    return iters * per + n * n * (8 + 2 * m) + active * (2 * k + 2 * k * k + 4)
+
+
+def check_bytes(cx, cX, pool, index, dense, st, acc, anchor, rec) -> int:
+    """Bytes a K5 launch that restarts must move for one instance: the
+    problem's arrays, each read once, and the state, sums, anchor and
+    control record, each read once and written once."""
+    return nbytes(cx, cX, index.idx, pool.lin, pool.quad, pool.rhs, pool.active, index.xoff,
+                  index.xcut, index.xcoef, index.Xoff, index.Xcut, index.Xcoef,
+                  *([] if dense is None else [dense.G, dense.g, dense.h])) + 2 * nbytes(
+        *st.fields(), *acc.fields(), *anchor.fields(), rec)
+
+
+def record_diff(got, want, rows) -> tuple:
+    """(the record words' names whose int words differ, the largest relative
+    difference of the float words, the largest absolute difference of err,
+    p, d, omega) over the records' ``rows``."""
+    gi, wi = got.cpu().numpy().reshape(-1, pdhg_mod.REC_WORDS), want.cpu().numpy().reshape(
+        -1, pdhg_mod.REC_WORDS)
+    gf, wf = record_floats(gi), record_floats(wi)
+    bad = [name for name, j in REC_INTS.items() if not np.array_equal(gi[rows, j], wi[rows, j])]
+    cols = list(REC_FLOATS.values()) + ([REC_DP, REC_DD] if wi[rows, REC_RESTART].any() else [])
+    rel = float(np.max(np.abs(gf[rows][:, cols] - wf[rows][:, cols])
+                       / np.maximum(np.abs(wf[rows][:, cols]), 1e-30)))
+    absd = float(np.max(np.abs(gf[rows][:, [REC_ERR, REC_P, REC_D, REC_OMEGA]]
+                               - wf[rows][:, [REC_ERR, REC_P, REC_D, REC_OMEGA]])))
+    return bad, rel, absd
+
+
+def states_equal(a: list, b: list) -> bool:
+    return all(torch.equal(u, v) for x, y in zip(a, b) for u, v in zip(x.fields(), y.fields()))
+
+
+def check_pdhg_check(label: str, inputs, dense, dev) -> dict:
+    """K5 against its twin (pdhg_check_plain) after one K2 block of 100
+    iterations from phase 3's random state (the anchor), on a fresh control
+    record of the main paths' LP: restart_period 10^9 (a restart only when
+    the average wins) and 100 (always); err, p, d, omega, tau, sigma and the
+    distances at rtol 1e-5, the record's ints (it, wlen, stop, restart,
+    use_avg) equal, the state, sums and anchor equal bit for bit; each
+    case twice bit for bit; a stopped record leaves everything as it is;
+    its time by events and on the device beside its bound."""
+    cx, cX, pool, index, st0 = inputs
+    n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
+    normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    eta = 0.95 / normK.item()
+    st1, acc1 = pdhg_block(cx, cX, pool, index, st0, st0.map(torch.zeros_like), eta, eta, 100,
+                           dense)
+    worst, restarted = 0.0, {}
+    for rp in (10 ** 9, 100):
+        def prepare():
+            return [st1.map(torch.clone), acc1.map(torch.clone), st0.map(torch.clone),
+                    new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dev)]
+
+        def run(fn, st, acc, anc, rec):
+            fn(cx, cX, pool, index, st, acc, anc, rec, CHECK_ARGS["check_every"], rp,
+               CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dense)
+            return [st, acc, anc, rec]
+
+        ka, kb = run(pdhg_check, *prepare()), run(pdhg_check, *prepare())
+        tw = run(pdhg_check_plain, *prepare())
+        torch.cuda.synchronize()
+        bad, rel, absd = record_diff(ka[3], tw[3], slice(None))
+        same = states_equal(ka[:3], tw[:3])
+        repeat = states_equal(ka[:3], kb[:3]) and torch.equal(ka[3], kb[3])
+        r = ka[3].cpu().numpy()
+        restarted[rp] = bool(r[REC_RESTART])
+        log(f"[pdhg_check {label}] restart_period {rp}: restart {bool(r[REC_RESTART])}, "
+            f"use_avg {bool(r[REC_USE_AVG])}, omega {float(record_floats(r)[REC_OMEGA])!r}; "
+            f"against the twin: int words differing {bad}, largest rel diff of the float words "
+            f"{rel:.3e} (rtol {CONTROL_RTOL}), max|err| of err/p/d/omega {absd:.3e}; state, "
+            f"sums and anchor bit for bit: {same}; two launches bit for bit: {repeat}")
+        if bad or rel > CONTROL_RTOL or not (same and repeat):
+            raise AssertionError(f"pdhg_check disagrees with its twin or does not repeat ({label})")
+        worst = max(worst, absd)
+    args = prepare()
+    args[3][REC_STOP] = 1
+    before = [t.clone() for t in (*[u for x in args[:3] for u in x.fields()], args[3])]
+    run(pdhg_check, *args)
+    frozen = all(torch.equal(a, b) for a, b in zip(
+        before, (*[u for x in args[:3] for u in x.fields()], args[3])))
+    log(f"[pdhg_check {label}] a stopped record leaves the state, sums, anchor and record bit "
+        f"for bit: {frozen}")
+    if not frozen:
+        raise AssertionError(f"pdhg_check wrote a stopped instance ({label})")
+    # timed at restart_period 100: every launch restarts (the most work)
+    args = prepare()
+    ms = cuda_ms(lambda: run(pdhg_check, *args), reps=50)
+    dev_ms = device_ms(lambda: run(pdhg_check, *args), "pdhg_check_kernel")
+    twin = prepare()
+    plain_ms = cuda_ms(lambda: run(pdhg_check_plain, *twin), reps=5)
+    terms = index.Xcut.numel() + index.xcut.numel()
+    b = bound(check_ops(n, k, m, int(pool.active.sum()), terms, True),
+              check_bytes(cx, cX, pool, index, dense, *args))
+    log(f"[pdhg_check {label}] kernel {ms:.4f} ms by events back to back, {dev_ms:.4f} ms on "
+        f"the device (profiler); twin {plain_ms:.4f} ms (reads to the host included); "
+        f"{share(dev_ms, b)} (of the device time); ptxas: {ptxas_report('pdhg_check_kernel')}")
+    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b}
+
+
+def check_pdhg_norm(label: str, inputs, dense, dev) -> dict:
+    """K6 against its twin (estimate_norm_plain, 30 iterations, the seeded
+    start vector) at rtol 1e-5, twice bit for bit; its time by events and on
+    the device beside its bound."""
+    cx, cX, pool, index, _ = inputs
+    n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
+
+    def norm(fn):
+        return fn(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+
+    a, b2, t = norm(pdhg_norm), norm(pdhg_norm), norm(estimate_norm_plain)
+    torch.cuda.synchronize()
+    rel = abs(a.item() - t.item()) / abs(t.item())
+    log(f"[pdhg_norm {label}] ||K|| kernel {a.item()!r}, twin {t.item()!r}: rel diff {rel:.3e} "
+        f"(rtol {CONTROL_RTOL}); two launches bit for bit: {torch.equal(a, b2)}")
+    if rel > CONTROL_RTOL or not torch.equal(a, b2):
+        raise AssertionError(f"pdhg_norm disagrees with its twin or does not repeat ({label})")
+    ms = cuda_ms(lambda: norm(pdhg_norm), reps=20)
+    dev_ms = device_ms(lambda: norm(pdhg_norm), "pdhg_norm_kernel", reps=20)
+    plain_ms = cuda_ms(lambda: norm(estimate_norm_plain), reps=3, warmup=1)
+    bb = bound(norm_ops(n, k, m, int(pool.active.sum()), index.Xcut.numel() + index.xcut.numel(),
+                        30),
+               nbytes(index.idx, pool.lin, pool.quad, pool.active, index.xoff, index.xcut,
+                      index.xcoef, index.Xoff, index.Xcut, index.Xcoef, a,
+                      *([] if dense is None else [dense.G, dense.g])) + 4 * (n + n * n))
+    log(f"[pdhg_norm {label}] 30 iterations in one launch: kernel {ms:.4f} ms by events (the "
+        f"start vector's CPU draw and upload included), {dev_ms:.4f} ms on the device; twin "
+        f"{plain_ms:.4f} ms; {share(dev_ms, bb)} (of the device time); ptxas: "
+        f"{ptxas_report('pdhg_norm_kernel')}")
+    return {"max_abs_err": abs(a.item() - t.item()), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **bb}
+
+
+def check_control_batched(insts, dev) -> dict:
+    """K5 and K6 at the suite bucket's batch (B = 12, n = 125, phase 3's
+    batched inputs after one batched K2 block of 100 iterations), one
+    instance's record stopped: against their batched twins (the K5 words at
+    rtol 1e-5, the ints equal, the states bit for bit; ||K|| at rtol 1e-5);
+    the stopped instance unchanged bit for bit; every other one bit for bit
+    equal to the single wrappers' launch of it; each batched launch timed."""
+    cx, cX, P, index, st0, pools = batched_inputs(insts, dev)
+    (B, n), M = cx.shape, P.idx.shape[1]
+    gen = lambda: torch.Generator().manual_seed(0)     # noqa: E731
+    normK = estimate_norm_batched_plain(P, n, 30, gen(), index)
+    eta = (np.float32(0.95) / normK.cpu().numpy()).astype(np.float32)
+    st1, acc1 = pdhg_block_batched(cx, cX, P, index, st0, st0.map(torch.zeros_like), eta, eta,
+                                   100, list(range(B)))
+    frozen = B // 2 - 1
+    ids = [b for b in range(B) if b != frozen]
+    rp = 100
+
+    def prepare():
+        rec = new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dev,
+                         batch=B)
+        rec[frozen, REC_STOP] = 1
+        return [st1.map(torch.clone), acc1.map(torch.clone), st0.map(torch.clone), rec]
+
+    def run(fn, st, acc, anc, rec):
+        fn(cx, cX, P, index, st, acc, anc, rec, CHECK_ARGS["check_every"], rp,
+           CHECK_ARGS["max_iters"], CHECK_ARGS["tol"])
+        return [st, acc, anc, rec]
+
+    ka, kb = run(pdhg_check_batched, *prepare()), run(pdhg_check_batched, *prepare())
+    tw = run(pdhg_check_batched_plain, *prepare())
+    ref = prepare()
+    torch.cuda.synchronize()
+    bad, rel, absd = record_diff(ka[3], tw[3], ids)
+    same = states_equal(ka[:3], tw[:3])
+    repeat = states_equal(ka[:3], kb[:3]) and torch.equal(ka[3], kb[3])
+    frozen_same = all(torch.equal(u[frozen], v[frozen]) for x, y in zip(ka[:3], ref[:3])
+                      for u, v in zip(x.fields(), y.fields())) and torch.equal(ka[3][frozen],
+                                                                                ref[3][frozen])
+    alone = True
+    for b in ids:
+        one = [rb.instance(x, b).map(torch.clone) for x in ref[:3]] + [ref[3][b].clone()]
+        pdhg_check(cx[b], cX[b], pools[b], build_cut_index(pools[b], n), *one,
+                   CHECK_ARGS["check_every"], rp, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"])
+        alone &= torch.equal(one[3], ka[3][b]) and all(
+            torch.equal(u, v[b]) for x, y in zip(one[:3], ka[:3])
+            for u, v in zip(x.fields(), y.fields()))
+    log(f"[pdhg_check batched] B={B}, n={n}, M={M}, instance {frozen} stopped: int words "
+        f"differing {bad}, largest rel diff of the float words {rel:.3e} (rtol {CONTROL_RTOL}), "
+        f"max|err| {absd:.3e}; states bit for bit against the twin: {same}; twice bit for bit: "
+        f"{repeat}; the stopped instance unchanged: {frozen_same}; each instance equal to the "
+        f"single wrapper's launch on its own cut index: {alone}")
+    if bad or rel > CONTROL_RTOL or not (same and repeat and frozen_same and alone):
+        raise AssertionError("the batched pdhg_check fails its checks")
+    nk, nk2 = pdhg_norm_batched(P, n, 30, gen(), index), pdhg_norm_batched(P, n, 30, gen(), index)
+    nrel = float(((nk - normK).abs() / normK.abs()).max())
+    n_alone = all(torch.equal(pdhg_norm(pools[b], n, 30, gen(), build_cut_index(pools[b], n)),
+                              nk[b]) for b in range(B))
+    log(f"[pdhg_norm batched] B={B}: largest rel diff from the twin {nrel:.3e} (rtol "
+        f"{CONTROL_RTOL}); twice bit for bit: {torch.equal(nk, nk2)}; each instance equal to the "
+        f"single launch: {n_alone}")
+    if nrel > CONTROL_RTOL or not (torch.equal(nk, nk2) and n_alone):
+        raise AssertionError("the batched pdhg_norm fails its checks")
+    args = prepare()
+    ms = cuda_ms(lambda: run(pdhg_check_batched, *args), reps=50)
+    dev_ms = device_ms(lambda: run(pdhg_check_batched, *args), "pdhg_check_kernel")
+    norm_ms = cuda_ms(lambda: pdhg_norm_batched(P, n, 30, gen(), index), reps=20)
+    norm_dev = device_ms(lambda: pdhg_norm_batched(P, n, 30, gen(), index), "pdhg_norm_kernel",
+                         reps=20)
+    terms = [int(i.xoff[-1] + i.Xoff[-1]) for i in (build_cut_index(p, n) for p in pools)]
+    active = [int(p.active.sum()) for p in pools]
+    # the stopped instance's cluster leaves at entry: only the running ones count
+    b5 = bound(sum(check_ops(n, 3, 0, active[b], terms[b], True) for b in ids),
+               sum(check_bytes(cx[b], cX[b], pools[b], build_cut_index(pools[b], n), None,
+                               *(rb.instance(x, b) for x in args[:3]), args[3][b])
+                   for b in ids))
+    b6 = bound(sum(norm_ops(n, 3, 0, a, t, 30) for a, t in zip(active, terms)),
+               nbytes(index.idx, P.lin, P.quad, P.active, index.xoff, index.xcut, index.xcoef,
+                      index.Xoff, index.Xcut, index.Xcoef, nk) + 4 * B * (n + n * n))
+    log(f"[pdhg_check batched] {B - 1} running instances: {ms:.4f} ms by events, {dev_ms:.4f} ms "
+        f"on the device; {share(dev_ms, b5)}")
+    log(f"[pdhg_norm batched] {B} instances, 30 iterations: {norm_ms:.4f} ms by events, "
+        f"{norm_dev:.4f} ms on the device; {share(norm_dev, b6)}")
+    return {"check": {"batched_ms": ms, "batched_device_ms": dev_ms,
+                      "batched_bound_ms": b5["bound_ms"], "batched_max_abs_err": absd},
+            "norm": {"batched_ms": norm_ms, "batched_device_ms": norm_dev,
+                     "batched_bound_ms": b6["bound_ms"],
+                     "batched_max_abs_err": float((nk - normK).abs().max())}}
+
+
+# the parent build's K2 entry point (steps by value), for the bit check
+PARENT_K2_ARGTYPES = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+    [ctypes.c_void_p] * 41
+
+
+def parent_k2(parent: str):
+    """The K2 of another checkout (the parent commit's, whose entry point
+    takes tau and sigma as host arrays), built alone with this build's nvcc
+    flags into build/cuda/parent/."""
+    src = os.path.join(parent, "sdpcutsel_tpu_torch", "csrc", "pdhg_block.cu")
+    out = os.path.join(REPO, "build", "cuda", "parent", "libpdhg_block.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src],
+                   check=True, capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(out)
+    lib.pdhg_block_launch.argtypes = PARENT_K2_ARGTYPES
+    lib.pdhg_block_launch.restype = ctypes.c_int
+    return lib
+
+
+def k2_against_parent(lib, label: str, args: tuple, dense, iters: int) -> bool:
+    """This K2 (steps from a device record) and the parent build's (steps by
+    value) on the same inputs: equal bit for bit?  Both launches are then
+    timed by events in turns (parent, this, this, parent), 20 back to back
+    each, on prepared buffers (no upload in the timed calls)."""
+    cx, cX, pool, index, st, acc, tau, sigma = args
+    B1 = rb.batch_of_one
+    P1, I1, S1, A1 = B1(pool), B1(index), B1(st), B1(acc)
+    D1 = None if dense is None else B1(dense)
+    n, (M, k) = cx.shape[0], pool.idx.shape
+    m = 0 if dense is None else dense.m
+    plan = launch_plan(n, M, k, m)
+    ins = [t.contiguous() for t in (*S1.fields(), *A1.fields())]
+    outs_p, outs_t = [torch.empty_like(t) for t in ins], [torch.empty_like(t) for t in ins]
+    d = [None] * 3 if D1 is None else [t.contiguous().data_ptr() for t in (D1.G, D1.g, D1.h)]
+    c = [t.contiguous() for t in (cx[None], cX[None], I1.idx, P1.lin, P1.quad, P1.rhs,
+                                  P1.active, I1.xoff, I1.xcut, I1.xcoef, I1.Xoff, I1.Xcut,
+                                  I1.Xcoef)]
+    rec = pdhg_kernel.steps_record([tau], [sigma], cx.device)
+    one = np.zeros(1, np.int64)
+
+    def parent_call():
+        err = lib.pdhg_block_launch(
+            n, M, k, m, iters, plan.cluster, plan.term_cap, plan.smem_bytes, 1,
+            (ctypes.c_int * 1)(0), (ctypes.c_float * 1)(tau), (ctypes.c_float * 1)(sigma),
+            I1.xcut.shape[-1], I1.Xcut.shape[-1], *(t.data_ptr() for t in c), *d,
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs_p),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's pdhg_block_launch returned {err}")
+
+    def this_call():
+        pdhg_kernel._launch_core(cx[None], cX[None], P1, I1, ins, outs_t, rec, iters, one, D1,
+                                 plan.cluster)
+
+    parent_call()
+    this_call()
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(outs_t, outs_p))
+    t_parent, t_this = [], []
+    for runs, fn in ((t_parent, parent_call), (t_this, this_call), (t_this, this_call),
+                     (t_parent, parent_call)):
+        runs.append(cuda_ms(fn, reps=20))
+    log(f"[pdhg_block {label}] {iters} iterations: this build's K2 and the parent build's bit "
+        f"for bit: {same}; in turns, parent {t_parent!r} ms, this build {t_this!r} ms")
+    return same
 
 
 def check_fused_score(label: str, Q, table: np.ndarray, sweeps: int, dev) -> dict:
@@ -926,8 +1285,10 @@ def check_large_instance(dev):
                 RunConfig(lp=dataclasses.replace(lp, use_kernel="off")), dev, rounds=2)
     launches = launch_counts()
     log(f"[small] spar150-100-1, use_kernel='off': launches {launches}")
-    if launches["pdhg_block"] != 0 or launches[PLAIN_BLOCKS] == 0:
-        raise AssertionError("the n = 150 solve did not run the plain PDHG loop alone")
+    if (launches["pdhg_block"] or launches["pdhg_check"] or launches["pdhg_norm"]
+            or launches[PLAIN_BLOCKS] == 0 or launches[PLAIN_CONTROL] == 0):
+        raise AssertionError("the n = 150 solve did not run the plain PDHG loop, check and "
+                             "norm alone")
 
 
 def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3):
@@ -1001,6 +1362,31 @@ def finish(tag: str, checks: dict):
         raise AssertionError(f"{tag} checks failed")
 
 
+def control_checks(tag: str, launches: dict, steering: int = 0) -> dict:
+    """The LP solve's control on the card, as the reference runs it: K5 once
+    a solve block (every K2 launch but steering's), K6 once a solve, at most
+    one host read of the control record a group of GROUP_BLOCKS blocks plus
+    one a solve, and no twin check or norm on the card."""
+    k2, k5, k6 = launches["pdhg_block"], launches["pdhg_check"], launches["pdhg_norm"]
+    solves, reads, G = launches[SOLVES], launches[READS], pdhg_mod.GROUP_BLOCKS
+    log(f"[{tag}] the solves' control: {solves} solves, K2 {k2} ({steering} of them steering), "
+        f"K5 {k5}, K6 {k6}; host reads of the record {reads} = {reads / max(solves, 1):.2f} a "
+        f"solve, {k5 / max(reads, 1):.2f} blocks a read (groups of {G})")
+    return {
+        "K5 once a solve block": k5 == k2 - steering and k5 > 0,
+        "K6 once a solve": k6 == solves and k6 > 0,
+        f"at most one host read a group of {G} blocks plus one a solve": reads * G <= k5 + G * solves,
+        "no twin check or norm on the card": launches[PLAIN_CONTROL] == 0,
+    }
+
+
+def blocks_enqueued(blocks_run: int, solves: int, launches: dict) -> bool:
+    """K2's solve launches cover the blocks that ran, plus at most
+    GROUP_BLOCKS - 1 enqueued after the last stop of each solve (they do
+    nothing)."""
+    return blocks_run <= launches["pdhg_check"] <= blocks_run + (pdhg_mod.GROUP_BLOCKS - 1) * solves
+
+
 def boxqp_path(tag: str, inst, cfg, dev, launched: tuple, idle: tuple = ()):
     """CutSolver on spar125-100-1 in ``cfg``, ROUNDS rounds, counters reset
     before and read after; the bounds are held to the instance registry and
@@ -1043,6 +1429,7 @@ def boxqp_path(tag: str, inst, cfg, dev, launched: tuple, idle: tuple = ()):
         "round 0 within 1e-2 of McCormick": abs(rel0) <= 1e-2,
         "last round below round 0": bool(bounds[-1] < bounds[0]),
         "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+        **control_checks(tag, launches),
     }
 
 
@@ -1154,6 +1541,7 @@ def qcqp_main_path(dev) -> dict:
         "a second run repeats every round bit for bit, polish included":
             outcome(again) == outcome(hist)
             and again_solver.polish_certificate == solver.polish_certificate,
+        **control_checks("qcqp", launches),
     })
     return launches
 
@@ -1232,8 +1620,8 @@ def steered_qcqp_scan(dev) -> dict:
     final = float(hist[-1].bound)
     log(f"[steer] {len(hist)} scan rounds + polish in {wall:.3f}s; rounds / sum of "
         f"wall_time_s {len(hist) / sum(h.wall_time_s for h in hist)!r} rounds/s; launches "
-        f"{launches}: the solves' and the polish's blocks {blocks}, steering "
-        f"{launches['pdhg_block'] - blocks}; final bound {final!r} (PR 6's unsteered main "
+        f"{launches}: the solves' and the polish's blocks run {blocks}, enqueued "
+        f"{launches['pdhg_check']}, steering {launches['pdhg_block'] - launches['pdhg_check']}; final bound {final!r} (the recorded unsteered main "
         f"path: {QCQP_RECORDED_FINAL!r}); gap closed {gap_closed(reg, final)!r} ("
         f"{recorded_gap('qcqp.jsonl', instance=QCQP_INSTANCE, strategy='neural', k=5)}, "
         f"unsteered)")
@@ -1265,7 +1653,11 @@ def steered_qcqp_scan(dev) -> dict:
         f"{QCQP_ROUNDS} scan rounds ran": len(hist) == QCQP_ROUNDS,
         "pdhg_block and fused_score launched": min(launches["pdhg_block"],
                                                    launches["fused_score"]) > 0,
-        "steering is exactly one K2 launch a round": launches["pdhg_block"] == blocks + len(hist),
+        "steering is exactly one K2 launch a round":
+            launches["pdhg_block"] - launches["pdhg_check"] == len(hist),
+        "the solves' K2 launches cover their blocks":
+            blocks_enqueued(blocks, len(hist) + 1, launches),
+        **control_checks("steer", launches, steering=len(hist)),
         "no plain PDHG block": launches[PLAIN_BLOCKS] == 0,
         **validity(hist, reg),
         "a second scan run repeats every round bit for bit, polish included":
@@ -1310,6 +1702,7 @@ def boxqp_resume(inst, main_hist, dev) -> dict:
             outcome(per.history) == outcome(main_hist),
         f"the run resumed from round {RESUME_AT['boxqp']}'s snapshot repeats the main path "
         "bit for bit": outcome(resumed.history) == outcome(main_hist),
+        **control_checks("resume", launches),
     })
     return launches
 
@@ -1342,6 +1735,7 @@ def strategy_path(tag: str, solver_cls, inst, cfg, rounds: int, reg: dict, recor
         **validity(hist, reg),
         "last bound below round 0": bool(hist[-1].bound < hist[0].bound),
         "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+        **control_checks(tag, launches),
     })
     return launches, solver
 
@@ -1454,11 +1848,13 @@ def suite_bucket_path(dev) -> dict:
         "a second run repeats every bound and pool bit for bit": repeat,
         "the batches of one agree within rtol 2e-3":
             all(abs(c1 - cert[b]) <= 2e-3 * abs(cert[b]) for b, (c1, _) in alone.items()),
-        "pdhg_block launched once a checked block of the batch": launches["pdhg_block"] == blocks,
+        "the batched K2 launches cover the batch's checked blocks":
+            blocks_enqueued(blocks, BATCH_ROUNDS, launches),
         f"pair_score launched once an instance a round ({B * BATCH_ROUNDS})":
             launches["pair_score"] == B * BATCH_ROUNDS,
         "no plain PDHG block, no twin-scored call":
             launches[PLAIN_BLOCKS] == 0 and launches[TWIN_SCORED] == 0,
+        **control_checks("suite", launches),
     })
     return launches
 
@@ -1507,11 +1903,13 @@ def bench_scan_path(dev) -> dict:
             bool(np.isfinite(bounds).all() and (np.diff(bounds, axis=0) <= 0).all()),
         "the scan repeats a per-round run bit for bit":
             same_pools and batched_states_equal(final, state),
-        "pdhg_block launched once a checked block of the batch": launches["pdhg_block"] == blocks,
+        "the batched K2 launches cover the batch's checked blocks":
+            blocks_enqueued(blocks, BATCH_ROUNDS, launches),
         f"pair_score launched once an instance a round ({B * BATCH_ROUNDS})":
             launches["pair_score"] == B * BATCH_ROUNDS,
         "no plain PDHG block, no twin-scored call":
             launches[PLAIN_BLOCKS] == 0 and launches[TWIN_SCORED] == 0,
+        **control_checks("bench-scan", launches),
     })
     return launches
 
@@ -1562,9 +1960,11 @@ def qcqp_family_path(dev) -> dict:
         "within rtol 2e-3 of the CPU port": bool((rel <= 2e-3).all()),
         f"fused_score launched once an instance a round ({B * QCQP_FAMILY_ROUNDS})":
             launches["fused_score"] == B * QCQP_FAMILY_ROUNDS,
-        "pdhg_block launched once a checked block of the batch": launches["pdhg_block"] == blocks,
+        "the batched K2 launches cover the batch's checked blocks":
+            blocks_enqueued(blocks, QCQP_FAMILY_ROUNDS, launches),
         "no plain PDHG block, no twin-scored call":
             launches[PLAIN_BLOCKS] == 0 and launches[TWIN_SCORED] == 0,
+        **control_checks("qcqp-family", launches),
     })
     return launches
 
@@ -1859,6 +2259,7 @@ def training(main_hist, dev) -> dict:
             "k=3 launched pair_score and pdhg_block": a["pair_score"] > 0 and a["pdhg_block"] > 0,
             "k=3 no plain PDHG block, no twin-scored call":
                 a[PLAIN_BLOCKS] == 0 and a[TWIN_SCORED] == 0,
+            **{f"k=3 {k}": v for k, v in control_checks("train k=3", a).items()},
             **{f"k=3 {name} >= {ref - TRAIN_SLACK:.4f}": m3[name] >= ref - TRAIN_SLACK
                for name, ref in TRAIN_REF_K3.items()},
             "k=3 datasets, MLP and Adam's moments on cuda":
@@ -1874,6 +2275,7 @@ def training(main_hist, dev) -> dict:
                 and b["pdhg_block"] > 0,
             "k=4 no plain PDHG block, no twin-scored call":
                 b[PLAIN_BLOCKS] == 0 and b[TWIN_SCORED] == 0,
+            **{f"k=4 {k}": v for k, v in control_checks("train k=4", b).items()},
             "k=4 harvested QCQP rows": split4.get("qcqp_harvest_rows", 0) > 0,
             "k=4 metrics finite": all(np.isfinite(v) for v in m4.values() if v is not None),
             "k=4 wrote its weights": os.path.exists(k4_path),
@@ -1937,11 +2339,15 @@ def rank_lines(tag: str, outs) -> list:
 
 
 def clean_ranks(launches, kernels: tuple) -> dict:
-    """Every rank launched ``kernels``, and no plain PDHG block or twin."""
-    return {f"every rank launched {' and '.join(kernels)}":
-                all(min(c[k] for k in kernels) > 0 for c in launches),
-            "no plain PDHG block, no twin-scored call on any rank":
-                all(c[PLAIN_BLOCKS] == 0 and c[TWIN_SCORED] == 0 for c in launches)}
+    """Every rank launched ``kernels``, and no plain PDHG block or twin;
+    each rank's solves ran their control on the card (control_checks)."""
+    out = {f"every rank launched {' and '.join(kernels)}":
+               all(min(c[k] for k in kernels) > 0 for c in launches),
+           "no plain PDHG block, no twin-scored call on any rank":
+               all(c[PLAIN_BLOCKS] == 0 and c[TWIN_SCORED] == 0 for c in launches)}
+    for r, c in enumerate(launches):
+        out.update({f"rank {r}: {k}": v for k, v in control_checks(f"rank {r}", c).items()})
+    return out
 
 
 def multihost(args, ranks: int, save: str) -> tuple:
@@ -2105,8 +2511,14 @@ def multi_process(dev) -> dict:
     return total
 
 
-def main() -> int:
+def main(argv=None) -> int:
     global SMI
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    parser.add_argument("--parent", help="a checkout of the parent commit: phase 3 then holds "
+                        "this K2's bits to that build's on its inputs")
+    args = parser.parse_args(argv)
     t_start = time.perf_counter()
     smi = SMI = environment()
     torch.backends.cuda.matmul.allow_tf32 = False    # see the module docstring
@@ -2132,13 +2544,35 @@ def main() -> int:
     small = parse_boxqp(os.path.join(DATA, "spar020-100-1.in"), name="spar020-100-1")
     k1 = check_pair_score(inst, small, dev)
     k3 = check_pair_packed(inst, dev)
-    k2_box = check_pdhg_block(f"{INSTANCE} m=0", inst.Q, inst.c,
-                              combinations_table(inst.n, 3), None, dev)
-    k2 = check_pdhg_block(f"{QCQP_INSTANCE} m={band.m}", band.Q0, band.c0,
-                          clique_table(band, 5), dense_from_qcqp(band.Qs, band.cs, band.bs, dev),
-                          dev)
+    band_dense = dense_from_qcqp(band.Qs, band.cs, band.bs, dev)
+    shapes = {f"{INSTANCE} m=0": (inst.Q, inst.c, combinations_table(inst.n, 3), None),
+              f"{QCQP_INSTANCE} m={band.m}": (band.Q0, band.c0, clique_table(band, 5),
+                                              band_dense)}
+    k2_box, k2 = (check_pdhg_block(label, *args, dev) for label, args in shapes.items())
     bucket = [parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name) for name in SUITE_BUCKET]
     k2_batched = check_pdhg_block_batched(bucket, k2_box, dev)
+    k5s, k6s = [], []
+    for label, (Q, c, table, dense) in shapes.items():
+        inputs = pdhg_inputs(Q, c, table, dense, dev)
+        k5s.append(check_pdhg_check(label, inputs, dense, dev))
+        k6s.append(check_pdhg_norm(label, inputs, dense, dev))
+    control_batched = check_control_batched(bucket, dev)
+    k2["parent_bits"] = None
+    if args.parent:
+        lib = parent_k2(args.parent)
+        same = []
+        for label, (Q, c, table, dense) in shapes.items():
+            cx, cX, pool, index, st = pdhg_inputs(Q, c, table, dense, dev)
+            eta = 0.95 / estimate_norm_plain(pool, c.shape[0], 30,
+                                             torch.Generator().manual_seed(0), index,
+                                             dense).item()
+            for iters in (7, 100):
+                same.append(k2_against_parent(
+                    lib, label, (cx, cX, pool, index, st, st.map(torch.zeros_like), eta, eta),
+                    dense, iters))
+        k2["parent_bits"] = all(same)
+        if not all(same):
+            raise AssertionError("K2 does not give the parent build's bits on phase 3's inputs")
     k4 = check_k4(inst, dev)
     check_guard(inst, unguarded, dev)
     check_small_instances(dev)
@@ -2155,7 +2589,9 @@ def main() -> int:
     PATH_LAUNCHES["certifiers and the CLI"] = certifiers_and_cli(dev)
     PATH_LAUNCHES["training"] = training(main_hist, dev)
     PATH_LAUNCHES["multi-process (every rank)"] = multi_process(dev)
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    seconds = time.perf_counter() - t_start
+    log(f"[done] all phases passed in {seconds:.1f}s, {seconds / 900:.1%} of a "
+        f"900 s budget")
     for path, counts in PATH_LAUNCHES.items():
         log(f"[launches] {path}: {counts}")
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
@@ -2180,6 +2616,23 @@ def main() -> int:
          "replaces": "sdpcutsel_tpu/ops/fused_score.py:52",
          "launches": total["fused_score"], **k4[-1],
          "max_abs_err": max(r["max_abs_err"] for r in k4)},
+        # K5 and K6: the reference computes them in XLA inside its while_loop
+        # (no Pallas kernel); each entry holds the QCQP shape's numbers, the
+        # BoxQP shape's under m0_*
+        {"name": "pdhg_check", "route": "cuda",
+         "source": "sdpcutsel_tpu_torch/csrc/pdhg_check.cu",
+         "replaces": "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block; XLA, no Pallas kernel)",
+         "launches": total["pdhg_check"], **k5s[1],
+         **{f"m0_{key}": v for key, v in k5s[0].items()}, **control_batched["check"],
+         "max_abs_err": max(k5s[0]["max_abs_err"], k5s[1]["max_abs_err"],
+                            control_batched["check"]["batched_max_abs_err"])},
+        {"name": "pdhg_norm", "route": "cuda",
+         "source": "sdpcutsel_tpu_torch/csrc/pdhg_norm.cu",
+         "replaces": "sdpcutsel_tpu/lp/pdhg.py:70 (estimate_norm; XLA, no Pallas kernel)",
+         "launches": total["pdhg_norm"], **k6s[1],
+         **{f"m0_{key}": v for key, v in k6s[0].items()}, **control_batched["norm"],
+         "max_abs_err": max(k6s[0]["max_abs_err"], k6s[1]["max_abs_err"],
+                            control_batched["norm"]["batched_max_abs_err"])},
     ]
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them
@@ -2192,4 +2645,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -53,7 +53,7 @@ _SIGNATURES = {
                           _P, _P, _P, _P],
     # pdhg_block.cu
     "pdhg_block_launch": [_I, _I, _I, _I, _I, _I, _I, _I,  # n M k m iters cluster cap smem
-                          _I, _P, _P, _P, _I, _I,      # count, ids, tau, sigma, ex, eX
+                          _I, _P, _P, _I, _I,          # count, ids, records, ex, eX
                           _P, _P,                      # cx, cX
                           _P, _P, _P, _P, _P,          # idx, lin, quad, rhs, act
                           _P, _P, _P, _P, _P, _P,      # xoff xcut xcoef Xoff Xcut Xcoef
@@ -62,6 +62,21 @@ _SIGNATURES = {
                           *[_P] * 12,                  # state and sums out
                           _P],                         # stream
     "pdhg_block_max_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # pdhg_check.cu
+    "pdhg_check_launch": [_I, _I, _I, _I, _I, _I, _I, _I,  # n M k m B cluster ex eX
+                          _I, _I, _I, _F,              # check_every restart_period max_iters tol
+                          _P, _P,                      # cx, cX
+                          _P, _P, _P, _P, _P,          # idx, lin, quad, rhs, act
+                          _P, _P, _P, _P, _P, _P,      # xoff xcut xcoef Xoff Xcut Xcoef
+                          _P, _P, _P,                  # G, g, h
+                          *[_P] * 18,                  # state, sums, anchor
+                          _P, _P],                     # records, stream
+    # pdhg_norm.cu
+    "pdhg_norm_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,  # n M k m B cluster ex eX iters
+                         _P, _P, _P, _P,               # idx, lin, quad, act
+                         _P, _P, _P, _P, _P, _P,       # xoff xcut xcoef Xoff Xcut Xcoef
+                         _P, _P,                       # G, g
+                         _P, _P, _P, _P],              # y, Y, out, stream
 }
 
 _lib = None

@@ -4,8 +4,8 @@
 // Replaces the Pallas TPU kernel sdpcutsel_tpu/lp/pdhg_kernel.py::_kernel
 // (launched from pdhg_block).  Runs `iters` iterations of the exact
 // lp/pdhg.py::_one_iter update and adds every iterate to the ergodic sums
-// (ax, aX, aA, aB, ayC, ayD).  Restart, KKT and omega logic stay in torch,
-// once per block.  The TPU kernel kept its whole working set in VMEM for the
+// (ax, aX, aA, aB, ayC, ayD).  The KKT check, restart and omega run after
+// each block in pdhg_check.cu (K5).  The TPU kernel kept its whole working set in VMEM for the
 // block and took no dense rows; this one also takes the m dense rows
 // Gd (m, n, n), gd (m, n), hd (m,) of relax/denserows.py (m = 0: BoxQP).
 //
@@ -62,33 +62,25 @@
 //
 // Instance axis: one launch runs the block for a batch of B instances of one
 // shape, stacked along a leading axis of every input and output.  The grid
-// is C x (instances listed in ids): cluster s runs instance ids[s] with its
-// own tau[s] and sigma[s], and touches no other instance's data, so an
-// instance left out of ids is never read or written (a converged instance
-// stays frozen), and one cluster's arithmetic does not depend on the batch
-// or on its place in the grid.  The cut index's term arrays are padded to
+// is C x (instances listed in ids): cluster s runs instance ids[s] with the
+// steps tau and sigma of that instance's control record (pdhg_common.cuh),
+// read from device memory, and touches no other instance's data, so an
+// instance left out of ids is never read or written, and one cluster's
+// arithmetic does not depend on the batch or on its place in the grid.  An
+// instance whose record has its stop flag set leaves at entry: it reads and
+// writes nothing, so in an in-place launch it stays frozen, bit for bit.  The cut index's term arrays are padded to
 // the batch's longest (term strides ex, eX), each instance with its own
 // offsets.  A single solve is the batch of one.  Each cluster reads its
 // state at entry and writes it at exit, behind cluster barriers, so the
 // outputs may be the inputs themselves (an in-place launch).
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
+#include "pdhg_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kCols = 128;                   // n <= 128
-constexpr int kGroups = kThreads / kCols;    // row groups of a band
-constexpr int kWarpsPerRow = kCols / 32;
-constexpr int kMaxCluster = 16;
-constexpr int kMaxBatch = 128;                // instances per grid (kernel parameter arrays)
-constexpr float kSA = 0.70710678118654752440f;   // 1 / sqrt(2)
-constexpr float kSB = 0.57735026918962576451f;   // 1 / sqrt(3)
-constexpr int kErrLayout = -2;      // the caller's plan disagrees with this layout
-constexpr int kErrNoCluster = -3;   // no cluster of this shape fits on the card
+using namespace pdhg;
+
+constexpr int kMaxBatch = 128;                // instances per grid (kernel parameter array)
 
 // The stacked arrays of a batch; instance_arrays() gives one instance's slices.
 struct Arrays {
@@ -112,9 +104,11 @@ struct Args {
   int n, M, k, m, iters, R, Mc, term_cap;
   int ex, eX;                                // per-instance strides of the term arrays
   Arrays in;
-  // cluster s of the grid runs instance ids[s] with steps tau[s], sigma[s]
+  // each instance's control record (kRecWords words): its steps tau and
+  // sigma, and its stop flag
+  const int* rec;
+  // cluster s of the grid runs instance ids[s]
   int ids[kMaxBatch];
-  float tau[kMaxBatch], sigma[kMaxBatch];
 };
 
 __device__ __forceinline__ Arrays instance_arrays(const Arrays& a, size_t b, int n, int M,
@@ -204,12 +198,6 @@ __host__ __device__ inline Layout make_layout(int n, int M, int k, int m, int C,
   return L;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // yD <- max(yD + sigma (h - kD), 0) with kD the ranks' partials in rank
 // order; every CTA runs it on the same data, so the replicas stay equal.
 __device__ __forceinline__ void fold_dense(int m, int C, float sigma, const float* sh,
@@ -223,34 +211,6 @@ __device__ __forceinline__ void fold_dense(int m, int C, float sigma, const floa
   }
 }
 
-// lin . xb[id] + <quad, Xb[id, id]> of one cut of width K: the K^2 reads of
-// Xb go to the CTAs that own the rows and are all issued before the sums
-// (unrolled), so an iteration pays about one remote latency, not K^2
-template <int K>
-__device__ __forceinline__ float cut_residual(const cg::cluster_group& cluster,
-                                              const int* id, const float* l,
-                                              const float* qd, const float* sxb,
-                                              float* sXb, int R, int n) {
-  float xs[K], xv[K * K];
-#pragma unroll
-  for (int u = 0; u < K; ++u) {
-    const int iu = id[u];
-    xs[u] = sxb[iu];
-    const int ou = iu / R;
-    const float* Xr = cluster.map_shared_rank(sXb, ou) + (iu - ou * R) * n;
-#pragma unroll
-    for (int v = 0; v < K; ++v) xv[u * K + v] = Xr[id[v]];
-  }
-  float r1 = 0.0f, r2 = 0.0f;
-#pragma unroll
-  for (int u = 0; u < K; ++u) {
-    r1 += l[u] * xs[u];
-#pragma unroll
-    for (int v = 0; v < K; ++v) r2 += qd[u * K + v] * xv[u * K + v];
-  }
-  return r1 + r2;
-}
-
 __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -258,8 +218,10 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
   const int rank = static_cast<int>(cluster.block_rank());
   const int n = a.n, M = a.M, k = a.k, m = a.m, R = a.R, RN = R * n, nn = n * n;
   const int slot = static_cast<int>(blockIdx.x) / C;   // this cluster's place in the grid
-  const float tau = a.tau[slot], sigma = a.sigma[slot];
   const size_t inst = static_cast<size_t>(a.ids[slot]);
+  const int* rec = a.rec + inst * kRecWords;
+  if (rec[kRecStop]) return;          // a stopped instance: every CTA leaves before any barrier
+  const float tau = __int_as_float(rec[kRecTau]), sigma = __int_as_float(rec[kRecSigma]);
   const Layout L = make_layout(n, M, k, m, C, R, a.Mc, a.term_cap);
   float* const sX = sm + L.X;
   float* const syA = sm + L.yA;
@@ -390,8 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
         const int e = il * n + c;
         va = syA[e];
         vb = syB[e];
-        float cut = 0.0f;
-        for (int q = sXoff[e]; q < sXoff[e + 1]; ++q) cut += sw[Xcut[q]] * Xcoef[q];
+        const float cut = segment_sum(Xcut, Xcoef, sXoff[e], sXoff[e + 1], sw);
         float gX = (-kSA * va + kSB * vb) + cut;
         if (m > 0) {
           float dn = 0.0f;
@@ -426,8 +387,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
         sb += srowB[t * kWarpsPerRow + q];
       }
       for (int q = 0; q < C * kGroups; ++q) sc += scolP[q * R + t];
-      float cut = 0.0f;
-      for (int q = sxoff[t]; q < sxoff[t + 1]; ++q) cut += sw[xcut[q]] * xcoef[q];
+      const float cut = segment_sum(xcut, xcoef, sxoff[t], sxoff[t + 1], sw);
       float gx = (kSA * sa - kSB * (sb + sc)) + cut;
       if (m > 0) {
         float dn = 0.0f;
@@ -476,13 +436,13 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
         const int* id = sidx + s * k;
         const float* l = slin + s * k;
         const float* qd = squad + s * k * k;
-        float res;
-        switch (k) {
-          case 2: res = cut_residual<2>(cluster, id, l, qd, sxb, sXb, R, n); break;
-          case 3: res = cut_residual<3>(cluster, id, l, qd, sxb, sXb, R, n); break;
-          case 4: res = cut_residual<4>(cluster, id, l, qd, sxb, sXb, R, n); break;
-          default: res = cut_residual<5>(cluster, id, l, qd, sxb, sXb, R, n); break;
-        }
+        // Xb at the supports from the CTAs that own their rows
+        const float res = cut_residual_k(
+            k, id, l, qd, [&](int iu) { return sxb[iu]; },
+            [&](int iu, int iv) {
+              const int ou = iu / R;
+              return cluster.map_shared_rank(sXb, ou)[(iu - ou * R) * n + iv];
+            });
         const float r = res * am;
         yc = fmaxf(syC[s] + sigma * (srhs[s] * am - r), 0.0f) * am;
       }
@@ -537,45 +497,9 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
 
 namespace {
 
-cudaLaunchConfig_t launch_config(int cluster, int instances, int smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * instances, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// The kernel's attributes for (cluster, smem), and the check that the card
-// holds one such cluster: done when (cluster, smem) changes, so a batch of
-// another shape than the last launch's checks again.  Nothing depends on B.
 int prepare(int cluster, int smem) {
-  static int checked_cluster = 0, checked_smem = -1;
-  if (cluster == checked_cluster && smem == checked_smem) return 0;
-  cudaError_t err = cudaFuncSetAttribute(pdhg_cluster_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cluster > 8) {
-    err = cudaFuncSetAttribute(pdhg_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(cluster, 1, smem, nullptr, attr);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, pdhg_cluster_kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return kErrNoCluster;
-  checked_cluster = cluster;
-  checked_smem = smem;
-  return 0;
+  static int checked[2] = {0, -1};
+  return prepare_cluster(pdhg_cluster_kernel, cluster, smem, checked);
 }
 
 int check_layout(int n, int M, int k, int m, int cluster, int term_cap, int smem) {
@@ -593,7 +517,8 @@ int check_layout(int n, int M, int k, int m, int cluster, int term_cap, int smem
 
 // One launch of `iters` iterations for the instances ids[0..count) of a
 // batch stacked along the leading axis of every array, instance ids[s] with
-// steps tau[s], sigma[s] (host arrays).  ex and eX are the per-instance
+// the steps and stop flag of its control record rec + ids[s] kRecWords
+// (device memory, (B, kRecWords) int32).  ex and eX are the per-instance
 // strides of xcut/xcoef and Xcut/Xcoef.  The outputs may be the inputs (the
 // launch then updates the listed instances in place).  cluster: CTAs a
 // cluster (<= 16); term_cap and smem come from the caller's launch plan
@@ -602,7 +527,7 @@ int check_layout(int n, int M, int k, int m, int cluster, int term_cap, int smem
 // error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_block_launch(
     int n, int M, int k, int m, int iters, int cluster, int term_cap, int smem,
-    int count, const int* ids, const float* tau, const float* sigma, int ex, int eX,
+    int count, const int* ids, const int* rec, int ex, int eX,
     const float* cx, const float* cX,
     const int* idx, const float* lin, const float* quad, const float* rhs,
     const float* act,
@@ -626,13 +551,11 @@ extern "C" int pdhg_block_launch(
          Arrays{cx, cX, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff, Xcut, Xcoef,
                 G, g, h, x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
                 xo, Xo, yAo, yBo, yCo, yDo, axo, aXo, aAo, aBo, ayCo, ayDo},
-         {}, {}, {}};
+         rec, {}};
   for (int s0 = 0; s0 < count; s0 += kMaxBatch) {
     const int part = count - s0 < kMaxBatch ? count - s0 : kMaxBatch;
     for (int s = 0; s < part; ++s) {
       a.ids[s] = ids[s0 + s];
-      a.tau[s] = tau[s0 + s];
-      a.sigma[s] = sigma[s0 + s];
     }
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg =

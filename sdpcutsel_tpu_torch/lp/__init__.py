@@ -1,7 +1,6 @@
 from .pdhg import (  # noqa: F401
     PDHGState,
     dual_bound_f64,
-    estimate_norm,
     init_state,
     solve_lp,
 )

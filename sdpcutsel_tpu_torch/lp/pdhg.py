@@ -10,15 +10,25 @@
 ``dense=None`` (BoxQP) leaves every dense term out; the state's yD is then
 empty.
 
-Each checked block runs ``check_every`` iterations through the iteration-block
-kernel wrapper (lp/pdhg_kernel.py), or through the plain ``_one_iter`` loop
-where ``LPConfig.use_kernel`` says so (``kernel_route``), then, in plain torch once per block: the
-ergodic average, restart-to-average when the average's KKT error is lower,
-and primal-weight (omega) rebalancing.  The JAX ``lax.while_loop`` condition
-becomes one host read per block.  Host-side scalars (step sizes, omega, the
-stopping test) are float32, as they are on the device in the reference.
-Everything outside the kernel sums the cut adjoint over the pool's cut
-index too (relax/cutbuffer.py), so a solve on CUDA repeats bit for bit.
+The solve runs on the device as the reference's ``lax.while_loop`` does.
+Each checked block is two launches: ``check_every`` iterations of K2
+(``pdhg_kernel.pdhg_block_steps``, in place), then K5
+(``pdhg_check.pdhg_check``): the ergodic average, the KKT errors of the
+iterate and of the average, restart-to-average, primal-weight (omega)
+rebalancing, the stop test and the next block's steps, in place on the
+state and on the solve's control record (``new_record``: one int32 row of
+``REC_WORDS`` words per instance).  K2 takes its steps and the stop flag
+from that record, so a block enqueued after its instance stopped does
+nothing.  ``_run_groups`` enqueues groups of ``GROUP_BLOCKS`` blocks and
+reads the record to the host once after each group (``read_record``);
+``iters`` and every bit equal those of a loop that read after each block.
+||K|| comes from K6 (``pdhg_norm.pdhg_norm``) in one launch and stays on the
+device.  On the CPU the wrappers take their plain twins (``pdhg_block_plain``,
+``pdhg_check_plain``, ``estimate_norm_plain``), with the same loop;
+``LPConfig.use_kernel="off"`` (``kernel_route``) takes the twins on any
+device, counted on CUDA.  Scalars are float32, as on the device in the
+reference.  Everything outside the kernels sums the cut adjoint over the
+pool's cut index too (relax/cutbuffer.py), so a solve repeats bit for bit.
 
 ``steer_to_vertex`` (vertex steering) runs one more block from a solved
 state on a perturbed objective, with the solve's route, cut index and ||K||
@@ -76,16 +86,22 @@ def _sym(X):
     return 0.5 * (X + X.T)
 
 
-def estimate_norm(pool: CutPool, n: int, iters: int,
-                  generator: torch.Generator, index: CutIndex,
-                  dense: DenseRows | None = None) -> float:
-    """Power iteration for ||K|| on the symmetric-X primal subspace.  The
-    start vector is drawn on the CPU from ``generator``, so CPU and CUDA runs
-    start alike (the reference draws it from jax.random.PRNGKey(0), which
-    torch cannot reproduce)."""
-    dev = pool.lin.device
-    x = torch.randn((n,), generator=generator).to(dev)
-    X = _sym(torch.randn((n, n), generator=generator).to(dev))
+def norm_start(n: int, generator: torch.Generator, device):
+    """The power iteration's start vector (x, sym(X)): drawn on the CPU from
+    ``generator`` and moved to ``device``, so CPU and CUDA runs start alike
+    (the reference draws it from jax.random.PRNGKey(0), which torch cannot
+    reproduce)."""
+    x = torch.randn((n,), generator=generator).to(device)
+    return x, _sym(torch.randn((n, n), generator=generator).to(device))
+
+
+def estimate_norm_plain(pool: CutPool, n: int, iters: int,
+                        generator: torch.Generator, index: CutIndex,
+                        dense: DenseRows | None = None):
+    """Twin of K6 (``pdhg_norm.pdhg_norm``): power iteration for ||K|| on
+    the symmetric-X primal subspace from ``norm_start``.  Returns
+    ||K|| 1.02 + 1e-12 as a 0-d float32 tensor on the pool's device."""
+    x, X = norm_start(n, generator, pool.lin.device)
     for _ in range(iters):
         kA, kB, kC, *kD = apply_K(x, X, pool, dense)
         gx, gX = apply_KT(kA, kB, kC * pool.active, pool, n, index,
@@ -97,7 +113,7 @@ def estimate_norm(pool: CutPool, n: int, iters: int,
     lam2 = (kA * kA).sum() + (kB * kB).sum() + ((kC * pool.active) ** 2).sum()
     if dense is not None:
         lam2 = lam2 + (kD[0] * kD[0]).sum()
-    return float(torch.sqrt(lam2) * 1.02 + 1e-12)
+    return torch.sqrt(lam2) * 1.02 + 1e-12
 
 
 def _objective(cx, cX, x, X):
@@ -158,76 +174,192 @@ def _dist2(a: PDHGState, b: PDHGState, primal: bool):
     return d2
 
 
+# ---- the solve's control record (csrc/pdhg_common.cuh kRec*) ----
+REC_IT, REC_WLEN, REC_STOP, REC_RESTART, REC_USE_AVG = 0, 1, 2, 3, 4      # int32 words
+REC_OMEGA, REC_ERR, REC_P, REC_D, REC_TAU, REC_SIGMA, REC_ETA, REC_DP, REC_DD = range(5, 14)
+REC_WORDS = 16
+GROUP_BLOCKS = 8        # checked blocks enqueued between two reads of the record
+
+
+def new_record(normK, omega0: float, step_scale: float, max_iters: int, tol: float, device,
+               batch: int | None = None):
+    """The control record of a solve from its start: int32 (REC_WORDS,), or
+    (batch, REC_WORDS) per instance, on ``device``, the float words by their
+    bits: omega = omega0, err = inf, eta = step_scale / normK (normK a float,
+    or a tensor of shape () or (batch,) that stays on the device), tau = eta
+    / omega, sigma = eta omega, the stop flag set when no block is to run."""
+    shape = (REC_WORDS,) if batch is None else (batch, REC_WORDS)
+    rec = torch.zeros(shape, dtype=torch.int32, device=device)
+    f = rec.view(torch.float32)
+    eta = torch.as_tensor(_f32(step_scale), device=device) / torch.as_tensor(
+        normK, dtype=torch.float32, device=device)
+    omega = torch.as_tensor(_f32(omega0), device=device)
+    f[..., REC_OMEGA] = omega
+    f[..., REC_ERR] = float("inf")
+    f[..., REC_ETA] = eta
+    f[..., REC_TAU] = eta / omega
+    f[..., REC_SIGMA] = eta * omega
+    rec[..., REC_STOP] = 0 if (max_iters > 0 and np.inf > _f32(tol)) else 1
+    return rec
+
+
+def record_floats(r: np.ndarray) -> np.ndarray:
+    """The float32 words of a host copy of records (the same memory)."""
+    return r.view(np.float32)
+
+
+# the solve loops run (``_run_groups`` calls) and their reads of the record
+SOLVE_COUNTS = {"solves": 0, "reads": 0}
+
+
+def read_record(rec) -> np.ndarray:
+    """The records on the host (int32; ``record_floats`` views the floats):
+    the solve loop's one host read a group, counted in SOLVE_COUNTS."""
+    SOLVE_COUNTS["reads"] += 1
+    return rec.cpu().numpy()
+
+
+def _run_groups(step, rec, max_iters: int, check_every: int) -> np.ndarray:
+    """Run ``step()`` (one checked block of every instance still running)
+    in groups of GROUP_BLOCKS with one read of ``rec`` after each group,
+    until every instance has stopped; no group runs past the blocks that
+    ``max_iters`` leaves.  Returns the last host copy of the records."""
+    SOLVE_COUNTS["solves"] += 1
+    r = rec.cpu().numpy() if rec.device.type == "cpu" else None
+    left = -(-max_iters // check_every)
+    while r is None or (r.reshape(-1, REC_WORDS)[:, REC_STOP] == 0).any():
+        for _ in range(min(GROUP_BLOCKS, left)):
+            step()
+        r = read_record(rec)
+        rows = r.reshape(-1, REC_WORDS)
+        run = rows[:, REC_STOP] == 0
+        if run.any():
+            left = int(-(-(max_iters - rows[run, REC_IT].min()) // check_every))
+    return r
+
+
+def pdhg_check_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                     anchor: PDHGState, rec, check_every: int, restart_period: int,
+                     max_iters: int, tol: float, dense: DenseRows | None = None):
+    """Twin of K5 (``pdhg_check.pdhg_check``): the checked block's control,
+    as the reference's loop body, in place on (st, acc, anchor) and the
+    record ``rec`` (REC_WORDS,), read to the host and written back.  Does
+    nothing when the record has stopped."""
+    r = rec.cpu().numpy()
+    f = record_floats(r)
+    if r[REC_STOP]:
+        return
+    n = cx.shape[0]
+    wlen = int(r[REC_WLEN]) + check_every
+    avg = acc.map(lambda t: t * float(_f32(1.0) / _f32(wlen)))
+    kc = _kkt_error(cx, cX, pool, dense, st, n, index)
+    ka = _kkt_error(cx, cX, pool, dense, avg, n, index)
+    e_c, p_c, d_c, e_a, p_a, d_a = torch.stack([*kc, *ka]).cpu().numpy()
+    use_avg = e_a < e_c
+    cand = avg if use_avg else st
+    err, p, d = (e_a, p_a, d_a) if use_avg else (e_c, p_c, d_c)
+    omega = f[REC_OMEGA]
+    restart = use_avg or wlen >= restart_period
+    if restart:
+        # primal-weight rebalancing between restarts (PDLP, theta = 0.5)
+        dp, dd = (torch.stack([torch.sqrt(_dist2(cand, anchor, True)),
+                               torch.sqrt(_dist2(cand, anchor, False))])
+                  .cpu().numpy() + _f32(1e-12))
+        omega = np.clip(np.exp(_f32(0.5) * np.log(dd / dp) + _f32(0.5) * np.log(omega)),
+                        _f32(1e-4), _f32(1e4)).astype(_f32)
+        for a_, b_, t in zip(st.fields(), anchor.fields(), cand.fields()):
+            if t is not a_:
+                a_.copy_(t)
+            b_.copy_(t)
+        for t in acc.fields():
+            t.zero_()
+        f[REC_DP], f[REC_DD] = dp, dd
+        wlen = 0
+    it = int(r[REC_IT]) + check_every
+    r[REC_IT], r[REC_WLEN] = it, wlen
+    r[REC_STOP] = it >= max_iters or not err / (_f32(1.0) + abs(p) + abs(d)) > _f32(tol)
+    r[REC_RESTART], r[REC_USE_AVG] = restart, use_avg
+    f[REC_OMEGA], f[REC_ERR], f[REC_P], f[REC_D] = omega, err, p, d
+    f[REC_TAU], f[REC_SIGMA] = f[REC_ETA] / omega, f[REC_ETA] * omega
+    if rec.device.type != "cpu":          # on the CPU, r is rec's own memory
+        rec.copy_(torch.from_numpy(r))
+
+
+def _buffers(st0: PDHGState):
+    """A solve's state, anchor and sums: contiguous copies of ``st0``
+    (which the solve leaves as it is) and zeros, updated in place."""
+    def copy(t):
+        return t.clone(memory_format=torch.contiguous_format)
+    return st0.map(copy), st0.map(copy), st0.map(lambda t: torch.zeros(
+        t.shape, dtype=t.dtype, device=t.device))
+
+
+def _copy_into(dst: PDHGState, src: PDHGState):
+    for a, b in zip(dst.fields(), src.fields()):
+        a.copy_(b)
+
+
 def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
-                normK: float, omega0: float, tol: float, step_scale: float,
+                normK, omega0: float, tol: float, step_scale: float,
                 max_iters: int, check_every: int, restart_period: int,
                 dense: DenseRows | None = None, kernel: bool = True):
-    """Checked-block PDHG solve from ``st0`` with a given ``normK``; ``index``
-    is ``build_cut_index(pool, n)``; ``kernel``: blocks through
-    ``pdhg_block``, else the plain loop (``kernel_route``).  Returns (state,
-    info) with python scalars in info."""
-    from .pdhg_kernel import pdhg_block, pdhg_block_plain
+    """Checked-block PDHG solve from ``st0`` (left as it is) with a given
+    ``normK`` (a float or a 0-d tensor); ``index`` is
+    ``build_cut_index(pool, n)``; ``kernel``: the blocks and the check
+    through their wrappers (K2 and K5 on CUDA), else their plain twins on
+    the tensors' device (``kernel_route``).  Returns (state, info) with
+    python scalars in info."""
+    from .pdhg_check import pdhg_check
+    from .pdhg_kernel import pdhg_block, pdhg_block_steps, pdhg_block_steps_plain
 
-    block = pdhg_block if kernel else pdhg_block_plain
-    plain_on_card = not kernel and cx.device.type == "cuda"
-    n = cx.shape[0]
-    eta = _f32(step_scale) / _f32(normK)
-    zeros = st0.map(torch.zeros_like)
-    st, acc, anchor, wlen, it = st0, zeros, st0, 0, 0
-    omega = _f32(omega0)
-    err, p, d = _f32(np.inf), _f32(0.0), _f32(0.0)
-    while it < max_iters and err / (_f32(1.0) + abs(p) + abs(d)) > _f32(tol):
-        tau, sigma = eta / omega, eta * omega
-        st, acc = block(cx, cX, pool, index, st, acc, float(tau), float(sigma),
-                        check_every, dense)
-        if plain_on_card:
+    st, anchor, acc = _buffers(st0)
+    rec = new_record(normK, omega0, step_scale, max_iters, tol, cx.device)
+    args = (cx, cX, pool, index, st, acc)
+    control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
+    block, check = ((pdhg_block_steps, pdhg_check) if kernel
+                    else (pdhg_block_steps_plain, pdhg_check_plain))
+    on_card = not kernel and cx.device.type == "cuda"
+
+    def step():
+        if block(*args, rec, check_every, dense) and on_card:
             pdhg_block.plain_launches += 1
-        wlen += check_every
-        avg = acc.map(lambda t: t * float(_f32(1.0) / _f32(wlen)))
+            pdhg_check.plain_launches += 1
+        check(*args, *control)
 
-        kc = _kkt_error(cx, cX, pool, dense, st, n, index)
-        ka = _kkt_error(cx, cX, pool, dense, avg, n, index)
-        e_c, p_c, d_c, e_a, p_a, d_a = torch.stack([*kc, *ka]).cpu().numpy()
-        use_avg = e_a < e_c
-        cand = avg if use_avg else st
-        err, p, d = (e_a, p_a, d_a) if use_avg else (e_c, p_c, d_c)
-        if use_avg or wlen >= restart_period:
-            # primal-weight rebalancing between restarts (PDLP, theta = 0.5)
-            dp, dd = (torch.stack([torch.sqrt(_dist2(cand, anchor, True)),
-                                   torch.sqrt(_dist2(cand, anchor, False))])
-                      .cpu().numpy() + _f32(1e-12))
-            omega = np.clip(np.exp(_f32(0.5) * np.log(dd / dp)
-                                   + _f32(0.5) * np.log(omega)),
-                            _f32(1e-4), _f32(1e4)).astype(_f32)
-            st = anchor = cand
-            acc, wlen = zeros, 0
-        it += check_every
-    return st, {"iters": it, "kkt_error": float(err), "primal_obj": float(p),
-                "dual_obj": float(d), "omega": float(omega)}
+    r = _run_groups(step, rec, max_iters, check_every)
+    f = record_floats(r)
+    return st, {"iters": int(r[REC_IT]), "kkt_error": float(f[REC_ERR]),
+                "primal_obj": float(f[REC_P]), "dual_obj": float(f[REC_D]),
+                "omega": float(f[REC_OMEGA])}
 
 
 @dataclasses.dataclass
 class SolveSetup:
     """What a solve derives from its pool once: the blocks' route, the cut
     index and ||K||.  Steering reuses the solve's, as the pool is the same."""
-    kernel: bool          # blocks through pdhg_block (else the plain loop)
+    kernel: bool          # blocks, check and norm through their wrappers (else the twins)
     index: CutIndex
-    normK: float          # a batch's: (B,) float32 numpy (solve_setup_batched)
+    normK: object         # a 0-d float32 tensor on the device; a batch's: (B,)
 
 
 def solve_setup(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
     """The route by ``cfg.use_kernel`` (``lp/pdhg_kernel.py::kernel_route``),
-    ``build_cut_index`` and ``estimate_norm`` of a solve over ``pool``."""
+    ``build_cut_index`` and ||K|| of a solve over ``pool``: K6
+    (``pdhg_norm``) on the kernel route, ``estimate_norm_plain`` otherwise;
+    it stays on the device."""
     from .pdhg_kernel import kernel_route
+    from .pdhg_norm import pdhg_norm
 
     n = int(c.shape[0])
     M, k = pool.idx.shape
     kernel = kernel_route(cfg.use_kernel, c.device, n, M, k,
                           0 if dense is None else dense.m)
     index = build_cut_index(pool, n)        # the pool is constant in a solve
-    normK = estimate_norm(pool, n, cfg.power_iters,
-                          torch.Generator(device="cpu").manual_seed(0), index,
-                          dense)
+    norm = pdhg_norm if kernel else estimate_norm_plain
+    normK = norm(pool, n, cfg.power_iters, torch.Generator(device="cpu").manual_seed(0), index,
+                 dense)
+    if not kernel and c.device.type == "cuda":
+        pdhg_norm.plain_launches += 1
     return SolveSetup(kernel, index, normK)
 
 
@@ -253,18 +385,19 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
 
 # ---- the instance axis: a batch of solves of one shape (parallel/round.py) ----
 
-def estimate_norm_batched(pool: CutPool, n: int, iters: int, generator: torch.Generator,
-                          index: CutIndex, dense: DenseRows | None = None):
-    """``estimate_norm`` of every instance of a batch (``relax/batched.py``
-    shapes) in one power iteration: each instance starts from the vector a
-    single solve draws (one CPU draw from ``generator``, broadcast).
-    Returns ||K|| of each instance, (B,) float32 on the device."""
+def estimate_norm_batched_plain(pool: CutPool, n: int, iters: int,
+                                generator: torch.Generator, index: CutIndex,
+                                dense: DenseRows | None = None):
+    """Twin of K6's batched launch (``pdhg_norm.pdhg_norm_batched``):
+    ``estimate_norm_plain`` of every instance of a batch (``relax/batched.py``
+    shapes) in one power iteration; each instance starts from the vector a
+    single solve draws (``norm_start``, broadcast).  Returns ||K|| of each
+    instance, (B,) float32 on the device."""
     from ..relax import batched as rb
 
-    dev = pool.lin.device
     B = pool.lin.shape[0]
-    x = torch.randn((n,), generator=generator).to(dev).expand(B, n)
-    X = rb.sym(torch.randn((n, n), generator=generator).to(dev).expand(B, n, n))
+    x, X = norm_start(n, generator, pool.lin.device)
+    x, X = x.expand(B, n), X.expand(B, n, n)
     for _ in range(iters):
         kA, kB, kC, *kD = rb.apply_K(x, X, pool, dense)
         gx, gX = rb.apply_KT(kA, kB, kC * pool.active, pool, n, index,
@@ -329,6 +462,62 @@ def _restart_distances(cand: PDHGState, anchor: PDHGState) -> np.ndarray:
     return torch.stack([torch.sqrt(dp), torch.sqrt(dd)], 1).cpu().numpy()
 
 
+def pdhg_check_batched_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                             acc: PDHGState, anchor: PDHGState, rec, check_every: int,
+                             restart_period: int, max_iters: int, tol: float,
+                             dense: DenseRows | None = None):
+    """Twin of K5's batched launch (``pdhg_check.pdhg_check_batched``):
+    ``pdhg_check_plain`` of every instance whose record (``rec``: (B,
+    REC_WORDS)) has not stopped, with the reference's vmapped semantics, in
+    place: one (B, 6) host read of the KKT errors (``block_check``) and,
+    when an instance restarts, one (B, 2) read of its distances."""
+    from ..relax import batched as rb
+
+    r = rec.cpu().numpy()
+    f = record_floats(r)
+    running = r[:, REC_STOP] == 0
+    if not running.any():
+        return
+    n = cx.shape[1]
+    dev = cx.device
+    wlen = r[:, REC_WLEN].astype(np.int64)
+    wlen[running] += check_every
+    inv = np.where(wlen > 0, _f32(1.0) / np.maximum(wlen, 1).astype(_f32), _f32(0.0))
+    inv_t = torch.as_tensor(inv.astype(_f32)).to(dev)
+    avg = acc.map(lambda t: t * inv_t.view(-1, *[1] * (t.dim() - 1)))
+    e_c, p_c, d_c, e_a, p_a, d_a = block_check(cx, cX, pool, dense, st, avg, n, index).T
+    use_avg = e_a < e_c
+    err, p, d = (np.where(running, np.where(use_avg, va, vc), f[:, w])
+                 for va, vc, w in ((e_a, e_c, REC_ERR), (p_a, p_c, REC_P), (d_a, d_c, REC_D)))
+    omega = f[:, REC_OMEGA].copy()
+    restart = running & (use_avg | (wlen >= restart_period))
+    if restart.any():
+        masks = torch.as_tensor(np.stack([use_avg, restart])).to(dev)
+        cand = rb.where(masks[0], avg, st)
+        dist = _restart_distances(cand, anchor) + _f32(1e-12)
+        # primal-weight rebalancing between restarts (PDLP, theta = 0.5)
+        new_omega = np.clip(np.exp(_f32(0.5) * np.log(dist[:, 1] / dist[:, 0])
+                                   + _f32(0.5) * np.log(omega)),
+                            _f32(1e-4), _f32(1e4)).astype(_f32)
+        omega = np.where(restart, new_omega, omega).astype(_f32)
+        _copy_into(st, rb.where(masks[1], cand, st))
+        _copy_into(anchor, rb.where(masks[1], cand, anchor))
+        _copy_into(acc, rb.where(masks[1], acc.map(torch.zeros_like), acc))
+        wlen[restart] = 0
+        f[restart, REC_DP], f[restart, REC_DD] = dist[restart, 0], dist[restart, 1]
+    it = r[:, REC_IT].astype(np.int64) + np.where(running, check_every, 0)
+    stop = (it >= max_iters) | ~(err / (_f32(1.0) + np.abs(p) + np.abs(d)) > _f32(tol))
+    r[:, REC_IT] = it
+    r[:, REC_WLEN] = wlen
+    r[:, REC_STOP] = np.where(running, stop, True)
+    r[running, REC_RESTART] = restart[running]
+    r[running, REC_USE_AVG] = use_avg[running]
+    f[:, REC_OMEGA], f[:, REC_ERR], f[:, REC_P], f[:, REC_D] = omega, err, p, d
+    f[:, REC_TAU], f[:, REC_SIGMA] = f[:, REC_ETA] / omega, f[:, REC_ETA] * omega
+    if rec.device.type != "cpu":          # on the CPU, r is rec's own memory
+        rec.copy_(torch.from_numpy(r))
+
+
 def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK,
                    omega0: float, tol: float, step_scale: float, max_iters: int,
                    check_every: int, restart_period: int,
@@ -336,84 +525,63 @@ def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK
     """``_solve_impl`` for a batch of B instances of one shape: cx (B, n),
     cX (B, n, n), the other arguments with the instance axis first
     (``relax/batched.py``; ``index`` from its ``build_cut_index``), normK
-    (B,) on the host.  The semantics of the reference's vmapped
-    ``lax.while_loop``: every instance stops at its own tolerance or at
-    ``max_iters`` and is frozen from then on; omega, the restart anchor,
-    the window and the error are per instance; the loop runs while any
-    instance runs.  Each checked block is one ``pdhg_block_batched`` call
-    for the running instances (one K2 launch on CUDA; the per-instance plain
-    loop with ``kernel`` False, counted in ``pdhg_block.plain_launches`` on
-    CUDA), then one (B, 6) host read of the KKT errors and, when an instance
-    restarts, one (B, 2) read of its distances.  Returns (state, info) with
+    (B,) on the device or the host.  The semantics of the reference's
+    vmapped ``lax.while_loop``: every instance stops at its own tolerance or
+    at ``max_iters`` and is frozen from then on; omega, the restart anchor,
+    the window and the error are per instance (a row of the control record
+    each); the loop runs while any instance runs.  Each checked block is one
+    batched K2 launch (``pdhg_block_steps_batched``) and one batched K5
+    launch (``pdhg_check_batched``) for every instance, a stopped one doing
+    nothing; one read of the records a group.  With ``kernel`` False the
+    twins run instead (the block for the instances still running, counted
+    in ``pdhg_block.plain_launches`` on CUDA).  Returns (state, info) with
     (B,) numpy arrays in info."""
-    from .pdhg_kernel import pdhg_block, pdhg_block_batched, pdhg_block_batched_plain
-    from ..relax import batched as rb
+    from .pdhg_check import pdhg_check, pdhg_check_batched
+    from .pdhg_kernel import (pdhg_block, pdhg_block_steps_batched,
+                              pdhg_block_steps_batched_plain)
 
-    block = pdhg_block_batched if kernel else pdhg_block_batched_plain
-    plain_on_card = not kernel and cx.device.type == "cuda"
-    B, n = cx.shape
-    dev = cx.device
-    eta = _f32(step_scale) / np.asarray(normK, _f32)
-    zeros = st0.map(torch.zeros_like)
-    st, acc, anchor = st0, zeros, st0
-    wlen = np.zeros(B, np.int64)
-    it = np.zeros(B, np.int64)
-    omega = np.full(B, _f32(omega0), _f32)
-    err = np.full(B, np.inf, _f32)
-    p = np.zeros(B, _f32)
-    d = np.zeros(B, _f32)
-    while True:
-        running = (it < max_iters) & (err / (_f32(1.0) + np.abs(p) + np.abs(d)) > _f32(tol))
-        ids = np.flatnonzero(running)
-        if ids.size == 0:
-            break
-        st, acc = block(cx, cX, pool, index, st, acc, eta / omega, eta * omega,
-                        check_every, ids, dense)
-        if plain_on_card:
+    B = cx.shape[0]
+    st, anchor, acc = _buffers(st0)
+    rec = new_record(normK, omega0, step_scale, max_iters, tol, cx.device, batch=B)
+    args = (cx, cX, pool, index, st, acc)
+    control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
+    block, check = ((pdhg_block_steps_batched, pdhg_check_batched) if kernel
+                    else (pdhg_block_steps_batched_plain, pdhg_check_batched_plain))
+    on_card = not kernel and cx.device.type == "cuda"
+
+    def step():
+        if block(*args, rec, check_every, dense) and on_card:
             pdhg_block.plain_launches += 1
-        wlen[ids] += check_every
-        inv = np.where(wlen > 0, _f32(1.0) / np.maximum(wlen, 1).astype(_f32), _f32(0.0))
-        inv_t = torch.as_tensor(inv.astype(_f32)).to(dev)
-        avg = acc.map(lambda t: t * inv_t.view(-1, *[1] * (t.dim() - 1)))
-        e_c, p_c, d_c, e_a, p_a, d_a = block_check(cx, cX, pool, dense, st, avg, n, index).T
-        use_avg = e_a < e_c
-        err[ids] = np.where(use_avg, e_a, e_c)[ids]
-        p[ids] = np.where(use_avg, p_a, p_c)[ids]
-        d[ids] = np.where(use_avg, d_a, d_c)[ids]
-        restart = running & (use_avg | (wlen >= restart_period))
-        if restart.any():
-            masks = torch.as_tensor(np.stack([use_avg, restart])).to(dev)
-            cand = rb.where(masks[0], avg, st)
-            dist = _restart_distances(cand, anchor) + _f32(1e-12)
-            # primal-weight rebalancing between restarts (PDLP, theta = 0.5)
-            new_omega = np.clip(np.exp(_f32(0.5) * np.log(dist[:, 1] / dist[:, 0])
-                                       + _f32(0.5) * np.log(omega)),
-                                _f32(1e-4), _f32(1e4)).astype(_f32)
-            omega = np.where(restart, new_omega, omega).astype(_f32)
-            st = rb.where(masks[1], cand, st)
-            anchor = rb.where(masks[1], cand, anchor)
-            acc = rb.where(masks[1], zeros, acc)
-            wlen[restart] = 0
-        it[ids] += check_every
-    return st, {"iters": it, "kkt_error": err.astype(np.float64), "primal_obj": p,
-                "dual_obj": d, "omega": omega}
+            pdhg_check.plain_launches += 1
+        check(*args, *control)
+
+    r = _run_groups(step, rec, max_iters, check_every)
+    f = record_floats(r)
+    return st, {"iters": r[:, REC_IT].astype(np.int64), "kkt_error": f[:, REC_ERR].astype(np.float64),
+                "primal_obj": f[:, REC_P].copy(), "dual_obj": f[:, REC_D].copy(),
+                "omega": f[:, REC_OMEGA].copy()}
 
 
 def solve_setup_batched(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
     """``solve_setup`` of a batch (c (B, n)): the route by ``cfg.use_kernel``
-    at the batch's shape, ``relax.batched.build_cut_index`` and
-    ``estimate_norm_batched`` (its (B,) result read to the host once)."""
+    at the batch's shape, ``relax.batched.build_cut_index`` and ||K|| of
+    every instance, (B,) on the device (K6's batched launch on the kernel
+    route, ``estimate_norm_batched_plain`` otherwise)."""
     from ..relax import batched as rb
     from .pdhg_kernel import kernel_route
+    from .pdhg_norm import pdhg_norm, pdhg_norm_batched
 
     n = int(c.shape[1])
     M, k = pool.idx.shape[1:]
     kernel = kernel_route(cfg.use_kernel, c.device, n, M, k,
                           0 if dense is None else dense.G.shape[1])
     index = rb.build_cut_index(pool, n)
-    normK = estimate_norm_batched(pool, n, cfg.power_iters,
-                                  torch.Generator(device="cpu").manual_seed(0), index, dense)
-    return SolveSetup(kernel, index, normK.cpu().numpy())
+    norm = pdhg_norm_batched if kernel else estimate_norm_batched_plain
+    normK = norm(pool, n, cfg.power_iters, torch.Generator(device="cpu").manual_seed(0), index,
+                 dense)
+    if not kernel and c.device.type == "cuda":
+        pdhg_norm.plain_launches += 1
+    return SolveSetup(kernel, index, normK)
 
 
 def rademacher_signs(n: int, generator: torch.Generator, device):
@@ -438,7 +606,7 @@ def _steer_impl(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
     scale = float(eps) * (cX.abs().mean() + cx.abs().mean())
     cx_p = cx + scale * sx
     cX_p = cX + scale * _sym(SX)
-    eta = _f32(step_scale) / _f32(setup.normK)
+    eta = _f32(step_scale) / _f32(float(setup.normK))      # a host float: one read
     tau, sigma = eta / _f32(omega), eta * _f32(omega)
     block = pdhg_block if setup.kernel else pdhg_block_plain
     if not setup.kernel and cx.device.type == "cuda":

@@ -32,10 +32,18 @@ Instance axis: ``pdhg_block_batched`` runs one block for the instances
 ``ids`` of a batch of one shape (every array stacked along a leading axis,
 the cut index from ``relax/batched.py::build_cut_index``) in one launch: a
 grid of one cluster per listed instance, each with its own tau and sigma.
-The instances left out come back unchanged, bit for bit: that is how a
-batched solve freezes a converged instance.  ``pdhg_block`` is the batch of
-one of the same entry point.  ``max_active_clusters`` asks the card how many
-clusters of a plan run at once.
+The instances left out come back unchanged, bit for bit.  ``pdhg_block`` is
+the batch of one of the same entry point.  ``max_active_clusters`` asks the
+card how many clusters of a plan run at once.
+
+Steps: the kernel reads each instance's tau, sigma and stop flag from a
+control record in device memory (``lp/pdhg.py::new_record``).  The solve's
+loop calls ``pdhg_block_steps`` / ``pdhg_block_steps_batched``: in place,
+every instance, with the steps K5 (``pdhg_check``) wrote after the last
+block, so nothing is read to the host between blocks; an instance whose
+record has stopped leaves at entry and stays frozen, bit for bit.
+``pdhg_block`` and ``pdhg_block_batched`` keep taking host floats (steering,
+the twins' checks): their steps go into records of their own.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_block.launches`` counts kernel launches, one a
@@ -54,7 +62,7 @@ from .. import _build
 from ..relax.batched import batch_of_one, instance
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
-from .pdhg import PDHGState, _one_iter
+from .pdhg import REC_SIGMA, REC_STOP, REC_TAU, REC_WORDS, PDHGState, _one_iter, record_floats
 
 NMAX = 128                  # one thread column per matrix column
 CLUSTER = 16                # CTAs in the cluster (non-portable size; 8 is portable)
@@ -197,69 +205,69 @@ def pdhg_block_batched_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGSta
     return PDHGState(*outs[:6]), PDHGState(*outs[6:])
 
 
-def _launch_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
-                    acc: PDHGState, tau, sigma, iters: int, ids,
-                    dense: DenseRows | None, cluster: int = CLUSTER):
-    """One launch for the instances ``ids`` of a batch: every argument
-    carries the instance axis first (``relax/batched.py``), ``index`` is
-    ``relax.batched.build_cut_index(pool, n)``, tau and sigma are (B,)."""
+def _checked_args(cx, cX, pool: CutPool, index: CutIndex, states, dense: DenseRows | None,
+                  name: str):
+    """Check a batched launch's arguments (every argument with the instance
+    axis first; ``states``: the PDHGStates it reads or writes).  Returns
+    (B, n, M, k, m, ex, eX)."""
     B, n = cx.shape
     M, k = pool.idx.shape[1:]
     m = 0 if dense is None else dense.G.shape[1]
-    plan = launch_plan(n, M, k, m, cluster)
-    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
-    if ids.size and (ids.min() < 0 or ids.max() >= B or (np.diff(ids) <= 0).any()):
-        raise ValueError(f"pdhg_block kernel: ids must be increasing instances of 0..{B - 1}")
     shapes = {"cX": (cX, (B, n, n)), "pool.lin": (pool.lin, (B, M, k)),
               "pool.quad": (pool.quad, (B, M, k, k)), "pool.rhs": (pool.rhs, (B, M)),
               "pool.active": (pool.active, (B, M)), "index.idx": (index.idx, (B, M, k)),
               "index.xoff": (index.xoff, (B, n + 1)), "index.Xoff": (index.Xoff, (B, n * n + 1)),
-              **{f"state.{f}": (t, s) for st_ in (st, acc) for f, t, s in zip(
+              **{f"state.{f}": (t, s) for st_ in states for f, t, s in zip(
                   ("x", "X", "yA", "yB", "yC", "yD"), st_.fields(),
                   ((B, n), (B, n, n), (B, n, n), (B, n, n), (B, M), (B, m)))}}
     if dense is not None:
         shapes.update({"dense.G": (dense.G, (B, m, n, n)), "dense.g": (dense.g, (B, m, n)),
                        "dense.h": (dense.h, (B, m))})
-    for name, (t, want) in shapes.items():
+    for field, (t, want) in shapes.items():
         if tuple(t.shape) != want:
-            raise ValueError(f"pdhg_block kernel: {name} has shape {tuple(t.shape)}, "
-                             f"want {want}")
+            raise ValueError(f"{name} kernel: {field} has shape {tuple(t.shape)}, want {want}")
     ex, eX = index.xcut.shape[-1], index.Xcut.shape[-1]
     if index.xcut.shape != (B, ex) or index.Xcut.shape != (B, eX):
-        raise ValueError("pdhg_block kernel: the cut index's terms must be (B, E) arrays")
+        raise ValueError(f"{name} kernel: the cut index's terms must be (B, E) arrays")
     floats = [cx, cX, pool.lin, pool.quad, pool.rhs, pool.active,
-              index.xcoef, index.Xcoef, *st.fields(), *acc.fields()]
+              index.xcoef, index.Xcoef, *(t for st_ in states for t in st_.fields())]
     if dense is not None:
         floats += [dense.G, dense.g, dense.h]
     for t in floats:
         if t.dtype != torch.float32 or t.device != cx.device:
-            raise ValueError("pdhg_block kernel takes float32 tensors on one device")
-    ints = [index.idx, index.xoff, index.xcut, index.Xoff, index.Xcut]
-    for t in ints:
+            raise ValueError(f"{name} kernel takes float32 tensors on one device")
+    for t in (index.idx, index.xoff, index.xcut, index.Xoff, index.Xcut):
         if t.dtype != torch.int32 or t.device != cx.device:
-            raise ValueError("pdhg_block kernel takes an int32 cut index on one device")
-    lib = _build.lib()
-    ins = [t.contiguous() for t in (*st.fields(), *acc.fields())]
-    if ids.size == B:
-        outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in ins]
-    else:
-        # the instances left out keep their inputs: copy all of them in one
-        # launch, then update the listed ones in place
-        flat = torch.cat([t.reshape(-1) for t in ins])
-        outs = [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in ins]), ins)]
-        ins = outs
+            raise ValueError(f"{name} kernel takes an int32 cut index on one device")
+    return B, n, M, k, m, ex, eX
+
+
+def check_record(rec, B: int, device, name: str):
+    """A batch's control records: int32 (B, REC_WORDS), contiguous, on ``device``."""
+    if (rec.dtype != torch.int32 or tuple(rec.shape) != (B, REC_WORDS)
+            or rec.device != device or not rec.is_contiguous()):
+        raise ValueError(f"{name} kernel takes int32 records of shape ({B}, {REC_WORDS}) on "
+                         f"{device}, got {rec.dtype} {tuple(rec.shape)} on {rec.device}")
+
+
+def _launch_core(cx, cX, pool: CutPool, index: CutIndex, ins: list, outs: list, rec,
+                 iters: int, ids: np.ndarray, dense: DenseRows | None, cluster: int):
+    """The C launch of K2 for the instances ``ids`` with the steps and stop
+    flags of ``rec``; ``ins``/``outs``: the 12 state and sum tensors."""
+    B, n = cx.shape
+    M, k = pool.idx.shape[1:]
+    m = 0 if dense is None else dense.G.shape[1]
+    plan = launch_plan(n, M, k, m, cluster)
+    ex, eX = index.xcut.shape[-1], index.Xcut.shape[-1]
     c = [t.contiguous() for t in (cx, cX, index.idx, pool.lin, pool.quad, pool.rhs,
                                   pool.active, index.xoff, index.xcut, index.xcoef,
                                   index.Xoff, index.Xcut, index.Xcoef)]
     d = [] if dense is None else [t.contiguous() for t in (dense.G, dense.g, dense.h)]
     dptr = [t.data_ptr() for t in d] or [None] * 3
     count = int(ids.size)
-    tau = np.asarray(tau, dtype=np.float32)[ids]
-    sigma = np.asarray(sigma, dtype=np.float32)[ids]
-    err = lib.pdhg_block_launch(
+    err = _build.lib().pdhg_block_launch(
         n, M, k, m, iters, plan.cluster, plan.term_cap, plan.smem_bytes, count,
-        (ctypes.c_int * count)(*ids.tolist()), (ctypes.c_float * count)(*tau.tolist()),
-        (ctypes.c_float * count)(*sigma.tolist()), ex, eX,
+        (ctypes.c_int * count)(*ids.tolist()), rec.data_ptr(), ex, eX,
         *(t.data_ptr() for t in c), *dptr,
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
         torch.cuda.current_stream(cx.device).cuda_stream,
@@ -269,7 +277,56 @@ def _launch_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
                            f"{plan.smem_bytes} bytes per CTA)")
     _build.check(err, "pdhg_block_launch")
     pdhg_block.launches += 1
+
+
+def steps_record(tau, sigma, device):
+    """Control records that hold only host steps tau[b], sigma[b] (B,), for
+    a launch with steps from the host: int32 (B, REC_WORDS) on ``device``,
+    one upload (steering and the twins; the solve's blocks use its record)."""
+    tau = np.asarray(tau, dtype=np.float32).reshape(-1)
+    sigma = np.asarray(sigma, dtype=np.float32).reshape(-1)
+    r = np.zeros((tau.size, REC_WORDS), np.int32)
+    f = r.view(np.float32)
+    f[:, REC_TAU], f[:, REC_SIGMA] = tau, sigma
+    return torch.from_numpy(r).to(device)
+
+
+def _launch_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                    acc: PDHGState, tau, sigma, iters: int, ids,
+                    dense: DenseRows | None, cluster: int = CLUSTER):
+    """One launch for the instances ``ids`` of a batch: every argument
+    carries the instance axis first (``relax/batched.py``), ``index`` is
+    ``relax.batched.build_cut_index(pool, n)``, tau and sigma are (B,) host
+    steps, uploaded as control records."""
+    B = _checked_args(cx, cX, pool, index, (st, acc), dense, "pdhg_block")[0]
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= B or (np.diff(ids) <= 0).any()):
+        raise ValueError(f"pdhg_block kernel: ids must be increasing instances of 0..{B - 1}")
+    ins = [t.contiguous() for t in (*st.fields(), *acc.fields())]
+    if ids.size == B:
+        outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in ins]
+    else:
+        # the instances left out keep their inputs: copy all of them in one
+        # launch, then update the listed ones in place
+        flat = torch.cat([t.reshape(-1) for t in ins])
+        outs = [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in ins]), ins)]
+        ins = outs
+    _launch_core(cx, cX, pool, index, ins, outs, steps_record(tau, sigma, cx.device), iters,
+                 ids, dense, cluster)
     return PDHGState(*outs[:6]), PDHGState(*outs[6:])
+
+
+def _launch_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                  rec, iters: int, dense: DenseRows | None, cluster: int = CLUSTER):
+    """One in-place launch for every instance of a batch, each with the
+    steps of its control record; an instance whose record has stopped is
+    left as it is."""
+    B = _checked_args(cx, cX, pool, index, (st, acc), dense, "pdhg_block")[0]
+    check_record(rec, B, cx.device, "pdhg_block")
+    bufs = [*st.fields(), *acc.fields()]
+    if not all(t.is_contiguous() for t in bufs):
+        raise ValueError("pdhg_block kernel: an in-place launch takes contiguous state and sums")
+    _launch_core(cx, cX, pool, index, bufs, bufs, rec, iters, np.arange(B), dense, cluster)
 
 
 def _launch(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
@@ -331,3 +388,67 @@ def pdhg_block_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
     if cx.device.type == "cuda":
         return _launch_batched(cx, cX, pool, index, st, acc, tau, sigma, iters, ids, dense)
     raise ValueError(f"pdhg_block: no kernel for device {cx.device}")
+
+
+def pdhg_block_steps_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                           acc: PDHGState, rec, iters: int, dense: DenseRows | None = None) -> bool:
+    """Twin of ``pdhg_block_steps``: the record read to the host, then
+    ``pdhg_block_plain`` with its steps, in place, unless it has stopped.
+    Returns whether a block ran."""
+    r = rec.cpu().numpy()
+    if r[REC_STOP]:
+        return False
+    f = record_floats(r)
+    new = pdhg_block_plain(cx, cX, pool, index, st, acc, float(f[REC_TAU]), float(f[REC_SIGMA]),
+                           iters, dense)
+    for a, b in zip((*st.fields(), *acc.fields()), (*new[0].fields(), *new[1].fields())):
+        a.copy_(b)
+    return True
+
+
+def pdhg_block_steps_batched_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                                   acc: PDHGState, rec, iters: int,
+                                   dense: DenseRows | None = None) -> bool:
+    """Twin of ``pdhg_block_steps_batched``: ``pdhg_block_batched_plain``
+    for the instances whose records have not stopped, in place.  Returns
+    whether any block ran."""
+    r = rec.cpu().numpy()
+    ids = np.flatnonzero(r[:, REC_STOP] == 0)
+    if not ids.size:
+        return False
+    f = record_floats(r)
+    new = pdhg_block_batched_plain(cx, cX, pool, index, st, acc, f[:, REC_TAU], f[:, REC_SIGMA],
+                                   iters, ids, dense)
+    for a, b in zip((*st.fields(), *acc.fields()), (*new[0].fields(), *new[1].fields())):
+        a.copy_(b)
+    return True
+
+
+def pdhg_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                     rec, iters: int, dense: DenseRows | None = None):
+    """``pdhg_block`` in place on (st, acc), with the steps tau and sigma of
+    the solve's control record ``rec`` (REC_WORDS,) on the device, and
+    nothing done when its stop flag is set: the solve loop's block
+    (lp/pdhg.py), which reads nothing to the host.  Counted in
+    ``pdhg_block.launches``."""
+    if cx.device.type == "cpu":
+        pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, iters, dense)
+    elif cx.device.type == "cuda":
+        _launch_steps(cx[None], cX[None], batch_of_one(pool), batch_of_one(index),
+                      batch_of_one(st), batch_of_one(acc), rec[None], iters,
+                      None if dense is None else batch_of_one(dense))
+    else:
+        raise ValueError(f"pdhg_block: no kernel for device {cx.device}")
+
+
+def pdhg_block_steps_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                             acc: PDHGState, rec, iters: int, dense: DenseRows | None = None):
+    """``pdhg_block_steps`` of every instance of a batch in one launch:
+    records (B, REC_WORDS); an instance whose record has stopped is left as
+    it is, bit for bit.  Counted in ``pdhg_block.launches``."""
+    if cx.device.type == "cpu":
+        pdhg_block_steps_batched_plain(cx, cX, pool, index, st, acc, rec, iters, dense)
+    elif cx.device.type == "cuda":
+        _launch_steps(cx, cX, pool, index, st, acc, rec, iters, dense)
+    else:
+        raise ValueError(f"pdhg_block: no kernel for device {cx.device}")

@@ -14,11 +14,12 @@ winners over its 'cand' group; the LP and the cut update run, replicated,
 on every rank of the group, as in the reference's ``shard_map``.  A rank's
 round is then bit for bit the one-process round of its 'data' shard's
 instances at the logical ``Mesh(1, cand)``.  One round, for every instance:
-  1. ``solve_setup_batched``: the batched cut index and one power iteration
-     for every instance's ||K|| (``lp/pdhg.py``);
-  2. the warm-started restarted PDHG, ``_solve_batched``: one K2 launch a
-     checked block for every instance still running (converged ones are
-     frozen), one host read of the KKT errors a block;
+  1. ``solve_setup_batched``: the batched cut index and one K6 launch for
+     every instance's ||K|| (``lp/pdhg.py``);
+  2. the warm-started restarted PDHG, ``_solve_batched``: one K2 and one K5
+     launch a checked block for every instance (a converged one does
+     nothing and stays frozen), one host read of the control records a
+     group of blocks;
   3. the on-device f32 certificate (bound, and its running minimum);
   4. every shard scores its rows at the solved point and keeps a local top
      ``sel_size`` (ties to the lower row): neural, feasibility, combined

@@ -2,7 +2,8 @@
 
     python3 -m sdpcutsel_tpu_torch.profile_round [--instance spar125-100-1]
         [--rounds N] [--pair-layout {auto,packed}] [--scan] [--strategy NAME]
-        [--steer-eps EPS] [--out chiprun_out]
+        [--steer-eps EPS] [--batch] [--groups 1,2,4,8,16] [--spread RUNS]
+        [--out chiprun_out]
 
 The main paths are chip_smoke.py's:
   * a BoxQP name (default spar125-100-1): CutSolver, strategy neural,
@@ -20,8 +21,22 @@ round) apply to either family; ``--scan`` to either too.
 twelve spar125-{25,50,75,100}-{1,2,3} of data/boxqp as one batch
 (``parallel/round.py``, scripts/bench_batched.py --suite's configuration:
 capacity 1024, k = 3, lp_iters 400, sel_size 16, neural, Mesh(1, 1)), 10
-per-round steps; it prints instance-rounds/s, the batched setup, the KKT
-reads per checked block and the split of the same stages.
+per-round steps; it prints instance-rounds/s, the batched setup, the host
+reads of the solves' control record per checked block and the split of the
+same stages.  ``--groups`` first times plain runs with each number of
+blocks between two reads of the record (``lp/pdhg.py::GROUP_BLOCKS``), in
+turns (the list, then the list reversed).
+``--spread RUNS`` measures, instead of the profile, how far the path's final
+bound moves with rounding-level changes (a QCQP path with chip_smoke.py's
+60,000-iteration polish): the bounds of one run under each of two controls
+of the solve, K5 and K6 as the solve runs them and their plain twins (the
+host loop's arithmetic that K5 and K6 replaced; K2 runs in both), then,
+under each control, the final bounds with omega0 or step_scale moved up by
+1 to RUNS float32 ulps, each alone (min, median, max and the unmoved
+run's rank), and the first solve and block at which the two controls'
+runs part: the first ||K|| whose bits differ, the first record word that
+differs, and the first that steers the iterates (it, wlen, stop, restart,
+use_avg, omega, tau, sigma), with both records there.
 After one warm-up round (kernel build, first cuSOLVER use), three runs of
 ``--rounds`` rounds, each from a fresh solver:
 
@@ -43,6 +58,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
 import importlib
 import os
 import subprocess
@@ -56,7 +73,9 @@ from .config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
 from .instances import load_or_generate_qcqp, parse_boxqp
 from .loop import solver as solver_mod
 from .lp import pdhg as pdhg_mod
+from .lp import pdhg_check as pdhg_check_mod
 from .lp import pdhg_kernel as pdhg_kernel_mod
+from .lp import pdhg_norm as pdhg_norm_mod
 from .models import labels as labels_mod
 from .parallel import round as round_mod
 from .qcqp import solver as qcqp_mod
@@ -71,17 +90,19 @@ fused_score_mod = importlib.import_module(".ops.fused_score", __package__)
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data", "boxqp")
 LP = LPConfig(max_iters=20000, tol=2e-6)
+QCQP_POLISH = 60000            # chip_smoke.py's QCQP main path
 
 # (owner, attribute, label); a label indented by two spaces is part of the
 # stage above it.  A function that both solvers import by name is patched
 # in both modules under one label.
 STAGES = [
     (solver_mod, "solve_setup", "solve_setup"),
-    (pdhg_mod, "estimate_norm", "  estimate_norm"),
+    (pdhg_norm_mod, "_launch", "  K6 pdhg_norm"),
     (pdhg_mod, "build_cut_index", "  build_cut_index"),
     (solver_mod, "solve_lp", "solve_lp"),
-    (pdhg_kernel_mod, "_launch", "  K2 pdhg_block (solve and steering)"),
-    (pdhg_mod, "_kkt_error", "  _kkt_error (torch)"),
+    (pdhg_kernel_mod, "_launch_core", "  K2 pdhg_block (solve and steering)"),
+    (pdhg_check_mod, "_launch", "  K5 pdhg_check"),
+    (pdhg_mod, "read_record", "  record reads (one a group)"),
     (solver_mod, "steer_to_vertex", "steer_to_vertex"),
     *((mod, "dual_bound_f64", "dual_bound_f64 (host numpy)")
       for mod in (solver_mod, qcqp_mod)),
@@ -102,12 +123,12 @@ STAGES = [
 # the batched suite bucket's stages (--batch)
 BATCH_STAGES = [
     (round_mod, "solve_setup_batched", "batched setup"),
-    (pdhg_mod, "estimate_norm_batched", "  estimate_norm_batched"),
+    (pdhg_norm_mod, "_launch", "  K6 pdhg_norm (batched launch)"),
     (batched_mod, "build_cut_index", "  build_cut_index (batched)"),
     (round_mod, "_solve_batched", "_solve_batched"),
-    (pdhg_kernel_mod, "_launch_batched", "  K2 pdhg_block (batched launch)"),
-    (pdhg_mod, "block_check", "  KKT check and its (B, 6) read"),
-    (pdhg_mod, "_restart_distances", "  restart distances and their read"),
+    (pdhg_kernel_mod, "_launch_core", "  K2 pdhg_block (batched launch)"),
+    (pdhg_check_mod, "_launch", "  K5 pdhg_check (batched launch)"),
+    (pdhg_mod, "read_record", "  record reads (one a group)"),
     (round_mod, "_dual_bound_batched", "f32 certificate"),
     (round_mod._Round, "select", "scoring + local top-k + merge"),
     (pair_score_mod, "_launch", "  K1 pair_score"),
@@ -173,6 +194,153 @@ def _run(path, dev, rounds: int, history: list | None = None) -> float:
     if history is not None:
         history.extend(hist)
     return time.perf_counter() - t0
+
+
+def time_groups(path, dev, rounds: int, groups: str | None):
+    """Plain runs with each number of blocks between two reads of the
+    solve's record, in turns (the list, then reversed); the default is
+    restored after."""
+    if not groups:
+        return
+    sizes = [int(g) for g in groups.split(",")]
+    default = pdhg_mod.GROUP_BLOCKS
+    walls = collections.defaultdict(list)
+    try:
+        for g in sizes + sizes[::-1]:
+            pdhg_mod.GROUP_BLOCKS = g
+            walls[g].append(_run(path, dev, rounds))
+    finally:
+        pdhg_mod.GROUP_BLOCKS = default
+    for g in sizes:
+        print(f"[groups] {g:3d} blocks a read: runs {walls[g]!r} s, {rounds} rounds each; mean "
+              f"{2 * rounds / sum(walls[g]):.4f} rounds/s", flush=True)
+
+
+@contextlib.contextmanager
+def control(twins: bool):
+    """Single solves whose control is K5 and K6 (``twins`` False) or their
+    plain twins in their place on the card, with the record after every
+    checked block and every ||K|| kept on the device in the yielded trace
+    (with the solve of each block).  As in ``stage_split``, the wrappers'
+    launches (``_launch``, a batch of one) are what is wrapped."""
+    check, norm = pdhg_check_mod._launch, pdhg_norm_mod._launch
+    if twins:
+        def one(o):
+            return None if o is None else batched_mod.instance(o, 0)
+
+        def check(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
+                  max_iters, tol, dense):
+            pdhg_mod.pdhg_check_plain(cx[0], cX[0], one(pool), one(index), one(st), one(acc),
+                                      one(anchor), rec[0], check_every, restart_period,
+                                      max_iters, tol, one(dense))
+
+        def norm(pool, n, iters, generator, index, dense):
+            return pdhg_mod.estimate_norm_plain(one(pool), n, iters, generator, one(index),
+                                                one(dense))[None]
+
+    trace = {"records": [], "solves": [], "norms": []}
+    before = pdhg_mod.SOLVE_COUNTS["solves"]
+
+    def traced_check(*args):
+        check(*args)
+        trace["records"].append(args[7][0].clone())        # the solve's record
+        trace["solves"].append(pdhg_mod.SOLVE_COUNTS["solves"] - before)
+
+    def traced_norm(*args):
+        out = norm(*args)
+        trace["norms"].append(out[0].clone())
+        return out
+
+    saved = pdhg_check_mod._launch, pdhg_norm_mod._launch
+    pdhg_check_mod._launch, pdhg_norm_mod._launch = traced_check, traced_norm
+    try:
+        yield trace
+    finally:
+        pdhg_check_mod._launch, pdhg_norm_mod._launch = saved
+
+
+TRAJECTORY = {"it": pdhg_mod.REC_IT, "wlen": pdhg_mod.REC_WLEN, "stop": pdhg_mod.REC_STOP,
+              "restart": pdhg_mod.REC_RESTART, "use_avg": pdhg_mod.REC_USE_AVG,
+              "omega": pdhg_mod.REC_OMEGA, "tau": pdhg_mod.REC_TAU, "sigma": pdhg_mod.REC_SIGMA}
+VALUES = {"err": pdhg_mod.REC_ERR, "p": pdhg_mod.REC_P, "d": pdhg_mod.REC_D,
+          "dp": pdhg_mod.REC_DP, "dd": pdhg_mod.REC_DD}
+
+
+def describe(row: np.ndarray) -> str:
+    f = pdhg_mod.record_floats(row)
+    return ", ".join([f"{k} {int(row[j])}" for k, j in TRAJECTORY.items() if j < 5]
+                     + [f"{k} {float(f[j])!r}" for k, j in
+                        list(TRAJECTORY.items())[5:] + list(VALUES.items())])
+
+
+def first_divergence(a: dict, b: dict, names=("K5/K6", "twins")):
+    """Print where two traced runs of one path part."""
+    na, nb = (torch.stack(t["norms"]).cpu().numpy() for t in (a, b))
+    s = min(na.size, nb.size)
+    bad = np.flatnonzero(na[:s] != nb[:s])
+    print(f"[spread] ||K|| of {na.size} and {nb.size} solve set-ups; " + (
+        f"first differing at solve {bad[0] + 1}: {float(na[bad[0]])!r} against "
+        f"{float(nb[bad[0]])!r}"
+        if bad.size else f"the first {s} equal bit for bit"), flush=True)
+    ra, rb = (torch.stack(t["records"]).cpu().numpy() for t in (a, b))
+    n = min(len(ra), len(rb))
+    print(f"[spread] checked blocks: {len(ra)} and {len(rb)}", flush=True)
+    for what, cols in (("any word", list(range(pdhg_mod.REC_WORDS))),
+                       ("a word that steers the iterates", list(TRAJECTORY.values()))):
+        diff = ra[:n][:, cols] != rb[:n][:, cols]
+        rows = np.flatnonzero(diff.any(1))
+        if not rows.size:
+            print(f"[spread] no block differs in {what}", flush=True)
+            continue
+        i = rows[0]
+        solve = a["solves"][i]
+        block = i - a["solves"].index(solve) + 1
+        words = [name for name, j in {**TRAJECTORY, **VALUES}.items()
+                 if ra[i, j] != rb[i, j]]
+        print(f"[spread] first block differing in {what}: block {block} of solve {solve} "
+              f"(checked block {i + 1} of the run); words {words}", flush=True)
+        for name, r in zip(names, (ra, rb)):
+            print(f"[spread]   {name}: {describe(r[i])}", flush=True)
+
+
+def spread(name: str, dev, runs: int):
+    """The final bounds under both controls, unmoved and moved by 1 to
+    ``runs`` ulps of omega0 and of step_scale, and where the controls part."""
+    inst, solver_cls, cfg, rounds = load(name)
+    if name.startswith("qcqp"):
+        cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop,
+                                                                polish_iters=QCQP_POLISH))
+
+    def final(twins: bool, lp_change: dict | None = None):
+        c = cfg if not lp_change else dataclasses.replace(
+            cfg, lp=dataclasses.replace(cfg.lp, **lp_change))
+        with control(twins) as trace:
+            hist = solver_cls(inst, c, device=dev).run(rounds=rounds)
+        return [h.bound for h in hist], trace
+
+    traces = {}
+    for twins, label in ((False, "K5/K6"), (True, "twins")):
+        t0 = time.perf_counter()
+        bounds, traces[label] = final(twins)
+        print(f"[spread] {name}, {label} control: final {bounds[-1]!r} after {len(bounds)} "
+              f"rounds; bounds {bounds}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        finals = []
+        for k in range(1, runs + 1):
+            for field in ("omega0", "step_scale"):
+                base = np.float32(getattr(cfg.lp, field))
+                value = float(base + np.float32(k) * np.spacing(base))
+                moved = final(twins, {field: value})[0]
+                finals.append(moved[-1])
+                print(f"[spread] {name}, {label} control, {field} = {value!r}: final "
+                      f"{finals[-1]!r} after {len(moved)} rounds", flush=True)
+        f = np.array(finals)
+        print(f"[spread] {name}, {label} control: {f.size} moved runs, final bounds min "
+              f"{float(f.min())!r}, median {float(np.median(f))!r}, max {float(f.max())!r}; "
+              f"(max - min) / median {(f.max() - f.min()) / np.median(f):.4e}; the unmoved "
+              f"run is {int((f < bounds[-1]).sum()) + 1} of {f.size + 1} from the lowest",
+              flush=True)
+    first_divergence(traces["K5/K6"], traces["twins"])
 
 
 def stage_split(path, dev, rounds: int, stages=STAGES):
@@ -241,6 +409,12 @@ def main(argv=None) -> int:
                     help="LoopConfig.steer_eps (0: no vertex steering)")
     ap.add_argument("--batch", action="store_true",
                     help="the batched suite bucket (12 x n = 125) instead of one instance")
+    ap.add_argument("--groups", default=None,
+                    help="comma-separated blocks between two reads of the solve's record, "
+                         "each timed in a plain run first")
+    ap.add_argument("--spread", type=int, default=0, metavar="RUNS",
+                    help="instead of the profile: the final bound under K5/K6 and under "
+                         "their twins, and moved by 1 to RUNS ulps of omega0 and step_scale")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -252,6 +426,10 @@ def main(argv=None) -> int:
     print(f"[env] {smi.splitlines()[0]}; torch {torch.__version__}", flush=True)
 
     dev = torch.device("cuda", 0)
+    if args.spread:
+        spread(args.instance, dev, args.spread)
+        print(f"[env] {smi.splitlines()[0]}", flush=True)
+        return 0
     if args.batch:
         path = BatchPath()
         rounds = args.rounds or path.rounds
@@ -259,6 +437,7 @@ def main(argv=None) -> int:
         print(f"[path] batched suite bucket: {B} x n = {path.insts[0].n} "
               f"({', '.join(SUITE_BUCKET)}), {rounds} per-round steps", flush=True)
         _run(path, dev, 1)                                    # warm-up
+        time_groups(path, dev, rounds, args.groups)
         wall = _run(path, dev, rounds)
         print(f"[plain] {rounds} rounds of {B} in {wall:.4f} s = {rounds / wall:.4f} "
               f"rounds/s = {B * rounds / wall:.4f} instance-rounds/s", flush=True)
@@ -269,6 +448,7 @@ def main(argv=None) -> int:
         print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds, cuts "
               f"{path[2].cuts}, scorer {path[2].scorer}, loop {path[2].loop}", flush=True)
         _run(path, dev, 1)                                    # warm-up
+        time_groups(path, dev, rounds, args.groups)
 
         hist = []
         wall = _run(path, dev, rounds, hist)
@@ -282,13 +462,11 @@ def main(argv=None) -> int:
     for label, (s, n) in stages.items():
         print(f"[split] {label:<32} {1e3 * s:10.2f} ms {100 * s / split_wall:7.2f}%"
               f" {n:6d} calls", flush=True)
-    if args.batch:
-        blocks = stages["  K2 pdhg_block (batched launch)"][1]
-        reads = stages["  KKT check and its (B, 6) read"][1]
-        restarts = stages["  restart distances and their read"][1]
-        print(f"[split] host reads of the KKT check: {reads} for {blocks} checked blocks "
-              f"({reads / max(blocks, 1):.2f} a block, each one (B, 6) array for the whole "
-              f"batch), and {restarts} (B, 2) reads on restarts", flush=True)
+    blocks = stages[[lb for lb in stages if lb.startswith("  K5")][0]][1]
+    reads = stages["  record reads (one a group)"][1]
+    print(f"[split] host reads of the solves' control record: {reads} for {blocks} checked "
+          f"blocks ({reads / max(blocks, 1):.3f} a block, groups of {pdhg_mod.GROUP_BLOCKS})",
+          flush=True)
 
     tag = "batch_suite125" if args.batch else args.instance
     tag += "" if args.pair_layout == "auto" else f"_{args.pair_layout}"

@@ -63,7 +63,7 @@ def test_port_imports_no_jax():
         "          'validate_qcqp_bounds', 'models.train', 'parallel.distributed',\n"
         "          'run_multihost', 'multichip_dryrun', 'bench.plots', 'run_suite_incremental',\n"
         "          'run_qcqp_suite', 'rerun_cell', 'run_parity', 'run_qcqp_parity',\n"
-        "          'ops.launches'):\n"
+        "          'ops.launches', 'lp.pdhg_check', 'lp.pdhg_norm'):\n"
         "    assert 'sdpcutsel_tpu_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )

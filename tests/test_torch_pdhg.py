@@ -18,6 +18,7 @@ from sdpcutsel_tpu_torch.instances import generate_spar
 from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (SMEM_MAX, kernel_route, launch_plan,
                                                 pdhg_block, plan_refusal)
+from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm
 from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
 from sdpcutsel_tpu_torch.relax.cutbuffer import build_cut_index
 
@@ -141,9 +142,9 @@ def test_estimate_norm_close_to_reference():
     *_, jpool, _, _, _, tpool, _ = _setup(n, M)
     nj = float(jpdhg.estimate_norm(jpool, n, 30))
     ix = build_cut_index(tpool, n)
-    nt = tpdhg.estimate_norm(tpool, n, 30, torch.Generator().manual_seed(0), ix)
+    nt = float(pdhg_norm(tpool, n, 30, torch.Generator().manual_seed(0), ix))
     np.testing.assert_allclose(nt, nj, rtol=2e-2)
-    assert nt == tpdhg.estimate_norm(tpool, n, 30, torch.Generator().manual_seed(0), ix)
+    assert nt == float(pdhg_norm(tpool, n, 30, torch.Generator().manual_seed(0), ix))
 
 
 def test_dual_bound_f64_identical_duals():

@@ -18,6 +18,7 @@ from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfi
 from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp, load_or_generate_qcqp
 from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import pdhg_block
+from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm
 from sdpcutsel_tpu_torch.qcqp import CutSolverQCQP
 from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
 from sdpcutsel_tpu_torch.relax import denserows as tdr
@@ -119,8 +120,8 @@ def test_solve_with_dense_rows_matches_reference_with_same_normK():
     inst, (jcx, jcX, jpool, jd, jst), (tcx, tcX, tpool, td, tst) = _setup(seed=3)
     n = inst.n
     normK = float(jpdhg.estimate_norm(jpool, n, 30, jnp.float32, jd))
-    nt = tpdhg.estimate_norm(tpool, n, 30, torch.Generator().manual_seed(0),
-                             build_cut_index(tpool, n), td)
+    nt = float(pdhg_norm(tpool, n, 30, torch.Generator().manual_seed(0),
+                         build_cut_index(tpool, n), td))
     np.testing.assert_allclose(nt, normK, rtol=2e-2)   # unrelated start vectors
     args = dict(omega0=1.0, tol=1e-7, step_scale=0.95, max_iters=600,
                 check_every=100, restart_period=500)
