@@ -5,10 +5,10 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
      triton; no CUDA device -> exit 2 before any result is printed;
-  2. build the six kernels from csrc/, one nvcc each, in parallel (timed
-     as set-up), and beside them a variant of the scoring kernels without
-     the Jacobi's overflow guard (scoring_variants.UNGUARDED); print
-     ptxas's registers and spills, and for the scoring kernels (K1, K3, K4
+  2. build the kernels from csrc/ (seven sources), one nvcc each, in
+     parallel (timed as set-up), and beside them a variant of the scoring
+     kernels without the Jacobi's overflow guard
+     (scoring_variants.UNGUARDED); print ptxas's registers and spills, and for the scoring kernels (K1, K3, K4
      at k = 2..5) their persistent grid, their dynamic shared memory and
      the tensor-core (HMMA) instructions that cuobjdump finds in each (no
      TF32 HMMA, or a spill, fails);
@@ -36,9 +36,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     twice bit for bit, a stopped record left as it is;
        pdhg_norm    (K6, 30 power iterations in one launch) at K2's two
                     shapes against its twin at rtol 1e-5, twice bit for bit;
+       pdhg_dense   (K7, csrc/pdhg_dense.cu: the certifier's LP, a pool
+                    without cuts and m dense rows streamed from global
+                    memory) at n = 10 with m = 368 and at n = 125 with
+                    m = 368 and 2048 (the full buffer), on normalised
+                    rank-1 rows and a random state: the block against
+                    pdhg_block_plain after 100 iterations at rtol = atol =
+                    2e-5, twice bit for bit, the in-place block with the
+                    record's steps bit for bit; its check against
+                    pdhg_check_plain as K5 is held (rtol 1e-5, restart
+                    periods 10^9 and 100, a stopped record); its norm
+                    against estimate_norm_plain as K6 is held; each timed
+                    by events back to back and on the device (events
+                    around one launch queued behind a sleep kernel) beside
+                    its bound and the figure for G streamed twice an
+                    iteration; and the block at n = 64 over 2048 and 8192
+                    rows at clusters of 4, 8 and 16 CTAs, each held to the
+                    twin and timed in turns (G's rate an SM);
        with --parent DIR (a checkout of the parent commit): K2's bits on
                     these inputs equal to the parent build's, 7 and 100
-                    iterations, both timed in turns;
+                    iterations, both timed in turns, and K5's bits after
+                    one K2 block at both shapes equal to the parent
+                    build's, timed in turns (and after phase 15 the
+                    certifier's LP timed in both trees, see there);
      each kernel's time stands beside its bound (the largest of its
      operations over 67 TFLOP/s fp32, those it runs on the tensor cores over
      495 TFLOP/s dense TF32, and its bytes, each input read and each output
@@ -127,18 +147,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
      from the repository and written only in a temporary directory):
      (a) ensure_certified_bounds misses on generate_spar(12, 100, 3) at
      tests/test_sdp_bound.py's sandwich settings (LPConfig(8000, 2e-6), 40
-     rounds): sdp_ok, sdp_lower <= sdp, sdp_rel_width <= 1e-3, the plain
-     PDHG loop on the card (the certifier's LP has no kernel), within rtol
-     2e-3 of the CPU port; a second call hits and runs no LP block;
+     rounds): sdp_ok, sdp_lower <= sdp, sdp_rel_width <= 1e-3, the LP on
+     the dense route (dense_route_checks: K7's block, check and norm, no
+     plain block or twin on the card), within rtol 2e-3 of the CPU port; a
+     second call hits and runs no LP block;
      (b) validate_sdp_bound on generate_qcqp(10, 40, 2, 1) (LPConfig(6000,
-     2e-6), 8 rounds, cut from the test's 40): lb <= ub, rel <= 5e-3; (c) spar125-100-1 at full
+     2e-6), 8 rounds, cut from the test's 40): lb <= ub, rel <= 5e-3, the
+     dense route's checks; (c) spar125-100-1 at full
      width: the Burer-Monteiro point on the host (lb <= the registry's
      sdp), then 3 in-out eigencut rounds of LPConfig(2000, 2e-6) on the card
      over a 2048-row dense buffer (128 MB) seeded with its null directions,
      purge_at one past the seed rows: every certificate >= the registry's
-     sdp_lower and >= the BM lb, the purge run, a second run bit for bit;
-     each round's seconds split into LP, dual_bound_f64, host eigh, uploads
-     and purge, and the microseconds of a plain-loop iteration; (d) the CLI
+     sdp_lower and >= the BM lb, the purge run, the dense route's checks, a
+     second run bit for bit; each round's seconds split into LP,
+     dual_bound_f64, host eigh, uploads and purge, and the microseconds of a
+     certifier LP iteration beside the card's name and power limit (with
+     --parent DIR, then (c) and (b) through the parent checkout's package,
+     imported under another name, and through this tree's, in turns: parent,
+     this, this, parent after a warm-up, each run's microseconds a certifier
+     LP iteration and round split); (d) the CLI
      on the card: solve spar020-100-1 (5 rounds, a registry hit) equal bit
      for bit to CutSolver on the CLI's own configuration, gap closed > 0,
      every certificate >= the best known; solve qcqp015-30-3-1 at k = 5 (K4
@@ -177,7 +204,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
      one cell (spar020-100-1, feasibility, 2 rounds) into a temporary file,
      and a second call skips it; every rank's launches (the plain PDHG
      blocks and the twin-scored calls 0 on each) join the kernels line;
- 14. one JSON line of kernel results (six entries), each kernel's launches
+ 14. one JSON line of kernel results (nine entries), each kernel's launches
      summed over the main paths 5-13 and 15-17 (each counted from 0; K2's
      entry also holds the batched launch's time, bound and the clusters the
      card runs at once), the total seconds beside a 900 s budget, then
@@ -185,8 +212,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
 Every path's launch counts include the solve's plain PDHG blocks on the
 card ("pdhg_block plain"), its twin checks and norms there ("check/norm
 plain") and the scoring twins called on the card ("twin-scored"), which must
-be 0 on every main path; phase 15's certifier runs (a)-(c) are the one place
-plain blocks run, by design.  Every main path that runs K2 also holds the
+be 0 on every main path, the certifier's runs (a)-(c) of phase 15 included:
+their LP takes the dense route.  Every main path that runs K2 also holds the
 solves' control to the reference's structure (control_checks): K5 once a
 solve block (every K2 launch but steering's), K6 once a solve, at most one
 host read of the control record a group of GROUP_BLOCKS blocks plus one a
@@ -204,6 +231,8 @@ import ctypes
 import dataclasses
 import glob
 import hashlib
+import importlib
+import importlib.util
 import io
 import json
 import os
@@ -224,17 +253,22 @@ from sdpcutsel_tpu_torch.instances import (generate_qcqp_family, generate_spar,
                                            load_or_generate, load_or_generate_qcqp, parse_boxqp)
 from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp
 from sdpcutsel_tpu_torch.loop import CutSolver
-from sdpcutsel_tpu_torch.loop.sdp_bound import (bm_null_directions, sdp_relaxation_bound,
-                                                validate_sdp_bound)
+from sdpcutsel_tpu_torch import config as config_mod
+from sdpcutsel_tpu_torch.loop import sdp_bound as sdp_bound_mod
+from sdpcutsel_tpu_torch.loop.sdp_bound import (_seed_rows, bm_null_directions,
+                                                sdp_relaxation_bound)
 from sdpcutsel_tpu_torch.loop.sdp_primal import bm_feasible_point
 from sdpcutsel_tpu_torch.lp import pdhg as pdhg_mod
 from sdpcutsel_tpu_torch.lp.pdhg import (REC_D, REC_DD, REC_DP, REC_ERR, REC_IT, REC_OMEGA,
                                          REC_P, REC_RESTART, REC_SIGMA, REC_STOP, REC_TAU,
                                          REC_USE_AVG, REC_WLEN, estimate_norm_batched_plain,
-                                         estimate_norm_plain, init_state, new_record,
+                                         estimate_norm_plain, init_state, new_record, norm_start,
                                          pdhg_check_batched_plain, pdhg_check_plain,
                                          record_floats, solve_setup, steer_to_vertex)
+from sdpcutsel_tpu_torch.lp import pdhg_dense
 from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_check, pdhg_check_batched
+from sdpcutsel_tpu_torch.lp.pdhg_dense import (pdhg_dense_block, pdhg_dense_block_steps,
+                                               pdhg_dense_check, pdhg_dense_norm)
 from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm, pdhg_norm_batched
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, max_active_clusters, pdhg_block,
@@ -259,7 +293,8 @@ from sdpcutsel_tpu_torch.qcqp.chordal import chordal_decomposition, clique_candi
 from sdpcutsel_tpu_torch.qcqp.solver import SWEEPS as QCQP_SWEEPS
 from sdpcutsel_tpu_torch.relax import batched as rb
 from sdpcutsel_tpu_torch.relax.cutbuffer import append_cuts, build_cut_index, empty_pool
-from sdpcutsel_tpu_torch.relax.denserows import batched_dense_from_qcqp, dense_from_qcqp
+from sdpcutsel_tpu_torch.relax.denserows import (DenseRows, batched_dense_from_qcqp,
+                                                 dense_from_qcqp)
 from sdpcutsel_tpu_torch.utils.registry import ensure_certified_bounds, load_registry
 from sdpcutsel_tpu_torch.scoring_variants import (UNGUARDED, clique_table, device_ms,
                                                   fused_args, k1_call, k4_call, scoring_point,
@@ -1114,31 +1149,393 @@ def check_control_batched(insts, dev) -> dict:
                      "batched_max_abs_err": float((nk - normK).abs().max())}}
 
 
-# the parent build's K2 entry point (steps by value), for the bit check
-PARENT_K2_ARGTYPES = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
-    [ctypes.c_void_p] * 41
+# phase 3's dense route (K7, csrc/pdhg_dense.cu): the certifier's shapes,
+# (n, m dense rows): spar125-100-1 with the 368 rows phase 15 (c) solves over
+# and with the full buffer, and n = 10 with 368
+DENSE_SHAPES = ((10, 368), (125, 368), (125, FULL_CAPACITY))
+DENSE_RTOL = 2e-5            # the block against its twin, state and sums, 100 iterations
+BACKLOG_CYCLES = 4_000_000   # a sleep kernel of ~2 ms at the H100's clocks
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one call of ``fn`` (one kernel launch and
+    nothing else on the stream): CUDA events right around each call, each
+    queued behind a sleep kernel that outlasts the host's launch, so the
+    events bracket the kernel's run on the device and not the host.  No
+    profiler session: a session on the card's machine now and then records
+    no kernel at all (scoring_variants.device_ms)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(BACKLOG_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def dense_inputs(n: int, m: int, dev):
+    """The certifier's LP at (n, m): an instance's Q and c (spar125-100-1 at
+    n = 125, generate_spar(n, 100, 1) otherwise), the certifier's pool
+    without cuts, m normalised rank-1 rows v v' >= 0 of random unit
+    directions (the seed rows' form, loop/sdp_bound.py::_seed_rows), and a
+    random state whose yD is positive on about a third of the rows.
+    Returns (cx, cX, pool, index, dense, state)."""
+    inst = (parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE) if n == 125
+            else generate_spar(n, 100, 1))
+    rng = np.random.default_rng(SEED + 3)
+    V = rng.standard_normal((m, n + 1))
+    G, g, h = _seed_rows(V / np.linalg.norm(V, axis=1, keepdims=True))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dense = DenseRows(*(torch.as_tensor(a, **f32) for a in (G, g, h)))
+    pool = empty_pool(1, 1, dev)
+    st = random_state(n, 1, m, pool, rng, dev)
+    st.yD = torch.as_tensor(0.2 * rng.random(m) * (rng.random(m) < 0.3), **f32)
+    return (torch.as_tensor(-inst.c, **f32), torch.as_tensor(-0.5 * inst.Q, **f32), pool,
+            build_cut_index(pool, n), dense, st)
+
+
+def dense_bytes(cx, cX, dense, *states) -> int:
+    """Each input of a dense-route launch read once, each output written once:
+    the problem's arrays and the given states (inputs and outputs)."""
+    return nbytes(cx, cX, dense.G, dense.g, dense.h, *(t for s in states for t in s.fields()))
+
+
+def check_dense_block(label: str, inputs) -> dict:
+    """K7's block against its twin (pdhg_block_plain on the certifier's
+    pool) after 100 iterations at rtol = atol = 2e-5, state and sums; two
+    launches bit for bit, the inputs unchanged; the solve's in-place block
+    (steps from the record) bit for bit equal to the host-step launch; its
+    time by events and on the device beside the bound and the streaming
+    figure (G read twice an iteration)."""
+    cx, cX, pool, index, dense, st = inputs
+    n, m = cx.shape[0], dense.m
+    normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    eta = 0.95 / normK.item()
+    zero = st.map(torch.zeros_like)
+    args = (cx, cX, pool, index, st, zero, eta, eta, 100, dense)
+    inputs_before = [t.clone() for t in (*st.fields(), *zero.fields())]
+    got, again = pdhg_dense_block(*args), pdhg_dense_block(*args)
+    want = pdhg_block_plain(*args)
+    torch.cuda.synchronize()
+    errs, ratio = [], 0.0
+    for g_, w_ in zip((*got[0].fields(), *got[1].fields()), (*want[0].fields(), *want[1].fields())):
+        if g_.numel():
+            e, r = excess(g_, w_, DENSE_RTOL, DENSE_RTOL)
+            errs.append(e)
+            ratio = max(ratio, r)
+    same = states_equal(list(got), list(again))
+    unchanged = all(torch.equal(a, b) for a, b in zip((*st.fields(), *zero.fields()),
+                                                      inputs_before))
+    # the solve's block: in place, tau and sigma from a control record
+    ip = [st.map(torch.clone), zero.map(torch.clone)]
+    pdhg_dense_block_steps(cx, cX, pool, index, *ip, pdhg_kernel.steps_record(
+        [eta], [eta], cx.device)[0], 100, dense)
+    in_place = states_equal(ip, list(got))
+    log(f"[pdhg_dense {label}] 100 iterations: max|err| state {max(errs[:5]):.3e} sums "
+        f"{max(errs[5:]):.3e}; {ratio:.3f} of the limit (rtol = atol = {DENSE_RTOL}); two "
+        f"launches bit for bit: {same}; inputs unchanged: {unchanged}; the in-place block with "
+        f"the record's steps bit for bit: {in_place}")
+    if ratio > 1.0 or not (same and unchanged and in_place):
+        raise AssertionError(f"the dense-route block fails its checks ({label})")
+    ms = cuda_ms(lambda: pdhg_dense_block(*args), reps=10)
+    rec = pdhg_kernel.steps_record([eta], [eta], cx.device)[0]
+    dev_ms = queued_ms(lambda: pdhg_dense_block_steps(cx, cX, pool, index, *ip, rec, 100, dense),
+                       reps=10)
+    plain_ms = cuda_ms(lambda: pdhg_block_plain(*args), reps=2, warmup=1)
+    b = bound(pdhg_ops(n, 1, m, 0, 0, 100), dense_bytes(cx, cX, dense, st, zero, *got))
+    stream_ms = 100 * 2 * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
+    log(f"[pdhg_dense {label}] 100-iteration block: {ms:.4f} ms by events back to back, "
+        f"{dev_ms:.4f} ms on the device (queued events) = {dev_ms * 10:.3f} us an iteration; twin {plain_ms:.4f} ms ({plain_ms * 10:.2f} "
+        f"us an iteration); {share(dev_ms, b)} (of the device time); G and g read twice an "
+        f"iteration at {PEAK_BYTES / 1e12} TB/s: {stream_ms:.4f} ms, {stream_ms / dev_ms:.2%} of "
+        f"the device time; {nbytes(dense.G) / 2 ** 20:.1f} MiB of G ({SMI}); ptxas: "
+        f"{ptxas_report('pdhg_dense_block_kernel')}")
+    return {"max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
+            "streaming_bound_ms": stream_ms, "share": b["bound_ms"] / dev_ms,
+            "us_per_iteration": dev_ms * 10}
+
+
+def check_dense_check(label: str, inputs) -> dict:
+    """The dense route's check against its twin (pdhg_check_plain) after one
+    K7 block of 100 iterations, as check_pdhg_check holds K5: restart_period
+    10^9 and 100, the record's float words at rtol 1e-5 and its ints equal,
+    the state, sums and anchor bit for bit; twice bit for bit; a stopped
+    record leaves everything as it is; timed at restart_period 100."""
+    cx, cX, pool, index, dense, st0 = inputs
+    n, m = cx.shape[0], dense.m
+    normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    eta = 0.95 / normK.item()
+    st1, acc1 = pdhg_dense_block(cx, cX, pool, index, st0, st0.map(torch.zeros_like), eta, eta,
+                                 100, dense)
+    worst = 0.0
+    for rp in (10 ** 9, 100):
+        def prepare():
+            return [st1.map(torch.clone), acc1.map(torch.clone), st0.map(torch.clone),
+                    new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"],
+                               cx.device)]
+
+        def run(fn, st, acc, anc, rec):
+            fn(cx, cX, pool, index, st, acc, anc, rec, CHECK_ARGS["check_every"], rp,
+               CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dense)
+            return [st, acc, anc, rec]
+
+        ka, kb = run(pdhg_dense_check, *prepare()), run(pdhg_dense_check, *prepare())
+        tw = run(pdhg_check_plain, *prepare())
+        torch.cuda.synchronize()
+        bad, rel, absd = record_diff(ka[3], tw[3], slice(None))
+        same = states_equal(ka[:3], tw[:3])
+        repeat = states_equal(ka[:3], kb[:3]) and torch.equal(ka[3], kb[3])
+        r = ka[3].cpu().numpy()
+        log(f"[pdhg_dense_check {label}] restart_period {rp}: restart {bool(r[REC_RESTART])}, "
+            f"use_avg {bool(r[REC_USE_AVG])}, omega {float(record_floats(r)[REC_OMEGA])!r}; "
+            f"against the twin: int words differing {bad}, largest rel diff of the float words "
+            f"{rel:.3e} (rtol {CONTROL_RTOL}), max|err| of err/p/d/omega {absd:.3e}; state, "
+            f"sums and anchor bit for bit: {same}; two launches bit for bit: {repeat}")
+        if bad or rel > CONTROL_RTOL or not (same and repeat):
+            raise AssertionError(f"the dense-route check disagrees with its twin or does not "
+                                 f"repeat ({label})")
+        worst = max(worst, absd)
+    args = prepare()
+    args[3][REC_STOP] = 1
+    before = [t.clone() for t in (*[u for x in args[:3] for u in x.fields()], args[3])]
+    run(pdhg_dense_check, *args)
+    frozen = all(torch.equal(a, b) for a, b in zip(
+        before, (*[u for x in args[:3] for u in x.fields()], args[3])))
+    log(f"[pdhg_dense_check {label}] a stopped record leaves everything bit for bit: {frozen}")
+    if not frozen:
+        raise AssertionError(f"the dense-route check wrote a stopped instance ({label})")
+    args = prepare()
+    ms = cuda_ms(lambda: run(pdhg_dense_check, *args), reps=20)
+    dev_ms = queued_ms(lambda: run(pdhg_dense_check, *args), reps=20)
+    twin = prepare()
+    plain_ms = cuda_ms(lambda: run(pdhg_check_plain, *twin), reps=3)
+    b = bound(check_ops(n, 1, m, 0, 0, True),
+              check_bytes(cx, cX, pool, index, dense, *args))
+    stream_ms = 2 * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
+    log(f"[pdhg_dense_check {label}] {ms:.4f} ms by events back to back, {dev_ms:.4f} ms on the "
+        f"device (queued events); twin "
+        f"{plain_ms:.4f} ms (reads to the host included); {share(dev_ms, b)} (of the device "
+        f"time); G read twice: {stream_ms:.4f} ms; ptxas: "
+        f"{ptxas_report('pdhg_dense_check_kernel')}")
+    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
+            "streaming_bound_ms": stream_ms, "share": b["bound_ms"] / dev_ms}
+
+
+def check_dense_norm(label: str, inputs) -> dict:
+    """The dense route's ||K|| against its twin (estimate_norm_plain, 30
+    iterations, the seeded start vector) at rtol 1e-5, twice bit for bit,
+    as K6 is held; timed."""
+    cx, cX, pool, index, dense, _ = inputs
+    n, m = cx.shape[0], dense.m
+
+    def norm(fn):
+        return fn(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+
+    a, b2, t = norm(pdhg_dense_norm), norm(pdhg_dense_norm), norm(estimate_norm_plain)
+    torch.cuda.synchronize()
+    rel = abs(a.item() - t.item()) / abs(t.item())
+    log(f"[pdhg_dense_norm {label}] ||K|| kernel {a.item()!r}, twin {t.item()!r}: rel diff "
+        f"{rel:.3e} (rtol {CONTROL_RTOL}); two launches bit for bit: {torch.equal(a, b2)}")
+    if rel > CONTROL_RTOL or not torch.equal(a, b2):
+        raise AssertionError(f"the dense-route norm disagrees with its twin or does not repeat "
+                             f"({label})")
+    ms = cuda_ms(lambda: norm(pdhg_dense_norm), reps=5)
+    y, Y = (t.contiguous() for t in norm_start(n, torch.Generator().manual_seed(0), cx.device))
+    out = torch.empty((), device=cx.device)
+
+    def launch():           # the entry point alone: no draw or upload of the start vector
+        err = _build.lib().pdhg_dense_norm_launch(
+            n, m, pdhg_dense.CLUSTER, pdhg_dense.smem_bytes("norm", n, m), 30,
+            dense.G.data_ptr(), dense.g.data_ptr(), y.data_ptr(), Y.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "pdhg_dense_norm_launch")
+
+    dev_ms = queued_ms(launch, reps=5)
+    plain_ms = cuda_ms(lambda: norm(estimate_norm_plain), reps=2, warmup=1)
+    bb = bound(norm_ops(n, 1, m, 0, 0, 30), nbytes(dense.G, dense.g, a) + 4 * (n + n * n))
+    stream_ms = 61 * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
+    log(f"[pdhg_dense_norm {label}] 30 iterations in one launch: {ms:.4f} ms by events (the "
+        f"start vector's draw and upload included), {dev_ms:.4f} ms on the device (queued "
+        f"events, the entry point alone); twin {plain_ms:.4f} ms; {share(dev_ms, bb)} (of the "
+        f"device time); G read 61 times: "
+        f"{stream_ms:.4f} ms; ptxas: {ptxas_report('pdhg_dense_norm_kernel')}")
+    return {"max_abs_err": abs(a.item() - t.item()), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **bb, "streaming_bound_ms": stream_ms,
+            "share": bb["bound_ms"] / dev_ms}
+
+
+def check_dense_route(dev) -> dict:
+    """Phase 3's dense route: K7's block, check and norm at DENSE_SHAPES
+    against their twins.  Returns {kernel: {shape label: numbers}}."""
+    out = {"pdhg_dense": {}, "pdhg_dense_check": {}, "pdhg_dense_norm": {},
+           "cluster_scaling": dense_cluster_scaling(dev)}
+    for n, m in DENSE_SHAPES:
+        label = f"n={n} m={m}"
+        inputs = dense_inputs(n, m, dev)
+        log(f"[pdhg_dense {label}] cluster of {pdhg_dense.CLUSTER} CTAs x 512 threads; shared "
+            f"bytes a CTA: block {pdhg_dense.smem_bytes('block', n, m)}, check "
+            f"{pdhg_dense.smem_bytes('check', n, m)}, norm {pdhg_dense.smem_bytes('norm', n, m)}; "
+            f"the route takes up to {pdhg_dense.max_dense_rows(n)} rows at n = {n}")
+        out["pdhg_dense"][label] = check_dense_block(label, inputs)
+        out["pdhg_dense_check"][label] = check_dense_check(label, inputs)
+        out["pdhg_dense_norm"][label] = check_dense_norm(label, inputs)
+    return out
+
+
+def dense_cluster_scaling(dev) -> dict:
+    """Does one cluster read G fast enough, or would more SMs help?  K7's
+    block at n = 64 (where clusters of 4, 8 and 16 CTAs all fit its lanes)
+    over 2048 rows (33.5 MB of G, in L2) and 8192 (134 MB, from HBM),
+    checked against the twin at each cluster size and timed in turns
+    (16, 8, 4, 4, 8, 16): microseconds an iteration and the rate at which
+    it streams G twice an iteration, in all and per SM."""
+    out = {}
+    for m in (2048, 8192):
+        cx, cX, pool, index, dense, st = dense_inputs(64, m, dev)
+        normK = estimate_norm_plain(pool, 64, 30, torch.Generator().manual_seed(0), index, dense)
+        eta = 0.95 / normK.item()
+        zero = st.map(torch.zeros_like)
+        rec = pdhg_kernel.steps_record([eta], [eta], dev)
+        want = pdhg_block_plain(cx, cX, pool, index, st, zero, eta, eta, 100, dense)
+        ins = [st, zero]
+        outs = [s_.map(torch.empty_like) for s_ in ins]
+        times = {c: [] for c in (16, 8, 4)}
+        ratio = 0.0
+        for c in (16, 8, 4):
+            pdhg_dense._launch_block(cx, cX, pool, ins, outs, rec, 100, dense, cluster=c)
+            torch.cuda.synchronize()
+            for g_, w_ in zip((*pdhg_dense._fields(outs[0]), *pdhg_dense._fields(outs[1])),
+                              (*pdhg_dense._fields(want[0]), *pdhg_dense._fields(want[1]))):
+                if g_.numel():
+                    ratio = max(ratio, excess(g_, w_, DENSE_RTOL, DENSE_RTOL)[1])
+        for c in (16, 8, 4, 4, 8, 16):
+            times[c].append(cuda_ms(lambda: pdhg_dense._launch_block(
+                cx, cX, pool, ins, outs, rec, 100, dense, cluster=c), reps=5))
+        streamed = 2 * nbytes(dense.G, dense.g)
+        rows = {c: {"us_per_iteration": sum(t) / len(t) * 10,
+                    "GB_per_s": streamed / (sum(t) / len(t) / 100 * 1e-3) / 1e9} for c, t in
+                times.items()}
+        log(f"[pdhg_dense cluster scaling n=64 m={m}] against the twin at every cluster size: "
+            f"{ratio:.3f} of the limit; " + "; ".join(
+                f"cluster of {c}: {r['us_per_iteration']:.3f} us an iteration, G streamed at "
+                f"{r['GB_per_s']:.1f} GB/s ({r['GB_per_s'] / c:.1f} an SM; in turns "
+                f"{times[c]!r} ms)" for c, r in rows.items()) + f" ({SMI})")
+        if ratio > 1.0:
+            raise AssertionError(f"K7's block at another cluster size disagrees with its twin "
+                                 f"(n=64 m={m})")
+        out[f"n=64 m={m}"] = rows
+    return out
+
+
+def dense_entry(name: str, replaces: str, launches: int, shapes: dict) -> dict:
+    """A kernels-line entry of the dense route: the full buffer's numbers at
+    n = 125 as the entry's own, every shape's under its label, the largest
+    error over the shapes."""
+    main = shapes[f"n=125 m={FULL_CAPACITY}"]
+    return {"name": name, "route": "cuda", "source": "sdpcutsel_tpu_torch/csrc/pdhg_dense.cu",
+            "replaces": replaces, "launches": launches, **main,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+            "shapes": shapes}
+
+
+# the parent build's K5 (its entry point is this build's), for the bit check
+def parent_k5(parent: str):
+    """The K5 of another checkout, built alone with this build's nvcc flags
+    into build/cuda/parent/."""
+    src = os.path.join(parent, "sdpcutsel_tpu_torch", "csrc", "pdhg_check.cu")
+    out = os.path.join(REPO, "build", "cuda", "parent", "libpdhg_check.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src],
+                   check=True, capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(out)
+    lib.pdhg_check_launch.argtypes = _build._SIGNATURES["pdhg_check_launch"]
+    lib.pdhg_check_launch.restype = ctypes.c_int
+    return lib
+
+
+def k5_against_parent(lib, label: str, inputs, dense) -> bool:
+    """This K5 and the parent build's on the same checked block (phase 3's
+    state after one K2 block, restart_period 100): records, state, sums and
+    anchor bit for bit; both entry points called directly and timed by
+    events in turns (parent, this, this, parent), each on its own copies
+    (every timed launch after the first finds the record stopped or not as
+    the first left it, the same for both builds)."""
+    cx, cX, pool, index, st0 = inputs
+    n = cx.shape[0]
+    normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    eta = 0.95 / normK.item()
+    st1, acc1 = pdhg_block(cx, cX, pool, index, st0, st0.map(torch.zeros_like), eta, eta, 100,
+                           dense)
+    B1 = rb.batch_of_one
+
+    def prepare():
+        return [B1(st1.map(torch.clone)), B1(acc1.map(torch.clone)), B1(st0.map(torch.clone)),
+                new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"],
+                           cx.device)[None]]
+
+    P1, I1 = B1(pool), B1(index)
+    D1 = None if dense is None else B1(dense)
+    M, k = pool.idx.shape
+    m = 0 if dense is None else dense.m
+    c = [t.contiguous() for t in (cx[None], cX[None], I1.idx, P1.lin, P1.quad, P1.rhs,
+                                  P1.active, I1.xoff, I1.xcut, I1.xcoef, I1.Xoff, I1.Xcut,
+                                  I1.Xcoef)]
+    d = [None] * 3 if D1 is None else [t.contiguous() for t in (D1.G, D1.g, D1.h)]
+
+    def parent_call(bufs, library=lib):
+        err = library.pdhg_check_launch(
+            n, M, k, m, 1, pdhg_kernel.CLUSTER, I1.xcut.shape[-1], I1.Xcut.shape[-1],
+            CHECK_ARGS["check_every"], 100, CHECK_ARGS["max_iters"],
+            float(np.float32(CHECK_ARGS["tol"])), *(t.data_ptr() for t in c),
+            *(None if t is None else t.data_ptr() for t in d),
+            *(t.data_ptr() for s in bufs[:3] for t in s.fields()), bufs[3].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"pdhg_check_launch returned {err}")
+
+    def this_call(bufs):
+        parent_call(bufs, _build.lib())
+
+    mine, theirs = prepare(), prepare()
+    this_call(mine)
+    parent_call(theirs)
+    torch.cuda.synchronize()
+    same = states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3])
+    t_parent, t_this = [], []
+    for runs, fn in ((t_parent, parent_call), (t_this, this_call), (t_this, this_call),
+                     (t_parent, parent_call)):
+        bufs = prepare()
+        runs.append(cuda_ms(lambda: fn(bufs), reps=20))
+    log(f"[pdhg_check {label}] this build's K5 and the parent build's bit for bit: {same}; in "
+        f"turns, parent {t_parent!r} ms, this build {t_this!r} ms")
+    return same
 
 
 def parent_k2(parent: str):
-    """The K2 of another checkout (the parent commit's, whose entry point
-    takes tau and sigma as host arrays), built alone with this build's nvcc
-    flags into build/cuda/parent/."""
+    """The K2 of another checkout (the parent commit's, whose entry point is
+    this build's: steps from a control record), built alone with this
+    build's nvcc flags into build/cuda/parent/."""
     src = os.path.join(parent, "sdpcutsel_tpu_torch", "csrc", "pdhg_block.cu")
     out = os.path.join(REPO, "build", "cuda", "parent", "libpdhg_block.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src],
                    check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(out)
-    lib.pdhg_block_launch.argtypes = PARENT_K2_ARGTYPES
+    lib.pdhg_block_launch.argtypes = _build._SIGNATURES["pdhg_block_launch"]
     lib.pdhg_block_launch.restype = ctypes.c_int
     return lib
 
 
 def k2_against_parent(lib, label: str, args: tuple, dense, iters: int) -> bool:
-    """This K2 (steps from a device record) and the parent build's (steps by
-    value) on the same inputs: equal bit for bit?  Both launches are then
-    timed by events in turns (parent, this, this, parent), 20 back to back
-    each, on prepared buffers (no upload in the timed calls)."""
+    """This K2 and the parent build's on the same inputs, both with their
+    steps from one control record: equal bit for bit?  Both entry points are
+    then called directly and timed by events in turns (parent, this, this,
+    parent), 20 back to back each, on prepared buffers."""
     cx, cX, pool, index, st, acc, tau, sigma = args
     B1 = rb.batch_of_one
     P1, I1, S1, A1 = B1(pool), B1(index), B1(st), B1(acc)
@@ -1153,21 +1550,21 @@ def k2_against_parent(lib, label: str, args: tuple, dense, iters: int) -> bool:
                                   P1.active, I1.xoff, I1.xcut, I1.xcoef, I1.Xoff, I1.Xcut,
                                   I1.Xcoef)]
     rec = pdhg_kernel.steps_record([tau], [sigma], cx.device)
-    one = np.zeros(1, np.int64)
+
+    def call(library, outs, who):
+        err = library.pdhg_block_launch(
+            n, M, k, m, iters, plan.cluster, plan.term_cap, plan.smem_bytes, 1,
+            (ctypes.c_int * 1)(0), rec.data_ptr(), I1.xcut.shape[-1], I1.Xcut.shape[-1],
+            *(t.data_ptr() for t in c), *d, *(t.data_ptr() for t in ins),
+            *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{who} pdhg_block_launch returned {err}")
 
     def parent_call():
-        err = lib.pdhg_block_launch(
-            n, M, k, m, iters, plan.cluster, plan.term_cap, plan.smem_bytes, 1,
-            (ctypes.c_int * 1)(0), (ctypes.c_float * 1)(tau), (ctypes.c_float * 1)(sigma),
-            I1.xcut.shape[-1], I1.Xcut.shape[-1], *(t.data_ptr() for t in c), *d,
-            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs_p),
-            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"the parent's pdhg_block_launch returned {err}")
+        call(lib, outs_p, "the parent's")
 
     def this_call():
-        pdhg_kernel._launch_core(cx[None], cX[None], P1, I1, ins, outs_t, rec, iters, one, D1,
-                                 plan.cluster)
+        call(_build.lib(), outs_t, "this build's")
 
     parent_call()
     this_call()
@@ -1982,6 +2379,30 @@ def run_cli(argv) -> tuple:
     return rc, out.getvalue().splitlines()
 
 
+def dense_route_checks(tag: str, launches: dict) -> dict:
+    """The certifier's LP on the card, as the reference runs it on its
+    device: the dense route's block, check and norm launched (one check a
+    block, one norm a solve), at most one host read of the control record a
+    group of GROUP_BLOCKS blocks plus one a solve, and no plain block, no
+    twin check or norm, no K2, K5 or K6."""
+    blk, chk, nrm = (launches[k] for k in ("pdhg_dense", "pdhg_dense_check", "pdhg_dense_norm"))
+    solves, reads, G = launches[SOLVES], launches[READS], pdhg_mod.GROUP_BLOCKS
+    log(f"[{tag}] the dense route: {solves} solves, block {blk}, check {chk}, norm {nrm}; host "
+        f"reads of the record {reads}; plain blocks {launches[PLAIN_BLOCKS]}, twin checks and "
+        f"norms {launches[PLAIN_CONTROL]}")
+    return {
+        "the dense route's block, check and norm launched": min(blk, chk, nrm) > 0,
+        "one dense check a dense block": chk == blk,
+        "one dense norm a solve": nrm == solves,
+        f"at most one host read a group of {G} blocks plus one a solve":
+            reads * G <= chk + G * solves,
+        "no plain block, twin check or norm on the card":
+            launches[PLAIN_BLOCKS] == 0 and launches[PLAIN_CONTROL] == 0,
+        "K2, K5 and K6 not launched":
+            launches["pdhg_block"] == launches["pdhg_check"] == launches["pdhg_norm"] == 0,
+    }
+
+
 def certifier_miss_then_hit(tmp: str, dev) -> tuple:
     """(a) A registry miss on the card at the sandwich settings, then a hit
     that runs no LP block; the card's pair beside the CPU port's."""
@@ -2008,12 +2429,40 @@ def certifier_miss_then_hit(tmp: str, dev) -> tuple:
         "the miss wrote sdp_ok": rec["sdp_ok"] is True,
         "sdp_lower <= sdp": rec["sdp_lower"] <= rec["sdp"],
         f"sdp_rel_width <= {rel_max}": rec["sdp_rel_width"] <= rel_max,
-        "the miss ran plain blocks on the card, K2 none":
-            miss[PLAIN_BLOCKS] > 0 and miss["pdhg_block"] == 0,
+        **{f"the miss: {k}": v for k, v in dense_route_checks("certifier miss", miss).items()},
         "the hit returned the same pair": again == pair,
-        "the hit ran no LP block": hit["pdhg_block"] == 0 and hit[PLAIN_BLOCKS] == 0,
+        "the hit ran no LP block": hit["pdhg_block"] == hit["pdhg_dense"] == hit[PLAIN_BLOCKS] == 0,
         "the card's pair within rtol 2e-3 of the CPU port's": max(rel) <= 2e-3,
     }
+
+
+def lp_us(hist) -> tuple:
+    """(LP seconds, LP iterations, microseconds an iteration) of a
+    certifier's rounds."""
+    lp_s, iters = sum(h["seconds"]["lp"] for h in hist), sum(h["lp_iters"] for h in hist)
+    return lp_s, iters, lp_s / iters * 1e6
+
+
+def sandwich_run(sdp_bound_mod, lp, dev) -> tuple:
+    """(b)'s run through a package's ``loop/sdp_bound.py`` (this tree's, or
+    another checkout's with --parent): ``validate_sdp_bound`` on the QCQP
+    sandwich at its own in-out defaults, with the rounds of the
+    ``sdp_relaxation_bound`` call it makes.  Returns ((ub, lb, rel), rounds)."""
+    gen, args, _, rounds, _ = SANDWICH["qcqp"]
+    kept = []
+    real = sdp_bound_mod.sdp_relaxation_bound
+
+    def keep(*a, **kw):
+        out = real(*a, **kw)
+        kept.append(out[2])
+        return out
+
+    sdp_bound_mod.sdp_relaxation_bound = keep
+    try:
+        out = sdp_bound_mod.validate_sdp_bound(gen(*args), lp, max_rounds=rounds, device=dev)
+    finally:
+        sdp_bound_mod.sdp_relaxation_bound = real
+    return out, kept[0]
 
 
 def qcqp_sandwich(dev) -> tuple:
@@ -2022,20 +2471,24 @@ def qcqp_sandwich(dev) -> tuple:
     gen, args, lp, rounds, rel_max = SANDWICH["qcqp"]
     reset_launches()
     t0 = time.perf_counter()
-    ub, lb, rel = validate_sdp_bound(gen(*args), lp, max_rounds=rounds, device=dev)
+    (ub, lb, rel), hist = sandwich_run(sdp_bound_mod, lp, dev)
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    lp_s, iters, us = lp_us(hist)
     log(f"[certifier] qcqp sandwich generate_qcqp{args}: ub {ub!r} lb {lb!r} rel {rel!r} in "
-        f"{wall:.3f}s; launches {launches}")
+        f"{wall:.3f}s, {len(hist)} rounds; the LP {lp_s:.4f}s for {iters} iterations = "
+        f"{us:.2f} us a certifier LP iteration ({SMI}); launches {launches}")
     return launches, {"qcqp sandwich lb <= ub": lb <= ub + 1e-9,
-                      f"qcqp sandwich rel <= {rel_max}": rel <= rel_max}
+                      f"qcqp sandwich rel <= {rel_max}": rel <= rel_max,
+                      **{f"qcqp sandwich: {k}": v
+                         for k, v in dense_route_checks("qcqp sandwich", launches).items()}}
 
 
-def certifier_full_width(dev) -> tuple:
-    """(c) spar125-100-1: the Burer-Monteiro point on the host, then
-    FULL_ROUNDS in-out eigencut rounds on the card over a FULL_CAPACITY-row
-    buffer seeded with its null directions, purge_at one row past the seeds
-    (so round 1 purges), twice from scratch, bit for bit."""
+def full_width_case() -> tuple:
+    """(c)'s instance, its registry record, the Burer-Monteiro point's lb
+    and host seconds, and ``sdp_relaxation_bound``'s keywords: FULL_ROUNDS
+    in-out rounds over a FULL_CAPACITY-row buffer seeded with the point's
+    null directions, purge_at one row past the seeds (so round 1 purges)."""
     inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
     reg = load_registry(os.path.join(DATA, "bounds.json"))[INSTANCE]
     t0 = time.perf_counter()
@@ -2043,7 +2496,19 @@ def certifier_full_width(dev) -> tuple:
     bm_s = time.perf_counter() - t0
     seeds = bm_null_directions(x_in, X_in)
     kw = dict(max_rounds=FULL_ROUNDS, anchor=(x_in, X_in), max_cuts_per_round=48,
-              capacity=FULL_CAPACITY, seed_dirs=seeds, purge_at=len(seeds) + 1, device=dev)
+              capacity=FULL_CAPACITY, seed_dirs=seeds, purge_at=len(seeds) + 1)
+    return inst, reg, lb, bm_s, kw
+
+
+def certifier_full_width(dev) -> tuple:
+    """(c) spar125-100-1: the Burer-Monteiro point on the host, then
+    FULL_ROUNDS in-out eigencut rounds on the card over a FULL_CAPACITY-row
+    buffer seeded with its null directions, purge_at one row past the seeds
+    (so round 1 purges; ``full_width_case``), twice from scratch, bit for
+    bit."""
+    inst, reg, lb, bm_s, kw = full_width_case()
+    kw["device"] = dev
+    seeds = kw["seed_dirs"]
     n = inst.n
     buffer_bytes = 4 * FULL_CAPACITY * (n * n + n + 1)
     log(f"[certifier] {INSTANCE}: Burer-Monteiro lb {lb!r} in {bm_s:.3f}s on the host "
@@ -2062,15 +2527,18 @@ def certifier_full_width(dev) -> tuple:
             f"{h['lp_kkt']:.3e}; seconds {sum(sec.values()):.4f} = lp {sec['lp']:.4f} + "
             f"dual_bound_f64 {sec['certificate']:.4f} + host eigh/rows {sec['host_cuts']:.4f} "
             f"+ uploads {sec['upload']:.4f} + purge {sec['purge']:.4f}; "
-            f"{sec['lp'] / h['lp_iters'] * 1e6:.2f} us a plain-loop iteration ({SMI})")
+            f"{sec['lp'] / h['lp_iters'] * 1e6:.2f} us a certifier LP iteration on the dense "
+            f"route, count {h['cuts']} rows ({SMI})")
     again = sdp_relaxation_bound(inst, FULL_LP, **kw)[2]
     certs = np.array([h["bound"] for h in hist])
 
     def outcome_of(hs):
         return [(h["bound"], h["lam_min"], h["cuts"], h["lp_iters"], h["lp_kkt"]) for h in hs]
 
-    log(f"[certifier] {INSTANCE}: {len(hist)} rounds in {wall:.3f}s, best {best!r}; plain "
-        f"launches {launches[PLAIN_BLOCKS]}; launches {launches}")
+    lp_s, iters, us = lp_us(hist)
+    log(f"[certifier] {INSTANCE}: {len(hist)} rounds in {wall:.3f}s, best {best!r}; the LP "
+        f"{lp_s:.4f}s for {iters} iterations = {us:.2f} us a certifier LP iteration ({SMI}); "
+        f"launches {launches}")
     return launches, {
         f"BM lb <= the registry's sdp {reg['sdp']}": lb <= reg["sdp"],
         f"{FULL_ROUNDS} rounds ran": len(hist) == FULL_ROUNDS,
@@ -2080,8 +2548,7 @@ def certifier_full_width(dev) -> tuple:
         "the running bound never rises": bool((np.diff(np.minimum.accumulate(certs)) <= 0).all())
             and best == certs.min(),
         "the purge ran": any(h["seconds"]["purge"] > 0 for h in hist),
-        "plain blocks on the card, K2 none":
-            launches[PLAIN_BLOCKS] > 0 and launches["pdhg_block"] == 0,
+        **dense_route_checks(f"certifier {INSTANCE}", launches),
         "a second run repeats every round bit for bit": outcome_of(again) == outcome_of(hist),
     }
 
@@ -2171,9 +2638,70 @@ def certifiers_and_cli(dev) -> dict:
             log(f"[certifier] part done in {time.perf_counter() - t1:.1f}s")
             checks.update(part_checks)
             total = counts if total is None else {k: total[k] + counts[k] for k in total}
-    log(f"[certifier] phase 15 in {time.perf_counter() - t0:.1f}s; launches {total}")
+    log(f"[certifier] phase 15 in {time.perf_counter() - t0:.1f}s ({SMI}); launches {total}")
     finish("certifier", checks)
     return total
+
+
+def import_checkout(root: str, alias: str):
+    """The port package of another checkout, imported under ``alias``: its
+    modules import one another relatively, so both trees live in one
+    process, each with its own modules and counters."""
+    pkg_dir = os.path.join(os.path.abspath(root), "sdpcutsel_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg_dir, "__init__.py"), submodule_search_locations=[pkg_dir])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = pkg
+    spec.loader.exec_module(pkg)
+    return pkg
+
+
+def certifier_against_parent(parent: str, dev) -> dict:
+    """With --parent DIR: the certifier's LP in the parent checkout's package
+    and in this tree's on phase 15's (c) and (b) (``full_width_case``,
+    ``sandwich_run``), the same LP configs and the same Burer-Monteiro point
+    for (c).  One warm-up run of (c) a tree, then the runs in turns (parent,
+    this, this, parent); each run's microseconds a certifier LP iteration
+    and its round split.  Returns the microseconds by tree and case."""
+    alias = "parent_sdpcutsel_tpu_torch"
+    import_checkout(parent, alias)
+    mods = {"parent": importlib.import_module(f"{alias}.loop.sdp_bound"),
+            "this": sdp_bound_mod}
+    configs = {"parent": importlib.import_module(f"{alias}.config"),
+               "this": config_mod}
+    inst, _, _, _, kw = full_width_case()
+
+    def lp_of(tree, lp):
+        return configs[tree].LPConfig(**dataclasses.asdict(lp))
+
+    def run(tree) -> dict:
+        out = {}
+        for case, go in (
+                (f"{INSTANCE} (c)", lambda: mods[tree].sdp_relaxation_bound(
+                    inst, lp_of(tree, FULL_LP), device=dev, **kw)[2]),
+                ("qcqp sandwich (b)", lambda: sandwich_run(
+                    mods[tree], lp_of(tree, SANDWICH["qcqp"][2]), dev)[1])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist = go()
+            wall = time.perf_counter() - t0
+            lp_s, iters, us = lp_us(hist)
+            split = {k: sum(h["seconds"].get(k, 0.0) for h in hist)
+                     for k in ("lp", "certificate", "host_cuts", "upload", "purge")}
+            log(f"[certifier timing] {tree}: {case} {len(hist)} rounds in {wall:.4f}s, best "
+                f"{min(h['bound'] for h in hist)!r}; the LP {lp_s:.4f}s for {iters} iterations "
+                f"= {us:.2f} us a certifier LP iteration; seconds {json.dumps(split)} ({SMI})")
+            out[case] = us
+        return out
+
+    for tree in ("parent", "this"):
+        mods[tree].sdp_relaxation_bound(inst, lp_of(tree, FULL_LP), device=dev, **kw)
+    runs = {"parent": [], "this": []}
+    for tree in ("parent", "this", "this", "parent"):
+        runs[tree].append(run(tree))
+    summary = {tree: {case: [r[case] for r in rs] for case in rs[0]} for tree, rs in runs.items()}
+    log(f"[certifier timing] us a certifier LP iteration, in turns: {json.dumps(summary)} ({SMI})")
+    return summary
 
 
 @contextlib.contextmanager
@@ -2517,7 +3045,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--parent", help="a checkout of the parent commit: phase 3 then holds "
-                        "this K2's bits to that build's on its inputs")
+                        "K2's and K5's bits to that build's on its inputs, and after phase 15 "
+                        "the certifier's LP is timed in both trees in turns")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
     smi = SMI = environment()
@@ -2557,8 +3086,16 @@ def main(argv=None) -> int:
         k5s.append(check_pdhg_check(label, inputs, dense, dev))
         k6s.append(check_pdhg_norm(label, inputs, dense, dev))
     control_batched = check_control_batched(bucket, dev)
-    k2["parent_bits"] = None
+    dense_route = check_dense_route(dev)
+    k2["parent_bits"] = k5s[1]["parent_bits"] = None
     if args.parent:
+        lib5 = parent_k5(args.parent)
+        same5 = [k5_against_parent(lib5, label, pdhg_inputs(Q, c, table, dense_rows, dev),
+                                   dense_rows)
+                 for label, (Q, c, table, dense_rows) in shapes.items()]
+        k5s[1]["parent_bits"] = all(same5)
+        if not all(same5):
+            raise AssertionError("K5 does not give the parent build's bits on phase 3's inputs")
         lib = parent_k2(args.parent)
         same = []
         for label, (Q, c, table, dense) in shapes.items():
@@ -2587,6 +3124,8 @@ def main(argv=None) -> int:
     PATH_LAUNCHES["batched bench scan"] = bench_scan_path(dev)
     PATH_LAUNCHES["batched qcqp family"] = qcqp_family_path(dev)
     PATH_LAUNCHES["certifiers and the CLI"] = certifiers_and_cli(dev)
+    if args.parent:
+        certifier_against_parent(args.parent, dev)
     PATH_LAUNCHES["training"] = training(main_hist, dev)
     PATH_LAUNCHES["multi-process (every rank)"] = multi_process(dev)
     seconds = time.perf_counter() - t_start
@@ -2633,6 +3172,21 @@ def main(argv=None) -> int:
          **{f"m0_{key}": v for key, v in k6s[0].items()}, **control_batched["norm"],
          "max_abs_err": max(k6s[0]["max_abs_err"], k6s[1]["max_abs_err"],
                             control_batched["norm"]["batched_max_abs_err"])},
+    ]
+    # K7, the dense route of the certifier's LP (csrc/pdhg_dense.cu): XLA in
+    # the reference's solve (no Pallas kernel: it refuses dense rows); each
+    # entry holds n = 125 at the full buffer, every shape under "shapes"
+    kernels += [
+        {**dense_entry("pdhg_dense", "sdpcutsel_tpu/lp/pdhg.py:216 (run_block's fori_loop of "
+                       "_one_iter with dense rows; XLA, no Pallas kernel)", total["pdhg_dense"],
+                       dense_route["pdhg_dense"]),
+         "cluster_scaling": dense_route["cluster_scaling"]},
+        dense_entry("pdhg_dense_check", "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block with "
+                    "dense rows; XLA, no Pallas kernel)", total["pdhg_dense_check"],
+                    dense_route["pdhg_dense_check"]),
+        dense_entry("pdhg_dense_norm", "sdpcutsel_tpu/lp/pdhg.py:71 (estimate_norm with dense "
+                    "rows; XLA, no Pallas kernel)", total["pdhg_dense_norm"],
+                    dense_route["pdhg_dense_norm"]),
     ]
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them

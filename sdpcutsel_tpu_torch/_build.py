@@ -71,6 +71,20 @@ _SIGNATURES = {
                           _P, _P, _P,                  # G, g, h
                           *[_P] * 18,                  # state, sums, anchor
                           _P, _P],                     # records, stream
+    # pdhg_dense.cu
+    "pdhg_dense_block_launch": [_I, _I, _I, _I, _I, _P,  # n m iters cluster smem records
+                                _P, _P, _P, _P, _P,      # cx, cX, G, g, h
+                                *[_P] * 10,              # state and sums in
+                                *[_P] * 10,              # state and sums out
+                                _P],                     # stream
+    "pdhg_dense_check_launch": [_I, _I, _I, _I, _I, _I, _I,  # n m cluster smem check_every
+                                _F,                      # restart_period max_iters; tol
+                                _P, _P, _P, _P, _P,      # cx, cX, G, g, h
+                                *[_P] * 15,              # state, sums, anchor
+                                _P, _P],                 # records, stream
+    "pdhg_dense_norm_launch": [_I, _I, _I, _I, _I,      # n m cluster smem iters
+                               _P, _P,                   # G, g
+                               _P, _P, _P, _P],          # y, Y, out, stream
     # pdhg_norm.cu
     "pdhg_norm_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,  # n M k m B cluster ex eX iters
                          _P, _P, _P, _P,               # idx, lin, quad, act

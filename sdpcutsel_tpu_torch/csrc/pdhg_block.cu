@@ -260,10 +260,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
   float* const tcoef = sm + L.tcoef;
 
   const int t = threadIdx.x;
-  const int c = t % kCols;
-  const int grp = t / kCols;
   const int lane = t % 32;
-  const int wr = c / 32;
   const int r0 = rank * R;
   const int rows = max(0, min(R, n - r0));
   const int p0 = rank * a.Mc;
@@ -345,90 +342,33 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
 
     // ---- A: adjoint, primal pre-step S, its transpose to the column owners,
     //      row sums (local) and column partials (to the owners) of yB -------
-    float cb = 0.0f;
-    for (int il = grp; il < rows; il += kGroups) {   // uniform across each warp
-      float va = 0.0f, vb = 0.0f;
-      if (c < n) {
-        const int e = il * n + c;
-        va = syA[e];
-        vb = syB[e];
-        const float cut = segment_sum(Xcut, Xcoef, sXoff[e], sXoff[e + 1], sw);
-        float gX = (-kSA * va + kSB * vb) + cut;
-        if (m > 0) {
-          float dn = 0.0f;
-          for (int q = 0; q < m; ++q) dn += syD[q] * sG[q * RN + e];
-          gX += dn;
-        }
-        const float s = sX[e] - tau * (scX[e] - gX);
-        sS[e] = s;
-        const int oc = c / R;
-        cluster.map_shared_rank(sST, oc)[(c - oc * R) * n + r0 + il] = s;
-        cb += vb;
-      }
-      const float rA = warp_sum(va);
-      const float rB = warp_sum(vb);
-      if (lane == 0) {
-        srowA[il * kWarpsPerRow + wr] = rA;
-        srowB[il * kWarpsPerRow + wr] = rB;
-      }
-    }
-    if (c < n) {
-      const int oc = c / R;
-      cluster.map_shared_rank(scolP, oc)[(rank * kGroups + grp) * R + (c - oc * R)] = cb;
-    }
+    mccormick_pre_step(cluster, sX, syA, syB, scX, sS, sST, srowA, srowB, scolP, tau, n, R, r0,
+                       rows, rank, [&](int e, float base) {
+                         float gX = base + segment_sum(Xcut, Xcoef, sXoff[e], sXoff[e + 1], sw);
+                         if (m > 0) {
+                           float dn = 0.0f;
+                           for (int q = 0; q < m; ++q) dn += syD[q] * sG[q * RN + e];
+                           gX += dn;
+                         }
+                         return gX;
+                       });
     cluster.sync();
 
     // ---- B1: gx, x step, xb to every CTA; X projection and Xb ---------------
-    if (t < rows) {
-      float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kWarpsPerRow; ++q) {
-        sa += srowA[t * kWarpsPerRow + q];
-        sb += srowB[t * kWarpsPerRow + q];
-      }
-      for (int q = 0; q < C * kGroups; ++q) sc += scolP[q * R + t];
-      const float cut = segment_sum(xcut, xcoef, sxoff[t], sxoff[t + 1], sw);
-      float gx = (kSA * sa - kSB * (sb + sc)) + cut;
-      if (m > 0) {
-        float dn = 0.0f;
-        for (int q = 0; q < m; ++q) dn += syD[q] * sg[q * R + t];
-        gx += dn;
-      }
-      const float xo = sx[t];
-      const float xn = fminf(fmaxf(xo - tau * (scx[t] - gx), 0.0f), 1.0f);
-      sx[t] = xn;
-      sax[t] += xn;
-      const float xbv = 2.0f * xn - xo;
-      for (int r = 0; r < C; ++r) cluster.map_shared_rank(sxb, r)[r0 + t] = xbv;
-    }
-    if (c < n) {
-      for (int il = grp; il < rows; il += kGroups) {
-        const int e = il * n + c;
-        const float xn = fminf(fmaxf(0.5f * (sS[e] + sST[e]), 0.0f), 1.0f);
-        sXb[e] = 2.0f * xn - sX[e];
-        sX[e] = xn;
-        saX[e] += xn;
-      }
-    }
+    mccormick_primal_step(cluster, sx, sax, scx, sX, saX, sS, sST, sXb, sxb, srowA, srowB, scolP,
+                          tau, n, R, r0, rows, C, [&](int i, float base) {
+                            float gx = base + segment_sum(xcut, xcoef, sxoff[i], sxoff[i + 1], sw);
+                            if (m > 0) {
+                              float dn = 0.0f;
+                              for (int q = 0; q < m; ++q) dn += syD[q] * sg[q * R + i];
+                              gx += dn;
+                            }
+                            return gx;
+                          });
     cluster.sync();
 
     // ---- B2: dual ascent on yA, yB; cut rows; dense-row partials ------------
-    if (c < n) {
-      const float xbc = sxb[c];
-      for (int il = grp; il < rows; il += kGroups) {
-        const int e = il * n + c;
-        const float xbv = sXb[e];
-        const float xbi = sxb[r0 + il];
-        const float kA = kSA * (xbi - xbv);
-        const float kB = kSB * (xbv - xbi - xbc);
-        const float ya = fmaxf(syA[e] - sigma * kA, 0.0f);
-        const float yb = fmaxf(syB[e] + sigma * (-kSB - kB), 0.0f);
-        syA[e] = ya;
-        syB[e] = yb;
-        saA[e] += ya;
-        saB[e] += yb;
-      }
-    }
+    mccormick_dual_step(syA, syB, saA, saB, sXb, sxb, sigma, n, r0, rows);
     for (int s = t; s < slots; s += kThreads) {
       const float am = sact[s];
       float yc = 0.0f;                     // an inactive slot's yC stays 0

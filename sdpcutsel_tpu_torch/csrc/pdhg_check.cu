@@ -49,8 +49,6 @@ using namespace pdhg;
 
 constexpr int kNV = 8;     // partial sums per evaluation point
 enum { kPX, kPx, kHyB, kHyC, kRxm, kSm, kV2, kVC2 };
-constexpr int kND = 6;     // partial sums of the distances
-enum { kDx, kDX, kDA, kDB, kDC, kDD };
 
 struct Point {                // x, X, yA, yB, yC, yD of a batch
   float *x, *X, *yA, *yB, *yC, *yD;
@@ -390,41 +388,9 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_check_kernel(const __grid_co
   cluster.sync();
 
   // ---- the record, by rank 0 ----------------------------------------------
-  if (rank == 0 && t == 0) {
-    const int P = use_avg ? 1 : 0;
-    const float err = dec[3 * P], p = dec[3 * P + 1], d = dec[3 * P + 2];
-    float omega = __int_as_float(rec[kRecOmega]);
-    const float eta = __int_as_float(rec[kRecEta]);
-    int wl = wlen;
-    if (restart) {
-      float s[kND];
-      for (int j = 0; j < kND; ++j) {
-        s[j] = 0.0f;
-        for (int r = 0; r < C; ++r) s[j] += sm[L.dist + r * kND + j];
-      }
-      const float dp = sqrtf(s[kDx] + s[kDX]) + 1e-12f;
-      const float dd = sqrtf(((s[kDA] + s[kDB]) + s[kDC]) + s[kDD]) + 1e-12f;
-      // primal-weight rebalancing between restarts (PDLP, theta = 0.5)
-      const float e = expf(__fadd_rn(__fmul_rn(0.5f, logf(dd / dp)), __fmul_rn(0.5f, logf(omega))));
-      omega = fminf(fmaxf(e, 1e-4f), 1e4f);
-      rec[kRecDp] = __float_as_int(dp);
-      rec[kRecDd] = __float_as_int(dd);
-      wl = 0;
-    }
-    const int it = rec[kRecIt] + a.check_every;
-    const float rel = err / ((1.0f + fabsf(p)) + fabsf(d));
-    rec[kRecIt] = it;
-    rec[kRecWlen] = wl;
-    rec[kRecStop] = (it >= a.max_iters || !(rel > a.tol)) ? 1 : 0;
-    rec[kRecRestart] = restart ? 1 : 0;
-    rec[kRecUseAvg] = use_avg ? 1 : 0;
-    rec[kRecOmega] = __float_as_int(omega);
-    rec[kRecErr] = __float_as_int(err);
-    rec[kRecP] = __float_as_int(p);
-    rec[kRecD] = __float_as_int(d);
-    rec[kRecTau] = __float_as_int(eta / omega);
-    rec[kRecSigma] = __float_as_int(eta * omega);
-  }
+  if (rank == 0 && t == 0)
+    write_record(rec, dec, use_avg, restart, wlen, sm + L.dist, C, a.check_every,
+                 a.max_iters, a.tol);
 }
 
 int check_shape(int n, int M, int k, int m, int cluster) {

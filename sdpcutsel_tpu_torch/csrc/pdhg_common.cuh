@@ -1,6 +1,9 @@
-// What the three PDHG kernels share: the iteration block (pdhg_block.cu,
-// K2), the checked block's control (pdhg_check.cu, K5) and the power
-// iteration for ||K|| (pdhg_norm.cu, K6).
+// What the PDHG kernels share: the iteration block (pdhg_block.cu, K2), the
+// checked block's control (pdhg_check.cu, K5), the power iteration for ||K||
+// (pdhg_norm.cu, K6) and the dense route's three (pdhg_dense.cu, K7).  K2 and
+// K7's block take the McCormick step from mccormick_pre_step,
+// mccormick_primal_step and mccormick_dual_step; K5 and K7's check write the
+// record with write_record.
 //
 // All three run one thread-block cluster of C CTAs x kThreads threads per
 // instance; CTA r owns rows [r R, min(n, (r + 1) R)) of every (n, n) array,
@@ -50,6 +53,11 @@ constexpr int kRecEta = 11;      // step_scale / ||K||
 constexpr int kRecDp = 12;       // the last restart's primal distance (+1e-12)
 constexpr int kRecDd = 13;       // and dual distance (+1e-12)
 constexpr int kRecWords = 16;
+
+// a check's partial sums of the squared distances from the restart anchor
+// (the dense route has no cut rows: its kDC stays 0)
+constexpr int kND = 6;
+enum { kDx, kDX, kDA, kDB, kDC, kDD };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -120,6 +128,153 @@ __device__ __forceinline__ float cut_residual_k(int k, const int* id, const floa
     case 4: return cut_residual<4>(id, l, qd, x_at, X_at);
     default: return cut_residual<5>(id, l, qd, x_at, X_at);
   }
+}
+
+// ---- the McCormick step over a band (K2 and the dense route's block) ------
+// Thread t works on column t % kCols of the band rows t / kCols + kGroups j;
+// every (n, n) array below is the CTA's band of R rows (r0 its first global
+// row, `rows` those that exist); x-like arrays hold the band's rows, xb is
+// the replica of all n.  The callers pass the adjoints of their other rows
+// (cuts, dense rows) as adj(e, base) and adj_x(i, base): gX and gx at band
+// entry e or row i, given base, the box rows' part.
+
+// A: S = X - tau (cX - gX) and its transposed tile to the column owners'
+// ST; the row sums of yA and yB per warp (rowA, rowB, local) and the column
+// partials of yB (colP, to the owners).  A cluster barrier follows.
+template <class Adj>
+__device__ __forceinline__ void mccormick_pre_step(
+    cg::cluster_group& cluster, const float* X, const float* yA, const float* yB,
+    const float* cX, float* S, float* ST, float* rowA, float* rowB, float* colP, float tau,
+    int n, int R, int r0, int rows, int rank, Adj adj) {
+  const int t = threadIdx.x, c = t % kCols, grp = t / kCols, lane = t % 32, wr = c / 32;
+  float cb = 0.0f;
+  for (int il = grp; il < rows; il += kGroups) {   // uniform across each warp
+    float va = 0.0f, vb = 0.0f;
+    if (c < n) {
+      const int e = il * n + c;
+      va = yA[e];
+      vb = yB[e];
+      const float gX = adj(e, -kSA * va + kSB * vb);
+      const float s = X[e] - tau * (cX[e] - gX);
+      S[e] = s;
+      const int oc = c / R;
+      cluster.map_shared_rank(ST, oc)[(c - oc * R) * n + r0 + il] = s;
+      cb += vb;
+    }
+    const float rA = warp_sum(va);
+    const float rB = warp_sum(vb);
+    if (lane == 0) {
+      rowA[il * kWarpsPerRow + wr] = rA;
+      rowB[il * kWarpsPerRow + wr] = rB;
+    }
+  }
+  if (c < n) {
+    const int oc = c / R;
+    cluster.map_shared_rank(colP, oc)[(rank * kGroups + grp) * R + (c - oc * R)] = cb;
+  }
+}
+
+// B1: gx from the row sums and the column partials, the x step (clipped to
+// [0, 1]) and its sum, xb = 2 x - x_old to every CTA's replica; then
+// X = clip(sym(S)), Xb = 2 X - X_old and X's sum.  A cluster barrier follows.
+template <class AdjX>
+__device__ __forceinline__ void mccormick_primal_step(
+    cg::cluster_group& cluster, float* x, float* ax, const float* cx, float* X, float* aX,
+    const float* S, const float* ST, float* Xb, float* xb, const float* rowA,
+    const float* rowB, const float* colP, float tau, int n, int R, int r0, int rows, int C,
+    AdjX adj_x) {
+  const int t = threadIdx.x, c = t % kCols, grp = t / kCols;
+  if (t < rows) {
+    float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kWarpsPerRow; ++q) {
+      sa += rowA[t * kWarpsPerRow + q];
+      sb += rowB[t * kWarpsPerRow + q];
+    }
+    for (int q = 0; q < C * kGroups; ++q) sc += colP[q * R + t];
+    const float gx = adj_x(t, kSA * sa - kSB * (sb + sc));
+    const float xo = x[t];
+    const float xn = fminf(fmaxf(xo - tau * (cx[t] - gx), 0.0f), 1.0f);
+    x[t] = xn;
+    ax[t] += xn;
+    const float xbv = 2.0f * xn - xo;
+    for (int r = 0; r < C; ++r) cluster.map_shared_rank(xb, r)[r0 + t] = xbv;
+  }
+  if (c < n) {
+    for (int il = grp; il < rows; il += kGroups) {
+      const int e = il * n + c;
+      const float xn = fminf(fmaxf(0.5f * (S[e] + ST[e]), 0.0f), 1.0f);
+      Xb[e] = 2.0f * xn - X[e];
+      X[e] = xn;
+      aX[e] += xn;
+    }
+  }
+}
+
+// B2: the dual ascent on yA and yB at (xb, Xb), and their sums.
+__device__ __forceinline__ void mccormick_dual_step(float* yA, float* yB, float* aA, float* aB,
+                                                    const float* Xb, const float* xb,
+                                                    float sigma, int n, int r0, int rows) {
+  const int t = threadIdx.x, c = t % kCols, grp = t / kCols;
+  if (c < n) {
+    const float xbc = xb[c];
+    for (int il = grp; il < rows; il += kGroups) {
+      const int e = il * n + c;
+      const float xbv = Xb[e];
+      const float xbi = xb[r0 + il];
+      const float kA = kSA * (xbi - xbv);
+      const float kB = kSB * (xbv - xbi - xbc);
+      const float ya = fmaxf(yA[e] - sigma * kA, 0.0f);
+      const float yb = fmaxf(yB[e] + sigma * (-kSB - kB), 0.0f);
+      yA[e] = ya;
+      yB[e] = yb;
+      aA[e] += ya;
+      aB[e] += yb;
+    }
+  }
+}
+
+// ---- the record after a checked block (K5 and the dense route's check) ----
+// One thread writes it.  dec: err, p, d of the current point, then of the
+// average; dist: the C ranks' (C, kND) distance partials, summed in rank
+// order on a restart; wlen: the window before this block.  On a restart
+// omega moves by PDLP's primal-weight rule (theta = 0.5); then the stop test
+// and the next block's steps.
+__device__ __forceinline__ void write_record(int* rec, const float* dec, bool use_avg,
+                                             bool restart, int wlen, const float* dist, int C,
+                                             int check_every, int max_iters, float tol) {
+  const int P = use_avg ? 1 : 0;
+  const float err = dec[3 * P], p = dec[3 * P + 1], d = dec[3 * P + 2];
+  float omega = __int_as_float(rec[kRecOmega]);
+  const float eta = __int_as_float(rec[kRecEta]);
+  int wl = wlen;
+  if (restart) {
+    float s[kND];
+    for (int j = 0; j < kND; ++j) {
+      s[j] = 0.0f;
+      for (int r = 0; r < C; ++r) s[j] += dist[r * kND + j];
+    }
+    const float dp = sqrtf(s[kDx] + s[kDX]) + 1e-12f;
+    const float dd = sqrtf(((s[kDA] + s[kDB]) + s[kDC]) + s[kDD]) + 1e-12f;
+    const float e = expf(__fadd_rn(__fmul_rn(0.5f, logf(dd / dp)), __fmul_rn(0.5f, logf(omega))));
+    omega = fminf(fmaxf(e, 1e-4f), 1e4f);
+    rec[kRecDp] = __float_as_int(dp);
+    rec[kRecDd] = __float_as_int(dd);
+    wl = 0;
+  }
+  const int it = rec[kRecIt] + check_every;
+  const float rel = err / ((1.0f + fabsf(p)) + fabsf(d));
+  rec[kRecIt] = it;
+  rec[kRecWlen] = wl;
+  rec[kRecStop] = (it >= max_iters || !(rel > tol)) ? 1 : 0;
+  rec[kRecRestart] = restart ? 1 : 0;
+  rec[kRecUseAvg] = use_avg ? 1 : 0;
+  rec[kRecOmega] = __float_as_int(omega);
+  rec[kRecErr] = __float_as_int(err);
+  rec[kRecP] = __float_as_int(p);
+  rec[kRecD] = __float_as_int(d);
+  rec[kRecTau] = __float_as_int(eta / omega);
+  rec[kRecSigma] = __float_as_int(eta * omega);
 }
 
 // one cluster of `cluster` CTAs per instance, `instances` clusters

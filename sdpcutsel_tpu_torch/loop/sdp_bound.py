@@ -22,13 +22,16 @@ the dense duals): zero rows are inert, so the reference sums over all
 ``capacity`` rows and this port over ``count``; the bits differ within
 rounding.
 
-The LP's blocks run the plain PDHG loop on the caller's device: the
-certifier's pool holds no sparse cut (width k = 1) and its dense rows
-(up to ``capacity``) exceed what the iteration kernel K2 keeps in shared
-memory.  ``LPConfig.use_kernel="auto"`` takes the plain loop here, as the
-reference does once dense rows are present; ``"on"`` raises with
-``lp/pdhg_kernel.py::plan_refusal``'s reason.  On CUDA each plain block is
-counted in ``pdhg_block.plain_launches``.
+The LP runs on the caller's device through the solve's dense route
+(``lp/pdhg_kernel.py::kernel_route``): the certifier's pool holds no
+sparse cut (capacity 1, width 1) and its dense rows (up to ``capacity``)
+exceed what the iteration kernel K2 keeps in shared memory, so on CUDA
+``LPConfig.use_kernel="auto"`` (and ``"on"``) runs the dense-row kernels of
+``csrc/pdhg_dense.cu`` (``lp/pdhg_dense.py``: the block, its check and
+||K||), which stream G and g from the buffer where they lie.  The reference
+runs the same plain iteration as one ``lax.while_loop`` on its device.  On
+the CPU, and with ``"off"`` anywhere, the plain loop runs (counted on CUDA
+in ``pdhg_block.plain_launches``).
 
 The host functions (``sdp_lower_bound``, ``bm_null_directions``,
 ``qcqp_rows``, ``qcqp_interior_anchor``, ``gap_closed`` and the cut
@@ -215,8 +218,6 @@ def sdp_relaxation_bound(
     (``dual_bound_f64``), ``purge``, ``host_cuts`` (eigh and row
     generation on the host) and ``upload`` (the new rows' copies)."""
     lp_cfg = lp_cfg or LPConfig()
-    if lp_cfg.use_kernel == "auto":
-        lp_cfg = dataclasses.replace(lp_cfg, use_kernel="off")
     device = torch.device(device)
     n = inst.n
     is_qcqp = hasattr(inst, "Q0")

@@ -23,11 +23,14 @@ nothing.  ``_run_groups`` enqueues groups of ``GROUP_BLOCKS`` blocks and
 reads the record to the host once after each group (``read_record``);
 ``iters`` and every bit equal those of a loop that read after each block.
 ||K|| comes from K6 (``pdhg_norm.pdhg_norm``) in one launch and stays on the
-device.  On the CPU the wrappers take their plain twins (``pdhg_block_plain``,
-``pdhg_check_plain``, ``estimate_norm_plain``), with the same loop;
-``LPConfig.use_kernel="off"`` (``kernel_route``) takes the twins on any
-device, counted on CUDA.  Scalars are float32, as on the device in the
-reference.  Everything outside the kernels sums the cut adjoint over the
+device.  The certifier's LP (a pool without cuts, up to thousands of dense
+rows) takes the dense route instead: the same loop over the kernels of
+``csrc/pdhg_dense.cu`` (``pdhg_dense.pdhg_dense_block_steps``,
+``pdhg_dense_check``, ``pdhg_dense_norm``).  On the CPU the wrappers take
+their plain twins (``pdhg_block_plain``, ``pdhg_check_plain``,
+``estimate_norm_plain``), with the same loop; ``LPConfig.use_kernel="off"``
+(``kernel_route``) takes the twins on any device, counted on CUDA.  Scalars
+are float32, as on the device in the reference.  Everything outside the kernels sums the cut adjoint over the
 pool's cut index too (relax/cutbuffer.py), so a solve repeats bit for bit.
 
 ``steer_to_vertex`` (vertex steering) runs one more block from a solved
@@ -302,23 +305,25 @@ def _copy_into(dst: PDHGState, src: PDHGState):
 def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
                 normK, omega0: float, tol: float, step_scale: float,
                 max_iters: int, check_every: int, restart_period: int,
-                dense: DenseRows | None = None, kernel: bool = True):
+                dense: DenseRows | None = None, route: str = "k2"):
     """Checked-block PDHG solve from ``st0`` (left as it is) with a given
     ``normK`` (a float or a 0-d tensor); ``index`` is
-    ``build_cut_index(pool, n)``; ``kernel``: the blocks and the check
-    through their wrappers (K2 and K5 on CUDA), else their plain twins on
-    the tensors' device (``kernel_route``).  Returns (state, info) with
-    python scalars in info."""
+    ``build_cut_index(pool, n)``; ``route`` (``kernel_route``): "k2" the
+    blocks and the check through K2's and K5's wrappers, "dense" through the
+    dense route's (``lp/pdhg_dense.py``), "plain" their plain twins on the
+    tensors' device.  Returns (state, info) with python scalars in info."""
     from .pdhg_check import pdhg_check
+    from .pdhg_dense import pdhg_dense_block_steps, pdhg_dense_check
     from .pdhg_kernel import pdhg_block, pdhg_block_steps, pdhg_block_steps_plain
 
     st, anchor, acc = _buffers(st0)
     rec = new_record(normK, omega0, step_scale, max_iters, tol, cx.device)
     args = (cx, cX, pool, index, st, acc)
     control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
-    block, check = ((pdhg_block_steps, pdhg_check) if kernel
-                    else (pdhg_block_steps_plain, pdhg_check_plain))
-    on_card = not kernel and cx.device.type == "cuda"
+    block, check = {"k2": (pdhg_block_steps, pdhg_check),
+                    "dense": (pdhg_dense_block_steps, pdhg_dense_check),
+                    "plain": (pdhg_block_steps_plain, pdhg_check_plain)}[route]
+    on_card = route == "plain" and cx.device.type == "cuda"
 
     def step():
         if block(*args, rec, check_every, dense) and on_card:
@@ -337,7 +342,7 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
 class SolveSetup:
     """What a solve derives from its pool once: the blocks' route, the cut
     index and ||K||.  Steering reuses the solve's, as the pool is the same."""
-    kernel: bool          # blocks, check and norm through their wrappers (else the twins)
+    route: str            # "k2", "dense" or "plain" (lp/pdhg_kernel.py::kernel_route)
     index: CutIndex
     normK: object         # a 0-d float32 tensor on the device; a batch's: (B,)
 
@@ -345,22 +350,23 @@ class SolveSetup:
 def solve_setup(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
     """The route by ``cfg.use_kernel`` (``lp/pdhg_kernel.py::kernel_route``),
     ``build_cut_index`` and ||K|| of a solve over ``pool``: K6
-    (``pdhg_norm``) on the kernel route, ``estimate_norm_plain`` otherwise;
-    it stays on the device."""
+    (``pdhg_norm``) on K2's route, ``pdhg_dense_norm`` on the dense route,
+    ``estimate_norm_plain`` on the plain one; it stays on the device."""
+    from .pdhg_dense import pdhg_dense_norm
     from .pdhg_kernel import kernel_route
     from .pdhg_norm import pdhg_norm
 
     n = int(c.shape[0])
     M, k = pool.idx.shape
-    kernel = kernel_route(cfg.use_kernel, c.device, n, M, k,
-                          0 if dense is None else dense.m)
+    route = kernel_route(cfg.use_kernel, c.device, n, M, k,
+                         0 if dense is None else dense.m)
     index = build_cut_index(pool, n)        # the pool is constant in a solve
-    norm = pdhg_norm if kernel else estimate_norm_plain
+    norm = {"k2": pdhg_norm, "dense": pdhg_dense_norm, "plain": estimate_norm_plain}[route]
     normK = norm(pool, n, cfg.power_iters, torch.Generator(device="cpu").manual_seed(0), index,
                  dense)
-    if not kernel and c.device.type == "cuda":
+    if route == "plain" and c.device.type == "cuda":
         pdhg_norm.plain_launches += 1
-    return SolveSetup(kernel, index, normK)
+    return SolveSetup(route, index, normK)
 
 
 def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
@@ -371,16 +377,17 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
     the QCQP's constraint rows, whose duals are ``state.yD``; setup:
     ``solve_setup(c, pool, cfg, dense)``, computed here when None.
     ``cfg.use_kernel`` chooses the blocks (``lp/pdhg_kernel.py::
-    kernel_route``): with "auto", the iteration kernel on CUDA, dense rows or
-    not, raising where its launch plan does not take (n, capacity, k, m); the
-    plain loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
+    kernel_route``): with "auto", on CUDA the iteration kernel K2 for a pool
+    of cuts (dense rows or not) or the dense route for the certifier's pool
+    without cuts, raising where neither takes (n, capacity, k, m); the plain
+    loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
     bound estimate is -info['dual_obj'], the certified one dual_bound_f64.
     """
     if setup is None:
         setup = solve_setup(c, pool, cfg, dense)
     return _solve_impl(-c, -0.5 * Q, pool, setup.index, state, setup.normK, cfg.omega0,
                        cfg.tol, cfg.step_scale, cfg.max_iters, cfg.check_every,
-                       cfg.restart_period, dense, setup.kernel)
+                       cfg.restart_period, dense, setup.route)
 
 
 # ---- the instance axis: a batch of solves of one shape (parallel/round.py) ----
@@ -521,7 +528,7 @@ def pdhg_check_batched_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGSta
 def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK,
                    omega0: float, tol: float, step_scale: float, max_iters: int,
                    check_every: int, restart_period: int,
-                   dense: DenseRows | None = None, kernel: bool = True):
+                   dense: DenseRows | None = None, route: str = "k2"):
     """``_solve_impl`` for a batch of B instances of one shape: cx (B, n),
     cX (B, n, n), the other arguments with the instance axis first
     (``relax/batched.py``; ``index`` from its ``build_cut_index``), normK
@@ -532,10 +539,10 @@ def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK
     each); the loop runs while any instance runs.  Each checked block is one
     batched K2 launch (``pdhg_block_steps_batched``) and one batched K5
     launch (``pdhg_check_batched``) for every instance, a stopped one doing
-    nothing; one read of the records a group.  With ``kernel`` False the
+    nothing; one read of the records a group.  With ``route`` "plain" the
     twins run instead (the block for the instances still running, counted
-    in ``pdhg_block.plain_launches`` on CUDA).  Returns (state, info) with
-    (B,) numpy arrays in info."""
+    in ``pdhg_block.plain_launches`` on CUDA); the dense route has no
+    instance axis.  Returns (state, info) with (B,) numpy arrays in info."""
     from .pdhg_check import pdhg_check, pdhg_check_batched
     from .pdhg_kernel import (pdhg_block, pdhg_block_steps_batched,
                               pdhg_block_steps_batched_plain)
@@ -545,9 +552,9 @@ def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK
     rec = new_record(normK, omega0, step_scale, max_iters, tol, cx.device, batch=B)
     args = (cx, cX, pool, index, st, acc)
     control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
-    block, check = ((pdhg_block_steps_batched, pdhg_check_batched) if kernel
-                    else (pdhg_block_steps_batched_plain, pdhg_check_batched_plain))
-    on_card = not kernel and cx.device.type == "cuda"
+    block, check = {"k2": (pdhg_block_steps_batched, pdhg_check_batched),
+                    "plain": (pdhg_block_steps_batched_plain, pdhg_check_batched_plain)}[route]
+    on_card = route == "plain" and cx.device.type == "cuda"
 
     def step():
         if block(*args, rec, check_every, dense) and on_card:
@@ -565,23 +572,26 @@ def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK
 def solve_setup_batched(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
     """``solve_setup`` of a batch (c (B, n)): the route by ``cfg.use_kernel``
     at the batch's shape, ``relax.batched.build_cut_index`` and ||K|| of
-    every instance, (B,) on the device (K6's batched launch on the kernel
-    route, ``estimate_norm_batched_plain`` otherwise)."""
+    every instance, (B,) on the device (K6's batched launch on K2's route,
+    ``estimate_norm_batched_plain`` otherwise).  The dense route has no
+    instance axis: a batch of the certifier's pools raises."""
     from ..relax import batched as rb
     from .pdhg_kernel import kernel_route
     from .pdhg_norm import pdhg_norm, pdhg_norm_batched
 
     n = int(c.shape[1])
     M, k = pool.idx.shape[1:]
-    kernel = kernel_route(cfg.use_kernel, c.device, n, M, k,
-                          0 if dense is None else dense.G.shape[1])
+    route = kernel_route(cfg.use_kernel, c.device, n, M, k,
+                         0 if dense is None else dense.G.shape[1])
+    if route == "dense":
+        raise ValueError("the dense route solves one instance; batches take pools of cuts")
     index = rb.build_cut_index(pool, n)
-    norm = pdhg_norm_batched if kernel else estimate_norm_batched_plain
+    norm = pdhg_norm_batched if route == "k2" else estimate_norm_batched_plain
     normK = norm(pool, n, cfg.power_iters, torch.Generator(device="cpu").manual_seed(0), index,
                  dense)
-    if not kernel and c.device.type == "cuda":
+    if route == "plain" and c.device.type == "cuda":
         pdhg_norm.plain_launches += 1
-    return SolveSetup(kernel, index, normK)
+    return SolveSetup(route, index, normK)
 
 
 def rademacher_signs(n: int, generator: torch.Generator, device):
@@ -600,7 +610,9 @@ def _steer_impl(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
     """``iters`` PDHG iterations from ``st`` on the objective perturbed by
     eps (mean |cX| + mean |cx|) (sx, sym(SX)), at the fixed steps tau =
     eta / omega, sigma = eta omega, eta = step_scale / normK: one block,
-    through K2 on CUDA (its ergodic sums are discarded).  Returns (x, X)."""
+    through the solve's route (K2 on CUDA; its ergodic sums are discarded).
+    Returns (x, X)."""
+    from .pdhg_dense import pdhg_dense_block
     from .pdhg_kernel import pdhg_block, pdhg_block_plain
 
     scale = float(eps) * (cX.abs().mean() + cx.abs().mean())
@@ -608,8 +620,8 @@ def _steer_impl(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
     cX_p = cX + scale * _sym(SX)
     eta = _f32(step_scale) / _f32(float(setup.normK))      # a host float: one read
     tau, sigma = eta / _f32(omega), eta * _f32(omega)
-    block = pdhg_block if setup.kernel else pdhg_block_plain
-    if not setup.kernel and cx.device.type == "cuda":
+    block = {"k2": pdhg_block, "dense": pdhg_dense_block, "plain": pdhg_block_plain}[setup.route]
+    if setup.route == "plain" and cx.device.type == "cuda":
         pdhg_block.plain_launches += 1
     st, _ = block(cx_p, cX_p, pool, setup.index, st, st.map(torch.zeros_like),
                   float(tau), float(sigma), iters, dense)

@@ -1,0 +1,259 @@
+"""Wrappers of the dense-row route's kernels (``csrc/pdhg_dense.cu``, K7):
+the LP of the SDP certifier (``loop/sdp_bound.py``), a pool that holds no
+cut and any number m of dense rows, on the card.
+
+- ``pdhg_dense_block`` / ``pdhg_dense_block_steps``: ``iters`` iterations of
+  ``lp/pdhg.py::_one_iter`` with the ergodic sums, with host steps (the
+  twin's and steering's) or in place with the steps and stop flag of the
+  solve's control record (the solve's blocks).  Twins ``pdhg_block_plain``
+  and ``pdhg_block_steps_plain``.
+- ``pdhg_dense_check``: the checked block's control after each block (K5's
+  work with the dense residuals).  Twin ``pdhg_check_plain``.
+- ``pdhg_dense_norm``: ||K|| by the power iteration in one launch (K6's work).
+  Twin ``estimate_norm_plain``.
+
+They take the same arguments as K2's, K5's and K6's wrappers, so the solve's
+loop (``lp/pdhg.py::_solve_impl``) runs either route.  The reference runs
+this LP in XLA (its Pallas kernel refuses dense rows,
+``sdpcutsel_tpu/lp/pdhg.py:291-301``): the three have no Pallas counterpart.
+
+Shapes: n <= 128, the certifier's pool (one slot of width 1, never filled:
+``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
+rows' duals and partials (``max_dense_rows``; ~11,000 at n = 125).  One
+cluster of ``CLUSTER`` CTAs; G, g and h are read where they lie (the
+certifier's buffer views), never copied.  yC and its sum are left as they
+are: the twin keeps them at 0 on a pool whose rows are all inactive.
+
+Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
+other device raises.  ``pdhg_dense_block.launches`` counts the block
+launches of both block wrappers, ``pdhg_dense_check.launches`` and
+``pdhg_dense_norm.launches`` theirs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..relax.cutbuffer import CutIndex, CutPool
+from ..relax.denserows import DenseRows
+from .pdhg import (PDHGState, estimate_norm_plain, norm_start, pdhg_check_plain)
+from .pdhg_kernel import (_ERRORS, _GROUPS, _WARPS_PER_ROW, NMAX, SMEM_MAX, check_record,
+                          pdhg_block_plain, pdhg_block_steps_plain, steps_record)
+
+CLUSTER = 16                # CTAs in the cluster (non-portable size)
+_THREADS = 512              # csrc/pdhg_common.cuh kThreads
+_MAX_ENTRIES = 32 * 33      # csrc/pdhg_dense.cu kMaxEntries: a band's entries, R n + R
+KINDS = ("block", "check", "norm")
+
+
+def smem_words(kind: str, n: int, m: int, C: int = CLUSTER) -> int:
+    """4-byte words of one CTA's shared memory for kernel ``kind``: the sums
+    of ``csrc/pdhg_dense.cu``'s ``block_layout``, ``check_layout`` and
+    ``norm_layout``.  None grows with m n."""
+    R, mc = -(-n // C), -(-m // C)
+    RN = R * n
+    rows = 2 * R * _WARPS_PER_ROW + C * _GROUPS * R       # row and column partials
+    if kind == "block":
+        return (11 * RN + rows + 4 * R + NMAX              # bands; x, ax, cx, gD; xb
+                + m + 2 * mc + C * mc + _THREADS)          # yD, h, ayD, partials; scratch
+    if kind == "check":
+        return (2 * NMAX + 2 * m + 8 * RN + 2 * R + 2 * rows + 2 * C * mc
+                + C * 2 * 8 + C * 6 + 2 * _THREADS + (2 * 8 + 6 + 8))
+    if kind == "norm":
+        return (6 * RN + rows + NMAX + 2 * R + C * mc + m + C * 4 + _THREADS + 4)
+    raise ValueError(f"unknown dense-route kernel {kind!r}; one of {KINDS}")
+
+
+def smem_bytes(kind: str, n: int, m: int, C: int = CLUSTER) -> int:
+    return 4 * smem_words(kind, n, m, C)
+
+
+def _fits(n: int, m: int, C: int = CLUSTER) -> bool:
+    return all(smem_bytes(kind, n, m, C) <= SMEM_MAX for kind in KINDS)
+
+
+def max_dense_rows(n: int, C: int = CLUSTER) -> int:
+    """The largest m the three kernels take at n."""
+    lo, hi = 0, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _fits(n, mid, C) else (lo, mid - 1)
+    return lo
+
+
+def dense_refusal(n: int, M: int, k: int, m: int, C: int = CLUSTER) -> str | None:
+    """Why the dense route does not take n, a pool of capacity M and width
+    k, and m dense rows, or None where it does: the certifier's pool (M = 1,
+    k = 1: no cut) and n <= 128, with shared memory for m rows."""
+    if (M, k) != (1, 1):
+        return (f"the dense route takes the certifier's pool without cuts (capacity 1, "
+                f"width 1), got capacity {M}, width {k}")
+    if not 1 <= n <= NMAX:
+        return f"the dense route takes 1 <= n <= {NMAX}, got {n}"
+    R = -(-n // C)
+    if R * n + R > _MAX_ENTRIES:
+        return f"the dense route: n={n} exceeds its lanes at a cluster of {C}"
+    if not _fits(n, m, C):
+        return (f"the dense route: m={m} dense rows exceed {SMEM_MAX} bytes of shared memory "
+                f"per CTA at n={n} (at most {max_dense_rows(n, C)})")
+    return None
+
+
+def _dense_ptrs(dense: DenseRows | None, n: int, device):
+    """(m, [G, g, h] pointers) of the dense rows, checked: float32,
+    contiguous (the certifier's buffer views are), on ``device``."""
+    if dense is None:
+        return 0, [None] * 3
+    m = dense.G.shape[0]
+    for name, t, want in (("G", dense.G, (m, n, n)), ("g", dense.g, (m, n)),
+                          ("h", dense.h, (m,))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"pdhg_dense kernel: dense.{name} has shape {tuple(t.shape)}, "
+                             f"want {want}")
+        if t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"pdhg_dense kernel takes contiguous float32 dense rows on {device}")
+    return m, [t.data_ptr() for t in (dense.G, dense.g, dense.h)]
+
+
+def _fields(st: PDHGState):
+    """The five fields the kernels read and write (yC is left as it is)."""
+    return [st.x, st.X, st.yA, st.yB, st.yD]
+
+
+def _checked(cx, cX, pool: CutPool, states, dense: DenseRows | None, name: str,
+             C: int = CLUSTER):
+    """Check a launch's arguments; returns (n, m, the dense pointers)."""
+    n = cx.shape[0]
+    M, k = pool.idx.shape
+    dev = cx.device
+    m, dptr = _dense_ptrs(dense, n, dev)
+    why = dense_refusal(n, M, k, m, C)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+    shapes = {"cx": (cx, (n,)), "cX": (cX, (n, n)),
+              **{f"state.{f}": (t, s) for st in states for f, t, s in zip(
+                  ("x", "X", "yA", "yB", "yD"), _fields(st), ((n,), (n, n), (n, n), (n, n), (m,)))}}
+    for field, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} kernel: {field} has shape {tuple(t.shape)}, want {want}")
+        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous float32 tensors on one device")
+    return n, m, dptr
+
+
+def _launch_block(cx, cX, pool: CutPool, ins, outs, rec, iters: int,
+                  dense: DenseRows | None, cluster: int = CLUSTER):
+    """The block's launch from the states ``ins`` into ``outs`` (which may
+    be ``ins``) with the steps and stop flag of ``rec``; ``cluster``: CTAs a
+    cluster (the route's 16; other sizes for measurements)."""
+    n, m, dptr = _checked(cx, cX, pool, (*ins, *outs), dense, "pdhg_dense_block", cluster)
+    err = _build.lib().pdhg_dense_block_launch(
+        n, m, iters, cluster, smem_bytes("block", n, m, cluster), rec.data_ptr(),
+        cx.data_ptr(), cX.data_ptr(), *dptr,
+        *(t.data_ptr() for st in ins for t in _fields(st)),
+        *(t.data_ptr() for st in outs for t in _fields(st)),
+        torch.cuda.current_stream(cx.device).cuda_stream)
+    if err in _ERRORS:
+        raise RuntimeError(f"pdhg_dense_block_launch: {_ERRORS[err]} (cluster {cluster}, "
+                           f"n={n}, m={m})")
+    _build.check(err, "pdhg_dense_block_launch")
+    pdhg_dense_block.launches += 1
+
+
+def pdhg_dense_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                     tau: float, sigma: float, iters: int, dense: DenseRows | None = None):
+    """Run ``iters`` PDHG iterations from ``st`` with host steps tau and
+    sigma and add each iterate to ``acc``; returns new (state, acc), the
+    inputs left unchanged.  ``index`` is unused by the kernel (the pool
+    holds no cut) and passed on to the twin."""
+    if cx.device.type == "cpu":
+        return pdhg_block_plain(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
+    if cx.device.type == "cuda":
+        ins = [st.map(lambda t: t.contiguous()), acc.map(lambda t: t.contiguous())]
+        outs = [s.map(torch.empty_like) for s in ins]
+        for o, s in zip(outs, ins):
+            o.yC = s.yC.clone()
+        _launch_block(cx.contiguous(), cX.contiguous(), pool, ins, outs,
+                      steps_record([tau], [sigma], cx.device), iters, dense)
+        return outs[0], outs[1]
+    raise ValueError(f"pdhg_dense_block: no kernel for device {cx.device}")
+
+
+pdhg_dense_block.launches = 0
+
+
+def pdhg_dense_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                           acc: PDHGState, rec, iters: int, dense: DenseRows | None = None):
+    """``pdhg_dense_block`` in place on (st, acc), with the steps of the
+    solve's control record ``rec`` (int32 (REC_WORDS,) on the device), and
+    nothing done once its stop flag is set: the solve loop's block.  Counted
+    in ``pdhg_dense_block.launches``."""
+    if cx.device.type == "cpu":
+        pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, iters, dense)
+    elif cx.device.type == "cuda":
+        check_record(rec[None], 1, cx.device, "pdhg_dense_block")
+        _launch_block(cx.contiguous(), cX.contiguous(), pool, [st, acc], [st, acc], rec, iters,
+                      dense)
+    else:
+        raise ValueError(f"pdhg_dense_block: no kernel for device {cx.device}")
+
+
+def pdhg_dense_check(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                     anchor: PDHGState, rec, check_every: int, restart_period: int,
+                     max_iters: int, tol: float, dense: DenseRows | None = None):
+    """The checked block's control after a dense-route block, in place on
+    (st, acc, anchor) and the record ``rec``: ``pdhg_check``'s contract."""
+    if cx.device.type == "cpu":
+        pdhg_check_plain(cx, cX, pool, index, st, acc, anchor, rec, check_every,
+                         restart_period, max_iters, tol, dense)
+        return
+    if cx.device.type != "cuda":
+        raise ValueError(f"pdhg_dense_check: no kernel for device {cx.device}")
+    cx, cX = cx.contiguous(), cX.contiguous()
+    n, m, dptr = _checked(cx, cX, pool, (st, acc, anchor), dense, "pdhg_dense_check")
+    check_record(rec[None], 1, cx.device, "pdhg_dense_check")
+    err = _build.lib().pdhg_dense_check_launch(
+        n, m, CLUSTER, smem_bytes("check", n, m), check_every, restart_period, max_iters,
+        float(np.float32(tol)), cx.data_ptr(), cX.data_ptr(), *dptr,
+        *(t.data_ptr() for s in (st, acc, anchor) for t in _fields(s)), rec.data_ptr(),
+        torch.cuda.current_stream(cx.device).cuda_stream)
+    if err in _ERRORS:
+        raise RuntimeError(f"pdhg_dense_check_launch: {_ERRORS[err]} (cluster {CLUSTER})")
+    _build.check(err, "pdhg_dense_check_launch")
+    pdhg_dense_check.launches += 1
+
+
+pdhg_dense_check.launches = 0
+
+
+def pdhg_dense_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator,
+                    index: CutIndex, dense: DenseRows | None = None):
+    """||K|| 1.02 + 1e-12 of a dense-route solve after ``iters`` power
+    iterations from the start vector ``norm_start`` draws from
+    ``generator``: a 0-d float32 tensor on the pool's device."""
+    dev = pool.lin.device
+    if dev.type == "cpu":
+        return estimate_norm_plain(pool, n, iters, generator, index, dense)
+    if dev.type != "cuda":
+        raise ValueError(f"pdhg_dense_norm: no kernel for device {dev}")
+    M, k = pool.idx.shape
+    m, dptr = _dense_ptrs(dense, n, dev)
+    why = dense_refusal(n, M, k, m)
+    if why is not None:
+        raise ValueError(f"pdhg_dense_norm: {why}")
+    x, X = norm_start(n, generator, dev)
+    y, Y = x.contiguous(), X.contiguous()
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    err = _build.lib().pdhg_dense_norm_launch(
+        n, m, CLUSTER, smem_bytes("norm", n, m), iters, *dptr[:2], y.data_ptr(), Y.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err in _ERRORS:
+        raise RuntimeError(f"pdhg_dense_norm_launch: {_ERRORS[err]} (cluster {CLUSTER})")
+    _build.check(err, "pdhg_dense_norm_launch")
+    pdhg_dense_norm.launches += 1
+    return out
+
+
+pdhg_dense_norm.launches = 0

@@ -15,11 +15,13 @@ need through distributed shared memory (the design is in the source).
 ``launch_plan`` gives the cluster size, the band height, the shared bytes per
 CTA and the largest pool capacity M and dense row count m the plan takes at
 a shape; it raises where the shape does not fit (``plan_refusal`` says why).
-``kernel_route`` chooses a solve's blocks by ``LPConfig.use_kernel`` and that
-same rule.  On CUDA, K2 is the only route unless the caller asks for the
-plain loop ("off"): a shape outside the plan (n > 128, a pool too large for
-shared memory) raises with the plan's reason.  The plain blocks a solve runs
-on CUDA are counted in ``pdhg_block.plain_launches``.
+``kernel_route`` chooses a solve's route by ``LPConfig.use_kernel`` and that
+same rule: K2 for a pool of cuts, the dense route (``lp/pdhg_dense.py``) for
+the certifier's pool without cuts.  On CUDA a kernel route runs unless the
+caller asks for the plain loop ("off"): a shape that neither takes (n > 128,
+a pool too large for shared memory) raises with the rule's reason.  The
+plain blocks a solve runs on CUDA are counted in
+``pdhg_block.plain_launches``.
 
 The cut adjoint (scatter of yC-weighted coefficients into gx, gX) is
 deterministic in the kernel: ``build_cut_index`` (relax/cutbuffer.py) sorts,
@@ -130,30 +132,46 @@ def plan_refusal(n: int, M: int, k: int, m: int, cluster: int = CLUSTER) -> str 
     return None
 
 
-def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> bool:
-    """Whether a solve runs its blocks through ``pdhg_block`` (K2 on CUDA,
-    the twin on the CPU) rather than the plain ``_one_iter`` loop on the
-    tensors' own device, by ``LPConfig.use_kernel``: "off" plain; "on" the
-    kernel, raising where the launch plan does not take the shape; "auto"
-    the kernel on CUDA, raising there too where the plan does not take the
-    shape, and plain on any other device.  The reference's "auto" runs its
-    plain loop on the accelerator outside its kernel's shapes
-    (``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here the plain loop runs on
-    the card only when the caller asks for it with "off"."""
+def route_refusal(n: int, M: int, k: int, m: int) -> tuple[str, str | None]:
+    """The kernel route whose rule decides a shape, and why it does not
+    take it (None where it does): the dense route (``lp/pdhg_dense.py``) for
+    the certifier's pool without cuts, any m; K2 with K5 and K6 for every
+    other pool (``plan_refusal``).  A pool of width 1 is a pool without cuts:
+    a cut has k = 2..5 entries, so no cut fits it, and the certifier's
+    sentinel ``empty_pool(1, 1)`` is the one such pool.  The dense kernels
+    leave its yC as it is, where the twins apply the pool's inactive row."""
+    if (M, k) == (1, 1):
+        from .pdhg_dense import dense_refusal
+
+        return "dense", dense_refusal(n, M, k, m)
+    return "k2", plan_refusal(n, M, k, m)
+
+
+def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> str:
+    """The route of a solve's blocks, check and norm, by
+    ``LPConfig.use_kernel``: "k2" (K2, K5, K6), "dense" (the dense-row
+    kernels of ``csrc/pdhg_dense.cu``) or "plain" (the plain ``_one_iter``
+    loop and the twins on the tensors' device).  "off" plain;
+    "on" the kernel route of the shape (``route_refusal``), raising where it
+    does not take the shape; "auto" the same on CUDA, and plain on any other
+    device.  A kernel route on the CPU runs its wrappers' twins.  The
+    reference's "auto" runs its plain loop on the accelerator outside its
+    kernel's shapes (``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here the plain
+    loop runs on the card only when the caller asks for it with "off"."""
     if use_kernel == "off":
-        return False
-    why = plan_refusal(n, M, k, m)
+        return "plain"
+    route, why = route_refusal(n, M, k, m)
     if use_kernel == "on":
         if why is not None:
             raise ValueError(f"LPConfig.use_kernel='on': {why}")
-        return True
+        return route
     if use_kernel == "auto":
         if torch.device(device).type != "cuda":
-            return False
+            return "plain"
         if why is not None:
             raise ValueError(f"LPConfig.use_kernel='auto' on CUDA: {why}; "
                              f"use_kernel='off' runs the plain loop on the card")
-        return True
+        return route
     raise ValueError(f"LPConfig.use_kernel must be 'auto', 'on' or 'off', got {use_kernel!r}")
 
 

@@ -232,7 +232,7 @@ class _Round:
         st, info = _solve_batched(cx, cX, state.pool, setup.index, state.pdhg, setup.normK,
                                   lp.omega0, lp.tol, lp.step_scale, lp.max_iters,
                                   min(lp.check_every, lp.max_iters), lp.restart_period,
-                                  dense, setup.kernel)
+                                  dense, setup.route)
         bound = -_dual_bound_batched(cx, cX, state.pool, dense, st, n, setup.index)
         best = torch.minimum(state.best_bound, bound)
         gens = [_copy_generator(g) for g in state.generators]

@@ -196,38 +196,40 @@ def test_launch_plan_refuses_n_outside_the_kernel(n):
         launch_plan(n, 1024, 3, 0)
 
 
-@pytest.mark.parametrize("use_kernel,n,M,k,m,kernel", [
-    ("auto", 125, 1024, 3, 0, True),      # the BoxQP main paths
-    ("auto", 100, 1024, 5, 25, True),     # the QCQP main path
-    ("auto", 150, 1024, 3, 0, False),     # n > 128: raises, K2 not launched
-    ("auto", 128, 1 << 16, 5, 25, False),  # a pool that does not fit shared memory
-    ("on", 125, 1024, 3, 0, True),
-    ("off", 125, 1024, 3, 0, False),
-    ("off", 150, 1024, 3, 0, False),
+@pytest.mark.parametrize("use_kernel,n,M,k,m,route", [
+    ("auto", 125, 1024, 3, 0, "k2"),      # the BoxQP main paths
+    ("auto", 100, 1024, 5, 25, "k2"),     # the QCQP main path
+    ("auto", 150, 1024, 3, 0, None),      # n > 128: raises, K2 not launched
+    ("auto", 128, 1 << 16, 5, 25, None),  # a pool that does not fit shared memory
+    ("auto", 125, 1, 1, 2048, "dense"),   # the certifier's pool: the dense route
+    ("on", 125, 1024, 3, 0, "k2"),
+    ("off", 125, 1024, 3, 0, "plain"),
+    ("off", 150, 1024, 3, 0, "plain"),
 ])
-def test_kernel_route_on_cuda(use_kernel, n, M, k, m, kernel):
-    """LPConfig.use_kernel with launch_plan's rule for what the kernel
-    takes: on CUDA, "auto" runs K2 or raises with the plan's reason, and the
-    plain loop runs on the card only with "off"."""
+def test_kernel_route_on_cuda(use_kernel, n, M, k, m, route):
+    """LPConfig.use_kernel with launch_plan's rule for what K2 takes (and
+    the dense route's for the certifier's pool): on CUDA, "auto" runs a
+    kernel route or raises with the rule's reason, and the plain loop runs
+    on the card only with "off"."""
     why = plan_refusal(n, M, k, m)
-    if use_kernel == "auto":
-        assert (why is None) is kernel
-    if use_kernel == "auto" and why is not None:
+    if use_kernel == "auto" and route != "dense":
+        assert (why is None) is (route == "k2")
+    if route is None:
         with pytest.raises(ValueError, match=re.escape(why)):
             kernel_route(use_kernel, torch.device("cuda"), n, M, k, m)
     else:
-        assert kernel_route(use_kernel, torch.device("cuda"), n, M, k, m) is kernel
+        assert kernel_route(use_kernel, torch.device("cuda"), n, M, k, m) == route
 
 
 def test_kernel_route_auto_is_plain_off_cuda():
-    assert kernel_route("auto", torch.device("cpu"), 125, 1024, 3, 0) is False
+    assert kernel_route("auto", torch.device("cpu"), 125, 1024, 3, 0) == "plain"
 
 
 @pytest.mark.parametrize("n,M,k,m", [(150, 1024, 3, 0), (128, 1 << 16, 5, 25)])
 def test_kernel_route_auto_outside_the_plan(n, M, k, m):
     """Outside the plan "auto" is the plain loop on the CPU (the twin's
     arithmetic either way) and refuses on CUDA, naming "off"."""
-    assert kernel_route("auto", torch.device("cpu"), n, M, k, m) is False
+    assert kernel_route("auto", torch.device("cpu"), n, M, k, m) == "plain"
     with pytest.raises(ValueError, match="use_kernel='off'"):
         kernel_route("auto", torch.device("cuda"), n, M, k, m)
 

@@ -1,0 +1,265 @@
+"""The dense route of the PDHG solve (sdpcutsel_tpu_torch/lp/pdhg_dense.py,
+csrc/pdhg_dense.cu): the route the certifier's LP takes by shape and
+device, the refusals, the shared-memory plan, the wrappers' device rule
+(CPU tensors take the twins, bit for bit; other devices raise), and the
+certifier on the CPU under "auto", "off" and "on", bit for bit equal to one
+another and to the parent tree's CPU results.  The kernels themselves run
+only on the card (chip_smoke.py holds them to the twins there); torch runs
+on one thread here (see tests/test_torch_resume.py)."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from sdpcutsel_tpu_torch.config import LPConfig
+from sdpcutsel_tpu_torch.instances import generate_spar
+from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp
+from sdpcutsel_tpu_torch.loop import sdp_bound as tsb
+from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
+from sdpcutsel_tpu_torch.lp import pdhg_dense as tdense
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import (SMEM_MAX, kernel_route, pdhg_block_plain,
+                                                pdhg_block_steps_plain, route_refusal,
+                                                steps_record)
+from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
+from sdpcutsel_tpu_torch.relax.cutbuffer import build_cut_index
+from sdpcutsel_tpu_torch.relax.denserows import DenseRows
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+CERTIFIER_SHAPES = [(n, m) for n in (10, 125) for m in (1, 368, 2048)]
+
+
+@pytest.mark.parametrize("n,m", CERTIFIER_SHAPES)
+def test_dense_route_for_the_certifier_on_cuda(n, m):
+    """The certifier's pool (capacity 1, width 1) takes the dense route on
+    CUDA under "auto" and "on", whatever m; "off" is the plain loop, and
+    "auto" on the CPU too."""
+    cuda = torch.device("cuda")
+    assert route_refusal(n, 1, 1, m) == ("dense", None)
+    assert kernel_route("auto", cuda, n, 1, 1, m) == "dense"
+    assert kernel_route("on", cuda, n, 1, 1, m) == "dense"
+    assert kernel_route("on", torch.device("cpu"), n, 1, 1, m) == "dense"
+    assert kernel_route("off", cuda, n, 1, 1, m) == "plain"
+    assert kernel_route("auto", torch.device("cpu"), n, 1, 1, m) == "plain"
+
+
+@pytest.mark.parametrize("n", [0, 129, 150])
+def test_dense_route_refuses_n_outside_the_kernels(n):
+    """n > 128 (or 0): "auto" on CUDA raises with the reason and names "off";
+    "on" raises on every device; "off" and "auto" on the CPU run plain."""
+    route, why = route_refusal(n, 1, 1, 368)
+    assert route == "dense" and "n <= 128" in why
+    with pytest.raises(ValueError, match=re.escape(why)):
+        kernel_route("auto", torch.device("cuda"), n, 1, 1, 368)
+    with pytest.raises(ValueError, match="use_kernel='off'"):
+        kernel_route("auto", torch.device("cuda"), n, 1, 1, 368)
+    for device in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match="n <= 128"):
+            kernel_route("on", torch.device(device), n, 1, 1, 368)
+    assert kernel_route("off", torch.device("cuda"), n, 1, 1, 368) == "plain"
+    assert kernel_route("auto", torch.device("cpu"), n, 1, 1, 368) == "plain"
+
+
+def test_dense_refusal_reasons():
+    """A pool of cuts is K2's (the dense route names its pool); more rows
+    than shared memory holds is refused with the limit; pools of cuts keep
+    K2's rule."""
+    assert "capacity 1, width 1" in tdense.dense_refusal(125, 1024, 3, 0)
+    top = tdense.max_dense_rows(125)
+    assert top >= 4 * 2048
+    assert tdense.dense_refusal(125, 1, 1, top) is None
+    why = tdense.dense_refusal(125, 1, 1, top + 1)
+    assert "shared memory" in why and str(top) in why
+    assert route_refusal(125, 1024, 3, 0) == ("k2", None)
+    assert route_refusal(100, 1024, 5, 25) == ("k2", None)
+
+
+@pytest.mark.parametrize("n", [10, 125, 128])
+def test_dense_shared_memory_grows_with_m_not_m_n(n):
+    """Each kernel's shared memory fits the card at the full buffer, and
+    adding C rows adds the same few words at every n: the dense rows stream
+    from global memory, only their duals and partials sit in shared memory."""
+    C = tdense.CLUSTER
+    for kind in tdense.KINDS:
+        assert tdense.smem_bytes(kind, n, 2048) <= SMEM_MAX
+        step = tdense.smem_words(kind, n, 2048 + C) - tdense.smem_words(kind, n, 2048)
+        assert step == tdense.smem_words(kind, 10, 2048 + C) - tdense.smem_words(kind, 10, 2048)
+        assert step <= 4 * C + 2 * 2
+    with pytest.raises(ValueError, match="unknown"):
+        tdense.smem_words("scan", n, 1)
+
+
+def _certifier_lp(n=12, m=40, seed=0):
+    """The certifier's LP at (n, m): an instance, the pool without cuts, m
+    normalised rank-1 rows (the seed rows' form) and a random state."""
+    inst = generate_spar(n, 100, 3)
+    rng = np.random.default_rng(seed)
+    V = rng.standard_normal((m, n + 1))
+    dense = DenseRows(*(torch.as_tensor(a, dtype=torch.float32)
+                        for a in tsb._seed_rows(V / np.linalg.norm(V, axis=1, keepdims=True))))
+    pool = tcb.empty_pool(1, 1, "cpu")
+    st = tpdhg.init_state(n, 1, "cpu", m)
+    st.x = torch.as_tensor(rng.random(n), dtype=torch.float32)
+    X = rng.random((n, n))
+    st.X = torch.as_tensor(0.5 * (X + X.T), dtype=torch.float32)
+    st.yA = torch.as_tensor(0.1 * rng.random((n, n)), dtype=torch.float32)
+    st.yD = torch.as_tensor(0.2 * rng.random(m), dtype=torch.float32)
+    cx = torch.as_tensor(-inst.c, dtype=torch.float32)
+    cX = torch.as_tensor(-0.5 * inst.Q, dtype=torch.float32)
+    return cx, cX, pool, build_cut_index(pool, n), dense, st
+
+
+def _same(a, b):
+    return all(torch.equal(u, v) for u, v in zip(a.fields(), b.fields()))
+
+
+def test_dense_wrappers_take_the_twins_on_the_cpu():
+    """On CPU tensors every dense-route wrapper is its twin, bit for bit, and
+    launches nothing."""
+    cx, cX, pool, index, dense, st = _certifier_lp()
+    n = cx.shape[0]
+    before = {fn: fn.launches for fn in (tdense.pdhg_dense_block, tdense.pdhg_dense_check,
+                                         tdense.pdhg_dense_norm)}
+    acc = st.map(torch.zeros_like)
+    got = tdense.pdhg_dense_block(cx, cX, pool, index, st, acc, 0.05, 0.07, 9, dense)
+    want = pdhg_block_plain(cx, cX, pool, index, st, acc, 0.05, 0.07, 9, dense)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    rec = steps_record([0.05], [0.07], "cpu")[0]
+    mine, theirs = [st.map(torch.clone), acc.map(torch.clone)], [st.map(torch.clone),
+                                                                  acc.map(torch.clone)]
+    tdense.pdhg_dense_block_steps(cx, cX, pool, index, *mine, rec.clone(), 9, dense)
+    pdhg_block_steps_plain(cx, cX, pool, index, *theirs, rec.clone(), 9, dense)
+    assert _same(mine[0], theirs[0]) and _same(mine[1], theirs[1])
+    normK = tpdhg.estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    norm = tdense.pdhg_dense_norm(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    assert torch.equal(norm, normK)
+    for rp in (10 ** 6, 100):
+        runs = []
+        for fn in (tdense.pdhg_dense_check, tpdhg.pdhg_check_plain):
+            bufs = [got[0].map(torch.clone), got[1].map(torch.clone), st.map(torch.clone),
+                    tpdhg.new_record(normK, 1.0, 0.95, 20000, 2e-6, "cpu")]
+            fn(cx, cX, pool, index, *bufs, 100, rp, 20000, 2e-6, dense)
+            runs.append(bufs)
+        assert all(_same(a, b) for a, b in zip(runs[0][:3], runs[1][:3]))
+        assert torch.equal(runs[0][3], runs[1][3])
+    assert all(fn.launches == k for fn, k in before.items())
+
+
+def test_dense_wrappers_refuse_other_devices():
+    cx, cX, pool, index, dense, st = _certifier_lp(n=6, m=4)
+    meta = lambda t: t.to("meta")      # noqa: E731
+    mst = st.map(meta)
+    mdense = DenseRows(*(meta(t) for t in (dense.G, dense.g, dense.h)))
+    mpool = tcb.CutPool(*(meta(t) for t in (pool.idx, pool.lin, pool.quad, pool.rhs,
+                                            pool.active, pool.count)))
+    rec = torch.zeros(tpdhg.REC_WORDS, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tdense.pdhg_dense_block(meta(cx), meta(cX), mpool, index, mst, mst, 0.1, 0.1, 3, mdense)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdense.pdhg_dense_block_steps(meta(cx), meta(cX), mpool, index, mst, mst, rec, 3, mdense)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdense.pdhg_dense_check(meta(cx), meta(cX), mpool, index, mst, mst, mst, rec, 100, 300,
+                                1000, 1e-6, mdense)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdense.pdhg_dense_norm(mpool, 6, 30, torch.Generator().manual_seed(0), index, mdense)
+
+
+def test_dense_launch_checks_refuse_bad_arguments():
+    """What a launch checks before it reaches the library: shapes, the
+    dense rows' layout and the pool."""
+    cx, cX, pool, index, dense, st = _certifier_lp(n=8, m=5)
+    assert tdense._checked(cx, cX, pool, (st,), dense, "t")[:2] == (8, 5)
+    with pytest.raises(ValueError, match="state.yD"):
+        tdense._checked(cx, cX, pool, (st,), DenseRows(dense.G[:4], dense.g[:4], dense.h[:4]), "t")
+    with pytest.raises(ValueError, match="dense.G"):
+        tdense._checked(cx, cX, pool, (st,), DenseRows(dense.G[:, :7], dense.g, dense.h), "t")
+    with pytest.raises(ValueError, match="contiguous"):
+        tdense._checked(cx, cX, pool, (st,), DenseRows(dense.G.transpose(1, 2), dense.g,
+                                                       dense.h), "t")
+    with pytest.raises(ValueError, match="capacity 1, width 1"):
+        tdense._checked(cx, cX, tcb.empty_pool(4, 3, "cpu"), (st,), dense, "t")
+    with pytest.raises(ValueError, match="state.X"):
+        tdense._checked(cx, cX, pool, (st.map(lambda t: t),
+                                       tpdhg.PDHGState(st.x, st.X[:, :7], st.yA, st.yB, st.yC,
+                                                       st.yD)), dense, "t")
+
+
+def test_batched_setup_refuses_the_dense_route():
+    pools = tcb.empty_pool(1, 1, "cpu")
+    batch = tcb.CutPool(*(t[None] for t in (pools.idx, pools.lin, pools.quad, pools.rhs,
+                                            pools.active, pools.count)))
+    with pytest.raises(ValueError, match="one instance"):
+        tpdhg.solve_setup_batched(torch.zeros((1, 12)), batch, LPConfig(use_kernel="on"))
+
+
+# The parent tree's CPU results (sdp_relaxation_bound before the dense route:
+# the certifier then forced the plain loop), taken with torch on one thread:
+# (best, first bound, [(bound, LP iterations, rows) a round]).  They are held
+# at rtol PARENT_RTOL, iterations and rows exactly, so that a numpy, BLAS or
+# torch update that moves an ulp does not fail the test; the three routes of
+# this tree are held to each other bit for bit.
+PARENT_CPU = {
+    "boxqp": (135.30336420471443, 275.02823994847455,
+              [(275.02823994847455, 600, 6), (161.17678304247426, 600, 10),
+               (147.20137236118654, 600, 16), (143.37888339378162, 600, 14),
+               (139.1675997609895, 600, 13), (135.30336420471443, 600, 12),
+               (137.28914062207286, 2400, 12)]),
+    "qcqp": (255.24450455576263, 266.6834860656916,
+             [(266.6834860656916, 600, 6), (258.7655694648445, 600, 10),
+              (255.24450455576263, 600, 14)]),
+}
+
+
+PARENT_RTOL = 1e-12
+
+
+def _close_to_parent(run, want) -> bool:
+    (best, b0, rounds), (wbest, wb0, wrounds) = run, want
+    return (len(rounds) == len(wrounds)
+            and all(r[1:] == w[1:] for r, w in zip(rounds, wrounds))
+            and np.allclose([best, b0, *(r[0] for r in rounds)],
+                            [wbest, wb0, *(w[0] for w in wrounds)], rtol=PARENT_RTOL, atol=0.0))
+
+
+def _certify(kind: str, use_kernel: str):
+    lp = LPConfig(max_iters=600, tol=2e-6, use_kernel=use_kernel)
+    if kind == "boxqp":
+        out = tsb.sdp_relaxation_bound(generate_spar(12, 100, 3), lp, max_rounds=6, capacity=64,
+                                       device="cpu", purge_at=12, final_polish=True)
+    else:
+        out = tsb.sdp_relaxation_bound(generate_qcqp(10, 40, 2, 1), lp, max_rounds=3,
+                                       capacity=64, device="cpu")
+    best, b0, hist = out
+    return best, b0, [(h["bound"], h["lp_iters"], h["cuts"]) for h in hist]
+
+
+@pytest.mark.parametrize("kind", ["boxqp", "qcqp"])
+def test_certifier_on_the_cpu_auto_off_on_equal_and_parents(kind, monkeypatch):
+    """The certifier on the CPU: "auto" (the plain loop), "off" and "on"
+    (the dense route's wrappers, whose twins run on the CPU) give the same
+    bits, and the parent tree's results within PARENT_RTOL; "on" goes through
+    the dense wrappers, and every solve of the run takes the route its
+    use_kernel names."""
+    calls = []
+    real = tdense.pdhg_dense_block_steps
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tdense, "pdhg_dense_block_steps", counted)
+    runs = {uk: _certify(kind, uk) for uk in ("auto", "off")}
+    assert not calls
+    runs["on"] = _certify(kind, "on")
+    assert calls
+    assert runs["auto"] == runs["off"] == runs["on"]
+    assert _close_to_parent(runs["auto"], PARENT_CPU[kind])

@@ -28,7 +28,7 @@ from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp
 from sdpcutsel_tpu_torch.loop import sdp_bound as tsb
 from sdpcutsel_tpu_torch.loop import sdp_dual as tsd
 from sdpcutsel_tpu_torch.loop import sdp_primal as tsp
-from sdpcutsel_tpu_torch.lp.pdhg_kernel import plan_refusal
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import kernel_route, plan_refusal
 from sdpcutsel_tpu_torch.relax.denserows import dense_from_qcqp
 
 
@@ -241,19 +241,19 @@ def test_purge_matches_reference_and_keeps_the_prefix():
 
 
 def test_certifier_route():
-    """The certifier's LP runs the plain loop: "auto" takes it, "on" raises
-    with the kernel plan's reason (its pool has cuts of width 1)."""
+    """The certifier's LP takes the dense route: its pool (capacity 1, width
+    1) is outside K2's plan, and "auto" on CUDA and "on" anywhere choose the
+    dense-row kernels for it; on the CPU "auto" is the plain loop and "on"
+    the dense wrappers' twins, with the same bits as "off"."""
     inst = generate_spar(10, 100, 1)
     why = plan_refusal(inst.n, 1, 1, 64)
     assert why is not None and "got 1" in why
-    with pytest.raises(ValueError, match="width k = 2..5, got 1"):
-        tsb.sdp_relaxation_bound(inst, LPConfig(max_iters=200, use_kernel="on"),
-                                 max_rounds=1, capacity=64, device="cpu")
-    auto = tsb.sdp_relaxation_bound(inst, LPConfig(max_iters=200), max_rounds=1,
-                                    capacity=64, device="cpu")
-    off = tsb.sdp_relaxation_bound(inst, LPConfig(max_iters=200, use_kernel="off"),
-                                   max_rounds=1, capacity=64, device="cpu")
-    assert auto[:2] == off[:2]
+    assert kernel_route("auto", torch.device("cuda"), inst.n, 1, 1, 64) == "dense"
+    assert kernel_route("on", torch.device("cpu"), inst.n, 1, 1, 64) == "dense"
+    runs = [tsb.sdp_relaxation_bound(inst, LPConfig(max_iters=200, use_kernel=uk),
+                                     max_rounds=1, capacity=64, device="cpu")
+            for uk in ("auto", "on", "off")]
+    assert runs[0][:2] == runs[1][:2] == runs[2][:2]
 
 
 def test_history_keeps_the_reference_keys_and_times():

@@ -51,7 +51,7 @@ def test_steer_with_reference_signs_matches_reference(with_dense):
     kx, kX = jax.random.split(key)
     sx = 2.0 * jax.random.bernoulli(kx, 0.5, (n,)) - 1.0
     SX = 2.0 * jax.random.bernoulli(kX, 0.5, (n, n)) - 1.0
-    setup = tpdhg.SolveSetup(False, build_cut_index(tpool, n), normK)
+    setup = tpdhg.SolveSetup("plain", build_cut_index(tpool, n), normK)
     got = tpdhg._steer_impl(tcx, tcX, tpool, td, tst, setup, 1.0, 0.95, 1e-3,
                             torch.tensor(np.asarray(sx, np.float32)),
                             torch.tensor(np.asarray(SX, np.float32)), 200)
