@@ -28,37 +28,43 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     inputs unchanged; its cluster plan and ptxas report, and
                     the portable cluster of 8 checked and timed in turns
                     with the plan's;
-       pdhg_check   (K5, the checked block's control) at K2's two shapes,
-                    after one K2 block from that state: against its twin
+       pdhg_check   (K5, the checked block's control, in K2's launch: the
+                    checked form of csrc/pdhg_block.cu) at K2's two shapes:
+                    the checked launch (100 iterations, then the control)
+                    against K2's unchecked launch followed by the twin check
                     with restart_period 10^9 and 100 (err, p, d, omega,
                     tau, sigma, the distances at rtol 1e-5, the record's
                     ints equal, the state, sums and anchor bit for bit),
-                    twice bit for bit, a stopped record left as it is;
+                    twice bit for bit, a stopped record left as it is; its
+                    time on the device in turns with the unchecked launch;
        pdhg_norm    (K6, 30 power iterations in one launch) at K2's two
                     shapes against its twin at rtol 1e-5, twice bit for bit;
        pdhg_dense   (K7, csrc/pdhg_dense.cu: the certifier's LP, a pool
-                    without cuts and m dense rows streamed from global
-                    memory) at n = 10 with m = 368 and at n = 125 with
-                    m = 368 and 2048 (the full buffer), on normalised
-                    rank-1 rows and a random state: the block against
-                    pdhg_block_plain after 100 iterations at rtol = atol =
-                    2e-5, twice bit for bit, the in-place block with the
-                    record's steps bit for bit; its check against
-                    pdhg_check_plain as K5 is held (rtol 1e-5, restart
-                    periods 10^9 and 100, a stopped record); its norm
-                    against estimate_norm_plain as K6 is held; each timed
-                    by events back to back and on the device (events
-                    around one launch queued behind a sleep kernel) beside
-                    its bound and the figure for G streamed twice an
-                    iteration; and the block at n = 64 over 2048 and 8192
-                    rows at clusters of 4, 8 and 16 CTAs, each held to the
-                    twin and timed in turns (G's rate an SM);
+                    without cuts and m dense rows) at n = 10 with m = 368
+                    and at n = 125 with m = 368 and 2048 (the full buffer),
+                    and its block also at n = 64 over 2048 rows, on
+                    normalised rank-1 rows and a random state: the block
+                    (its launch plan by shape: one CTA, or every SM, the
+                    CTAs printed) against pdhg_block_plain after 100
+                    iterations at rtol = atol = 2e-5, twice bit for bit,
+                    the in-place block with the record's steps bit for bit,
+                    at the one-CTA shapes the grid plan too, checked and
+                    timed in turns; its check against pdhg_check_plain as
+                    K5 is held (rtol 1e-5, restart periods 10^9 and 100, a
+                    stopped record); its norm against estimate_norm_plain
+                    as K6 is held; each timed by events back to back and
+                    on the device (events around one launch queued behind
+                    a sleep kernel) beside its bound and the figure for G
+                    streamed twice an iteration;
        with --parent DIR (a checkout of the parent commit): K2's bits on
                     these inputs equal to the parent build's, 7 and 100
-                    iterations, both timed in turns, and K5's bits after
-                    one K2 block at both shapes equal to the parent
-                    build's, timed in turns (and after phase 15 the
-                    certifier's LP timed in both trees, see there);
+                    iterations, both timed in turns; the checked launch's
+                    bits equal to the parent build's K2 launch followed by
+                    its K5 launch at both shapes and at the B = 12 batch,
+                    restart_period 10^9 and 100, timed in turns; K7's block
+                    timed on the device in turns with the parent's (and
+                    after phase 15 the certifier's LP timed in both trees,
+                    see there);
      each kernel's time stands beside its bound (the largest of its
      operations over 67 TFLOP/s fp32, those it runs on the tensor cores over
      495 TFLOP/s dense TF32, and its bytes, each input read and each output
@@ -215,9 +221,10 @@ plain") and the scoring twins called on the card ("twin-scored"), which must
 be 0 on every main path, the certifier's runs (a)-(c) of phase 15 included:
 their LP takes the dense route.  Every main path that runs K2 also holds the
 solves' control to the reference's structure (control_checks): K5 once a
-solve block (every K2 launch but steering's), K6 once a solve, at most one
-host read of the control record a group of GROUP_BLOCKS blocks plus one a
-solve ("solve reads", "solves").
+solve block, in K2's launch (the checked launches, counted under
+"pdhg_check": every K2 launch but steering's), K6 once a solve, at most
+one host read of the control record a group of GROUP_BLOCKS blocks plus
+one a solve ("solve reads", "solves").
 
 TF32 is turned off for the whole process at its start: the scoring twin's
 MLP runs as cuBLAS matrix products, and it agrees with the kernel to 2e-4
@@ -266,7 +273,7 @@ from sdpcutsel_tpu_torch.lp.pdhg import (REC_D, REC_DD, REC_DP, REC_ERR, REC_IT,
                                          pdhg_check_batched_plain, pdhg_check_plain,
                                          record_floats, solve_setup, steer_to_vertex)
 from sdpcutsel_tpu_torch.lp import pdhg_dense
-from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_check, pdhg_check_batched
+from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_block_checked, pdhg_block_checked_batched
 from sdpcutsel_tpu_torch.lp.pdhg_dense import (pdhg_dense_block, pdhg_dense_block_steps,
                                                pdhg_dense_check, pdhg_dense_norm)
 from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm, pdhg_norm_batched
@@ -960,70 +967,95 @@ def states_equal(a: list, b: list) -> bool:
 
 
 def check_pdhg_check(label: str, inputs, dense, dev) -> dict:
-    """K5 against its twin (pdhg_check_plain) after one K2 block of 100
-    iterations from phase 3's random state (the anchor), on a fresh control
-    record of the main paths' LP: restart_period 10^9 (a restart only when
-    the average wins) and 100 (always); err, p, d, omega, tau, sigma and the
-    distances at rtol 1e-5, the record's ints (it, wlen, stop, restart,
-    use_avg) equal, the state, sums and anchor equal bit for bit; each
-    case twice bit for bit; a stopped record leaves everything as it is;
-    its time by events and on the device beside its bound."""
+    """K5, in K2's launch: the checked block (pdhg_block_checked: 100
+    iterations of K2, then K5's control on the bands in shared memory) from
+    phase 3's random state (also the anchor) on a fresh control record of
+    the main paths' LP, against K2's unchecked launch (pdhg_block_steps)
+    followed by K5's twin (pdhg_check_plain): restart_period 10^9 (a restart
+    only when the average wins) and 100 (always); err, p, d, omega, tau,
+    sigma and the distances at rtol 1e-5, the record's ints (it, wlen, stop,
+    restart, use_avg) equal, the state, sums and anchor equal bit for bit;
+    each case twice bit for bit; a stopped record leaves everything as it
+    is.  Timed on the device (queued events) in turns with the unchecked
+    launch, whose difference is K5's time in the launch, beside its bound."""
     cx, cX, pool, index, st0 = inputs
     n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
-    eta = 0.95 / normK.item()
-    st1, acc1 = pdhg_block(cx, cX, pool, index, st0, st0.map(torch.zeros_like), eta, eta, 100,
-                           dense)
-    worst, restarted = 0.0, {}
+    every = CHECK_ARGS["check_every"]
+    worst = 0.0
     for rp in (10 ** 9, 100):
         def prepare():
-            return [st1.map(torch.clone), acc1.map(torch.clone), st0.map(torch.clone),
+            return [st0.map(torch.clone), st0.map(torch.zeros_like), st0.map(torch.clone),
                     new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dev)]
 
-        def run(fn, st, acc, anc, rec):
-            fn(cx, cX, pool, index, st, acc, anc, rec, CHECK_ARGS["check_every"], rp,
-               CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dense)
+        def checked(st, acc, anc, rec):
+            pdhg_block_checked(cx, cX, pool, index, st, acc, anc, rec, every, rp,
+                               CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dense)
             return [st, acc, anc, rec]
 
-        ka, kb = run(pdhg_check, *prepare()), run(pdhg_check, *prepare())
-        tw = run(pdhg_check_plain, *prepare())
+        def twin(st, acc, anc, rec):
+            pdhg_kernel.pdhg_block_steps(cx, cX, pool, index, st, acc, rec, every, dense)
+            pdhg_check_plain(cx, cX, pool, index, st, acc, anc, rec, every, rp,
+                             CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dense)
+            return [st, acc, anc, rec]
+
+        ka, kb = checked(*prepare()), checked(*prepare())
+        tw = twin(*prepare())
         torch.cuda.synchronize()
         bad, rel, absd = record_diff(ka[3], tw[3], slice(None))
         same = states_equal(ka[:3], tw[:3])
         repeat = states_equal(ka[:3], kb[:3]) and torch.equal(ka[3], kb[3])
         r = ka[3].cpu().numpy()
-        restarted[rp] = bool(r[REC_RESTART])
         log(f"[pdhg_check {label}] restart_period {rp}: restart {bool(r[REC_RESTART])}, "
             f"use_avg {bool(r[REC_USE_AVG])}, omega {float(record_floats(r)[REC_OMEGA])!r}; "
-            f"against the twin: int words differing {bad}, largest rel diff of the float words "
-            f"{rel:.3e} (rtol {CONTROL_RTOL}), max|err| of err/p/d/omega {absd:.3e}; state, "
-            f"sums and anchor bit for bit: {same}; two launches bit for bit: {repeat}")
+            f"the checked launch against K2 then the twin check: int words differing {bad}, "
+            f"largest rel diff of the float words {rel:.3e} (rtol {CONTROL_RTOL}), max|err| of "
+            f"err/p/d/omega {absd:.3e}; state, sums and anchor bit for bit: {same}; two "
+            f"launches bit for bit: {repeat}")
         if bad or rel > CONTROL_RTOL or not (same and repeat):
-            raise AssertionError(f"pdhg_check disagrees with its twin or does not repeat ({label})")
+            raise AssertionError(f"the checked block disagrees with K2 and the twin check or "
+                                 f"does not repeat ({label})")
         worst = max(worst, absd)
     args = prepare()
     args[3][REC_STOP] = 1
     before = [t.clone() for t in (*[u for x in args[:3] for u in x.fields()], args[3])]
-    run(pdhg_check, *args)
+    checked(*args)
     frozen = all(torch.equal(a, b) for a, b in zip(
         before, (*[u for x in args[:3] for u in x.fields()], args[3])))
     log(f"[pdhg_check {label}] a stopped record leaves the state, sums, anchor and record bit "
         f"for bit: {frozen}")
     if not frozen:
-        raise AssertionError(f"pdhg_check wrote a stopped instance ({label})")
-    # timed at restart_period 100: every launch restarts (the most work)
+        raise AssertionError(f"the checked block wrote a stopped instance ({label})")
+    # timed at restart_period 100 (every launch restarts: the most work), in
+    # turns with K2's unchecked launch on the same buffers
     args = prepare()
-    ms = cuda_ms(lambda: run(pdhg_check, *args), reps=50)
-    dev_ms = device_ms(lambda: run(pdhg_check, *args), "pdhg_check_kernel")
-    twin = prepare()
-    plain_ms = cuda_ms(lambda: run(pdhg_check_plain, *twin), reps=5)
+    rec = args[3]
+
+    def unchecked():
+        pdhg_kernel.pdhg_block_steps(cx, cX, pool, index, args[0], args[1], rec, every, dense)
+
+    t_k2, t_both = [], []
+    for runs, fn in ((t_k2, unchecked), (t_both, lambda: checked(*args)),
+                     (t_both, lambda: checked(*args)), (t_k2, unchecked)):
+        runs.append(queued_ms(fn, reps=10))
+    both, k2_ms = sum(t_both) / 2, sum(t_k2) / 2
+    ms = cuda_ms(lambda: checked(*args), reps=20)
+    twin_args = prepare()
+    plain_ms = cuda_ms(lambda: pdhg_check_plain(cx, cX, pool, index, *twin_args, every, 100,
+                                                CHECK_ARGS["max_iters"], CHECK_ARGS["tol"],
+                                                dense), reps=5)
     terms = index.Xcut.numel() + index.xcut.numel()
     b = bound(check_ops(n, k, m, int(pool.active.sum()), terms, True),
               check_bytes(cx, cX, pool, index, dense, *args))
-    log(f"[pdhg_check {label}] kernel {ms:.4f} ms by events back to back, {dev_ms:.4f} ms on "
-        f"the device (profiler); twin {plain_ms:.4f} ms (reads to the host included); "
-        f"{share(dev_ms, b)} (of the device time); ptxas: {ptxas_report('pdhg_check_kernel')}")
-    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b}
+    dev_ms = both - k2_ms
+    log(f"[pdhg_check {label}] on the device (queued events, in turns): the checked launch "
+        f"{t_both!r} ms, K2 alone {t_k2!r} ms: K5 in K2's launch {dev_ms:.4f} ms; the checked "
+        f"launch by events back to back {ms:.4f} ms (host included); twin check "
+        f"{plain_ms:.4f} ms (reads to the host included); K5 {share(max(dev_ms, 1e-9), b)} (of "
+        f"its device time); ptxas (checked form): {ptxas_report('pdhg_cluster_kernelILb1')}")
+    return {"max_abs_err": worst, "ms": dev_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "checked_launch_ms": both, "unchecked_launch_ms": k2_ms,
+            "checked_launch_events_ms": ms, **b}
 
 
 def check_pdhg_norm(label: str, inputs, dense, dev) -> dict:
@@ -1060,36 +1092,41 @@ def check_pdhg_norm(label: str, inputs, dense, dev) -> dict:
 
 
 def check_control_batched(insts, dev) -> dict:
-    """K5 and K6 at the suite bucket's batch (B = 12, n = 125, phase 3's
-    batched inputs after one batched K2 block of 100 iterations), one
-    instance's record stopped: against their batched twins (the K5 words at
-    rtol 1e-5, the ints equal, the states bit for bit; ||K|| at rtol 1e-5);
-    the stopped instance unchanged bit for bit; every other one bit for bit
-    equal to the single wrappers' launch of it; each batched launch timed."""
+    """K5 in the batched K2 launch and K6 at the suite bucket's batch (B =
+    12, n = 125, phase 3's batched inputs), one instance's record stopped:
+    the checked batched launch (100 iterations, then the control) against
+    K2's unchecked batched launch followed by the batched twin check (the
+    K5 words at rtol 1e-5, the ints equal, the states bit for bit), K6
+    against its twin (||K|| at rtol 1e-5); the stopped instance unchanged
+    bit for bit; every other one bit for bit equal to the single wrappers'
+    launch of it; each batched launch timed."""
     cx, cX, P, index, st0, pools = batched_inputs(insts, dev)
     (B, n), M = cx.shape, P.idx.shape[1]
     gen = lambda: torch.Generator().manual_seed(0)     # noqa: E731
     normK = estimate_norm_batched_plain(P, n, 30, gen(), index)
-    eta = (np.float32(0.95) / normK.cpu().numpy()).astype(np.float32)
-    st1, acc1 = pdhg_block_batched(cx, cX, P, index, st0, st0.map(torch.zeros_like), eta, eta,
-                                   100, list(range(B)))
     frozen = B // 2 - 1
     ids = [b for b in range(B) if b != frozen]
     rp = 100
+    every = CHECK_ARGS["check_every"]
 
     def prepare():
         rec = new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dev,
                          batch=B)
         rec[frozen, REC_STOP] = 1
-        return [st1.map(torch.clone), acc1.map(torch.clone), st0.map(torch.clone), rec]
+        return [st0.map(torch.clone), st0.map(torch.zeros_like), st0.map(torch.clone), rec]
 
     def run(fn, st, acc, anc, rec):
-        fn(cx, cX, P, index, st, acc, anc, rec, CHECK_ARGS["check_every"], rp,
-           CHECK_ARGS["max_iters"], CHECK_ARGS["tol"])
+        fn(cx, cX, P, index, st, acc, anc, rec, every, rp, CHECK_ARGS["max_iters"],
+           CHECK_ARGS["tol"])
         return [st, acc, anc, rec]
 
-    ka, kb = run(pdhg_check_batched, *prepare()), run(pdhg_check_batched, *prepare())
-    tw = run(pdhg_check_batched_plain, *prepare())
+    def twin(st, acc, anc, rec):
+        pdhg_kernel.pdhg_block_steps_batched(cx, cX, P, index, st, acc, rec, every)
+        return run(pdhg_check_batched_plain, st, acc, anc, rec)
+
+    ka, kb = run(pdhg_block_checked_batched, *prepare()), run(pdhg_block_checked_batched,
+                                                              *prepare())
+    tw = twin(*prepare())
     ref = prepare()
     torch.cuda.synchronize()
     bad, rel, absd = record_diff(ka[3], tw[3], ids)
@@ -1101,18 +1138,19 @@ def check_control_batched(insts, dev) -> dict:
     alone = True
     for b in ids:
         one = [rb.instance(x, b).map(torch.clone) for x in ref[:3]] + [ref[3][b].clone()]
-        pdhg_check(cx[b], cX[b], pools[b], build_cut_index(pools[b], n), *one,
-                   CHECK_ARGS["check_every"], rp, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"])
+        pdhg_block_checked(cx[b], cX[b], pools[b], build_cut_index(pools[b], n), *one, every,
+                           rp, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"])
         alone &= torch.equal(one[3], ka[3][b]) and all(
             torch.equal(u, v[b]) for x, y in zip(one[:3], ka[:3])
             for u, v in zip(x.fields(), y.fields()))
-    log(f"[pdhg_check batched] B={B}, n={n}, M={M}, instance {frozen} stopped: int words "
+    log(f"[pdhg_check batched] B={B}, n={n}, M={M}, instance {frozen} stopped: the checked "
+        f"launch against K2 then the twin check: int words "
         f"differing {bad}, largest rel diff of the float words {rel:.3e} (rtol {CONTROL_RTOL}), "
-        f"max|err| {absd:.3e}; states bit for bit against the twin: {same}; twice bit for bit: "
+        f"max|err| {absd:.3e}; states bit for bit: {same}; twice bit for bit: "
         f"{repeat}; the stopped instance unchanged: {frozen_same}; each instance equal to the "
         f"single wrapper's launch on its own cut index: {alone}")
     if bad or rel > CONTROL_RTOL or not (same and repeat and frozen_same and alone):
-        raise AssertionError("the batched pdhg_check fails its checks")
+        raise AssertionError("the batched checked block fails its checks")
     nk, nk2 = pdhg_norm_batched(P, n, 30, gen(), index), pdhg_norm_batched(P, n, 30, gen(), index)
     nrel = float(((nk - normK).abs() / normK.abs()).max())
     n_alone = all(torch.equal(pdhg_norm(pools[b], n, 30, gen(), build_cut_index(pools[b], n)),
@@ -1123,8 +1161,16 @@ def check_control_batched(insts, dev) -> dict:
     if nrel > CONTROL_RTOL or not (torch.equal(nk, nk2) and n_alone):
         raise AssertionError("the batched pdhg_norm fails its checks")
     args = prepare()
-    ms = cuda_ms(lambda: run(pdhg_check_batched, *args), reps=50)
-    dev_ms = device_ms(lambda: run(pdhg_check_batched, *args), "pdhg_check_kernel")
+
+    def unchecked():
+        pdhg_kernel.pdhg_block_steps_batched(cx, cX, P, index, args[0], args[1], args[3], every)
+
+    t_k2, t_both = [], []
+    for runs, fn in ((t_k2, unchecked), (t_both, lambda: run(pdhg_block_checked_batched, *args)),
+                     (t_both, lambda: run(pdhg_block_checked_batched, *args)), (t_k2, unchecked)):
+        runs.append(queued_ms(fn, reps=10))
+    dev_ms = (sum(t_both) - sum(t_k2)) / 2
+    ms = cuda_ms(lambda: run(pdhg_block_checked_batched, *args), reps=20)
     norm_ms = cuda_ms(lambda: pdhg_norm_batched(P, n, 30, gen(), index), reps=20)
     norm_dev = device_ms(lambda: pdhg_norm_batched(P, n, 30, gen(), index), "pdhg_norm_kernel",
                          reps=20)
@@ -1138,11 +1184,16 @@ def check_control_batched(insts, dev) -> dict:
     b6 = bound(sum(norm_ops(n, 3, 0, a, t, 30) for a, t in zip(active, terms)),
                nbytes(index.idx, P.lin, P.quad, P.active, index.xoff, index.xcut, index.xcoef,
                       index.Xoff, index.Xcut, index.Xcoef, nk) + 4 * B * (n + n * n))
-    log(f"[pdhg_check batched] {B - 1} running instances: {ms:.4f} ms by events, {dev_ms:.4f} ms "
-        f"on the device; {share(dev_ms, b5)}")
+    log(f"[pdhg_check batched] {B - 1} running instances, on the device (queued events, in "
+        f"turns): the checked launch {t_both!r} ms, K2 alone {t_k2!r} ms: K5 in K2's launch "
+        f"{dev_ms:.4f} ms; the checked launch by events back to back {ms:.4f} ms; K5 "
+        f"{share(max(dev_ms, 1e-9), b5)}")
     log(f"[pdhg_norm batched] {B} instances, 30 iterations: {norm_ms:.4f} ms by events, "
         f"{norm_dev:.4f} ms on the device; {share(norm_dev, b6)}")
-    return {"check": {"batched_ms": ms, "batched_device_ms": dev_ms,
+    return {"check": {"batched_ms": dev_ms, "batched_device_ms": dev_ms,
+                      "batched_checked_launch_ms": sum(t_both) / 2,
+                      "batched_unchecked_launch_ms": sum(t_k2) / 2,
+                      "batched_checked_launch_events_ms": ms,
                       "batched_bound_ms": b5["bound_ms"], "batched_max_abs_err": absd},
             "norm": {"batched_ms": norm_ms, "batched_device_ms": norm_dev,
                      "batched_bound_ms": b6["bound_ms"],
@@ -1153,6 +1204,7 @@ def check_control_batched(insts, dev) -> dict:
 # (n, m dense rows): spar125-100-1 with the 368 rows phase 15 (c) solves over
 # and with the full buffer, and n = 10 with 368
 DENSE_SHAPES = ((10, 368), (125, 368), (125, FULL_CAPACITY))
+DENSE_BLOCK_EXTRA = (64, 2048)    # the block alone: a middle n over the full buffer
 DENSE_RTOL = 2e-5            # the block against its twin, state and sums, 100 iterations
 BACKLOG_CYCLES = 4_000_000   # a sleep kernel of ~2 ms at the H100's clocks
 
@@ -1205,13 +1257,17 @@ def dense_bytes(cx, cX, dense, *states) -> int:
     return nbytes(cx, cX, dense.G, dense.g, dense.h, *(t for s in states for t in s.fields()))
 
 
-def check_dense_block(label: str, inputs) -> dict:
+def check_dense_block(label: str, inputs, parent=None) -> dict:
     """K7's block against its twin (pdhg_block_plain on the certifier's
     pool) after 100 iterations at rtol = atol = 2e-5, state and sums; two
     launches bit for bit, the inputs unchanged; the solve's in-place block
     (steps from the record) bit for bit equal to the host-step launch; its
-    time by events and on the device beside the bound and the streaming
-    figure (G read twice an iteration)."""
+    plan (block_plan) and the CTAs it took; its time by events and on the
+    device beside the bound and the streaming figure (G read twice an
+    iteration); at the "cta" plan's shapes also the "grid" plan, checked and
+    timed in turns.  ``parent``: the parent checkout's package, whose block
+    is then timed on the device in turns with this one (parent, this, this,
+    parent)."""
     cx, cX, pool, index, dense, st = inputs
     n, m = cx.shape[0], dense.m
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
@@ -1222,42 +1278,87 @@ def check_dense_block(label: str, inputs) -> dict:
     got, again = pdhg_dense_block(*args), pdhg_dense_block(*args)
     want = pdhg_block_plain(*args)
     torch.cuda.synchronize()
-    errs, ratio = [], 0.0
-    for g_, w_ in zip((*got[0].fields(), *got[1].fields()), (*want[0].fields(), *want[1].fields())):
-        if g_.numel():
-            e, r = excess(g_, w_, DENSE_RTOL, DENSE_RTOL)
-            errs.append(e)
-            ratio = max(ratio, r)
+
+    def against_twin(out):
+        errs, ratio = [], 0.0
+        for g_, w_ in zip((*out[0].fields(), *out[1].fields()),
+                          (*want[0].fields(), *want[1].fields())):
+            if g_.numel():
+                e, r = excess(g_, w_, DENSE_RTOL, DENSE_RTOL)
+                errs.append(e)
+                ratio = max(ratio, r)
+        return errs, ratio
+
+    errs, ratio = against_twin(got)
     same = states_equal(list(got), list(again))
     unchanged = all(torch.equal(a, b) for a, b in zip((*st.fields(), *zero.fields()),
                                                       inputs_before))
     # the solve's block: in place, tau and sigma from a control record
     ip = [st.map(torch.clone), zero.map(torch.clone)]
-    pdhg_dense_block_steps(cx, cX, pool, index, *ip, pdhg_kernel.steps_record(
-        [eta], [eta], cx.device)[0], 100, dense)
+    rec = pdhg_kernel.steps_record([eta], [eta], cx.device)[0]
+    plan = pdhg_dense.block_plan(n, m)
+    grid = pdhg_dense._launch_block(cx, cX, pool, ip, ip, rec, 100, dense)
     in_place = states_equal(ip, list(got))
-    log(f"[pdhg_dense {label}] 100 iterations: max|err| state {max(errs[:5]):.3e} sums "
-        f"{max(errs[5:]):.3e}; {ratio:.3f} of the limit (rtol = atol = {DENSE_RTOL}); two "
-        f"launches bit for bit: {same}; inputs unchanged: {unchanged}; the in-place block with "
-        f"the record's steps bit for bit: {in_place}")
+    log(f"[pdhg_dense {label}] plan {plan!r}, {grid} CTA(s) x 512 threads, "
+        f"{pdhg_dense.smem_bytes('block', n, m)} bytes of shared memory a CTA; 100 iterations: "
+        f"max|err| state {max(errs[:5]):.3e} sums {max(errs[5:]):.3e}; {ratio:.3f} of the "
+        f"limit (rtol = atol = {DENSE_RTOL}); two launches bit for bit: {same}; inputs "
+        f"unchanged: {unchanged}; the in-place block with the record's steps bit for bit: "
+        f"{in_place}")
     if ratio > 1.0 or not (same and unchanged and in_place):
         raise AssertionError(f"the dense-route block fails its checks ({label})")
     ms = cuda_ms(lambda: pdhg_dense_block(*args), reps=10)
-    rec = pdhg_kernel.steps_record([eta], [eta], cx.device)[0]
     dev_ms = queued_ms(lambda: pdhg_dense_block_steps(cx, cX, pool, index, *ip, rec, 100, dense),
                        reps=10)
     plain_ms = cuda_ms(lambda: pdhg_block_plain(*args), reps=2, warmup=1)
     b = bound(pdhg_ops(n, 1, m, 0, 0, 100), dense_bytes(cx, cX, dense, st, zero, *got))
     stream_ms = 100 * 2 * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
+    kernel = {"cta": "pdhg_dense_cta_kernel", "grid": "pdhg_dense_grid_kernel"}[plan]
     log(f"[pdhg_dense {label}] 100-iteration block: {ms:.4f} ms by events back to back, "
-        f"{dev_ms:.4f} ms on the device (queued events) = {dev_ms * 10:.3f} us an iteration; twin {plain_ms:.4f} ms ({plain_ms * 10:.2f} "
-        f"us an iteration); {share(dev_ms, b)} (of the device time); G and g read twice an "
-        f"iteration at {PEAK_BYTES / 1e12} TB/s: {stream_ms:.4f} ms, {stream_ms / dev_ms:.2%} of "
-        f"the device time; {nbytes(dense.G) / 2 ** 20:.1f} MiB of G ({SMI}); ptxas: "
-        f"{ptxas_report('pdhg_dense_block_kernel')}")
-    return {"max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
-            "streaming_bound_ms": stream_ms, "share": b["bound_ms"] / dev_ms,
-            "us_per_iteration": dev_ms * 10}
+        f"{dev_ms:.4f} ms on the device (queued events) = {dev_ms * 10:.3f} us an iteration; "
+        f"twin {plain_ms:.4f} ms ({plain_ms * 10:.2f} us an iteration); {share(dev_ms, b)} (of "
+        f"the device time); G and g read twice an iteration at {PEAK_BYTES / 1e12} TB/s: "
+        f"{stream_ms:.4f} ms, {stream_ms / dev_ms:.2%} of the device time "
+        f"({2 * nbytes(dense.G, dense.g) * 100 / (dev_ms * 1e-3) / 1e12:.3f} TB/s); "
+        f"{nbytes(dense.G) / 2 ** 20:.1f} MiB of G ({SMI}); ptxas: {ptxas_report(kernel)}")
+    out = {"max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
+           "streaming_bound_ms": stream_ms, "share": b["bound_ms"] / dev_ms,
+           "us_per_iteration": dev_ms * 10, "plan": plan, "grid": grid}
+    if plan == "cta":
+        # the "grid" plan at the same shape, held to the twin and timed in turns
+        outs = [s_.map(torch.empty_like) for s_ in (st, zero)]
+        for o, s_ in zip(outs, (st, zero)):
+            o.yC = s_.yC.clone()             # the kernels leave yC as it is
+        ggrid = pdhg_dense._launch_block(cx, cX, pool, [st, zero], outs, rec, 100, dense,
+                                         plan="grid")
+        torch.cuda.synchronize()
+        gratio = against_twin(outs)[1]
+        t_cta, t_grid = [], []
+        for runs, p_ in ((t_cta, "cta"), (t_grid, "grid"), (t_grid, "grid"), (t_cta, "cta")):
+            runs.append(queued_ms(lambda: pdhg_dense._launch_block(
+                cx, cX, pool, ip, ip, rec, 100, dense, plan=p_), reps=5))
+        log(f"[pdhg_dense {label}] the 'grid' plan here: {ggrid} CTAs, {gratio:.3f} of the "
+            f"limit against the twin; on the device in turns: 'cta' {t_cta!r} ms, 'grid' "
+            f"{t_grid!r} ms ({SMI})")
+        if gratio > 1.0:
+            raise AssertionError(f"the dense block's grid plan disagrees with its twin ({label})")
+        out["grid_plan_device_ms"] = sum(t_grid) / 2
+    if parent is not None:
+        p_dense = importlib.import_module(f"{parent.__name__}.lp.pdhg_dense")
+        p_ip = [st.map(torch.clone), zero.map(torch.clone)]
+        t_parent, t_this = [], []
+        for runs, fn in ((t_parent, p_dense.pdhg_dense_block_steps),
+                         (t_this, pdhg_dense_block_steps), (t_this, pdhg_dense_block_steps),
+                         (t_parent, p_dense.pdhg_dense_block_steps)):
+            bufs = p_ip if runs is t_parent else ip
+            runs.append(queued_ms(lambda: fn(cx, cX, pool, index, *bufs, rec, 100, dense),
+                                  reps=5))
+        log(f"[pdhg_dense {label}] on the device in turns: parent build {t_parent!r} ms, this "
+            f"build {t_this!r} ms (100 iterations; {SMI})")
+        out["parent_device_ms"] = sum(t_parent) / 2
+        out["parent_device_ms_turns"] = t_parent
+        out["device_ms_turns"] = t_this
+    return out
 
 
 def check_dense_check(label: str, inputs) -> dict:
@@ -1369,66 +1470,26 @@ def check_dense_norm(label: str, inputs) -> dict:
             "share": bb["bound_ms"] / dev_ms}
 
 
-def check_dense_route(dev) -> dict:
+def check_dense_route(dev, parent=None) -> dict:
     """Phase 3's dense route: K7's block, check and norm at DENSE_SHAPES
-    against their twins.  Returns {kernel: {shape label: numbers}}."""
-    out = {"pdhg_dense": {}, "pdhg_dense_check": {}, "pdhg_dense_norm": {},
-           "cluster_scaling": dense_cluster_scaling(dev)}
-    for n, m in DENSE_SHAPES:
+    against their twins, and the block at n = 64 over 2048 rows
+    (DENSE_BLOCK_EXTRA).  ``parent``: the parent checkout's package, whose
+    block is timed in turns with this one.  Returns {kernel: {shape label:
+    numbers}}."""
+    out = {"pdhg_dense": {}, "pdhg_dense_check": {}, "pdhg_dense_norm": {}}
+    for n, m in (*DENSE_SHAPES, DENSE_BLOCK_EXTRA):
         label = f"n={n} m={m}"
         inputs = dense_inputs(n, m, dev)
-        log(f"[pdhg_dense {label}] cluster of {pdhg_dense.CLUSTER} CTAs x 512 threads; shared "
-            f"bytes a CTA: block {pdhg_dense.smem_bytes('block', n, m)}, check "
-            f"{pdhg_dense.smem_bytes('check', n, m)}, norm {pdhg_dense.smem_bytes('norm', n, m)}; "
-            f"the route takes up to {pdhg_dense.max_dense_rows(n)} rows at n = {n}")
-        out["pdhg_dense"][label] = check_dense_block(label, inputs)
-        out["pdhg_dense_check"][label] = check_dense_check(label, inputs)
-        out["pdhg_dense_norm"][label] = check_dense_norm(label, inputs)
-    return out
-
-
-def dense_cluster_scaling(dev) -> dict:
-    """Does one cluster read G fast enough, or would more SMs help?  K7's
-    block at n = 64 (where clusters of 4, 8 and 16 CTAs all fit its lanes)
-    over 2048 rows (33.5 MB of G, in L2) and 8192 (134 MB, from HBM),
-    checked against the twin at each cluster size and timed in turns
-    (16, 8, 4, 4, 8, 16): microseconds an iteration and the rate at which
-    it streams G twice an iteration, in all and per SM."""
-    out = {}
-    for m in (2048, 8192):
-        cx, cX, pool, index, dense, st = dense_inputs(64, m, dev)
-        normK = estimate_norm_plain(pool, 64, 30, torch.Generator().manual_seed(0), index, dense)
-        eta = 0.95 / normK.item()
-        zero = st.map(torch.zeros_like)
-        rec = pdhg_kernel.steps_record([eta], [eta], dev)
-        want = pdhg_block_plain(cx, cX, pool, index, st, zero, eta, eta, 100, dense)
-        ins = [st, zero]
-        outs = [s_.map(torch.empty_like) for s_ in ins]
-        times = {c: [] for c in (16, 8, 4)}
-        ratio = 0.0
-        for c in (16, 8, 4):
-            pdhg_dense._launch_block(cx, cX, pool, ins, outs, rec, 100, dense, cluster=c)
-            torch.cuda.synchronize()
-            for g_, w_ in zip((*pdhg_dense._fields(outs[0]), *pdhg_dense._fields(outs[1])),
-                              (*pdhg_dense._fields(want[0]), *pdhg_dense._fields(want[1]))):
-                if g_.numel():
-                    ratio = max(ratio, excess(g_, w_, DENSE_RTOL, DENSE_RTOL)[1])
-        for c in (16, 8, 4, 4, 8, 16):
-            times[c].append(cuda_ms(lambda: pdhg_dense._launch_block(
-                cx, cX, pool, ins, outs, rec, 100, dense, cluster=c), reps=5))
-        streamed = 2 * nbytes(dense.G, dense.g)
-        rows = {c: {"us_per_iteration": sum(t) / len(t) * 10,
-                    "GB_per_s": streamed / (sum(t) / len(t) / 100 * 1e-3) / 1e9} for c, t in
-                times.items()}
-        log(f"[pdhg_dense cluster scaling n=64 m={m}] against the twin at every cluster size: "
-            f"{ratio:.3f} of the limit; " + "; ".join(
-                f"cluster of {c}: {r['us_per_iteration']:.3f} us an iteration, G streamed at "
-                f"{r['GB_per_s']:.1f} GB/s ({r['GB_per_s'] / c:.1f} an SM; in turns "
-                f"{times[c]!r} ms)" for c, r in rows.items()) + f" ({SMI})")
-        if ratio > 1.0:
-            raise AssertionError(f"K7's block at another cluster size disagrees with its twin "
-                                 f"(n=64 m={m})")
-        out[f"n=64 m={m}"] = rows
+        log(f"[pdhg_dense {label}] block plan {pdhg_dense.block_plan(n, m)!r} (the 'grid' plan "
+            f"would take {pdhg_dense.block_grid(n, m)} CTAs); shared bytes a CTA: block "
+            f"{pdhg_dense.smem_bytes('block', n, m)}, check and norm at a cluster of "
+            f"{pdhg_dense.CLUSTER}: {pdhg_dense.smem_bytes('check', n, m)}, "
+            f"{pdhg_dense.smem_bytes('norm', n, m)}; the route takes up to "
+            f"{pdhg_dense.max_dense_rows(n)} rows at n = {n}")
+        out["pdhg_dense"][label] = check_dense_block(label, inputs, parent)
+        if (n, m) in DENSE_SHAPES:
+            out["pdhg_dense_check"][label] = check_dense_check(label, inputs)
+            out["pdhg_dense_norm"][label] = check_dense_norm(label, inputs)
     return out
 
 
@@ -1443,76 +1504,107 @@ def dense_entry(name: str, replaces: str, launches: int, shapes: dict) -> dict:
             "shapes": shapes}
 
 
-# the parent build's K5 (its entry point is this build's), for the bit check
-def parent_k5(parent: str):
-    """The K5 of another checkout, built alone with this build's nvcc flags
-    into build/cuda/parent/."""
-    src = os.path.join(parent, "sdpcutsel_tpu_torch", "csrc", "pdhg_check.cu")
-    out = os.path.join(REPO, "build", "cuda", "parent", "libpdhg_check.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src],
-                   check=True, capture_output=True, text=True, timeout=600)
-    lib = ctypes.CDLL(out)
-    lib.pdhg_check_launch.argtypes = _build._SIGNATURES["pdhg_check_launch"]
-    lib.pdhg_check_launch.restype = ctypes.c_int
-    return lib
+PARENT_ALIAS = "parent_sdpcutsel_tpu_torch"
 
 
-def k5_against_parent(lib, label: str, inputs, dense) -> bool:
-    """This K5 and the parent build's on the same checked block (phase 3's
-    state after one K2 block, restart_period 100): records, state, sums and
-    anchor bit for bit; both entry points called directly and timed by
-    events in turns (parent, this, this, parent), each on its own copies
-    (every timed launch after the first finds the record stopped or not as
-    the first left it, the same for both builds)."""
+def parent_package(parent: str):
+    """The parent checkout's port package, imported once under another name
+    (import_checkout); its kernels build into the parent checkout's own
+    build/cuda/ at first use."""
+    return sys.modules.get(PARENT_ALIAS) or import_checkout(parent, PARENT_ALIAS)
+
+
+def checked_against_parent(pkg, label: str, inputs, dense, dev) -> bool:
+    """This tree's checked block (one launch: K2, then K5 in it) and the
+    parent build's K2 launch followed by its K5 launch, from phase 3's
+    random state on a fresh record, restart_period 10^9 and 100: state,
+    sums, anchor and record bit for bit.  Then both timed in turns (parent,
+    this, this, parent) at restart_period 100, on the device (queued
+    events) and by events back to back (the host's share included)."""
     cx, cX, pool, index, st0 = inputs
     n = cx.shape[0]
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
-    eta = 0.95 / normK.item()
-    st1, acc1 = pdhg_block(cx, cX, pool, index, st0, st0.map(torch.zeros_like), eta, eta, 100,
-                           dense)
-    B1 = rb.batch_of_one
+    p_kernel = importlib.import_module(f"{pkg.__name__}.lp.pdhg_kernel")
+    p_check = importlib.import_module(f"{pkg.__name__}.lp.pdhg_check")
+    every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
 
     def prepare():
-        return [B1(st1.map(torch.clone)), B1(acc1.map(torch.clone)), B1(st0.map(torch.clone)),
-                new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"],
-                           cx.device)[None]]
+        return [st0.map(torch.clone), st0.map(torch.zeros_like), st0.map(torch.clone),
+                new_record(normK, 1.0, 0.95, top, tol, dev)]
 
-    P1, I1 = B1(pool), B1(index)
-    D1 = None if dense is None else B1(dense)
-    M, k = pool.idx.shape
-    m = 0 if dense is None else dense.m
-    c = [t.contiguous() for t in (cx[None], cX[None], I1.idx, P1.lin, P1.quad, P1.rhs,
-                                  P1.active, I1.xoff, I1.xcut, I1.xcoef, I1.Xoff, I1.Xcut,
-                                  I1.Xcoef)]
-    d = [None] * 3 if D1 is None else [t.contiguous() for t in (D1.G, D1.g, D1.h)]
+    same = True
+    for rp in (10 ** 9, 100):
+        def parent_call(bufs, rp=rp):
+            p_kernel.pdhg_block_steps(cx, cX, pool, index, bufs[0], bufs[1], bufs[3], every,
+                                      dense)
+            p_check.pdhg_check(cx, cX, pool, index, *bufs, every, rp, top, tol, dense)
 
-    def parent_call(bufs, library=lib):
-        err = library.pdhg_check_launch(
-            n, M, k, m, 1, pdhg_kernel.CLUSTER, I1.xcut.shape[-1], I1.Xcut.shape[-1],
-            CHECK_ARGS["check_every"], 100, CHECK_ARGS["max_iters"],
-            float(np.float32(CHECK_ARGS["tol"])), *(t.data_ptr() for t in c),
-            *(None if t is None else t.data_ptr() for t in d),
-            *(t.data_ptr() for s in bufs[:3] for t in s.fields()), bufs[3].data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"pdhg_check_launch returned {err}")
+        def this_call(bufs, rp=rp):
+            pdhg_block_checked(cx, cX, pool, index, *bufs, every, rp, top, tol, dense)
 
-    def this_call(bufs):
-        parent_call(bufs, _build.lib())
-
-    mine, theirs = prepare(), prepare()
-    this_call(mine)
-    parent_call(theirs)
-    torch.cuda.synchronize()
-    same = states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3])
-    t_parent, t_this = [], []
-    for runs, fn in ((t_parent, parent_call), (t_this, this_call), (t_this, this_call),
-                     (t_parent, parent_call)):
+        mine, theirs = prepare(), prepare()
+        this_call(mine)
+        parent_call(theirs)
+        torch.cuda.synchronize()
+        ok = states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3])
+        log(f"[pdhg_check {label}] restart_period {rp}: this build's checked launch and the "
+            f"parent build's K2 then K5 bit for bit (state, sums, anchor, record): {ok}")
+        same &= ok
+    dev_t, ev_t = {"parent": [], "this": []}, {"parent": [], "this": []}
+    for tree, fn in (("parent", parent_call), ("this", this_call), ("this", this_call),
+                     ("parent", parent_call)):
         bufs = prepare()
-        runs.append(cuda_ms(lambda: fn(bufs), reps=20))
-    log(f"[pdhg_check {label}] this build's K5 and the parent build's bit for bit: {same}; in "
-        f"turns, parent {t_parent!r} ms, this build {t_this!r} ms")
+        dev_t[tree].append(queued_ms(lambda: fn(bufs), reps=10))
+        ev_t[tree].append(cuda_ms(lambda: fn(bufs), reps=20))
+    log(f"[pdhg_check {label}] a checked block in turns, on the device: parent (K2 + K5) "
+        f"{dev_t['parent']!r} ms, this build (one launch) {dev_t['this']!r} ms; by events back "
+        f"to back: parent {ev_t['parent']!r} ms, this build {ev_t['this']!r} ms ({SMI})")
+    return same
+
+
+def checked_batched_against_parent(pkg, insts, dev) -> bool:
+    """checked_against_parent at the suite bucket's batch (B = 12, n = 125,
+    one instance's record stopped): this tree's batched checked launch and
+    the parent build's batched K2 then batched K5, bit for bit at
+    restart_period 10^9 and 100, then timed in turns."""
+    cx, cX, P, index, st0, _ = batched_inputs(insts, dev)
+    B, n = cx.shape
+    normK = estimate_norm_batched_plain(P, n, 30, torch.Generator().manual_seed(0), index)
+    p_kernel = importlib.import_module(f"{pkg.__name__}.lp.pdhg_kernel")
+    p_check = importlib.import_module(f"{pkg.__name__}.lp.pdhg_check")
+    every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
+
+    def prepare():
+        rec = new_record(normK, 1.0, 0.95, top, tol, dev, batch=B)
+        rec[B // 2 - 1, REC_STOP] = 1
+        return [st0.map(torch.clone), st0.map(torch.zeros_like), st0.map(torch.clone), rec]
+
+    same = True
+    for rp in (10 ** 9, 100):
+        def parent_call(bufs, rp=rp):
+            p_kernel.pdhg_block_steps_batched(cx, cX, P, index, bufs[0], bufs[1], bufs[3], every)
+            p_check.pdhg_check_batched(cx, cX, P, index, *bufs, every, rp, top, tol)
+
+        def this_call(bufs, rp=rp):
+            pdhg_block_checked_batched(cx, cX, P, index, *bufs, every, rp, top, tol)
+
+        mine, theirs = prepare(), prepare()
+        this_call(mine)
+        parent_call(theirs)
+        torch.cuda.synchronize()
+        ok = states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3])
+        log(f"[pdhg_check batched] B={B}, restart_period {rp}: this build's checked launch and "
+            f"the parent build's K2 then K5 bit for bit: {ok}")
+        same &= ok
+    dev_t, ev_t = {"parent": [], "this": []}, {"parent": [], "this": []}
+    for tree, fn in (("parent", parent_call), ("this", this_call), ("this", this_call),
+                     ("parent", parent_call)):
+        bufs = prepare()
+        dev_t[tree].append(queued_ms(lambda: fn(bufs), reps=10))
+        ev_t[tree].append(cuda_ms(lambda: fn(bufs), reps=20))
+    log(f"[pdhg_check batched] a checked block of B={B} in turns, on the device: parent "
+        f"{dev_t['parent']!r} ms, this build {dev_t['this']!r} ms; by events back to back: "
+        f"parent {ev_t['parent']!r} ms, this build {ev_t['this']!r} ms ({SMI})")
     return same
 
 
@@ -1761,16 +1853,17 @@ def finish(tag: str, checks: dict):
 
 def control_checks(tag: str, launches: dict, steering: int = 0) -> dict:
     """The LP solve's control on the card, as the reference runs it: K5 once
-    a solve block (every K2 launch but steering's), K6 once a solve, at most
+    a solve block, in K2's launch (the checked launches, counted under
+    "pdhg_check": every K2 launch but steering's), K6 once a solve, at most
     one host read of the control record a group of GROUP_BLOCKS blocks plus
     one a solve, and no twin check or norm on the card."""
     k2, k5, k6 = launches["pdhg_block"], launches["pdhg_check"], launches["pdhg_norm"]
     solves, reads, G = launches[SOLVES], launches[READS], pdhg_mod.GROUP_BLOCKS
     log(f"[{tag}] the solves' control: {solves} solves, K2 {k2} ({steering} of them steering), "
-        f"K5 {k5}, K6 {k6}; host reads of the record {reads} = {reads / max(solves, 1):.2f} a "
+        f"checked (K5 in the launch) {k5}, K6 {k6}; host reads of the record {reads} = {reads / max(solves, 1):.2f} a "
         f"solve, {k5 / max(reads, 1):.2f} blocks a read (groups of {G})")
     return {
-        "K5 once a solve block": k5 == k2 - steering and k5 > 0,
+        "K5 once a solve block, in K2's launch": k5 == k2 - steering and k5 > 0,
         "K6 once a solve": k6 == solves and k6 > 0,
         f"at most one host read a group of {G} blocks plus one a solve": reads * G <= k5 + G * solves,
         "no twin check or norm on the card": launches[PLAIN_CONTROL] == 0,
@@ -2663,8 +2756,7 @@ def certifier_against_parent(parent: str, dev) -> dict:
     for (c).  One warm-up run of (c) a tree, then the runs in turns (parent,
     this, this, parent); each run's microseconds a certifier LP iteration
     and its round split.  Returns the microseconds by tree and case."""
-    alias = "parent_sdpcutsel_tpu_torch"
-    import_checkout(parent, alias)
+    alias = parent_package(parent).__name__
     mods = {"parent": importlib.import_module(f"{alias}.loop.sdp_bound"),
             "this": sdp_bound_mod}
     configs = {"parent": importlib.import_module(f"{alias}.config"),
@@ -3086,16 +3178,18 @@ def main(argv=None) -> int:
         k5s.append(check_pdhg_check(label, inputs, dense, dev))
         k6s.append(check_pdhg_norm(label, inputs, dense, dev))
     control_batched = check_control_batched(bucket, dev)
-    dense_route = check_dense_route(dev)
+    pkg = parent_package(args.parent) if args.parent else None
+    dense_route = check_dense_route(dev, pkg)
     k2["parent_bits"] = k5s[1]["parent_bits"] = None
     if args.parent:
-        lib5 = parent_k5(args.parent)
-        same5 = [k5_against_parent(lib5, label, pdhg_inputs(Q, c, table, dense_rows, dev),
-                                   dense_rows)
+        same5 = [checked_against_parent(pkg, label, pdhg_inputs(Q, c, table, dense_rows, dev),
+                                        dense_rows, dev)
                  for label, (Q, c, table, dense_rows) in shapes.items()]
+        same5.append(checked_batched_against_parent(pkg, bucket, dev))
         k5s[1]["parent_bits"] = all(same5)
         if not all(same5):
-            raise AssertionError("K5 does not give the parent build's bits on phase 3's inputs")
+            raise AssertionError("the checked block does not give the parent build's K2 then K5 "
+                                 "bits on phase 3's inputs")
         lib = parent_k2(args.parent)
         same = []
         for label, (Q, c, table, dense) in shapes.items():
@@ -3158,8 +3252,9 @@ def main(argv=None) -> int:
         # K5 and K6: the reference computes them in XLA inside its while_loop
         # (no Pallas kernel); each entry holds the QCQP shape's numbers, the
         # BoxQP shape's under m0_*
-        {"name": "pdhg_check", "route": "cuda",
-         "source": "sdpcutsel_tpu_torch/csrc/pdhg_check.cu",
+        {"name": "pdhg_check (K5, in K2's launch)", "route": "cuda",
+         "source": "sdpcutsel_tpu_torch/csrc/pdhg_check.cuh (the epilogue of the checked form "
+                   "of csrc/pdhg_block.cu)",
          "replaces": "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block; XLA, no Pallas kernel)",
          "launches": total["pdhg_check"], **k5s[1],
          **{f"m0_{key}": v for key, v in k5s[0].items()}, **control_batched["check"],
@@ -3177,10 +3272,9 @@ def main(argv=None) -> int:
     # the reference's solve (no Pallas kernel: it refuses dense rows); each
     # entry holds n = 125 at the full buffer, every shape under "shapes"
     kernels += [
-        {**dense_entry("pdhg_dense", "sdpcutsel_tpu/lp/pdhg.py:216 (run_block's fori_loop of "
-                       "_one_iter with dense rows; XLA, no Pallas kernel)", total["pdhg_dense"],
-                       dense_route["pdhg_dense"]),
-         "cluster_scaling": dense_route["cluster_scaling"]},
+        dense_entry("pdhg_dense", "sdpcutsel_tpu/lp/pdhg.py:216 (run_block's fori_loop of "
+                    "_one_iter with dense rows; XLA, no Pallas kernel)", total["pdhg_dense"],
+                    dense_route["pdhg_dense"]),
         dense_entry("pdhg_dense_check", "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block with "
                     "dense rows; XLA, no Pallas kernel)", total["pdhg_dense_check"],
                     dense_route["pdhg_dense_check"]),

@@ -61,22 +61,25 @@ _SIGNATURES = {
                           *[_P] * 12,                  # state and sums in
                           *[_P] * 12,                  # state and sums out
                           _P],                         # stream
+    "pdhg_block_checked_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,  # n M k m iters
+                                  # cluster cap smem B
+                                  _P, _I, _I,          # records, ex, eX
+                                  _I, _I, _I, _F,      # check_every restart_period max_iters tol
+                                  _P, _P,              # cx, cX
+                                  _P, _P, _P, _P, _P,  # idx, lin, quad, rhs, act
+                                  _P, _P, _P, _P, _P, _P,  # xoff xcut xcoef Xoff Xcut Xcoef
+                                  _P, _P, _P,          # G, g, h
+                                  *[_P] * 18,          # state, sums, anchor (in place)
+                                  _P],                 # stream
     "pdhg_block_max_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # pdhg_check.cu
-    "pdhg_check_launch": [_I, _I, _I, _I, _I, _I, _I, _I,  # n M k m B cluster ex eX
-                          _I, _I, _I, _F,              # check_every restart_period max_iters tol
-                          _P, _P,                      # cx, cX
-                          _P, _P, _P, _P, _P,          # idx, lin, quad, rhs, act
-                          _P, _P, _P, _P, _P, _P,      # xoff xcut xcoef Xoff Xcut Xcoef
-                          _P, _P, _P,                  # G, g, h
-                          *[_P] * 18,                  # state, sums, anchor
-                          _P, _P],                     # records, stream
     # pdhg_dense.cu
-    "pdhg_dense_block_launch": [_I, _I, _I, _I, _I, _P,  # n m iters cluster smem records
+    "pdhg_dense_block_launch": [_I, _I, _I, _I, _I, _P,  # n m iters plan smem records
                                 _P, _P, _P, _P, _P,      # cx, cX, G, g, h
                                 *[_P] * 10,              # state and sums in
                                 *[_P] * 10,              # state and sums out
+                                _P, _P, _P,              # work, barrier, grid (out)
                                 _P],                     # stream
+    "pdhg_dense_block_grid": [_I, _I, _I, _P],          # n m smem grid (out)
     "pdhg_dense_check_launch": [_I, _I, _I, _I, _I, _I, _I,  # n m cluster smem check_every
                                 _F,                      # restart_period max_iters; tol
                                 _P, _P, _P, _P, _P,      # cx, cX, G, g, h

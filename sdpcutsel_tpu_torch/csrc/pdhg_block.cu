@@ -4,8 +4,10 @@
 // Replaces the Pallas TPU kernel sdpcutsel_tpu/lp/pdhg_kernel.py::_kernel
 // (launched from pdhg_block).  Runs `iters` iterations of the exact
 // lp/pdhg.py::_one_iter update and adds every iterate to the ergodic sums
-// (ax, aX, aA, aB, ayC, ayD).  The KKT check, restart and omega run after
-// each block in pdhg_check.cu (K5).  The TPU kernel kept its whole working set in VMEM for the
+// (ax, aX, aA, aB, ayC, ayD).  In its checked form (the solve's step) the
+// same launch then runs the KKT check, restart and omega (K5,
+// pdhg_check.cuh) on the bands still in shared memory, before the exit's
+// stores.  The TPU kernel kept its whole working set in VMEM for the
 // block and took no dense rows; this one also takes the m dense rows
 // Gd (m, n, n), gd (m, n), hd (m,) of relax/denserows.py (m = 0: BoxQP).
 //
@@ -74,6 +76,7 @@
 // state at entry and writes it at exit, behind cluster barriers, so the
 // outputs may be the inputs themselves (an in-place launch).
 
+#include "pdhg_check.cuh"
 #include "pdhg_common.cuh"
 
 namespace {
@@ -104,6 +107,11 @@ struct Args {
   int n, M, k, m, iters, R, Mc, term_cap;
   int ex, eX;                                // per-instance strides of the term arrays
   Arrays in;
+  // the checked form: the anchor (stacked as the state) and the check's
+  // arguments (pdhg_check.cuh)
+  Point anchor;
+  int check_every, restart_period, max_iters;
+  float tol;
   // each instance's control record (kRecWords words): its steps tau and
   // sigma, and its stop flag
   const int* rec;
@@ -170,12 +178,14 @@ struct Layout {
   int yC, ayC, rhs, act, lin, quad, idx;        // owned slots: (Mc,), (Mc, k), (Mc, k, k)
   int G, g, h, yD, ayD, dpart;                  // (m, R, n), (m, R), (m,) x 3, (C, m)
   int Xoff, xoff;                               // (R n + 1,), (R + 1,) segment offsets
+  int chk;                                      // the checked form's sums (CheckLayout), if
+                                                // the Xb band does not hold them
   int tcut, tcoef;                              // (term_cap,) cut-index terms
   int words;
 };
 
 __host__ __device__ inline Layout make_layout(int n, int M, int k, int m, int C, int R,
-                                              int Mc, int term_cap) {
+                                              int Mc, int term_cap, bool checked) {
   Layout L;
   int o = 0;
   const int RN = R * n;
@@ -192,6 +202,8 @@ __host__ __device__ inline Layout make_layout(int n, int M, int k, int m, int C,
   TAKE(G, m * RN); TAKE(g, m * R); TAKE(h, m); TAKE(yD, m); TAKE(ayD, m);
   TAKE(dpart, C * m);
   TAKE(Xoff, RN + 1); TAKE(xoff, R + 1);
+  // the check's sums: in the Xb band, dead after the loop, where it holds them
+  TAKE(chk, checked && RN < check_layout(C).words ? check_layout(C).words : 0);
   TAKE(tcut, term_cap); TAKE(tcoef, term_cap);
 #undef TAKE
   L.words = o;
@@ -211,6 +223,9 @@ __device__ __forceinline__ void fold_dense(int m, int C, float sigma, const floa
   }
 }
 
+// kCheck: the checked form, K5's control (pdhg_check.cuh) after the last
+// iteration, before the exit's stores.
+template <bool kCheck>
 __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -222,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
   const int* rec = a.rec + inst * kRecWords;
   if (rec[kRecStop]) return;          // a stopped instance: every CTA leaves before any barrier
   const float tau = __int_as_float(rec[kRecTau]), sigma = __int_as_float(rec[kRecSigma]);
-  const Layout L = make_layout(n, M, k, m, C, R, a.Mc, a.term_cap);
+  const Layout L = make_layout(n, M, k, m, C, R, a.Mc, a.term_cap, kCheck);
   float* const sX = sm + L.X;
   float* const syA = sm + L.yA;
   float* const syB = sm + L.yB;
@@ -403,6 +418,23 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
   if (m > 0 && a.iters > 0) fold_dense(m, C, sigma, sh, sdpart, syD, sayD);
   __syncthreads();
 
+  if constexpr (kCheck) {
+    const size_t N = n, NN = N * N;
+    const Point& z = a.anchor;
+    const CheckView v{n, M, k, m, C, R, a.Mc, rank, r0, rows, p0, slots,
+                      a.check_every, a.restart_period, a.max_iters, a.tol,
+                      sX, syA, syB, saX, saA, saB, scX, sx, sax, scx,
+                      syC, sayC, srhs, sact, slin, squad, sidx, a.in.act + inst * M,
+                      sw, syD, sayD, sh, sG, sg,
+                      sXoff, sxoff, Xcut, xcut, Xcoef, xcoef,
+                      sxb, sS, sST, srowA, srowB, scolP, sdpart,
+                      RN >= check_layout(C).words ? sXb : sm + L.chk,
+                      Point{z.x + inst * N, z.X + inst * NN, z.yA + inst * NN,
+                            z.yB + inst * NN, z.yC + inst * M, z.yD + inst * m},
+                      const_cast<int*>(rec)};
+    check_epilogue(cluster, v);
+  }
+
   // ---- exit: the band, the owned slots and yD, stored once ---------------
   {
   const Arrays p = instance_arrays(a.in, inst, n, M, k, m, a.ex, a.eX);
@@ -437,20 +469,40 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
 
 namespace {
 
-int prepare(int cluster, int smem) {
-  static int checked[2] = {0, -1};
-  return prepare_cluster(pdhg_cluster_kernel, cluster, smem, checked);
+int prepare(int cluster, int smem, bool check) {
+  static int checked[2][2] = {{0, -1}, {0, -1}};
+  return check ? prepare_cluster(pdhg_cluster_kernel<true>, cluster, smem, checked[1])
+               : prepare_cluster(pdhg_cluster_kernel<false>, cluster, smem, checked[0]);
 }
 
-int check_layout(int n, int M, int k, int m, int cluster, int term_cap, int smem) {
+int check_plan(int n, int M, int k, int m, int cluster, int term_cap, int smem, bool check) {
   if (cluster < 1 || cluster > kMaxCluster || n < 1 || n > kCols || k < 2 || k > 5 ||
       term_cap < 0)
     return kErrLayout;
   const int R = (n + cluster - 1) / cluster;
   const int Mc = (M + cluster - 1) / cluster;
-  const Layout L = make_layout(n, M, k, m, cluster, R, Mc, term_cap);
+  const Layout L = make_layout(n, M, k, m, cluster, R, Mc, term_cap, check);
   if (4 * static_cast<size_t>(L.words) != static_cast<size_t>(smem)) return kErrLayout;
   return 0;
+}
+
+// The launches of one plan for the instances ids[0..count), in grids of up
+// to kMaxBatch clusters.
+int launch_batches(Args& a, int cluster, int smem, int count, const int* ids, bool check,
+                   void* stream) {
+  for (int s0 = 0; s0 < count; s0 += kMaxBatch) {
+    const int part = count - s0 < kMaxBatch ? count - s0 : kMaxBatch;
+    for (int s = 0; s < part; ++s) {
+      a.ids[s] = ids[s0 + s];
+    }
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        launch_config(cluster, part, smem, static_cast<cudaStream_t>(stream), attr);
+    const cudaError_t e = check ? cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel<true>, a)
+                                : cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel<false>, a);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -481,8 +533,8 @@ extern "C" int pdhg_block_launch(
     float* xo, float* Xo, float* yAo, float* yBo, float* yCo, float* yDo,
     float* axo, float* aXo, float* aAo, float* aBo, float* ayCo, float* ayDo,
     void* stream) {
-  int err = check_layout(n, M, k, m, cluster, term_cap, smem);
-  if (err == 0) err = prepare(cluster, smem);
+  int err = check_plan(n, M, k, m, cluster, term_cap, smem, false);
+  if (err == 0) err = prepare(cluster, smem, false);
   if (err != 0) return err;
   if (count < 0 || ex < 0 || eX < 0) return kErrLayout;
 
@@ -491,19 +543,50 @@ extern "C" int pdhg_block_launch(
          Arrays{cx, cX, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff, Xcut, Xcoef,
                 G, g, h, x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
                 xo, Xo, yAo, yBo, yCo, yDo, axo, aXo, aAo, aBo, ayCo, ayDo},
-         rec, {}};
-  for (int s0 = 0; s0 < count; s0 += kMaxBatch) {
-    const int part = count - s0 < kMaxBatch ? count - s0 : kMaxBatch;
-    for (int s = 0; s < part; ++s) {
-      a.ids[s] = ids[s0 + s];
-    }
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg =
-        launch_config(cluster, part, smem, static_cast<cudaStream_t>(stream), attr);
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel, a);
-    if (e != cudaSuccess) return static_cast<int>(e);
+         Point{}, 0, 0, 0, 0.0f, rec, {}};
+  return launch_batches(a, cluster, smem, count, ids, false, stream);
+}
+
+// The checked block, the solve's step: for every instance b < B of a batch
+// stacked along the leading axis of every array, `iters` iterations of K2 in
+// place with the steps and stop flag of its control record, then K5's
+// control (pdhg_check.cuh) on the bands still in shared memory, in place on
+// the state, sums, anchor (zx..zD) and record, then one store of the state
+// and sums.  An instance whose record has stopped is left as it is.  The
+// plan's smem includes the check's region (lp/pdhg_kernel.py launch_plan
+// with checked=True).  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
+extern "C" int pdhg_block_checked_launch(
+    int n, int M, int k, int m, int iters, int cluster, int term_cap, int smem, int B,
+    int* rec, int ex, int eX, int check_every, int restart_period, int max_iters, float tol,
+    const float* cx, const float* cX,
+    const int* idx, const float* lin, const float* quad, const float* rhs,
+    const float* act,
+    const int* xoff, const int* xcut, const float* xcoef,
+    const int* Xoff, const int* Xcut, const float* Xcoef,
+    const float* G, const float* g, const float* h,
+    float* x, float* X, float* yA, float* yB, float* yC, float* yD,
+    float* ax, float* aX, float* aA, float* aB, float* ayC, float* ayD,
+    float* zx, float* zX, float* zA, float* zB, float* zC, float* zD,
+    void* stream) {
+  int err = check_plan(n, M, k, m, cluster, term_cap, smem, true);
+  if (err == 0) err = prepare(cluster, smem, true);
+  if (err != 0) return err;
+  if (B < 1 || ex < 0 || eX < 0 || check_every < 1) return kErrLayout;
+
+  Args a{n, M, k, m, iters, (n + cluster - 1) / cluster, (M + cluster - 1) / cluster,
+         term_cap, ex, eX,
+         Arrays{cx, cX, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff, Xcut, Xcoef,
+                G, g, h, x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
+                x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD},
+         Point{zx, zX, zA, zB, zC, zD}, check_every, restart_period, max_iters, tol, rec, {}};
+  int ids[kMaxBatch];
+  for (int s0 = 0; s0 < B; s0 += kMaxBatch) {
+    const int part = B - s0 < kMaxBatch ? B - s0 : kMaxBatch;
+    for (int s = 0; s < part; ++s) ids[s] = s0 + s;
+    err = launch_batches(a, cluster, smem, part, ids, true, stream);
+    if (err != 0) return err;
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 // How many clusters of this launch plan the card runs at once
@@ -511,10 +594,11 @@ extern "C" int pdhg_block_launch(
 extern "C" int pdhg_block_max_active_clusters(int n, int M, int k, int m, int cluster,
                                               int term_cap, int smem, int instances,
                                               int* out) {
-  int err = check_layout(n, M, k, m, cluster, term_cap, smem);
-  if (err == 0) err = prepare(cluster, smem);
+  int err = check_plan(n, M, k, m, cluster, term_cap, smem, false);
+  if (err == 0) err = prepare(cluster, smem, false);
   if (err != 0) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(cluster, instances, smem, nullptr, attr);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, pdhg_cluster_kernel, &cfg));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, pdhg_cluster_kernel<false>, &cfg));
 }

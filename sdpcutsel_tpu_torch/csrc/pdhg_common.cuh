@@ -1,12 +1,12 @@
 // What the PDHG kernels share: the iteration block (pdhg_block.cu, K2), the
-// checked block's control (pdhg_check.cu, K5), the power iteration for ||K||
-// (pdhg_norm.cu, K6) and the dense route's three (pdhg_dense.cu, K7).  K2 and
-// K7's block take the McCormick step from mccormick_pre_step,
-// mccormick_primal_step and mccormick_dual_step; K5 and K7's check write the
-// record with write_record.
+// checked block's control (pdhg_check.cuh, K5, the epilogue of K2's checked
+// form), the power iteration for ||K|| (pdhg_norm.cu, K6) and the dense
+// route's (pdhg_dense.cu, K7).  K2 takes the McCormick step from
+// mccormick_pre_step, mccormick_primal_step and mccormick_dual_step; K5 and
+// K7's check write the record with write_record.
 //
-// All three run one thread-block cluster of C CTAs x kThreads threads per
-// instance; CTA r owns rows [r R, min(n, (r + 1) R)) of every (n, n) array,
+// K2, K5, K6 and K7's check and norm run one thread-block cluster of C CTAs
+// x kThreads threads per instance; CTA r owns rows [r R, min(n, (r + 1) R)) of every (n, n) array,
 // R = ceil(n / C), and pool slots [r Mc, (r + 1) Mc), Mc = ceil(M / C).
 // Thread t works on column t % kCols of the band rows t / kCols,
 // t / kCols + kGroups, ...  Sums run in one fixed order (no atomics), so a
@@ -14,9 +14,9 @@
 //
 // The control record: every solve keeps one int32 record of kRecWords words
 // per instance in device memory (lp/pdhg.py REC_*: the same offsets, held
-// equal by tests/test_torch_pdhg_check.py).  K5 writes it after each block;
-// K2 reads its steps and the stop flag from it, so the solve's loop needs no
-// host read between blocks.
+// equal by tests/test_torch_pdhg_check.py).  K5 writes it at the end of each
+// checked launch; K2 reads its steps and the stop flag from it at the start,
+// so the solve's loop needs no host read between blocks.
 
 #pragma once
 
@@ -130,7 +130,7 @@ __device__ __forceinline__ float cut_residual_k(int k, const int* id, const floa
   }
 }
 
-// ---- the McCormick step over a band (K2 and the dense route's block) ------
+// ---- the McCormick step over a band (K2) -----------------------------------
 // Thread t works on column t % kCols of the band rows t / kCols + kGroups j;
 // every (n, n) array below is the CTA's band of R rows (r0 its first global
 // row, `rows` those that exist); x-like arrays hold the band's rows, xb is

@@ -1,17 +1,18 @@
 // The dense-row route of the PDHG solve, K7: the SDP certifier's LP
 // (loop/sdp_bound.py), whose pool holds no cut and whose m dense rows (the
 // eigencuts, up to the buffer's capacity, 2048 by default) do not fit K2's
-// shared memory.  Three kernels, float32, one thread-block cluster of C CTAs
-// for the one instance:
+// shared memory.  Three entry points, float32, for the one instance:
 //
-//   pdhg_dense_block_kernel  `iters` iterations of lp/pdhg.py::_one_iter with
-//       an empty pool, every iterate added to the ergodic sums; tau, sigma and
-//       the stop flag from the solve's control record (pdhg_common.cuh), as
-//       K2 (pdhg_block.cu) reads them.  Twin: pdhg_block_plain.
+//   the block  `iters` iterations of lp/pdhg.py::_one_iter with an empty
+//       pool, every iterate added to the ergodic sums; tau, sigma and the
+//       stop flag from the solve's control record (pdhg_common.cuh), as K2
+//       (pdhg_block.cu) reads them.  Two launch plans by shape (below):
+//       pdhg_dense_cta_kernel and pdhg_dense_grid_kernel.  Twin:
+//       pdhg_block_plain.
 //   pdhg_dense_check_kernel  the checked block's control after each block, as
-//       K5 (pdhg_check.cu) does it: both KKT errors with the dense residuals,
-//       the current-or-average choice, restart, omega, the stop test and the
-//       next steps, into the record.  Twin: pdhg_check_plain.
+//       K5 (pdhg_check.cuh) does it: both KKT errors with the dense
+//       residuals, the current-or-average choice, restart, omega, the stop
+//       test and the next steps, into the record.  Twin: pdhg_check_plain.
 //   pdhg_dense_norm_kernel   ||K|| by `iters` power iterations in one launch,
 //       as K6 (pdhg_norm.cu).  Twin: estimate_norm_plain.
 //
@@ -25,42 +26,26 @@
 // residuals <G_q, Xb>, which cannot share a pass: the residuals need the
 // primal step that the adjoint feeds.  At n = 125, m = 368 that is 46 MB an
 // iteration (13.7 us at 3.35 TB/s; G fits the 50 MB L2), at m = 2048 256 MB
-// (76 us).  Everything else is K2's n^2 work, well under a microsecond.
-// Measured (PERF.md section 6): one cluster streams G at ~0.5 TB/s, 20-35
-// GB/s an SM at clusters of 4, 8 and 16, far from HBM's rate: the loads a
-// warp keeps in flight, not the bytes, set the pace, so the next step is
-// the whole card (ROADMAP) or deeper load pipelines.
+// (76 us).  Everything else is K2's n^2 work, well under a microsecond.  One
+// SM streams G at 20-35 GB/s (PERF.md section 6, one cluster of 16: ~0.5
+// TB/s), so the block's "grid" plan streams it on every SM, and its "cta"
+// plan, for the small sandwiches, keeps it in one SM's shared memory.
 //
-// Design: K2's cluster and bands (pdhg_common.cuh): CTA r owns rows
-// [r R, min(n, (r + 1) R)) of every (n, n) array, R = ceil(n / C), and keeps
-// its bands of X, yA, yB, cX, the sums and the primal pre-step in shared
-// memory for the whole block launch, exchanging the transposed tile, the
-// column sums of yB and xb through distributed shared memory as K2 does.  The
-// dense rows are never copied to shared memory: each pass streams the band's
-// slice of every G_q and g_q from global memory (L2 when it fits), so nothing
-// in shared memory grows with m n.  Each CTA also owns a slice of the dense
-// rows, [r mc, (r + 1) mc), mc = ceil(m / C): every rank sends its partial of
-// <G_q, Xb> + g_q . xb over its band to the owner of q, the owner sums the
-// ranks' partials in rank order, updates yD_q and its sum, and sends yD_q to
-// every CTA's replica of yD.  So shared memory holds m + (C + 2) mc floats of
-// the dense rows, not C m.  An iteration:
-//   D   the band's dense adjoint sum_q yD_q G_q (and sum_q yD_q g_q for the
-//       band's x): band entries to lanes, q in increasing order (on few
-//       entries the q range is split into strands summed in strand order);
-//   A   gX, S = X - tau (cX - gX), S's transposed tile to the column owners,
-//       the row sums and column partials of yB (K2's phase A);
-//                                                           cluster barrier 1
-//   B1  gx, the x step and xb to every CTA; X = clip(sym(S)), Xb (K2's B1);
-//                                                           cluster barrier 2
-//   B2  dual ascent on yA, yB; each dense row's partial over the band to its
-//       owner (L lanes a row, a butterfly);                 cluster barrier 3
-//   F   the owners fold their rows' partials, step yD and push it to every
-//       CTA.                                                cluster barrier 4
-// The check and the norm use the same two passes (D and the residuals to the
-// owners) at their evaluation points: the check at the current iterate and
-// the average at once (one pass over G serves both), the norm at each power
-// iterate.  No atomics and one fixed order for every sum, so a launch
-// repeats bit for bit; the twins sum in torch's order and agree to rounding.
+// The check and the norm: one thread-block cluster of C CTAs on K2's bands
+// (pdhg_common.cuh): CTA r owns rows [r R, min(n, (r + 1) R)) of every
+// (n, n) array, R = ceil(n / C), keeps its bands in shared memory and
+// exchanges the transposed tile, the column sums of yB and x through
+// distributed shared memory as K2 does.  The dense rows are never copied to
+// shared memory: each pass streams the band's slice of every G_q and g_q
+// from global memory (dense_adjoint: band entries to lanes, q in increasing
+// order, on few entries the q range split into strands summed in strand
+// order; dense_residuals: each rank's partial of <G_q, Xb> + g_q . xb over
+// its band to the owner of q, [r mc, (r + 1) mc), mc = ceil(m / C), who sums
+// the ranks' partials in rank order).  The check evaluates the current
+// iterate and the average at once (one pass over G serves both), the norm
+// each power iterate.  No atomics and one fixed order for every sum, so a
+// launch repeats bit for bit; the twins sum in torch's order and agree to
+// rounding.
 //
 // The pool: the certifier's is one slot of width 1 that nothing fills, so the
 // kernels leave yC and its sum as they are (0, as the twin keeps them: its
@@ -257,62 +242,473 @@ __device__ void dense_residuals(cg::cluster_group& cluster, const float* __restr
 }
 
 // ---- the block ------------------------------------------------------------
+// Two launch plans, chosen by shape (lp/pdhg_dense.py::block_plan):
+//
+//   "cta"   n <= kCtaMaxN and the whole problem in one CTA's shared memory:
+//           G and g are staged there once per launch (cp.async), and each
+//           iteration reads them from shared memory, with block barriers only.
+//   "grid"  every other shape: one CTA on each SM the card co-schedules
+//           (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), launched
+//           cooperatively, so that the grid barrier below cannot hang.  CTA b
+//           owns a slice of the entries of X and of x ([e0, e1), [i0, i1): E
+//           entries), keeps their state and sums in registers, and owns a
+//           slice of the dense rows [q0, q1).  Both passes over G run over
+//           the CTA's own entries: the rows' segments of its slice, G_q[e0,
+//           e1) and g_q[i0, i1) for every q, stay in its shared memory for
+//           the launch where they fit (the slice is read from device memory
+//           once), and stream through a ring of 16-byte cp.async stages
+//           otherwise.  An iteration:
+//     I    yD to shared memory; the adjoint sum_q yD_q [G_q | g_q] of the
+//          owned entries (q in increasing order a strand, strands summed in
+//          order); S = X - tau (cX - gX) of the owned entries of X to global
+//          memory; the x step of the owned entries of x (row sums of yA, yB
+//          and the column sum of yB read from global memory in order), xb to
+//          global memory;                                   grid barrier 1
+//    II    X = clip(sym(S)), Xb, the dual ascent on yA, yB of the owned
+//          entries; each row's partial <G_q, Xb> + g_q . xb over them, to
+//          global memory (P m partials);                    grid barrier 2
+//   III    the owners of the rows sum their rows' P partials in CTA order,
+//          step yD_q and its sum;                           grid barrier 3.
+//
+// No atomics in any sum (the barrier's arrival counter is no sum), and one
+// fixed order for each, so a launch repeats bit for bit.
+
+constexpr int kCtaMaxN = 32;     // the "cta" plan's largest n
+constexpr int kRowJ = 16;        // the "cta" plan's residual: entries a lane in registers
+constexpr int kStage = 8192;     // floats a ring stage (the "grid" plan's stream)
+constexpr int kStages = 4;       // stages in flight
+constexpr int kMaxE = 496;       // entries (of X and x) a CTA of the grid owns: <= 128
+                                 // chunks, and at most one entry of X a thread
+constexpr int kScratch = 2048;   // strand partials (<= 4 kThreads), weights (<= 4 (kMaxE + 12))
+constexpr int kSmemWords = 232448 / 4;   // the "grid" plan takes a CTA's whole shared memory
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The first kStages - 1 stages of a stream of nst stages into the ring;
+// issue(s, dst) issues stage s's copies (every thread its share).
+template <class Issue>
+__device__ __forceinline__ void ring_prologue(float* ring, int nst, Issue issue) {
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nst) issue(s, ring + s * kStage);
+    cp_async_commit();
+  }
+}
+
+// The rest of the stream: stage s is consumed once it has landed, while the
+// stages up to s + kStages - 1 are in flight.  Every thread calls it.
+template <class Issue, class Consume>
+__device__ __forceinline__ void ring_drain(float* ring, int nst, Issue issue, Consume consume) {
+#pragma unroll 1
+  for (int s = 0; s < nst; ++s) {
+    const int nx = s + kStages - 1;
+    if (nx < nst) issue(nx, ring + (nx % kStages) * kStage);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    consume(s, ring + (s % kStages) * kStage);
+    __syncthreads();
+  }
+}
+
+// A barrier over a cooperative grid of P CTAs: an arrival counter (zeroed
+// by the launch) and a spin of one thread a CTA until all have arrived.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target, unsigned P) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    target += P;
+    __threadfence();
+    atomicAdd(bar, 1u);
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(bar) : "memory");
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
 
 struct BlockArgs {
-  int n, m, iters, R, mc, nr;            // nr: the ranks that own rows
+  int n, m, iters;
   const int* rec;                        // the solve's control record
   const float *cx, *cX, *G, *g, *h;
   // inputs: x, X, yA, yB, yD, then the sums ax, aX, aA, aB, ayD
   const float *x, *X, *yA, *yB, *yD, *ax, *aX, *aA, *aB, *ayD;
   // outputs, in the same order (may be the inputs)
   float *xo, *Xo, *yAo, *yBo, *yDo, *axo, *aXo, *aAo, *aBo, *ayDo;
+  float* work;                           // grid plan: S (n n), xb (n), partials (P, m)
+  unsigned* bar;                         // grid plan: the barrier's counter
 };
 
-// Offsets, in 4-byte words, of one CTA's dynamic shared memory (the block).
-// lp/pdhg_dense.py::smem_words mirrors the sum; the launch checks it.
-struct BlockLayout {
-  int X, yA, yB, cX, aX, aA, aB, S, Xb, ST, D;   // (R, n) bands
-  int rowA, rowB;                                // (R, kWarpsPerRow) row partials
-  int colP;                                      // (C kGroups, R) column partials
-  int xs, axs, cxs, gD;                          // (R,) x, ax, cx and the dense g adjoint
-  int xb;                                        // (kCols,) replica of xb
-  int yD;                                        // (m,) replica of yD
-  int h, ayD;                                    // (mc,) the owned rows' h and sum of yD
-  int dpart;                                     // (C, mc) the ranks' partials of the owned rows
-  int scratch;                                   // (kThreads,) strand partials
+// ---- "grid" ---------------------------------------------------------------
+
+// Offsets, in 4-byte words, of one CTA's dynamic shared memory: the slab
+// (the owned segments of G's rows, resident or a ring of stages) takes what
+// the rest leaves of kSmemWords, and at least the ring.
+// lp/pdhg_dense.py::_block_words mirrors the sum; the launch checks it.
+struct GridLayout {
+  int scr;       // (kScratch,) the adjoint's window partials; then the residual's weights
+  int slab;      // the rows' owned segments, resident or streamed
+  int yD;        // (m,) replica of yD
+  int own;       // (kMaxE,) the adjoint of the owned entries; then their [Xb | xb]
   int words;
 };
 
-__host__ __device__ inline BlockLayout block_layout(int n, int m, int C) {
-  const int R = (n + C - 1) / C, mc = (m + C - 1) / C, RN = R * n;
-  BlockLayout L;
+__host__ __device__ inline GridLayout grid_layout(int n, int m) {
+  const int rest = kScratch + m + kMaxE;
+  const int free4 = (kSmemWords - rest) & ~3;
+  GridLayout L;
   int o = 0;
 #define TAKE(field, words) L.field = o; o += (words)
-  TAKE(X, RN); TAKE(yA, RN); TAKE(yB, RN); TAKE(cX, RN); TAKE(aX, RN);
-  TAKE(aA, RN); TAKE(aB, RN); TAKE(S, RN); TAKE(Xb, RN); TAKE(ST, RN); TAKE(D, RN);
-  TAKE(rowA, R * kWarpsPerRow); TAKE(rowB, R * kWarpsPerRow);
-  TAKE(colP, C * kGroups * R);
-  TAKE(xs, R); TAKE(axs, R); TAKE(cxs, R); TAKE(gD, R);
-  TAKE(xb, kCols);
+  TAKE(scr, kScratch);
+  TAKE(slab, free4 > kStages * kStage ? free4 : kStages * kStage);
   TAKE(yD, m);
-  TAKE(h, mc); TAKE(ayD, mc);
-  TAKE(dpart, C * mc);
-  TAKE(scratch, kThreads);
+  TAKE(own, kMaxE);
+#undef TAKE
+  L.words = o;
+  (void)n;
+  return L;
+}
+
+// [lo, hi) of the b-th of P near-equal slices of [0, N)
+__device__ __forceinline__ void slice(int N, int b, int P, int& lo, int& hi) {
+  lo = static_cast<int>(static_cast<long long>(N) * b / P);
+  hi = static_cast<int>(static_cast<long long>(N) * (b + 1) / P);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
+    const __grid_constant__ BlockArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  if (a.rec[kRecStop]) return;        // stopped: every CTA leaves before any barrier
+  const float tau = __int_as_float(a.rec[kRecTau]), sigma = __int_as_float(a.rec[kRecSigma]);
+  const int n = a.n, m = a.m, NN = n * n;
+  const int P = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const GridLayout L = grid_layout(n, m);
+  float* const scr = sm + L.scr;
+  float* const slab = sm + L.slab;
+  float* const syD = sm + L.yD;
+  float* const sown = sm + L.own;
+  float* const S = a.work;
+  float* const xb = a.work + NN;
+  float* const part = a.work + NN + n;   // (P, m): CTA b's partial of row q at b m + q
+  unsigned target = 0;
+
+  // this CTA's entries of X [e0, e1), of x [i0, i1) and rows [q0, q1)
+  int e0, e1, i0, i1, q0, q1;
+  slice(NN, b, P, e0, e1);
+  slice(n, b, P, i0, i1);
+  slice(m, b, P, q0, q1);
+  const int LA = e1 - e0, LB = i1 - i0, E = LA + LB;
+
+  // ---- the rows' owned segments: row q's G_q[e0, e1) and g_q[i0, i1), each
+  // as the 16-byte-aligned span that holds it (SA, SB floats: ca, cb chunks
+  // of 4), ES floats a row.  Entry j of G's part sits at span position
+  // shA(q) + j, of g's part at SA + shB(q) + j. ------------------------------
+  const int SA = LA > 0 ? (LA + 6) & ~3 : 0, SB = LB > 0 ? (LB + 6) & ~3 : 0;
+  const int ES = SA + SB, ca = SA / 4, cr = ES / 4;
+  auto shA = [&](int q) { return ((q & 3) * (NN & 3) + e0) & 3; };
+  auto shB = [&](int q) { return ((q & 3) * (n & 3) + i0) & 3; };
+  const size_t totG = static_cast<size_t>(m) * NN, totg = static_cast<size_t>(m) * n;
+  // copy rows [qs, qs + nq) into dst: 16-byte copies (4-byte at the arrays'
+  // ends); a chunk past its segment, or past the array, holds zeros
+  auto load_rows = [&](int qs, int nq, float* dst) {
+    for (int p = t; p < nq * cr; p += kThreads) {
+      const int ql = p / cr, c = p - ql * cr;
+      const size_t q = static_cast<size_t>(qs + ql);
+      const bool inA = c < ca;
+      const size_t s0 = inA ? q * NN + e0 : q * n + i0;
+      const size_t start = (s0 & ~static_cast<size_t>(3)) + 4 * (inA ? c : c - ca);
+      const size_t end = s0 + (inA ? LA : LB), tot = inA ? totG : totg;
+      const float* base = inA ? a.G : a.g;
+      float* d = dst + ql * ES + 4 * c;
+      if (start >= end || start + 4 > tot) {
+        for (int u = 0; u < 4; ++u) {
+          if (start + u < end && start + u < tot) {
+            cp_async4(d + u, base + start + u);
+          } else {
+            d[u] = 0.0f;
+          }
+        }
+      } else {
+        cp_async16(d, base + start);
+      }
+    }
+  };
+  const bool resident = static_cast<long long>(m) * ES <= L.yD - L.slab;
+  const int QB = ES > 0 ? kStage / ES : m;
+  const int nst = resident || m == 0 ? 0 : (m + QB - 1) / QB;
+  auto issue = [&](int s, float* dst) { load_rows(s * QB, min(QB, m - s * QB), dst); };
+
+  if (resident) load_rows(0, m, slab);   // the launch's one read of the slice
+  cp_async_commit();
+  ring_prologue(slab, a.iters > 0 ? nst : 0, issue);
+
+  // ---- the owned entry of X of thread t, e0 + t: its state and sums in
+  //      registers ------------------------------------------------------------
+  const bool own = t < LA;
+  const int eo = e0 + t, io = eo / n, co = eo - io * n;
+  float rX = own ? a.X[eo] : 0.0f, rA = own ? a.yA[eo] : 0.0f, rB = own ? a.yB[eo] : 0.0f;
+  float raX = own ? a.aX[eo] : 0.0f, raA = own ? a.aA[eo] : 0.0f, raB = own ? a.aB[eo] : 0.0f;
+  const float rcX = own ? a.cX[eo] : 0.0f;
+  float rS = 0.0f;
+  // the owned entries of x: lane 0 of warp w holds entry i0 + w, and the row
+  // sums of yA, yB and the column sum of yB that its next x step takes
+  float rx = 0.0f, rax = 0.0f, rsa = 0.0f, rsb = 0.0f, rsc = 0.0f;
+  auto x_sums = [&](const float* yA, const float* yB) {
+    if (warp < LB) {
+      const int i = i0 + warp;
+      float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+      for (int c = lane; c < n; c += 32) {
+        sa += __ldcg(yA + i * n + c);
+        sb += __ldcg(yB + i * n + c);
+        sc += __ldcg(yB + c * n + i);
+      }
+      rsa = warp_sum(sa);
+      rsb = warp_sum(sb);
+      rsc = warp_sum(sc);
+    }
+  };
+  if (lane == 0 && warp < LB) {
+    rx = a.x[i0 + warp];
+    rax = a.ax[i0 + warp];
+  }
+  x_sums(a.yA, a.yB);
+  if (a.yDo != a.yD) {                   // the owned rows' yD and its sum into the outputs
+    for (int q = q0 + t; q < q1; q += kThreads) {
+      a.yDo[q] = a.yD[q];
+      a.ayDo[q] = a.ayD[q];
+    }
+  }
+
+  // the adjoint's lanes: chunk ct of strand st (rows q = st mod NS); NS is a
+  // multiple of 4, so a strand's rows share their shift, sh
+  const int NS = cr > 0 ? (kThreads / cr) & ~3 : 0;
+  const int st = cr > 0 ? t / cr : 0, ct = cr > 0 ? t % cr : 0;
+  const int sh = ct < ca ? shA(st) : shB(st);
+  // the residuals' lanes: RL a row (the least power of two with at most 4
+  // chunks a lane), group rg of RG
+  int RL = 1;
+  while (RL < 32 && RL * 4 < cr) RL <<= 1;
+  const int RG = kThreads / RL, rg = t / RL, rl = t % RL;
+  if (resident) cp_async_wait<0>();      // the slice; a stream's first stages stay in flight
+  __syncthreads();
+
+  for (int it = 0; it < a.iters; ++it) {
+    const float* yDc = it == 0 ? a.yD : a.yDo;    // the last iteration's yD
+    // ---- I: the adjoint of the owned entries ---------------------------------
+    for (int q = t; q < m; q += kThreads) syD[q] = __ldcg(yDc + q);
+    __syncthreads();
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // span positions 4 ct + u of the strand's rows
+    auto adjoint = [&](int qs, int nq, const float* buf) {
+      if (st >= NS) return;
+      for (int ql = ((st - qs % NS) % NS + NS) % NS; ql < nq; ql += NS) {
+        const float w = syD[qs + ql];
+        const float4 v = lds4(buf + ql * ES + 4 * ct);
+        acc[0] = fmaf(w, v.x, acc[0]);
+        acc[1] = fmaf(w, v.y, acc[1]);
+        acc[2] = fmaf(w, v.z, acc[2]);
+        acc[3] = fmaf(w, v.w, acc[3]);
+      }
+    };
+    if (resident) {
+      adjoint(0, m, slab);
+    } else {
+      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+        adjoint(s * QB, min(QB, m - s * QB), buf);
+      });
+      ring_prologue(slab, nst, issue);    // phase II's first stages, early
+    }
+    // entry j of a part sits at span position sh + j of each strand's rows:
+    // the strands' sums, in strand order
+    if (st < NS) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) scr[(st * cr + ct) * 4 + u] = acc[u];
+    }
+    __syncthreads();
+    for (int j = t; j < E; j += kThreads) {
+      const bool inA = j < LA;
+      const int jj = inA ? j : j - LA, cbase = inA ? 0 : ca;
+      float sum = 0.0f;
+      for (int r = 0; r < NS; ++r) {
+        const int p = jj + (inA ? shA(r) : shB(r));
+        sum += scr[(r * cr + cbase + p / 4) * 4 + (p & 3)];
+      }
+      sown[j] = sum;
+    }
+    __syncthreads();
+
+    // S = X - tau (cX - gX) of the owned entries of X
+    if (own) {
+      const float gX = (-kSA * rA + kSB * rB) + sown[t];
+      rS = rX - tau * (rcX - gX);
+      S[eo] = rS;
+    }
+    // the x step of the owned entries of x (the sums from the last iteration)
+    if (lane == 0 && warp < LB) {
+      const int i = i0 + warp;
+      const float gx = (kSA * rsa - kSB * (rsb + rsc)) + sown[LA + warp];
+      const float xn = fminf(fmaxf(rx - tau * (a.cx[i] - gx), 0.0f), 1.0f);
+      xb[i] = 2.0f * xn - rx;
+      rx = xn;
+      rax += xn;
+    }
+    grid_sync(a.bar, target, P);
+
+    // ---- II: X = clip(sym(S)), Xb; the dual ascent on yA, yB -----------------
+    if (own) {
+      const float xn = fminf(fmaxf(0.5f * (rS + __ldcg(S + co * n + io)), 0.0f), 1.0f);
+      const float xbv = 2.0f * xn - rX;
+      rX = xn;
+      raX += xn;
+      sown[t] = xbv;
+      const float xbi = __ldcg(xb + io), xbc = __ldcg(xb + co);
+      const float kA = kSA * (xbi - xbv);
+      const float kB = kSB * (xbv - xbi - xbc);
+      rA = fmaxf(rA - sigma * kA, 0.0f);
+      rB = fmaxf(rB + sigma * (-kSB - kB), 0.0f);
+      raA += rA;
+      raB += rB;
+      a.yAo[eo] = rA;
+      a.yBo[eo] = rB;
+    }
+    for (int j = LA + t; j < E; j += kThreads) sown[j] = __ldcg(xb + i0 + j - LA);
+    __syncthreads();
+    // the residual's weights by shift: span position p of a row of shift s
+    // takes [Xb | xb] at its entry, 0 off the segment
+    for (int p = t; p < 4 * ES; p += kThreads) {
+      const int s = p / ES, pp = p - s * ES;
+      float w = 0.0f;
+      if (pp < SA) {
+        if (pp - s >= 0 && pp - s < LA) w = sown[pp - s];
+      } else if (pp - SA - s >= 0 && pp - SA - s < LB) {
+        w = sown[LA + pp - SA - s];
+      }
+      scr[p] = w;
+    }
+    __syncthreads();
+    // each row's partial over the owned entries, RL lanes a row (a butterfly;
+    // the same trip count in every lane: rows past nq redo the last, unstored)
+    auto residual = [&](int qs, int nq, const float* buf) {
+      for (int qb = 0; qb < nq; qb += RG) {
+        const int ql = qb + rg, qq = min(ql, nq - 1), q = qs + qq;
+        const int sa = shA(q), sb = shB(q);
+        float r = 0.0f;
+        for (int c = rl; c < cr; c += RL) {
+          const float4 v = lds4(buf + qq * ES + 4 * c);
+          const float4 w = lds4(scr + (c < ca ? sa * ES + 4 * c : sb * ES + 4 * c));
+          r = fmaf(v.x, w.x, r);
+          r = fmaf(v.y, w.y, r);
+          r = fmaf(v.z, w.z, r);
+          r = fmaf(v.w, w.w, r);
+        }
+        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+        if (rl == 0 && ql < nq) part[static_cast<size_t>(b) * m + qs + ql] = r;
+      }
+    };
+    if (resident) {
+      residual(0, m, slab);
+    } else {
+      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+        residual(s * QB, min(QB, m - s * QB), buf);
+      });
+    }
+    grid_sync(a.bar, target, P);
+
+    // ---- III: the owned rows: their partials summed in CTA order, yD; the
+    //      next x step's sums of the new yA, yB ---------------------------------
+    for (int q = q0 + warp; q < q1; q += kThreads / 32) {
+      float r = 0.0f;
+      for (int c = lane; c < P; c += 32) r += __ldcg(part + static_cast<size_t>(c) * m + q);
+      r = warp_sum(r);
+      if (lane == 0) {
+        const float yd = fmaxf(syD[q] + sigma * (a.h[q] - r), 0.0f);
+        a.yDo[q] = yd;
+        a.ayDo[q] += yd;
+      }
+    }
+    if (it + 1 < a.iters) {
+      x_sums(a.yAo, a.yBo);
+      if (!resident) ring_prologue(slab, nst, issue);   // the next iteration's first stages
+      grid_sync(a.bar, target, P);
+    }
+  }
+
+  // ---- exit: the owned entries' state and sums ------------------------------
+  if (own) {
+    a.Xo[eo] = rX;
+    a.yAo[eo] = rA;
+    a.yBo[eo] = rB;
+    a.aXo[eo] = raX;
+    a.aAo[eo] = raA;
+    a.aBo[eo] = raB;
+  }
+  if (lane == 0 && warp < LB) {
+    a.xo[i0 + warp] = rx;
+    a.axo[i0 + warp] = rax;
+  }
+}
+
+// ---- "cta" ----------------------------------------------------------------
+
+struct CtaLayout {
+  int W;                          // (m, V4) [G_q | g_q | 0], staged once
+  int X, yA, yB, cX, aX, aA, aB, S;   // (n n) the state, cX, the sums and S
+  int wv;                         // (V4,) [Xb | xb | 0]
+  int gD;                         // (V4,) the adjoint
+  int x, ax, cx;                  // (n,)
+  int h, yD, ayD, res;            // (m,); res: the rows' residuals
+  int strand;                     // (4 kThreads,) strand partials
+  int words;
+};
+
+// a row of [G_q | g_q] padded to a multiple of 4 floats, for 16-byte loads
+__host__ __device__ inline int cta_row(int n) { return (n * n + n + 3) & ~3; }
+
+__host__ __device__ inline CtaLayout cta_layout(int n, int m) {
+  const int NN = n * n, V4 = cta_row(n);
+  CtaLayout L;
+  int o = 0;
+#define TAKE(field, words) L.field = o; o += (words)
+  TAKE(W, m * V4);
+  TAKE(X, NN); TAKE(yA, NN); TAKE(yB, NN); TAKE(cX, NN); TAKE(aX, NN); TAKE(aA, NN);
+  TAKE(aB, NN); TAKE(S, NN);
+  TAKE(wv, V4); TAKE(gD, V4);
+  TAKE(x, n); TAKE(ax, n); TAKE(cx, n);
+  TAKE(h, m); TAKE(yD, m); TAKE(ayD, m); TAKE(res, m);
+  TAKE(strand, 4 * kThreads);
 #undef TAKE
   L.words = o;
   return L;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_block_kernel(
+__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
     const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) float sm[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  if (a.rec[kRecStop]) return;        // stopped: every CTA leaves before any barrier
+  if (a.rec[kRecStop]) return;
   const float tau = __int_as_float(a.rec[kRecTau]), sigma = __int_as_float(a.rec[kRecSigma]);
-  const int n = a.n, m = a.m, R = a.R, mc = a.mc;
-  const BlockLayout L = block_layout(n, m, C);
+  const int n = a.n, m = a.m, NN = n * n, V = NN + n, V4 = cta_row(n), Q4 = V4 / 4;
+  const int t = threadIdx.x;
+  const CtaLayout L = cta_layout(n, m);
+  float* const W = sm + L.W;
   float* const sX = sm + L.X;
   float* const syA = sm + L.yA;
   float* const syB = sm + L.yB;
@@ -321,104 +717,202 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_block_kernel(
   float* const saA = sm + L.aA;
   float* const saB = sm + L.aB;
   float* const sS = sm + L.S;
-  float* const sXb = sm + L.Xb;
-  float* const sST = sm + L.ST;
-  float* const sD = sm + L.D;
-  float* const srowA = sm + L.rowA;
-  float* const srowB = sm + L.rowB;
-  float* const scolP = sm + L.colP;
-  float* const sx = sm + L.xs;
-  float* const sax = sm + L.axs;
-  float* const scx = sm + L.cxs;
+  float* const swv = sm + L.wv;       // [Xb | xb | 0]
   float* const sgD = sm + L.gD;
-  float* const sxb = sm + L.xb;
-  float* const syD = sm + L.yD;
+  float* const sx = sm + L.x;
+  float* const sax = sm + L.ax;
+  float* const scx = sm + L.cx;
   float* const sh = sm + L.h;
+  float* const syD = sm + L.yD;
   float* const sayD = sm + L.ayD;
-  float* const sdpart = sm + L.dpart;
-  float* const sscr = sm + L.scratch;
+  float* const sres = sm + L.res;
+  float* const sstr = sm + L.strand;
 
-  const int t = threadIdx.x;
-  const int r0 = rank * R;
-  const int rows = band_rows(n, R, rank);
-  const int q0 = rank * mc;
-  const int qn = max(0, min(mc, m - q0));
+  // ---- entry: G and g staged once, the state loaded -----------------------
+  for (int p = t; p < m * V4; p += kThreads) {
+    const int q = p / V4, v = p - q * V4;
+    if (v < NN) {
+      cp_async4(W + p, a.G + static_cast<size_t>(q) * NN + v);
+    } else if (v < V) {
+      cp_async4(W + p, a.g + static_cast<size_t>(q) * n + (v - NN));
+    } else {
+      W[p] = 0.0f;
+    }
+  }
+  cp_async_commit();
+  for (int e = t; e < NN; e += kThreads) {
+    sX[e] = a.X[e];
+    syA[e] = a.yA[e];
+    syB[e] = a.yB[e];
+    scX[e] = a.cX[e];
+    saX[e] = a.aX[e];
+    saA[e] = a.aA[e];
+    saB[e] = a.aB[e];
+  }
+  for (int i = t; i < n; i += kThreads) {
+    sx[i] = a.x[i];
+    sax[i] = a.ax[i];
+    scx[i] = a.cx[i];
+  }
+  for (int q = t; q < m; q += kThreads) {
+    sh[q] = a.h[q];
+    syD[q] = a.yD[q];
+    sayD[q] = a.ayD[q];
+  }
+  for (int v = V + t; v < V4; v += kThreads) swv[v] = 0.0f;
+  cp_async_wait<0>();
+  __syncthreads();
 
-  // ---- entry: the band, x, the yD replica and the owned rows, loaded once --
-  for (int e = t; e < rows * n; e += kThreads) {
-    const int ge = r0 * n + e;
-    sX[e] = a.X[ge];
-    syA[e] = a.yA[ge];
-    syB[e] = a.yB[ge];
-    scX[e] = a.cX[ge];
-    saX[e] = a.aX[ge];
-    saA[e] = a.aA[ge];
-    saB[e] = a.aB[ge];
-  }
-  for (int i = t; i < rows; i += kThreads) {
-    sx[i] = a.x[r0 + i];
-    sax[i] = a.ax[r0 + i];
-    scx[i] = a.cx[r0 + i];
-  }
-  for (int q = t; q < m; q += kThreads) syD[q] = a.yD[q];
-  for (int j = t; j < qn; j += kThreads) {
-    sh[j] = a.h[q0 + j];
-    sayD[j] = a.ayD[q0 + j];
-  }
-  cluster.sync();
+  // the adjoint's lanes: entries 4 k4 .. 4 k4 + 3 of strand sj, whose rows
+  // are the block [sj m / NS, (sj + 1) m / NS), NS strands
+  const int NS = max(1, kThreads / Q4);
+  const int sj = t / Q4, k4 = t % Q4;
+  const int qa = static_cast<int>(static_cast<long long>(m) * sj / NS);
+  const int qe = static_cast<int>(static_cast<long long>(m) * (sj + 1) / NS);
+  // the residuals' lanes: RL a row (the least power of two with at most
+  // kRowJ / 4 quads a lane, at most 32), group t / RL of RG = kThreads / RL;
+  // lane l keeps [Xb | xb] at quads l + RL j in registers
+  int RL = 1;
+  while (RL < 32 && RL * (kRowJ / 4) < Q4) RL <<= 1;
+  const int RG = kThreads / RL, rg = t / RL, rl = t % RL;
+  const bool fast = RL * (kRowJ / 4) >= Q4;
 
   for (int it = 0; it < a.iters; ++it) {
-    // ---- D: the band's dense adjoint at yD ----------------------------------
-    dense_adjoint<1>(a.G, a.g, n, m, r0, rows, syD, m, sD, 0, sgD, 0, sscr);
+    // ---- the adjoint sum_q yD_q [G_q | g_q]: each strand's rows in order,
+    //      then the strands in order ------------------------------------------
+    if (sj < NS) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+      for (int q = qa; q < qe; ++q) {
+        const float w = syD[q];
+        const float4 v = *reinterpret_cast<const float4*>(W + q * V4 + 4 * k4);
+        acc.x = fmaf(w, v.x, acc.x);
+        acc.y = fmaf(w, v.y, acc.y);
+        acc.z = fmaf(w, v.z, acc.z);
+        acc.w = fmaf(w, v.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(sstr + sj * V4 + 4 * k4) = acc;
+    }
+    __syncthreads();
+    for (int v = t; v < V; v += kThreads) {
+      float s = 0.0f;
+      for (int r = 0; r < NS; ++r) s += sstr[r * V4 + v];
+      sgD[v] = s;
+    }
     __syncthreads();
 
-    // ---- A: gX, the primal pre-step S, its transpose to the column owners,
-    //      row sums (local) and column partials (to the owners) of yB --------
-    mccormick_pre_step(cluster, sX, syA, syB, scX, sS, sST, srowA, srowB, scolP, tau, n, R, r0,
-                       rows, rank, [&](int e, float base) { return base + sD[e]; });
-    cluster.sync();
-
-    // ---- B1: gx, x step, xb to every CTA; X projection and Xb --------------
-    mccormick_primal_step(cluster, sx, sax, scx, sX, saX, sS, sST, sXb, sxb, srowA, srowB, scolP,
-                          tau, n, R, r0, rows, C, [&](int i, float base) { return base + sgD[i]; });
-    cluster.sync();
-
-    // ---- B2: dual ascent on yA, yB; the dense rows' partials to the owners --
-    mccormick_dual_step(syA, syB, saA, saB, sXb, sxb, sigma, n, r0, rows);
-    dense_residuals<1>(cluster, a.G, a.g, n, m, r0, rows, rank, C, mc, sXb, 0, sxb + r0, 0,
-                       sdpart);
-    cluster.sync();
-
-    // ---- F: the owners step their rows' yD and send it to every CTA ---------
-    for (int j = t; j < qn; j += kThreads) {
-      float kD = 0.0f;
-      for (int r = 0; r < a.nr; ++r) kD += sdpart[r * mc + j];
-      const int q = q0 + j;
-      const float yd = fmaxf(syD[q] + sigma * (sh[j] - kD), 0.0f);
-      sayD[j] += yd;
-      for (int r = 0; r < C; ++r) cluster.map_shared_rank(syD, r)[q] = yd;
+    // ---- S, and the x step (a thread a row; xb after X's Xb in wv) ---------
+    for (int e = t; e < NN; e += kThreads) {
+      const float gX = (-kSA * syA[e] + kSB * syB[e]) + sgD[e];
+      sS[e] = sX[e] - tau * (scX[e] - gX);
     }
-    cluster.sync();
+    if (t < n) {
+      const int i = t;
+      float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+      for (int c = 0; c < n; ++c) {
+        sa += syA[i * n + c];
+        sb += syB[i * n + c];
+        sc += syB[c * n + i];
+      }
+      {
+        const float gx = (kSA * sa - kSB * (sb + sc)) + sgD[NN + i];
+        const float xo = sx[i];
+        const float xn = fminf(fmaxf(xo - tau * (scx[i] - gx), 0.0f), 1.0f);
+        sx[i] = xn;
+        sax[i] += xn;
+        swv[NN + i] = 2.0f * xn - xo;
+      }
+    }
+    __syncthreads();
+
+    // ---- X = clip(sym(S)), Xb; the dual ascent on yA, yB ---------------------
+    for (int e = t; e < NN; e += kThreads) {
+      const int i = e / n, c = e - i * n;
+      const float xn = fminf(fmaxf(0.5f * (sS[e] + sS[c * n + i]), 0.0f), 1.0f);
+      const float xbv = 2.0f * xn - sX[e];
+      sX[e] = xn;
+      saX[e] += xn;
+      swv[e] = xbv;
+      const float xbi = swv[NN + i], xbc = swv[NN + c];
+      const float kA = kSA * (xbi - xbv);
+      const float kB = kSB * (xbv - xbi - xbc);
+      const float ya = fmaxf(syA[e] - sigma * kA, 0.0f);
+      const float yb = fmaxf(syB[e] + sigma * (-kSB - kB), 0.0f);
+      syA[e] = ya;
+      syB[e] = yb;
+      saA[e] += ya;
+      saB[e] += yb;
+    }
+    __syncthreads();
+
+    // ---- the residuals, RL lanes a row (a butterfly), then yD and its sum ----
+    // (the same trip count in every lane: rows past m redo row m - 1
+    // unstored; every load issued, from a clamped quad, its weight 0 past V4)
+    if (fast) {
+      float4 wr[kRowJ / 4];
+#pragma unroll
+      for (int j = 0; j < kRowJ / 4; ++j) {
+        const int k = rl + RL * j;
+        wr[j] = k < Q4 ? *reinterpret_cast<const float4*>(swv + 4 * k)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+      for (int qb = 0; qb < m; qb += RG) {
+        const int q = qb + rg;
+        const float* Wq = W + min(q, m - 1) * V4;
+        float r = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kRowJ / 4; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * min(rl + RL * j, Q4 - 1));
+          r = fmaf(v.x, wr[j].x, r);
+          r = fmaf(v.y, wr[j].y, r);
+          r = fmaf(v.z, wr[j].z, r);
+          r = fmaf(v.w, wr[j].w, r);
+        }
+        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+        if (rl == 0 && q < m) sres[q] = r;
+      }
+    } else {
+      for (int qb = 0; qb < m; qb += RG) {
+        const int q = qb + rg;
+        const float* Wq = W + min(q, m - 1) * V4;
+        float r = 0.0f;
+        for (int k = rl; k < Q4; k += RL) {
+          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * k);
+          const float4 w = *reinterpret_cast<const float4*>(swv + 4 * k);
+          r = fmaf(v.x, w.x, r);
+          r = fmaf(v.y, w.y, r);
+          r = fmaf(v.z, w.z, r);
+          r = fmaf(v.w, w.w, r);
+        }
+        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+        if (rl == 0 && q < m) sres[q] = r;
+      }
+    }
+    __syncthreads();
+    for (int q = t; q < m; q += kThreads) {
+      const float yd = fmaxf(syD[q] + sigma * (sh[q] - sres[q]), 0.0f);
+      syD[q] = yd;
+      sayD[q] += yd;
+    }
+    __syncthreads();
   }
 
-  // ---- exit: the band, x and the owned rows of yD, stored once -------------
-  // (after the last cluster barrier no CTA addresses another's shared memory)
-  for (int e = t; e < rows * n; e += kThreads) {
-    const int ge = r0 * n + e;
-    a.Xo[ge] = sX[e];
-    a.yAo[ge] = syA[e];
-    a.yBo[ge] = syB[e];
-    a.aXo[ge] = saX[e];
-    a.aAo[ge] = saA[e];
-    a.aBo[ge] = saB[e];
+  // ---- exit: the state and sums, stored once --------------------------------
+  for (int e = t; e < NN; e += kThreads) {
+    a.Xo[e] = sX[e];
+    a.yAo[e] = syA[e];
+    a.yBo[e] = syB[e];
+    a.aXo[e] = saX[e];
+    a.aAo[e] = saA[e];
+    a.aBo[e] = saB[e];
   }
-  for (int i = t; i < rows; i += kThreads) {
-    a.xo[r0 + i] = sx[i];
-    a.axo[r0 + i] = sax[i];
+  for (int i = t; i < n; i += kThreads) {
+    a.xo[i] = sx[i];
+    a.axo[i] = sax[i];
   }
-  for (int j = t; j < qn; j += kThreads) {
-    a.yDo[q0 + j] = syD[q0 + j];
-    a.ayDo[q0 + j] = sayD[j];
+  for (int q = t; q < m; q += kThreads) {
+    a.yDo[q] = syD[q];
+    a.ayDo[q] = sayD[q];
   }
 }
 
@@ -913,31 +1407,105 @@ int ranks_with_rows(int n, int cluster) {
   return (n + R - 1) / R;
 }
 
+// The cooperative grid of the "grid" plan with smem bytes a CTA, into *P:
+// as many CTAs as the card holds at once (each SM's share times the SMs).
+// Returns 0, a CUDA error or kErrNoCluster (not one CTA fits).
+int dense_grid(int smem, int* P) {
+  static int cached[3] = {-1, -1, 0};   // device, smem, CTAs
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cached[0] != dev || cached[1] != smem) {
+    e = cudaFuncSetAttribute(pdhg_dense_grid_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pdhg_dense_grid_kernel,
+                                                      kThreads, static_cast<size_t>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cached[0] = dev;
+    cached[1] = smem;
+    cached[2] = per_sm * sms;
+  }
+  *P = cached[2];
+  return *P < 1 ? kErrNoCluster : 0;
+}
+
 }  // namespace
 
 // `iters` iterations of the dense-row block for one instance, with the steps
 // and stop flag of its control record rec (kRecWords int32 in device memory):
 // state x, X, yA, yB, yD and sums ax, aX, aA, aB, ayD in, the same out (the
 // outputs may be the inputs).  G (m, n, n), g (m, n), h (m,) are the dense
-// rows, read in place.  smem comes from the caller's plan
-// (lp/pdhg_dense.py::smem_bytes) and must equal this file's layout.  Returns
-// 0, a CUDA error, kErrLayout or kErrNoCluster.
+// rows, read in place.  plan: 0 "cta" (one CTA, the rows in its shared
+// memory), 1 "grid" (one CTA an SM, launched cooperatively, with work: n n +
+// n + P m floats of scratch, P the grid (pdhg_dense_block_grid), and bar: one
+// word for the barrier, zeroed here).
+// smem comes from the caller's plan (lp/pdhg_dense.py::smem_bytes) and must
+// equal this file's layout.  *grid receives the CTAs launched.  Returns 0, a
+// CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_dense_block_launch(
-    int n, int m, int iters, int cluster, int smem, const int* rec,
+    int n, int m, int iters, int plan, int smem, const int* rec,
     const float* cx, const float* cX, const float* G, const float* g, const float* h,
     const float* x, const float* X, const float* yA, const float* yB, const float* yD,
     const float* ax, const float* aX, const float* aA, const float* aB, const float* ayD,
     float* xo, float* Xo, float* yAo, float* yBo, float* yDo,
-    float* axo, float* aXo, float* aAo, float* aBo, float* ayDo, void* stream) {
-  static int checked[2] = {0, -1};
-  const int err = check_shape(n, m, cluster, smem, block_layout(n, m, cluster).words);
-  if (err != 0) return err;
-  if (iters < 0) return kErrLayout;
-  const BlockArgs a{n, m, iters, (n + cluster - 1) / cluster, (m + cluster - 1) / cluster,
-                    ranks_with_rows(n, cluster), rec, cx, cX, G, g, h,
-                    x, X, yA, yB, yD, ax, aX, aA, aB, ayD,
-                    xo, Xo, yAo, yBo, yDo, axo, aXo, aAo, aBo, ayDo};
-  return launch_one(pdhg_dense_block_kernel, checked, cluster, smem, a, stream);
+    float* axo, float* aXo, float* aAo, float* aBo, float* ayDo, float* work, unsigned* bar,
+    int* grid, void* stream) {
+  if (n < 1 || n > kCols || m < 0 || iters < 0 || (plan != 0 && plan != 1)) return kErrLayout;
+  const int words = plan == 0 ? cta_layout(n, m).words : grid_layout(n, m).words;
+  if (4 * static_cast<size_t>(words) != static_cast<size_t>(smem)) return kErrLayout;
+  if (plan == 0 && n > kCtaMaxN) return kErrLayout;
+  const BlockArgs a{n, m, iters, rec, cx, cX, G, g, h, x, X, yA, yB, yD, ax, aX, aA, aB, ayD,
+                    xo, Xo, yAo, yBo, yDo, axo, aXo, aAo, aBo, ayDo, work, bar};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cudaError_t e;
+  if (plan == 0) {
+    static int checked = -1;
+    if (checked != smem) {
+      e = cudaFuncSetAttribute(pdhg_dense_cta_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      checked = smem;
+    }
+    cfg.gridDim = dim3(1, 1, 1);
+    *grid = 1;
+    e = cudaLaunchKernelEx(&cfg, pdhg_dense_cta_kernel, a);
+  } else {
+    int P = 0;
+    const int err = dense_grid(smem, &P);
+    if (err != 0) return err;
+    if ((n * n + P - 1) / P + (n + P - 1) / P > kMaxE || (n + P - 1) / P > kThreads / 32)
+      return kErrLayout;
+    e = cudaMemsetAsync(bar, 0, sizeof(unsigned), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.gridDim = dim3(P, 1, 1);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    *grid = P;
+    e = cudaLaunchKernelEx(&cfg, pdhg_dense_grid_kernel, a);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The CTAs of the "grid" plan at (n, m) with smem bytes a CTA: the blocks an
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the
+// SMs, into *grid.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
+extern "C" int pdhg_dense_block_grid(int n, int m, int smem, int* grid) {
+  if (n < 1 || n > kCols || m < 0) return kErrLayout;
+  if (4 * static_cast<size_t>(grid_layout(n, m).words) != static_cast<size_t>(smem))
+    return kErrLayout;
+  return dense_grid(smem, grid);
 }
 
 // The check after a dense-row block, in place on the state, sums, anchor and

@@ -11,12 +11,12 @@
 empty.
 
 The solve runs on the device as the reference's ``lax.while_loop`` does.
-Each checked block is two launches: ``check_every`` iterations of K2
-(``pdhg_kernel.pdhg_block_steps``, in place), then K5
-(``pdhg_check.pdhg_check``): the ergodic average, the KKT errors of the
-iterate and of the average, restart-to-average, primal-weight (omega)
-rebalancing, the stop test and the next block's steps, in place on the
-state and on the solve's control record (``new_record``: one int32 row of
+Each checked block is one launch (``pdhg_check.checked_step``):
+``check_every`` iterations of K2 in place, then, in the same launch, K5's
+control: the ergodic average, the KKT errors of the iterate and of the
+average, restart-to-average, primal-weight (omega) rebalancing, the stop
+test and the next block's steps, in place on the state and on the solve's
+control record (``new_record``: one int32 row of
 ``REC_WORDS`` words per instance).  K2 takes its steps and the stop flag
 from that record, so a block enqueued after its instance stopped does
 nothing.  ``_run_groups`` enqueues groups of ``GROUP_BLOCKS`` blocks and
@@ -244,8 +244,8 @@ def _run_groups(step, rec, max_iters: int, check_every: int) -> np.ndarray:
 def pdhg_check_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
                      anchor: PDHGState, rec, check_every: int, restart_period: int,
                      max_iters: int, tol: float, dense: DenseRows | None = None):
-    """Twin of K5 (``pdhg_check.pdhg_check``): the checked block's control,
-    as the reference's loop body, in place on (st, acc, anchor) and the
+    """Twin of K5 (the epilogue of ``pdhg_check.pdhg_block_checked``): the
+    checked block's control, as the reference's loop body, in place on (st, acc, anchor) and the
     record ``rec`` (REC_WORDS,), read to the host and written back.  Does
     nothing when the record has stopped."""
     r = rec.cpu().numpy()
@@ -308,28 +308,30 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
                 dense: DenseRows | None = None, route: str = "k2"):
     """Checked-block PDHG solve from ``st0`` (left as it is) with a given
     ``normK`` (a float or a 0-d tensor); ``index`` is
-    ``build_cut_index(pool, n)``; ``route`` (``kernel_route``): "k2" the
-    blocks and the check through K2's and K5's wrappers, "dense" through the
+    ``build_cut_index(pool, n)``; ``route`` (``kernel_route``): "k2" each
+    block and its check in one launch (``pdhg_check.checked_step``), "dense" through the
     dense route's (``lp/pdhg_dense.py``), "plain" their plain twins on the
     tensors' device.  Returns (state, info) with python scalars in info."""
-    from .pdhg_check import pdhg_check
+    from .pdhg_check import checked_step, pdhg_block_checked
     from .pdhg_dense import pdhg_dense_block_steps, pdhg_dense_check
-    from .pdhg_kernel import pdhg_block, pdhg_block_steps, pdhg_block_steps_plain
+    from .pdhg_kernel import pdhg_block, pdhg_block_steps_plain
 
     st, anchor, acc = _buffers(st0)
     rec = new_record(normK, omega0, step_scale, max_iters, tol, cx.device)
     args = (cx, cX, pool, index, st, acc)
     control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
-    block, check = {"k2": (pdhg_block_steps, pdhg_check),
-                    "dense": (pdhg_dense_block_steps, pdhg_dense_check),
-                    "plain": (pdhg_block_steps_plain, pdhg_check_plain)}[route]
-    on_card = route == "plain" and cx.device.type == "cuda"
+    if route == "k2":
+        step = checked_step(*args, *control)
+    else:
+        block, check = {"dense": (pdhg_dense_block_steps, pdhg_dense_check),
+                        "plain": (pdhg_block_steps_plain, pdhg_check_plain)}[route]
+        on_card = route == "plain" and cx.device.type == "cuda"
 
-    def step():
-        if block(*args, rec, check_every, dense) and on_card:
-            pdhg_block.plain_launches += 1
-            pdhg_check.plain_launches += 1
-        check(*args, *control)
+        def step():
+            if block(*args, rec, check_every, dense) and on_card:
+                pdhg_block.plain_launches += 1
+                pdhg_block_checked.plain_launches += 1
+            check(*args, *control)
 
     r = _run_groups(step, rec, max_iters, check_every)
     f = record_floats(r)
@@ -473,9 +475,9 @@ def pdhg_check_batched_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGSta
                              acc: PDHGState, anchor: PDHGState, rec, check_every: int,
                              restart_period: int, max_iters: int, tol: float,
                              dense: DenseRows | None = None):
-    """Twin of K5's batched launch (``pdhg_check.pdhg_check_batched``):
-    ``pdhg_check_plain`` of every instance whose record (``rec``: (B,
-    REC_WORDS)) has not stopped, with the reference's vmapped semantics, in
+    """Twin of K5 in the batched checked launch
+    (``pdhg_check.pdhg_block_checked_batched``): ``pdhg_check_plain`` of every
+    instance whose record (``rec``: (B, REC_WORDS)) has not stopped, with the reference's vmapped semantics, in
     place: one (B, 6) host read of the KKT errors (``block_check``) and,
     when an instance restarts, one (B, 2) read of its distances."""
     from ..relax import batched as rb
@@ -537,30 +539,32 @@ def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK
     at ``max_iters`` and is frozen from then on; omega, the restart anchor,
     the window and the error are per instance (a row of the control record
     each); the loop runs while any instance runs.  Each checked block is one
-    batched K2 launch (``pdhg_block_steps_batched``) and one batched K5
-    launch (``pdhg_check_batched``) for every instance, a stopped one doing
+    batched checked launch (``pdhg_check.checked_step``: K2 and K5) for every
+    instance, a stopped one doing
     nothing; one read of the records a group.  With ``route`` "plain" the
     twins run instead (the block for the instances still running, counted
     in ``pdhg_block.plain_launches`` on CUDA); the dense route has no
     instance axis.  Returns (state, info) with (B,) numpy arrays in info."""
-    from .pdhg_check import pdhg_check, pdhg_check_batched
-    from .pdhg_kernel import (pdhg_block, pdhg_block_steps_batched,
-                              pdhg_block_steps_batched_plain)
+    from .pdhg_check import checked_step, pdhg_block_checked
+    from .pdhg_kernel import pdhg_block, pdhg_block_steps_batched_plain
 
     B = cx.shape[0]
     st, anchor, acc = _buffers(st0)
     rec = new_record(normK, omega0, step_scale, max_iters, tol, cx.device, batch=B)
     args = (cx, cX, pool, index, st, acc)
     control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
-    block, check = {"k2": (pdhg_block_steps_batched, pdhg_check_batched),
-                    "plain": (pdhg_block_steps_batched_plain, pdhg_check_batched_plain)}[route]
-    on_card = route == "plain" and cx.device.type == "cuda"
+    if route == "k2":
+        step = checked_step(*args, *control, batched=True)
+    elif route != "plain":
+        raise ValueError(f"a batched solve takes the 'k2' or 'plain' route, got {route!r}")
+    else:
+        on_card = cx.device.type == "cuda"
 
-    def step():
-        if block(*args, rec, check_every, dense) and on_card:
-            pdhg_block.plain_launches += 1
-            pdhg_check.plain_launches += 1
-        check(*args, *control)
+        def step():
+            if pdhg_block_steps_batched_plain(*args, rec, check_every, dense) and on_card:
+                pdhg_block.plain_launches += 1
+                pdhg_block_checked.plain_launches += 1
+            pdhg_check_batched_plain(*args, *control)
 
     r = _run_groups(step, rec, max_iters, check_every)
     f = record_floats(r)

@@ -19,10 +19,15 @@ this LP in XLA (its Pallas kernel refuses dense rows,
 
 Shapes: n <= 128, the certifier's pool (one slot of width 1, never filled:
 ``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
-rows' duals and partials (``max_dense_rows``; ~11,000 at n = 125).  One
-cluster of ``CLUSTER`` CTAs; G, g and h are read where they lie (the
-certifier's buffer views), never copied.  yC and its sum are left as they
-are: the twin keeps them at 0 on a pool whose rows are all inactive.
+rows' duals and partials (``max_dense_rows``; ~11,000 at n = 125).  The
+block's launch plan goes by shape (``block_plan``): "cta", one CTA that
+holds G and g in its shared memory for the launch (the small sandwiches,
+n <= ``CTA_MAX_N``), or "grid", one CTA on every SM, launched cooperatively,
+streaming G and g from global memory (the grid the card co-schedules:
+``block_grid``).  The check and the norm are one cluster of ``CLUSTER``
+CTAs.  G, g and h are read where they lie (the certifier's buffer views),
+never copied.  yC and its sum are left as they are: the twin keeps them at
+0 on a pool whose rows are all inactive.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_dense_block.launches`` counts the block
@@ -31,6 +36,8 @@ launches of both block wrappers, ``pdhg_dense_check.launches`` and
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -42,22 +49,53 @@ from .pdhg import (PDHGState, estimate_norm_plain, norm_start, pdhg_check_plain)
 from .pdhg_kernel import (_ERRORS, _GROUPS, _WARPS_PER_ROW, NMAX, SMEM_MAX, check_record,
                           pdhg_block_plain, pdhg_block_steps_plain, steps_record)
 
-CLUSTER = 16                # CTAs in the cluster (non-portable size)
+CLUSTER = 16                # CTAs in the check's and the norm's cluster (non-portable size)
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
 _MAX_ENTRIES = 32 * 33      # csrc/pdhg_dense.cu kMaxEntries: a band's entries, R n + R
 KINDS = ("block", "check", "norm")
+PLANS = ("cta", "grid")     # the block's launch plans (csrc/pdhg_dense.cu)
+CTA_MAX_N = 32              # csrc/pdhg_dense.cu kCtaMaxN: the "cta" plan's largest n
+_STAGE, _STAGES = 8192, 4   # kStage, kStages: the "grid" plan's ring of G stages
+_MAX_E = 496                # kMaxE: entries of X and x a CTA of the grid owns
+_SCRATCH = 2048             # kScratch: the grid plan's strand partials and weights
+_SMEM_WORDS = SMEM_MAX // 4  # kSmemWords: the grid plan takes a CTA's whole shared memory
+
+
+def _block_words(plan: str, n: int, m: int) -> int:
+    """4-byte words of one CTA's shared memory for the block under ``plan``:
+    ``csrc/pdhg_dense.cu``'s ``cta_layout`` (G and g of every row) or
+    ``grid_layout`` (the slab of G's owned segments, resident or a ring of
+    stages, takes what yD and the owned entries' buffers leave of a CTA's
+    shared memory, and at least the ring)."""
+    V4 = (n * n + n + 3) & ~3                      # a staged row, padded for 16-byte loads
+    if plan == "cta":
+        return m * V4 + 8 * n * n + 2 * V4 + 3 * n + 4 * m + 4 * _THREADS
+    if plan == "grid":
+        rest = _SCRATCH + m + _MAX_E
+        return max((_SMEM_WORDS - rest) & ~3, _STAGES * _STAGE) + rest
+    raise ValueError(f"unknown block plan {plan!r}; one of {PLANS}")
+
+
+def block_plan(n: int, m: int) -> str:
+    """The block's launch plan at (n, m): "cta" where n <= CTA_MAX_N and one
+    CTA's shared memory holds the whole problem (G and g staged once per
+    launch, block barriers only), else "grid" (every SM, three grid
+    barriers an iteration; each CTA's slice of G resident in its shared
+    memory where it fits, else streamed twice an iteration)."""
+    return "cta" if n <= CTA_MAX_N and 4 * _block_words("cta", n, m) <= SMEM_MAX else "grid"
 
 
 def smem_words(kind: str, n: int, m: int, C: int = CLUSTER) -> int:
-    """4-byte words of one CTA's shared memory for kernel ``kind``: the sums
-    of ``csrc/pdhg_dense.cu``'s ``block_layout``, ``check_layout`` and
-    ``norm_layout``.  None grows with m n."""
+    """4-byte words of one CTA's shared memory for kernel ``kind``: the
+    block's under ``block_plan`` (``_block_words``), and the sums of
+    ``csrc/pdhg_dense.cu``'s ``check_layout`` and ``norm_layout`` at a
+    cluster of C.  Only the "cta" plan's grows with m n; the "grid" plan's
+    is a CTA's whole shared memory up to ~37,000 rows."""
     R, mc = -(-n // C), -(-m // C)
     RN = R * n
     rows = 2 * R * _WARPS_PER_ROW + C * _GROUPS * R       # row and column partials
     if kind == "block":
-        return (11 * RN + rows + 4 * R + NMAX              # bands; x, ax, cx, gD; xb
-                + m + 2 * mc + C * mc + _THREADS)          # yD, h, ayD, partials; scratch
+        return _block_words(block_plan(n, m), n, m)
     if kind == "check":
         return (2 * NMAX + 2 * m + 8 * RN + 2 * R + 2 * rows + 2 * C * mc
                 + C * 2 * 8 + C * 6 + 2 * _THREADS + (2 * 8 + 6 + 8))
@@ -144,22 +182,52 @@ def _checked(cx, cX, pool: CutPool, states, dense: DenseRows | None, name: str,
 
 
 def _launch_block(cx, cX, pool: CutPool, ins, outs, rec, iters: int,
-                  dense: DenseRows | None, cluster: int = CLUSTER):
+                  dense: DenseRows | None, plan: str | None = None) -> int:
     """The block's launch from the states ``ins`` into ``outs`` (which may
-    be ``ins``) with the steps and stop flag of ``rec``; ``cluster``: CTAs a
-    cluster (the route's 16; other sizes for measurements)."""
-    n, m, dptr = _checked(cx, cX, pool, (*ins, *outs), dense, "pdhg_dense_block", cluster)
+    be ``ins``) with the steps and stop flag of ``rec``; ``plan``: "cta" or
+    "grid" (``block_plan``'s by default; the other for measurements).
+    Returns the CTAs launched."""
+    n, m, dptr = _checked(cx, cX, pool, (*ins, *outs), dense, "pdhg_dense_block")
+    plan = block_plan(n, m) if plan is None else plan
+    if plan == "cta" and (n > CTA_MAX_N or 4 * _block_words("cta", n, m) > SMEM_MAX):
+        raise ValueError(f"pdhg_dense_block: the 'cta' plan does not take n={n}, m={m}")
+    work = None
+    if plan == "grid":
+        if any(p % 16 for p in dptr[:2] if p):     # the grid copies 16-byte spans of G and g
+            dense = DenseRows(dense.G.clone(), dense.g.clone(), dense.h)
+            dptr = [t.data_ptr() for t in (dense.G, dense.g, dense.h)]
+        # S, xb, each CTA's partials of the rows, then the barrier's counter
+        work = torch.empty(n * n + n + block_grid(n, m) * m + 1, dtype=torch.float32,
+                           device=cx.device)
+    grid = ctypes.c_int(0)
     err = _build.lib().pdhg_dense_block_launch(
-        n, m, iters, cluster, smem_bytes("block", n, m, cluster), rec.data_ptr(),
+        n, m, iters, PLANS.index(plan), 4 * _block_words(plan, n, m), rec.data_ptr(),
         cx.data_ptr(), cX.data_ptr(), *dptr,
         *(t.data_ptr() for st in ins for t in _fields(st)),
         *(t.data_ptr() for st in outs for t in _fields(st)),
+        None if work is None else work.data_ptr(),
+        None if work is None else work[-1:].data_ptr(), ctypes.byref(grid),
         torch.cuda.current_stream(cx.device).cuda_stream)
     if err in _ERRORS:
-        raise RuntimeError(f"pdhg_dense_block_launch: {_ERRORS[err]} (cluster {cluster}, "
+        raise RuntimeError(f"pdhg_dense_block_launch: {_ERRORS[err]} (plan {plan}, "
                            f"n={n}, m={m})")
     _build.check(err, "pdhg_dense_block_launch")
     pdhg_dense_block.launches += 1
+    return grid.value
+
+
+def block_grid(n: int, m: int) -> int:
+    """The CTAs of the block's "grid" plan at (n, m) on the current card:
+    those it co-schedules at the plan's shared memory
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, asked once a
+    device and size)."""
+    out = ctypes.c_int(0)
+    err = _build.lib().pdhg_dense_block_grid(n, m, 4 * _block_words("grid", n, m),
+                                              ctypes.byref(out))
+    if err in _ERRORS:
+        raise RuntimeError(f"pdhg_dense_block_grid: {_ERRORS[err]} (n={n}, m={m})")
+    _build.check(err, "pdhg_dense_block_grid")
+    return out.value
 
 
 def pdhg_dense_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,

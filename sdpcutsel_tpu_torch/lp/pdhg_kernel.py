@@ -71,13 +71,26 @@ CLUSTER = 16                # CTAs in the cluster (non-portable size; 8 is porta
 SMEM_MAX = 232_448          # dynamic shared memory one CTA may take on the H100
 _GROUPS = 4                 # row groups of a CTA's 512 threads (csrc kGroups)
 _WARPS_PER_ROW = NMAX // 32
+_THREADS = 512              # csrc/pdhg_common.cuh kThreads
+_NV, _ND = 8, 6             # csrc/pdhg_check.cuh kNV, pdhg_common.cuh kND
 _ERRORS = {-2: "the launch plan disagrees with the kernel's shared-memory layout",
            -3: "no thread-block cluster of this shape fits on the card"}
 
 
-def _smem_words(n: int, M: int, k: int, m: int, C: int) -> int:
+def _check_words(C: int) -> int:
+    """4-byte words of the checked form's sums (K5's control after the
+    block; it evaluates its two points in turn on K2's buffers): the sum of
+    ``csrc/pdhg_check.cuh::check_layout``.  They sit in the Xb band, dead
+    after the loop, where it holds them (R n words)."""
+    return (C * 2 * _NV + C * _ND        # every rank's sums and distances
+            + (_THREADS // 32) * 2 * _NV  # block sums
+            + 2 * _NV + _ND + 8)         # this CTA's sums and the decision
+
+
+def _smem_words(n: int, M: int, k: int, m: int, C: int, checked: bool = False) -> int:
     """4-byte words of one CTA's shared memory, cut-index terms left out:
-    the sum of ``csrc/pdhg_block.cu::make_layout``."""
+    the sum of ``csrc/pdhg_block.cu::make_layout``, with the check's region
+    in the checked form."""
     R, Mc = -(-n // C), -(-M // C)
     RN = R * n
     return (10 * RN                      # X yA yB cX aX aA aB S Xb ST bands
@@ -88,7 +101,8 @@ def _smem_words(n: int, M: int, k: int, m: int, C: int) -> int:
             + Mc * (4 + 2 * k + k * k)   # owned slots: yC ayC rhs act, lin idx, quad
             + m * RN + m * R + 3 * m     # dense G, g bands; h, yD, ayD
             + C * m                      # dense partials
-            + RN + 1 + R + 1)            # cut-index segment offsets
+            + RN + 1 + R + 1             # cut-index segment offsets
+            + (_check_words(C) if checked and R * n < _check_words(C) else 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +112,9 @@ class LaunchPlan:
     slots: int          # pool slots per CTA
     term_cap: int       # cut-index terms a CTA keeps in shared memory
     smem_bytes: int     # dynamic shared memory per CTA
-    max_capacity: int   # largest pool capacity M this plan takes at (n, k, m)
-    max_dense: int      # largest dense row count m this plan takes at (n, M, k)
+    max_capacity: int   # largest pool capacity M the route takes at (n, k, m)
+    max_dense: int      # largest dense row count m the route takes at (n, M, k)
+    checked: bool       # the checked form: K5's control after the block
 
     def bands(self, n: int) -> list[tuple[int, int]]:
         """Rows [start, stop) of each CTA, in rank order."""
@@ -119,14 +134,16 @@ def _largest(fits, hi: int) -> int:
 def plan_refusal(n: int, M: int, k: int, m: int, cluster: int = CLUSTER) -> str | None:
     """Why the cluster launch does not take n, pool capacity M, support
     width k and m dense rows, or None where it does: the one rule of
-    ``launch_plan`` and of the solve's route (``kernel_route``)."""
+    ``launch_plan`` and of the solve's route (``kernel_route``).  The rule
+    is the checked form's (the solve's step), whose shared memory holds the
+    unchecked form's and K5's region."""
     if not 1 <= n <= NMAX:
         return f"pdhg_block kernel takes 1 <= n <= {NMAX}, got {n}"
     if not 2 <= k <= 5:
         return f"pdhg_block kernel takes cuts of width k = 2..5, got {k}"
     if not 1 <= cluster <= 16:
         return f"pdhg_block kernel takes clusters of 1..16 CTAs, got {cluster}"
-    if 4 * _smem_words(n, M, k, m, cluster) > SMEM_MAX:
+    if 4 * _smem_words(n, M, k, m, cluster, checked=True) > SMEM_MAX:
         return (f"pdhg_block kernel: n={n}, M={M}, k={k}, m={m} exceed {SMEM_MAX} bytes "
                 f"of shared memory per CTA at a cluster of {cluster}")
     return None
@@ -175,9 +192,12 @@ def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> str
     raise ValueError(f"LPConfig.use_kernel must be 'auto', 'on' or 'off', got {use_kernel!r}")
 
 
-def launch_plan(n: int, M: int, k: int, m: int, cluster: int = CLUSTER) -> LaunchPlan:
+def launch_plan(n: int, M: int, k: int, m: int, cluster: int = CLUSTER,
+                checked: bool = False) -> LaunchPlan:
     """The cluster launch of the kernel at n, pool capacity M, support width
-    k and m dense rows.  Raises ValueError where it does not fit."""
+    k and m dense rows, unchecked (steering's block and the twins') or
+    checked (the solve's step, ``pdhg_check.pdhg_block_checked``).  Raises
+    ValueError where the route does not take the shape."""
     why = plan_refusal(n, M, k, m, cluster)
     if why is not None:
         raise ValueError(why)
@@ -185,12 +205,12 @@ def launch_plan(n: int, M: int, k: int, m: int, cluster: int = CLUSTER) -> Launc
     def fits(M_, m_):
         return plan_refusal(n, M_, k, m_, cluster) is None
 
-    words = _smem_words(n, M, k, m, cluster)
+    words = _smem_words(n, M, k, m, cluster, checked)
     term_cap = min((SMEM_MAX - 4 * words) // 8, M * k * (k + 1))
     return LaunchPlan(cluster=cluster, rows=-(-n // cluster), slots=-(-M // cluster),
                       term_cap=term_cap, smem_bytes=4 * words + 8 * term_cap,
                       max_capacity=_largest(lambda v: fits(v, m), 1 << 16),
-                      max_dense=_largest(lambda v: fits(M, v), 1 << 12))
+                      max_dense=_largest(lambda v: fits(M, v), 1 << 12), checked=checked)
 
 
 def pdhg_block_plain(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,

@@ -11,7 +11,7 @@ and ``multichip_dryrun`` report these counts."""
 from __future__ import annotations
 
 from ..lp.pdhg import SOLVE_COUNTS
-from ..lp.pdhg_check import pdhg_check
+from ..lp.pdhg_check import pdhg_block_checked
 from ..lp.pdhg_dense import pdhg_dense_block, pdhg_dense_check, pdhg_dense_norm
 from ..lp.pdhg_kernel import pdhg_block
 from ..lp.pdhg_norm import pdhg_norm
@@ -21,7 +21,7 @@ from .pair_score import pair_score
 
 WRAPPERS = {"pair_score": pair_score, "pair_packed": packed_score,
             "pdhg_block": pdhg_block, "fused_score": fused_score,
-            "pdhg_check": pdhg_check, "pdhg_norm": pdhg_norm,
+            "pdhg_check": pdhg_block_checked, "pdhg_norm": pdhg_norm,
             "pdhg_dense": pdhg_dense_block, "pdhg_dense_check": pdhg_dense_check,
             "pdhg_dense_norm": pdhg_dense_norm}
 PLAIN_BLOCKS = "pdhg_block plain"     # the solve's plain PDHG blocks on the card
@@ -34,7 +34,7 @@ SOLVES = "solves"                     # the solve loops run
 def launch_counts() -> dict:
     return {**{name: fn.launches for name, fn in WRAPPERS.items()},
             PLAIN_BLOCKS: pdhg_block.plain_launches,
-            PLAIN_CONTROL: pdhg_check.plain_launches + pdhg_norm.plain_launches,
+            PLAIN_CONTROL: pdhg_block_checked.plain_launches + pdhg_norm.plain_launches,
             TWIN_SCORED: pair_score.plain_launches + fused_score.plain_launches,
             READS: SOLVE_COUNTS["reads"], SOLVES: SOLVE_COUNTS["solves"]}
 
@@ -42,6 +42,6 @@ def launch_counts() -> dict:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for fn in (pdhg_block, pdhg_check, pdhg_norm, pair_score, fused_score):
+    for fn in (pdhg_block, pdhg_block_checked, pdhg_norm, pair_score, fused_score):
         fn.plain_launches = 0
     SOLVE_COUNTS.update(reads=0, solves=0)

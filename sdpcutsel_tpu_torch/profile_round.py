@@ -100,8 +100,8 @@ STAGES = [
     (pdhg_norm_mod, "_launch", "  K6 pdhg_norm"),
     (pdhg_mod, "build_cut_index", "  build_cut_index"),
     (solver_mod, "solve_lp", "solve_lp"),
-    (pdhg_kernel_mod, "_launch_core", "  K2 pdhg_block (solve and steering)"),
-    (pdhg_check_mod, "_launch", "  K5 pdhg_check"),
+    (pdhg_check_mod, "_enqueue", "  K2+K5 checked block (solve)"),
+    (pdhg_kernel_mod, "_launch_core", "  K2 pdhg_block (steering)"),
     (pdhg_mod, "read_record", "  record reads (one a group)"),
     (solver_mod, "steer_to_vertex", "steer_to_vertex"),
     *((mod, "dual_bound_f64", "dual_bound_f64 (host numpy)")
@@ -126,8 +126,7 @@ BATCH_STAGES = [
     (pdhg_norm_mod, "_launch", "  K6 pdhg_norm (batched launch)"),
     (batched_mod, "build_cut_index", "  build_cut_index (batched)"),
     (round_mod, "_solve_batched", "_solve_batched"),
-    (pdhg_kernel_mod, "_launch_core", "  K2 pdhg_block (batched launch)"),
-    (pdhg_check_mod, "_launch", "  K5 pdhg_check (batched launch)"),
+    (pdhg_check_mod, "_enqueue", "  K2+K5 checked block (batched launch)"),
     (pdhg_mod, "read_record", "  record reads (one a group)"),
     (round_mod, "_dual_bound_batched", "f32 certificate"),
     (round_mod._Round, "select", "scoring + local top-k + merge"),
@@ -218,21 +217,26 @@ def time_groups(path, dev, rounds: int, groups: str | None):
 
 @contextlib.contextmanager
 def control(twins: bool):
-    """Single solves whose control is K5 and K6 (``twins`` False) or their
-    plain twins in their place on the card, with the record after every
+    """Single solves whose control is K5 and K6 (``twins`` False: the
+    checked K2 launch) or their plain twins in their place on the card (K2
+    unchecked, then ``pdhg_check_plain``), with the record after every
     checked block and every ||K|| kept on the device in the yielded trace
-    (with the solve of each block).  As in ``stage_split``, the wrappers'
-    launches (``_launch``, a batch of one) are what is wrapped."""
-    check, norm = pdhg_check_mod._launch, pdhg_norm_mod._launch
+    (with the solve of each block).  The solve's step
+    (``pdhg_check.checked_step``) and K6's launch (``_launch``, a batch of
+    one) are what is wrapped."""
+    make_step, norm = pdhg_check_mod.checked_step, pdhg_norm_mod._launch
     if twins:
         def one(o):
             return None if o is None else batched_mod.instance(o, 0)
 
-        def check(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
-                  max_iters, tol, dense):
-            pdhg_mod.pdhg_check_plain(cx[0], cX[0], one(pool), one(index), one(st), one(acc),
-                                      one(anchor), rec[0], check_every, restart_period,
-                                      max_iters, tol, one(dense))
+        def make_step(cx, cX, pool, index, st, acc, anchor, rec, check_every,
+                      restart_period, max_iters, tol, dense=None, batched=False):
+            def step():
+                pdhg_kernel_mod.pdhg_block_steps(cx, cX, pool, index, st, acc, rec,
+                                                 check_every, dense)
+                pdhg_mod.pdhg_check_plain(cx, cX, pool, index, st, acc, anchor, rec,
+                                          check_every, restart_period, max_iters, tol, dense)
+            return step
 
         def norm(pool, n, iters, generator, index, dense):
             return pdhg_mod.estimate_norm_plain(one(pool), n, iters, generator, one(index),
@@ -241,22 +245,27 @@ def control(twins: bool):
     trace = {"records": [], "solves": [], "norms": []}
     before = pdhg_mod.SOLVE_COUNTS["solves"]
 
-    def traced_check(*args):
-        check(*args)
-        trace["records"].append(args[7][0].clone())        # the solve's record
-        trace["solves"].append(pdhg_mod.SOLVE_COUNTS["solves"] - before)
+    def traced_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+        rec = args[7]                                      # the solve's record
+
+        def traced():
+            step()
+            trace["records"].append(rec.clone())
+            trace["solves"].append(pdhg_mod.SOLVE_COUNTS["solves"] - before)
+        return traced
 
     def traced_norm(*args):
         out = norm(*args)
         trace["norms"].append(out[0].clone())
         return out
 
-    saved = pdhg_check_mod._launch, pdhg_norm_mod._launch
-    pdhg_check_mod._launch, pdhg_norm_mod._launch = traced_check, traced_norm
+    saved = pdhg_check_mod.checked_step, pdhg_norm_mod._launch
+    pdhg_check_mod.checked_step, pdhg_norm_mod._launch = traced_step, traced_norm
     try:
         yield trace
     finally:
-        pdhg_check_mod._launch, pdhg_norm_mod._launch = saved
+        pdhg_check_mod.checked_step, pdhg_norm_mod._launch = saved
 
 
 TRAJECTORY = {"it": pdhg_mod.REC_IT, "wlen": pdhg_mod.REC_WLEN, "stop": pdhg_mod.REC_STOP,
@@ -462,7 +471,7 @@ def main(argv=None) -> int:
     for label, (s, n) in stages.items():
         print(f"[split] {label:<32} {1e3 * s:10.2f} ms {100 * s / split_wall:7.2f}%"
               f" {n:6d} calls", flush=True)
-    blocks = stages[[lb for lb in stages if lb.startswith("  K5")][0]][1]
+    blocks = stages[[lb for lb in stages if lb.startswith("  K2+K5")][0]][1]
     reads = stages["  record reads (one a group)"][1]
     print(f"[split] host reads of the solves' control record: {reads} for {blocks} checked "
           f"blocks ({reads / max(blocks, 1):.3f} a block, groups of {pdhg_mod.GROUP_BLOCKS})",

@@ -25,8 +25,9 @@ from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
 from sdpcutsel_tpu_torch.lp.pdhg import (REC_D, REC_DD, REC_DP, REC_ERR, REC_IT, REC_OMEGA,
                                          REC_P, REC_RESTART, REC_SIGMA, REC_STOP, REC_TAU,
                                          REC_USE_AVG, REC_WLEN, record_floats)
-from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_check, pdhg_check_batched
-from sdpcutsel_tpu_torch.lp.pdhg_kernel import pdhg_block_steps, pdhg_block_steps_batched
+from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_block_checked, pdhg_block_checked_batched
+from sdpcutsel_tpu_torch.lp.pdhg_kernel import (pdhg_block_steps, pdhg_block_steps_batched,
+                                                pdhg_block_steps_plain)
 from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm, pdhg_norm_batched
 from sdpcutsel_tpu_torch.relax import batched as rb
 from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
@@ -50,11 +51,11 @@ def _one_torch_thread():
 
 def _case(kind: str, seed: int = 0, M: int = 40):
     """A small BoxQP (m = 0) or QCQP (the dense rows of generate_qcqp(12, 40,
-    3, 2)) with a random pool and three random points (state, sums of a
+    3, 2), or of generate_qcqp(12, 40, 25, 2) for "qcqp25") with a random pool and three random points (state, sums of a
     window of 300 iterates, anchor), in both packages."""
     rng = np.random.default_rng(seed)
-    if kind == "qcqp":
-        inst = generate_qcqp(12, 40, 3, 2)
+    if kind in ("qcqp", "qcqp25"):
+        inst = generate_qcqp(12, 40, 3 if kind == "qcqp" else 25, 2)
         n, m, k, Q, c = inst.n, inst.m, 4, inst.Q0, inst.c0
         jd = jdr.dense_from_qcqp(inst.Qs, inst.cs, inst.bs)
         td = tdr.dense_from_qcqp(inst.Qs, inst.cs, inst.bs, "cpu")
@@ -257,16 +258,17 @@ def test_grouped_loop_repeats_the_per_block_loop_batched(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["boxqp", "qcqp"])
 def test_stopped_record_leaves_everything(kind):
-    """A block and a check enqueued after the stop do nothing: the wrappers
-    on a stopped record leave the state, sums, anchor and record as they
-    are, single and batched."""
+    """A block and a checked block enqueued after the stop do nothing: the
+    wrappers on a stopped record leave the state, sums, anchor and record as
+    they are, single and batched."""
     n, _, (tcx, tcX, tpool, td, (tst, tacc, tanc)) = _case(kind, seed=9)
     index = build_cut_index(tpool, n)
     rec = _record()
     rec[REC_STOP] = 1
     before = [t.clone() for t in (*tst.fields(), *tacc.fields(), *tanc.fields(), rec)]
     pdhg_block_steps(tcx, tcX, tpool, index, tst, tacc, rec, 100, td)
-    pdhg_check(tcx, tcX, tpool, index, tst, tacc, tanc, rec, 100, 300, 10 ** 6, 1e-9, td)
+    pdhg_block_checked(tcx, tcX, tpool, index, tst, tacc, tanc, rec, 100, 300, 10 ** 6, 1e-9,
+                       td)
     after = (*tst.fields(), *tacc.fields(), *tanc.fields(), rec)
     assert all(torch.equal(a, b) for a, b in zip(before, after))
 
@@ -275,8 +277,8 @@ def test_stopped_record_leaves_everything(kind):
     brec, bdense = rec[None].clone(), None if td is None else one(td)
     pdhg_block_steps_batched(tcx[None], tcX[None], one(tpool), bindex, bst, bacc, brec, 100,
                              bdense)
-    pdhg_check_batched(tcx[None], tcX[None], one(tpool), bindex, bst, bacc, banc, brec, 100, 300,
-                       10 ** 6, 1e-9, bdense)
+    pdhg_block_checked_batched(tcx[None], tcX[None], one(tpool), bindex, bst, bacc, banc, brec,
+                               100, 300, 10 ** 6, 1e-9, bdense)
     assert all(torch.equal(a, b) for a, b in zip(before, after))
 
 
@@ -355,8 +357,148 @@ def test_wrappers_refuse_other_devices():
     index = build_cut_index(tpool, n)
     meta = lambda t: t.to("meta")      # noqa: E731
     with pytest.raises(ValueError, match="no kernel"):
-        pdhg_check(meta(tcx), tcX, tpool, index, tst, tacc, tanc, _record(), 100, 300, 10, 1e-6)
+        pdhg_block_checked(meta(tcx), tcX, tpool, index, tst, tacc, tanc, _record(), 100, 300,
+                           10, 1e-6)
     pool_meta = tcb.CutPool(*(meta(t) for t in (tpool.idx, tpool.lin, tpool.quad, tpool.rhs,
                                                  tpool.active, tpool.count)))
     with pytest.raises(ValueError, match="no kernel"):
         pdhg_norm(pool_meta, n, 30, torch.Generator().manual_seed(0), index)
+
+
+# ---- the checked block: K2's launch with K5 as its epilogue (lp/pdhg_check.py)
+
+def _buffers(tst, tacc, tanc, rec):
+    return [tst.map(torch.clone), tacc.map(torch.clone), tanc.map(torch.clone), rec.clone()]
+
+
+@pytest.mark.parametrize("restart_period", [10 ** 6, 300])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("kind", ["boxqp", "qcqp25"])
+def test_checked_block_on_the_cpu_is_the_block_then_the_check(kind, batched, restart_period):
+    """On the CPU the checked block is K2's twin (pdhg_block_steps_plain)
+    followed by K5's (pdhg_check_plain), bit for bit, single and batched, at
+    m = 0 and m = 25: the state, sums, anchor and record."""
+    n, _, (tcx, tcX, tpool, td, (tst, tacc, tanc)) = _case(kind, seed=12)
+    index = build_cut_index(tpool, n)
+    assert td is None or td.m == 25
+    rec = _record(wlen=100)
+    mine, theirs = _buffers(tst, tacc, tanc, rec), _buffers(tst, tacc, tanc, rec)
+    if batched:
+        one = rb.batch_of_one
+        bdense = None if td is None else one(td)
+        bmine = [one(s) for s in mine[:3]] + [mine[3][None]]
+        pdhg_block_checked_batched(tcx[None], tcX[None], one(tpool),
+                                   rb.build_cut_index(one(tpool), n), *bmine, 100,
+                                   restart_period, 10 ** 6, 1e-9, bdense)
+    else:
+        pdhg_block_checked(tcx, tcX, tpool, index, *mine, 100, restart_period, 10 ** 6, 1e-9,
+                           td)
+    pdhg_block_steps_plain(tcx, tcX, tpool, index, theirs[0], theirs[1], theirs[3], 100, td)
+    tpdhg.pdhg_check_plain(tcx, tcX, tpool, index, *theirs, 100, restart_period, 10 ** 6, 1e-9,
+                           td)
+    assert all(_same_state(a, b) for a, b in zip(mine[:3], theirs[:3]))
+    assert torch.equal(mine[3], theirs[3])
+    assert mine[3][REC_IT] == rec[REC_IT] + 100
+
+
+@pytest.mark.parametrize("kind", ["boxqp", "qcqp25"])
+def test_checked_block_matches_reference_checked_block(kind):
+    """One checked block through the wrapper on the CPU against the JAX
+    package's ``checked_block`` (its ``_solve_impl`` run for one block) from
+    the same state at the same normK, restart_period 100 (the block
+    restarts): the states at rtol/atol 2e-5, omega at rtol 1e-4, the
+    iteration count equal."""
+    n, (jcx, jcX, jpool, jd, (jst, _, _)), (tcx, tcX, tpool, td, (tst, _, _)) = \
+        _case(kind, seed=13)
+    normK = float(jpdhg.estimate_norm(jpool, n, 30, jnp.float32, jd))
+    st_j, info_j = jpdhg._solve_impl(jcx, jcX, jpool, jd, jst, normK, 1.0, 1e-12, 1e-6, 0.95,
+                                     100, 100, 100)
+    st, anc, acc = tpdhg._buffers(tst)
+    rec = tpdhg.new_record(normK, 1.0, 0.95, 100, 1e-12, "cpu")
+    pdhg_block_checked(tcx, tcX, tpool, build_cut_index(tpool, n), st, acc, anc, rec, 100, 100,
+                       100, 1e-12, td)
+    f = record_floats(rec.numpy())
+    assert int(rec[REC_IT]) == int(info_j["iters"]) == 100 and int(rec[REC_STOP]) == 1
+    np.testing.assert_allclose(f[REC_OMEGA], float(info_j["omega"]), rtol=1e-4)
+    for name in FIELDS:
+        np.testing.assert_allclose(getattr(st, name).numpy(), np.asarray(getattr(st_j, name)),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_solves_step_through_the_checked_form_and_steering_does_not(monkeypatch):
+    """On K2's route every solve builds its step with ``checked_step`` once
+    and runs it once a block; the plain route does not; steering's block is
+    K2's unchecked ``pdhg_block`` and never the checked form."""
+    from sdpcutsel_tpu_torch.lp import pdhg_check as tcheck
+    from sdpcutsel_tpu_torch.lp import pdhg_kernel as tkernel
+
+    n, _, (tcx, tcX, tpool, td, (tst, _, _)) = _case("qcqp", seed=14)
+    index = build_cut_index(tpool, n)
+    normK = tpdhg.estimate_norm_plain(tpool, n, 30, torch.Generator().manual_seed(0), index, td)
+    made, ran = [], []
+    real = tcheck.checked_step
+
+    def counted(*args, **kw):
+        step = real(*args, **kw)
+        made.append(1)
+
+        def run():
+            ran.append(1)
+            step()
+        return run
+
+    monkeypatch.setattr(tcheck, "checked_step", counted)
+    _, info = tpdhg._solve_impl(tcx, tcX, tpool, index, tst, normK, 1.0, 1e-12, 0.95, 500, 100,
+                                300, td, route="k2")
+    assert made == [1] and len(ran) == info["iters"] // 100 == 5
+    tpdhg._solve_impl(tcx, tcX, tpool, index, tst, normK, 1.0, 1e-12, 0.95, 500, 100, 300, td,
+                      route="plain")
+    assert made == [1] and len(ran) == 5
+
+    blocks = []
+    real_block = tkernel.pdhg_block
+
+    def block(*args, **kw):
+        blocks.append(args[8])                 # iters
+        return real_block(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("steering took the checked form")
+
+    monkeypatch.setattr(tkernel, "pdhg_block", block)
+    monkeypatch.setattr(tcheck, "checked_step", refuse)
+    setup = tpdhg.SolveSetup("k2", index, normK)
+    sx, SX = tpdhg.rademacher_signs(n, torch.Generator().manual_seed(1), "cpu")
+    tpdhg._steer_impl(tcx, tcX, tpool, td, tst, setup, 1.0, 0.95, 1e-3, sx, SX, 40)
+    assert blocks == [40]
+
+
+@pytest.mark.parametrize("n,M,k,m", [(125, 1024, 3, 0), (100, 1024, 5, 25), (13, 40, 3, 0)])
+def test_checked_plan_holds_the_block_and_the_check(n, M, k, m):
+    """The checked form's shared memory is the unchecked plan's, plus the
+    check's sums (csrc/pdhg_check.cuh check_layout, summed from the source)
+    where K2's Xb band does not hold them; both fit the card, and the
+    route's rule (plan_refusal) is the checked form's."""
+    from sdpcutsel_tpu_torch.lp import pdhg_kernel as tkernel
+
+    plain, checked = tkernel.launch_plan(n, M, k, m), tkernel.launch_plan(n, M, k, m,
+                                                                          checked=True)
+    assert checked.checked and not plain.checked
+    extra = tkernel._check_words(tkernel.CLUSTER)
+    band = -(-n // tkernel.CLUSTER) * n         # the Xb band holds the sums where it can
+    assert (tkernel._smem_words(n, M, k, m, tkernel.CLUSTER, checked=True)
+            == tkernel._smem_words(n, M, k, m, tkernel.CLUSTER) + (extra if band < extra else 0))
+    assert plain.smem_bytes <= tkernel.SMEM_MAX and checked.smem_bytes <= tkernel.SMEM_MAX
+    assert checked.term_cap > 0 and checked.max_capacity == plain.max_capacity >= M
+    assert extra < 1024                   # the check adds its sums, not a second set of bands
+    with open(os.path.join(REPO, "sdpcutsel_tpu_torch", "csrc", "pdhg_check.cuh")) as f:
+        text = f.read()
+    body = text[text.index(" check_layout("):]
+    body = body[:body.index("#undef TAKE")]
+    C, R = tkernel.CLUSTER, -(-n // tkernel.CLUSTER)
+    names = dict(n=n, M=M, m=m, C=C, R=R, kCols=128, kWarpsPerRow=4, kGroups=4, kNV=8, kND=6,
+                 kThreads=512)
+    assert extra == sum(eval(e, {}, names)                   # noqa: S307 (the repository's source)
+                        for e in re.findall(r"TAKE\(\w+, ([^;]*?)\);", body))
+    over = checked.max_capacity + 1
+    assert tkernel.plan_refusal(n, over, k, m) is not None

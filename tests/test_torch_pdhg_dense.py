@@ -7,6 +7,7 @@ another and to the parent tree's CPU results.  The kernels themselves run
 only on the card (chip_smoke.py holds them to the twins there); torch runs
 on one thread here (see tests/test_torch_resume.py)."""
 
+import os
 import re
 
 import numpy as np
@@ -25,6 +26,8 @@ from sdpcutsel_tpu_torch.lp.pdhg_kernel import (SMEM_MAX, kernel_route, pdhg_blo
 from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
 from sdpcutsel_tpu_torch.relax.cutbuffer import build_cut_index
 from sdpcutsel_tpu_torch.relax.denserows import DenseRows
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -263,3 +266,104 @@ def test_certifier_on_the_cpu_auto_off_on_equal_and_parents(kind, monkeypatch):
     assert calls
     assert runs["auto"] == runs["off"] == runs["on"]
     assert _close_to_parent(runs["auto"], PARENT_CPU[kind])
+
+
+# The block's launch plan by shape (lp/pdhg_dense.py::block_plan): the
+# sandwiches of the certifier's phase 15 (n = 10 and 12, up to a few hundred
+# rows) in one CTA, the full-width certifier (n = 125) over every SM.
+SANDWICH_SHAPES = [(10, 40), (10, 90), (10, 368), (12, 70), (12, 90), (12, 200)]
+GRID_SHAPES = [(125, 368), (125, 2048), (64, 2048), (10, 2048), (12, 368), (33, 10)]
+
+
+@pytest.mark.parametrize("n,m", SANDWICH_SHAPES)
+def test_block_plan_takes_one_cta_at_the_sandwiches(n, m):
+    """The sandwiches' shapes fit one CTA: G and g of every row in its
+    shared memory, so its iterations pay block barriers only."""
+    assert tdense.block_plan(n, m) == "cta"
+    words = tdense.smem_words("block", n, m)
+    assert words == tdense._block_words("cta", n, m)
+    assert 4 * words <= SMEM_MAX
+    assert words >= m * (n * n + n)
+
+
+@pytest.mark.parametrize("n,m", GRID_SHAPES)
+def test_block_plan_takes_the_grid_elsewhere(n, m):
+    """n = 125 at 368 and 2048 rows (and any shape one CTA does not hold,
+    or n > CTA_MAX_N) run over the whole card: the grid plan takes a CTA's
+    whole shared memory, whatever m (its slab of G gives way to yD)."""
+    assert tdense.block_plan(n, m) == "grid"
+    assert tdense.smem_words("block", n, m) == tdense._block_words("grid", n, m)
+    assert SMEM_MAX - 16 < 4 * tdense._block_words("grid", n, m) <= SMEM_MAX
+    assert tdense._block_words("grid", n, m + 16) == tdense._block_words("grid", n, m)
+
+
+def _parent_max_dense_rows(n: int) -> int:
+    """The largest m the parent's dense route took at n: its block's layout
+    (one cluster of 16 on K2's bands) and the check's and norm's, which this
+    tree keeps."""
+    C, W, G = tdense.CLUSTER, tdense._WARPS_PER_ROW, tdense._GROUPS
+
+    def fits(m):
+        R, mc = -(-n // C), -(-m // C)
+        rows = 2 * R * W + C * G * R
+        block = 11 * R * n + rows + 4 * R + 128 + m + 2 * mc + C * mc + 512
+        return (4 * block <= SMEM_MAX and 4 * tdense.smem_words("check", n, m) <= SMEM_MAX
+                and 4 * tdense.smem_words("norm", n, m) <= SMEM_MAX)
+
+    lo, hi = 0, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def test_max_dense_rows_not_below_the_parents():
+    """At every n <= 128 the route takes at least the rows the parent's did,
+    and the grid plan's shared memory holds them."""
+    for n in range(1, 129):
+        top = tdense.max_dense_rows(n)
+        assert top >= _parent_max_dense_rows(n), n
+        assert 4 * tdense._block_words("grid", n, top) <= SMEM_MAX
+
+
+def test_block_plan_refusals():
+    """An unknown plan, and the "cta" plan asked for where one CTA does not
+    hold the problem, are refused before any launch."""
+    with pytest.raises(ValueError, match="unknown block plan"):
+        tdense._block_words("cluster", 10, 5)
+    cx, cX, pool, index, dense, st = _certifier_lp(n=12, m=400)
+    rec = steps_record([0.1], [0.1], "cpu")[0]
+    assert tdense.block_plan(12, 400) == "grid"
+    with pytest.raises(ValueError, match="'cta' plan does not take n=12, m=400"):
+        tdense._launch_block(cx, cX, pool, [st, st], [st, st], rec, 3, dense, plan="cta")
+    cx, cX, pool, index, dense, st = _certifier_lp(n=40, m=2)
+    with pytest.raises(ValueError, match="'cta' plan does not take n=40, m=2"):
+        tdense._launch_block(cx, cX, pool, [st, st], [st, st], rec, 3, dense, plan="cta")
+
+
+def _layout_words(path: str, fn: str, **names) -> int:
+    """The words of a layout function of a kernel source: the sum of its
+    TAKE(field, words) lines, the words evaluated with ``names``."""
+    with open(os.path.join(REPO, "sdpcutsel_tpu_torch", "csrc", path)) as f:
+        text = f.read()
+    body = text[text.index(f" {fn}("):]
+    body = body[:body.index("#undef TAKE")]
+    total = 0
+    for expr in re.findall(r"TAKE\(\w+, ([^;]*?)\);", body):
+        expr = re.sub(r"^(.*?) \? (.*?) : (.*)$", r"(\2) if (\1) else (\3)", expr)
+        total += eval(expr, {}, dict(names))          # noqa: S307 (the repository's own source)
+    return total
+
+
+@pytest.mark.parametrize("n,m", [(10, 368), (12, 90), (125, 2048), (64, 7)])
+def test_block_layouts_match_the_kernel_source(n, m):
+    """smem words of both plans are csrc/pdhg_dense.cu's cta_layout and
+    grid_layout summed from the source."""
+    consts = dict(n=n, m=m, NN=n * n, V=n * n + n, V4=(n * n + n + 3) & ~3, kStages=tdense._STAGES,
+                  kStage=tdense._STAGE, kMaxE=tdense._MAX_E, kThreads=tdense._THREADS,
+                  kScratch=tdense._SCRATCH,
+                  free4=(tdense._SMEM_WORDS - (tdense._SCRATCH + m + tdense._MAX_E)) & ~3)
+    assert tdense._block_words("cta", n, m) == _layout_words("pdhg_dense.cu", "cta_layout",
+                                                             **consts)
+    assert tdense._block_words("grid", n, m) == _layout_words("pdhg_dense.cu", "grid_layout",
+                                                              **consts)
