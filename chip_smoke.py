@@ -37,8 +37,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     ints equal, the state, sums and anchor bit for bit),
                     twice bit for bit, a stopped record left as it is; its
                     time on the device in turns with the unchecked launch;
-       pdhg_norm    (K6, 30 power iterations in one launch) at K2's two
-                    shapes against its twin at rtol 1e-5, twice bit for bit;
+       pdhg_norm    (K6, 30 power iterations in one launch, the iterate and
+                    the dense rows' slice in shared memory) at K2's two
+                    shapes against its twin at rtol 1e-5, twice bit for bit,
+                    from the start vector kept on the device; ptxas without
+                    a spill;
        pdhg_dense   (K7, csrc/pdhg_dense.cu: the certifier's LP, a pool
                     without cuts and m dense rows) at n = 10 with m = 368
                     and at n = 125 with m = 368 and 2048 (the full buffer),
@@ -49,20 +52,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     iterations at rtol = atol = 2e-5, twice bit for bit,
                     the in-place block with the record's steps bit for bit,
                     at the one-CTA shapes the grid plan too, checked and
-                    timed in turns; its check against pdhg_check_plain as
-                    K5 is held (rtol 1e-5, restart periods 10^9 and 100, a
-                    stopped record); its norm against estimate_norm_plain
-                    as K6 is held; each timed by events back to back and
-                    on the device (events around one launch queued behind
-                    a sleep kernel) beside its bound and the figure for G
-                    streamed twice an iteration;
+                    timed in turns; its checked launch (K7c, the check as
+                    the epilogue of K7's block) against the unchecked block
+                    followed by pdhg_check_plain as K5 is held (rtol 1e-5,
+                    restart periods 10^9 and 100, the states bit for bit, a
+                    stopped record), K7c's time the checked launch's less
+                    the block's, in turns; its norm against
+                    estimate_norm_plain as K6 is held; each timed by events
+                    back to back and on the device (events around one launch
+                    queued behind a sleep kernel) beside its bound and the
+                    figure for G streamed twice an iteration;
        with --parent DIR (a checkout of the parent commit): K2's bits on
                     these inputs equal to the parent build's, 7 and 100
                     iterations, both timed in turns; the checked launch's
-                    bits equal to the parent build's K2 launch followed by
-                    its K5 launch at both shapes and at the B = 12 batch,
-                    restart_period 10^9 and 100, timed in turns; K7's block
-                    timed on the device in turns with the parent's (and
+                    bits equal to the parent build's checked launch at both
+                    shapes and at the B = 12 batch, restart_period 10^9 and
+                    100, timed in turns; K6's
+                    bits (m = 0, m = 25, B = 12) equal to the parent
+                    build's, both C entries timed on the device in turns;
+                    K7's block, and its checked launch against the parent's
+                    K7 then K7c launches, timed on the device in turns (and
                     after phase 15 the certifier's LP timed in both trees,
                     see there);
      each kernel's time stands beside its bound (the largest of its
@@ -154,8 +163,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (a) ensure_certified_bounds misses on generate_spar(12, 100, 3) at
      tests/test_sdp_bound.py's sandwich settings (LPConfig(8000, 2e-6), 40
      rounds): sdp_ok, sdp_lower <= sdp, sdp_rel_width <= 1e-3, the LP on
-     the dense route (dense_route_checks: K7's block, check and norm, no
-     plain block or twin on the card), within rtol 2e-3 of the CPU port; a
+     the dense route (dense_route_checks: K7's checked launches, each
+     carrying K7c, and its norm; no standalone check, no plain block or
+     twin on the card), within rtol 2e-3 of the CPU port; a
      second call hits and runs no LP block;
      (b) validate_sdp_bound on generate_qcqp(10, 40, 2, 1) (LPConfig(6000,
      2e-6), 8 rounds, cut from the test's 40): lb <= ub, rel <= 5e-3, the
@@ -274,8 +284,9 @@ from sdpcutsel_tpu_torch.lp.pdhg import (REC_D, REC_DD, REC_DP, REC_ERR, REC_IT,
                                          record_floats, solve_setup, steer_to_vertex)
 from sdpcutsel_tpu_torch.lp import pdhg_dense
 from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_block_checked, pdhg_block_checked_batched
-from sdpcutsel_tpu_torch.lp.pdhg_dense import (pdhg_dense_block, pdhg_dense_block_steps,
-                                               pdhg_dense_check, pdhg_dense_norm)
+from sdpcutsel_tpu_torch.lp.pdhg_dense import (pdhg_dense_block, pdhg_dense_block_checked,
+                                               pdhg_dense_block_steps, pdhg_dense_norm)
+from sdpcutsel_tpu_torch.lp import pdhg_norm as pdhg_norm_mod
 from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm, pdhg_norm_batched
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, max_active_clusters, pdhg_block,
@@ -1058,21 +1069,94 @@ def check_pdhg_check(label: str, inputs, dense, dev) -> dict:
             "checked_launch_events_ms": ms, **b}
 
 
-def check_pdhg_norm(label: str, inputs, dense, dev) -> dict:
+def spill_free(kernel: str, log_text: str | None = None) -> str:
+    """ptxas's lines for ``kernel`` (every instantiation; of this build, or of
+    ``log_text``, another build's log); fails if one of this build's spills
+    registers."""
+    if log_text is None:
+        rep = ptxas_report(kernel)
+    else:
+        saved = _build.build_log
+        _build.build_log = log_text
+        try:
+            rep = ptxas_report(kernel)
+        finally:
+            _build.build_log = saved
+    if log_text is None and any(int(v) for v in re.findall(r"(\d+) bytes spill stores", rep)):
+        raise AssertionError(f"{kernel} spills registers: {rep}")
+    return rep
+
+
+def norm_entry(lib, pool, n: int, index, dense, dev, parent: bool):
+    """K6's C entry alone, on a batch's prepared arguments (the instance
+    axis first): a function of no arguments that launches it once (not
+    counted), for timing without the wrapper's host work.  This build reads
+    the kept start vector; the parent build's overwrites its (B, n), (B, n,
+    n) copies of it (the same work on every launch: 30 iterations)."""
+    B, M, k = pool.idx.shape
+    m = 0 if dense is None else dense.G.shape[1]
+    x, X = pdhg_mod.start_vector(n, None, dev)
+    if parent:       # copies (expand of one instance would be the kept vector itself)
+        x = x.expand(B, n).clone(memory_format=torch.contiguous_format)
+        X = X.expand(B, n, n).clone(memory_format=torch.contiguous_format)
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t in (index.idx, pool.lin, pool.quad, pool.active, index.xoff,
+                                     index.xcut, index.xcoef, index.Xoff, index.Xcut,
+                                     index.Xcoef)]
+    dptr = [None] * 2 if dense is None else [dense.G.data_ptr(), dense.g.data_ptr()]
+
+    def launch():
+        err = lib.pdhg_norm_launch(n, M, k, m, B, pdhg_kernel.CLUSTER, index.xcut.shape[-1],
+                                   index.Xcut.shape[-1], 30, *(t.data_ptr() for t in args),
+                                   *dptr, x.data_ptr(), X.data_ptr(), out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "pdhg_norm_launch")
+
+    launch.keep = (args, x, X, out)
+    return launch
+
+
+def norm_against_parent(pkg, label: str, this_fn, parent_fn, entries) -> dict:
+    """K6 of this build (``this_fn()``) and the parent build's (``parent_fn()``,
+    its wrapper drawing the seed-0 start vector afresh) bit for bit; then
+    both C entries (``entries``: this, parent) alone on the device in turns
+    (parent, this, this, parent; queued events), and the parent's ptxas."""
+    mine, theirs = this_fn(), parent_fn()
+    torch.cuda.synchronize()
+    same = torch.equal(mine, theirs)
+    turns = {"parent": [], "this": []}
+    for tree in ("parent", "this", "this", "parent"):
+        turns[tree].append(queued_ms(entries[tree], reps=10))
+    log(f"[pdhg_norm {label}] this build's K6 and the parent build's bit for bit: {same}; on "
+        f"the device in turns (the C entries alone): parent {turns['parent']!r} ms, this build "
+        f"{turns['this']!r} ms; the parent's ptxas: "
+        f"{spill_free('pdhg_norm_kernel', parent_build(pkg).build_log)} ({SMI})")
+    if not same:
+        raise AssertionError(f"K6 does not give the parent build's bits ({label})")
+    return {"parent_bits": same, "parent_device_ms": sum(turns["parent"]) / 2,
+            "parent_device_ms_turns": turns["parent"], "device_ms_turns": turns["this"]}
+
+
+def check_pdhg_norm(label: str, inputs, dense, dev, parent=None) -> dict:
     """K6 against its twin (estimate_norm_plain, 30 iterations, the seeded
     start vector) at rtol 1e-5, twice bit for bit; its time by events and on
-    the device beside its bound."""
+    the device beside its bound; ptxas without a spill.  ``parent``: the
+    parent checkout's package, whose K6 must give these bits and is timed
+    in turns with this one."""
     cx, cX, pool, index, _ = inputs
     n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
 
     def norm(fn):
-        return fn(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+        return fn(pool, n, 30, None, index, dense)
 
-    a, b2, t = norm(pdhg_norm), norm(pdhg_norm), norm(estimate_norm_plain)
+    a, b2 = norm(pdhg_norm), norm(pdhg_norm)
+    t = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
     torch.cuda.synchronize()
     rel = abs(a.item() - t.item()) / abs(t.item())
     log(f"[pdhg_norm {label}] ||K|| kernel {a.item()!r}, twin {t.item()!r}: rel diff {rel:.3e} "
-        f"(rtol {CONTROL_RTOL}); two launches bit for bit: {torch.equal(a, b2)}")
+        f"(rtol {CONTROL_RTOL}); two launches bit for bit: {torch.equal(a, b2)}; the dense "
+        f"rows' slice resident in shared memory, the cut data staged there: "
+        f"{pdhg_norm_mod.smem_words(n, M, k, m)[1:]}")
     if rel > CONTROL_RTOL or not torch.equal(a, b2):
         raise AssertionError(f"pdhg_norm disagrees with its twin or does not repeat ({label})")
     ms = cuda_ms(lambda: norm(pdhg_norm), reps=20)
@@ -1084,14 +1168,26 @@ def check_pdhg_norm(label: str, inputs, dense, dev) -> dict:
                       index.xcoef, index.Xoff, index.Xcut, index.Xcoef, a,
                       *([] if dense is None else [dense.G, dense.g])) + 4 * (n + n * n))
     log(f"[pdhg_norm {label}] 30 iterations in one launch: kernel {ms:.4f} ms by events (the "
-        f"start vector's CPU draw and upload included), {dev_ms:.4f} ms on the device; twin "
+        f"start vector kept on the device), {dev_ms:.4f} ms on the device; twin "
         f"{plain_ms:.4f} ms; {share(dev_ms, bb)} (of the device time); ptxas: "
-        f"{ptxas_report('pdhg_norm_kernel')}")
-    return {"max_abs_err": abs(a.item() - t.item()), "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, **bb}
+        f"{spill_free('pdhg_norm_kernel')}")
+    out = {"max_abs_err": abs(a.item() - t.item()), "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, **bb}
+    if parent is not None:
+        p_norm = importlib.import_module(f"{parent.__name__}.lp.pdhg_norm")
+        B1 = rb.batch_of_one
+        D1 = None if dense is None else B1(dense)
+        entries = {"this": norm_entry(_build.lib(), B1(pool), n, B1(index), D1, dev, False),
+                   "parent": norm_entry(parent_build(parent).lib(), B1(pool), n, B1(index),
+                                        D1, dev, True)}
+        out.update(norm_against_parent(
+            parent, label, lambda: norm(pdhg_norm),
+            lambda: p_norm.pdhg_norm(pool, n, 30, torch.Generator().manual_seed(0), index,
+                                     dense), entries))
+    return out
 
 
-def check_control_batched(insts, dev) -> dict:
+def check_control_batched(insts, dev, parent=None) -> dict:
     """K5 in the batched K2 launch and K6 at the suite bucket's batch (B =
     12, n = 125, phase 3's batched inputs), one instance's record stopped:
     the checked batched launch (100 iterations, then the control) against
@@ -1099,7 +1195,9 @@ def check_control_batched(insts, dev) -> dict:
     K5 words at rtol 1e-5, the ints equal, the states bit for bit), K6
     against its twin (||K|| at rtol 1e-5); the stopped instance unchanged
     bit for bit; every other one bit for bit equal to the single wrappers'
-    launch of it; each batched launch timed."""
+    launch of it; each batched launch timed.  ``parent``: the parent
+    checkout's package, whose batched K6 must give these bits and is timed in
+    turns with this one."""
     cx, cX, P, index, st0, pools = batched_inputs(insts, dev)
     (B, n), M = cx.shape, P.idx.shape[1]
     gen = lambda: torch.Generator().manual_seed(0)     # noqa: E731
@@ -1151,9 +1249,9 @@ def check_control_batched(insts, dev) -> dict:
         f"single wrapper's launch on its own cut index: {alone}")
     if bad or rel > CONTROL_RTOL or not (same and repeat and frozen_same and alone):
         raise AssertionError("the batched checked block fails its checks")
-    nk, nk2 = pdhg_norm_batched(P, n, 30, gen(), index), pdhg_norm_batched(P, n, 30, gen(), index)
+    nk, nk2 = pdhg_norm_batched(P, n, 30, None, index), pdhg_norm_batched(P, n, 30, None, index)
     nrel = float(((nk - normK).abs() / normK.abs()).max())
-    n_alone = all(torch.equal(pdhg_norm(pools[b], n, 30, gen(), build_cut_index(pools[b], n)),
+    n_alone = all(torch.equal(pdhg_norm(pools[b], n, 30, None, build_cut_index(pools[b], n)),
                               nk[b]) for b in range(B))
     log(f"[pdhg_norm batched] B={B}: largest rel diff from the twin {nrel:.3e} (rtol "
         f"{CONTROL_RTOL}); twice bit for bit: {torch.equal(nk, nk2)}; each instance equal to the "
@@ -1171,9 +1269,18 @@ def check_control_batched(insts, dev) -> dict:
         runs.append(queued_ms(fn, reps=10))
     dev_ms = (sum(t_both) - sum(t_k2)) / 2
     ms = cuda_ms(lambda: run(pdhg_block_checked_batched, *args), reps=20)
-    norm_ms = cuda_ms(lambda: pdhg_norm_batched(P, n, 30, gen(), index), reps=20)
-    norm_dev = device_ms(lambda: pdhg_norm_batched(P, n, 30, gen(), index), "pdhg_norm_kernel",
+    norm_ms = cuda_ms(lambda: pdhg_norm_batched(P, n, 30, None, index), reps=20)
+    norm_dev = device_ms(lambda: pdhg_norm_batched(P, n, 30, None, index), "pdhg_norm_kernel",
                          reps=20)
+    norm_parent = {}
+    if parent is not None:
+        p_norm = importlib.import_module(f"{parent.__name__}.lp.pdhg_norm")
+        entries = {"this": norm_entry(_build.lib(), P, n, index, None, dev, False),
+                   "parent": norm_entry(parent_build(parent).lib(), P, n, index, None, dev,
+                                        True)}
+        norm_parent = norm_against_parent(
+            parent, f"batched B={B}", lambda: pdhg_norm_batched(P, n, 30, None, index),
+            lambda: p_norm.pdhg_norm_batched(P, n, 30, gen(), index), entries)
     terms = [int(i.xoff[-1] + i.Xoff[-1]) for i in (build_cut_index(p, n) for p in pools)]
     active = [int(p.active.sum()) for p in pools]
     # the stopped instance's cluster leaves at entry: only the running ones count
@@ -1197,7 +1304,8 @@ def check_control_batched(insts, dev) -> dict:
                       "batched_bound_ms": b5["bound_ms"], "batched_max_abs_err": absd},
             "norm": {"batched_ms": norm_ms, "batched_device_ms": norm_dev,
                      "batched_bound_ms": b6["bound_ms"],
-                     "batched_max_abs_err": float((nk - normK).abs().max())}}
+                     "batched_max_abs_err": float((nk - normK).abs().max()),
+                     **{f"batched_{key}": v for key, v in norm_parent.items()}}}
 
 
 # phase 3's dense route (K7, csrc/pdhg_dense.cu): the certifier's shapes,
@@ -1313,7 +1421,7 @@ def check_dense_block(label: str, inputs, parent=None) -> dict:
     plain_ms = cuda_ms(lambda: pdhg_block_plain(*args), reps=2, warmup=1)
     b = bound(pdhg_ops(n, 1, m, 0, 0, 100), dense_bytes(cx, cX, dense, st, zero, *got))
     stream_ms = 100 * 2 * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
-    kernel = {"cta": "pdhg_dense_cta_kernel", "grid": "pdhg_dense_grid_kernel"}[plan]
+    kernel = {"cta": "pdhg_dense_cta_kernelILb0", "grid": "pdhg_dense_grid_kernelILb0"}[plan]
     log(f"[pdhg_dense {label}] 100-iteration block: {ms:.4f} ms by events back to back, "
         f"{dev_ms:.4f} ms on the device (queued events) = {dev_ms * 10:.3f} us an iteration; "
         f"twin {plain_ms:.4f} ms ({plain_ms * 10:.2f} us an iteration); {share(dev_ms, b)} (of "
@@ -1361,32 +1469,49 @@ def check_dense_block(label: str, inputs, parent=None) -> dict:
     return out
 
 
-def check_dense_check(label: str, inputs) -> dict:
-    """The dense route's check against its twin (pdhg_check_plain) after one
-    K7 block of 100 iterations, as check_pdhg_check holds K5: restart_period
-    10^9 and 100, the record's float words at rtol 1e-5 and its ints equal,
-    the state, sums and anchor bit for bit; twice bit for bit; a stopped
-    record leaves everything as it is; timed at restart_period 100."""
+def check_dense_check(label: str, inputs, parent=None) -> dict:
+    """K7c, the check in the dense route's checked launch
+    (pdhg_dense_block_checked: a 100-iteration K7 block, then the checked
+    block's control on the slices each CTA owns), from the state and sums
+    after one K7 block, against K7's unchecked block (pdhg_dense_block_steps)
+    followed by the twin check (pdhg_check_plain), as check_pdhg_check holds
+    K5: restart_period 10^9 and 100, the record's float words at rtol 1e-5
+    and its ints equal, the state, sums and anchor bit for bit; twice bit for
+    bit; a stopped record leaves everything as it is.  Timed at
+    restart_period 100 on the device (queued events) in turns with the
+    unchecked block, whose difference is K7c's time in the launch, on a
+    record and a stop test that never stop (every launch does the work).
+    ``parent``: the parent checkout's package, whose K7 block followed by its
+    standalone K7c launch is timed in turns with this build's two."""
     cx, cX, pool, index, dense, st0 = inputs
     n, m = cx.shape[0], dense.m
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
     eta = 0.95 / normK.item()
     st1, acc1 = pdhg_dense_block(cx, cX, pool, index, st0, st0.map(torch.zeros_like), eta, eta,
                                  100, dense)
+    every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
+
+    def prepare(stops: bool = True):
+        """State, sums, anchor and a fresh record; stops False: a record that
+        never stops (timing: many launches on one set of buffers)."""
+        rec = (new_record(normK, 1.0, 0.95, top, tol, cx.device) if stops
+               else new_record(normK, 1.0, 0.95, 10 ** 9, 0.0, cx.device))
+        return [st1.map(torch.clone), acc1.map(torch.clone), st0.map(torch.clone), rec]
+
+    never = (10 ** 9, -1.0)         # a stop test that never stops (the timed launches)
+
+    def checked(bufs, rp, stop=(top, tol)):
+        pdhg_dense_block_checked(cx, cX, pool, index, *bufs, every, rp, *stop, dense)
+        return bufs
+
+    def twin(bufs, rp):
+        pdhg_dense_block_steps(cx, cX, pool, index, bufs[0], bufs[1], bufs[3], every, dense)
+        pdhg_check_plain(cx, cX, pool, index, *bufs, every, rp, top, tol, dense)
+        return bufs
+
     worst = 0.0
     for rp in (10 ** 9, 100):
-        def prepare():
-            return [st1.map(torch.clone), acc1.map(torch.clone), st0.map(torch.clone),
-                    new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"], CHECK_ARGS["tol"],
-                               cx.device)]
-
-        def run(fn, st, acc, anc, rec):
-            fn(cx, cX, pool, index, st, acc, anc, rec, CHECK_ARGS["check_every"], rp,
-               CHECK_ARGS["max_iters"], CHECK_ARGS["tol"], dense)
-            return [st, acc, anc, rec]
-
-        ka, kb = run(pdhg_dense_check, *prepare()), run(pdhg_dense_check, *prepare())
-        tw = run(pdhg_check_plain, *prepare())
+        ka, kb, tw = checked(prepare(), rp), checked(prepare(), rp), twin(prepare(), rp)
         torch.cuda.synchronize()
         bad, rel, absd = record_diff(ka[3], tw[3], slice(None))
         same = states_equal(ka[:3], tw[:3])
@@ -1394,37 +1519,76 @@ def check_dense_check(label: str, inputs) -> dict:
         r = ka[3].cpu().numpy()
         log(f"[pdhg_dense_check {label}] restart_period {rp}: restart {bool(r[REC_RESTART])}, "
             f"use_avg {bool(r[REC_USE_AVG])}, omega {float(record_floats(r)[REC_OMEGA])!r}; "
-            f"against the twin: int words differing {bad}, largest rel diff of the float words "
-            f"{rel:.3e} (rtol {CONTROL_RTOL}), max|err| of err/p/d/omega {absd:.3e}; state, "
-            f"sums and anchor bit for bit: {same}; two launches bit for bit: {repeat}")
+            f"the checked launch against K7's block then the twin check: int words differing "
+            f"{bad}, largest rel diff of the float words {rel:.3e} (rtol {CONTROL_RTOL}), max|err| "
+            f"of err/p/d/omega {absd:.3e}; state, sums and anchor bit for bit: {same}; two "
+            f"launches bit for bit: {repeat}")
         if bad or rel > CONTROL_RTOL or not (same and repeat):
-            raise AssertionError(f"the dense-route check disagrees with its twin or does not "
-                                 f"repeat ({label})")
+            raise AssertionError(f"the dense route's checked launch disagrees with K7's block "
+                                 f"and the twin check or does not repeat ({label})")
         worst = max(worst, absd)
     args = prepare()
     args[3][REC_STOP] = 1
     before = [t.clone() for t in (*[u for x in args[:3] for u in x.fields()], args[3])]
-    run(pdhg_dense_check, *args)
+    checked(args, 100)
     frozen = all(torch.equal(a, b) for a, b in zip(
         before, (*[u for x in args[:3] for u in x.fields()], args[3])))
     log(f"[pdhg_dense_check {label}] a stopped record leaves everything bit for bit: {frozen}")
     if not frozen:
-        raise AssertionError(f"the dense-route check wrote a stopped instance ({label})")
-    args = prepare()
-    ms = cuda_ms(lambda: run(pdhg_dense_check, *args), reps=20)
-    dev_ms = queued_ms(lambda: run(pdhg_dense_check, *args), reps=20)
-    twin = prepare()
-    plain_ms = cuda_ms(lambda: run(pdhg_check_plain, *twin), reps=3)
-    b = bound(check_ops(n, 1, m, 0, 0, True),
-              check_bytes(cx, cX, pool, index, dense, *args))
-    stream_ms = 2 * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
-    log(f"[pdhg_dense_check {label}] {ms:.4f} ms by events back to back, {dev_ms:.4f} ms on the "
-        f"device (queued events); twin "
-        f"{plain_ms:.4f} ms (reads to the host included); {share(dev_ms, b)} (of the device "
-        f"time); G read twice: {stream_ms:.4f} ms; ptxas: "
-        f"{ptxas_report('pdhg_dense_check_kernel')}")
-    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
-            "streaming_bound_ms": stream_ms, "share": b["bound_ms"] / dev_ms}
+        raise AssertionError(f"the dense route's checked launch wrote a stopped instance ({label})")
+    bufs = prepare(stops=False)
+
+    def unchecked():
+        pdhg_dense_block_steps(cx, cX, pool, index, bufs[0], bufs[1], bufs[3], every, dense)
+
+    t_k7, t_both = [], []
+    for runs, fn in ((t_k7, unchecked), (t_both, lambda: checked(bufs, 100, never)),
+                     (t_both, lambda: checked(bufs, 100, never)), (t_k7, unchecked)):
+        runs.append(queued_ms(fn, reps=10))
+    both, k7_ms = sum(t_both) / 2, sum(t_k7) / 2
+    dev_ms = both - k7_ms
+    ms = cuda_ms(lambda: checked(bufs, 100, never), reps=10)
+    tw = prepare()
+    plain_ms = cuda_ms(lambda: pdhg_check_plain(cx, cX, pool, index, *tw, every, 100, top, tol,
+                                                dense), reps=3)
+    b = bound(check_ops(n, 1, m, 0, 0, True), check_bytes(cx, cX, pool, index, dense, *bufs))
+    stream_ms = nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
+    kernel = {"cta": "pdhg_dense_cta_kernelILb1", "grid": "pdhg_dense_grid_kernelILb1"}[
+        pdhg_dense.block_plan(n, m)]
+    log(f"[pdhg_dense_check {label}] on the device (queued events, in turns): the checked "
+        f"launch {t_both!r} ms, K7's block alone {t_k7!r} ms: K7c in the launch {dev_ms:.4f} ms; "
+        f"the checked launch by events back to back {ms:.4f} ms; twin check {plain_ms:.4f} ms "
+        f"(reads to the host included); K7c {share(max(dev_ms, 1e-9), b)} (of its device time); "
+        f"G read once: {stream_ms:.4f} ms; ptxas (checked form): {spill_free(kernel)} ({SMI})")
+    out = {"max_abs_err": worst, "ms": dev_ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
+           "streaming_bound_ms": stream_ms, "share": b["bound_ms"] / max(dev_ms, 1e-9),
+           "checked_launch_ms": both, "unchecked_launch_ms": k7_ms,
+           "checked_launch_events_ms": ms}
+    if parent is not None:
+        p_dense = importlib.import_module(f"{parent.__name__}.lp.pdhg_dense")
+        p_bufs = prepare(stops=False)
+
+        def parent_block():
+            p_dense.pdhg_dense_block_steps(cx, cX, pool, index, p_bufs[0], p_bufs[1], p_bufs[3],
+                                           every, dense)
+
+        def parent_pair():
+            parent_block()
+            p_dense.pdhg_dense_check(cx, cX, pool, index, *p_bufs, every, 100, *never, dense)
+
+        turns = {"parent": [], "this": []}
+        for tree in ("parent", "this", "this", "parent"):
+            block, pair = ((parent_block, parent_pair) if tree == "parent"
+                           else (unchecked, lambda: checked(bufs, 100, never)))
+            t_b, t_p = queued_ms(block, reps=10), queued_ms(pair, reps=10)
+            turns[tree].append((t_p, t_b, t_p - t_b))
+        log(f"[pdhg_dense_check {label}] in turns on the device, (block + check, block alone, "
+            f"the check's share) ms: parent (K7 + K7c launches) {turns['parent']!r}, this build "
+            f"(the checked launch) {turns['this']!r} ({SMI})")
+        out["parent_device_ms"] = sum(t[2] for t in turns["parent"]) / 2
+        out["parent_turns"] = turns["parent"]
+        out["this_turns"] = turns["this"]
+    return out
 
 
 def check_dense_norm(label: str, inputs) -> dict:
@@ -1471,24 +1635,23 @@ def check_dense_norm(label: str, inputs) -> dict:
 
 
 def check_dense_route(dev, parent=None) -> dict:
-    """Phase 3's dense route: K7's block, check and norm at DENSE_SHAPES
-    against their twins, and the block at n = 64 over 2048 rows
-    (DENSE_BLOCK_EXTRA).  ``parent``: the parent checkout's package, whose
-    block is timed in turns with this one.  Returns {kernel: {shape label:
-    numbers}}."""
+    """Phase 3's dense route: K7's block, its checked launch (K7c) and the
+    norm at DENSE_SHAPES against their twins, and the block at n = 64 over
+    2048 rows (DENSE_BLOCK_EXTRA).  ``parent``: the parent checkout's
+    package, whose block, and block then check, are timed in turns with this
+    build's.  Returns {kernel: {shape label: numbers}}."""
     out = {"pdhg_dense": {}, "pdhg_dense_check": {}, "pdhg_dense_norm": {}}
     for n, m in (*DENSE_SHAPES, DENSE_BLOCK_EXTRA):
         label = f"n={n} m={m}"
         inputs = dense_inputs(n, m, dev)
         log(f"[pdhg_dense {label}] block plan {pdhg_dense.block_plan(n, m)!r} (the 'grid' plan "
             f"would take {pdhg_dense.block_grid(n, m)} CTAs); shared bytes a CTA: block "
-            f"{pdhg_dense.smem_bytes('block', n, m)}, check and norm at a cluster of "
-            f"{pdhg_dense.CLUSTER}: {pdhg_dense.smem_bytes('check', n, m)}, "
-            f"{pdhg_dense.smem_bytes('norm', n, m)}; the route takes up to "
+            f"(and its checked form) {pdhg_dense.smem_bytes('block', n, m)}, norm at a cluster "
+            f"of {pdhg_dense.CLUSTER}: {pdhg_dense.smem_bytes('norm', n, m)}; the route takes up to "
             f"{pdhg_dense.max_dense_rows(n)} rows at n = {n}")
         out["pdhg_dense"][label] = check_dense_block(label, inputs, parent)
         if (n, m) in DENSE_SHAPES:
-            out["pdhg_dense_check"][label] = check_dense_check(label, inputs)
+            out["pdhg_dense_check"][label] = check_dense_check(label, inputs, parent)
             out["pdhg_dense_norm"][label] = check_dense_norm(label, inputs)
     return out
 
@@ -1507,6 +1670,11 @@ def dense_entry(name: str, replaces: str, launches: int, shapes: dict) -> dict:
 PARENT_ALIAS = "parent_sdpcutsel_tpu_torch"
 
 
+def parent_build(pkg):
+    """The parent package's _build module (its kernels, its build log)."""
+    return importlib.import_module(f"{pkg.__name__}._build")
+
+
 def parent_package(parent: str):
     """The parent checkout's port package, imported once under another name
     (import_checkout); its kernels build into the parent checkout's own
@@ -1516,15 +1684,14 @@ def parent_package(parent: str):
 
 def checked_against_parent(pkg, label: str, inputs, dense, dev) -> bool:
     """This tree's checked block (one launch: K2, then K5 in it) and the
-    parent build's K2 launch followed by its K5 launch, from phase 3's
-    random state on a fresh record, restart_period 10^9 and 100: state,
+    parent build's (its checked launch, the same kernel source), from phase
+    3's random state on a fresh record, restart_period 10^9 and 100: state,
     sums, anchor and record bit for bit.  Then both timed in turns (parent,
     this, this, parent) at restart_period 100, on the device (queued
     events) and by events back to back (the host's share included)."""
     cx, cX, pool, index, st0 = inputs
     n = cx.shape[0]
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
-    p_kernel = importlib.import_module(f"{pkg.__name__}.lp.pdhg_kernel")
     p_check = importlib.import_module(f"{pkg.__name__}.lp.pdhg_check")
     every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
 
@@ -1535,9 +1702,7 @@ def checked_against_parent(pkg, label: str, inputs, dense, dev) -> bool:
     same = True
     for rp in (10 ** 9, 100):
         def parent_call(bufs, rp=rp):
-            p_kernel.pdhg_block_steps(cx, cX, pool, index, bufs[0], bufs[1], bufs[3], every,
-                                      dense)
-            p_check.pdhg_check(cx, cX, pool, index, *bufs, every, rp, top, tol, dense)
+            p_check.pdhg_block_checked(cx, cX, pool, index, *bufs, every, rp, top, tol, dense)
 
         def this_call(bufs, rp=rp):
             pdhg_block_checked(cx, cX, pool, index, *bufs, every, rp, top, tol, dense)
@@ -1548,7 +1713,7 @@ def checked_against_parent(pkg, label: str, inputs, dense, dev) -> bool:
         torch.cuda.synchronize()
         ok = states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3])
         log(f"[pdhg_check {label}] restart_period {rp}: this build's checked launch and the "
-            f"parent build's K2 then K5 bit for bit (state, sums, anchor, record): {ok}")
+            f"parent build's bit for bit (state, sums, anchor, record): {ok}")
         same &= ok
     dev_t, ev_t = {"parent": [], "this": []}, {"parent": [], "this": []}
     for tree, fn in (("parent", parent_call), ("this", this_call), ("this", this_call),
@@ -1556,7 +1721,7 @@ def checked_against_parent(pkg, label: str, inputs, dense, dev) -> bool:
         bufs = prepare()
         dev_t[tree].append(queued_ms(lambda: fn(bufs), reps=10))
         ev_t[tree].append(cuda_ms(lambda: fn(bufs), reps=20))
-    log(f"[pdhg_check {label}] a checked block in turns, on the device: parent (K2 + K5) "
+    log(f"[pdhg_check {label}] a checked block in turns, on the device: parent "
         f"{dev_t['parent']!r} ms, this build (one launch) {dev_t['this']!r} ms; by events back "
         f"to back: parent {ev_t['parent']!r} ms, this build {ev_t['this']!r} ms ({SMI})")
     return same
@@ -1565,12 +1730,11 @@ def checked_against_parent(pkg, label: str, inputs, dense, dev) -> bool:
 def checked_batched_against_parent(pkg, insts, dev) -> bool:
     """checked_against_parent at the suite bucket's batch (B = 12, n = 125,
     one instance's record stopped): this tree's batched checked launch and
-    the parent build's batched K2 then batched K5, bit for bit at
-    restart_period 10^9 and 100, then timed in turns."""
+    the parent build's, bit for bit at restart_period 10^9 and 100, then
+    timed in turns."""
     cx, cX, P, index, st0, _ = batched_inputs(insts, dev)
     B, n = cx.shape
     normK = estimate_norm_batched_plain(P, n, 30, torch.Generator().manual_seed(0), index)
-    p_kernel = importlib.import_module(f"{pkg.__name__}.lp.pdhg_kernel")
     p_check = importlib.import_module(f"{pkg.__name__}.lp.pdhg_check")
     every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
 
@@ -1582,8 +1746,7 @@ def checked_batched_against_parent(pkg, insts, dev) -> bool:
     same = True
     for rp in (10 ** 9, 100):
         def parent_call(bufs, rp=rp):
-            p_kernel.pdhg_block_steps_batched(cx, cX, P, index, bufs[0], bufs[1], bufs[3], every)
-            p_check.pdhg_check_batched(cx, cX, P, index, *bufs, every, rp, top, tol)
+            p_check.pdhg_block_checked_batched(cx, cX, P, index, *bufs, every, rp, top, tol)
 
         def this_call(bufs, rp=rp):
             pdhg_block_checked_batched(cx, cX, P, index, *bufs, every, rp, top, tol)
@@ -1594,7 +1757,7 @@ def checked_batched_against_parent(pkg, insts, dev) -> bool:
         torch.cuda.synchronize()
         ok = states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3])
         log(f"[pdhg_check batched] B={B}, restart_period {rp}: this build's checked launch and "
-            f"the parent build's K2 then K5 bit for bit: {ok}")
+            f"the parent build's bit for bit: {ok}")
         same &= ok
     dev_t, ev_t = {"parent": [], "this": []}, {"parent": [], "this": []}
     for tree, fn in (("parent", parent_call), ("this", this_call), ("this", this_call),
@@ -2474,18 +2637,20 @@ def run_cli(argv) -> tuple:
 
 def dense_route_checks(tag: str, launches: dict) -> dict:
     """The certifier's LP on the card, as the reference runs it on its
-    device: the dense route's block, check and norm launched (one check a
-    block, one norm a solve), at most one host read of the control record a
-    group of GROUP_BLOCKS blocks plus one a solve, and no plain block, no
-    twin check or norm, no K2, K5 or K6."""
+    device: the dense route's checked launches (K7's block with K7c in it)
+    and norm launched, every dense block a checked launch (no standalone
+    check, no unchecked block), one norm a solve, at most one host read of
+    the control record a group of GROUP_BLOCKS blocks plus one a solve, and
+    no plain block, no twin check or norm, no K2, K5 or K6."""
     blk, chk, nrm = (launches[k] for k in ("pdhg_dense", "pdhg_dense_check", "pdhg_dense_norm"))
     solves, reads, G = launches[SOLVES], launches[READS], pdhg_mod.GROUP_BLOCKS
-    log(f"[{tag}] the dense route: {solves} solves, block {blk}, check {chk}, norm {nrm}; host "
+    log(f"[{tag}] the dense route: {solves} solves, block launches {blk}, checked launches "
+        f"{chk}, norm {nrm}; host "
         f"reads of the record {reads}; plain blocks {launches[PLAIN_BLOCKS]}, twin checks and "
         f"norms {launches[PLAIN_CONTROL]}")
     return {
-        "the dense route's block, check and norm launched": min(blk, chk, nrm) > 0,
-        "one dense check a dense block": chk == blk,
+        "the dense route's checked launches and norm launched": min(blk, chk, nrm) > 0,
+        "every dense block a checked launch (no standalone check)": chk == blk,
         "one dense norm a solve": nrm == solves,
         f"at most one host read a group of {G} blocks plus one a solve":
             reads * G <= chk + G * solves,
@@ -3137,8 +3302,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--parent", help="a checkout of the parent commit: phase 3 then holds "
-                        "K2's and K5's bits to that build's on its inputs, and after phase 15 "
-                        "the certifier's LP is timed in both trees in turns")
+                        "K2's, K5's and K6's bits to that build's on its inputs and times K6, K7 "
+                        "and K7c in turns with that build's, and after phase 15 the certifier's "
+                        "LP is timed in both trees in turns")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
     smi = SMI = environment()
@@ -3172,13 +3338,13 @@ def main(argv=None) -> int:
     k2_box, k2 = (check_pdhg_block(label, *args, dev) for label, args in shapes.items())
     bucket = [parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name) for name in SUITE_BUCKET]
     k2_batched = check_pdhg_block_batched(bucket, k2_box, dev)
+    pkg = parent_package(args.parent) if args.parent else None
     k5s, k6s = [], []
     for label, (Q, c, table, dense) in shapes.items():
         inputs = pdhg_inputs(Q, c, table, dense, dev)
         k5s.append(check_pdhg_check(label, inputs, dense, dev))
-        k6s.append(check_pdhg_norm(label, inputs, dense, dev))
-    control_batched = check_control_batched(bucket, dev)
-    pkg = parent_package(args.parent) if args.parent else None
+        k6s.append(check_pdhg_norm(label, inputs, dense, dev, pkg))
+    control_batched = check_control_batched(bucket, dev, pkg)
     dense_route = check_dense_route(dev, pkg)
     k2["parent_bits"] = k5s[1]["parent_bits"] = None
     if args.parent:
@@ -3188,8 +3354,8 @@ def main(argv=None) -> int:
         same5.append(checked_batched_against_parent(pkg, bucket, dev))
         k5s[1]["parent_bits"] = all(same5)
         if not all(same5):
-            raise AssertionError("the checked block does not give the parent build's K2 then K5 "
-                                 "bits on phase 3's inputs")
+            raise AssertionError("the checked block does not give the parent build's bits on "
+                                 "phase 3's inputs")
         lib = parent_k2(args.parent)
         same = []
         for label, (Q, c, table, dense) in shapes.items():
@@ -3275,9 +3441,9 @@ def main(argv=None) -> int:
         dense_entry("pdhg_dense", "sdpcutsel_tpu/lp/pdhg.py:216 (run_block's fori_loop of "
                     "_one_iter with dense rows; XLA, no Pallas kernel)", total["pdhg_dense"],
                     dense_route["pdhg_dense"]),
-        dense_entry("pdhg_dense_check", "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block with "
-                    "dense rows; XLA, no Pallas kernel)", total["pdhg_dense_check"],
-                    dense_route["pdhg_dense_check"]),
+        dense_entry("pdhg_dense_check (K7c, in K7's checked launch)", "sdpcutsel_tpu/lp/"
+                    "pdhg.py:224 (checked_block with dense rows; XLA, no Pallas kernel)",
+                    total["pdhg_dense_check"], dense_route["pdhg_dense_check"]),
         dense_entry("pdhg_dense_norm", "sdpcutsel_tpu/lp/pdhg.py:71 (estimate_norm with dense "
                     "rows; XLA, no Pallas kernel)", total["pdhg_dense_norm"],
                     dense_route["pdhg_dense_norm"]),

@@ -80,11 +80,13 @@ _SIGNATURES = {
                                 _P, _P, _P,              # work, barrier, grid (out)
                                 _P],                     # stream
     "pdhg_dense_block_grid": [_I, _I, _I, _P],          # n m smem grid (out)
-    "pdhg_dense_check_launch": [_I, _I, _I, _I, _I, _I, _I,  # n m cluster smem check_every
-                                _F,                      # restart_period max_iters; tol
-                                _P, _P, _P, _P, _P,      # cx, cX, G, g, h
-                                *[_P] * 15,              # state, sums, anchor
-                                _P, _P],                 # records, stream
+    "pdhg_dense_block_checked_launch": [_I, _I, _I, _I, _I,  # n m check_every plan smem
+                                        _I, _I, _F,       # restart_period max_iters tol
+                                        _P,               # records
+                                        _P, _P, _P, _P, _P,  # cx, cX, G, g, h
+                                        *[_P] * 15,       # state, sums, anchor (in place)
+                                        _P, _P, _P,       # work, barrier, grid (out)
+                                        _P],              # stream
     "pdhg_dense_norm_launch": [_I, _I, _I, _I, _I,      # n m cluster smem iters
                                _P, _P,                   # G, g
                                _P, _P, _P, _P],          # y, Y, out, stream

@@ -1,18 +1,20 @@
 // The dense-row route of the PDHG solve, K7: the SDP certifier's LP
 // (loop/sdp_bound.py), whose pool holds no cut and whose m dense rows (the
 // eigencuts, up to the buffer's capacity, 2048 by default) do not fit K2's
-// shared memory.  Three entry points, float32, for the one instance:
+// shared memory.  Float32, for the one instance:
 //
 //   the block  `iters` iterations of lp/pdhg.py::_one_iter with an empty
 //       pool, every iterate added to the ergodic sums; tau, sigma and the
 //       stop flag from the solve's control record (pdhg_common.cuh), as K2
 //       (pdhg_block.cu) reads them.  Two launch plans by shape (below):
 //       pdhg_dense_cta_kernel and pdhg_dense_grid_kernel.  Twin:
-//       pdhg_block_plain.
-//   pdhg_dense_check_kernel  the checked block's control after each block, as
-//       K5 (pdhg_check.cuh) does it: both KKT errors with the dense
-//       residuals, the current-or-average choice, restart, omega, the stop
-//       test and the next steps, into the record.  Twin: pdhg_check_plain.
+//       pdhg_block_plain.  Steering launches it alone.
+//   the checked block (K7c)  the solve's step: the same kernels in their
+//       checked form (kCheck), whose epilogue is the checked block's control
+//       as K5 (pdhg_check.cuh) does it after K2: both KKT errors with the
+//       dense residuals, the current-or-average choice, restart, omega, the
+//       stop test and the next steps, into the record, on the slices each
+//       CTA owns.  Twin: pdhg_block_steps_plain then pdhg_check_plain.
 //   pdhg_dense_norm_kernel   ||K|| by `iters` power iterations in one launch,
 //       as K6 (pdhg_norm.cu).  Twin: estimate_norm_plain.
 //
@@ -29,23 +31,23 @@
 // (76 us).  Everything else is K2's n^2 work, well under a microsecond.  One
 // SM streams G at 20-35 GB/s (PERF.md section 6, one cluster of 16: ~0.5
 // TB/s), so the block's "grid" plan streams it on every SM, and its "cta"
-// plan, for the small sandwiches, keeps it in one SM's shared memory.
+// plan, for the small sandwiches, keeps it in one SM's shared memory.  The
+// check needs no primal step: each of its two points takes one pass over G
+// for its adjoint and its residuals together.
 //
-// The check and the norm: one thread-block cluster of C CTAs on K2's bands
+// The norm: one thread-block cluster of C CTAs on K2's bands
 // (pdhg_common.cuh): CTA r owns rows [r R, min(n, (r + 1) R)) of every
 // (n, n) array, R = ceil(n / C), keeps its bands in shared memory and
-// exchanges the transposed tile, the column sums of yB and x through
+// exchanges the transposed tile, the column sums of kB and x through
 // distributed shared memory as K2 does.  The dense rows are never copied to
 // shared memory: each pass streams the band's slice of every G_q and g_q
 // from global memory (dense_adjoint: band entries to lanes, q in increasing
 // order, on few entries the q range split into strands summed in strand
-// order; dense_residuals: each rank's partial of <G_q, Xb> + g_q . xb over
+// order; dense_residuals: each rank's partial of <G_q, Z> + g_q . z over
 // its band to the owner of q, [r mc, (r + 1) mc), mc = ceil(m / C), who sums
-// the ranks' partials in rank order).  The check evaluates the current
-// iterate and the average at once (one pass over G serves both), the norm
-// each power iterate.  No atomics and one fixed order for every sum, so a
-// launch repeats bit for bit; the twins sum in torch's order and agree to
-// rounding.
+// the ranks' partials in rank order).  No atomics and one fixed order for
+// every sum, so a launch repeats bit for bit; the twins sum in torch's order
+// and agree to rounding.
 //
 // The pool: the certifier's is one slot of width 1 that nothing fills, so the
 // kernels leave yC and its sum as they are (0, as the twin keeps them: its
@@ -272,6 +274,21 @@ __device__ void dense_residuals(cg::cluster_group& cluster, const float* __restr
 //
 // No atomics in any sum (the barrier's arrival counter is no sum), and one
 // fixed order for each, so a launch repeats bit for bit.
+//
+// The checked form (kCheck, the solve's step) then runs the check on the
+// same layout.  "grid": the state and sums stored;             grid barrier
+//   for the current iterate, then the average: its yD into shared memory
+//   (the adjoint's weights) and its owned [X | x] (the residual's, by
+//   shift), one pass over the owned segments (resident, or streamed once
+//   more) for the adjoint and the rows' partials together; M = cX - gX of
+//   the owned entries and the partials to global memory (work_words);
+//   the objective, dual-bound and infeasibility terms;        grid barrier
+//   the M + M^T terms, the owned rows' residuals (partials in CTA order);
+//   each CTA's sums to global memory;                          grid barrier
+//   every CTA folds the sums in CTA order and decides alike; on a restart
+//   each CTA copies its own slices and sends its distances;    grid barrier
+//   CTA 0 writes the record.  "cta": the same on the state in shared
+//   memory, with block barriers only, before the exit's stores.
 
 constexpr int kCtaMaxN = 32;     // the "cta" plan's largest n
 constexpr int kRowJ = 16;        // the "cta" plan's residual: entries a lane in registers
@@ -344,15 +361,47 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target, unsig
 
 struct BlockArgs {
   int n, m, iters;
-  const int* rec;                        // the solve's control record
+  int* rec;                              // the solve's control record (the checked form
+                                         // writes it)
   const float *cx, *cX, *G, *g, *h;
   // inputs: x, X, yA, yB, yD, then the sums ax, aX, aA, aB, ayD
   const float *x, *X, *yA, *yB, *yD, *ax, *aX, *aA, *aB, *ayD;
   // outputs, in the same order (may be the inputs)
   float *xo, *Xo, *yAo, *yBo, *yDo, *axo, *aXo, *aAo, *aBo, *ayDo;
-  float* work;                           // grid plan: S (n n), xb (n), partials (P, m)
+  float* work;                           // grid plan: work_layout
   unsigned* bar;                         // grid plan: the barrier's counter
+  // the checked form: the restart anchor x, X, yA, yB, yD and the check's
+  // arguments (iters is its check_every)
+  float *zx, *zX, *zA, *zB, *zD;
+  int restart_period, max_iters;
+  float tol;
 };
+
+// ---- the check (K7c), the epilogue of the checked form of both plans -----
+// After the block's last iteration, what pdhg_check.cuh does after K2's
+// (lp/pdhg.py pdhg_check_plain is the twin), on the dense rows:
+// wlen += check_every, avg = acc / wlen; the KKT error of the current
+// iterate (P = 0) and of the average (P = 1), the two points in turn, each
+// through one pass over G that serves both its adjoint sum_q yD_q [G_q |
+// g_q] (the strands' order of the block's adjoint) and its rows' residuals
+// <G_q, X> + g_q . x; the choice, restart (each CTA copies its own slices
+// of the candidate into the state and the anchor and zeroes its sums),
+// omega, the stop test and the next steps into the record (write_record).
+// Each CTA's partial sums are folded in CTA order, as the block folds its
+// rows, so every CTA decides alike.
+
+constexpr int kNV = 8;     // partial sums per evaluation point
+enum { kPX, kPx, kHyB, kHyD, kRxm, kSm, kV2, kVD2 };
+
+// The grid plan's global scratch (work), in floats: the block's S (n n), xb
+// (n) and row partials (P m); the checked form adds M at the average (n n;
+// the current point's takes S's place), the average's row partials (P m),
+// each CTA's sums (P 2 kNV) and distances (P kND); then the barrier's
+// counter.  lp/pdhg_dense.py::_work_words mirrors it.
+__host__ __device__ inline size_t work_words(int n, int m, int P, bool checked) {
+  const size_t NN = static_cast<size_t>(n) * n, Pm = static_cast<size_t>(P) * m;
+  return NN + n + Pm + (checked ? NN + Pm + static_cast<size_t>(P) * (2 * kNV + kND) : 0) + 1;
+}
 
 // ---- "grid" ---------------------------------------------------------------
 
@@ -394,43 +443,66 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
-    const __grid_constant__ BlockArgs a) {
-  extern __shared__ __align__(16) float sm[];
-  if (a.rec[kRecStop]) return;        // stopped: every CTA leaves before any barrier
-  const float tau = __int_as_float(a.rec[kRecTau]), sigma = __int_as_float(a.rec[kRecSigma]);
-  const int n = a.n, m = a.m, NN = n * n;
-  const int P = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const GridLayout L = grid_layout(n, m);
-  float* const scr = sm + L.scr;
-  float* const slab = sm + L.slab;
-  float* const syD = sm + L.yD;
-  float* const sown = sm + L.own;
-  float* const S = a.work;
-  float* const xb = a.work + NN;
-  float* const part = a.work + NN + n;   // (P, m): CTA b's partial of row q at b m + q
-  unsigned target = 0;
+// A CTA's slices of the "grid" plan and the passes over them, shared by the
+// block and its check: CTA b's entries of X [e0, e1), of x [i0, i1) and rows
+// [q0, q1); the rows' owned segments, row q's G_q[e0, e1) and g_q[i0, i1),
+// each as the 16-byte-aligned span that holds it (SA, SB floats: ca, cb
+// chunks of 4), ES floats a row.  Entry j of G's part sits at span position
+// shA(q) + j, of g's part at SA + shB(q) + j.
+struct GridCta {
+  const BlockArgs* a;
+  int n, m, NN, P, b, t;
+  int e0, e1, i0, i1, q0, q1, LA, LB, E;
+  int SA, SB, ES, ca, cr;
+  bool resident;
+  int QB, nst;
+  int NS, st, ct;               // the adjoint's lanes: chunk ct of strand st (rows q = st mod NS)
+  int RL, RG, rg, rl;           // the residuals' lanes: RL a row, group rg of RG
+  float *scr, *slab, *syD, *sown;
 
-  // this CTA's entries of X [e0, e1), of x [i0, i1) and rows [q0, q1)
-  int e0, e1, i0, i1, q0, q1;
-  slice(NN, b, P, e0, e1);
-  slice(n, b, P, i0, i1);
-  slice(m, b, P, q0, q1);
-  const int LA = e1 - e0, LB = i1 - i0, E = LA + LB;
+  __device__ __forceinline__ GridCta(const BlockArgs& args, float* sm) : a(&args) {
+    n = args.n;
+    m = args.m;
+    NN = n * n;
+    P = static_cast<int>(gridDim.x);
+    b = static_cast<int>(blockIdx.x);
+    t = threadIdx.x;
+    const GridLayout L = grid_layout(n, m);
+    scr = sm + L.scr;
+    slab = sm + L.slab;
+    syD = sm + L.yD;
+    sown = sm + L.own;
+    slice(NN, b, P, e0, e1);
+    slice(n, b, P, i0, i1);
+    slice(m, b, P, q0, q1);
+    LA = e1 - e0;
+    LB = i1 - i0;
+    E = LA + LB;
+    SA = LA > 0 ? (LA + 6) & ~3 : 0;
+    SB = LB > 0 ? (LB + 6) & ~3 : 0;
+    ES = SA + SB;
+    ca = SA / 4;
+    cr = ES / 4;
+    resident = static_cast<long long>(m) * ES <= L.yD - L.slab;
+    QB = ES > 0 ? kStage / ES : m;
+    nst = resident || m == 0 ? 0 : (m + QB - 1) / QB;
+    // NS is a multiple of 4, so a strand's rows share their shift
+    NS = cr > 0 ? (kThreads / cr) & ~3 : 0;
+    st = cr > 0 ? t / cr : 0;
+    ct = cr > 0 ? t % cr : 0;
+    RL = 1;                     // the least power of two with at most 4 chunks a lane
+    while (RL < 32 && RL * 4 < cr) RL <<= 1;
+    RG = kThreads / RL;
+    rg = t / RL;
+    rl = t % RL;
+  }
+  __device__ __forceinline__ int shA(int q) const { return ((q & 3) * (NN & 3) + e0) & 3; }
+  __device__ __forceinline__ int shB(int q) const { return ((q & 3) * (n & 3) + i0) & 3; }
 
-  // ---- the rows' owned segments: row q's G_q[e0, e1) and g_q[i0, i1), each
-  // as the 16-byte-aligned span that holds it (SA, SB floats: ca, cb chunks
-  // of 4), ES floats a row.  Entry j of G's part sits at span position
-  // shA(q) + j, of g's part at SA + shB(q) + j. ------------------------------
-  const int SA = LA > 0 ? (LA + 6) & ~3 : 0, SB = LB > 0 ? (LB + 6) & ~3 : 0;
-  const int ES = SA + SB, ca = SA / 4, cr = ES / 4;
-  auto shA = [&](int q) { return ((q & 3) * (NN & 3) + e0) & 3; };
-  auto shB = [&](int q) { return ((q & 3) * (n & 3) + i0) & 3; };
-  const size_t totG = static_cast<size_t>(m) * NN, totg = static_cast<size_t>(m) * n;
   // copy rows [qs, qs + nq) into dst: 16-byte copies (4-byte at the arrays'
   // ends); a chunk past its segment, or past the array, holds zeros
-  auto load_rows = [&](int qs, int nq, float* dst) {
+  __device__ __forceinline__ void load_rows(int qs, int nq, float* dst) const {
+    const size_t totG = static_cast<size_t>(m) * NN, totg = static_cast<size_t>(m) * n;
     for (int p = t; p < nq * cr; p += kThreads) {
       const int ql = p / cr, c = p - ql * cr;
       const size_t q = static_cast<size_t>(qs + ql);
@@ -438,7 +510,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
       const size_t s0 = inA ? q * NN + e0 : q * n + i0;
       const size_t start = (s0 & ~static_cast<size_t>(3)) + 4 * (inA ? c : c - ca);
       const size_t end = s0 + (inA ? LA : LB), tot = inA ? totG : totg;
-      const float* base = inA ? a.G : a.g;
+      const float* base = inA ? a->G : a->g;
       float* d = dst + ql * ES + 4 * c;
       if (start >= end || start + 4 > tot) {
         for (int u = 0; u < 4; ++u) {
@@ -452,13 +524,325 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
         cp_async16(d, base + start);
       }
     }
-  };
-  const bool resident = static_cast<long long>(m) * ES <= L.yD - L.slab;
-  const int QB = ES > 0 ? kStage / ES : m;
-  const int nst = resident || m == 0 ? 0 : (m + QB - 1) / QB;
-  auto issue = [&](int s, float* dst) { load_rows(s * QB, min(QB, m - s * QB), dst); };
+  }
+  __device__ __forceinline__ void issue(int s, float* dst) const {
+    load_rows(s * QB, min(QB, m - s * QB), dst);
+  }
 
-  if (resident) load_rows(0, m, slab);   // the launch's one read of the slice
+  // the adjoint of rows [qs, qs + nq) (buf: their segments) into acc with the
+  // weights syD: span positions 4 ct + u of the strand's rows, in increasing q
+  __device__ __forceinline__ void adjoint(float (&acc)[4], int qs, int nq, const float* buf) const {
+    if (st >= NS) return;
+    for (int ql = ((st - qs % NS) % NS + NS) % NS; ql < nq; ql += NS) {
+      const float w = syD[qs + ql];
+      const float4 v = lds4(buf + ql * ES + 4 * ct);
+      acc[0] = fmaf(w, v.x, acc[0]);
+      acc[1] = fmaf(w, v.y, acc[1]);
+      acc[2] = fmaf(w, v.z, acc[2]);
+      acc[3] = fmaf(w, v.w, acc[3]);
+    }
+  }
+  // entry j of a part sits at span position sh + j of each strand's rows:
+  // the strands' sums, in strand order, into sown[0, E)
+  __device__ __forceinline__ void strand_sums(const float (&acc)[4]) const {
+    if (st < NS) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) scr[(st * cr + ct) * 4 + u] = acc[u];
+    }
+    __syncthreads();
+    for (int j = t; j < E; j += kThreads) {
+      const bool inA = j < LA;
+      const int jj = inA ? j : j - LA, cbase = inA ? 0 : ca;
+      float sum = 0.0f;
+      for (int r = 0; r < NS; ++r) {
+        const int p = jj + (inA ? shA(r) : shB(r));
+        sum += scr[(r * cr + cbase + p / 4) * 4 + (p & 3)];
+      }
+      sown[j] = sum;
+    }
+    __syncthreads();
+  }
+  // the residual's weights by shift, from the owned entries' values in
+  // sown[0, E): span position p of a row of shift s takes the value at its
+  // entry, 0 off the segment
+  __device__ __forceinline__ void shift_weights() const {
+    for (int p = t; p < 4 * ES; p += kThreads) {
+      const int s = p / ES, pp = p - s * ES;
+      float w = 0.0f;
+      if (pp < SA) {
+        if (pp - s >= 0 && pp - s < LA) w = sown[pp - s];
+      } else if (pp - SA - s >= 0 && pp - SA - s < LB) {
+        w = sown[LA + pp - SA - s];
+      }
+      scr[p] = w;
+    }
+    __syncthreads();
+  }
+  // each row's partial over the owned entries, RL lanes a row (a butterfly;
+  // the same trip count in every lane: rows past nq redo the last, unstored),
+  // into out[b bs + q qs_]
+  __device__ __forceinline__ void residual(float* out, size_t bs, size_t qs_, int qs, int nq,
+                                           const float* buf) const {
+    for (int qb = 0; qb < nq; qb += RG) {
+      const int ql = qb + rg, qq = min(ql, nq - 1), q = qs + qq;
+      const int sa = shA(q), sb = shB(q);
+      float r = 0.0f;
+      for (int c = rl; c < cr; c += RL) {
+        const float4 v = lds4(buf + qq * ES + 4 * c);
+        const float4 w = lds4(scr + (c < ca ? sa * ES + 4 * c : sb * ES + 4 * c));
+        r = fmaf(v.x, w.x, r);
+        r = fmaf(v.y, w.y, r);
+        r = fmaf(v.z, w.z, r);
+        r = fmaf(v.w, w.w, r);
+      }
+      for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+      if (rl == 0 && ql < nq) out[b * bs + (qs + ql) * qs_] = r;
+    }
+  }
+};
+
+// The check (K7c) after the block's last iteration, over the grid; the
+// block's final state and sums of the CTA's owned entries come in registers
+// (rX ... rax), the rest from global memory, where the block has stored it.
+__device__ __forceinline__ void grid_check(const BlockArgs& a, unsigned target, float rX, float rA,
+                                        float rB, float raX, float raA, float raB, float rcX,
+                                        float rx, float rax) {
+  extern __shared__ __align__(16) float sm[];
+  const GridCta g(a, sm);
+  const int n = a.n, m = a.m, NN = n * n, P = g.P, b = g.b, t = g.t;
+  const int lane = t % 32, warp = t / 32;
+  const int i0 = g.i0, q0 = g.q0, q1 = g.q1, LA = g.LA, LB = g.LB, nst = g.nst, QB = g.QB;
+  const bool resident = g.resident;
+  const bool own = t < LA;
+  const int eo = g.e0 + t, io = eo / n, co = eo - io * n;
+  float* const scr = g.scr;
+  float* const slab = g.slab;
+  float* const syD = g.syD;
+  float* const sown = g.sown;
+  float* const S = a.work;
+  float* const part = a.work + NN + n;
+  auto issue = [&](int s, float* dst) { g.issue(s, dst); };
+  // ---- the check (K7c) over the grid ----------------------------------------
+  int* const rec = a.rec;
+  const int wlen = rec[kRecWlen] + a.iters;
+  const float inv = 1.0f / static_cast<float>(wlen);
+  float* const Mq[2] = {S, a.work + work_words(n, m, P, false) - 1};   // M = cX - gX
+  float* const partq[2] = {part, Mq[1] + NN};          // rows' partials, (m, P) each
+  float* const csum = partq[1] + static_cast<size_t>(P) * m;            // (2 kNV, P)
+  float* const cdist = csum + static_cast<size_t>(P) * 2 * kNV;         // (kND, P)
+  float rM[2] = {0.0f, 0.0f};          // M of the owned entry of X at each point
+  grid_sync(a.bar, target, P);         // the state, the sums and yD in global memory
+
+#pragma unroll
+  for (int pt = 0; pt < 2; ++pt) {
+    const float sc = pt == 0 ? 1.0f : inv;
+    const float* const pyD = pt == 0 ? a.yDo : a.ayDo;
+    const float* const px = pt == 0 ? a.xo : a.axo;
+    const float* const pyA = pt == 0 ? a.yAo : a.aAo;
+    const float* const pyB = pt == 0 ? a.yBo : a.aBo;
+    // the point's yD (the adjoint's weights) and its owned [X | x] (the
+    // residuals' weights, by shift)
+    for (int q = t; q < m; q += kThreads) syD[q] = __ldcg(pyD + q) * sc;
+    if (own) sown[t] = (pt == 0 ? rX : raX) * sc;
+    if (lane == 0 && warp < LB) sown[LA + warp] = (pt == 0 ? rx : rax) * sc;
+    __syncthreads();
+    g.shift_weights();
+    // one pass over G: the adjoint of the owned entries, the rows' partials
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (resident) {
+      g.adjoint(acc, 0, m, slab);
+      g.residual(partq[pt], 1, P, 0, m, slab);
+      __syncthreads();                 // every lane done with the weights in scr
+    } else {
+      ring_prologue(slab, nst, issue);
+      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+        g.adjoint(acc, s * QB, min(QB, m - s * QB), buf);
+        g.residual(partq[pt], 1, P, s * QB, min(QB, m - s * QB), buf);
+      });
+    }
+    g.strand_sums(acc);
+    // the owned entry of X: M = cX - gX to the transposes' readers, the
+    // objective, the dual bound's yB term and K z's infeasibility
+    float v[kNV];
+#pragma unroll
+    for (int j = 0; j < kNV; ++j) v[j] = 0.0f;
+    if (own) {
+      const float Xv = (pt == 0 ? rX : raX) * sc;
+      const float va = (pt == 0 ? rA : raA) * sc, vb = (pt == 0 ? rB : raB) * sc;
+      const float gX = (-kSA * va + kSB * vb) + sown[t];
+      rM[pt] = rcX - gX;
+      Mq[pt][eo] = rM[pt];
+      v[kPX] += rcX * Xv;
+      v[kHyB] += vb;
+      const float xi = __ldcg(px + io) * sc, xc = __ldcg(px + co) * sc;
+      const float kA = kSA * (xi - Xv);
+      const float kB = kSB * (Xv - xi - xc);
+      const float vA = fmaxf(-kA, 0.0f), vB = fmaxf(-kSB - kB, 0.0f);
+      v[kV2] += vA * vA + vB * vB;
+    }
+    // the owned entries of x: gx from the point's row and column sums
+    if (warp < LB) {
+      const int i = i0 + warp;
+      float sa = 0.0f, sb = 0.0f, sc2 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kCols / 32; ++j) {      // every load issued, then the sums in order
+        const int c = lane + 32 * j, cc = min(c, n - 1);
+        const float ya = __ldcg(pyA + i * n + cc), yb = __ldcg(pyB + i * n + cc),
+                    yc = __ldcg(pyB + cc * n + i);
+        if (c < n) {
+          sa += ya * sc;
+          sb += yb * sc;
+          sc2 += yc * sc;
+        }
+      }
+      sa = warp_sum(sa);
+      sb = warp_sum(sb);
+      sc2 = warp_sum(sc2);
+      if (lane == 0) {
+        const float gx = (kSA * sa - kSB * (sb + sc2)) + sown[LA + warp];
+        v[kRxm] += fminf(a.cx[i] - gx, 0.0f);
+        v[kPx] += a.cx[i] * ((pt == 0 ? rx : rax) * sc);
+      }
+    }
+    block_sums(v, scr, scr + (kThreads / 32) * kNV);
+    if (t == kPX || t == kPx || t == kHyB || t == kRxm || t == kV2)
+      csum[static_cast<size_t>(pt * kNV + t) * P + b] = scr[(kThreads / 32) * kNV + t];
+  }
+  grid_sync(a.bar, target, P);         // every M and every row's partials
+
+  // the dual bound's M + M^T term, and the owned rows' residuals
+  {
+    float v[2 * kNV];
+#pragma unroll
+    for (int j = 0; j < 2 * kNV; ++j) v[j] = 0.0f;
+#pragma unroll
+    for (int pt = 0; pt < 2; ++pt) {
+      const float sc = pt == 0 ? 1.0f : inv;
+      const float* const pyD = pt == 0 ? a.yDo : a.ayDo;
+      if (own) v[pt * kNV + kSm] += fminf(rM[pt] + __ldcg(Mq[pt] + co * n + io), 0.0f);
+      for (int q = q0 + warp; q < q1; q += kThreads / 32) {
+        float r = 0.0f;
+        for (int c = lane; c < P; c += 32) r += __ldcg(partq[pt] + static_cast<size_t>(q) * P + c);
+        r = warp_sum(r);
+        if (lane == 0) {
+          const float vD = fmaxf(a.h[q] - r, 0.0f);
+          v[pt * kNV + kVD2] += vD * vD;
+          v[pt * kNV + kHyD] += a.h[q] * (__ldcg(pyD + q) * sc);
+        }
+      }
+    }
+    block_sums(v, scr, scr + (kThreads / 32) * 2 * kNV);
+    if (t < 2 * kNV) {
+      const int j = t % kNV;
+      if (j == kSm || j == kVD2 || j == kHyD)
+        csum[static_cast<size_t>(t) * P + b] = scr[(kThreads / 32) * 2 * kNV + t];
+    }
+  }
+  grid_sync(a.bar, target, P);         // every CTA's sums
+
+  // every CTA folds the sums in CTA order (warp j the j-th) and decides alike
+  float* const tot = scr;                        // (2 kNV) the sums, then the decision
+  if (warp < 2 * kNV) {
+    float r = 0.0f;
+    for (int c = lane; c < P; c += 32) r += __ldcg(csum + static_cast<size_t>(warp) * P + c);
+    r = warp_sum(r);
+    if (lane == 0) tot[warp] = r;
+  }
+  __syncthreads();
+  float* const dec = scr + 2 * kNV;              // err, p, d of both points; use_avg
+  if (t == 0) {
+    for (int pt = 0; pt < 2; ++pt) {
+      const float* s = tot + pt * kNV;
+      const float p = s[kPx] + s[kPX];
+      const float hy = -kSB * s[kHyB] + s[kHyD];
+      const float d = (hy + s[kRxm]) + 0.5f * s[kSm];
+      const float infeas = sqrtf(s[kV2] + s[kVD2]);
+      dec[3 * pt] = infeas + fmaxf(p - d, 0.0f);
+      dec[3 * pt + 1] = p;
+      dec[3 * pt + 2] = d;
+    }
+    dec[6] = dec[3] < dec[0] ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  const bool use_avg = dec[6] != 0.0f;
+  const bool restart = use_avg || wlen >= a.restart_period;
+  if (restart) {
+    // the candidate into the state and the anchor, the sums zeroed, each
+    // CTA its own slices; the distances from the anchor
+    const float csc = use_avg ? inv : 1.0f;
+    float dv[kND];
+#pragma unroll
+    for (int j = 0; j < kND; ++j) dv[j] = 0.0f;
+    if (own) {
+      const float X = (use_avg ? raX : rX) * csc, A = (use_avg ? raA : rA) * csc,
+                  B = (use_avg ? raB : rB) * csc;
+      const float eX = X - a.zX[eo], eA = A - a.zA[eo], eB = B - a.zB[eo];
+      dv[kDX] += eX * eX;
+      dv[kDA] += eA * eA;
+      dv[kDB] += eB * eB;
+      a.Xo[eo] = X;
+      a.yAo[eo] = A;
+      a.yBo[eo] = B;
+      a.zX[eo] = X;
+      a.zA[eo] = A;
+      a.zB[eo] = B;
+      a.aXo[eo] = 0.0f;
+      a.aAo[eo] = 0.0f;
+      a.aBo[eo] = 0.0f;
+    }
+    if (lane == 0 && warp < LB) {
+      const int i = i0 + warp;
+      const float x = (use_avg ? rax : rx) * csc, e = x - a.zx[i];
+      dv[kDx] += e * e;
+      a.xo[i] = x;
+      a.zx[i] = x;
+      a.axo[i] = 0.0f;
+    }
+    for (int q = q0 + t; q < q1; q += kThreads) {
+      const float y = __ldcg((use_avg ? a.ayDo : a.yDo) + q) * csc, e = y - a.zD[q];
+      dv[kDD] += e * e;
+      a.yDo[q] = y;
+      a.zD[q] = y;
+      a.ayDo[q] = 0.0f;
+    }
+    block_sums(dv, scr + 32, scr + 32 + (kThreads / 32) * kND);
+    if (t < kND) cdist[static_cast<size_t>(t) * P + b] = scr[32 + (kThreads / 32) * kND + t];
+    grid_sync(a.bar, target, P);       // every CTA's distances
+    if (b == 0) {
+      float* const dist = scr + 256;   // (P, kND), in CTA order
+      for (int j = t; j < P * kND; j += kThreads)
+        dist[j] = __ldcg(cdist + static_cast<size_t>(j % kND) * P + j / kND);
+      __syncthreads();
+    }
+  }
+  // ---- the record, by CTA 0 -------------------------------------------------
+  if (b == 0 && t == 0)
+    write_record(rec, dec, use_avg, restart, wlen, scr + 256, P, a.iters, a.max_iters, a.tol);
+}
+
+template <bool kCheck>
+__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
+    const __grid_constant__ BlockArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  if (a.rec[kRecStop]) return;        // stopped: every CTA leaves before any barrier
+  const float tau = __int_as_float(a.rec[kRecTau]), sigma = __int_as_float(a.rec[kRecSigma]);
+  const int n = a.n, m = a.m, NN = n * n;
+  const int P = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const GridCta g(a, sm);
+  float* const slab = g.slab;
+  float* const syD = g.syD;
+  float* const sown = g.sown;
+  float* const S = a.work;
+  float* const xb = a.work + NN;
+  float* const part = a.work + NN + n;   // (P, m): CTA b's partial of row q at b m + q
+  unsigned target = 0;
+  const int e0 = g.e0, i0 = g.i0, q0 = g.q0, q1 = g.q1, LA = g.LA, LB = g.LB, E = g.E;
+  const bool resident = g.resident;
+  const int QB = g.QB, nst = g.nst;
+  auto issue = [&](int s, float* dst) { g.issue(s, dst); };
+
+  if (resident) g.load_rows(0, m, slab);   // the launch's one read of the slice
   cp_async_commit();
   ring_prologue(slab, a.iters > 0 ? nst : 0, issue);
 
@@ -499,16 +883,12 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     }
   }
 
-  // the adjoint's lanes: chunk ct of strand st (rows q = st mod NS); NS is a
-  // multiple of 4, so a strand's rows share their shift, sh
-  const int NS = cr > 0 ? (kThreads / cr) & ~3 : 0;
-  const int st = cr > 0 ? t / cr : 0, ct = cr > 0 ? t % cr : 0;
-  const int sh = ct < ca ? shA(st) : shB(st);
-  // the residuals' lanes: RL a row (the least power of two with at most 4
-  // chunks a lane), group rg of RG
-  int RL = 1;
-  while (RL < 32 && RL * 4 < cr) RL <<= 1;
-  const int RG = kThreads / RL, rg = t / RL, rl = t % RL;
+  auto adjoint = [&](float (&acc)[4], int qs, int nq, const float* buf) {
+    g.adjoint(acc, qs, nq, buf);
+  };
+  auto residual = [&](float* out, size_t bs, size_t qs_, int qs, int nq, const float* buf) {
+    g.residual(out, bs, qs_, qs, nq, buf);
+  };
   if (resident) cp_async_wait<0>();      // the slice; a stream's first stages stay in flight
   __syncthreads();
 
@@ -517,44 +897,16 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     // ---- I: the adjoint of the owned entries ---------------------------------
     for (int q = t; q < m; q += kThreads) syD[q] = __ldcg(yDc + q);
     __syncthreads();
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // span positions 4 ct + u of the strand's rows
-    auto adjoint = [&](int qs, int nq, const float* buf) {
-      if (st >= NS) return;
-      for (int ql = ((st - qs % NS) % NS + NS) % NS; ql < nq; ql += NS) {
-        const float w = syD[qs + ql];
-        const float4 v = lds4(buf + ql * ES + 4 * ct);
-        acc[0] = fmaf(w, v.x, acc[0]);
-        acc[1] = fmaf(w, v.y, acc[1]);
-        acc[2] = fmaf(w, v.z, acc[2]);
-        acc[3] = fmaf(w, v.w, acc[3]);
-      }
-    };
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (resident) {
-      adjoint(0, m, slab);
+      adjoint(acc, 0, m, slab);
     } else {
       ring_drain(slab, nst, issue, [&](int s, const float* buf) {
-        adjoint(s * QB, min(QB, m - s * QB), buf);
+        adjoint(acc, s * QB, min(QB, m - s * QB), buf);
       });
       ring_prologue(slab, nst, issue);    // phase II's first stages, early
     }
-    // entry j of a part sits at span position sh + j of each strand's rows:
-    // the strands' sums, in strand order
-    if (st < NS) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) scr[(st * cr + ct) * 4 + u] = acc[u];
-    }
-    __syncthreads();
-    for (int j = t; j < E; j += kThreads) {
-      const bool inA = j < LA;
-      const int jj = inA ? j : j - LA, cbase = inA ? 0 : ca;
-      float sum = 0.0f;
-      for (int r = 0; r < NS; ++r) {
-        const int p = jj + (inA ? shA(r) : shB(r));
-        sum += scr[(r * cr + cbase + p / 4) * 4 + (p & 3)];
-      }
-      sown[j] = sum;
-    }
-    __syncthreads();
+    g.strand_sums(acc);
 
     // S = X - tau (cX - gX) of the owned entries of X
     if (own) {
@@ -592,43 +944,12 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     }
     for (int j = LA + t; j < E; j += kThreads) sown[j] = __ldcg(xb + i0 + j - LA);
     __syncthreads();
-    // the residual's weights by shift: span position p of a row of shift s
-    // takes [Xb | xb] at its entry, 0 off the segment
-    for (int p = t; p < 4 * ES; p += kThreads) {
-      const int s = p / ES, pp = p - s * ES;
-      float w = 0.0f;
-      if (pp < SA) {
-        if (pp - s >= 0 && pp - s < LA) w = sown[pp - s];
-      } else if (pp - SA - s >= 0 && pp - SA - s < LB) {
-        w = sown[LA + pp - SA - s];
-      }
-      scr[p] = w;
-    }
-    __syncthreads();
-    // each row's partial over the owned entries, RL lanes a row (a butterfly;
-    // the same trip count in every lane: rows past nq redo the last, unstored)
-    auto residual = [&](int qs, int nq, const float* buf) {
-      for (int qb = 0; qb < nq; qb += RG) {
-        const int ql = qb + rg, qq = min(ql, nq - 1), q = qs + qq;
-        const int sa = shA(q), sb = shB(q);
-        float r = 0.0f;
-        for (int c = rl; c < cr; c += RL) {
-          const float4 v = lds4(buf + qq * ES + 4 * c);
-          const float4 w = lds4(scr + (c < ca ? sa * ES + 4 * c : sb * ES + 4 * c));
-          r = fmaf(v.x, w.x, r);
-          r = fmaf(v.y, w.y, r);
-          r = fmaf(v.z, w.z, r);
-          r = fmaf(v.w, w.w, r);
-        }
-        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-        if (rl == 0 && ql < nq) part[static_cast<size_t>(b) * m + qs + ql] = r;
-      }
-    };
+    g.shift_weights();                   // [Xb | xb]
     if (resident) {
-      residual(0, m, slab);
+      residual(part, m, 1, 0, m, slab);
     } else {
       ring_drain(slab, nst, issue, [&](int s, const float* buf) {
-        residual(s * QB, min(QB, m - s * QB), buf);
+        residual(part, m, 1, s * QB, min(QB, m - s * QB), buf);
       });
     }
     grid_sync(a.bar, target, P);
@@ -665,6 +986,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     a.xo[i0 + warp] = rx;
     a.axo[i0 + warp] = rax;
   }
+  if constexpr (kCheck) grid_check(a, target, rX, rA, rB, raX, raA, raB, rcX, rx, rax);
 }
 
 // ---- "cta" ----------------------------------------------------------------
@@ -700,6 +1022,7 @@ __host__ __device__ inline CtaLayout cta_layout(int n, int m) {
   return L;
 }
 
+template <bool kCheck>
 __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
     const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) float sm[];
@@ -897,6 +1220,167 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
     __syncthreads();
   }
 
+  if constexpr (kCheck) {
+    // ---- the check (K7c) on the state in shared memory ------------------------
+    int* const rec = a.rec;
+    const int wlen = rec[kRecWlen] + a.iters;
+    const float inv = 1.0f / static_cast<float>(wlen);
+    float tot[2][kNV];                 // the sums of each point (thread 0's)
+#pragma unroll
+    for (int pt = 0; pt < 2; ++pt) {
+      const float sc = pt == 0 ? 1.0f : inv;
+      const float* const pX = pt == 0 ? sX : saX;
+      const float* const pA = pt == 0 ? syA : saA;
+      const float* const pB = pt == 0 ? syB : saB;
+      const float* const px = pt == 0 ? sx : sax;
+      const float* const pD = pt == 0 ? syD : sayD;
+      // the adjoint sum_q yD_q [G_q | g_q] at the point, as the block's
+      if (sj < NS) {
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+        for (int q = qa; q < qe; ++q) {
+          const float w = pD[q] * sc;
+          const float4 v = *reinterpret_cast<const float4*>(W + q * V4 + 4 * k4);
+          acc.x = fmaf(w, v.x, acc.x);
+          acc.y = fmaf(w, v.y, acc.y);
+          acc.z = fmaf(w, v.z, acc.z);
+          acc.w = fmaf(w, v.w, acc.w);
+        }
+        *reinterpret_cast<float4*>(sstr + sj * V4 + 4 * k4) = acc;
+      }
+      // [X | x] at the point, the residuals' weights
+      for (int e = t; e < NN; e += kThreads) swv[e] = pX[e] * sc;
+      for (int i = t; i < n; i += kThreads) swv[NN + i] = px[i] * sc;
+      __syncthreads();
+      for (int v = t; v < V; v += kThreads) {
+        float s = 0.0f;
+        for (int r = 0; r < NS; ++r) s += sstr[r * V4 + v];
+        sgD[v] = s;
+      }
+      // the rows' residuals <G_q, X> + g_q . x, RL lanes a row
+      for (int qb = 0; qb < m; qb += RG) {
+        const int q = qb + rg;
+        const float* Wq = W + min(q, m - 1) * V4;
+        float r = 0.0f;
+        for (int k = rl; k < Q4; k += RL) {
+          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * k);
+          const float4 w = *reinterpret_cast<const float4*>(swv + 4 * k);
+          r = fmaf(v.x, w.x, r);
+          r = fmaf(v.y, w.y, r);
+          r = fmaf(v.z, w.z, r);
+          r = fmaf(v.w, w.w, r);
+        }
+        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+        if (rl == 0 && q < m) sres[q] = r;
+      }
+      __syncthreads();
+      // the point's sums: objective, dual bound (M + M^T from gX and its
+      // transpose), infeasibility of K z
+      float v[kNV];
+#pragma unroll
+      for (int j = 0; j < kNV; ++j) v[j] = 0.0f;
+      for (int e = t; e < NN; e += kThreads) {
+        const int i = e / n, c = e - i * n, T = c * n + i;
+        const float Xv = swv[e], va = pA[e] * sc, vb = pB[e] * sc;
+        const float Mv = scX[e] - ((-kSA * va + kSB * vb) + sgD[e]);
+        const float MT = scX[T] - ((-kSA * (pA[T] * sc) + kSB * (pB[T] * sc)) + sgD[T]);
+        v[kPX] += scX[e] * Xv;
+        v[kHyB] += vb;
+        v[kSm] += fminf(Mv + MT, 0.0f);
+        const float xi = swv[NN + i], xc = swv[NN + c];
+        const float kA = kSA * (xi - Xv);
+        const float kB = kSB * (Xv - xi - xc);
+        const float vA = fmaxf(-kA, 0.0f), vB = fmaxf(-kSB - kB, 0.0f);
+        v[kV2] += vA * vA + vB * vB;
+      }
+      if (t < n) {
+        const int i = t;
+        float sa = 0.0f, sb = 0.0f, scl = 0.0f;
+        for (int c = 0; c < n; ++c) {
+          sa += pA[i * n + c] * sc;
+          sb += pB[i * n + c] * sc;
+          scl += pB[c * n + i] * sc;
+        }
+        const float gx = (kSA * sa - kSB * (sb + scl)) + sgD[NN + i];
+        v[kRxm] += fminf(scx[i] - gx, 0.0f);
+        v[kPx] += scx[i] * swv[NN + i];
+      }
+      for (int q = t; q < m; q += kThreads) {
+        const float vD = fmaxf(sh[q] - sres[q], 0.0f);
+        v[kVD2] += vD * vD;
+        v[kHyD] += sh[q] * (pD[q] * sc);
+      }
+      block_sums(v, sstr, sstr + (kThreads / 32) * kNV);
+      if (t == 0) {
+#pragma unroll
+        for (int j = 0; j < kNV; ++j) tot[pt][j] = sstr[(kThreads / 32) * kNV + j];
+      }
+      __syncthreads();
+    }
+    float* const dec = sstr + 160;     // err, p, d of both points; use_avg
+    if (t == 0) {
+#pragma unroll
+      for (int pt = 0; pt < 2; ++pt) {
+        const float* s = tot[pt];
+        const float p = s[kPx] + s[kPX];
+        const float hy = -kSB * s[kHyB] + s[kHyD];
+        const float d = (hy + s[kRxm]) + 0.5f * s[kSm];
+        const float infeas = sqrtf(s[kV2] + s[kVD2]);
+        dec[3 * pt] = infeas + fmaxf(p - d, 0.0f);
+        dec[3 * pt + 1] = p;
+        dec[3 * pt + 2] = d;
+      }
+      dec[6] = dec[3] < dec[0] ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+    const bool use_avg = dec[6] != 0.0f;
+    const bool restart = use_avg || wlen >= a.restart_period;
+    if (restart) {
+      // the candidate into the state and the anchor, the sums zeroed; the
+      // distances from the anchor
+      const float csc = use_avg ? inv : 1.0f;
+      float dv[kND];
+#pragma unroll
+      for (int j = 0; j < kND; ++j) dv[j] = 0.0f;
+      for (int e = t; e < NN; e += kThreads) {
+        const float X = (use_avg ? saX[e] : sX[e]) * csc, A = (use_avg ? saA[e] : syA[e]) * csc,
+                    B = (use_avg ? saB[e] : syB[e]) * csc;
+        const float eX = X - a.zX[e], eA = A - a.zA[e], eB = B - a.zB[e];
+        dv[kDX] += eX * eX;
+        dv[kDA] += eA * eA;
+        dv[kDB] += eB * eB;
+        sX[e] = X;
+        syA[e] = A;
+        syB[e] = B;
+        a.zX[e] = X;
+        a.zA[e] = A;
+        a.zB[e] = B;
+        saX[e] = 0.0f;
+        saA[e] = 0.0f;
+        saB[e] = 0.0f;
+      }
+      for (int i = t; i < n; i += kThreads) {
+        const float x = (use_avg ? sax[i] : sx[i]) * csc, e = x - a.zx[i];
+        dv[kDx] += e * e;
+        sx[i] = x;
+        a.zx[i] = x;
+        sax[i] = 0.0f;
+      }
+      for (int q = t; q < m; q += kThreads) {
+        const float y = (use_avg ? sayD[q] : syD[q]) * csc, e = y - a.zD[q];
+        dv[kDD] += e * e;
+        syD[q] = y;
+        a.zD[q] = y;
+        sayD[q] = 0.0f;
+      }
+      block_sums(dv, sstr, sstr + 128);
+    }
+    if (t == 0)
+      write_record(rec, dec, use_avg, restart, wlen, sstr + 128, 1, a.iters, a.max_iters,
+                   a.tol);
+    __syncthreads();
+  }
+
   // ---- exit: the state and sums, stored once --------------------------------
   for (int e = t; e < NN; e += kThreads) {
     a.Xo[e] = sX[e];
@@ -914,273 +1398,6 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
     a.yDo[q] = syD[q];
     a.ayDo[q] = sayD[q];
   }
-}
-
-// ---- the check ------------------------------------------------------------
-
-constexpr int kNV = 8;     // partial sums per evaluation point
-enum { kPX, kPx, kHyB, kHyD, kRxm, kSm, kV2, kVD2 };
-
-struct Point {             // x, X, yA, yB, yD
-  float *x, *X, *yA, *yB, *yD;
-};
-
-struct CheckArgs {
-  int n, m, R, mc, nr;
-  int check_every, restart_period, max_iters;
-  float tol;
-  const float *cx, *cX, *G, *g, *h;
-  Point st, acc, anchor;
-  int* rec;
-};
-
-struct CheckLayout {
-  int xs, yd;              // [2] replicas: (kCols,), (m,)
-  int Xb;                  // [2] (R, n) the band of X at both points
-  int D, gD;               // [2] (R, n), (R,) the band's dense adjoint
-  int Mt, MT;              // [2] (R, n) the band's M = cX - gX and the transposed tiles
-  int rowA, rowB;          // [2] (R, kWarpsPerRow) row partials of yA, yB
-  int colP;                // [2] (C kGroups, R) column partials of yB
-  int kDp;                 // [2] (C, mc) the ranks' partials of the owned rows
-  int red;                 // (C, 2 kNV) partial sums of every rank
-  int dist;                // (C, kND) partial distances of every rank (rank 0's)
-  int scratch;             // (2 kThreads) strand partials and block sums
-  int tot;                 // (2 kNV + kND + 8) this CTA's sums, then the decision
-  int words;
-};
-
-__host__ __device__ inline CheckLayout check_layout(int n, int m, int C) {
-  const int R = (n + C - 1) / C, mc = (m + C - 1) / C, RN = R * n;
-  CheckLayout L;
-  int o = 0;
-#define TAKE(field, words) L.field = o; o += (words)
-  TAKE(xs, 2 * kCols); TAKE(yd, 2 * m);
-  TAKE(Xb, 2 * RN); TAKE(D, 2 * RN); TAKE(gD, 2 * R);
-  TAKE(Mt, 2 * RN); TAKE(MT, 2 * RN);
-  TAKE(rowA, 2 * R * kWarpsPerRow); TAKE(rowB, 2 * R * kWarpsPerRow);
-  TAKE(colP, 2 * C * kGroups * R);
-  TAKE(kDp, 2 * C * mc);
-  TAKE(red, C * 2 * kNV);
-  TAKE(dist, C * kND);
-  TAKE(scratch, 2 * kThreads);
-  TAKE(tot, 2 * kNV + kND + 8);
-#undef TAKE
-  L.words = o;
-  return L;
-}
-
-__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_check_kernel(
-    const __grid_constant__ CheckArgs a) {
-  extern __shared__ __align__(16) float sm[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  int* const rec = a.rec;
-  if (rec[kRecStop]) return;          // stopped: every CTA leaves before any barrier
-  const int n = a.n, m = a.m, R = a.R, mc = a.mc, RN = R * n;
-  const int wlen = rec[kRecWlen] + a.check_every;
-  const float inv = 1.0f / static_cast<float>(wlen);
-  const CheckLayout L = check_layout(n, m, C);
-  const Point st = a.st, acc = a.acc, anc = a.anchor;
-
-  const int t = threadIdx.x;
-  const int c = t % kCols;
-  const int grp = t / kCols;
-  const int lane = t % 32;
-  const int wr = c / 32;
-  const int r0 = rank * R;
-  const int rows = band_rows(n, R, rank);
-  const int q0 = rank * a.mc;
-  const int qn = max(0, min(mc, m - q0));
-
-  // the two evaluation points: P = 0 the current iterate, P = 1 the average
-  const Point pt[2] = {st, acc};
-  const float scale[2] = {1.0f, inv};
-
-  // ---- replicas of x and yD, and the band of X, at both points -----------
-#pragma unroll
-  for (int P = 0; P < 2; ++P) {
-    for (int j = t; j < n; j += kThreads) sm[L.xs + P * kCols + j] = pt[P].x[j] * scale[P];
-    for (int q = t; q < m; q += kThreads) sm[L.yd + P * m + q] = pt[P].yD[q] * scale[P];
-    for (int e = t; e < rows * n; e += kThreads)
-      sm[L.Xb + P * RN + e] = pt[P].X[static_cast<size_t>(r0) * n + e] * scale[P];
-  }
-  cluster.sync();   // every CTA has started before any remote store
-
-  // ---- the band's dense adjoint at both points, in one pass over G --------
-  dense_adjoint<2>(a.G, a.g, n, m, r0, rows, sm + L.yd, m, sm + L.D, RN, sm + L.gD, R,
-                   sm + L.scratch);
-  __syncthreads();
-
-  // ---- 1: M = cX - gX and its transpose, row and column sums, infeasibility;
-  //      the dense rows' partials to the owners ---------------------------
-  float part[2 * kNV];
-#pragma unroll
-  for (int j = 0; j < 2 * kNV; ++j) part[j] = 0.0f;
-#pragma unroll
-  for (int P = 0; P < 2; ++P) {
-    const float* xs = sm + L.xs + P * kCols;
-    float* v = part + P * kNV;
-    float cb = 0.0f;
-    for (int il = grp; il < rows; il += kGroups) {   // uniform across each warp
-      float va = 0.0f, vb = 0.0f;
-      if (c < n) {
-        const int i = r0 + il, e = il * n + c;
-        const size_t ge = static_cast<size_t>(i) * n + c;
-        const float Xv = sm[L.Xb + P * RN + e];
-        va = pt[P].yA[ge] * scale[P];
-        vb = pt[P].yB[ge] * scale[P];
-        const float gX = (-kSA * va + kSB * vb) + sm[L.D + P * RN + e];
-        const float cXv = a.cX[ge];
-        const float Mv = cXv - gX;
-        sm[L.Mt + P * RN + e] = Mv;
-        const int oc = c / R;
-        cluster.map_shared_rank(sm + L.MT + P * RN, oc)[(c - oc * R) * n + i] = Mv;
-        v[kPX] += cXv * Xv;
-        v[kHyB] += vb;
-        const float kA = kSA * (xs[i] - Xv);
-        const float kB = kSB * (Xv - xs[i] - xs[c]);
-        const float vA = fmaxf(-kA, 0.0f), vB = fmaxf(-kSB - kB, 0.0f);
-        v[kV2] += vA * vA + vB * vB;
-        cb += vb;
-      }
-      const float rA = warp_sum(va);
-      const float rB = warp_sum(vb);
-      if (lane == 0) {
-        sm[L.rowA + P * R * kWarpsPerRow + il * kWarpsPerRow + wr] = rA;
-        sm[L.rowB + P * R * kWarpsPerRow + il * kWarpsPerRow + wr] = rB;
-      }
-    }
-    if (c < n) {
-      const int oc = c / R;
-      cluster.map_shared_rank(sm + L.colP + P * C * kGroups * R, oc)[
-          (rank * kGroups + grp) * R + (c - oc * R)] = cb;
-    }
-  }
-  dense_residuals<2>(cluster, a.G, a.g, n, m, r0, rows, rank, C, mc, sm + L.Xb, RN,
-                     sm + L.xs + r0, kCols, sm + L.kDp);
-  cluster.sync();
-
-  // ---- 2: gx and the dual bound's terms; the owned rows' residuals; this
-  //      CTA's sums to every CTA ------------------------------------------
-#pragma unroll
-  for (int P = 0; P < 2; ++P) {
-    const float* xs = sm + L.xs + P * kCols;
-    const float* yd = sm + L.yd + P * m;
-    float* v = part + P * kNV;
-    if (t < rows) {
-      const int i = r0 + t;
-      const float* rA = sm + L.rowA + P * R * kWarpsPerRow;
-      const float* rB = sm + L.rowB + P * R * kWarpsPerRow;
-      const float* cP = sm + L.colP + P * C * kGroups * R;
-      float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kWarpsPerRow; ++q) {
-        sa += rA[t * kWarpsPerRow + q];
-        sb += rB[t * kWarpsPerRow + q];
-      }
-      for (int q = 0; q < C * kGroups; ++q) sc += cP[q * R + t];
-      const float gx = (kSA * sa - kSB * (sb + sc)) + sm[L.gD + P * R + t];
-      v[kRxm] += fminf(a.cx[i] - gx, 0.0f);
-      v[kPx] += a.cx[i] * xs[i];
-    }
-    if (c < n) {
-      for (int il = grp; il < rows; il += kGroups) {
-        const int e = il * n + c;
-        v[kSm] += fminf(sm[L.Mt + P * RN + e] + sm[L.MT + P * RN + e], 0.0f);
-      }
-    }
-    for (int j = t; j < qn; j += kThreads) {
-      float kD = 0.0f;
-      for (int r = 0; r < a.nr; ++r) kD += sm[L.kDp + (P * C + r) * mc + j];
-      const int q = q0 + j;
-      const float vD = fmaxf(a.h[q] - kD, 0.0f);
-      v[kVD2] += vD * vD;
-      v[kHyD] += a.h[q] * yd[q];
-    }
-  }
-  block_sums(part, sm + L.scratch, sm + L.tot);
-  for (int j = t; j < C * 2 * kNV; j += kThreads) {
-    const int r = j / (2 * kNV), q = j % (2 * kNV);
-    cluster.map_shared_rank(sm + L.red, r)[rank * 2 * kNV + q] = sm[L.tot + q];
-  }
-  cluster.sync();
-
-  // ---- 3: every CTA sums the ranks' partials in rank order and decides ---
-  float* const dec = sm + L.tot + 2 * kNV + kND;   // err, p, d of both points; use_avg
-  if (t == 0) {
-    for (int P = 0; P < 2; ++P) {
-      float s[kNV];
-      for (int j = 0; j < kNV; ++j) {
-        s[j] = 0.0f;
-        for (int r = 0; r < C; ++r) s[j] += sm[L.red + r * 2 * kNV + P * kNV + j];
-      }
-      const float p = s[kPx] + s[kPX];
-      const float hy = -kSB * s[kHyB] + s[kHyD];
-      const float d = (hy + s[kRxm]) + 0.5f * s[kSm];
-      const float infeas = sqrtf(s[kV2] + s[kVD2]);
-      dec[3 * P] = infeas + fmaxf(p - d, 0.0f);
-      dec[3 * P + 1] = p;
-      dec[3 * P + 2] = d;
-    }
-    dec[6] = dec[3] < dec[0] ? 1.0f : 0.0f;
-  }
-  __syncthreads();
-  const bool use_avg = dec[6] != 0.0f;
-  const bool restart = use_avg || wlen >= a.restart_period;
-  const Point cand = use_avg ? acc : st;
-  const float csc = use_avg ? inv : 1.0f;
-
-  // ---- restart: distances of the candidate from the anchor; the candidate
-  //      into the state and the anchor, the sums zeroed --------------------
-  if (restart) {
-    float dv[kND];
-#pragma unroll
-    for (int j = 0; j < kND; ++j) dv[j] = 0.0f;
-    if (c < n) {
-      for (int il = grp; il < rows; il += kGroups) {
-        const size_t ge = static_cast<size_t>(r0 + il) * n + c;
-        const float X = cand.X[ge] * csc, A = cand.yA[ge] * csc, B = cand.yB[ge] * csc;
-        const float eX = X - anc.X[ge], eA = A - anc.yA[ge], eB = B - anc.yB[ge];
-        dv[kDX] += eX * eX;
-        dv[kDA] += eA * eA;
-        dv[kDB] += eB * eB;
-        st.X[ge] = X;
-        st.yA[ge] = A;
-        st.yB[ge] = B;
-        anc.X[ge] = X;
-        anc.yA[ge] = A;
-        anc.yB[ge] = B;
-        acc.X[ge] = 0.0f;
-        acc.yA[ge] = 0.0f;
-        acc.yB[ge] = 0.0f;
-      }
-    }
-    if (t < rows) {
-      const int i = r0 + t;
-      const float x = cand.x[i] * csc, e = x - anc.x[i];
-      dv[kDx] += e * e;
-      st.x[i] = x;
-      anc.x[i] = x;
-      acc.x[i] = 0.0f;
-    }
-    for (int j = t; j < qn; j += kThreads) {
-      const int q = q0 + j;
-      const float y = cand.yD[q] * csc, e = y - anc.yD[q];
-      dv[kDD] += e * e;
-      st.yD[q] = y;
-      anc.yD[q] = y;
-      acc.yD[q] = 0.0f;
-    }
-    block_sums(dv, sm + L.scratch, sm + L.tot + 2 * kNV);
-    if (t < kND) cluster.map_shared_rank(sm + L.dist, 0)[rank * kND + t] = sm[L.tot + 2 * kNV + t];
-  }
-  cluster.sync();
-
-  // ---- the record, by rank 0 ----------------------------------------------
-  if (rank == 0 && t == 0)
-    write_record(rec, dec, use_avg, restart, wlen, sm + L.dist, C, a.check_every,
-                 a.max_iters, a.tol);
 }
 
 // ---- the norm -------------------------------------------------------------
@@ -1408,29 +1625,85 @@ int ranks_with_rows(int n, int cluster) {
 }
 
 // The cooperative grid of the "grid" plan with smem bytes a CTA, into *P:
-// as many CTAs as the card holds at once (each SM's share times the SMs).
-// Returns 0, a CUDA error or kErrNoCluster (not one CTA fits).
+// as many CTAs as the card holds at once (each SM's share times the SMs) of
+// both forms, unchecked and checked, so that the two run the same grid and
+// the block's sums the same order.  Returns 0, a CUDA error or kErrNoCluster
+// (not one CTA fits).
 int dense_grid(int smem, int* P) {
   static int cached[3] = {-1, -1, 0};   // device, smem, CTAs
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (cached[0] != dev || cached[1] != smem) {
-    e = cudaFuncSetAttribute(pdhg_dense_grid_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pdhg_dense_grid_kernel,
-                                                      kThreads, static_cast<size_t>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    int per_sm[2] = {0, 0}, sms = 0;
+    const void* kernels[2] = {reinterpret_cast<const void*>(pdhg_dense_grid_kernel<false>),
+                              reinterpret_cast<const void*>(pdhg_dense_grid_kernel<true>)};
+    for (int f = 0; f < 2; ++f) {
+      e = cudaFuncSetAttribute(kernels[f], cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[f], kernels[f], kThreads,
+                                                        static_cast<size_t>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
     cached[0] = dev;
     cached[1] = smem;
-    cached[2] = per_sm * sms;
+    cached[2] = (per_sm[0] < per_sm[1] ? per_sm[0] : per_sm[1]) * sms;
   }
   *P = cached[2];
   return *P < 1 ? kErrNoCluster : 0;
+}
+
+// One launch of the block (kCheck: its checked form) under plan 0 "cta" or
+// 1 "grid"; the shape and smem already checked.
+template <bool kCheck>
+int launch_block(const BlockArgs& a, int plan, int smem, int* grid, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cudaError_t e;
+  if (plan == 0) {
+    static int checked = -1;
+    if (checked != smem) {
+      e = cudaFuncSetAttribute(pdhg_dense_cta_kernel<kCheck>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      checked = smem;
+    }
+    cfg.gridDim = dim3(1, 1, 1);
+    *grid = 1;
+    e = cudaLaunchKernelEx(&cfg, pdhg_dense_cta_kernel<kCheck>, a);
+  } else {
+    int P = 0;
+    const int err = dense_grid(smem, &P);
+    if (err != 0) return err;
+    const int n = a.n;
+    if ((n * n + P - 1) / P + (n + P - 1) / P > kMaxE || (n + P - 1) / P > kThreads / 32)
+      return kErrLayout;
+    if (kCheck && 256 + P * kND > kScratch) return kErrLayout;   // CTA 0's copy of the distances
+    e = cudaMemsetAsync(a.bar, 0, sizeof(unsigned), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.gridDim = dim3(P, 1, 1);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    *grid = P;
+    e = cudaLaunchKernelEx(&cfg, pdhg_dense_grid_kernel<kCheck>, a);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int check_block(int n, int m, int iters, int plan, int smem) {
+  if (n < 1 || n > kCols || m < 0 || iters < 0 || (plan != 0 && plan != 1)) return kErrLayout;
+  const int words = plan == 0 ? cta_layout(n, m).words : grid_layout(n, m).words;
+  if (4 * static_cast<size_t>(words) != static_cast<size_t>(smem)) return kErrLayout;
+  if (plan == 0 && n > kCtaMaxN) return kErrLayout;
+  return 0;
 }
 
 }  // namespace
@@ -1440,9 +1713,9 @@ int dense_grid(int smem, int* P) {
 // state x, X, yA, yB, yD and sums ax, aX, aA, aB, ayD in, the same out (the
 // outputs may be the inputs).  G (m, n, n), g (m, n), h (m,) are the dense
 // rows, read in place.  plan: 0 "cta" (one CTA, the rows in its shared
-// memory), 1 "grid" (one CTA an SM, launched cooperatively, with work: n n +
-// n + P m floats of scratch, P the grid (pdhg_dense_block_grid), and bar: one
-// word for the barrier, zeroed here).
+// memory), 1 "grid" (one CTA an SM, launched cooperatively, with work:
+// work_words(n, m, P, false) floats of scratch, P the grid
+// (pdhg_dense_block_grid), and bar: one word for the barrier, zeroed here).
 // smem comes from the caller's plan (lp/pdhg_dense.py::smem_bytes) and must
 // equal this file's layout.  *grid receives the CTAs launched.  Returns 0, a
 // CUDA error, kErrLayout or kErrNoCluster.
@@ -1454,48 +1727,37 @@ extern "C" int pdhg_dense_block_launch(
     float* xo, float* Xo, float* yAo, float* yBo, float* yDo,
     float* axo, float* aXo, float* aAo, float* aBo, float* ayDo, float* work, unsigned* bar,
     int* grid, void* stream) {
-  if (n < 1 || n > kCols || m < 0 || iters < 0 || (plan != 0 && plan != 1)) return kErrLayout;
-  const int words = plan == 0 ? cta_layout(n, m).words : grid_layout(n, m).words;
-  if (4 * static_cast<size_t>(words) != static_cast<size_t>(smem)) return kErrLayout;
-  if (plan == 0 && n > kCtaMaxN) return kErrLayout;
-  const BlockArgs a{n, m, iters, rec, cx, cX, G, g, h, x, X, yA, yB, yD, ax, aX, aA, aB, ayD,
+  const int err = check_block(n, m, iters, plan, smem);
+  if (err != 0) return err;
+  const BlockArgs a{n, m, iters, const_cast<int*>(rec), cx, cX, G, g, h,
+                    x, X, yA, yB, yD, ax, aX, aA, aB, ayD,
                     xo, Xo, yAo, yBo, yDo, axo, aXo, aAo, aBo, ayDo, work, bar};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = st;
-  cudaError_t e;
-  if (plan == 0) {
-    static int checked = -1;
-    if (checked != smem) {
-      e = cudaFuncSetAttribute(pdhg_dense_cta_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      checked = smem;
-    }
-    cfg.gridDim = dim3(1, 1, 1);
-    *grid = 1;
-    e = cudaLaunchKernelEx(&cfg, pdhg_dense_cta_kernel, a);
-  } else {
-    int P = 0;
-    const int err = dense_grid(smem, &P);
-    if (err != 0) return err;
-    if ((n * n + P - 1) / P + (n + P - 1) / P > kMaxE || (n + P - 1) / P > kThreads / 32)
-      return kErrLayout;
-    e = cudaMemsetAsync(bar, 0, sizeof(unsigned), st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-    cfg.gridDim = dim3(P, 1, 1);
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    *grid = P;
-    e = cudaLaunchKernelEx(&cfg, pdhg_dense_grid_kernel, a);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_block<false>(a, plan, smem, grid, static_cast<cudaStream_t>(stream));
+}
+
+// The checked block, the dense route's solve step: `check_every` iterations
+// of the block in place on the state and sums, then (its epilogue, K7c) the
+// checked block's control of pdhg_check.cuh with the dense rows, in place on
+// the state, sums, anchor zx, zX, zA, zB, zD and the record rec.  A stopped
+// record is left as it is, with everything else.  plan, smem and the grid
+// plan's work (work_words(n, m, P, true) floats) and bar as for
+// pdhg_dense_block_launch.  Returns 0, a CUDA error, kErrLayout or
+// kErrNoCluster.
+extern "C" int pdhg_dense_block_checked_launch(
+    int n, int m, int check_every, int plan, int smem, int restart_period, int max_iters,
+    float tol, int* rec, const float* cx, const float* cX, const float* G, const float* g,
+    const float* h, float* x, float* X, float* yA, float* yB, float* yD,
+    float* ax, float* aX, float* aA, float* aB, float* ayD,
+    float* zx, float* zX, float* zA, float* zB, float* zD, float* work, unsigned* bar,
+    int* grid, void* stream) {
+  int err = check_block(n, m, check_every, plan, smem);
+  if (err == 0 && check_every < 1) err = kErrLayout;
+  if (err != 0) return err;
+  const BlockArgs a{n, m, check_every, rec, cx, cX, G, g, h,
+                    x, X, yA, yB, yD, ax, aX, aA, aB, ayD,
+                    x, X, yA, yB, yD, ax, aX, aA, aB, ayD, work, bar,
+                    zx, zX, zA, zB, zD, restart_period, max_iters, tol};
+  return launch_block<true>(a, plan, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
 // The CTAs of the "grid" plan at (n, m) with smem bytes a CTA: the blocks an
@@ -1506,26 +1768,6 @@ extern "C" int pdhg_dense_block_grid(int n, int m, int smem, int* grid) {
   if (4 * static_cast<size_t>(grid_layout(n, m).words) != static_cast<size_t>(smem))
     return kErrLayout;
   return dense_grid(smem, grid);
-}
-
-// The check after a dense-row block, in place on the state, sums, anchor and
-// control record; a stopped record is left as it is.  Returns 0, a CUDA
-// error, kErrLayout or kErrNoCluster.
-extern "C" int pdhg_dense_check_launch(
-    int n, int m, int cluster, int smem, int check_every, int restart_period, int max_iters,
-    float tol, const float* cx, const float* cX, const float* G, const float* g, const float* h,
-    float* x, float* X, float* yA, float* yB, float* yD,
-    float* ax, float* aX, float* aA, float* aB, float* ayD,
-    float* zx, float* zX, float* zA, float* zB, float* zD, int* rec, void* stream) {
-  static int checked[2] = {0, -1};
-  const int err = check_shape(n, m, cluster, smem, check_layout(n, m, cluster).words);
-  if (err != 0) return err;
-  if (check_every < 1) return kErrLayout;
-  const CheckArgs a{n, m, (n + cluster - 1) / cluster, (m + cluster - 1) / cluster,
-                    ranks_with_rows(n, cluster), check_every, restart_period, max_iters, tol,
-                    cx, cX, G, g, h, Point{x, X, yA, yB, yD}, Point{ax, aX, aA, aB, ayD},
-                    Point{zx, zX, zA, zB, zD}, rec};
-  return launch_one(pdhg_dense_check_kernel, checked, cluster, smem, a, stream);
 }
 
 // ||K|| 1.02 + 1e-12 over the McCormick rows and the m dense rows after

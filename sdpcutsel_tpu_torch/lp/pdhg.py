@@ -25,8 +25,8 @@ reads the record to the host once after each group (``read_record``);
 ||K|| comes from K6 (``pdhg_norm.pdhg_norm``) in one launch and stays on the
 device.  The certifier's LP (a pool without cuts, up to thousands of dense
 rows) takes the dense route instead: the same loop over the kernels of
-``csrc/pdhg_dense.cu`` (``pdhg_dense.pdhg_dense_block_steps``,
-``pdhg_dense_check``, ``pdhg_dense_norm``).  On the CPU the wrappers take
+``csrc/pdhg_dense.cu`` (``pdhg_dense.dense_checked_step``: K7's block with
+its check in one launch; ``pdhg_dense_norm``).  On the CPU the wrappers take
 their plain twins (``pdhg_block_plain``, ``pdhg_check_plain``,
 ``estimate_norm_plain``), with the same loop; ``LPConfig.use_kernel="off"``
 (``kernel_route``) takes the twins on any device, counted on CUDA.  Scalars
@@ -98,13 +98,31 @@ def norm_start(n: int, generator: torch.Generator, device):
     return x, _sym(torch.randn((n, n), generator=generator).to(device))
 
 
+_START = {}        # (n, device): the seed-0 start vector, drawn once
+
+
+def start_vector(n: int, generator: torch.Generator | None, device):
+    """The power iteration's start vector: ``norm_start``'s draw from
+    ``generator``; with None, the draw of a fresh
+    ``torch.Generator().manual_seed(0)`` (what every solve's set-up asks
+    for), made once for each (n, device) and kept there.  The tensors are
+    shared: callers do not write them."""
+    if generator is not None:
+        return norm_start(n, generator, device)
+    key = (n, torch.device(device))
+    if key not in _START:
+        _START[key] = norm_start(n, torch.Generator().manual_seed(0), device)
+    return _START[key]
+
+
 def estimate_norm_plain(pool: CutPool, n: int, iters: int,
-                        generator: torch.Generator, index: CutIndex,
+                        generator: torch.Generator | None, index: CutIndex,
                         dense: DenseRows | None = None):
     """Twin of K6 (``pdhg_norm.pdhg_norm``): power iteration for ||K|| on
-    the symmetric-X primal subspace from ``norm_start``.  Returns
-    ||K|| 1.02 + 1e-12 as a 0-d float32 tensor on the pool's device."""
-    x, X = norm_start(n, generator, pool.lin.device)
+    the symmetric-X primal subspace from ``start_vector`` (``generator``
+    None: the seed-0 draw).  Returns ||K|| 1.02 + 1e-12 as a 0-d float32
+    tensor on the pool's device."""
+    x, X = start_vector(n, generator, pool.lin.device)
     for _ in range(iters):
         kA, kB, kC, *kD = apply_K(x, X, pool, dense)
         gx, gX = apply_KT(kA, kB, kC * pool.active, pool, n, index,
@@ -309,11 +327,11 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
     """Checked-block PDHG solve from ``st0`` (left as it is) with a given
     ``normK`` (a float or a 0-d tensor); ``index`` is
     ``build_cut_index(pool, n)``; ``route`` (``kernel_route``): "k2" each
-    block and its check in one launch (``pdhg_check.checked_step``), "dense" through the
-    dense route's (``lp/pdhg_dense.py``), "plain" their plain twins on the
-    tensors' device.  Returns (state, info) with python scalars in info."""
+    block and its check in one launch (``pdhg_check.checked_step``), "dense"
+    likewise on the dense route (``pdhg_dense.dense_checked_step``), "plain"
+    their plain twins on the tensors' device.  Returns (state, info) with python scalars in info."""
     from .pdhg_check import checked_step, pdhg_block_checked
-    from .pdhg_dense import pdhg_dense_block_steps, pdhg_dense_check
+    from .pdhg_dense import dense_checked_step
     from .pdhg_kernel import pdhg_block, pdhg_block_steps_plain
 
     st, anchor, acc = _buffers(st0)
@@ -322,16 +340,16 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
     control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
     if route == "k2":
         step = checked_step(*args, *control)
+    elif route == "dense":
+        step = dense_checked_step(*args, *control)
     else:
-        block, check = {"dense": (pdhg_dense_block_steps, pdhg_dense_check),
-                        "plain": (pdhg_block_steps_plain, pdhg_check_plain)}[route]
-        on_card = route == "plain" and cx.device.type == "cuda"
+        on_card = cx.device.type == "cuda"
 
         def step():
-            if block(*args, rec, check_every, dense) and on_card:
+            if pdhg_block_steps_plain(*args, rec, check_every, dense) and on_card:
                 pdhg_block.plain_launches += 1
                 pdhg_block_checked.plain_launches += 1
-            check(*args, *control)
+            pdhg_check_plain(*args, *control)
 
     r = _run_groups(step, rec, max_iters, check_every)
     f = record_floats(r)
@@ -364,8 +382,7 @@ def solve_setup(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveS
                          0 if dense is None else dense.m)
     index = build_cut_index(pool, n)        # the pool is constant in a solve
     norm = {"k2": pdhg_norm, "dense": pdhg_dense_norm, "plain": estimate_norm_plain}[route]
-    normK = norm(pool, n, cfg.power_iters, torch.Generator(device="cpu").manual_seed(0), index,
-                 dense)
+    normK = norm(pool, n, cfg.power_iters, None, index, dense)   # the seed-0 start vector
     if route == "plain" and c.device.type == "cuda":
         pdhg_norm.plain_launches += 1
     return SolveSetup(route, index, normK)
@@ -395,17 +412,17 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
 # ---- the instance axis: a batch of solves of one shape (parallel/round.py) ----
 
 def estimate_norm_batched_plain(pool: CutPool, n: int, iters: int,
-                                generator: torch.Generator, index: CutIndex,
+                                generator: torch.Generator | None, index: CutIndex,
                                 dense: DenseRows | None = None):
     """Twin of K6's batched launch (``pdhg_norm.pdhg_norm_batched``):
     ``estimate_norm_plain`` of every instance of a batch (``relax/batched.py``
     shapes) in one power iteration; each instance starts from the vector a
-    single solve draws (``norm_start``, broadcast).  Returns ||K|| of each
-    instance, (B,) float32 on the device."""
+    single solve starts from (``start_vector``, broadcast).  Returns ||K|| of
+    each instance, (B,) float32 on the device."""
     from ..relax import batched as rb
 
     B = pool.lin.shape[0]
-    x, X = norm_start(n, generator, pool.lin.device)
+    x, X = start_vector(n, generator, pool.lin.device)
     x, X = x.expand(B, n), X.expand(B, n, n)
     for _ in range(iters):
         kA, kB, kC, *kD = rb.apply_K(x, X, pool, dense)
@@ -591,8 +608,7 @@ def solve_setup_batched(c, pool: CutPool, cfg, dense: DenseRows | None = None) -
         raise ValueError("the dense route solves one instance; batches take pools of cuts")
     index = rb.build_cut_index(pool, n)
     norm = pdhg_norm_batched if route == "k2" else estimate_norm_batched_plain
-    normK = norm(pool, n, cfg.power_iters, torch.Generator(device="cpu").manual_seed(0), index,
-                 dense)
+    normK = norm(pool, n, cfg.power_iters, None, index, dense)   # the seed-0 start vector
     if route == "plain" and c.device.type == "cuda":
         pdhg_norm.plain_launches += 1
     return SolveSetup(route, index, normK)

@@ -5,34 +5,38 @@ cut and any number m of dense rows, on the card.
 - ``pdhg_dense_block`` / ``pdhg_dense_block_steps``: ``iters`` iterations of
   ``lp/pdhg.py::_one_iter`` with the ergodic sums, with host steps (the
   twin's and steering's) or in place with the steps and stop flag of the
-  solve's control record (the solve's blocks).  Twins ``pdhg_block_plain``
-  and ``pdhg_block_steps_plain``.
-- ``pdhg_dense_check``: the checked block's control after each block (K5's
-  work with the dense residuals).  Twin ``pdhg_check_plain``.
+  solve's control record.  Twins ``pdhg_block_plain`` and
+  ``pdhg_block_steps_plain``.
+- ``dense_checked_step`` / ``pdhg_dense_block_checked``: the solve's step,
+  one launch of the block's checked form, whose epilogue (K7c) is the
+  checked block's control (K5's work with the dense residuals) on the
+  slices each CTA owns.  Twins ``pdhg_block_steps_plain`` then
+  ``pdhg_check_plain``.
 - ``pdhg_dense_norm``: ||K|| by the power iteration in one launch (K6's work).
   Twin ``estimate_norm_plain``.
 
-They take the same arguments as K2's, K5's and K6's wrappers, so the solve's
-loop (``lp/pdhg.py::_solve_impl``) runs either route.  The reference runs
-this LP in XLA (its Pallas kernel refuses dense rows,
-``sdpcutsel_tpu/lp/pdhg.py:291-301``): the three have no Pallas counterpart.
+They take the same arguments as K2's, its checked form's and K6's wrappers,
+so the solve's loop (``lp/pdhg.py::_solve_impl``) runs either route.  The
+reference runs this LP in XLA (its Pallas kernel refuses dense rows,
+``sdpcutsel_tpu/lp/pdhg.py:291-301``): none has a Pallas counterpart.
 
 Shapes: n <= 128, the certifier's pool (one slot of width 1, never filled:
 ``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
-rows' duals and partials (``max_dense_rows``; ~11,000 at n = 125).  The
-block's launch plan goes by shape (``block_plan``): "cta", one CTA that
-holds G and g in its shared memory for the launch (the small sandwiches,
-n <= ``CTA_MAX_N``), or "grid", one CTA on every SM, launched cooperatively,
-streaming G and g from global memory (the grid the card co-schedules:
-``block_grid``).  The check and the norm are one cluster of ``CLUSTER``
+rows' duals and partials (``max_dense_rows``; ~22,800 at n = 125).  The
+block's launch plan goes by shape (``block_plan``), the same for its checked
+form: "cta", one CTA that holds G and g in its shared memory for the launch
+(the small sandwiches, n <= ``CTA_MAX_N``), or "grid", one CTA on every SM,
+launched cooperatively, streaming G and g from global memory (the grid the
+card co-schedules: ``block_grid``).  The norm is one cluster of ``CLUSTER``
 CTAs.  G, g and h are read where they lie (the certifier's buffer views),
 never copied.  yC and its sum are left as they are: the twin keeps them at
 0 on a pool whose rows are all inactive.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_dense_block.launches`` counts the block
-launches of both block wrappers, ``pdhg_dense_check.launches`` and
-``pdhg_dense_norm.launches`` theirs.
+launches of every block wrapper, the checked ones too;
+``pdhg_dense_block_checked.launches`` the checked ones (K7c ran in them),
+``pdhg_dense_norm.launches`` the norm's.
 """
 
 from __future__ import annotations
@@ -45,20 +49,21 @@ import torch
 from .. import _build
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
-from .pdhg import (PDHGState, estimate_norm_plain, norm_start, pdhg_check_plain)
+from .pdhg import PDHGState, estimate_norm_plain, pdhg_check_plain, start_vector
 from .pdhg_kernel import (_ERRORS, _GROUPS, _WARPS_PER_ROW, NMAX, SMEM_MAX, check_record,
                           pdhg_block_plain, pdhg_block_steps_plain, steps_record)
 
-CLUSTER = 16                # CTAs in the check's and the norm's cluster (non-portable size)
+CLUSTER = 16                # CTAs in the norm's cluster (non-portable size)
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
 _MAX_ENTRIES = 32 * 33      # csrc/pdhg_dense.cu kMaxEntries: a band's entries, R n + R
-KINDS = ("block", "check", "norm")
+KINDS = ("block", "norm")
 PLANS = ("cta", "grid")     # the block's launch plans (csrc/pdhg_dense.cu)
 CTA_MAX_N = 32              # csrc/pdhg_dense.cu kCtaMaxN: the "cta" plan's largest n
 _STAGE, _STAGES = 8192, 4   # kStage, kStages: the "grid" plan's ring of G stages
 _MAX_E = 496                # kMaxE: entries of X and x a CTA of the grid owns
 _SCRATCH = 2048             # kScratch: the grid plan's strand partials and weights
 _SMEM_WORDS = SMEM_MAX // 4  # kSmemWords: the grid plan takes a CTA's whole shared memory
+_NV, _ND = 8, 6             # kNV, kND: a check point's partial sums, the distances' partials
 
 
 def _block_words(plan: str, n: int, m: int) -> int:
@@ -87,18 +92,16 @@ def block_plan(n: int, m: int) -> str:
 
 def smem_words(kind: str, n: int, m: int, C: int = CLUSTER) -> int:
     """4-byte words of one CTA's shared memory for kernel ``kind``: the
-    block's under ``block_plan`` (``_block_words``), and the sums of
-    ``csrc/pdhg_dense.cu``'s ``check_layout`` and ``norm_layout`` at a
-    cluster of C.  Only the "cta" plan's grows with m n; the "grid" plan's
-    is a CTA's whole shared memory up to ~37,000 rows."""
+    block's (and its checked form's) under ``block_plan``
+    (``_block_words``), and the sum of ``csrc/pdhg_dense.cu``'s
+    ``norm_layout`` at a cluster of C.  Only the "cta" plan's grows with
+    m n; the "grid" plan's is a CTA's whole shared memory up to ~22,800
+    rows."""
     R, mc = -(-n // C), -(-m // C)
     RN = R * n
     rows = 2 * R * _WARPS_PER_ROW + C * _GROUPS * R       # row and column partials
     if kind == "block":
         return _block_words(block_plan(n, m), n, m)
-    if kind == "check":
-        return (2 * NMAX + 2 * m + 8 * RN + 2 * R + 2 * rows + 2 * C * mc
-                + C * 2 * 8 + C * 6 + 2 * _THREADS + (2 * 8 + 6 + 8))
     if kind == "norm":
         return (6 * RN + rows + NMAX + 2 * R + C * mc + m + C * 4 + _THREADS + 4)
     raise ValueError(f"unknown dense-route kernel {kind!r}; one of {KINDS}")
@@ -113,7 +116,7 @@ def _fits(n: int, m: int, C: int = CLUSTER) -> bool:
 
 
 def max_dense_rows(n: int, C: int = CLUSTER) -> int:
-    """The largest m the three kernels take at n."""
+    """The largest m the block (checked or not) and the norm take at n."""
     lo, hi = 0, 1 << 20
     while lo < hi:
         mid = (lo + hi + 1) // 2
@@ -181,33 +184,55 @@ def _checked(cx, cX, pool: CutPool, states, dense: DenseRows | None, name: str,
     return n, m, dptr
 
 
+def _work_words(n: int, m: int, P: int, checked: bool) -> int:
+    """Floats of the grid plan's global scratch for a grid of P CTAs:
+    ``csrc/pdhg_dense.cu``'s ``work_words`` (S, xb and the rows' partials;
+    the checked form adds M at the average, the average's partials and each
+    CTA's sums and distances; the barrier's counter last)."""
+    return n * n + n + P * m + ((n * n + P * m + P * (2 * _NV + _ND)) if checked else 0) + 1
+
+
+def _grid_buffers(cx, plan: str, dense: DenseRows | None, n: int, m: int, checked: bool):
+    """(dense, work) of a launch under ``plan``: the grid plan copies
+    16-byte spans of G and g (a misaligned view is cloned) and takes its
+    scratch and barrier counter (the last word) from ``work``; the "cta"
+    plan takes neither (work None)."""
+    if plan != "grid":
+        return dense, None
+    if dense is not None and any(t.data_ptr() % 16 for t in (dense.G, dense.g)):
+        dense = DenseRows(dense.G.clone(), dense.g.clone(), dense.h)
+    return dense, torch.empty(_work_words(n, m, block_grid(n, m), checked),
+                              dtype=torch.float32, device=cx.device)
+
+
+def _work_ptrs(work) -> list:
+    """(work, barrier counter) pointers for a launch (None for the "cta" plan)."""
+    return [None, None] if work is None else [work.data_ptr(), work[-1:].data_ptr()]
+
+
+def _plan_of(n: int, m: int, plan: str | None) -> str:
+    plan = block_plan(n, m) if plan is None else plan
+    if plan == "cta" and (n > CTA_MAX_N or 4 * _block_words("cta", n, m) > SMEM_MAX):
+        raise ValueError(f"pdhg_dense_block: the 'cta' plan does not take n={n}, m={m}")
+    return plan
+
+
 def _launch_block(cx, cX, pool: CutPool, ins, outs, rec, iters: int,
                   dense: DenseRows | None, plan: str | None = None) -> int:
     """The block's launch from the states ``ins`` into ``outs`` (which may
     be ``ins``) with the steps and stop flag of ``rec``; ``plan``: "cta" or
     "grid" (``block_plan``'s by default; the other for measurements).
     Returns the CTAs launched."""
-    n, m, dptr = _checked(cx, cX, pool, (*ins, *outs), dense, "pdhg_dense_block")
-    plan = block_plan(n, m) if plan is None else plan
-    if plan == "cta" and (n > CTA_MAX_N or 4 * _block_words("cta", n, m) > SMEM_MAX):
-        raise ValueError(f"pdhg_dense_block: the 'cta' plan does not take n={n}, m={m}")
-    work = None
-    if plan == "grid":
-        if any(p % 16 for p in dptr[:2] if p):     # the grid copies 16-byte spans of G and g
-            dense = DenseRows(dense.G.clone(), dense.g.clone(), dense.h)
-            dptr = [t.data_ptr() for t in (dense.G, dense.g, dense.h)]
-        # S, xb, each CTA's partials of the rows, then the barrier's counter
-        work = torch.empty(n * n + n + block_grid(n, m) * m + 1, dtype=torch.float32,
-                           device=cx.device)
+    n, m, _ = _checked(cx, cX, pool, (*ins, *outs), dense, "pdhg_dense_block")
+    plan = _plan_of(n, m, plan)
+    dense, work = _grid_buffers(cx, plan, dense, n, m, False)
     grid = ctypes.c_int(0)
     err = _build.lib().pdhg_dense_block_launch(
         n, m, iters, PLANS.index(plan), 4 * _block_words(plan, n, m), rec.data_ptr(),
-        cx.data_ptr(), cX.data_ptr(), *dptr,
+        cx.data_ptr(), cX.data_ptr(), *_dense_ptrs(dense, n, cx.device)[1],
         *(t.data_ptr() for st in ins for t in _fields(st)),
-        *(t.data_ptr() for st in outs for t in _fields(st)),
-        None if work is None else work.data_ptr(),
-        None if work is None else work[-1:].data_ptr(), ctypes.byref(grid),
-        torch.cuda.current_stream(cx.device).cuda_stream)
+        *(t.data_ptr() for st in outs for t in _fields(st)), *_work_ptrs(work),
+        ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream)
     if err in _ERRORS:
         raise RuntimeError(f"pdhg_dense_block_launch: {_ERRORS[err]} (plan {plan}, "
                            f"n={n}, m={m})")
@@ -268,39 +293,80 @@ def pdhg_dense_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState
         raise ValueError(f"pdhg_dense_block: no kernel for device {cx.device}")
 
 
-def pdhg_dense_check(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
-                     anchor: PDHGState, rec, check_every: int, restart_period: int,
-                     max_iters: int, tol: float, dense: DenseRows | None = None):
-    """The checked block's control after a dense-route block, in place on
-    (st, acc, anchor) and the record ``rec``: ``pdhg_check``'s contract."""
+def _checked_launcher(cx, cX, pool: CutPool, st: PDHGState, acc: PDHGState,
+                      anchor: PDHGState, rec, check_every: int, restart_period: int,
+                      max_iters: int, tol: float, dense: DenseRows | None):
+    """The launch of the checked block, its arguments checked and its
+    pointers taken once: a function of no arguments that enqueues one
+    launch (the grid plan's scratch allocated once, for every step)."""
+    n, m, _ = _checked(cx, cX, pool, (st, acc, anchor), dense, "pdhg_dense_block_checked")
+    check_record(rec[None], 1, cx.device, "pdhg_dense_block_checked")
+    if check_every < 1:
+        raise ValueError(f"pdhg_dense_block_checked: check_every must be >= 1, got {check_every}")
+    plan = _plan_of(n, m, None)
+    dense, work = _grid_buffers(cx, plan, dense, n, m, True)
+    grid = ctypes.c_int(0)
+    args = (n, m, check_every, PLANS.index(plan), 4 * _block_words(plan, n, m), restart_period,
+            max_iters, float(np.float32(tol)), rec.data_ptr(), cx.data_ptr(), cX.data_ptr(),
+            *_dense_ptrs(dense, n, cx.device)[1],
+            *(t.data_ptr() for s in (st, acc, anchor) for t in _fields(s)), *_work_ptrs(work),
+            ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream)
+    fn = _build.lib().pdhg_dense_block_checked_launch
+
+    def launch():
+        err = fn(*args)
+        if err in _ERRORS:
+            raise RuntimeError(f"pdhg_dense_block_checked_launch: {_ERRORS[err]} (plan {plan}, "
+                               f"n={n}, m={m})")
+        _build.check(err, "pdhg_dense_block_checked_launch")
+        pdhg_dense_block.launches += 1
+        pdhg_dense_block_checked.launches += 1
+
+    launch.keep = (dense, work, grid)   # alive as long as the step
+    return launch
+
+
+def dense_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                       anchor: PDHGState, rec, check_every: int, restart_period: int,
+                       max_iters: int, tol: float, dense: DenseRows | None = None):
+    """The solve's step on the dense route over fixed buffers
+    (``pdhg_check.checked_step``'s contract): a function of no arguments that
+    runs one checked block of ``check_every`` iterations in place on (st,
+    acc, anchor) and the record ``rec`` (REC_WORDS,).  CPU tensors take the
+    twins (``pdhg_block_steps_plain`` then ``pdhg_check_plain``), CUDA
+    tensors one launch a step."""
     if cx.device.type == "cpu":
-        pdhg_check_plain(cx, cX, pool, index, st, acc, anchor, rec, check_every,
-                         restart_period, max_iters, tol, dense)
-        return
+        def step():
+            pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, check_every, dense)
+            pdhg_check_plain(cx, cX, pool, index, st, acc, anchor, rec, check_every,
+                             restart_period, max_iters, tol, dense)
+        return step
     if cx.device.type != "cuda":
-        raise ValueError(f"pdhg_dense_check: no kernel for device {cx.device}")
-    cx, cX = cx.contiguous(), cX.contiguous()
-    n, m, dptr = _checked(cx, cX, pool, (st, acc, anchor), dense, "pdhg_dense_check")
-    check_record(rec[None], 1, cx.device, "pdhg_dense_check")
-    err = _build.lib().pdhg_dense_check_launch(
-        n, m, CLUSTER, smem_bytes("check", n, m), check_every, restart_period, max_iters,
-        float(np.float32(tol)), cx.data_ptr(), cX.data_ptr(), *dptr,
-        *(t.data_ptr() for s in (st, acc, anchor) for t in _fields(s)), rec.data_ptr(),
-        torch.cuda.current_stream(cx.device).cuda_stream)
-    if err in _ERRORS:
-        raise RuntimeError(f"pdhg_dense_check_launch: {_ERRORS[err]} (cluster {CLUSTER})")
-    _build.check(err, "pdhg_dense_check_launch")
-    pdhg_dense_check.launches += 1
+        raise ValueError(f"pdhg_dense_block_checked: no kernel for device {cx.device}")
+    return _checked_launcher(cx.contiguous(), cX.contiguous(), pool, st, acc, anchor, rec,
+                             check_every, restart_period, max_iters, tol, dense)
 
 
-pdhg_dense_check.launches = 0
+def pdhg_dense_block_checked(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                             acc: PDHGState, anchor: PDHGState, rec, check_every: int,
+                             restart_period: int, max_iters: int, tol: float,
+                             dense: DenseRows | None = None):
+    """One checked block of ``check_every`` iterations and its control, in
+    place on (st, acc, anchor) and the solve's record ``rec``
+    (``pdhg_check.pdhg_block_checked``'s contract, on the dense route).  A
+    launch counts in ``pdhg_dense_block.launches`` and here."""
+    dense_checked_step(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
+                       max_iters, tol, dense)()
 
 
-def pdhg_dense_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator,
+pdhg_dense_block_checked.launches = 0
+
+
+def pdhg_dense_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
                     index: CutIndex, dense: DenseRows | None = None):
     """||K|| 1.02 + 1e-12 of a dense-route solve after ``iters`` power
-    iterations from the start vector ``norm_start`` draws from
-    ``generator``: a 0-d float32 tensor on the pool's device."""
+    iterations from ``start_vector(n, generator, ...)`` (None: the seed-0
+    draw): a 0-d float32 tensor on the pool's device."""
     dev = pool.lin.device
     if dev.type == "cpu":
         return estimate_norm_plain(pool, n, iters, generator, index, dense)
@@ -311,8 +377,8 @@ def pdhg_dense_norm(pool: CutPool, n: int, iters: int, generator: torch.Generato
     why = dense_refusal(n, M, k, m)
     if why is not None:
         raise ValueError(f"pdhg_dense_norm: {why}")
-    x, X = norm_start(n, generator, dev)
-    y, Y = x.contiguous(), X.contiguous()
+    x, X = start_vector(n, generator, dev)
+    y, Y = x.clone(), X.clone()           # the launch overwrites them
     out = torch.empty((), dtype=torch.float32, device=dev)
     err = _build.lib().pdhg_dense_norm_launch(
         n, m, CLUSTER, smem_bytes("norm", n, m), iters, *dptr[:2], y.data_ptr(), Y.data_ptr(),

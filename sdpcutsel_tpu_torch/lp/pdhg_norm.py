@@ -2,17 +2,25 @@
 
 ``pdhg_norm`` estimates ||K|| for a solve's step sizes as
 ``lp/pdhg.py::estimate_norm_plain`` does (its twin): ``iters`` power
-iterations on the symmetric-X primal subspace from the seeded start vector
-``norm_start`` draws on the CPU and uploads once, then ||K z|| 1.02 + 1e-12,
-all in one launch, and returns it as a tensor on the device: a solve reads
-it on the host only where it needs a host float (steering).
+iterations on the symmetric-X primal subspace from the start vector
+(``lp/pdhg.py::start_vector``: with ``generator`` None, as every solve's
+set-up passes, the seed-0 draw, made once for each n and kept on the
+device; else a draw from ``generator``), then ||K z|| 1.02 + 1e-12, all in
+one launch, and returns it as a tensor on the device: a solve reads it on
+the host only where it needs a host float (steering).
 ``pdhg_norm_batched`` does it for every instance of a batch in one launch
-(twin ``estimate_norm_batched_plain``).  The reference runs a jitted
-``fori_loop`` in XLA (``sdpcutsel_tpu/lp/pdhg.py::estimate_norm``): K6 has no
-Pallas counterpart.
+(twin ``estimate_norm_batched_plain``), every instance from the same start
+vector.  The reference runs a jitted ``fori_loop`` in XLA
+(``sdpcutsel_tpu/lp/pdhg.py::estimate_norm``): K6 has no Pallas
+counterpart.
 
-Shapes: those K2 takes (n <= 128, k = 2..5); one cluster of ``CLUSTER``
-CTAs per instance.
+Shapes: those K2 takes (n <= 128, k = 2..5, and every m of its launch
+plan); one cluster of ``CLUSTER`` CTAs per instance, its iterate in shared
+memory for the launch, and, where ``smem_words`` finds room, the band's
+slice of the dense rows (``resident``) and the cut data it reads each
+iteration (``staged``: its slots' supports and coefficients, a buffer for
+the iterate at their supports, the band's cut-index segments), each read
+from global memory once a launch.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_norm.launches`` counts kernel launches, one a
@@ -28,12 +36,37 @@ from .. import _build
 from ..relax.batched import batch_of_one
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
-from .pdhg import estimate_norm_batched_plain, estimate_norm_plain, norm_start
-from .pdhg_kernel import CLUSTER, _ERRORS
+from .pdhg import estimate_norm_batched_plain, estimate_norm_plain, start_vector
+from .pdhg_kernel import _GROUPS, _WARPS_PER_ROW, CLUSTER, NMAX, SMEM_MAX, _ERRORS
+
+_THREADS = 512              # csrc/pdhg_common.cuh kThreads
 
 
-def _launch(pool: CutPool, n: int, iters: int, generator: torch.Generator, index: CutIndex,
-            dense: DenseRows | None, cluster: int = CLUSTER):
+def smem_words(n: int, M: int, k: int, m: int, C: int = CLUSTER) -> tuple[int, bool, bool]:
+    """(4-byte words of one CTA's shared memory, whether the band's slice of
+    the dense rows is resident, whether the cut data of the CTA's slots and
+    the band's cut-index offsets are staged) of K6 at n, pool capacity M,
+    width k, m dense rows and a cluster of C: ``csrc/pdhg_norm.cu``'s
+    ``make_layout``.  Where staged, the band's cut-index terms take the rest
+    of a CTA's shared memory.  Without the slice and the staging it is the
+    layout of the version that kept the iterate in global memory, word for
+    word."""
+    R, Mc = -(-n // C), -(-M // C)
+    RN = R * n
+    base = (4 * RN + 2 * R * _WARPS_PER_ROW + C * _GROUPS * R + NMAX + R + M + C * m
+            + m + C * 4 + (_THREADS // 32) * 2 + 4)
+    words = SMEM_MAX // 4
+    resident = m > 0 and base + m * (RN + R) <= words
+    o = base + (m * (RN + R) if resident else 0)
+    staged = o + Mc * (1 + 2 * k + 2 * k * k) + (RN + 1) + (R + 1) <= words
+    if staged:
+        o += Mc * (1 + 2 * k + 2 * k * k) + (RN + 1) + (R + 1)
+        o += 2 * ((words - o) // 2)
+    return o, resident, staged
+
+
+def _launch(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
+            index: CutIndex, dense: DenseRows | None, cluster: int = CLUSTER):
     """One launch for a batch (every argument with the instance axis first);
     returns (B,) float32 on the device."""
     dev = pool.lin.device
@@ -50,9 +83,7 @@ def _launch(pool: CutPool, n: int, iters: int, generator: torch.Generator, index
         if tuple(t.shape) != want or t.device != dev:
             raise ValueError(f"pdhg_norm kernel: {name} has shape {tuple(t.shape)} on "
                              f"{t.device}, want {want} on {dev}")
-    x, X = norm_start(n, generator, dev)
-    y = x.expand(B, n).contiguous()
-    Y = X.expand(B, n, n).contiguous()
+    x, X = (t.contiguous() for t in start_vector(n, generator, dev))
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     c = [t.contiguous() for t in (index.idx, pool.lin, pool.quad, pool.active, index.xoff,
                                   index.xcut, index.xcoef, index.Xoff, index.Xcut, index.Xcoef)]
@@ -60,7 +91,7 @@ def _launch(pool: CutPool, n: int, iters: int, generator: torch.Generator, index
     dptr = [t.data_ptr() for t in d] or [None] * 2
     err = _build.lib().pdhg_norm_launch(
         n, M, k, m, B, cluster, ex, eX, iters, *(t.data_ptr() for t in c), *dptr,
-        y.data_ptr(), Y.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), X.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err in _ERRORS:
         raise RuntimeError(f"pdhg_norm_launch: {_ERRORS[err]} (cluster {cluster})")
     _build.check(err, "pdhg_norm_launch")
@@ -68,12 +99,12 @@ def _launch(pool: CutPool, n: int, iters: int, generator: torch.Generator, index
     return out
 
 
-def pdhg_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator, index: CutIndex,
-              dense: DenseRows | None = None):
+def pdhg_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
+              index: CutIndex, dense: DenseRows | None = None):
     """||K|| 1.02 + 1e-12 of a solve over ``pool`` (``index`` =
-    ``build_cut_index(pool, n)``) after ``iters`` power iterations from the
-    start vector drawn from ``generator``: a 0-d float32 tensor on the
-    pool's device."""
+    ``build_cut_index(pool, n)``) after ``iters`` power iterations from
+    ``start_vector(n, generator, ...)`` (None: the seed-0 draw, kept on the
+    device): a 0-d float32 tensor on the pool's device."""
     dev = pool.lin.device
     if dev.type == "cpu":
         return estimate_norm_plain(pool, n, iters, generator, index, dense)
@@ -87,7 +118,7 @@ pdhg_norm.launches = 0
 pdhg_norm.plain_launches = 0      # twins a solve's set-up ran on CUDA (kernel_route)
 
 
-def pdhg_norm_batched(pool: CutPool, n: int, iters: int, generator: torch.Generator,
+def pdhg_norm_batched(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
                       index: CutIndex, dense: DenseRows | None = None):
     """``pdhg_norm`` of every instance of a batch in one launch (every
     argument with the instance axis first, ``index`` from

@@ -130,8 +130,8 @@ def test_dense_wrappers_take_the_twins_on_the_cpu():
     launches nothing."""
     cx, cX, pool, index, dense, st = _certifier_lp()
     n = cx.shape[0]
-    before = {fn: fn.launches for fn in (tdense.pdhg_dense_block, tdense.pdhg_dense_check,
-                                         tdense.pdhg_dense_norm)}
+    before = {fn: fn.launches for fn in (tdense.pdhg_dense_block,
+                                         tdense.pdhg_dense_block_checked, tdense.pdhg_dense_norm)}
     acc = st.map(torch.zeros_like)
     got = tdense.pdhg_dense_block(cx, cX, pool, index, st, acc, 0.05, 0.07, 9, dense)
     want = pdhg_block_plain(cx, cX, pool, index, st, acc, 0.05, 0.07, 9, dense)
@@ -147,10 +147,15 @@ def test_dense_wrappers_take_the_twins_on_the_cpu():
     assert torch.equal(norm, normK)
     for rp in (10 ** 6, 100):
         runs = []
-        for fn in (tdense.pdhg_dense_check, tpdhg.pdhg_check_plain):
+        for checked in (True, False):
             bufs = [got[0].map(torch.clone), got[1].map(torch.clone), st.map(torch.clone),
                     tpdhg.new_record(normK, 1.0, 0.95, 20000, 2e-6, "cpu")]
-            fn(cx, cX, pool, index, *bufs, 100, rp, 20000, 2e-6, dense)
+            if checked:
+                tdense.pdhg_dense_block_checked(cx, cX, pool, index, *bufs, 9, rp, 20000, 2e-6,
+                                                dense)
+            else:
+                pdhg_block_steps_plain(cx, cX, pool, index, bufs[0], bufs[1], bufs[3], 9, dense)
+                tpdhg.pdhg_check_plain(cx, cX, pool, index, *bufs, 9, rp, 20000, 2e-6, dense)
             runs.append(bufs)
         assert all(_same(a, b) for a, b in zip(runs[0][:3], runs[1][:3]))
         assert torch.equal(runs[0][3], runs[1][3])
@@ -170,8 +175,8 @@ def test_dense_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         tdense.pdhg_dense_block_steps(meta(cx), meta(cX), mpool, index, mst, mst, rec, 3, mdense)
     with pytest.raises(ValueError, match="no kernel"):
-        tdense.pdhg_dense_check(meta(cx), meta(cX), mpool, index, mst, mst, mst, rec, 100, 300,
-                                1000, 1e-6, mdense)
+        tdense.pdhg_dense_block_checked(meta(cx), meta(cX), mpool, index, mst, mst, mst, rec,
+                                        100, 300, 1000, 1e-6, mdense)
     with pytest.raises(ValueError, match="no kernel"):
         tdense.pdhg_dense_norm(mpool, 6, 30, torch.Generator().manual_seed(0), index, mdense)
 
@@ -253,13 +258,13 @@ def test_certifier_on_the_cpu_auto_off_on_equal_and_parents(kind, monkeypatch):
     the dense wrappers, and every solve of the run takes the route its
     use_kernel names."""
     calls = []
-    real = tdense.pdhg_dense_block_steps
+    real = tdense.dense_checked_step
 
     def counted(*args, **kw):
         calls.append(1)
         return real(*args, **kw)
 
-    monkeypatch.setattr(tdense, "pdhg_dense_block_steps", counted)
+    monkeypatch.setattr(tdense, "dense_checked_step", counted)
     runs = {uk: _certify(kind, uk) for uk in ("auto", "off")}
     assert not calls
     runs["on"] = _certify(kind, "on")
@@ -299,15 +304,18 @@ def test_block_plan_takes_the_grid_elsewhere(n, m):
 
 def _parent_max_dense_rows(n: int) -> int:
     """The largest m the parent's dense route took at n: its block's layout
-    (one cluster of 16 on K2's bands) and the check's and norm's, which this
-    tree keeps."""
+    (which this tree keeps for both forms), its standalone check's (one
+    cluster of 16 on K2's bands, whose layout held 2 m + 2 C ceil(m / C)
+    words of rows' duals and partials) and the norm's, which this tree
+    keeps."""
     C, W, G = tdense.CLUSTER, tdense._WARPS_PER_ROW, tdense._GROUPS
 
     def fits(m):
         R, mc = -(-n // C), -(-m // C)
-        rows = 2 * R * W + C * G * R
-        block = 11 * R * n + rows + 4 * R + 128 + m + 2 * mc + C * mc + 512
-        return (4 * block <= SMEM_MAX and 4 * tdense.smem_words("check", n, m) <= SMEM_MAX
+        RN, rows = R * n, 2 * R * W + C * G * R
+        check = (2 * 128 + 2 * m + 8 * RN + 2 * R + 2 * rows + 2 * C * mc + C * 2 * 8 + C * 6
+                 + 2 * 512 + (2 * 8 + 6 + 8))
+        return (4 * tdense.smem_words("block", n, m) <= SMEM_MAX and 4 * check <= SMEM_MAX
                 and 4 * tdense.smem_words("norm", n, m) <= SMEM_MAX)
 
     lo, hi = 0, 1 << 20
@@ -367,3 +375,149 @@ def test_block_layouts_match_the_kernel_source(n, m):
                                                              **consts)
     assert tdense._block_words("grid", n, m) == _layout_words("pdhg_dense.cu", "grid_layout",
                                                               **consts)
+
+
+# ---- the checked block on the dense route: K7's launch with the check (K7c)
+# as its epilogue, the solve's step (lp/pdhg_dense.py dense_checked_step)
+
+def _window(st, scale: float = 37.0):
+    """Sums of a window of iterates: the state scaled (every field positive
+    where the state's is)."""
+    return st.map(lambda t: t * scale)
+
+
+@pytest.mark.parametrize("restart_period", [10 ** 6, 100])
+@pytest.mark.parametrize("n,m", [(10, 5), (10, 40), (12, 90), (12, 200)])
+def test_dense_checked_block_on_the_cpu_is_the_block_then_the_check(n, m, restart_period):
+    """On the CPU the dense route's checked block is the block's twin
+    (pdhg_block_steps_plain) followed by the check's (pdhg_check_plain), bit
+    for bit: state, sums, anchor and record, over two steps of one
+    marshalled step function; nothing is launched."""
+    cx, cX, pool, index, dense, st = _certifier_lp(n=n, m=m, seed=3)
+    normK = tpdhg.estimate_norm_plain(pool, n, 30, None, index, dense)
+    rec = tpdhg.new_record(normK, 1.0, 0.95, 10 ** 6, 1e-9, "cpu")
+    rec[tpdhg.REC_WLEN] = 63                 # the window reaches 100 at the first check
+    before = (tdense.pdhg_dense_block.launches, tdense.pdhg_dense_block_checked.launches)
+
+    def bufs():
+        return [st.map(torch.clone), _window(st), st.map(lambda t: t * 0.5), rec.clone()]
+
+    mine, theirs = bufs(), bufs()
+    step = tdense.dense_checked_step(cx, cX, pool, index, *mine, 37, restart_period, 10 ** 6,
+                                     1e-9, dense)
+    for _ in range(2):
+        step()
+        pdhg_block_steps_plain(cx, cX, pool, index, theirs[0], theirs[1], theirs[3], 37, dense)
+        tpdhg.pdhg_check_plain(cx, cX, pool, index, *theirs, 37, restart_period, 10 ** 6, 1e-9,
+                               dense)
+        assert all(_same(a, b) for a, b in zip(mine[:3], theirs[:3]))
+        assert torch.equal(mine[3], theirs[3])
+    assert int(mine[3][tpdhg.REC_IT]) == 74
+    assert (tdense.pdhg_dense_block.launches,
+            tdense.pdhg_dense_block_checked.launches) == before
+
+
+def _reference_lp(n: int, m: int, seed: int):
+    """_certifier_lp in both packages: the JAX package's pool of capacity 1
+    and width 1 (its certifier's), the same dense rows and state."""
+    from sdpcutsel_tpu.lp import pdhg as jpdhg
+    from sdpcutsel_tpu.relax import cutbuffer as jcb
+    from sdpcutsel_tpu.relax import denserows as jdr
+    import jax.numpy as jnp
+
+    cx, cX, pool, index, dense, st = _certifier_lp(n=n, m=m, seed=seed)
+    jd = jdr.DenseRows(*(jnp.asarray(t.numpy()) for t in (dense.G, dense.g, dense.h)))
+    jst = jpdhg.PDHGState(**{f: jnp.asarray(getattr(st, f).numpy())
+                             for f in ("x", "X", "yA", "yB", "yC", "yD")})
+    return (jnp.asarray(cx.numpy()), jnp.asarray(cX.numpy()), jcb.empty_pool(1, 1), jd, jst), \
+        (cx, cX, pool, index, dense, st)
+
+
+@pytest.mark.parametrize("n,m", [(10, 40), (12, 90)])
+def test_dense_checked_block_matches_reference_checked_block(n, m):
+    """One checked block on the dense route through the wrapper on the CPU
+    against the JAX package's ``checked_block`` with dense rows (its
+    ``_solve_impl`` run for one block of the certifier's LP) from the same
+    state at the same normK, restart_period 100 (the block restarts): the
+    states at rtol/atol 2e-5, omega at rtol 1e-4, the iteration count equal
+    (the tolerances of the K5 test in tests/test_torch_pdhg_check.py)."""
+    from sdpcutsel_tpu.lp import pdhg as jpdhg
+    import jax.numpy as jnp
+
+    (jcx, jcX, jpool, jd, jst), (cx, cX, pool, index, dense, tst) = _reference_lp(n, m, seed=4)
+    normK = float(jpdhg.estimate_norm(jpool, n, 30, jnp.float32, jd))
+    st_j, info_j = jpdhg._solve_impl(jcx, jcX, jpool, jd, jst, normK, 1.0, 1e-12, 1e-6, 0.95,
+                                     100, 100, 100)
+    st, anc, acc = tpdhg._buffers(tst)
+    rec = tpdhg.new_record(normK, 1.0, 0.95, 100, 1e-12, "cpu")
+    tdense.pdhg_dense_block_checked(cx, cX, pool, index, st, acc, anc, rec, 100, 100, 100, 1e-12,
+                                    dense)
+    f = tpdhg.record_floats(rec.numpy())
+    assert int(rec[tpdhg.REC_IT]) == int(info_j["iters"]) == 100
+    assert int(rec[tpdhg.REC_STOP]) == 1
+    np.testing.assert_allclose(f[tpdhg.REC_OMEGA], float(info_j["omega"]), rtol=1e-4)
+    for name in ("x", "X", "yA", "yB", "yC", "yD"):
+        np.testing.assert_allclose(getattr(st, name).numpy(), np.asarray(getattr(st_j, name)),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_dense_solves_step_through_the_checked_form_and_steering_does_not(monkeypatch):
+    """On the dense route every solve builds its step with
+    ``dense_checked_step`` once and runs it once a block; steering's block
+    is the unchecked ``pdhg_dense_block`` and never the checked form."""
+    cx, cX, pool, index, dense, st = _certifier_lp(n=10, m=30, seed=5)
+    normK = tpdhg.estimate_norm_plain(pool, 10, 30, None, index, dense)
+    made, ran = [], []
+    real = tdense.dense_checked_step
+
+    def counted(*args, **kw):
+        step = real(*args, **kw)
+        made.append(1)
+
+        def run():
+            ran.append(1)
+            step()
+        return run
+
+    monkeypatch.setattr(tdense, "dense_checked_step", counted)
+    _, info = tpdhg._solve_impl(cx, cX, pool, index, st, normK, 1.0, 1e-12, 0.95, 500, 100, 300,
+                                dense, route="dense")
+    assert made == [1] and len(ran) == info["iters"] // 100 == 5
+    tpdhg._solve_impl(cx, cX, pool, index, st, normK, 1.0, 1e-12, 0.95, 500, 100, 300, dense,
+                      route="plain")
+    assert made == [1] and len(ran) == 5
+
+    blocks = []
+    real_block = tdense.pdhg_dense_block
+
+    def block(*args, **kw):
+        blocks.append(args[8])                 # iters
+        return real_block(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("steering took the checked form")
+
+    monkeypatch.setattr(tdense, "pdhg_dense_block", block)
+    monkeypatch.setattr(tdense, "dense_checked_step", refuse)
+    setup = tpdhg.SolveSetup("dense", index, normK)
+    sx, SX = tpdhg.rademacher_signs(10, torch.Generator().manual_seed(1), "cpu")
+    tpdhg._steer_impl(cx, cX, pool, dense, st, setup, 1.0, 0.95, 1e-3, sx, SX, 40)
+    assert blocks == [40]
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("n,m,P", [(125, 2048, 132), (10, 368, 132), (64, 7, 66)])
+def test_grid_work_matches_the_kernel_source(n, m, P, checked):
+    """The grid plan's global scratch (_work_words) is csrc/pdhg_dense.cu's
+    work_words, evaluated from the source; the checked form adds M at the
+    average, its rows' partials and each CTA's sums and distances."""
+    with open(os.path.join(REPO, "sdpcutsel_tpu_torch", "csrc", "pdhg_dense.cu")) as f:
+        text = f.read()
+    body = text[text.index(" work_words("):]
+    expr = re.search(r"return (.*?);", body, re.S).group(1)
+    expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", " ".join(expr.split()))
+    expr = re.sub(r"\(checked \? (.*?) : 0\)", r"((\1) if checked else 0)", expr)
+    names = dict(n=n, m=m, P=P, NN=n * n, Pm=P * m, checked=checked, kNV=8, kND=6)
+    assert tdense._work_words(n, m, P, checked) == eval(expr, {}, names)   # noqa: S307
+    assert (tdense._work_words(n, m, P, True) - tdense._work_words(n, m, P, False)
+            == n * n + P * m + P * (2 * 8 + 6))
