@@ -45,7 +45,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
        pdhg_dense   (K7, csrc/pdhg_dense.cu: the certifier's LP, a pool
                     without cuts and m dense rows) at n = 10 with m = 368
                     and at n = 125 with m = 368 and 2048 (the full buffer),
-                    and its block also at n = 64 over 2048 rows, on
+                    its block and norm also at n = 64 over 2048 rows, on
                     normalised rank-1 rows and a random state: the block
                     (its launch plan by shape: one CTA, or every SM, the
                     CTAs printed) against pdhg_block_plain after 100
@@ -57,11 +57,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     followed by pdhg_check_plain as K5 is held (rtol 1e-5,
                     restart periods 10^9 and 100, the states bit for bit, a
                     stopped record), K7c's time the checked launch's less
-                    the block's, in turns; its norm against
-                    estimate_norm_plain as K6 is held; each timed by events
-                    back to back and on the device (events around one launch
-                    queued behind a sleep kernel) beside its bound and the
-                    figure for G streamed twice an iteration;
+                    the block's, in turns; its norm (K7n, on the block's
+                    launch plan, the plan and CTAs printed) against
+                    estimate_norm_plain as K6 is held, its C entry alone bit
+                    for bit with the wrapper, ptxas without a spill or a
+                    stack; each timed by events back to back and on the
+                    device (events around one launch queued behind a sleep
+                    kernel) beside its bound and the figure for G streamed
+                    (twice an iteration, or once where it stays resident);
        with --parent DIR (a checkout of the parent commit): K2's bits on
                     these inputs equal to the parent build's, 7 and 100
                     iterations, both timed in turns; the checked launch's
@@ -70,8 +73,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                     100, timed in turns; K6's
                     bits (m = 0, m = 25, B = 12) equal to the parent
                     build's, both C entries timed on the device in turns;
-                    K7's block, and its checked launch against the parent's
-                    K7 then K7c launches, timed on the device in turns (and
+                    K7's block and its checked launch bit for bit equal to
+                    the parent build's, each timed on the device in turns
+                    with the parent's, and K7n through each tree's own
+                    wrapper, in turns (and
                     after phase 15 the certifier's LP timed in both trees,
                     see there);
      each kernel's time stands beside its bound (the largest of its
@@ -1374,8 +1379,8 @@ def check_dense_block(label: str, inputs, parent=None) -> dict:
     device beside the bound and the streaming figure (G read twice an
     iteration); at the "cta" plan's shapes also the "grid" plan, checked and
     timed in turns.  ``parent``: the parent checkout's package, whose block
-    is then timed on the device in turns with this one (parent, this, this,
-    parent)."""
+    must give these bits and is then timed on the device in turns with this
+    one (parent, this, this, parent)."""
     cx, cX, pool, index, dense, st = inputs
     n, m = cx.shape[0], dense.m
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
@@ -1408,7 +1413,7 @@ def check_dense_block(label: str, inputs, parent=None) -> dict:
     grid = pdhg_dense._launch_block(cx, cX, pool, ip, ip, rec, 100, dense)
     in_place = states_equal(ip, list(got))
     log(f"[pdhg_dense {label}] plan {plan!r}, {grid} CTA(s) x 512 threads, "
-        f"{pdhg_dense.smem_bytes('block', n, m)} bytes of shared memory a CTA; 100 iterations: "
+        f"{pdhg_dense.smem_bytes(n, m)} bytes of shared memory a CTA; 100 iterations: "
         f"max|err| state {max(errs[:5]):.3e} sums {max(errs[5:]):.3e}; {ratio:.3f} of the "
         f"limit (rtol = atol = {DENSE_RTOL}); two launches bit for bit: {same}; inputs "
         f"unchanged: {unchanged}; the in-place block with the record's steps bit for bit: "
@@ -1453,6 +1458,15 @@ def check_dense_block(label: str, inputs, parent=None) -> dict:
         out["grid_plan_device_ms"] = sum(t_grid) / 2
     if parent is not None:
         p_dense = importlib.import_module(f"{parent.__name__}.lp.pdhg_dense")
+        theirs = p_dense.pdhg_dense_block(*args)
+        torch.cuda.synchronize()
+        p_same = states_equal(list(got), list(theirs))
+        log(f"[pdhg_dense {label}] this build's block and the parent build's bit for bit: "
+            f"{p_same}")
+        if not p_same:
+            raise AssertionError(f"the dense block does not give the parent build's bits "
+                                 f"({label})")
+        out["parent_bits"] = p_same
         p_ip = [st.map(torch.clone), zero.map(torch.clone)]
         t_parent, t_this = [], []
         for runs, fn in ((t_parent, p_dense.pdhg_dense_block_steps),
@@ -1481,8 +1495,9 @@ def check_dense_check(label: str, inputs, parent=None) -> dict:
     restart_period 100 on the device (queued events) in turns with the
     unchecked block, whose difference is K7c's time in the launch, on a
     record and a stop test that never stop (every launch does the work).
-    ``parent``: the parent checkout's package, whose K7 block followed by its
-    standalone K7c launch is timed in turns with this build's two."""
+    ``parent``: the parent checkout's package, whose checked launch must give
+    these bits and is timed in turns with this build's, each beside its
+    unchecked block."""
     cx, cX, pool, index, dense, st0 = inputs
     n, m = cx.shape[0], dense.m
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
@@ -1566,93 +1581,157 @@ def check_dense_check(label: str, inputs, parent=None) -> dict:
            "checked_launch_events_ms": ms}
     if parent is not None:
         p_dense = importlib.import_module(f"{parent.__name__}.lp.pdhg_dense")
+        same = True
+        for rp in (10 ** 9, 100):
+            mine, theirs = checked(prepare(), rp), prepare()
+            p_dense.pdhg_dense_block_checked(cx, cX, pool, index, *theirs, every, rp, top, tol,
+                                             dense)
+            torch.cuda.synchronize()
+            same = same and states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3])
         p_bufs = prepare(stops=False)
 
         def parent_block():
             p_dense.pdhg_dense_block_steps(cx, cX, pool, index, p_bufs[0], p_bufs[1], p_bufs[3],
                                            every, dense)
 
-        def parent_pair():
-            parent_block()
-            p_dense.pdhg_dense_check(cx, cX, pool, index, *p_bufs, every, 100, *never, dense)
+        def parent_checked():
+            p_dense.pdhg_dense_block_checked(cx, cX, pool, index, *p_bufs, every, 100, *never,
+                                             dense)
 
         turns = {"parent": [], "this": []}
         for tree in ("parent", "this", "this", "parent"):
-            block, pair = ((parent_block, parent_pair) if tree == "parent"
+            block, pair = ((parent_block, parent_checked) if tree == "parent"
                            else (unchecked, lambda: checked(bufs, 100, never)))
             t_b, t_p = queued_ms(block, reps=10), queued_ms(pair, reps=10)
             turns[tree].append((t_p, t_b, t_p - t_b))
-        log(f"[pdhg_dense_check {label}] in turns on the device, (block + check, block alone, "
-            f"the check's share) ms: parent (K7 + K7c launches) {turns['parent']!r}, this build "
-            f"(the checked launch) {turns['this']!r} ({SMI})")
+        log(f"[pdhg_dense_check {label}] this build's checked launch and the parent build's bit "
+            f"for bit (restart periods 10^9 and 100): {same}; in turns on the device, (the "
+            f"checked launch, the block alone, the check's share) ms: parent "
+            f"{turns['parent']!r}, this build {turns['this']!r} ({SMI})")
+        if not same:
+            raise AssertionError(f"the dense route's checked launch does not give the parent "
+                                 f"build's bits ({label})")
         out["parent_device_ms"] = sum(t[2] for t in turns["parent"]) / 2
         out["parent_turns"] = turns["parent"]
         out["this_turns"] = turns["this"]
     return out
 
 
-def check_dense_norm(label: str, inputs) -> dict:
-    """The dense route's ||K|| against its twin (estimate_norm_plain, 30
-    iterations, the seeded start vector) at rtol 1e-5, twice bit for bit,
-    as K6 is held; timed."""
+def grid_slices_resident(n: int, m: int, P: int) -> bool:
+    """Whether every CTA of the "grid" plan on P CTAs keeps its slice of G
+    and g in shared memory for the launch: csrc/pdhg_dense.cu's
+    GridCta::resident, m rows of the CTA's 16-byte-aligned spans within the
+    slab that grid_layout leaves."""
+    rest = pdhg_dense._SCRATCH + m + pdhg_dense._MAX_E
+    slab = max((pdhg_dense._SMEM_WORDS - rest) & ~3, pdhg_dense._STAGES * pdhg_dense._STAGE)
+    widest = 0
+    for b in range(P):
+        spans = (N * (b + 1) // P - N * b // P for N in (n * n, n))
+        widest = max(widest, sum((L + 6) & ~3 if L > 0 else 0 for L in spans))
+    return m * widest <= slab
+
+
+def check_dense_norm(label: str, inputs, parent=None) -> dict:
+    """K7n, the dense route's ||K|| on the block's launch plan, against its
+    twin (estimate_norm_plain, 30 iterations, the seeded start vector) at
+    rtol 1e-5, twice bit for bit, the C entry alone on the kept start
+    vector bit for bit with the wrapper, as K6 is held; its plan and CTAs;
+    its time by events (the wrapper) and on the device (queued events, the C
+    entry alone) beside its bound and the streaming figure (G read once
+    where every slice of it stays in shared memory, else twice a power
+    iteration and once more for the last K z); ptxas without a spill or a
+    stack.  ``parent``: the parent checkout's package, whose K7n is timed on
+    the device in turns with this one through each tree's own wrapper (the
+    parent's C entry takes other arguments)."""
     cx, cX, pool, index, dense, _ = inputs
     n, m = cx.shape[0], dense.m
 
-    def norm(fn):
-        return fn(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    def norm(fn, gen=True):
+        return fn(pool, n, 30, torch.Generator().manual_seed(0) if gen else None, index, dense)
 
     a, b2, t = norm(pdhg_dense_norm), norm(pdhg_dense_norm), norm(estimate_norm_plain)
+    plan = pdhg_dense.block_plan(n, m)
+    P = 1 if plan == "cta" else pdhg_dense.block_grid(n, m)
+    resident = plan == "cta" or grid_slices_resident(n, m, P)
+    y, Y = (u.contiguous() for u in pdhg_mod.start_vector(n, None, cx.device))
+    work = (None if plan == "cta" else torch.empty(pdhg_dense._norm_work_words(n, m, P),
+                                                   dtype=torch.float32, device=cx.device))
+    out, grid = torch.empty((), device=cx.device), ctypes.c_int(0)
+    args = (n, m, 30, pdhg_dense.PLANS.index(plan), pdhg_dense.smem_bytes(n, m),
+            dense.G.data_ptr(), dense.g.data_ptr(), y.data_ptr(), Y.data_ptr(),
+            *([None, None] if work is None else [work.data_ptr(), work[-1:].data_ptr()]),
+            out.data_ptr(), ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
+    lib = _build.lib()
+
+    def launch():           # the entry point alone: no draw, upload or allocation
+        _build.check(lib.pdhg_dense_norm_launch(*args), "pdhg_dense_norm_launch")
+
+    launch()
     torch.cuda.synchronize()
     rel = abs(a.item() - t.item()) / abs(t.item())
-    log(f"[pdhg_dense_norm {label}] ||K|| kernel {a.item()!r}, twin {t.item()!r}: rel diff "
-        f"{rel:.3e} (rtol {CONTROL_RTOL}); two launches bit for bit: {torch.equal(a, b2)}")
-    if rel > CONTROL_RTOL or not torch.equal(a, b2):
-        raise AssertionError(f"the dense-route norm disagrees with its twin or does not repeat "
-                             f"({label})")
-    ms = cuda_ms(lambda: norm(pdhg_dense_norm), reps=5)
-    y, Y = (t.contiguous() for t in norm_start(n, torch.Generator().manual_seed(0), cx.device))
-    out = torch.empty((), device=cx.device)
-
-    def launch():           # the entry point alone: no draw or upload of the start vector
-        err = _build.lib().pdhg_dense_norm_launch(
-            n, m, pdhg_dense.CLUSTER, pdhg_dense.smem_bytes("norm", n, m), 30,
-            dense.G.data_ptr(), dense.g.data_ptr(), y.data_ptr(), Y.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "pdhg_dense_norm_launch")
-
+    entry_same = torch.equal(out, a)
+    kernel = {"cta": "pdhg_dense_norm_cta_kernel", "grid": "pdhg_dense_norm_grid_kernel"}[plan]
+    ptxas = spill_free(kernel)
+    log(f"[pdhg_dense_norm {label}] plan {plan!r}, {grid.value} CTA(s) x 512 threads, "
+        f"{pdhg_dense.smem_bytes(n, m)} bytes of shared memory a CTA, G "
+        f"{'resident' if resident else 'streamed'}; ||K|| kernel {a.item()!r}, twin "
+        f"{t.item()!r}: rel diff {rel:.3e} (rtol {CONTROL_RTOL}); two launches bit for bit: "
+        f"{torch.equal(a, b2)}; the C entry alone on the kept start vector bit for bit: "
+        f"{entry_same}")
+    if (rel > CONTROL_RTOL or not torch.equal(a, b2) or not entry_same
+            or grid.value != P or re.search(r"[1-9]\d* bytes stack frame", ptxas)):
+        raise AssertionError(f"the dense-route norm disagrees with its twin, does not repeat, "
+                             f"or has a stack frame ({label}): {ptxas}")
+    ms = cuda_ms(lambda: norm(pdhg_dense_norm, gen=False), reps=5)
     dev_ms = queued_ms(launch, reps=5)
     plain_ms = cuda_ms(lambda: norm(estimate_norm_plain), reps=2, warmup=1)
     bb = bound(norm_ops(n, 1, m, 0, 0, 30), nbytes(dense.G, dense.g, a) + 4 * (n + n * n))
-    stream_ms = 61 * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
+    passes = 1 if resident else 61
+    stream_ms = passes * nbytes(dense.G, dense.g) / PEAK_BYTES * 1e3
     log(f"[pdhg_dense_norm {label}] 30 iterations in one launch: {ms:.4f} ms by events (the "
-        f"start vector's draw and upload included), {dev_ms:.4f} ms on the device (queued "
-        f"events, the entry point alone); twin {plain_ms:.4f} ms; {share(dev_ms, bb)} (of the "
-        f"device time); G read 61 times: "
-        f"{stream_ms:.4f} ms; ptxas: {ptxas_report('pdhg_dense_norm_kernel')}")
-    return {"max_abs_err": abs(a.item() - t.item()), "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, **bb, "streaming_bound_ms": stream_ms,
-            "share": bb["bound_ms"] / dev_ms}
+        f"wrapper, the kept start vector), {dev_ms:.4f} ms on the device (queued events, the "
+        f"entry point alone) = {dev_ms / 31 * 1e3:.2f} us a power iteration; twin "
+        f"{plain_ms:.4f} ms; {share(dev_ms, bb)} (of the device time); G and g read "
+        f"{passes} time(s) at {PEAK_BYTES / 1e12} TB/s: {stream_ms:.4f} ms, "
+        f"{stream_ms / dev_ms:.2%} of the device time; ptxas: {ptxas} ({SMI})")
+    res = {"max_abs_err": abs(a.item() - t.item()), "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, **bb, "streaming_bound_ms": stream_ms,
+           "share": bb["bound_ms"] / dev_ms, "plan": plan, "grid": P, "resident": resident}
+    if parent is not None:
+        p_dense = importlib.import_module(f"{parent.__name__}.lp.pdhg_dense")
+        pa = norm(p_dense.pdhg_dense_norm, gen=False)
+        turns = {"parent": [], "this": []}
+        for tree in ("parent", "this", "this", "parent"):
+            fn = p_dense.pdhg_dense_norm if tree == "parent" else pdhg_dense_norm
+            turns[tree].append(queued_ms(lambda: norm(fn, gen=False), reps=5))
+        log(f"[pdhg_dense_norm {label}] the parent build's K7n {pa.item()!r} (rel diff to the "
+            f"twin {abs(pa.item() - t.item()) / abs(t.item()):.3e}); on the device in turns, "
+            f"each tree's wrapper on the kept start vector: parent {turns['parent']!r} ms, this "
+            f"build {turns['this']!r} ms ({SMI})")
+        res.update({"parent_device_ms": sum(turns["parent"]) / 2,
+                    "parent_device_ms_turns": turns["parent"], "device_ms_turns": turns["this"]})
+    return res
 
 
 def check_dense_route(dev, parent=None) -> dict:
     """Phase 3's dense route: K7's block, its checked launch (K7c) and the
-    norm at DENSE_SHAPES against their twins, and the block at n = 64 over
-    2048 rows (DENSE_BLOCK_EXTRA).  ``parent``: the parent checkout's
-    package, whose block, and block then check, are timed in turns with this
-    build's.  Returns {kernel: {shape label: numbers}}."""
+    norm (K7n) at DENSE_SHAPES against their twins, and the block and the
+    norm at n = 64 over 2048 rows (DENSE_BLOCK_EXTRA).  ``parent``: the
+    parent checkout's package, whose block, checked launch and norm are
+    timed in turns with this build's.  Returns {kernel: {shape label:
+    numbers}}."""
     out = {"pdhg_dense": {}, "pdhg_dense_check": {}, "pdhg_dense_norm": {}}
     for n, m in (*DENSE_SHAPES, DENSE_BLOCK_EXTRA):
         label = f"n={n} m={m}"
         inputs = dense_inputs(n, m, dev)
         log(f"[pdhg_dense {label}] block plan {pdhg_dense.block_plan(n, m)!r} (the 'grid' plan "
-            f"would take {pdhg_dense.block_grid(n, m)} CTAs); shared bytes a CTA: block "
-            f"(and its checked form) {pdhg_dense.smem_bytes('block', n, m)}, norm at a cluster "
-            f"of {pdhg_dense.CLUSTER}: {pdhg_dense.smem_bytes('norm', n, m)}; the route takes up to "
-            f"{pdhg_dense.max_dense_rows(n)} rows at n = {n}")
+            f"would take {pdhg_dense.block_grid(n, m)} CTAs); shared bytes a CTA of the block, "
+            f"its checked form and the norm: {pdhg_dense.smem_bytes(n, m)}; the route takes up "
+            f"to {pdhg_dense.max_dense_rows(n)} rows at n = {n}")
         out["pdhg_dense"][label] = check_dense_block(label, inputs, parent)
         if (n, m) in DENSE_SHAPES:
             out["pdhg_dense_check"][label] = check_dense_check(label, inputs, parent)
-            out["pdhg_dense_norm"][label] = check_dense_norm(label, inputs)
+        out["pdhg_dense_norm"][label] = check_dense_norm(label, inputs, parent)
     return out
 
 
@@ -3302,9 +3381,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--parent", help="a checkout of the parent commit: phase 3 then holds "
-                        "K2's, K5's and K6's bits to that build's on its inputs and times K6, K7 "
-                        "and K7c in turns with that build's, and after phase 15 the certifier's "
-                        "LP is timed in both trees in turns")
+                        "K2's, K5's, K6's, K7's and K7c's bits to that build's on its inputs and "
+                        "times K6, K7, K7c and K7n in turns with that build's, and after phase 15 "
+                        "the certifier's LP is timed in both trees in turns")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
     smi = SMI = environment()

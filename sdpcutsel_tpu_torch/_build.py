@@ -87,9 +87,10 @@ _SIGNATURES = {
                                         *[_P] * 15,       # state, sums, anchor (in place)
                                         _P, _P, _P,       # work, barrier, grid (out)
                                         _P],              # stream
-    "pdhg_dense_norm_launch": [_I, _I, _I, _I, _I,      # n m cluster smem iters
-                               _P, _P,                   # G, g
-                               _P, _P, _P, _P],          # y, Y, out, stream
+    "pdhg_dense_norm_launch": [_I, _I, _I, _I, _I,      # n m iters plan smem
+                               _P, _P, _P, _P,           # G, g, y, Y
+                               _P, _P, _P, _P,           # work, barrier, out, grid (out)
+                               _P],                      # stream
     # pdhg_norm.cu
     "pdhg_norm_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,  # n M k m B cluster ex eX iters
                          _P, _P, _P, _P,               # idx, lin, quad, act

@@ -5,8 +5,8 @@
 // mccormick_pre_step, mccormick_primal_step and mccormick_dual_step; K5 and
 // K7's check write the record with write_record.
 //
-// K2, K5, K6 and K7's check and norm run one thread-block cluster of C CTAs
-// x kThreads threads per instance; CTA r owns rows [r R, min(n, (r + 1) R)) of every (n, n) array,
+// K2, K5 and K6 run one thread-block cluster of C CTAs x kThreads threads
+// per instance; CTA r owns rows [r R, min(n, (r + 1) R)) of every (n, n) array,
 // R = ceil(n / C), and pool slots [r Mc, (r + 1) Mc), Mc = ceil(M / C).
 // Thread t works on column t % kCols of the band rows t / kCols,
 // t / kCols + kGroups, ...  Sums run in one fixed order (no atomics), so a

@@ -15,8 +15,9 @@
 //       dense residuals, the current-or-average choice, restart, omega, the
 //       stop test and the next steps, into the record, on the slices each
 //       CTA owns.  Twin: pdhg_block_steps_plain then pdhg_check_plain.
-//   pdhg_dense_norm_kernel   ||K|| by `iters` power iterations in one launch,
-//       as K6 (pdhg_norm.cu).  Twin: estimate_norm_plain.
+//   the norm (K7n)  ||K|| by `iters` power iterations in one launch, as K6
+//       (pdhg_norm.cu), on the block's plans: pdhg_dense_norm_cta_kernel and
+//       pdhg_dense_norm_grid_kernel.  Twin: estimate_norm_plain.
 //
 // The reference runs this LP in XLA: its Pallas kernel refuses dense rows
 // (sdpcutsel_tpu/lp/pdhg.py:291-301), so its lax.while_loop iterates the plain
@@ -29,25 +30,21 @@
 // primal step that the adjoint feeds.  At n = 125, m = 368 that is 46 MB an
 // iteration (13.7 us at 3.35 TB/s; G fits the 50 MB L2), at m = 2048 256 MB
 // (76 us).  Everything else is K2's n^2 work, well under a microsecond.  One
-// SM streams G at 20-35 GB/s (PERF.md section 6, one cluster of 16: ~0.5
-// TB/s), so the block's "grid" plan streams it on every SM, and its "cta"
+// SM streams G at 20-35 GB/s (PERF.md section 6: a cluster of 16 reached
+// ~0.5 TB/s), so the block's "grid" plan streams it on every SM, and its "cta"
 // plan, for the small sandwiches, keeps it in one SM's shared memory.  The
 // check needs no primal step: each of its two points takes one pass over G
 // for its adjoint and its residuals together.
 //
-// The norm: one thread-block cluster of C CTAs on K2's bands
-// (pdhg_common.cuh): CTA r owns rows [r R, min(n, (r + 1) R)) of every
-// (n, n) array, R = ceil(n / C), keeps its bands in shared memory and
-// exchanges the transposed tile, the column sums of kB and x through
-// distributed shared memory as K2 does.  The dense rows are never copied to
-// shared memory: each pass streams the band's slice of every G_q and g_q
-// from global memory (dense_adjoint: band entries to lanes, q in increasing
-// order, on few entries the q range split into strands summed in strand
-// order; dense_residuals: each rank's partial of <G_q, Z> + g_q . z over
-// its band to the owner of q, [r mc, (r + 1) mc), mc = ceil(m / C), who sums
-// the ranks' partials in rank order).  No atomics and one fixed order for
-// every sum, so a launch repeats bit for bit; the twins sum in torch's order
-// and agree to rounding.
+// The norm runs on the block's launch plan and layout (block_plan): a power
+// iteration is the block's two passes over G with other weights, the
+// residual pass <G_q, Z> + g_q . z for K z's dense part and the adjoint
+// sum_q kD_q [G_q | g_q] for K^T's.  "cta" stages G once and runs every
+// iteration in one SM; "grid" runs the passes of the block's GridCta over
+// each CTA's resident or streamed slice, three grid barriers a power
+// iteration (pdhg_dense_norm_grid_kernel).  No atomics and one fixed order
+// for every sum, so a launch repeats bit for bit; the twins sum in torch's
+// order and agree to rounding.
 //
 // The pool: the certifier's is one slot of width 1 that nothing fills, so the
 // kernels leave yC and its sum as they are (0, as the twin keeps them: its
@@ -58,190 +55,6 @@
 namespace {
 
 using namespace pdhg;
-
-constexpr int kAdjLoads = 32;    // loads in flight a lane in the adjoint's stream
-constexpr int kMaxJ = 3;         // band entries a lane of the adjoint
-constexpr int kResMax = 33;      // entries a lane of one row's residual (32 lanes)
-constexpr int kMaxEntries = 32 * kResMax;   // R n + R; also <= kMaxJ kThreads
-
-__device__ __forceinline__ int band_rows(int n, int R, int rank) {
-  return max(0, min(R, n - rank * R));
-}
-
-// One lane's part of dense_adjoint: its J entries (le, le + E, ...) summed
-// over its strand's rows q = s, s + S, ... in increasing q, U rows of loads
-// in flight.  Every load is issued, from a valid address, and the terms of
-// the rows past m (the last batch) are 0: no branch between the loads.
-template <int NP, int J>
-__device__ __forceinline__ void adjoint_lane(const float* __restrict__ G,
-                                             const float* __restrict__ g, int n, int m, int r0,
-                                             int RNb, int ent, int E, int S, int s, int le,
-                                             const float* w, int wstride, float* outG,
-                                             int gstride, float* outg, int xstride,
-                                             float* scratch) {
-  const size_t nn = static_cast<size_t>(n) * n;
-  const float* p[J];
-  size_t stride[J];
-  bool ok[J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int e = le + j * E;
-    ok[j] = e < ent;
-    const bool inG = e < RNb;
-    p[j] = !ok[j] ? G : inG ? G + static_cast<size_t>(r0) * n + e : g + r0 + (e - RNb);
-    stride[j] = inG ? nn : static_cast<size_t>(n);
-  }
-  float acc[NP][J];
-#pragma unroll
-  for (int P = 0; P < NP; ++P)
-#pragma unroll
-    for (int j = 0; j < J; ++j) acc[P][j] = 0.0f;
-  constexpr int U = kAdjLoads / J;
-  for (int q = s; q < m; q += U * S) {
-    float v[J][U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int qu = q + u * S;
-      const size_t qs = qu < m ? qu : 0;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const float x = __ldg(p[j] + qs * stride[j]);
-        v[j][u] = ok[j] && qu < m ? x : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int qu = q + u * S;
-#pragma unroll
-      for (int P = 0; P < NP; ++P) {
-        const float wv = qu < m ? w[P * wstride + qu] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < J; ++j) acc[P][j] += wv * v[j][u];
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    if (!ok[j]) continue;
-    const int e = le + j * E;
-#pragma unroll
-    for (int P = 0; P < NP; ++P) {
-      if (S > 1) {
-        scratch[(P * S + s) * E + e] = acc[P][j];
-      } else if (e < RNb) {
-        outG[P * gstride + e] = acc[P][j];
-      } else {
-        outg[P * xstride + e - RNb] = acc[P][j];
-      }
-    }
-  }
-}
-
-// out(P, e) for every entry e of the band and point P: the sum over q in
-// [0, m) of w[P wstride + q] times entry e of row q, where entries
-// e < rows n are the band's entries of G_q (contiguous: G_q rows
-// [r0, r0 + rows)) and rows n <= e < rows n + rows its entries of g_q.  The
-// entries go to E = min(entries, kThreads) lanes, J = ceil(entries / E) a
-// lane; the q range to S = kThreads / E strands (q = s, s + S, ...), each in
-// increasing q, their partials summed in strand order.  outG[P gstride + e],
-// outg[P xstride + i].  scratch: NP kThreads floats.  Every thread calls it;
-// the caller syncs after.
-template <int NP>
-__device__ void dense_adjoint(const float* __restrict__ G, const float* __restrict__ g, int n,
-                              int m, int r0, int rows, const float* w, int wstride,
-                              float* outG, int gstride, float* outg, int xstride,
-                              float* scratch) {
-  const int RNb = rows * n, ent = RNb + rows;
-  if (ent == 0) return;                         // uniform across the CTA
-  const int E = min(ent, kThreads), S = kThreads / E, J = (ent + E - 1) / E;
-  const int t = threadIdx.x, s = t / E, le = t % E;
-  if (s < S) {
-    if (J == 1) {
-      adjoint_lane<NP, 1>(G, g, n, m, r0, RNb, ent, E, S, s, le, w, wstride, outG, gstride,
-                          outg, xstride, scratch);
-    } else if (J == 2) {
-      adjoint_lane<NP, 2>(G, g, n, m, r0, RNb, ent, E, S, s, le, w, wstride, outG, gstride,
-                          outg, xstride, scratch);
-    } else {
-      adjoint_lane<NP, kMaxJ>(G, g, n, m, r0, RNb, ent, E, S, s, le, w, wstride, outG,
-                              gstride, outg, xstride, scratch);
-    }
-  }
-  if (S > 1) {
-    __syncthreads();
-    for (int i = t; i < NP * ent; i += kThreads) {
-      const int P = i / ent, e = i % ent;
-      float sum = 0.0f;
-      for (int r = 0; r < S; ++r) sum += scratch[(P * S + r) * E + e];
-      if (e < RNb) {
-        outG[P * gstride + e] = sum;
-      } else {
-        outg[P * xstride + e - RNb] = sum;
-      }
-    }
-  }
-}
-
-// Each dense row's partial over this CTA's band at NP points,
-// sum_{e < rows n} G_q[band e] vX[P vstride + e] + sum_{i < rows} g_q[r0 + i]
-// vx[P xstride + i], sent to the owner of q (q / mc) as
-// dst[(P C + rank) mc + q - owner mc] in the owner's shared memory.  L lanes
-// a row, the least power of two (at most 32) with kResMax entries a lane:
-// a small band takes several rows a warp at once.  Each lane loads all of
-// its entries of G_q at once (kResMax loads, every one issued, from a
-// clamped, valid index, so nothing orders them) and its entry of g_q, sums
-// them in order, then a butterfly over the L lanes.  A CTA without rows
-// sends nothing (the owners sum the ranks that have rows).
-template <int NP>
-__device__ void dense_residuals(cg::cluster_group& cluster, const float* __restrict__ G,
-                                const float* __restrict__ g, int n, int m, int r0, int rows,
-                                int rank, int C, int mc, const float* vX, int vstride,
-                                const float* vx, int xstride, float* dst) {
-  const int RNb = rows * n, ent = RNb + rows;
-  if (ent == 0 || m == 0) return;
-  int L = 1;                                    // kResMax L >= ent (check_shape)
-  while (L < 32 && L * kResMax < ent) L <<= 1;
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int sub = threadIdx.x % L, groups = kThreads / L;
-  const float* Gb = G + static_cast<size_t>(r0) * n;
-  const float* gb = g + r0;
-  const int gi = min(sub, rows - 1);
-  for (int qb = 0; qb < m; qb += groups) {      // the same trip count in every lane
-    const int q = qb + static_cast<int>(threadIdx.x) / L;
-    const int qc = min(q, m - 1);               // a valid row for the lanes past m
-    const float* Gq = Gb + static_cast<size_t>(qc) * nn;
-    float v[kResMax];
-#pragma unroll
-    for (int k = 0; k < kResMax; ++k) v[k] = __ldg(Gq + min(sub + k * L, RNb - 1));
-    const float gv = __ldg(gb + static_cast<size_t>(qc) * n + gi);
-    float acc[NP];
-#pragma unroll
-    for (int P = 0; P < NP; ++P) acc[P] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kResMax; ++k) {
-      const int e = sub + k * L;
-      if (e < RNb) {
-#pragma unroll
-        for (int P = 0; P < NP; ++P) acc[P] += v[k] * vX[P * vstride + e];
-      }
-    }
-    for (int i = sub; i < rows; i += L) {      // one entry a lane: rows <= L at C = 16
-      const float x = i == sub ? gv : __ldg(gb + static_cast<size_t>(qc) * n + i);
-#pragma unroll
-      for (int P = 0; P < NP; ++P) acc[P] += x * vx[P * xstride + i];
-    }
-    for (int o = L / 2; o > 0; o >>= 1) {
-#pragma unroll
-      for (int P = 0; P < NP; ++P) acc[P] += __shfl_xor_sync(0xffffffffu, acc[P], o);
-    }
-    if (q < m && sub == 0) {
-      const int own = q / mc;
-      float* d = cluster.map_shared_rank(dst, own);
-#pragma unroll
-      for (int P = 0; P < NP; ++P) d[(P * C + rank) * mc + q - own * mc] = acc[P];
-    }
-  }
-}
 
 // ---- the block ------------------------------------------------------------
 // Two launch plans, chosen by shape (lp/pdhg_dense.py::block_plan):
@@ -403,6 +216,15 @@ __host__ __device__ inline size_t work_words(int n, int m, int P, bool checked) 
   return NN + n + Pm + (checked ? NN + Pm + static_cast<size_t>(P) * (2 * kNV + kND) : 0) + 1;
 }
 
+// The norm's "grid" scratch (work), in floats: the iterate Y (n n) and y
+// (n), gX (n n), the rows' partials (P m), kD (m), each CTA's two sums of
+// the iterate and two of the last step (4 P); then the barrier's counter.
+// lp/pdhg_dense.py::_norm_work_words mirrors it.
+inline size_t norm_work_words(int n, int m, int P) {
+  const size_t NN = static_cast<size_t>(n) * n, Pm = static_cast<size_t>(P) * m;
+  return 2 * NN + n + Pm + m + 4 * static_cast<size_t>(P) + 1;
+}
+
 // ---- "grid" ---------------------------------------------------------------
 
 // Offsets, in 4-byte words, of one CTA's dynamic shared memory: the slab
@@ -444,13 +266,15 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 }
 
 // A CTA's slices of the "grid" plan and the passes over them, shared by the
-// block and its check: CTA b's entries of X [e0, e1), of x [i0, i1) and rows
+// block, its check and the norm (Args: BlockArgs or NormArgs, whose G and g
+// it reads): CTA b's entries of X [e0, e1), of x [i0, i1) and rows
 // [q0, q1); the rows' owned segments, row q's G_q[e0, e1) and g_q[i0, i1),
 // each as the 16-byte-aligned span that holds it (SA, SB floats: ca, cb
 // chunks of 4), ES floats a row.  Entry j of G's part sits at span position
 // shA(q) + j, of g's part at SA + shB(q) + j.
+template <class Args>
 struct GridCta {
-  const BlockArgs* a;
+  const Args* a;
   int n, m, NN, P, b, t;
   int e0, e1, i0, i1, q0, q1, LA, LB, E;
   int SA, SB, ES, ca, cr;
@@ -460,7 +284,7 @@ struct GridCta {
   int RL, RG, rg, rl;           // the residuals' lanes: RL a row, group rg of RG
   float *scr, *slab, *syD, *sown;
 
-  __device__ __forceinline__ GridCta(const BlockArgs& args, float* sm) : a(&args) {
+  __device__ __forceinline__ GridCta(const Args& args, float* sm) : a(&args) {
     n = args.n;
     m = args.m;
     NN = n * n;
@@ -608,7 +432,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, unsigned target, 
                                         float rB, float raX, float raA, float raB, float rcX,
                                         float rx, float rax) {
   extern __shared__ __align__(16) float sm[];
-  const GridCta g(a, sm);
+  const GridCta<BlockArgs> g(a, sm);
   const int n = a.n, m = a.m, NN = n * n, P = g.P, b = g.b, t = g.t;
   const int lane = t % 32, warp = t / 32;
   const int i0 = g.i0, q0 = g.q0, q1 = g.q1, LA = g.LA, LB = g.LB, nst = g.nst, QB = g.QB;
@@ -829,7 +653,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
   const int n = a.n, m = a.m, NN = n * n;
   const int P = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const GridCta g(a, sm);
+  const GridCta<BlockArgs> g(a, sm);
   float* const slab = g.slab;
   float* const syD = g.syD;
   float* const sown = g.sown;
@@ -1022,13 +846,129 @@ __host__ __device__ inline CtaLayout cta_layout(int n, int m) {
   return L;
 }
 
+// [G_q | g_q | 0] of every row into W (m rows of cta_row(n) floats), by
+// cp.async; the caller waits for them
+__device__ __forceinline__ void stage_rows(float* W, const float* G, const float* g, int n,
+                                           int m) {
+  const int NN = n * n, V = NN + n, V4 = cta_row(n);
+  for (int p = threadIdx.x; p < m * V4; p += kThreads) {
+    const int q = p / V4, v = p - q * V4;
+    if (v < NN) {
+      cp_async4(W + p, G + static_cast<size_t>(q) * NN + v);
+    } else if (v < V) {
+      cp_async4(W + p, g + static_cast<size_t>(q) * n + (v - NN));
+    } else {
+      W[p] = 0.0f;
+    }
+  }
+  cp_async_commit();
+}
+
+// The "cta" plan's two passes over the staged rows W, shared by the block,
+// its check and the norm.  The adjoint's lanes: entries 4 k4 .. 4 k4 + 3 of
+// strand sj, whose rows are the block [sj m / NS, (sj + 1) m / NS), NS
+// strands.  The residuals' lanes: RL a row (the least power of two with at
+// most kRowJ / 4 quads a lane, at most 32), group rg of RG = kThreads / RL.
+struct CtaPasses {
+  const float* W;
+  int m, V, V4, Q4, NS, sj, k4, qa, qe, RL, RG, rg, rl;
+
+  __device__ __forceinline__ CtaPasses(const float* W_, int n, int m_) : W(W_), m(m_) {
+    const int t = threadIdx.x;
+    V = n * n + n;
+    V4 = cta_row(n);
+    Q4 = V4 / 4;
+    NS = max(1, kThreads / Q4);
+    sj = t / Q4;
+    k4 = t % Q4;
+    qa = static_cast<int>(static_cast<long long>(m) * sj / NS);
+    qe = static_cast<int>(static_cast<long long>(m) * (sj + 1) / NS);
+    RL = 1;
+    while (RL < 32 && RL * (kRowJ / 4) < Q4) RL <<= 1;
+    RG = kThreads / RL;
+    rg = t / RL;
+    rl = t % RL;
+  }
+  // whether a residual lane's quads fit its registers (residual<true>)
+  __device__ __forceinline__ bool fast() const { return RL * (kRowJ / 4) >= Q4; }
+
+  // the adjoint sum_q w(q) [G_q | g_q], each strand's rows in increasing q,
+  // into str (strand sj at sj V4)
+  template <class Weight>
+  __device__ __forceinline__ void strands(Weight w, float* str) const {
+    if (sj < NS) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+      for (int q = qa; q < qe; ++q) {
+        const float wq = w(q);
+        const float4 v = *reinterpret_cast<const float4*>(W + q * V4 + 4 * k4);
+        acc.x = fmaf(wq, v.x, acc.x);
+        acc.y = fmaf(wq, v.y, acc.y);
+        acc.z = fmaf(wq, v.z, acc.z);
+        acc.w = fmaf(wq, v.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(str + sj * V4 + 4 * k4) = acc;
+    }
+  }
+  // the strands summed in strand order into out[0, V) (after a barrier)
+  __device__ __forceinline__ void strand_sums(const float* str, float* out) const {
+    for (int v = threadIdx.x; v < V; v += kThreads) {
+      float s = 0.0f;
+      for (int r = 0; r < NS; ++r) s += str[r * V4 + v];
+      out[v] = s;
+    }
+  }
+  // <W_q, wv> of every row q into res, RL lanes a row (a butterfly; the same
+  // trip count in every lane: rows past m redo row m - 1 unstored).  kFast:
+  // a lane keeps wv's quads rl + RL j in registers, every load issued, from a
+  // clamped quad, its weight 0 past V4.
+  template <bool kFast>
+  __device__ __forceinline__ void residual(const float* wv, float* res) const {
+    float4 wr[kRowJ / 4];
+    if (kFast) {
+#pragma unroll
+      for (int j = 0; j < kRowJ / 4; ++j) {
+        const int k = rl + RL * j;
+        wr[j] = k < Q4 ? *reinterpret_cast<const float4*>(wv + 4 * k)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+    for (int qb = 0; qb < m; qb += RG) {
+      const int q = qb + rg;
+      const float* Wq = W + min(q, m - 1) * V4;
+      float r = 0.0f;
+      if (kFast) {
+#pragma unroll
+        for (int j = 0; j < kRowJ / 4; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * min(rl + RL * j, Q4 - 1));
+          r = fmaf(v.x, wr[j].x, r);
+          r = fmaf(v.y, wr[j].y, r);
+          r = fmaf(v.z, wr[j].z, r);
+          r = fmaf(v.w, wr[j].w, r);
+        }
+      } else {
+        for (int k = rl; k < Q4; k += RL) {
+          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * k);
+          const float4 w = *reinterpret_cast<const float4*>(wv + 4 * k);
+          r = fmaf(v.x, w.x, r);
+          r = fmaf(v.y, w.y, r);
+          r = fmaf(v.z, w.z, r);
+          r = fmaf(v.w, w.w, r);
+        }
+      }
+      for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+      if (rl == 0 && q < m) res[q] = r;
+    }
+  }
+};
+
 template <bool kCheck>
 __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
     const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) float sm[];
   if (a.rec[kRecStop]) return;
   const float tau = __int_as_float(a.rec[kRecTau]), sigma = __int_as_float(a.rec[kRecSigma]);
-  const int n = a.n, m = a.m, NN = n * n, V = NN + n, V4 = cta_row(n), Q4 = V4 / 4;
+  const int n = a.n, m = a.m, NN = n * n, V = NN + n, V4 = cta_row(n);
   const int t = threadIdx.x;
   const CtaLayout L = cta_layout(n, m);
   float* const W = sm + L.W;
@@ -1052,17 +992,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
   float* const sstr = sm + L.strand;
 
   // ---- entry: G and g staged once, the state loaded -----------------------
-  for (int p = t; p < m * V4; p += kThreads) {
-    const int q = p / V4, v = p - q * V4;
-    if (v < NN) {
-      cp_async4(W + p, a.G + static_cast<size_t>(q) * NN + v);
-    } else if (v < V) {
-      cp_async4(W + p, a.g + static_cast<size_t>(q) * n + (v - NN));
-    } else {
-      W[p] = 0.0f;
-    }
-  }
-  cp_async_commit();
+  stage_rows(W, a.G, a.g, n, m);
   for (int e = t; e < NN; e += kThreads) {
     sX[e] = a.X[e];
     syA[e] = a.yA[e];
@@ -1086,42 +1016,15 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
   cp_async_wait<0>();
   __syncthreads();
 
-  // the adjoint's lanes: entries 4 k4 .. 4 k4 + 3 of strand sj, whose rows
-  // are the block [sj m / NS, (sj + 1) m / NS), NS strands
-  const int NS = max(1, kThreads / Q4);
-  const int sj = t / Q4, k4 = t % Q4;
-  const int qa = static_cast<int>(static_cast<long long>(m) * sj / NS);
-  const int qe = static_cast<int>(static_cast<long long>(m) * (sj + 1) / NS);
-  // the residuals' lanes: RL a row (the least power of two with at most
-  // kRowJ / 4 quads a lane, at most 32), group t / RL of RG = kThreads / RL;
-  // lane l keeps [Xb | xb] at quads l + RL j in registers
-  int RL = 1;
-  while (RL < 32 && RL * (kRowJ / 4) < Q4) RL <<= 1;
-  const int RG = kThreads / RL, rg = t / RL, rl = t % RL;
-  const bool fast = RL * (kRowJ / 4) >= Q4;
+  const CtaPasses ps(W, n, m);
+  const bool fast = ps.fast();
 
   for (int it = 0; it < a.iters; ++it) {
     // ---- the adjoint sum_q yD_q [G_q | g_q]: each strand's rows in order,
     //      then the strands in order ------------------------------------------
-    if (sj < NS) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 4
-      for (int q = qa; q < qe; ++q) {
-        const float w = syD[q];
-        const float4 v = *reinterpret_cast<const float4*>(W + q * V4 + 4 * k4);
-        acc.x = fmaf(w, v.x, acc.x);
-        acc.y = fmaf(w, v.y, acc.y);
-        acc.z = fmaf(w, v.z, acc.z);
-        acc.w = fmaf(w, v.w, acc.w);
-      }
-      *reinterpret_cast<float4*>(sstr + sj * V4 + 4 * k4) = acc;
-    }
+    ps.strands([&](int q) { return syD[q]; }, sstr);
     __syncthreads();
-    for (int v = t; v < V; v += kThreads) {
-      float s = 0.0f;
-      for (int r = 0; r < NS; ++r) s += sstr[r * V4 + v];
-      sgD[v] = s;
-    }
+    ps.strand_sums(sstr, sgD);
     __syncthreads();
 
     // ---- S, and the x step (a thread a row; xb after X's Xb in wv) ---------
@@ -1168,48 +1071,11 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
     }
     __syncthreads();
 
-    // ---- the residuals, RL lanes a row (a butterfly), then yD and its sum ----
-    // (the same trip count in every lane: rows past m redo row m - 1
-    // unstored; every load issued, from a clamped quad, its weight 0 past V4)
+    // ---- the residuals <G_q, Xb> + g_q . xb, then yD and its sum ------------
     if (fast) {
-      float4 wr[kRowJ / 4];
-#pragma unroll
-      for (int j = 0; j < kRowJ / 4; ++j) {
-        const int k = rl + RL * j;
-        wr[j] = k < Q4 ? *reinterpret_cast<const float4*>(swv + 4 * k)
-                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-      for (int qb = 0; qb < m; qb += RG) {
-        const int q = qb + rg;
-        const float* Wq = W + min(q, m - 1) * V4;
-        float r = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kRowJ / 4; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * min(rl + RL * j, Q4 - 1));
-          r = fmaf(v.x, wr[j].x, r);
-          r = fmaf(v.y, wr[j].y, r);
-          r = fmaf(v.z, wr[j].z, r);
-          r = fmaf(v.w, wr[j].w, r);
-        }
-        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-        if (rl == 0 && q < m) sres[q] = r;
-      }
+      ps.residual<true>(swv, sres);
     } else {
-      for (int qb = 0; qb < m; qb += RG) {
-        const int q = qb + rg;
-        const float* Wq = W + min(q, m - 1) * V4;
-        float r = 0.0f;
-        for (int k = rl; k < Q4; k += RL) {
-          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * k);
-          const float4 w = *reinterpret_cast<const float4*>(swv + 4 * k);
-          r = fmaf(v.x, w.x, r);
-          r = fmaf(v.y, w.y, r);
-          r = fmaf(v.z, w.z, r);
-          r = fmaf(v.w, w.w, r);
-        }
-        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-        if (rl == 0 && q < m) sres[q] = r;
-      }
+      ps.residual<false>(swv, sres);
     }
     __syncthreads();
     for (int q = t; q < m; q += kThreads) {
@@ -1235,44 +1101,14 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
       const float* const px = pt == 0 ? sx : sax;
       const float* const pD = pt == 0 ? syD : sayD;
       // the adjoint sum_q yD_q [G_q | g_q] at the point, as the block's
-      if (sj < NS) {
-        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 4
-        for (int q = qa; q < qe; ++q) {
-          const float w = pD[q] * sc;
-          const float4 v = *reinterpret_cast<const float4*>(W + q * V4 + 4 * k4);
-          acc.x = fmaf(w, v.x, acc.x);
-          acc.y = fmaf(w, v.y, acc.y);
-          acc.z = fmaf(w, v.z, acc.z);
-          acc.w = fmaf(w, v.w, acc.w);
-        }
-        *reinterpret_cast<float4*>(sstr + sj * V4 + 4 * k4) = acc;
-      }
+      ps.strands([&](int q) { return pD[q] * sc; }, sstr);
       // [X | x] at the point, the residuals' weights
       for (int e = t; e < NN; e += kThreads) swv[e] = pX[e] * sc;
       for (int i = t; i < n; i += kThreads) swv[NN + i] = px[i] * sc;
       __syncthreads();
-      for (int v = t; v < V; v += kThreads) {
-        float s = 0.0f;
-        for (int r = 0; r < NS; ++r) s += sstr[r * V4 + v];
-        sgD[v] = s;
-      }
-      // the rows' residuals <G_q, X> + g_q . x, RL lanes a row
-      for (int qb = 0; qb < m; qb += RG) {
-        const int q = qb + rg;
-        const float* Wq = W + min(q, m - 1) * V4;
-        float r = 0.0f;
-        for (int k = rl; k < Q4; k += RL) {
-          const float4 v = *reinterpret_cast<const float4*>(Wq + 4 * k);
-          const float4 w = *reinterpret_cast<const float4*>(swv + 4 * k);
-          r = fmaf(v.x, w.x, r);
-          r = fmaf(v.y, w.y, r);
-          r = fmaf(v.z, w.z, r);
-          r = fmaf(v.w, w.w, r);
-        }
-        for (int o = RL / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-        if (rl == 0 && q < m) sres[q] = r;
-      }
+      ps.strand_sums(sstr, sgD);
+      // the rows' residuals <G_q, X> + g_q . x
+      ps.residual<false>(swv, sres);
       __syncthreads();
       // the point's sums: objective, dual bound (M + M^T from gX and its
       // transpose), infeasibility of K z
@@ -1400,281 +1236,355 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_cta_kernel(
   }
 }
 
-// ---- the norm -------------------------------------------------------------
+// ---- the norm (K7n) --------------------------------------------------------
+// ||K|| 1.02 + 1e-12 after `iters` power iterations on the symmetric-X
+// primal subspace from the start vector (y, Y), read only, as
+// estimate_norm_plain (lp/pdhg.py) computes it: z = (y, Y) / nrm (nrm = 1
+// at the start), K z = (kA, kB, kD), (gx, gX) = K^T K z with gX
+// symmetrised, nrm = ||(gx, gX)|| + 1e-30 and (y, Y) = (gx, gX); after the
+// last iteration ||K z||.  kD is the block's residual pass with weights z,
+// K^T's dense part its adjoint pass with weights kD, on the block's plan and
+// layout (block_plan), so the norm runs wherever the block runs.
 
 struct NormArgs {
-  int n, m, R, mc, nr, iters;
-  const float *G, *g;
-  float *y, *Y;       // (n,), (n, n): the start vector in, the last iterate out
-  float* out;         // ||K|| 1.02 + 1e-12
+  int n, m, iters;
+  const float *G, *g;     // the dense rows, read in place
+  const float *y, *Y;     // the start vector, read only
+  float* work;            // "grid": norm_work_words
+  unsigned* bar;          // "grid": the barrier's counter
+  float* out;             // ||K|| 1.02 + 1e-12
 };
 
-struct NormLayout {
-  int kA, kB, gX, GT, Zb, D;   // (R, n) bands: K's first two blocks, gX, the transposed
-                               // tiles, the band of Y / nrm, the dense adjoint
-  int rowA, rowB;              // (R, kWarpsPerRow) row partials of kA, kB
-  int colP;                    // (C kGroups, R) column partials of kB
-  int xs;                      // (kCols,) x = y / nrm
-  int gx, gD;                  // (R,) the band's gx and its dense part
-  int kDp;                     // (C, mc) the ranks' partials of the owned rows
-  int kD;                      // (m,) replica of K's dense block
-  int red;                     // (C, 4) every rank's sums of squares (norm, last step)
-  int scratch;                 // (kThreads,) strand partials and block sums
-  int tot;                     // (4,) this CTA's sums
-  int words;
-};
-
-__host__ __device__ inline NormLayout norm_layout(int n, int m, int C) {
-  const int R = (n + C - 1) / C, mc = (m + C - 1) / C, RN = R * n;
-  NormLayout L;
-  int o = 0;
-#define TAKE(field, words) L.field = o; o += (words)
-  TAKE(kA, RN); TAKE(kB, RN); TAKE(gX, RN); TAKE(GT, RN); TAKE(Zb, RN); TAKE(D, RN);
-  TAKE(rowA, R * kWarpsPerRow); TAKE(rowB, R * kWarpsPerRow);
-  TAKE(colP, C * kGroups * R);
-  TAKE(xs, kCols); TAKE(gx, R); TAKE(gD, R);
-  TAKE(kDp, C * mc); TAKE(kD, m);
-  TAKE(red, C * 4);
-  TAKE(scratch, kThreads);
-  TAKE(tot, 4);
-#undef TAKE
-  L.words = o;
-  return L;
-}
-
-__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_kernel(
+// "cta": G and g staged once (cta_layout; the norm's arrays in the block's
+// fields), every iteration in shared memory with block barriers only.
+__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_cta_kernel(
     const __grid_constant__ NormArgs a) {
   extern __shared__ __align__(16) float sm[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int n = a.n, m = a.m, R = a.R, mc = a.mc;
-  const NormLayout L = norm_layout(n, m, C);
-  float* const y = a.y;
-  float* const Y = a.Y;
-  float* const skA = sm + L.kA;
-  float* const skB = sm + L.kB;
-  float* const sgX = sm + L.gX;
-  float* const sGT = sm + L.GT;
-  float* const sZb = sm + L.Zb;
-  float* const sD = sm + L.D;
-  float* const srowA = sm + L.rowA;
-  float* const srowB = sm + L.rowB;
-  float* const scolP = sm + L.colP;
-  float* const sxs = sm + L.xs;
-  float* const sgx = sm + L.gx;
-  float* const sgD = sm + L.gD;
-  float* const skDp = sm + L.kDp;
-  float* const skD = sm + L.kD;
-  float* const sred = sm + L.red;
-
+  const int n = a.n, m = a.m, NN = n * n, V = NN + n, V4 = cta_row(n);
   const int t = threadIdx.x;
-  const int c = t % kCols;
-  const int grp = t / kCols;
-  const int lane = t % 32;
-  const int wr = c / 32;
-  const int r0 = rank * R;
-  const int rows = band_rows(n, R, rank);
-  const int q0 = rank * mc;
-  const int qn = max(0, min(mc, m - q0));
+  const CtaLayout L = cta_layout(n, m);
+  float* const W = sm + L.W;
+  float* const sY = sm + L.X;         // the iterate (y, Y), unnormalised
+  float* const sy = sm + L.x;
+  float* const skA = sm + L.yA;       // K z's first two blocks
+  float* const skB = sm + L.yB;
+  float* const skD = sm + L.res;      // and its dense rows
+  float* const sgX = sm + L.S;
+  float* const swv = sm + L.wv;       // z = [Y | y] / nrm | 0
+  float* const sgD = sm + L.gD;       // the adjoint of kD
+  float* const sstr = sm + L.strand;
+  stage_rows(W, a.G, a.g, n, m);
+  for (int e = t; e < NN; e += kThreads) sY[e] = a.Y[e];
+  for (int i = t; i < n; i += kThreads) sy[i] = a.y[i];
+  for (int v = V + t; v < V4; v += kThreads) swv[v] = 0.0f;
+  cp_async_wait<0>();
+  __syncthreads();
+  const CtaPasses ps(W, n, m);
+  const bool fast = ps.fast();
 
-  float nrm = 1.0f;        // the start vector is used as it is (x / 1 = x)
-  cluster.sync();          // every CTA has started before any remote store
+  float nrm = 1.0f;          // the start vector is used as it is (x / 1 = x)
   for (int it = 0;; ++it) {
-    const bool last = it == a.iters;
-    // ---- 1: K z at z = (y, Y) / nrm; the dense rows' partials to the owners
-    for (int j = t; j < n; j += kThreads) sxs[j] = y[j] / nrm;
+    // ---- K z: its first two blocks, and the rows' residuals ---------------
+    for (int e = t; e < NN; e += kThreads) swv[e] = sY[e] / nrm;
+    for (int i = t; i < n; i += kThreads) swv[NN + i] = sy[i] / nrm;
     __syncthreads();
-    float sq[2] = {0.0f, 0.0f};      // the last step's sums of kA^2 + kB^2, kD^2
-    float cb = 0.0f;
-    for (int il = grp; il < rows; il += kGroups) {   // uniform across each warp
-      float va = 0.0f, vb = 0.0f;
-      if (c < n) {
-        const int i = r0 + il, e = il * n + c;
-        const float Xv = Y[static_cast<size_t>(i) * n + c] / nrm;
-        sZb[e] = Xv;
-        va = kSA * (sxs[i] - Xv);
-        vb = kSB * (Xv - sxs[i] - sxs[c]);
-        skA[e] = va;
-        skB[e] = vb;
-        sq[0] += va * va + vb * vb;
-        cb += vb;
-      }
-      const float rA = warp_sum(va);
-      const float rB = warp_sum(vb);
-      if (lane == 0) {
-        srowA[il * kWarpsPerRow + wr] = rA;
-        srowB[il * kWarpsPerRow + wr] = rB;
-      }
+    float sq[2] = {0.0f, 0.0f};       // the last step's sums of kA^2 + kB^2, kD^2
+    for (int e = t; e < NN; e += kThreads) {
+      const int i = e / n, c = e - i * n;
+      const float Z = swv[e], zi = swv[NN + i];
+      const float kA = kSA * (zi - Z), kB = kSB * (Z - zi - swv[NN + c]);
+      skA[e] = kA;
+      skB[e] = kB;
+      sq[0] += kA * kA + kB * kB;
     }
-    if (c < n && !last) {
-      const int oc = c / R;
-      cluster.map_shared_rank(scolP, oc)[(rank * kGroups + grp) * R + (c - oc * R)] = cb;
+    if (fast) {
+      ps.residual<true>(swv, skD);
+    } else {
+      ps.residual<false>(swv, skD);
     }
     __syncthreads();
-    dense_residuals<1>(cluster, a.G, a.g, n, m, r0, rows, rank, C, mc, sZb, 0, sxs + r0, 0, skDp);
-    cluster.sync();
-
-    // ---- the owners sum their rows' K z; on the last step, ||K z||^2 ------
-    for (int j = t; j < qn; j += kThreads) {
-      float kD = 0.0f;
-      for (int r = 0; r < a.nr; ++r) kD += skDp[r * mc + j];
-      if (last) {
-        sq[1] += kD * kD;
-      } else {
-        for (int r = 0; r < C; ++r) cluster.map_shared_rank(skD, r)[q0 + j] = kD;
-      }
+    if (it == a.iters) {
+      for (int q = t; q < m; q += kThreads) sq[1] += skD[q] * skD[q];
+      block_sums(sq, sstr, sstr + 64);
+      if (t == 0) *a.out = sqrtf(sstr[64] + sstr[65]) * 1.02f + 1e-12f;
+      return;
     }
-    if (last) {
-      block_sums(sq, sm + L.scratch, sm + L.tot);
-      // columns 2, 3 of rank 0's sums: a CTA may still be reading columns
-      // 0, 1 for the last norm
-      if (t < 2) cluster.map_shared_rank(sred, 0)[rank * 4 + 2 + t] = sm[L.tot + t];
-      cluster.sync();
-      if (rank == 0 && t == 0) {
-        float s0 = 0.0f, sD = 0.0f;
-        for (int r = 0; r < C; ++r) {
-          s0 += sred[r * 4 + 2];
-          sD += sred[r * 4 + 3];
-        }
-        *a.out = sqrtf(s0 + sD) * 1.02f + 1e-12f;
-      }
-      break;
-    }
-    cluster.sync();
-
-    // ---- 2: (gx, gX) = K^T (kA, kB, 0, kD) over the band -------------------
-    dense_adjoint<1>(a.G, a.g, n, m, r0, rows, skD, m, sD, 0, sgD, 0, sm + L.scratch);
+    // ---- (gx, gX) = K^T (kA, kB, 0, kD); the new iterate and its norm -----
+    ps.strands([&](int q) { return skD[q]; }, sstr);
     __syncthreads();
-    if (t < rows) {
-      float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kWarpsPerRow; ++q) {
-        sa += srowA[t * kWarpsPerRow + q];
-        sb += srowB[t * kWarpsPerRow + q];
-      }
-      for (int q = 0; q < C * kGroups; ++q) sc += scolP[q * R + t];
-      sgx[t] = (kSA * sa - kSB * (sb + sc)) + sgD[t];
-    }
-    if (c < n) {
-      for (int il = grp; il < rows; il += kGroups) {
-        const int i = r0 + il, e = il * n + c;
-        const float gX = (-kSA * skA[e] + kSB * skB[e]) + sD[e];
-        sgX[e] = gX;
-        const int oc = c / R;
-        cluster.map_shared_rank(sGT, oc)[(c - oc * R) * n + i] = gX;
-      }
-    }
-    cluster.sync();
-
-    // ---- 3: the new iterate (unnormalised) and its norm --------------------
+    ps.strand_sums(sstr, sgD);
+    __syncthreads();
+    for (int e = t; e < NN; e += kThreads) sgX[e] = (-kSA * skA[e] + kSB * skB[e]) + sgD[e];
     float ss[2] = {0.0f, 0.0f};
-    if (t < rows) {
-      const float gx = sgx[t];
-      y[r0 + t] = gx;
+    if (t < n) {
+      const int i = t;
+      float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+      for (int c = 0; c < n; ++c) {
+        sa += skA[i * n + c];
+        sb += skB[i * n + c];
+        sc += skB[c * n + i];
+      }
+      const float gx = (kSA * sa - kSB * (sb + sc)) + sgD[NN + i];
+      sy[i] = gx;
       ss[0] = gx * gx;
     }
-    if (c < n) {
-      for (int il = grp; il < rows; il += kGroups) {
-        const int e = il * n + c;
-        const float s = 0.5f * (sgX[e] + sGT[e]);
-        Y[static_cast<size_t>(r0 + il) * n + c] = s;
-        ss[1] += s * s;
-      }
+    __syncthreads();
+    for (int e = t; e < NN; e += kThreads) {
+      const int i = e / n, c = e - i * n;
+      const float v = 0.5f * (sgX[e] + sgX[c * n + i]);
+      sY[e] = v;
+      ss[1] += v * v;
     }
-    block_sums(ss, sm + L.scratch, sm + L.tot);
-    if (t < 2) {
-      for (int r = 0; r < C; ++r) cluster.map_shared_rank(sred, r)[rank * 4 + t] = sm[L.tot + t];
-    }
-    cluster.sync();
-    float s0 = 0.0f, s1 = 0.0f;
-    for (int r = 0; r < C; ++r) {
-      s0 += sred[r * 4];
-      s1 += sred[r * 4 + 1];
-    }
-    nrm = sqrtf(s0 + s1) + 1e-30f;
+    block_sums(ss, sstr, sstr + 64);
+    nrm = sqrtf(sstr[64] + sstr[65]) + 1e-30f;
   }
 }
 
-// The launch's shape: 1 <= n <= kCols, a cluster of at most kMaxCluster CTAs
-// whose bands fit the adjoint's lanes, m >= 0, and the caller's shared bytes
-// equal to this file's layout.
-int check_shape(int n, int m, int cluster, int smem, int words) {
-  if (cluster < 1 || cluster > kMaxCluster || n < 1 || n > kCols || m < 0) return kErrLayout;
-  const int R = (n + cluster - 1) / cluster;
-  if (R * n + R > kMaxEntries || R * n + R > kMaxJ * kThreads) return kErrLayout;
-  if (4 * static_cast<size_t>(words) != static_cast<size_t>(smem)) return kErrLayout;
-  return 0;
-}
+// "grid": CTA b's slices as the block's (GridCta); the owned entries of the
+// iterate in registers (thread t: entry e0 + t of Y; lane 0 of warp w:
+// entry i0 + w of y), the whole iterate in global memory for the other
+// CTAs.  A power iteration, from the iterate (y, Y) as the last one left it
+// (unnormalised):
+//   A  each row's partial of <G_q, Y> + g_q . y over the owned entries (the
+//      residual pass with weights [Y | y]);                grid barrier 1
+//   B  nrm from every CTA's sums, folded in CTA order (1 at the start); the
+//      owned rows' kD_q = (their partials in CTA order) / nrm; kA, kB of the
+//      owned entries at z = (y, Y) / nrm, and the row sums of kA, kB and the
+//      column sums of kB of the owned entries of x, every read issued
+//      before the CTA waits for nrm;                       grid barrier 2
+//   C  the adjoint pass with weights kD; gX of the owned entries to global
+//      memory; gx of the owned entries of x, the new y;    grid barrier 3
+//   D  Y = 0.5 (gX + gX^T) of the owned entries; each CTA's sums of gx^2
+//      and Y^2 to global memory.
+// The next A needs no barrier after D: its weights are the CTA's own
+// entries, unnormalised, and B scales its partials once every CTA's sums
+// have arrived (the barrier a normalised A would need, merged into
+// barrier 1).  After the last iteration, A and B give K z; each CTA's sums
+// of kA^2 + kB^2 and kD^2 to global memory, a barrier, and CTA 0 folds them.
+__global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
+    const __grid_constant__ NormArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int n = a.n, m = a.m, NN = n * n;
+  const GridCta<NormArgs> g(a, sm);
+  const int P = g.P, b = g.b, t = g.t, lane = t % 32, warp = t / 32;
+  const int i0 = g.i0, q0 = g.q0, q1 = g.q1, LA = g.LA, LB = g.LB, QB = g.QB, nst = g.nst;
+  const bool resident = g.resident;
+  float* const scr = g.scr;            // [0, 2) the folded sums, block_sums at [32, 66),
+                                       // y at [128, 128 + n)
+  float* const slab = g.slab;
+  float* const syD = g.syD;            // the replica of kD
+  float* const sown = g.sown;
+  float* const wY = a.work;            // the iterate after the first iteration
+  float* const wy = wY + NN;
+  float* const wgX = wy + n;
+  float* const part = wgX + NN;        // (P, m): CTA b's partial of row q at b m + q
+  float* const wkD = part + static_cast<size_t>(P) * m;
+  float* const csum = wkD + m;         // (2, P): each CTA's sums of gx^2 and Y^2
+  float* const cfin = csum + 2 * P;    // (2, P): each CTA's sums of the last step
+  unsigned target = 0;
+  auto issue = [&](int s, float* dst) { g.issue(s, dst); };
 
-template <class Kernel, class Args>
-int launch_one(Kernel kernel, int checked[2], int cluster, int smem, const Args& a, void* stream) {
-  const int err = prepare_cluster(kernel, cluster, smem, checked);
-  if (err != 0) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      launch_config(cluster, 1, smem, static_cast<cudaStream_t>(stream), attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
+  if (resident) g.load_rows(0, m, slab);   // the launch's one read of the slice
+  cp_async_commit();
+  ring_prologue(slab, nst, issue);         // a stream's first stages
+  const bool own = t < LA, ownx = lane == 0 && warp < LB;
+  const int eo = g.e0 + t, io = eo / n, co = eo - io * n;
+  float rY = own ? a.Y[eo] : 0.0f;
+  float ry = ownx ? a.y[i0 + warp] : 0.0f;
+  if (resident) cp_async_wait<0>();
+  __syncthreads();
 
-int ranks_with_rows(int n, int cluster) {
-  const int R = (n + cluster - 1) / cluster;
-  return (n + R - 1) / R;
+  for (int it = 0;; ++it) {
+    const bool last = it == a.iters;
+    const float* const Yc = it == 0 ? a.Y : wY;
+    const float* const yc = it == 0 ? a.y : wy;
+    // ---- A: the rows' partials at the iterate --------------------------------
+    if (own) sown[t] = rY;
+    if (ownx) sown[LA + warp] = ry;
+    __syncthreads();
+    g.shift_weights();
+    if (resident) {
+      g.residual(part, m, 1, 0, m, slab);
+    } else {
+      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+        g.residual(part, m, 1, s * QB, min(QB, m - s * QB), buf);
+      });
+      if (!last) ring_prologue(slab, nst, issue);   // C's first stages, early
+    }
+    grid_sync(a.bar, target, P);
+
+    // ---- B: nrm; kD of the owned rows; K's first two blocks at z.  Every
+    //      read of the step is issued before the CTA waits for nrm --------------
+    float fold = 0.0f;                   // warps 0, 1: every CTA's sums of the iterate
+    if (it > 0 && warp < 2)
+      for (int c = lane; c < P; c += 32) fold += __ldcg(csum + static_cast<size_t>(warp) * P + c);
+    float* const sy = scr + 128;
+    for (int i = t; i < n; i += kThreads) sy[i] = __ldcg(yc + i);
+    for (int q = q0 + warp; q < q1; q += kThreads / 32) {   // the rows' K z, unscaled
+      float r = 0.0f;
+      for (int c = lane; c < P; c += 32) r += __ldcg(part + static_cast<size_t>(c) * m + q);
+      r = warp_sum(r);
+      if (lane == 0) syD[q] = r;
+    }
+    // warp w < LB: row i0 + w of Y at columns lane + 32 j, which is also its
+    // column: Y is symmetric bit for bit (the start vector is sym(.), and D
+    // forms both (i, c) and (c, i) as 0.5 (gX_ic + gX_ci))
+    float Yr[kCols / 32];
+    if (!last && warp < LB) {
+      const int i = i0 + warp;
+#pragma unroll
+      for (int j = 0; j < kCols / 32; ++j)      // every load issued, from a clamped column
+        Yr[j] = __ldcg(Yc + i * n + min(lane + 32 * j, n - 1));
+    }
+    if (it > 0 && warp < 2) {
+      fold = warp_sum(fold);
+      if (lane == 0) scr[warp] = fold;
+    }
+    __syncthreads();
+    const float nrm = it == 0 ? 1.0f : sqrtf(scr[0] + scr[1]) + 1e-30f;
+    float v[2] = {0.0f, 0.0f};           // the last step's sums of kA^2 + kB^2, kD^2
+    if (lane == 0) {
+      for (int q = q0 + warp; q < q1; q += kThreads / 32) {
+        const float kd = syD[q] / nrm;
+        if (last) {
+          v[1] += kd * kd;
+        } else {
+          wkD[q] = kd;
+        }
+      }
+    }
+    float kA = 0.0f, kB = 0.0f;
+    if (own) {
+      const float Z = rY / nrm, zi = sy[io] / nrm;
+      kA = kSA * (zi - Z);
+      kB = kSB * (Z - zi - sy[co] / nrm);
+      v[0] += kA * kA + kB * kB;
+    }
+    if (last) {
+      block_sums(v, scr + 32, scr + 64);
+      if (t < 2) cfin[static_cast<size_t>(t) * P + b] = scr[64 + t];
+      grid_sync(a.bar, target, P);
+      if (b == 0) {
+        if (warp < 2) {
+          float r = 0.0f;
+          for (int c = lane; c < P; c += 32) r += __ldcg(cfin + static_cast<size_t>(warp) * P + c);
+          r = warp_sum(r);
+          if (lane == 0) scr[warp] = r;
+        }
+        __syncthreads();
+        if (t == 0) *a.out = sqrtf(scr[0] + scr[1]) * 1.02f + 1e-12f;
+      }
+      return;
+    }
+    float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+    if (warp < LB) {
+      const float zi = sy[i0 + warp] / nrm;
+#pragma unroll
+      for (int j = 0; j < kCols / 32; ++j) {   // the columns in increasing order a lane
+        if (lane + 32 * j < n) {
+          const float zc = sy[lane + 32 * j] / nrm, Z = Yr[j] / nrm;
+          sa += kSA * (zi - Z);
+          sb += kSB * (Z - zi - zc);
+          sc += kSB * (Z - zc - zi);
+        }
+      }
+      sa = warp_sum(sa);
+      sb = warp_sum(sb);
+      sc = warp_sum(sc);
+    }
+    grid_sync(a.bar, target, P);
+
+    // ---- C: K^T (kA, kB, 0, kD) of the owned entries -------------------------
+    for (int q = t; q < m; q += kThreads) syD[q] = __ldcg(wkD + q);
+    __syncthreads();
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (resident) {
+      g.adjoint(acc, 0, m, slab);
+    } else {
+      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+        g.adjoint(acc, s * QB, min(QB, m - s * QB), buf);
+      });
+      ring_prologue(slab, nst, issue);    // the next A's first stages
+    }
+    g.strand_sums(acc);
+    if (own) wgX[eo] = (-kSA * kA + kSB * kB) + sown[t];
+    float ss[2] = {0.0f, 0.0f};           // this CTA's sums of gx^2 and Y^2
+    if (ownx) {
+      ry = (kSA * sa - kSB * (sb + sc)) + sown[LA + warp];
+      wy[i0 + warp] = ry;
+      ss[0] = ry * ry;
+    }
+    grid_sync(a.bar, target, P);
+
+    // ---- D: the new Y of the owned entries, and the CTA's sums -----------------
+    if (own) {
+      rY = 0.5f * (__ldcg(wgX + eo) + __ldcg(wgX + co * n + io));
+      wY[eo] = rY;
+      ss[1] = rY * rY;
+    }
+    block_sums(ss, scr + 32, scr + 64);
+    if (t < 2) csum[static_cast<size_t>(t) * P + b] = scr[64 + t];
+  }
 }
 
 // The cooperative grid of the "grid" plan with smem bytes a CTA, into *P:
 // as many CTAs as the card holds at once (each SM's share times the SMs) of
-// both forms, unchecked and checked, so that the two run the same grid and
-// the block's sums the same order.  Returns 0, a CUDA error or kErrNoCluster
-// (not one CTA fits).
+// every kernel of the plan, the block's two forms and the norm, so that the
+// block's forms run the same grid and the block's sums the same order.
+// Returns 0, a CUDA error or kErrNoCluster (not one CTA fits).
 int dense_grid(int smem, int* P) {
   static int cached[3] = {-1, -1, 0};   // device, smem, CTAs
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (cached[0] != dev || cached[1] != smem) {
-    int per_sm[2] = {0, 0}, sms = 0;
-    const void* kernels[2] = {reinterpret_cast<const void*>(pdhg_dense_grid_kernel<false>),
-                              reinterpret_cast<const void*>(pdhg_dense_grid_kernel<true>)};
-    for (int f = 0; f < 2; ++f) {
-      e = cudaFuncSetAttribute(kernels[f], cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int fewest = 1 << 30, sms = 0;
+    const void* kernels[3] = {reinterpret_cast<const void*>(pdhg_dense_grid_kernel<false>),
+                              reinterpret_cast<const void*>(pdhg_dense_grid_kernel<true>),
+                              reinterpret_cast<const void*>(pdhg_dense_norm_grid_kernel)};
+    for (const void* kernel : kernels) {
+      int per_sm = 0;
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[f], kernels[f], kThreads,
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                         static_cast<size_t>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
+      fewest = per_sm < fewest ? per_sm : fewest;
     }
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
     cached[0] = dev;
     cached[1] = smem;
-    cached[2] = (per_sm[0] < per_sm[1] ? per_sm[0] : per_sm[1]) * sms;
+    cached[2] = fewest * sms;
   }
   *P = cached[2];
   return *P < 1 ? kErrNoCluster : 0;
 }
 
-// One launch of the block (kCheck: its checked form) under plan 0 "cta" or
-// 1 "grid"; the shape and smem already checked.
-template <bool kCheck>
-int launch_block(const BlockArgs& a, int plan, int smem, int* grid, cudaStream_t st) {
+// One launch of a dense-route kernel under plan 0 "cta" (cta_kernel, one
+// CTA; cta_smem: the size its attribute was last set to) or 1 "grid"
+// (grid_kernel on dense_grid's CTAs, launched cooperatively once the
+// barrier's counter bar is zeroed); the shape and smem already checked.
+// distances: CTA 0 copies every CTA's distances into its scratch (the
+// checked block).  *grid receives the CTAs.
+template <class Args>
+int launch_plan(void (*cta_kernel)(Args), void (*grid_kernel)(Args), int& cta_smem,
+                const Args& a, unsigned* bar, int plan, int smem, bool distances, int* grid,
+                cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = st;
   cudaError_t e;
   if (plan == 0) {
-    static int checked = -1;
-    if (checked != smem) {
-      e = cudaFuncSetAttribute(pdhg_dense_cta_kernel<kCheck>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (cta_smem != smem) {
+      e = cudaFuncSetAttribute(cta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
-      checked = smem;
+      cta_smem = smem;
     }
     cfg.gridDim = dim3(1, 1, 1);
     *grid = 1;
-    e = cudaLaunchKernelEx(&cfg, pdhg_dense_cta_kernel<kCheck>, a);
+    e = cudaLaunchKernelEx(&cfg, cta_kernel, a);
   } else {
     int P = 0;
     const int err = dense_grid(smem, &P);
@@ -1682,8 +1592,8 @@ int launch_block(const BlockArgs& a, int plan, int smem, int* grid, cudaStream_t
     const int n = a.n;
     if ((n * n + P - 1) / P + (n + P - 1) / P > kMaxE || (n + P - 1) / P > kThreads / 32)
       return kErrLayout;
-    if (kCheck && 256 + P * kND > kScratch) return kErrLayout;   // CTA 0's copy of the distances
-    e = cudaMemsetAsync(a.bar, 0, sizeof(unsigned), st);
+    if (distances && 256 + P * kND > kScratch) return kErrLayout;   // CTA 0's copy
+    e = cudaMemsetAsync(bar, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeCooperative;
@@ -1692,10 +1602,18 @@ int launch_block(const BlockArgs& a, int plan, int smem, int* grid, cudaStream_t
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     *grid = P;
-    e = cudaLaunchKernelEx(&cfg, pdhg_dense_grid_kernel<kCheck>, a);
+    e = cudaLaunchKernelEx(&cfg, grid_kernel, a);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the block (kCheck: its checked form) under `plan`.
+template <bool kCheck>
+int launch_block(const BlockArgs& a, int plan, int smem, int* grid, cudaStream_t st) {
+  static int cta_smem = -1;
+  return launch_plan(pdhg_dense_cta_kernel<kCheck>, pdhg_dense_grid_kernel<kCheck>, cta_smem, a,
+                     a.bar, plan, smem, kCheck, grid, st);
 }
 
 int check_block(int n, int m, int iters, int plan, int smem) {
@@ -1771,17 +1689,20 @@ extern "C" int pdhg_dense_block_grid(int n, int m, int smem, int* grid) {
 }
 
 // ||K|| 1.02 + 1e-12 over the McCormick rows and the m dense rows after
-// `iters` power iterations from (y, Y), which hold the start vector on entry
-// and are overwritten; written to out[0].  Returns 0, a CUDA error,
-// kErrLayout or kErrNoCluster.
-extern "C" int pdhg_dense_norm_launch(int n, int m, int cluster, int smem, int iters,
-                                      const float* G, const float* g, float* y, float* Y,
-                                      float* out, void* stream) {
-  static int checked[2] = {0, -1};
-  const int err = check_shape(n, m, cluster, smem, norm_layout(n, m, cluster).words);
+// `iters` power iterations from the start vector y (n,), Y (n, n), which is
+// read only, into out[0], on the block's plan: plan and smem as for
+// pdhg_dense_block_launch (smem the block's layout), and under the "grid"
+// plan work (norm_work_words(n, m, P) floats) and bar, one word for the
+// barrier, zeroed here.  *grid receives the CTAs launched.  Returns 0, a
+// CUDA error, kErrLayout or kErrNoCluster.
+extern "C" int pdhg_dense_norm_launch(int n, int m, int iters, int plan, int smem,
+                                      const float* G, const float* g, const float* y,
+                                      const float* Y, float* work, unsigned* bar, float* out,
+                                      int* grid, void* stream) {
+  const int err = check_block(n, m, iters, plan, smem);
   if (err != 0) return err;
-  if (iters < 0) return kErrLayout;
-  const NormArgs a{n, m, (n + cluster - 1) / cluster, (m + cluster - 1) / cluster,
-                   ranks_with_rows(n, cluster), iters, G, g, y, Y, out};
-  return launch_one(pdhg_dense_norm_kernel, checked, cluster, smem, a, stream);
+  static int cta_smem = -1;
+  const NormArgs a{n, m, iters, G, g, y, Y, work, bar, out};
+  return launch_plan(pdhg_dense_norm_cta_kernel, pdhg_dense_norm_grid_kernel, cta_smem, a, bar,
+                     plan, smem, false, grid, static_cast<cudaStream_t>(stream));
 }

@@ -12,8 +12,9 @@ cut and any number m of dense rows, on the card.
   checked block's control (K5's work with the dense residuals) on the
   slices each CTA owns.  Twins ``pdhg_block_steps_plain`` then
   ``pdhg_check_plain``.
-- ``pdhg_dense_norm``: ||K|| by the power iteration in one launch (K6's work).
-  Twin ``estimate_norm_plain``.
+- ``pdhg_dense_norm``: ||K|| by the power iteration in one launch (K6's
+  work, K7n), on the block's launch plan and layout.  Twin
+  ``estimate_norm_plain``.
 
 They take the same arguments as K2's, its checked form's and K6's wrappers,
 so the solve's loop (``lp/pdhg.py::_solve_impl``) runs either route.  The
@@ -22,15 +23,16 @@ reference runs this LP in XLA (its Pallas kernel refuses dense rows,
 
 Shapes: n <= 128, the certifier's pool (one slot of width 1, never filled:
 ``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
-rows' duals and partials (``max_dense_rows``; ~22,800 at n = 125).  The
-block's launch plan goes by shape (``block_plan``), the same for its checked
-form: "cta", one CTA that holds G and g in its shared memory for the launch
-(the small sandwiches, n <= ``CTA_MAX_N``), or "grid", one CTA on every SM,
-launched cooperatively, streaming G and g from global memory (the grid the
-card co-schedules: ``block_grid``).  The norm is one cluster of ``CLUSTER``
-CTAs.  G, g and h are read where they lie (the certifier's buffer views),
-never copied.  yC and its sum are left as they are: the twin keeps them at
-0 on a pool whose rows are all inactive.
+rows' duals beside the grid plan's ring (``max_dense_rows``; ~22,800 at
+n = 125).  The launch plan goes by shape (``block_plan``), the same for the
+block, its checked form and the norm: "cta", one CTA that holds G and g in
+its shared memory for the launch (the small sandwiches, n <= ``CTA_MAX_N``),
+or "grid", one CTA on every SM, launched cooperatively, each CTA's slice of
+G and g resident in its shared memory or streamed from global memory (the
+grid the card co-schedules: ``block_grid``).  G, g and h are read where they
+lie (the certifier's buffer views), never copied.  yC and its sum are left
+as they are: the twin keeps them at 0 on a pool whose rows are all
+inactive.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_dense_block.launches`` counts the block
@@ -50,14 +52,11 @@ from .. import _build
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import PDHGState, estimate_norm_plain, pdhg_check_plain, start_vector
-from .pdhg_kernel import (_ERRORS, _GROUPS, _WARPS_PER_ROW, NMAX, SMEM_MAX, check_record,
+from .pdhg_kernel import (_ERRORS, NMAX, SMEM_MAX, check_record,
                           pdhg_block_plain, pdhg_block_steps_plain, steps_record)
 
-CLUSTER = 16                # CTAs in the norm's cluster (non-portable size)
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
-_MAX_ENTRIES = 32 * 33      # csrc/pdhg_dense.cu kMaxEntries: a band's entries, R n + R
-KINDS = ("block", "norm")
-PLANS = ("cta", "grid")     # the block's launch plans (csrc/pdhg_dense.cu)
+PLANS = ("cta", "grid")     # the launch plans (csrc/pdhg_dense.cu)
 CTA_MAX_N = 32              # csrc/pdhg_dense.cu kCtaMaxN: the "cta" plan's largest n
 _STAGE, _STAGES = 8192, 4   # kStage, kStages: the "grid" plan's ring of G stages
 _MAX_E = 496                # kMaxE: entries of X and x a CTA of the grid owns
@@ -82,49 +81,38 @@ def _block_words(plan: str, n: int, m: int) -> int:
 
 
 def block_plan(n: int, m: int) -> str:
-    """The block's launch plan at (n, m): "cta" where n <= CTA_MAX_N and one
-    CTA's shared memory holds the whole problem (G and g staged once per
-    launch, block barriers only), else "grid" (every SM, three grid
-    barriers an iteration; each CTA's slice of G resident in its shared
-    memory where it fits, else streamed twice an iteration)."""
+    """The launch plan of the block (both forms) and the norm at (n, m):
+    "cta" where n <= CTA_MAX_N and one CTA's shared memory holds the whole
+    problem (G and g staged once per launch, block barriers only), else
+    "grid" (every SM, three grid barriers an iteration or power iteration;
+    each CTA's slice of G resident in its shared memory where it fits, else
+    streamed twice an iteration)."""
     return "cta" if n <= CTA_MAX_N and 4 * _block_words("cta", n, m) <= SMEM_MAX else "grid"
 
 
-def smem_words(kind: str, n: int, m: int, C: int = CLUSTER) -> int:
-    """4-byte words of one CTA's shared memory for kernel ``kind``: the
-    block's (and its checked form's) under ``block_plan``
-    (``_block_words``), and the sum of ``csrc/pdhg_dense.cu``'s
-    ``norm_layout`` at a cluster of C.  Only the "cta" plan's grows with
+def smem_words(n: int, m: int) -> int:
+    """4-byte words of one CTA's shared memory for the dense route's kernels
+    at (n, m), the block, its checked form and the norm alike:
+    ``_block_words`` under ``block_plan``.  Only the "cta" plan's grows with
     m n; the "grid" plan's is a CTA's whole shared memory up to ~22,800
     rows."""
-    R, mc = -(-n // C), -(-m // C)
-    RN = R * n
-    rows = 2 * R * _WARPS_PER_ROW + C * _GROUPS * R       # row and column partials
-    if kind == "block":
-        return _block_words(block_plan(n, m), n, m)
-    if kind == "norm":
-        return (6 * RN + rows + NMAX + 2 * R + C * mc + m + C * 4 + _THREADS + 4)
-    raise ValueError(f"unknown dense-route kernel {kind!r}; one of {KINDS}")
+    return _block_words(block_plan(n, m), n, m)
 
 
-def smem_bytes(kind: str, n: int, m: int, C: int = CLUSTER) -> int:
-    return 4 * smem_words(kind, n, m, C)
+def smem_bytes(n: int, m: int) -> int:
+    return 4 * smem_words(n, m)
 
 
-def _fits(n: int, m: int, C: int = CLUSTER) -> bool:
-    return all(smem_bytes(kind, n, m, C) <= SMEM_MAX for kind in KINDS)
-
-
-def max_dense_rows(n: int, C: int = CLUSTER) -> int:
-    """The largest m the block (checked or not) and the norm take at n."""
+def max_dense_rows(n: int) -> int:
+    """The largest m the dense route's kernels take at n."""
     lo, hi = 0, 1 << 20
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if _fits(n, mid, C) else (lo, mid - 1)
+        lo, hi = (mid, hi) if smem_bytes(n, mid) <= SMEM_MAX else (lo, mid - 1)
     return lo
 
 
-def dense_refusal(n: int, M: int, k: int, m: int, C: int = CLUSTER) -> str | None:
+def dense_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the dense route does not take n, a pool of capacity M and width
     k, and m dense rows, or None where it does: the certifier's pool (M = 1,
     k = 1: no cut) and n <= 128, with shared memory for m rows."""
@@ -133,12 +121,9 @@ def dense_refusal(n: int, M: int, k: int, m: int, C: int = CLUSTER) -> str | Non
                 f"width 1), got capacity {M}, width {k}")
     if not 1 <= n <= NMAX:
         return f"the dense route takes 1 <= n <= {NMAX}, got {n}"
-    R = -(-n // C)
-    if R * n + R > _MAX_ENTRIES:
-        return f"the dense route: n={n} exceeds its lanes at a cluster of {C}"
-    if not _fits(n, m, C):
+    if smem_bytes(n, m) > SMEM_MAX:
         return (f"the dense route: m={m} dense rows exceed {SMEM_MAX} bytes of shared memory "
-                f"per CTA at n={n} (at most {max_dense_rows(n, C)})")
+                f"per CTA at n={n} (at most {max_dense_rows(n)})")
     return None
 
 
@@ -163,14 +148,13 @@ def _fields(st: PDHGState):
     return [st.x, st.X, st.yA, st.yB, st.yD]
 
 
-def _checked(cx, cX, pool: CutPool, states, dense: DenseRows | None, name: str,
-             C: int = CLUSTER):
+def _checked(cx, cX, pool: CutPool, states, dense: DenseRows | None, name: str):
     """Check a launch's arguments; returns (n, m, the dense pointers)."""
     n = cx.shape[0]
     M, k = pool.idx.shape
     dev = cx.device
     m, dptr = _dense_ptrs(dense, n, dev)
-    why = dense_refusal(n, M, k, m, C)
+    why = dense_refusal(n, M, k, m)
     if why is not None:
         raise ValueError(f"{name}: {why}")
     shapes = {"cx": (cx, (n,)), "cX": (cX, (n, n)),
@@ -192,17 +176,25 @@ def _work_words(n: int, m: int, P: int, checked: bool) -> int:
     return n * n + n + P * m + ((n * n + P * m + P * (2 * _NV + _ND)) if checked else 0) + 1
 
 
-def _grid_buffers(cx, plan: str, dense: DenseRows | None, n: int, m: int, checked: bool):
+def _norm_work_words(n: int, m: int, P: int) -> int:
+    """Floats of the norm's global scratch under the grid plan for a grid of
+    P CTAs: ``csrc/pdhg_dense.cu``'s ``norm_work_words`` (the iterate Y and
+    y, gX, the rows' partials, kD, each CTA's sums of the iterate and of the
+    last step; the barrier's counter last)."""
+    return 2 * n * n + n + P * m + m + 4 * P + 1
+
+
+def _grid_buffers(device, plan: str, dense: DenseRows | None, n: int, m: int, words):
     """(dense, work) of a launch under ``plan``: the grid plan copies
     16-byte spans of G and g (a misaligned view is cloned) and takes its
-    scratch and barrier counter (the last word) from ``work``; the "cta"
-    plan takes neither (work None)."""
+    scratch, ``words(P)`` floats for a grid of P CTAs, and its barrier
+    counter (the last word) from ``work``; the "cta" plan takes neither
+    (work None)."""
     if plan != "grid":
         return dense, None
     if dense is not None and any(t.data_ptr() % 16 for t in (dense.G, dense.g)):
         dense = DenseRows(dense.G.clone(), dense.g.clone(), dense.h)
-    return dense, torch.empty(_work_words(n, m, block_grid(n, m), checked),
-                              dtype=torch.float32, device=cx.device)
+    return dense, torch.empty(words(block_grid(n, m)), dtype=torch.float32, device=device)
 
 
 def _work_ptrs(work) -> list:
@@ -225,7 +217,8 @@ def _launch_block(cx, cX, pool: CutPool, ins, outs, rec, iters: int,
     Returns the CTAs launched."""
     n, m, _ = _checked(cx, cX, pool, (*ins, *outs), dense, "pdhg_dense_block")
     plan = _plan_of(n, m, plan)
-    dense, work = _grid_buffers(cx, plan, dense, n, m, False)
+    dense, work = _grid_buffers(cx.device, plan, dense, n, m,
+                                lambda P: _work_words(n, m, P, False))
     grid = ctypes.c_int(0)
     err = _build.lib().pdhg_dense_block_launch(
         n, m, iters, PLANS.index(plan), 4 * _block_words(plan, n, m), rec.data_ptr(),
@@ -304,7 +297,8 @@ def _checked_launcher(cx, cX, pool: CutPool, st: PDHGState, acc: PDHGState,
     if check_every < 1:
         raise ValueError(f"pdhg_dense_block_checked: check_every must be >= 1, got {check_every}")
     plan = _plan_of(n, m, None)
-    dense, work = _grid_buffers(cx, plan, dense, n, m, True)
+    dense, work = _grid_buffers(cx.device, plan, dense, n, m,
+                                lambda P: _work_words(n, m, P, True))
     grid = ctypes.c_int(0)
     args = (n, m, check_every, PLANS.index(plan), 4 * _block_words(plan, n, m), restart_period,
             max_iters, float(np.float32(tol)), rec.data_ptr(), cx.data_ptr(), cX.data_ptr(),
@@ -366,25 +360,36 @@ def pdhg_dense_norm(pool: CutPool, n: int, iters: int, generator: torch.Generato
                     index: CutIndex, dense: DenseRows | None = None):
     """||K|| 1.02 + 1e-12 of a dense-route solve after ``iters`` power
     iterations from ``start_vector(n, generator, ...)`` (None: the seed-0
-    draw): a 0-d float32 tensor on the pool's device."""
+    draw, kept on the device; the launch only reads it), under the block's
+    launch plan: a 0-d float32 tensor on the pool's device."""
     dev = pool.lin.device
     if dev.type == "cpu":
         return estimate_norm_plain(pool, n, iters, generator, index, dense)
     if dev.type != "cuda":
         raise ValueError(f"pdhg_dense_norm: no kernel for device {dev}")
+    return _launch_norm(pool, n, iters, generator, dense)
+
+
+def _launch_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
+                 dense: DenseRows | None):
+    """The norm's launch on the pool's device, its arguments checked."""
+    dev = pool.lin.device
     M, k = pool.idx.shape
-    m, dptr = _dense_ptrs(dense, n, dev)
+    m, _ = _dense_ptrs(dense, n, dev)
     why = dense_refusal(n, M, k, m)
     if why is not None:
         raise ValueError(f"pdhg_dense_norm: {why}")
-    x, X = start_vector(n, generator, dev)
-    y, Y = x.clone(), X.clone()           # the launch overwrites them
+    plan = block_plan(n, m)
+    dense, work = _grid_buffers(dev, plan, dense, n, m, lambda P: _norm_work_words(n, m, P))
+    y, Y = (t.contiguous() for t in start_vector(n, generator, dev))
     out = torch.empty((), dtype=torch.float32, device=dev)
+    grid = ctypes.c_int(0)
     err = _build.lib().pdhg_dense_norm_launch(
-        n, m, CLUSTER, smem_bytes("norm", n, m), iters, *dptr[:2], y.data_ptr(), Y.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        n, m, iters, PLANS.index(plan), 4 * _block_words(plan, n, m),
+        *_dense_ptrs(dense, n, dev)[1][:2], y.data_ptr(), Y.data_ptr(), *_work_ptrs(work),
+        out.data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(dev).cuda_stream)
     if err in _ERRORS:
-        raise RuntimeError(f"pdhg_dense_norm_launch: {_ERRORS[err]} (cluster {CLUSTER})")
+        raise RuntimeError(f"pdhg_dense_norm_launch: {_ERRORS[err]} (plan {plan}, n={n}, m={m})")
     _build.check(err, "pdhg_dense_norm_launch")
     pdhg_dense_norm.launches += 1
     return out

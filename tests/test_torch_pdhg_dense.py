@@ -1,6 +1,7 @@
 """The dense route of the PDHG solve (sdpcutsel_tpu_torch/lp/pdhg_dense.py,
 csrc/pdhg_dense.cu): the route the certifier's LP takes by shape and
-device, the refusals, the shared-memory plan, the wrappers' device rule
+device, the refusals, the shared-memory plan, the norm's launch on the
+block's plan (recorded by a stand-in library), the wrappers' device rule
 (CPU tensors take the twins, bit for bit; other devices raise), and the
 certifier on the CPU under "auto", "off" and "on", bit for bit equal to one
 another and to the parent tree's CPU results.  The kernels themselves run
@@ -88,17 +89,14 @@ def test_dense_refusal_reasons():
 
 @pytest.mark.parametrize("n", [10, 125, 128])
 def test_dense_shared_memory_grows_with_m_not_m_n(n):
-    """Each kernel's shared memory fits the card at the full buffer, and
-    adding C rows adds the same few words at every n: the dense rows stream
-    from global memory, only their duals and partials sit in shared memory."""
-    C = tdense.CLUSTER
-    for kind in tdense.KINDS:
-        assert tdense.smem_bytes(kind, n, 2048) <= SMEM_MAX
-        step = tdense.smem_words(kind, n, 2048 + C) - tdense.smem_words(kind, n, 2048)
-        assert step == tdense.smem_words(kind, 10, 2048 + C) - tdense.smem_words(kind, 10, 2048)
-        assert step <= 4 * C + 2 * 2
-    with pytest.raises(ValueError, match="unknown"):
-        tdense.smem_words("scan", n, 1)
+    """The kernels' shared memory (the block's layout, which the norm takes)
+    fits the card at the full buffer, and adding 16 rows adds the same few
+    words at every n: at 2048 rows every n streams G from global memory or
+    holds its slice of G resident, the slab giving way to the rows' duals."""
+    assert tdense.smem_bytes(n, 2048) <= SMEM_MAX
+    step = tdense.smem_words(n, 2048 + 16) - tdense.smem_words(n, 2048)
+    assert step == tdense.smem_words(10, 2048 + 16) - tdense.smem_words(10, 2048)
+    assert step <= 4 * 16 + 2 * 2
 
 
 def _certifier_lp(n=12, m=40, seed=0):
@@ -285,7 +283,7 @@ def test_block_plan_takes_one_cta_at_the_sandwiches(n, m):
     """The sandwiches' shapes fit one CTA: G and g of every row in its
     shared memory, so its iterations pay block barriers only."""
     assert tdense.block_plan(n, m) == "cta"
-    words = tdense.smem_words("block", n, m)
+    words = tdense.smem_words(n, m)
     assert words == tdense._block_words("cta", n, m)
     assert 4 * words <= SMEM_MAX
     assert words >= m * (n * n + n)
@@ -297,26 +295,29 @@ def test_block_plan_takes_the_grid_elsewhere(n, m):
     or n > CTA_MAX_N) run over the whole card: the grid plan takes a CTA's
     whole shared memory, whatever m (its slab of G gives way to yD)."""
     assert tdense.block_plan(n, m) == "grid"
-    assert tdense.smem_words("block", n, m) == tdense._block_words("grid", n, m)
+    assert tdense.smem_words(n, m) == tdense._block_words("grid", n, m)
     assert SMEM_MAX - 16 < 4 * tdense._block_words("grid", n, m) <= SMEM_MAX
     assert tdense._block_words("grid", n, m + 16) == tdense._block_words("grid", n, m)
 
 
 def _parent_max_dense_rows(n: int) -> int:
-    """The largest m the parent's dense route took at n: its block's layout
-    (which this tree keeps for both forms), its standalone check's (one
-    cluster of 16 on K2's bands, whose layout held 2 m + 2 C ceil(m / C)
-    words of rows' duals and partials) and the norm's, which this tree
-    keeps."""
-    C, W, G = tdense.CLUSTER, tdense._WARPS_PER_ROW, tdense._GROUPS
+    """The largest m the earlier dense routes took at n: the block's layout
+    (which this tree keeps for the block, its checked form and the norm),
+    the earlier standalone check's (one cluster of C = 16 on K2's bands,
+    whose layout held 2 m + 2 C ceil(m / C) words of rows' duals and
+    partials) and the earlier cluster norm's (the same bands, m + C
+    ceil(m / C) words of rows), its formula frozen here with its constants:
+    kWarpsPerRow W = 4, kGroups G = 4, kCols 128, kThreads 512."""
+    C, W, G = 16, 4, 4
 
     def fits(m):
         R, mc = -(-n // C), -(-m // C)
         RN, rows = R * n, 2 * R * W + C * G * R
         check = (2 * 128 + 2 * m + 8 * RN + 2 * R + 2 * rows + 2 * C * mc + C * 2 * 8 + C * 6
                  + 2 * 512 + (2 * 8 + 6 + 8))
-        return (4 * tdense.smem_words("block", n, m) <= SMEM_MAX and 4 * check <= SMEM_MAX
-                and 4 * tdense.smem_words("norm", n, m) <= SMEM_MAX)
+        norm = 6 * RN + rows + 128 + 2 * R + C * mc + m + C * 4 + 512 + 4
+        return (4 * tdense.smem_words(n, m) <= SMEM_MAX and 4 * check <= SMEM_MAX
+                and 4 * norm <= SMEM_MAX)
 
     lo, hi = 0, 1 << 20
     while lo < hi:
@@ -521,3 +522,103 @@ def test_grid_work_matches_the_kernel_source(n, m, P, checked):
     assert tdense._work_words(n, m, P, checked) == eval(expr, {}, names)   # noqa: S307
     assert (tdense._work_words(n, m, P, True) - tdense._work_words(n, m, P, False)
             == n * n + P * m + P * (2 * 8 + 6))
+
+
+# ---- the norm (K7n) on the block's launch plans: its plumbing on the CPU,
+# the launches recorded by a stand-in for the kernel library
+
+class _RecordingLib:
+    """The dense route's C entries without a card: the grid plan's CTAs are
+    ``P``, every launch's arguments are recorded and it returns 0."""
+
+    def __init__(self, P: int = 132):
+        self.P, self.calls = P, []
+
+    def pdhg_dense_block_grid(self, n, m, smem, grid):
+        grid._obj.value = self.P
+        return 0
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+NORM_SHAPES = [*SANDWICH_SHAPES, (125, 368), (64, 200), (10, 2048), (12, 368), (33, 10), (1, 5)]
+
+
+@pytest.mark.parametrize("n,m", NORM_SHAPES)
+def test_norm_takes_the_blocks_launch_plan(n, m, monkeypatch):
+    """The norm launches on the plan and the shared memory that the block
+    launches on at the same (n, m), reads the kept start vector in place
+    (no copy), and takes the grid plan's scratch of norm_work_words floats;
+    its C entry checks them against the block's layout (check_block)."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(tdense._build, "lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: type("S", (), {"cuda_stream": 0})())
+    sizes = []
+    real_words = tdense._norm_work_words
+
+    def words(*args):
+        sizes.append(args)
+        return real_words(*args)
+
+    monkeypatch.setattr(tdense, "_norm_work_words", words)
+    cx, cX, pool, index, dense, st = _certifier_lp(n=n, m=m)
+    before = tdense.pdhg_dense_norm.launches
+    tdense._launch_norm(pool, n, 30, None, dense)
+    rec = steps_record([0.1], [0.1], "cpu")[0]
+    tdense._launch_block(cx, cX, pool, [st, st], [st, st], rec, 3, dense)
+    (norm_name, norm_args), (block_name, block_args) = lib.calls
+    assert (norm_name, block_name) == ("pdhg_dense_norm_launch", "pdhg_dense_block_launch")
+    plan = tdense.block_plan(n, m)
+    assert norm_args[:5] == (n, m, 30, tdense.PLANS.index(plan),
+                             4 * tdense._block_words(plan, n, m))
+    assert norm_args[3:5] == block_args[3:5]
+    y, Y = tpdhg.start_vector(n, None, "cpu")
+    assert norm_args[7:9] == (y.data_ptr(), Y.data_ptr())
+    assert (norm_args[9] is None) == (plan == "cta") == (sizes == [])
+    if plan == "grid":
+        assert sizes == [(n, m, lib.P)]
+    assert tdense.pdhg_dense_norm.launches == before + 1
+    with open(os.path.join(REPO, "sdpcutsel_tpu_torch", "csrc", "pdhg_dense.cu")) as f:
+        text = f.read()
+    entry = text[text.index('extern "C" int pdhg_dense_norm_launch('):]
+    assert "check_block(n, m, iters, plan, smem)" in entry[:entry.index("\n}")]
+
+
+@pytest.mark.parametrize("n,m,P", [(125, 2048, 132), (125, 368, 132), (64, 7, 66), (1, 5, 132)])
+def test_norm_work_matches_the_kernel_source(n, m, P):
+    """The norm's grid scratch (_norm_work_words) is csrc/pdhg_dense.cu's
+    norm_work_words, evaluated from the source: the iterate, gX, the rows'
+    partials, kD and each CTA's four sums, then the barrier's counter."""
+    with open(os.path.join(REPO, "sdpcutsel_tpu_torch", "csrc", "pdhg_dense.cu")) as f:
+        text = f.read()
+    body = text[text.index(" norm_work_words("):]
+    expr = re.search(r"return (.*?);", body, re.S).group(1)
+    expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", " ".join(expr.split()))
+    names = dict(n=n, m=m, P=P, NN=n * n, Pm=P * m)
+    assert tdense._norm_work_words(n, m, P) == eval(expr, {}, names)   # noqa: S307
+    assert tdense._norm_work_words(n, m, P) == 2 * n * n + n + P * m + m + 4 * P + 1
+
+
+@pytest.mark.parametrize("n", [10, 64])
+def test_dense_norm_on_the_cpu_is_the_twin_and_near_the_reference(n):
+    """On the CPU the dense route's norm is estimate_norm_plain bit for bit,
+    from a seeded generator and from the kept start vector, and stays within
+    the existing 2% of the JAX package's estimate_norm with dense rows, whose
+    start vector is another draw (tests/test_torch_pdhg_norm.py's
+    tolerance)."""
+    from sdpcutsel_tpu.lp import pdhg as jpdhg
+    import jax.numpy as jnp
+
+    (_, _, jpool, jd, _), (_, _, pool, index, dense, _) = _reference_lp(n, 40, seed=6)
+    before = tdense.pdhg_dense_norm.launches
+    for gen in (lambda: torch.Generator().manual_seed(0), lambda: None):
+        got = tdense.pdhg_dense_norm(pool, n, 30, gen(), index, dense)
+        assert torch.equal(got, tpdhg.estimate_norm_plain(pool, n, 30, gen(), index, dense))
+    assert tdense.pdhg_dense_norm.launches == before
+    ref = float(jpdhg.estimate_norm(jpool, n, 30, jnp.float32, jd))
+    np.testing.assert_allclose(float(got), ref, rtol=2e-2)
