@@ -105,10 +105,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
      rounds of the packed route (generate_spar(70, 100, 1), feasibility);
      spar020-100-1 with strategies triangle, optimality and random, and
      neural with vertex steering (the random draws come from a CPU
-     generator, so both devices see the same numbers); and spar150-100-1
-     (generated), outside K2's launch plan: by default its solve refuses on
-     the card with the plan's reason, and with LPConfig(use_kernel="off") 2
-     rounds run the plain loop there, K2 not launched;
+     generator, so both devices see the same numbers);
+     generate_spar(257, 100, 1), outside K2's launch plan (n > 256): by
+     default its solve refuses on the card with the plan's reason, K2 not
+     launched; and spar150-100-1 (generated, the kernels' 256-column
+     form), 2 rounds by default on K1, K2, K5 and K6 (no plain block, twin
+     check or norm) and 2 with LPConfig(use_kernel="off") on the plain loop,
+     K2 not launched, each against the CPU port's 2 rounds;
+ 18. the wide phase (run after phase 4): K2 (7 and 100 iterations, its
+     plan and both widths' ptxas), its checked launch (K5) and K6 against
+     their twins at phase 3's tolerances, twice bit for bit, each timed
+     beside its bound, at n = 150 and 256 with M = 1024 and 400 active unit
+     k = 3 cuts and at n = 150 with k = 5 cuts and generate_qcqp(150, 30,
+     16, 1)'s 16 dense rows; 4 x generate_spar(150, 100, s + 1) in one
+     launch (K2, then K5 and K6), each instance bit for bit with its batch
+     of one; K7, K7c and K7n at n = 150 with m = 368 and n = 256 with
+     m = 368 and 2048, as phase 3 holds them; K1 over all 2,763,520
+     candidates of C(256, 3); CutSolver on generate_spar(256, 100, 1)
+     (default cuts, neural, LPConfig(20000, 2e-6), "auto"), 5 rounds twice
+     bit for bit, on K1, K2, K5 and K6 alone, every certificate at least a
+     feasible point's objective, its rounds/s and synchronised stage split
+     (profile_round.stage_split); the certifier at n = 150 (phase 15 (c)'s
+     settings on generate_spar(150, 100, 1)), twice bit for bit, on the
+     dense route alone, every certificate at least the BM lb;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -226,10 +245,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
      and a second call skips it; every rank's launches (the plain PDHG
      blocks and the twin-scored calls 0 on each) join the kernels line;
  14. one JSON line of kernel results (nine entries), each kernel's launches
-     summed over the main paths 5-13 and 15-17 (each counted from 0; K2's
-     entry also holds the batched launch's time, bound and the clusters the
-     card runs at once), the total seconds beside a 900 s budget, then
-     the last line {"ok": true, "device": {...}}.
+     summed over the main paths 5-13, 15-17 and the wide paths of phases 4
+     and 18 (each counted from 0; the sums over the paths at n <= 128 alone
+     are printed before the line); K2's entry also holds the
+     batched launch's time, bound and the clusters the card runs at once,
+     and K1, K2, K5, K6 and K7's entries the wide shapes' numbers ("n256",
+     "wide", "shapes"); the total seconds beside a 900 s budget, then the
+     last line {"ok": true, "device": {...}}.
 Every path's launch counts include the solve's plain PDHG blocks on the
 card ("pdhg_block plain"), its twin checks and norms there ("check/norm
 plain") and the scoring twins called on the card ("twin-scored"), which must
@@ -417,7 +439,7 @@ PEAK_FLOPS = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # K2's microseconds an iteration before the cluster design (PERF.md, PR 3)
-K2_PR3_US = {0: 35.11, 25: 72.39}
+K2_SINGLE_CTA_US = {(125, 0): 35.11, (100, 25): 72.39}
 # the main paths' final bounds as PERF.md records them, printed beside this run's
 BOXQP_RECORDED_FINAL = 46173.94073905878
 QCQP_RECORDED_FINAL = 2996.008999203225
@@ -787,10 +809,28 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
                              f"inputs ({label})")
 
     plan = launch_plan(n, M, k, m)
-    log(f"[pdhg_block {label}] cluster of {plan.cluster} CTAs x 512 threads: {plan.rows} "
-        f"rows and {plan.slots} pool slots a CTA, {plan.smem_bytes} bytes of shared "
-        f"memory a CTA ({plan.term_cap} cut-index terms); ptxas: "
-        f"{ptxas_report('pdhg_cluster_kernel')}")
+    log(f"[pdhg_block {label}] cluster of {plan.cluster} CTAs x 512 threads at column width "
+        f"{plan.cols}: {plan.rows} rows and {plan.slots} pool slots a CTA, {plan.smem_bytes} "
+        f"bytes of shared memory a CTA ({plan.term_cap} cut-index terms); ptxas (both widths): "
+        f"{spill_free('pdhg_cluster_kernel')}")
+    ms = cuda_ms(lambda: pdhg_block(*args, 100, dense), reps=20)
+    plain_ms = cuda_ms(lambda: pdhg_block_plain(*args, 100, dense), reps=3, warmup=1)
+    b = bound(pdhg_ops(n, k, m, int(pool.active.sum()),
+                       index.Xcut.numel() + index.xcut.numel(), 100),
+              nbytes(cx, cX, index.idx, pool.lin, pool.quad, pool.rhs, pool.active,
+                     index.xoff, index.xcut, index.xcoef, index.Xoff, index.Xcut,
+                     index.Xcoef, *inputs, *first[0].fields(), *first[1].fields(),
+                     *([] if dense is None else [dense.G, dense.g, dense.h])))
+    single = K2_SINGLE_CTA_US.get((n, m), "not run")
+    log(f"[pdhg_block {label}] 100-iteration block: kernel {ms:.4f} ms ({ms * 10:.3f} "
+        f"us/iter; the single CTA before the cluster design: {single} us/iter); twin "
+        f"{plain_ms:.4f} ms ({plain_ms * 10:.2f} us/iter); {share(ms, b)} "
+        f"({b['bound_ms'] * 10:.5f} us/iter; {SMI})")
+    out = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b}
+    why8 = plan_refusal(n, M, k, m, 8)
+    if why8 is not None:
+        log(f"[pdhg_block {label}] the portable cluster of 8 does not take this shape: {why8}")
+        return out
     # the portable cluster of 8 against the plan's, held to the same tolerance,
     # then both timed in turns (plan, 8, 8, plan)
     portable = pdhg_kernel._launch(*args, 100, dense, cluster=8)
@@ -803,20 +843,9 @@ def check_pdhg_block(label: str, Q, c, table, dense, dev) -> dict:
     for order in ((t_plan, plan.cluster), (t_8, 8), (t_8, 8), (t_plan, plan.cluster)):
         order[0].append(cuda_ms(lambda: pdhg_kernel._launch(*args, 100, dense,
                                                             cluster=order[1]), reps=20))
-    ms = cuda_ms(lambda: pdhg_block(*args, 100, dense), reps=20)
-    plain_ms = cuda_ms(lambda: pdhg_block_plain(*args, 100, dense), reps=3, warmup=1)
-    b = bound(pdhg_ops(n, k, m, int(pool.active.sum()),
-                       index.Xcut.numel() + index.xcut.numel(), 100),
-              nbytes(cx, cX, index.idx, pool.lin, pool.quad, pool.rhs, pool.active,
-                     index.xoff, index.xcut, index.xcoef, index.Xoff, index.Xcut,
-                     index.Xcoef, *inputs, *first[0].fields(), *first[1].fields(),
-                     *([] if dense is None else [dense.G, dense.g, dense.h])))
-    log(f"[pdhg_block {label}] 100-iteration block: kernel {ms:.4f} ms ({ms * 10:.3f} "
-        f"us/iter; PR 3's single CTA: {K2_PR3_US[m]} us/iter); twin {plain_ms:.4f} ms "
-        f"({plain_ms * 10:.2f} us/iter); {share(ms, b)} ({b['bound_ms'] * 10:.5f} us/iter)")
     log(f"[pdhg_block {label}] in turns: cluster of {plan.cluster} {t_plan!r} ms, "
         f"cluster of 8 {t_8!r} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b}
+    return out
 
 
 def batched_inputs(insts, dev):
@@ -1622,7 +1651,7 @@ def grid_slices_resident(n: int, m: int, P: int) -> bool:
     and g in shared memory for the launch: csrc/pdhg_dense.cu's
     GridCta::resident, m rows of the CTA's 16-byte-aligned spans within the
     slab that grid_layout leaves."""
-    rest = pdhg_dense._SCRATCH + m + pdhg_dense._MAX_E
+    rest = pdhg_dense._SCRATCH + m + pdhg_dense.max_entries(n)
     slab = max((pdhg_dense._SMEM_WORDS - rest) & ~3, pdhg_dense._STAGES * pdhg_dense._STAGE)
     widest = 0
     for b in range(P):
@@ -1720,16 +1749,25 @@ def check_dense_route(dev, parent=None) -> dict:
     parent checkout's package, whose block, checked launch and norm are
     timed in turns with this build's.  Returns {kernel: {shape label:
     numbers}}."""
+    return check_dense_shapes((*DENSE_SHAPES, DENSE_BLOCK_EXTRA), DENSE_SHAPES, dev, parent)
+
+
+def check_dense_shapes(shapes, checked, dev, parent=None) -> dict:
+    """K7's block and norm at every (n, m) of ``shapes``, its checked launch
+    (K7c) at those of ``checked``, each against its twin; {kernel: {shape
+    label: numbers}}."""
     out = {"pdhg_dense": {}, "pdhg_dense_check": {}, "pdhg_dense_norm": {}}
-    for n, m in (*DENSE_SHAPES, DENSE_BLOCK_EXTRA):
+    for n, m in shapes:
         label = f"n={n} m={m}"
         inputs = dense_inputs(n, m, dev)
         log(f"[pdhg_dense {label}] block plan {pdhg_dense.block_plan(n, m)!r} (the 'grid' plan "
-            f"would take {pdhg_dense.block_grid(n, m)} CTAs); shared bytes a CTA of the block, "
-            f"its checked form and the norm: {pdhg_dense.smem_bytes(n, m)}; the route takes up "
-            f"to {pdhg_dense.max_dense_rows(n)} rows at n = {n}")
+            f"would take {pdhg_dense.block_grid(n, m)} CTAs, at most "
+            f"{pdhg_dense.max_entries(n)} entries a CTA at column width "
+            f"{pdhg_kernel.columns(n)}); shared bytes a CTA of the block, its checked form and "
+            f"the norm: {pdhg_dense.smem_bytes(n, m)}; the route takes up to "
+            f"{pdhg_dense.max_dense_rows(n)} rows at n = {n}")
         out["pdhg_dense"][label] = check_dense_block(label, inputs, parent)
-        if (n, m) in DENSE_SHAPES:
+        if (n, m) in checked:
             out["pdhg_dense_check"][label] = check_dense_check(label, inputs, parent)
         out["pdhg_dense_norm"][label] = check_dense_norm(label, inputs, parent)
     return out
@@ -1850,17 +1888,18 @@ def checked_batched_against_parent(pkg, insts, dev) -> bool:
     return same
 
 
-def parent_k2(parent: str):
-    """The K2 of another checkout (the parent commit's, whose entry point is
-    this build's: steps from a control record), built alone with this
-    build's nvcc flags into build/cuda/parent/."""
+def parent_k2(pkg, parent: str):
+    """The K2 of another checkout (the parent commit's: steps from a control
+    record), built alone with this build's nvcc flags into
+    build/cuda/parent/, its entry point typed by the parent package's own
+    signatures (``pkg``)."""
     src = os.path.join(parent, "sdpcutsel_tpu_torch", "csrc", "pdhg_block.cu")
     out = os.path.join(REPO, "build", "cuda", "parent", "libpdhg_block.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src],
                    check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(out)
-    lib.pdhg_block_launch.argtypes = _build._SIGNATURES["pdhg_block_launch"]
+    lib.pdhg_block_launch.argtypes = parent_build(pkg)._SIGNATURES["pdhg_block_launch"]
     lib.pdhg_block_launch.restype = ctypes.c_int
     return lib
 
@@ -1886,8 +1925,13 @@ def k2_against_parent(lib, label: str, args: tuple, dense, iters: int) -> bool:
     rec = pdhg_kernel.steps_record([tau], [sigma], cx.device)
 
     def call(library, outs, who):
-        err = library.pdhg_block_launch(
-            n, M, k, m, iters, plan.cluster, plan.term_cap, plan.smem_bytes, 1,
+        # an entry point without the width argument (a build before the
+        # 256-column form) takes the narrow plan's other arguments alone
+        fn = library.pdhg_block_launch
+        width = [plan.cols] if len(fn.argtypes) == len(_build._SIGNATURES[
+            "pdhg_block_launch"]) else []
+        err = fn(
+            n, M, k, m, iters, plan.cluster, *width, plan.term_cap, plan.smem_bytes, 1,
             (ctypes.c_int * 1)(0), rec.data_ptr(), I1.xcut.shape[-1], I1.Xcut.shape[-1],
             *(t.data_ptr() for t in c), *d, *(t.data_ptr() for t in ins),
             *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream)
@@ -1993,42 +2037,60 @@ def check_guard(inst, unguarded, dev):
             raise AssertionError(f"the overflow guard changes the scores ({label})")
 
 
-def check_large_instance(dev):
-    """A BoxQP solve outside K2's launch plan (n = 150 > 128), spar150-100-1
-    (generated): by default the solve refuses on the card with the plan's
-    reason, K2 not launched; with LPConfig(use_kernel="off") 2 rounds run
-    the plain loop on the card, against the CPU port."""
-    inst = load_or_generate("spar150-100-1")
+def check_large_instance(dev) -> dict:
+    """A BoxQP solve outside K2's launch plan (n = 257 > 256),
+    generate_spar(257, 100, 1): by default the solve refuses on the card with
+    the plan's reason, K2 not launched.  spar150-100-1 (generated, n = 150,
+    the 256-column form): 2 rounds with the default "auto" on the card (K1,
+    K2 with K5 and K6; no plain block, twin check or norm), and with
+    LPConfig(use_kernel="off") 2 rounds of the plain loop there, each
+    against the CPU port's 2 rounds (run once).  Returns the "auto" run's
+    launch counts."""
+    wide = generate_spar(257, 100, 1)
     lp = LPConfig(max_iters=3000, tol=1e-5)
-    why = plan_refusal(inst.n, CutConfig().capacity, 3, 0)
+    why = plan_refusal(wide.n, CutConfig().capacity, 3, 0)
     reset_launches()
     try:
-        CutSolver(inst, RunConfig(lp=lp), device=dev).run(rounds=1)
+        CutSolver(wide, RunConfig(lp=lp), device=dev).run(rounds=1)
         refused = None
     except ValueError as e:
         refused = str(e)
-    log(f"[small] spar150-100-1, use_kernel='auto': {refused!r}; launches {launch_counts()}")
+    log(f"[small] {wide.name}, use_kernel='auto': {refused!r}; launches {launch_counts()}")
     if refused is None or why is None or why not in refused or launch_counts()["pdhg_block"]:
-        raise AssertionError("the n = 150 solve on the card did not refuse with the plan's "
+        raise AssertionError("the n = 257 solve on the card did not refuse with the plan's "
                              "reason")
+    inst = load_or_generate("spar150-100-1")
+    cpu = [h.bound for h in CutSolver(inst, RunConfig(lp=lp), device="cpu").run(rounds=2)]
+    reset_launches()
+    card_vs_cpu("spar150-100-1 k=3 use_kernel='auto'", CutSolver, inst, RunConfig(lp=lp), dev,
+                rounds=2, cpu=cpu)
+    auto = launch_counts()
+    log(f"[small] spar150-100-1, use_kernel='auto' (width {launch_plan(150, 1024, 3, 0).cols}): "
+        f"launches {auto}")
+    if (min(auto[k] for k in ("pair_score", "pdhg_block", "pdhg_check", "pdhg_norm")) == 0
+            or auto[PLAIN_BLOCKS] or auto[PLAIN_CONTROL] or auto[TWIN_SCORED]):
+        raise AssertionError("the n = 150 solve did not run on K1, K2, K5 and K6 alone")
     reset_launches()
     card_vs_cpu("spar150-100-1 k=3 use_kernel='off'", CutSolver, inst,
-                RunConfig(lp=dataclasses.replace(lp, use_kernel="off")), dev, rounds=2)
+                RunConfig(lp=dataclasses.replace(lp, use_kernel="off")), dev, rounds=2, cpu=cpu)
     launches = launch_counts()
     log(f"[small] spar150-100-1, use_kernel='off': launches {launches}")
     if (launches["pdhg_block"] or launches["pdhg_check"] or launches["pdhg_norm"]
             or launches[PLAIN_BLOCKS] == 0 or launches[PLAIN_CONTROL] == 0):
         raise AssertionError("the n = 150 solve did not run the plain PDHG loop, check and "
                              "norm alone")
+    return auto
 
 
-def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3):
+def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3, cpu=None):
     """A few rounds on the card against the CPU port, which the CPU tests
     hold to the JAX package.  Round 0 precedes any selection and agrees at
     rtol 2e-3 (tests/test_loop.py); later rounds may differ by tie order
-    only, and stay within 2% (tests/test_pair_score.py)."""
+    only, and stay within 2% (tests/test_pair_score.py).  ``cpu``: the CPU
+    port's bounds of these rounds, when already run."""
     gpu = [h.bound for h in solver_cls(inst, cfg, device=dev).run(rounds=rounds)]
-    cpu = [h.bound for h in solver_cls(inst, cfg, device="cpu").run(rounds=rounds)]
+    if cpu is None:
+        cpu = [h.bound for h in solver_cls(inst, cfg, device="cpu").run(rounds=rounds)]
     rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
     log(f"[small] {label}: bounds on the card {gpu}, on the CPU {cpu}; rel diff {rel}")
     if len(gpu) != len(cpu) or rel[0] > 2e-3 or max(rel) > 2e-2:
@@ -3374,6 +3436,207 @@ def multi_process(dev) -> dict:
     finish("multi", checks)
     return total
 
+# ---- the wide phase: n > 128 on the kernels' 256-column forms ----------------
+# K2 (both forms) and K6 at (n, k, m): BoxQP at n = 150 and 256 with k = 3
+# cuts, and a QCQP at n = 150 with k = 5 cuts and 16 dense rows
+WIDE_SHAPES = {"n=150 m=0": (150, 3, 0), "n=256 m=0": (256, 3, 0),
+               "n=150 k=5 m=16": (150, 5, 16)}
+WIDE_BATCH = 4                        # generate_spar(150, 100, s + 1), s < 4, one launch
+WIDE_DENSE = ((150, 368), (256, 368), (256, FULL_CAPACITY))
+WIDE_INSTANCE = (256, 100, 1)         # generate_spar's arguments: the wide solve and K1
+WIDE_ROUNDS = 5
+WIDE_CERT = (150, 100, 1)             # the certifier's instance at n = 150
+
+
+def wide_inputs(label: str, dev):
+    """(Q, c, table, dense) of a wide K2 shape: generate_spar(n, 100, 1) and
+    its lexicographic triples, or generate_qcqp(150, 30, 16, 1)'s objective
+    and 16 dense rows with 2,000 random 5-subsets of its columns."""
+    n, k, m = WIDE_SHAPES[label]
+    if m == 0:
+        inst = generate_spar(n, 100, 1)
+        return inst.Q, inst.c, combinations_table(n, k), None
+    q = generate_qcqp(n, 30, m, 1)
+    rng = np.random.default_rng(SEED + 4)
+    table = np.sort(np.stack([rng.choice(n, k, replace=False) for _ in range(2000)]), axis=1)
+    return q.Q0, q.c0, table, dense_from_qcqp(q.Qs, q.cs, q.bs, dev)
+
+
+def wide_kernels(dev) -> dict:
+    """K2 (unchecked, 7 and 100 iterations), its checked launch (K5) and K6
+    at WIDE_SHAPES against their twins at phase 3's tolerances, twice bit for
+    bit, each timed beside its bound; the batch of WIDE_BATCH n = 150
+    instances in one launch (K2, then K5 and K6), each instance bit for bit
+    with its batch of one; K7, K7c and K7n at WIDE_DENSE; K1 over all
+    C(256, 3) candidates.  Returns {kernel: numbers}."""
+    out = {"pdhg_block": {}, "pdhg_check": {}, "pdhg_norm": {}}
+    for label, (n, k, m) in WIDE_SHAPES.items():
+        Q, c, table, dense = wide_inputs(label, dev)
+        plan = launch_plan(n, 1024, k, m, checked=True)
+        log(f"[wide {label}] K2's checked plan: width {plan.cols}, {plan.rows} rows a CTA, "
+            f"{plan.smem_bytes} bytes a CTA, {plan.term_cap} cut-index terms; the largest pool "
+            f"{plan.max_capacity} and dense rows {plan.max_dense} at this shape; K6 "
+            f"(words, resident, staged) {pdhg_norm_mod.smem_words(n, 1024, k, m)}")
+        out["pdhg_block"][label] = check_pdhg_block(label, Q, c, table, dense, dev)
+        inputs = pdhg_inputs(Q, c, table, dense, dev)
+        out["pdhg_check"][label] = check_pdhg_check(label, inputs, dense, dev)
+        out["pdhg_norm"][label] = check_pdhg_norm(label, inputs, dense, dev)
+    insts = [generate_spar(150, 100, s + 1) for s in range(WIDE_BATCH)]
+    out["batched"] = check_pdhg_block_batched(insts, out["pdhg_block"]["n=150 m=0"], dev)
+    out["control_batched"] = check_control_batched(insts, dev)
+    out.update(check_dense_shapes(WIDE_DENSE, WIDE_DENSE, dev))
+    inst = generate_spar(*WIDE_INSTANCE)
+    args, err, moved = k1_twin_check(inst.name, inst, 5, dev)
+    x, X, Q, table, mlp = args
+    ms = cuda_ms(lambda: pair_score(*args), reps=20)
+    dev_ms = device_ms(lambda: pair_score(*args), "pair_score_kernel", reps=20)
+    plain_ms = cuda_ms(lambda: pair_score_plain(*args), reps=2, warmup=1)
+    T = table.shape[0]
+    b, parts = scoring_bound(T, moved + mlp_bytes(mlp), ms)
+    log(f"[pair_score {inst.name}] T={T}: kernel {ms:.4f} ms by events ({T / ms / 1e3:.1f} M "
+        f"cand/s), {dev_ms:.4f} ms on the device (profiler); twin {plain_ms:.4f} ms; "
+        f"{share(ms, b)}; {parts} ({SMI})")
+    out["pair_score"] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "candidates": T, **b}
+    return out
+
+
+def feasible_objective(inst, x) -> float:
+    """f(z) = 1/2 z'Qz + c'z in f64 at a feasible point: x rounded to {0, 1},
+    then single flips while one raises f.  Every certificate, an upper bound
+    on max f over the box, must reach it."""
+    Q, c = inst.Q, inst.c
+    z = (np.asarray(x, np.float64) > 0.5).astype(np.float64)
+    while True:
+        # flipping z_i changes f by (1 - 2 z_i) (Q z + c)_i + Q_ii / 2
+        gain = (1.0 - 2.0 * z) * (Q @ z + c) + 0.5 * np.diag(Q)
+        i = int(np.argmax(gain))
+        if gain[i] <= 0.0:
+            return float(0.5 * z @ Q @ z + c @ z)
+        z[i] = 1.0 - z[i]
+
+
+def wide_solve(dev, k2_ms: float) -> tuple:
+    """CutSolver on generate_spar(256, 100, 1) with the default cuts, strategy
+    neural and the suite's LP config, WIDE_ROUNDS rounds with "auto" (the
+    256-column forms), counters reset before and read after: K1, K2, K5 and
+    K6 and no plain block or twin; a second run from a fresh solver repeats
+    every round bit for bit; the bound is the certificates' running minimum
+    and every certificate reaches a feasible point's objective.  Then the
+    synchronised stage split of a third run (profile_round.stage_split).
+    Returns (launch counts, checks)."""
+    from sdpcutsel_tpu_torch.profile_round import stage_split
+
+    inst = generate_spar(*WIDE_INSTANCE)
+    cfg = RunConfig(lp=BOXQP_LP)
+    combinations_table.cache_clear()       # time the solver's cold build of its table
+    t0 = time.perf_counter()
+    table = combinations_table(inst.n, 3)
+    table_s = time.perf_counter() - t0
+    solver = CutSolver(inst, cfg, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=WIDE_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    floor = feasible_objective(inst, solver.state.x.cpu().numpy())
+    for h in hist:
+        log(f"[wide {inst.name}] round {h.round}: bound {h.bound!r} certificate "
+            f"{h.certificate!r} cuts_added {h.cuts_added} active {h.cuts_active} lp_iters "
+            f"{h.lp_iters} kkt {h.lp_kkt_error:.3e} wall {h.wall_time_s:.3f}s")
+    bounds = np.array([h.bound for h in hist])
+    certs = np.array([h.certificate for h in hist])
+    iters = sum(h.lp_iters for h in hist)
+    log(f"[wide {inst.name}] {len(hist)} rounds in {wall:.3f}s = {len(hist) / wall!r} rounds/s "
+        f"({iters} LP iterations; K2 at n = 256: {k2_ms * 10:.3f} us an iteration, phase 3's "
+        f"100-iteration block); launches {launches}; a feasible point's f {floor!r}; "
+        f"combinations_table(256, 3) {table_s:.4f}s on the host ({table.shape[0]} rows; {SMI})")
+    again = CutSolver(inst, cfg, device=dev).run(rounds=WIDE_ROUNDS)
+    split_wall, stages = stage_split((inst, CutSolver, cfg, WIDE_ROUNDS), dev, WIDE_ROUNDS)
+    for label, (sec, calls) in stages.items():
+        if calls:
+            log(f"[wide {inst.name}] split: {label} {sec:.4f}s ({sec / split_wall:.2%} of the "
+                f"synchronised run's {split_wall:.4f}s), {calls} calls")
+    checks = {
+        f"{WIDE_ROUNDS} rounds ran": len(hist) == WIDE_ROUNDS,
+        "K1, K2, K5 and K6 launched": min(launches[k] for k in (
+            "pair_score", "pdhg_block", "pdhg_check", "pdhg_norm")) > 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= a feasible point's f {floor}": bool((certs >= floor).all()),
+        "bounds are the running minimum of the certificates":
+            bool((bounds == np.minimum.accumulate(certs)).all()),
+        "last round below round 0": bool(bounds[-1] < bounds[0]),
+        "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+        **control_checks(f"wide {inst.name}", launches),
+    }
+    return launches, checks
+
+
+def certifier_wide(dev) -> tuple:
+    """The certifier at n = 150 (generate_spar(150, 100, 1), no registry
+    record): the Burer-Monteiro point on the host, then FULL_ROUNDS in-out
+    eigencut rounds of FULL_LP over a FULL_CAPACITY-row buffer seeded with
+    its null directions (full_width_case's settings), on the dense route
+    only; every certificate finite and >= the BM lb; the run repeated bit
+    for bit.  Returns (launch counts, checks)."""
+    inst = generate_spar(*WIDE_CERT)
+    t0 = time.perf_counter()
+    x_in, X_in, lb = bm_feasible_point(inst.Q, inst.c)
+    bm_s = time.perf_counter() - t0
+    seeds = bm_null_directions(x_in, X_in)
+    kw = dict(max_rounds=FULL_ROUNDS, anchor=(x_in, X_in), max_cuts_per_round=48,
+              capacity=FULL_CAPACITY, seed_dirs=seeds, purge_at=len(seeds) + 1, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    best, _, hist = sdp_relaxation_bound(inst, FULL_LP, **kw)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for h in hist:
+        sec = h["seconds"]
+        log(f"[wide certifier {inst.name}] round {h['round']}: certificate {h['bound']!r} count "
+            f"{h['cuts']} lp_iters {h['lp_iters']} kkt {h['lp_kkt']:.3e}; seconds "
+            f"{sum(sec.values()):.4f} = lp {sec['lp']:.4f} + dual_bound_f64 "
+            f"{sec['certificate']:.4f} + host eigh/rows {sec['host_cuts']:.4f} + uploads "
+            f"{sec['upload']:.4f} + purge {sec['purge']:.4f}")
+    again = sdp_relaxation_bound(inst, FULL_LP, **kw)[2]
+    certs = np.array([h["bound"] for h in hist])
+    lp_s, iters, us = lp_us(hist)
+    log(f"[wide certifier {inst.name}] BM lb {lb!r} in {bm_s:.3f}s on the host, {len(seeds)} "
+        f"seed directions; {len(hist)} rounds in {wall:.3f}s, best {best!r}; the LP {lp_s:.4f}s "
+        f"for {iters} iterations = {us:.2f} us a certifier LP iteration ({SMI}); launches "
+        f"{launches}")
+
+    def outcome_of(hs):
+        return [(h["bound"], h["lam_min"], h["cuts"], h["lp_iters"], h["lp_kkt"]) for h in hs]
+
+    return launches, {
+        f"{FULL_ROUNDS} rounds ran": len(hist) == FULL_ROUNDS,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        "every certificate >= the port's BM lb": bool((certs >= lb).all()),
+        **dense_route_checks(f"wide certifier {inst.name}", launches),
+        "a second run repeats every round bit for bit": outcome_of(again) == outcome_of(hist),
+    }
+
+
+def wide_phase(dev) -> dict:
+    """Phase 18: the kernels' 256-column forms against their twins
+    (wide_kernels), the wide solve (wide_solve) and the certifier at n = 150
+    (certifier_wide), each path's launches into PATH_LAUNCHES.  Returns
+    wide_kernels' numbers."""
+    t0 = time.perf_counter()
+    out = wide_kernels(dev)
+    PATH_LAUNCHES["wide boxqp n=256"], checks = wide_solve(
+        dev, out["pdhg_block"]["n=256 m=0"]["ms"])
+    finish("wide solve", checks)
+    PATH_LAUNCHES["wide certifier n=150"], checks = certifier_wide(dev)
+    finish("wide certifier", checks)
+    log(f"[wide] phase 18 took {time.perf_counter() - t0:.1f}s")
+    return out
+
 
 def main(argv=None) -> int:
     global SMI
@@ -3435,7 +3698,7 @@ def main(argv=None) -> int:
         if not all(same5):
             raise AssertionError("the checked block does not give the parent build's bits on "
                                  "phase 3's inputs")
-        lib = parent_k2(args.parent)
+        lib = parent_k2(pkg, args.parent)
         same = []
         for label, (Q, c, table, dense) in shapes.items():
             cx, cX, pool, index, st = pdhg_inputs(Q, c, table, dense, dev)
@@ -3452,7 +3715,8 @@ def main(argv=None) -> int:
     k4 = check_k4(inst, dev)
     check_guard(inst, unguarded, dev)
     check_small_instances(dev)
-    check_large_instance(dev)
+    PATH_LAUNCHES["wide boxqp spar150-100-1"] = check_large_instance(dev)
+    wide = wide_phase(dev)
     PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
     PATH_LAUNCHES["qcqp main"] = qcqp_main_path(dev)
     PATH_LAUNCHES["boxqp packed scan"] = packed_scan_path(inst, dev)
@@ -3473,12 +3737,16 @@ def main(argv=None) -> int:
     for path, counts in PATH_LAUNCHES.items():
         log(f"[launches] {path}: {counts}")
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
+    narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items() if not p.startswith("wide"))
+              for name in WRAPPERS}
+    log(f"[launches] the paths at n <= 128 (every path but the wide ones): {narrow}")
 
     kernels = [
         {"name": "pair_score", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pair_score.cu",
          "replaces": "sdpcutsel_tpu/ops/pair_score.py:192",
-         "launches": total["pair_score"], **k1},
+         "launches": total["pair_score"], **k1, "n256": wide["pair_score"],
+         "max_abs_err": max(k1["max_abs_err"], wide["pair_score"]["max_abs_err"])},
         {"name": "pair_packed", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pair_packed.cu",
          "replaces": "sdpcutsel_tpu/ops/pair_packed.py:196",
@@ -3487,8 +3755,11 @@ def main(argv=None) -> int:
          "source": "sdpcutsel_tpu_torch/csrc/pdhg_block.cu",
          "replaces": "sdpcutsel_tpu/lp/pdhg_kernel.py:51",
          "launches": total["pdhg_block"], **k2, **k2_batched,
+         "wide": {**wide["pdhg_block"], "batched n=150": wide["batched"]},
          "max_abs_err": max(k2["max_abs_err"], k2_box["max_abs_err"],
-                            k2_batched["batched_max_abs_err"])},
+                            k2_batched["batched_max_abs_err"],
+                            wide["batched"]["batched_max_abs_err"],
+                            *(e["max_abs_err"] for e in wide["pdhg_block"].values()))},
         {"name": "fused_score", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/fused_score.cu",
          "replaces": "sdpcutsel_tpu/ops/fused_score.py:52",
@@ -3503,29 +3774,37 @@ def main(argv=None) -> int:
          "replaces": "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block; XLA, no Pallas kernel)",
          "launches": total["pdhg_check"], **k5s[1],
          **{f"m0_{key}": v for key, v in k5s[0].items()}, **control_batched["check"],
+         "wide": {**wide["pdhg_check"], "batched n=150": wide["control_batched"]["check"]},
          "max_abs_err": max(k5s[0]["max_abs_err"], k5s[1]["max_abs_err"],
-                            control_batched["check"]["batched_max_abs_err"])},
+                            control_batched["check"]["batched_max_abs_err"],
+                            wide["control_batched"]["check"]["batched_max_abs_err"],
+                            *(e["max_abs_err"] for e in wide["pdhg_check"].values()))},
         {"name": "pdhg_norm", "route": "cuda",
          "source": "sdpcutsel_tpu_torch/csrc/pdhg_norm.cu",
          "replaces": "sdpcutsel_tpu/lp/pdhg.py:70 (estimate_norm; XLA, no Pallas kernel)",
          "launches": total["pdhg_norm"], **k6s[1],
          **{f"m0_{key}": v for key, v in k6s[0].items()}, **control_batched["norm"],
+         "wide": {**wide["pdhg_norm"], "batched n=150": wide["control_batched"]["norm"]},
          "max_abs_err": max(k6s[0]["max_abs_err"], k6s[1]["max_abs_err"],
-                            control_batched["norm"]["batched_max_abs_err"])},
+                            control_batched["norm"]["batched_max_abs_err"],
+                            wide["control_batched"]["norm"]["batched_max_abs_err"],
+                            *(e["max_abs_err"] for e in wide["pdhg_norm"].values()))},
     ]
     # K7, the dense route of the certifier's LP (csrc/pdhg_dense.cu): XLA in
     # the reference's solve (no Pallas kernel: it refuses dense rows); each
-    # entry holds n = 125 at the full buffer, every shape under "shapes"
+    # entry holds n = 125 at the full buffer, every shape (the wide ones
+    # too) under "shapes"
     kernels += [
         dense_entry("pdhg_dense", "sdpcutsel_tpu/lp/pdhg.py:216 (run_block's fori_loop of "
                     "_one_iter with dense rows; XLA, no Pallas kernel)", total["pdhg_dense"],
-                    dense_route["pdhg_dense"]),
+                    {**dense_route["pdhg_dense"], **wide["pdhg_dense"]}),
         dense_entry("pdhg_dense_check (K7c, in K7's checked launch)", "sdpcutsel_tpu/lp/"
                     "pdhg.py:224 (checked_block with dense rows; XLA, no Pallas kernel)",
-                    total["pdhg_dense_check"], dense_route["pdhg_dense_check"]),
+                    total["pdhg_dense_check"],
+                    {**dense_route["pdhg_dense_check"], **wide["pdhg_dense_check"]}),
         dense_entry("pdhg_dense_norm", "sdpcutsel_tpu/lp/pdhg.py:71 (estimate_norm with dense "
                     "rows; XLA, no Pallas kernel)", total["pdhg_dense_norm"],
-                    dense_route["pdhg_dense_norm"]),
+                    {**dense_route["pdhg_dense_norm"], **wide["pdhg_dense_norm"]}),
     ]
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them

@@ -52,7 +52,8 @@ _SIGNATURES = {
     "pair_score_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P],
     # pdhg_block.cu
-    "pdhg_block_launch": [_I, _I, _I, _I, _I, _I, _I, _I,  # n M k m iters cluster cap smem
+    "pdhg_block_launch": [_I, _I, _I, _I, _I, _I, _I,  # n M k m iters cluster cols
+                          _I, _I,                      # cap smem
                           _I, _P, _P, _I, _I,          # count, ids, records, ex, eX
                           _P, _P,                      # cx, cX
                           _P, _P, _P, _P, _P,          # idx, lin, quad, rhs, act
@@ -61,8 +62,8 @@ _SIGNATURES = {
                           *[_P] * 12,                  # state and sums in
                           *[_P] * 12,                  # state and sums out
                           _P],                         # stream
-    "pdhg_block_checked_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,  # n M k m iters
-                                  # cluster cap smem B
+    "pdhg_block_checked_launch": [_I, _I, _I, _I, _I, _I, _I,  # n M k m iters cluster cols
+                                  _I, _I, _I,          # cap smem B
                                   _P, _I, _I,          # records, ex, eX
                                   _I, _I, _I, _F,      # check_every restart_period max_iters tol
                                   _P, _P,              # cx, cX
@@ -71,7 +72,8 @@ _SIGNATURES = {
                                   _P, _P, _P,          # G, g, h
                                   *[_P] * 18,          # state, sums, anchor (in place)
                                   _P],                 # stream
-    "pdhg_block_max_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pdhg_block_max_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _I,  # n M k m
+                                       _P],            # cluster cols cap smem instances, out
     # pdhg_dense.cu
     "pdhg_dense_block_launch": [_I, _I, _I, _I, _I, _P,  # n m iters plan smem records
                                 _P, _P, _P, _P, _P,      # cx, cX, G, g, h

@@ -33,8 +33,10 @@
 // once at entry, stored once at exit.  It owns pool slots
 // [r Mc, (r + 1) Mc), Mc = ceil(M / C), with their cut data, yC and ayC.
 // Every CTA keeps a replica of the weights w = yC * active (M,), of xb (n,)
-// and of yD (m,).  Thread (g, c) = (t / 128, t % 128) owns column c of the
-// band rows g, g + 4, ...
+// and of yD (m,).  Thread (g, c) = (t / W, t % W) owns column c of the band
+// rows g, g + 512 / W, ..., at the column width W of pdhg_common.cuh: 128
+// (four row groups) for n <= 128, 256 (two) for 128 < n <= 256, where a band
+// of R = 16 rows at a cluster of 16 takes twice the passes of a row group.
 //
 // Cross-band data moves through distributed shared memory, pushed by its
 // producer before a cluster barrier (remote stores, no remote waits):
@@ -166,8 +168,9 @@ __device__ __forceinline__ Arrays instance_arrays(const Arrays& a, size_t b, int
   return p;
 }
 
-// Offsets, in 4-byte words, of one CTA's dynamic shared memory.  The same
-// sum is lp/pdhg_kernel.py::_smem_words; the launch checks that they agree.
+// Offsets, in 4-byte words, of one CTA's dynamic shared memory at column
+// width W.  The same sum is lp/pdhg_kernel.py::_smem_words; the launch
+// checks that they agree.
 struct Layout {
   int X, yA, yB, cX, aX, aA, aB, S, Xb, ST;     // (R, n) bands
   int rowA, rowB;                               // (R, kWarpsPerRow) row partials
@@ -184,8 +187,11 @@ struct Layout {
   int words;
 };
 
+template <int W>
 __host__ __device__ inline Layout make_layout(int n, int M, int k, int m, int C, int R,
                                               int Mc, int term_cap, bool checked) {
+  constexpr int kCols = Width<W>::kCols, kGroups = Width<W>::kGroups;
+  constexpr int kWarpsPerRow = Width<W>::kWarpsPerRow;
   Layout L;
   int o = 0;
   const int RN = R * n;
@@ -224,8 +230,8 @@ __device__ __forceinline__ void fold_dense(int m, int C, float sigma, const floa
 }
 
 // kCheck: the checked form, K5's control (pdhg_check.cuh) after the last
-// iteration, before the exit's stores.
-template <bool kCheck>
+// iteration, before the exit's stores.  W: the column width.
+template <bool kCheck, int W>
 __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -237,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
   const int* rec = a.rec + inst * kRecWords;
   if (rec[kRecStop]) return;          // a stopped instance: every CTA leaves before any barrier
   const float tau = __int_as_float(rec[kRecTau]), sigma = __int_as_float(rec[kRecSigma]);
-  const Layout L = make_layout(n, M, k, m, C, R, a.Mc, a.term_cap, kCheck);
+  const Layout L = make_layout<W>(n, M, k, m, C, R, a.Mc, a.term_cap, kCheck);
   float* const sX = sm + L.X;
   float* const syA = sm + L.yA;
   float* const syB = sm + L.yB;
@@ -357,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
 
     // ---- A: adjoint, primal pre-step S, its transpose to the column owners,
     //      row sums (local) and column partials (to the owners) of yB -------
-    mccormick_pre_step(cluster, sX, syA, syB, scX, sS, sST, srowA, srowB, scolP, tau, n, R, r0,
+    mccormick_pre_step<W>(cluster, sX, syA, syB, scX, sS, sST, srowA, srowB, scolP, tau, n, R, r0,
                        rows, rank, [&](int e, float base) {
                          float gX = base + segment_sum(Xcut, Xcoef, sXoff[e], sXoff[e + 1], sw);
                          if (m > 0) {
@@ -370,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
     cluster.sync();
 
     // ---- B1: gx, x step, xb to every CTA; X projection and Xb ---------------
-    mccormick_primal_step(cluster, sx, sax, scx, sX, saX, sS, sST, sXb, sxb, srowA, srowB, scolP,
+    mccormick_primal_step<W>(cluster, sx, sax, scx, sX, saX, sS, sST, sXb, sxb, srowA, srowB, scolP,
                           tau, n, R, r0, rows, C, [&](int i, float base) {
                             float gx = base + segment_sum(xcut, xcoef, sxoff[i], sxoff[i + 1], sw);
                             if (m > 0) {
@@ -383,7 +389,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
     cluster.sync();
 
     // ---- B2: dual ascent on yA, yB; cut rows; dense-row partials ------------
-    mccormick_dual_step(syA, syB, saA, saB, sXb, sxb, sigma, n, r0, rows);
+    mccormick_dual_step<W>(syA, syB, saA, saB, sXb, sxb, sigma, n, r0, rows);
     for (int s = t; s < slots; s += kThreads) {
       const float am = sact[s];
       float yc = 0.0f;                     // an inactive slot's yC stays 0
@@ -432,7 +438,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
                       Point{z.x + inst * N, z.X + inst * NN, z.yA + inst * NN,
                             z.yB + inst * NN, z.yC + inst * M, z.yD + inst * m},
                       const_cast<int*>(rec)};
-    check_epilogue(cluster, v);
+    check_epilogue<W>(cluster, v);
   }
 
   // ---- exit: the band, the owned slots and yD, stored once ---------------
@@ -469,25 +475,35 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const __grid_
 
 namespace {
 
+// The kernel of a form (check) at width W, and its attributes prepared for
+// (cluster, smem).
+template <int W>
 int prepare(int cluster, int smem, bool check) {
   static int checked[2][2] = {{0, -1}, {0, -1}};
-  return check ? prepare_cluster(pdhg_cluster_kernel<true>, cluster, smem, checked[1])
-               : prepare_cluster(pdhg_cluster_kernel<false>, cluster, smem, checked[0]);
+  return check ? prepare_cluster(pdhg_cluster_kernel<true, W>, cluster, smem, checked[1])
+               : prepare_cluster(pdhg_cluster_kernel<false, W>, cluster, smem, checked[0]);
 }
 
-int check_plan(int n, int M, int k, int m, int cluster, int term_cap, int smem, bool check) {
-  if (cluster < 1 || cluster > kMaxCluster || n < 1 || n > kCols || k < 2 || k > 5 ||
-      term_cap < 0)
+// The caller's plan against this file's: its width cols must be n's
+// (cols_for) and its smem the layout's at that width.
+int check_plan(int n, int M, int k, int m, int cluster, int cols, int term_cap, int smem,
+               bool check) {
+  if (cluster < 1 || cluster > kMaxCluster || cols_for(n) == 0 || cols != cols_for(n) ||
+      k < 2 || k > 5 || term_cap < 0)
     return kErrLayout;
   const int R = (n + cluster - 1) / cluster;
   const int Mc = (M + cluster - 1) / cluster;
-  const Layout L = make_layout(n, M, k, m, cluster, R, Mc, term_cap, check);
+  const Layout L = cols == kNarrow
+                       ? make_layout<kNarrow>(n, M, k, m, cluster, R, Mc, term_cap, check)
+                       : make_layout<kWide>(n, M, k, m, cluster, R, Mc, term_cap, check);
   if (4 * static_cast<size_t>(L.words) != static_cast<size_t>(smem)) return kErrLayout;
-  return 0;
+  return cols == kNarrow ? prepare<kNarrow>(cluster, smem, check)
+                         : prepare<kWide>(cluster, smem, check);
 }
 
 // The launches of one plan for the instances ids[0..count), in grids of up
 // to kMaxBatch clusters.
+template <int W>
 int launch_batches(Args& a, int cluster, int smem, int count, const int* ids, bool check,
                    void* stream) {
   for (int s0 = 0; s0 < count; s0 += kMaxBatch) {
@@ -498,11 +514,17 @@ int launch_batches(Args& a, int cluster, int smem, int count, const int* ids, bo
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg =
         launch_config(cluster, part, smem, static_cast<cudaStream_t>(stream), attr);
-    const cudaError_t e = check ? cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel<true>, a)
-                                : cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel<false>, a);
+    const cudaError_t e = check ? cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel<true, W>, a)
+                                : cudaLaunchKernelEx(&cfg, pdhg_cluster_kernel<false, W>, a);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_batches(Args& a, int cluster, int cols, int smem, int count, const int* ids,
+                   bool check, void* stream) {
+  return cols == kNarrow ? launch_batches<kNarrow>(a, cluster, smem, count, ids, check, stream)
+                         : launch_batches<kWide>(a, cluster, smem, count, ids, check, stream);
 }
 
 }  // namespace
@@ -514,11 +536,12 @@ int launch_batches(Args& a, int cluster, int smem, int count, const int* ids, bo
 // strides of xcut/xcoef and Xcut/Xcoef.  The outputs may be the inputs (the
 // launch then updates the listed instances in place).  cluster: CTAs a
 // cluster (<= 16); term_cap and smem come from the caller's launch plan
-// (lp/pdhg_kernel.py launch_plan), and smem must equal this file's layout.
-// More than kMaxBatch instances go in consecutive grids.  Returns 0, a CUDA
-// error, kErrLayout or kErrNoCluster.
+// (lp/pdhg_kernel.py launch_plan), and smem must equal this file's layout at
+// the plan's column width cols, which must be n's (128 for n <= 128, 256 up
+// to n = 256).  More than kMaxBatch instances go in consecutive grids.
+// Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_block_launch(
-    int n, int M, int k, int m, int iters, int cluster, int term_cap, int smem,
+    int n, int M, int k, int m, int iters, int cluster, int cols, int term_cap, int smem,
     int count, const int* ids, const int* rec, int ex, int eX,
     const float* cx, const float* cX,
     const int* idx, const float* lin, const float* quad, const float* rhs,
@@ -533,8 +556,7 @@ extern "C" int pdhg_block_launch(
     float* xo, float* Xo, float* yAo, float* yBo, float* yCo, float* yDo,
     float* axo, float* aXo, float* aAo, float* aBo, float* ayCo, float* ayDo,
     void* stream) {
-  int err = check_plan(n, M, k, m, cluster, term_cap, smem, false);
-  if (err == 0) err = prepare(cluster, smem, false);
+  const int err = check_plan(n, M, k, m, cluster, cols, term_cap, smem, false);
   if (err != 0) return err;
   if (count < 0 || ex < 0 || eX < 0) return kErrLayout;
 
@@ -544,7 +566,7 @@ extern "C" int pdhg_block_launch(
                 G, g, h, x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
                 xo, Xo, yAo, yBo, yCo, yDo, axo, aXo, aAo, aBo, ayCo, ayDo},
          Point{}, 0, 0, 0, 0.0f, rec, {}};
-  return launch_batches(a, cluster, smem, count, ids, false, stream);
+  return launch_batches(a, cluster, cols, smem, count, ids, false, stream);
 }
 
 // The checked block, the solve's step: for every instance b < B of a batch
@@ -554,9 +576,10 @@ extern "C" int pdhg_block_launch(
 // the state, sums, anchor (zx..zD) and record, then one store of the state
 // and sums.  An instance whose record has stopped is left as it is.  The
 // plan's smem includes the check's region (lp/pdhg_kernel.py launch_plan
-// with checked=True).  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
+// with checked=True), at its column width cols.  Returns 0, a CUDA error,
+// kErrLayout or kErrNoCluster.
 extern "C" int pdhg_block_checked_launch(
-    int n, int M, int k, int m, int iters, int cluster, int term_cap, int smem, int B,
+    int n, int M, int k, int m, int iters, int cluster, int cols, int term_cap, int smem, int B,
     int* rec, int ex, int eX, int check_every, int restart_period, int max_iters, float tol,
     const float* cx, const float* cX,
     const int* idx, const float* lin, const float* quad, const float* rhs,
@@ -568,8 +591,7 @@ extern "C" int pdhg_block_checked_launch(
     float* ax, float* aX, float* aA, float* aB, float* ayC, float* ayD,
     float* zx, float* zX, float* zA, float* zB, float* zC, float* zD,
     void* stream) {
-  int err = check_plan(n, M, k, m, cluster, term_cap, smem, true);
-  if (err == 0) err = prepare(cluster, smem, true);
+  int err = check_plan(n, M, k, m, cluster, cols, term_cap, smem, true);
   if (err != 0) return err;
   if (B < 1 || ex < 0 || eX < 0 || check_every < 1) return kErrLayout;
 
@@ -583,7 +605,7 @@ extern "C" int pdhg_block_checked_launch(
   for (int s0 = 0; s0 < B; s0 += kMaxBatch) {
     const int part = B - s0 < kMaxBatch ? B - s0 : kMaxBatch;
     for (int s = 0; s < part; ++s) ids[s] = s0 + s;
-    err = launch_batches(a, cluster, smem, part, ids, true, stream);
+    err = launch_batches(a, cluster, cols, smem, part, ids, true, stream);
     if (err != 0) return err;
   }
   return 0;
@@ -592,13 +614,15 @@ extern "C" int pdhg_block_checked_launch(
 // How many clusters of this launch plan the card runs at once
 // (cudaOccupancyMaxActiveClusters for a grid of `instances` clusters).
 extern "C" int pdhg_block_max_active_clusters(int n, int M, int k, int m, int cluster,
-                                              int term_cap, int smem, int instances,
+                                              int cols, int term_cap, int smem, int instances,
                                               int* out) {
-  int err = check_plan(n, M, k, m, cluster, term_cap, smem, false);
-  if (err == 0) err = prepare(cluster, smem, false);
+  const int err = check_plan(n, M, k, m, cluster, cols, term_cap, smem, false);
   if (err != 0) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(cluster, instances, smem, nullptr, attr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, pdhg_cluster_kernel<false>, &cfg));
+  return static_cast<int>(cols == kNarrow
+                              ? cudaOccupancyMaxActiveClusters(
+                                    out, pdhg_cluster_kernel<false, kNarrow>, &cfg)
+                              : cudaOccupancyMaxActiveClusters(
+                                    out, pdhg_cluster_kernel<false, kWide>, &cfg));
 }

@@ -120,12 +120,15 @@ struct CheckView {
   int* rec;
 };
 
-// The check after K2's last iteration.  Every thread of every CTA of the
-// cluster calls it, after K2's dense fold and a __syncthreads; the record's
-// stop flag was clear at entry.  The current iterate (P = 0) and the
-// average (P = 1) are evaluated in turn, each with the same arithmetic as
-// when both shared one pass.
+// The check after K2's last iteration, at K2's column width W.  Every
+// thread of every CTA of the cluster calls it, after K2's dense fold and a
+// __syncthreads; the record's stop flag was clear at entry.  The current
+// iterate (P = 0) and the average (P = 1) are evaluated in turn, each with
+// the same arithmetic as when both shared one pass.
+template <int W>
 __device__ __forceinline__ void check_epilogue(cg::cluster_group& cluster, const CheckView& v) {
+  constexpr int kCols = Width<W>::kCols, kGroups = Width<W>::kGroups;
+  constexpr int kWarpsPerRow = Width<W>::kWarpsPerRow;
   const int n = v.n, k = v.k, m = v.m, C = v.C, R = v.R;
   const int rank = v.rank, r0 = v.r0, rows = v.rows, p0 = v.p0, slots = v.slots;
   int* const rec = v.rec;

@@ -12,6 +12,13 @@
 // t / kCols + kGroups, ...  Sums run in one fixed order (no atomics), so a
 // launch repeats bit for bit.
 //
+// The column width kCols is a template parameter W of every function that
+// walks a band (Width<W>): 128 for n <= 128 (four row groups, the kernels'
+// first width, whose bits and layouts it keeps) and 256 for 128 < n <= 256
+// (two row groups of 256 columns: a thread still owns one column, and a band
+// takes twice the passes).  cols_for(n) is the rule; the Python plans
+// (lp/pdhg_kernel.py columns) mirror it.
+//
 // The control record: every solve keeps one int32 record of kRecWords words
 // per instance in device memory (lp/pdhg.py REC_*: the same offsets, held
 // equal by tests/test_torch_pdhg_check.py).  K5 writes it at the end of each
@@ -28,9 +35,8 @@ namespace pdhg {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 512;
-constexpr int kCols = 128;                   // n <= 128
-constexpr int kGroups = kThreads / kCols;    // row groups of a band
-constexpr int kWarpsPerRow = kCols / 32;
+constexpr int kNarrow = 128;                 // the width for n <= 128
+constexpr int kWide = 256;                   // and for 128 < n <= 256
 constexpr int kMaxCluster = 16;
 constexpr float kSA = 0.70710678118654752440f;   // 1 / sqrt(2)
 constexpr float kSB = 0.57735026918962576451f;   // 1 / sqrt(3)
@@ -58,6 +64,22 @@ constexpr int kRecWords = 16;
 // (the dense route has no cut rows: its kDC stays 0)
 constexpr int kND = 6;
 enum { kDx, kDX, kDA, kDB, kDC, kDD };
+
+// A band's thread layout at column width W: column t % kCols, row groups
+// of kGroups, kWarpsPerRow warps a row.
+template <int W>
+struct Width {
+  static_assert(W == kNarrow || W == kWide, "K2's widths are 128 and 256");
+  static constexpr int kCols = W;
+  static constexpr int kGroups = kThreads / W;
+  static constexpr int kWarpsPerRow = W / 32;
+};
+
+// The width a launch at n takes: 128 up to n = 128, else 256 (0: n outside
+// 1..256, which no kernel takes).
+__host__ __device__ constexpr int cols_for(int n) {
+  return n < 1 || n > kWide ? 0 : (n <= kNarrow ? kNarrow : kWide);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -130,7 +152,7 @@ __device__ __forceinline__ float cut_residual_k(int k, const int* id, const floa
   }
 }
 
-// ---- the McCormick step over a band (K2) -----------------------------------
+// ---- the McCormick step over a band (K2), at column width W ----------------
 // Thread t works on column t % kCols of the band rows t / kCols + kGroups j;
 // every (n, n) array below is the CTA's band of R rows (r0 its first global
 // row, `rows` those that exist); x-like arrays hold the band's rows, xb is
@@ -141,11 +163,13 @@ __device__ __forceinline__ float cut_residual_k(int k, const int* id, const floa
 // A: S = X - tau (cX - gX) and its transposed tile to the column owners'
 // ST; the row sums of yA and yB per warp (rowA, rowB, local) and the column
 // partials of yB (colP, to the owners).  A cluster barrier follows.
-template <class Adj>
+template <int W, class Adj>
 __device__ __forceinline__ void mccormick_pre_step(
     cg::cluster_group& cluster, const float* X, const float* yA, const float* yB,
     const float* cX, float* S, float* ST, float* rowA, float* rowB, float* colP, float tau,
     int n, int R, int r0, int rows, int rank, Adj adj) {
+  constexpr int kCols = Width<W>::kCols, kGroups = Width<W>::kGroups;
+  constexpr int kWarpsPerRow = Width<W>::kWarpsPerRow;
   const int t = threadIdx.x, c = t % kCols, grp = t / kCols, lane = t % 32, wr = c / 32;
   float cb = 0.0f;
   for (int il = grp; il < rows; il += kGroups) {   // uniform across each warp
@@ -177,12 +201,14 @@ __device__ __forceinline__ void mccormick_pre_step(
 // B1: gx from the row sums and the column partials, the x step (clipped to
 // [0, 1]) and its sum, xb = 2 x - x_old to every CTA's replica; then
 // X = clip(sym(S)), Xb = 2 X - X_old and X's sum.  A cluster barrier follows.
-template <class AdjX>
+template <int W, class AdjX>
 __device__ __forceinline__ void mccormick_primal_step(
     cg::cluster_group& cluster, float* x, float* ax, const float* cx, float* X, float* aX,
     const float* S, const float* ST, float* Xb, float* xb, const float* rowA,
     const float* rowB, const float* colP, float tau, int n, int R, int r0, int rows, int C,
     AdjX adj_x) {
+  constexpr int kCols = Width<W>::kCols, kGroups = Width<W>::kGroups;
+  constexpr int kWarpsPerRow = Width<W>::kWarpsPerRow;
   const int t = threadIdx.x, c = t % kCols, grp = t / kCols;
   if (t < rows) {
     float sa = 0.0f, sb = 0.0f, sc = 0.0f;
@@ -212,9 +238,11 @@ __device__ __forceinline__ void mccormick_primal_step(
 }
 
 // B2: the dual ascent on yA and yB at (xb, Xb), and their sums.
+template <int W>
 __device__ __forceinline__ void mccormick_dual_step(float* yA, float* yB, float* aA, float* aB,
                                                     const float* Xb, const float* xb,
                                                     float sigma, int n, int r0, int rows) {
+  constexpr int kCols = Width<W>::kCols, kGroups = Width<W>::kGroups;
   const int t = threadIdx.x, c = t % kCols, grp = t / kCols;
   if (c < n) {
     const float xbc = xb[c];

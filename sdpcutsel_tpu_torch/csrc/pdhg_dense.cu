@@ -66,7 +66,8 @@ using namespace pdhg;
 //           (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), launched
 //           cooperatively, so that the grid barrier below cannot hang.  CTA b
 //           owns a slice of the entries of X and of x ([e0, e1), [i0, i1): E
-//           entries), keeps their state and sums in registers, and owns a
+//           entries, at most kMaxE: one entry of X a thread), keeps their
+//           state and sums in registers, and owns a
 //           slice of the dense rows [q0, q1).  Both passes over G run over
 //           the CTA's own entries: the rows' segments of its slice, G_q[e0,
 //           e1) and g_q[i0, i1) for every q, stay in its shared memory for
@@ -88,6 +89,12 @@ using namespace pdhg;
 // No atomics in any sum (the barrier's arrival counter is no sum), and one
 // fixed order for each, so a launch repeats bit for bit.
 //
+// The "grid" kernels take the column width Cols of pdhg_common.cuh (128 for
+// n <= 128, 256 up to n = 256) as a template parameter: it sets how many
+// columns a lane sums for a row of x (Cols / 32) and the entries a CTA may
+// own (GridWidth::kMaxE), so that at n = 256 the 132 CTAs of the H100 take
+// X's 65,536 entries (497 a CTA at most).  The narrow form keeps its layout.
+//
 // The checked form (kCheck, the solve's step) then runs the check on the
 // same layout.  "grid": the state and sums stored;             grid barrier
 //   for the current iterate, then the average: its yD into shared memory
@@ -107,10 +114,19 @@ constexpr int kCtaMaxN = 32;     // the "cta" plan's largest n
 constexpr int kRowJ = 16;        // the "cta" plan's residual: entries a lane in registers
 constexpr int kStage = 8192;     // floats a ring stage (the "grid" plan's stream)
 constexpr int kStages = 4;       // stages in flight
-constexpr int kMaxE = 496;       // entries (of X and x) a CTA of the grid owns: <= 128
-                                 // chunks, and at most one entry of X a thread
 constexpr int kScratch = 2048;   // strand partials (<= 4 kThreads), weights (<= 4 (kMaxE + 12))
 constexpr int kSmemWords = 232448 / 4;   // the "grid" plan takes a CTA's whole shared memory
+
+// The "grid" plan at column width Cols: kMaxE, the entries (of X and x) a
+// CTA may own: at most one entry of X a thread, and its rows' spans (kMaxE +
+// 12 floats at most) in at most 128 chunks of 4, which keeps 4 adjoint
+// strands and kScratch's weights.  The narrow form's 496 is its first value.
+template <int Cols>
+struct GridWidth {
+  static_assert(Cols == kNarrow || Cols == kWide, "the dense route's widths are 128 and 256");
+  static constexpr int kMaxE = Cols == kNarrow ? 496 : 500;
+  static_assert(4 * (kMaxE + 12) <= kScratch && kMaxE + 12 <= 4 * 128, "spans over 128 chunks");
+};
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -227,10 +243,11 @@ inline size_t norm_work_words(int n, int m, int P) {
 
 // ---- "grid" ---------------------------------------------------------------
 
-// Offsets, in 4-byte words, of one CTA's dynamic shared memory: the slab
-// (the owned segments of G's rows, resident or a ring of stages) takes what
-// the rest leaves of kSmemWords, and at least the ring.
-// lp/pdhg_dense.py::_block_words mirrors the sum; the launch checks it.
+// Offsets, in 4-byte words, of one CTA's dynamic shared memory at column
+// width Cols: the slab (the owned segments of G's rows, resident or a ring
+// of stages) takes what the rest leaves of kSmemWords, and at least the
+// ring.  lp/pdhg_dense.py::_block_words mirrors the sum; the launch checks
+// it.
 struct GridLayout {
   int scr;       // (kScratch,) the adjoint's window partials; then the residual's weights
   int slab;      // the rows' owned segments, resident or streamed
@@ -239,7 +256,9 @@ struct GridLayout {
   int words;
 };
 
+template <int Cols>
 __host__ __device__ inline GridLayout grid_layout(int n, int m) {
+  constexpr int kMaxE = GridWidth<Cols>::kMaxE;
   const int rest = kScratch + m + kMaxE;
   const int free4 = (kSmemWords - rest) & ~3;
   GridLayout L;
@@ -271,8 +290,8 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 // [q0, q1); the rows' owned segments, row q's G_q[e0, e1) and g_q[i0, i1),
 // each as the 16-byte-aligned span that holds it (SA, SB floats: ca, cb
 // chunks of 4), ES floats a row.  Entry j of G's part sits at span position
-// shA(q) + j, of g's part at SA + shB(q) + j.
-template <class Args>
+// shA(q) + j, of g's part at SA + shB(q) + j.  Cols: the column width.
+template <class Args, int Cols>
 struct GridCta {
   const Args* a;
   int n, m, NN, P, b, t;
@@ -291,7 +310,7 @@ struct GridCta {
     P = static_cast<int>(gridDim.x);
     b = static_cast<int>(blockIdx.x);
     t = threadIdx.x;
-    const GridLayout L = grid_layout(n, m);
+    const GridLayout L = grid_layout<Cols>(n, m);
     scr = sm + L.scr;
     slab = sm + L.slab;
     syD = sm + L.yD;
@@ -428,11 +447,12 @@ struct GridCta {
 // The check (K7c) after the block's last iteration, over the grid; the
 // block's final state and sums of the CTA's owned entries come in registers
 // (rX ... rax), the rest from global memory, where the block has stored it.
+template <int Cols>
 __device__ __forceinline__ void grid_check(const BlockArgs& a, unsigned target, float rX, float rA,
                                         float rB, float raX, float raA, float raB, float rcX,
                                         float rx, float rax) {
   extern __shared__ __align__(16) float sm[];
-  const GridCta<BlockArgs> g(a, sm);
+  const GridCta<BlockArgs, Cols> g(a, sm);
   const int n = a.n, m = a.m, NN = n * n, P = g.P, b = g.b, t = g.t;
   const int lane = t % 32, warp = t / 32;
   const int i0 = g.i0, q0 = g.q0, q1 = g.q1, LA = g.LA, LB = g.LB, nst = g.nst, QB = g.QB;
@@ -509,7 +529,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, unsigned target, 
       const int i = i0 + warp;
       float sa = 0.0f, sb = 0.0f, sc2 = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kCols / 32; ++j) {      // every load issued, then the sums in order
+      for (int j = 0; j < Cols / 32; ++j) {       // every load issued, then the sums in order
         const int c = lane + 32 * j, cc = min(c, n - 1);
         const float ya = __ldcg(pyA + i * n + cc), yb = __ldcg(pyB + i * n + cc),
                     yc = __ldcg(pyB + cc * n + i);
@@ -644,7 +664,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, unsigned target, 
     write_record(rec, dec, use_avg, restart, wlen, scr + 256, P, a.iters, a.max_iters, a.tol);
 }
 
-template <bool kCheck>
+template <bool kCheck, int Cols>
 __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) float sm[];
@@ -653,7 +673,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
   const int n = a.n, m = a.m, NN = n * n;
   const int P = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const GridCta<BlockArgs> g(a, sm);
+  const GridCta<BlockArgs, Cols> g(a, sm);
   float* const slab = g.slab;
   float* const syD = g.syD;
   float* const sown = g.sown;
@@ -810,7 +830,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     a.xo[i0 + warp] = rx;
     a.axo[i0 + warp] = rax;
   }
-  if constexpr (kCheck) grid_check(a, target, rX, rA, rB, raX, raA, raB, rcX, rx, rax);
+  if constexpr (kCheck) grid_check<Cols>(a, target, rX, rA, rB, raX, raA, raB, rcX, rx, rax);
 }
 
 // ---- "cta" ----------------------------------------------------------------
@@ -1361,11 +1381,13 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_cta_kernel(
 // have arrived (the barrier a normalised A would need, merged into
 // barrier 1).  After the last iteration, A and B give K z; each CTA's sums
 // of kA^2 + kB^2 and kD^2 to global memory, a barrier, and CTA 0 folds them.
+// Cols: the column width.
+template <int Cols>
 __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
     const __grid_constant__ NormArgs a) {
   extern __shared__ __align__(16) float sm[];
   const int n = a.n, m = a.m, NN = n * n;
-  const GridCta<NormArgs> g(a, sm);
+  const GridCta<NormArgs, Cols> g(a, sm);
   const int P = g.P, b = g.b, t = g.t, lane = t % 32, warp = t / 32;
   const int i0 = g.i0, q0 = g.q0, q1 = g.q1, LA = g.LA, LB = g.LB, QB = g.QB, nst = g.nst;
   const bool resident = g.resident;
@@ -1429,11 +1451,11 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
     // warp w < LB: row i0 + w of Y at columns lane + 32 j, which is also its
     // column: Y is symmetric bit for bit (the start vector is sym(.), and D
     // forms both (i, c) and (c, i) as 0.5 (gX_ic + gX_ci))
-    float Yr[kCols / 32];
+    float Yr[Cols / 32];
     if (!last && warp < LB) {
       const int i = i0 + warp;
 #pragma unroll
-      for (int j = 0; j < kCols / 32; ++j)      // every load issued, from a clamped column
+      for (int j = 0; j < Cols / 32; ++j)       // every load issued, from a clamped column
         Yr[j] = __ldcg(Yc + i * n + min(lane + 32 * j, n - 1));
     }
     if (it > 0 && warp < 2) {
@@ -1480,7 +1502,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
     if (warp < LB) {
       const float zi = sy[i0 + warp] / nrm;
 #pragma unroll
-      for (int j = 0; j < kCols / 32; ++j) {   // the columns in increasing order a lane
+      for (int j = 0; j < Cols / 32; ++j) {    // the columns in increasing order a lane
         if (lane + 32 * j < n) {
           const float zc = sy[lane + 32 * j] / nrm, Z = Yr[j] / nrm;
           sa += kSA * (zi - Z);
@@ -1529,9 +1551,11 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
 
 // The cooperative grid of the "grid" plan with smem bytes a CTA, into *P:
 // as many CTAs as the card holds at once (each SM's share times the SMs) of
-// every kernel of the plan, the block's two forms and the norm, so that the
-// block's forms run the same grid and the block's sums the same order.
-// Returns 0, a CUDA error or kErrNoCluster (not one CTA fits).
+// every kernel of the plan at column width Cols, the block's two forms and
+// the norm, so that the block's forms run the same grid and the block's sums
+// the same order.  Returns 0, a CUDA error or kErrNoCluster (not one CTA
+// fits).
+template <int Cols>
 int dense_grid(int smem, int* P) {
   static int cached[3] = {-1, -1, 0};   // device, smem, CTAs
   int dev = 0;
@@ -1539,9 +1563,10 @@ int dense_grid(int smem, int* P) {
   if (e != cudaSuccess) return static_cast<int>(e);
   if (cached[0] != dev || cached[1] != smem) {
     int fewest = 1 << 30, sms = 0;
-    const void* kernels[3] = {reinterpret_cast<const void*>(pdhg_dense_grid_kernel<false>),
-                              reinterpret_cast<const void*>(pdhg_dense_grid_kernel<true>),
-                              reinterpret_cast<const void*>(pdhg_dense_norm_grid_kernel)};
+    const void* kernels[3] = {
+        reinterpret_cast<const void*>(pdhg_dense_grid_kernel<false, Cols>),
+        reinterpret_cast<const void*>(pdhg_dense_grid_kernel<true, Cols>),
+        reinterpret_cast<const void*>(pdhg_dense_norm_grid_kernel<Cols>)};
     for (const void* kernel : kernels) {
       int per_sm = 0;
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1566,8 +1591,9 @@ int dense_grid(int smem, int* P) {
 // (grid_kernel on dense_grid's CTAs, launched cooperatively once the
 // barrier's counter bar is zeroed); the shape and smem already checked.
 // distances: CTA 0 copies every CTA's distances into its scratch (the
-// checked block).  *grid receives the CTAs.
-template <class Args>
+// checked block).  *grid receives the CTAs.  Cols: the grid kernel's column
+// width.
+template <int Cols, class Args>
 int launch_plan(void (*cta_kernel)(Args), void (*grid_kernel)(Args), int& cta_smem,
                 const Args& a, unsigned* bar, int plan, int smem, bool distances, int* grid,
                 cudaStream_t st) {
@@ -1587,10 +1613,11 @@ int launch_plan(void (*cta_kernel)(Args), void (*grid_kernel)(Args), int& cta_sm
     e = cudaLaunchKernelEx(&cfg, cta_kernel, a);
   } else {
     int P = 0;
-    const int err = dense_grid(smem, &P);
+    const int err = dense_grid<Cols>(smem, &P);
     if (err != 0) return err;
     const int n = a.n;
-    if ((n * n + P - 1) / P + (n + P - 1) / P > kMaxE || (n + P - 1) / P > kThreads / 32)
+    if ((n * n + P - 1) / P + (n + P - 1) / P > GridWidth<Cols>::kMaxE ||
+        (n + P - 1) / P > kThreads / 32)
       return kErrLayout;
     if (distances && 256 + P * kND > kScratch) return kErrLayout;   // CTA 0's copy
     e = cudaMemsetAsync(bar, 0, sizeof(unsigned), st);
@@ -1608,17 +1635,28 @@ int launch_plan(void (*cta_kernel)(Args), void (*grid_kernel)(Args), int& cta_sm
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the block (kCheck: its checked form) under `plan`.
+// One launch of the block (kCheck: its checked form) under `plan`, the grid
+// kernel at n's column width.
 template <bool kCheck>
 int launch_block(const BlockArgs& a, int plan, int smem, int* grid, cudaStream_t st) {
   static int cta_smem = -1;
-  return launch_plan(pdhg_dense_cta_kernel<kCheck>, pdhg_dense_grid_kernel<kCheck>, cta_smem, a,
-                     a.bar, plan, smem, kCheck, grid, st);
+  return cols_for(a.n) == kNarrow
+             ? launch_plan<kNarrow>(pdhg_dense_cta_kernel<kCheck>,
+                                    pdhg_dense_grid_kernel<kCheck, kNarrow>, cta_smem, a, a.bar,
+                                    plan, smem, kCheck, grid, st)
+             : launch_plan<kWide>(pdhg_dense_cta_kernel<kCheck>,
+                                  pdhg_dense_grid_kernel<kCheck, kWide>, cta_smem, a, a.bar,
+                                  plan, smem, kCheck, grid, st);
+}
+
+// The grid plan's layout at n's column width.
+GridLayout grid_layout_at(int n, int m) {
+  return cols_for(n) == kNarrow ? grid_layout<kNarrow>(n, m) : grid_layout<kWide>(n, m);
 }
 
 int check_block(int n, int m, int iters, int plan, int smem) {
-  if (n < 1 || n > kCols || m < 0 || iters < 0 || (plan != 0 && plan != 1)) return kErrLayout;
-  const int words = plan == 0 ? cta_layout(n, m).words : grid_layout(n, m).words;
+  if (cols_for(n) == 0 || m < 0 || iters < 0 || (plan != 0 && plan != 1)) return kErrLayout;
+  const int words = plan == 0 ? cta_layout(n, m).words : grid_layout_at(n, m).words;
   if (4 * static_cast<size_t>(words) != static_cast<size_t>(smem)) return kErrLayout;
   if (plan == 0 && n > kCtaMaxN) return kErrLayout;
   return 0;
@@ -1682,10 +1720,10 @@ extern "C" int pdhg_dense_block_checked_launch(
 // SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the
 // SMs, into *grid.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_dense_block_grid(int n, int m, int smem, int* grid) {
-  if (n < 1 || n > kCols || m < 0) return kErrLayout;
-  if (4 * static_cast<size_t>(grid_layout(n, m).words) != static_cast<size_t>(smem))
+  if (cols_for(n) == 0 || m < 0) return kErrLayout;
+  if (4 * static_cast<size_t>(grid_layout_at(n, m).words) != static_cast<size_t>(smem))
     return kErrLayout;
-  return dense_grid(smem, grid);
+  return cols_for(n) == kNarrow ? dense_grid<kNarrow>(smem, grid) : dense_grid<kWide>(smem, grid);
 }
 
 // ||K|| 1.02 + 1e-12 over the McCormick rows and the m dense rows after
@@ -1703,6 +1741,11 @@ extern "C" int pdhg_dense_norm_launch(int n, int m, int iters, int plan, int sme
   if (err != 0) return err;
   static int cta_smem = -1;
   const NormArgs a{n, m, iters, G, g, y, Y, work, bar, out};
-  return launch_plan(pdhg_dense_norm_cta_kernel, pdhg_dense_norm_grid_kernel, cta_smem, a, bar,
-                     plan, smem, false, grid, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return cols_for(n) == kNarrow
+             ? launch_plan<kNarrow>(pdhg_dense_norm_cta_kernel,
+                                    pdhg_dense_norm_grid_kernel<kNarrow>, cta_smem, a, bar, plan,
+                                    smem, false, grid, st)
+             : launch_plan<kWide>(pdhg_dense_norm_cta_kernel, pdhg_dense_norm_grid_kernel<kWide>,
+                                  cta_smem, a, bar, plan, smem, false, grid, st);
 }

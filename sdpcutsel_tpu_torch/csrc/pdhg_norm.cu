@@ -12,8 +12,9 @@
 // each n).  The reference runs it as a jitted fori_loop in XLA
 // (sdpcutsel_tpu/lp/pdhg.py estimate_norm); no Pallas kernel.
 //
-// Layout: K2's bands (pdhg_common.cuh), one cluster of C CTAs per instance,
-// and the iterate on chip for the whole launch.  CTA r keeps its band of Y
+// Layout: K2's bands (pdhg_common.cuh) at K2's column width (128 for
+// n <= 128, 256 up to n = 256), one cluster of C CTAs per instance, and the
+// iterate on chip for the whole launch.  CTA r keeps its band of Y
 // and a replica of y in shared memory, unnormalised, (y, Y) = ||.|| (x, X),
 // with the norm in every CTA, so x = y / nrm and X = Y / nrm are formed as
 // they are read: the same division the twin does.  The band's slice of the
@@ -75,8 +76,8 @@ struct Args {
   Arrays in;
 };
 
-// Offsets, in 4-byte words, of one CTA's dynamic shared memory.
-// lp/pdhg_norm.py::smem_words mirrors the sum.
+// Offsets, in 4-byte words, of one CTA's dynamic shared memory at column
+// width W.  lp/pdhg_norm.py::smem_words mirrors the sum.
 struct Layout {
   int kA, kB;              // (R, n) bands: K's first two blocks
   int Y;                   // (R, n) the band of Y; gX in step 2
@@ -102,7 +103,10 @@ struct Layout {
   int words;
 };
 
+template <int W>
 __host__ __device__ inline Layout make_layout(int n, int M, int k, int m, int C, int R) {
+  constexpr int kCols = Width<W>::kCols, kGroups = Width<W>::kGroups;
+  constexpr int kWarpsPerRow = Width<W>::kWarpsPerRow;
   Layout L;
   int o = 0;
   const int RN = R * n;
@@ -151,9 +155,11 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 // kStaged: the layout stages the cut data and its terms' capacity holds
 // every term of the cut index (the launch decides), so that every read of
 // the loop is from shared memory; else the cut data is read from global
-// memory, the dense slice still resident where it fits.
-template <bool kStaged>
+// memory, the dense slice still resident where it fits.  W: the column width.
+template <bool kStaged, int W>
 __global__ void __launch_bounds__(kThreads, 1) pdhg_norm_kernel(const __grid_constant__ Args a) {
+  constexpr int kCols = Width<W>::kCols, kGroups = Width<W>::kGroups;
+  constexpr int kWarpsPerRow = Width<W>::kWarpsPerRow;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -161,7 +167,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_norm_kernel(const __grid_con
   const int n = a.n, M = a.M, k = a.k, m = a.m, R = a.R, RN = R * n;
   const size_t nn = static_cast<size_t>(n) * n;
   const size_t inst = static_cast<size_t>(blockIdx.x) / C;
-  const Layout L = make_layout(n, M, k, m, C, R);
+  const Layout L = make_layout<W>(n, M, k, m, C, R);
   const int* idx = a.in.idx + inst * M * k;
   const float* lin = a.in.lin + inst * M * k;
   const float* quad = a.in.quad + inst * M * k * k;
@@ -517,10 +523,29 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_norm_kernel(const __grid_con
 }
 
 int check_shape(int n, int M, int k, int m, int cluster) {
-  if (cluster < 1 || cluster > kMaxCluster || n < 1 || n > kCols || k < 2 || k > 5 ||
-      M < 0 || m < 0)
+  if (cluster < 1 || cluster > kMaxCluster || cols_for(n) == 0 || k < 2 || k > 5 || M < 0 ||
+      m < 0)
     return kErrLayout;
   return 0;
+}
+
+// One launch at column width W (the shape checked).
+template <int W>
+int launch(const Args& a, int cluster, int B, void* stream) {
+  static int checked[2][2] = {{0, -1}, {0, -1}};
+  const Layout L = make_layout<W>(a.n, a.M, a.k, a.m, cluster, a.R);
+  const int smem = 4 * L.words;
+  // staged where the layout holds the cut data and every term of the index
+  const bool staged = L.xoff < L.words && static_cast<long long>(a.ex) + a.eX <= L.cap;
+  const auto kernel = staged ? pdhg_norm_kernel<true, W> : pdhg_norm_kernel<false, W>;
+  const int err = prepare_cluster(kernel, cluster, smem, checked[staged ? 1 : 0]);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(cluster, B, smem, static_cast<cudaStream_t>(stream), attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -528,7 +553,8 @@ int check_shape(int n, int M, int k, int m, int cluster) {
 // ||K|| of every instance of a batch of B (one cluster of `cluster` CTAs
 // each) after `iters` power iterations from the start vector (y (n,), Y (n,
 // n)), the same for every instance and only read.  ex and eX are the
-// per-instance strides of xcut/xcoef and Xcut/Xcoef.  Writes out[0..B).
+// per-instance strides of xcut/xcoef and Xcut/Xcoef.  Writes out[0..B).  The
+// column width is n's (pdhg_common.cuh cols_for), as K2's plan takes it.
 // Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_norm_launch(
     int n, int M, int k, int m, int B, int cluster, int ex, int eX, int iters,
@@ -537,23 +563,12 @@ extern "C" int pdhg_norm_launch(
     const int* Xoff, const int* Xcut, const float* Xcoef,
     const float* G, const float* g, const float* y, const float* Y, float* out,
     void* stream) {
-  static int checked[2][2] = {{0, -1}, {0, -1}};
   int err = check_shape(n, M, k, m, cluster);
   if (err == 0 && (B < 1 || ex < 0 || eX < 0 || iters < 0)) err = kErrLayout;
   if (err != 0) return err;
-  const Layout L = make_layout(n, M, k, m, cluster, (n + cluster - 1) / cluster);
-  const int smem = 4 * L.words;
-  // staged where the layout holds the cut data and every term of the index
-  const bool staged = L.xoff < L.words && static_cast<long long>(ex) + eX <= L.cap;
-  const auto kernel = staged ? pdhg_norm_kernel<true> : pdhg_norm_kernel<false>;
-  err = prepare_cluster(kernel, cluster, smem, checked[staged ? 1 : 0]);
-  if (err != 0) return err;
-  Args a{n, M, k, m, (n + cluster - 1) / cluster, (M + cluster - 1) / cluster, ex, eX, iters,
-         Arrays{idx, lin, quad, act, xoff, xcut, xcoef, Xoff, Xcut, Xcoef, G, g, y, Y, out}};
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      launch_config(cluster, B, smem, static_cast<cudaStream_t>(stream), attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{n, M, k, m, (n + cluster - 1) / cluster, (M + cluster - 1) / cluster, ex, eX,
+               iters,
+               Arrays{idx, lin, quad, act, xoff, xcut, xcoef, Xoff, Xcut, Xcoef, G, g, y, Y, out}};
+  return cols_for(n) == kNarrow ? launch<kNarrow>(a, cluster, B, stream)
+                                : launch<kWide>(a, cluster, B, stream);
 }

@@ -48,7 +48,7 @@ def _enqueue(fn, args: tuple, plan) -> None:
     err = fn(*args)
     if err in _ERRORS:
         raise RuntimeError(f"pdhg_block_checked_launch: {_ERRORS[err]} (cluster "
-                           f"{plan.cluster}, {plan.smem_bytes} bytes per CTA)")
+                           f"{plan.cluster}, width {plan.cols}, {plan.smem_bytes} bytes per CTA)")
     _build.check(err, "pdhg_block_checked_launch")
     pdhg_block.launches += 1
     pdhg_block_checked.launches += 1
@@ -73,7 +73,7 @@ def _launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGSt
                                   pool.active, index.xoff, index.xcut, index.xcoef,
                                   index.Xoff, index.Xcut, index.Xcoef)]
     d = [] if dense is None else [t.contiguous() for t in (dense.G, dense.g, dense.h)]
-    args = (n, M, k, m, check_every, plan.cluster, plan.term_cap, plan.smem_bytes, B,
+    args = (n, M, k, m, check_every, plan.cluster, plan.cols, plan.term_cap, plan.smem_bytes, B,
             rec.data_ptr(), ex, eX, check_every, restart_period, max_iters,
             float(np.float32(tol)), *(t.data_ptr() for t in c),
             *([t.data_ptr() for t in d] or [None] * 3), *(t.data_ptr() for t in bufs),

@@ -21,11 +21,14 @@ so the solve's loop (``lp/pdhg.py::_solve_impl``) runs either route.  The
 reference runs this LP in XLA (its Pallas kernel refuses dense rows,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``): none has a Pallas counterpart.
 
-Shapes: n <= 128, the certifier's pool (one slot of width 1, never filled:
+Shapes: n <= 256, the certifier's pool (one slot of width 1, never filled:
 ``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
 rows' duals beside the grid plan's ring (``max_dense_rows``; ~22,800 at
-n = 125).  The launch plan goes by shape (``block_plan``), the same for the
-block, its checked form and the norm: "cta", one CTA that holds G and g in
+n = 125).  The "grid" kernels come in K2's two column widths
+(``pdhg_kernel.columns``: 128 for n <= 128, 256 above), which set the
+entries a CTA may own (``_MAX_E``, ``_MAX_E_WIDE``).  The launch plan goes
+by shape (``block_plan``), the same for the block, its checked form and the
+norm: "cta", one CTA that holds G and g in
 its shared memory for the launch (the small sandwiches, n <= ``CTA_MAX_N``),
 or "grid", one CTA on every SM, launched cooperatively, each CTA's slice of
 G and g resident in its shared memory or streamed from global memory (the
@@ -52,14 +55,15 @@ from .. import _build
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import PDHGState, estimate_norm_plain, pdhg_check_plain, start_vector
-from .pdhg_kernel import (_ERRORS, NMAX, SMEM_MAX, check_record,
+from .pdhg_kernel import (_ERRORS, NARROW, NMAX, SMEM_MAX, check_record, columns,
                           pdhg_block_plain, pdhg_block_steps_plain, steps_record)
 
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
 PLANS = ("cta", "grid")     # the launch plans (csrc/pdhg_dense.cu)
 CTA_MAX_N = 32              # csrc/pdhg_dense.cu kCtaMaxN: the "cta" plan's largest n
 _STAGE, _STAGES = 8192, 4   # kStage, kStages: the "grid" plan's ring of G stages
-_MAX_E = 496                # kMaxE: entries of X and x a CTA of the grid owns
+_MAX_E = 496                # GridWidth<128>::kMaxE: entries of X and x a CTA of the grid owns
+_MAX_E_WIDE = 500           # GridWidth<256>::kMaxE (spans of at most 128 chunks of 4)
 _SCRATCH = 2048             # kScratch: the grid plan's strand partials and weights
 _SMEM_WORDS = SMEM_MAX // 4  # kSmemWords: the grid plan takes a CTA's whole shared memory
 _NV, _ND = 8, 6             # kNV, kND: a check point's partial sums, the distances' partials
@@ -68,16 +72,22 @@ _NV, _ND = 8, 6             # kNV, kND: a check point's partial sums, the distan
 def _block_words(plan: str, n: int, m: int) -> int:
     """4-byte words of one CTA's shared memory for the block under ``plan``:
     ``csrc/pdhg_dense.cu``'s ``cta_layout`` (G and g of every row) or
-    ``grid_layout`` (the slab of G's owned segments, resident or a ring of
-    stages, takes what yD and the owned entries' buffers leave of a CTA's
-    shared memory, and at least the ring)."""
+    ``grid_layout`` at n's column width (the slab of G's owned segments,
+    resident or a ring of stages, takes what yD and the owned entries'
+    buffers leave of a CTA's shared memory, and at least the ring)."""
     V4 = (n * n + n + 3) & ~3                      # a staged row, padded for 16-byte loads
     if plan == "cta":
         return m * V4 + 8 * n * n + 2 * V4 + 3 * n + 4 * m + 4 * _THREADS
     if plan == "grid":
-        rest = _SCRATCH + m + _MAX_E
+        rest = _SCRATCH + m + max_entries(n)
         return max((_SMEM_WORDS - rest) & ~3, _STAGES * _STAGE) + rest
     raise ValueError(f"unknown block plan {plan!r}; one of {PLANS}")
+
+
+def max_entries(n: int) -> int:
+    """kMaxE of the "grid" kernels at n's column width: the entries of X
+    and x one CTA may own."""
+    return _MAX_E if columns(n) == NARROW else _MAX_E_WIDE
 
 
 def block_plan(n: int, m: int) -> str:
@@ -115,7 +125,7 @@ def max_dense_rows(n: int) -> int:
 def dense_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the dense route does not take n, a pool of capacity M and width
     k, and m dense rows, or None where it does: the certifier's pool (M = 1,
-    k = 1: no cut) and n <= 128, with shared memory for m rows."""
+    k = 1: no cut) and n <= 256, with shared memory for m rows."""
     if (M, k) != (1, 1):
         return (f"the dense route takes the certifier's pool without cuts (capacity 1, "
                 f"width 1), got capacity {M}, width {k}")

@@ -4,21 +4,25 @@ launch plan, and its plain PyTorch twin.
 ``pdhg_block`` runs ``iters`` iterations of the exact ``_one_iter`` update
 (lp/pdhg.py) and adds every iterate to the ergodic sums.  It replaces the
 Pallas kernel ``sdpcutsel_tpu/lp/pdhg_kernel.py::_kernel`` (launched from
-``pdhg_block``).  Float32, n <= 128, cuts of width k = 2..5.  The dense
+``pdhg_block``).  Float32, n <= 256, cuts of width k = 2..5.  The dense
 rows of a QCQP (``dense``, m > 0) run inside the kernel too; the TPU kernel
 had none.
 
 The kernel is one thread-block cluster of ``CLUSTER`` CTAs (sm_90a): CTA r
 keeps rows [r R, (r + 1) R) of the state, the dense rows and the cut index
 in its shared memory for the whole launch, and the bands exchange what they
-need through distributed shared memory (the design is in the source).
-``launch_plan`` gives the cluster size, the band height, the shared bytes per
-CTA and the largest pool capacity M and dense row count m the plan takes at
-a shape; it raises where the shape does not fit (``plan_refusal`` says why).
+need through distributed shared memory (the design is in the source).  The
+kernel comes in two column widths (``columns``): 128 for n <= 128, its first
+form, and 256 for 128 < n <= 256 (two row groups of 256 columns, one column
+a thread); the plan carries its width and the C entry refuses a plan whose
+width is not n's.  ``launch_plan`` gives the cluster size, the width, the
+band height, the shared bytes per CTA and the largest pool capacity M and
+dense row count m the plan takes at a shape; it raises where the shape does
+not fit (``plan_refusal`` says why).
 ``kernel_route`` chooses a solve's route by ``LPConfig.use_kernel`` and that
 same rule: K2 for a pool of cuts, the dense route (``lp/pdhg_dense.py``) for
 the certifier's pool without cuts.  On CUDA a kernel route runs unless the
-caller asks for the plain loop ("off"): a shape that neither takes (n > 128,
+caller asks for the plain loop ("off"): a shape that neither takes (n > 256,
 a pool too large for shared memory) raises with the rule's reason.  The
 plain blocks a solve runs on CUDA are counted in
 ``pdhg_block.plain_launches``.
@@ -66,15 +70,21 @@ from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import REC_SIGMA, REC_STOP, REC_TAU, REC_WORDS, PDHGState, _one_iter, record_floats
 
-NMAX = 128                  # one thread column per matrix column
+NARROW = 128                # csrc/pdhg_common.cuh kNarrow: the width for n <= 128
+NMAX = 256                  # kWide: one thread column per matrix column up to n = 256
 CLUSTER = 16                # CTAs in the cluster (non-portable size; 8 is portable)
 SMEM_MAX = 232_448          # dynamic shared memory one CTA may take on the H100
-_GROUPS = 4                 # row groups of a CTA's 512 threads (csrc kGroups)
-_WARPS_PER_ROW = NMAX // 32
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
 _NV, _ND = 8, 6             # csrc/pdhg_check.cuh kNV, pdhg_common.cuh kND
 _ERRORS = {-2: "the launch plan disagrees with the kernel's shared-memory layout",
            -3: "no thread-block cluster of this shape fits on the card"}
+
+
+def columns(n: int) -> int:
+    """The kernels' column width at n (``csrc/pdhg_common.cuh`` cols_for):
+    128 for n <= 128, 256 above.  A thread owns one column, so a CTA's 512
+    threads are 512 / width row groups of width / 32 warps a row."""
+    return NARROW if n <= NARROW else NMAX
 
 
 def _check_words(C: int) -> int:
@@ -89,14 +99,14 @@ def _check_words(C: int) -> int:
 
 def _smem_words(n: int, M: int, k: int, m: int, C: int, checked: bool = False) -> int:
     """4-byte words of one CTA's shared memory, cut-index terms left out:
-    the sum of ``csrc/pdhg_block.cu::make_layout``, with the check's region
-    in the checked form."""
+    the sum of ``csrc/pdhg_block.cu::make_layout`` at n's column width, with
+    the check's region in the checked form."""
     R, Mc = -(-n // C), -(-M // C)
-    RN = R * n
+    RN, cols = R * n, columns(n)
     return (10 * RN                      # X yA yB cX aX aA aB S Xb ST bands
-            + 2 * R * _WARPS_PER_ROW     # row partials of yA, yB
-            + C * _GROUPS * R            # column partials of yB
-            + 3 * R + NMAX               # x, ax, cx bands; xb replica
+            + 2 * R * (cols // 32)       # row partials of yA, yB
+            + C * (_THREADS // cols) * R  # column partials of yB, each row group's
+            + 3 * R + cols               # x, ax, cx bands; xb replica
             + M                          # w replica
             + Mc * (4 + 2 * k + k * k)   # owned slots: yC ayC rhs act, lin idx, quad
             + m * RN + m * R + 3 * m     # dense G, g bands; h, yD, ayD
@@ -108,6 +118,7 @@ def _smem_words(n: int, M: int, k: int, m: int, C: int, checked: bool = False) -
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     cluster: int        # CTAs in the cluster
+    cols: int           # the column width (``columns``): 128 for n <= 128, else 256
     rows: int           # R: rows of X per CTA (the last CTAs may hold fewer or none)
     slots: int          # pool slots per CTA
     term_cap: int       # cut-index terms a CTA keeps in shared memory
@@ -173,8 +184,9 @@ def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> str
     does not take the shape; "auto" the same on CUDA, and plain on any other
     device.  A kernel route on the CPU runs its wrappers' twins.  The
     reference's "auto" runs its plain loop on the accelerator outside its
-    kernel's shapes (``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here the plain
-    loop runs on the card only when the caller asks for it with "off"."""
+    kernel's shapes (n > 128, ``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here
+    the kernels take n <= 256, and the plain loop runs on the card only when
+    the caller asks for it with "off"."""
     if use_kernel == "off":
         return "plain"
     route, why = route_refusal(n, M, k, m)
@@ -207,7 +219,8 @@ def launch_plan(n: int, M: int, k: int, m: int, cluster: int = CLUSTER,
 
     words = _smem_words(n, M, k, m, cluster, checked)
     term_cap = min((SMEM_MAX - 4 * words) // 8, M * k * (k + 1))
-    return LaunchPlan(cluster=cluster, rows=-(-n // cluster), slots=-(-M // cluster),
+    return LaunchPlan(cluster=cluster, cols=columns(n), rows=-(-n // cluster),
+                      slots=-(-M // cluster),
                       term_cap=term_cap, smem_bytes=4 * words + 8 * term_cap,
                       max_capacity=_largest(lambda v: fits(v, m), 1 << 16),
                       max_dense=_largest(lambda v: fits(M, v), 1 << 12), checked=checked)
@@ -304,7 +317,7 @@ def _launch_core(cx, cX, pool: CutPool, index: CutIndex, ins: list, outs: list, 
     dptr = [t.data_ptr() for t in d] or [None] * 3
     count = int(ids.size)
     err = _build.lib().pdhg_block_launch(
-        n, M, k, m, iters, plan.cluster, plan.term_cap, plan.smem_bytes, count,
+        n, M, k, m, iters, plan.cluster, plan.cols, plan.term_cap, plan.smem_bytes, count,
         (ctypes.c_int * count)(*ids.tolist()), rec.data_ptr(), ex, eX,
         *(t.data_ptr() for t in c), *dptr,
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
@@ -312,7 +325,7 @@ def _launch_core(cx, cX, pool: CutPool, index: CutIndex, ins: list, outs: list, 
     )
     if err in _ERRORS:
         raise RuntimeError(f"pdhg_block_launch: {_ERRORS[err]} (cluster {plan.cluster}, "
-                           f"{plan.smem_bytes} bytes per CTA)")
+                           f"width {plan.cols}, {plan.smem_bytes} bytes per CTA)")
     _build.check(err, "pdhg_block_launch")
     pdhg_block.launches += 1
 
@@ -384,7 +397,7 @@ def max_active_clusters(n: int, M: int, k: int, m: int, instances: int,
     plan = launch_plan(n, M, k, m, cluster)
     out = ctypes.c_int(0)
     err = _build.lib().pdhg_block_max_active_clusters(
-        n, M, k, m, plan.cluster, plan.term_cap, plan.smem_bytes, instances,
+        n, M, k, m, plan.cluster, plan.cols, plan.term_cap, plan.smem_bytes, instances,
         ctypes.byref(out))
     if err in _ERRORS:
         raise RuntimeError(f"pdhg_block_max_active_clusters: {_ERRORS[err]}")

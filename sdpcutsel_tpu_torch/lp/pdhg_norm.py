@@ -14,8 +14,9 @@ vector.  The reference runs a jitted ``fori_loop`` in XLA
 (``sdpcutsel_tpu/lp/pdhg.py::estimate_norm``): K6 has no Pallas
 counterpart.
 
-Shapes: those K2 takes (n <= 128, k = 2..5, and every m of its launch
-plan); one cluster of ``CLUSTER`` CTAs per instance, its iterate in shared
+Shapes: those K2 takes (n <= 256, k = 2..5, and every m of its launch
+plan), at K2's column width (``pdhg_kernel.columns``: 128 for n <= 128, 256
+above); one cluster of ``CLUSTER`` CTAs per instance, its iterate in shared
 memory for the launch, and, where ``smem_words`` finds room, the band's
 slice of the dense rows (``resident``) and the cut data it reads each
 iteration (``staged``: its slots' supports and coefficients, a buffer for
@@ -37,7 +38,7 @@ from ..relax.batched import batch_of_one
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import estimate_norm_batched_plain, estimate_norm_plain, start_vector
-from .pdhg_kernel import _GROUPS, _WARPS_PER_ROW, CLUSTER, NMAX, SMEM_MAX, _ERRORS
+from .pdhg_kernel import CLUSTER, SMEM_MAX, _ERRORS, columns
 
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
 
@@ -47,13 +48,13 @@ def smem_words(n: int, M: int, k: int, m: int, C: int = CLUSTER) -> tuple[int, b
     the dense rows is resident, whether the cut data of the CTA's slots and
     the band's cut-index offsets are staged) of K6 at n, pool capacity M,
     width k, m dense rows and a cluster of C: ``csrc/pdhg_norm.cu``'s
-    ``make_layout``.  Where staged, the band's cut-index terms take the rest
-    of a CTA's shared memory.  Without the slice and the staging it is the
-    layout of the version that kept the iterate in global memory, word for
-    word."""
+    ``make_layout`` at n's column width.  Where staged, the band's cut-index
+    terms take the rest of a CTA's shared memory.  Without the slice and the
+    staging it is the layout of the version that kept the iterate in global
+    memory, word for word."""
     R, Mc = -(-n // C), -(-M // C)
-    RN = R * n
-    base = (4 * RN + 2 * R * _WARPS_PER_ROW + C * _GROUPS * R + NMAX + R + M + C * m
+    RN, cols = R * n, columns(n)
+    base = (4 * RN + 2 * R * (cols // 32) + C * (_THREADS // cols) * R + cols + R + M + C * m
             + m + C * 4 + (_THREADS // 32) * 2 + 4)
     words = SMEM_MAX // 4
     resident = m > 0 and base + m * (RN + R) <= words

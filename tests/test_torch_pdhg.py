@@ -190,21 +190,25 @@ def test_launch_plan_covers_every_row_once(n, M, k, m):
         launch_plan(n, M, k, plan.max_dense + 1)
 
 
-@pytest.mark.parametrize("n", [0, 129])
+@pytest.mark.parametrize("n", [0, 257])
 def test_launch_plan_refuses_n_outside_the_kernel(n):
-    with pytest.raises(ValueError, match="n <= 128"):
+    with pytest.raises(ValueError, match="n <= 256"):
         launch_plan(n, 1024, 3, 0)
 
 
 @pytest.mark.parametrize("use_kernel,n,M,k,m,route", [
     ("auto", 125, 1024, 3, 0, "k2"),      # the BoxQP main paths
     ("auto", 100, 1024, 5, 25, "k2"),     # the QCQP main path
-    ("auto", 150, 1024, 3, 0, None),      # n > 128: raises, K2 not launched
+    ("auto", 257, 1024, 3, 0, None),      # n > 256: raises, K2 not launched
     ("auto", 128, 1 << 16, 5, 25, None),  # a pool that does not fit shared memory
     ("auto", 125, 1, 1, 2048, "dense"),   # the certifier's pool: the dense route
+    ("auto", 150, 1024, 3, 0, "k2"),      # the wide form (256 columns)
+    ("auto", 256, 1024, 3, 0, "k2"),
+    ("auto", 150, 1, 1, 2048, "dense"),
+    ("auto", 256, 1, 1, 2048, "dense"),
     ("on", 125, 1024, 3, 0, "k2"),
     ("off", 125, 1024, 3, 0, "plain"),
-    ("off", 150, 1024, 3, 0, "plain"),
+    ("off", 300, 1024, 3, 0, "plain"),
 ])
 def test_kernel_route_on_cuda(use_kernel, n, M, k, m, route):
     """LPConfig.use_kernel with launch_plan's rule for what K2 takes (and
@@ -225,7 +229,7 @@ def test_kernel_route_auto_is_plain_off_cuda():
     assert kernel_route("auto", torch.device("cpu"), 125, 1024, 3, 0) == "plain"
 
 
-@pytest.mark.parametrize("n,M,k,m", [(150, 1024, 3, 0), (128, 1 << 16, 5, 25)])
+@pytest.mark.parametrize("n,M,k,m", [(257, 1024, 3, 0), (128, 1 << 16, 5, 25)])
 def test_kernel_route_auto_outside_the_plan(n, M, k, m):
     """Outside the plan "auto" is the plain loop on the CPU (the twin's
     arithmetic either way) and refuses on CUDA, naming "off"."""
@@ -234,7 +238,7 @@ def test_kernel_route_auto_outside_the_plan(n, M, k, m):
         kernel_route("auto", torch.device("cuda"), n, M, k, m)
 
 
-@pytest.mark.parametrize("n,M,k,m,why", [(150, 1024, 3, 0, "n <= 128"),
+@pytest.mark.parametrize("n,M,k,m,why", [(300, 1024, 3, 0, "n <= 256"),
                                          (128, 1 << 16, 5, 25, "shared memory")])
 def test_kernel_route_on_raises_outside_the_plan(n, M, k, m, why):
     for device in ("cuda", "cpu"):
@@ -244,12 +248,12 @@ def test_kernel_route_on_raises_outside_the_plan(n, M, k, m, why):
         launch_plan(n, M, k, m)
 
 
-def test_solve_lp_on_refuses_n150_before_solving():
-    inst = generate_spar(150, 100, 1)
+def test_solve_lp_on_refuses_n257_before_solving():
+    inst = generate_spar(257, 100, 1)
     Q, c = (torch.as_tensor(a, dtype=torch.float32) for a in (inst.Q, inst.c))
     pool = tcb.empty_pool(64, 3, "cpu")
     with pytest.raises(ValueError, match="use_kernel='on'"):
-        tpdhg.solve_lp(Q, c, pool, tpdhg.init_state(150, 64, "cpu"),
+        tpdhg.solve_lp(Q, c, pool, tpdhg.init_state(257, 64, "cpu"),
                        LPConfig(use_kernel="on"))
 
 
