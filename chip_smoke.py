@@ -106,9 +106,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
      spar020-100-1 with strategies triangle, optimality and random, and
      neural with vertex steering (the random draws come from a CPU
      generator, so both devices see the same numbers);
-     generate_spar(257, 100, 1), outside K2's launch plan (n > 256): by
-     default its solve refuses on the card with the plan's reason, K2 not
-     launched; and spar150-100-1 (generated, the kernels' 256-column
+     generate_spar(513, 100, 1), outside every route (n > 512): by default
+     its solve refuses on the card with the routes' reasons, no PDHG kernel
+     launched; generate_spar(300, 100, 1), past K2's cluster: 2 rounds by
+     default on K1 and the grid route's kernels (no K2, no plain block, twin
+     check or norm), each round within rtol 2e-3 of one CPU run of the port;
+     and spar150-100-1 (generated, the kernels' 256-column
      form), 2 rounds by default on K1, K2, K5 and K6 (no plain block, twin
      check or norm) and 2 with LPConfig(use_kernel="off") on the plain loop,
      K2 not launched, each against the CPU port's 2 rounds;
@@ -127,7 +130,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
      feasible point's objective, its rounds/s and synchronised stage split
      (profile_round.stage_split); the certifier at n = 150 (phase 15 (c)'s
      settings on generate_spar(150, 100, 1)), twice bit for bit, on the
-     dense route alone, every certificate at least the BM lb;
+     dense route alone, every certificate at least the BM lb; with --parent
+     DIR, K2 (7 and 100 iterations), its checked launch, K6, K7, K7c and K7n
+     at these shapes bit for bit equal to the parent build's;
+ 19. the grid route (run after phase 18; csrc/pdhg_grid.cu, the shapes K2's
+     cluster refuses): its block, checked launch and norm against their
+     twins (pdhg_block_plain at 7 and 100 iterations; the block then
+     pdhg_check_plain at restart periods 10^9 and 100, a stopped record;
+     estimate_norm_plain at rtol 1e-5), twice bit for bit, each timed on the
+     device beside its bound, at n = 300 and 512 with M = 1024 and 400
+     active k = 3 cuts, at n = 200 with k = 5 cuts and 25 dense rows and at
+     n = 150 with 64, and in its form without cuts (the dense route's past
+     n = 256) at n = 300 over 368 certifier rows; ptxas without a spill or
+     a stack; K1 over all 22,238,720 triples of C(512, 3); CutSolver on
+     spar512-100-1 (generate_spar(512, 100, 1)) with the defaults, 3 rounds
+     with "auto" twice bit for bit, on K1 and the grid route alone (no K2,
+     no plain block or twin); CutSolverQCQP on generate_qcqp_band(200, 5,
+     25, 1) (k = 5, sel_size 16, LPConfig(3000, 1e-5)), 2 rounds within
+     rtol 2e-3 a round of the CPU port, on K4 and the grid route; the
+     certifier at n = 300 (3 plain eigencut rounds of phase 15 (c)'s LP),
+     twice bit for bit, on the grid route's form without cuts; its time
+     printed;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -244,10 +267,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
      one cell (spar020-100-1, feasibility, 2 rounds) into a temporary file,
      and a second call skips it; every rank's launches (the plain PDHG
      blocks and the twin-scored calls 0 on each) join the kernels line;
- 14. one JSON line of kernel results (nine entries), each kernel's launches
-     summed over the main paths 5-13, 15-17 and the wide paths of phases 4
-     and 18 (each counted from 0; the sums over the paths at n <= 128 alone
-     are printed before the line); K2's entry also holds the
+ 14. one JSON line of kernel results (twelve entries), each kernel's
+     launches summed over the main paths 5-13, 15-17 and the wide and grid
+     paths of phases 4, 18 and 19 (each counted from 0; the sums over the
+     paths at n <= 128 alone are printed before the line); the grid route's
+     entries hold spar512's shape, every shape under "shapes", and K1's
+     the n = 512 numbers ("n512"); K2's entry also holds the
      batched launch's time, bound and the clusters the card runs at once,
      and K1, K2, K5, K6 and K7's entries the wide shapes' numbers ("n256",
      "wide", "shapes"); the total seconds beside a 900 s budget, then the
@@ -295,7 +320,7 @@ from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfi
 from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
 from sdpcutsel_tpu_torch.instances import (generate_qcqp_family, generate_spar,
                                            load_or_generate, load_or_generate_qcqp, parse_boxqp)
-from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp
+from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp, generate_qcqp_band
 from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch import config as config_mod
 from sdpcutsel_tpu_torch.loop import sdp_bound as sdp_bound_mod
@@ -313,6 +338,9 @@ from sdpcutsel_tpu_torch.lp import pdhg_dense
 from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_block_checked, pdhg_block_checked_batched
 from sdpcutsel_tpu_torch.lp.pdhg_dense import (pdhg_dense_block, pdhg_dense_block_checked,
                                                pdhg_dense_block_steps, pdhg_dense_norm)
+from sdpcutsel_tpu_torch.lp import pdhg_grid
+from sdpcutsel_tpu_torch.lp.pdhg_grid import (pdhg_grid_block, pdhg_grid_block_checked,
+                                              pdhg_grid_block_steps, pdhg_grid_norm)
 from sdpcutsel_tpu_torch.lp import pdhg_norm as pdhg_norm_mod
 from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm, pdhg_norm_batched
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
@@ -1773,13 +1801,14 @@ def check_dense_shapes(shapes, checked, dev, parent=None) -> dict:
     return out
 
 
-def dense_entry(name: str, replaces: str, launches: int, shapes: dict) -> dict:
-    """A kernels-line entry of the dense route: the full buffer's numbers at
-    n = 125 as the entry's own, every shape's under its label, the largest
-    error over the shapes."""
-    main = shapes[f"n=125 m={FULL_CAPACITY}"]
-    return {"name": name, "route": "cuda", "source": "sdpcutsel_tpu_torch/csrc/pdhg_dense.cu",
-            "replaces": replaces, "launches": launches, **main,
+def dense_entry(name: str, replaces: str, launches: int, shapes: dict,
+                source: str = "pdhg_dense.cu", main: str = f"n=125 m={FULL_CAPACITY}") -> dict:
+    """A kernels-line entry of the dense route (or of the grid route,
+    ``source`` pdhg_grid.cu): the numbers at the shape labelled ``main`` (the
+    full buffer at n = 125) as the entry's own, every shape's under its
+    label, the largest error over the shapes."""
+    return {"name": name, "route": "cuda", "source": f"sdpcutsel_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, **shapes[main],
             "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
             "shapes": shapes}
 
@@ -2038,17 +2067,20 @@ def check_guard(inst, unguarded, dev):
 
 
 def check_large_instance(dev) -> dict:
-    """A BoxQP solve outside K2's launch plan (n = 257 > 256),
-    generate_spar(257, 100, 1): by default the solve refuses on the card with
-    the plan's reason, K2 not launched.  spar150-100-1 (generated, n = 150,
-    the 256-column form): 2 rounds with the default "auto" on the card (K1,
-    K2 with K5 and K6; no plain block, twin check or norm), and with
-    LPConfig(use_kernel="off") 2 rounds of the plain loop there, each
-    against the CPU port's 2 rounds (run once).  Returns the "auto" run's
-    launch counts."""
-    wide = generate_spar(257, 100, 1)
+    """A BoxQP solve outside every route (n = 513 > 512),
+    generate_spar(513, 100, 1): by default the solve refuses on the card
+    with the routes' reasons, no PDHG kernel launched.  generate_spar(300,
+    100, 1), past K2's cluster: 2 rounds with the default "auto" on K1 and
+    the grid route's kernels (no K2, no plain block, twin check or norm),
+    each round within GRID_RTOL of one CPU run of the port.  spar150-100-1
+    (generated, n = 150, K2's 256-column form): 2 rounds with "auto" on the
+    card (K1, K2 with K5 and K6; no plain block, twin check or norm), and
+    with LPConfig(use_kernel="off") 2 rounds of the plain loop there, each
+    against the CPU port's 2 rounds (run once).  Returns the launch counts
+    of the "auto" runs at n = 150 and at n = 300."""
+    wide = generate_spar(513, 100, 1)
     lp = LPConfig(max_iters=3000, tol=1e-5)
-    why = plan_refusal(wide.n, CutConfig().capacity, 3, 0)
+    why = pdhg_kernel.route_refusal(wide.n, CutConfig().capacity, 3, 0)[1]
     reset_launches()
     try:
         CutSolver(wide, RunConfig(lp=lp), device=dev).run(rounds=1)
@@ -2056,9 +2088,26 @@ def check_large_instance(dev) -> dict:
     except ValueError as e:
         refused = str(e)
     log(f"[small] {wide.name}, use_kernel='auto': {refused!r}; launches {launch_counts()}")
-    if refused is None or why is None or why not in refused or launch_counts()["pdhg_block"]:
-        raise AssertionError("the n = 257 solve on the card did not refuse with the plan's "
-                             "reason")
+    if (refused is None or why is None or why not in refused
+            or any(launch_counts()[k] for k in ("pdhg_block", *GRID_NAMES))):
+        raise AssertionError("the n = 513 solve on the card did not refuse with the routes' "
+                             "reasons")
+    del wide
+    inst = generate_spar(300, 100, 1)
+    t0 = time.perf_counter()
+    cpu = [h.bound for h in CutSolver(inst, RunConfig(lp=lp), device="cpu").run(rounds=2)]
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    gpu = [h.bound for h in CutSolver(inst, RunConfig(lp=lp), device=dev).run(rounds=2)]
+    grid = launch_counts()
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
+    log(f"[small] {inst.name}, use_kernel='auto' (the grid route): bounds on the card {gpu}, on "
+        f"the CPU {cpu} ({cpu_s:.1f}s there); rel diff {rel} (rtol {GRID_RTOL}); launches {grid}")
+    if (max(rel) > GRID_RTOL or min(grid[k] for k in ("pair_score", *GRID_NAMES)) == 0
+            or grid["pdhg_block"] or grid[PLAIN_BLOCKS] or grid[PLAIN_CONTROL]
+            or grid[TWIN_SCORED]):
+        raise AssertionError("the n = 300 solve did not run on K1 and the grid route alone "
+                             "within rtol of the CPU port")
     inst = load_or_generate("spar150-100-1")
     cpu = [h.bound for h in CutSolver(inst, RunConfig(lp=lp), device="cpu").run(rounds=2)]
     reset_launches()
@@ -2079,7 +2128,7 @@ def check_large_instance(dev) -> dict:
             or launches[PLAIN_BLOCKS] == 0 or launches[PLAIN_CONTROL] == 0):
         raise AssertionError("the n = 150 solve did not run the plain PDHG loop, check and "
                              "norm alone")
-    return auto
+    return auto, grid
 
 
 def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3, cpu=None):
@@ -2776,29 +2825,36 @@ def run_cli(argv) -> tuple:
     return rc, out.getvalue().splitlines()
 
 
-def dense_route_checks(tag: str, launches: dict) -> dict:
+DENSE_NAMES = ("pdhg_dense", "pdhg_dense_check", "pdhg_dense_norm")
+GRID_NAMES = ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm")
+
+
+def dense_route_checks(tag: str, launches: dict, names: tuple = DENSE_NAMES) -> dict:
     """The certifier's LP on the card, as the reference runs it on its
     device: the dense route's checked launches (K7's block with K7c in it)
     and norm launched, every dense block a checked launch (no standalone
     check, no unchecked block), one norm a solve, at most one host read of
     the control record a group of GROUP_BLOCKS blocks plus one a solve, and
-    no plain block, no twin check or norm, no K2, K5 or K6."""
-    blk, chk, nrm = (launches[k] for k in ("pdhg_dense", "pdhg_dense_check", "pdhg_dense_norm"))
+    no plain block, no twin check or norm, no K2, K5 or K6.  ``names``: the
+    route's counters (GRID_NAMES: the grid route's kernels, which also run
+    the dense route past n = 256), whose other kernels must stay idle."""
+    blk, chk, nrm = (launches[k] for k in names)
+    others = [k for k in (*DENSE_NAMES, *GRID_NAMES) if k not in names]
     solves, reads, G = launches[SOLVES], launches[READS], pdhg_mod.GROUP_BLOCKS
-    log(f"[{tag}] the dense route: {solves} solves, block launches {blk}, checked launches "
-        f"{chk}, norm {nrm}; host "
-        f"reads of the record {reads}; plain blocks {launches[PLAIN_BLOCKS]}, twin checks and "
-        f"norms {launches[PLAIN_CONTROL]}")
+    log(f"[{tag}] the route ({names[0]}): {solves} solves, block launches {blk}, checked "
+        f"launches {chk}, norm {nrm}; host reads of the record {reads}; "
+        f"plain blocks {launches[PLAIN_BLOCKS]}, twin checks and norms {launches[PLAIN_CONTROL]}")
     return {
-        "the dense route's checked launches and norm launched": min(blk, chk, nrm) > 0,
-        "every dense block a checked launch (no standalone check)": chk == blk,
-        "one dense norm a solve": nrm == solves,
+        f"{names[0]}'s checked launches and norm launched": min(blk, chk, nrm) > 0,
+        "every block a checked launch (no standalone check)": chk == blk,
+        "one norm a solve": nrm == solves,
         f"at most one host read a group of {G} blocks plus one a solve":
             reads * G <= chk + G * solves,
         "no plain block, twin check or norm on the card":
             launches[PLAIN_BLOCKS] == 0 and launches[PLAIN_CONTROL] == 0,
         "K2, K5 and K6 not launched":
             launches["pdhg_block"] == launches["pdhg_check"] == launches["pdhg_norm"] == 0,
+        f"{', '.join(others)} not launched": all(launches[k] == 0 for k in others),
     }
 
 
@@ -3462,13 +3518,15 @@ def wide_inputs(label: str, dev):
     return q.Q0, q.c0, table, dense_from_qcqp(q.Qs, q.cs, q.bs, dev)
 
 
-def wide_kernels(dev) -> dict:
+def wide_kernels(dev, pkg=None, lib=None) -> dict:
     """K2 (unchecked, 7 and 100 iterations), its checked launch (K5) and K6
     at WIDE_SHAPES against their twins at phase 3's tolerances, twice bit for
     bit, each timed beside its bound; the batch of WIDE_BATCH n = 150
     instances in one launch (K2, then K5 and K6), each instance bit for bit
     with its batch of one; K7, K7c and K7n at WIDE_DENSE; K1 over all
-    C(256, 3) candidates.  Returns {kernel: numbers}."""
+    C(256, 3) candidates.  ``pkg``, ``lib``: the parent checkout's package
+    and its K2 (parent_k2), whose K2, checked launch, K6, K7, K7c and K7n
+    must then give these bits at these shapes.  Returns {kernel: numbers}."""
     out = {"pdhg_block": {}, "pdhg_check": {}, "pdhg_norm": {}}
     for label, (n, k, m) in WIDE_SHAPES.items():
         Q, c, table, dense = wide_inputs(label, dev)
@@ -3480,11 +3538,23 @@ def wide_kernels(dev) -> dict:
         out["pdhg_block"][label] = check_pdhg_block(label, Q, c, table, dense, dev)
         inputs = pdhg_inputs(Q, c, table, dense, dev)
         out["pdhg_check"][label] = check_pdhg_check(label, inputs, dense, dev)
-        out["pdhg_norm"][label] = check_pdhg_norm(label, inputs, dense, dev)
+        out["pdhg_norm"][label] = check_pdhg_norm(label, inputs, dense, dev, pkg)
+        if pkg is not None:
+            same = [checked_against_parent(pkg, label, inputs, dense, dev)]
+            cx, cX, pool, index, st = inputs
+            eta = 0.95 / estimate_norm_plain(pool, c.shape[0], 30,
+                                             torch.Generator().manual_seed(0), index,
+                                             dense).item()
+            same += [k2_against_parent(lib, label, (cx, cX, pool, index, st,
+                                                    st.map(torch.zeros_like), eta, eta),
+                                       dense, iters) for iters in (7, 100)]
+            if not all(same):
+                raise AssertionError(f"K2 or its checked launch does not give the parent "
+                                     f"build's bits at phase 18's shapes ({label})")
     insts = [generate_spar(150, 100, s + 1) for s in range(WIDE_BATCH)]
     out["batched"] = check_pdhg_block_batched(insts, out["pdhg_block"]["n=150 m=0"], dev)
     out["control_batched"] = check_control_batched(insts, dev)
-    out.update(check_dense_shapes(WIDE_DENSE, WIDE_DENSE, dev))
+    out.update(check_dense_shapes(WIDE_DENSE, WIDE_DENSE, dev, pkg))
     inst = generate_spar(*WIDE_INSTANCE)
     args, err, moved = k1_twin_check(inst.name, inst, 5, dev)
     x, X, Q, table, mlp = args
@@ -3622,19 +3692,422 @@ def certifier_wide(dev) -> tuple:
     }
 
 
-def wide_phase(dev) -> dict:
+def wide_phase(dev, pkg=None, lib=None) -> dict:
     """Phase 18: the kernels' 256-column forms against their twins
-    (wide_kernels), the wide solve (wide_solve) and the certifier at n = 150
-    (certifier_wide), each path's launches into PATH_LAUNCHES.  Returns
-    wide_kernels' numbers."""
+    (wide_kernels; with ``pkg``, ``lib`` the parent's, to its bits too), the
+    wide solve (wide_solve) and the certifier at n = 150 (certifier_wide),
+    each path's launches into PATH_LAUNCHES.  Returns wide_kernels'
+    numbers."""
     t0 = time.perf_counter()
-    out = wide_kernels(dev)
+    out = wide_kernels(dev, pkg, lib)
     PATH_LAUNCHES["wide boxqp n=256"], checks = wide_solve(
         dev, out["pdhg_block"]["n=256 m=0"]["ms"])
     finish("wide solve", checks)
     PATH_LAUNCHES["wide certifier n=150"], checks = certifier_wide(dev)
     finish("wide certifier", checks)
     log(f"[wide] phase 18 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+
+# ---- phase 19, the grid route: n <= 512, and dense rows past K2's cluster -----
+# The grid kernels (csrc/pdhg_grid.cu) at (n, k, m), M = 1024 with 400 active
+# unit cuts as phase 3's: BoxQP at n = 300 and 512 with k = 3, a QCQP at
+# n = 200 with k = 5 and generate_qcqp(200, 30, 25, 1)'s 25 dense rows (K2's
+# cluster holds 10 at n = 200) and at n = 150 with generate_qcqp(150, 30, 64,
+# 1)'s 64 (it holds 25); their form without cuts, the dense route's past
+# n = 256, at n = 300 over 368 of the certifier's rows
+GRID_SHAPES = {"n=300 m=0": (300, 3, 0), "n=512 m=0": (512, 3, 0),
+               "n=200 k=5 m=25": (200, 5, 25), "n=150 k=5 m=64": (150, 5, 64)}
+GRID_CERT = (300, 368)
+GRID_INSTANCE = (512, 100, 1)         # spar512-100-1, CutSolver with the defaults
+GRID_ROUNDS = 3
+GRID_BAND = (200, 5, 25, 1)           # generate_qcqp_band: K2 holds 10 of its 25 rows
+GRID_BAND_CFG = RunConfig(lp=LPConfig(max_iters=3000, tol=1e-5),
+                          cuts=CutConfig(k=5, sel_size=16, capacity=1024))
+GRID_BAND_ROUNDS = 2
+GRID_RTOL = 2e-3                      # a round on the card against the CPU port's
+GRID_CERT_N, GRID_CERT_ROUNDS = 300, 3  # the certifier past n = 256
+
+
+def grid_inputs(label: str, dev):
+    """(cx, cX, pool, index, state, dense) of a GRID_SHAPES shape:
+    generate_spar(n, 100, 1) and its lexicographic triples, or
+    generate_qcqp(n, 30, m, 1)'s objective and m dense rows with 2,000 random
+    5-subsets of its columns; phase 3's pool and random state."""
+    n, k, m = GRID_SHAPES[label]
+    if m == 0:
+        inst = generate_spar(n, 100, 1)
+        Q, c, table, dense = inst.Q, inst.c, combinations_table(n, k), None
+    else:
+        q = generate_qcqp(n, 30, m, 1)
+        rng = np.random.default_rng(SEED + 4)
+        table = np.sort(np.stack([rng.choice(n, k, replace=False) for _ in range(2000)]), axis=1)
+        Q, c, dense = q.Q0, q.c0, dense_from_qcqp(q.Qs, q.cs, q.bs, dev)
+    return (*pdhg_inputs(Q, c, table, dense, dev), dense)
+
+
+def grid_ptxas() -> str:
+    """ptxas's lines of every grid-route kernel; fails on a spill or a stack
+    frame."""
+    rep = "; ".join(spill_free(k) for k in ("pdhg_grid_kernel", "pdhg_grid_norm_kernel"))
+    if re.search(r"[1-9]\d* bytes stack frame", rep):
+        raise AssertionError(f"a grid-route kernel has a stack frame: {rep}")
+    return rep
+
+
+def check_grid_block(label: str, inputs) -> dict:
+    """The grid route's block against its twin (pdhg_block_plain) from phase
+    3's random state: 7 iterations at rtol = atol = 2e-5 and 100 at K2's
+    100-iteration tolerances (the certifier's pool: K7's 2e-5), two launches
+    bit for bit, the inputs unchanged, the in-place block with the record's
+    steps bit for bit equal to the host-step launch; its grid, layout and
+    time by events and on the device beside its bound."""
+    cx, cX, pool, index, st, dense = inputs
+    n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
+    cuts = (M, k) != (1, 1)
+    eta = 0.95 / estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index,
+                                     dense).item()
+    zero = st.map(torch.zeros_like)
+    args = (cx, cX, pool, index, st, zero, eta, eta)
+    before = [t.clone() for t in (*st.fields(), *zero.fields())]
+    worst, nf = 0.0, len(st.fields())
+    tol100 = ((3e-4, 3e-4), (3e-4, 3e-2)) if cuts else ((DENSE_RTOL,) * 2, (DENSE_RTOL,) * 2)
+    for iters, (tol_st, tol_acc) in ((7, ((2e-5, 2e-5), (2e-5, 2e-5))), (100, tol100)):
+        got, again = pdhg_grid_block(*args, iters, dense), pdhg_grid_block(*args, iters, dense)
+        want = pdhg_block_plain(*args, iters, dense)
+        torch.cuda.synchronize()
+        errs, ratio = [], 0.0
+        for g_, w_, tol in zip((*got[0].fields(), *got[1].fields()),
+                               (*want[0].fields(), *want[1].fields()),
+                               [tol_st] * nf + [tol_acc] * nf):
+            if g_.numel():
+                e, r = excess(g_, w_, *tol)
+                errs.append(e)
+                ratio = max(ratio, r)
+        same = states_equal(list(got), list(again))
+        log(f"[pdhg_grid {label}] {iters} iterations: max|err| {max(errs):.3e}; {ratio:.3f} of "
+            f"the limit (state {tol_st}, sums {tol_acc}); two launches bit for bit: {same}")
+        if ratio > 1.0 or not same:
+            raise AssertionError(f"the grid block disagrees with its twin or does not repeat "
+                                 f"({label}, {iters} iterations)")
+        worst = max(worst, *errs)
+    unchanged = all(torch.equal(a, b) for a, b in zip((*st.fields(), *zero.fields()), before))
+    ip = [st.map(torch.clone), zero.map(torch.clone)]
+    rec = pdhg_kernel.steps_record([eta], [eta], cx.device)[0]
+    pdhg_grid_block_steps(cx, cX, pool, index, *ip, rec, 100, dense)
+    in_place = states_equal(ip, list(got))
+    P = pdhg_grid.grid_ctas(n, M, k, m)
+    log(f"[pdhg_grid {label}] {P} CTAs x 512 threads, column width {pdhg_kernel.columns(n)}, "
+        f"at most {pdhg_grid.max_entries(n)} entries a CTA, "
+        f"{4 * pdhg_grid.block_words(n, M, m, cuts)} bytes of shared memory a CTA; inputs "
+        f"unchanged: {unchanged}; the in-place block with the record's steps bit for bit: "
+        f"{in_place}")
+    if not (unchanged and in_place):
+        raise AssertionError(f"the grid block wrote its inputs or its in-place form differs "
+                             f"({label})")
+    ms = cuda_ms(lambda: pdhg_grid_block(*args, 100, dense), reps=10)
+    dev_ms = queued_ms(lambda: pdhg_grid_block_steps(cx, cX, pool, index, *ip, rec, 100, dense),
+                       reps=10)
+    plain_ms = cuda_ms(lambda: pdhg_block_plain(*args, 100, dense), reps=2, warmup=1)
+    terms = index.Xcut.numel() + index.xcut.numel() if cuts else 0
+    b = bound(pdhg_ops(n, k, m, int(pool.active.sum()) if cuts else 0, terms, 100),
+              nbytes(cx, cX, index.idx, pool.lin, pool.quad, pool.rhs, pool.active, index.xoff,
+                     index.xcut, index.xcoef, index.Xoff, index.Xcut, index.Xcoef, *before,
+                     *got[0].fields(), *got[1].fields(),
+                     *([] if dense is None else [dense.G, dense.g, dense.h])))
+    log(f"[pdhg_grid {label}] 100-iteration block: {ms:.4f} ms by events back to back, "
+        f"{dev_ms:.4f} ms on the device (queued events) = {dev_ms * 10:.3f} us an iteration; "
+        f"twin {plain_ms:.4f} ms; {share(dev_ms, b)} (of the device time) ({SMI})")
+    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
+            "share": b["bound_ms"] / dev_ms, "us_per_iteration": dev_ms * 10, "grid": P}
+
+
+def check_grid_check(label: str, inputs) -> dict:
+    """The grid route's checked launch (a 100-iteration block, then the
+    checked block's control on the slices each CTA owns) from phase 3's
+    state against the grid block (pdhg_grid_block_steps) followed by the twin
+    check (pdhg_check_plain), as check_pdhg_check holds K5: restart periods
+    10^9 and 100, the record's float words at rtol 1e-5 and its ints equal,
+    the state, sums and anchor bit for bit, twice bit for bit, a stopped
+    record left as it is; the check's time the checked launch's less the
+    block's on the device, in turns."""
+    cx, cX, pool, index, st0, dense = inputs
+    n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
+    normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+    every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
+    never = (10 ** 9, -1.0)           # a stop test that never stops (the timed launches)
+
+    def prepare():
+        return [st0.map(torch.clone), st0.map(torch.zeros_like), st0.map(torch.clone),
+                new_record(normK, 1.0, 0.95, top, tol, cx.device)]
+
+    def checked(bufs, rp, stop=(top, tol)):
+        pdhg_grid_block_checked(cx, cX, pool, index, *bufs, every, rp, *stop, dense)
+        return bufs
+
+    def twin(bufs, rp):
+        pdhg_grid_block_steps(cx, cX, pool, index, bufs[0], bufs[1], bufs[3], every, dense)
+        pdhg_check_plain(cx, cX, pool, index, *bufs, every, rp, top, tol, dense)
+        return bufs
+
+    worst = 0.0
+    for rp in (10 ** 9, 100):
+        ka, kb, tw = checked(prepare(), rp), checked(prepare(), rp), twin(prepare(), rp)
+        torch.cuda.synchronize()
+        bad, rel, absd = record_diff(ka[3], tw[3], slice(None))
+        same = states_equal(ka[:3], tw[:3])
+        repeat = states_equal(ka[:3], kb[:3]) and torch.equal(ka[3], kb[3])
+        r = ka[3].cpu().numpy()
+        log(f"[pdhg_grid_check {label}] restart_period {rp}: restart {bool(r[REC_RESTART])}, "
+            f"use_avg {bool(r[REC_USE_AVG])}, omega {float(record_floats(r)[REC_OMEGA])!r}; "
+            f"against the block then the twin check: int words differing {bad}, largest rel "
+            f"diff of the float words {rel:.3e} (rtol {CONTROL_RTOL}), max|err| of "
+            f"err/p/d/omega {absd:.3e}; state, sums and anchor bit for bit: {same}; two "
+            f"launches bit for bit: {repeat}")
+        if bad or rel > CONTROL_RTOL or not (same and repeat):
+            raise AssertionError(f"the grid route's checked launch disagrees with its block and "
+                                 f"the twin check or does not repeat ({label})")
+        worst = max(worst, absd)
+    args = prepare()
+    args[3][REC_STOP] = 1
+    before = [t.clone() for t in (*[u for x in args[:3] for u in x.fields()], args[3])]
+    checked(args, 100)
+    frozen = all(torch.equal(a, b) for a, b in zip(
+        before, (*[u for x in args[:3] for u in x.fields()], args[3])))
+    if not frozen:
+        raise AssertionError(f"the grid route's checked launch wrote a stopped record ({label})")
+    bufs = prepare()
+    bufs[3] = new_record(normK, 1.0, 0.95, 10 ** 9, 0.0, cx.device)
+
+    def unchecked():
+        pdhg_grid_block_steps(cx, cX, pool, index, bufs[0], bufs[1], bufs[3], every, dense)
+
+    t_blk, t_both = [], []
+    for runs, fn in ((t_blk, unchecked), (t_both, lambda: checked(bufs, 100, never)),
+                     (t_both, lambda: checked(bufs, 100, never)), (t_blk, unchecked)):
+        runs.append(queued_ms(fn, reps=10))
+    both, blk = sum(t_both) / 2, sum(t_blk) / 2
+    dev_ms = both - blk
+    tw = prepare()
+    plain_ms = cuda_ms(lambda: pdhg_check_plain(cx, cX, pool, index, *tw, every, 100, top, tol,
+                                                dense), reps=3)
+    cuts = (M, k) != (1, 1)
+    terms = index.Xcut.numel() + index.xcut.numel() if cuts else 0
+    b = bound(check_ops(n, k, m, int(pool.active.sum()) if cuts else 0, terms, True),
+              check_bytes(cx, cX, pool, index, dense, *bufs))
+    log(f"[pdhg_grid_check {label}] a stopped record left bit for bit: {frozen}; on the device "
+        f"(queued events, in turns): the checked launch {t_both!r} ms, the block alone "
+        f"{t_blk!r} ms: the check in the launch {dev_ms:.4f} ms; twin check {plain_ms:.4f} ms "
+        f"(reads to the host included); {share(max(dev_ms, 1e-9), b)} (of its device time) "
+        f"({SMI})")
+    return {"max_abs_err": worst, "ms": dev_ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
+            "share": b["bound_ms"] / max(dev_ms, 1e-9), "checked_launch_ms": both,
+            "unchecked_launch_ms": blk}
+
+
+def check_grid_norm(label: str, inputs) -> dict:
+    """The grid route's ||K|| (30 power iterations in one launch) against its
+    twin (estimate_norm_plain, the seeded start vector) at rtol 1e-5, twice
+    bit for bit, as K6 is held; its time by events and on the device beside
+    its bound."""
+    cx, cX, pool, index, _, dense = inputs
+    n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
+    cuts = (M, k) != (1, 1)
+
+    def norm(fn, gen=True):
+        return fn(pool, n, 30, torch.Generator().manual_seed(0) if gen else None, index, dense)
+
+    a, b2, t = norm(pdhg_grid_norm), norm(pdhg_grid_norm), norm(estimate_norm_plain)
+    rel = abs(a.item() - t.item()) / abs(t.item())
+    log(f"[pdhg_grid_norm {label}] ||K|| kernel {a.item()!r}, twin {t.item()!r}: rel diff "
+        f"{rel:.3e} (rtol {CONTROL_RTOL}); two launches bit for bit: {torch.equal(a, b2)}")
+    if rel > CONTROL_RTOL or not torch.equal(a, b2):
+        raise AssertionError(f"the grid route's norm disagrees with its twin or does not repeat "
+                             f"({label})")
+    ms = cuda_ms(lambda: norm(pdhg_grid_norm, gen=False), reps=5)
+    dev_ms = queued_ms(lambda: norm(pdhg_grid_norm, gen=False), reps=5)
+    plain_ms = cuda_ms(lambda: norm(estimate_norm_plain), reps=2, warmup=1)
+    terms = index.Xcut.numel() + index.xcut.numel() if cuts else 0
+    bb = bound(norm_ops(n, k, m, int(pool.active.sum()) if cuts else 0, terms, 30),
+               nbytes(index.idx, pool.lin, pool.quad, pool.active, index.xoff, index.xcut,
+                      index.xcoef, index.Xoff, index.Xcut, index.Xcoef, a,
+                      *([] if dense is None else [dense.G, dense.g])) + 4 * (n + n * n))
+    log(f"[pdhg_grid_norm {label}] 30 iterations in one launch: {ms:.4f} ms by events, "
+        f"{dev_ms:.4f} ms on the device (queued events) = {dev_ms / 31 * 1e3:.2f} us a power "
+        f"iteration; twin {plain_ms:.4f} ms; {share(dev_ms, bb)} (of the device time) ({SMI})")
+    return {"max_abs_err": abs(a.item() - t.item()), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **bb, "share": bb["bound_ms"] / dev_ms}
+
+
+def grid_kernels(dev) -> dict:
+    """The grid route's block, checked launch and norm at GRID_SHAPES and,
+    in their form without cuts, at GRID_CERT, each against its twin; ptxas
+    without a spill or a stack.  Returns {kernel: {shape label: numbers}}."""
+    out = {"pdhg_grid": {}, "pdhg_grid_check": {}, "pdhg_grid_norm": {}}
+    log(f"[pdhg_grid] ptxas: {grid_ptxas()}")
+    cases = [(label, lambda label=label: grid_inputs(label, dev)) for label in GRID_SHAPES]
+    n, m = GRID_CERT
+    cases.append((f"certifier n={n} m={m}",
+                  lambda: (lambda cx, cX, pool, index, dense, st: (cx, cX, pool, index, st, dense))(
+                      *dense_inputs(n, m, dev))))
+    for label, make in cases:
+        t0 = time.perf_counter()
+        inputs = make()
+        out["pdhg_grid"][label] = check_grid_block(label, inputs)
+        out["pdhg_grid_check"][label] = check_grid_check(label, inputs)
+        out["pdhg_grid_norm"][label] = check_grid_norm(label, inputs)
+        log(f"[pdhg_grid {label}] checked in {time.perf_counter() - t0:.1f}s")
+    inst = generate_spar(*GRID_INSTANCE)
+    args, err, moved = k1_twin_check(inst.name, inst, 5, dev)
+    ms = cuda_ms(lambda: pair_score(*args), reps=10)
+    dev_ms = device_ms(lambda: pair_score(*args), "pair_score_kernel", reps=10)
+    plain_ms = cuda_ms(lambda: pair_score_plain(*args), reps=2, warmup=1)
+    T = args[3].shape[0]
+    b, parts = scoring_bound(T, moved + mlp_bytes(args[4]), ms)
+    log(f"[pair_score {inst.name}] T={T}: kernel {ms:.4f} ms by events ({T / ms / 1e3:.1f} M "
+        f"cand/s), {dev_ms:.4f} ms on the device (profiler); twin {plain_ms:.4f} ms; "
+        f"{share(ms, b)}; {parts} ({SMI})")
+    out["pair_score"] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "candidates": T, **b}
+    return out
+
+
+def grid_solve(dev) -> tuple:
+    """CutSolver on spar512-100-1 (generate_spar(512, 100, 1)) with the
+    defaults (k = 3, neural, sel_size 20, capacity 1024, LPConfig()),
+    GRID_ROUNDS rounds with "auto" twice, bit for bit: K1 over all
+    22,238,720 triples and the grid route's kernels for every LP and norm,
+    no K2, no plain block or twin; every certificate reaches a feasible
+    point's objective.  Returns (launch counts, checks)."""
+    inst = generate_spar(*GRID_INSTANCE)
+    cfg = RunConfig()
+    t0 = time.perf_counter()
+    solver = CutSolver(inst, cfg, device=dev)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=GRID_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    floor = feasible_objective(inst, solver.state.x.cpu().numpy())
+    for h in hist:
+        log(f"[grid {inst.name}] round {h.round}: bound {h.bound!r} certificate "
+            f"{h.certificate!r} cuts_added {h.cuts_added} active {h.cuts_active} lp_iters "
+            f"{h.lp_iters} kkt {h.lp_kkt_error:.3e} wall {h.wall_time_s:.3f}s")
+    bounds = np.array([h.bound for h in hist])
+    certs = np.array([h.certificate for h in hist])
+    log(f"[grid {inst.name}] {len(hist)} rounds in {wall:.3f}s = {len(hist) / wall!r} rounds/s "
+        f"({sum(h.lp_iters for h in hist)} LP iterations; the solver's set-up, the table of "
+        f"{solver.table.shape[0]} triples included, {setup_s:.3f}s); launches {launches}; a "
+        f"feasible point's f {floor!r} ({SMI})")
+    again = CutSolver(inst, cfg, device=dev).run(rounds=GRID_ROUNDS)
+    return launches, {
+        f"{GRID_ROUNDS} rounds ran": len(hist) == GRID_ROUNDS,
+        "K1 launched, K2 not": launches["pair_score"] > 0 and launches["pdhg_block"] == 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= a feasible point's f {floor}": bool((certs >= floor).all()),
+        "bounds are the running minimum of the certificates":
+            bool((bounds == np.minimum.accumulate(certs)).all()),
+        "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+        **dense_route_checks(f"grid {inst.name}", launches, GRID_NAMES),
+    }
+
+
+def grid_band(dev) -> tuple:
+    """CutSolverQCQP on generate_qcqp_band(200, 5, 25, 1), whose 25 dense
+    rows K2's cluster does not hold at n = 200, GRID_BAND_ROUNDS rounds with
+    "auto" in GRID_BAND_CFG: K4 and the grid route's kernels alone, each
+    round within GRID_RTOL of the CPU port's.  Returns (launch counts,
+    checks)."""
+    inst = generate_qcqp_band(*GRID_BAND)
+    why = plan_refusal(inst.n, GRID_BAND_CFG.cuts.capacity, GRID_BAND_CFG.cuts.k, inst.m)
+    cpu = [h.bound for h in CutSolverQCQP(inst, GRID_BAND_CFG, device="cpu").run(
+        rounds=GRID_BAND_ROUNDS)]
+    solver = CutSolverQCQP(inst, GRID_BAND_CFG, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=GRID_BAND_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gpu = [h.bound for h in hist]
+    launches = launch_counts()
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
+    log(f"[grid {inst.name}] K2's cluster: {why}; bounds on the card {gpu}, on the CPU {cpu}: "
+        f"rel diff {rel} (rtol {GRID_RTOL}); {len(hist)} rounds in {wall:.3f}s = "
+        f"{len(hist) / wall!r} rounds/s ({[h.lp_iters for h in hist]} LP iterations; {SMI}); "
+        f"launches {launches}")
+    return launches, {
+        f"{GRID_BAND_ROUNDS} rounds ran": len(gpu) == len(cpu) == GRID_BAND_ROUNDS,
+        "K2's cluster refuses the shape": why is not None,
+        f"every round within {GRID_RTOL} of the CPU port": max(rel) <= GRID_RTOL,
+        "K4 launched": launches["fused_score"] > 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        **dense_route_checks(f"grid {inst.name}", launches, GRID_NAMES),
+    }
+
+
+def grid_certifier(dev) -> tuple:
+    """The certifier past n = 256: sdp_relaxation_bound on
+    generate_spar(GRID_CERT_N, 100, 1), GRID_CERT_ROUNDS plain eigencut
+    rounds of FULL_LP (no Burer-Monteiro anchor: its host ascent takes about
+    a minute at n = 300), twice, bit for bit, on the dense route alone, whose
+    kernels there are the grid route's form without cuts at 512 columns;
+    every certificate finite and at least a feasible point's objective.
+    Returns (launch counts, checks)."""
+    inst = generate_spar(GRID_CERT_N, 100, 1)
+    kw = dict(max_rounds=GRID_CERT_ROUNDS, capacity=512, max_cuts_per_round=48,
+              with_point=True, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    best, _, hist, (x, _) = sdp_relaxation_bound(inst, FULL_LP, **kw)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    floor = feasible_objective(inst, x)
+    for h in hist:
+        log(f"[grid certifier {inst.name}] round {h['round']}: certificate {h['bound']!r} count "
+            f"{h['cuts']} lp_iters {h['lp_iters']} kkt {h['lp_kkt']:.3e}; seconds "
+            f"{sum(h['seconds'].values()):.4f} (lp {h['seconds']['lp']:.4f})")
+    again = sdp_relaxation_bound(inst, FULL_LP, **kw)[2]
+    certs = np.array([h["bound"] for h in hist])
+    lp_s, iters, us = lp_us(hist)
+    log(f"[grid certifier {inst.name}] {len(hist)} rounds in {wall:.3f}s, best {best!r}; the LP "
+        f"{lp_s:.4f}s for {iters} iterations = {us:.2f} us a certifier LP iteration ({SMI}); "
+        f"launches {launches}")
+
+    def outcome_of(hs):
+        return [(h["bound"], h["lam_min"], h["cuts"], h["lp_iters"], h["lp_kkt"]) for h in hs]
+
+    return launches, {
+        f"{GRID_CERT_ROUNDS} rounds ran": len(hist) == GRID_CERT_ROUNDS,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= a feasible point's f {floor}": bool((certs >= floor).all()),
+        **dense_route_checks(f"grid certifier {inst.name}", launches, GRID_NAMES),
+        "a second run repeats every round bit for bit": outcome_of(again) == outcome_of(hist),
+    }
+
+
+def grid_phase(dev) -> dict:
+    """Phase 19: the grid route's kernels against their twins (grid_kernels),
+    spar512-100-1 (grid_solve), the band instance (grid_band) and the
+    certifier at n = 300 (grid_certifier), each path's launches into
+    PATH_LAUNCHES.  Returns grid_kernels' numbers."""
+    t0 = time.perf_counter()
+    out = grid_kernels(dev)
+    PATH_LAUNCHES["grid boxqp n=512"], checks = grid_solve(dev)
+    finish("grid solve", checks)
+    PATH_LAUNCHES["grid qcqp band n=200"], checks = grid_band(dev)
+    finish("grid band", checks)
+    PATH_LAUNCHES["grid certifier n=300"], checks = grid_certifier(dev)
+    finish("grid certifier", checks)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[grid] phase 19 took {out['seconds']:.1f}s ({SMI})")
     return out
 
 
@@ -3689,6 +4162,7 @@ def main(argv=None) -> int:
     control_batched = check_control_batched(bucket, dev, pkg)
     dense_route = check_dense_route(dev, pkg)
     k2["parent_bits"] = k5s[1]["parent_bits"] = None
+    lib = None
     if args.parent:
         same5 = [checked_against_parent(pkg, label, pdhg_inputs(Q, c, table, dense_rows, dev),
                                         dense_rows, dev)
@@ -3715,8 +4189,10 @@ def main(argv=None) -> int:
     k4 = check_k4(inst, dev)
     check_guard(inst, unguarded, dev)
     check_small_instances(dev)
-    PATH_LAUNCHES["wide boxqp spar150-100-1"] = check_large_instance(dev)
-    wide = wide_phase(dev)
+    (PATH_LAUNCHES["wide boxqp spar150-100-1"],
+     PATH_LAUNCHES["grid boxqp n=300"]) = check_large_instance(dev)
+    wide = wide_phase(dev, pkg, lib)
+    grid = grid_phase(dev)
     PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
     PATH_LAUNCHES["qcqp main"] = qcqp_main_path(dev)
     PATH_LAUNCHES["boxqp packed scan"] = packed_scan_path(inst, dev)
@@ -3737,9 +4213,9 @@ def main(argv=None) -> int:
     for path, counts in PATH_LAUNCHES.items():
         log(f"[launches] {path}: {counts}")
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
-    narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items() if not p.startswith("wide"))
-              for name in WRAPPERS}
-    log(f"[launches] the paths at n <= 128 (every path but the wide ones): {narrow}")
+    narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items()
+                        if not p.startswith(("wide", "grid"))) for name in WRAPPERS}
+    log(f"[launches] the paths at n <= 128 (every path but the wide and grid ones): {narrow}")
 
     kernels = [
         {"name": "pair_score", "route": "cuda",
@@ -3806,6 +4282,21 @@ def main(argv=None) -> int:
                     "rows; XLA, no Pallas kernel)", total["pdhg_dense_norm"],
                     {**dense_route["pdhg_dense_norm"], **wide["pdhg_dense_norm"]}),
     ]
+    # the grid route (csrc/pdhg_grid.cu): XLA in the reference's solve past its
+    # Pallas kernel's shapes (n > 128, a pool past 1024, dense rows); each
+    # entry holds spar512's shape, every shape (the dense route's 512-column
+    # form among them) under "shapes"
+    kernels += [dense_entry(name, replaces, total[key], grid[key], "pdhg_grid.cu", "n=512 m=0")
+                for key, name, replaces in (
+        ("pdhg_grid", "pdhg_grid", "sdpcutsel_tpu/lp/pdhg.py:216 (run_block's fori_loop of "
+         "_one_iter past the Pallas kernel's shapes, :291-301; XLA, no Pallas kernel)"),
+        ("pdhg_grid_check", "pdhg_grid_check (in the grid block's checked launch)",
+         "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block; XLA, no Pallas kernel)"),
+        ("pdhg_grid_norm", "pdhg_grid_norm", "sdpcutsel_tpu/lp/pdhg.py:70 (estimate_norm; XLA, "
+         "no Pallas kernel)"))]
+    kernels[0]["n512"] = grid["pair_score"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], grid["pair_score"]["max_abs_err"])
+    log(f"[grid] phase 19: {grid['seconds']:.1f}s")
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))

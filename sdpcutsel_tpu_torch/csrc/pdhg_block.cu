@@ -488,8 +488,8 @@ int prepare(int cluster, int smem, bool check) {
 // (cols_for) and its smem the layout's at that width.
 int check_plan(int n, int M, int k, int m, int cluster, int cols, int term_cap, int smem,
                bool check) {
-  if (cluster < 1 || cluster > kMaxCluster || cols_for(n) == 0 || cols != cols_for(n) ||
-      k < 2 || k > 5 || term_cap < 0)
+  if (cluster < 1 || cluster > kMaxCluster || cols_for(n) == 0 || cols_for(n) > kWide ||
+      cols != cols_for(n) || k < 2 || k > 5 || term_cap < 0)
     return kErrLayout;
   const int R = (n + cluster - 1) / cluster;
   const int Mc = (M + cluster - 1) / cluster;

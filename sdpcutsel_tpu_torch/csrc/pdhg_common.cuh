@@ -17,7 +17,8 @@
 // first width, whose bits and layouts it keeps) and 256 for 128 < n <= 256
 // (two row groups of 256 columns: a thread still owns one column, and a band
 // takes twice the passes).  cols_for(n) is the rule; the Python plans
-// (lp/pdhg_kernel.py columns) mirror it.
+// (lp/pdhg_kernel.py columns) mirror it.  The grid route (pdhg_grid.cu) adds
+// a third, 512 for 256 < n <= 512, where a thread owns several entries.
 //
 // The control record: every solve keeps one int32 record of kRecWords words
 // per instance in device memory (lp/pdhg.py REC_*: the same offsets, held
@@ -37,6 +38,7 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 512;
 constexpr int kNarrow = 128;                 // the width for n <= 128
 constexpr int kWide = 256;                   // and for 128 < n <= 256
+constexpr int kWidest = 512;                 // and for 256 < n <= 512 (pdhg_grid.cu alone)
 constexpr int kMaxCluster = 16;
 constexpr float kSA = 0.70710678118654752440f;   // 1 / sqrt(2)
 constexpr float kSB = 0.57735026918962576451f;   // 1 / sqrt(3)
@@ -75,10 +77,12 @@ struct Width {
   static constexpr int kWarpsPerRow = W / 32;
 };
 
-// The width a launch at n takes: 128 up to n = 128, else 256 (0: n outside
-// 1..256, which no kernel takes).
+// The width a launch at n takes: 128 up to n = 128, 256 up to n = 256, else
+// 512 (0: n outside 1..512, which no kernel takes).  K2, K6 and the dense
+// route's kernels of pdhg_dense.cu take the first two; the grid route's
+// kernels (pdhg_grid.cu) all three.
 __host__ __device__ constexpr int cols_for(int n) {
-  return n < 1 || n > kWide ? 0 : (n <= kNarrow ? kNarrow : kWide);
+  return n < 1 || n > kWidest ? 0 : (n <= kNarrow ? kNarrow : (n <= kWide ? kWide : kWidest));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

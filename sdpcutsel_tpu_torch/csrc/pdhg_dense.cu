@@ -51,6 +51,7 @@
 // cut rows are all inactive).
 
 #include "pdhg_common.cuh"
+#include "pdhg_stream.cuh"
 
 namespace {
 
@@ -127,66 +128,6 @@ struct GridWidth {
   static constexpr int kMaxE = Cols == kNarrow ? 496 : 500;
   static_assert(4 * (kMaxE + 12) <= kScratch && kMaxE + 12 <= 4 * 128, "spans over 128 chunks");
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The first kStages - 1 stages of a stream of nst stages into the ring;
-// issue(s, dst) issues stage s's copies (every thread its share).
-template <class Issue>
-__device__ __forceinline__ void ring_prologue(float* ring, int nst, Issue issue) {
-#pragma unroll 1
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nst) issue(s, ring + s * kStage);
-    cp_async_commit();
-  }
-}
-
-// The rest of the stream: stage s is consumed once it has landed, while the
-// stages up to s + kStages - 1 are in flight.  Every thread calls it.
-template <class Issue, class Consume>
-__device__ __forceinline__ void ring_drain(float* ring, int nst, Issue issue, Consume consume) {
-#pragma unroll 1
-  for (int s = 0; s < nst; ++s) {
-    const int nx = s + kStages - 1;
-    if (nx < nst) issue(nx, ring + (nx % kStages) * kStage);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    consume(s, ring + (s % kStages) * kStage);
-    __syncthreads();
-  }
-}
-
-// A barrier over a cooperative grid of P CTAs: an arrival counter (zeroed
-// by the launch) and a spin of one thread a CTA until all have arrived.
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target, unsigned P) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    target += P;
-    __threadfence();
-    atomicAdd(bar, 1u);
-    unsigned v;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(bar) : "memory");
-    } while (v < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 struct BlockArgs {
   int n, m, iters;
@@ -272,16 +213,6 @@ __host__ __device__ inline GridLayout grid_layout(int n, int m) {
   L.words = o;
   (void)n;
   return L;
-}
-
-// [lo, hi) of the b-th of P near-equal slices of [0, N)
-__device__ __forceinline__ void slice(int N, int b, int P, int& lo, int& hi) {
-  lo = static_cast<int>(static_cast<long long>(N) * b / P);
-  hi = static_cast<int>(static_cast<long long>(N) * (b + 1) / P);
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
 }
 
 // A CTA's slices of the "grid" plan and the passes over them, shared by the
@@ -498,8 +429,8 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, unsigned target, 
       g.residual(partq[pt], 1, P, 0, m, slab);
       __syncthreads();                 // every lane done with the weights in scr
     } else {
-      ring_prologue(slab, nst, issue);
-      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+      ring_prologue<kStage, kStages>(slab, nst, issue);
+      ring_drain<kStage, kStages>(slab, nst, issue, [&](int s, const float* buf) {
         g.adjoint(acc, s * QB, min(QB, m - s * QB), buf);
         g.residual(partq[pt], 1, P, s * QB, min(QB, m - s * QB), buf);
       });
@@ -688,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
 
   if (resident) g.load_rows(0, m, slab);   // the launch's one read of the slice
   cp_async_commit();
-  ring_prologue(slab, a.iters > 0 ? nst : 0, issue);
+  ring_prologue<kStage, kStages>(slab, a.iters > 0 ? nst : 0, issue);
 
   // ---- the owned entry of X of thread t, e0 + t: its state and sums in
   //      registers ------------------------------------------------------------
@@ -745,10 +676,10 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     if (resident) {
       adjoint(acc, 0, m, slab);
     } else {
-      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+      ring_drain<kStage, kStages>(slab, nst, issue, [&](int s, const float* buf) {
         adjoint(acc, s * QB, min(QB, m - s * QB), buf);
       });
-      ring_prologue(slab, nst, issue);    // phase II's first stages, early
+      ring_prologue<kStage, kStages>(slab, nst, issue);    // phase II's first stages, early
     }
     g.strand_sums(acc);
 
@@ -792,7 +723,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     if (resident) {
       residual(part, m, 1, 0, m, slab);
     } else {
-      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+      ring_drain<kStage, kStages>(slab, nst, issue, [&](int s, const float* buf) {
         residual(part, m, 1, s * QB, min(QB, m - s * QB), buf);
       });
     }
@@ -812,7 +743,8 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_grid_kernel(
     }
     if (it + 1 < a.iters) {
       x_sums(a.yAo, a.yBo);
-      if (!resident) ring_prologue(slab, nst, issue);   // the next iteration's first stages
+      // the next iteration's first stages
+      if (!resident) ring_prologue<kStage, kStages>(slab, nst, issue);
       grid_sync(a.bar, target, P);
     }
   }
@@ -1408,7 +1340,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
 
   if (resident) g.load_rows(0, m, slab);   // the launch's one read of the slice
   cp_async_commit();
-  ring_prologue(slab, nst, issue);         // a stream's first stages
+  ring_prologue<kStage, kStages>(slab, nst, issue);         // a stream's first stages
   const bool own = t < LA, ownx = lane == 0 && warp < LB;
   const int eo = g.e0 + t, io = eo / n, co = eo - io * n;
   float rY = own ? a.Y[eo] : 0.0f;
@@ -1428,10 +1360,10 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
     if (resident) {
       g.residual(part, m, 1, 0, m, slab);
     } else {
-      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+      ring_drain<kStage, kStages>(slab, nst, issue, [&](int s, const float* buf) {
         g.residual(part, m, 1, s * QB, min(QB, m - s * QB), buf);
       });
-      if (!last) ring_prologue(slab, nst, issue);   // C's first stages, early
+      if (!last) ring_prologue<kStage, kStages>(slab, nst, issue);   // C's first stages, early
     }
     grid_sync(a.bar, target, P);
 
@@ -1523,10 +1455,10 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_dense_norm_grid_kernel(
     if (resident) {
       g.adjoint(acc, 0, m, slab);
     } else {
-      ring_drain(slab, nst, issue, [&](int s, const float* buf) {
+      ring_drain<kStage, kStages>(slab, nst, issue, [&](int s, const float* buf) {
         g.adjoint(acc, s * QB, min(QB, m - s * QB), buf);
       });
-      ring_prologue(slab, nst, issue);    // the next A's first stages
+      ring_prologue<kStage, kStages>(slab, nst, issue);    // the next A's first stages
     }
     g.strand_sums(acc);
     if (own) wgX[eo] = (-kSA * kA + kSB * kB) + sown[t];
@@ -1655,7 +1587,8 @@ GridLayout grid_layout_at(int n, int m) {
 }
 
 int check_block(int n, int m, int iters, int plan, int smem) {
-  if (cols_for(n) == 0 || m < 0 || iters < 0 || (plan != 0 && plan != 1)) return kErrLayout;
+  if (cols_for(n) == 0 || cols_for(n) > kWide || m < 0 || iters < 0 || (plan != 0 && plan != 1))
+    return kErrLayout;
   const int words = plan == 0 ? cta_layout(n, m).words : grid_layout_at(n, m).words;
   if (4 * static_cast<size_t>(words) != static_cast<size_t>(smem)) return kErrLayout;
   if (plan == 0 && n > kCtaMaxN) return kErrLayout;
@@ -1720,7 +1653,7 @@ extern "C" int pdhg_dense_block_checked_launch(
 // SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the
 // SMs, into *grid.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_dense_block_grid(int n, int m, int smem, int* grid) {
-  if (cols_for(n) == 0 || m < 0) return kErrLayout;
+  if (cols_for(n) == 0 || cols_for(n) > kWide || m < 0) return kErrLayout;
   if (4 * static_cast<size_t>(grid_layout_at(n, m).words) != static_cast<size_t>(smem))
     return kErrLayout;
   return cols_for(n) == kNarrow ? dense_grid<kNarrow>(smem, grid) : dense_grid<kWide>(smem, grid);

@@ -523,8 +523,8 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_norm_kernel(const __grid_con
 }
 
 int check_shape(int n, int M, int k, int m, int cluster) {
-  if (cluster < 1 || cluster > kMaxCluster || cols_for(n) == 0 || k < 2 || k > 5 || M < 0 ||
-      m < 0)
+  if (cluster < 1 || cluster > kMaxCluster || cols_for(n) == 0 || cols_for(n) > kWide || k < 2 ||
+      k > 5 || M < 0 || m < 0)
     return kErrLayout;
   return 0;
 }

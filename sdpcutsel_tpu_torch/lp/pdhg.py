@@ -26,7 +26,9 @@ reads the record to the host once after each group (``read_record``);
 device.  The certifier's LP (a pool without cuts, up to thousands of dense
 rows) takes the dense route instead: the same loop over the kernels of
 ``csrc/pdhg_dense.cu`` (``pdhg_dense.dense_checked_step``: K7's block with
-its check in one launch; ``pdhg_dense_norm``).  On the CPU the wrappers take
+its check in one launch; ``pdhg_dense_norm``); a pool of cuts that K2's
+cluster does not hold (n > 256, a large pool, many dense rows) the grid
+route's (``pdhg_grid.grid_checked_step``, ``pdhg_grid_norm``).  On the CPU the wrappers take
 their plain twins (``pdhg_block_plain``, ``pdhg_check_plain``,
 ``estimate_norm_plain``), with the same loop; ``LPConfig.use_kernel="off"``
 (``kernel_route``) takes the twins on any device, counted on CUDA.  Scalars
@@ -327,11 +329,14 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
     """Checked-block PDHG solve from ``st0`` (left as it is) with a given
     ``normK`` (a float or a 0-d tensor); ``index`` is
     ``build_cut_index(pool, n)``; ``route`` (``kernel_route``): "k2" each
-    block and its check in one launch (``pdhg_check.checked_step``), "dense"
-    likewise on the dense route (``pdhg_dense.dense_checked_step``), "plain"
-    their plain twins on the tensors' device.  Returns (state, info) with python scalars in info."""
+    block and its check in one launch (``pdhg_check.checked_step``), "grid"
+    and "dense" likewise on the grid route (``pdhg_grid.grid_checked_step``)
+    and the dense route (``pdhg_dense.dense_checked_step``), "plain" their
+    plain twins on the tensors' device.  Returns (state, info) with python
+    scalars in info."""
     from .pdhg_check import checked_step, pdhg_block_checked
     from .pdhg_dense import dense_checked_step
+    from .pdhg_grid import grid_checked_step
     from .pdhg_kernel import pdhg_block, pdhg_block_steps_plain
 
     st, anchor, acc = _buffers(st0)
@@ -340,6 +345,8 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
     control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
     if route == "k2":
         step = checked_step(*args, *control)
+    elif route == "grid":
+        step = grid_checked_step(*args, *control)
     elif route == "dense":
         step = dense_checked_step(*args, *control)
     else:
@@ -362,7 +369,7 @@ def _solve_impl(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState,
 class SolveSetup:
     """What a solve derives from its pool once: the blocks' route, the cut
     index and ||K||.  Steering reuses the solve's, as the pool is the same."""
-    route: str            # "k2", "dense" or "plain" (lp/pdhg_kernel.py::kernel_route)
+    route: str            # "k2", "grid", "dense" or "plain" (lp/pdhg_kernel.py::kernel_route)
     index: CutIndex
     normK: object         # a 0-d float32 tensor on the device; a batch's: (B,)
 
@@ -370,9 +377,11 @@ class SolveSetup:
 def solve_setup(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveSetup:
     """The route by ``cfg.use_kernel`` (``lp/pdhg_kernel.py::kernel_route``),
     ``build_cut_index`` and ||K|| of a solve over ``pool``: K6
-    (``pdhg_norm``) on K2's route, ``pdhg_dense_norm`` on the dense route,
-    ``estimate_norm_plain`` on the plain one; it stays on the device."""
+    (``pdhg_norm``) on K2's route, ``pdhg_grid_norm`` on the grid route,
+    ``pdhg_dense_norm`` on the dense route, ``estimate_norm_plain`` on the
+    plain one; it stays on the device."""
     from .pdhg_dense import pdhg_dense_norm
+    from .pdhg_grid import pdhg_grid_norm
     from .pdhg_kernel import kernel_route
     from .pdhg_norm import pdhg_norm
 
@@ -381,7 +390,8 @@ def solve_setup(c, pool: CutPool, cfg, dense: DenseRows | None = None) -> SolveS
     route = kernel_route(cfg.use_kernel, c.device, n, M, k,
                          0 if dense is None else dense.m)
     index = build_cut_index(pool, n)        # the pool is constant in a solve
-    norm = {"k2": pdhg_norm, "dense": pdhg_dense_norm, "plain": estimate_norm_plain}[route]
+    norm = {"k2": pdhg_norm, "grid": pdhg_grid_norm, "dense": pdhg_dense_norm,
+            "plain": estimate_norm_plain}[route]
     normK = norm(pool, n, cfg.power_iters, None, index, dense)   # the seed-0 start vector
     if route == "plain" and c.device.type == "cuda":
         pdhg_norm.plain_launches += 1
@@ -397,9 +407,10 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
     ``solve_setup(c, pool, cfg, dense)``, computed here when None.
     ``cfg.use_kernel`` chooses the blocks (``lp/pdhg_kernel.py::
     kernel_route``): with "auto", on CUDA the iteration kernel K2 for a pool
-    of cuts (dense rows or not) or the dense route for the certifier's pool
-    without cuts, raising where neither takes (n, capacity, k, m); the plain
-    loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
+    of cuts (dense rows or not) that its cluster holds, the grid route for
+    the other pools of cuts (n <= 512), the dense route for the certifier's
+    pool without cuts, raising where none takes (n, capacity, k, m); the
+    plain loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
     bound estimate is -info['dual_obj'], the certified one dual_bound_f64.
     """
     if setup is None:
@@ -594,18 +605,22 @@ def solve_setup_batched(c, pool: CutPool, cfg, dense: DenseRows | None = None) -
     """``solve_setup`` of a batch (c (B, n)): the route by ``cfg.use_kernel``
     at the batch's shape, ``relax.batched.build_cut_index`` and ||K|| of
     every instance, (B,) on the device (K6's batched launch on K2's route,
-    ``estimate_norm_batched_plain`` otherwise).  The dense route has no
-    instance axis: a batch of the certifier's pools raises."""
+    ``estimate_norm_batched_plain`` otherwise).  The dense and grid routes
+    have no instance axis: a batch of the certifier's pools, or of a shape
+    outside K2's plan, raises."""
     from ..relax import batched as rb
-    from .pdhg_kernel import kernel_route
+    from .pdhg_kernel import kernel_route, plan_refusal
     from .pdhg_norm import pdhg_norm, pdhg_norm_batched
 
     n = int(c.shape[1])
     M, k = pool.idx.shape[1:]
-    route = kernel_route(cfg.use_kernel, c.device, n, M, k,
-                         0 if dense is None else dense.G.shape[1])
+    m = 0 if dense is None else dense.G.shape[1]
+    route = kernel_route(cfg.use_kernel, c.device, n, M, k, m)
     if route == "dense":
         raise ValueError("the dense route solves one instance; batches take pools of cuts")
+    if route == "grid":
+        raise ValueError(f"the grid route solves one instance; a batch takes the shapes K2's "
+                         f"cluster holds: {plan_refusal(n, M, k, m)}")
     index = rb.build_cut_index(pool, n)
     norm = pdhg_norm_batched if route == "k2" else estimate_norm_batched_plain
     normK = norm(pool, n, cfg.power_iters, None, index, dense)   # the seed-0 start vector
@@ -630,9 +645,10 @@ def _steer_impl(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
     """``iters`` PDHG iterations from ``st`` on the objective perturbed by
     eps (mean |cX| + mean |cx|) (sx, sym(SX)), at the fixed steps tau =
     eta / omega, sigma = eta omega, eta = step_scale / normK: one block,
-    through the solve's route (K2 on CUDA; its ergodic sums are discarded).
-    Returns (x, X)."""
+    through the solve's route (K2 on CUDA, or the grid or dense route's
+    block; its ergodic sums are discarded).  Returns (x, X)."""
     from .pdhg_dense import pdhg_dense_block
+    from .pdhg_grid import pdhg_grid_block
     from .pdhg_kernel import pdhg_block, pdhg_block_plain
 
     scale = float(eps) * (cX.abs().mean() + cx.abs().mean())
@@ -640,7 +656,8 @@ def _steer_impl(cx, cX, pool: CutPool, dense: DenseRows | None, st: PDHGState,
     cX_p = cX + scale * _sym(SX)
     eta = _f32(step_scale) / _f32(float(setup.normK))      # a host float: one read
     tau, sigma = eta / _f32(omega), eta * _f32(omega)
-    block = {"k2": pdhg_block, "dense": pdhg_dense_block, "plain": pdhg_block_plain}[setup.route]
+    block = {"k2": pdhg_block, "grid": pdhg_grid_block, "dense": pdhg_dense_block,
+             "plain": pdhg_block_plain}[setup.route]
     if setup.route == "plain" and cx.device.type == "cuda":
         pdhg_block.plain_launches += 1
     st, _ = block(cx_p, cX_p, pool, setup.index, st, st.map(torch.zeros_like),

@@ -21,12 +21,14 @@ so the solve's loop (``lp/pdhg.py::_solve_impl``) runs either route.  The
 reference runs this LP in XLA (its Pallas kernel refuses dense rows,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``): none has a Pallas counterpart.
 
-Shapes: n <= 256, the certifier's pool (one slot of width 1, never filled:
+Shapes: n <= 512, the certifier's pool (one slot of width 1, never filled:
 ``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
 rows' duals beside the grid plan's ring (``max_dense_rows``; ~22,800 at
-n = 125).  The "grid" kernels come in K2's two column widths
-(``pdhg_kernel.columns``: 128 for n <= 128, 256 above), which set the
-entries a CTA may own (``_MAX_E``, ``_MAX_E_WIDE``).  The launch plan goes
+n = 125, ~6,800 past n = 256).  The "grid" kernels come in K2's two column
+widths (``pdhg_kernel.columns``: 128 for n <= 128, 256 up to n = 256), which
+set the entries a CTA may own (``_MAX_E``, ``_MAX_E_WIDE``); past n = 256
+the wrappers launch the grid route's kernels in their form without cuts at
+512 columns (``lp/pdhg_grid.py``, ``csrc/pdhg_grid.cu``), counted there.  The launch plan goes
 by shape (``block_plan``), the same for the block, its checked form and the
 norm: "cta", one CTA that holds G and g in
 its shared memory for the launch (the small sandwiches, n <= ``CTA_MAX_N``),
@@ -55,6 +57,7 @@ from .. import _build
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import PDHGState, estimate_norm_plain, pdhg_check_plain, start_vector
+from . import pdhg_grid
 from .pdhg_kernel import (_ERRORS, NARROW, NMAX, SMEM_MAX, check_record, columns,
                           pdhg_block_plain, pdhg_block_steps_plain, steps_record)
 
@@ -86,7 +89,9 @@ def _block_words(plan: str, n: int, m: int) -> int:
 
 def max_entries(n: int) -> int:
     """kMaxE of the "grid" kernels at n's column width: the entries of X
-    and x one CTA may own."""
+    and x one CTA may own (past n = 256 the grid route's)."""
+    if n > NMAX:
+        return pdhg_grid.max_entries(n)
     return _MAX_E if columns(n) == NARROW else _MAX_E_WIDE
 
 
@@ -96,7 +101,7 @@ def block_plan(n: int, m: int) -> str:
     problem (G and g staged once per launch, block barriers only), else
     "grid" (every SM, three grid barriers an iteration or power iteration;
     each CTA's slice of G resident in its shared memory where it fits, else
-    streamed twice an iteration)."""
+    streamed twice an iteration; past n = 256 the grid route's kernels)."""
     return "cta" if n <= CTA_MAX_N and 4 * _block_words("cta", n, m) <= SMEM_MAX else "grid"
 
 
@@ -105,7 +110,10 @@ def smem_words(n: int, m: int) -> int:
     at (n, m), the block, its checked form and the norm alike:
     ``_block_words`` under ``block_plan``.  Only the "cta" plan's grows with
     m n; the "grid" plan's is a CTA's whole shared memory up to ~22,800
-    rows."""
+    rows.  Past n = 256: the grid route's layout without cuts
+    (``pdhg_grid.block_words``)."""
+    if n > NMAX:
+        return pdhg_grid.block_words(n, 1, m, False)
     return _block_words(block_plan(n, m), n, m)
 
 
@@ -125,12 +133,12 @@ def max_dense_rows(n: int) -> int:
 def dense_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the dense route does not take n, a pool of capacity M and width
     k, and m dense rows, or None where it does: the certifier's pool (M = 1,
-    k = 1: no cut) and n <= 256, with shared memory for m rows."""
+    k = 1: no cut) and n <= 512, with shared memory for m rows."""
     if (M, k) != (1, 1):
         return (f"the dense route takes the certifier's pool without cuts (capacity 1, "
                 f"width 1), got capacity {M}, width {k}")
-    if not 1 <= n <= NMAX:
-        return f"the dense route takes 1 <= n <= {NMAX}, got {n}"
+    if not 1 <= n <= pdhg_grid.GRID_NMAX:
+        return f"the dense route takes 1 <= n <= {pdhg_grid.GRID_NMAX}, got {n}"
     if smem_bytes(n, m) > SMEM_MAX:
         return (f"the dense route: m={m} dense rows exceed {SMEM_MAX} bytes of shared memory "
                 f"per CTA at n={n} (at most {max_dense_rows(n)})")
@@ -266,6 +274,8 @@ def pdhg_dense_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc:
     holds no cut) and passed on to the twin."""
     if cx.device.type == "cpu":
         return pdhg_block_plain(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
+    if cx.device.type == "cuda" and cx.shape[0] > NMAX:
+        return pdhg_grid.pdhg_grid_block(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
     if cx.device.type == "cuda":
         ins = [st.map(lambda t: t.contiguous()), acc.map(lambda t: t.contiguous())]
         outs = [s.map(torch.empty_like) for s in ins]
@@ -288,6 +298,8 @@ def pdhg_dense_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState
     in ``pdhg_dense_block.launches``."""
     if cx.device.type == "cpu":
         pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, iters, dense)
+    elif cx.device.type == "cuda" and cx.shape[0] > NMAX:
+        pdhg_grid.pdhg_grid_block_steps(cx, cX, pool, index, st, acc, rec, iters, dense)
     elif cx.device.type == "cuda":
         check_record(rec[None], 1, cx.device, "pdhg_dense_block")
         _launch_block(cx.contiguous(), cX.contiguous(), pool, [st, acc], [st, acc], rec, iters,
@@ -347,6 +359,9 @@ def dense_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, ac
         return step
     if cx.device.type != "cuda":
         raise ValueError(f"pdhg_dense_block_checked: no kernel for device {cx.device}")
+    if cx.shape[0] > NMAX:
+        return pdhg_grid.grid_checked_step(cx, cX, pool, index, st, acc, anchor, rec,
+                                           check_every, restart_period, max_iters, tol, dense)
     return _checked_launcher(cx.contiguous(), cX.contiguous(), pool, st, acc, anchor, rec,
                              check_every, restart_period, max_iters, tol, dense)
 
@@ -377,6 +392,8 @@ def pdhg_dense_norm(pool: CutPool, n: int, iters: int, generator: torch.Generato
         return estimate_norm_plain(pool, n, iters, generator, index, dense)
     if dev.type != "cuda":
         raise ValueError(f"pdhg_dense_norm: no kernel for device {dev}")
+    if n > NMAX:
+        return pdhg_grid.pdhg_grid_norm(pool, n, iters, generator, index, dense)
     return _launch_norm(pool, n, iters, generator, dense)
 
 

@@ -1,0 +1,333 @@
+"""Wrappers of the grid route's kernels (``csrc/pdhg_grid.cu``): the PDHG
+solve of one instance over a cooperative grid of one CTA an SM, for the
+shapes K2's cluster (``lp/pdhg_kernel.py``) does not hold in its shared
+memory: n up to 512, pools larger than K2's bands leave room for, and a
+QCQP's dense rows past the few K2 holds at n > 128.
+
+- ``pdhg_grid_block`` / ``pdhg_grid_block_steps``: ``iters`` iterations of
+  ``lp/pdhg.py::_one_iter`` with the ergodic sums, with host steps (the
+  twin's and steering's) or in place with the steps and stop flag of the
+  solve's control record.  Twins ``pdhg_block_plain`` and
+  ``pdhg_block_steps_plain``.
+- ``grid_checked_step`` / ``pdhg_grid_block_checked``: the solve's step, one
+  launch of the block's checked form, whose epilogue is the checked block's
+  control (K5's work) on the slices each CTA owns.  Twins
+  ``pdhg_block_steps_plain`` then ``pdhg_check_plain``.
+- ``pdhg_grid_norm``: ||K|| by the power iteration in one launch (K6's
+  work), on the block's layout.  Twin ``estimate_norm_plain``.
+
+They take the arguments of K2's, its checked form's and K6's wrappers, so
+the solve's loop (``lp/pdhg.py::_solve_impl``) runs the route as it runs
+K2's.  The kernels come in two forms: a pool of cuts (k = 2..5, with its
+cut index) at the column widths 128, 256 and 512 (``pdhg_kernel.columns``),
+and the certifier's pool without cuts at 512 columns, which the dense route
+(``lp/pdhg_dense.py``) takes past n = 256.  ``grid_refusal`` says where the
+route does not take a shape.  The reference runs these shapes in XLA (its
+Pallas kernel takes n <= 128, a pool of at most 1024 slots and no dense row,
+``sdpcutsel_tpu/lp/pdhg.py:291-301``).
+
+The layout (``block_words``) keeps the owned entries' state, the cut weights
+and the dense rows' duals in a CTA's shared memory and gives the rest to the
+dense rows' owned segments, resident for the launch where they fit and
+streamed otherwise; the grid is every CTA the card co-schedules
+(``grid_ctas``), whose global scratch ``work_words`` and ``norm_work_words``
+give.
+
+Device rule: CPU tensors take the twins; CUDA tensors launch the kernel; any
+other device raises.  ``pdhg_grid_block.launches`` counts the block launches
+of every block wrapper, the checked ones too (the dense route's past n = 256
+among them); ``pdhg_grid_block_checked.launches`` the checked ones,
+``pdhg_grid_norm.launches`` the norm's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..relax.batched import batch_of_one
+from ..relax.cutbuffer import CutIndex, CutPool
+from ..relax.denserows import DenseRows
+from .pdhg import PDHGState, estimate_norm_plain, pdhg_check_plain, start_vector
+from .pdhg_kernel import (_ERRORS, SMEM_MAX, _checked_args, check_record, columns,
+                          pdhg_block_plain, pdhg_block_steps_plain, steps_record)
+
+GRID_NMAX = 512             # csrc/pdhg_common.cuh kWidest: the largest n the route takes
+# csrc/pdhg_grid.cu GridForm<Cols>: (kMaxE, kChunks, kScratch, kStages) by column width
+FORMS = {128: (496, 1, 2048, 4), 256: (500, 1, 2048, 4), 512: (2036, 4, 8192, 3)}
+_STAGE = 8192               # kStage: floats a ring stage
+_SMEM_WORDS = SMEM_MAX // 4
+_NS, _ND = 10, 6            # kNS: a check point's sums; kND: the distances' partials
+_META = 64                  # kMeta: the words of a CTA's Slices, first in its shared memory
+
+
+def max_entries(n: int) -> int:
+    """kMaxE at n's column width: the entries of X and x one CTA may own."""
+    return FORMS[columns(n)][0]
+
+
+def block_words(n: int, M: int, m: int, cuts: bool) -> int:
+    """4-byte words of one CTA's shared memory for the block, its checked
+    form and the norm at (n, pool capacity M, m dense rows): the sum of
+    ``csrc/pdhg_grid.cu``'s ``grid_layout`` at n's column width (the
+    CTA's slices, the scratch, the slab of the dense rows' owned segments, which takes what
+    the rest leaves and at least the ring, none without dense rows; the
+    replicas of yD and, with cuts, of the pool's weights; the owned
+    entries' buffer and their eight state arrays)."""
+    kmax, _, scratch, stages = FORMS[columns(n)]
+    rest = _META + scratch + m + (M if cuts else 0) + 9 * kmax
+    free4 = (_SMEM_WORDS - rest) & ~3
+    slab = max(free4, stages * _STAGE) if m > 0 else 0
+    return _META + scratch + slab + m + (M if cuts else 0) + kmax + 8 * kmax
+
+
+def work_words(n: int, m: int, M: int, P: int, cuts: bool, checked: bool) -> int:
+    """Floats of the block's global scratch on a grid of P CTAs:
+    ``csrc/pdhg_grid.cu``'s ``work_words`` (S, xb, the dense rows' partials;
+    with cuts Xb and the weights; the checked form's M at the average, the
+    average's partials, each CTA's sums and distances; the barrier's
+    counter last)."""
+    NN, Pm = n * n, P * m
+    return (NN + n + Pm + ((NN + M) if cuts else 0)
+            + ((NN + Pm + P * (2 * _NS + _ND)) if checked else 0) + 1)
+
+
+def norm_work_words(n: int, m: int, M: int, P: int, cuts: bool) -> int:
+    """Floats of the norm's global scratch on a grid of P CTAs:
+    ``csrc/pdhg_grid.cu``'s ``norm_work_words`` (the iterate Y and y, gX, the
+    dense rows' partials, kD, with cuts the weights, each CTA's five sums;
+    the barrier's counter last)."""
+    return 2 * n * n + n + P * m + m + (M if cuts else 0) + 5 * P + 1
+
+
+def grid_refusal(n: int, M: int, k: int, m: int) -> str | None:
+    """Why the grid route does not take n, a pool of capacity M and width k,
+    and m dense rows, or None where it does: 1 <= n <= 512, k = 2..5, and a
+    CTA's shared memory for the owned entries' state, the pool's weights
+    (M) and the dense rows' duals (m) beside the ring."""
+    if not 1 <= n <= GRID_NMAX:
+        return f"the grid route takes 1 <= n <= {GRID_NMAX}, got {n}"
+    if not 2 <= k <= 5:
+        return f"the grid route takes cuts of width k = 2..5, got {k}"
+    if 4 * block_words(n, M, m, True) > SMEM_MAX:
+        return (f"the grid route: n={n}, M={M}, m={m} exceed {SMEM_MAX} bytes of shared "
+                f"memory per CTA (the pool's weights and the dense rows' duals)")
+    return None
+
+
+def _args(cx, cX, pool: CutPool, index: CutIndex, states, dense: DenseRows | None, name: str):
+    """Check a launch's arguments (one instance) with K2's checks; returns
+    (n, M, k, m, cuts, the problem's contiguous tensors, dense)."""
+    n, M, k, m = cx.shape[0], *pool.idx.shape, 0 if dense is None else dense.m
+    cuts = (M, k) != (1, 1)
+    if cuts:
+        why = grid_refusal(n, M, k, m)
+    else:
+        from .pdhg_dense import dense_refusal
+
+        why = dense_refusal(n, M, k, m)
+        if why is None and columns(n) != GRID_NMAX:
+            why = f"the grid route takes the certifier's pool past n = 256, got n={n}"
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+    _checked_args(cx[None], cX[None], batch_of_one(pool), batch_of_one(index),
+                  [batch_of_one(s) for s in states],
+                  None if dense is None else batch_of_one(dense), name)
+    if dense is not None and any(t.data_ptr() % 16 or not t.is_contiguous()
+                                 for t in (dense.G, dense.g)):
+        dense = DenseRows(dense.G.contiguous().clone(), dense.g.contiguous().clone(), dense.h)
+    problem = [t.contiguous() for t in (cx, cX, index.idx, pool.lin, pool.quad, pool.rhs,
+                                        pool.active, index.xoff, index.xcut, index.xcoef,
+                                        index.Xoff, index.Xcut, index.Xcoef)]
+    d = [] if dense is None else [dense.G, dense.g, dense.h.contiguous()]
+    return n, M, k, m, cuts, problem, d
+
+
+def grid_ctas(n: int, M: int, k: int, m: int) -> int:
+    """The CTAs of the route's grid at (n, M, k, m) on the current card (the
+    certifier's pool: M = k = 1): those it co-schedules at the layout's
+    shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs,
+    asked once a device and size)."""
+    cuts = (M, k) != (1, 1)
+    out = ctypes.c_int(0)
+    err = _build.lib().pdhg_grid_ctas(n, M, k, m, columns(n), int(cuts),
+                                      4 * block_words(n, M, m, cuts), ctypes.byref(out))
+    if err in _ERRORS:
+        raise RuntimeError(f"pdhg_grid_ctas: {_ERRORS[err]} (n={n}, M={M}, m={m})")
+    _build.check(err, "pdhg_grid_ctas")
+    return out.value
+
+
+def _pointers(problem, d):
+    """(cx, cX, G, g, h, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff,
+    Xcut, Xcoef) pointers in the C entries' order."""
+    cx, cX, *pool = (t.data_ptr() for t in problem)
+    return [cx, cX, *([t.data_ptr() for t in d] or [None] * 3), *pool]
+
+
+def _raise(err: int, what: str, n: int, M: int, m: int):
+    if err in _ERRORS:
+        raise RuntimeError(f"{what}: {_ERRORS[err]} (n={n}, M={M}, m={m})")
+    _build.check(err, what)
+
+
+def _launch_block(cx, cX, pool: CutPool, index: CutIndex, ins, outs, rec, iters: int,
+                  dense: DenseRows | None) -> int:
+    """The block's launch from the states ``ins`` (state, sums) into
+    ``outs`` (which may be ``ins``) with the steps and stop flag of
+    ``rec``.  Returns the CTAs launched."""
+    n, M, k, m, cuts, problem, d = _args(cx, cX, pool, index, (*ins, *outs), dense,
+                                         "pdhg_grid_block")
+    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), cuts, False),
+                       dtype=torch.float32, device=cx.device)
+    grid = ctypes.c_int(0)
+    err = _build.lib().pdhg_grid_block_launch(
+        n, M, k, m, iters, columns(n), int(cuts), 4 * block_words(n, M, m, cuts),
+        rec.data_ptr(), *_pointers(problem, d),
+        *(t.data_ptr() for s in ins for t in s.fields()),
+        *(t.data_ptr() for s in outs for t in s.fields()), work.data_ptr(),
+        work[-1:].data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream)
+    _raise(err, "pdhg_grid_block_launch", n, M, m)
+    pdhg_grid_block.launches += 1
+    return grid.value
+
+
+def pdhg_grid_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                    tau: float, sigma: float, iters: int, dense: DenseRows | None = None):
+    """Run ``iters`` PDHG iterations from ``st`` with host steps tau and
+    sigma and add each iterate to ``acc``; returns new (state, acc), the
+    inputs left unchanged.  ``index`` is ``build_cut_index(pool, n)``."""
+    if cx.device.type == "cpu":
+        return pdhg_block_plain(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
+    if cx.device.type == "cuda":
+        ins = [st.map(lambda t: t.contiguous()), acc.map(lambda t: t.contiguous())]
+        outs = [s.map(torch.empty_like) for s in ins]
+        for o, s in zip(outs, ins):         # the certifier's pool: yC is left as it is
+            o.yC.copy_(s.yC)
+        _launch_block(cx, cX, pool, index, ins, outs,
+                      steps_record([tau], [sigma], cx.device)[0], iters, dense)
+        return outs[0], outs[1]
+    raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
+
+
+pdhg_grid_block.launches = 0
+
+
+def pdhg_grid_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                          acc: PDHGState, rec, iters: int, dense: DenseRows | None = None):
+    """``pdhg_grid_block`` in place on (st, acc), with the steps of the
+    solve's control record ``rec`` (int32 (REC_WORDS,) on the device), and
+    nothing done once its stop flag is set.  Counted in
+    ``pdhg_grid_block.launches``."""
+    if cx.device.type == "cpu":
+        pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, iters, dense)
+    elif cx.device.type == "cuda":
+        check_record(rec[None], 1, cx.device, "pdhg_grid_block")
+        if not all(t.is_contiguous() for s in (st, acc) for t in s.fields()):
+            raise ValueError("pdhg_grid_block: an in-place launch takes contiguous state and sums")
+        _launch_block(cx, cX, pool, index, [st, acc], [st, acc], rec, iters, dense)
+    else:
+        raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
+
+
+def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                      anchor: PDHGState, rec, check_every: int, restart_period: int,
+                      max_iters: int, tol: float, dense: DenseRows | None):
+    """The launch of the checked block, its arguments checked and its
+    pointers taken once: a function of no arguments that enqueues one launch
+    (the scratch allocated once, for every step)."""
+    n, M, k, m, cuts, problem, d = _args(cx, cX, pool, index, (st, acc, anchor), dense,
+                                         "pdhg_grid_block_checked")
+    check_record(rec[None], 1, cx.device, "pdhg_grid_block_checked")
+    if not all(t.is_contiguous() for s in (st, acc, anchor) for t in s.fields()):
+        raise ValueError("pdhg_grid_block_checked kernel takes contiguous state, sums and anchor")
+    if check_every < 1:
+        raise ValueError(f"pdhg_grid_block_checked: check_every must be >= 1, got {check_every}")
+    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), cuts, True),
+                       dtype=torch.float32, device=cx.device)
+    grid = ctypes.c_int(0)
+    args = (n, M, k, m, check_every, columns(n), int(cuts), 4 * block_words(n, M, m, cuts),
+            restart_period, max_iters, float(np.float32(tol)), rec.data_ptr(),
+            *_pointers(problem, d), *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
+            work.data_ptr(), work[-1:].data_ptr(), ctypes.byref(grid),
+            torch.cuda.current_stream(cx.device).cuda_stream)
+    fn = _build.lib().pdhg_grid_block_checked_launch
+
+    def launch():
+        _raise(fn(*args), "pdhg_grid_block_checked_launch", n, M, m)
+        pdhg_grid_block.launches += 1
+        pdhg_grid_block_checked.launches += 1
+
+    launch.keep = (problem, d, work, grid)   # alive as long as the step
+    return launch
+
+
+def grid_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
+                      anchor: PDHGState, rec, check_every: int, restart_period: int,
+                      max_iters: int, tol: float, dense: DenseRows | None = None):
+    """The solve's step on the grid route over fixed buffers
+    (``pdhg_check.checked_step``'s contract): a function of no arguments
+    that runs one checked block of ``check_every`` iterations in place on
+    (st, acc, anchor) and the record ``rec`` (REC_WORDS,).  CPU tensors take
+    the twins, CUDA tensors one launch a step."""
+    if cx.device.type == "cpu":
+        def step():
+            pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, check_every, dense)
+            pdhg_check_plain(cx, cX, pool, index, st, acc, anchor, rec, check_every,
+                             restart_period, max_iters, tol, dense)
+        return step
+    if cx.device.type != "cuda":
+        raise ValueError(f"pdhg_grid_block_checked: no kernel for device {cx.device}")
+    return _checked_launcher(cx, cX, pool, index, st, acc, anchor, rec, check_every,
+                             restart_period, max_iters, tol, dense)
+
+
+def pdhg_grid_block_checked(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                            acc: PDHGState, anchor: PDHGState, rec, check_every: int,
+                            restart_period: int, max_iters: int, tol: float,
+                            dense: DenseRows | None = None):
+    """One checked block of ``check_every`` iterations and its control, in
+    place on (st, acc, anchor) and the solve's record ``rec``
+    (``pdhg_check.pdhg_block_checked``'s contract, on the grid route).  A
+    launch counts in ``pdhg_grid_block.launches`` and here."""
+    grid_checked_step(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
+                      max_iters, tol, dense)()
+
+
+pdhg_grid_block_checked.launches = 0
+
+
+def pdhg_grid_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
+                   index: CutIndex, dense: DenseRows | None = None):
+    """||K|| 1.02 + 1e-12 of a grid-route solve after ``iters`` power
+    iterations from ``start_vector(n, generator, ...)`` (None: the seed-0
+    draw, kept on the device; the launch only reads it): a 0-d float32
+    tensor on the pool's device."""
+    dev = pool.lin.device
+    if dev.type == "cpu":
+        return estimate_norm_plain(pool, n, iters, generator, index, dense)
+    if dev.type != "cuda":
+        raise ValueError(f"pdhg_grid_norm: no kernel for device {dev}")
+    y, Y = (t.contiguous() for t in start_vector(n, generator, dev))
+    # the start vector stands where cx and cX stand in the block's checks
+    # (the same shapes); the norm reads neither
+    n, M, k, m, cuts, problem, d = _args(y, Y, pool, index, (), dense, "pdhg_grid_norm")
+    work = torch.empty(norm_work_words(n, m, M, grid_ctas(n, M, k, m), cuts),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    grid = ctypes.c_int(0)
+    ptrs = _pointers(problem, d)
+    err = _build.lib().pdhg_grid_norm_launch(
+        n, M, k, m, iters, columns(n), int(cuts), 4 * block_words(n, M, m, cuts), ptrs[2],
+        ptrs[3], ptrs[5], ptrs[6], ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(),
+        work.data_ptr(), work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise(err, "pdhg_grid_norm_launch", n, M, m)
+    pdhg_grid_norm.launches += 1
+    return out
+
+
+pdhg_grid_norm.launches = 0

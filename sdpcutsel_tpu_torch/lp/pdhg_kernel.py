@@ -20,11 +20,13 @@ band height, the shared bytes per CTA and the largest pool capacity M and
 dense row count m the plan takes at a shape; it raises where the shape does
 not fit (``plan_refusal`` says why).
 ``kernel_route`` chooses a solve's route by ``LPConfig.use_kernel`` and that
-same rule: K2 for a pool of cuts, the dense route (``lp/pdhg_dense.py``) for
-the certifier's pool without cuts.  On CUDA a kernel route runs unless the
-caller asks for the plain loop ("off"): a shape that neither takes (n > 256,
-a pool too large for shared memory) raises with the rule's reason.  The
-plain blocks a solve runs on CUDA are counted in
+same rule: K2 for a pool of cuts it takes, the grid route
+(``lp/pdhg_grid.py``) for the pools of cuts it does not (n > 256, a pool or
+dense rows past its shared memory), the dense route (``lp/pdhg_dense.py``)
+for the certifier's pool without cuts.  On CUDA a kernel route runs unless
+the caller asks for the plain loop ("off"): a shape that none takes
+(n > 512, a pool too large for any route's shared memory) raises with the
+rules' reasons.  The plain blocks a solve runs on CUDA are counted in
 ``pdhg_block.plain_launches``.
 
 The cut adjoint (scatter of yC-weighted coefficients into gx, gX) is
@@ -72,6 +74,7 @@ from .pdhg import REC_SIGMA, REC_STOP, REC_TAU, REC_WORDS, PDHGState, _one_iter,
 
 NARROW = 128                # csrc/pdhg_common.cuh kNarrow: the width for n <= 128
 NMAX = 256                  # kWide: one thread column per matrix column up to n = 256
+WIDEST = 512                # kWidest: the grid route's width for 256 < n <= 512
 CLUSTER = 16                # CTAs in the cluster (non-portable size; 8 is portable)
 SMEM_MAX = 232_448          # dynamic shared memory one CTA may take on the H100
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
@@ -82,9 +85,10 @@ _ERRORS = {-2: "the launch plan disagrees with the kernel's shared-memory layout
 
 def columns(n: int) -> int:
     """The kernels' column width at n (``csrc/pdhg_common.cuh`` cols_for):
-    128 for n <= 128, 256 above.  A thread owns one column, so a CTA's 512
+    128 for n <= 128, 256 up to n = 256, 512 above (the grid route's alone,
+    ``lp/pdhg_grid.py``).  In K2 a thread owns one column, so a CTA's 512
     threads are 512 / width row groups of width / 32 warps a row."""
-    return NARROW if n <= NARROW else NMAX
+    return NARROW if n <= NARROW else (NMAX if n <= NMAX else WIDEST)
 
 
 def _check_words(C: int) -> int:
@@ -163,29 +167,39 @@ def plan_refusal(n: int, M: int, k: int, m: int, cluster: int = CLUSTER) -> str 
 def route_refusal(n: int, M: int, k: int, m: int) -> tuple[str, str | None]:
     """The kernel route whose rule decides a shape, and why it does not
     take it (None where it does): the dense route (``lp/pdhg_dense.py``) for
-    the certifier's pool without cuts, any m; K2 with K5 and K6 for every
-    other pool (``plan_refusal``).  A pool of width 1 is a pool without cuts:
-    a cut has k = 2..5 entries, so no cut fits it, and the certifier's
+    the certifier's pool without cuts, any m; for every other pool K2 with
+    K5 and K6 wherever its cluster takes the shape (``plan_refusal``), else
+    the grid route (``lp/pdhg_grid.py``, ``grid_refusal``), and where
+    neither takes it both reasons.  A pool of width 1 is a pool without
+    cuts: a cut has k = 2..5 entries, so no cut fits it, and the certifier's
     sentinel ``empty_pool(1, 1)`` is the one such pool.  The dense kernels
     leave its yC as it is, where the twins apply the pool's inactive row."""
     if (M, k) == (1, 1):
         from .pdhg_dense import dense_refusal
 
         return "dense", dense_refusal(n, M, k, m)
-    return "k2", plan_refusal(n, M, k, m)
+    why = plan_refusal(n, M, k, m)
+    if why is None:
+        return "k2", None
+    from .pdhg_grid import grid_refusal
+
+    why_grid = grid_refusal(n, M, k, m)
+    return "grid", None if why_grid is None else f"{why}; {why_grid}"
 
 
 def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> str:
     """The route of a solve's blocks, check and norm, by
-    ``LPConfig.use_kernel``: "k2" (K2, K5, K6), "dense" (the dense-row
-    kernels of ``csrc/pdhg_dense.cu``) or "plain" (the plain ``_one_iter``
-    loop and the twins on the tensors' device).  "off" plain;
+    ``LPConfig.use_kernel``: "k2" (K2, K5, K6), "grid" (the grid route's
+    kernels of ``csrc/pdhg_grid.cu``, for the pools of cuts K2's cluster
+    does not hold), "dense" (the dense-row kernels of ``csrc/pdhg_dense.cu``,
+    and of ``csrc/pdhg_grid.cu`` past n = 256) or "plain" (the plain
+    ``_one_iter`` loop and the twins on the tensors' device).  "off" plain;
     "on" the kernel route of the shape (``route_refusal``), raising where it
     does not take the shape; "auto" the same on CUDA, and plain on any other
     device.  A kernel route on the CPU runs its wrappers' twins.  The
     reference's "auto" runs its plain loop on the accelerator outside its
     kernel's shapes (n > 128, ``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here
-    the kernels take n <= 256, and the plain loop runs on the card only when
+    the kernels take n <= 512, and the plain loop runs on the card only when
     the caller asks for it with "off"."""
     if use_kernel == "off":
         return "plain"
