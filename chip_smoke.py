@@ -151,6 +151,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
      certifier at n = 300 (3 plain eigencut rounds of phase 15 (c)'s LP),
      twice bit for bit, on the grid route's form without cuts; its time
      printed;
+ 20. grid batches (run after phase 19; the grid route's instance walk, one
+     cooperative launch running a batch's instances one after another): (a)
+     the batched block, checked launch and norm at B = 4 on phase 3's pool
+     and random state style at n = 512 (k = 3), n = 200 (k = 5, 25 dense
+     rows) and n = 201 (the same, G's instance stride not a multiple of 4
+     floats): against the batched twins at phase 19's tolerances, an
+     instance left out of ids or stopped in its record unchanged bit for
+     bit, every other instance bit for bit the single entry's, twice bit
+     for bit, ptxas without a spill; each batched launch timed on the
+     device in turns with the four single launches, beside the batch's
+     bound; (b) 4 x generate_spar(512, 100, s + 1) in BATCH_KNOBS, 5
+     per-round steps twice bit for bit, then the 5-round scan equal to
+     them: every certificate at least its instance's feasible objective,
+     the running bounds monotone, instance-rounds/s; one batched grid
+     checked launch a checked block, one batched norm a solve, K1 once an
+     instance a round, no K2 and no plain block, twin check or twin-scored
+     call; (c) 4 x generate_qcqp_band(200, 5, 25, s) (k = 5 over the band
+     graph's clique table, sel_size 16, LPConfig(3000, 1e-5)), 2 rounds
+     twice bit for bit, the first within rtol 2e-3 of the CPU port's
+     batched round, K4 once an instance a round and (b)'s launch checks;
+     (d) python3 -m sdpcutsel_tpu_torch.bench_batched --n 300 --batch 4
+     --rounds 3 in a subprocess runs to its end; with --parent DIR, the
+     single-instance grid entries at phase 19's shapes bit for bit the
+     parent build's, the block timed in turns with it;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -269,9 +293,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      blocks and the twin-scored calls 0 on each) join the kernels line;
  14. one JSON line of kernel results (twelve entries), each kernel's
      launches summed over the main paths 5-13, 15-17 and the wide and grid
-     paths of phases 4, 18 and 19 (each counted from 0; the sums over the
+     paths of phases 4, 18, 19 and 20 (each counted from 0; the sums over the
      paths at n <= 128 alone are printed before the line); the grid route's
-     entries hold spar512's shape, every shape under "shapes", and K1's
+     entries hold spar512's shape, every shape under "shapes", phase 20's
+     batched launches under "batched", and K1's
      the n = 512 numbers ("n512"); K2's entry also holds the
      batched launch's time, bound and the clusters the card runs at once,
      and K1, K2, K5, K6 and K7's entries the wide shapes' numbers ("n256",
@@ -339,8 +364,12 @@ from sdpcutsel_tpu_torch.lp.pdhg_check import pdhg_block_checked, pdhg_block_che
 from sdpcutsel_tpu_torch.lp.pdhg_dense import (pdhg_dense_block, pdhg_dense_block_checked,
                                                pdhg_dense_block_steps, pdhg_dense_norm)
 from sdpcutsel_tpu_torch.lp import pdhg_grid
-from sdpcutsel_tpu_torch.lp.pdhg_grid import (pdhg_grid_block, pdhg_grid_block_checked,
-                                              pdhg_grid_block_steps, pdhg_grid_norm)
+from sdpcutsel_tpu_torch.lp.pdhg_grid import (pdhg_grid_block, pdhg_grid_block_batched,
+                                              pdhg_grid_block_checked,
+                                              pdhg_grid_block_checked_batched,
+                                              pdhg_grid_block_steps,
+                                              pdhg_grid_block_steps_batched, pdhg_grid_norm,
+                                              pdhg_grid_norm_batched)
 from sdpcutsel_tpu_torch.lp import pdhg_norm as pdhg_norm_mod
 from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm, pdhg_norm_batched
 from sdpcutsel_tpu_torch.lp import pdhg_kernel
@@ -4111,6 +4140,580 @@ def grid_phase(dev) -> dict:
     return out
 
 
+# ---- phase 20, grid batches: the grid route's instance walk ---------------------
+# The grid kernels' batched entries (csrc/pdhg_grid.cu: one cooperative
+# launch walks the instances of a batch one after another, each over the
+# whole card) at B = GRID_BATCH: at n = 512 with k = 3 cuts, at n = 200 with
+# k = 5 cuts and 25 dense rows, and at n = 201 with 25 (G's instance stride,
+# 25 x 201^2 floats, not a multiple of 4); then the batched round past K2's
+# cluster, BoxQP at n = 512 and the QCQP band at n = 200; then bench_batched
+# at n = 300 on the card.
+GRID_BATCH = 4
+GRID_BATCH_SHAPES = {"n=512 k=3 m=0": (512, 3, 0), "n=200 k=5 m=25": (200, 5, 25),
+                     "n=201 k=5 m=25": (201, 5, 25)}
+GRID_BATCH_FROZEN = 2                 # the instance left out of ids, or stopped in its record
+GRID_BATCH_INSTANCE = (512, 100)      # generate_spar(512, 100, s + 1), s < GRID_BATCH
+GRID_BATCH_ROUNDS = 5
+GRID_BATCH_BAND = (200, 5, 25)        # generate_qcqp_band(200, 5, 25, s), s = 1..GRID_BATCH
+GRID_BATCH_BAND_ROUNDS = 2
+GRID_BATCH_BAND_CPU_ROUNDS = 1        # of them held to the CPU port's batched round
+GRID_BATCH_CLI = ["--n", "300", "--batch", "4", "--rounds", "3"]
+
+
+def grid_batch_inputs(label: str, dev):
+    """(cx, cX, pool, index, state, dense, singles) of a GRID_BATCH_SHAPES
+    shape at B = GRID_BATCH: instance s has generate_spar(n, 100, s + 1)'s
+    objective (m = 0) or generate_qcqp(n, 30, m, s + 1)'s and its m dense
+    rows, its own pool of M = 1024 with 400 active random unit cuts on 2,000
+    random k-subsets of its columns and a random state (phase 3's
+    random_pool and random_state); ``singles``: each instance's (cx, cX,
+    pool, its own cut index, state, dense rows in a tensor of their own)."""
+    n, k, m = GRID_BATCH_SHAPES[label]
+    rng = np.random.default_rng(SEED + 5)
+    f32 = dict(dtype=torch.float32, device=dev)
+    singles = []
+    for s in range(GRID_BATCH):
+        if m == 0:
+            inst = generate_spar(n, 100, s + 1)
+            Q, c, dense = inst.Q, inst.c, None
+        else:
+            q = generate_qcqp(n, 30, m, s + 1)
+            Q, c, dense = q.Q0, q.c0, dense_from_qcqp(q.Qs, q.cs, q.bs, dev)
+        table = np.sort(np.stack([rng.choice(n, k, replace=False) for _ in range(2000)]), axis=1)
+        pool = random_pool(table, 1024, 400, rng, dev)
+        st = random_state(n, 1024, m, pool, rng, dev)
+        singles.append((torch.as_tensor(-c, **f32), torch.as_tensor(-0.5 * Q, **f32), pool,
+                        build_cut_index(pool, n), st, dense))
+    cxs, cXs, pools, _, sts, denses = zip(*singles)
+    P = rb.stack(list(pools))
+    return (torch.stack(cxs), torch.stack(cXs), P, rb.build_cut_index(P, n),
+            rb.stack(list(sts)), None if m == 0 else rb.stack(list(denses)), singles)
+
+
+def grid_batch_shape(inputs) -> tuple:
+    cx, _, P, _, _, dense, _ = inputs
+    return (*cx.shape, *P.idx.shape[1:], 0 if dense is None else dense.G.shape[1])
+
+
+def grid_batch_eta(inputs):
+    """Each instance's 0.95 / ||K|| (the twin's norm), (B,) float32."""
+    cx, _, P, index, _, dense, _ = inputs
+    normK = estimate_norm_batched_plain(P, cx.shape[1], 30, torch.Generator().manual_seed(0),
+                                        index, dense)
+    return (np.float32(0.95) / normK.cpu().numpy()).astype(np.float32)
+
+
+def fields_of(pair) -> list:
+    return [*pair[0].fields(), *pair[1].fields()]
+
+
+def grid_batch_bound(inputs, ops_of, moved: int) -> dict:
+    """The batch's bound: every instance's operations (ops_of(active,
+    terms) of its own pool and cut index), the bytes ``moved``."""
+    singles = inputs[6]
+    return bound(sum(ops_of(int(p.active.sum()), int(i.Xcut.numel() + i.xcut.numel()))
+                     for _, _, p, i, _, _ in singles), moved)
+
+
+def in_turns(batched, singles, reps: int) -> tuple:
+    """The batched call and the B single calls on the device (queued events),
+    in turns: batched, singles, singles, batched; the means."""
+    tb, ts = [], []
+    for runs, fn in ((tb, batched), (ts, singles), (ts, singles), (tb, batched)):
+        runs.append(queued_ms(fn, reps=reps))
+    return sum(tb) / 2, sum(ts) / 2, tb, ts
+
+
+def check_grid_block_batched(label: str, inputs) -> dict:
+    """The batched block (pdhg_grid_block_batched) with instance
+    GRID_BATCH_FROZEN left out of ids against its twin
+    (pdhg_block_batched_plain) at phase 19's tolerances, 7 and 100
+    iterations; the instance left out unchanged bit for bit; every listed
+    instance bit for bit the single-instance entry's (pdhg_grid_block) on
+    its own cut index; two launches bit for bit; the inputs unchanged; the
+    in-place form with the records' steps (that instance's record stopped)
+    bit for bit; the batched launch and the B single launches timed on the
+    device in turns, beside the batch's bound."""
+    cx, cX, P, index, st, dense, singles = inputs
+    B, n, M, k, m = grid_batch_shape(inputs)
+    eta = grid_batch_eta(inputs)
+    acc = st.map(torch.zeros_like)
+    args = (cx, cX, P, index, st, acc, eta, eta)
+    frozen = GRID_BATCH_FROZEN
+    ids = [b for b in range(B) if b != frozen]
+    before = [t.clone() for t in (*st.fields(), *acc.fields())]
+    worst = 0.0
+    for iters, (tol_st, tol_acc) in ((7, ((2e-5, 2e-5), (2e-5, 2e-5))),
+                                     (100, ((3e-4, 3e-4), (3e-4, 3e-2)))):
+        got = pdhg_grid_block_batched(*args, iters, ids, dense)
+        again = pdhg_grid_block_batched(*args, iters, ids, dense)
+        want = pdhg_block_batched_plain(*args, iters, ids, dense)
+        torch.cuda.synchronize()
+        errs, ratio = [], 0.0
+        for g_, w_, tol in zip(fields_of(got), fields_of(want), [tol_st] * 6 + [tol_acc] * 6):
+            if g_[ids].numel():
+                e, r = excess(g_[ids], w_[ids], *tol)
+                errs.append(e)
+                ratio = max(ratio, r)
+        repeat = states_equal(list(got), list(again))
+        left_out = all(torch.equal(g_[frozen], w_[frozen]) for g_, w_ in zip(fields_of(got),
+                                                                             before))
+        alone = True
+        for b in ids:
+            sx, sX, sp, si, ss, sd = singles[b]
+            one = pdhg_grid_block(sx, sX, sp, si, ss, ss.map(torch.zeros_like), float(eta[b]),
+                                  float(eta[b]), iters, sd)
+            alone &= all(torch.equal(u, v[b]) for u, v in zip(fields_of(one), fields_of(got)))
+        log(f"[pdhg_grid batched {label}] B={B}, {iters} iterations, instance {frozen} left out: "
+            f"max|err| {max(errs):.3e}, {ratio:.3f} of the limit (state {tol_st}, sums "
+            f"{tol_acc}); two launches bit for bit: {repeat}; the instance left out unchanged "
+            f"bit for bit: {left_out}; each listed instance bit for bit the single entry's: "
+            f"{alone}")
+        if not (ratio <= 1.0 and repeat and left_out and alone):
+            raise AssertionError(f"the batched grid block fails its checks ({label}, {iters} "
+                                 f"iterations)")
+        worst = max(worst, *errs)
+    unchanged = all(torch.equal(a, b) for a, b in zip((*st.fields(), *acc.fields()), before))
+    ip = [st.map(torch.clone), acc.map(torch.clone)]
+    rec = pdhg_kernel.steps_record(eta, eta, cx.device)
+    rec[frozen, REC_STOP] = 1
+    pdhg_grid_block_steps_batched(cx, cX, P, index, *ip, rec, 100, dense)
+    in_place = all(torch.equal(u[b], v[b]) for b in ids
+                   for u, v in zip(fields_of(ip), fields_of(got)))
+    stopped = all(torch.equal(u[frozen], v[frozen]) for u, v in zip(fields_of(ip), before))
+    log(f"[pdhg_grid batched {label}] inputs unchanged: {unchanged}; the in-place block with the "
+        f"records' steps bit for bit: {in_place}; a stopped record's instance unchanged: "
+        f"{stopped}")
+    if not (unchanged and in_place and stopped):
+        raise AssertionError(f"the batched grid block wrote its inputs, its in-place form "
+                             f"differs or it ran a stopped instance ({label})")
+    rec = pdhg_kernel.steps_record(eta, eta, cx.device)
+    views = [[rb.instance(s, b) for s in ip] for b in range(B)]
+
+    def batched():
+        pdhg_grid_block_steps_batched(cx, cX, P, index, *ip, rec, 100, dense)
+
+    def each():
+        for b in range(B):
+            sx, sX, sp, si, _, sd = singles[b]
+            pdhg_grid_block_steps(sx, sX, sp, si, *views[b], rec[b], 100, sd)
+
+    dev_ms, singles_ms, tb, ts = in_turns(batched, each, reps=5)
+    ms = cuda_ms(lambda: pdhg_grid_block_batched(*args, 100, list(range(B)), dense), reps=5)
+    plain_ms = cuda_ms(lambda: pdhg_block_batched_plain(*args, 100, list(range(B)), dense),
+                       reps=1, warmup=1)
+    b_ = grid_batch_bound(inputs, lambda a, t: pdhg_ops(n, k, m, a, t, 100), nbytes(
+        cx, cX, index.idx, P.lin, P.quad, P.rhs, P.active, index.xoff, index.xcut, index.xcoef,
+        index.Xoff, index.Xcut, index.Xcoef, *before, *fields_of(got),
+        *([] if dense is None else [dense.G, dense.g, dense.h])))
+    log(f"[pdhg_grid batched {label}] 100 iterations of all {B}: one batched launch {dev_ms:.4f} "
+        f"ms on the device (queued events; in turns {tb!r}), the {B} single launches "
+        f"{singles_ms:.4f} ms ({ts!r}): {dev_ms / singles_ms:.4f} of them; by events back to "
+        f"back {ms:.4f} ms; twin {plain_ms:.4f} ms; {share(dev_ms, b_)} (of the device time) "
+        f"({SMI})")
+    return {"batch": B, "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+            "singles_device_ms": singles_ms, "plain_ms": plain_ms, **b_,
+            "share": b_["bound_ms"] / dev_ms}
+
+
+def check_grid_check_batched(label: str, inputs) -> dict:
+    """The batched checked launch (pdhg_grid_block_checked_batched: a
+    100-iteration block, then the checked block's control, every instance in
+    one launch) against the batched block then the batched twin check
+    (pdhg_check_batched_plain), as phase 19 holds the single one: restart
+    periods 10^9 and 100, the records' float words at rtol 1e-5 and their
+    ints equal, the state, sums and anchor bit for bit, twice bit for bit;
+    instance GRID_BATCH_FROZEN's record stopped, left as it is; every other
+    instance bit for bit the single checked entry's; the batched checked
+    launch and the B single ones timed on the device in turns, the check's
+    share the checked launch's less the block's."""
+    cx, cX, P, index, st0, dense, singles = inputs
+    B, n, M, k, m = grid_batch_shape(inputs)
+    normK = estimate_norm_batched_plain(P, n, 30, torch.Generator().manual_seed(0), index, dense)
+    every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
+    never = (10 ** 9, -1.0)
+    frozen = GRID_BATCH_FROZEN
+    ids = [b for b in range(B) if b != frozen]
+
+    def prepare(stop=True):
+        rec = new_record(normK, 1.0, 0.95, top, tol, cx.device, batch=B)
+        if stop:
+            rec[frozen, REC_STOP] = 1
+        return [st0.map(torch.clone), st0.map(torch.zeros_like), st0.map(torch.clone), rec]
+
+    def checked(bufs, rp, stop=(top, tol)):
+        pdhg_grid_block_checked_batched(cx, cX, P, index, *bufs, every, rp, *stop, dense)
+        return bufs
+
+    def twin(bufs, rp):
+        pdhg_grid_block_steps_batched(cx, cX, P, index, bufs[0], bufs[1], bufs[3], every, dense)
+        pdhg_check_batched_plain(cx, cX, P, index, *bufs, every, rp, top, tol, dense)
+        return bufs
+
+    def flat(bufs) -> list:
+        return [*(u for x in bufs[:3] for u in x.fields()), bufs[3]]
+
+    worst = 0.0
+    for rp in (10 ** 9, 100):
+        ka, kb, tw, fresh = checked(prepare(), rp), checked(prepare(), rp), twin(prepare(), rp), \
+            prepare()
+        torch.cuda.synchronize()
+        bad, rel, absd = record_diff(ka[3], tw[3], ids)
+        same = states_equal(ka[:3], tw[:3])
+        repeat = states_equal(ka[:3], kb[:3]) and torch.equal(ka[3], kb[3])
+        left = all(torch.equal(u[frozen], v[frozen]) for u, v in zip(flat(ka), flat(fresh)))
+        alone = True
+        for b in ids:
+            sx, sX, sp, si, _, sd = singles[b]
+            one = [rb.instance(x, b).map(torch.clone) for x in fresh[:3]] + [fresh[3][b].clone()]
+            pdhg_grid_block_checked(sx, sX, sp, si, *one, every, rp, top, tol, sd)
+            alone &= all(torch.equal(u, v[b]) for u, v in zip(flat(one), flat(ka)))
+        r = ka[3].cpu().numpy()
+        log(f"[pdhg_grid_check batched {label}] restart_period {rp}: restarts "
+            f"{r[:, REC_RESTART].tolist()}, use_avg {r[:, REC_USE_AVG].tolist()}; against the "
+            f"batched block then the twin check: int words differing {bad}, largest rel diff of "
+            f"the float words {rel:.3e} (rtol {CONTROL_RTOL}), max|err| of err/p/d/omega "
+            f"{absd:.3e}; state, sums and anchor bit for bit: {same}; two launches bit for bit: "
+            f"{repeat}; the stopped instance left as it is: {left}; each other instance bit "
+            f"for bit the single checked entry's: {alone}")
+        if bad or rel > CONTROL_RTOL or not (same and repeat and left and alone):
+            raise AssertionError(f"the batched grid checked launch fails its checks ({label}, "
+                                 f"restart_period {rp})")
+        worst = max(worst, absd)
+    bufs = prepare(stop=False)
+    bufs[3] = new_record(normK, 1.0, 0.95, 10 ** 9, 0.0, cx.device, batch=B)
+    views = [[rb.instance(x, b) for x in bufs[:3]] + [bufs[3][b]] for b in range(B)]
+
+    def batched():
+        checked(bufs, 100, never)
+
+    def each():
+        for b in range(B):
+            sx, sX, sp, si, _, sd = singles[b]
+            pdhg_grid_block_checked(sx, sX, sp, si, *views[b], every, 100, *never, sd)
+
+    def unchecked():
+        pdhg_grid_block_steps_batched(cx, cX, P, index, bufs[0], bufs[1], bufs[3], every, dense)
+
+    both, singles_ms, tb, ts = in_turns(batched, each, reps=5)
+    blk, _, tk, _ = in_turns(unchecked, batched, reps=5)
+    dev_ms = both - blk
+    tw = prepare()
+    plain_ms = cuda_ms(lambda: pdhg_check_batched_plain(cx, cX, P, index, *tw, every, 100, top,
+                                                        tol, dense), reps=2)
+    b_ = grid_batch_bound(inputs, lambda a, t: check_ops(n, k, m, a, t, True),
+                          check_bytes(cx, cX, P, index, dense, *bufs))
+    log(f"[pdhg_grid_check batched {label}] on the device (queued events, in turns): the batched "
+        f"checked launch {both:.4f} ms ({tb!r}), the {B} single checked launches "
+        f"{singles_ms:.4f} ms ({ts!r}); the batched block alone {blk:.4f} ms ({tk!r}): the "
+        f"check in the launch {dev_ms:.4f} ms; twin check {plain_ms:.4f} ms; "
+        f"{share(max(dev_ms, 1e-9), b_)} (of its device time) ({SMI})")
+    return {"batch": B, "max_abs_err": worst, "ms": dev_ms, "device_ms": dev_ms,
+            "checked_launch_ms": both, "singles_checked_ms": singles_ms,
+            "unchecked_launch_ms": blk, "plain_ms": plain_ms, **b_,
+            "share": b_["bound_ms"] / max(dev_ms, 1e-9)}
+
+
+def check_grid_norm_batched(label: str, inputs) -> dict:
+    """The batched norm (pdhg_grid_norm_batched, 30 power iterations of
+    every instance in one launch) against its twin
+    (estimate_norm_batched_plain) at rtol 1e-5, twice bit for bit, every
+    instance bit for bit the single entry's; the batched launch and the B
+    single ones timed on the device in turns."""
+    cx, cX, P, index, _, dense, singles = inputs
+    B, n, M, k, m = grid_batch_shape(inputs)
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    a = pdhg_grid_norm_batched(P, n, 30, gen(), index, dense)
+    a2 = pdhg_grid_norm_batched(P, n, 30, gen(), index, dense)
+    t = estimate_norm_batched_plain(P, n, 30, gen(), index, dense)
+    rel = float(((a - t).abs() / t.abs()).max())
+    ones = torch.stack([pdhg_grid_norm(sp, n, 30, gen(), si, sd)
+                        for _, _, sp, si, _, sd in singles])
+    repeat, alone = torch.equal(a, a2), torch.equal(a, ones)
+    log(f"[pdhg_grid_norm batched {label}] ||K|| {a.tolist()}, twin {t.tolist()}: largest rel "
+        f"diff {rel:.3e} (rtol {CONTROL_RTOL}); two launches bit for bit: {repeat}; each "
+        f"instance bit for bit the single entry's: {alone}")
+    if rel > CONTROL_RTOL or not (repeat and alone):
+        raise AssertionError(f"the batched grid norm fails its checks ({label})")
+
+    def batched():
+        pdhg_grid_norm_batched(P, n, 30, None, index, dense)
+
+    def each():
+        for _, _, sp, si, _, sd in singles:
+            pdhg_grid_norm(sp, n, 30, None, si, sd)
+
+    dev_ms, singles_ms, tb, ts = in_turns(batched, each, reps=5)
+    ms = cuda_ms(batched, reps=5)
+    plain_ms = cuda_ms(lambda: estimate_norm_batched_plain(P, n, 30, gen(), index, dense), reps=1,
+                       warmup=1)
+    b_ = grid_batch_bound(inputs, lambda a_, t_: norm_ops(n, k, m, a_, t_, 30), nbytes(
+        index.idx, P.lin, P.quad, P.active, index.xoff, index.xcut, index.xcoef, index.Xoff,
+        index.Xcut, index.Xcoef, a, *([] if dense is None else [dense.G, dense.g]))
+        + 4 * (n + n * n))
+    log(f"[pdhg_grid_norm batched {label}] 30 power iterations of all {B}: one batched launch "
+        f"{dev_ms:.4f} ms on the device (queued events; in turns {tb!r}), the {B} single "
+        f"launches {singles_ms:.4f} ms ({ts!r}); by events {ms:.4f} ms; twin {plain_ms:.4f} ms; "
+        f"{share(dev_ms, b_)} (of the device time) ({SMI})")
+    return {"batch": B, "max_abs_err": float((a - t).abs().max()), "ms": ms, "device_ms": dev_ms,
+            "singles_device_ms": singles_ms, "plain_ms": plain_ms, **b_,
+            "share": b_["bound_ms"] / dev_ms}
+
+
+def grid_batch_kernels(dev) -> dict:
+    """Phase 20 (a): the batched block, checked launch and norm at
+    GRID_BATCH_SHAPES against their twins and the single entries; ptxas
+    without a spill or a stack.  Returns {kernel: {shape label: numbers}}."""
+    out = {"pdhg_grid": {}, "pdhg_grid_check": {}, "pdhg_grid_norm": {}}
+    log(f"[grid batch] ptxas: {grid_ptxas()}")
+    for label in GRID_BATCH_SHAPES:
+        t0 = time.perf_counter()
+        inputs = grid_batch_inputs(label, dev)
+        n, m = inputs[0].shape[1], grid_batch_shape(inputs)[4]
+        if m:
+            G, _, _, sG, _ = pdhg_grid.dense_layout(inputs[5])
+            copied = G.data_ptr() != inputs[5].G.data_ptr()
+            log(f"[grid batch {label}] G's instance stride {m * n * n} floats, the walk's {sG}: "
+                f"{'a padded copy' if copied else 'the batch itself'}")
+        out["pdhg_grid"][label] = check_grid_block_batched(label, inputs)
+        out["pdhg_grid_check"][label] = check_grid_check_batched(label, inputs)
+        out["pdhg_grid_norm"][label] = check_grid_norm_batched(label, inputs)
+        log(f"[grid batch {label}] checked in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def grid_launch_checks(tag: str, launches: dict, blocks: int, solves: int, scorer: str,
+                       scored: int) -> dict:
+    """A batched round on the grid route: one batched checked launch a
+    checked block of the batch (at most GROUP_BLOCKS - 1 more a solve, which
+    do nothing), every block a checked launch, one batched norm a solve,
+    ``scorer`` once an instance a round, and no plain block, twin check or
+    twin-scored call, no K2, K5 or K6."""
+    G = pdhg_mod.GROUP_BLOCKS
+    chk = launches["pdhg_grid_check"]
+    log(f"[{tag}] the grid route: {launches[SOLVES]} solves, {blocks} checked blocks, batched "
+        f"checked launches {chk}, block launches {launches['pdhg_grid']}, norms "
+        f"{launches['pdhg_grid_norm']}; {scorer} {launches[scorer]}; launches {launches}")
+    return {
+        "one batched checked launch a checked block": blocks <= chk <= blocks + (G - 1) * solves,
+        "every block a checked launch": launches["pdhg_grid"] == chk,
+        "one batched norm a solve": launches["pdhg_grid_norm"] == launches[SOLVES] == solves,
+        f"{scorer} once an instance a round ({scored})": launches[scorer] == scored,
+        "no plain block, twin check or twin-scored call":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        "no K2, K5 or K6": launches["pdhg_block"] == launches["pdhg_check"]
+        == launches["pdhg_norm"] == 0,
+    }
+
+
+def grid_batch_boxqp(dev) -> tuple:
+    """Phase 20 (b): GRID_BATCH x generate_spar(512, 100, s + 1) with
+    BATCH_KNOBS (capacity 1024, k = 3 over all 22,238,720 triples, Mesh(1,
+    1)), GRID_BATCH_ROUNDS per-round steps, twice bit for bit, then the
+    scan of as many rounds, equal to the per-round steps; every certificate
+    at least its instance's feasible objective, the running bounds
+    monotone; the launches of grid_launch_checks.  Returns (launch counts,
+    checks)."""
+    n, d = GRID_BATCH_INSTANCE
+    insts = [generate_spar(n, d, s + 1) for s in range(GRID_BATCH)]
+    B, R_ = len(insts), GRID_BATCH_ROUNDS
+    mesh = make_mesh(1, 1)
+    table, valid = shard_candidates(combinations_table(n, 3), mesh, device=dev)
+    step = make_sharded_round_step(mesh, **BATCH_KNOBS)
+    reset_launches()
+    state, best, iters, wall = batched_run(step, insts, table, valid, dev, R_)
+    launches = launch_counts()
+    blocks = int(sum(it.max() // 100 for it in iters))
+    again, best2, iters2, _ = batched_run(step, insts, table, valid, dev, R_)
+    repeat = (batched_states_equal(state, again) and np.array_equal(best, best2)
+              and np.array_equal(iters, iters2))
+    start = init_batched_state(np.stack([i.Q for i in insts]), np.stack([i.c for i in insts]),
+                               1024, 3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, outs = make_sharded_scan_step(mesh, rounds=R_, **BATCH_KNOBS)(start, table, valid)
+    torch.cuda.synchronize()
+    scan_wall = time.perf_counter() - t0
+    certs = certify_scan_f64(final.Q, final.c, outs)
+    floors = [feasible_objective(inst, state.pdhg.x[b].cpu().numpy())
+              for b, inst in enumerate(insts)]
+    for b, inst in enumerate(insts):
+        log(f"[grid batch {inst.name}] certificates by round {certs[:, b].tolist()}; f32 running "
+            f"bound {best[:, b].tolist()}; lp_iters {iters[:, b].tolist()}; cuts "
+            f"{int(state.pool.count[b])}; a feasible point's f {floors[b]!r}")
+    log(f"[grid batch boxqp] {B} x generate_spar({n}, {d}, s + 1), {R_} per-round steps in "
+        f"{wall:.3f} s = {B * R_ / wall!r} instance-rounds/s; the scan {scan_wall:.3f} s = "
+        f"{B * R_ / scan_wall!r} instance-rounds/s ({SMI})")
+    return launches, {
+        f"{R_} rounds ran": len(best) == R_,
+        "a second run repeats every round bit for bit": repeat,
+        "the scan equals the per-round steps": batched_states_equal(final, state),
+        "certificates finite": bool(np.isfinite(certs).all()),
+        "every certificate >= its instance's feasible objective":
+            bool(all((certs[:, b] >= floors[b]).all() for b in range(B))),
+        "running bounds monotone": bool((np.diff(best, axis=0) <= 0).all()),
+        **grid_launch_checks("grid batch boxqp", launches, blocks, R_, "pair_score", B * R_),
+    }
+
+
+def grid_batch_band(dev) -> tuple:
+    """Phase 20 (c): GRID_BATCH x generate_qcqp_band(200, 5, 25, s), whose
+    25 dense rows K2's cluster does not hold at n = 200 (its plan takes 10),
+    one clique table at k = 5 (the band graph's 5,876 candidates),
+    sel_size 16, GRID_BAND_CFG's LP, GRID_BATCH_BAND_ROUNDS per-round steps
+    on the card, twice bit for bit; the first GRID_BATCH_BAND_CPU_ROUNDS
+    certificates within GRID_RTOL of the CPU port's batched round; K4 once an
+    instance a round and the launches of grid_launch_checks.  Returns
+    (launch counts, checks)."""
+    n, bw, m = GRID_BATCH_BAND
+    fam = [generate_qcqp_band(n, bw, m, s) for s in range(1, GRID_BATCH + 1)]
+    B, R_ = len(fam), GRID_BATCH_BAND_ROUNDS
+    cliques, _ = chordal_decomposition(n, fam[0].sparsity_graph())
+    table_np = clique_candidates(cliques, 5)
+    mesh = make_mesh(1, 1)
+    cfg = GRID_BAND_CFG
+    step = make_sharded_round_step(mesh, cfg, kmax=5, m_dense=m)
+    why = plan_refusal(n, 1024, 5, m)
+
+    def run(device, rounds):
+        dense = batched_dense_from_qcqp(fam, device)
+        table, valid = shard_candidates(table_np, mesh, device=device)
+        state = init_batched_state(np.stack([i.Q0 for i in fam]), np.stack([i.c0 for i in fam]),
+                                   1024, 5, m_dense=m, device=device)
+        certs, best, blocks = [], [], 0
+        for _ in range(rounds):
+            state, info = step(state, table, valid, dense)
+            certs.append(certify_batched_f64(state, dense))
+            best.append(state.best_bound.cpu().numpy())
+            blocks += int(info["lp_iters"].max()) // 100
+        return state, np.stack(certs), np.stack(best), blocks
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state, certs, best, blocks = run(dev, R_)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    again = run(dev, R_)
+    repeat = batched_states_equal(state, again[0]) and np.array_equal(certs, again[1])
+    t0 = time.perf_counter()
+    cpu = run(torch.device("cpu"), GRID_BATCH_BAND_CPU_ROUNDS)[1]
+    cpu_s = time.perf_counter() - t0
+    rel = np.abs(certs[:GRID_BATCH_BAND_CPU_ROUNDS] - cpu) / np.abs(cpu)
+    log(f"[grid batch band] {B} x generate_qcqp_band({n}, {bw}, {m}, s), {table_np.shape[0]} "
+        f"clique candidates at k = 5; K2's cluster: {why}; certificates by round "
+        f"{certs.tolist()}, on the CPU {cpu.tolist()} ({cpu_s:.1f} s): largest rel diff "
+        f"{float(rel.max())!r} (rtol {GRID_RTOL}); {R_} rounds with the certificates in "
+        f"{wall:.3f} s = {B * R_ / wall!r} instance-rounds/s ({SMI})")
+    return launches, {
+        f"{R_} rounds ran": len(certs) == R_,
+        "K2's cluster refuses the shape": why is not None,
+        "a second run repeats every round bit for bit": repeat,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        "running bounds monotone": bool((np.diff(best, axis=0) <= 0).all()),
+        f"within rtol {GRID_RTOL} of the CPU port": bool((rel <= GRID_RTOL).all()),
+        **grid_launch_checks("grid batch band", launches, blocks, R_, "fused_score", B * R_),
+    }
+
+
+def grid_batch_cli() -> dict:
+    """Phase 20 (d): ``python3 -m sdpcutsel_tpu_torch.bench_batched --n 300
+    --batch 4 --rounds 3`` in a subprocess of its own on the card (past K2's
+    cluster: the grid route's batch): exit 0 and its record printed."""
+    argv = [sys.executable, "-m", "sdpcutsel_tpu_torch.bench_batched", *GRID_BATCH_CLI]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    records = []
+    for line in proc.stdout.splitlines():
+        with contextlib.suppress(ValueError):
+            records.append(json.loads(line))
+    log(f"[grid batch cli] {' '.join(argv[1:])}: exit {proc.returncode} in {seconds:.1f} s; "
+        f"records {records}")
+    if proc.returncode:
+        log(f"[grid batch cli] stderr: {proc.stderr[-2000:]}")
+    return {"bench_batched --n 300 ran to its end": proc.returncode == 0,
+            "its record printed": any(isinstance(r, dict) and r for r in records)}
+
+
+def grid_against_parent(pkg, dev) -> bool:
+    """With --parent DIR: this tree's single-instance grid entries (the
+    batch of one of the walk) and the parent build's at phase 19's shapes,
+    bit for bit: the block at 7 and 100 iterations, the checked launch at
+    restart periods 10^9 and 100, the norm; the block then timed in turns
+    (parent, this, this, parent) on the device."""
+    p_grid = importlib.import_module(f"{pkg.__name__}.lp.pdhg_grid")
+    same = True
+    every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
+    for label in GRID_SHAPES:
+        cx, cX, pool, index, st, dense = grid_inputs(label, dev)
+        n = cx.shape[0]
+        normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+        eta = 0.95 / normK.item()
+        ok = []
+        for iters in (7, 100):
+            args = (cx, cX, pool, index, st, st.map(torch.zeros_like), eta, eta, iters, dense)
+            ok.append(states_equal(list(pdhg_grid_block(*args)),
+                                   list(p_grid.pdhg_grid_block(*args))))
+
+        def prepare():
+            return [st.map(torch.clone), st.map(torch.zeros_like), st.map(torch.clone),
+                    new_record(normK, 1.0, 0.95, top, tol, dev)]
+
+        for rp in (10 ** 9, 100):
+            mine, theirs = prepare(), prepare()
+            pdhg_grid_block_checked(cx, cX, pool, index, *mine, every, rp, top, tol, dense)
+            p_grid.pdhg_grid_block_checked(cx, cX, pool, index, *theirs, every, rp, top, tol,
+                                           dense)
+            ok.append(states_equal(mine[:3], theirs[:3]) and torch.equal(mine[3], theirs[3]))
+        gen = torch.Generator
+        ok.append(torch.equal(pdhg_grid_norm(pool, n, 30, gen().manual_seed(0), index, dense),
+                              p_grid.pdhg_grid_norm(pool, n, 30, gen().manual_seed(0), index,
+                                                    dense)))
+        rec = pdhg_kernel.steps_record([eta], [eta], dev)[0]
+        bufs = [st.map(torch.clone), st.map(torch.zeros_like)]
+        t = {"parent": [], "this": []}
+        for tree, fn in (("parent", p_grid.pdhg_grid_block_steps), ("this", pdhg_grid_block_steps),
+                         ("this", pdhg_grid_block_steps),
+                         ("parent", p_grid.pdhg_grid_block_steps)):
+            t[tree].append(queued_ms(lambda: fn(cx, cX, pool, index, *bufs, rec, 100, dense),
+                                     reps=5))
+        log(f"[pdhg_grid {label}] this build's single entries and the parent build's bit for bit "
+            f"(block 7, 100; checked 10^9, 100; norm): {ok}; a 100-iteration block in turns on "
+            f"the device: parent {t['parent']!r} ms, this build {t['this']!r} ms ({SMI})")
+        same &= all(ok)
+    return same
+
+
+def grid_batch_phase(dev, pkg=None) -> dict:
+    """Phase 20: the grid route's instance walk (grid_batch_kernels), the
+    BoxQP batch at n = 512 (grid_batch_boxqp), the QCQP band batch
+    (grid_batch_band), bench_batched --n 300 (grid_batch_cli), each path's
+    launches into PATH_LAUNCHES; with --parent the single-instance grid
+    entries against the parent build's.  Returns grid_batch_kernels'
+    numbers."""
+    t0 = time.perf_counter()
+    out = grid_batch_kernels(dev)
+    PATH_LAUNCHES["grid batch boxqp n=512"], checks = grid_batch_boxqp(dev)
+    finish("grid batch boxqp", checks)
+    PATH_LAUNCHES["grid batch qcqp band n=200"], checks = grid_batch_band(dev)
+    finish("grid batch band", checks)
+    finish("grid batch cli", grid_batch_cli())
+    if pkg is not None:
+        finish("grid parent", {"the single grid entries give the parent build's bits":
+                               grid_against_parent(pkg, dev)})
+    for key in ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm"):
+        batched = sum(PATH_LAUNCHES[p][key] for p in ("grid batch boxqp n=512",
+                                                      "grid batch qcqp band n=200"))
+        for numbers in out[key].values():
+            numbers["launches"] = batched      # the batched paths' launches of the kernel
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[grid batch] phase 20 took {out['seconds']:.1f}s ({SMI})")
+    return out
+
+
 def main(argv=None) -> int:
     global SMI
     import argparse
@@ -4118,7 +4721,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--parent", help="a checkout of the parent commit: phase 3 then holds "
                         "K2's, K5's, K6's, K7's and K7c's bits to that build's on its inputs and "
-                        "times K6, K7, K7c and K7n in turns with that build's, and after phase 15 "
+                        "times K6, K7, K7c and K7n in turns with that build's, phase 20 the "
+                        "single grid entries' bits at phase 19's shapes, and after phase 15 "
                         "the certifier's LP is timed in both trees in turns")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
@@ -4193,6 +4797,7 @@ def main(argv=None) -> int:
      PATH_LAUNCHES["grid boxqp n=300"]) = check_large_instance(dev)
     wide = wide_phase(dev, pkg, lib)
     grid = grid_phase(dev)
+    batch = grid_batch_phase(dev, pkg)
     PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
     PATH_LAUNCHES["qcqp main"] = qcqp_main_path(dev)
     PATH_LAUNCHES["boxqp packed scan"] = packed_scan_path(inst, dev)
@@ -4294,9 +4899,13 @@ def main(argv=None) -> int:
          "sdpcutsel_tpu/lp/pdhg.py:224 (checked_block; XLA, no Pallas kernel)"),
         ("pdhg_grid_norm", "pdhg_grid_norm", "sdpcutsel_tpu/lp/pdhg.py:70 (estimate_norm; XLA, "
          "no Pallas kernel)"))]
+    for entry, key in zip(kernels[-3:], ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm")):
+        entry["batched"] = batch[key]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   *(e["max_abs_err"] for e in batch[key].values()))
     kernels[0]["n512"] = grid["pair_score"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], grid["pair_score"]["max_abs_err"])
-    log(f"[grid] phase 19: {grid['seconds']:.1f}s")
+    log(f"[grid] phase 19: {grid['seconds']:.1f}s; phase 20: {batch['seconds']:.1f}s")
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 // The grid route of the PDHG solve: the block, its checked form and the
-// power iteration for ||K|| of one instance over a cooperative grid of one
-// CTA an SM, for the shapes K2's cluster (pdhg_block.cu) does not hold in its
-// shared memory.  Float32:
+// power iteration for ||K|| of one instance, or of every instance of a batch
+// one after another in one launch (the walk, below), over a cooperative grid
+// of one CTA an SM, for the shapes K2's cluster (pdhg_block.cu) does not hold
+// in its shared memory.  Float32:
 //
 //   the block  `iters` iterations of lp/pdhg.py::_one_iter, every iterate
 //       added to the ergodic sums, with tau, sigma and the stop flag of the
@@ -76,6 +77,18 @@
 // After the last iteration A and B give K z, whose squares each CTA sums,
 // and CTA 0 folds them.
 //
+// The walk: a batch's instances share one shape, so one launch runs them one
+// after another, each over the whole grid with the slices it has alone (the
+// same partition, the same sum orders, the same bits), where splitting the
+// grid among them would change both and overflow kMaxE.  A CTA computes its
+// slices once a launch and keeps the instance's arguments (the launch's,
+// shifted by the instance's strides) beside them in its shared memory; it
+// loads the instance's resident dense rows, or starts their stream, anew.
+// A stopped instance is skipped by every CTA before any barrier (its record
+// is written only in its own turn), and one grid barrier between two turns
+// that run keeps the global scratch of one from the next.  The single
+// entries are the walk's batch of one.
+//
 // The column width (Cols) sets the entries a CTA may own (GridForm kMaxE),
 // the scratch of the passes over the dense rows (kScratch: strand partials
 // and the residual's weights) and the stages of their ring.  At 512 columns
@@ -118,8 +131,9 @@ constexpr int kNS = 10;
 enum { kPX, kPx, kHyB, kHyC, kHyD, kRxm, kSm, kV2, kVC2, kVD2 };
 
 // Offsets, in 4-byte words, of one CTA's dynamic shared memory at column
-// width Cols: the CTA's Slices (below), the scratch, the slab of the dense rows' owned segments
-// (resident, or a ring of stages; none without dense rows), the replicas of
+// width Cols: the CTA's Slices (below) and its instance's arguments, the
+// scratch, the slab of the dense rows' owned segments (resident, or a ring
+// of stages; none without dense rows), the replicas of
 // yD and of the cut weights, the owned entries' buffer (the dense adjoint;
 // the residual's values) and their state (X, yA, yB, aX, aA, aB, cX, S; the
 // norm's Y, kA, kB).  The slab takes what the rest leaves, and at least the
@@ -128,7 +142,10 @@ struct GridLayout {
   int meta, scr, slab, yD, w, own, state, words;
 };
 
-constexpr int kMeta = 64;        // words of the CTA's Slices, first in its shared memory
+// words of the CTA's Slices (the first kArgs) and of its instance's arguments
+// (BlockArgs or NormArgs), first in its shared memory
+constexpr int kMeta = 192;
+constexpr int kArgs = 64;
 
 template <int Cols>
 __host__ __device__ inline GridLayout grid_layout(int n, int m, int M, bool cuts) {
@@ -213,6 +230,77 @@ struct NormArgs {
   unsigned* bar;
   float* out;                      // ||K|| 1.02 + 1e-12
 };
+
+// The instance walk: a launch runs instances ids[0..count) of a batch
+// stacked along the leading axis of every array, one after another, each on
+// the whole grid, so that each gets the partition, the sum orders and the
+// bits it gets alone.  Instance b's arrays start b strides in: its shape's
+// sizes, and ex, eX (the cut index's term rows) and sG, sg (the dense rows'
+// G and g, multiples of 4 floats, so that every instance's rows stay 16-byte
+// aligned).  The launch's arguments (BlockArgs, NormArgs) point at the
+// batch; the start vector of the norm is every instance's.  More than
+// kMaxWalk instances go in consecutive launches.
+constexpr int kMaxWalk = 128;
+struct Walk {
+  int count, ex, eX;
+  long long sG, sg;
+  int ids[kMaxWalk];
+};
+
+template <class T>
+__device__ __forceinline__ T* at(T* p, size_t off) {
+  return p == nullptr ? p : p + off;
+}
+
+__device__ __forceinline__ Problem problem_of(const Problem& p, const Walk& w, size_t b) {
+  const size_t n = p.n, NN = n * n, M = p.M, Mk = M * p.k;
+  Problem q = p;
+  q.G = at(p.G, b * w.sG);
+  q.g = at(p.g, b * w.sg);
+  q.idx = at(p.idx, b * Mk);
+  q.lin = at(p.lin, b * Mk);
+  q.quad = at(p.quad, b * Mk * p.k);
+  q.rhs = at(p.rhs, b * M);
+  q.act = at(p.act, b * M);
+  q.xoff = at(p.xoff, b * (n + 1));
+  q.xcut = at(p.xcut, b * w.ex);
+  q.xcoef = at(p.xcoef, b * w.ex);
+  q.Xoff = at(p.Xoff, b * (NN + 1));
+  q.Xcut = at(p.Xcut, b * w.eX);
+  q.Xcoef = at(p.Xcoef, b * w.eX);
+  return q;
+}
+
+// instance b's block arguments into o (a CTA's shared memory)
+__device__ __forceinline__ void block_args_of(BlockArgs& o, const BlockArgs& a, const Walk& w,
+                                              int bi) {
+  const size_t b = bi, n = a.p.n, NN = n * n, M = a.p.M, m = a.p.m;
+  o = a;
+  o.p = problem_of(a.p, w, b);
+  o.rec = at(a.rec, b * kRecWords);
+  o.cx = at(a.cx, b * n);
+  o.cX = at(a.cX, b * NN);
+  o.h = at(a.h, b * m);
+  // the state, its sums and the anchor, in the order x, X, yA, yB, yC, yD
+#define SHIFT(f, size) o.f = at(a.f, b * (size))
+#define SHIFT6(x, X, yA, yB, yC, yD) \
+  SHIFT(x, n); SHIFT(X, NN); SHIFT(yA, NN); SHIFT(yB, NN); SHIFT(yC, M); SHIFT(yD, m)
+  SHIFT6(x, X, yA, yB, yC, yD);
+  SHIFT6(ax, aX, aA, aB, ayC, ayD);
+  SHIFT6(xo, Xo, yAo, yBo, yCo, yDo);
+  SHIFT6(axo, aXo, aAo, aBo, ayCo, ayDo);
+  SHIFT6(zx, zX, zA, zB, zC, zD);
+#undef SHIFT6
+#undef SHIFT
+}
+
+// instance b's norm arguments into o (a CTA's shared memory)
+__device__ __forceinline__ void norm_args_of(NormArgs& o, const NormArgs& a, const Walk& w,
+                                             int b) {
+  o = a;
+  o.p = problem_of(a.p, w, b);
+  o.out = a.out + b;
+}
 
 // A CTA's slices and the passes over its dense rows' owned segments: row q's
 // G_q[e0, e1) and g_q[i0, i1), each as the 16-byte-aligned span that holds it
@@ -467,9 +555,9 @@ enum { kSX, kSA_, kSB_, kSaX, kSaA, kSaB, kScX, kSS };
 // in shared memory, of the owned x entries and slots in registers (rx, rax,
 // rC, raC), everything else in global memory, where the block stored it.
 template <bool kCuts, int Cols>
-__device__ __forceinline__ void grid_check(const BlockArgs& a, const Slices<Cols>& g,
-                                           unsigned target, float rx, float rax, float rC,
-                                           float raC) {
+__device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& a,
+                                           const Slices<Cols>& g, unsigned& target, float rx,
+                                           float rax, float rC, float raC) {
   const Problem& pr = a.p;
   const int n = pr.n, m = pr.m, NN = n * n, t = threadIdx.x, lane = t % 32, warp = t / 32;
   const int &P = g.P, &b = g.b;        // read from the CTA's Slices where used
@@ -484,20 +572,20 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, const Slices<Cols
   const float* const saA = g.state(kSaA);
   const float* const saB = g.state(kSaB);
   const float* const scX = g.state(kScX);
-  float* const S = a.work;
+  float* const S = L.work;
   float* const part = S + NN + n;
   float* const wg = part + static_cast<size_t>(P) * m + NN;        // the weights (cuts)
   int* const rec = a.rec;
-  const int wlen = rec[kRecWlen] + a.iters;
+  const int wlen = rec[kRecWlen] + L.iters;
   const float inv = 1.0f / static_cast<float>(wlen);
   // M = cX - gX of each point (the iterate's in S's place) and its rows'
   // partials, (m, P) each; each CTA's sums (2 kNS, P) and distances (kND, P)
-  float* const M1 = a.work + work_words(n, m, pr.M, P, kCuts, false) - 1;
+  float* const M1 = L.work + work_words(n, m, pr.M, P, kCuts, false) - 1;
   float* const part1 = M1 + NN;
   float* const csum = part1 + static_cast<size_t>(P) * m;
   float* const cdist = csum + static_cast<size_t>(P) * 2 * kNS;
   const bool ownx = lane == 0 && warp < LB, owns = t < g.LS;
-  grid_sync(a.bar, target, P);         // the state, the sums, yD and w in global memory
+  grid_sync(L.bar, target, P);         // the state, the sums, yD and w in global memory
 
 #pragma unroll 1
   for (int pt = 0; pt < 2; ++pt) {
@@ -584,7 +672,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, const Slices<Cols
     if (t == kPX || t == kPx || t == kHyB || t == kHyC || t == kRxm || t == kV2 || t == kVC2)
       csum[static_cast<size_t>(pt * kNS + t) * P + b] = scr[(kThreads / 32) * kNS + t];
   }
-  grid_sync(a.bar, target, P);         // every M and every row's partials
+  grid_sync(L.bar, target, P);         // every M and every row's partials
 
   // the dual bound's M + M^T term, and the owned dense rows' terms
   {
@@ -624,7 +712,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, const Slices<Cols
         csum[static_cast<size_t>(t) * P + b] = scr[(kThreads / 32) * 2 * kNS + t];
     }
   }
-  grid_sync(a.bar, target, P);         // every CTA's sums
+  grid_sync(L.bar, target, P);         // every CTA's sums
 
   // every CTA folds the sums in CTA order and decides alike
   float* const tot = scr;                        // (2 kNS) the sums, then the decision
@@ -651,7 +739,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, const Slices<Cols
   }
   __syncthreads();
   const bool use_avg = dec[6] != 0.0f;
-  const bool restart = use_avg || wlen >= a.restart_period;
+  const bool restart = use_avg || wlen >= L.restart_period;
   if (restart) {
     // the candidate into the state and the anchor, the sums zeroed, each
     // CTA its own slices; the distances from the anchor
@@ -704,7 +792,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, const Slices<Cols
     }
     block_sums(dv, scr + 32, scr + 32 + (kThreads / 32) * kND);
     if (t < kND) cdist[static_cast<size_t>(t) * P + b] = scr[32 + (kThreads / 32) * kND + t];
-    grid_sync(a.bar, target, P);       // every CTA's distances
+    grid_sync(L.bar, target, P);       // every CTA's distances
     if (b == 0) {
       float* const dist = scr + 256;   // (P, kND), in CTA order
       for (int j = t; j < P * kND; j += kThreads)
@@ -714,22 +802,21 @@ __device__ __forceinline__ void grid_check(const BlockArgs& a, const Slices<Cols
   }
   // ---- the record, by CTA 0 -------------------------------------------------
   if (b == 0 && t == 0)
-    write_record(rec, dec, use_avg, restart, wlen, scr + 256, P, a.iters, a.max_iters, a.tol);
+    write_record(rec, dec, use_avg, restart, wlen, scr + 256, P, L.iters, L.max_iters, L.tol);
 }
 
 // ---- the block, and with kCheck its checked form ---------------------------
+// One instance's turn of the walk: its arguments a and the CTA's slices g in
+// the CTA's shared memory; L: the launch's arguments (kernel parameters),
+// whose fields that every instance shares (iters, work, bar, the check's
+// arguments) are read there, so that the scratch's pointers stay constants
+// and take no registers; target: the grid barrier's count so far.
 template <bool kCheck, bool kCuts, int Cols>
-__global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
-    const __grid_constant__ BlockArgs a) {
-  extern __shared__ __align__(16) float sm[];
-  if (a.rec[kRecStop]) return;        // stopped: every CTA leaves before any barrier
+__device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& a,
+                                           const Slices<Cols>& g, unsigned& target) {
   const float tau = __int_as_float(a.rec[kRecTau]), sigma = __int_as_float(a.rec[kRecSigma]);
   const Problem& pr = a.p;
   const int n = pr.n, m = pr.m, NN = n * n;
-  static_assert(sizeof(Slices<Cols>) <= 4 * kMeta, "the Slices fit their region");
-  Slices<Cols>& g = Slices<Cols>::of(sm);
-  if (threadIdx.x == 0) g.init(pr, sm, kCuts);
-  __syncthreads();
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
   const int &P = g.P;                  // read from the CTA's Slices where used
   const int &e0 = g.e0, &i0 = g.i0, &q0 = g.q0, &q1 = g.q1, &s0 = g.s0, &LA = g.LA, &LB = g.LB;
@@ -743,17 +830,16 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
   float* const saB = g.state(kSaB);
   float* const scX = g.state(kScX);
   float* const sS = g.state(kSS);
-  float* const S = a.work;
+  float* const S = L.work;
   float* const xb = S + NN;
   float* const part = xb + n;            // (P, m): CTA b's partial of row q at b m + q
   float* const wXb = part + static_cast<size_t>(P) * m;   // with cuts: Xb
   float* const wg = wXb + NN;                               // and the weights w
-  unsigned target = 0;
   const bool ownx = lane == 0 && warp < LB, owns = kCuts && t < g.LS;
 
   if (g.resident && m > 0) g.load_rows(0, m, g.slab);   // the launch's one read of the slice
   cp_async_commit();
-  if (a.iters > 0) g.stream_prologue();
+  if (L.iters > 0) g.stream_prologue();
 
   // ---- the owned entries' state and sums, the owned x entries and slots ----
   for (int j = t; j < LA; j += kThreads) {
@@ -802,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
   if (g.resident && m > 0) cp_async_wait<0>();   // the slice; a stream's stages stay in flight
   __syncthreads();
 
-  for (int it = 0; it < a.iters; ++it) {
+  for (int it = 0; it < L.iters; ++it) {
     const float* yDc = it == 0 ? a.yD : a.yDo;    // the last iteration's yD
     // ---- I: the adjoints of the owned entries, S and the x step -------------
     for (int q = t; q < m; q += kThreads) g.syD[q] = __ldcg(yDc + q);
@@ -834,7 +920,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
       rx = xn;
       rax += xn;
     }
-    grid_sync(a.bar, target, P);
+    grid_sync(L.bar, target, P);
 
     // ---- II: X = clip(sym(S)), Xb; the dual ascent on yA, yB; the dense
     //      rows' partials ----------------------------------------------------
@@ -864,7 +950,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
       g.shift_weights();                 // [Xb | xb]
       g.residual_pass(part, m, 1);
     }
-    grid_sync(a.bar, target, P);
+    grid_sync(L.bar, target, P);
 
     // ---- III: the owned dense rows (their partials in CTA order) and slots;
     //      the next x step's sums of the new yA, yB ------------------------------
@@ -890,10 +976,10 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
       raC += yc;
       wg[q] = yc * am;
     }
-    if (it + 1 < a.iters) {
+    if (it + 1 < L.iters) {
       x_sums(a.yAo, a.yBo);
       if (m > 0 && !g.resident) g.stream_prologue();   // the next iteration's first stages
-      grid_sync(a.bar, target, P);
+      grid_sync(L.bar, target, P);
     }
   }
 
@@ -915,7 +1001,35 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
     a.yCo[s0 + t] = rC;
     a.ayCo[s0 + t] = raC;
   }
-  if constexpr (kCheck) grid_check<kCuts, Cols>(a, g, target, rx, rax, rC, raC);
+  if constexpr (kCheck) grid_check<kCuts, Cols>(L, a, g, target, rx, rax, rC, raC);
+}
+
+// The block's launch: the walk over the instances w.ids, each instance's
+// arguments (a0's, shifted) in the CTA's shared memory.  A grid barrier
+// between two turns keeps the global scratch and the arguments of one from
+// the next; a stopped instance is skipped by every CTA after it, before any
+// barrier of its own (only its own turn writes its record).  The slices are
+// the same for every instance.
+template <bool kCheck, bool kCuts, int Cols>
+__global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
+    const __grid_constant__ BlockArgs a0, const __grid_constant__ Walk w) {
+  extern __shared__ __align__(16) float sm[];
+  static_assert(sizeof(Slices<Cols>) <= 4 * kArgs, "the Slices fit their region");
+  static_assert(sizeof(BlockArgs) <= 4 * (kMeta - kArgs), "the arguments fit their region");
+  Slices<Cols>& g = Slices<Cols>::of(sm);
+  BlockArgs& a = *reinterpret_cast<BlockArgs*>(sm + kArgs);
+  unsigned target = 0;                 // thread 0's count of the grid barriers
+#pragma unroll 1
+  for (int s = 0; s < w.count; ++s) {
+    if (s > 0) grid_sync(a0.bar, target, g.P);
+    if (threadIdx.x == 0) {
+      block_args_of(a, a0, w, w.ids[s]);
+      if (s == 0) g.init(a.p, sm, kCuts);
+    }
+    __syncthreads();
+    if (a.rec[kRecStop]) continue;     // stopped: every CTA skips it
+    grid_block<kCheck, kCuts, Cols>(a0, a, g, target);
+  }
 }
 
 // ---- the norm ---------------------------------------------------------------
@@ -924,15 +1038,10 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
 // the owned entries of y in registers (lane 0 of warp w: entry i0 + w), the
 // whole iterate in global memory for the other CTAs.
 template <bool kCuts, int Cols>
-__global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
-    const __grid_constant__ NormArgs a) {
-  extern __shared__ __align__(16) float sm[];
+__device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
+                                          const Slices<Cols>& g, unsigned& target) {
   const Problem& pr = a.p;
   const int n = pr.n, m = pr.m, NN = n * n;
-  static_assert(sizeof(Slices<Cols>) <= 4 * kMeta, "the Slices fit their region");
-  Slices<Cols>& g = Slices<Cols>::of(sm);
-  if (threadIdx.x == 0) g.init(pr, sm, kCuts);
-  __syncthreads();
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
   const int &P = g.P, &b = g.b;        // read from the CTA's Slices where used
   const int &e0 = g.e0, &i0 = g.i0, &q0 = g.q0, &q1 = g.q1, &s0 = g.s0, &LA = g.LA, &LB = g.LB;
@@ -943,7 +1052,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
   float* const sY = g.state(0);
   float* const skA = g.state(1);
   float* const skB = g.state(2);
-  float* const wY = a.work;            // the iterate after the first iteration
+  float* const wY = L.work;            // the iterate after the first iteration
   float* const wy = wY + NN;
   float* const wgX = wy + n;
   float* const part = wgX + NN;        // (P, m): CTA b's partial of row q at b m + q
@@ -951,7 +1060,6 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
   float* const wg = wkD + m;           // with cuts: the weights
   float* const csum = wg + (kCuts ? pr.M : 0);   // (2, P): each CTA's sums of gx^2 and Y^2
   float* const cfin = csum + 2 * P;              // (3, P): each CTA's sums of the last step
-  unsigned target = 0;
   const bool ownx = lane == 0 && warp < LB, owns = kCuts && t < g.LS;
 
   if (g.resident && m > 0) g.load_rows(0, m, g.slab);   // the launch's one read of the slice
@@ -963,7 +1071,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
   __syncthreads();
 
   for (int it = 0;; ++it) {
-    const bool last = it == a.iters;
+    const bool last = it == L.iters;
     const float* const Yc = it == 0 ? a.Y : wY;
     const float* const yc = it == 0 ? a.y : wy;
     // ---- A: the dense rows' partials at the iterate ---------------------------
@@ -975,7 +1083,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
       g.residual_pass(part, m, 1);
       if (!last && !g.resident) g.stream_prologue();   // C's first stages, early
     }
-    grid_sync(a.bar, target, P);
+    grid_sync(L.bar, target, P);
 
     // ---- B: nrm; kD of the owned rows; K's box and cut rows at z -------------
     float fold = 0.0f;                   // warps 0, 1: every CTA's sums of the iterate
@@ -1040,7 +1148,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
     if (last) {
       block_sums(v, scr + 32, scr + 80);
       if (t < 3) cfin[static_cast<size_t>(t) * P + b] = scr[80 + t];
-      grid_sync(a.bar, target, P);
+      grid_sync(L.bar, target, P);
       if (b == 0) {
         if (warp < 3) {
           float r = 0.0f;
@@ -1070,7 +1178,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
       sb = warp_sum(sb);
       sc = warp_sum(sc);
     }
-    grid_sync(a.bar, target, P);
+    grid_sync(L.bar, target, P);
 
     // ---- C: K^T (kA, kB, kC act, kD) of the owned entries ---------------------
     for (int q = t; q < m; q += kThreads) g.syD[q] = __ldcg(wkD + q);
@@ -1098,7 +1206,7 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
       wy[i] = ry;
       ss[0] = ry * ry;
     }
-    grid_sync(a.bar, target, P);
+    grid_sync(L.bar, target, P);
 
     // ---- D: the new Y of the owned entries, and the CTA's sums -----------------
     for (int j = t; j < LA; j += kThreads) {
@@ -1110,6 +1218,29 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
     }
     block_sums(ss, scr + 32, scr + 64);
     if (t < 2) csum[static_cast<size_t>(t) * P + b] = scr[64 + t];
+  }
+}
+
+// The norm's launch: the walk over the instances w.ids as the block's, each
+// instance's ||K|| into out[b].
+template <bool kCuts, int Cols>
+__global__ void __launch_bounds__(kThreads, 1) pdhg_grid_norm_kernel(
+    const __grid_constant__ NormArgs a0, const __grid_constant__ Walk w) {
+  extern __shared__ __align__(16) float sm[];
+  static_assert(sizeof(Slices<Cols>) <= 4 * kArgs, "the Slices fit their region");
+  static_assert(sizeof(NormArgs) <= 4 * (kMeta - kArgs), "the arguments fit their region");
+  Slices<Cols>& g = Slices<Cols>::of(sm);
+  NormArgs& a = *reinterpret_cast<NormArgs*>(sm + kArgs);
+  unsigned target = 0;                 // thread 0's count of the grid barriers
+#pragma unroll 1
+  for (int s = 0; s < w.count; ++s) {
+    if (s > 0) grid_sync(a0.bar, target, g.P);
+    if (threadIdx.x == 0) {
+      norm_args_of(a, a0, w, w.ids[s]);
+      if (s == 0) g.init(a.p, sm, kCuts);
+    }
+    __syncthreads();
+    grid_norm<kCuts, Cols>(a0, a, g, target);
   }
 }
 
@@ -1176,26 +1307,30 @@ int max_entries(int cols) {
                          : (cols == kWide ? GridForm<kWide>::kMaxE : GridForm<kWidest>::kMaxE);
 }
 
-// One cooperative launch of `kernel` on the form's grid, the barrier's
-// counter zeroed first; what a CTA owns checked against the form (entries
-// within kMaxE, x entries within the warps, slots within the threads; the
-// checked form's copy of every CTA's distances within the scratch).  *grid
-// receives the CTAs.
+// The cooperative launches of `kernel` on the form's grid that walk the
+// instances ids[0..count) (ids null: 0..count-1), kMaxWalk a launch, each
+// launch's barrier counter zeroed first; what a CTA owns checked against the
+// form (entries within kMaxE, x entries within the warps, slots within the
+// threads; the checked form's copy of every CTA's distances within the
+// scratch), and the walk's strides against the shape.  *grid receives the
+// CTAs.
 template <class Args>
-int launch_grid(void (*kernel)(Args), const Args& a, int cols, int cuts, int smem,
-                bool distances, int* grid, cudaStream_t st) {
+int launch_grid(void (*kernel)(Args, Walk), const Args& a, Walk w, int count, const int* ids,
+                int cols, int cuts, int smem, bool distances, int* grid, cudaStream_t st) {
   int P = 0;
   const int err = grid_of(cols, cuts != 0, smem, &P);
   if (err != 0) return err;
-  const int n = a.p.n;
+  const int n = a.p.n, m = a.p.m;
   if ((n * n + P - 1) / P + (n + P - 1) / P > max_entries(cols) ||
       (n + P - 1) / P > kThreads / 32 || (cuts && (a.p.M + P - 1) / P > kThreads))
     return kErrLayout;
   if (distances && 256 + P * kND > (cols == kWidest ? GridForm<kWidest>::kScratch
                                                      : GridForm<kNarrow>::kScratch))
     return kErrLayout;
-  cudaError_t e = cudaMemsetAsync(a.bar, 0, sizeof(unsigned), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (count < 0 || w.ex < 0 || w.eX < 0 || w.sG % 4 || w.sg % 4 ||
+      w.sG < static_cast<long long>(m) * n * n || w.sg < static_cast<long long>(m) * n)
+    return kErrLayout;
+  *grid = P;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
@@ -1206,25 +1341,47 @@ int launch_grid(void (*kernel)(Args), const Args& a, int cols, int cuts, int sme
   cfg.gridDim = dim3(P, 1, 1);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  *grid = P;
-  e = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int s0 = 0; s0 < count; s0 += kMaxWalk) {
+    w.count = count - s0 < kMaxWalk ? count - s0 : kMaxWalk;
+    for (int s = 0; s < w.count; ++s) w.ids[s] = ids == nullptr ? s0 + s : ids[s0 + s];
+    cudaError_t e = cudaMemsetAsync(a.bar, 0, sizeof(unsigned), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaLaunchKernelEx(&cfg, kernel, a, w);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kCheck>
-int launch_block(const BlockArgs& a, int cols, int cuts, int smem, int* grid, cudaStream_t st) {
+int launch_block(const BlockArgs& a, const Walk& w, int count, const int* ids, int cols,
+                 int cuts, int smem, int* grid, cudaStream_t st) {
   if (!cuts)
-    return launch_grid(pdhg_grid_kernel<kCheck, false, kWidest>, a, cols, cuts, smem, kCheck,
-                       grid, st);
+    return launch_grid(pdhg_grid_kernel<kCheck, false, kWidest>, a, w, count, ids, cols, cuts,
+                       smem, kCheck, grid, st);
   if (cols == kNarrow)
-    return launch_grid(pdhg_grid_kernel<kCheck, true, kNarrow>, a, cols, cuts, smem, kCheck,
-                       grid, st);
+    return launch_grid(pdhg_grid_kernel<kCheck, true, kNarrow>, a, w, count, ids, cols, cuts,
+                       smem, kCheck, grid, st);
   if (cols == kWide)
-    return launch_grid(pdhg_grid_kernel<kCheck, true, kWide>, a, cols, cuts, smem, kCheck, grid,
-                       st);
-  return launch_grid(pdhg_grid_kernel<kCheck, true, kWidest>, a, cols, cuts, smem, kCheck, grid,
-                     st);
+    return launch_grid(pdhg_grid_kernel<kCheck, true, kWide>, a, w, count, ids, cols, cuts, smem,
+                       kCheck, grid, st);
+  return launch_grid(pdhg_grid_kernel<kCheck, true, kWidest>, a, w, count, ids, cols, cuts, smem,
+                     kCheck, grid, st);
+}
+
+// The walk's strides (count and ids are the launch's)
+Walk walk(int ex, int eX, long long sG, long long sg) {
+  Walk w{};
+  w.ex = ex;
+  w.eX = eX;
+  w.sG = sG;
+  w.sg = sg;
+  return w;
+}
+
+// One instance's strides: its own rows, rounded up to 4 floats
+Walk one(int n, int m) {
+  const long long NN = static_cast<long long>(n) * n;
+  return walk(0, 0, (m * NN + 3) & ~3LL, (static_cast<long long>(m) * n + 3) & ~3LL);
 }
 
 Problem problem(int n, int M, int k, int m, const float* G, const float* g, const int* idx,
@@ -1237,21 +1394,27 @@ Problem problem(int n, int M, int k, int m, const float* G, const float* g, cons
 
 }  // namespace
 
-// `iters` iterations of the grid route's block for one instance, with the
-// steps and stop flag of its control record rec (kRecWords int32 in device
-// memory): state x, X, yA, yB, yC, yD and sums ax, aX, aA, aB, ayC, ayD in,
-// the same out (the outputs may be the inputs; without cuts yC and ayC are
-// left as they are).  The pool (idx (M, k) int32, lin, quad, rhs, act) and
-// its cut index (xoff, xcut, xcoef, Xoff, Xcut, Xcoef: build_cut_index) with
-// cuts = 1; cuts = 0: the certifier's pool (M = 1, k = 1), whose arrays are
-// not read.  G (m, n, n), g (m, n), h (m,): the dense rows, read in place,
-// G and g 16-byte aligned.  cols: n's column width (cols_for); smem: the
-// layout's bytes (lp/pdhg_grid.py block_words); work: work_words(n, m, M, P,
-// cuts, false) floats, the last the barrier's counter bar, zeroed here; P the
-// grid (pdhg_grid_ctas), into *grid.  Returns 0, a CUDA error, kErrLayout or
-// kErrNoCluster.
-extern "C" int pdhg_grid_block_launch(
-    int n, int M, int k, int m, int iters, int cols, int cuts, int smem, const int* rec,
+// `iters` iterations of the grid route's block for the instances
+// ids[0..count) (increasing) of a batch stacked along the leading axis of
+// every array, one after another in one launch, each with the steps and stop
+// flag of its control record rec + ids[s] kRecWords (device memory, (B,
+// kRecWords) int32): state x, X, yA, yB, yC, yD and sums ax, aX, aA, aB, ayC,
+// ayD in, the same out (the outputs may be the inputs: the launch then
+// updates the listed instances in place; without cuts yC and ayC are left as
+// they are).  The pool (idx (M, k) int32, lin, quad, rhs, act) and its cut
+// index (xoff, xcut, xcoef, Xoff, Xcut, Xcoef: build_cut_index; ex and eX the
+// strides of its term rows) with cuts = 1; cuts = 0: the certifier's pool
+// (M = 1, k = 1), whose arrays are not read.  G (m, n, n), g (m, n), h (m,):
+// the dense rows, read in place, G and g 16-byte aligned with instance
+// strides sG and sg floats (multiples of 4, at least m n n and m n).  cols:
+// n's column width (cols_for); smem: the layout's bytes (lp/pdhg_grid.py
+// block_words); work: work_words(n, m, M, P, cuts, false) floats, the last
+// the barrier's counter bar, zeroed here; P the grid (pdhg_grid_ctas), into
+// *grid.  Each instance computes the bits it computes alone.  Returns 0, a
+// CUDA error, kErrLayout or kErrNoCluster.
+extern "C" int pdhg_grid_block_batched_launch(
+    int n, int M, int k, int m, int iters, int cols, int cuts, int smem, int count,
+    const int* ids, const int* rec, int ex, int eX, int sG, int sg,
     const float* cx, const float* cX, const float* G, const float* g, const float* h,
     const int* idx, const float* lin, const float* quad, const float* rhs, const float* act,
     const int* xoff, const int* xcut, const float* xcoef, const int* Xoff, const int* Xcut,
@@ -1264,22 +1427,72 @@ extern "C" int pdhg_grid_block_launch(
     float* work, unsigned* bar, int* grid, void* stream) {
   const int err = check_form(n, M, k, m, cols, cuts, smem);
   if (err != 0) return err;
-  if (iters < 0) return kErrLayout;
+  if (iters < 0 || (count > 0 && ids == nullptr)) return kErrLayout;
   const BlockArgs a{problem(n, M, k, m, G, g, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff,
                             Xcut, Xcoef),
                     iters, const_cast<int*>(rec), cx, cX, h,
                     x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
                     xo, Xo, yAo, yBo, yCo, yDo, axo, aXo, aAo, aBo, ayCo, ayDo, work, bar};
-  return launch_block<false>(a, cols, cuts, smem, grid, static_cast<cudaStream_t>(stream));
+  return launch_block<false>(a, walk(ex, eX, sG, sg), count, ids, cols, cuts, smem, grid,
+                             static_cast<cudaStream_t>(stream));
 }
 
-// The checked block, the grid route's solve step: `check_every` iterations
-// of the block in place on the state and sums, then the checked block's
+// The batch of one of pdhg_grid_block_batched_launch: instance 0 with the
+// record rec (kRecWords int32).
+extern "C" int pdhg_grid_block_launch(
+    int n, int M, int k, int m, int iters, int cols, int cuts, int smem, const int* rec,
+    const float* cx, const float* cX, const float* G, const float* g, const float* h,
+    const int* idx, const float* lin, const float* quad, const float* rhs, const float* act,
+    const int* xoff, const int* xcut, const float* xcoef, const int* Xoff, const int* Xcut,
+    const float* Xcoef,
+    const float* x, const float* X, const float* yA, const float* yB, const float* yC,
+    const float* yD, const float* ax, const float* aX, const float* aA, const float* aB,
+    const float* ayC, const float* ayD,
+    float* xo, float* Xo, float* yAo, float* yBo, float* yCo, float* yDo,
+    float* axo, float* aXo, float* aAo, float* aBo, float* ayCo, float* ayDo,
+    float* work, unsigned* bar, int* grid, void* stream) {
+  const int id0 = 0;
+  const Walk w = one(n, m);
+  return pdhg_grid_block_batched_launch(
+      n, M, k, m, iters, cols, cuts, smem, 1, &id0, rec, w.ex, w.eX, w.sG, w.sg, cx, cX, G, g, h,
+      idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff, Xcut, Xcoef, x, X, yA, yB, yC, yD, ax,
+      aX, aA, aB, ayC, ayD, xo, Xo, yAo, yBo, yCo, yDo, axo, aXo, aAo, aBo, ayCo, ayDo, work, bar,
+      grid, stream);
+}
+
+// The checked block, the grid route's solve step, for every instance b < B
+// of a batch, one after another in one launch: `check_every` iterations of
+// the block in place on the state and sums, then the checked block's
 // control in place on the state, sums, anchor (zx, zX, zA, zB, zC, zD) and
-// the record rec; a stopped record is left as it is, with everything else.
-// Arguments as for pdhg_grid_block_launch, work holding work_words(n, m, M,
-// P, cuts, true) floats.  Returns 0, a CUDA error, kErrLayout or
-// kErrNoCluster.
+// the record rec + b kRecWords; an instance whose record has stopped is
+// left as it is, with everything else.  Arguments as for
+// pdhg_grid_block_batched_launch, work holding work_words(n, m, M, P, cuts,
+// true) floats.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
+extern "C" int pdhg_grid_block_checked_batched_launch(
+    int n, int M, int k, int m, int check_every, int cols, int cuts, int smem, int B,
+    int restart_period, int max_iters, float tol, int* rec, int ex, int eX, int sG, int sg,
+    const float* cx, const float* cX, const float* G, const float* g, const float* h,
+    const int* idx, const float* lin, const float* quad, const float* rhs, const float* act,
+    const int* xoff, const int* xcut, const float* xcoef, const int* Xoff, const int* Xcut,
+    const float* Xcoef,
+    float* x, float* X, float* yA, float* yB, float* yC, float* yD,
+    float* ax, float* aX, float* aA, float* aB, float* ayC, float* ayD,
+    float* zx, float* zX, float* zA, float* zB, float* zC, float* zD,
+    float* work, unsigned* bar, int* grid, void* stream) {
+  const int err = check_form(n, M, k, m, cols, cuts, smem);
+  if (err != 0) return err;
+  if (check_every < 1 || B < 1) return kErrLayout;
+  const BlockArgs a{problem(n, M, k, m, G, g, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff,
+                            Xcut, Xcoef),
+                    check_every, rec, cx, cX, h,
+                    x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
+                    x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD, work, bar,
+                    zx, zX, zA, zB, zC, zD, restart_period, max_iters, tol};
+  return launch_block<true>(a, walk(ex, eX, sG, sg), B, nullptr, cols, cuts, smem, grid,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The batch of one of pdhg_grid_block_checked_batched_launch.
 extern "C" int pdhg_grid_block_checked_launch(
     int n, int M, int k, int m, int check_every, int cols, int cuts, int smem,
     int restart_period, int max_iters, float tol, int* rec,
@@ -1291,45 +1504,60 @@ extern "C" int pdhg_grid_block_checked_launch(
     float* ax, float* aX, float* aA, float* aB, float* ayC, float* ayD,
     float* zx, float* zX, float* zA, float* zB, float* zC, float* zD,
     float* work, unsigned* bar, int* grid, void* stream) {
-  const int err = check_form(n, M, k, m, cols, cuts, smem);
-  if (err != 0) return err;
-  if (check_every < 1) return kErrLayout;
-  const BlockArgs a{problem(n, M, k, m, G, g, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff,
-                            Xcut, Xcoef),
-                    check_every, rec, cx, cX, h,
-                    x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD,
-                    x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD, work, bar,
-                    zx, zX, zA, zB, zC, zD, restart_period, max_iters, tol};
-  return launch_block<true>(a, cols, cuts, smem, grid, static_cast<cudaStream_t>(stream));
+  const Walk w = one(n, m);
+  return pdhg_grid_block_checked_batched_launch(
+      n, M, k, m, check_every, cols, cuts, smem, 1, restart_period, max_iters, tol, rec, w.ex,
+      w.eX, w.sG, w.sg, cx, cX, G, g, h, idx, lin, quad, rhs, act, xoff, xcut, xcoef, Xoff, Xcut,
+      Xcoef, x, X, yA, yB, yC, yD, ax, aX, aA, aB, ayC, ayD, zx, zX, zA, zB, zC, zD, work, bar,
+      grid, stream);
 }
 
 // ||K|| 1.02 + 1e-12 over the McCormick rows, the pool's cut rows (cuts = 1)
-// and the m dense rows after `iters` power iterations from the start vector
-// y (n,), Y (n, n), read only, into out[0]; the pool and dense arguments,
-// cols and smem (the block's layout) as for pdhg_grid_block_launch; work:
-// norm_work_words(n, m, M, P, cuts) floats, the last the barrier's counter
-// bar.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
+// and the m dense rows of every instance b < B of a batch, one after another
+// in one launch, after `iters` power iterations from the start vector y
+// (n,), Y (n, n), every instance's, read only, into out[b]; the pool and
+// dense arguments, their strides, cols and smem as for
+// pdhg_grid_block_batched_launch; work: norm_work_words(n, m, M, P, cuts)
+// floats, the last the barrier's counter bar.  Returns 0, a CUDA error,
+// kErrLayout or kErrNoCluster.
+extern "C" int pdhg_grid_norm_batched_launch(
+    int n, int M, int k, int m, int B, int iters, int cols, int cuts, int smem, int ex, int eX,
+    int sG, int sg, const float* G, const float* g, const int* idx, const float* lin,
+    const float* quad, const float* act, const int* xoff, const int* xcut, const float* xcoef,
+    const int* Xoff, const int* Xcut, const float* Xcoef, const float* y, const float* Y,
+    float* work, unsigned* bar, float* out, int* grid, void* stream) {
+  const int err = check_form(n, M, k, m, cols, cuts, smem);
+  if (err != 0) return err;
+  if (iters < 0 || B < 1) return kErrLayout;
+  const NormArgs a{problem(n, M, k, m, G, g, idx, lin, quad, nullptr, act, xoff, xcut, xcoef,
+                           Xoff, Xcut, Xcoef),
+                   iters, y, Y, work, bar, out};
+  const Walk w = walk(ex, eX, sG, sg);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!cuts)
+    return launch_grid(pdhg_grid_norm_kernel<false, kWidest>, a, w, B, nullptr, cols, cuts, smem,
+                       false, grid, st);
+  if (cols == kNarrow)
+    return launch_grid(pdhg_grid_norm_kernel<true, kNarrow>, a, w, B, nullptr, cols, cuts, smem,
+                       false, grid, st);
+  if (cols == kWide)
+    return launch_grid(pdhg_grid_norm_kernel<true, kWide>, a, w, B, nullptr, cols, cuts, smem,
+                       false, grid, st);
+  return launch_grid(pdhg_grid_norm_kernel<true, kWidest>, a, w, B, nullptr, cols, cuts, smem,
+                     false, grid, st);
+}
+
+// The batch of one of pdhg_grid_norm_batched_launch, into out[0].
 extern "C" int pdhg_grid_norm_launch(
     int n, int M, int k, int m, int iters, int cols, int cuts, int smem, const float* G,
     const float* g, const int* idx, const float* lin, const float* quad, const float* act,
     const int* xoff, const int* xcut, const float* xcoef, const int* Xoff, const int* Xcut,
     const float* Xcoef, const float* y, const float* Y, float* work, unsigned* bar, float* out,
     int* grid, void* stream) {
-  const int err = check_form(n, M, k, m, cols, cuts, smem);
-  if (err != 0) return err;
-  if (iters < 0) return kErrLayout;
-  const NormArgs a{problem(n, M, k, m, G, g, idx, lin, quad, nullptr, act, xoff, xcut, xcoef,
-                           Xoff, Xcut, Xcoef),
-                   iters, y, Y, work, bar, out};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!cuts)
-    return launch_grid(pdhg_grid_norm_kernel<false, kWidest>, a, cols, cuts, smem, false, grid,
-                       st);
-  if (cols == kNarrow)
-    return launch_grid(pdhg_grid_norm_kernel<true, kNarrow>, a, cols, cuts, smem, false, grid, st);
-  if (cols == kWide)
-    return launch_grid(pdhg_grid_norm_kernel<true, kWide>, a, cols, cuts, smem, false, grid, st);
-  return launch_grid(pdhg_grid_norm_kernel<true, kWidest>, a, cols, cuts, smem, false, grid, st);
+  const Walk w = one(n, m);
+  return pdhg_grid_norm_batched_launch(n, M, k, m, 1, iters, cols, cuts, smem, w.ex, w.eX, w.sG,
+                                       w.sg, G, g, idx, lin, quad, act, xoff, xcut, xcoef, Xoff,
+                                       Xcut, Xcoef, y, Y, work, bar, out, grid, stream);
 }
 
 // The CTAs of the grid route's form at (n, M, k, m) with smem bytes a CTA:

@@ -567,13 +567,17 @@ def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK
     at ``max_iters`` and is frozen from then on; omega, the restart anchor,
     the window and the error are per instance (a row of the control record
     each); the loop runs while any instance runs.  Each checked block is one
-    batched checked launch (``pdhg_check.checked_step``: K2 and K5) for every
-    instance, a stopped one doing
-    nothing; one read of the records a group.  With ``route`` "plain" the
-    twins run instead (the block for the instances still running, counted
-    in ``pdhg_block.plain_launches`` on CUDA); the dense route has no
-    instance axis.  Returns (state, info) with (B,) numpy arrays in info."""
+    batched checked launch for every instance, a stopped one doing nothing:
+    on route "k2" K2 with K5 (``pdhg_check.checked_step``), one cluster an
+    instance; on route "grid" the grid route's checked block
+    (``pdhg_grid.grid_checked_step``), which walks the instances one after
+    another over the whole card.  One read of the records a group.  With
+    ``route`` "plain" the twins run instead (the block for the instances
+    still running, counted in ``pdhg_block.plain_launches`` on CUDA); the
+    dense route solves one instance.  Returns (state, info) with (B,) numpy
+    arrays in info."""
     from .pdhg_check import checked_step, pdhg_block_checked
+    from .pdhg_grid import grid_checked_step
     from .pdhg_kernel import pdhg_block, pdhg_block_steps_batched_plain
 
     B = cx.shape[0]
@@ -581,10 +585,11 @@ def _solve_batched(cx, cX, pool: CutPool, index: CutIndex, st0: PDHGState, normK
     rec = new_record(normK, omega0, step_scale, max_iters, tol, cx.device, batch=B)
     args = (cx, cX, pool, index, st, acc)
     control = (anchor, rec, check_every, restart_period, max_iters, tol, dense)
-    if route == "k2":
-        step = checked_step(*args, *control, batched=True)
+    if route in ("k2", "grid"):
+        step = (checked_step if route == "k2" else grid_checked_step)(*args, *control,
+                                                                      batched=True)
     elif route != "plain":
-        raise ValueError(f"a batched solve takes the 'k2' or 'plain' route, got {route!r}")
+        raise ValueError(f"a batched solve takes the 'k2', 'grid' or 'plain' route, got {route!r}")
     else:
         on_card = cx.device.type == "cuda"
 
@@ -605,11 +610,13 @@ def solve_setup_batched(c, pool: CutPool, cfg, dense: DenseRows | None = None) -
     """``solve_setup`` of a batch (c (B, n)): the route by ``cfg.use_kernel``
     at the batch's shape, ``relax.batched.build_cut_index`` and ||K|| of
     every instance, (B,) on the device (K6's batched launch on K2's route,
-    ``estimate_norm_batched_plain`` otherwise).  The dense and grid routes
-    have no instance axis: a batch of the certifier's pools, or of a shape
-    outside K2's plan, raises."""
+    the grid route's batched norm on the grid route, which takes the shapes
+    K2's cluster refuses, ``estimate_norm_batched_plain`` on the plain one).
+    The dense route has no instance axis: a batch of the certifier's pools
+    raises, as a shape no route takes does (``kernel_route``)."""
     from ..relax import batched as rb
-    from .pdhg_kernel import kernel_route, plan_refusal
+    from .pdhg_grid import pdhg_grid_norm_batched
+    from .pdhg_kernel import kernel_route
     from .pdhg_norm import pdhg_norm, pdhg_norm_batched
 
     n = int(c.shape[1])
@@ -618,11 +625,9 @@ def solve_setup_batched(c, pool: CutPool, cfg, dense: DenseRows | None = None) -
     route = kernel_route(cfg.use_kernel, c.device, n, M, k, m)
     if route == "dense":
         raise ValueError("the dense route solves one instance; batches take pools of cuts")
-    if route == "grid":
-        raise ValueError(f"the grid route solves one instance; a batch takes the shapes K2's "
-                         f"cluster holds: {plan_refusal(n, M, k, m)}")
     index = rb.build_cut_index(pool, n)
-    norm = pdhg_norm_batched if route == "k2" else estimate_norm_batched_plain
+    norm = {"k2": pdhg_norm_batched, "grid": pdhg_grid_norm_batched,
+            "plain": estimate_norm_batched_plain}[route]
     normK = norm(pool, n, cfg.power_iters, None, index, dense)   # the seed-0 start vector
     if route == "plain" and c.device.type == "cuda":
         pdhg_norm.plain_launches += 1

@@ -1,8 +1,9 @@
 """Wrappers of the grid route's kernels (``csrc/pdhg_grid.cu``): the PDHG
-solve of one instance over a cooperative grid of one CTA an SM, for the
-shapes K2's cluster (``lp/pdhg_kernel.py``) does not hold in its shared
-memory: n up to 512, pools larger than K2's bands leave room for, and a
-QCQP's dense rows past the few K2 holds at n > 128.
+solve over a cooperative grid of one CTA an SM, for the shapes K2's cluster
+(``lp/pdhg_kernel.py``) does not hold in its shared memory: n up to 512,
+pools larger than K2's bands leave room for, and a QCQP's dense rows past
+the few K2 holds at n > 128.  One instance, or a batch of one shape whose
+instances one launch walks one after another, each over the whole grid.
 
 - ``pdhg_grid_block`` / ``pdhg_grid_block_steps``: ``iters`` iterations of
   ``lp/pdhg.py::_one_iter`` with the ergodic sums, with host steps (the
@@ -16,12 +17,24 @@ QCQP's dense rows past the few K2 holds at n > 128.
 - ``pdhg_grid_norm``: ||K|| by the power iteration in one launch (K6's
   work), on the block's layout.  Twin ``estimate_norm_plain``.
 
-They take the arguments of K2's, its checked form's and K6's wrappers, so
-the solve's loop (``lp/pdhg.py::_solve_impl``) runs the route as it runs
-K2's.  The kernels come in two forms: a pool of cuts (k = 2..5, with its
-cut index) at the column widths 128, 256 and 512 (``pdhg_kernel.columns``),
-and the certifier's pool without cuts at 512 columns, which the dense route
-(``lp/pdhg_dense.py``) takes past n = 256.  ``grid_refusal`` says where the
+- the instance axis (``parallel/round.py``'s batched round):
+  ``pdhg_grid_block_batched`` (the instances ``ids``; twin
+  ``pdhg_block_batched_plain``), ``pdhg_grid_block_steps_batched`` (twin
+  ``pdhg_block_steps_batched_plain``), ``grid_checked_step(...,
+  batched=True)`` / ``pdhg_grid_block_checked_batched`` (twins
+  ``pdhg_block_steps_batched_plain`` then ``pdhg_check_batched_plain``) and
+  ``pdhg_grid_norm_batched`` (twin ``estimate_norm_batched_plain``).  Each
+  instance computes the bits it computes alone (the same partition and sum
+  orders); one whose record has stopped is skipped.  ``dense_layout`` lays
+  a batch's dense rows out with instance strides of 4 floats, once a solve.
+
+They take the arguments of K2's, its checked form's and K6's wrappers
+(single and batched), so the solve's loops (``lp/pdhg.py::_solve_impl``,
+``_solve_batched``) run the route as they run K2's.  The kernels come in
+two forms: a pool of cuts (k = 2..5, with its cut index) at the column
+widths 128, 256 and 512 (``pdhg_kernel.columns``), and the certifier's pool
+without cuts at 512 columns, which the dense route (``lp/pdhg_dense.py``)
+takes past n = 256 (one instance).  ``grid_refusal`` says where the
 route does not take a shape.  The reference runs these shapes in XLA (its
 Pallas kernel takes n <= 128, a pool of at most 1024 slots and no dense row,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``).
@@ -37,7 +50,8 @@ Device rule: CPU tensors take the twins; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_grid_block.launches`` counts the block launches
 of every block wrapper, the checked ones too (the dense route's past n = 256
 among them); ``pdhg_grid_block_checked.launches`` the checked ones,
-``pdhg_grid_norm.launches`` the norm's.
+``pdhg_grid_norm.launches`` the norm's; a batched call counts one launch,
+whatever B.
 """
 
 from __future__ import annotations
@@ -51,9 +65,11 @@ from .. import _build
 from ..relax.batched import batch_of_one
 from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
-from .pdhg import PDHGState, estimate_norm_plain, pdhg_check_plain, start_vector
+from .pdhg import (PDHGState, estimate_norm_batched_plain, estimate_norm_plain,
+                   pdhg_check_batched_plain, pdhg_check_plain, start_vector)
 from .pdhg_kernel import (_ERRORS, SMEM_MAX, _checked_args, check_record, columns,
-                          pdhg_block_plain, pdhg_block_steps_plain, steps_record)
+                          pdhg_block_batched_plain, pdhg_block_plain,
+                          pdhg_block_steps_batched_plain, pdhg_block_steps_plain, steps_record)
 
 GRID_NMAX = 512             # csrc/pdhg_common.cuh kWidest: the largest n the route takes
 # csrc/pdhg_grid.cu GridForm<Cols>: (kMaxE, kChunks, kScratch, kStages) by column width
@@ -61,7 +77,8 @@ FORMS = {128: (496, 1, 2048, 4), 256: (500, 1, 2048, 4), 512: (2036, 4, 8192, 3)
 _STAGE = 8192               # kStage: floats a ring stage
 _SMEM_WORDS = SMEM_MAX // 4
 _NS, _ND = 10, 6            # kNS: a check point's sums; kND: the distances' partials
-_META = 64                  # kMeta: the words of a CTA's Slices, first in its shared memory
+_META = 192                 # kMeta: the words of a CTA's Slices and its instance's
+                            # arguments, first in its shared memory
 
 
 def max_entries(n: int) -> int:
@@ -267,22 +284,29 @@ def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
 
 def grid_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
                       anchor: PDHGState, rec, check_every: int, restart_period: int,
-                      max_iters: int, tol: float, dense: DenseRows | None = None):
+                      max_iters: int, tol: float, dense: DenseRows | None = None,
+                      batched: bool = False):
     """The solve's step on the grid route over fixed buffers
     (``pdhg_check.checked_step``'s contract): a function of no arguments
     that runs one checked block of ``check_every`` iterations in place on
-    (st, acc, anchor) and the record ``rec`` (REC_WORDS,).  CPU tensors take
-    the twins, CUDA tensors one launch a step."""
+    (st, acc, anchor) and the record ``rec`` (single: (REC_WORDS,);
+    batched: every argument with the instance axis first, ``rec`` (B,
+    REC_WORDS), the instances walked in one launch).  CPU tensors take the
+    twins, CUDA tensors one launch a step."""
     if cx.device.type == "cpu":
+        block, check = ((pdhg_block_steps_batched_plain, pdhg_check_batched_plain) if batched
+                        else (pdhg_block_steps_plain, pdhg_check_plain))
+
         def step():
-            pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, check_every, dense)
-            pdhg_check_plain(cx, cX, pool, index, st, acc, anchor, rec, check_every,
-                             restart_period, max_iters, tol, dense)
+            block(cx, cX, pool, index, st, acc, rec, check_every, dense)
+            check(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
+                  max_iters, tol, dense)
         return step
     if cx.device.type != "cuda":
         raise ValueError(f"pdhg_grid_block_checked: no kernel for device {cx.device}")
-    return _checked_launcher(cx, cX, pool, index, st, acc, anchor, rec, check_every,
-                             restart_period, max_iters, tol, dense)
+    launcher = _checked_batched_launcher if batched else _checked_launcher
+    return launcher(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
+                    max_iters, tol, dense)
 
 
 def pdhg_grid_block_checked(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
@@ -331,3 +355,208 @@ def pdhg_grid_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator
 
 
 pdhg_grid_norm.launches = 0
+
+
+# ---- the instance axis: a batch of one shape, walked in one launch ----------------
+
+def dense_layout(dense: DenseRows | None):
+    """A batch's dense rows as the walk reads them: (G, g, h, sG, sg), G and
+    g one row of sG and sg floats an instance (m n n and m n rounded up to 4
+    floats, so that every instance's rows start 16-byte aligned), h
+    contiguous; the batch's own tensors where they already lie so, else a
+    copy, made once a solve by the solve's step and norm.  No rows: Nones
+    and strides 0."""
+    if dense is None:
+        return None, None, None, 0, 0
+    B, m, n = dense.g.shape
+    sG, sg = -(-m * n * n // 4) * 4, -(-m * n // 4) * 4
+
+    def lay(t, stride):
+        flat = t.reshape(B, -1)
+        if flat.shape[1] == stride and t.is_contiguous() and t.data_ptr() % 16 == 0:
+            return t
+        out = torch.zeros(B, stride, dtype=t.dtype, device=t.device)
+        out[:, :flat.shape[1]] = flat
+        return out
+
+    return lay(dense.G, sG), lay(dense.g, sg), dense.h.contiguous(), sG, sg
+
+
+def _batched_args(cx, cX, pool: CutPool, index: CutIndex, states, dense: DenseRows | None,
+                  name: str, layout=None):
+    """Check a batched launch's arguments (every argument with the instance
+    axis first, a pool of cuts) with K2's checks and the route's refusal;
+    returns (B, n, M, k, m, the problem's contiguous tensors, the dense
+    rows' (G, g, h) and the walk's strides (ex, eX, sG, sg)).  ``layout``:
+    ``dense_layout(dense)`` where the caller keeps it."""
+    B, n, M, k, m, ex, eX = _checked_args(cx, cX, pool, index, states, dense, name)
+    why = grid_refusal(n, M, k, m)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+    G, g, h, sG, sg = dense_layout(dense) if layout is None else layout
+    problem = [t.contiguous() for t in (cx, cX, index.idx, pool.lin, pool.quad, pool.rhs,
+                                        pool.active, index.xoff, index.xcut, index.xcoef,
+                                        index.Xoff, index.Xcut, index.Xcoef)]
+    d = [] if dense is None else [G, g, h]
+    return B, n, M, k, m, problem, d, (ex, eX, sG, sg)
+
+
+def _launch_block_batched(cx, cX, pool: CutPool, index: CutIndex, ins, outs, rec, iters: int,
+                          ids: np.ndarray, dense: DenseRows | None) -> int:
+    """The batched block's launch for the instances ``ids`` from the states
+    ``ins`` (state, sums) into ``outs`` (which may be ``ins``), each with the
+    steps and stop flag of its row of ``rec``.  Returns the CTAs launched."""
+    B, n, M, k, m, problem, d, strides = _batched_args(cx, cX, pool, index, (*ins, *outs), dense,
+                                                       "pdhg_grid_block")
+    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), True, False),
+                       dtype=torch.float32, device=cx.device)
+    grid = ctypes.c_int(0)
+    count = int(ids.size)
+    err = _build.lib().pdhg_grid_block_batched_launch(
+        n, M, k, m, iters, columns(n), 1, 4 * block_words(n, M, m, True), count,
+        (ctypes.c_int * max(count, 1))(*ids.tolist()), rec.data_ptr(), *strides,
+        *_pointers(problem, d), *(t.data_ptr() for s in ins for t in s.fields()),
+        *(t.data_ptr() for s in outs for t in s.fields()), work.data_ptr(),
+        work[-1:].data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream)
+    _raise(err, "pdhg_grid_block_batched_launch", n, M, m)
+    pdhg_grid_block.launches += 1
+    return grid.value
+
+
+def pdhg_grid_block_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                            acc: PDHGState, tau, sigma, iters: int, ids,
+                            dense: DenseRows | None = None):
+    """``pdhg_grid_block`` for the instances ``ids`` (increasing) of a batch
+    in one launch on CUDA, one instance after another: every argument
+    carries the instance axis first, ``index`` is
+    ``relax.batched.build_cut_index(pool, n)``, tau and sigma are (B,)
+    per-instance steps.  Returns new batched (state, acc); the instances not
+    in ``ids`` come back unchanged, bit for bit, and the inputs are left as
+    they were.  Twin ``pdhg_block_batched_plain``.  Counted in
+    ``pdhg_grid_block.launches``."""
+    if cx.device.type == "cpu":
+        return pdhg_block_batched_plain(cx, cX, pool, index, st, acc, tau, sigma, iters, ids,
+                                        dense)
+    if cx.device.type != "cuda":
+        raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
+    B = cx.shape[0]
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= B or (np.diff(ids) <= 0).any()):
+        raise ValueError(f"pdhg_grid_block: ids must be increasing instances of 0..{B - 1}")
+    ins = [st.map(lambda t: t.contiguous()), acc.map(lambda t: t.contiguous())]
+    if ids.size == B:
+        outs = [s.map(torch.empty_like) for s in ins]
+    else:
+        # the instances left out keep their inputs: copy all of them, then
+        # update the listed ones in place
+        outs = ins = [s.map(torch.clone) for s in ins]
+    _launch_block_batched(cx, cX, pool, index, ins, outs,
+                          steps_record(tau, sigma, cx.device), iters, ids, dense)
+    return outs[0], outs[1]
+
+
+def pdhg_grid_block_steps_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                                  acc: PDHGState, rec, iters: int,
+                                  dense: DenseRows | None = None):
+    """``pdhg_grid_block_steps`` of every instance of a batch in one launch:
+    records (B, REC_WORDS); an instance whose record has stopped is left as
+    it is, bit for bit.  Twin ``pdhg_block_steps_batched_plain``.  Counted in
+    ``pdhg_grid_block.launches``."""
+    if cx.device.type == "cpu":
+        pdhg_block_steps_batched_plain(cx, cX, pool, index, st, acc, rec, iters, dense)
+    elif cx.device.type == "cuda":
+        B = cx.shape[0]
+        check_record(rec, B, cx.device, "pdhg_grid_block")
+        if not all(t.is_contiguous() for s in (st, acc) for t in s.fields()):
+            raise ValueError("pdhg_grid_block: an in-place launch takes contiguous state and sums")
+        _launch_block_batched(cx, cX, pool, index, [st, acc], [st, acc], rec, iters,
+                              np.arange(B), dense)
+    else:
+        raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
+
+
+def _checked_batched_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                              acc: PDHGState, anchor: PDHGState, rec, check_every: int,
+                              restart_period: int, max_iters: int, tol: float,
+                              dense: DenseRows | None):
+    """The batched checked block's launch, its arguments checked, its dense
+    rows laid out and its pointers taken once a solve: a function of no
+    arguments that enqueues one launch for every instance."""
+    B, n, M, k, m, problem, d, strides = _batched_args(cx, cX, pool, index, (st, acc, anchor),
+                                                       dense, "pdhg_grid_block_checked")
+    check_record(rec, B, cx.device, "pdhg_grid_block_checked")
+    if not all(t.is_contiguous() for s in (st, acc, anchor) for t in s.fields()):
+        raise ValueError("pdhg_grid_block_checked kernel takes contiguous state, sums and anchor")
+    if check_every < 1:
+        raise ValueError(f"pdhg_grid_block_checked: check_every must be >= 1, got {check_every}")
+    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), True, True),
+                       dtype=torch.float32, device=cx.device)
+    grid = ctypes.c_int(0)
+    args = (n, M, k, m, check_every, columns(n), 1, 4 * block_words(n, M, m, True), B,
+            restart_period, max_iters, float(np.float32(tol)), rec.data_ptr(), *strides,
+            *_pointers(problem, d), *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
+            work.data_ptr(), work[-1:].data_ptr(), ctypes.byref(grid),
+            torch.cuda.current_stream(cx.device).cuda_stream)
+    fn = _build.lib().pdhg_grid_block_checked_batched_launch
+
+    def launch():
+        _raise(fn(*args), "pdhg_grid_block_checked_batched_launch", n, M, m)
+        pdhg_grid_block.launches += 1
+        pdhg_grid_block_checked.launches += 1
+
+    launch.keep = (problem, d, work, grid)   # alive as long as the step
+    return launch
+
+
+def pdhg_grid_block_checked_batched(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
+                                    acc: PDHGState, anchor: PDHGState, rec, check_every: int,
+                                    restart_period: int, max_iters: int, tol: float,
+                                    dense: DenseRows | None = None):
+    """``pdhg_grid_block_checked`` of every instance of a batch in one
+    launch: every argument carries the instance axis first, ``index`` is
+    ``relax.batched.build_cut_index(pool, n)``, ``rec`` is (B, REC_WORDS).
+    One launch counts once in ``pdhg_grid_block.launches`` and
+    ``pdhg_grid_block_checked.launches``, whatever B."""
+    grid_checked_step(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
+                      max_iters, tol, dense, batched=True)()
+
+
+def pdhg_grid_norm_batched(pool: CutPool, n: int, iters: int,
+                           generator: torch.Generator | None, index: CutIndex,
+                           dense: DenseRows | None = None):
+    """``pdhg_grid_norm`` of every instance of a batch (``relax/batched.py``
+    shapes) in one launch, one instance after another, each from the same
+    start vector (``pdhg_norm.pdhg_norm_batched``'s): (B,) float32 on the
+    pool's device.  Twin ``estimate_norm_batched_plain``.  Counted in
+    ``pdhg_grid_norm.launches``."""
+    dev = pool.lin.device
+    if dev.type == "cpu":
+        return estimate_norm_batched_plain(pool, n, iters, generator, index, dense)
+    if dev.type != "cuda":
+        raise ValueError(f"pdhg_grid_norm: no kernel for device {dev}")
+    return _launch_norm_batched(pool, n, iters, generator, index, dense)
+
+
+def _launch_norm_batched(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
+                         index: CutIndex, dense: DenseRows | None):
+    """The batched norm's launch: (B,) float32 on the pool's device."""
+    dev = pool.lin.device
+    B = pool.lin.shape[0]
+    y, Y = (t.contiguous() for t in start_vector(n, generator, dev))
+    # the start vector, broadcast, stands where cx and cX stand in the
+    # block's checks; the norm reads it once, for every instance
+    _, n, M, k, m, problem, d, strides = _batched_args(
+        y.expand(B, n), Y.expand(B, n, n), pool, index, (), dense, "pdhg_grid_norm")
+    work = torch.empty(norm_work_words(n, m, M, grid_ctas(n, M, k, m), True),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    grid = ctypes.c_int(0)
+    ptrs = _pointers(problem, d)
+    err = _build.lib().pdhg_grid_norm_batched_launch(
+        n, M, k, m, B, iters, columns(n), 1, 4 * block_words(n, M, m, True), *strides, ptrs[2],
+        ptrs[3], ptrs[5], ptrs[6], ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(),
+        work.data_ptr(), work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise(err, "pdhg_grid_norm_batched_launch", n, M, m)
+    pdhg_grid_norm.launches += 1
+    return out

@@ -136,13 +136,20 @@ def test_grid_refusal_reasons():
 
 
 def test_batched_setup_refuses_the_grid_route():
+    """A batch refuses the grid route only where the route refuses the shape:
+    at n = 257 with "on" its setup takes it (the batched norm's twin on the
+    CPU), at n = 513 it raises with the route's reason."""
     inst = generate_spar(257, 100, 1)
     pool = tcb.empty_pool(64, 3, "cpu")
     batch = tcb.CutPool(*(t[None] for t in (pool.idx, pool.lin, pool.quad, pool.rhs,
                                             pool.active, pool.count)))
-    with pytest.raises(ValueError, match="grid route solves one instance"):
-        tpdhg.solve_setup_batched(torch.as_tensor(inst.c[None], dtype=torch.float32), batch,
-                                  LPConfig(use_kernel="on"))
+    c = torch.as_tensor(inst.c[None], dtype=torch.float32)
+    setup = tpdhg.solve_setup_batched(c, batch, LPConfig(use_kernel="on"))
+    assert setup.route == "grid"
+    assert torch.equal(setup.normK, tpdhg.estimate_norm_batched_plain(batch, 257, 30, None,
+                                                                      setup.index))
+    with pytest.raises(ValueError, match="n <= 512"):
+        tpdhg.solve_setup_batched(torch.zeros(1, 513), batch, LPConfig(use_kernel="on"))
 
 
 # ---- the layouts, summed from the kernel source ---------------------------------
