@@ -106,9 +106,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      spar020-100-1 with strategies triangle, optimality and random, and
      neural with vertex steering (the random draws come from a CPU
      generator, so both devices see the same numbers);
-     generate_spar(513, 100, 1), outside every route (n > 512): by default
-     its solve refuses on the card with the routes' reasons, no PDHG kernel
-     launched; generate_spar(300, 100, 1), past K2's cluster: 2 rounds by
+     generate_spar(1025, 100, 1), outside every route (n > 1024): by
+     default its solve (k = 2) refuses on the card with the routes' reasons,
+     no PDHG kernel launched; generate_spar(300, 100, 1), past K2's cluster: 2 rounds by
      default on K1 and the grid route's kernels (no K2, no plain block, twin
      check or norm), each round within rtol 2e-3 of one CPU run of the port;
      and spar150-100-1 (generated, the kernels' 256-column
@@ -175,6 +175,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
      --rounds 3 in a subprocess runs to its end; with --parent DIR, the
      single-instance grid entries at phase 19's shapes bit for bit the
      parent build's, the block timed in turns with it;
+ 21. the grid route's 1024-column form (run after phase 20; 512 < n <= 1024,
+     the owned state in global memory): its block, checked launch and norm
+     against their twins at phase 19's tolerances, twice bit for bit, each
+     timed on the device beside its bound, at n = 600 and 1024 with
+     M = 1024 and 400 active k = 3 cuts, at n = 700 with k = 5 cuts and 25
+     dense rows, in its form without cuts at n = 600 over 368 certifier
+     rows, and the walk at B = 2, n = 1024 (each instance bit for bit its
+     single entry's); ptxas without a spill or a stack; K1 over all
+     178,433,024 triples of C(1024, 3) (2.1 GB of table on the card), held
+     to its twin in 8M-row chunks; CutSolver on generate_spar(1024, 100, 1)
+     with the defaults, 3 rounds with "auto" twice bit for bit, on K1 and
+     the grid route alone, every certificate at least a feasible point's
+     objective, its rounds/s and synchronised stage split;
+     CutSolverQCQP on generate_qcqp_band(600, 5, 25, 1) at phase 19's
+     settings, 2 rounds twice bit for bit on K4 and the grid route, the
+     first within rtol 2e-3 of the CPU port; the certifier at n = 600 (3
+     plain eigencut rounds), twice bit for bit, on the form without cuts,
+     every certificate at least the Burer-Monteiro lb.  The host's part
+     (the BM lb and the CPU port's band round, minutes at n = 600) runs in
+     a subprocess of its own (--host-references) from the end of the build,
+     and those two comparisons close the run, after phase 17;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -291,13 +312,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
      one cell (spar020-100-1, feasibility, 2 rounds) into a temporary file,
      and a second call skips it; every rank's launches (the plain PDHG
      blocks and the twin-scored calls 0 on each) join the kernels line;
- 14. one JSON line of kernel results (twelve entries), each kernel's
-     launches summed over the main paths 5-13, 15-17 and the wide and grid
-     paths of phases 4, 18, 19 and 20 (each counted from 0; the sums over the
-     paths at n <= 128 alone are printed before the line); the grid route's
-     entries hold spar512's shape, every shape under "shapes", phase 20's
-     batched launches under "batched", and K1's
-     the n = 512 numbers ("n512"); K2's entry also holds the
+ 14. one JSON line of kernel results (fifteen entries), each kernel's
+     launches summed over the main paths 5-13, 15-17 and the wide, grid and
+     1024-column paths of phases 4, 18, 19, 20 and 21 (each counted from 0;
+     the sums over the paths at n <= 128 alone are printed before the line);
+     the grid route's entries hold spar512's shape, every shape under
+     "shapes", phase 20's batched launches under "batched"; its 1024-column
+     form's three entries n = 1024's shape and phase 21's launches; K1's
+     the n = 512 and n = 1024 numbers ("n512", "n1024"); K2's entry also holds the
      batched launch's time, bound and the clusters the card runs at once,
      and K1, K2, K5, K6 and K7's entries the wide shapes' numbers ("n256",
      "wide", "shapes"); the total seconds beside a 900 s budget, then the
@@ -2096,9 +2118,10 @@ def check_guard(inst, unguarded, dev):
 
 
 def check_large_instance(dev) -> dict:
-    """A BoxQP solve outside every route (n = 513 > 512),
-    generate_spar(513, 100, 1): by default the solve refuses on the card
-    with the routes' reasons, no PDHG kernel launched.  generate_spar(300,
+    """A BoxQP solve outside every route (n = 1025 > 1024),
+    generate_spar(1025, 100, 1) at k = 2 (its table 524,800 pairs, where
+    C(1025, 3) would take 2 GB and seconds to build): by default the solve
+    refuses on the card with the routes' reasons, no PDHG kernel launched.  generate_spar(300,
     100, 1), past K2's cluster: 2 rounds with the default "auto" on K1 and
     the grid route's kernels (no K2, no plain block, twin check or norm),
     each round within GRID_RTOL of one CPU run of the port.  spar150-100-1
@@ -2107,19 +2130,19 @@ def check_large_instance(dev) -> dict:
     with LPConfig(use_kernel="off") 2 rounds of the plain loop there, each
     against the CPU port's 2 rounds (run once).  Returns the launch counts
     of the "auto" runs at n = 150 and at n = 300."""
-    wide = generate_spar(513, 100, 1)
+    wide = generate_spar(1025, 100, 1)
     lp = LPConfig(max_iters=3000, tol=1e-5)
-    why = pdhg_kernel.route_refusal(wide.n, CutConfig().capacity, 3, 0)[1]
+    why = pdhg_kernel.route_refusal(wide.n, CutConfig().capacity, 2, 0)[1]
     reset_launches()
     try:
-        CutSolver(wide, RunConfig(lp=lp), device=dev).run(rounds=1)
+        CutSolver(wide, RunConfig(lp=lp, cuts=CutConfig(k=2)), device=dev).run(rounds=1)
         refused = None
     except ValueError as e:
         refused = str(e)
     log(f"[small] {wide.name}, use_kernel='auto': {refused!r}; launches {launch_counts()}")
     if (refused is None or why is None or why not in refused
             or any(launch_counts()[k] for k in ("pdhg_block", *GRID_NAMES))):
-        raise AssertionError("the n = 513 solve on the card did not refuse with the routes' "
+        raise AssertionError("the n = 1025 solve on the card did not refuse with the routes' "
                              "reasons")
     del wide
     inst = generate_spar(300, 100, 1)
@@ -3918,6 +3941,22 @@ def check_grid_check(label: str, inputs) -> dict:
         runs.append(queued_ms(fn, reps=10))
     both, blk = sum(t_both) / 2, sum(t_blk) / 2
     dev_ms = both - blk
+    extra = {}
+    if dev_ms <= 0.0:
+        # the checked kernel runs its block faster than the unchecked one:
+        # the check from the checked kernel alone, a launch of one iteration
+        # less one iteration of it (launches of 1 and `every`, in turns)
+        t_one, t_all = [], []
+        for runs, iters in ((t_one, 1), (t_all, every), (t_all, every), (t_one, 1)):
+            runs.append(queued_ms(lambda iters=iters: pdhg_grid_block_checked(
+                cx, cX, pool, index, *bufs, iters, 100, *never, dense), reps=10))
+        one, full = sum(t_one) / 2, sum(t_all) / 2
+        extra = {"checked_less_unchecked_ms": dev_ms, "one_iteration_launch_ms": one,
+                 "by_iterations": True}
+        log(f"[pdhg_grid_check {label}] the checked launch less the block is {dev_ms:.4f} ms: "
+            f"the checked kernel's launches of 1 and {every} iterations in turns {t_one!r}, "
+            f"{t_all!r} ms give the check {one - (full - one) / (every - 1):.4f} ms ({SMI})")
+        dev_ms = one - (full - one) / (every - 1)
     tw = prepare()
     plain_ms = cuda_ms(lambda: pdhg_check_plain(cx, cX, pool, index, *tw, every, 100, top, tol,
                                                 dense), reps=3)
@@ -3932,7 +3971,7 @@ def check_grid_check(label: str, inputs) -> dict:
         f"({SMI})")
     return {"max_abs_err": worst, "ms": dev_ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
             "share": b["bound_ms"] / max(dev_ms, 1e-9), "checked_launch_ms": both,
-            "unchecked_launch_ms": blk}
+            "unchecked_launch_ms": blk, **extra}
 
 
 def check_grid_norm(label: str, inputs) -> dict:
@@ -4160,19 +4199,19 @@ GRID_BATCH_BAND_CPU_ROUNDS = 1        # of them held to the CPU port's batched r
 GRID_BATCH_CLI = ["--n", "300", "--batch", "4", "--rounds", "3"]
 
 
-def grid_batch_inputs(label: str, dev):
+def grid_batch_inputs(label: str, dev, shapes=None, B: int = GRID_BATCH):
     """(cx, cX, pool, index, state, dense, singles) of a GRID_BATCH_SHAPES
-    shape at B = GRID_BATCH: instance s has generate_spar(n, 100, s + 1)'s
+    shape (or of ``shapes``) at B instances: instance s has generate_spar(n, 100, s + 1)'s
     objective (m = 0) or generate_qcqp(n, 30, m, s + 1)'s and its m dense
     rows, its own pool of M = 1024 with 400 active random unit cuts on 2,000
     random k-subsets of its columns and a random state (phase 3's
     random_pool and random_state); ``singles``: each instance's (cx, cX,
     pool, its own cut index, state, dense rows in a tensor of their own)."""
-    n, k, m = GRID_BATCH_SHAPES[label]
+    n, k, m = (GRID_BATCH_SHAPES if shapes is None else shapes)[label]
     rng = np.random.default_rng(SEED + 5)
     f32 = dict(dtype=torch.float32, device=dev)
     singles = []
-    for s in range(GRID_BATCH):
+    for s in range(B):
         if m == 0:
             inst = generate_spar(n, 100, s + 1)
             Q, c, dense = inst.Q, inst.c, None
@@ -4226,8 +4265,8 @@ def in_turns(batched, singles, reps: int) -> tuple:
 
 def check_grid_block_batched(label: str, inputs) -> dict:
     """The batched block (pdhg_grid_block_batched) with instance
-    GRID_BATCH_FROZEN left out of ids against its twin
-    (pdhg_block_batched_plain) at phase 19's tolerances, 7 and 100
+    GRID_BATCH_FROZEN (a smaller batch's last) left out of ids against its
+    twin (pdhg_block_batched_plain) at phase 19's tolerances, 7 and 100
     iterations; the instance left out unchanged bit for bit; every listed
     instance bit for bit the single-instance entry's (pdhg_grid_block) on
     its own cut index; two launches bit for bit; the inputs unchanged; the
@@ -4239,7 +4278,7 @@ def check_grid_block_batched(label: str, inputs) -> dict:
     eta = grid_batch_eta(inputs)
     acc = st.map(torch.zeros_like)
     args = (cx, cX, P, index, st, acc, eta, eta)
-    frozen = GRID_BATCH_FROZEN
+    frozen = min(GRID_BATCH_FROZEN, B - 1)
     ids = [b for b in range(B) if b != frozen]
     before = [t.clone() for t in (*st.fields(), *acc.fields())]
     worst = 0.0
@@ -4332,7 +4371,7 @@ def check_grid_check_batched(label: str, inputs) -> dict:
     normK = estimate_norm_batched_plain(P, n, 30, torch.Generator().manual_seed(0), index, dense)
     every, top, tol = CHECK_ARGS["check_every"], CHECK_ARGS["max_iters"], CHECK_ARGS["tol"]
     never = (10 ** 9, -1.0)
-    frozen = GRID_BATCH_FROZEN
+    frozen = min(GRID_BATCH_FROZEN, B - 1)
     ids = [b for b in range(B) if b != frozen]
 
     def prepare(stop=True):
@@ -4398,6 +4437,18 @@ def check_grid_check_batched(label: str, inputs) -> dict:
     both, singles_ms, tb, ts = in_turns(batched, each, reps=5)
     blk, _, tk, _ = in_turns(unchecked, batched, reps=5)
     dev_ms = both - blk
+    extra = {}
+    if dev_ms <= 0.0:                  # as check_grid_check: by the checked kernel alone
+        one, full, t_one, t_all = in_turns(
+            lambda: pdhg_grid_block_checked_batched(cx, cX, P, index, *bufs, 1, 100, *never,
+                                                    dense), batched, reps=5)
+        extra = {"checked_less_unchecked_ms": dev_ms, "one_iteration_launch_ms": one,
+                 "by_iterations": True}
+        log(f"[pdhg_grid_check batched {label}] the checked launch less the block is "
+            f"{dev_ms:.4f} ms: the checked kernel's launches of 1 and {every} iterations in "
+            f"turns {t_one!r}, {t_all!r} ms give the check "
+            f"{one - (full - one) / (every - 1):.4f} ms ({SMI})")
+        dev_ms = one - (full - one) / (every - 1)
     tw = prepare()
     plain_ms = cuda_ms(lambda: pdhg_check_batched_plain(cx, cX, P, index, *tw, every, 100, top,
                                                         tol, dense), reps=2)
@@ -4411,7 +4462,7 @@ def check_grid_check_batched(label: str, inputs) -> dict:
     return {"batch": B, "max_abs_err": worst, "ms": dev_ms, "device_ms": dev_ms,
             "checked_launch_ms": both, "singles_checked_ms": singles_ms,
             "unchecked_launch_ms": blk, "plain_ms": plain_ms, **b_,
-            "share": b_["bound_ms"] / max(dev_ms, 1e-9)}
+            "share": b_["bound_ms"] / max(dev_ms, 1e-9), **extra}
 
 
 def check_grid_norm_batched(label: str, inputs) -> dict:
@@ -4714,6 +4765,366 @@ def grid_batch_phase(dev, pkg=None) -> dict:
     return out
 
 
+# ---- phase 21, the grid route's 1024-column form: 512 < n <= 1024 ------------
+# csrc/pdhg_grid.cu's fourth form (GridForm<kHuge>), whose owned state lives
+# in global memory: the block, checked launch and norm at (n, k, m), M = 1024
+# with 400 active unit cuts on 2,000 random k-subsets of the columns (the
+# lexicographic table at n = 1024 holds 178M rows): BoxQP at n = 600 and
+# 1024 with k = 3, a QCQP at n = 700 with k = 5 and generate_qcqp(700, 30,
+# 25, 1)'s 25 dense rows; the form without cuts (the dense route's past
+# n = 512) at n = 600 over 368 certifier rows; the walk at B = 2, n = 1024
+HUGE_SHAPES = {"n=600 m=0": (600, 3, 0), "n=1024 m=0": (1024, 3, 0),
+               "n=700 k=5 m=25": (700, 5, 25)}
+HUGE_CERT = (600, 368)
+HUGE_BATCH = 2
+HUGE_BATCH_SHAPES = {"n=1024 k=3 m=0": (1024, 3, 0)}
+HUGE_INSTANCE = (1024, 100, 1)        # CutSolver with the defaults
+HUGE_ROUNDS = 3
+HUGE_BAND = (600, 5, 25, 1)           # generate_qcqp_band, at the grid QCQP's settings
+HUGE_BAND_ROUNDS = 2
+HUGE_BAND_CPU_ROUNDS = 1              # of them held to the CPU port (3 min, then 8, there)
+HUGE_CERT_N, HUGE_CERT_ROUNDS = 600, 3  # the certifier past n = 512
+REFERENCE_TIMEOUT = 840               # seconds from the run's start for the host references
+K1_CHUNK = 8 << 20                    # rows of the table a twin call (its activations)
+
+
+def huge_inputs(label: str, dev):
+    """(cx, cX, pool, index, state, dense) of a HUGE_SHAPES shape:
+    generate_spar(n, 100, 1), or generate_qcqp(n, 30, m, 1)'s objective and
+    m dense rows; the pool's supports from 2,000 random k-subsets of the
+    columns; phase 3's pool and random state."""
+    n, k, m = HUGE_SHAPES[label]
+    rng = np.random.default_rng(SEED + 6)
+    table = np.sort(np.stack([rng.choice(n, k, replace=False) for _ in range(2000)]), axis=1)
+    if m == 0:
+        inst = generate_spar(n, 100, 1)
+        Q, c, dense = inst.Q, inst.c, None
+    else:
+        q = generate_qcqp(n, 30, m, 1)
+        Q, c, dense = q.Q0, q.c0, dense_from_qcqp(q.Qs, q.cs, q.bs, dev)
+    return (*pdhg_inputs(Q, c, table, dense, dev), dense)
+
+
+def k1_chunked_check(inst, dev) -> dict:
+    """K1 over all C(n, 3) triples of ``inst`` in one launch at the scoring
+    point, held to its twin chunk by chunk (K1_CHUNK rows each: the twin's
+    activations over the whole table would not fit the card) at
+    k1_twin_check's tolerances; its time by events and on the device
+    (queued events), the chunked twin's, beside the bound."""
+    x, X, Q = scoring_point(inst, dev)
+    t0 = time.perf_counter()
+    host = combinations_table(inst.n, 3)
+    table_s = time.perf_counter() - t0
+    table = torch.as_tensor(host, device=dev)
+    T = table.shape[0]
+    mlp = MLPScorer(load_params(3), dev)
+    nn_k, feas_k = pair_score(x, X, Q, table, mlp, 5)
+    again = pair_score(x, X, Q, table, mlp, 5)
+    errs = []
+
+    def twin_pass():                   # every chunk against the kernel's rows
+        for s in range(0, T, K1_CHUNK):
+            nn_p, feas_p = pair_score_plain(x, X, Q, table[s:s + K1_CHUNK], mlp, 5)
+            errs.append((*excess(feas_k[s:s + K1_CHUNK], feas_p, 0.0, 5e-5),
+                         *excess(nn_k[s:s + K1_CHUNK], nn_p, 2e-4, 2e-4)))
+
+    plain_ms = cuda_ms(twin_pass, reps=1, warmup=0)
+    worst = max(max(e[0], e[2]) for e in errs)
+    ratio = max(max(e[1], e[3]) for e in errs)
+    repeat = torch.equal(nn_k, again[0]) and torch.equal(feas_k, again[1])
+    log(f"[pair_score {inst.name}] T={T} (the table {table_s:.2f}s on the host, "
+        f"{nbytes(table)} bytes on the card): max|err| {worst:.3e}, {ratio:.3f} of the limit "
+        f"(feas atol 5e-5, nn rtol/atol 2e-4) over {-(-T // K1_CHUNK)} twin chunks; two "
+        f"launches bit for bit: {repeat}")
+    if ratio > 1.0 or not repeat:
+        raise AssertionError(f"pair_score disagrees with its twin or does not repeat "
+                             f"({inst.name})")
+    moved = nbytes(x, X, Q, table, nn_k, feas_k)
+    del again, nn_k, feas_k
+    ms = cuda_ms(lambda: pair_score(x, X, Q, table, mlp, 5), reps=5, warmup=1)
+    # on the device by queued events: the profiler recorded no launch of this
+    # 58 ms kernel in three sessions of one call
+    dev_ms = queued_ms(lambda: pair_score(x, X, Q, table, mlp, 5), reps=3)
+    b, parts = scoring_bound(T, moved + mlp_bytes(mlp), ms)
+    log(f"[pair_score {inst.name}] T={T}: kernel {ms:.4f} ms by events ({T / ms / 1e3:.1f} M "
+        f"cand/s), {dev_ms:.4f} ms on the device (queued events); the twin in {K1_CHUNK}-row "
+        f"chunks {plain_ms:.4f} ms; {share(ms, b)}; {parts} ({SMI})")
+    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "candidates": T, **b}
+
+
+def huge_kernels(dev) -> dict:
+    """Phase 21 (a): the 1024-column form's block, checked launch and norm at
+    HUGE_SHAPES and, without cuts, at HUGE_CERT, each against its twin at
+    phase 19's tolerances, twice bit for bit; the walk at B = HUGE_BATCH,
+    n = 1024, each instance bit for bit its single entry's; ptxas without a
+    spill or a stack; K1 over all C(1024, 3) triples.  Returns {kernel:
+    {shape label: numbers}}."""
+    out = {"pdhg_grid": {}, "pdhg_grid_check": {}, "pdhg_grid_norm": {}}
+    log(f"[huge] ptxas: {grid_ptxas()}")
+    cases = [(label, lambda label=label: huge_inputs(label, dev)) for label in HUGE_SHAPES]
+    n, m = HUGE_CERT
+    cases.append((f"certifier n={n} m={m}",
+                  lambda: (lambda cx, cX, pool, index, dense, st: (cx, cX, pool, index, st, dense))(
+                      *dense_inputs(n, m, dev))))
+    for label, make in cases:
+        t0 = time.perf_counter()
+        inputs = make()
+        n_ = inputs[0].shape[0]
+        if pdhg_kernel.columns(n_) != pdhg_kernel.HUGE:
+            raise AssertionError(f"{label} is not a 1024-column shape")
+        out["pdhg_grid"][label] = check_grid_block(label, inputs)
+        out["pdhg_grid_check"][label] = check_grid_check(label, inputs)
+        out["pdhg_grid_norm"][label] = check_grid_norm(label, inputs)
+        del inputs
+        log(f"[huge {label}] checked in {time.perf_counter() - t0:.1f}s")
+    for label in HUGE_BATCH_SHAPES:
+        t0 = time.perf_counter()
+        inputs = grid_batch_inputs(label, dev, HUGE_BATCH_SHAPES, HUGE_BATCH)
+        out["pdhg_grid"][f"batched {label}"] = check_grid_block_batched(label, inputs)
+        out["pdhg_grid_check"][f"batched {label}"] = check_grid_check_batched(label, inputs)
+        out["pdhg_grid_norm"][f"batched {label}"] = check_grid_norm_batched(label, inputs)
+        del inputs
+        log(f"[huge batch {label}] checked in {time.perf_counter() - t0:.1f}s")
+    out["pair_score"] = k1_chunked_check(generate_spar(*HUGE_INSTANCE), dev)
+    return out
+
+
+def huge_solve(dev) -> tuple:
+    """CutSolver on generate_spar(1024, 100, 1) with the defaults (k = 3,
+    neural, sel_size 20, capacity 1024, LPConfig()), HUGE_ROUNDS rounds with
+    "auto" twice, bit for bit: K1 over all 178,433,024 triples and the grid
+    route's 1024-column form for every LP and norm, no K2, no plain block,
+    twin check or twin-scored call; every certificate reaches a feasible
+    point's objective.  Then the synchronised stage split of a third run
+    (profile_round.stage_split; the grid route's norm runs in solve_setup,
+    its checked launches in solve_lp).  Returns (launch counts, checks)."""
+    from sdpcutsel_tpu_torch.profile_round import STAGES, stage_split
+
+    inst = generate_spar(*HUGE_INSTANCE)
+    cfg = RunConfig()
+    t0 = time.perf_counter()
+    solver = CutSolver(inst, cfg, device=dev)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=HUGE_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    floor = feasible_objective(inst, solver.state.x.cpu().numpy())
+    for h in hist:
+        log(f"[huge {inst.name}] round {h.round}: bound {h.bound!r} certificate "
+            f"{h.certificate!r} cuts_added {h.cuts_added} active {h.cuts_active} lp_iters "
+            f"{h.lp_iters} kkt {h.lp_kkt_error:.3e} wall {h.wall_time_s:.3f}s")
+    bounds = np.array([h.bound for h in hist])
+    certs = np.array([h.certificate for h in hist])
+    log(f"[huge {inst.name}] {len(hist)} rounds in {wall:.3f}s = {len(hist) / wall!r} rounds/s "
+        f"({sum(h.lp_iters for h in hist)} LP iterations; the solver's set-up, the table of "
+        f"{solver.table.shape[0]} triples included, {setup_s:.3f}s); launches {launches}; a "
+        f"feasible point's f {floor!r} ({SMI})")
+    del solver
+    again = CutSolver(inst, cfg, device=dev).run(rounds=HUGE_ROUNDS)
+    stages = [*STAGES, (pdhg_grid, "_checked_launcher", "  grid checked step's set-up")]
+    split_wall, split = stage_split((inst, CutSolver, cfg, HUGE_ROUNDS), dev, HUGE_ROUNDS,
+                                    stages)
+    for label, (sec, calls) in split.items():
+        if calls:
+            log(f"[huge {inst.name}] split: {label} {sec:.4f}s ({sec / split_wall:.2%} of the "
+                f"synchronised run's {split_wall:.4f}s), {calls} calls")
+    return launches, {
+        f"{HUGE_ROUNDS} rounds ran": len(hist) == HUGE_ROUNDS,
+        "K1 launched, K2 not": launches["pair_score"] > 0 and launches["pdhg_block"] == 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= a feasible point's f {floor}": bool((certs >= floor).all()),
+        "bounds are the running minimum of the certificates":
+            bool((bounds == np.minimum.accumulate(certs)).all()),
+        "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+        **dense_route_checks(f"huge {inst.name}", launches, GRID_NAMES),
+    }
+
+
+HOST_THREADS = 2                      # the host references' threads, beside the card's work
+
+
+def host_references(path: str) -> None:
+    """What phase 21 compares with that only the host computes, written to
+    ``path`` as JSON: the Burer-Monteiro lb of the certifier's instance
+    (generate_spar(HUGE_CERT_N, 100, 1)) and the CPU port's
+    HUGE_BAND_CPU_ROUNDS rounds of the band instance at GRID_BAND_CFG, each
+    with its seconds.  Minutes of host work at n = 600, so
+    ``--host-references PATH`` runs it in a process of its own from the end
+    of the build (References), and huge_references compares at the end of
+    the run."""
+    torch.set_num_threads(HOST_THREADS)
+    out = {}
+    t0 = time.perf_counter()
+    inst = generate_spar(HUGE_CERT_N, 100, 1)
+    out["bm_lb"] = float(bm_feasible_point(inst.Q, inst.c)[2])
+    out["bm_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = CutSolverQCQP(generate_qcqp_band(*HUGE_BAND), GRID_BAND_CFG, device="cpu").run(
+        rounds=HUGE_BAND_CPU_ROUNDS)
+    out["band_bounds"] = [h.bound for h in hist]
+    out["band_seconds"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+class References:
+    """host_references in a subprocess, started at once: ``get()`` waits for
+    it (at most REFERENCE_TIMEOUT seconds from the start) and returns its
+    record; ``stop()`` ends it if it still runs."""
+
+    def __init__(self, tmp: str):
+        self.path = os.path.join(tmp, "host_references.json")
+        threads = str(HOST_THREADS)
+        env = {**os.environ, "OMP_NUM_THREADS": threads, "OPENBLAS_NUM_THREADS": threads,
+               "MKL_NUM_THREADS": threads}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--host-references", self.path],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.record = None
+
+    def get(self) -> dict:
+        if self.record is None:
+            left = REFERENCE_TIMEOUT - (time.perf_counter() - self.t0)
+            text, _ = self.proc.communicate(timeout=max(left, 1.0))
+            if self.proc.returncode:
+                raise AssertionError(f"the host references failed: {text[-2000:]}")
+            with open(self.path) as f:
+                self.record = json.load(f)
+            log(f"[huge] the host references ({time.perf_counter() - self.t0:.1f}s after their "
+                f"start): {self.record}")
+        return self.record
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+# what phase 21's paths leave for huge_references: the band's certificates
+# on the card, the certifier's
+HUGE_RESULTS = {}
+
+
+def huge_band(dev) -> tuple:
+    """CutSolverQCQP on generate_qcqp_band(600, 5, 25, 1) (25 dense rows,
+    36 MB of G, streamed through the ring), HUGE_BAND_ROUNDS rounds with
+    "auto" in GRID_BAND_CFG twice, bit for bit: K4 and the 1024-column form
+    alone (huge_references holds the first HUGE_BAND_CPU_ROUNDS to the CPU
+    port's).  Returns (launch counts, checks)."""
+    inst = generate_qcqp_band(*HUGE_BAND)
+    solver = CutSolverQCQP(inst, GRID_BAND_CFG, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=HUGE_BAND_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    gpu = [h.bound for h in hist]
+    again = [h.bound for h in CutSolverQCQP(inst, GRID_BAND_CFG, device=dev).run(
+        rounds=HUGE_BAND_ROUNDS)]
+    HUGE_RESULTS["band"] = gpu
+    log(f"[huge {inst.name}] bounds on the card {gpu}; {len(hist)} rounds in {wall:.3f}s = "
+        f"{len(hist) / wall!r} rounds/s ({[h.lp_iters for h in hist]} LP iterations; {SMI}); "
+        f"launches {launches}")
+    return launches, {
+        f"{HUGE_BAND_ROUNDS} rounds ran": len(gpu) == HUGE_BAND_ROUNDS,
+        "a second run repeats every round bit for bit": again == gpu,
+        "K4 launched": launches["fused_score"] > 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        **dense_route_checks(f"huge {inst.name}", launches, GRID_NAMES),
+    }
+
+
+def huge_certifier(dev) -> tuple:
+    """The certifier past n = 512: sdp_relaxation_bound on
+    generate_spar(HUGE_CERT_N, 100, 1), HUGE_CERT_ROUNDS plain eigencut
+    rounds of FULL_LP (phase 19's settings), twice, bit for bit, on the dense
+    route alone, whose kernels there are the 1024-column form without cuts;
+    every certificate finite (huge_references holds them to the
+    Burer-Monteiro point's lb, computed on the host).  Returns (launch
+    counts, checks)."""
+    inst = generate_spar(HUGE_CERT_N, 100, 1)
+    kw = dict(max_rounds=HUGE_CERT_ROUNDS, capacity=512, max_cuts_per_round=48, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    best, _, hist = sdp_relaxation_bound(inst, FULL_LP, **kw)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for h in hist:
+        log(f"[huge certifier {inst.name}] round {h['round']}: certificate {h['bound']!r} count "
+            f"{h['cuts']} lp_iters {h['lp_iters']} kkt {h['lp_kkt']:.3e}; seconds "
+            f"{sum(h['seconds'].values()):.4f} (lp {h['seconds']['lp']:.4f})")
+    again = sdp_relaxation_bound(inst, FULL_LP, **kw)[2]
+    certs = np.array([h["bound"] for h in hist])
+    lp_s, iters, us = lp_us(hist)
+    HUGE_RESULTS["certificates"] = certs.tolist()
+    log(f"[huge certifier {inst.name}] {len(hist)} rounds in {wall:.3f}s, best {best!r}; the LP {lp_s:.4f}s for {iters} "
+        f"iterations = {us:.2f} us a certifier LP iteration ({SMI}); launches {launches}")
+
+    def outcome_of(hs):
+        return [(h["bound"], h["lam_min"], h["cuts"], h["lp_iters"], h["lp_kkt"]) for h in hs]
+
+    return launches, {
+        f"{HUGE_CERT_ROUNDS} rounds ran": len(hist) == HUGE_CERT_ROUNDS,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        **dense_route_checks(f"huge certifier {inst.name}", launches, GRID_NAMES),
+        "a second run repeats every round bit for bit": outcome_of(again) == outcome_of(hist),
+    }
+
+
+def huge_references(refs: References) -> dict:
+    """The end of phase 21, at the end of the run, once the host references
+    are in (``refs``): the band's first HUGE_BAND_CPU_ROUNDS certificates on
+    the card within GRID_RTOL of the CPU port's, and every certificate of
+    the certifier at n = 600 at least the Burer-Monteiro lb."""
+    r = refs.get()
+    gpu, cpu = HUGE_RESULTS["band"], r["band_bounds"]
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
+    certs = np.array(HUGE_RESULTS["certificates"])
+    log(f"[huge] the band's bounds on the card {gpu}, on the CPU {cpu} ({r['band_seconds']:.1f}s "
+        f"there, in a process of its own): rel diff {rel} (rtol {GRID_RTOL}); the certifier's "
+        f"certificates {certs.tolist()}, the Burer-Monteiro lb {r['bm_lb']!r} "
+        f"({r['bm_seconds']:.1f}s on the host)")
+    return {
+        f"the CPU port ran the band's first {HUGE_BAND_CPU_ROUNDS} round(s)":
+            len(cpu) == HUGE_BAND_CPU_ROUNDS,
+        f"each within {GRID_RTOL} of the card's": max(rel) <= GRID_RTOL,
+        f"every certificate of the certifier >= the BM lb {r['bm_lb']}":
+            bool((certs >= r["bm_lb"]).all()),
+    }
+
+
+def huge_phase(dev) -> dict:
+    """Phase 21: the 1024-column form's kernels against their twins
+    (huge_kernels), generate_spar(1024, 100, 1) (huge_solve), the band
+    instance at n = 600 (huge_band) and the certifier at n = 600
+    (huge_certifier), each path's launches into PATH_LAUNCHES and into the
+    form's kernel entries; huge_references ends it at the end of the run.
+    Returns huge_kernels' numbers."""
+    t0 = time.perf_counter()
+    out = huge_kernels(dev)
+    paths = {"huge boxqp n=1024": huge_solve, "huge qcqp band n=600": huge_band,
+             "huge certifier n=600": huge_certifier}
+    for path, run in paths.items():
+        PATH_LAUNCHES[path], checks = run(dev)
+        finish(path, checks)
+    for key in ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm"):
+        out[f"{key} launches"] = sum(PATH_LAUNCHES[p][key] for p in paths)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[huge] phase 21 took {out['seconds']:.1f}s ({SMI})")
+    return out
+
+
 def main(argv=None) -> int:
     global SMI
     import argparse
@@ -4724,7 +5135,11 @@ def main(argv=None) -> int:
                         "times K6, K7, K7c and K7n in turns with that build's, phase 20 the "
                         "single grid entries' bits at phase 19's shapes, and after phase 15 "
                         "the certifier's LP is timed in both trees in turns")
+    parser.add_argument("--host-references", metavar="PATH", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.host_references:                 # phase 21's host work, in a process of its own
+        host_references(args.host_references)
+        return 0
     t_start = time.perf_counter()
     smi = SMI = environment()
     torch.backends.cuda.matmul.allow_tf32 = False    # see the module docstring
@@ -4744,7 +5159,17 @@ def main(argv=None) -> int:
     tensor_core_kernels()
     unguarded = finish_variants()["unguarded"]
     log(f"[build] unguarded variant ready after {time.perf_counter() - t0:.2f}s")
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = References(tmp)
+        try:
+            return run_phases(args, dev, smi, t_start, unguarded, refs)
+        finally:
+            refs.stop()
 
+
+def run_phases(args, dev, smi: str, t_start: float, unguarded, refs) -> int:
+    """Every phase after the build, then the kernels line, the nvidia-smi
+    line and the last line; ``refs``: phase 21's host references."""
     inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
     band = load_or_generate_qcqp(QCQP_INSTANCE)
     small = parse_boxqp(os.path.join(DATA, "spar020-100-1.in"), name="spar020-100-1")
@@ -4792,12 +5217,20 @@ def main(argv=None) -> int:
             raise AssertionError("K2 does not give the parent build's bits on phase 3's inputs")
     k4 = check_k4(inst, dev)
     check_guard(inst, unguarded, dev)
+
+    def mark(what: str):               # the run's clock after each group of phases
+        log(f"[time] {what} done {time.perf_counter() - t_start:.1f}s into the run")
+
+    mark("phase 3")
     check_small_instances(dev)
     (PATH_LAUNCHES["wide boxqp spar150-100-1"],
      PATH_LAUNCHES["grid boxqp n=300"]) = check_large_instance(dev)
+    mark("phase 4")
     wide = wide_phase(dev, pkg, lib)
     grid = grid_phase(dev)
     batch = grid_batch_phase(dev, pkg)
+    huge = huge_phase(dev)
+    mark("phases 18-21")
     PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
     PATH_LAUNCHES["qcqp main"] = qcqp_main_path(dev)
     PATH_LAUNCHES["boxqp packed scan"] = packed_scan_path(inst, dev)
@@ -4807,11 +5240,16 @@ def main(argv=None) -> int:
     PATH_LAUNCHES["batched suite bucket"] = suite_bucket_path(dev)
     PATH_LAUNCHES["batched bench scan"] = bench_scan_path(dev)
     PATH_LAUNCHES["batched qcqp family"] = qcqp_family_path(dev)
+    mark("phases 5-13")
     PATH_LAUNCHES["certifiers and the CLI"] = certifiers_and_cli(dev)
     if args.parent:
         certifier_against_parent(args.parent, dev)
+    mark("phase 15")
     PATH_LAUNCHES["training"] = training(main_hist, dev)
+    mark("phase 16")
     PATH_LAUNCHES["multi-process (every rank)"] = multi_process(dev)
+    mark("phase 17")
+    finish("huge references", huge_references(refs))
     seconds = time.perf_counter() - t_start
     log(f"[done] all phases passed in {seconds:.1f}s, {seconds / 900:.1%} of a "
         f"900 s budget")
@@ -4819,8 +5257,9 @@ def main(argv=None) -> int:
         log(f"[launches] {path}: {counts}")
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
     narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items()
-                        if not p.startswith(("wide", "grid"))) for name in WRAPPERS}
-    log(f"[launches] the paths at n <= 128 (every path but the wide and grid ones): {narrow}")
+                        if not p.startswith(("wide", "grid", "huge"))) for name in WRAPPERS}
+    log(f"[launches] the paths at n <= 128 (every path but the wide, grid and huge ones): "
+        f"{narrow}")
 
     kernels = [
         {"name": "pair_score", "route": "cuda",
@@ -4904,8 +5343,19 @@ def main(argv=None) -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    *(e["max_abs_err"] for e in batch[key].values()))
     kernels[0]["n512"] = grid["pair_score"]
-    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], grid["pair_score"]["max_abs_err"])
-    log(f"[grid] phase 19: {grid['seconds']:.1f}s; phase 20: {batch['seconds']:.1f}s")
+    kernels[0]["n1024"] = huge["pair_score"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], grid["pair_score"]["max_abs_err"],
+                                    huge["pair_score"]["max_abs_err"])
+    # the grid route's 1024-column form (GridForm<kHuge>, its owned state in
+    # global memory): its own entries, with its launches on phase 21's paths;
+    # each holds n = 1024's shape, every shape under "shapes"
+    kernels += [dense_entry(f"{name} (1024 columns)", entry["replaces"],
+                            huge[f"{key} launches"], huge[key], "pdhg_grid.cu", "n=1024 m=0")
+                for entry, key, name in zip(kernels[-3:], ("pdhg_grid", "pdhg_grid_check",
+                                                           "pdhg_grid_norm"),
+                                            ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm"))]
+    log(f"[grid] phase 19: {grid['seconds']:.1f}s; phase 20: {batch['seconds']:.1f}s; phase 21: "
+        f"{huge['seconds']:.1f}s")
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # argtypes of every C entry point in csrc/
 _SIGNATURES = {
@@ -122,7 +123,7 @@ _SIGNATURES = {
     "pdhg_grid_ctas": [*[_I] * 7, _P],                  # n M k m cols cuts smem, grid (out)
     "pdhg_grid_block_batched_launch": [*[_I] * 9,       # n M k m iters cols cuts smem count
                                        _P, _P,           # ids, records
-                                       *[_I] * 4,   # strides ex eX sG sg
+                                       _I, _I, _L, _L,   # strides ex eX sG sg
                                        _P, _P, _P, _P, _P,  # cx, cX, G, g, h
                                        _P, _P, _P, _P, _P,  # idx, lin, quad, rhs, act
                                        _P, _P, _P, _P, _P, _P,  # xoff xcut xcoef Xoff Xcut Xcoef
@@ -133,7 +134,7 @@ _SIGNATURES = {
     "pdhg_grid_block_checked_batched_launch": [*[_I] * 9,  # n M k m check_every cols cuts smem B
                                                _I, _I, _F,  # restart_period max_iters tol
                                                _P,          # records
-                                               *[_I] * 4,  # strides ex eX sG sg
+                                               _I, _I, _L, _L,  # strides ex eX sG sg
                                                _P, _P, _P, _P, _P,  # cx, cX, G, g, h
                                                _P, _P, _P, _P, _P,  # idx, lin, quad, rhs, act
                                                *[_P] * 6,   # xoff xcut xcoef Xoff Xcut Xcoef
@@ -141,7 +142,7 @@ _SIGNATURES = {
                                                _P, _P, _P,  # work, barrier, grid (out)
                                                _P],         # stream
     "pdhg_grid_norm_batched_launch": [*[_I] * 9,        # n M k m B iters cols cuts smem
-                                      *[_I] * 4,    # strides ex eX sG sg
+                                      _I, _I, _L, _L,    # strides ex eX sG sg
                                       _P, _P,            # G, g
                                       _P, _P, _P, _P,    # idx, lin, quad, act
                                       _P, _P, _P, _P, _P, _P,  # xoff xcut xcoef Xoff Xcut Xcoef

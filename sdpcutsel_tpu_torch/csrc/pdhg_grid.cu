@@ -14,9 +14,9 @@
 //       (pdhg_norm.cu) computes it.  Twin: estimate_norm_plain.
 //
 // Two forms (kCuts): a pool of cuts of width k = 2..5 with its cut index
-// (relax/cutbuffer.py build_cut_index), at the column widths 128, 256 and 512
-// (cols_for); and the certifier's pool without cuts at 512 columns, the dense
-// route (lp/pdhg_dense.py) past n = 256.  Any m dense rows (relax/denserows.py
+// (relax/cutbuffer.py build_cut_index), at the column widths 128, 256, 512 and
+// 1024 (cols_for); and the certifier's pool without cuts at 512 and 1024
+// columns, the dense route (lp/pdhg_dense.py) past n = 256.  Any m dense rows (relax/denserows.py
 // for a QCQP, the certifier's eigencuts) that the layout's yD replica holds.
 // The reference runs these shapes in XLA: its Pallas kernel takes n <= 128,
 // a pool of at most 1024 slots and no dense row (sdpcutsel_tpu/lp/pdhg.py:
@@ -94,6 +94,20 @@
 // and the residual's weights) and the stages of their ring.  At 512 columns
 // a CTA's spans run past 128 chunks of 4 floats, so the adjoint's lanes each
 // take up to 4 chunks (kChunks) in 4 strands.
+//
+// At 1024 columns a CTA owns up to ~7,950 entries (1024^2 / 132), whose nine
+// words an entry do not fit its shared memory, nor the whole card's.  So that
+// form (GridForm kState = 0) keeps the owned entries' state in global memory,
+// where the L2 holds most of it: the block copies its slices of the inputs
+// to the outputs once (where they differ) and iterates on the outputs in
+// place, S in the scratch, cX read where it lies; the norm keeps Y in its
+// scratch and recomputes kA, kB where the adjoint takes them.  Shared memory
+// keeps the Slices, the scratch, the ring and the replicas of yD and of the
+// cut weights.  Its passes over the dense rows go by entry, not by chunk
+// (Slices::entry_adjoint, entry_residual): thread t takes the entries
+// t + kThreads i of [X | x] (i < kSpan), each read at its row's shift, so
+// that the adjoint needs no strand partials and the residual no shifted
+// copies of its weights.
 
 #include "pdhg_common.cuh"
 #include "pdhg_stream.cuh"
@@ -105,25 +119,32 @@ using namespace pdhg;
 constexpr int kStage = 8192;     // floats a ring stage
 constexpr int kLanes = 128;      // the adjoint's chunk lanes a strand, at most
 constexpr int kSmemWords = 232448 / 4;   // the layout takes what a CTA may have
+constexpr int kRowGroup = 8;     // rows a pass of the residual's sums by entry
 
 // The grid route's form at column width Cols: kMaxE, the entries (of X and
 // x) a CTA may own, its spans (at most kMaxE + 12 floats) in at most
 // kChunks kLanes chunks of 4; kScratch, at least the strand partials (4
 // kThreads, or 4 strands of the spans) and the residual's weights (4 spans);
-// kStages, the ring's stages.
+// kStages, the ring's stages; kState, the owned entries' state arrays in
+// shared memory (8; 0: in global memory, the 1024-column form, whose kMaxE
+// keeps a row's spans within a stage and whose passes go by entry).
 template <int Cols>
 struct GridForm;
 template <>
 struct GridForm<kNarrow> {
-  static constexpr int kMaxE = 496, kChunks = 1, kScratch = 2048, kStages = 4;
+  static constexpr int kMaxE = 496, kChunks = 1, kScratch = 2048, kStages = 4, kState = 8;
 };
 template <>
 struct GridForm<kWide> {
-  static constexpr int kMaxE = 500, kChunks = 1, kScratch = 2048, kStages = 4;
+  static constexpr int kMaxE = 500, kChunks = 1, kScratch = 2048, kStages = 4, kState = 8;
 };
 template <>
 struct GridForm<kWidest> {
-  static constexpr int kMaxE = 2036, kChunks = 4, kScratch = 8192, kStages = 3;
+  static constexpr int kMaxE = 2036, kChunks = 4, kScratch = 8192, kStages = 3, kState = 8;
+};
+template <>
+struct GridForm<kHuge> {
+  static constexpr int kMaxE = 8180, kChunks = 1, kScratch = 2048, kStages = 4, kState = 0;
 };
 
 // sums of a check's evaluation point
@@ -136,8 +157,9 @@ enum { kPX, kPx, kHyB, kHyC, kHyD, kRxm, kSm, kV2, kVC2, kVD2 };
 // of stages; none without dense rows), the replicas of
 // yD and of the cut weights, the owned entries' buffer (the dense adjoint;
 // the residual's values) and their state (X, yA, yB, aX, aA, aB, cX, S; the
-// norm's Y, kA, kB).  The slab takes what the rest leaves, and at least the
-// ring.  lp/pdhg_grid.py::block_words mirrors the sum; the launch checks it.
+// norm's Y, kA, kB; none at 1024 columns).  The slab takes what the rest
+// leaves, and at least the ring.  lp/pdhg_grid.py::block_words mirrors the
+// sum; the launch checks it.
 struct GridLayout {
   int meta, scr, slab, yD, w, own, state, words;
 };
@@ -150,7 +172,7 @@ constexpr int kArgs = 64;
 template <int Cols>
 __host__ __device__ inline GridLayout grid_layout(int n, int m, int M, bool cuts) {
   using F = GridForm<Cols>;
-  const int rest = kMeta + F::kScratch + m + (cuts ? M : 0) + 9 * F::kMaxE;
+  const int rest = kMeta + F::kScratch + m + (cuts ? M : 0) + (1 + F::kState) * F::kMaxE;
   const int free4 = (kSmemWords - rest) & ~3;
   const int ring = F::kStages * kStage;
   const int slabw = m > 0 ? (free4 > ring ? free4 : ring) : 0;
@@ -163,7 +185,7 @@ __host__ __device__ inline GridLayout grid_layout(int n, int m, int M, bool cuts
   TAKE(yD, m);
   TAKE(w, cuts ? M : 0);
   TAKE(own, F::kMaxE);
-  TAKE(state, 8 * F::kMaxE);
+  TAKE(state, F::kState * F::kMaxE);
 #undef TAKE
   L.words = o;
   (void)n;
@@ -312,6 +334,10 @@ __device__ __forceinline__ void norm_args_of(NormArgs& o, const NormArgs& a, con
 template <int Cols>
 struct Slices {
   using F = GridForm<Cols>;
+  // the owned entries' state in global memory (GridForm kState = 0), and
+  // the entries a thread takes in the passes by entry
+  static constexpr bool kGlobal = F::kState == 0;
+  static constexpr int kSpan = (F::kMaxE + kThreads - 1) / kThreads;
   const Problem* p;
   int n, m, NN, P, b;
   int e0, e1, i0, i1, q0, q1, s0, s1, LA, LB, LS, E;
@@ -450,8 +476,9 @@ struct Slices {
   }
   // the residual's weights by shift, from the owned entries' values in
   // sown[0, E): span position pp of a row of shift s takes the value at its
-  // entry, 0 off the segment
+  // entry, 0 off the segment (the passes by entry read sown itself)
   __device__ __forceinline__ void shift_weights() const {
+    if constexpr (kGlobal) return;
     for (int pp = threadIdx.x; pp < 4 * ES; pp += kThreads) {
       const int s = pp / ES, ps = pp - s * ES;
       float w = 0.0f;
@@ -486,12 +513,108 @@ struct Slices {
       if (rl == 0 && ql < nq) out[b * bs + (qs + ql) * qs_] = r;
     }
   }
+  // ---- the passes by entry (the 1024-column form) ----
+  // thread t takes the entries t + kThreads i of X's part (i < entries_A();
+  // entry j of row q at span position j + shA(q), one base address and
+  // immediate offsets a row) and, since LB < kThreads, at most one entry of
+  // x's part, entry_x() (E where it has none; at SA + shB(q) + j - LA)
+  __device__ __forceinline__ int entries_A() const {
+    const int t = threadIdx.x;
+    return t < LA ? (LA - 1 - t) / kThreads + 1 : 0;
+  }
+  __device__ __forceinline__ int entry_x() const {
+    const int jx = LA + ((threadIdx.x - LA) % kThreads + kThreads) % kThreads;
+    return jx < E ? jx : E;
+  }
+  // acc[i] += yD_q (row q at entry t + kThreads i), ax at entry_x(), rows in
+  // increasing q
+  __device__ __forceinline__ void entry_adjoint(float (&acc)[kSpan], float& ax, int qs, int nq,
+                                                const float* buf) const {
+    const int t = threadIdx.x, nA = entries_A(), jx = entry_x();
+    for (int ql = 0; ql < nq; ++ql) {
+      const int q = qs + ql;
+      const float w = syD[q];
+      const float* const row = buf + ql * ES;
+      const float* const rA = row + t + shA(q);
+#pragma unroll
+      for (int i = 0; i < kSpan; ++i)
+        if (i < nA) acc[i] = fmaf(w, rA[kThreads * i], acc[i]);
+      if (jx < E) ax = fmaf(w, row[SA + shB(q) + jx - LA], ax);
+    }
+  }
+  // each row's partial over the owned entries at the weights sown[0, E) into
+  // out[b bs + q qs_]: every thread its entries (X's part in increasing i,
+  // then x's), each warp's butterfly, then the warps in order, kRowGroup
+  // rows a pass of the scratch's last words
+  __device__ __forceinline__ void entry_residual(float* out, size_t bs, size_t qs_, int qs,
+                                                 int nq, const float* buf) const {
+    const int t = threadIdx.x, lane = t % 32, warp = t / 32, nA = entries_A(), jx = entry_x();
+    float* const red = scr + F::kScratch - kRowGroup * (kThreads / 32);
+    for (int qb = 0; qb < nq; qb += kRowGroup) {
+      const int nr = min(kRowGroup, nq - qb);
+      for (int r = 0; r < nr; ++r) {
+        const int ql = qb + r, q = qs + ql;
+        const float* const row = buf + ql * ES;
+        const float* const rA = row + t + shA(q);
+        float v = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kSpan; ++i)
+          if (i < nA) v = fmaf(rA[kThreads * i], sown[t + kThreads * i], v);
+        if (jx < E) v = fmaf(row[SA + shB(q) + jx - LA], sown[jx], v);
+        v = warp_sum(v);
+        if (lane == 0) red[warp * kRowGroup + r] = v;
+      }
+      __syncthreads();
+      if (t < nr) {
+        float sum = 0.0f;
+        for (int w = 0; w < kThreads / 32; ++w) sum += red[w * kRowGroup + t];
+        out[b * bs + (qs + qb + t) * qs_] = sum;
+      }
+      __syncthreads();
+    }
+  }
+  // the pass by entry: the dense adjoint into sown[0, E) once every row is
+  // read and, with a residual, each row's partial at the weights in sown
+  __device__ __forceinline__ void entry_pass(float* out, size_t bs, size_t qs_,
+                                             bool with_residual) const {
+    float acc[kSpan], ax = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i) acc[i] = 0.0f;
+    if (resident) {
+      entry_adjoint(acc, ax, 0, m, slab);
+      if (with_residual) entry_residual(out, bs, qs_, 0, m, slab);
+    } else {
+      ring_drain<kStage, F::kStages>(
+          slab, nst, [&](int s, float* dst) { issue(s, dst); },
+          [&](int s, const float* buf) {
+            entry_adjoint(acc, ax, s * QB, min(QB, m - s * QB), buf);
+            if (with_residual) entry_residual(out, bs, qs_, s * QB, min(QB, m - s * QB), buf);
+          });
+    }
+    __syncthreads();               // every lane done with the weights in sown
+    const int t = threadIdx.x, nA = entries_A(), jx = entry_x();
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i)
+      if (i < nA) sown[t + kThreads * i] = acc[i];
+    if (jx < E) sown[jx] = ax;
+    __syncthreads();
+  }
   // the dense adjoint of the owned entries into sown[0, E), one pass over the
   // rows (resident, or the stream from its first stages, which the caller
   // issued); with a residual, each row's partial at the weights that
-  // shift_weights left in scr into out as residual() stores it
+  // shift_weights left in scr (by entry: in sown) into out as residual()
+  // stores it
   __device__ __forceinline__ void adjoint_pass(float* out, size_t bs, size_t qs_,
                                                bool with_residual) const {
+    if constexpr (kGlobal) {
+      entry_pass(out, bs, qs_, with_residual);
+    } else {
+      chunk_pass(out, bs, qs_, with_residual);
+    }
+  }
+  // adjoint_pass by chunks of 4, strands and strand sums (up to 512 columns)
+  __device__ __forceinline__ void chunk_pass(float* out, size_t bs, size_t qs_,
+                                             bool with_residual) const {
     float acc[F::kChunks][4];
 #pragma unroll
     for (int j = 0; j < F::kChunks; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
@@ -509,16 +632,22 @@ struct Slices {
     }
     strand_sums(acc);
   }
-  // each row's partial at the weights in scr, one pass over the rows
+  // each row's partial at the weights in scr (by entry: in sown), one pass
+  // over the rows
   __device__ __forceinline__ void residual_pass(float* out, size_t bs, size_t qs_) const {
+    auto rows = [&](int qs, int nq, const float* buf) {
+      if constexpr (kGlobal) {
+        entry_residual(out, bs, qs_, qs, nq, buf);
+      } else {
+        residual(out, bs, qs_, qs, nq, buf);
+      }
+    };
     if (resident) {
-      residual(out, bs, qs_, 0, m, slab);
+      rows(0, m, slab);
     } else {
       ring_drain<kStage, F::kStages>(
           slab, nst, [&](int s, float* dst) { issue(s, dst); },
-          [&](int s, const float* buf) {
-            residual(out, bs, qs_, s * QB, min(QB, m - s * QB), buf);
-          });
+          [&](int s, const float* buf) { rows(s * QB, min(QB, m - s * QB), buf); });
     }
   }
   // a stream's first stages (nothing when resident or without rows)
@@ -550,10 +679,29 @@ __device__ __forceinline__ float cut_row(const Problem& p, int q, const float* x
 // the state arrays of the owned entries (Slices::state)
 enum { kSX, kSA_, kSB_, kSaX, kSaA, kSaB, kScX, kSS };
 
+// At 1024 columns the owned entries' state array f is the instance's output
+// array (cX: its input), at the CTA's entries e0 on; its pointer is read
+// from the arguments in shared memory where it is used (a volatile read),
+// so that no 64-bit pointer to the state stays in a register across the
+// passes over the dense rows.  S is the scratch's (kSS: not here).
+__device__ __forceinline__ float* owned_out(const BlockArgs& a, int f) {
+  const volatile BlockArgs& v = a;
+  switch (f) {
+    case kSX: return v.Xo;
+    case kSA_: return v.yAo;
+    case kSB_: return v.yBo;
+    case kSaX: return v.aXo;
+    case kSaA: return v.aAo;
+    case kSaB: return v.aBo;
+    default: return const_cast<float*>(v.cX);
+  }
+}
+
 // ---- the check, the checked form's epilogue ------------------------------
 // After the block's last iteration; the state and sums of the owned entries
-// in shared memory, of the owned x entries and slots in registers (rx, rax,
-// rC, raC), everything else in global memory, where the block stored it.
+// in shared memory (at 1024 columns in the outputs), of the owned x entries
+// and slots in registers (rx, rax, rC, raC), everything else in global
+// memory, where the block stored it.
 template <bool kCuts, int Cols>
 __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& a,
                                            const Slices<Cols>& g, unsigned& target, float rx,
@@ -572,6 +720,14 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
   const float* const saA = g.state(kSaA);
   const float* const saB = g.state(kSaB);
   const float* const scX = g.state(kScX);
+  // the owned state array f at p, or at 1024 columns owned_out's
+  const auto own = [&](int f, const float* p) -> const float* {
+    if constexpr (Slices<Cols>::kGlobal) {
+      return owned_out(a, f) + e0;
+    } else {
+      return p;
+    }
+  };
   float* const S = L.work;
   float* const part = S + NN + n;
   float* const wg = part + static_cast<size_t>(P) * m + NN;        // the weights (cuts)
@@ -595,6 +751,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
     const float* const pX = pt == 0 ? a.Xo : a.aXo;
     const float* const pyA = pt == 0 ? a.yAo : a.aAo;
     const float* const pyB = pt == 0 ? a.yBo : a.aBo;
+    const int fX = pt == 0 ? kSX : kSaX, fA = pt == 0 ? kSA_ : kSaA, fB = pt == 0 ? kSB_ : kSaB;
     const float* const bX = pt == 0 ? sX : saX;
     const float* const bA = pt == 0 ? sA : saA;
     const float* const bB = pt == 0 ? sB : saB;
@@ -606,7 +763,8 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
         sw[q] = pt == 0 ? __ldcg(wg + q) : (__ldcg(a.ayCo + q) * inv) * pr.act[q];
     }
     if (m > 0) {
-      for (int j = t; j < LA; j += kThreads) sown[j] = bX[j] * sc;
+      const float* const oX = own(fX, bX);
+      for (int j = t; j < LA; j += kThreads) sown[j] = oX[j] * sc;
       if (ownx) sown[LA + warp] = (pt == 0 ? rx : rax) * sc;
       __syncthreads();
       g.shift_weights();
@@ -620,14 +778,16 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
     for (int j = 0; j < kNS; ++j) v[j] = 0.0f;
     // the owned entries of X: M = cX - gX to the transposes' readers, the
     // objective, the dual bound's yB term and K z's infeasibility
+    const float *const oX = own(fX, bX), *const oA = own(fA, bA), *const oB = own(fB, bB);
+    const float* const ocX = own(kScX, scX);
     for (int j = t; j < LA; j += kThreads) {
       const int e = e0 + j, io = e / n, co = e - io * n;
-      const float Xv = bX[j] * sc, va = bA[j] * sc, vb = bB[j] * sc;
+      const float Xv = oX[j] * sc, va = oA[j] * sc, vb = oB[j] * sc;
       float gX = -kSA * va + kSB * vb;
       if constexpr (kCuts) gX = gX + cut_X(pr, e, sw);
       if (m > 0) gX = gX + sown[j];
-      (pt == 0 ? S : M1)[e] = scX[j] - gX;
-      v[kPX] += scX[j] * Xv;
+      (pt == 0 ? S : M1)[e] = ocX[j] - gX;
+      v[kPX] += ocX[j] * Xv;
       v[kHyB] += vb;
       const float xi = __ldcg(px + io) * sc, xc = __ldcg(px + co) * sc;
       const float kA = kSA * (xi - Xv);
@@ -747,10 +907,12 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
     float dv[kND];
 #pragma unroll
     for (int j = 0; j < kND; ++j) dv[j] = 0.0f;
+    const float* const cX_ = use_avg ? own(kSaX, saX) : own(kSX, sX);
+    const float* const cA = use_avg ? own(kSaA, saA) : own(kSA_, sA);
+    const float* const cB = use_avg ? own(kSaB, saB) : own(kSB_, sB);
     for (int j = t; j < LA; j += kThreads) {
       const int e = e0 + j;
-      const float X = (use_avg ? saX[j] : sX[j]) * csc, A = (use_avg ? saA[j] : sA[j]) * csc,
-                  B = (use_avg ? saB[j] : sB[j]) * csc;
+      const float X = cX_[j] * csc, A = cA[j] * csc, B = cB[j] * csc;
       const float eX = X - a.zX[e], eA = A - a.zA[e], eB = B - a.zB[e];
       dv[kDX] += eX * eX;
       dv[kDA] += eA * eA;
@@ -822,6 +984,11 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
   const int &e0 = g.e0, &i0 = g.i0, &q0 = g.q0, &q1 = g.q1, &s0 = g.s0, &LA = g.LA, &LB = g.LB;
   float* const sw = g.sw;
   float* const sown = g.sown;
+  float* const S = L.work;
+  // the owned entries' state: the CTA's shared memory, or at 1024 columns
+  // the outputs themselves (updated in place: owned_out, read where used)
+  // and S in the scratch
+  constexpr bool kG = Slices<Cols>::kGlobal;
   float* const sX = g.state(kSX);
   float* const sA = g.state(kSA_);
   float* const sB = g.state(kSB_);
@@ -829,8 +996,14 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
   float* const saA = g.state(kSaA);
   float* const saB = g.state(kSaB);
   float* const scX = g.state(kScX);
-  float* const sS = g.state(kSS);
-  float* const S = L.work;
+  float* const sS = kG ? S + e0 : g.state(kSS);
+  const auto own = [&](int f, float* p) -> float* {
+    if constexpr (kG) {
+      return owned_out(a, f) + e0;
+    } else {
+      return p;
+    }
+  };
   float* const xb = S + NN;
   float* const part = xb + n;            // (P, m): CTA b's partial of row q at b m + q
   float* const wXb = part + static_cast<size_t>(P) * m;   // with cuts: Xb
@@ -842,15 +1015,28 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
   if (L.iters > 0) g.stream_prologue();
 
   // ---- the owned entries' state and sums, the owned x entries and slots ----
-  for (int j = t; j < LA; j += kThreads) {
-    const int e = e0 + j;
-    sX[j] = a.X[e];
-    sA[j] = a.yA[e];
-    sB[j] = a.yB[e];
-    saX[j] = a.aX[e];
-    saA[j] = a.aA[e];
-    saB[j] = a.aB[e];
-    scX[j] = a.cX[e];
+  if constexpr (!kG) {
+    for (int j = t; j < LA; j += kThreads) {
+      const int e = e0 + j;
+      sX[j] = a.X[e];
+      sA[j] = a.yA[e];
+      sB[j] = a.yB[e];
+      saX[j] = a.aX[e];
+      saA[j] = a.aA[e];
+      saB[j] = a.aB[e];
+      scX[j] = a.cX[e];
+    }
+  } else {                               // the inputs into the outputs, where they differ
+    const auto to_out = [&](float* out, const float* in) {
+      if (out != in)
+        for (int j = t; j < LA; j += kThreads) out[e0 + j] = in[e0 + j];
+    };
+    to_out(a.Xo, a.X);
+    to_out(a.yAo, a.yA);
+    to_out(a.yBo, a.yB);
+    to_out(a.aXo, a.aX);
+    to_out(a.aAo, a.aA);
+    to_out(a.aBo, a.aB);
   }
   // lane 0 of warp w: entry i0 + w of x, and the row sums of yA, yB and the
   // column sum of yB that its next x step takes
@@ -901,14 +1087,18 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
       g.adjoint_pass(nullptr, 0, 0, false);      // the dense adjoint into sown[0, E)
       if (!g.resident) g.stream_prologue();      // phase II's first stages, early
     }
-    for (int j = t; j < LA; j += kThreads) {
-      const int e = e0 + j;
-      float gX = -kSA * sA[j] + kSB * sB[j];
-      if constexpr (kCuts) gX = gX + cut_X(pr, e, sw);
-      if (m > 0) gX = gX + sown[j];
-      const float s = sX[j] - tau * (scX[j] - gX);
-      sS[j] = s;
-      S[e] = s;
+    {
+      const float *const oA = own(kSA_, sA), *const oB = own(kSB_, sB), *const oX = own(kSX, sX);
+      const float* const ocX = own(kScX, scX);
+      for (int j = t; j < LA; j += kThreads) {
+        const int e = e0 + j;
+        float gX = -kSA * oA[j] + kSB * oB[j];
+        if constexpr (kCuts) gX = gX + cut_X(pr, e, sw);
+        if (m > 0) gX = gX + sown[j];
+        const float s = oX[j] - tau * (ocX[j] - gX);
+        sS[j] = s;
+        if constexpr (!kG) S[e] = s;
+      }
     }
     if (ownx) {
       const int i = i0 + warp;
@@ -924,25 +1114,32 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
 
     // ---- II: X = clip(sym(S)), Xb; the dual ascent on yA, yB; the dense
     //      rows' partials ----------------------------------------------------
-    for (int j = t; j < LA; j += kThreads) {
-      const int e = e0 + j, io = e / n, co = e - io * n;
-      const float xn = fminf(fmaxf(0.5f * (sS[j] + __ldcg(S + co * n + io)), 0.0f), 1.0f);
-      const float xbv = 2.0f * xn - sX[j];
-      sX[j] = xn;
-      saX[j] += xn;
-      if constexpr (kCuts) wXb[e] = xbv;
-      sown[j] = xbv;
-      const float xbi = __ldcg(xb + io), xbc = __ldcg(xb + co);
-      const float kA = kSA * (xbi - xbv);
-      const float kB = kSB * (xbv - xbi - xbc);
-      const float ya = fmaxf(sA[j] - sigma * kA, 0.0f);
-      const float yb = fmaxf(sB[j] + sigma * (-kSB - kB), 0.0f);
-      sA[j] = ya;
-      sB[j] = yb;
-      saA[j] += ya;
-      saB[j] += yb;
-      a.yAo[e] = ya;
-      a.yBo[e] = yb;
+    {
+      float *const oX = own(kSX, sX), *const oaX = own(kSaX, saX);
+      float *const oA = own(kSA_, sA), *const oB = own(kSB_, sB);
+      float *const oaA = own(kSaA, saA), *const oaB = own(kSaB, saB);
+      for (int j = t; j < LA; j += kThreads) {
+        const int e = e0 + j, io = e / n, co = e - io * n;
+        const float xn = fminf(fmaxf(0.5f * (sS[j] + __ldcg(S + co * n + io)), 0.0f), 1.0f);
+        const float xbv = 2.0f * xn - oX[j];
+        oX[j] = xn;
+        oaX[j] += xn;
+        if constexpr (kCuts) wXb[e] = xbv;
+        sown[j] = xbv;
+        const float xbi = __ldcg(xb + io), xbc = __ldcg(xb + co);
+        const float kA = kSA * (xbi - xbv);
+        const float kB = kSB * (xbv - xbi - xbc);
+        const float ya = fmaxf(oA[j] - sigma * kA, 0.0f);
+        const float yb = fmaxf(oB[j] + sigma * (-kSB - kB), 0.0f);
+        oA[j] = ya;
+        oB[j] = yb;
+        oaA[j] += ya;
+        oaB[j] += yb;
+        if constexpr (!kG) {
+          a.yAo[e] = ya;
+          a.yBo[e] = yb;
+        }
+      }
     }
     if (m > 0) {
       for (int j = LA + t; j < g.E; j += kThreads) sown[j] = __ldcg(xb + i0 + j - LA);
@@ -984,14 +1181,16 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
   }
 
   // ---- exit: the owned entries' state and sums ------------------------------
-  for (int j = t; j < LA; j += kThreads) {
-    const int e = e0 + j;
-    a.Xo[e] = sX[j];
-    a.yAo[e] = sA[j];
-    a.yBo[e] = sB[j];
-    a.aXo[e] = saX[j];
-    a.aAo[e] = saA[j];
-    a.aBo[e] = saB[j];
+  if constexpr (!kG) {
+    for (int j = t; j < LA; j += kThreads) {
+      const int e = e0 + j;
+      a.Xo[e] = sX[j];
+      a.yAo[e] = sA[j];
+      a.yBo[e] = sB[j];
+      a.aXo[e] = saX[j];
+      a.aAo[e] = saA[j];
+      a.aBo[e] = saB[j];
+    }
   }
   if (ownx) {
     a.xo[i0 + warp] = rx;
@@ -1034,9 +1233,10 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_grid_kernel(
 
 // ---- the norm ---------------------------------------------------------------
 // CTA b's slices as the block's; the owned entries of the iterate Y and of
-// K z's first two blocks in shared memory (the state's first three arrays),
-// the owned entries of y in registers (lane 0 of warp w: entry i0 + w), the
-// whole iterate in global memory for the other CTAs.
+// K z's first two blocks in shared memory (the state's first three arrays;
+// at 1024 columns Y in the scratch's iterate, and kA, kB recomputed where C
+// takes them), the owned entries of y in registers (lane 0 of warp w: entry
+// i0 + w), the whole iterate in global memory for the other CTAs.
 template <bool kCuts, int Cols>
 __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
                                           const Slices<Cols>& g, unsigned& target) {
@@ -1049,10 +1249,11 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
                                        // y at [128, 128 + n)
   float* const sw = g.sw;
   float* const sown = g.sown;
-  float* const sY = g.state(0);
-  float* const skA = g.state(1);
-  float* const skB = g.state(2);
   float* const wY = L.work;            // the iterate after the first iteration
+  constexpr bool kG = Slices<Cols>::kGlobal;
+  float* const sY = kG ? wY + e0 : g.state(0);
+  float* const skA = g.state(1);       // (not at 1024 columns)
+  float* const skB = g.state(2);
   float* const wy = wY + NN;
   float* const wgX = wy + n;
   float* const part = wgX + NN;        // (P, m): CTA b's partial of row q at b m + q
@@ -1119,8 +1320,10 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
       const float Z = sY[j] / nrm, zi = sy[io] / nrm;
       const float kA = kSA * (zi - Z);
       const float kB = kSB * (Z - zi - sy[co] / nrm);
-      skA[j] = kA;
-      skB[j] = kB;
+      if constexpr (!kG) {
+        skA[j] = kA;
+        skB[j] = kB;
+      }
       v[0] += kA * kA + kB * kB;
     }
     if (owns) {
@@ -1192,7 +1395,16 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
     }
     for (int j = t; j < LA; j += kThreads) {
       const int e = e0 + j;
-      float gX = -kSA * skA[j] + kSB * skB[j];
+      float gX;
+      if constexpr (kG) {                // B's kA, kB, from the same Y, y and nrm
+        const int io = e / n, co = e - io * n;
+        const float Z = sY[j] / nrm, zi = sy[io] / nrm;
+        const float kA = kSA * (zi - Z);
+        const float kB = kSB * (Z - zi - sy[co] / nrm);
+        gX = -kSA * kA + kSB * kB;
+      } else {
+        gX = -kSA * skA[j] + kSB * skB[j];
+      }
       if constexpr (kCuts) gX = gX + cut_X(pr, e, sw);
       if (m > 0) gX = gX + sown[j];
       wgX[e] = gX;
@@ -1213,7 +1425,7 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
       const int e = e0 + j, io = e / n, co = e - io * n;
       const float y = 0.5f * (__ldcg(wgX + e) + __ldcg(wgX + co * n + io));
       sY[j] = y;
-      wY[e] = y;
+      if constexpr (!kG) wY[e] = y;
       ss[1] += y * y;
     }
     block_sums(ss, scr + 32, scr + 64);
@@ -1281,21 +1493,33 @@ int grid_ctas(int smem, int* P) {
 
 // The grid of the form at (cols, cuts).
 int grid_of(int cols, bool cuts, int smem, int* P) {
-  if (!cuts) return grid_ctas<false, kWidest>(smem, P);
-  return cols == kNarrow ? grid_ctas<true, kNarrow>(smem, P)
-                         : (cols == kWide ? grid_ctas<true, kWide>(smem, P)
-                                          : grid_ctas<true, kWidest>(smem, P));
+  if (!cuts)
+    return cols == kHuge ? grid_ctas<false, kHuge>(smem, P) : grid_ctas<false, kWidest>(smem, P);
+  switch (cols) {
+    case kNarrow: return grid_ctas<true, kNarrow>(smem, P);
+    case kWide: return grid_ctas<true, kWide>(smem, P);
+    case kWidest: return grid_ctas<true, kWidest>(smem, P);
+    default: return grid_ctas<true, kHuge>(smem, P);
+  }
+}
+
+// The layout of the form at cols (one of the four widths).
+GridLayout layout_of(int cols, int n, int m, int M, bool cuts) {
+  switch (cols) {
+    case kNarrow: return grid_layout<kNarrow>(n, m, M, cuts);
+    case kWide: return grid_layout<kWide>(n, m, M, cuts);
+    case kWidest: return grid_layout<kWidest>(n, m, M, cuts);
+    default: return grid_layout<kHuge>(n, m, M, cuts);
+  }
 }
 
 // The caller's plan against this file's: the width n's (cols_for), the
-// certifier's pool (capacity 1, width 1) only at 512 columns, a pool of cuts
-// of width 2..5 at any, and smem the layout's.
+// certifier's pool (capacity 1, width 1) only at 512 and 1024 columns, a
+// pool of cuts of width 2..5 at any, and smem the layout's.
 int check_form(int n, int M, int k, int m, int cols, int cuts, int smem) {
   if (cols_for(n) == 0 || cols != cols_for(n) || m < 0 || M < 1) return kErrLayout;
-  if (cuts ? (k < 2 || k > 5) : (cols != kWidest || M != 1 || k != 1)) return kErrLayout;
-  const GridLayout L = cols == kNarrow ? grid_layout<kNarrow>(n, m, M, cuts != 0)
-                                       : (cols == kWide ? grid_layout<kWide>(n, m, M, cuts != 0)
-                                                        : grid_layout<kWidest>(n, m, M, cuts != 0));
+  if (cuts ? (k < 2 || k > 5) : (cols < kWidest || M != 1 || k != 1)) return kErrLayout;
+  const GridLayout L = layout_of(cols, n, m, M, cuts != 0);
   if (4 * static_cast<size_t>(L.words) != static_cast<size_t>(smem) ||
       4 * static_cast<size_t>(L.words) > 4 * static_cast<size_t>(kSmemWords))
     return kErrLayout;
@@ -1303,8 +1527,21 @@ int check_form(int n, int M, int k, int m, int cols, int cuts, int smem) {
 }
 
 int max_entries(int cols) {
-  return cols == kNarrow ? GridForm<kNarrow>::kMaxE
-                         : (cols == kWide ? GridForm<kWide>::kMaxE : GridForm<kWidest>::kMaxE);
+  switch (cols) {
+    case kNarrow: return GridForm<kNarrow>::kMaxE;
+    case kWide: return GridForm<kWide>::kMaxE;
+    case kWidest: return GridForm<kWidest>::kMaxE;
+    default: return GridForm<kHuge>::kMaxE;
+  }
+}
+
+int scratch_words(int cols) {
+  switch (cols) {
+    case kNarrow: return GridForm<kNarrow>::kScratch;
+    case kWide: return GridForm<kWide>::kScratch;
+    case kWidest: return GridForm<kWidest>::kScratch;
+    default: return GridForm<kHuge>::kScratch;
+  }
 }
 
 // The cooperative launches of `kernel` on the form's grid that walk the
@@ -1324,9 +1561,7 @@ int launch_grid(void (*kernel)(Args, Walk), const Args& a, Walk w, int count, co
   if ((n * n + P - 1) / P + (n + P - 1) / P > max_entries(cols) ||
       (n + P - 1) / P > kThreads / 32 || (cuts && (a.p.M + P - 1) / P > kThreads))
     return kErrLayout;
-  if (distances && 256 + P * kND > (cols == kWidest ? GridForm<kWidest>::kScratch
-                                                     : GridForm<kNarrow>::kScratch))
-    return kErrLayout;
+  if (distances && 256 + P * kND > scratch_words(cols)) return kErrLayout;
   if (count < 0 || w.ex < 0 || w.eX < 0 || w.sG % 4 || w.sg % 4 ||
       w.sG < static_cast<long long>(m) * n * n || w.sg < static_cast<long long>(m) * n)
     return kErrLayout;
@@ -1355,9 +1590,15 @@ int launch_grid(void (*kernel)(Args, Walk), const Args& a, Walk w, int count, co
 template <bool kCheck>
 int launch_block(const BlockArgs& a, const Walk& w, int count, const int* ids, int cols,
                  int cuts, int smem, int* grid, cudaStream_t st) {
+  if (!cuts && cols == kHuge)
+    return launch_grid(pdhg_grid_kernel<kCheck, false, kHuge>, a, w, count, ids, cols, cuts,
+                       smem, kCheck, grid, st);
   if (!cuts)
     return launch_grid(pdhg_grid_kernel<kCheck, false, kWidest>, a, w, count, ids, cols, cuts,
                        smem, kCheck, grid, st);
+  if (cols == kHuge)
+    return launch_grid(pdhg_grid_kernel<kCheck, true, kHuge>, a, w, count, ids, cols, cuts, smem,
+                       kCheck, grid, st);
   if (cols == kNarrow)
     return launch_grid(pdhg_grid_kernel<kCheck, true, kNarrow>, a, w, count, ids, cols, cuts,
                        smem, kCheck, grid, st);
@@ -1414,7 +1655,7 @@ Problem problem(int n, int M, int k, int m, const float* G, const float* g, cons
 // CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_grid_block_batched_launch(
     int n, int M, int k, int m, int iters, int cols, int cuts, int smem, int count,
-    const int* ids, const int* rec, int ex, int eX, int sG, int sg,
+    const int* ids, const int* rec, int ex, int eX, long long sG, long long sg,
     const float* cx, const float* cX, const float* G, const float* g, const float* h,
     const int* idx, const float* lin, const float* quad, const float* rhs, const float* act,
     const int* xoff, const int* xcut, const float* xcoef, const int* Xoff, const int* Xcut,
@@ -1470,7 +1711,8 @@ extern "C" int pdhg_grid_block_launch(
 // true) floats.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_grid_block_checked_batched_launch(
     int n, int M, int k, int m, int check_every, int cols, int cuts, int smem, int B,
-    int restart_period, int max_iters, float tol, int* rec, int ex, int eX, int sG, int sg,
+    int restart_period, int max_iters, float tol, int* rec, int ex, int eX, long long sG,
+    long long sg,
     const float* cx, const float* cX, const float* G, const float* g, const float* h,
     const int* idx, const float* lin, const float* quad, const float* rhs, const float* act,
     const int* xoff, const int* xcut, const float* xcoef, const int* Xoff, const int* Xcut,
@@ -1522,7 +1764,7 @@ extern "C" int pdhg_grid_block_checked_launch(
 // kErrLayout or kErrNoCluster.
 extern "C" int pdhg_grid_norm_batched_launch(
     int n, int M, int k, int m, int B, int iters, int cols, int cuts, int smem, int ex, int eX,
-    int sG, int sg, const float* G, const float* g, const int* idx, const float* lin,
+    long long sG, long long sg, const float* G, const float* g, const int* idx, const float* lin,
     const float* quad, const float* act, const int* xoff, const int* xcut, const float* xcoef,
     const int* Xoff, const int* Xcut, const float* Xcoef, const float* y, const float* Y,
     float* work, unsigned* bar, float* out, int* grid, void* stream) {
@@ -1534,8 +1776,14 @@ extern "C" int pdhg_grid_norm_batched_launch(
                    iters, y, Y, work, bar, out};
   const Walk w = walk(ex, eX, sG, sg);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!cuts && cols == kHuge)
+    return launch_grid(pdhg_grid_norm_kernel<false, kHuge>, a, w, B, nullptr, cols, cuts, smem,
+                       false, grid, st);
   if (!cuts)
     return launch_grid(pdhg_grid_norm_kernel<false, kWidest>, a, w, B, nullptr, cols, cuts, smem,
+                       false, grid, st);
+  if (cols == kHuge)
+    return launch_grid(pdhg_grid_norm_kernel<true, kHuge>, a, w, B, nullptr, cols, cuts, smem,
                        false, grid, st);
   if (cols == kNarrow)
     return launch_grid(pdhg_grid_norm_kernel<true, kNarrow>, a, w, B, nullptr, cols, cuts, smem,

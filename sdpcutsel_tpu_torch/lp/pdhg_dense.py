@@ -21,15 +21,16 @@ so the solve's loop (``lp/pdhg.py::_solve_impl``) runs either route.  The
 reference runs this LP in XLA (its Pallas kernel refuses dense rows,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``): none has a Pallas counterpart.
 
-Shapes: n <= 512, the certifier's pool (one slot of width 1, never filled:
+Shapes: n <= 1024, the certifier's pool (one slot of width 1, never filled:
 ``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
 rows' duals beside the grid plan's ring (``max_dense_rows``; ~22,800 at
-n = 125, ~6,800 past n = 256).  The "grid" kernels come in K2's two column
-widths (``pdhg_kernel.columns``: 128 for n <= 128, 256 up to n = 256), which
-set the entries a CTA may own (``_MAX_E``, ``_MAX_E_WIDE``); past n = 256
-the wrappers launch the grid route's kernels in their form without cuts at
-512 columns (``lp/pdhg_grid.py``, ``csrc/pdhg_grid.cu``), counted there.  The launch plan goes
-by shape (``block_plan``), the same for the block, its checked form and the
+n = 125, ~6,800 for 256 < n <= 512, ~14,900 past n = 512).  The "grid"
+kernels come in K2's two column widths (``pdhg_kernel.columns``: 128 for
+n <= 128, 256 up to n = 256), which set the entries a CTA may own
+(``_MAX_E``, ``_MAX_E_WIDE``); past n = 256 the wrappers launch the grid
+route's kernels in their form without cuts at 512 and 1024 columns
+(``lp/pdhg_grid.py``, ``csrc/pdhg_grid.cu``), counted there.  The launch
+plan goes by shape (``block_plan``), the same for the block, its checked form and the
 norm: "cta", one CTA that holds G and g in
 its shared memory for the launch (the small sandwiches, n <= ``CTA_MAX_N``),
 or "grid", one CTA on every SM, launched cooperatively, each CTA's slice of
@@ -133,7 +134,7 @@ def max_dense_rows(n: int) -> int:
 def dense_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the dense route does not take n, a pool of capacity M and width
     k, and m dense rows, or None where it does: the certifier's pool (M = 1,
-    k = 1: no cut) and n <= 512, with shared memory for m rows."""
+    k = 1: no cut) and n <= 1024, with shared memory for m rows."""
     if (M, k) != (1, 1):
         return (f"the dense route takes the certifier's pool without cuts (capacity 1, "
                 f"width 1), got capacity {M}, width {k}")

@@ -1,6 +1,6 @@
 """Wrappers of the grid route's kernels (``csrc/pdhg_grid.cu``): the PDHG
 solve over a cooperative grid of one CTA an SM, for the shapes K2's cluster
-(``lp/pdhg_kernel.py``) does not hold in its shared memory: n up to 512,
+(``lp/pdhg_kernel.py``) does not hold in its shared memory: n up to 1024,
 pools larger than K2's bands leave room for, and a QCQP's dense rows past
 the few K2 holds at n > 128.  One instance, or a batch of one shape whose
 instances one launch walks one after another, each over the whole grid.
@@ -32,19 +32,22 @@ They take the arguments of K2's, its checked form's and K6's wrappers
 (single and batched), so the solve's loops (``lp/pdhg.py::_solve_impl``,
 ``_solve_batched``) run the route as they run K2's.  The kernels come in
 two forms: a pool of cuts (k = 2..5, with its cut index) at the column
-widths 128, 256 and 512 (``pdhg_kernel.columns``), and the certifier's pool
-without cuts at 512 columns, which the dense route (``lp/pdhg_dense.py``)
-takes past n = 256 (one instance).  ``grid_refusal`` says where the
-route does not take a shape.  The reference runs these shapes in XLA (its
+widths 128, 256, 512 and 1024 (``pdhg_kernel.columns``), and the
+certifier's pool without cuts at 512 and 1024 columns, which the dense
+route (``lp/pdhg_dense.py``) takes past n = 256 (one instance).
+``grid_refusal`` says where the route does not take a shape.  The
+reference runs these shapes in XLA (its
 Pallas kernel takes n <= 128, a pool of at most 1024 slots and no dense row,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``).
 
 The layout (``block_words``) keeps the owned entries' state, the cut weights
 and the dense rows' duals in a CTA's shared memory and gives the rest to the
 dense rows' owned segments, resident for the launch where they fit and
-streamed otherwise; the grid is every CTA the card co-schedules
-(``grid_ctas``), whose global scratch ``work_words`` and ``norm_work_words``
-give.
+streamed otherwise; at 1024 columns the owned entries' state stays in
+global memory (the outputs, updated in place, and the scratch), since a
+CTA owns up to ~7,950 entries there.  The grid is every CTA the card
+co-schedules (``grid_ctas``), whose global scratch ``work_words`` and
+``norm_work_words`` give; the solve's step allocates it once a solve.
 
 Device rule: CPU tensors take the twins; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_grid_block.launches`` counts the block launches
@@ -67,13 +70,14 @@ from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import (PDHGState, estimate_norm_batched_plain, estimate_norm_plain,
                    pdhg_check_batched_plain, pdhg_check_plain, start_vector)
-from .pdhg_kernel import (_ERRORS, SMEM_MAX, _checked_args, check_record, columns,
+from .pdhg_kernel import (_ERRORS, NMAX, SMEM_MAX, _checked_args, check_record, columns,
                           pdhg_block_batched_plain, pdhg_block_plain,
                           pdhg_block_steps_batched_plain, pdhg_block_steps_plain, steps_record)
 
-GRID_NMAX = 512             # csrc/pdhg_common.cuh kWidest: the largest n the route takes
-# csrc/pdhg_grid.cu GridForm<Cols>: (kMaxE, kChunks, kScratch, kStages) by column width
-FORMS = {128: (496, 1, 2048, 4), 256: (500, 1, 2048, 4), 512: (2036, 4, 8192, 3)}
+GRID_NMAX = 1024            # csrc/pdhg_common.cuh kHuge: the largest n the route takes
+# csrc/pdhg_grid.cu GridForm<Cols>: (kMaxE, kChunks, kScratch, kStages, kState) by column width
+FORMS = {128: (496, 1, 2048, 4, 8), 256: (500, 1, 2048, 4, 8), 512: (2036, 4, 8192, 3, 8),
+         1024: (8180, 1, 2048, 4, 0)}
 _STAGE = 8192               # kStage: floats a ring stage
 _SMEM_WORDS = SMEM_MAX // 4
 _NS, _ND = 10, 6            # kNS: a check point's sums; kND: the distances' partials
@@ -93,12 +97,13 @@ def block_words(n: int, M: int, m: int, cuts: bool) -> int:
     CTA's slices, the scratch, the slab of the dense rows' owned segments, which takes what
     the rest leaves and at least the ring, none without dense rows; the
     replicas of yD and, with cuts, of the pool's weights; the owned
-    entries' buffer and their eight state arrays)."""
-    kmax, _, scratch, stages = FORMS[columns(n)]
-    rest = _META + scratch + m + (M if cuts else 0) + 9 * kmax
+    entries' buffer and their eight state arrays, none at 1024 columns,
+    where the state lives in global memory)."""
+    kmax, _, scratch, stages, state = FORMS[columns(n)]
+    rest = _META + scratch + m + (M if cuts else 0) + (1 + state) * kmax
     free4 = (_SMEM_WORDS - rest) & ~3
     slab = max(free4, stages * _STAGE) if m > 0 else 0
-    return _META + scratch + slab + m + (M if cuts else 0) + kmax + 8 * kmax
+    return _META + scratch + slab + m + (M if cuts else 0) + kmax + state * kmax
 
 
 def work_words(n: int, m: int, M: int, P: int, cuts: bool, checked: bool) -> int:
@@ -122,9 +127,9 @@ def norm_work_words(n: int, m: int, M: int, P: int, cuts: bool) -> int:
 
 def grid_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the grid route does not take n, a pool of capacity M and width k,
-    and m dense rows, or None where it does: 1 <= n <= 512, k = 2..5, and a
-    CTA's shared memory for the owned entries' state, the pool's weights
-    (M) and the dense rows' duals (m) beside the ring."""
+    and m dense rows, or None where it does: 1 <= n <= 1024, k = 2..5, and
+    a CTA's shared memory for the owned entries' state (up to n = 512), the
+    pool's weights (M) and the dense rows' duals (m) beside the ring."""
     if not 1 <= n <= GRID_NMAX:
         return f"the grid route takes 1 <= n <= {GRID_NMAX}, got {n}"
     if not 2 <= k <= 5:
@@ -146,7 +151,7 @@ def _args(cx, cX, pool: CutPool, index: CutIndex, states, dense: DenseRows | Non
         from .pdhg_dense import dense_refusal
 
         why = dense_refusal(n, M, k, m)
-        if why is None and columns(n) != GRID_NMAX:
+        if why is None and n <= NMAX:
             why = f"the grid route takes the certifier's pool past n = 256, got n={n}"
     if why is not None:
         raise ValueError(f"{name}: {why}")

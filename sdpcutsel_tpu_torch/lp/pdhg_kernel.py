@@ -25,7 +25,7 @@ same rule: K2 for a pool of cuts it takes, the grid route
 dense rows past its shared memory), the dense route (``lp/pdhg_dense.py``)
 for the certifier's pool without cuts.  On CUDA a kernel route runs unless
 the caller asks for the plain loop ("off"): a shape that none takes
-(n > 512, a pool too large for any route's shared memory) raises with the
+(n > 1024, a pool too large for any route's shared memory) raises with the
 rules' reasons.  The plain blocks a solve runs on CUDA are counted in
 ``pdhg_block.plain_launches``.
 
@@ -75,6 +75,7 @@ from .pdhg import REC_SIGMA, REC_STOP, REC_TAU, REC_WORDS, PDHGState, _one_iter,
 NARROW = 128                # csrc/pdhg_common.cuh kNarrow: the width for n <= 128
 NMAX = 256                  # kWide: one thread column per matrix column up to n = 256
 WIDEST = 512                # kWidest: the grid route's width for 256 < n <= 512
+HUGE = 1024                 # kHuge: and for 512 < n <= 1024, its owned state in global memory
 CLUSTER = 16                # CTAs in the cluster (non-portable size; 8 is portable)
 SMEM_MAX = 232_448          # dynamic shared memory one CTA may take on the H100
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
@@ -85,10 +86,13 @@ _ERRORS = {-2: "the launch plan disagrees with the kernel's shared-memory layout
 
 def columns(n: int) -> int:
     """The kernels' column width at n (``csrc/pdhg_common.cuh`` cols_for):
-    128 for n <= 128, 256 up to n = 256, 512 above (the grid route's alone,
-    ``lp/pdhg_grid.py``).  In K2 a thread owns one column, so a CTA's 512
-    threads are 512 / width row groups of width / 32 warps a row."""
-    return NARROW if n <= NARROW else (NMAX if n <= NMAX else WIDEST)
+    128 for n <= 128, 256 up to n = 256, 512 up to n = 512 and 1024 above
+    (the last two the grid route's alone, ``lp/pdhg_grid.py``).  In K2 a
+    thread owns one column, so a CTA's 512 threads are 512 / width row
+    groups of width / 32 warps a row."""
+    if n <= NMAX:
+        return NARROW if n <= NARROW else NMAX
+    return WIDEST if n <= WIDEST else HUGE
 
 
 def _check_words(C: int) -> int:
@@ -199,7 +203,7 @@ def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> str
     device.  A kernel route on the CPU runs its wrappers' twins.  The
     reference's "auto" runs its plain loop on the accelerator outside its
     kernel's shapes (n > 128, ``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here
-    the kernels take n <= 512, and the plain loop runs on the card only when
+    the kernels take n <= 1024, and the plain loop runs on the card only when
     the caller asks for it with "off"."""
     if use_kernel == "off":
         return "plain"

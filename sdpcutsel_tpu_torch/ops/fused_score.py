@@ -14,6 +14,10 @@ subsets that way).  The kernel replaces the Pallas TPU kernel
 one takes the table as it is.  It runs K1's and K3's tensor-core body
 (``csrc/score_mma.cuh``), one instantiation per k.
 
+The scoring kernels (K1, K3 and this one) read candidate c's rows at 32-bit
+offsets (``width c + a``): ``offset_refusal`` is the rule their wrappers
+raise with past 2^31 words.
+
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``fused_score.launches`` counts kernel launches, and
 ``fused_score.plain_launches`` the twin's calls on CUDA tensors that a caller
@@ -29,6 +33,21 @@ from ..cuts import eigen
 from ..models.features import candidate_features
 from ..models.scorer import MLPScorer
 
+OFFSET_LIMIT = 2 ** 31      # the scoring kernels' int offsets: width c + a < 2^31
+
+
+def offset_refusal(kernel: str, rows: int, width: int) -> str | None:
+    """Why a scoring kernel does not take ``rows`` candidates whose widest
+    array has ``width`` words a candidate (K1's table: 3; K3's slots: 1;
+    K4's triQ: k (k + 1) / 2, wider than its table's k), or None where it
+    does: the kernels read candidate c at the 32-bit offset width c + a, so
+    rows x width must stay below 2^31 (k = 3 from n ~ 1,627 on, where
+    C(n, 3) triples take 3 words each)."""
+    if rows * width >= OFFSET_LIMIT:
+        return (f"{kernel} kernel: {rows} candidates x {width} words = {rows * width} reach "
+                f"its 32-bit offsets' limit of 2^31")
+    return None
+
 
 def fused_score_plain(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
     """Twin: features + MLP + struct-of-arrays Jacobi over the table."""
@@ -43,6 +62,9 @@ def _launch(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
     F = k * (k + 1) + k
     if k not in (2, 3, 4, 5):
         raise ValueError(f"fused_score kernel takes k = 2..5, got {k}")
+    why = offset_refusal("fused_score", T, k * (k + 1) // 2)
+    if why is not None:
+        raise ValueError(why)
     if [tuple(w.shape) for w in weights[::2]] != [(64, F), (64, 64), (1, 64)]:
         raise ValueError(f"fused_score kernel takes a {F}-64-64-1 MLP for k = {k}")
     if table.dtype != torch.int32:

@@ -43,6 +43,7 @@ import torch
 
 from .. import _build
 from ..models.scorer import MLPScorer
+from .fused_score import offset_refusal
 from .pair_score import SWEEPS, pair_score_plain
 
 LANES = 128     # slots of a row, and the multiple each tier's rows are padded to
@@ -164,6 +165,9 @@ def _launch(x, X, Q, lay: PackedLayout, mlp: MLPScorer):
     weights = [t.detach() for lin in mlp.layers for t in (lin.weight, lin.bias)]
     if [tuple(w.shape) for w in weights[::2]] != [(64, 15), (64, 64), (1, 64)]:
         raise ValueError("pair_packed kernel takes a 15-64-64-1 MLP")
+    why = offset_refusal("pair_packed", lay.slots, 1)
+    if why is not None:
+        raise ValueError(why)
     for t in (x, X, Q, *weights):
         if t.dtype != torch.float32 or t.device != x.device:
             raise ValueError("pair_packed kernel takes float32 tensors on one device")

@@ -31,7 +31,7 @@ import torch
 from .. import _build
 from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer
-from .fused_score import fused_score_plain
+from .fused_score import fused_score_plain, offset_refusal
 
 SWEEPS = 5      # Jacobi sweeps on the 4 x 4 Z(rho), as in the reference's scoring
 _LANES = 128
@@ -75,6 +75,9 @@ def _launch(x, X, Q, table, mlp: MLPScorer, sweeps: int):
     weights = [t.detach() for lin in mlp.layers for t in (lin.weight, lin.bias)]
     if k != 3 or [tuple(w.shape) for w in weights[::2]] != [(64, 15), (64, 64), (1, 64)]:
         raise ValueError("pair_score kernel takes k = 3 and a 15-64-64-1 MLP")
+    why = offset_refusal("pair_score", T, 3)
+    if why is not None:
+        raise ValueError(why)
     if table.dtype != torch.int32:
         raise ValueError("pair_score kernel takes an int32 table")
     for t in (x, X, Q, *weights):

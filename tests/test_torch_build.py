@@ -11,7 +11,7 @@ import pytest
 
 from sdpcutsel_tpu_torch import _build
 
-_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
 
 
 def _entry_points():

@@ -1,6 +1,6 @@
 """The grid route (lp/pdhg_grid.py, csrc/pdhg_grid.cu) on the CPU: the routes
-a solve takes on CUDA up to n = 512 and where the route refuses, the layouts
-and scratch summed from the kernel source at the three column widths, the
+a solve takes on CUDA up to n = 1024 and where the route refuses, the layouts
+and scratch summed from the kernel source at the four column widths, the
 K2, K6 and K7 layouts at 128 and 256 columns held to copies of their earlier
 formulas, a Python mirror of what each CTA of the grid owns, the wrappers'
 marshalling against the library's signatures (a stand-in library records
@@ -66,7 +66,10 @@ def _one_torch_thread():
 # ---- the routes on CUDA ---------------------------------------------------------
 
 GRID_SHAPES = [(257, 1024, 3, 0), (300, 1024, 3, 0), (512, 1024, 3, 0), (200, 1024, 5, 25),
-               *((150, 1024, 5, m) for m in (26, 32, 48, 64))]
+               *((150, 1024, 5, m) for m in (26, 32, 48, 64)),
+               # the 1024-column form
+               *((n, 1024, k, m) for n in (513, 520, 600, 700, 1000, 1024)
+                 for k, m in ((3, 0), (5, 25)))]
 # the shapes the tests of K2's two widths route to K2 (tests/test_torch_wide.py,
 # test_torch_pdhg.py)
 K2_SHAPES = [(125, 1024, 3, 0), (100, 1024, 5, 25), (125, 2048, 3, 0), (128, 2048, 5, 25),
@@ -78,10 +81,13 @@ K2_SHAPES = [(125, 1024, 3, 0), (100, 1024, 5, 25), (125, 2048, 3, 0), (128, 204
 @pytest.mark.parametrize("n,M,k,m", GRID_SHAPES)
 def test_grid_route_where_k2s_cluster_refuses(n, M, k, m):
     """Past K2's cluster (n > 256, or dense rows past its shared memory at
-    n = 150 and 200) "auto" and "on" take the grid route on CUDA; "off"
-    stays plain, and "auto" on the CPU too."""
+    n = 150 and 200) "auto" and "on" take the grid route on CUDA, at
+    n > 512 its 1024-column form; "off" stays plain, and "auto" on the CPU
+    too."""
     assert plan_refusal(n, M, k, m) is not None
     assert tgrid.grid_refusal(n, M, k, m) is None
+    assert 4 * tgrid.block_words(n, M, m, True) <= SMEM_MAX
+    assert (tkernel.columns(n) == tkernel.HUGE) is (n > 512)
     assert route_refusal(n, M, k, m) == ("grid", None)
     assert kernel_route("auto", CUDA, n, M, k, m) == "grid"
     assert kernel_route("on", CUDA, n, M, k, m) == "grid"
@@ -96,37 +102,44 @@ def test_k2_keeps_every_shape_it_took(n, M, k, m):
     assert kernel_route("auto", CUDA, n, M, k, m) == "k2"
 
 
-@pytest.mark.parametrize("n,m", [(300, 368), (300, 2048), (512, 2048), (257, 1)])
+@pytest.mark.parametrize("n,m", [(300, 368), (300, 2048), (512, 2048), (257, 1), (600, 368),
+                                 (600, 2048), (1024, 368), (1024, 2048)])
 def test_dense_route_takes_the_certifier_past_n256(n, m):
     """The certifier's pool past n = 256 stays on the dense route, whose
-    wrappers launch the grid route's form without cuts at 512 columns."""
+    wrappers launch the grid route's form without cuts at 512 or 1024
+    columns."""
     assert route_refusal(n, 1, 1, m) == ("dense", None)
     assert kernel_route("auto", CUDA, n, 1, 1, m) == "dense"
     assert tdense.block_plan(n, m) == "grid"
     assert tdense.smem_words(n, m) == tgrid.block_words(n, 1, m, False)
     assert 4 * tdense.smem_words(n, m) <= SMEM_MAX
     assert tdense.max_dense_rows(n) >= 2048
-    assert tdense.max_entries(n) == tgrid.FORMS[512][0]
+    assert tdense.max_entries(n) == tgrid.FORMS[tkernel.columns(n)][0]
 
 
 @pytest.mark.parametrize("M,k,m", [(1024, 3, 0), (1024, 5, 25), (1, 1, 368)])
 def test_n513_is_refused_by_every_route(M, k, m):
-    """n = 513 is refused on CUDA under "auto" and "on", naming n <= 512,
-    with no fall back to the plain loop; "off" runs plain."""
-    route, why = route_refusal(513, M, k, m)
-    assert "n <= 512" in why
+    """n = 1025, past the 1024-column form, is refused on CUDA under "auto"
+    and "on", naming n <= 1024, with no fall back to the plain loop; "off"
+    runs plain.  n = 513 is taken now."""
+    route, why = route_refusal(1025, M, k, m)
+    assert "n <= 1024" in why
+    if route == "grid":                # every route's reason: K2's first
+        assert why.startswith("pdhg_block kernel takes 1 <= n <= 256")
     for use_kernel in ("auto", "on"):
-        with pytest.raises(ValueError, match="n <= 512"):
-            kernel_route(use_kernel, CUDA, 513, M, k, m)
-    assert kernel_route("off", CUDA, 513, M, k, m) == "plain"
+        with pytest.raises(ValueError, match="n <= 1024"):
+            kernel_route(use_kernel, CUDA, 1025, M, k, m)
+    assert kernel_route("off", CUDA, 1025, M, k, m) == "plain"
+    assert route_refusal(513, M, k, m)[1] is None
 
 
 def test_grid_refusal_reasons():
     """Past a CTA's shared memory the route says so; cuts of width 1..6 and
-    n outside 1..512 are refused by name; K2's reason comes first where
+    n outside 1..1024 are refused by name; K2's reason comes first where
     neither takes a shape."""
     assert "k = 2..5" in tgrid.grid_refusal(300, 1024, 6, 0)
-    assert "n <= 512" in tgrid.grid_refusal(0, 1024, 3, 0)
+    assert "n <= 1024" in tgrid.grid_refusal(0, 1024, 3, 0)
+    assert "n <= 1024" in tgrid.grid_refusal(1025, 1024, 3, 0)
     top = max(M for M in range(1024, 40000, 64) if tgrid.grid_refusal(512, M, 3, 0) is None)
     why = tgrid.grid_refusal(512, top + 64, 3, 0)
     assert "shared memory" in why
@@ -138,7 +151,7 @@ def test_grid_refusal_reasons():
 def test_batched_setup_refuses_the_grid_route():
     """A batch refuses the grid route only where the route refuses the shape:
     at n = 257 with "on" its setup takes it (the batched norm's twin on the
-    CPU), at n = 513 it raises with the route's reason."""
+    CPU), at n = 1025 it raises with the route's reason."""
     inst = generate_spar(257, 100, 1)
     pool = tcb.empty_pool(64, 3, "cpu")
     batch = tcb.CutPool(*(t[None] for t in (pool.idx, pool.lin, pool.quad, pool.rhs,
@@ -148,8 +161,8 @@ def test_batched_setup_refuses_the_grid_route():
     assert setup.route == "grid"
     assert torch.equal(setup.normK, tpdhg.estimate_norm_batched_plain(batch, 257, 30, None,
                                                                       setup.index))
-    with pytest.raises(ValueError, match="n <= 512"):
-        tpdhg.solve_setup_batched(torch.zeros(1, 513), batch, LPConfig(use_kernel="on"))
+    with pytest.raises(ValueError, match="n <= 1024"):
+        tpdhg.solve_setup_batched(torch.zeros(1, 1025), batch, LPConfig(use_kernel="on"))
 
 
 # ---- the layouts, summed from the kernel source ---------------------------------
@@ -161,13 +174,13 @@ def _source(name: str) -> str:
 
 def _forms_from_source() -> dict:
     """GridForm<Cols>'s constants of csrc/pdhg_grid.cu by column width."""
-    widths = {"kNarrow": 128, "kWide": 256, "kWidest": 512}
+    widths = {"kNarrow": 128, "kWide": 256, "kWidest": 512, "kHuge": 1024}
     out = {}
     for name, body in re.findall(r"struct GridForm<(\w+)> \{\s*static constexpr int ([^;]*);",
                                  _source("pdhg_grid.cu")):
         vals = dict(re.findall(r"(\w+) = (\d+)", body))
         out[widths[name]] = tuple(int(vals[k]) for k in ("kMaxE", "kChunks", "kScratch",
-                                                          "kStages"))
+                                                          "kStages", "kState"))
     return out
 
 
@@ -191,12 +204,12 @@ def _python(expr: str) -> str:
 def _grid_layout_words(n: int, M: int, m: int, cuts: bool) -> int:
     """csrc/pdhg_grid.cu's grid_layout at n's column width: the sum of its
     TAKE lines and the values they take, evaluated from the source."""
-    kmax, _, scratch, stages = tgrid.FORMS[tkernel.columns(n)]
+    kmax, _, scratch, stages, state = tgrid.FORMS[tkernel.columns(n)]
     text = _source("pdhg_grid.cu")
     body = text[text.index("inline GridLayout grid_layout("):]
     body = body[:body.index("#undef TAKE")]
     body = (body.replace("F::kMaxE", str(kmax)).replace("F::kScratch", str(scratch))
-            .replace("F::kStages", str(stages)))
+            .replace("F::kStages", str(stages)).replace("F::kState", str(state)))
     names = dict(n=n, m=m, M=M, cuts=cuts, kStage=tgrid._STAGE, kSmemWords=SMEM_MAX // 4,
                  kMeta=int(re.search(r"constexpr int kMeta = (\d+);", text).group(1)))
     for var, expr in re.findall(r"const int (\w+) = (.*?);", body):
@@ -205,16 +218,18 @@ def _grid_layout_words(n: int, M: int, m: int, cuts: bool) -> int:
                for e in re.findall(r"TAKE\(\w+, ([^;]*?)\);", body))
 
 
-@pytest.mark.parametrize("n", [20, 128, 150, 256, 257, 300, 512])
+@pytest.mark.parametrize("n", [20, 128, 150, 256, 257, 300, 512, 513, 600, 700, 1000, 1024])
 @pytest.mark.parametrize("M,m", [(1024, 0), (1024, 25), (1024, 368), (1, 2048), (4096, 64)])
 def test_grid_layout_matches_the_kernel_source(n, M, m):
     """block_words is csrc/pdhg_grid.cu's grid_layout at every width, with
-    and without cuts; without dense rows there is no slab."""
+    and without cuts; without dense rows there is no slab; the owned state
+    takes eight arrays of kMaxE words up to 512 columns and none at 1024."""
     for cuts in (True, False):
         assert tgrid.block_words(n, M, m, cuts) == _grid_layout_words(n, M, m, cuts)
+    kmax, _, scratch, _, state = tgrid.FORMS[tkernel.columns(n)]
+    assert state == (0 if n > 512 else 8)
     if m == 0:
-        kmax, _, scratch, _ = tgrid.FORMS[tkernel.columns(n)]
-        assert tgrid.block_words(n, M, 0, True) == tgrid._META + scratch + M + 9 * kmax
+        assert tgrid.block_words(n, M, 0, True) == tgrid._META + scratch + M + (1 + state) * kmax
 
 
 def _work_expr(fn: str) -> str:
@@ -226,7 +241,8 @@ def _work_expr(fn: str) -> str:
 
 
 @pytest.mark.parametrize("n,m,M,P", [(512, 0, 1024, 132), (300, 368, 1, 132), (200, 25, 1024, 66),
-                                     (150, 64, 2048, 264)])
+                                     (150, 64, 2048, 264), (1024, 25, 1024, 132),
+                                     (600, 368, 1, 132)])
 def test_grid_work_matches_the_kernel_source(n, m, M, P):
     """work_words and norm_work_words are csrc/pdhg_grid.cu's, evaluated
     from the source, with and without cuts and the checked form's extras."""
@@ -318,14 +334,16 @@ def _pool_index(n: int, k: int = 3, M: int = 1024, live: int = 400, seed: int = 
 
 
 @pytest.mark.parametrize("P", [132, 130, 264])
-@pytest.mark.parametrize("n", [257, 300, 512])
+@pytest.mark.parametrize("n", [257, 300, 512, 600, 1024])
 def test_every_entry_slot_and_term_has_one_owner(n, P):
     """On P CTAs every entry of X and x, every pool slot and every term of
     the cut index (the segments of the owned entries) has exactly one owner,
     and what a CTA owns fits the form: entries within kMaxE, x entries
     within the warps, slots within the threads, its spans within the
-    adjoint's lanes and the scratch, the distances' copy within it."""
-    kmax, kchunks, scratch, _ = tgrid.FORMS[tkernel.columns(n)]
+    adjoint's lanes and the scratch (at 1024 columns: every owned entry one
+    thread's in the passes by entry, a row's spans within a ring stage), the
+    distances' copy within the scratch."""
+    kmax, kchunks, scratch, _, state = tgrid.FORMS[tkernel.columns(n)]
     M = 1024
     index = _pool_index(n, M=M)
     Xoff, xoff = index.Xoff.numpy(), index.xoff.numpy()
@@ -340,6 +358,12 @@ def test_every_entry_slot_and_term_has_one_owner(n, P):
         LA, LB = e1 - e0, i1 - i0
         assert LA + LB <= kmax and LB <= 16 and s1 - s0 <= 512
         ES = ((LA + 6) & ~3) + ((LB + 6) & ~3)
+        if state == 0:
+            span = -(-kmax // 512)             # Slices::kSpan
+            assert sorted(t + 512 * i for t in range(512) for i in range(span)
+                          if t + 512 * i < LA + LB) == list(range(LA + LB))
+            assert ES <= tgrid._STAGE
+            continue
         cr = ES // 4
         NS, tps, KC = _lanes(cr, kchunks)
         assert NS >= 4 and NS % 4 == 0 and KC <= kchunks
@@ -349,6 +373,8 @@ def test_every_entry_slot_and_term_has_one_owner(n, P):
     assert (owner_X == 1).all() and (owner_x == 1).all() and (owner_s == 1).all()
     assert (terms_X == 1).all() and (terms_x == 1).all()
     assert 256 + P * 6 <= scratch
+    if state == 0:   # entry_residual's sums (8 rows x 16 warps) at the scratch's end
+        assert max(256 + P * 6, 128 + n) <= scratch - 8 * 16
 
 
 # ---- the wrappers' launches, recorded by a stand-in library ----------------------
@@ -398,7 +424,7 @@ def _cut_problem(n=20, M=64, k=3, m=5, seed=0):
     return torch.rand(n), torch.rand(n, n), pool, build_cut_index(pool, n), st, dense
 
 
-@pytest.mark.parametrize("n,m", [(20, 5), (20, 0), (300, 0)])
+@pytest.mark.parametrize("n,m", [(20, 5), (20, 0), (300, 0), (600, 0), (600, 5), (1024, 0)])
 def test_grid_launches_match_the_library(n, m, monkeypatch):
     """The block, the checked launch and the norm marshal the arguments the
     C entries take (count and kinds), at n's width, with cuts, the layout's
@@ -423,11 +449,13 @@ def test_grid_launches_match_the_library(n, m, monkeypatch):
         before[0] + 2, before[1] + 1)
 
 
-def test_dense_route_past_n256_launches_the_grid_form_without_cuts(monkeypatch):
+@pytest.mark.parametrize("n,cols", [(300, 512), (600, 1024)])
+def test_dense_route_past_n256_launches_the_grid_form_without_cuts(n, cols, monkeypatch):
     """The dense route's wrappers past n = 256 launch the grid route's form
-    without cuts (cuts = 0) at 512 columns; at n <= 256 they keep K7's."""
+    without cuts (cuts = 0) at 512 columns, past n = 512 at 1024; at
+    n <= 256 they keep K7's."""
     lib = _fake_card(monkeypatch)
-    n, m = 300, 7
+    m = 7
     pool = tcb.empty_pool(1, 1, "cpu")
     index = build_cut_index(pool, n)
     dense = tdr.DenseRows(torch.rand(m, n, n), torch.rand(m, n), torch.rand(m))
@@ -438,7 +466,7 @@ def test_dense_route_past_n256_launches_the_grid_form_without_cuts(monkeypatch):
                         3, dense)
     args = lib.calls[-1][1]
     assert lib.calls[-1][0] == "pdhg_grid_block_launch"
-    assert args[:8] == (n, 1, 1, m, 3, 512, 0, 4 * tdense.smem_words(n, m))
+    assert args[:8] == (n, 1, 1, m, 3, cols, 0, 4 * tdense.smem_words(n, m))
     with pytest.raises(ValueError, match="past n = 256"):
         n = 100
         tgrid._launch_block(torch.rand(n), torch.rand(n, n), pool, build_cut_index(pool, n),

@@ -56,18 +56,19 @@ def test_dense_route_for_the_certifier_on_cuda(n, m):
     assert kernel_route("auto", torch.device("cpu"), n, 1, 1, m) == "plain"
 
 
-@pytest.mark.parametrize("n", [0, 513, 600])
+@pytest.mark.parametrize("n", [0, 1025, 1100])
 def test_dense_route_refuses_n_outside_the_kernels(n):
-    """n > 512 (or 0): "auto" on CUDA raises with the reason and names "off";
-    "on" raises on every device; "off" and "auto" on the CPU run plain."""
+    """n > 1024 (or 0): "auto" on CUDA raises with the reason and names
+    "off"; "on" raises on every device; "off" and "auto" on the CPU run
+    plain."""
     route, why = route_refusal(n, 1, 1, 368)
-    assert route == "dense" and "n <= 512" in why
+    assert route == "dense" and "n <= 1024" in why
     with pytest.raises(ValueError, match=re.escape(why)):
         kernel_route("auto", torch.device("cuda"), n, 1, 1, 368)
     with pytest.raises(ValueError, match="use_kernel='off'"):
         kernel_route("auto", torch.device("cuda"), n, 1, 1, 368)
     for device in ("cuda", "cpu"):
-        with pytest.raises(ValueError, match="n <= 512"):
+        with pytest.raises(ValueError, match="n <= 1024"):
             kernel_route("on", torch.device(device), n, 1, 1, 368)
     assert kernel_route("off", torch.device("cuda"), n, 1, 1, 368) == "plain"
     assert kernel_route("auto", torch.device("cpu"), n, 1, 1, 368) == "plain"
