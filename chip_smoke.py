@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch + CUDA port (sdpcutsel_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--phases GROUPS]
+
+--phases runs some of the groups 3, 4, 5-13, 15-17, 18-21 and 22 (comma-
+separated; the default runs every one, and only then prints the kernels
+line; the build and phase 1 always run).
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
@@ -108,7 +112,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      generator, so both devices see the same numbers);
      generate_spar(1025, 100, 1), outside every route (n > 1024): by
      default its solve (k = 2) refuses on the card with the routes' reasons,
-     no PDHG kernel launched; generate_spar(300, 100, 1), past K2's cluster: 2 rounds by
+     no PDHG kernel launched; spar150-100-1 with CutConfig(capacity=81920),
+     past every shared layout: one round by default, taken by the grid
+     route's far form; generate_spar(300, 100, 1), past K2's cluster: 2 rounds by
      default on K1 and the grid route's kernels (no K2, no plain block, twin
      check or norm), each round within rtol 2e-3 of one CPU run of the port;
      and spar150-100-1 (generated, the kernels' 256-column
@@ -170,7 +176,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      call; (c) 4 x generate_qcqp_band(200, 5, 25, s) (k = 5 over the band
      graph's clique table, sel_size 16, LPConfig(3000, 1e-5)), 2 rounds
      twice bit for bit, the first within rtol 2e-3 of the CPU port's
-     batched round, K4 once an instance a round and (b)'s launch checks;
+     batched round (run in the host references' process, compared at the
+     end of the run), K4 once an instance a round and (b)'s launch checks;
      (d) python3 -m sdpcutsel_tpu_torch.bench_batched --n 300 --batch 4
      --rounds 3 in a subprocess runs to its end; with --parent DIR, the
      single-instance grid entries at phase 19's shapes bit for bit the
@@ -196,6 +203,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (the BM lb and the CPU port's band round, minutes at n = 600) runs in
      a subprocess of its own (--host-references) from the end of the build,
      and those two comparisons close the run, after phase 17;
+ 22. any pool and any number of dense rows (run after phase 21; the grid
+     route's far form, csrc/pdhg_grid.cuh kFar: no replica of the cut
+     weights or of yD in shared memory, a CTA's slots past 512 walked in
+     place in the outputs): (a) its block (7 and 100 iterations), checked
+     launch (restart periods 10^9 and 100, a stopped record) and norm
+     against their twins at phase 19's tolerances, twice bit for bit, each
+     timed on the device beside its bound, at n = 125 with M = 81,920 and
+     2,000 active k = 3 cuts, n = 300 with M = 32,768, n = 300 with k = 5
+     cuts and 6,000 dense rows (2.16 GB of G, made on the card), n = 600
+     with M = 49,152, and in its form without cuts (the certifier's pool
+     past the rows K7 and the shared layout hold) at n = 300 over 7,000 rows
+     and n = 64 over 23,000; the walk at B = 2 at the second shape (each
+     instance its single entry's bits); ptxas without a spill or a stack in
+     any grid kernel; (b) the far form forced (the wrappers' private _far)
+     at phase 19's shapes n = 512 and n = 200 with 25 rows gives the shared
+     form's bits (block, checked launch, norm), both timed in turns; (c)
+     CutSolver on generate_spar(300, 100, 1) with the defaults but
+     CutConfig(capacity=81920), 2 rounds with "auto" twice bit for bit, on K1
+     and the far form alone, every certificate at least a feasible point's
+     objective, rounds/s and the synchronised stage split; its round 0
+     within rtol 2e-3 of the CPU port's, computed in the host references'
+     process and compared at the end of the run;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -319,7 +348,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      the grid route's entries hold spar512's shape, every shape under
      "shapes", phase 20's batched launches under "batched"; its 1024-column
      form's three entries n = 1024's shape and phase 21's launches; K1's
-     the n = 512 and n = 1024 numbers ("n512", "n1024"); K2's entry also holds the
+     the n = 512 and n = 1024 numbers ("n512", "n1024"); the grid entries
+     also hold phase 22's shapes of the far form under "far" (with its
+     launches on phase 22's solve and, in the block's, the forced form
+     against the shared one); K2's entry also holds the
      batched launch's time, bound and the clusters the card runs at once,
      and K1, K2, K5, K6 and K7's entries the wide shapes' numbers ("n256",
      "wide", "shapes"); the total seconds beside a 900 s budget, then the
@@ -2128,8 +2160,10 @@ def check_large_instance(dev) -> dict:
     (generated, n = 150, K2's 256-column form): 2 rounds with "auto" on the
     card (K1, K2 with K5 and K6; no plain block, twin check or norm), and
     with LPConfig(use_kernel="off") 2 rounds of the plain loop there, each
-    against the CPU port's 2 rounds (run once).  Returns the launch counts
-    of the "auto" runs at n = 150 and at n = 300."""
+    against the CPU port's 2 rounds (run once).  CutConfig(capacity=81920) at
+    n = 150: one round with "auto", taken by the grid route's far form.
+    Returns the launch counts of the "auto" runs at n = 150, at n = 300 and
+    of the pool of 81,920 at n = 150."""
     wide = generate_spar(1025, 100, 1)
     lp = LPConfig(max_iters=3000, tol=1e-5)
     why = pdhg_kernel.route_refusal(wide.n, CutConfig().capacity, 2, 0)[1]
@@ -2145,6 +2179,22 @@ def check_large_instance(dev) -> dict:
         raise AssertionError("the n = 1025 solve on the card did not refuse with the routes' "
                              "reasons")
     del wide
+    # a pool of BIG_CAPACITY at n = 150, past K2's and the shared layout's:
+    # taken, on the grid route's far form
+    inst = load_or_generate("spar150-100-1")
+    route = pdhg_kernel.route_refusal(inst.n, BIG_CAPACITY, 3, 0)
+    far = pdhg_grid._form(inst.n, BIG_CAPACITY, 3, 0)[0]
+    reset_launches()
+    hist = CutSolver(inst, RunConfig(lp=lp, cuts=CutConfig(capacity=BIG_CAPACITY)),
+                     device=dev).run(rounds=1)
+    big = launch_counts()
+    log(f"[small] spar150-100-1 with CutConfig(capacity={BIG_CAPACITY}), use_kernel='auto': "
+        f"route {route}, the far form: {far}; bound {hist[0].bound!r}; launches {big}")
+    if (route != ("grid", None) or not far or min(big[k] for k in GRID_NAMES) == 0
+            or big["pdhg_block"] or big[PLAIN_BLOCKS] or big[PLAIN_CONTROL]
+            or not np.isfinite(hist[0].bound)):
+        raise AssertionError(f"a pool of {BIG_CAPACITY} at n = 150 was not taken by the grid "
+                             f"route's far form")
     inst = generate_spar(300, 100, 1)
     t0 = time.perf_counter()
     cpu = [h.bound for h in CutSolver(inst, RunConfig(lp=lp), device="cpu").run(rounds=2)]
@@ -2180,7 +2230,7 @@ def check_large_instance(dev) -> dict:
             or launches[PLAIN_BLOCKS] == 0 or launches[PLAIN_CONTROL] == 0):
         raise AssertionError("the n = 150 solve did not run the plain PDHG loop, check and "
                              "norm alone")
-    return auto, grid
+    return auto, grid, big
 
 
 def card_vs_cpu(label: str, solver_cls, inst, cfg, dev, rounds: int = 3, cpu=None):
@@ -3800,21 +3850,24 @@ def grid_inputs(label: str, dev):
 
 
 def grid_ptxas() -> str:
-    """ptxas's lines of every grid-route kernel; fails on a spill or a stack
-    frame."""
-    rep = "; ".join(spill_free(k) for k in ("pdhg_grid_kernel", "pdhg_grid_norm_kernel"))
+    """ptxas's lines of every grid-route kernel, the far form's too; fails on
+    a spill or a stack frame."""
+    rep = "; ".join(spill_free(k) for k in ("pdhg_grid_kernel", "pdhg_grid_norm_kernel",
+                                            "pdhg_grid_far_kernel",
+                                            "pdhg_grid_far_norm_kernel"))
     if re.search(r"[1-9]\d* bytes stack frame", rep):
         raise AssertionError(f"a grid-route kernel has a stack frame: {rep}")
     return rep
 
 
-def check_grid_block(label: str, inputs) -> dict:
+def check_grid_block(label: str, inputs, reps: int = 10) -> dict:
     """The grid route's block against its twin (pdhg_block_plain) from phase
     3's random state: 7 iterations at rtol = atol = 2e-5 and 100 at K2's
     100-iteration tolerances (the certifier's pool: K7's 2e-5), two launches
     bit for bit, the inputs unchanged, the in-place block with the record's
-    steps bit for bit equal to the host-step launch; its grid, layout and
-    time by events and on the device beside its bound."""
+    steps bit for bit equal to the host-step launch; its grid, form, layout
+    and time (``reps`` launches) by events and on the device beside its
+    bound."""
     cx, cX, pool, index, st, dense = inputs
     n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
     cuts = (M, k) != (1, 1)
@@ -3849,18 +3902,18 @@ def check_grid_block(label: str, inputs) -> dict:
     rec = pdhg_kernel.steps_record([eta], [eta], cx.device)[0]
     pdhg_grid_block_steps(cx, cX, pool, index, *ip, rec, 100, dense)
     in_place = states_equal(ip, list(got))
-    P = pdhg_grid.grid_ctas(n, M, k, m)
+    far, smem, P = pdhg_grid._form(n, M, k, m)
     log(f"[pdhg_grid {label}] {P} CTAs x 512 threads, column width {pdhg_kernel.columns(n)}, "
-        f"at most {pdhg_grid.max_entries(n)} entries a CTA, "
-        f"{4 * pdhg_grid.block_words(n, M, m, cuts)} bytes of shared memory a CTA; inputs "
-        f"unchanged: {unchanged}; the in-place block with the record's steps bit for bit: "
-        f"{in_place}")
+        f"the {'far' if far else 'shared'} form, at most {pdhg_grid.max_entries(n)} entries "
+        f"and {-(-M // P) if cuts else 0} pool slots a CTA, {smem} bytes of shared memory a "
+        f"CTA; inputs unchanged: {unchanged}; the in-place block with the record's steps bit "
+        f"for bit: {in_place}")
     if not (unchanged and in_place):
         raise AssertionError(f"the grid block wrote its inputs or its in-place form differs "
                              f"({label})")
-    ms = cuda_ms(lambda: pdhg_grid_block(*args, 100, dense), reps=10)
+    ms = cuda_ms(lambda: pdhg_grid_block(*args, 100, dense), reps=reps)
     dev_ms = queued_ms(lambda: pdhg_grid_block_steps(cx, cX, pool, index, *ip, rec, 100, dense),
-                       reps=10)
+                       reps=reps)
     plain_ms = cuda_ms(lambda: pdhg_block_plain(*args, 100, dense), reps=2, warmup=1)
     terms = index.Xcut.numel() + index.xcut.numel() if cuts else 0
     b = bound(pdhg_ops(n, k, m, int(pool.active.sum()) if cuts else 0, terms, 100),
@@ -3872,10 +3925,11 @@ def check_grid_block(label: str, inputs) -> dict:
         f"{dev_ms:.4f} ms on the device (queued events) = {dev_ms * 10:.3f} us an iteration; "
         f"twin {plain_ms:.4f} ms; {share(dev_ms, b)} (of the device time) ({SMI})")
     return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **b,
-            "share": b["bound_ms"] / dev_ms, "us_per_iteration": dev_ms * 10, "grid": P}
+            "share": b["bound_ms"] / dev_ms, "us_per_iteration": dev_ms * 10, "grid": P,
+            "far": far}
 
 
-def check_grid_check(label: str, inputs) -> dict:
+def check_grid_check(label: str, inputs, reps: int = 10) -> dict:
     """The grid route's checked launch (a 100-iteration block, then the
     checked block's control on the slices each CTA owns) from phase 3's
     state against the grid block (pdhg_grid_block_steps) followed by the twin
@@ -3938,7 +3992,7 @@ def check_grid_check(label: str, inputs) -> dict:
     t_blk, t_both = [], []
     for runs, fn in ((t_blk, unchecked), (t_both, lambda: checked(bufs, 100, never)),
                      (t_both, lambda: checked(bufs, 100, never)), (t_blk, unchecked)):
-        runs.append(queued_ms(fn, reps=10))
+        runs.append(queued_ms(fn, reps=reps))
     both, blk = sum(t_both) / 2, sum(t_blk) / 2
     dev_ms = both - blk
     extra = {}
@@ -3949,7 +4003,7 @@ def check_grid_check(label: str, inputs) -> dict:
         t_one, t_all = [], []
         for runs, iters in ((t_one, 1), (t_all, every), (t_all, every), (t_one, 1)):
             runs.append(queued_ms(lambda iters=iters: pdhg_grid_block_checked(
-                cx, cX, pool, index, *bufs, iters, 100, *never, dense), reps=10))
+                cx, cX, pool, index, *bufs, iters, 100, *never, dense), reps=reps))
         one, full = sum(t_one) / 2, sum(t_all) / 2
         extra = {"checked_less_unchecked_ms": dev_ms, "one_iteration_launch_ms": one,
                  "by_iterations": True}
@@ -3974,7 +4028,7 @@ def check_grid_check(label: str, inputs) -> dict:
             "unchecked_launch_ms": blk, **extra}
 
 
-def check_grid_norm(label: str, inputs) -> dict:
+def check_grid_norm(label: str, inputs, reps: int = 5) -> dict:
     """The grid route's ||K|| (30 power iterations in one launch) against its
     twin (estimate_norm_plain, the seeded start vector) at rtol 1e-5, twice
     bit for bit, as K6 is held; its time by events and on the device beside
@@ -3993,8 +4047,8 @@ def check_grid_norm(label: str, inputs) -> dict:
     if rel > CONTROL_RTOL or not torch.equal(a, b2):
         raise AssertionError(f"the grid route's norm disagrees with its twin or does not repeat "
                              f"({label})")
-    ms = cuda_ms(lambda: norm(pdhg_grid_norm, gen=False), reps=5)
-    dev_ms = queued_ms(lambda: norm(pdhg_grid_norm, gen=False), reps=5)
+    ms = cuda_ms(lambda: norm(pdhg_grid_norm, gen=False), reps=reps)
+    dev_ms = queued_ms(lambda: norm(pdhg_grid_norm, gen=False), reps=reps)
     plain_ms = cuda_ms(lambda: norm(estimate_norm_plain), reps=2, warmup=1)
     terms = index.Xcut.numel() + index.xcut.numel() if cuts else 0
     bb = bound(norm_ops(n, k, m, int(pool.active.sum()) if cuts else 0, terms, 30),
@@ -4199,13 +4253,14 @@ GRID_BATCH_BAND_CPU_ROUNDS = 1        # of them held to the CPU port's batched r
 GRID_BATCH_CLI = ["--n", "300", "--batch", "4", "--rounds", "3"]
 
 
-def grid_batch_inputs(label: str, dev, shapes=None, B: int = GRID_BATCH):
+def grid_batch_inputs(label: str, dev, shapes=None, B: int = GRID_BATCH, M: int = 1024,
+                      active: int = 400):
     """(cx, cX, pool, index, state, dense, singles) of a GRID_BATCH_SHAPES
     shape (or of ``shapes``) at B instances: instance s has generate_spar(n, 100, s + 1)'s
     objective (m = 0) or generate_qcqp(n, 30, m, s + 1)'s and its m dense
-    rows, its own pool of M = 1024 with 400 active random unit cuts on 2,000
-    random k-subsets of its columns and a random state (phase 3's
-    random_pool and random_state); ``singles``: each instance's (cx, cX,
+    rows, its own pool of M (1024) with ``active`` (400) active random unit
+    cuts on 2,000 random k-subsets of its columns and a random state (phase
+    3's random_pool and random_state); ``singles``: each instance's (cx, cX,
     pool, its own cut index, state, dense rows in a tensor of their own)."""
     n, k, m = (GRID_BATCH_SHAPES if shapes is None else shapes)[label]
     rng = np.random.default_rng(SEED + 5)
@@ -4219,8 +4274,8 @@ def grid_batch_inputs(label: str, dev, shapes=None, B: int = GRID_BATCH):
             q = generate_qcqp(n, 30, m, s + 1)
             Q, c, dense = q.Q0, q.c0, dense_from_qcqp(q.Qs, q.cs, q.bs, dev)
         table = np.sort(np.stack([rng.choice(n, k, replace=False) for _ in range(2000)]), axis=1)
-        pool = random_pool(table, 1024, 400, rng, dev)
-        st = random_state(n, 1024, m, pool, rng, dev)
+        pool = random_pool(table, M, active, rng, dev)
+        st = random_state(n, M, m, pool, rng, dev)
         singles.append((torch.as_tensor(-c, **f32), torch.as_tensor(-0.5 * Q, **f32), pool,
                         build_cut_index(pool, n), st, dense))
     cxs, cXs, pools, _, sts, denses = zip(*singles)
@@ -4615,48 +4670,28 @@ def grid_batch_band(dev) -> tuple:
     25 dense rows K2's cluster does not hold at n = 200 (its plan takes 10),
     one clique table at k = 5 (the band graph's 5,876 candidates),
     sel_size 16, GRID_BAND_CFG's LP, GRID_BATCH_BAND_ROUNDS per-round steps
-    on the card, twice bit for bit; the first GRID_BATCH_BAND_CPU_ROUNDS
-    certificates within GRID_RTOL of the CPU port's batched round; K4 once an
-    instance a round and the launches of grid_launch_checks.  Returns
-    (launch counts, checks)."""
+    on the card, twice bit for bit (band_batch_run); the first
+    GRID_BATCH_BAND_CPU_ROUNDS certificates are held within GRID_RTOL of the
+    CPU port's batched round at the end of the run (host_reference_checks,
+    the CPU round in the host references); K4 once an instance a round and
+    the launches of grid_launch_checks.  Returns (launch counts, checks)."""
     n, bw, m = GRID_BATCH_BAND
-    fam = [generate_qcqp_band(n, bw, m, s) for s in range(1, GRID_BATCH + 1)]
-    B, R_ = len(fam), GRID_BATCH_BAND_ROUNDS
-    cliques, _ = chordal_decomposition(n, fam[0].sparsity_graph())
+    B, R_ = GRID_BATCH, GRID_BATCH_BAND_ROUNDS
+    cliques, _ = chordal_decomposition(n, generate_qcqp_band(n, bw, m, 1).sparsity_graph())
     table_np = clique_candidates(cliques, 5)
-    mesh = make_mesh(1, 1)
-    cfg = GRID_BAND_CFG
-    step = make_sharded_round_step(mesh, cfg, kmax=5, m_dense=m)
     why = plan_refusal(n, 1024, 5, m)
-
-    def run(device, rounds):
-        dense = batched_dense_from_qcqp(fam, device)
-        table, valid = shard_candidates(table_np, mesh, device=device)
-        state = init_batched_state(np.stack([i.Q0 for i in fam]), np.stack([i.c0 for i in fam]),
-                                   1024, 5, m_dense=m, device=device)
-        certs, best, blocks = [], [], 0
-        for _ in range(rounds):
-            state, info = step(state, table, valid, dense)
-            certs.append(certify_batched_f64(state, dense))
-            best.append(state.best_bound.cpu().numpy())
-            blocks += int(info["lp_iters"].max()) // 100
-        return state, np.stack(certs), np.stack(best), blocks
-
     reset_launches()
     t0 = time.perf_counter()
-    state, certs, best, blocks = run(dev, R_)
+    state, certs, best, blocks = band_batch_run(dev, R_)
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    again = run(dev, R_)
+    again = band_batch_run(dev, R_)
     repeat = batched_states_equal(state, again[0]) and np.array_equal(certs, again[1])
-    t0 = time.perf_counter()
-    cpu = run(torch.device("cpu"), GRID_BATCH_BAND_CPU_ROUNDS)[1]
-    cpu_s = time.perf_counter() - t0
-    rel = np.abs(certs[:GRID_BATCH_BAND_CPU_ROUNDS] - cpu) / np.abs(cpu)
+    HUGE_RESULTS["band batch"] = certs[:GRID_BATCH_BAND_CPU_ROUNDS].tolist()
     log(f"[grid batch band] {B} x generate_qcqp_band({n}, {bw}, {m}, s), {table_np.shape[0]} "
         f"clique candidates at k = 5; K2's cluster: {why}; certificates by round "
-        f"{certs.tolist()}, on the CPU {cpu.tolist()} ({cpu_s:.1f} s): largest rel diff "
-        f"{float(rel.max())!r} (rtol {GRID_RTOL}); {R_} rounds with the certificates in "
+        f"{certs.tolist()} (the CPU port's first {GRID_BATCH_BAND_CPU_ROUNDS} in the host "
+        f"references, compared at the end of the run); {R_} rounds with the certificates in "
         f"{wall:.3f} s = {B * R_ / wall!r} instance-rounds/s ({SMI})")
     return launches, {
         f"{R_} rounds ran": len(certs) == R_,
@@ -4664,9 +4699,30 @@ def grid_batch_band(dev) -> tuple:
         "a second run repeats every round bit for bit": repeat,
         "certificates finite": bool(np.isfinite(certs).all()),
         "running bounds monotone": bool((np.diff(best, axis=0) <= 0).all()),
-        f"within rtol {GRID_RTOL} of the CPU port": bool((rel <= GRID_RTOL).all()),
         **grid_launch_checks("grid batch band", launches, blocks, R_, "fused_score", B * R_),
     }
+
+
+def band_batch_run(device, rounds: int):
+    """grid_batch_band's rounds on ``device``: (the batched state, each
+    round's certificates (rounds, B), the running bounds, the blocks of the
+    longest solve).  The host references run its CPU round."""
+    n, bw, m = GRID_BATCH_BAND
+    fam = [generate_qcqp_band(n, bw, m, s) for s in range(1, GRID_BATCH + 1)]
+    cliques, _ = chordal_decomposition(n, fam[0].sparsity_graph())
+    mesh = make_mesh(1, 1)
+    step = make_sharded_round_step(mesh, GRID_BAND_CFG, kmax=5, m_dense=m)
+    dense = batched_dense_from_qcqp(fam, device)
+    table, valid = shard_candidates(clique_candidates(cliques, 5), mesh, device=device)
+    state = init_batched_state(np.stack([i.Q0 for i in fam]), np.stack([i.c0 for i in fam]),
+                               1024, 5, m_dense=m, device=device)
+    certs, best, blocks = [], [], 0
+    for _ in range(rounds):
+        state, info = step(state, table, valid, dense)
+        certs.append(certify_batched_f64(state, dense))
+        best.append(state.best_bound.cpu().numpy())
+        blocks += int(info["lp_iters"].max()) // 100
+    return state, np.stack(certs), np.stack(best), blocks
 
 
 def grid_batch_cli() -> dict:
@@ -4950,52 +5006,70 @@ def huge_solve(dev) -> tuple:
 HOST_THREADS = 2                      # the host references' threads, beside the card's work
 
 
-def host_references(path: str) -> None:
-    """What phase 21 compares with that only the host computes, written to
-    ``path`` as JSON: the Burer-Monteiro lb of the certifier's instance
-    (generate_spar(HUGE_CERT_N, 100, 1)) and the CPU port's
-    HUGE_BAND_CPU_ROUNDS rounds of the band instance at GRID_BAND_CFG, each
-    with its seconds.  Minutes of host work at n = 600, so
-    ``--host-references PATH`` runs it in a process of its own from the end
-    of the build (References), and huge_references compares at the end of
-    the run."""
+def host_references(path: str, groups) -> None:
+    """What phases 20-22 compare with that only the host computes, written
+    to ``path`` as JSON, for the phase groups ``groups``: with "18-21" the
+    Burer-Monteiro lb of phase 21's certifier instance
+    (generate_spar(HUGE_CERT_N, 100, 1)), the CPU port's
+    HUGE_BAND_CPU_ROUNDS rounds of its band instance at GRID_BAND_CFG and
+    phase 20's band batch's first GRID_BATCH_BAND_CPU_ROUNDS (band_batch_run
+    on the CPU); with "22" the CPU port's round 0 of phase 22's solve
+    (bigpool_solve's configuration); each with its seconds.  Minutes of host
+    work, so ``--host-references PATH`` runs it in a process of its own from
+    the end of the build (References), and host_reference_checks compares
+    at the end of the run."""
     torch.set_num_threads(HOST_THREADS)
     out = {}
-    t0 = time.perf_counter()
-    inst = generate_spar(HUGE_CERT_N, 100, 1)
-    out["bm_lb"] = float(bm_feasible_point(inst.Q, inst.c)[2])
-    out["bm_seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hist = CutSolverQCQP(generate_qcqp_band(*HUGE_BAND), GRID_BAND_CFG, device="cpu").run(
-        rounds=HUGE_BAND_CPU_ROUNDS)
-    out["band_bounds"] = [h.bound for h in hist]
-    out["band_seconds"] = time.perf_counter() - t0
+    if "22" in groups:
+        t0 = time.perf_counter()
+        hist = CutSolver(generate_spar(*BIG_INSTANCE), big_config(), device="cpu").run(rounds=1)
+        out["big_round0"] = hist[0].bound
+        out["big_seconds"] = time.perf_counter() - t0
+    if "18-21" in groups:
+        t0 = time.perf_counter()
+        inst = generate_spar(HUGE_CERT_N, 100, 1)
+        out["bm_lb"] = float(bm_feasible_point(inst.Q, inst.c)[2])
+        out["bm_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hist = CutSolverQCQP(generate_qcqp_band(*HUGE_BAND), GRID_BAND_CFG, device="cpu").run(
+            rounds=HUGE_BAND_CPU_ROUNDS)
+        out["band_bounds"] = [h.bound for h in hist]
+        out["band_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["band_batch"] = band_batch_run(torch.device("cpu"),
+                                           GRID_BATCH_BAND_CPU_ROUNDS)[1].tolist()
+        out["band_batch_seconds"] = time.perf_counter() - t0
     with open(path, "w") as f:
         json.dump(out, f)
 
 
 class References:
-    """host_references in a subprocess, started at once: ``get()`` waits for
-    it (at most REFERENCE_TIMEOUT seconds from the start) and returns its
-    record; ``stop()`` ends it if it still runs."""
+    """host_references for the phase groups ``groups`` in a subprocess,
+    started at once: ``get()`` waits for it (at most REFERENCE_TIMEOUT
+    seconds from the start) and returns its record; ``stop()`` ends it if it
+    still runs.  Its output goes to a file, so that it never waits on a full
+    pipe."""
 
-    def __init__(self, tmp: str):
+    def __init__(self, tmp: str, groups):
         self.path = os.path.join(tmp, "host_references.json")
+        self.log = open(os.path.join(tmp, "host_references.log"), "w+")
         threads = str(HOST_THREADS)
         env = {**os.environ, "OMP_NUM_THREADS": threads, "OPENBLAS_NUM_THREADS": threads,
                "MKL_NUM_THREADS": threads}
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--host-references", self.path],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [sys.executable, os.path.abspath(__file__), "--host-references", self.path,
+             "--phases", ",".join(groups)],
+            cwd=REPO, env=env, stdout=self.log, stderr=subprocess.STDOUT, text=True)
         self.record = None
 
     def get(self) -> dict:
         if self.record is None:
             left = REFERENCE_TIMEOUT - (time.perf_counter() - self.t0)
-            text, _ = self.proc.communicate(timeout=max(left, 1.0))
+            self.proc.wait(timeout=max(left, 1.0))
             if self.proc.returncode:
-                raise AssertionError(f"the host references failed: {text[-2000:]}")
+                self.log.seek(0)
+                raise AssertionError(f"the host references failed: {self.log.read()[-2000:]}")
             with open(self.path) as f:
                 self.record = json.load(f)
             log(f"[huge] the host references ({time.perf_counter() - self.t0:.1f}s after their "
@@ -5005,7 +5079,8 @@ class References:
     def stop(self):
         if self.proc.poll() is None:
             self.proc.kill()
-            self.proc.communicate()
+            self.proc.wait()
+        self.log.close()
 
 
 # what phase 21's paths leave for huge_references: the band's certificates
@@ -5083,24 +5158,32 @@ def huge_certifier(dev) -> tuple:
 
 
 def huge_references(refs: References) -> dict:
-    """The end of phase 21, at the end of the run, once the host references
-    are in (``refs``): the band's first HUGE_BAND_CPU_ROUNDS certificates on
-    the card within GRID_RTOL of the CPU port's, and every certificate of
-    the certifier at n = 600 at least the Burer-Monteiro lb."""
+    """The end of phases 20 and 21, at the end of the run, once the host
+    references are in (``refs``): the band's first HUGE_BAND_CPU_ROUNDS
+    certificates on the card within GRID_RTOL of the CPU port's, every
+    certificate of the certifier at n = 600 at least the Burer-Monteiro lb,
+    and phase 20's band batch's first GRID_BATCH_BAND_CPU_ROUNDS
+    certificates within GRID_RTOL of the CPU port's batched round."""
     r = refs.get()
     gpu, cpu = HUGE_RESULTS["band"], r["band_bounds"]
     rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
     certs = np.array(HUGE_RESULTS["certificates"])
+    bgpu, bcpu = np.array(HUGE_RESULTS["band batch"]), np.array(r["band_batch"])
+    brel = np.abs(bgpu - bcpu) / np.abs(bcpu)
     log(f"[huge] the band's bounds on the card {gpu}, on the CPU {cpu} ({r['band_seconds']:.1f}s "
         f"there, in a process of its own): rel diff {rel} (rtol {GRID_RTOL}); the certifier's "
         f"certificates {certs.tolist()}, the Burer-Monteiro lb {r['bm_lb']!r} "
-        f"({r['bm_seconds']:.1f}s on the host)")
+        f"({r['bm_seconds']:.1f}s on the host); phase 20's band batch on the card "
+        f"{bgpu.tolist()}, on the CPU {bcpu.tolist()} ({r['band_batch_seconds']:.1f}s there): "
+        f"largest rel diff {float(brel.max())!r}")
     return {
         f"the CPU port ran the band's first {HUGE_BAND_CPU_ROUNDS} round(s)":
             len(cpu) == HUGE_BAND_CPU_ROUNDS,
         f"each within {GRID_RTOL} of the card's": max(rel) <= GRID_RTOL,
         f"every certificate of the certifier >= the BM lb {r['bm_lb']}":
             bool((certs >= r["bm_lb"]).all()),
+        f"the band batch within rtol {GRID_RTOL} of the CPU port":
+            bgpu.shape == bcpu.shape and bool((brel <= GRID_RTOL).all()),
     }
 
 
@@ -5125,6 +5208,272 @@ def huge_phase(dev) -> dict:
     return out
 
 
+# ---- phase 22: any pool and any number of dense rows (the grid route's far form) ----
+
+BIG_SHAPES = {                         # label: (n, M, k, active cuts, m)
+    "n=125 M=81920": (125, 81920, 3, 2000, 0),
+    "n=300 M=32768": (300, 32768, 3, 2000, 0),
+    "n=300 k=5 m=6000": (300, 1024, 5, 400, 6000),
+    "n=600 M=49152": (600, 49152, 3, 2000, 0),
+}
+BIG_CERTS = ((300, 7000), (64, 23000))  # the certifier's (n, m) past its shared layouts
+BIG_BATCH = 2                          # the walk at "n=300 M=32768"
+BIG_BATCH_SHAPE = "n=300 M=32768"
+BIG_HEAVY_REPS = 2                     # timed launches at the shapes that stream GBs of G
+BIG_INSTANCE = (300, 100, 1)           # generate_spar's arguments: the end-to-end solve
+BIG_CAPACITY = 81920
+BIG_ROUNDS = 2
+
+
+def device_rows(n: int, m: int, rng, dev, chunk: int = 256) -> DenseRows:
+    """m normalised rank-1 rows v v' >= 0 of random unit directions (the
+    seed rows' form, loop/sdp_bound.py::_seed_rows) made on the card in
+    float64 from one host draw, chunk by chunk, then rounded to float32:
+    GBs of G that the host would take minutes to build."""
+    V = rng.standard_normal((m, n + 1))
+    Vd = torch.as_tensor(V / np.linalg.norm(V, axis=1, keepdims=True), dtype=torch.float64,
+                         device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    G, g, h = torch.empty((m, n, n), **f32), torch.empty((m, n), **f32), torch.empty(m, **f32)
+    for s0 in range(0, m, chunk):
+        v0, U = Vd[s0:s0 + chunk, 0], Vd[s0:s0 + chunk, 1:]
+        Gm, gm, hm = U[:, :, None] * U[:, None, :], 2.0 * v0[:, None] * U, -(v0 ** 2)
+        nrm = torch.sqrt((Gm ** 2).sum((1, 2)) + (gm ** 2).sum(1)) + 1e-30
+        G[s0:s0 + chunk] = Gm / nrm[:, None, None]
+        g[s0:s0 + chunk] = gm / nrm[:, None]
+        h[s0:s0 + chunk] = hm / nrm
+    return DenseRows(G, g, h)
+
+
+def big_inputs(label: str, dev):
+    """(cx, cX, pool, index, state, dense) of a BIG_SHAPES shape:
+    generate_spar(n, 100, 1)'s objective, a pool of M with ``active`` random
+    unit cuts on random k-subsets of the columns and a random state (phase
+    3's random_pool and random_state), and m device_rows."""
+    n, M, k, active, m = BIG_SHAPES[label]
+    rng = np.random.default_rng(SEED + 7)
+    inst = generate_spar(n, 100, 1)
+    table = np.sort(np.stack([rng.choice(n, k, replace=False)
+                              for _ in range(max(2000, active))]), axis=1)
+    pool = random_pool(table, M, active, rng, dev)
+    st = random_state(n, M, m, pool, rng, dev)
+    dense = device_rows(n, m, rng, dev) if m else None
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.as_tensor(-inst.c, **f32), torch.as_tensor(-0.5 * inst.Q, **f32), pool,
+            build_cut_index(pool, n), st, dense)
+
+
+def big_cert_inputs(n: int, m: int, dev):
+    """dense_inputs' certifier LP at (n, m) with device_rows: (cx, cX, pool,
+    index, state, dense)."""
+    inst = generate_spar(n, 100, 1)
+    rng = np.random.default_rng(SEED + 8)
+    dense = device_rows(n, m, rng, dev)
+    pool = empty_pool(1, 1, dev)
+    st = random_state(n, 1, m, pool, rng, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    st.yD = torch.as_tensor(0.2 * rng.random(m) * (rng.random(m) < 0.3), **f32)
+    return (torch.as_tensor(-inst.c, **f32), torch.as_tensor(-0.5 * inst.Q, **f32), pool,
+            build_cut_index(pool, n), st, dense)
+
+
+def bigpool_kernels(dev) -> dict:
+    """Phase 22 (a): the far form's block, checked launch and norm at
+    BIG_SHAPES and, without cuts, at BIG_CERTS (the certifier's pool past
+    K7's rows and the shared layout's), each against its twin at phase 19's
+    tolerances, twice bit for bit, timed on the device beside its bound; the
+    walk at B = BIG_BATCH (each instance its single entry's bits); ptxas
+    without a spill or a stack.  Every shape must take the far form by
+    shape (route_refusal's route, no refusal).  Returns {kernel: {shape
+    label: numbers}}."""
+    out = {"pdhg_grid": {}, "pdhg_grid_check": {}, "pdhg_grid_norm": {}}
+    log(f"[big] ptxas: {grid_ptxas()}")
+    cases = [(label, lambda label=label: big_inputs(label, dev)) for label in BIG_SHAPES]
+    cases += [(f"certifier n={n} m={m}", lambda n=n, m=m: big_cert_inputs(n, m, dev))
+              for n, m in BIG_CERTS]
+    for label, make in cases:
+        t0 = time.perf_counter()
+        inputs = make()
+        cx, _, pool, _, _, dense = inputs
+        n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
+        route = pdhg_kernel.route_refusal(n, M, k, m)
+        far = pdhg_grid._form(n, M, k, m)[0]
+        log(f"[big {label}] route {route}, the far form: {far}; K7 takes it: "
+            f"{pdhg_dense.k7_takes(n, m) if (M, k) == (1, 1) else None}; "
+            f"{nbytes(*([] if dense is None else [dense.G]))} bytes of G; made in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if route[1] is not None or not far:
+            raise AssertionError(f"{label} is not the far form's, or is refused: {route}")
+        reps = BIG_HEAVY_REPS if m > 2048 else 10
+        out["pdhg_grid"][label] = check_grid_block(label, inputs, reps)
+        out["pdhg_grid_check"][label] = check_grid_check(label, inputs, reps)
+        out["pdhg_grid_norm"][label] = check_grid_norm(label, inputs, min(reps, 5))
+        del inputs, dense
+        log(f"[big {label}] checked in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    n, M, k, active, m = BIG_SHAPES[BIG_BATCH_SHAPE]
+    inputs = grid_batch_inputs(BIG_BATCH_SHAPE, dev, {BIG_BATCH_SHAPE: (n, k, m)}, BIG_BATCH,
+                               M, active)
+    label = f"batched {BIG_BATCH_SHAPE}"
+    out["pdhg_grid"][label] = check_grid_block_batched(BIG_BATCH_SHAPE, inputs)
+    out["pdhg_grid_check"][label] = check_grid_check_batched(BIG_BATCH_SHAPE, inputs)
+    out["pdhg_grid_norm"][label] = check_grid_norm_batched(BIG_BATCH_SHAPE, inputs)
+    log(f"[big batch {BIG_BATCH_SHAPE}] B = {BIG_BATCH} checked in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def far_against_shared(dev) -> dict:
+    """Phase 22 (b): the far form forced (the wrappers' private ``_far``) at
+    phase 19's shapes n = 512 (M = 1024, 400 active) and n = 200 with k = 5
+    and 25 dense rows, which the shared form takes: the block (7 and 100
+    iterations), the checked launch (restart periods 10^9 and 100) and the
+    norm give the shared form's bits; the 100-iteration block of each form
+    timed on the device in turns (shared, far, far, shared).  Returns
+    {label: (shared ms, far ms)}."""
+    out = {}
+    for label in ("n=512 m=0", "n=200 k=5 m=25"):
+        cx, cX, pool, index, st, dense = grid_inputs(label, dev)
+        n, (M, k) = cx.shape[0], pool.idx.shape
+        m = 0 if dense is None else dense.m
+        if pdhg_grid._form(n, M, k, m)[0]:
+            raise AssertionError(f"{label} is not the shared form's shape")
+        eta = 0.95 / estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index,
+                                         dense).item()
+        zero = st.map(torch.zeros_like)
+        same = {}
+        for iters in (7, 100):
+            a = pdhg_grid_block(cx, cX, pool, index, st, zero, eta, eta, iters, dense)
+            b = pdhg_grid_block(cx, cX, pool, index, st, zero, eta, eta, iters, dense, _far=True)
+            same[f"block {iters}"] = states_equal(list(a), list(b))
+        normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
+        for rp in (10 ** 9, 100):
+            bufs = {}
+            for far in (None, True):
+                bufs[far] = [st.map(torch.clone), st.map(torch.zeros_like), st.map(torch.clone),
+                             new_record(normK, 1.0, 0.95, CHECK_ARGS["max_iters"],
+                                        CHECK_ARGS["tol"], cx.device)]
+                pdhg_grid_block_checked(cx, cX, pool, index, *bufs[far],
+                                        CHECK_ARGS["check_every"], rp, CHECK_ARGS["max_iters"],
+                                        CHECK_ARGS["tol"], dense, _far=far)
+            same[f"checked rp={rp}"] = (states_equal(bufs[None][:3], bufs[True][:3])
+                                        and torch.equal(bufs[None][3], bufs[True][3]))
+        norms = [pdhg_grid_norm(pool, n, 30, torch.Generator().manual_seed(0), index, dense,
+                                _far=far) for far in (None, True)]
+        same["norm"] = torch.equal(*norms)
+        rec = pdhg_kernel.steps_record([eta], [eta], cx.device)[0]
+        ip = [st.map(torch.clone), zero.map(torch.clone)]
+        t_sh, t_far = [], []
+        for runs, far in ((t_sh, None), (t_far, True), (t_far, True), (t_sh, None)):
+            runs.append(queued_ms(lambda far=far: pdhg_grid_block_steps(
+                cx, cX, pool, index, *ip, rec, 100, dense, _far=far), reps=10))
+        sh, fa = sum(t_sh) / 2, sum(t_far) / 2
+        log(f"[big far/shared {label}] the far form forced against the shared form, bit for "
+            f"bit: {same}; 100 iterations on the device (queued events, in turns) shared "
+            f"{t_sh!r} ms, far {t_far!r} ms: far / shared {fa / sh:.4f} ({SMI})")
+        if not all(same.values()):
+            raise AssertionError(f"the far form does not give the shared form's bits ({label})")
+        out[label] = {"shared_ms": sh, "far_ms": fa, "ratio": fa / sh}
+    return out
+
+
+def bigpool_solve(dev) -> tuple:
+    """Phase 22 (c): CutSolver on generate_spar(300, 100, 1) with the
+    defaults but CutConfig(capacity=81920) and "auto", BIG_ROUNDS rounds
+    twice, bit for bit: K1 and the grid route's far form (the pool takes it
+    by shape) alone, no K2, no plain block, twin check or norm; every
+    certificate at least a feasible point's objective; rounds/s and the
+    synchronised stage split.  Round 0 is held to the CPU port's in the host
+    references at the end of the run (big_references).  Returns (launch
+    counts, checks)."""
+    from sdpcutsel_tpu_torch.profile_round import STAGES, stage_split
+
+    inst = generate_spar(*BIG_INSTANCE)
+    cfg = big_config()
+    far = pdhg_grid._form(inst.n, BIG_CAPACITY, cfg.cuts.k, 0)[0]
+    solver = CutSolver(inst, cfg, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=BIG_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    floor = feasible_objective(inst, solver.state.x.cpu().numpy())
+    for h in hist:
+        log(f"[big {inst.name}] round {h.round}: bound {h.bound!r} certificate "
+            f"{h.certificate!r} cuts_added {h.cuts_added} active {h.cuts_active} lp_iters "
+            f"{h.lp_iters} kkt {h.lp_kkt_error:.3e} wall {h.wall_time_s:.3f}s")
+    del solver
+    again = CutSolver(inst, cfg, device=dev).run(rounds=BIG_ROUNDS)
+    certs = np.array([h.certificate for h in hist])
+    bounds = np.array([h.bound for h in hist])
+    BIG_RESULTS["round0"] = hist[0].bound
+    log(f"[big {inst.name}] capacity {BIG_CAPACITY}, the far form: {far}; {len(hist)} rounds in "
+        f"{wall:.3f}s = {len(hist) / wall!r} rounds/s ({sum(h.lp_iters for h in hist)} LP "
+        f"iterations); launches {launches}; a feasible point's f {floor!r} ({SMI})")
+    stages = [*STAGES, (pdhg_grid, "_checked_launcher", "  grid checked step's set-up")]
+    split_wall, split = stage_split((inst, CutSolver, cfg, BIG_ROUNDS), dev, BIG_ROUNDS, stages)
+    for label, (sec, calls) in split.items():
+        if calls:
+            log(f"[big {inst.name}] split: {label} {sec:.4f}s ({sec / split_wall:.2%} of the "
+                f"synchronised run's {split_wall:.4f}s), {calls} calls")
+    return launches, {
+        f"{BIG_ROUNDS} rounds ran": len(hist) == BIG_ROUNDS,
+        "the pool takes the far form": far,
+        "K1 launched, K2 not": launches["pair_score"] > 0 and launches["pdhg_block"] == 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= a feasible point's f {floor}": bool((certs >= floor).all()),
+        "bounds are the running minimum of the certificates":
+            bool((bounds == np.minimum.accumulate(certs)).all()),
+        "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+        **dense_route_checks(f"big {inst.name}", launches, GRID_NAMES),
+    }
+
+
+def big_config() -> RunConfig:
+    """Phase 22's solve: CutSolver's defaults but a pool of BIG_CAPACITY."""
+    return RunConfig(cuts=CutConfig(capacity=BIG_CAPACITY))
+
+
+# what phase 22 leaves for big_references: round 0's bound on the card
+BIG_RESULTS = {}
+
+
+def big_references(refs: "References") -> dict:
+    """The end of phase 22, once the host references are in: round 0 of the
+    end-to-end solve on the card within GRID_RTOL of the CPU port's."""
+    r = refs.get()
+    gpu, cpu = BIG_RESULTS["round0"], r["big_round0"]
+    rel = abs(gpu - cpu) / abs(cpu)
+    log(f"[big] round 0 at capacity {BIG_CAPACITY}: on the card {gpu!r}, on the CPU {cpu!r} "
+        f"({r['big_seconds']:.1f}s there, in a process of its own): rel diff {rel:.3e} "
+        f"(rtol {GRID_RTOL})")
+    return {f"round 0 within {GRID_RTOL} of the CPU port's": rel <= GRID_RTOL}
+
+
+def bigpool_phase(dev) -> dict:
+    """Phase 22: the far form's kernels against their twins
+    (bigpool_kernels), against the shared form (far_against_shared), and
+    the end-to-end solve at capacity 81,920 (bigpool_solve), its launches
+    into PATH_LAUNCHES and into the grid entries; big_references ends it at
+    the end of the run.  Returns bigpool_kernels' numbers, with
+    far_against_shared's under "far/shared"."""
+    t0 = time.perf_counter()
+    out = bigpool_kernels(dev)
+    out["far/shared"] = far_against_shared(dev)
+    PATH_LAUNCHES["big boxqp capacity=81920"], checks = bigpool_solve(dev)
+    finish("big boxqp capacity=81920", checks)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[big] phase 22 took {out['seconds']:.1f}s ({SMI})")
+    return out
+
+
+GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22")   # the phase groups --phases selects
+
+
 def main(argv=None) -> int:
     global SMI
     import argparse
@@ -5135,10 +5484,16 @@ def main(argv=None) -> int:
                         "times K6, K7, K7c and K7n in turns with that build's, phase 20 the "
                         "single grid entries' bits at phase 19's shapes, and after phase 15 "
                         "the certifier's LP is timed in both trees in turns")
+    parser.add_argument("--phases", default=",".join(GROUPS),
+                        help=f"the phase groups to run, comma-separated, of {', '.join(GROUPS)} "
+                        f"(default: all; the kernels line needs all)")
     parser.add_argument("--host-references", metavar="PATH", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.host_references:                 # phase 21's host work, in a process of its own
-        host_references(args.host_references)
+    groups = [g for g in args.phases.split(",") if g]
+    if not groups or any(g not in GROUPS for g in groups):
+        parser.error(f"--phases takes groups of {', '.join(GROUPS)}, got {args.phases!r}")
+    if args.host_references:                 # phases 20-22's host work, in a process of its own
+        host_references(args.host_references, groups)
         return 0
     t_start = time.perf_counter()
     smi = SMI = environment()
@@ -5160,106 +5515,133 @@ def main(argv=None) -> int:
     unguarded = finish_variants()["unguarded"]
     log(f"[build] unguarded variant ready after {time.perf_counter() - t0:.2f}s")
     with tempfile.TemporaryDirectory() as tmp:
-        refs = References(tmp)
+        hosted = [g for g in groups if g in ("18-21", "22")]
+        refs = References(tmp, hosted) if hosted else None
         try:
-            return run_phases(args, dev, smi, t_start, unguarded, refs)
+            return run_phases(args, groups, dev, smi, t_start, unguarded, refs)
         finally:
-            refs.stop()
+            if refs is not None:
+                refs.stop()
 
 
-def run_phases(args, dev, smi: str, t_start: float, unguarded, refs) -> int:
-    """Every phase after the build, then the kernels line, the nvidia-smi
-    line and the last line; ``refs``: phase 21's host references."""
+def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> int:
+    """The phase groups ``groups`` after the build (every one by default),
+    then, when every group ran, the kernels line; the nvidia-smi line and
+    the last line; ``refs``: phases 20-22's host references."""
     inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
-    band = load_or_generate_qcqp(QCQP_INSTANCE)
-    small = parse_boxqp(os.path.join(DATA, "spar020-100-1.in"), name="spar020-100-1")
-    k1 = check_pair_score(inst, small, dev)
-    k3 = check_pair_packed(inst, dev)
-    band_dense = dense_from_qcqp(band.Qs, band.cs, band.bs, dev)
-    shapes = {f"{INSTANCE} m=0": (inst.Q, inst.c, combinations_table(inst.n, 3), None),
-              f"{QCQP_INSTANCE} m={band.m}": (band.Q0, band.c0, clique_table(band, 5),
-                                              band_dense)}
-    k2_box, k2 = (check_pdhg_block(label, *args, dev) for label, args in shapes.items())
-    bucket = [parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name) for name in SUITE_BUCKET]
-    k2_batched = check_pdhg_block_batched(bucket, k2_box, dev)
     pkg = parent_package(args.parent) if args.parent else None
-    k5s, k6s = [], []
-    for label, (Q, c, table, dense) in shapes.items():
-        inputs = pdhg_inputs(Q, c, table, dense, dev)
-        k5s.append(check_pdhg_check(label, inputs, dense, dev))
-        k6s.append(check_pdhg_norm(label, inputs, dense, dev, pkg))
-    control_batched = check_control_batched(bucket, dev, pkg)
-    dense_route = check_dense_route(dev, pkg)
-    k2["parent_bits"] = k5s[1]["parent_bits"] = None
     lib = None
-    if args.parent:
-        same5 = [checked_against_parent(pkg, label, pdhg_inputs(Q, c, table, dense_rows, dev),
-                                        dense_rows, dev)
-                 for label, (Q, c, table, dense_rows) in shapes.items()]
-        same5.append(checked_batched_against_parent(pkg, bucket, dev))
-        k5s[1]["parent_bits"] = all(same5)
-        if not all(same5):
-            raise AssertionError("the checked block does not give the parent build's bits on "
-                                 "phase 3's inputs")
-        lib = parent_k2(pkg, args.parent)
-        same = []
-        for label, (Q, c, table, dense) in shapes.items():
-            cx, cX, pool, index, st = pdhg_inputs(Q, c, table, dense, dev)
-            eta = 0.95 / estimate_norm_plain(pool, c.shape[0], 30,
-                                             torch.Generator().manual_seed(0), index,
-                                             dense).item()
-            for iters in (7, 100):
-                same.append(k2_against_parent(
-                    lib, label, (cx, cX, pool, index, st, st.map(torch.zeros_like), eta, eta),
-                    dense, iters))
-        k2["parent_bits"] = all(same)
-        if not all(same):
-            raise AssertionError("K2 does not give the parent build's bits on phase 3's inputs")
-    k4 = check_k4(inst, dev)
-    check_guard(inst, unguarded, dev)
 
     def mark(what: str):               # the run's clock after each group of phases
         log(f"[time] {what} done {time.perf_counter() - t_start:.1f}s into the run")
 
-    mark("phase 3")
-    check_small_instances(dev)
-    (PATH_LAUNCHES["wide boxqp spar150-100-1"],
-     PATH_LAUNCHES["grid boxqp n=300"]) = check_large_instance(dev)
-    mark("phase 4")
-    wide = wide_phase(dev, pkg, lib)
-    grid = grid_phase(dev)
-    batch = grid_batch_phase(dev, pkg)
-    huge = huge_phase(dev)
-    mark("phases 18-21")
-    PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
-    PATH_LAUNCHES["qcqp main"] = qcqp_main_path(dev)
-    PATH_LAUNCHES["boxqp packed scan"] = packed_scan_path(inst, dev)
-    PATH_LAUNCHES["qcqp steered scan"] = steered_qcqp_scan(dev)
-    PATH_LAUNCHES["boxqp resume"] = boxqp_resume(inst, main_hist, dev)
-    PATH_LAUNCHES.update(strategies(inst, dev))
-    PATH_LAUNCHES["batched suite bucket"] = suite_bucket_path(dev)
-    PATH_LAUNCHES["batched bench scan"] = bench_scan_path(dev)
-    PATH_LAUNCHES["batched qcqp family"] = qcqp_family_path(dev)
-    mark("phases 5-13")
-    PATH_LAUNCHES["certifiers and the CLI"] = certifiers_and_cli(dev)
-    if args.parent:
-        certifier_against_parent(args.parent, dev)
-    mark("phase 15")
-    PATH_LAUNCHES["training"] = training(main_hist, dev)
-    mark("phase 16")
-    PATH_LAUNCHES["multi-process (every rank)"] = multi_process(dev)
-    mark("phase 17")
-    finish("huge references", huge_references(refs))
+    if "3" in groups:
+        band = load_or_generate_qcqp(QCQP_INSTANCE)
+        small = parse_boxqp(os.path.join(DATA, "spar020-100-1.in"), name="spar020-100-1")
+        k1 = check_pair_score(inst, small, dev)
+        k3 = check_pair_packed(inst, dev)
+        band_dense = dense_from_qcqp(band.Qs, band.cs, band.bs, dev)
+        shapes = {f"{INSTANCE} m=0": (inst.Q, inst.c, combinations_table(inst.n, 3), None),
+                  f"{QCQP_INSTANCE} m={band.m}": (band.Q0, band.c0, clique_table(band, 5),
+                                                  band_dense)}
+        k2_box, k2 = (check_pdhg_block(label, *a, dev) for label, a in shapes.items())
+        bucket = [parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name)
+                  for name in SUITE_BUCKET]
+        k2_batched = check_pdhg_block_batched(bucket, k2_box, dev)
+        k5s, k6s = [], []
+        for label, (Q, c, table, dense) in shapes.items():
+            inputs = pdhg_inputs(Q, c, table, dense, dev)
+            k5s.append(check_pdhg_check(label, inputs, dense, dev))
+            k6s.append(check_pdhg_norm(label, inputs, dense, dev, pkg))
+        control_batched = check_control_batched(bucket, dev, pkg)
+        dense_route = check_dense_route(dev, pkg)
+        k2["parent_bits"] = k5s[1]["parent_bits"] = None
+        if args.parent:
+            same5 = [checked_against_parent(pkg, label,
+                                            pdhg_inputs(Q, c, table, dense_rows, dev),
+                                            dense_rows, dev)
+                     for label, (Q, c, table, dense_rows) in shapes.items()]
+            same5.append(checked_batched_against_parent(pkg, bucket, dev))
+            k5s[1]["parent_bits"] = all(same5)
+            if not all(same5):
+                raise AssertionError("the checked block does not give the parent build's bits "
+                                     "on phase 3's inputs")
+            lib = parent_k2(pkg, args.parent)
+            same = []
+            for label, (Q, c, table, dense) in shapes.items():
+                cx, cX, pool, index, st = pdhg_inputs(Q, c, table, dense, dev)
+                eta = 0.95 / estimate_norm_plain(pool, c.shape[0], 30,
+                                                 torch.Generator().manual_seed(0), index,
+                                                 dense).item()
+                for iters in (7, 100):
+                    same.append(k2_against_parent(
+                        lib, label, (cx, cX, pool, index, st, st.map(torch.zeros_like), eta,
+                                     eta), dense, iters))
+            k2["parent_bits"] = all(same)
+            if not all(same):
+                raise AssertionError("K2 does not give the parent build's bits on phase 3's "
+                                     "inputs")
+        k4 = check_k4(inst, dev)
+        check_guard(inst, unguarded, dev)
+        mark("phase 3")
+    if "4" in groups:
+        check_small_instances(dev)
+        (PATH_LAUNCHES["wide boxqp spar150-100-1"], PATH_LAUNCHES["grid boxqp n=300"],
+         PATH_LAUNCHES["grid boxqp spar150-100-1 capacity=81920"]) = check_large_instance(dev)
+        mark("phase 4")
+    if "18-21" in groups:
+        wide = wide_phase(dev, pkg, lib)
+        grid = grid_phase(dev)
+        batch = grid_batch_phase(dev, pkg)
+        huge = huge_phase(dev)
+        mark("phases 18-21")
+    if "22" in groups:
+        big = bigpool_phase(dev)
+        mark("phase 22")
+    main_hist = None
+    if "5-13" in groups:
+        PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
+        PATH_LAUNCHES["qcqp main"] = qcqp_main_path(dev)
+        PATH_LAUNCHES["boxqp packed scan"] = packed_scan_path(inst, dev)
+        PATH_LAUNCHES["qcqp steered scan"] = steered_qcqp_scan(dev)
+        PATH_LAUNCHES["boxqp resume"] = boxqp_resume(inst, main_hist, dev)
+        PATH_LAUNCHES.update(strategies(inst, dev))
+        PATH_LAUNCHES["batched suite bucket"] = suite_bucket_path(dev)
+        PATH_LAUNCHES["batched bench scan"] = bench_scan_path(dev)
+        PATH_LAUNCHES["batched qcqp family"] = qcqp_family_path(dev)
+        mark("phases 5-13")
+    if "15-17" in groups:
+        PATH_LAUNCHES["certifiers and the CLI"] = certifiers_and_cli(dev)
+        if args.parent:
+            certifier_against_parent(args.parent, dev)
+        mark("phase 15")
+        if main_hist is None:            # training compares with phase 5's final bound
+            PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
+        PATH_LAUNCHES["training"] = training(main_hist, dev)
+        mark("phase 16")
+        PATH_LAUNCHES["multi-process (every rank)"] = multi_process(dev)
+        mark("phase 17")
+    if "18-21" in groups:
+        finish("huge references", huge_references(refs))
+    if "22" in groups:
+        finish("big references", big_references(refs))
     seconds = time.perf_counter() - t_start
-    log(f"[done] all phases passed in {seconds:.1f}s, {seconds / 900:.1%} of a "
-        f"900 s budget")
+    log(f"[done] phases {', '.join(groups)} passed in {seconds:.1f}s, {seconds / 900:.1%} of "
+        f"a 900 s budget")
     for path, counts in PATH_LAUNCHES.items():
         log(f"[launches] {path}: {counts}")
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
     narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items()
-                        if not p.startswith(("wide", "grid", "huge"))) for name in WRAPPERS}
-    log(f"[launches] the paths at n <= 128 (every path but the wide, grid and huge ones): "
+                        if not p.startswith(("wide", "grid", "huge", "big"))) for name in WRAPPERS}
+    log(f"[launches] the paths at n <= 128 (every path but the wide, grid, huge and big ones): "
         f"{narrow}")
+    if set(groups) != set(GROUPS):
+        log(f"[done] the kernels line needs every phase group; these ran: {', '.join(groups)}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     kernels = [
         {"name": "pair_score", "route": "cuda",
@@ -5354,8 +5736,17 @@ def run_phases(args, dev, smi: str, t_start: float, unguarded, refs) -> int:
                 for entry, key, name in zip(kernels[-3:], ("pdhg_grid", "pdhg_grid_check",
                                                            "pdhg_grid_norm"),
                                             ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm"))]
+    # the far form (phase 22; the replicas and the slots in global memory):
+    # under the grid entries, every shape and the forced form at phase 19's
+    # shapes against the shared form, with its launches on phase 22's solve
+    for entry, key in zip(kernels[-6:-3], ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm")):
+        entry["far"] = big[key]
+        entry["far launches"] = PATH_LAUNCHES["big boxqp capacity=81920"][key]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   *(e["max_abs_err"] for e in big[key].values()))
+    kernels[-6]["far"]["against the shared form"] = big["far/shared"]
     log(f"[grid] phase 19: {grid['seconds']:.1f}s; phase 20: {batch['seconds']:.1f}s; phase 21: "
-        f"{huge['seconds']:.1f}s")
+        f"{huge['seconds']:.1f}s; phase 22: {big['seconds']:.1f}s")
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))

@@ -103,7 +103,7 @@ _SIGNATURES = {
                                *[_P] * 12,               # state and sums in
                                *[_P] * 12,               # state and sums out
                                _P, _P, _P,               # work, barrier, grid (out)
-                               _P],                      # stream
+                               _P, _I],                  # stream, far
     "pdhg_grid_block_checked_launch": [*[_I] * 8,       # n M k m check_every cols cuts smem
                                        _I, _I, _F,       # restart_period max_iters tol
                                        _P,               # records
@@ -112,15 +112,15 @@ _SIGNATURES = {
                                        _P, _P, _P, _P, _P, _P,  # xoff xcut xcoef Xoff Xcut Xcoef
                                        *[_P] * 18,       # state, sums, anchor (in place)
                                        _P, _P, _P,       # work, barrier, grid (out)
-                                       _P],              # stream
+                                       _P, _I],          # stream, far
     "pdhg_grid_norm_launch": [*[_I] * 8,                # n M k m iters cols cuts smem
                               _P, _P,                    # G, g
                               _P, _P, _P, _P,            # idx, lin, quad, act
                               _P, _P, _P, _P, _P, _P,    # xoff xcut xcoef Xoff Xcut Xcoef
                               _P, _P,                    # y, Y
                               _P, _P, _P, _P,            # work, barrier, out, grid (out)
-                              _P],                       # stream
-    "pdhg_grid_ctas": [*[_I] * 7, _P],                  # n M k m cols cuts smem, grid (out)
+                              _P, _I],                   # stream, far
+    "pdhg_grid_ctas": [*[_I] * 8, _P],                  # n M k m cols cuts smem far, grid (out)
     "pdhg_grid_block_batched_launch": [*[_I] * 9,       # n M k m iters cols cuts smem count
                                        _P, _P,           # ids, records
                                        _I, _I, _L, _L,   # strides ex eX sG sg
@@ -130,7 +130,7 @@ _SIGNATURES = {
                                        *[_P] * 12,       # state and sums in
                                        *[_P] * 12,       # state and sums out
                                        _P, _P, _P,       # work, barrier, grid (out)
-                                       _P],              # stream
+                                       _P, _I],          # stream, far
     "pdhg_grid_block_checked_batched_launch": [*[_I] * 9,  # n M k m check_every cols cuts smem B
                                                _I, _I, _F,  # restart_period max_iters tol
                                                _P,          # records
@@ -140,7 +140,7 @@ _SIGNATURES = {
                                                *[_P] * 6,   # xoff xcut xcoef Xoff Xcut Xcoef
                                                *[_P] * 18,  # state, sums, anchor (in place)
                                                _P, _P, _P,  # work, barrier, grid (out)
-                                               _P],         # stream
+                                               _P, _I],     # stream, far
     "pdhg_grid_norm_batched_launch": [*[_I] * 9,        # n M k m B iters cols cuts smem
                                       _I, _I, _L, _L,    # strides ex eX sG sg
                                       _P, _P,            # G, g
@@ -148,7 +148,7 @@ _SIGNATURES = {
                                       _P, _P, _P, _P, _P, _P,  # xoff xcut xcoef Xoff Xcut Xcoef
                                       _P, _P,            # y, Y
                                       _P, _P, _P, _P,    # work, barrier, out, grid (out)
-                                      _P],               # stream
+                                      _P, _I],           # stream, far
     # pdhg_norm.cu
     "pdhg_norm_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,  # n M k m B cluster ex eX iters
                          _P, _P, _P, _P,               # idx, lin, quad, act

@@ -22,14 +22,16 @@ reference runs this LP in XLA (its Pallas kernel refuses dense rows,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``): none has a Pallas counterpart.
 
 Shapes: n <= 1024, the certifier's pool (one slot of width 1, never filled:
-``dense_refusal``), m >= 0 up to what one CTA's shared memory holds of the
-rows' duals beside the grid plan's ring (``max_dense_rows``; ~22,800 at
-n = 125, ~6,800 for 256 < n <= 512, ~14,900 past n = 512).  The "grid"
-kernels come in K2's two column widths (``pdhg_kernel.columns``: 128 for
-n <= 128, 256 up to n = 256), which set the entries a CTA may own
-(``_MAX_E``, ``_MAX_E_WIDE``); past n = 256 the wrappers launch the grid
-route's kernels in their form without cuts at 512 and 1024 columns
-(``lp/pdhg_grid.py``, ``csrc/pdhg_grid.cu``), counted there.  The launch
+``dense_route_refusal``), any m >= 0.  K7 takes n <= 256 and m up to what
+one CTA's shared memory holds of the rows' duals beside the grid plan's
+ring (``k7_takes``, ``dense_refusal``, ``max_dense_rows``: ~22,800 at
+n = 125).  The "grid" kernels come in K2's two column widths
+(``pdhg_kernel.columns``: 128 for n <= 128, 256 up to n = 256), which set
+the entries a CTA may own (``_MAX_E``, ``_MAX_E_WIDE``); past n = 256, and
+past K7's rows at n <= 256, the wrappers launch the grid route's kernels
+in their form without cuts (``lp/pdhg_grid.py``, ``csrc/pdhg_grid.cu``),
+counted there: with the rows' duals in shared memory up to ~6,800 rows for
+256 < n <= 512 and ~14,900 past n = 512, in the far form past them.  The launch
 plan goes by shape (``block_plan``), the same for the block, its checked form and the
 norm: "cta", one CTA that holds G and g in
 its shared memory for the launch (the small sandwiches, n <= ``CTA_MAX_N``),
@@ -106,16 +108,34 @@ def block_plan(n: int, m: int) -> str:
     return "cta" if n <= CTA_MAX_N and 4 * _block_words("cta", n, m) <= SMEM_MAX else "grid"
 
 
-def smem_words(n: int, m: int) -> int:
+def _shared_words(n: int, m: int) -> int:
     """4-byte words of one CTA's shared memory for the dense route's kernels
-    at (n, m), the block, its checked form and the norm alike:
-    ``_block_words`` under ``block_plan``.  Only the "cta" plan's grows with
-    m n; the "grid" plan's is a CTA's whole shared memory up to ~22,800
-    rows.  Past n = 256: the grid route's layout without cuts
-    (``pdhg_grid.block_words``)."""
+    that keep the rows' duals there: K7's (``_block_words`` under
+    ``block_plan``) up to n = 256, the grid route's shared form without
+    cuts past it (``pdhg_grid.block_words``)."""
     if n > NMAX:
         return pdhg_grid.block_words(n, 1, m, False)
     return _block_words(block_plan(n, m), n, m)
+
+
+def k7_takes(n: int, m: int) -> bool:
+    """Whether K7 (this file's kernels) takes (n, m): n <= 256 and m rows
+    within its shared memory; elsewhere the wrappers launch the grid
+    route's form without cuts."""
+    return n <= NMAX and 4 * _shared_words(n, m) <= SMEM_MAX
+
+
+def smem_words(n: int, m: int) -> int:
+    """4-byte words of one CTA's shared memory for the dense route's kernels
+    at (n, m), the block, its checked form and the norm alike: K7's
+    (``_block_words`` under ``block_plan``: only the "cta" plan's grows with
+    m n, the "grid" plan's is a CTA's whole shared memory up to ~22,800
+    rows) where it takes the shape, else the grid route's layout without
+    cuts in the form it takes (``pdhg_grid.block_words``,
+    ``pdhg_grid.grid_form``)."""
+    if k7_takes(n, m):
+        return _shared_words(n, m)
+    return pdhg_grid.block_words(n, 1, m, False, pdhg_grid.grid_form(n, 1, m, False))
 
 
 def smem_bytes(n: int, m: int) -> int:
@@ -123,27 +143,40 @@ def smem_bytes(n: int, m: int) -> int:
 
 
 def max_dense_rows(n: int) -> int:
-    """The largest m the dense route's kernels take at n."""
+    """The largest m whose duals the dense route's kernels hold in shared
+    memory at n (K7's up to n = 256, the grid route's shared form past it);
+    more rows take the grid route's far form."""
     lo, hi = 0, 1 << 20
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if smem_bytes(n, mid) <= SMEM_MAX else (lo, mid - 1)
+        lo, hi = (mid, hi) if 4 * _shared_words(n, mid) <= SMEM_MAX else (lo, mid - 1)
     return lo
 
 
-def dense_refusal(n: int, M: int, k: int, m: int) -> str | None:
+def dense_route_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the dense route does not take n, a pool of capacity M and width
     k, and m dense rows, or None where it does: the certifier's pool (M = 1,
-    k = 1: no cut) and n <= 1024, with shared memory for m rows."""
+    k = 1: no cut) and n <= 1024, any m (past ``max_dense_rows`` the grid
+    route's far form without cuts)."""
     if (M, k) != (1, 1):
         return (f"the dense route takes the certifier's pool without cuts (capacity 1, "
                 f"width 1), got capacity {M}, width {k}")
     if not 1 <= n <= pdhg_grid.GRID_NMAX:
         return f"the dense route takes 1 <= n <= {pdhg_grid.GRID_NMAX}, got {n}"
-    if smem_bytes(n, m) > SMEM_MAX:
+    return None
+
+
+def dense_refusal(n: int, M: int, k: int, m: int) -> str | None:
+    """Why the dense route's kernels that hold the rows' duals in shared
+    memory (K7 up to n = 256, the grid route's shared form past it) do not
+    take n, a pool of capacity M and width k, and m dense rows, or None
+    where they do: ``dense_route_refusal``'s rule and shared memory for m
+    rows."""
+    why = dense_route_refusal(n, M, k, m)
+    if why is None and 4 * _shared_words(n, m) > SMEM_MAX:
         return (f"the dense route: m={m} dense rows exceed {SMEM_MAX} bytes of shared memory "
                 f"per CTA at n={n} (at most {max_dense_rows(n)})")
-    return None
+    return why
 
 
 def _dense_ptrs(dense: DenseRows | None, n: int, device):
@@ -162,6 +195,10 @@ def _dense_ptrs(dense: DenseRows | None, n: int, device):
     return m, [t.data_ptr() for t in (dense.G, dense.g, dense.h)]
 
 
+def _rows(dense: DenseRows | None) -> int:
+    return 0 if dense is None else dense.G.shape[0]
+
+
 def _fields(st: PDHGState):
     """The five fields the kernels read and write (yC is left as it is)."""
     return [st.x, st.X, st.yA, st.yB, st.yD]
@@ -174,6 +211,8 @@ def _checked(cx, cX, pool: CutPool, states, dense: DenseRows | None, name: str):
     dev = cx.device
     m, dptr = _dense_ptrs(dense, n, dev)
     why = dense_refusal(n, M, k, m)
+    if why is None and not k7_takes(n, m):
+        why = f"K7 takes n <= {NMAX}, got n={n}"
     if why is not None:
         raise ValueError(f"{name}: {why}")
     shapes = {"cx": (cx, (n,)), "cX": (cX, (n, n)),
@@ -275,7 +314,7 @@ def pdhg_dense_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc:
     holds no cut) and passed on to the twin."""
     if cx.device.type == "cpu":
         return pdhg_block_plain(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
-    if cx.device.type == "cuda" and cx.shape[0] > NMAX:
+    if cx.device.type == "cuda" and not k7_takes(cx.shape[0], _rows(dense)):
         return pdhg_grid.pdhg_grid_block(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
     if cx.device.type == "cuda":
         ins = [st.map(lambda t: t.contiguous()), acc.map(lambda t: t.contiguous())]
@@ -299,7 +338,7 @@ def pdhg_dense_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState
     in ``pdhg_dense_block.launches``."""
     if cx.device.type == "cpu":
         pdhg_block_steps_plain(cx, cX, pool, index, st, acc, rec, iters, dense)
-    elif cx.device.type == "cuda" and cx.shape[0] > NMAX:
+    elif cx.device.type == "cuda" and not k7_takes(cx.shape[0], _rows(dense)):
         pdhg_grid.pdhg_grid_block_steps(cx, cX, pool, index, st, acc, rec, iters, dense)
     elif cx.device.type == "cuda":
         check_record(rec[None], 1, cx.device, "pdhg_dense_block")
@@ -360,7 +399,7 @@ def dense_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, ac
         return step
     if cx.device.type != "cuda":
         raise ValueError(f"pdhg_dense_block_checked: no kernel for device {cx.device}")
-    if cx.shape[0] > NMAX:
+    if not k7_takes(cx.shape[0], _rows(dense)):
         return pdhg_grid.grid_checked_step(cx, cX, pool, index, st, acc, anchor, rec,
                                            check_every, restart_period, max_iters, tol, dense)
     return _checked_launcher(cx.contiguous(), cX.contiguous(), pool, st, acc, anchor, rec,
@@ -393,7 +432,7 @@ def pdhg_dense_norm(pool: CutPool, n: int, iters: int, generator: torch.Generato
         return estimate_norm_plain(pool, n, iters, generator, index, dense)
     if dev.type != "cuda":
         raise ValueError(f"pdhg_dense_norm: no kernel for device {dev}")
-    if n > NMAX:
+    if not k7_takes(n, _rows(dense)):
         return pdhg_grid.pdhg_grid_norm(pool, n, iters, generator, index, dense)
     return _launch_norm(pool, n, iters, generator, dense)
 

@@ -1,9 +1,10 @@
-"""Wrappers of the grid route's kernels (``csrc/pdhg_grid.cu``): the PDHG
-solve over a cooperative grid of one CTA an SM, for the shapes K2's cluster
-(``lp/pdhg_kernel.py``) does not hold in its shared memory: n up to 1024,
-pools larger than K2's bands leave room for, and a QCQP's dense rows past
-the few K2 holds at n > 128.  One instance, or a batch of one shape whose
-instances one launch walks one after another, each over the whole grid.
+"""Wrappers of the grid route's kernels (``csrc/pdhg_grid.cu``, templates in
+``csrc/pdhg_grid.cuh``): the PDHG solve over a cooperative grid of one CTA
+an SM, for the shapes K2's cluster (``lp/pdhg_kernel.py``) does not hold in
+its shared memory: n up to 1024, any pool larger than K2's bands leave room
+for, and any number of a QCQP's dense rows past the few K2 holds at n > 128.
+One instance, or a batch of one shape whose instances one launch walks one
+after another, each over the whole grid.
 
 - ``pdhg_grid_block`` / ``pdhg_grid_block_steps``: ``iters`` iterations of
   ``lp/pdhg.py::_one_iter`` with the ergodic sums, with host steps (the
@@ -35,8 +36,8 @@ two forms: a pool of cuts (k = 2..5, with its cut index) at the column
 widths 128, 256, 512 and 1024 (``pdhg_kernel.columns``), and the
 certifier's pool without cuts at 512 and 1024 columns, which the dense
 route (``lp/pdhg_dense.py``) takes past n = 256 (one instance).
-``grid_refusal`` says where the route does not take a shape.  The
-reference runs these shapes in XLA (its
+``grid_refusal`` says where the route does not take a shape (n outside
+1..1024, k outside 2..5).  The reference runs these shapes in XLA (its
 Pallas kernel takes n <= 128, a pool of at most 1024 slots and no dense row,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``).
 
@@ -45,9 +46,14 @@ and the dense rows' duals in a CTA's shared memory and gives the rest to the
 dense rows' owned segments, resident for the launch where they fit and
 streamed otherwise; at 1024 columns the owned entries' state stays in
 global memory (the outputs, updated in place, and the scratch), since a
-CTA owns up to ~7,950 entries there.  The grid is every CTA the card
-co-schedules (``grid_ctas``), whose global scratch ``work_words`` and
-``norm_work_words`` give; the solve's step allocates it once a solve.
+CTA owns up to ~7,950 entries there.  Where the replicas of the weights
+and of the duals do not fit beside the rest (``grid_form``), or a CTA would
+own more than 512 slots, the kernels' far form takes the shape: no
+replica, the passes reading yD and the weights from global memory, each
+CTA's slots in place in the outputs; it keeps every sum's order, so a shape
+that fits either form gives the same bits in both.  The grid is every CTA
+the card co-schedules (``grid_ctas``), whose global scratch ``work_words``
+and ``norm_work_words`` give; the solve's step allocates it once a solve.
 
 Device rule: CPU tensors take the twins; CUDA tensors launch the kernel; any
 other device raises.  ``pdhg_grid_block.launches`` counts the block launches
@@ -75,6 +81,7 @@ from .pdhg_kernel import (_ERRORS, NMAX, SMEM_MAX, _checked_args, check_record, 
                           pdhg_block_steps_batched_plain, pdhg_block_steps_plain, steps_record)
 
 GRID_NMAX = 1024            # csrc/pdhg_common.cuh kHuge: the largest n the route takes
+_THREADS = 512              # csrc/pdhg_common.cuh kThreads: a CTA's slots in the shared form
 # csrc/pdhg_grid.cu GridForm<Cols>: (kMaxE, kChunks, kScratch, kStages, kState) by column width
 FORMS = {128: (496, 1, 2048, 4, 8), 256: (500, 1, 2048, 4, 8), 512: (2036, 4, 8192, 3, 8),
          1024: (8180, 1, 2048, 4, 0)}
@@ -90,36 +97,39 @@ def max_entries(n: int) -> int:
     return FORMS[columns(n)][0]
 
 
-def block_words(n: int, M: int, m: int, cuts: bool) -> int:
+def block_words(n: int, M: int, m: int, cuts: bool, far: bool = False) -> int:
     """4-byte words of one CTA's shared memory for the block, its checked
     form and the norm at (n, pool capacity M, m dense rows): the sum of
-    ``csrc/pdhg_grid.cu``'s ``grid_layout`` at n's column width (the
+    ``csrc/pdhg_grid.cuh``'s ``grid_layout`` at n's column width (the
     CTA's slices, the scratch, the slab of the dense rows' owned segments, which takes what
     the rest leaves and at least the ring, none without dense rows; the
-    replicas of yD and, with cuts, of the pool's weights; the owned
-    entries' buffer and their eight state arrays, none at 1024 columns,
-    where the state lives in global memory)."""
+    replicas of yD and, with cuts, of the pool's weights, none in the far
+    form; the owned entries' buffer and their eight state arrays, none at
+    1024 columns, where the state lives in global memory)."""
     kmax, _, scratch, stages, state = FORMS[columns(n)]
-    rest = _META + scratch + m + (M if cuts else 0) + (1 + state) * kmax
+    replicas = 0 if far else m + (M if cuts else 0)
+    rest = _META + scratch + replicas + (1 + state) * kmax
     free4 = (_SMEM_WORDS - rest) & ~3
     slab = max(free4, stages * _STAGE) if m > 0 else 0
-    return _META + scratch + slab + m + (M if cuts else 0) + kmax + state * kmax
+    return _META + scratch + slab + replicas + kmax + state * kmax
 
 
-def work_words(n: int, m: int, M: int, P: int, cuts: bool, checked: bool) -> int:
+def work_words(n: int, m: int, M: int, P: int, cuts: bool, checked: bool,
+               far: bool = False) -> int:
     """Floats of the block's global scratch on a grid of P CTAs:
-    ``csrc/pdhg_grid.cu``'s ``work_words`` (S, xb, the dense rows' partials;
+    ``csrc/pdhg_grid.cuh``'s ``work_words`` (S, xb, the dense rows' partials;
     with cuts Xb and the weights; the checked form's M at the average, the
-    average's partials, each CTA's sums and distances; the barrier's
-    counter last)."""
+    average's partials, each CTA's sums and distances, in the far form with
+    cuts the average's weights; the barrier's counter last)."""
     NN, Pm = n * n, P * m
     return (NN + n + Pm + ((NN + M) if cuts else 0)
-            + ((NN + Pm + P * (2 * _NS + _ND)) if checked else 0) + 1)
+            + ((NN + Pm + P * (2 * _NS + _ND)) if checked else 0)
+            + (M if checked and far and cuts else 0) + 1)
 
 
 def norm_work_words(n: int, m: int, M: int, P: int, cuts: bool) -> int:
     """Floats of the norm's global scratch on a grid of P CTAs:
-    ``csrc/pdhg_grid.cu``'s ``norm_work_words`` (the iterate Y and y, gX, the
+    ``csrc/pdhg_grid.cuh``'s ``norm_work_words`` (the iterate Y and y, gX, the
     dense rows' partials, kD, with cuts the weights, each CTA's five sums;
     the barrier's counter last)."""
     return 2 * n * n + n + P * m + m + (M if cuts else 0) + 5 * P + 1
@@ -127,17 +137,24 @@ def norm_work_words(n: int, m: int, M: int, P: int, cuts: bool) -> int:
 
 def grid_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the grid route does not take n, a pool of capacity M and width k,
-    and m dense rows, or None where it does: 1 <= n <= 1024, k = 2..5, and
-    a CTA's shared memory for the owned entries' state (up to n = 512), the
-    pool's weights (M) and the dense rows' duals (m) beside the ring."""
+    and m dense rows, or None where it does: 1 <= n <= 1024 and k = 2..5,
+    any M >= 1 and m >= 0 (the far form takes what the shared layout does
+    not hold)."""
     if not 1 <= n <= GRID_NMAX:
         return f"the grid route takes 1 <= n <= {GRID_NMAX}, got {n}"
     if not 2 <= k <= 5:
         return f"the grid route takes cuts of width k = 2..5, got {k}"
-    if 4 * block_words(n, M, m, True) > SMEM_MAX:
-        return (f"the grid route: n={n}, M={M}, m={m} exceed {SMEM_MAX} bytes of shared "
-                f"memory per CTA (the pool's weights and the dense rows' duals)")
     return None
+
+
+def grid_form(n: int, M: int, m: int, cuts: bool) -> bool:
+    """Whether the grid route takes (n, M, m) in its far form (True) by
+    shape: where the shared layout's replicas of the weights and of yD do
+    not fit a CTA beside the rest (``block_words``), and for the
+    certifier's pool at n <= 256, which the route takes only past K7's rows.
+    The launch also takes the far form where a CTA of the card's grid would
+    own more than 512 slots (``_form``)."""
+    return (not cuts and n <= NMAX) or 4 * block_words(n, M, m, cuts) > SMEM_MAX
 
 
 def _args(cx, cX, pool: CutPool, index: CutIndex, states, dense: DenseRows | None, name: str):
@@ -148,11 +165,12 @@ def _args(cx, cX, pool: CutPool, index: CutIndex, states, dense: DenseRows | Non
     if cuts:
         why = grid_refusal(n, M, k, m)
     else:
-        from .pdhg_dense import dense_refusal
+        from .pdhg_dense import dense_route_refusal, k7_takes
 
-        why = dense_refusal(n, M, k, m)
-        if why is None and n <= NMAX:
-            why = f"the grid route takes the certifier's pool past n = 256, got n={n}"
+        why = dense_route_refusal(n, M, k, m)
+        if why is None and k7_takes(n, m):
+            why = (f"the grid route takes the certifier's pool past n = 256 or past K7's "
+                   f"rows, got n={n}, m={m}")
     if why is not None:
         raise ValueError(f"{name}: {why}")
     _checked_args(cx[None], cX[None], batch_of_one(pool), batch_of_one(index),
@@ -168,19 +186,40 @@ def _args(cx, cX, pool: CutPool, index: CutIndex, states, dense: DenseRows | Non
     return n, M, k, m, cuts, problem, d
 
 
-def grid_ctas(n: int, M: int, k: int, m: int) -> int:
+def grid_ctas(n: int, M: int, k: int, m: int, far: bool | None = None) -> int:
     """The CTAs of the route's grid at (n, M, k, m) on the current card (the
-    certifier's pool: M = k = 1): those it co-schedules at the layout's
+    certifier's pool: M = k = 1), in the far form or not (None: the form
+    the launch takes, ``_form``): those it co-schedules at the layout's
     shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs,
     asked once a device and size)."""
+    return _form(n, M, k, m, far)[2]
+
+
+def _ctas(n: int, M: int, k: int, m: int, far: bool) -> int:
     cuts = (M, k) != (1, 1)
     out = ctypes.c_int(0)
     err = _build.lib().pdhg_grid_ctas(n, M, k, m, columns(n), int(cuts),
-                                      4 * block_words(n, M, m, cuts), ctypes.byref(out))
+                                      4 * block_words(n, M, m, cuts, far), int(far),
+                                      ctypes.byref(out))
     if err in _ERRORS:
-        raise RuntimeError(f"pdhg_grid_ctas: {_ERRORS[err]} (n={n}, M={M}, m={m})")
+        raise RuntimeError(f"pdhg_grid_ctas: {_ERRORS[err]} (n={n}, M={M}, m={m}, far={far})")
     _build.check(err, "pdhg_grid_ctas")
     return out.value
+
+
+def _form(n: int, M: int, k: int, m: int, far: bool | None = None) -> tuple[bool, int, int]:
+    """(far, shared bytes a CTA, CTAs) of a launch at (n, M, k, m): the far
+    form where ``grid_form`` says so by shape, or where the card's grid
+    would give a CTA of the shared form more than 512 pool slots; ``far``
+    forces a form (a measurement's)."""
+    cuts = (M, k) != (1, 1)
+    forced = far is not None
+    far = grid_form(n, M, m, cuts) if far is None else bool(far)
+    P = _ctas(n, M, k, m, far)
+    if not (forced or far) and cuts and -(-M // P) > _THREADS:
+        far = True
+        P = _ctas(n, M, k, m, far)
+    return far, 4 * block_words(n, M, m, cuts, far), P
 
 
 def _pointers(problem, d):
@@ -197,31 +236,36 @@ def _raise(err: int, what: str, n: int, M: int, m: int):
 
 
 def _launch_block(cx, cX, pool: CutPool, index: CutIndex, ins, outs, rec, iters: int,
-                  dense: DenseRows | None) -> int:
+                  dense: DenseRows | None, far: bool | None = None) -> int:
     """The block's launch from the states ``ins`` (state, sums) into
     ``outs`` (which may be ``ins``) with the steps and stop flag of
-    ``rec``.  Returns the CTAs launched."""
+    ``rec``, in the form ``_form`` takes (``far`` forces one).  Returns the
+    CTAs launched."""
     n, M, k, m, cuts, problem, d = _args(cx, cX, pool, index, (*ins, *outs), dense,
                                          "pdhg_grid_block")
-    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), cuts, False),
-                       dtype=torch.float32, device=cx.device)
+    far, smem, P = _form(n, M, k, m, far)
+    work = torch.empty(work_words(n, m, M, P, cuts, False, far), dtype=torch.float32,
+                       device=cx.device)
     grid = ctypes.c_int(0)
     err = _build.lib().pdhg_grid_block_launch(
-        n, M, k, m, iters, columns(n), int(cuts), 4 * block_words(n, M, m, cuts),
-        rec.data_ptr(), *_pointers(problem, d),
+        n, M, k, m, iters, columns(n), int(cuts), smem, rec.data_ptr(), *_pointers(problem, d),
         *(t.data_ptr() for s in ins for t in s.fields()),
         *(t.data_ptr() for s in outs for t in s.fields()), work.data_ptr(),
-        work[-1:].data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream)
+        work[-1:].data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream,
+        int(far))
     _raise(err, "pdhg_grid_block_launch", n, M, m)
     pdhg_grid_block.launches += 1
     return grid.value
 
 
 def pdhg_grid_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
-                    tau: float, sigma: float, iters: int, dense: DenseRows | None = None):
+                    tau: float, sigma: float, iters: int, dense: DenseRows | None = None, *,
+                    _far: bool | None = None):
     """Run ``iters`` PDHG iterations from ``st`` with host steps tau and
     sigma and add each iterate to ``acc``; returns new (state, acc), the
-    inputs left unchanged.  ``index`` is ``build_cut_index(pool, n)``."""
+    inputs left unchanged.  ``index`` is ``build_cut_index(pool, n)``.
+    ``_far`` forces the kernels' form on CUDA (measurements only; by shape
+    otherwise)."""
     if cx.device.type == "cpu":
         return pdhg_block_plain(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
     if cx.device.type == "cuda":
@@ -230,7 +274,7 @@ def pdhg_grid_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: 
         for o, s in zip(outs, ins):         # the certifier's pool: yC is left as it is
             o.yC.copy_(s.yC)
         _launch_block(cx, cX, pool, index, ins, outs,
-                      steps_record([tau], [sigma], cx.device)[0], iters, dense)
+                      steps_record([tau], [sigma], cx.device)[0], iters, dense, _far)
         return outs[0], outs[1]
     raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
 
@@ -239,7 +283,8 @@ pdhg_grid_block.launches = 0
 
 
 def pdhg_grid_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
-                          acc: PDHGState, rec, iters: int, dense: DenseRows | None = None):
+                          acc: PDHGState, rec, iters: int, dense: DenseRows | None = None, *,
+                          _far: bool | None = None):
     """``pdhg_grid_block`` in place on (st, acc), with the steps of the
     solve's control record ``rec`` (int32 (REC_WORDS,) on the device), and
     nothing done once its stop flag is set.  Counted in
@@ -250,14 +295,15 @@ def pdhg_grid_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
         check_record(rec[None], 1, cx.device, "pdhg_grid_block")
         if not all(t.is_contiguous() for s in (st, acc) for t in s.fields()):
             raise ValueError("pdhg_grid_block: an in-place launch takes contiguous state and sums")
-        _launch_block(cx, cX, pool, index, [st, acc], [st, acc], rec, iters, dense)
+        _launch_block(cx, cX, pool, index, [st, acc], [st, acc], rec, iters, dense, _far)
     else:
         raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
 
 
 def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
                       anchor: PDHGState, rec, check_every: int, restart_period: int,
-                      max_iters: int, tol: float, dense: DenseRows | None):
+                      max_iters: int, tol: float, dense: DenseRows | None,
+                      far: bool | None = None):
     """The launch of the checked block, its arguments checked and its
     pointers taken once: a function of no arguments that enqueues one launch
     (the scratch allocated once, for every step)."""
@@ -268,14 +314,15 @@ def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
         raise ValueError("pdhg_grid_block_checked kernel takes contiguous state, sums and anchor")
     if check_every < 1:
         raise ValueError(f"pdhg_grid_block_checked: check_every must be >= 1, got {check_every}")
-    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), cuts, True),
-                       dtype=torch.float32, device=cx.device)
+    far, smem, P = _form(n, M, k, m, far)
+    work = torch.empty(work_words(n, m, M, P, cuts, True, far), dtype=torch.float32,
+                       device=cx.device)
     grid = ctypes.c_int(0)
-    args = (n, M, k, m, check_every, columns(n), int(cuts), 4 * block_words(n, M, m, cuts),
-            restart_period, max_iters, float(np.float32(tol)), rec.data_ptr(),
-            *_pointers(problem, d), *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
+    args = (n, M, k, m, check_every, columns(n), int(cuts), smem, restart_period, max_iters,
+            float(np.float32(tol)), rec.data_ptr(), *_pointers(problem, d),
+            *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
             work.data_ptr(), work[-1:].data_ptr(), ctypes.byref(grid),
-            torch.cuda.current_stream(cx.device).cuda_stream)
+            torch.cuda.current_stream(cx.device).cuda_stream, int(far))
     fn = _build.lib().pdhg_grid_block_checked_launch
 
     def launch():
@@ -290,14 +337,15 @@ def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
 def grid_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
                       anchor: PDHGState, rec, check_every: int, restart_period: int,
                       max_iters: int, tol: float, dense: DenseRows | None = None,
-                      batched: bool = False):
+                      batched: bool = False, *, _far: bool | None = None):
     """The solve's step on the grid route over fixed buffers
     (``pdhg_check.checked_step``'s contract): a function of no arguments
     that runs one checked block of ``check_every`` iterations in place on
     (st, acc, anchor) and the record ``rec`` (single: (REC_WORDS,);
     batched: every argument with the instance axis first, ``rec`` (B,
     REC_WORDS), the instances walked in one launch).  CPU tensors take the
-    twins, CUDA tensors one launch a step."""
+    twins, CUDA tensors one launch a step; ``_far`` forces the kernels'
+    form (measurements only)."""
     if cx.device.type == "cpu":
         block, check = ((pdhg_block_steps_batched_plain, pdhg_check_batched_plain) if batched
                         else (pdhg_block_steps_plain, pdhg_check_plain))
@@ -311,26 +359,27 @@ def grid_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
         raise ValueError(f"pdhg_grid_block_checked: no kernel for device {cx.device}")
     launcher = _checked_batched_launcher if batched else _checked_launcher
     return launcher(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
-                    max_iters, tol, dense)
+                    max_iters, tol, dense, _far)
 
 
 def pdhg_grid_block_checked(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
                             acc: PDHGState, anchor: PDHGState, rec, check_every: int,
                             restart_period: int, max_iters: int, tol: float,
-                            dense: DenseRows | None = None):
+                            dense: DenseRows | None = None, *, _far: bool | None = None):
     """One checked block of ``check_every`` iterations and its control, in
     place on (st, acc, anchor) and the solve's record ``rec``
     (``pdhg_check.pdhg_block_checked``'s contract, on the grid route).  A
     launch counts in ``pdhg_grid_block.launches`` and here."""
     grid_checked_step(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
-                      max_iters, tol, dense)()
+                      max_iters, tol, dense, _far=_far)()
 
 
 pdhg_grid_block_checked.launches = 0
 
 
 def pdhg_grid_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
-                   index: CutIndex, dense: DenseRows | None = None):
+                   index: CutIndex, dense: DenseRows | None = None, *,
+                   _far: bool | None = None):
     """||K|| 1.02 + 1e-12 of a grid-route solve after ``iters`` power
     iterations from ``start_vector(n, generator, ...)`` (None: the seed-0
     draw, kept on the device; the launch only reads it): a 0-d float32
@@ -344,16 +393,16 @@ def pdhg_grid_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator
     # the start vector stands where cx and cX stand in the block's checks
     # (the same shapes); the norm reads neither
     n, M, k, m, cuts, problem, d = _args(y, Y, pool, index, (), dense, "pdhg_grid_norm")
-    work = torch.empty(norm_work_words(n, m, M, grid_ctas(n, M, k, m), cuts),
-                       dtype=torch.float32, device=dev)
+    far, smem, P = _form(n, M, k, m, _far)
+    work = torch.empty(norm_work_words(n, m, M, P, cuts), dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     grid = ctypes.c_int(0)
     ptrs = _pointers(problem, d)
     err = _build.lib().pdhg_grid_norm_launch(
-        n, M, k, m, iters, columns(n), int(cuts), 4 * block_words(n, M, m, cuts), ptrs[2],
-        ptrs[3], ptrs[5], ptrs[6], ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(),
-        work.data_ptr(), work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
-        torch.cuda.current_stream(dev).cuda_stream)
+        n, M, k, m, iters, columns(n), int(cuts), smem, ptrs[2], ptrs[3], ptrs[5], ptrs[6],
+        ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(), work.data_ptr(),
+        work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
+        torch.cuda.current_stream(dev).cuda_stream, int(far))
     _raise(err, "pdhg_grid_norm_launch", n, M, m)
     pdhg_grid_norm.launches += 1
     return out
@@ -413,16 +462,18 @@ def _launch_block_batched(cx, cX, pool: CutPool, index: CutIndex, ins, outs, rec
     steps and stop flag of its row of ``rec``.  Returns the CTAs launched."""
     B, n, M, k, m, problem, d, strides = _batched_args(cx, cX, pool, index, (*ins, *outs), dense,
                                                        "pdhg_grid_block")
-    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), True, False),
-                       dtype=torch.float32, device=cx.device)
+    far, smem, P = _form(n, M, k, m)
+    work = torch.empty(work_words(n, m, M, P, True, False, far), dtype=torch.float32,
+                       device=cx.device)
     grid = ctypes.c_int(0)
     count = int(ids.size)
     err = _build.lib().pdhg_grid_block_batched_launch(
-        n, M, k, m, iters, columns(n), 1, 4 * block_words(n, M, m, True), count,
+        n, M, k, m, iters, columns(n), 1, smem, count,
         (ctypes.c_int * max(count, 1))(*ids.tolist()), rec.data_ptr(), *strides,
         *_pointers(problem, d), *(t.data_ptr() for s in ins for t in s.fields()),
         *(t.data_ptr() for s in outs for t in s.fields()), work.data_ptr(),
-        work[-1:].data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream)
+        work[-1:].data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream,
+        int(far))
     _raise(err, "pdhg_grid_block_batched_launch", n, M, m)
     pdhg_grid_block.launches += 1
     return grid.value
@@ -483,7 +534,7 @@ def pdhg_grid_block_steps_batched(cx, cX, pool: CutPool, index: CutIndex, st: PD
 def _checked_batched_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
                               acc: PDHGState, anchor: PDHGState, rec, check_every: int,
                               restart_period: int, max_iters: int, tol: float,
-                              dense: DenseRows | None):
+                              dense: DenseRows | None, far: bool | None = None):
     """The batched checked block's launch, its arguments checked, its dense
     rows laid out and its pointers taken once a solve: a function of no
     arguments that enqueues one launch for every instance."""
@@ -494,14 +545,15 @@ def _checked_batched_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGSt
         raise ValueError("pdhg_grid_block_checked kernel takes contiguous state, sums and anchor")
     if check_every < 1:
         raise ValueError(f"pdhg_grid_block_checked: check_every must be >= 1, got {check_every}")
-    work = torch.empty(work_words(n, m, M, grid_ctas(n, M, k, m), True, True),
-                       dtype=torch.float32, device=cx.device)
+    far, smem, P = _form(n, M, k, m, far)
+    work = torch.empty(work_words(n, m, M, P, True, True, far), dtype=torch.float32,
+                       device=cx.device)
     grid = ctypes.c_int(0)
-    args = (n, M, k, m, check_every, columns(n), 1, 4 * block_words(n, M, m, True), B,
-            restart_period, max_iters, float(np.float32(tol)), rec.data_ptr(), *strides,
-            *_pointers(problem, d), *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
+    args = (n, M, k, m, check_every, columns(n), 1, smem, B, restart_period, max_iters,
+            float(np.float32(tol)), rec.data_ptr(), *strides, *_pointers(problem, d),
+            *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
             work.data_ptr(), work[-1:].data_ptr(), ctypes.byref(grid),
-            torch.cuda.current_stream(cx.device).cuda_stream)
+            torch.cuda.current_stream(cx.device).cuda_stream, int(far))
     fn = _build.lib().pdhg_grid_block_checked_batched_launch
 
     def launch():
@@ -552,16 +604,16 @@ def _launch_norm_batched(pool: CutPool, n: int, iters: int, generator: torch.Gen
     # block's checks; the norm reads it once, for every instance
     _, n, M, k, m, problem, d, strides = _batched_args(
         y.expand(B, n), Y.expand(B, n, n), pool, index, (), dense, "pdhg_grid_norm")
-    work = torch.empty(norm_work_words(n, m, M, grid_ctas(n, M, k, m), True),
-                       dtype=torch.float32, device=dev)
+    far, smem, P = _form(n, M, k, m)
+    work = torch.empty(norm_work_words(n, m, M, P, True), dtype=torch.float32, device=dev)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     grid = ctypes.c_int(0)
     ptrs = _pointers(problem, d)
     err = _build.lib().pdhg_grid_norm_batched_launch(
-        n, M, k, m, B, iters, columns(n), 1, 4 * block_words(n, M, m, True), *strides, ptrs[2],
-        ptrs[3], ptrs[5], ptrs[6], ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(),
-        work.data_ptr(), work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
-        torch.cuda.current_stream(dev).cuda_stream)
+        n, M, k, m, B, iters, columns(n), 1, smem, *strides, ptrs[2], ptrs[3], ptrs[5], ptrs[6],
+        ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(), work.data_ptr(),
+        work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
+        torch.cuda.current_stream(dev).cuda_stream, int(far))
     _raise(err, "pdhg_grid_norm_batched_launch", n, M, m)
     pdhg_grid_norm.launches += 1
     return out

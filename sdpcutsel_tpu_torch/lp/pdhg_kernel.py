@@ -21,12 +21,12 @@ dense row count m the plan takes at a shape; it raises where the shape does
 not fit (``plan_refusal`` says why).
 ``kernel_route`` chooses a solve's route by ``LPConfig.use_kernel`` and that
 same rule: K2 for a pool of cuts it takes, the grid route
-(``lp/pdhg_grid.py``) for the pools of cuts it does not (n > 256, a pool or
-dense rows past its shared memory), the dense route (``lp/pdhg_dense.py``)
-for the certifier's pool without cuts.  On CUDA a kernel route runs unless
-the caller asks for the plain loop ("off"): a shape that none takes
-(n > 1024, a pool too large for any route's shared memory) raises with the
-rules' reasons.  The plain blocks a solve runs on CUDA are counted in
+(``lp/pdhg_grid.py``) for the pools of cuts it does not (n > 256, any pool
+or number of dense rows past its shared memory), the dense route
+(``lp/pdhg_dense.py``) for the certifier's pool without cuts.  On CUDA a
+kernel route runs unless the caller asks for the plain loop ("off"): a
+shape that none takes (n > 1024, or cuts of a width outside 2..5) raises
+with the rules' reasons.  The plain blocks a solve runs on CUDA are counted in
 ``pdhg_block.plain_launches``.
 
 The cut adjoint (scatter of yC-weighted coefficients into gx, gX) is
@@ -173,15 +173,17 @@ def route_refusal(n: int, M: int, k: int, m: int) -> tuple[str, str | None]:
     take it (None where it does): the dense route (``lp/pdhg_dense.py``) for
     the certifier's pool without cuts, any m; for every other pool K2 with
     K5 and K6 wherever its cluster takes the shape (``plan_refusal``), else
-    the grid route (``lp/pdhg_grid.py``, ``grid_refusal``), and where
-    neither takes it both reasons.  A pool of width 1 is a pool without
-    cuts: a cut has k = 2..5 entries, so no cut fits it, and the certifier's
-    sentinel ``empty_pool(1, 1)`` is the one such pool.  The dense kernels
-    leave its yC as it is, where the twins apply the pool's inactive row."""
+    the grid route (``lp/pdhg_grid.py``, ``grid_refusal``: any pool and any
+    m), and where neither takes it both reasons.  The one limit left is
+    1 <= n <= 1024 (with cuts of width k = 2..5).  A pool of width 1 is a
+    pool without cuts: a cut has k = 2..5 entries, so no cut fits it, and
+    the certifier's sentinel ``empty_pool(1, 1)`` is the one such pool.  The
+    dense kernels leave its yC as it is, where the twins apply the pool's
+    inactive row."""
     if (M, k) == (1, 1):
-        from .pdhg_dense import dense_refusal
+        from .pdhg_dense import dense_route_refusal
 
-        return "dense", dense_refusal(n, M, k, m)
+        return "dense", dense_route_refusal(n, M, k, m)
     why = plan_refusal(n, M, k, m)
     if why is None:
         return "k2", None

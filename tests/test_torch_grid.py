@@ -134,17 +134,20 @@ def test_n513_is_refused_by_every_route(M, k, m):
 
 
 def test_grid_refusal_reasons():
-    """Past a CTA's shared memory the route says so; cuts of width 1..6 and
-    n outside 1..1024 are refused by name; K2's reason comes first where
-    neither takes a shape."""
+    """Past a CTA's shared memory the route takes the pool in its far form;
+    cuts of width 1..6 and n outside 1..1024 are refused by name; K2's
+    reason comes first where neither takes a shape."""
     assert "k = 2..5" in tgrid.grid_refusal(300, 1024, 6, 0)
     assert "n <= 1024" in tgrid.grid_refusal(0, 1024, 3, 0)
     assert "n <= 1024" in tgrid.grid_refusal(1025, 1024, 3, 0)
-    top = max(M for M in range(1024, 40000, 64) if tgrid.grid_refusal(512, M, 3, 0) is None)
-    why = tgrid.grid_refusal(512, top + 64, 3, 0)
-    assert "shared memory" in why
-    route, both = route_refusal(512, top + 64, 3, 0)
-    assert route == "grid" and both.startswith(plan_refusal(512, top + 64, 3, 0))
+    top = max(M for M in range(1024, 40000, 64)
+              if 4 * tgrid.block_words(512, M, 0, True) <= SMEM_MAX)
+    assert not tgrid.grid_form(512, top, 0, True) and tgrid.grid_form(512, top + 64, 0, True)
+    assert tgrid.grid_refusal(512, top + 64, 3, 0) is None
+    assert route_refusal(512, top + 64, 3, 0) == ("grid", None)
+    route, both = route_refusal(512, top, 6, 0)
+    why = tgrid.grid_refusal(512, top, 6, 0)
+    assert route == "grid" and both.startswith(plan_refusal(512, top, 6, 0))
     assert why in both
 
 
@@ -173,11 +176,11 @@ def _source(name: str) -> str:
 
 
 def _forms_from_source() -> dict:
-    """GridForm<Cols>'s constants of csrc/pdhg_grid.cu by column width."""
+    """GridForm<Cols>'s constants of csrc/pdhg_grid.cuh by column width."""
     widths = {"kNarrow": 128, "kWide": 256, "kWidest": 512, "kHuge": 1024}
     out = {}
     for name, body in re.findall(r"struct GridForm<(\w+)> \{\s*static constexpr int ([^;]*);",
-                                 _source("pdhg_grid.cu")):
+                                 _source("pdhg_grid.cuh")):
         vals = dict(re.findall(r"(\w+) = (\d+)", body))
         out[widths[name]] = tuple(int(vals[k]) for k in ("kMaxE", "kChunks", "kScratch",
                                                           "kStages", "kState"))
@@ -186,7 +189,7 @@ def _forms_from_source() -> dict:
 
 def test_forms_match_the_kernel_source():
     assert _forms_from_source() == tgrid.FORMS
-    text = _source("pdhg_grid.cu")
+    text = _source("pdhg_grid.cuh")
     assert f"constexpr int kStage = {tgrid._STAGE};" in text
     assert f"constexpr int kNS = {tgrid._NS};" in text
 
@@ -201,16 +204,17 @@ def _python(expr: str) -> str:
     return f"(({top[2]}) if ({top[1]}) else ({top[3]}))" if top else expr
 
 
-def _grid_layout_words(n: int, M: int, m: int, cuts: bool) -> int:
-    """csrc/pdhg_grid.cu's grid_layout at n's column width: the sum of its
-    TAKE lines and the values they take, evaluated from the source."""
+def _grid_layout_words(n: int, M: int, m: int, cuts: bool, far: bool = False) -> int:
+    """csrc/pdhg_grid.cuh's grid_layout at n's column width (``far``: the far
+    form's): the sum of its TAKE lines and the values they take, evaluated
+    from the source."""
     kmax, _, scratch, stages, state = tgrid.FORMS[tkernel.columns(n)]
-    text = _source("pdhg_grid.cu")
+    text = _source("pdhg_grid.cuh")
     body = text[text.index("inline GridLayout grid_layout("):]
     body = body[:body.index("#undef TAKE")]
     body = (body.replace("F::kMaxE", str(kmax)).replace("F::kScratch", str(scratch))
             .replace("F::kStages", str(stages)).replace("F::kState", str(state)))
-    names = dict(n=n, m=m, M=M, cuts=cuts, kStage=tgrid._STAGE, kSmemWords=SMEM_MAX // 4,
+    names = dict(n=n, m=m, M=M, cuts=cuts, far=far, kStage=tgrid._STAGE, kSmemWords=SMEM_MAX // 4,
                  kMeta=int(re.search(r"constexpr int kMeta = (\d+);", text).group(1)))
     for var, expr in re.findall(r"const int (\w+) = (.*?);", body):
         names[var] = eval(_python(expr), {}, names)                       # noqa: S307
@@ -233,11 +237,12 @@ def test_grid_layout_matches_the_kernel_source(n, M, m):
 
 
 def _work_expr(fn: str) -> str:
-    text = _source("pdhg_grid.cu")
+    text = _source("pdhg_grid.cuh")
     body = text[text.index(f" {fn}("):]
     expr = re.search(r"return (.*?);", body, re.S).group(1)
     expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", " ".join(expr.split()))
-    return re.sub(r"\((\w+) \? (.*?) : 0\)", r"((\2) if \1 else 0)", expr)
+    expr = expr.replace(" && ", " and ")
+    return re.sub(r"\(([\w ]+?) \? (.*?) : 0\)", r"((\2) if (\1) else 0)", expr)
 
 
 @pytest.mark.parametrize("n,m,M,P", [(512, 0, 1024, 132), (300, 368, 1, 132), (200, 25, 1024, 66),
@@ -247,7 +252,8 @@ def test_grid_work_matches_the_kernel_source(n, m, M, P):
     """work_words and norm_work_words are csrc/pdhg_grid.cu's, evaluated
     from the source, with and without cuts and the checked form's extras."""
     for cuts in (True, False):
-        names = dict(n=n, m=m, M=M, P=P, NN=n * n, Pm=P * m, cuts=cuts, kNS=10, kND=6)
+        names = dict(n=n, m=m, M=M, P=P, NN=n * n, Pm=P * m, cuts=cuts, far=False, kNS=10,
+                     kND=6)
         assert tgrid.norm_work_words(n, m, M, P, cuts) == eval(              # noqa: S307
             _work_expr("norm_work_words"), {}, names)
         for checked in (True, False):

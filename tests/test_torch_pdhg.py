@@ -17,7 +17,7 @@ from sdpcutsel_tpu_torch.config import LPConfig
 from sdpcutsel_tpu_torch.instances import generate_spar
 from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (SMEM_MAX, kernel_route, launch_plan,
-                                                pdhg_block, plan_refusal)
+                                                pdhg_block, plan_refusal, route_refusal)
 from sdpcutsel_tpu_torch.lp.pdhg_norm import pdhg_norm
 from sdpcutsel_tpu_torch.relax import cutbuffer as tcb
 from sdpcutsel_tpu_torch.relax.cutbuffer import build_cut_index
@@ -202,7 +202,7 @@ def test_launch_plan_refuses_n_outside_the_kernel(n):
     ("auto", 257, 1024, 3, 0, "grid"),    # n > 256: the grid route (K2 not launched)
     ("auto", 1025, 1024, 3, 0, None),     # n > 1024: raises, no kernel launched
     ("auto", 513, 1024, 3, 0, "grid"),    # 512 < n <= 1024: the grid route's 1024 columns
-    ("auto", 128, 1 << 16, 5, 25, None),  # a pool that does not fit shared memory
+    ("auto", 128, 1 << 16, 5, 25, "grid"),  # a pool past K2's shared memory: the grid route
     ("auto", 125, 1, 1, 2048, "dense"),   # the certifier's pool: the dense route
     ("auto", 150, 1024, 3, 0, "k2"),      # the wide form (256 columns)
     ("auto", 256, 1024, 3, 0, "k2"),
@@ -231,7 +231,7 @@ def test_kernel_route_auto_is_plain_off_cuda():
     assert kernel_route("auto", torch.device("cpu"), 125, 1024, 3, 0) == "plain"
 
 
-@pytest.mark.parametrize("n,M,k,m", [(1025, 1024, 3, 0), (128, 1 << 16, 5, 25)])
+@pytest.mark.parametrize("n,M,k,m", [(1025, 1024, 3, 0), (300, 1024, 6, 0)])
 def test_kernel_route_auto_outside_the_plan(n, M, k, m):
     """Outside the plan "auto" is the plain loop on the CPU (the twin's
     arithmetic either way) and refuses on CUDA, naming "off"."""
@@ -241,13 +241,18 @@ def test_kernel_route_auto_outside_the_plan(n, M, k, m):
 
 
 @pytest.mark.parametrize("n,M,k,m,why", [(1025, 1024, 3, 0, "n <= 256"),
-                                         (128, 1 << 16, 5, 25, "shared memory")])
+                                         (200, 1024, 6, 0, "k = 2..5")])
 def test_kernel_route_on_raises_outside_the_plan(n, M, k, m, why):
     for device in ("cuda", "cpu"):
         with pytest.raises(ValueError, match=why):
             kernel_route("on", torch.device(device), n, M, k, m)
     with pytest.raises(ValueError, match=why):
         launch_plan(n, M, k, m)
+    # K2's own plan still refuses a pool past its shared memory, which the
+    # grid route takes
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_plan(128, 1 << 16, 5, 25)
+    assert route_refusal(128, 1 << 16, 5, 25) == ("grid", None)
 
 
 def test_solve_lp_on_refuses_n513_before_solving():

@@ -21,6 +21,7 @@ from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp
 from sdpcutsel_tpu_torch.loop import sdp_bound as tsb
 from sdpcutsel_tpu_torch.lp import pdhg as tpdhg
 from sdpcutsel_tpu_torch.lp import pdhg_dense as tdense
+from sdpcutsel_tpu_torch.lp import pdhg_grid as tgrid
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (SMEM_MAX, kernel_route, pdhg_block_plain,
                                                 pdhg_block_steps_plain, route_refusal,
                                                 steps_record)
@@ -84,6 +85,10 @@ def test_dense_refusal_reasons():
     assert tdense.dense_refusal(125, 1, 1, top) is None
     why = tdense.dense_refusal(125, 1, 1, top + 1)
     assert "shared memory" in why and str(top) in why
+    # past K7's rows the route takes the grid route's far form without cuts
+    assert tdense.k7_takes(125, top) and not tdense.k7_takes(125, top + 1)
+    assert route_refusal(125, 1, 1, top + 1) == ("dense", None)
+    assert tdense.smem_words(125, top + 1) == tgrid.block_words(125, 1, top + 1, False, True)
     assert route_refusal(125, 1024, 3, 0) == ("k2", None)
     assert route_refusal(100, 1024, 5, 25) == ("k2", None)
 

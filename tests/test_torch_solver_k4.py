@@ -90,3 +90,42 @@ def test_cut_solver_k4_matches_reference(strategy, monkeypatch):
     for checks in solves:
         assert checks[-1] <= EDGE[0] * lp.tol
         assert len(checks) == 1 or checks[-2] >= EDGE[1] * lp.tol
+
+
+# k = 5 (ROADMAP Queue 3): CutConfig(k=5, sel_size=10) on spar020-100-1
+# (C(20, 5) = 15,504 candidates).  At the k = 4 SETTINGS neural's round 2
+# runs into its 6,000-iteration cap unconverged (43.5 times tol at the cap);
+# at tol 3e-5 every neural LP stops on its test (at 0.05-0.44 of tol, the
+# check before at 5.5-35 times), and feasibility's round 1 stops at 0.997 of
+# tol there, on the edge, so it takes tol 1e-5 (0.10-0.50 of tol, the check
+# before at 5.0-104 times).
+SETTINGS_K5 = {"neural": LPConfig(max_iters=20000, tol=3e-5),
+               "feasibility": LPConfig(max_iters=20000, tol=1e-5)}
+
+
+@pytest.mark.parametrize("strategy", ["neural", "feasibility"])
+def test_cut_solver_k5_matches_reference(strategy, monkeypatch):
+    """BoxQP with k = 5: three rounds of the port's solver (K4's twin scores
+    the 5-subsets) against the JAX solver's, per round at rtol 2e-3; round 0
+    with the same LP iterations and cuts; the bounds fall round by round;
+    every LP of the port stops inside EDGE, before its cap."""
+    inst = load_or_generate("spar020-100-1", data_dir="data/boxqp")
+    lp = SETTINGS_K5[strategy]
+    cfg = RunConfig(lp=lp, cuts=CutConfig(k=5, sel_size=10),
+                    scorer=ScorerConfig(strategy=strategy))
+    ref = JaxCutSolver(inst, reference_config(cfg)).run(rounds=3)
+    solves = _record_checks(monkeypatch)
+    got = CutSolver(inst, cfg, device="cpu").run(rounds=3)
+    assert len(got) == len(ref) == 3
+    assert got[0].lp_iters == ref[0].lp_iters
+    assert got[0].cuts_added == ref[0].cuts_added > 0
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.bound, r.bound, rtol=2e-3)
+        assert g.lp_iters < lp.max_iters
+    bounds = [s.bound for s in got]
+    assert all(b2 <= b1 for b1, b2 in zip(bounds, bounds[1:]))
+    solves = [s for s in solves if s]
+    assert len(solves) == 3
+    for checks in solves:
+        assert checks[-1] <= EDGE[0] * lp.tol
+        assert len(checks) == 1 or checks[-2] >= EDGE[1] * lp.tol
