@@ -2,14 +2,14 @@
 
     python3 chip_smoke.py [--parent DIR] [--phases GROUPS]
 
---phases runs some of the groups 3, 4, 5-13, 15-17, 18-21 and 22 (comma-
-separated; the default runs every one, and only then prints the kernels
-line; the build and phase 1 always run).
+--phases runs some of the groups 3, 4, 5-13, 15-17, 18-21, 22 and 23
+(comma-separated; the default runs every one, and only then prints the
+kernels line; the build and phase 1 always run).
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
      triton; no CUDA device -> exit 2 before any result is printed;
-  2. build the kernels from csrc/ (seven sources), one nvcc each, in
+  2. build the kernels from csrc/ (eleven sources), one nvcc each, in
      parallel (timed as set-up), and beside them a variant of the scoring
      kernels without the Jacobi's overflow guard
      (scoring_variants.UNGUARDED); print ptxas's registers and spills, and for the scoring kernels (K1, K3, K4
@@ -110,7 +110,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
      spar020-100-1 with strategies triangle, optimality and random, and
      neural with vertex steering (the random draws come from a CPU
      generator, so both devices see the same numbers);
-     generate_spar(1025, 100, 1), outside every route (n > 1024): by
+     generate_spar(2049, 100, 1), outside every route (n > 2048): by
      default its solve (k = 2) refuses on the card with the routes' reasons,
      no PDHG kernel launched; spar150-100-1 with CutConfig(capacity=81920),
      past every shared layout: one round by default, taken by the grid
@@ -225,6 +225,33 @@ Phases, each printed on its own lines; any failure exits non-zero:
      objective, rounds/s and the synchronised stage split; its round 0
      within rtol 2e-3 of the CPU port's, computed in the host references'
      process and compared at the end of the run;
+ 23. past n = 1024 (run after phase 22; the grid route's 2048-column form,
+     GridForm<kVast>: 1024 < n <= 2048, the owned state in global memory,
+     the dense rows read in place): (a) its block, checked launch and norm
+     against their twins at phase 19's tolerances, twice bit for bit, each
+     timed on the device beside its bound, at n = 1100 and 2048 with
+     M = 1024 and 400 active k = 3 cuts, at n = 1500 with k = 5 cuts and
+     generate_qcqp(1500, 30, 25, 1)'s 25 dense rows, in the far form at
+     n = 2048 with M = 65,536, without cuts at n = 1500 over 64 certifier
+     rows, and the walk at B = 2, n = 2048; ptxas of the 12 new kernels
+     without a spill or a stack; (b) K1 over all 1,429,559,296 triples of
+     C(2048, 3) (17.2 GB of table written on the card) in its two launches,
+     the first and last 8M rows and 8M rows around the launch boundary
+     against the twin, two calls bit for bit, and at n = 1024 a forced split
+     with the one launch's bits; (c) CutSolver on generate_spar(2048, 100, 1)
+     with the defaults, 3 rounds with "auto" twice bit for bit on K1 (two
+     launches a round) and the 2048-column form alone, every certificate at
+     least a feasible point's objective, round 0 within 1e-2 of the
+     McCormick bound the plain loop certifies on the card, rounds/s, the
+     card's peak memory and the synchronised stage split; at n = 1100 round
+     0 within rtol 2e-3 of the same round with use_kernel="off" and K1's
+     twin as the scores on the card; (d) CutSolverQCQP on
+     generate_qcqp_band(1500, 5, 25, 1) at phase 19's settings, 2 rounds
+     twice bit for bit, round 0 within rtol 2e-3 of "off" on the card; (e)
+     the certifier at n = 1100, capacity 64, 2 eigencut rounds twice bit
+     for bit on the form without cuts, every certificate at least the
+     Burer-Monteiro lb (a run cut to 400 iterations, in the host
+     references' process, compared at the end of the run);
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -341,14 +368,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
      one cell (spar020-100-1, feasibility, 2 rounds) into a temporary file,
      and a second call skips it; every rank's launches (the plain PDHG
      blocks and the twin-scored calls 0 on each) join the kernels line;
- 14. one JSON line of kernel results (fifteen entries), each kernel's
-     launches summed over the main paths 5-13, 15-17 and the wide, grid and
-     1024-column paths of phases 4, 18, 19, 20 and 21 (each counted from 0;
+ 14. one JSON line of kernel results (eighteen entries), each kernel's
+     launches summed over the main paths 5-13, 15-17 and the wide, grid,
+     1024- and 2048-column paths of phases 4, 18-23 (each counted from 0;
      the sums over the paths at n <= 128 alone are printed before the line);
      the grid route's entries hold spar512's shape, every shape under
      "shapes", phase 20's batched launches under "batched"; its 1024-column
-     form's three entries n = 1024's shape and phase 21's launches; K1's
-     the n = 512 and n = 1024 numbers ("n512", "n1024"); the grid entries
+     form's three entries n = 1024's shape and phase 21's launches, its
+     2048-column form's three n = 2048's and phase 23's; K1's the n = 512,
+     n = 1024 and n = 2048 numbers ("n512", "n1024", "n2048"); the grid entries
      also hold phase 22's shapes of the far form under "far" (with its
      launches on phase 22's solve and, in the block's, the forced form
      against the shared one); K2's entry also holds the
@@ -383,6 +411,7 @@ import importlib
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -396,7 +425,7 @@ import torch
 
 from sdpcutsel_tpu_torch import _build, cli
 from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
-from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table
+from sdpcutsel_tpu_torch.cuts.enumerate import combinations_table, combinations_table_on
 from sdpcutsel_tpu_torch.instances import (generate_qcqp_family, generate_spar,
                                            load_or_generate, load_or_generate_qcqp, parse_boxqp)
 from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp, generate_qcqp_band
@@ -434,12 +463,12 @@ from sdpcutsel_tpu_torch.models import train as train_mod
 from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.multichip_dryrun import dryrun_multichip
-from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain
+from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain, launch_ranges
 from sdpcutsel_tpu_torch.ops.launches import (PLAIN_BLOCKS, PLAIN_CONTROL, READS, SOLVES,
                                               TWIN_SCORED, WRAPPERS, launch_counts,
                                               reset_launches)
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
-from sdpcutsel_tpu_torch.ops.pair_score import pair_score, pair_score_plain
+from sdpcutsel_tpu_torch.ops.pair_score import SWEEPS, pair_score, pair_score_plain
 from sdpcutsel_tpu_torch.parallel import Mesh, distributed, make_mesh, shard_candidates
 from sdpcutsel_tpu_torch.parallel.round import (certify_batched_f64, certify_scan_f64,
                                                 init_batched_state, instances_of,
@@ -2150,10 +2179,10 @@ def check_guard(inst, unguarded, dev):
 
 
 def check_large_instance(dev) -> dict:
-    """A BoxQP solve outside every route (n = 1025 > 1024),
-    generate_spar(1025, 100, 1) at k = 2 (its table 524,800 pairs, where
-    C(1025, 3) would take 2 GB and seconds to build): by default the solve
-    refuses on the card with the routes' reasons, no PDHG kernel launched.  generate_spar(300,
+    """A BoxQP solve outside every route (n = 2049 > 2048),
+    generate_spar(2049, 100, 1) at k = 2 (its table 2,098,176 pairs, where
+    C(2049, 3) would take 17 GB): by default the solve refuses on the card
+    with the routes' reasons, no PDHG kernel launched.  generate_spar(300,
     100, 1), past K2's cluster: 2 rounds with the default "auto" on K1 and
     the grid route's kernels (no K2, no plain block, twin check or norm),
     each round within GRID_RTOL of one CPU run of the port.  spar150-100-1
@@ -2164,7 +2193,7 @@ def check_large_instance(dev) -> dict:
     n = 150: one round with "auto", taken by the grid route's far form.
     Returns the launch counts of the "auto" runs at n = 150, at n = 300 and
     of the pool of 81,920 at n = 150."""
-    wide = generate_spar(1025, 100, 1)
+    wide = generate_spar(2049, 100, 1)
     lp = LPConfig(max_iters=3000, tol=1e-5)
     why = pdhg_kernel.route_refusal(wide.n, CutConfig().capacity, 2, 0)[1]
     reset_launches()
@@ -2176,7 +2205,7 @@ def check_large_instance(dev) -> dict:
     log(f"[small] {wide.name}, use_kernel='auto': {refused!r}; launches {launch_counts()}")
     if (refused is None or why is None or why not in refused
             or any(launch_counts()[k] for k in ("pdhg_block", *GRID_NAMES))):
-        raise AssertionError("the n = 1025 solve on the card did not refuse with the routes' "
+        raise AssertionError("the n = 2049 solve on the card did not refuse with the routes' "
                              "reasons")
     del wide
     # a pool of BIG_CAPACITY at n = 150, past K2's and the shared layout's:
@@ -3929,7 +3958,7 @@ def check_grid_block(label: str, inputs, reps: int = 10) -> dict:
             "far": far}
 
 
-def check_grid_check(label: str, inputs, reps: int = 10) -> dict:
+def check_grid_check(label: str, inputs, reps: int = 10, split: bool = False) -> dict:
     """The grid route's checked launch (a 100-iteration block, then the
     checked block's control on the slices each CTA owns) from phase 3's
     state against the grid block (pdhg_grid_block_steps) followed by the twin
@@ -3937,7 +3966,9 @@ def check_grid_check(label: str, inputs, reps: int = 10) -> dict:
     10^9 and 100, the record's float words at rtol 1e-5 and its ints equal,
     the state, sums and anchor bit for bit, twice bit for bit, a stopped
     record left as it is; the check's time the checked launch's less the
-    block's on the device, in turns."""
+    block's on the device, in turns (``split``, or where that is not
+    positive: also from the checked kernel alone, its launches of 1 and 100
+    iterations)."""
     cx, cX, pool, index, st0, dense = inputs
     n, (M, k), m = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
     normK = estimate_norm_plain(pool, n, 30, torch.Generator().manual_seed(0), index, dense)
@@ -3996,17 +4027,18 @@ def check_grid_check(label: str, inputs, reps: int = 10) -> dict:
     both, blk = sum(t_both) / 2, sum(t_blk) / 2
     dev_ms = both - blk
     extra = {}
-    if dev_ms <= 0.0:
-        # the checked kernel runs its block faster than the unchecked one:
-        # the check from the checked kernel alone, a launch of one iteration
-        # less one iteration of it (launches of 1 and `every`, in turns)
+    if dev_ms <= 0.0 or split:
+        # the checked kernel runs its block faster (or, split, slower) than
+        # the unchecked one: the check from the checked kernel alone, a
+        # launch of one iteration less one iteration of it (launches of 1
+        # and `every`, in turns)
         t_one, t_all = [], []
         for runs, iters in ((t_one, 1), (t_all, every), (t_all, every), (t_one, 1)):
             runs.append(queued_ms(lambda iters=iters: pdhg_grid_block_checked(
                 cx, cX, pool, index, *bufs, iters, 100, *never, dense), reps=reps))
         one, full = sum(t_one) / 2, sum(t_all) / 2
         extra = {"checked_less_unchecked_ms": dev_ms, "one_iteration_launch_ms": one,
-                 "by_iterations": True}
+                 "checked_iteration_ms": (full - one) / (every - 1), "by_iterations": True}
         log(f"[pdhg_grid_check {label}] the checked launch less the block is {dev_ms:.4f} ms: "
             f"the checked kernel's launches of 1 and {every} iterations in turns {t_one!r}, "
             f"{t_all!r} ms give the check {one - (full - one) / (every - 1):.4f} ms ({SMI})")
@@ -4844,12 +4876,12 @@ REFERENCE_TIMEOUT = 840               # seconds from the run's start for the hos
 K1_CHUNK = 8 << 20                    # rows of the table a twin call (its activations)
 
 
-def huge_inputs(label: str, dev):
-    """(cx, cX, pool, index, state, dense) of a HUGE_SHAPES shape:
-    generate_spar(n, 100, 1), or generate_qcqp(n, 30, m, 1)'s objective and
-    m dense rows; the pool's supports from 2,000 random k-subsets of the
-    columns; phase 3's pool and random state."""
-    n, k, m = HUGE_SHAPES[label]
+def huge_inputs(label: str, dev, shapes=None):
+    """(cx, cX, pool, index, state, dense) of a HUGE_SHAPES shape (or of
+    ``shapes``): generate_spar(n, 100, 1), or generate_qcqp(n, 30, m, 1)'s
+    objective and m dense rows; the pool's supports from 2,000 random
+    k-subsets of the columns; phase 3's pool and random state."""
+    n, k, m = (HUGE_SHAPES if shapes is None else shapes)[label]
     rng = np.random.default_rng(SEED + 6)
     table = np.sort(np.stack([rng.choice(n, k, replace=False) for _ in range(2000)]), axis=1)
     if m == 0:
@@ -5014,12 +5046,19 @@ def host_references(path: str, groups) -> None:
     HUGE_BAND_CPU_ROUNDS rounds of its band instance at GRID_BAND_CFG and
     phase 20's band batch's first GRID_BATCH_BAND_CPU_ROUNDS (band_batch_run
     on the CPU); with "22" the CPU port's round 0 of phase 22's solve
-    (bigpool_solve's configuration); each with its seconds.  Minutes of host
+    (bigpool_solve's configuration); with "23" the Burer-Monteiro lb of
+    phase 23's certifier instance (generate_spar(1100, 100, 1), VAST_BM's
+    stages); each with its seconds.  Minutes of host
     work, so ``--host-references PATH`` runs it in a process of its own from
     the end of the build (References), and host_reference_checks compares
     at the end of the run."""
     torch.set_num_threads(HOST_THREADS)
     out = {}
+    if "23" in groups:
+        t0 = time.perf_counter()
+        inst = generate_spar(*VAST_SMALL)
+        out["vast_bm_lb"] = float(bm_feasible_point(inst.Q, inst.c, **VAST_BM)[2])
+        out["vast_bm_seconds"] = time.perf_counter() - t0
     if "22" in groups:
         t0 = time.perf_counter()
         hist = CutSolver(generate_spar(*BIG_INSTANCE), big_config(), device="cpu").run(rounds=1)
@@ -5245,12 +5284,13 @@ def device_rows(n: int, m: int, rng, dev, chunk: int = 256) -> DenseRows:
     return DenseRows(G, g, h)
 
 
-def big_inputs(label: str, dev):
-    """(cx, cX, pool, index, state, dense) of a BIG_SHAPES shape:
-    generate_spar(n, 100, 1)'s objective, a pool of M with ``active`` random
-    unit cuts on random k-subsets of the columns and a random state (phase
-    3's random_pool and random_state), and m device_rows."""
-    n, M, k, active, m = BIG_SHAPES[label]
+def big_inputs(label: str, dev, shapes=None):
+    """(cx, cX, pool, index, state, dense) of a BIG_SHAPES shape (or of
+    ``shapes``): generate_spar(n, 100, 1)'s objective, a pool of M with
+    ``active`` random unit cuts on random k-subsets of the columns and a
+    random state (phase 3's random_pool and random_state), and m
+    device_rows."""
+    n, M, k, active, m = (BIG_SHAPES if shapes is None else shapes)[label]
     rng = np.random.default_rng(SEED + 7)
     inst = generate_spar(n, 100, 1)
     table = np.sort(np.stack([rng.choice(n, k, replace=False)
@@ -5471,7 +5511,401 @@ def bigpool_phase(dev) -> dict:
     return out
 
 
-GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22")   # the phase groups --phases selects
+# ---- phase 23: past n = 1024 (the grid route's 2048-column form) ----------------
+
+VAST_SHAPES = {"n=1100 m=0": (1100, 3, 0), "n=2048 m=0": (2048, 3, 0),
+               "n=1500 k=5 m=25": (1500, 5, 25)}
+VAST_FAR = {"n=2048 M=65536": (2048, 65536, 3, 2000, 0)}   # (n, M, k, active cuts, m)
+VAST_CERT = (1500, 64)                 # the form without cuts: the certifier's (n, m)
+VAST_BATCH = 2
+VAST_BATCH_SHAPES = {"n=2048 k=3 m=0": (2048, 3, 0)}
+VAST_INSTANCE = (2048, 100, 1)         # CutSolver with the defaults
+VAST_ROUNDS = 3
+VAST_SPLIT_ROUNDS = 1                  # of a third run, synchronised stage by stage
+VAST_SMALL = (1100, 100, 1)            # round 0 against "off"; the certifier's instance
+VAST_BAND = (1500, 5, 25, 1)           # generate_qcqp_band, at the grid QCQP's settings
+VAST_BAND_ROUNDS = 2
+VAST_CERT_ROUNDS, VAST_CERT_CAPACITY = 2, 64
+VAST_BM = dict(stages=4, iters_per_stage=100)   # the BM lb at n = 1100, cut to the phase's time
+VAST_K1_FORCED = 1 << 26               # rows a launch in the forced split at n = 1024
+
+
+def vast_ptxas() -> str:
+    """ptxas's lines of the 2048-column instantiations (Cols = 2048 in the
+    mangled names: the block, its checked form and the norm, with cuts and
+    without, shared and far: 12 kernels); fails on a spill, a stack frame or
+    a missing kernel."""
+    rep = spill_free("Li2048E")
+    count = len(re.findall(r"Used \d+ registers", rep))
+    if re.search(r"[1-9]\d* bytes stack frame", rep) or count != 12:
+        raise AssertionError(f"the 2048-column kernels: {count} in the log, or a stack frame: "
+                             f"{rep}")
+    return rep
+
+
+def k1_vast_check(dev) -> dict:
+    """K1 over all C(2048, 3) triples (17.2 GB of table, written on the card
+    by combinations_table_on) in the launches of launch_ranges, each
+    counted: the first and last K1_CHUNK rows and K1_CHUNK rows around each
+    launch boundary against the twin at k1_twin_check's tolerances, two
+    calls bit for bit, its time by events and on the device beside the
+    bound; then at n = 1024 a split forced to VAST_K1_FORCED rows a launch
+    gives the one launch's bits."""
+    inst = generate_spar(*VAST_INSTANCE)
+    x, X, Q = scoring_point(inst, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = combinations_table_on(inst.n, 3, dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    T = table.shape[0]
+    ranges = launch_ranges(T, 3)
+    mlp = MLPScorer(load_params(3), dev)
+    before = pair_score.launches
+    nn_k, feas_k = pair_score(x, X, Q, table, mlp, 5)
+    launched = pair_score.launches - before
+    again = pair_score(x, X, Q, table, mlp, 5)
+    repeat = torch.equal(nn_k, again[0]) and torch.equal(feas_k, again[1])
+    del again
+    half = K1_CHUNK // 2
+    windows = [(0, K1_CHUNK), (T - K1_CHUNK, T), *((e - half, e + half) for _, e in ranges[:-1])]
+    errs = []
+
+    def twin_pass():
+        for s, e in windows:
+            nn_p, feas_p = pair_score_plain(x, X, Q, table[s:e], mlp, 5)
+            errs.append((*excess(feas_k[s:e], feas_p, 0.0, 5e-5),
+                         *excess(nn_k[s:e], nn_p, 2e-4, 2e-4)))
+
+    plain_ms = cuda_ms(twin_pass, reps=1, warmup=0)
+    worst = max(max(e[0], e[2]) for e in errs)
+    ratio = max(max(e[1], e[3]) for e in errs)
+    moved = nbytes(x, X, Q, table, nn_k, feas_k)
+    log(f"[vast pair_score {inst.name}] T={T} ({nbytes(table)} bytes of table written on the "
+        f"card in {table_s:.3f}s) in {launched} launches {ranges}: max|err| {worst:.3e}, "
+        f"{ratio:.3f} of the limit (feas atol 5e-5, nn rtol/atol 2e-4) over the rows "
+        f"{windows}; two calls bit for bit: {repeat}")
+    if ratio > 1.0 or not repeat or launched != len(ranges) or len(ranges) != 2:
+        raise AssertionError("K1 over C(2048, 3) disagrees with its twin, does not repeat or "
+                             "did not run in its two launches")
+    del nn_k, feas_k
+    ms = cuda_ms(lambda: pair_score(x, X, Q, table, mlp, 5), reps=3, warmup=1)
+    dev_ms = queued_ms(lambda: pair_score(x, X, Q, table, mlp, 5), reps=2)
+    b, parts = scoring_bound(T, moved + mlp_bytes(mlp), ms)
+    log(f"[vast pair_score {inst.name}] T={T}: {ms:.4f} ms by events ({T / ms / 1e3:.1f} M "
+        f"cand/s) for its {launched} launches, {dev_ms:.4f} ms on the device (queued events); "
+        f"the twin on {sum(e - s for s, e in windows)} rows {plain_ms:.4f} ms; {share(ms, b)}; "
+        f"{parts} ({SMI})")
+    del table
+    small = generate_spar(1024, 100, 1)
+    x2, X2, Q2 = scoring_point(small, dev)
+    table2 = combinations_table_on(1024, 3, dev)
+    one = pair_score(x2, X2, Q2, table2, mlp, 5)
+    before = pair_score.launches
+    split = pair_score(x2, X2, Q2, table2, mlp, 5, _max_rows=VAST_K1_FORCED)
+    forced = pair_score.launches - before
+    same = torch.equal(one[0], split[0]) and torch.equal(one[1], split[1])
+    log(f"[vast pair_score {small.name}] T={table2.shape[0]} split into {forced} launches of at "
+        f"most {VAST_K1_FORCED} rows: the one launch's bits: {same}")
+    if not same or forced != len(launch_ranges(table2.shape[0], 3, VAST_K1_FORCED)) or forced < 2:
+        raise AssertionError("a forced split of K1 at n = 1024 changed its bits")
+    return {"max_abs_err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "plain_rows": sum(e - s for s, e in windows), "candidates": T,
+            "launches_a_call": launched, "table_s": table_s, **b}
+
+
+def vast_kernels(dev) -> dict:
+    """Phase 23 (a) and (b): the 2048-column form's block, checked launch and
+    norm at VAST_SHAPES (huge_inputs' pools and states), in the far form at
+    VAST_FAR, without cuts at VAST_CERT, each against its twin at phase
+    19's tolerances, twice bit for bit, timed on the device beside its
+    bound; the walk at B = VAST_BATCH, n = 2048 (each instance its single
+    entry's bits); ptxas of the 12 new kernels without a spill or a stack;
+    K1 over C(2048, 3) (k1_vast_check).  Returns {kernel: {shape label:
+    numbers}}."""
+    out = {"pdhg_grid": {}, "pdhg_grid_check": {}, "pdhg_grid_norm": {}}
+    log(f"[vast] ptxas of the 2048-column kernels: {vast_ptxas()}")
+    cases = [(label, lambda label=label: huge_inputs(label, dev, VAST_SHAPES))
+             for label in VAST_SHAPES]
+    cases += [(label, lambda label=label: big_inputs(label, dev, VAST_FAR)) for label in VAST_FAR]
+    n, m = VAST_CERT
+    cases.append((f"certifier n={n} m={m}", lambda: big_cert_inputs(n, m, dev)))
+    for label, make in cases:
+        t0 = time.perf_counter()
+        inputs = make()
+        cx, _, pool, _, _, dense = inputs
+        n_, (M, k), m_ = cx.shape[0], pool.idx.shape, 0 if dense is None else dense.m
+        route = pdhg_kernel.route_refusal(n_, M, k, m_)
+        far = pdhg_grid._form(n_, M, k, m_)[0]
+        log(f"[vast {label}] route {route}, column width {pdhg_kernel.columns(n_)}, the far "
+            f"form: {far}; made in {time.perf_counter() - t0:.1f}s")
+        if (route[1] is not None or pdhg_kernel.columns(n_) != pdhg_kernel.VAST
+                or far != (label in VAST_FAR)):
+            raise AssertionError(f"{label} is not the 2048-column form's it should be: {route}")
+        out["pdhg_grid"][label] = check_grid_block(label, inputs, 5)
+        out["pdhg_grid_check"][label] = check_grid_check(label, inputs, 5, split=label in VAST_FAR)
+        out["pdhg_grid_norm"][label] = check_grid_norm(label, inputs, 3)
+        del inputs, dense
+        log(f"[vast {label}] checked in {time.perf_counter() - t0:.1f}s")
+    for label in VAST_BATCH_SHAPES:
+        t0 = time.perf_counter()
+        inputs = grid_batch_inputs(label, dev, VAST_BATCH_SHAPES, VAST_BATCH)
+        out["pdhg_grid"][f"batched {label}"] = check_grid_block_batched(label, inputs)
+        out["pdhg_grid_check"][f"batched {label}"] = check_grid_check_batched(label, inputs)
+        out["pdhg_grid_norm"][f"batched {label}"] = check_grid_norm_batched(label, inputs)
+        del inputs
+        log(f"[vast batch {label}] checked in {time.perf_counter() - t0:.1f}s")
+    out["pair_score"] = k1_vast_check(dev)
+    return out
+
+
+def mccormick_off(inst, capacity: int, dev) -> tuple:
+    """The McCormick bound of a BoxQP instance as the plain loop certifies
+    it on the card: the LP without cuts (an empty pool of ``capacity``, the
+    first round's) solved with LPConfig(use_kernel="off"), its dual bound in
+    f64 (dual_bound_f64).  Returns (the bound, the LP's iterations)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    Q, c = torch.as_tensor(inst.Q, **f32), torch.as_tensor(inst.c, **f32)
+    pool = empty_pool(capacity, 3, dev)
+    st, info = pdhg_mod.solve_lp(Q, c, pool, init_state(inst.n, capacity, dev),
+                                 LPConfig(use_kernel="off"))
+    return pdhg_mod.dual_bound_f64(inst.Q, inst.c, pool, st), int(info["iters"])
+
+
+def vast_solve(dev) -> tuple:
+    """Phase 23 (c): CutSolver on generate_spar(2048, 100, 1) with the
+    defaults (k = 3, neural, sel_size 20, capacity 1024, LPConfig()),
+    VAST_ROUNDS rounds with "auto" twice, bit for bit: K1 over all
+    1,429,559,296 triples in two launches a round and the 2048-column form
+    for every LP and norm, no K2, no plain block, twin check or
+    twin-scored call; every certificate reaches a feasible point's
+    objective; round 0 within 1e-2 of the McCormick bound (mccormick_off);
+    rounds/s and the card's peak memory; then the synchronised stage split
+    of a third run.  Returns (launch counts, checks)."""
+    from sdpcutsel_tpu_torch.profile_round import STAGES, stage_split
+
+    inst = generate_spar(*VAST_INSTANCE)
+    cfg = RunConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = CutSolver(inst, cfg, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=VAST_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    floor = feasible_objective(inst, solver.state.x.cpu().numpy())
+    for h in hist:
+        log(f"[vast {inst.name}] round {h.round}: bound {h.bound!r} certificate "
+            f"{h.certificate!r} cuts_added {h.cuts_added} active {h.cuts_active} lp_iters "
+            f"{h.lp_iters} kkt {h.lp_kkt_error:.3e} wall {h.wall_time_s:.3f}s")
+    del solver
+    bounds = np.array([h.bound for h in hist])
+    certs = np.array([h.certificate for h in hist])
+    log(f"[vast {inst.name}] {len(hist)} rounds in {wall:.3f}s = {len(hist) / wall!r} rounds/s "
+        f"({sum(h.lp_iters for h in hist)} LP iterations; the solver's set-up, the table of "
+        f"{math.comb(inst.n, 3)} triples written on the card included, {setup_s:.3f}s); the "
+        f"card's peak memory {peak} bytes ({peak / 2 ** 30:.2f} GiB) over the set-up and the "
+        f"rounds; launches {launches}; a feasible point's f {floor!r} ({SMI})")
+    again = CutSolver(inst, cfg, device=dev).run(rounds=VAST_ROUNDS)
+    t0 = time.perf_counter()
+    mc, mc_iters = mccormick_off(inst, cfg.cuts.capacity, dev)
+    rel0 = (bounds[0] - mc) / abs(mc)
+    log(f"[vast {inst.name}] the McCormick bound by the plain loop on the card {mc!r} "
+        f"({mc_iters} iterations, {time.perf_counter() - t0:.1f}s); round 0 {bounds[0]!r}: "
+        f"rel {rel0!r}")
+    stages = [*STAGES, (pdhg_grid, "_checked_launcher", "  grid checked step's set-up")]
+    split_wall, split = stage_split((inst, CutSolver, cfg, VAST_SPLIT_ROUNDS), dev,
+                                    VAST_SPLIT_ROUNDS, stages)
+    for label, (sec, calls) in split.items():
+        if calls:
+            log(f"[vast {inst.name}] split: {label} {sec:.4f}s ({sec / split_wall:.2%} of the "
+                f"synchronised run's {split_wall:.4f}s), {calls} calls")
+    torch.cuda.empty_cache()
+    return launches, {
+        f"{VAST_ROUNDS} rounds ran": len(hist) == VAST_ROUNDS,
+        "K1 launched twice a round, K2 not":
+            launches["pair_score"] == 2 * VAST_ROUNDS and launches["pdhg_block"] == 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        f"every certificate >= a feasible point's f {floor}": bool((certs >= floor).all()),
+        f"round 0 within 1e-2 of the McCormick bound {mc}": abs(rel0) <= 1e-2,
+        "bounds are the running minimum of the certificates":
+            bool((bounds == np.minimum.accumulate(certs)).all()),
+        "a second run repeats every round bit for bit": outcome(again) == outcome(hist),
+        **dense_route_checks(f"vast {inst.name}", launches, GRID_NAMES),
+    }
+
+
+def twin_scores(inst, dev):
+    """A score_fn for CutSolver on ``inst``: the neural scores of every row
+    of its lexicographic table (k = 3) by K1's twin on the card
+    (pair_score_plain, K1_CHUNK rows a call)."""
+    table = combinations_table_on(inst.n, 3, dev)
+    Q = torch.as_tensor(inst.Q, dtype=torch.float32, device=dev)
+    mlp = MLPScorer(load_params(3), dev)
+
+    def score(x, X, _generator):
+        return torch.cat([pair_score_plain(x, X, Q, table[s:s + K1_CHUNK], mlp, SWEEPS)[0]
+                          for s in range(0, table.shape[0], K1_CHUNK)])
+    return score
+
+
+def vast_against_off(dev) -> tuple:
+    """Phase 23 (c) at n = 1100: round 0 of CutSolver's defaults on the
+    kernels ("auto": K1 and the 2048-column form) within GRID_RTOL of the
+    same round under use_kernel="off" with K1's twin as the scores, both on
+    the card.  Returns (the kernel run's launch counts, checks)."""
+    inst = generate_spar(*VAST_SMALL)
+    reset_launches()
+    got = CutSolver(inst, RunConfig(), device=dev).run(rounds=1)
+    launches = launch_counts()
+    solver = CutSolver(inst, RunConfig(lp=LPConfig(use_kernel="off")), device=dev,
+                       score_fn=twin_scores(inst, dev))
+    reset_launches()
+    off = solver.run(rounds=1)
+    plain = launch_counts()
+    rel = abs(got[0].bound - off[0].bound) / abs(off[0].bound)
+    log(f"[vast {inst.name}] round 0 on the kernels {got[0].bound!r} ({got[0].lp_iters} LP "
+        f"iterations), with use_kernel='off' and the scoring twin {off[0].bound!r} "
+        f"({off[0].lp_iters}): rel diff {rel!r} (rtol {GRID_RTOL}); launches {launches}, off "
+        f"{plain}")
+    return launches, {
+        f"round 0 within {GRID_RTOL} of the plain loop's": rel <= GRID_RTOL,
+        "the kernel run on K1 and the grid route":
+            launches["pair_score"] == 1 and min(launches[k] for k in GRID_NAMES) > 0,
+        "no plain block, twin check or twin-scored call in the kernel run":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        "the off run on the plain loop and the twin alone":
+            plain[PLAIN_BLOCKS] > 0 and plain["pair_score"] == 0
+            and all(plain[k] == 0 for k in GRID_NAMES),
+    }
+
+
+def vast_band(dev) -> tuple:
+    """Phase 23 (d): CutSolverQCQP on generate_qcqp_band(1500, 5, 25, 1) (25
+    dense rows, 225 MB of G, read in place) at the grid QCQP's settings
+    (GRID_BAND_CFG), VAST_BAND_ROUNDS rounds with "auto" twice, bit for bit,
+    on K4 and the 2048-column form alone; round 0 within GRID_RTOL of the
+    same round under use_kernel="off" on the card.  Returns (launch counts,
+    checks)."""
+    inst = generate_qcqp_band(*VAST_BAND)
+    solver = CutSolverQCQP(inst, GRID_BAND_CFG, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = solver.run(rounds=VAST_BAND_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    gpu = [h.bound for h in hist]
+    again = [h.bound for h in CutSolverQCQP(inst, GRID_BAND_CFG, device=dev).run(
+        rounds=VAST_BAND_ROUNDS)]
+    off_cfg = dataclasses.replace(GRID_BAND_CFG, lp=dataclasses.replace(GRID_BAND_CFG.lp,
+                                                                       use_kernel="off"))
+    off = CutSolverQCQP(inst, off_cfg, device=dev).run(rounds=1)[0].bound
+    rel = abs(gpu[0] - off) / abs(off)
+    log(f"[vast {inst.name}] bounds on the card {gpu}; {len(hist)} rounds in {wall:.3f}s = "
+        f"{len(hist) / wall!r} rounds/s ({[h.lp_iters for h in hist]} LP iterations; {SMI}); "
+        f"round 0 with use_kernel='off' {off!r}: rel diff {rel!r} (rtol {GRID_RTOL}); launches "
+        f"{launches}")
+    return launches, {
+        f"{VAST_BAND_ROUNDS} rounds ran": len(gpu) == VAST_BAND_ROUNDS,
+        "a second run repeats every round bit for bit": again == gpu,
+        f"round 0 within {GRID_RTOL} of the plain loop's": rel <= GRID_RTOL,
+        "K4 launched": launches["fused_score"] > 0,
+        "no plain PDHG block, twin check, norm or scorer on the card":
+            launches[PLAIN_BLOCKS] == launches[PLAIN_CONTROL] == launches[TWIN_SCORED] == 0,
+        **dense_route_checks(f"vast {inst.name}", launches, GRID_NAMES),
+    }
+
+
+# what phase 23 leaves for vast_references: the certifier's certificates
+VAST_RESULTS = {}
+
+
+def vast_certifier(dev) -> tuple:
+    """Phase 23 (e): sdp_relaxation_bound on generate_spar(1100, 100, 1),
+    capacity VAST_CERT_CAPACITY, VAST_CERT_ROUNDS plain eigencut rounds of
+    FULL_LP, twice, bit for bit, on the dense route alone, whose kernels
+    there are the 2048-column form without cuts; every certificate finite
+    (vast_references holds them to the Burer-Monteiro lb).  Returns (launch
+    counts, checks)."""
+    inst = generate_spar(*VAST_SMALL)
+    kw = dict(max_rounds=VAST_CERT_ROUNDS, capacity=VAST_CERT_CAPACITY, max_cuts_per_round=48,
+              device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    best, _, hist = sdp_relaxation_bound(inst, FULL_LP, **kw)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    again = sdp_relaxation_bound(inst, FULL_LP, **kw)[2]
+    certs = np.array([h["bound"] for h in hist])
+    lp_s, iters, us = lp_us(hist)
+    VAST_RESULTS["certificates"] = certs.tolist()
+    log(f"[vast certifier {inst.name}] certificates {certs.tolist()} in {wall:.3f}s, best "
+        f"{best!r}; the LP {lp_s:.4f}s for {iters} iterations = {us:.2f} us a certifier LP "
+        f"iteration ({SMI}); launches {launches}")
+
+    def outcome_of(hs):
+        return [(h["bound"], h["lam_min"], h["cuts"], h["lp_iters"], h["lp_kkt"]) for h in hs]
+
+    return launches, {
+        f"{VAST_CERT_ROUNDS} rounds ran": len(hist) == VAST_CERT_ROUNDS,
+        "certificates finite": bool(np.isfinite(certs).all()),
+        **dense_route_checks(f"vast certifier {inst.name}", launches, GRID_NAMES),
+        "a second run repeats every round bit for bit": outcome_of(again) == outcome_of(hist),
+    }
+
+
+def vast_references(refs: "References") -> dict:
+    """The end of phase 23, once the host references are in: every
+    certificate of the certifier at n = 1100 at least the Burer-Monteiro lb
+    (VAST_BM's stages, computed on the host)."""
+    r = refs.get()
+    certs = np.array(VAST_RESULTS["certificates"])
+    log(f"[vast] the certifier's certificates {certs.tolist()}, the Burer-Monteiro lb "
+        f"{r['vast_bm_lb']!r} ({VAST_BM}, {r['vast_bm_seconds']:.1f}s on the host)")
+    return {f"every certificate of the certifier >= the BM lb {r['vast_bm_lb']}":
+            bool(np.isfinite(r["vast_bm_lb"]) and (certs >= r["vast_bm_lb"]).all())}
+
+
+def vast_phase(dev) -> dict:
+    """Phase 23: the 2048-column form's kernels and K1 over C(2048, 3)
+    (vast_kernels), generate_spar(2048, 100, 1) (vast_solve), round 0 at
+    n = 1100 against the plain loop (vast_against_off), the band at
+    n = 1500 (vast_band) and the certifier at n = 1100 (vast_certifier),
+    each path's launches into PATH_LAUNCHES and into the form's kernel
+    entries; the card's peak memory over the phase; vast_references ends it
+    at the end of the run.  Returns vast_kernels' numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = vast_kernels(dev)
+    kernels_peak = torch.cuda.max_memory_allocated()
+    paths = {"vast boxqp n=2048": vast_solve, "vast boxqp n=1100": vast_against_off,
+             "vast qcqp band n=1500": vast_band, "vast certifier n=1100": vast_certifier}
+    for path, run in paths.items():
+        PATH_LAUNCHES[path], checks = run(dev)
+        finish(path, checks)
+    for key in ("pdhg_grid", "pdhg_grid_check", "pdhg_grid_norm", "pair_score"):
+        out[f"{key} launches"] = sum(PATH_LAUNCHES[p][key] for p in paths)
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"[vast] phase 23 took {out['seconds']:.1f}s; the card's peak memory "
+        f"{kernels_peak} bytes in (a)-(b), {torch.cuda.max_memory_allocated()} over the phase "
+        f"(torch.cuda.max_memory_allocated; {SMI})")
+    return out
+
+
+GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23")   # the groups --phases selects
 
 
 def main(argv=None) -> int:
@@ -5515,7 +5949,7 @@ def main(argv=None) -> int:
     unguarded = finish_variants()["unguarded"]
     log(f"[build] unguarded variant ready after {time.perf_counter() - t0:.2f}s")
     with tempfile.TemporaryDirectory() as tmp:
-        hosted = [g for g in groups if g in ("18-21", "22")]
+        hosted = [g for g in groups if g in ("18-21", "22", "23")]
         refs = References(tmp, hosted) if hosted else None
         try:
             return run_phases(args, groups, dev, smi, t_start, unguarded, refs)
@@ -5598,6 +6032,9 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
     if "22" in groups:
         big = bigpool_phase(dev)
         mark("phase 22")
+    if "23" in groups:
+        vast = vast_phase(dev)
+        mark("phase 23")
     main_hist = None
     if "5-13" in groups:
         PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
@@ -5625,6 +6062,8 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
         finish("huge references", huge_references(refs))
     if "22" in groups:
         finish("big references", big_references(refs))
+    if "23" in groups:
+        finish("vast references", vast_references(refs))
     seconds = time.perf_counter() - t_start
     log(f"[done] phases {', '.join(groups)} passed in {seconds:.1f}s, {seconds / 900:.1%} of "
         f"a 900 s budget")
@@ -5632,9 +6071,10 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
         log(f"[launches] {path}: {counts}")
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
     narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items()
-                        if not p.startswith(("wide", "grid", "huge", "big"))) for name in WRAPPERS}
-    log(f"[launches] the paths at n <= 128 (every path but the wide, grid, huge and big ones): "
-        f"{narrow}")
+                        if not p.startswith(("wide", "grid", "huge", "big", "vast")))
+              for name in WRAPPERS}
+    log(f"[launches] the paths at n <= 128 (every path but the wide, grid, huge, big and vast "
+        f"ones): {narrow}")
     if set(groups) != set(GROUPS):
         log(f"[done] the kernels line needs every phase group; these ran: {', '.join(groups)}")
         print(smi)
@@ -5745,8 +6185,19 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    *(e["max_abs_err"] for e in big[key].values()))
     kernels[-6]["far"]["against the shared form"] = big["far/shared"]
+    # the 2048-column form (GridForm<kVast>, the dense rows read in place):
+    # its own entries, with its launches on phase 23's paths; each holds
+    # n = 2048's shape, every shape (the far form's and the walk's among
+    # them) under "shapes"; K1 over C(2048, 3) in its launches under "n2048"
+    kernels += [dense_entry(f"{key} (2048 columns)", entry["replaces"], vast[f"{key} launches"],
+                            vast[key], "pdhg_grid_vast.cu", "n=2048 m=0")
+                for entry, key in zip(kernels[-6:-3], ("pdhg_grid", "pdhg_grid_check",
+                                                       "pdhg_grid_norm"))]
+    kernels[0]["n2048"] = {**vast["pair_score"], "launches": vast["pair_score launches"]}
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], vast["pair_score"]["max_abs_err"])
     log(f"[grid] phase 19: {grid['seconds']:.1f}s; phase 20: {batch['seconds']:.1f}s; phase 21: "
-        f"{huge['seconds']:.1f}s; phase 22: {big['seconds']:.1f}s")
+        f"{huge['seconds']:.1f}s; phase 22: {big['seconds']:.1f}s; phase 23: "
+        f"{vast['seconds']:.1f}s")
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -32,13 +33,12 @@ import time
 import numpy as np
 import torch
 
-from .cuts.enumerate import combinations_table
 from .instances import generate_qcqp_family, generate_spar
 from .parallel.mesh import make_mesh
 from .parallel.round import (bucket_instances, certify_batched_f64, certify_scan_f64,
                              init_batched_state, make_sharded_round_step,
                              make_sharded_scan_step, shard_batched_state)
-from .parallel.sharding import shard_candidates
+from .parallel.sharding import shard_candidates, shard_combinations
 from .qcqp.chordal import chordal_decomposition, clique_candidates
 from .relax.denserows import batched_dense_from_qcqp
 
@@ -79,7 +79,7 @@ def run_suite(args, mesh, dev, where: str):
         state = shard_batched_state(init_batched_state(
             np.stack([i.Q for i in bucket]), np.stack([i.c for i in bucket]),
             capacity=1024, kmax=3, device=dev), mesh)
-        table, valid = shard_candidates(combinations_table(n, 3), mesh, device=dev)
+        table, valid = shard_combinations(n, 3, mesh, device=dev)
         step = make_sharded_round_step(mesh, lp_iters=args.lp_iters, sel_size=args.sel_size,
                                        strategy=args.strategy)
         state, dt = timed_rounds(step, state, table, valid, args.rounds, dev)
@@ -148,17 +148,19 @@ def main(argv=None) -> int:
         table_np = clique_candidates(cliques, 4)
         Qb, cb = np.stack([i.Q0 for i in fam]), np.stack([i.c0 for i in fam])
         dense, kmax, m_dense = batched_dense_from_qcqp(fam, dev), 4, args.qcqp_m
+        table, valid = shard_candidates(table_np, mesh, device=dev)
+        candidates = table_np.shape[0]
     else:
         insts = [generate_spar(args.n, 100, s + 1) for s in range(args.batch)]
         Qb, cb = np.stack([i.Q for i in insts]), np.stack([i.c for i in insts])
-        table_np = combinations_table(args.n, 3)
+        table, valid = shard_combinations(args.n, 3, mesh, device=dev)
+        candidates = math.comb(args.n, 3)
     state = shard_batched_state(init_batched_state(Qb, cb, capacity=1024, kmax=kmax,
                                                    m_dense=m_dense, device=dev), mesh)
-    table, valid = shard_candidates(table_np, mesh, device=dev)
     knobs = dict(lp_iters=args.lp_iters, sel_size=args.sel_size, strategy=args.strategy,
                  kmax=kmax, m_dense=m_dense)
     rec = {"problem": "qcqp-k4" if args.qcqp else "boxqp-k3", "batch": args.batch,
-           "n": args.n, "mesh": f"{args.data}x{args.cand}", "candidates": int(table_np.shape[0])}
+           "n": args.n, "mesh": f"{args.data}x{args.cand}", "candidates": int(candidates)}
     if args.use_scan:
         scan = make_sharded_scan_step(mesh, rounds=args.rounds, **knobs)
         scan(state, table, valid, dense)                    # warm-up (kernel build)

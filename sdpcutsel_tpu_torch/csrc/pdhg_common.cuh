@@ -18,9 +18,10 @@
 // (two row groups of 256 columns: a thread still owns one column, and a band
 // takes twice the passes).  cols_for(n) is the rule; the Python plans
 // (lp/pdhg_kernel.py columns) mirror it.  The grid route (pdhg_grid.cu) adds
-// a third, 512 for 256 < n <= 512, where a thread owns several entries, and
-// a fourth, 1024 for 512 < n <= 1024, whose owned state lives in global
-// memory.
+// a third, 512 for 256 < n <= 512, where a thread owns several entries, a
+// fourth, 1024 for 512 < n <= 1024, whose owned state lives in global
+// memory, and a fifth, 2048 for 1024 < n <= 2048, whose passes over the
+// dense rows read them where they lie.
 //
 // The control record: every solve keeps one int32 record of kRecWords words
 // per instance in device memory (lp/pdhg.py REC_*: the same offsets, held
@@ -42,6 +43,7 @@ constexpr int kNarrow = 128;                 // the width for n <= 128
 constexpr int kWide = 256;                   // and for 128 < n <= 256
 constexpr int kWidest = 512;                 // and for 256 < n <= 512 (pdhg_grid.cu alone)
 constexpr int kHuge = 1024;                  // and for 512 < n <= 1024 (pdhg_grid.cu alone)
+constexpr int kVast = 2048;                  // and for 1024 < n <= 2048 (pdhg_grid.cu alone)
 constexpr int kMaxCluster = 16;
 constexpr float kSA = 0.70710678118654752440f;   // 1 / sqrt(2)
 constexpr float kSB = 0.57735026918962576451f;   // 1 / sqrt(3)
@@ -81,13 +83,16 @@ struct Width {
 };
 
 // The width a launch at n takes: 128 up to n = 128, 256 up to n = 256, 512
-// up to n = 512, else 1024 (0: n outside 1..1024, which no kernel takes).
-// K2, K6 and the dense route's kernels of pdhg_dense.cu take the first two;
-// the grid route's kernels (pdhg_grid.cu) all four.
+// up to n = 512, 1024 up to n = 1024, else 2048 (0: n outside 1..2048,
+// which no kernel takes).  K2, K6 and the dense route's kernels of
+// pdhg_dense.cu take the first two; the grid route's kernels (pdhg_grid.cu)
+// all five.
 __host__ __device__ constexpr int cols_for(int n) {
-  return n < 1 || n > kHuge
+  return n < 1 || n > kVast
              ? 0
-             : (n <= kNarrow ? kNarrow : (n <= kWide ? kWide : (n <= kWidest ? kWidest : kHuge)));
+             : (n <= kNarrow ? kNarrow
+                             : (n <= kWide ? kWide
+                                           : (n <= kWidest ? kWidest : (n <= kHuge ? kHuge : kVast))));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,21 +1,28 @@
-// The grid route's entry points and its forms whose replicas of yD and of
-// the cut weights live in each CTA's shared memory: the kernels' templates,
-// the layouts and the design are in pdhg_grid.cuh; the far forms' launches
-// (the replicas and the slots in global memory) are built from the same
-// templates in pdhg_grid_far.cu (with cuts) and pdhg_grid_far_cert.cu (the
-// certifier's pool), each its own nvcc, in parallel.  `far` picks the form
-// (lp/pdhg_grid.py grid_form chooses it by shape).
+// The grid route's entry points and its forms up to 1024 columns whose
+// replicas of yD and of the cut weights live in each CTA's shared memory:
+// the kernels' templates, the layouts and the design are in pdhg_grid.cuh;
+// the far forms' launches (the replicas and the slots in global memory) are
+// built from the same templates in pdhg_grid_far.cu (with cuts) and
+// pdhg_grid_far_cert.cu (the certifier's pool), and the 2048-column forms
+// (both, at n > 1024) in pdhg_grid_vast.cu and pdhg_grid_vast_cert.cu, each
+// its own nvcc, in parallel.  `far` picks the form (lp/pdhg_grid.py
+// grid_form chooses it by shape).
 
 #include "pdhg_grid.cuh"
 
 namespace pdhg_grid {
 
-// a far form's call: with cuts, or the certifier's pool
-int far(bool cuts, const FarCall& c) { return cuts ? far_cuts(c) : far_cert(c); }
+// a call of a form built apart: at 2048 columns either form, else a far
+// form; with cuts, or the certifier's pool
+int apart(bool cuts, bool far_form, const FarCall& c) {
+  if (c.cols == kVast) return cuts ? vast_cuts(c, far_form) : vast_cert(c, far_form);
+  return cuts ? far_cuts(c) : far_cert(c);
+}
 
 // The grid of the form at (cols, cuts, far).
 int grid_of(int cols, bool cuts, bool far_form, int smem, int* P) {
-  if (far_form) return far(cuts, FarCall{FarCall::kCtas, cols, nullptr, nullptr, {}, 0, nullptr,
+  if (far_form || cols == kVast)
+    return apart(cuts, far_form, FarCall{FarCall::kCtas, cols, nullptr, nullptr, {}, 0, nullptr,
                                          smem, P, nullptr});
   if (!cuts) {
     return cols == kHuge ? FormLaunch<false, kHuge, false>::ctas(smem, P)
@@ -24,20 +31,21 @@ int grid_of(int cols, bool cuts, bool far_form, int smem, int* P) {
   return at_width<true, false>(cols, [&](auto form) { return form.ctas(smem, P); });
 }
 
-// The layout of the form at cols (one of the four widths).
+// The layout of the form at cols (one of the five widths).
 GridLayout layout_of(int cols, int n, int m, int M, bool cuts, bool far) {
   switch (cols) {
     case kNarrow: return grid_layout<kNarrow>(n, m, M, cuts, far);
     case kWide: return grid_layout<kWide>(n, m, M, cuts, far);
     case kWidest: return grid_layout<kWidest>(n, m, M, cuts, far);
-    default: return grid_layout<kHuge>(n, m, M, cuts, far);
+    case kHuge: return grid_layout<kHuge>(n, m, M, cuts, far);
+    default: return grid_layout<kVast>(n, m, M, cuts, far);
   }
 }
 
 // The caller's plan against this file's: the width n's (cols_for), a pool of
 // cuts of width 2..5 at any width, the certifier's pool (capacity 1, width
-// 1) at 512 and 1024 columns and, in the far form, at any, and smem the
-// layout's.
+// 1) at 512, 1024 and 2048 columns and, in the far form, at any, and smem
+// the layout's.
 int check_form(int n, int M, int k, int m, int cols, int cuts, int far, int smem) {
   if (cols_for(n) == 0 || cols != cols_for(n) || m < 0 || M < 1) return kErrLayout;
   if (cuts ? (k < 2 || k > 5) : ((!far && cols < kWidest) || M != 1 || k != 1)) return kErrLayout;
@@ -52,9 +60,10 @@ int check_form(int n, int M, int k, int m, int cols, int cuts, int far, int smem
 // cuts, far).
 int launch_block(bool checked, const BlockArgs& a, const Walk& w, int count, const int* ids,
                  int cols, int cuts, int far_form, int smem, int* grid, cudaStream_t st) {
-  if (far_form) {
-    return far(cuts != 0, FarCall{checked ? FarCall::kChecked : FarCall::kBlock, cols, &a,
-                                  nullptr, w, count, ids, smem, grid, st});
+  if (far_form || cols == kVast) {
+    return apart(cuts != 0, far_form != 0,
+                 FarCall{checked ? FarCall::kChecked : FarCall::kBlock, cols, &a, nullptr, w,
+                         count, ids, smem, grid, st});
   }
   const auto run = [&](auto form) { return form.block(checked, a, w, count, ids, smem, grid, st); };
   if (!cuts) {
@@ -67,9 +76,9 @@ int launch_block(bool checked, const BlockArgs& a, const Walk& w, int count, con
 // The norm's launches of the form at (cols, cuts, far).
 int launch_norm(const NormArgs& a, const Walk& w, int B, int cols, int cuts, int far_form,
                 int smem, int* grid, cudaStream_t st) {
-  if (far_form) {
-    return far(cuts != 0, FarCall{FarCall::kNorm, cols, nullptr, &a, w, B, nullptr, smem, grid,
-                                  st});
+  if (far_form || cols == kVast) {
+    return apart(cuts != 0, far_form != 0,
+                 FarCall{FarCall::kNorm, cols, nullptr, &a, w, B, nullptr, smem, grid, st});
   }
   const auto run = [&](auto form) { return form.norm(a, w, B, smem, grid, st); };
   if (!cuts) {

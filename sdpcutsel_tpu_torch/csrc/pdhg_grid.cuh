@@ -17,8 +17,8 @@
 //       (pdhg_norm.cu) computes it.  Twin: estimate_norm_plain.
 //
 // Two forms (kCuts): a pool of cuts of width k = 2..5 with its cut index
-// (relax/cutbuffer.py build_cut_index), at the column widths 128, 256, 512 and
-// 1024 (cols_for); and the certifier's pool without cuts, the dense route
+// (relax/cutbuffer.py build_cut_index), at the column widths 128, 256, 512,
+// 1024 and 2048 (cols_for); and the certifier's pool without cuts, the dense route
 // (lp/pdhg_dense.py) past n = 256 and past the rows K7 holds.  Any pool and
 // any m dense rows (relax/denserows.py for a QCQP, the certifier's
 // eigencuts): where the replicas of yD and of the cut weights do not fit a
@@ -116,6 +116,16 @@
 // that the adjoint needs no strand partials and the residual no shifted
 // copies of its weights.
 //
+// At 2048 columns (GridForm kStages = 0) a CTA owns up to ~31,800 entries,
+// so a row's span outgrows a ring stage and the form keeps only the owned
+// entries' buffer (127 KB) in shared memory beside the replicas: its passes
+// read the dense rows where they lie in global memory, by entry as at 1024
+// columns (Slices::direct_pass, direct_residual).  The adjoint walks a
+// thread's entries kSub at a time, each sub-span its own pass over the rows
+// in increasing q, so that its registers stay few and every entry's sum
+// keeps one order; the residual's pass comes first, while the buffer still
+// holds its weights.
+//
 // The far form (kFar) keeps no replica: the passes read yD where it lies (the
 // inputs or the outputs, the norm's kD in its scratch; the check's average
 // scaled where read, as the replica is filled) and the cut weights in the
@@ -146,8 +156,10 @@ constexpr int kRowGroup = 8;     // rows a pass of the residual's sums by entry
 // kChunks kLanes chunks of 4; kScratch, at least the strand partials (4
 // kThreads, or 4 strands of the spans) and the residual's weights (4 spans);
 // kStages, the ring's stages; kState, the owned entries' state arrays in
-// shared memory (8; 0: in global memory, the 1024-column form, whose kMaxE
-// keeps a row's spans within a stage and whose passes go by entry).
+// shared memory (8; 0: in global memory, the 1024- and 2048-column forms,
+// whose passes go by entry).  kStages = 0: no ring, the passes read the rows
+// in place (the 2048-column form, whose spans outgrow a stage; the 1024-
+// column form's kMaxE keeps a row's spans within one).
 template <int Cols>
 struct GridForm;
 template <>
@@ -166,6 +178,10 @@ template <>
 struct GridForm<kHuge> {
   static constexpr int kMaxE = 8180, kChunks = 1, kScratch = 2048, kStages = 4, kState = 0;
 };
+template <>
+struct GridForm<kVast> {
+  static constexpr int kMaxE = 31808, kChunks = 1, kScratch = 2304, kStages = 0, kState = 0;
+};
 
 // sums of a check's evaluation point
 constexpr int kNS = 10;
@@ -177,8 +193,9 @@ enum { kPX, kPx, kHyB, kHyC, kHyD, kRxm, kSm, kV2, kVC2, kVD2 };
 // of stages; none without dense rows), the replicas of
 // yD and of the cut weights (none in the far form), the owned entries'
 // buffer (the dense adjoint; the residual's values) and their state (X, yA,
-// yB, aX, aA, aB, cX, S; the norm's Y, kA, kB; none at 1024 columns).  The
-// slab takes what the rest leaves, and at least the ring.
+// yB, aX, aA, aB, cX, S; the norm's Y, kA, kB; none at 1024 and 2048
+// columns).  The slab takes what the rest leaves, and at least the ring
+// (none in a form without a ring).
 // lp/pdhg_grid.py::block_words mirrors the sum; the launch checks it.
 struct GridLayout {
   int meta, scr, slab, yD, w, own, state, words;
@@ -197,7 +214,7 @@ __host__ __device__ inline GridLayout grid_layout(int n, int m, int M, bool cuts
   const int rest = kMeta + F::kScratch + ryD + rw + (1 + F::kState) * F::kMaxE;
   const int free4 = (kSmemWords - rest) & ~3;
   const int ring = F::kStages * kStage;
-  const int slabw = m > 0 ? (free4 > ring ? free4 : ring) : 0;
+  const int slabw = m * F::kStages > 0 ? (free4 > ring ? free4 : ring) : 0;
   GridLayout L;
   int o = 0;
 #define TAKE(field, words) L.field = o; o += (words)
@@ -365,6 +382,10 @@ struct Slices {
   // the entries a thread takes in the passes by entry
   static constexpr bool kGlobal = F::kState == 0;
   static constexpr int kSpan = (F::kMaxE + kThreads - 1) / kThreads;
+  // no ring: the passes read the dense rows in place (2048 columns), the
+  // adjoint kSub entries a thread at a time
+  static constexpr bool kDirect = F::kStages == 0;
+  static constexpr int kSub = 8;
   const Problem* p;
   int n, m, NN, P, b;
   int e0, e1, i0, i1, q0, q1, s0, s1, LA, LB, LS, E;
@@ -405,9 +426,15 @@ struct Slices {
     ES = SA + SB;
     ca = SA / 4;
     cr = ES / 4;
-    resident = static_cast<long long>(m) * ES <= L.yD - L.slab;
-    QB = ES > 0 ? kStage / ES : m;
-    nst = resident || m == 0 ? 0 : (m + QB - 1) / QB;
+    if constexpr (kDirect) {
+      resident = false;
+      QB = 0;
+      nst = 0;
+    } else {
+      resident = static_cast<long long>(m) * ES <= L.yD - L.slab;
+      QB = ES > 0 ? kStage / ES : m;
+      nst = resident || m == 0 ? 0 : (m + QB - 1) / QB;
+    }
     // NS is a multiple of 4, so a strand's rows share their shift
     tps = cr < kLanes ? cr : kLanes;
     NS = cr > 0 ? (kThreads / tps) & ~3 : 0;
@@ -672,7 +699,9 @@ struct Slices {
   // stores it
   __device__ __forceinline__ void adjoint_pass(float* out, size_t bs, size_t qs_,
                                                bool with_residual) const {
-    if constexpr (kGlobal) {
+    if constexpr (kDirect) {
+      direct_pass(out, bs, qs_, with_residual);
+    } else if constexpr (kGlobal) {
       entry_pass(out, bs, qs_, with_residual);
     } else {
       chunk_pass(out, bs, qs_, with_residual);
@@ -701,24 +730,107 @@ struct Slices {
   // each row's partial at the weights in scr (by entry: in sown), one pass
   // over the rows
   __device__ __forceinline__ void residual_pass(float* out, size_t bs, size_t qs_) const {
-    auto rows = [&](int qs, int nq, const float* buf) {
-      if constexpr (kGlobal) {
-        entry_residual(out, bs, qs_, qs, nq, buf);
-      } else {
-        residual(out, bs, qs_, qs, nq, buf);
-      }
-    };
-    if (resident) {
-      rows(0, m, slab);
+    if constexpr (kDirect) {
+      direct_residual(out, bs, qs_);
     } else {
-      ring_drain<kStage, F::kStages>(
-          slab, nst, [&](int s, float* dst) { issue(s, dst); },
-          [&](int s, const float* buf) { rows(s * QB, min(QB, m - s * QB), buf); });
+      auto rows = [&](int qs, int nq, const float* buf) {
+        if constexpr (kGlobal) {
+          entry_residual(out, bs, qs_, qs, nq, buf);
+        } else {
+          residual(out, bs, qs_, qs, nq, buf);
+        }
+      };
+      if (resident) {
+        rows(0, m, slab);
+      } else {
+        ring_drain<kStage, F::kStages>(
+            slab, nst, [&](int s, float* dst) { issue(s, dst); },
+            [&](int s, const float* buf) { rows(s * QB, min(QB, m - s * QB), buf); });
+      }
     }
   }
-  // a stream's first stages (nothing when resident or without rows)
+  // a stream's first stages (nothing when resident, without rows or without
+  // a ring)
   __device__ __forceinline__ void stream_prologue() const {
-    ring_prologue<kStage, F::kStages>(slab, nst, [&](int s, float* dst) { issue(s, dst); });
+    if constexpr (!kDirect)
+      ring_prologue<kStage, F::kStages>(slab, nst, [&](int s, float* dst) { issue(s, dst); });
+  }
+  // ---- the passes in place (2048 columns) ----
+  // row q's X part from the CTA's first entry e0 on, and its x part shifted
+  // so that entry jx (LA <= jx < E) of [X | x] sits at index jx
+  __device__ __forceinline__ const float* row_X(int q) const {
+    return p->G + static_cast<size_t>(q) * NN + e0;
+  }
+  __device__ __forceinline__ const float* row_x(int q) const {
+    return p->g + static_cast<size_t>(q) * n + i0 - LA;
+  }
+  // each row's partial over the owned entries at the weights sown[0, E) into
+  // out[b bs + q qs_], as entry_residual sums it (every thread its entries
+  // of X in increasing i, then its entry of x; each warp's butterfly, then
+  // the warps in order), the rows read in place, kSub entries a load batch
+  __device__ __forceinline__ void direct_residual(float* out, size_t bs, size_t qs_) const {
+    const int t = threadIdx.x, lane = t % 32, warp = t / 32, nA = entries_A(), jx = entry_x();
+    float* const red = scr + F::kScratch - kRowGroup * (kThreads / 32);
+    for (int qb = 0; qb < m; qb += kRowGroup) {
+      const int nr = min(kRowGroup, m - qb);
+      for (int r = 0; r < nr; ++r) {
+        const float* const rA = row_X(qb + r) + t;
+        float v = 0.0f;
+#pragma unroll 1
+        for (int i0_ = 0; i0_ < nA; i0_ += kSub) {
+          float g[kSub];
+#pragma unroll
+          for (int i = 0; i < kSub; ++i) g[i] = i0_ + i < nA ? __ldg(rA + kThreads * (i0_ + i)) : 0.0f;
+#pragma unroll
+          for (int i = 0; i < kSub; ++i)
+            if (i0_ + i < nA) v = fmaf(g[i], sown[t + kThreads * (i0_ + i)], v);
+        }
+        if (jx < E) v = fmaf(__ldg(row_x(qb + r) + jx), sown[jx], v);
+        v = warp_sum(v);
+        if (lane == 0) red[warp * kRowGroup + r] = v;
+      }
+      __syncthreads();
+      if (t < nr) {
+        float sum = 0.0f;
+        for (int w = 0; w < kThreads / 32; ++w) sum += red[w * kRowGroup + t];
+        out[b * bs + (qb + t) * qs_] = sum;
+      }
+      __syncthreads();
+    }
+  }
+  // the dense adjoint of the owned entries into sown[0, E), the rows read in
+  // place: a thread's entries kSub at a time, each sub-span a pass over the
+  // rows in increasing q (its x entry in the first), so that every entry's
+  // sum has one order whatever the split
+  __device__ __forceinline__ void direct_adjoint() const {
+    const int t = threadIdx.x, nA = entries_A(), jx = entry_x();
+#pragma unroll 1
+    for (int i0_ = 0; i0_ < nA || (i0_ == 0 && jx < E); i0_ += kSub) {
+      float acc[kSub], ax = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) acc[i] = 0.0f;
+      for (int q = 0; q < m; ++q) {
+        const float w = yd(q);
+        const float* const rA = row_X(q) + t + kThreads * i0_;
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+          if (i0_ + i < nA) acc[i] = fmaf(w, __ldg(rA + kThreads * i), acc[i]);
+        if (i0_ == 0 && jx < E) ax = fmaf(w, __ldg(row_x(q) + jx), ax);
+      }
+#pragma unroll
+      for (int i = 0; i < kSub; ++i)
+        if (i0_ + i < nA) sown[t + kThreads * (i0_ + i)] = acc[i];
+      if (i0_ == 0 && jx < E) sown[jx] = ax;
+    }
+  }
+  // adjoint_pass in place: the residual first, at the weights in sown, then
+  // the adjoint into sown
+  __device__ __forceinline__ void direct_pass(float* out, size_t bs, size_t qs_,
+                                              bool with_residual) const {
+    if (with_residual) direct_residual(out, bs, qs_);
+    __syncthreads();               // every lane done with the weights in sown
+    direct_adjoint();
+    __syncthreads();
   }
 };
 
@@ -1650,22 +1762,33 @@ inline auto norm_kernel() {
   }
 }
 
+// What grid_ctas last computed for a form: the device, the shared bytes,
+// the CTAs, and the kernel it was computed for (a static of a function
+// template may be one object for every library of a process that defines
+// it, such as a build of another checkout loaded beside this one, whose
+// kernels would then go without their shared-memory attribute).
+template <bool kCuts, int Cols, bool kFar>
+struct GridCache {
+  static inline int dev = -1, smem = -1, ctas = 0;
+  static inline const void* owner = nullptr;
+};
+
 // The grid of a form with smem bytes a CTA, into *P: as many CTAs as the
 // card holds at once (each SM's share times the SMs) of every kernel of the
 // form, the block's two forms and the norm, so that they run one grid and
 // their sums one order.  Returns 0, a CUDA error or kErrNoCluster.
 template <bool kCuts, int Cols, bool kFar>
 int grid_ctas(int smem, int* P) {
-  static int cached[3] = {-1, -1, 0};   // device, smem, CTAs
+  using C = GridCache<kCuts, Cols, kFar>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (cached[0] != dev || cached[1] != smem) {
+  const void* kernels[3] = {
+      reinterpret_cast<const void*>(block_kernel<false, kCuts, Cols, kFar>()),
+      reinterpret_cast<const void*>(block_kernel<true, kCuts, Cols, kFar>()),
+      reinterpret_cast<const void*>(norm_kernel<kCuts, Cols, kFar>())};
+  if (C::dev != dev || C::smem != smem || C::owner != kernels[0]) {
     int fewest = 1 << 30, sms = 0;
-    const void* kernels[3] = {
-        reinterpret_cast<const void*>(block_kernel<false, kCuts, Cols, kFar>()),
-        reinterpret_cast<const void*>(block_kernel<true, kCuts, Cols, kFar>()),
-        reinterpret_cast<const void*>(norm_kernel<kCuts, Cols, kFar>())};
     for (const void* kernel : kernels) {
       int per_sm = 0;
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1677,11 +1800,12 @@ int grid_ctas(int smem, int* P) {
     }
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    cached[0] = dev;
-    cached[1] = smem;
-    cached[2] = fewest * sms;
+    C::dev = dev;
+    C::smem = smem;
+    C::ctas = fewest * sms;
+    C::owner = kernels[0];
   }
-  *P = cached[2];
+  *P = C::ctas;
   return *P < 1 ? kErrNoCluster : 0;
 }
 
@@ -1749,7 +1873,8 @@ struct FormLaunch {
   static int ctas(int smem, int* P) { return grid_ctas<kCuts, Cols, kFar>(smem, P); }
 };
 
-// a form's launches at cols (one of the four widths)
+// a form's launches at cols (one of the four widths up to 1024; the 2048-
+// column forms go through vast_call)
 template <bool kCuts, bool kFar, class Fn>
 int at_width(int cols, Fn fn) {
   switch (cols) {
@@ -1760,7 +1885,8 @@ int at_width(int cols, Fn fn) {
   }
 }
 
-// What pdhg_grid.cu's entry points ask of a far form: a launch of its
+// What pdhg_grid.cu's entry points ask of a form built in a translation
+// unit of its own (the far forms; the 2048-column forms): a launch of its
 // block, checked block or norm, or its grid, at column width cols.
 struct FarCall {
   enum Op { kBlock, kChecked, kNorm, kCtas } op;
@@ -1774,23 +1900,34 @@ struct FarCall {
   int* grid;                       // the CTAs (kCtas: P)
   cudaStream_t st;
 };
+template <class Form>
+int call_form(Form form, const FarCall& c) {
+  switch (c.op) {
+    case FarCall::kBlock:
+    case FarCall::kChecked:
+      return form.block(c.op == FarCall::kChecked, *c.block, c.w, c.count, c.ids, c.smem, c.grid,
+                        c.st);
+    case FarCall::kNorm: return form.norm(*c.norm, c.w, c.count, c.smem, c.grid, c.st);
+    default: return form.ctas(c.smem, c.grid);
+  }
+}
 template <bool kCuts>
 int far_call(const FarCall& c) {
-  return at_width<kCuts, true>(c.cols, [&](auto form) {
-    switch (c.op) {
-      case FarCall::kBlock:
-      case FarCall::kChecked:
-        return form.block(c.op == FarCall::kChecked, *c.block, c.w, c.count, c.ids, c.smem,
-                          c.grid, c.st);
-      case FarCall::kNorm: return form.norm(*c.norm, c.w, c.count, c.smem, c.grid, c.st);
-      default: return form.ctas(c.smem, c.grid);
-    }
-  });
+  return at_width<kCuts, true>(c.cols, [&](auto form) { return call_form(form, c); });
 }
-// far_call<true> and far_call<false>, each in a translation unit of its
-// own (pdhg_grid_far.cu, pdhg_grid_far_cert.cu), built in parallel with
-// pdhg_grid.cu's forms
+// the 2048-column form, its replicas in shared memory or (far) not
+template <bool kCuts>
+int vast_call(const FarCall& c, bool far) {
+  return far ? call_form(FormLaunch<kCuts, kVast, true>{}, c)
+             : call_form(FormLaunch<kCuts, kVast, false>{}, c);
+}
+// far_call<true> and far_call<false>, vast_call<true> and vast_call<false>,
+// each in a translation unit of its own (pdhg_grid_far.cu,
+// pdhg_grid_far_cert.cu, pdhg_grid_vast.cu, pdhg_grid_vast_cert.cu), built
+// in parallel with pdhg_grid.cu's forms
 int far_cuts(const FarCall& c);
 int far_cert(const FarCall& c);
+int vast_cuts(const FarCall& c, bool far);
+int vast_cert(const FarCall& c, bool far);
 
 }  // namespace pdhg_grid

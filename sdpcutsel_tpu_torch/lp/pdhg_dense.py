@@ -21,7 +21,7 @@ so the solve's loop (``lp/pdhg.py::_solve_impl``) runs either route.  The
 reference runs this LP in XLA (its Pallas kernel refuses dense rows,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``): none has a Pallas counterpart.
 
-Shapes: n <= 1024, the certifier's pool (one slot of width 1, never filled:
+Shapes: n <= 2048, the certifier's pool (one slot of width 1, never filled:
 ``dense_route_refusal``), any m >= 0.  K7 takes n <= 256 and m up to what
 one CTA's shared memory holds of the rows' duals beside the grid plan's
 ring (``k7_takes``, ``dense_refusal``, ``max_dense_rows``: ~22,800 at
@@ -156,7 +156,7 @@ def max_dense_rows(n: int) -> int:
 def dense_route_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the dense route does not take n, a pool of capacity M and width
     k, and m dense rows, or None where it does: the certifier's pool (M = 1,
-    k = 1: no cut) and n <= 1024, any m (past ``max_dense_rows`` the grid
+    k = 1: no cut) and n <= 2048, any m (past ``max_dense_rows`` the grid
     route's far form without cuts)."""
     if (M, k) != (1, 1):
         return (f"the dense route takes the certifier's pool without cuts (capacity 1, "

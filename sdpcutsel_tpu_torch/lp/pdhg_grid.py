@@ -1,7 +1,7 @@
 """Wrappers of the grid route's kernels (``csrc/pdhg_grid.cu``, templates in
 ``csrc/pdhg_grid.cuh``): the PDHG solve over a cooperative grid of one CTA
 an SM, for the shapes K2's cluster (``lp/pdhg_kernel.py``) does not hold in
-its shared memory: n up to 1024, any pool larger than K2's bands leave room
+its shared memory: n up to 2048, any pool larger than K2's bands leave room
 for, and any number of a QCQP's dense rows past the few K2 holds at n > 128.
 One instance, or a batch of one shape whose instances one launch walks one
 after another, each over the whole grid.
@@ -33,20 +33,22 @@ They take the arguments of K2's, its checked form's and K6's wrappers
 (single and batched), so the solve's loops (``lp/pdhg.py::_solve_impl``,
 ``_solve_batched``) run the route as they run K2's.  The kernels come in
 two forms: a pool of cuts (k = 2..5, with its cut index) at the column
-widths 128, 256, 512 and 1024 (``pdhg_kernel.columns``), and the
-certifier's pool without cuts at 512 and 1024 columns, which the dense
+widths 128, 256, 512, 1024 and 2048 (``pdhg_kernel.columns``), and the
+certifier's pool without cuts at 512, 1024 and 2048 columns, which the dense
 route (``lp/pdhg_dense.py``) takes past n = 256 (one instance).
 ``grid_refusal`` says where the route does not take a shape (n outside
-1..1024, k outside 2..5).  The reference runs these shapes in XLA (its
+1..2048, k outside 2..5).  The reference runs these shapes in XLA (its
 Pallas kernel takes n <= 128, a pool of at most 1024 slots and no dense row,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``).
 
 The layout (``block_words``) keeps the owned entries' state, the cut weights
 and the dense rows' duals in a CTA's shared memory and gives the rest to the
 dense rows' owned segments, resident for the launch where they fit and
-streamed otherwise; at 1024 columns the owned entries' state stays in
-global memory (the outputs, updated in place, and the scratch), since a
-CTA owns up to ~7,950 entries there.  Where the replicas of the weights
+streamed otherwise; at 1024 and 2048 columns the owned entries' state
+stays in global memory (the outputs, updated in place, and the scratch),
+since a CTA owns up to ~7,950 and ~31,800 entries there, and at 2048
+columns the passes read the dense rows in place, a row's span being larger
+than a ring stage.  Where the replicas of the weights
 and of the duals do not fit beside the rest (``grid_form``), or a CTA would
 own more than 512 slots, the kernels' far form takes the shape: no
 replica, the passes reading yD and the weights from global memory, each
@@ -80,11 +82,11 @@ from .pdhg_kernel import (_ERRORS, NMAX, SMEM_MAX, _checked_args, check_record, 
                           pdhg_block_batched_plain, pdhg_block_plain,
                           pdhg_block_steps_batched_plain, pdhg_block_steps_plain, steps_record)
 
-GRID_NMAX = 1024            # csrc/pdhg_common.cuh kHuge: the largest n the route takes
+GRID_NMAX = 2048            # csrc/pdhg_common.cuh kVast: the largest n the route takes
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads: a CTA's slots in the shared form
 # csrc/pdhg_grid.cu GridForm<Cols>: (kMaxE, kChunks, kScratch, kStages, kState) by column width
 FORMS = {128: (496, 1, 2048, 4, 8), 256: (500, 1, 2048, 4, 8), 512: (2036, 4, 8192, 3, 8),
-         1024: (8180, 1, 2048, 4, 0)}
+         1024: (8180, 1, 2048, 4, 0), 2048: (31808, 1, 2304, 0, 0)}
 _STAGE = 8192               # kStage: floats a ring stage
 _SMEM_WORDS = SMEM_MAX // 4
 _NS, _ND = 10, 6            # kNS: a check point's sums; kND: the distances' partials
@@ -102,15 +104,16 @@ def block_words(n: int, M: int, m: int, cuts: bool, far: bool = False) -> int:
     form and the norm at (n, pool capacity M, m dense rows): the sum of
     ``csrc/pdhg_grid.cuh``'s ``grid_layout`` at n's column width (the
     CTA's slices, the scratch, the slab of the dense rows' owned segments, which takes what
-    the rest leaves and at least the ring, none without dense rows; the
-    replicas of yD and, with cuts, of the pool's weights, none in the far
-    form; the owned entries' buffer and their eight state arrays, none at
-    1024 columns, where the state lives in global memory)."""
+    the rest leaves and at least the ring, none without dense rows or at
+    2048 columns, where the passes read the rows in place; the replicas of
+    yD and, with cuts, of the pool's weights, none in the far form; the
+    owned entries' buffer and their eight state arrays, none at 1024 and
+    2048 columns, where the state lives in global memory)."""
     kmax, _, scratch, stages, state = FORMS[columns(n)]
     replicas = 0 if far else m + (M if cuts else 0)
     rest = _META + scratch + replicas + (1 + state) * kmax
     free4 = (_SMEM_WORDS - rest) & ~3
-    slab = max(free4, stages * _STAGE) if m > 0 else 0
+    slab = max(free4, stages * _STAGE) if m * stages > 0 else 0
     return _META + scratch + slab + replicas + kmax + state * kmax
 
 
@@ -137,7 +140,7 @@ def norm_work_words(n: int, m: int, M: int, P: int, cuts: bool) -> int:
 
 def grid_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the grid route does not take n, a pool of capacity M and width k,
-    and m dense rows, or None where it does: 1 <= n <= 1024 and k = 2..5,
+    and m dense rows, or None where it does: 1 <= n <= 2048 and k = 2..5,
     any M >= 1 and m >= 0 (the far form takes what the shared layout does
     not hold)."""
     if not 1 <= n <= GRID_NMAX:

@@ -15,8 +15,11 @@ one takes the table as it is.  It runs K1's and K3's tensor-core body
 (``csrc/score_mma.cuh``), one instantiation per k.
 
 The scoring kernels (K1, K3 and this one) read candidate c's rows at 32-bit
-offsets (``width c + a``): ``offset_refusal`` is the rule their wrappers
-raise with past 2^31 words.
+offsets (``width c + a``): ``offset_refusal`` is the rule of one launch.
+K1's and this kernel's wrappers score a larger table in several launches
+(``launch_ranges``), each on a contiguous view of the table and of its
+outputs below 2^31 words; a candidate's scores depend on its own row alone,
+so the split changes no bit.
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``fused_score.launches`` counts kernel launches, and
@@ -49,22 +52,34 @@ def offset_refusal(kernel: str, rows: int, width: int) -> str | None:
     return None
 
 
+def launch_ranges(rows: int, width: int, max_rows: int | None = None) -> list[tuple[int, int]]:
+    """The launches that score ``rows`` candidates whose widest array has
+    ``width`` words a candidate: [start, stop) ranges covering [0, rows) in
+    order, each of at most ``max_rows`` rows (by default the most whose
+    rows x width stay below 2^31, ``offset_refusal``'s rule), in near-equal
+    parts.  One range where one launch takes the table (none for no rows)."""
+    most = (OFFSET_LIMIT - 1) // width
+    most = most if max_rows is None else min(most, max_rows)
+    if most < 1:
+        raise ValueError(f"launch_ranges: max_rows must be >= 1, got {max_rows}")
+    parts = -(-rows // most)
+    return [(rows * i // parts, rows * (i + 1) // parts) for i in range(parts)]
+
+
 def fused_score_plain(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
     """Twin: features + MLP + struct-of-arrays Jacobi over the table."""
     nn = scale * torch.relu(mlp(candidate_features(triQ, x, X, table)))
     return nn, eigen.feasibility_scores_from_point(x, X, table, sweeps)
 
 
-def _launch(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
+def _launch(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int,
+            max_rows: int | None = None):
     T, k = table.shape
     n = x.shape[0]
     weights = [t.detach() for lin in mlp.layers for t in (lin.weight, lin.bias)]
     F = k * (k + 1) + k
     if k not in (2, 3, 4, 5):
         raise ValueError(f"fused_score kernel takes k = 2..5, got {k}")
-    why = offset_refusal("fused_score", T, k * (k + 1) // 2)
-    if why is not None:
-        raise ValueError(why)
     if [tuple(w.shape) for w in weights[::2]] != [(64, F), (64, 64), (1, 64)]:
         raise ValueError(f"fused_score kernel takes a {F}-64-64-1 MLP for k = {k}")
     if table.dtype != torch.int32:
@@ -76,23 +91,30 @@ def _launch(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
             or triQ.shape != (T, k * (k + 1) // 2) or scale.shape != (T,)):
         raise ValueError("fused_score kernel: shape or device mismatch")
     lib = _build.lib()
-    args = [t.contiguous() for t in (table, x, X, triQ, scale, *weights)]
+    table, triQ, scale = (t.contiguous() for t in (table, triQ, scale))
+    shared = [t.contiguous() for t in (x, X)]
+    weights = [t.contiguous() for t in weights]
     nn = torch.empty((T,), dtype=torch.float32, device=x.device)
     feas = torch.empty_like(nn)
-    err = lib.fused_score_launch(
-        T, n, k, sweeps, *(t.data_ptr() for t in args), nn.data_ptr(),
-        feas.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fused_score_launch")
-    fused_score.launches += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for s, e in launch_ranges(T, k * (k + 1) // 2, max_rows):
+        rows = (table[s:e], *shared, triQ[s:e], scale[s:e], *weights)
+        err = lib.fused_score_launch(e - s, n, k, sweeps, *(t.data_ptr() for t in rows),
+                                     nn[s:e].data_ptr(), feas[s:e].data_ptr(), stream)
+        _build.check(err, "fused_score_launch")
+        fused_score.launches += 1
     return nn, feas
 
 
-def fused_score(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int):
-    """(nn, feas), each (T,), for the candidates of ``table``."""
+def fused_score(x, X, table, triQ, scale, mlp: MLPScorer, sweeps: int, *,
+                _max_rows: int | None = None):
+    """(nn, feas), each (T,), for the candidates of ``table``, in the
+    launches of ``launch_ranges`` (``_max_rows`` forces smaller ones:
+    measurements only)."""
     if x.device.type == "cpu":
         return fused_score_plain(x, X, table, triQ, scale, mlp, sweeps)
     if x.device.type == "cuda":
-        return _launch(x, X, table, triQ, scale, mlp, sweeps)
+        return _launch(x, X, table, triQ, scale, mlp, sweeps, _max_rows)
     raise ValueError(f"fused_score: no kernel for device {x.device}")
 
 

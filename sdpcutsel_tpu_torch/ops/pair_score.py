@@ -17,6 +17,10 @@ MLP's two products on the tensor cores in split TF32 (``csrc/score_mma.cuh``).
 The pair layout's valid slots run in lexicographic order, so the
 lexicographic table selects as the reference's pair route does.
 
+A table past the kernel's 32-bit offsets (3 C(n, 3) >= 2^31 from n = 1,627
+on) is scored in several launches (``fused_score.launch_ranges``), each on a
+contiguous view of the table, nn and feas: two at n = 2048.
+
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pair_score.launches`` counts kernel launches, and
 ``pair_score.plain_launches`` the twin's calls on CUDA tensors that a caller
@@ -31,7 +35,7 @@ import torch
 from .. import _build
 from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer
-from .fused_score import fused_score_plain, offset_refusal
+from .fused_score import fused_score_plain, launch_ranges
 
 SWEEPS = 5      # Jacobi sweeps on the 4 x 4 Z(rho), as in the reference's scoring
 _LANES = 128
@@ -69,15 +73,12 @@ def pair_score_plain(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS):
     return fused_score_plain(x, X, table, triQ, scale, mlp, sweeps)
 
 
-def _launch(x, X, Q, table, mlp: MLPScorer, sweeps: int):
+def _launch(x, X, Q, table, mlp: MLPScorer, sweeps: int, max_rows: int | None = None):
     T, k = table.shape
     n = x.shape[0]
     weights = [t.detach() for lin in mlp.layers for t in (lin.weight, lin.bias)]
     if k != 3 or [tuple(w.shape) for w in weights[::2]] != [(64, 15), (64, 64), (1, 64)]:
         raise ValueError("pair_score kernel takes k = 3 and a 15-64-64-1 MLP")
-    why = offset_refusal("pair_score", T, 3)
-    if why is not None:
-        raise ValueError(why)
     if table.dtype != torch.int32:
         raise ValueError("pair_score kernel takes an int32 table")
     for t in (x, X, Q, *weights):
@@ -86,23 +87,29 @@ def _launch(x, X, Q, table, mlp: MLPScorer, sweeps: int):
     if table.device != x.device or X.shape != (n, n) or Q.shape != (n, n):
         raise ValueError("pair_score kernel: shape or device mismatch")
     lib = _build.lib()
-    args = [t.contiguous() for t in (table, x, X, Q, *weights)]
+    table = table.contiguous()
+    args = [t.contiguous() for t in (x, X, Q, *weights)]
     nn = torch.empty((T,), dtype=torch.float32, device=x.device)
     feas = torch.empty_like(nn)
-    err = lib.pair_score_launch(
-        T, n, sweeps, *(t.data_ptr() for t in args), nn.data_ptr(),
-        feas.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "pair_score_launch")
-    pair_score.launches += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for s, e in launch_ranges(T, 3, max_rows):
+        err = lib.pair_score_launch(
+            e - s, n, sweeps, table[s:e].data_ptr(), *(t.data_ptr() for t in args),
+            nn[s:e].data_ptr(), feas[s:e].data_ptr(), stream)
+        _build.check(err, "pair_score_launch")
+        pair_score.launches += 1
     return nn, feas
 
 
-def pair_score(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS):
-    """(nn, feas), each (T,), for the candidates of ``table``."""
+def pair_score(x, X, Q, table, mlp: MLPScorer, sweeps: int = SWEEPS, *,
+               _max_rows: int | None = None):
+    """(nn, feas), each (T,), for the candidates of ``table``, in the
+    launches of ``fused_score.launch_ranges`` (``_max_rows`` forces smaller
+    ones: measurements only)."""
     if x.device.type == "cpu":
         return pair_score_plain(x, X, Q, table, mlp, sweeps)
     if x.device.type == "cuda":
-        return _launch(x, X, Q, table, mlp, sweeps)
+        return _launch(x, X, Q, table, mlp, sweeps, _max_rows)
     raise ValueError(f"pair_score: no kernel for device {x.device}")
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..cuts.enumerate import combinations_table, combinations_table_on
 from ..ops.pair_score import build_pair_layout
 from ..ops.topk import masked_topk
 from . import distributed
@@ -56,6 +57,23 @@ def shard_candidates(table: np.ndarray, mesh: Mesh, block: int = 1, device=None)
     gets its own shard."""
     padded, valid = pad_table(np.asarray(table), mesh.cand * block)
     return _place(np.ascontiguousarray(padded, dtype=np.int32), valid, mesh, device)
+
+
+def shard_combinations(n: int, k: int, mesh: Mesh, device=None):
+    """``shard_candidates(combinations_table(n, k), mesh, device=device)``:
+    on a one-process mesh the table is written on the device
+    (``combinations_table_on``, no host copy), padded there; a distributed
+    rank takes its shard of the host's table."""
+    if mesh.distributed:
+        return shard_candidates(combinations_table(n, k), mesh, device=device)
+    table = combinations_table_on(n, k, device or mesh.device or "cuda")
+    T = table.shape[0]
+    pad = -(-T // mesh.cand) * mesh.cand - T
+    if pad:
+        table = torch.cat([table, table[:1].expand(pad, k)])
+    valid = torch.ones(T + pad, dtype=torch.bool, device=table.device)
+    valid[T:] = False
+    return table, valid
 
 
 def shard_pair_candidates(n: int, mesh: Mesh, block: int = 1024, device=None):

@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 
 import numpy as np
 import torch
 
-from .cuts.enumerate import combinations_table
 from .instances import generate_spar, load_or_generate
 from .ops.launches import launch_counts
 from .parallel import distributed as dist
@@ -46,7 +46,7 @@ from .parallel.mesh import make_mesh
 from .parallel.round import (certify_batched_f64, certify_scan_f64, init_batched_state,
                              make_sharded_round_step, make_sharded_scan_step,
                              shard_batched_state)
-from .parallel.sharding import shard_candidates
+from .parallel.sharding import shard_combinations
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,10 +95,9 @@ def main(argv=None) -> int:
     state = shard_batched_state(init_batched_state(
         np.stack([i.Q for i in insts]), np.stack([i.c for i in insts]), args.capacity, 3,
         device=dev), mesh)
-    table_np = combinations_table(n, 3)
-    table, valid = shard_candidates(table_np, mesh, device=dev)
+    table, valid = shard_combinations(n, 3, mesh, device=dev)
     print(f"[rank {rank}] mesh {args.data}x{args.cand}: {state.c.shape[0]} of {len(insts)} "
-          f"instances, {table.shape[0]} of {table_np.shape[0]} candidate rows", flush=True)
+          f"instances, {table.shape[0]} of {math.comb(n, 3)} candidate rows", flush=True)
     knobs = dict(lp_iters=args.lp_iters, sel_size=args.sel_size, strategy=args.strategy)
     t0 = time.perf_counter()
     if args.use_scan:

@@ -119,27 +119,31 @@ def test_dense_route_takes_the_certifier_past_n256(n, m):
 
 @pytest.mark.parametrize("M,k,m", [(1024, 3, 0), (1024, 5, 25), (1, 1, 368)])
 def test_n513_is_refused_by_every_route(M, k, m):
-    """n = 1025, past the 1024-column form, is refused on CUDA under "auto"
-    and "on", naming n <= 1024, with no fall back to the plain loop; "off"
-    runs plain.  n = 513 is taken now."""
-    route, why = route_refusal(1025, M, k, m)
-    assert "n <= 1024" in why
+    """n = 2049, past the 2048-column form, is refused on CUDA under "auto"
+    and "on", naming n <= 2048, with no fall back to the plain loop; "off"
+    runs plain.  n = 513 and n = 1025 are taken now, on the route that
+    takes n = 2048."""
+    route, why = route_refusal(2049, M, k, m)
+    assert "n <= 2048" in why
     if route == "grid":                # every route's reason: K2's first
         assert why.startswith("pdhg_block kernel takes 1 <= n <= 256")
     for use_kernel in ("auto", "on"):
-        with pytest.raises(ValueError, match="n <= 1024"):
-            kernel_route(use_kernel, CUDA, 1025, M, k, m)
-    assert kernel_route("off", CUDA, 1025, M, k, m) == "plain"
+        with pytest.raises(ValueError, match="n <= 2048"):
+            kernel_route(use_kernel, CUDA, 2049, M, k, m)
+    assert kernel_route("off", CUDA, 2049, M, k, m) == "plain"
     assert route_refusal(513, M, k, m)[1] is None
+    assert route_refusal(1025, M, k, m) == (route, None)
+    assert kernel_route("auto", CUDA, 1025, M, k, m) == route
 
 
 def test_grid_refusal_reasons():
     """Past a CTA's shared memory the route takes the pool in its far form;
-    cuts of width 1..6 and n outside 1..1024 are refused by name; K2's
+    cuts of width 1..6 and n outside 1..2048 are refused by name; K2's
     reason comes first where neither takes a shape."""
     assert "k = 2..5" in tgrid.grid_refusal(300, 1024, 6, 0)
-    assert "n <= 1024" in tgrid.grid_refusal(0, 1024, 3, 0)
-    assert "n <= 1024" in tgrid.grid_refusal(1025, 1024, 3, 0)
+    assert "n <= 2048" in tgrid.grid_refusal(0, 1024, 3, 0)
+    assert "n <= 2048" in tgrid.grid_refusal(2049, 1024, 3, 0)
+    assert tgrid.grid_refusal(1025, 1024, 3, 0) is None
     top = max(M for M in range(1024, 40000, 64)
               if 4 * tgrid.block_words(512, M, 0, True) <= SMEM_MAX)
     assert not tgrid.grid_form(512, top, 0, True) and tgrid.grid_form(512, top + 64, 0, True)
@@ -154,7 +158,8 @@ def test_grid_refusal_reasons():
 def test_batched_setup_refuses_the_grid_route():
     """A batch refuses the grid route only where the route refuses the shape:
     at n = 257 with "on" its setup takes it (the batched norm's twin on the
-    CPU), at n = 1025 it raises with the route's reason."""
+    CPU), at n = 2049 it raises with the route's reason; n = 1025 is the
+    grid route's."""
     inst = generate_spar(257, 100, 1)
     pool = tcb.empty_pool(64, 3, "cpu")
     batch = tcb.CutPool(*(t[None] for t in (pool.idx, pool.lin, pool.quad, pool.rhs,
@@ -164,8 +169,9 @@ def test_batched_setup_refuses_the_grid_route():
     assert setup.route == "grid"
     assert torch.equal(setup.normK, tpdhg.estimate_norm_batched_plain(batch, 257, 30, None,
                                                                       setup.index))
-    with pytest.raises(ValueError, match="n <= 1024"):
-        tpdhg.solve_setup_batched(torch.zeros(1, 1025), batch, LPConfig(use_kernel="on"))
+    with pytest.raises(ValueError, match="n <= 2048"):
+        tpdhg.solve_setup_batched(torch.zeros(1, 2049), batch, LPConfig(use_kernel="on"))
+    assert route_refusal(1025, 64, 3, 0) == ("grid", None)
 
 
 # ---- the layouts, summed from the kernel source ---------------------------------
@@ -177,7 +183,7 @@ def _source(name: str) -> str:
 
 def _forms_from_source() -> dict:
     """GridForm<Cols>'s constants of csrc/pdhg_grid.cuh by column width."""
-    widths = {"kNarrow": 128, "kWide": 256, "kWidest": 512, "kHuge": 1024}
+    widths = {"kNarrow": 128, "kWide": 256, "kWidest": 512, "kHuge": 1024, "kVast": 2048}
     out = {}
     for name, body in re.findall(r"struct GridForm<(\w+)> \{\s*static constexpr int ([^;]*);",
                                  _source("pdhg_grid.cuh")):
@@ -195,13 +201,28 @@ def test_forms_match_the_kernel_source():
 
 
 def _python(expr: str) -> str:
-    """A C expression of the layout (+, *, &, ~, comparisons, ?:) as Python."""
-    expr = " ".join(expr.split())
-    inner = re.compile(r"\(([^()?:]*?) \? ([^()?:]*?) : ([^()?:]*?)\)")
-    while inner.search(expr):
-        expr = inner.sub(r"((\2) if (\1) else (\3))", expr)
-    top = re.match(r"^([^?]*?) \? (.*) : ([^:]*)$", expr)
-    return f"(({top[2]}) if ({top[1]}) else ({top[3]}))" if top else expr
+    """A C expression of the layout (+, *, &, ~, comparisons, ||, &&, ?:,
+    nested) as Python: each innermost parenthesised group converted first
+    and set aside."""
+    expr = " ".join(expr.split()).replace(" || ", " or ").replace(" && ", " and ")
+    groups = {}
+
+    def flat(e: str) -> str:            # no parentheses left in e
+        if "?" not in e:
+            return e
+        cond, rest = e.split("?", 1)
+        a, b = rest.split(":", 1)
+        return f"(({flat(a)}) if ({cond}) else ({flat(b)}))"
+
+    while "(" in expr:
+        m = re.search(r"\(([^()]*)\)", expr)
+        key = f"_g{len(groups)}_"
+        groups[key] = f"({flat(m.group(1))})"
+        expr = expr[:m.start()] + key + expr[m.end():]
+    expr = flat(expr)
+    while "_g" in expr:
+        expr = re.sub(r"_g\d+_", lambda g: groups[g.group(0)], expr)
+    return expr
 
 
 def _grid_layout_words(n: int, M: int, m: int, cuts: bool, far: bool = False) -> int:

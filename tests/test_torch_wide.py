@@ -88,14 +88,16 @@ def test_wide_plan_takes_few_dense_rows(n, most):
 
 def test_n257_is_refused():
     """K2's cluster refuses n = 257 (the grid route takes it, and the dense
-    route its certifier's pool); past n = 1024 the dense route refuses too."""
+    route its certifier's pool); past n = 2048 the dense route refuses too,
+    and n = 1025 is taken."""
     why = plan_refusal(257, 1024, 3, 0)
     assert "n <= 256" in why
     with pytest.raises(ValueError, match="n <= 256"):
         launch_plan(257, 1024, 3, 0)
     assert tdense.dense_refusal(257, 1, 1, 368) is None
     assert tdense.dense_refusal(513, 1, 1, 368) is None
-    assert "n <= 1024" in tdense.dense_refusal(1025, 1, 1, 368)
+    assert tdense.dense_refusal(1025, 1, 1, 368) is None
+    assert "n <= 2048" in tdense.dense_refusal(2049, 1, 1, 368)
 
 
 @pytest.mark.parametrize("n", [150, 256])
