@@ -20,8 +20,12 @@
 // (lp/pdhg_kernel.py columns) mirror it.  The grid route (pdhg_grid.cu) adds
 // a third, 512 for 256 < n <= 512, where a thread owns several entries, a
 // fourth, 1024 for 512 < n <= 1024, whose owned state lives in global
-// memory, and a fifth, 2048 for 1024 < n <= 2048, whose passes over the
-// dense rows read them where they lie.
+// memory, a fifth, 2048 for 1024 < n <= 2048, whose passes over the
+// dense rows read them where they lie, and the open form past n = 2048
+// (kOpen, a tag at least every n it takes), whose owned entries' buffer
+// lives in global memory too, so that a CTA may own any number of
+// entries; it ends only where an index of X's entries, n n + n, would
+// pass 2^31 (kOpenMax).
 //
 // The control record: every solve keeps one int32 record of kRecWords words
 // per instance in device memory (lp/pdhg.py REC_*: the same offsets, held
@@ -44,6 +48,8 @@ constexpr int kWide = 256;                   // and for 128 < n <= 256
 constexpr int kWidest = 512;                 // and for 256 < n <= 512 (pdhg_grid.cu alone)
 constexpr int kHuge = 1024;                  // and for 512 < n <= 1024 (pdhg_grid.cu alone)
 constexpr int kVast = 2048;                  // and for 1024 < n <= 2048 (pdhg_grid.cu alone)
+constexpr int kOpen = 65536;                 // the open form, 2048 < n <= kOpenMax (pdhg_grid.cu)
+constexpr int kOpenMax = 46340;              // the largest n with n n + n < 2^31
 constexpr int kMaxCluster = 16;
 constexpr float kSA = 0.70710678118654752440f;   // 1 / sqrt(2)
 constexpr float kSB = 0.57735026918962576451f;   // 1 / sqrt(3)
@@ -83,16 +89,19 @@ struct Width {
 };
 
 // The width a launch at n takes: 128 up to n = 128, 256 up to n = 256, 512
-// up to n = 512, 1024 up to n = 1024, else 2048 (0: n outside 1..2048,
-// which no kernel takes).  K2, K6 and the dense route's kernels of
-// pdhg_dense.cu take the first two; the grid route's kernels (pdhg_grid.cu)
-// all five.
+// up to n = 512, 1024 up to n = 1024, 2048 up to n = 2048, else the open
+// form (0: n outside 1..kOpenMax, which no kernel takes).  K2, K6 and the
+// dense route's kernels of pdhg_dense.cu take the first two; the grid
+// route's kernels (pdhg_grid.cu) all six.
 __host__ __device__ constexpr int cols_for(int n) {
-  return n < 1 || n > kVast
+  return n < 1 || n > kOpenMax
              ? 0
-             : (n <= kNarrow ? kNarrow
-                             : (n <= kWide ? kWide
-                                           : (n <= kWidest ? kWidest : (n <= kHuge ? kHuge : kVast))));
+             : (n <= kNarrow
+                    ? kNarrow
+                    : (n <= kWide
+                           ? kWide
+                           : (n <= kWidest ? kWidest
+                                           : (n <= kHuge ? kHuge : (n <= kVast ? kVast : kOpen)))));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -3,25 +3,31 @@
 // the kernels' templates, the layouts and the design are in pdhg_grid.cuh;
 // the far forms' launches (the replicas and the slots in global memory) are
 // built from the same templates in pdhg_grid_far.cu (with cuts) and
-// pdhg_grid_far_cert.cu (the certifier's pool), and the 2048-column forms
-// (both, at n > 1024) in pdhg_grid_vast.cu and pdhg_grid_vast_cert.cu, each
-// its own nvcc, in parallel.  `far` picks the form (lp/pdhg_grid.py
-// grid_form chooses it by shape).
+// pdhg_grid_far_cert.cu (the certifier's pool), the 2048-column forms
+// (both, at n > 1024) in pdhg_grid_vast.cu and pdhg_grid_vast_cert.cu, and
+// the open forms (both, past n = 2048) in pdhg_grid_open.cu and
+// pdhg_grid_open_cert.cu, each its own nvcc, in parallel.  `far` picks the
+// form (lp/pdhg_grid.py grid_form chooses it by shape).
 
 #include "pdhg_grid.cuh"
 
 namespace pdhg_grid {
 
-// a call of a form built apart: at 2048 columns either form, else a far
-// form; with cuts, or the certifier's pool
+// a call of a form built apart: at 2048 columns and in the open form either
+// form, else a far form; with cuts, or the certifier's pool
 int apart(bool cuts, bool far_form, const FarCall& c) {
+  if (c.cols == kOpen) return cuts ? open_cuts(c, far_form) : open_cert(c, far_form);
   if (c.cols == kVast) return cuts ? vast_cuts(c, far_form) : vast_cert(c, far_form);
   return cuts ? far_cuts(c) : far_cert(c);
 }
 
+// the forms built apart: the far forms, and every form at 2048 columns and
+// past them
+bool built_apart(int cols, bool far_form) { return far_form || cols == kVast || cols == kOpen; }
+
 // The grid of the form at (cols, cuts, far).
 int grid_of(int cols, bool cuts, bool far_form, int smem, int* P) {
-  if (far_form || cols == kVast)
+  if (built_apart(cols, far_form))
     return apart(cuts, far_form, FarCall{FarCall::kCtas, cols, nullptr, nullptr, {}, 0, nullptr,
                                          smem, P, nullptr});
   if (!cuts) {
@@ -31,23 +37,27 @@ int grid_of(int cols, bool cuts, bool far_form, int smem, int* P) {
   return at_width<true, false>(cols, [&](auto form) { return form.ctas(smem, P); });
 }
 
-// The layout of the form at cols (one of the five widths).
+// The layout of the form at cols (one of the five widths, or the open form).
 GridLayout layout_of(int cols, int n, int m, int M, bool cuts, bool far) {
   switch (cols) {
     case kNarrow: return grid_layout<kNarrow>(n, m, M, cuts, far);
     case kWide: return grid_layout<kWide>(n, m, M, cuts, far);
     case kWidest: return grid_layout<kWidest>(n, m, M, cuts, far);
     case kHuge: return grid_layout<kHuge>(n, m, M, cuts, far);
-    default: return grid_layout<kVast>(n, m, M, cuts, far);
+    case kVast: return grid_layout<kVast>(n, m, M, cuts, far);
+    default: return grid_layout<kOpen>(n, m, M, cuts, far);
   }
 }
 
-// The caller's plan against this file's: the width n's (cols_for), a pool of
-// cuts of width 2..5 at any width, the certifier's pool (capacity 1, width
-// 1) at 512, 1024 and 2048 columns and, in the far form, at any, and smem
-// the layout's.
+// The caller's plan against this file's: the width n's (cols_for; or the
+// open form forced where the 2048-column form takes n, a measurement's), a
+// pool of cuts of width 2..5 at any width, the certifier's pool (capacity 1,
+// width 1) at 512 columns and past them and, in the far form, at any, and
+// smem the layout's.
 int check_form(int n, int M, int k, int m, int cols, int cuts, int far, int smem) {
-  if (cols_for(n) == 0 || cols != cols_for(n) || m < 0 || M < 1) return kErrLayout;
+  const bool forced_open = cols == kOpen && cols_for(n) == kVast;
+  if (cols_for(n) == 0 || (cols != cols_for(n) && !forced_open) || m < 0 || M < 1)
+    return kErrLayout;
   if (cuts ? (k < 2 || k > 5) : ((!far && cols < kWidest) || M != 1 || k != 1)) return kErrLayout;
   const GridLayout L = layout_of(cols, n, m, M, cuts != 0, far != 0);
   if (4 * static_cast<size_t>(L.words) != static_cast<size_t>(smem) ||
@@ -60,7 +70,7 @@ int check_form(int n, int M, int k, int m, int cols, int cuts, int far, int smem
 // cuts, far).
 int launch_block(bool checked, const BlockArgs& a, const Walk& w, int count, const int* ids,
                  int cols, int cuts, int far_form, int smem, int* grid, cudaStream_t st) {
-  if (far_form || cols == kVast) {
+  if (built_apart(cols, far_form != 0)) {
     return apart(cuts != 0, far_form != 0,
                  FarCall{checked ? FarCall::kChecked : FarCall::kBlock, cols, &a, nullptr, w,
                          count, ids, smem, grid, st});
@@ -76,7 +86,7 @@ int launch_block(bool checked, const BlockArgs& a, const Walk& w, int count, con
 // The norm's launches of the form at (cols, cuts, far).
 int launch_norm(const NormArgs& a, const Walk& w, int B, int cols, int cuts, int far_form,
                 int smem, int* grid, cudaStream_t st) {
-  if (far_form || cols == kVast) {
+  if (built_apart(cols, far_form != 0)) {
     return apart(cuts != 0, far_form != 0,
                  FarCall{FarCall::kNorm, cols, nullptr, &a, w, B, nullptr, smem, grid, st});
   }
@@ -129,10 +139,11 @@ using namespace pdhg_grid;
 // (M = 1, k = 1), whose arrays are not read.  G (m, n, n), g (m, n), h (m,):
 // the dense rows, read in place, G and g 16-byte aligned with instance
 // strides sG and sg floats (multiples of 4, at least m n n and m n).  cols:
-// n's column width (cols_for); smem: the layout's bytes (lp/pdhg_grid.py
-// block_words); work: work_words(n, m, M, P, cuts, false, far) floats, the
-// last the barrier's counter bar, zeroed here; P the grid (pdhg_grid_ctas),
-// into *grid; far: 1 for the far form (the replicas and the slots in global
+// n's column width (cols_for; kOpen also forces the open form where kVast
+// takes n); smem: the layout's bytes (lp/pdhg_grid.py block_words); work:
+// work_words(n, m, M, P, cuts, false, far) floats, and in the open form
+// open_words(n) more, the last the barrier's counter bar, zeroed here; P the
+// grid (pdhg_grid_ctas), into *grid; far: 1 for the far form (the replicas and the slots in global
 // memory), 0 for the form whose replicas are in shared memory.  Each
 // instance computes the bits it computes alone.  Returns 0, a CUDA error,
 // kErrLayout or kErrNoCluster.
@@ -191,7 +202,7 @@ extern "C" int pdhg_grid_block_launch(
 // the record rec + b kRecWords; an instance whose record has stopped is
 // left as it is, with everything else.  Arguments as for
 // pdhg_grid_block_batched_launch, work holding work_words(n, m, M, P, cuts,
-// true, far) floats.  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
+// true, far) floats (and open_words(n) in the open form).  Returns 0, a CUDA error, kErrLayout or kErrNoCluster.
 extern "C" int pdhg_grid_block_checked_batched_launch(
     int n, int M, int k, int m, int check_every, int cols, int cuts, int smem, int B,
     int restart_period, int max_iters, float tol, int* rec, int ex, int eX, long long sG,
@@ -243,7 +254,8 @@ extern "C" int pdhg_grid_block_checked_launch(
 // (n,), Y (n, n), every instance's, read only, into out[b]; the pool and
 // dense arguments, their strides, cols, smem and far as for
 // pdhg_grid_block_batched_launch; work: norm_work_words(n, m, M, P, cuts)
-// floats, the last the barrier's counter bar.  Returns 0, a CUDA error,
+// floats (and open_words(n) in the open form), the last the barrier's
+// counter bar.  Returns 0, a CUDA error,
 // kErrLayout or kErrNoCluster.
 extern "C" int pdhg_grid_norm_batched_launch(
     int n, int M, int k, int m, int B, int iters, int cols, int cuts, int smem, int ex, int eX,

@@ -136,6 +136,23 @@
 // form; the slab takes the room the replicas leave.  Its own kernels
 // (pdhg_grid_far_kernel, pdhg_grid_far_norm_kernel) leave the shared forms'
 // SASS as it was.
+//
+// The open form (GridForm<kOpen>, every n past 2048, built in
+// pdhg_grid_open.cu and pdhg_grid_open_cert.cu) is the 2048-column form
+// with no cap on what a CTA owns: at n = 4096 a CTA owns ~127,100 entries,
+// whose buffer (508 KB) no CTA's shared memory holds, and ~31 entries of x,
+// more than its 16 warps.  So the owned entries' buffer (the dense
+// adjoint's sums, the residual's weights) lives in the global scratch, each
+// CTA's slice of [X | x] after the last one's (open_words), and
+// the owned x entries' state in place in the outputs (x, its sum), their
+// row and column sums in the scratch: warp w takes entries i0 + w + 16 j,
+// lane 0 stepping them in order.  The norm reads y where it lies, not from
+// a copy in the CTA's scratch (n floats past n = 2048), in two buffers in
+// turn, since C reads the iterate while it writes the next.  Every sum keeps kVast's order (each
+// entry's adjoint over q in increasing order, each row's residual over a
+// thread's entries in increasing i, its warp's butterfly, then the warps),
+// so a shape either form takes gives the same bits in both.  The one bound
+// left is the 32-bit index of X's entries, n n + n < 2^31 (kOpenMax).
 
 #pragma once
 
@@ -181,6 +198,11 @@ struct GridForm<kHuge> {
 template <>
 struct GridForm<kVast> {
   static constexpr int kMaxE = 31808, kChunks = 1, kScratch = 2304, kStages = 0, kState = 0;
+};
+// kMaxE = 0: the open form's owned entries' buffer lives in global memory
+template <>
+struct GridForm<kOpen> {
+  static constexpr int kMaxE = 0, kChunks = 1, kScratch = 2304, kStages = 0, kState = 0;
 };
 
 // sums of a check's evaluation point
@@ -243,6 +265,15 @@ __host__ __device__ inline size_t work_words(int n, int m, int M, int P, bool cu
   return NN + n + Pm + (cuts ? NN + M : 0) +
          (checked ? NN + Pm + static_cast<size_t>(P) * (2 * kNS + kND) : 0) +
          (checked && far && cuts ? M : 0) + 1;
+}
+
+// The open form's global buffers after the block's or the norm's scratch
+// (before the barrier's counter), in floats: the owned entries' buffer, by
+// CTA's slice of [X | x] (n n + n in all), the owned x entries' three sums
+// (3 n) and the norm's second buffer of y (n).
+// lp/pdhg_grid.py::open_words mirrors it.
+__host__ __device__ inline size_t open_words(int n) {
+  return static_cast<size_t>(n) * n + 5 * static_cast<size_t>(n);
 }
 
 // The norm's global scratch (work), in floats: the iterate Y (n n) and y
@@ -381,7 +412,10 @@ struct Slices {
   // the owned entries' state in global memory (GridForm kState = 0), and
   // the entries a thread takes in the passes by entry
   static constexpr bool kGlobal = F::kState == 0;
-  static constexpr int kSpan = (F::kMaxE + kThreads - 1) / kThreads;
+  static constexpr int kSpan = F::kMaxE > 0 ? (F::kMaxE + kThreads - 1) / kThreads : 1;
+  // the open form: the owned entries' buffer (sown) and the x entries' sums
+  // (xs) in the global scratch (open_buffers)
+  static constexpr bool kOpenForm = Cols == kOpen;
   // no ring: the passes read the dense rows in place (2048 columns), the
   // adjoint kSub entries a thread at a time
   static constexpr bool kDirect = F::kStages == 0;
@@ -398,6 +432,7 @@ struct Slices {
   const float* ysrc;            // the far form: the adjoint's weights, ysrc[q] yscale
   float yscale;
   const float* wsrc;            // and the cut weights
+  float* xs;                    // the open form: the owned x entries' sums, (3, n), then y
 
   __device__ __forceinline__ void init(const Problem& pr, float* sm, bool cuts) {
     p = &pr;
@@ -442,6 +477,14 @@ struct Slices {
     RL = 1;                     // the least power of two with at most 4 chunks a lane
     while (RL < 32 && RL * 4 < cr) RL <<= 1;
     RG = kThreads / RL;
+  }
+  // the open form's buffers at buf in the global scratch (open_words), set
+  // by one thread after init: the CTA's E words of the owned entries'
+  // buffer (the CTAs' [X | x] slices one after another: e0 + i0 words
+  // before this one's) and the x entries' sums, the norm's second y after them
+  __device__ __forceinline__ void open_buffers(float* buf) {
+    sown = buf + (static_cast<size_t>(e0) + i0);
+    xs = buf + (static_cast<size_t>(n) * n + n);
   }
   // the CTA's Slices, which one thread has filled (init), in its shared memory
   static __device__ __forceinline__ Slices& of(float* sm) {
@@ -950,6 +993,7 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
   float* const cdist = csum + static_cast<size_t>(P) * 2 * kNS;
   float* const wavg = cdist + static_cast<size_t>(P) * kND;
   const bool ownx = lane == 0 && warp < LB, owns = t < g.LS;
+  constexpr bool kO = Slices<Cols, kFar>::kOpenForm;   // the x entries in place, xo and axo
   if constexpr (kFar && kCuts) {       // the average's weights of the owned slots
     const float* const ayC = slots_out(a, true);
     for (int q = s0 + t; q < g.s1; q += kThreads) wavg[q] = (ayC[q] * inv) * pr.act[q];
@@ -983,7 +1027,11 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
     if (m > 0) {
       const float* const oX = own(fX, bX);
       for (int j = t; j < LA; j += kThreads) sown[j] = oX[j] * sc;
-      if (ownx) sown[LA + warp] = (pt == 0 ? rx : rax) * sc;
+      if constexpr (kO) {
+        for (int i = i0 + t; i < g.i1; i += kThreads) sown[LA + i - i0] = px[i] * sc;
+      } else {
+        if (ownx) sown[LA + warp] = (pt == 0 ? rx : rax) * sc;
+      }
       __syncthreads();
       g.shift_weights();
       g.stream_prologue();
@@ -1013,24 +1061,46 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
       const float vA = fmaxf(-kA, 0.0f), vB = fmaxf(-kSB - kB, 0.0f);
       v[kV2] += vA * vA + vB * vB;
     }
-    // the owned entries of x: gx from the point's row and column sums
-    if (warp < LB) {
-      const int i = i0 + warp;
-      float sa = 0.0f, sb = 0.0f, sc2 = 0.0f;
-      for (int c = lane; c < n; c += 32) {
-        sa += __ldcg(pyA + i * n + c) * sc;
-        sb += __ldcg(pyB + i * n + c) * sc;
-        sc2 += __ldcg(pyB + c * n + i) * sc;
+    // the owned entries of x: gx from the point's row and column sums (warp
+    // w: entry i0 + w; in the open form i0 + w + 16 j, in order, x in place)
+    if constexpr (kO) {
+      for (int i = i0 + warp; i < g.i1; i += kThreads / 32) {
+        float sa = 0.0f, sb = 0.0f, sc2 = 0.0f;
+        for (int c = lane; c < n; c += 32) {
+          sa += __ldcg(pyA + i * n + c) * sc;
+          sb += __ldcg(pyB + i * n + c) * sc;
+          sc2 += __ldcg(pyB + c * n + i) * sc;
+        }
+        sa = warp_sum(sa);
+        sb = warp_sum(sb);
+        sc2 = warp_sum(sc2);
+        if (lane == 0) {
+          float gx = kSA * sa - kSB * (sb + sc2);
+          if constexpr (kCuts) gx = gx + cut_x<kFar>(pr, i, g.cut_weights(sw));
+          if (m > 0) gx = gx + sown[LA + i - i0];
+          v[kRxm] += fminf(a.cx[i] - gx, 0.0f);
+          v[kPx] += a.cx[i] * (px[i] * sc);
+        }
       }
-      sa = warp_sum(sa);
-      sb = warp_sum(sb);
-      sc2 = warp_sum(sc2);
-      if (lane == 0) {
-        float gx = kSA * sa - kSB * (sb + sc2);
-        if constexpr (kCuts) gx = gx + cut_x<kFar>(pr, i, g.cut_weights(sw));
-        if (m > 0) gx = gx + sown[LA + warp];
-        v[kRxm] += fminf(a.cx[i] - gx, 0.0f);
-        v[kPx] += a.cx[i] * ((pt == 0 ? rx : rax) * sc);
+    } else {
+      if (warp < LB) {
+        const int i = i0 + warp;
+        float sa = 0.0f, sb = 0.0f, sc2 = 0.0f;
+        for (int c = lane; c < n; c += 32) {
+          sa += __ldcg(pyA + i * n + c) * sc;
+          sb += __ldcg(pyB + i * n + c) * sc;
+          sc2 += __ldcg(pyB + c * n + i) * sc;
+        }
+        sa = warp_sum(sa);
+        sb = warp_sum(sb);
+        sc2 = warp_sum(sc2);
+        if (lane == 0) {
+          float gx = kSA * sa - kSB * (sb + sc2);
+          if constexpr (kCuts) gx = gx + cut_x<kFar>(pr, i, g.cut_weights(sw));
+          if (m > 0) gx = gx + sown[LA + warp];
+          v[kRxm] += fminf(a.cx[i] - gx, 0.0f);
+          v[kPx] += a.cx[i] * ((pt == 0 ? rx : rax) * sc);
+        }
       }
     }
     // the owned slots: rhs . yC and the cut rows' infeasibility at the point
@@ -1147,13 +1217,25 @@ __device__ __forceinline__ void grid_check(const BlockArgs& L, const BlockArgs& 
       a.aAo[e] = 0.0f;
       a.aBo[e] = 0.0f;
     }
-    if (ownx) {
-      const int i = i0 + warp;
-      const float x = (use_avg ? rax : rx) * csc, e = x - a.zx[i];
-      dv[kDx] += e * e;
-      a.xo[i] = x;
-      a.zx[i] = x;
-      a.axo[i] = 0.0f;
+    if constexpr (kO) {
+      if (lane == 0) {
+        for (int i = i0 + warp; i < g.i1; i += kThreads / 32) {
+          const float x = (use_avg ? a.axo[i] : a.xo[i]) * csc, e = x - a.zx[i];
+          dv[kDx] += e * e;
+          a.xo[i] = x;
+          a.zx[i] = x;
+          a.axo[i] = 0.0f;
+        }
+      }
+    } else {
+      if (ownx) {
+        const int i = i0 + warp;
+        const float x = (use_avg ? rax : rx) * csc, e = x - a.zx[i];
+        dv[kDx] += e * e;
+        a.xo[i] = x;
+        a.zx[i] = x;
+        a.axo[i] = 0.0f;
+      }
     }
     const auto slot_restart = [&](int q, float yv) {
       const float y = yv * csc, e = y - a.zC[q];
@@ -1231,6 +1313,9 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
   float* const wXb = part + static_cast<size_t>(P) * m;   // with cuts: Xb
   float* const wg = wXb + NN;                               // and the weights w
   const bool ownx = lane == 0 && warp < LB, owns = kCuts && t < g.LS;
+  // the open form: the owned x entries' state in place in the outputs and
+  // their sums in the scratch (g.xs), lane 0 of warp w taking i0 + w + 16 j
+  constexpr bool kO = Slices<Cols, kFar>::kOpenForm;
 
   if (g.resident && m > 0) g.load_rows(0, m, g.slab);   // the launch's one read of the slice
   cp_async_commit();
@@ -1264,22 +1349,51 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
   // column sum of yB that its next x step takes
   float rx = 0.0f, rax = 0.0f, rsa = 0.0f, rsb = 0.0f, rsc = 0.0f;
   auto x_sums = [&](const float* yA, const float* yB) {
-    if (warp < LB) {
-      const int i = i0 + warp;
-      float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-      for (int c = lane; c < n; c += 32) {
-        sa += __ldcg(yA + i * n + c);
-        sb += __ldcg(yB + i * n + c);
-        sc += __ldcg(yB + c * n + i);
+    if constexpr (kO) {                  // lane 0's sums of its warp's entries to g.xs
+      for (int i = i0 + warp; i < g.i1; i += kThreads / 32) {
+        float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+        for (int c = lane; c < n; c += 32) {
+          sa += __ldcg(yA + i * n + c);
+          sb += __ldcg(yB + i * n + c);
+          sc += __ldcg(yB + c * n + i);
+        }
+        sa = warp_sum(sa);
+        sb = warp_sum(sb);
+        sc = warp_sum(sc);
+        if (lane == 0) {
+          float* const xs = g.xs;
+          xs[i] = sa;
+          xs[n + i] = sb;
+          xs[2 * n + i] = sc;
+        }
       }
-      rsa = warp_sum(sa);
-      rsb = warp_sum(sb);
-      rsc = warp_sum(sc);
+    } else {
+      if (warp < LB) {
+        const int i = i0 + warp;
+        float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+        for (int c = lane; c < n; c += 32) {
+          sa += __ldcg(yA + i * n + c);
+          sb += __ldcg(yB + i * n + c);
+          sc += __ldcg(yB + c * n + i);
+        }
+        rsa = warp_sum(sa);
+        rsb = warp_sum(sb);
+        rsc = warp_sum(sc);
+      }
     }
   };
-  if (ownx) {
-    rx = a.x[i0 + warp];
-    rax = a.ax[i0 + warp];
+  if constexpr (kO) {                    // the owned x entries into the outputs, where they differ
+    if (a.xo != a.x) {
+      for (int i = i0 + t; i < g.i1; i += kThreads) {
+        a.xo[i] = a.x[i];
+        a.axo[i] = a.ax[i];
+      }
+    }
+  } else {
+    if (ownx) {
+      rx = a.x[i0 + warp];
+      rax = a.ax[i0 + warp];
+    }
   }
   x_sums(a.yA, a.yB);
   float rC = 0.0f, raC = 0.0f;           // thread t: slot s0 + t's yC and its sum
@@ -1343,15 +1457,31 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
         if constexpr (!kG) S[e] = s;
       }
     }
-    if (ownx) {
-      const int i = i0 + warp;
-      float gx = kSA * rsa - kSB * (rsb + rsc);
-      if constexpr (kCuts) gx = gx + cut_x<kFar>(pr, i, g.cut_weights(sw));
-      if (m > 0) gx = gx + sown[LA + warp];
-      const float xn = fminf(fmaxf(rx - tau * (a.cx[i] - gx), 0.0f), 1.0f);
-      xb[i] = 2.0f * xn - rx;
-      rx = xn;
-      rax += xn;
+    if constexpr (kO) {                  // lane 0: its warp's entries in order, in place
+      if (lane == 0) {
+        for (int i = i0 + warp; i < g.i1; i += kThreads / 32) {
+          const float* const xs = g.xs;
+          float gx = kSA * xs[i] - kSB * (xs[n + i] + xs[2 * n + i]);
+          if constexpr (kCuts) gx = gx + cut_x<kFar>(pr, i, g.cut_weights(sw));
+          if (m > 0) gx = gx + sown[LA + i - i0];
+          const float r = a.xo[i];
+          const float xn = fminf(fmaxf(r - tau * (a.cx[i] - gx), 0.0f), 1.0f);
+          xb[i] = 2.0f * xn - r;
+          a.xo[i] = xn;
+          a.axo[i] += xn;
+        }
+      }
+    } else {
+      if (ownx) {
+        const int i = i0 + warp;
+        float gx = kSA * rsa - kSB * (rsb + rsc);
+        if constexpr (kCuts) gx = gx + cut_x<kFar>(pr, i, g.cut_weights(sw));
+        if (m > 0) gx = gx + sown[LA + warp];
+        const float xn = fminf(fmaxf(rx - tau * (a.cx[i] - gx), 0.0f), 1.0f);
+        xb[i] = 2.0f * xn - rx;
+        rx = xn;
+        rax += xn;
+      }
     }
     grid_sync(L.bar, target, P);
 
@@ -1368,7 +1498,11 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
         oX[j] = xn;
         oaX[j] += xn;
         if constexpr (kCuts) wXb[e] = xbv;
-        sown[j] = xbv;
+        if constexpr (kO) {
+          if (m > 0) sown[j] = xbv;      // the open form's buffer is global: only for rows
+        } else {
+          sown[j] = xbv;
+        }
         const float xbi = __ldcg(xb + io), xbc = __ldcg(xb + co);
         const float kA = kSA * (xbi - xbv);
         const float kB = kSB * (xbv - xbi - xbc);
@@ -1441,9 +1575,11 @@ __device__ __forceinline__ void grid_block(const BlockArgs& L, const BlockArgs& 
       a.aBo[e] = saB[j];
     }
   }
-  if (ownx) {
-    a.xo[i0 + warp] = rx;
-    a.axo[i0 + warp] = rax;
+  if constexpr (!kO) {
+    if (ownx) {
+      a.xo[i0 + warp] = rx;
+      a.axo[i0 + warp] = rax;
+    }
   }
   if (owns && !kFar) {
     a.yCo[s0 + t] = rC;
@@ -1472,7 +1608,11 @@ __device__ __forceinline__ void walk_blocks(const BlockArgs& a0, const Walk& w) 
     if (s > 0) grid_sync(a0.bar, target, g.P);
     if (threadIdx.x == 0) {
       block_args_of(a, a0, w, w.ids[s]);
-      if (s == 0) g.init(a.p, sm, kCuts);
+      if (s == 0) {
+        g.init(a.p, sm, kCuts);
+        if constexpr (Slices<Cols, kFar>::kOpenForm)
+          g.open_buffers(a0.work + work_words(g.n, g.m, a.p.M, g.P, kCuts, kCheck, kFar) - 1);
+      }
     }
     __syncthreads();
     if (a.rec[kRecStop]) continue;     // stopped: every CTA skips it
@@ -1521,23 +1661,37 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
   float* const csum = wg + (kCuts ? pr.M : 0);   // (2, P): each CTA's sums of gx^2 and Y^2
   float* const cfin = csum + 2 * P;              // (3, P): each CTA's sums of the last step
   const bool ownx = lane == 0 && warp < LB, owns = kCuts && t < g.LS;
+  // the open form: y read where it lies, no copy in the scratch (the start
+  // vector, then two buffers in turn, wy and g.xs's fourth n: a power
+  // iteration reads y in B and C while C writes the next one), the owned x
+  // entries' sums in the scratch (g.xs), lane 0 of warp w taking
+  // i0 + w + 16 j
+  constexpr bool kO = Slices<Cols, kFar>::kOpenForm;
 
   if (g.resident && m > 0) g.load_rows(0, m, g.slab);   // the launch's one read of the slice
   cp_async_commit();
   if (m > 0) g.stream_prologue();                      // a stream's first stages
   for (int j = t; j < LA; j += kThreads) sY[j] = a.Y[e0 + j];
-  float ry = ownx ? a.y[i0 + warp] : 0.0f;
+  float ry = 0.0f;
+  if constexpr (!kO) ry = ownx ? a.y[i0 + warp] : 0.0f;
   if (g.resident && m > 0) cp_async_wait<0>();
   __syncthreads();
 
   for (int it = 0;; ++it) {
     const bool last = it == L.iters;
     const float* const Yc = it == 0 ? a.Y : wY;
-    const float* const yc = it == 0 ? a.y : wy;
+    const float* yc = it == 0 ? a.y : wy;
+    if constexpr (kO) {                  // the open form's y of the last iteration, in turn
+      if (it > 0 && (it - 1) % 2 == 1) yc = g.xs + 3 * static_cast<size_t>(n);
+    }
     // ---- A: the dense rows' partials at the iterate ---------------------------
     if (m > 0) {
       for (int j = t; j < LA; j += kThreads) sown[j] = sY[j];
-      if (ownx) sown[LA + warp] = ry;
+      if constexpr (kO) {
+        for (int i = i0 + t; i < g.i1; i += kThreads) sown[LA + i - i0] = __ldcg(yc + i);
+      } else {
+        if (ownx) sown[LA + warp] = ry;
+      }
       __syncthreads();
       g.shift_weights();
       g.residual_pass(part, m, 1);
@@ -1550,7 +1704,9 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
     if (it > 0 && warp < 2)
       for (int c = lane; c < P; c += 32) fold += __ldcg(csum + static_cast<size_t>(warp) * P + c);
     float* const sy = scr + 128;
-    for (int i = t; i < n; i += kThreads) sy[i] = __ldcg(yc + i);
+    if constexpr (!kO) {
+      for (int i = t; i < n; i += kThreads) sy[i] = __ldcg(yc + i);
+    }
     // the rows' K z, unscaled (the far form: in kD's place, by the thread that
     // scales it below)
     float* const kz = kFar ? wkD : g.syD;
@@ -1577,16 +1733,26 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
         }
       }
     }
-    for (int j = t; j < LA; j += kThreads) {
-      const int e = e0 + j, io = e / n, co = e - io * n;
-      const float Z = sY[j] / nrm, zi = sy[io] / nrm;
-      const float kA = kSA * (zi - Z);
-      const float kB = kSB * (Z - zi - sy[co] / nrm);
-      if constexpr (!kG) {
-        skA[j] = kA;
-        skB[j] = kB;
+    if constexpr (kO) {                  // y where it lies
+      for (int j = t; j < LA; j += kThreads) {
+        const int e = e0 + j, io = e / n, co = e - io * n;
+        const float Z = sY[j] / nrm, zi = __ldcg(yc + io) / nrm;
+        const float kA = kSA * (zi - Z);
+        const float kB = kSB * (Z - zi - __ldcg(yc + co) / nrm);
+        v[0] += kA * kA + kB * kB;
       }
-      v[0] += kA * kA + kB * kB;
+    } else {
+      for (int j = t; j < LA; j += kThreads) {
+        const int e = e0 + j, io = e / n, co = e - io * n;
+        const float Z = sY[j] / nrm, zi = sy[io] / nrm;
+        const float kA = kSA * (zi - Z);
+        const float kB = kSB * (Z - zi - sy[co] / nrm);
+        if constexpr (!kG) {
+          skA[j] = kA;
+          skB[j] = kB;
+        }
+        v[0] += kA * kA + kB * kB;
+      }
     }
     const auto slot_row = [&](int q, const auto& p) {
       // slot q's K row at z, X at its support read from the iterate in
@@ -1597,7 +1763,13 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
       if (am != 0.0f) {
         kc = cut_residual_k(
                  k, p.idx + q * k, p.lin + q * k, p.quad + q * k * k,
-                 [&](int iu) { return sy[iu] / nrm; },
+                 [&](int iu) {
+                   if constexpr (kO) {
+                     return __ldcg(yc + iu) / nrm;
+                   } else {
+                     return sy[iu] / nrm;
+                   }
+                 },
                  [&](int iu, int iv) {
                    return __ldcg(Yc + static_cast<size_t>(iu) * n + iv) / nrm;
                  }) *
@@ -1639,18 +1811,40 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
     // for bit (the start vector is sym(.), and D forms both (i, c) and (c, i)
     // as 0.5 (gX_ic + gX_ci)), so row i of Y is also its column
     float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-    if (warp < LB) {
-      const int i = i0 + warp;
-      const float zi = sy[i] / nrm;
-      for (int c = lane; c < n; c += 32) {
-        const float zc = sy[c] / nrm, Z = __ldcg(Yc + i * n + c) / nrm;
-        sa += kSA * (zi - Z);
-        sb += kSB * (Z - zi - zc);
-        sc += kSB * (Z - zc - zi);
+    if constexpr (kO) {                  // lane 0's sums of its warp's entries to g.xs
+      for (int i = i0 + warp; i < g.i1; i += kThreads / 32) {
+        const float zi = __ldcg(yc + i) / nrm;
+        float ta = 0.0f, tb = 0.0f, tc = 0.0f;
+        for (int c = lane; c < n; c += 32) {
+          const float zc = __ldcg(yc + c) / nrm, Z = __ldcg(Yc + i * n + c) / nrm;
+          ta += kSA * (zi - Z);
+          tb += kSB * (Z - zi - zc);
+          tc += kSB * (Z - zc - zi);
+        }
+        ta = warp_sum(ta);
+        tb = warp_sum(tb);
+        tc = warp_sum(tc);
+        if (lane == 0) {
+          float* const xs = g.xs;
+          xs[i] = ta;
+          xs[n + i] = tb;
+          xs[2 * n + i] = tc;
+        }
       }
-      sa = warp_sum(sa);
-      sb = warp_sum(sb);
-      sc = warp_sum(sc);
+    } else {
+      if (warp < LB) {
+        const int i = i0 + warp;
+        const float zi = sy[i] / nrm;
+        for (int c = lane; c < n; c += 32) {
+          const float zc = sy[c] / nrm, Z = __ldcg(Yc + i * n + c) / nrm;
+          sa += kSA * (zi - Z);
+          sb += kSB * (Z - zi - zc);
+          sc += kSB * (Z - zc - zi);
+        }
+        sa = warp_sum(sa);
+        sb = warp_sum(sb);
+        sc = warp_sum(sc);
+      }
     }
     grid_sync(L.bar, target, P);
 
@@ -1672,7 +1866,13 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
     for (int j = t; j < LA; j += kThreads) {
       const int e = e0 + j;
       float gX;
-      if constexpr (kG) {                // B's kA, kB, from the same Y, y and nrm
+      if constexpr (kO) {                // B's kA, kB, from the same Y, y and nrm
+        const int io = e / n, co = e - io * n;
+        const float Z = sY[j] / nrm, zi = __ldcg(yc + io) / nrm;
+        const float kA = kSA * (zi - Z);
+        const float kB = kSB * (Z - zi - __ldcg(yc + co) / nrm);
+        gX = -kSA * kA + kSB * kB;
+      } else if constexpr (kG) {         // B's kA, kB, from the same Y, y and nrm
         const int io = e / n, co = e - io * n;
         const float Z = sY[j] / nrm, zi = sy[io] / nrm;
         const float kA = kSA * (zi - Z);
@@ -1686,7 +1886,20 @@ __device__ __forceinline__ void grid_norm(const NormArgs& L, const NormArgs& a,
       wgX[e] = gX;
     }
     float ss[2] = {0.0f, 0.0f};           // this CTA's sums of gx^2 and Y^2
-    if (ownx) {
+    if constexpr (kO) {                    // lane 0: its warp's entries in order
+      if (lane == 0) {
+        // the next y: the buffer this iteration did not read
+        float* const ynext = it % 2 == 1 ? g.xs + 3 * static_cast<size_t>(n) : wy;
+        for (int i = i0 + warp; i < g.i1; i += kThreads / 32) {
+          const float* const xs = g.xs;
+          float r = kSA * xs[i] - kSB * (xs[n + i] + xs[2 * n + i]);
+          if constexpr (kCuts) r = r + cut_x<kFar>(pr, i, g.cut_weights(sw));
+          if (m > 0) r = r + sown[LA + i - i0];
+          ynext[i] = r;
+          ss[0] += r * r;
+        }
+      }
+    } else if (ownx) {
       const int i = i0 + warp;
       ry = kSA * sa - kSB * (sb + sc);
       if constexpr (kCuts) ry = ry + cut_x<kFar>(pr, i, g.cut_weights(sw));
@@ -1725,7 +1938,11 @@ __device__ __forceinline__ void walk_norms(const NormArgs& a0, const Walk& w) {
     if (s > 0) grid_sync(a0.bar, target, g.P);
     if (threadIdx.x == 0) {
       norm_args_of(a, a0, w, w.ids[s]);
-      if (s == 0) g.init(a.p, sm, kCuts);
+      if (s == 0) {
+        g.init(a.p, sm, kCuts);
+        if constexpr (Slices<Cols, kFar>::kOpenForm)
+          g.open_buffers(a0.work + norm_work_words(g.n, g.m, a.p.M, g.P, kCuts) - 1);
+      }
     }
     __syncthreads();
     grid_norm<kCuts, Cols, kFar>(a0, a, g, target);
@@ -1812,10 +2029,12 @@ int grid_ctas(int smem, int* P) {
 // The cooperative launches of `kernel` (one of the form's) on the form's
 // grid that walk the instances ids[0..count) (ids null: 0..count-1),
 // kMaxWalk a launch, each launch's barrier counter zeroed first; what a CTA
-// owns checked against the form (entries within kMaxE, x entries within the
-// warps and, but in the far form, slots within the threads; the checked
-// form's copy of every CTA's distances within the scratch), and the walk's
-// strides against the shape.  *grid receives the CTAs.
+// owns checked against the form (entries within kMaxE and x entries within
+// the warps, in the open form x entries within the threads; but in the far
+// form, slots within the threads; the checked form's copy of every CTA's
+// distances within the scratch), and the walk's strides against the shape.
+// The open form's work holds open_words(n) more floats before the counter.
+// *grid receives the CTAs.
 template <bool kCuts, int Cols, bool kFar, class Args>
 int launch_grid(void (*kernel)(Args, Walk), const Args& a, Walk w, int count, const int* ids,
                 int smem, bool distances, int* grid, cudaStream_t st) {
@@ -1824,9 +2043,11 @@ int launch_grid(void (*kernel)(Args, Walk), const Args& a, Walk w, int count, co
   const int err = grid_ctas<kCuts, Cols, kFar>(smem, &P);
   if (err != 0) return err;
   const int n = a.p.n, m = a.p.m;
-  if ((n * n + P - 1) / P + (n + P - 1) / P > F::kMaxE || (n + P - 1) / P > kThreads / 32 ||
-      (kCuts && !kFar && (a.p.M + P - 1) / P > kThreads))
+  const long long NN = static_cast<long long>(n) * n;
+  if (Cols == kOpen ? (n + P - 1) / P > kThreads
+                    : (NN + P - 1) / P + (n + P - 1) / P > F::kMaxE || (n + P - 1) / P > kThreads / 32)
     return kErrLayout;
+  if (kCuts && !kFar && (a.p.M + P - 1) / P > kThreads) return kErrLayout;
   if (distances && 256 + P * kND > F::kScratch) return kErrLayout;
   if (count < 0 || w.ex < 0 || w.eX < 0 || w.sG % 4 || w.sg % 4 ||
       w.sG < static_cast<long long>(m) * n * n || w.sg < static_cast<long long>(m) * n)
@@ -1915,19 +2136,23 @@ template <bool kCuts>
 int far_call(const FarCall& c) {
   return at_width<kCuts, true>(c.cols, [&](auto form) { return call_form(form, c); });
 }
-// the 2048-column form, its replicas in shared memory or (far) not
-template <bool kCuts>
-int vast_call(const FarCall& c, bool far) {
-  return far ? call_form(FormLaunch<kCuts, kVast, true>{}, c)
-             : call_form(FormLaunch<kCuts, kVast, false>{}, c);
+// the 2048-column form (Cols = kVast) or the open form (kOpen), its
+// replicas in shared memory or (far) not
+template <bool kCuts, int Cols>
+int wide_call(const FarCall& c, bool far) {
+  return far ? call_form(FormLaunch<kCuts, Cols, true>{}, c)
+             : call_form(FormLaunch<kCuts, Cols, false>{}, c);
 }
-// far_call<true> and far_call<false>, vast_call<true> and vast_call<false>,
-// each in a translation unit of its own (pdhg_grid_far.cu,
-// pdhg_grid_far_cert.cu, pdhg_grid_vast.cu, pdhg_grid_vast_cert.cu), built
+// far_call<true> and far_call<false>, wide_call at kVast and at kOpen with
+// cuts and without, each in a translation unit of its own
+// (pdhg_grid_far.cu, pdhg_grid_far_cert.cu, pdhg_grid_vast.cu,
+// pdhg_grid_vast_cert.cu, pdhg_grid_open.cu, pdhg_grid_open_cert.cu), built
 // in parallel with pdhg_grid.cu's forms
 int far_cuts(const FarCall& c);
 int far_cert(const FarCall& c);
 int vast_cuts(const FarCall& c, bool far);
 int vast_cert(const FarCall& c, bool far);
+int open_cuts(const FarCall& c, bool far);
+int open_cert(const FarCall& c, bool far);
 
 }  // namespace pdhg_grid

@@ -9,6 +9,6 @@
 
 namespace pdhg_grid {
 
-int vast_cuts(const FarCall& c, bool far) { return vast_call<true>(c, far); }
+int vast_cuts(const FarCall& c, bool far) { return wide_call<true, kVast>(c, far); }
 
 }  // namespace pdhg_grid

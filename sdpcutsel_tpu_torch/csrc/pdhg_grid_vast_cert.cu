@@ -8,6 +8,6 @@
 
 namespace pdhg_grid {
 
-int vast_cert(const FarCall& c, bool far) { return vast_call<false>(c, far); }
+int vast_cert(const FarCall& c, bool far) { return wide_call<false, kVast>(c, far); }
 
 }  // namespace pdhg_grid

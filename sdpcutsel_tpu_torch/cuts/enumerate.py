@@ -5,7 +5,10 @@ lexicographic order.  ``combinations_table`` builds it once per (n, k) on the
 host and caches it (at n = 125, k = 3 a (317750, 3) int32 table, ~3.8 MB),
 for the tests and the host callers; ``combinations_table_on`` writes the
 same rows straight into a tensor on a device, with no host copy and no
-cache (at n = 2048, k = 3 the table takes 17.2 GB).
+cache (at n = 2048, k = 3 the table takes 17.2 GB).  Past what a card
+holds (137 GB at n = 4096), ``first_index_pieces`` cuts the table into
+pieces of whole first indices and ``combinations_rows_on`` writes one
+piece's rows, in the table's order, with their global row offset.
 """
 
 from __future__ import annotations
@@ -48,6 +51,50 @@ def combinations_table_on(n: int, k: int, device) -> torch.Tensor:
     out = torch.empty((math.comb(n, k), k), dtype=torch.int32, device=device)
     s = 0
     for i in range(n - k + 1):
+        rows = math.comb(n - i - 1, k - 1)
+        out[s:s + rows, 0] = i
+        out[s:s + rows, 1:] = sub[sub.shape[0] - rows:]
+        s += rows
+    return out
+
+
+def first_index_pieces(n: int, k: int, max_rows: int) -> list[tuple[int, int, int, int]]:
+    """``combinations_table(n, k)`` cut by first index into pieces of at
+    most ``max_rows`` rows (a piece holds at least one first index, however
+    many rows that has): (i0, i1, offset, rows) each, the piece the rows
+    whose first index lies in [i0, i1), ``offset`` the global index of its
+    first row, in the table's order."""
+    if not 1 <= k <= n or max_rows < 1:
+        raise ValueError(f"first_index_pieces takes 1 <= k <= n and max_rows >= 1, got n={n}, "
+                         f"k={k}, max_rows={max_rows}")
+    pieces, i0, offset, rows = [], 0, 0, 0
+    for i in range(n - k + 1):
+        r = math.comb(n - i - 1, k - 1)          # the rows whose first index is i
+        if rows and rows + r > max_rows:
+            pieces.append((i0, i, offset, rows))
+            i0, offset, rows = i, offset + rows, 0
+        rows += r
+    pieces.append((i0, n - k + 1, offset, rows))
+    return pieces
+
+
+def combinations_rows_on(n: int, k: int, i0: int, i1: int, device,
+                         sub: torch.Tensor | None = None) -> torch.Tensor:
+    """The rows of ``combinations_table(n, k)`` whose first index lies in
+    [i0, i1), in its order, as an int32 tensor written on ``device``: the
+    rows that start with i are i beside the last C(n - i - 1, k - 1) rows
+    of the table of width k - 1 over the same n (``sub``, that table on
+    ``device``, or made here).  They start at global row C(n, k) -
+    C(n - i0, k)."""
+    if not 2 <= k <= n or not 0 <= i0 <= i1 <= n - k + 1:
+        raise ValueError(f"combinations_rows_on takes 2 <= k <= n and 0 <= i0 <= i1 <= n - k + 1, "
+                         f"got n={n}, k={k}, i0={i0}, i1={i1}")
+    if sub is None:
+        sub = combinations_table_on(n, k - 1, device)
+    total = sum(math.comb(n - i - 1, k - 1) for i in range(i0, i1))
+    out = torch.empty((total, k), dtype=torch.int32, device=device)
+    s = 0
+    for i in range(i0, i1):
         rows = math.comb(n - i - 1, k - 1)
         out[s:s + rows, 0] = i
         out[s:s + rows, 1:] = sub[sub.shape[0] - rows:]

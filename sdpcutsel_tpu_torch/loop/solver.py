@@ -10,7 +10,13 @@ One round (``do_round``):
      the steered point; the certificate and the next warm start are the
      unsteered solve's;
   3. certify the f64 dual bound on the host (``dual_bound_f64``);
-  4. score every candidate of the route's table by the strategy:
+  4. score every candidate of the route's table by the strategy (past
+     n = 2048 at k = 3 the kernel-scored strategies take the piecewise
+     route: the table written, scored and selected a piece of whole first
+     indices at a time, ``PIECE_ROWS`` rows at most, ``ops/topk.py``
+     StreamedTopk keeping only the rows that can still be picked, so the
+     table is never whole on the card; the picks are the whole table's, bit
+     for bit):
        neural, feasibility, combined: a scoring kernel wrapper (the route is
                the reference's, ``loop/solver.py:173-186``):
                packed  k = 3, 66 <= n <= 128, ``pair_layout="packed"``: the
@@ -69,7 +75,7 @@ import torch
 from ..config import CutConfig, LPConfig, RunConfig
 from ..cuts.assemble import assemble_Z
 from ..cuts.eigen import batched_eigh_small
-from ..cuts.enumerate import combinations_table_on
+from ..cuts.enumerate import combinations_rows_on, combinations_table_on, first_index_pieces
 from ..cuts.generate import cuts_from_selected
 from ..cuts.triangle import triangle_select_and_generate
 from ..instances import BoxQPInstance
@@ -81,7 +87,7 @@ from ..models.scorer import MLPScorer, load_params
 from ..ops.fused_score import fused_score
 from ..ops.pair_packed import packed_layout, packed_score
 from ..ops.pair_score import SWEEPS, pair_score
-from ..ops.topk import diverse_topk, masked_topk
+from ..ops.topk import StreamedTopk, diverse_topk, masked_topk
 from ..relax.cutbuffer import CutPool, append_cuts, cut_residuals, empty_pool, purge_pool
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.debug import check_round_state
@@ -89,6 +95,8 @@ from ..utils.debug import check_round_state
 KERNEL_SCORED = ("neural", "feasibility", "combined")   # scored by K1, K3 or K4
 STRATEGIES = (*KERNEL_SCORED, "random", "optimality", "triangle")
 LEX_SWEEPS = 6      # the reference's CPU feasibility and combined scoring (cuts/eigen.py)
+PIECE_N = 2048      # past it a k = 3 round of a kernel-scored strategy goes by pieces
+PIECE_ROWS = 1 << 27  # table rows a piece holds at most (1.5 GB of rows, 0.5 GB a score)
 
 
 @dataclasses.dataclass
@@ -122,9 +130,14 @@ def select_and_generate(x, X, table, scores, cuts: CutConfig):
                                      cuts.diversity_alpha)
     else:
         _, sel, valid = masked_topk(scores, cuts.sel_size)
-    idx_sel = table[sel].long()
+    return cut_rows_at(x, X, table[sel].long(), valid, cuts), sel, valid
+
+
+def cut_rows_at(x, X, idx_sel, valid, cuts: CutConfig):
+    """eigh(Z) of the selected supports ``idx_sel`` (sel_size, k) ->
+    violated cut rows for append_cuts."""
     w, V = batched_eigh_small(assemble_Z(x, X, idx_sel))
-    return cuts_from_selected(idx_sel, w, V, cuts.viol_tol, sel_valid=valid), sel, valid
+    return cuts_from_selected(idx_sel, w, V, cuts.viol_tol, sel_valid=valid)
 
 
 def polish_lp(cfg: RunConfig) -> LPConfig:
@@ -292,10 +305,16 @@ class CutSolver(CheckpointableSolver):
     on the card unless ``device`` names another (the CPU takes the twins).
     ``score_fn(x, X, generator)``, when given, replaces the strategy's
     scores (one a row of the lexicographic ``table``); ``triangle`` still
-    takes its own path, as in the reference."""
+    takes its own path, as in the reference.  Past n = ``PIECE_N`` a k = 3
+    kernel-scored strategy takes the piecewise route (``table`` is then
+    None; ``pieces`` lists them); ``_pieces`` forces a route (tests and
+    measurements only): an int, the piecewise one with pieces of at most
+    that many rows; False, the whole table.  The
+    strategies random, optimality, triangle and a custom score_fn keep the
+    whole table at any n (torch refuses it where the card cannot hold it)."""
 
     def __init__(self, inst: BoxQPInstance, cfg: RunConfig, device="cuda",
-                 score_fn: Optional[Callable] = None):
+                 score_fn: Optional[Callable] = None, *, _pieces: int | bool | None = None):
         check_strategy(cfg, score_fn is not None)
         strat = cfg.scorer.strategy
         self.inst = inst
@@ -309,7 +328,17 @@ class CutSolver(CheckpointableSolver):
         kernel_scored = score_fn is None and strat in KERNEL_SCORED
         mode = cfg.cuts.pair_layout
         self._use_packed = kernel_scored and k == 3 and 66 <= n <= 128 and mode == "packed"
-        if self._use_packed:
+        piecewise = kernel_scored and k == 3 and not self._use_packed and (
+            n > PIECE_N if _pieces is None else _pieces is not False)
+        self.pieces = None
+        self.last_selection = None      # the piecewise route's last StreamedTopk
+        if piecewise:
+            # (i0, i1, offset, rows) by first index; each piece's rows are
+            # written from the pair table, once a round
+            self.pieces = first_index_pieces(n, 3, PIECE_ROWS if _pieces is None else _pieces)
+            self._pairs = combinations_table_on(n, 2, self.device)
+            self.table = None
+        elif self._use_packed:
             self.layout = packed_layout(n, self.device)
             self.table = self.layout.table
         else:
@@ -332,8 +361,9 @@ class CutSolver(CheckpointableSolver):
         self.polish_certificate: float | None = None     # set by polish()
         self.polish_info: dict | None = None
 
-    def _scores(self, x, X):
-        """The strategy's score of every slot of the route's table."""
+    def _scores(self, x, X, table=None):
+        """The strategy's score of every slot of the route's table (a
+        kernel-scored strategy: of ``table``'s rows where given, a piece)."""
         strat = self.cfg.scorer.strategy
         if self._score_fn is not None:
             return self._score_fn(x, X, self.generator)
@@ -344,7 +374,8 @@ class CutSolver(CheckpointableSolver):
         if self._use_packed:
             nn, feas = packed_score(x, X, self.Q, self.layout, self.mlp)
         elif self.cfg.cuts.k == 3:
-            nn, feas = pair_score(x, X, self.Q, self.table, self.mlp, self._sweeps)
+            nn, feas = pair_score(x, X, self.Q, self.table if table is None else table, self.mlp,
+                                  self._sweeps)
         else:
             nn, feas = fused_score(x, X, self.table, self.triQ, self.scale,
                                    self.mlp, self._sweeps)
@@ -355,11 +386,27 @@ class CutSolver(CheckpointableSolver):
         del feas                    # neural: freed before the selection
         return nn
 
+    def _select_pieces(self, x, X):
+        """The piecewise route's selection and cut rows: each piece's rows
+        written on the card (``combinations_rows_on``), scored by K1 (its own
+        launches) and fed to StreamedTopk; the whole table's picks, bit for
+        bit.  Returns (rows for append_cuts, the selection)."""
+        cuts = self.cfg.cuts
+        sel = StreamedTopk(cuts.sel_size, cuts.diversity_alpha, 3, self.device)
+        for i0, i1, offset, _ in self.pieces:
+            rows = combinations_rows_on(self.inst.n, 3, i0, i1, self.device, self._pairs)
+            sel.add(self._scores(x, X, rows), rows, offset)
+            del rows
+        _, _, valid, picked = sel.result()
+        return cut_rows_at(x, X, picked.long(), valid, cuts), sel
+
     def _post_lp(self, x, X, pool: CutPool, yC):
         """Select -> cut rows -> purge -> append, at the scoring point (x, X).
         Returns (pool, yC, kept: the purged pool's count, a tensor)."""
         cuts = self.cfg.cuts
-        if self.cfg.scorer.strategy == "triangle":
+        if self.pieces is not None:
+            rows, self.last_selection = self._select_pieces(x, X)
+        elif self.cfg.scorer.strategy == "triangle":
             rows = triangle_select_and_generate(x, X, self.table, cuts.sel_size,
                                                 cuts.viol_tol)
         else:

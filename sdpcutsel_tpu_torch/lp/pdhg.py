@@ -408,7 +408,8 @@ def solve_lp(Q, c, pool: CutPool, state: PDHGState, cfg,
     ``cfg.use_kernel`` chooses the blocks (``lp/pdhg_kernel.py::
     kernel_route``): with "auto", on CUDA the iteration kernel K2 for a pool
     of cuts (dense rows or not) that its cluster holds, the grid route for
-    the other pools of cuts (n <= 2048), the dense route for the certifier's
+    the other pools of cuts (n <= 46,340: the open form past n = 2048), the
+    dense route for the certifier's
     pool without cuts, raising where none takes (n, capacity, k, m); the
     plain loop on the CPU, or on any device with "off".  Returns (state, info); the max-form
     bound estimate is -info['dual_obj'], the certified one dual_bound_f64.

@@ -21,7 +21,7 @@ so the solve's loop (``lp/pdhg.py::_solve_impl``) runs either route.  The
 reference runs this LP in XLA (its Pallas kernel refuses dense rows,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``): none has a Pallas counterpart.
 
-Shapes: n <= 2048, the certifier's pool (one slot of width 1, never filled:
+Shapes: n <= 46,340 (``pdhg_kernel.OPEN_NMAX``), the certifier's pool (one slot of width 1, never filled:
 ``dense_route_refusal``), any m >= 0.  K7 takes n <= 256 and m up to what
 one CTA's shared memory holds of the rows' duals beside the grid plan's
 ring (``k7_takes``, ``dense_refusal``, ``max_dense_rows``: ~22,800 at
@@ -31,7 +31,8 @@ the entries a CTA may own (``_MAX_E``, ``_MAX_E_WIDE``); past n = 256, and
 past K7's rows at n <= 256, the wrappers launch the grid route's kernels
 in their form without cuts (``lp/pdhg_grid.py``, ``csrc/pdhg_grid.cu``),
 counted there: with the rows' duals in shared memory up to ~6,800 rows for
-256 < n <= 512 and ~14,900 past n = 512, in the far form past them.  The launch
+256 < n <= 512 and ~14,900 past n = 512, in the far form past them; past
+n = 2048 the grid route's open form without cuts.  The launch
 plan goes by shape (``block_plan``), the same for the block, its checked form and the
 norm: "cta", one CTA that holds G and g in
 its shared memory for the launch (the small sandwiches, n <= ``CTA_MAX_N``),
@@ -156,8 +157,8 @@ def max_dense_rows(n: int) -> int:
 def dense_route_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the dense route does not take n, a pool of capacity M and width
     k, and m dense rows, or None where it does: the certifier's pool (M = 1,
-    k = 1: no cut) and n <= 2048, any m (past ``max_dense_rows`` the grid
-    route's far form without cuts)."""
+    k = 1: no cut) and n <= 46,340, any m (past ``max_dense_rows`` the grid
+    route's far form without cuts; past n = 2048 its open form)."""
     if (M, k) != (1, 1):
         return (f"the dense route takes the certifier's pool without cuts (capacity 1, "
                 f"width 1), got capacity {M}, width {k}")

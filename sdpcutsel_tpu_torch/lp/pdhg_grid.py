@@ -1,7 +1,7 @@
 """Wrappers of the grid route's kernels (``csrc/pdhg_grid.cu``, templates in
 ``csrc/pdhg_grid.cuh``): the PDHG solve over a cooperative grid of one CTA
 an SM, for the shapes K2's cluster (``lp/pdhg_kernel.py``) does not hold in
-its shared memory: n up to 2048, any pool larger than K2's bands leave room
+its shared memory: n up to 46,340, any pool larger than K2's bands leave room
 for, and any number of a QCQP's dense rows past the few K2 holds at n > 128.
 One instance, or a batch of one shape whose instances one launch walks one
 after another, each over the whole grid.
@@ -33,11 +33,12 @@ They take the arguments of K2's, its checked form's and K6's wrappers
 (single and batched), so the solve's loops (``lp/pdhg.py::_solve_impl``,
 ``_solve_batched``) run the route as they run K2's.  The kernels come in
 two forms: a pool of cuts (k = 2..5, with its cut index) at the column
-widths 128, 256, 512, 1024 and 2048 (``pdhg_kernel.columns``), and the
-certifier's pool without cuts at 512, 1024 and 2048 columns, which the dense
-route (``lp/pdhg_dense.py``) takes past n = 256 (one instance).
-``grid_refusal`` says where the route does not take a shape (n outside
-1..2048, k outside 2..5).  The reference runs these shapes in XLA (its
+widths 128, 256, 512, 1024 and 2048 and in the open form past n = 2048
+(``pdhg_kernel.columns``), and the certifier's pool without cuts at 512
+columns and past them, which the dense route (``lp/pdhg_dense.py``) takes
+past n = 256 (one instance).  ``grid_refusal`` says where the route does
+not take a shape (n outside 1..46,340, past which an index of X's entries
+would leave 32 bits; k outside 2..5).  The reference runs these shapes in XLA (its
 Pallas kernel takes n <= 128, a pool of at most 1024 slots and no dense row,
 ``sdpcutsel_tpu/lp/pdhg.py:291-301``).
 
@@ -48,7 +49,11 @@ streamed otherwise; at 1024 and 2048 columns the owned entries' state
 stays in global memory (the outputs, updated in place, and the scratch),
 since a CTA owns up to ~7,950 and ~31,800 entries there, and at 2048
 columns the passes read the dense rows in place, a row's span being larger
-than a ring stage.  Where the replicas of the weights
+than a ring stage.  The open form (n > 2048) is the 2048-column form with
+no cap on what a CTA owns: its owned entries' buffer and its x entries
+live in the global scratch and the outputs too (``open_words`` more
+floats), every sum in the 2048-column form's order; ``_open`` forces it
+where the 2048-column form takes n (measurements).  Where the replicas of the weights
 and of the duals do not fit beside the rest (``grid_form``), or a CTA would
 own more than 512 slots, the kernels' far form takes the shape: no
 replica, the passes reading yD and the weights from global memory, each
@@ -78,15 +83,15 @@ from ..relax.cutbuffer import CutIndex, CutPool
 from ..relax.denserows import DenseRows
 from .pdhg import (PDHGState, estimate_norm_batched_plain, estimate_norm_plain,
                    pdhg_check_batched_plain, pdhg_check_plain, start_vector)
-from .pdhg_kernel import (_ERRORS, NMAX, SMEM_MAX, _checked_args, check_record, columns,
-                          pdhg_block_batched_plain, pdhg_block_plain,
+from .pdhg_kernel import (_ERRORS, NMAX, OPEN, OPEN_NMAX, SMEM_MAX, VAST, _checked_args,
+                          check_record, columns, pdhg_block_batched_plain, pdhg_block_plain,
                           pdhg_block_steps_batched_plain, pdhg_block_steps_plain, steps_record)
 
-GRID_NMAX = 2048            # csrc/pdhg_common.cuh kVast: the largest n the route takes
+GRID_NMAX = OPEN_NMAX       # csrc/pdhg_common.cuh kOpenMax: the largest n the route takes
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads: a CTA's slots in the shared form
 # csrc/pdhg_grid.cu GridForm<Cols>: (kMaxE, kChunks, kScratch, kStages, kState) by column width
 FORMS = {128: (496, 1, 2048, 4, 8), 256: (500, 1, 2048, 4, 8), 512: (2036, 4, 8192, 3, 8),
-         1024: (8180, 1, 2048, 4, 0), 2048: (31808, 1, 2304, 0, 0)}
+         1024: (8180, 1, 2048, 4, 0), 2048: (31808, 1, 2304, 0, 0), OPEN: (0, 1, 2304, 0, 0)}
 _STAGE = 8192               # kStage: floats a ring stage
 _SMEM_WORDS = SMEM_MAX // 4
 _NS, _ND = 10, 6            # kNS: a check point's sums; kND: the distances' partials
@@ -99,7 +104,8 @@ def max_entries(n: int) -> int:
     return FORMS[columns(n)][0]
 
 
-def block_words(n: int, M: int, m: int, cuts: bool, far: bool = False) -> int:
+def block_words(n: int, M: int, m: int, cuts: bool, far: bool = False,
+                cols: int | None = None) -> int:
     """4-byte words of one CTA's shared memory for the block, its checked
     form and the norm at (n, pool capacity M, m dense rows): the sum of
     ``csrc/pdhg_grid.cuh``'s ``grid_layout`` at n's column width (the
@@ -108,8 +114,10 @@ def block_words(n: int, M: int, m: int, cuts: bool, far: bool = False) -> int:
     2048 columns, where the passes read the rows in place; the replicas of
     yD and, with cuts, of the pool's weights, none in the far form; the
     owned entries' buffer and their eight state arrays, none at 1024 and
-    2048 columns, where the state lives in global memory)."""
-    kmax, _, scratch, stages, state = FORMS[columns(n)]
+    2048 columns, where the state lives in global memory; in the open form
+    neither, the buffer in global memory too).  ``cols``: the form's width
+    where it is not n's (the open form forced)."""
+    kmax, _, scratch, stages, state = FORMS[columns(n) if cols is None else cols]
     replicas = 0 if far else m + (M if cuts else 0)
     rest = _META + scratch + replicas + (1 + state) * kmax
     free4 = (_SMEM_WORDS - rest) & ~3
@@ -130,6 +138,15 @@ def work_words(n: int, m: int, M: int, P: int, cuts: bool, checked: bool,
             + (M if checked and far and cuts else 0) + 1)
 
 
+def open_words(n: int) -> int:
+    """Floats the open form's global scratch holds past ``work_words`` or
+    ``norm_work_words`` (before the barrier's counter): the owned entries'
+    buffer, each CTA's slice of [X | x] after the last one's, the owned x
+    entries' three sums and the norm's second buffer of y
+    (``csrc/pdhg_grid.cuh``'s ``open_words``)."""
+    return n * n + 5 * n
+
+
 def norm_work_words(n: int, m: int, M: int, P: int, cuts: bool) -> int:
     """Floats of the norm's global scratch on a grid of P CTAs:
     ``csrc/pdhg_grid.cuh``'s ``norm_work_words`` (the iterate Y and y, gX, the
@@ -140,9 +157,10 @@ def norm_work_words(n: int, m: int, M: int, P: int, cuts: bool) -> int:
 
 def grid_refusal(n: int, M: int, k: int, m: int) -> str | None:
     """Why the grid route does not take n, a pool of capacity M and width k,
-    and m dense rows, or None where it does: 1 <= n <= 2048 and k = 2..5,
-    any M >= 1 and m >= 0 (the far form takes what the shared layout does
-    not hold)."""
+    and m dense rows, or None where it does: 1 <= n <= 46,340 (past it an
+    index of X's n n + n entries leaves 32 bits) and k = 2..5, any M >= 1
+    and m >= 0 (the far form takes what the shared layout does not hold).
+    Memory is torch's to refuse, at allocation."""
     if not 1 <= n <= GRID_NMAX:
         return f"the grid route takes 1 <= n <= {GRID_NMAX}, got {n}"
     if not 2 <= k <= 5:
@@ -198,11 +216,11 @@ def grid_ctas(n: int, M: int, k: int, m: int, far: bool | None = None) -> int:
     return _form(n, M, k, m, far)[2]
 
 
-def _ctas(n: int, M: int, k: int, m: int, far: bool) -> int:
+def _ctas(n: int, M: int, k: int, m: int, far: bool, cols: int) -> int:
     cuts = (M, k) != (1, 1)
     out = ctypes.c_int(0)
-    err = _build.lib().pdhg_grid_ctas(n, M, k, m, columns(n), int(cuts),
-                                      4 * block_words(n, M, m, cuts, far), int(far),
+    err = _build.lib().pdhg_grid_ctas(n, M, k, m, cols, int(cuts),
+                                      4 * block_words(n, M, m, cuts, far, cols), int(far),
                                       ctypes.byref(out))
     if err in _ERRORS:
         raise RuntimeError(f"pdhg_grid_ctas: {_ERRORS[err]} (n={n}, M={M}, m={m}, far={far})")
@@ -210,19 +228,34 @@ def _ctas(n: int, M: int, k: int, m: int, far: bool) -> int:
     return out.value
 
 
-def _form(n: int, M: int, k: int, m: int, far: bool | None = None) -> tuple[bool, int, int]:
-    """(far, shared bytes a CTA, CTAs) of a launch at (n, M, k, m): the far
-    form where ``grid_form`` says so by shape, or where the card's grid
-    would give a CTA of the shared form more than 512 pool slots; ``far``
-    forces a form (a measurement's)."""
+def _form(n: int, M: int, k: int, m: int, far: bool | None = None,
+          open_: bool = False) -> tuple[bool, int, int, int]:
+    """(far, shared bytes a CTA, CTAs, column width) of a launch at (n, M,
+    k, m): the far form where ``grid_form`` says so by shape, or where the
+    card's grid would give a CTA of the shared form more than 512 pool
+    slots; ``far`` forces a form, and ``open_`` the open form where the
+    2048-column form takes n (a measurement's)."""
     cuts = (M, k) != (1, 1)
+    cols = columns(n)
+    if open_:
+        if cols != VAST:
+            raise ValueError(f"the open form is forced only where the 2048-column form takes n "
+                             f"(1024 < n <= 2048), got n={n}")
+        cols = OPEN
     forced = far is not None
     far = grid_form(n, M, m, cuts) if far is None else bool(far)
-    P = _ctas(n, M, k, m, far)
+    P = _ctas(n, M, k, m, far, cols)
     if not (forced or far) and cuts and -(-M // P) > _THREADS:
         far = True
-        P = _ctas(n, M, k, m, far)
-    return far, 4 * block_words(n, M, m, cuts, far), P
+        P = _ctas(n, M, k, m, far, cols)
+    return far, 4 * block_words(n, M, m, cuts, far, cols), P, cols
+
+
+def _work(words: int, n: int, cols: int, dev) -> torch.Tensor:
+    """A launch's global scratch: ``words`` floats (``work_words`` or
+    ``norm_work_words``), and in the open form ``open_words(n)`` more."""
+    extra = open_words(n) if cols == OPEN else 0
+    return torch.empty(words + extra, dtype=torch.float32, device=dev)
 
 
 def _pointers(problem, d):
@@ -239,19 +272,18 @@ def _raise(err: int, what: str, n: int, M: int, m: int):
 
 
 def _launch_block(cx, cX, pool: CutPool, index: CutIndex, ins, outs, rec, iters: int,
-                  dense: DenseRows | None, far: bool | None = None) -> int:
+                  dense: DenseRows | None, far: bool | None = None, open_: bool = False) -> int:
     """The block's launch from the states ``ins`` (state, sums) into
     ``outs`` (which may be ``ins``) with the steps and stop flag of
-    ``rec``, in the form ``_form`` takes (``far`` forces one).  Returns the
-    CTAs launched."""
+    ``rec``, in the form ``_form`` takes (``far``, ``open_`` force one).
+    Returns the CTAs launched."""
     n, M, k, m, cuts, problem, d = _args(cx, cX, pool, index, (*ins, *outs), dense,
                                          "pdhg_grid_block")
-    far, smem, P = _form(n, M, k, m, far)
-    work = torch.empty(work_words(n, m, M, P, cuts, False, far), dtype=torch.float32,
-                       device=cx.device)
+    far, smem, P, cols = _form(n, M, k, m, far, open_)
+    work = _work(work_words(n, m, M, P, cuts, False, far), n, cols, cx.device)
     grid = ctypes.c_int(0)
     err = _build.lib().pdhg_grid_block_launch(
-        n, M, k, m, iters, columns(n), int(cuts), smem, rec.data_ptr(), *_pointers(problem, d),
+        n, M, k, m, iters, cols, int(cuts), smem, rec.data_ptr(), *_pointers(problem, d),
         *(t.data_ptr() for s in ins for t in s.fields()),
         *(t.data_ptr() for s in outs for t in s.fields()), work.data_ptr(),
         work[-1:].data_ptr(), ctypes.byref(grid), torch.cuda.current_stream(cx.device).cuda_stream,
@@ -263,12 +295,12 @@ def _launch_block(cx, cX, pool: CutPool, index: CutIndex, ins, outs, rec, iters:
 
 def pdhg_grid_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
                     tau: float, sigma: float, iters: int, dense: DenseRows | None = None, *,
-                    _far: bool | None = None):
+                    _far: bool | None = None, _open: bool = False):
     """Run ``iters`` PDHG iterations from ``st`` with host steps tau and
     sigma and add each iterate to ``acc``; returns new (state, acc), the
     inputs left unchanged.  ``index`` is ``build_cut_index(pool, n)``.
-    ``_far`` forces the kernels' form on CUDA (measurements only; by shape
-    otherwise)."""
+    ``_far`` forces the kernels' form on CUDA, ``_open`` the open form at
+    1024 < n <= 2048 (measurements only; by shape otherwise)."""
     if cx.device.type == "cpu":
         return pdhg_block_plain(cx, cX, pool, index, st, acc, tau, sigma, iters, dense)
     if cx.device.type == "cuda":
@@ -277,7 +309,7 @@ def pdhg_grid_block(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: 
         for o, s in zip(outs, ins):         # the certifier's pool: yC is left as it is
             o.yC.copy_(s.yC)
         _launch_block(cx, cX, pool, index, ins, outs,
-                      steps_record([tau], [sigma], cx.device)[0], iters, dense, _far)
+                      steps_record([tau], [sigma], cx.device)[0], iters, dense, _far, _open)
         return outs[0], outs[1]
     raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
 
@@ -287,7 +319,7 @@ pdhg_grid_block.launches = 0
 
 def pdhg_grid_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
                           acc: PDHGState, rec, iters: int, dense: DenseRows | None = None, *,
-                          _far: bool | None = None):
+                          _far: bool | None = None, _open: bool = False):
     """``pdhg_grid_block`` in place on (st, acc), with the steps of the
     solve's control record ``rec`` (int32 (REC_WORDS,) on the device), and
     nothing done once its stop flag is set.  Counted in
@@ -298,7 +330,8 @@ def pdhg_grid_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
         check_record(rec[None], 1, cx.device, "pdhg_grid_block")
         if not all(t.is_contiguous() for s in (st, acc) for t in s.fields()):
             raise ValueError("pdhg_grid_block: an in-place launch takes contiguous state and sums")
-        _launch_block(cx, cX, pool, index, [st, acc], [st, acc], rec, iters, dense, _far)
+        _launch_block(cx, cX, pool, index, [st, acc], [st, acc], rec, iters, dense, _far,
+                      _open)
     else:
         raise ValueError(f"pdhg_grid_block: no kernel for device {cx.device}")
 
@@ -306,7 +339,7 @@ def pdhg_grid_block_steps(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
 def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
                       anchor: PDHGState, rec, check_every: int, restart_period: int,
                       max_iters: int, tol: float, dense: DenseRows | None,
-                      far: bool | None = None):
+                      far: bool | None = None, open_: bool = False):
     """The launch of the checked block, its arguments checked and its
     pointers taken once: a function of no arguments that enqueues one launch
     (the scratch allocated once, for every step)."""
@@ -317,11 +350,10 @@ def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
         raise ValueError("pdhg_grid_block_checked kernel takes contiguous state, sums and anchor")
     if check_every < 1:
         raise ValueError(f"pdhg_grid_block_checked: check_every must be >= 1, got {check_every}")
-    far, smem, P = _form(n, M, k, m, far)
-    work = torch.empty(work_words(n, m, M, P, cuts, True, far), dtype=torch.float32,
-                       device=cx.device)
+    far, smem, P, cols = _form(n, M, k, m, far, open_)
+    work = _work(work_words(n, m, M, P, cuts, True, far), n, cols, cx.device)
     grid = ctypes.c_int(0)
-    args = (n, M, k, m, check_every, columns(n), int(cuts), smem, restart_period, max_iters,
+    args = (n, M, k, m, check_every, cols, int(cuts), smem, restart_period, max_iters,
             float(np.float32(tol)), rec.data_ptr(), *_pointers(problem, d),
             *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
             work.data_ptr(), work[-1:].data_ptr(), ctypes.byref(grid),
@@ -340,7 +372,8 @@ def _checked_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
 def grid_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc: PDHGState,
                       anchor: PDHGState, rec, check_every: int, restart_period: int,
                       max_iters: int, tol: float, dense: DenseRows | None = None,
-                      batched: bool = False, *, _far: bool | None = None):
+                      batched: bool = False, *, _far: bool | None = None,
+                      _open: bool = False):
     """The solve's step on the grid route over fixed buffers
     (``pdhg_check.checked_step``'s contract): a function of no arguments
     that runs one checked block of ``check_every`` iterations in place on
@@ -348,7 +381,7 @@ def grid_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
     batched: every argument with the instance axis first, ``rec`` (B,
     REC_WORDS), the instances walked in one launch).  CPU tensors take the
     twins, CUDA tensors one launch a step; ``_far`` forces the kernels'
-    form (measurements only)."""
+    form, ``_open`` the open form (measurements only; one instance)."""
     if cx.device.type == "cpu":
         block, check = ((pdhg_block_steps_batched_plain, pdhg_check_batched_plain) if batched
                         else (pdhg_block_steps_plain, pdhg_check_plain))
@@ -360,21 +393,24 @@ def grid_checked_step(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState, acc
         return step
     if cx.device.type != "cuda":
         raise ValueError(f"pdhg_grid_block_checked: no kernel for device {cx.device}")
-    launcher = _checked_batched_launcher if batched else _checked_launcher
-    return launcher(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
-                    max_iters, tol, dense, _far)
+    if batched:
+        return _checked_batched_launcher(cx, cX, pool, index, st, acc, anchor, rec, check_every,
+                                         restart_period, max_iters, tol, dense, _far)
+    return _checked_launcher(cx, cX, pool, index, st, acc, anchor, rec, check_every,
+                             restart_period, max_iters, tol, dense, _far, _open)
 
 
 def pdhg_grid_block_checked(cx, cX, pool: CutPool, index: CutIndex, st: PDHGState,
                             acc: PDHGState, anchor: PDHGState, rec, check_every: int,
                             restart_period: int, max_iters: int, tol: float,
-                            dense: DenseRows | None = None, *, _far: bool | None = None):
+                            dense: DenseRows | None = None, *, _far: bool | None = None,
+                            _open: bool = False):
     """One checked block of ``check_every`` iterations and its control, in
     place on (st, acc, anchor) and the solve's record ``rec``
     (``pdhg_check.pdhg_block_checked``'s contract, on the grid route).  A
     launch counts in ``pdhg_grid_block.launches`` and here."""
     grid_checked_step(cx, cX, pool, index, st, acc, anchor, rec, check_every, restart_period,
-                      max_iters, tol, dense, _far=_far)()
+                      max_iters, tol, dense, _far=_far, _open=_open)()
 
 
 pdhg_grid_block_checked.launches = 0
@@ -382,7 +418,7 @@ pdhg_grid_block_checked.launches = 0
 
 def pdhg_grid_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator | None,
                    index: CutIndex, dense: DenseRows | None = None, *,
-                   _far: bool | None = None):
+                   _far: bool | None = None, _open: bool = False):
     """||K|| 1.02 + 1e-12 of a grid-route solve after ``iters`` power
     iterations from ``start_vector(n, generator, ...)`` (None: the seed-0
     draw, kept on the device; the launch only reads it): a 0-d float32
@@ -396,13 +432,13 @@ def pdhg_grid_norm(pool: CutPool, n: int, iters: int, generator: torch.Generator
     # the start vector stands where cx and cX stand in the block's checks
     # (the same shapes); the norm reads neither
     n, M, k, m, cuts, problem, d = _args(y, Y, pool, index, (), dense, "pdhg_grid_norm")
-    far, smem, P = _form(n, M, k, m, _far)
-    work = torch.empty(norm_work_words(n, m, M, P, cuts), dtype=torch.float32, device=dev)
+    far, smem, P, cols = _form(n, M, k, m, _far, _open)
+    work = _work(norm_work_words(n, m, M, P, cuts), n, cols, dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     grid = ctypes.c_int(0)
     ptrs = _pointers(problem, d)
     err = _build.lib().pdhg_grid_norm_launch(
-        n, M, k, m, iters, columns(n), int(cuts), smem, ptrs[2], ptrs[3], ptrs[5], ptrs[6],
+        n, M, k, m, iters, cols, int(cuts), smem, ptrs[2], ptrs[3], ptrs[5], ptrs[6],
         ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(), work.data_ptr(),
         work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
         torch.cuda.current_stream(dev).cuda_stream, int(far))
@@ -465,13 +501,12 @@ def _launch_block_batched(cx, cX, pool: CutPool, index: CutIndex, ins, outs, rec
     steps and stop flag of its row of ``rec``.  Returns the CTAs launched."""
     B, n, M, k, m, problem, d, strides = _batched_args(cx, cX, pool, index, (*ins, *outs), dense,
                                                        "pdhg_grid_block")
-    far, smem, P = _form(n, M, k, m)
-    work = torch.empty(work_words(n, m, M, P, True, False, far), dtype=torch.float32,
-                       device=cx.device)
+    far, smem, P, cols = _form(n, M, k, m)
+    work = _work(work_words(n, m, M, P, True, False, far), n, cols, cx.device)
     grid = ctypes.c_int(0)
     count = int(ids.size)
     err = _build.lib().pdhg_grid_block_batched_launch(
-        n, M, k, m, iters, columns(n), 1, smem, count,
+        n, M, k, m, iters, cols, 1, smem, count,
         (ctypes.c_int * max(count, 1))(*ids.tolist()), rec.data_ptr(), *strides,
         *_pointers(problem, d), *(t.data_ptr() for s in ins for t in s.fields()),
         *(t.data_ptr() for s in outs for t in s.fields()), work.data_ptr(),
@@ -548,11 +583,10 @@ def _checked_batched_launcher(cx, cX, pool: CutPool, index: CutIndex, st: PDHGSt
         raise ValueError("pdhg_grid_block_checked kernel takes contiguous state, sums and anchor")
     if check_every < 1:
         raise ValueError(f"pdhg_grid_block_checked: check_every must be >= 1, got {check_every}")
-    far, smem, P = _form(n, M, k, m, far)
-    work = torch.empty(work_words(n, m, M, P, True, True, far), dtype=torch.float32,
-                       device=cx.device)
+    far, smem, P, cols = _form(n, M, k, m, far)
+    work = _work(work_words(n, m, M, P, True, True, far), n, cols, cx.device)
     grid = ctypes.c_int(0)
-    args = (n, M, k, m, check_every, columns(n), 1, smem, B, restart_period, max_iters,
+    args = (n, M, k, m, check_every, cols, 1, smem, B, restart_period, max_iters,
             float(np.float32(tol)), rec.data_ptr(), *strides, *_pointers(problem, d),
             *(t.data_ptr() for s in (st, acc, anchor) for t in s.fields()),
             work.data_ptr(), work[-1:].data_ptr(), ctypes.byref(grid),
@@ -607,13 +641,13 @@ def _launch_norm_batched(pool: CutPool, n: int, iters: int, generator: torch.Gen
     # block's checks; the norm reads it once, for every instance
     _, n, M, k, m, problem, d, strides = _batched_args(
         y.expand(B, n), Y.expand(B, n, n), pool, index, (), dense, "pdhg_grid_norm")
-    far, smem, P = _form(n, M, k, m)
-    work = torch.empty(norm_work_words(n, m, M, P, True), dtype=torch.float32, device=dev)
+    far, smem, P, cols = _form(n, M, k, m)
+    work = _work(norm_work_words(n, m, M, P, True), n, cols, dev)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     grid = ctypes.c_int(0)
     ptrs = _pointers(problem, d)
     err = _build.lib().pdhg_grid_norm_batched_launch(
-        n, M, k, m, B, iters, columns(n), 1, smem, *strides, ptrs[2], ptrs[3], ptrs[5], ptrs[6],
+        n, M, k, m, B, iters, cols, 1, smem, *strides, ptrs[2], ptrs[3], ptrs[5], ptrs[6],
         ptrs[7], ptrs[9], *ptrs[10:], y.data_ptr(), Y.data_ptr(), work.data_ptr(),
         work[-1:].data_ptr(), out.data_ptr(), ctypes.byref(grid),
         torch.cuda.current_stream(dev).cuda_stream, int(far))

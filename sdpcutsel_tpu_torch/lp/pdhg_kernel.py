@@ -25,8 +25,8 @@ same rule: K2 for a pool of cuts it takes, the grid route
 or number of dense rows past its shared memory), the dense route
 (``lp/pdhg_dense.py``) for the certifier's pool without cuts.  On CUDA a
 kernel route runs unless the caller asks for the plain loop ("off"): a
-shape that none takes (n > 2048, or cuts of a width outside 2..5) raises
-with the rules' reasons.  The plain blocks a solve runs on CUDA are counted in
+shape that none takes (n past the open form's 32-bit bound ``OPEN_NMAX``,
+or cuts of a width outside 2..5) raises with the rules' reasons.  The plain blocks a solve runs on CUDA are counted in
 ``pdhg_block.plain_launches``.
 
 The cut adjoint (scatter of yC-weighted coefficients into gx, gX) is
@@ -77,6 +77,8 @@ NMAX = 256                  # kWide: one thread column per matrix column up to n
 WIDEST = 512                # kWidest: the grid route's width for 256 < n <= 512
 HUGE = 1024                 # kHuge: and for 512 < n <= 1024, its owned state in global memory
 VAST = 2048                 # kVast: and for 1024 < n <= 2048, its dense rows read in place
+OPEN = 65536                # kOpen: the open form's tag, 2048 < n <= OPEN_NMAX
+OPEN_NMAX = 46340           # kOpenMax: the largest n with n n + n < 2^31 (X's entry index)
 CLUSTER = 16                # CTAs in the cluster (non-portable size; 8 is portable)
 SMEM_MAX = 232_448          # dynamic shared memory one CTA may take on the H100
 _THREADS = 512              # csrc/pdhg_common.cuh kThreads
@@ -88,14 +90,17 @@ _ERRORS = {-2: "the launch plan disagrees with the kernel's shared-memory layout
 def columns(n: int) -> int:
     """The kernels' column width at n (``csrc/pdhg_common.cuh`` cols_for):
     128 for n <= 128, 256 up to n = 256, 512 up to n = 512, 1024 up to
-    n = 1024 and 2048 above (the last three the grid route's alone,
-    ``lp/pdhg_grid.py``).  In K2 a thread owns one column, so a CTA's 512
-    threads are 512 / width row groups of width / 32 warps a row."""
+    n = 1024, 2048 up to n = 2048 and ``OPEN`` above, the open form's tag
+    (the last four the grid route's alone, ``lp/pdhg_grid.py``).  In K2 a
+    thread owns one column, so a CTA's 512 threads are 512 / width row
+    groups of width / 32 warps a row."""
     if n <= NMAX:
         return NARROW if n <= NARROW else NMAX
     if n <= WIDEST:
         return WIDEST
-    return HUGE if n <= HUGE else VAST
+    if n <= HUGE:
+        return HUGE
+    return VAST if n <= VAST else OPEN
 
 
 def _check_words(C: int) -> int:
@@ -178,7 +183,9 @@ def route_refusal(n: int, M: int, k: int, m: int) -> tuple[str, str | None]:
     K5 and K6 wherever its cluster takes the shape (``plan_refusal``), else
     the grid route (``lp/pdhg_grid.py``, ``grid_refusal``: any pool and any
     m), and where neither takes it both reasons.  The one limit left is
-    1 <= n <= 2048 (with cuts of width k = 2..5).  A pool of width 1 is a
+    1 <= n <= OPEN_NMAX = 46,340, where an index of X's entries stays within
+    32 bits (with cuts of width k = 2..5); memory is torch's to refuse, at
+    allocation.  A pool of width 1 is a
     pool without cuts: a cut has k = 2..5 entries, so no cut fits it, and
     the certifier's sentinel ``empty_pool(1, 1)`` is the one such pool.  The
     dense kernels leave its yC as it is, where the twins apply the pool's
@@ -208,8 +215,8 @@ def kernel_route(use_kernel: str, device, n: int, M: int, k: int, m: int) -> str
     device.  A kernel route on the CPU runs its wrappers' twins.  The
     reference's "auto" runs its plain loop on the accelerator outside its
     kernel's shapes (n > 128, ``sdpcutsel_tpu/lp/pdhg.py::solve_lp``); here
-    the kernels take n <= 2048, and the plain loop runs on the card only when
-    the caller asks for it with "off"."""
+    the kernels take n <= 46,340 (``OPEN_NMAX``), and the plain loop runs
+    on the card only when the caller asks for it with "off"."""
     if use_kernel == "off":
         return "plain"
     route, why = route_refusal(n, M, k, m)

@@ -19,7 +19,11 @@ lexicographic table selects as the reference's pair route does.
 
 A table past the kernel's 32-bit offsets (3 C(n, 3) >= 2^31 from n = 1,627
 on) is scored in several launches (``fused_score.launch_ranges``), each on a
-contiguous view of the table, nn and feas: two at n = 2048.
+contiguous view of the table, nn and feas: two at n = 2048.  Past n = 2048
+the round scores the table a piece at a time (``loop/solver.py``'s
+piecewise route, ``cuts/enumerate.py::combinations_rows_on``): each piece is
+a table of its own, scored in its own launch_ranges (one launch for a piece
+of 2^27 rows).
 
 Device rule: CPU tensors take the twin; CUDA tensors launch the kernel; any
 other device raises.  ``pair_score.launches`` counts kernel launches, and

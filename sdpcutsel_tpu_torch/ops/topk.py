@@ -5,6 +5,11 @@ Ties break toward the lowest candidate index, as ``jax.lax.top_k`` and
 ``jnp.argmax`` do.  ``torch.topk`` promises no order among ties, so
 ``masked_topk`` sorts stably instead; ``torch.argmax`` returns the first
 maximum.
+
+``StreamedTopk`` gives ``diverse_topk``'s (or, at alpha 0, ``masked_topk``'s)
+picks over a table seen a piece at a time, bit for bit, holding only the
+rows that can still be picked (the k = 3 round past n = 2048,
+``loop/solver.py``).
 """
 
 from __future__ import annotations
@@ -70,3 +75,92 @@ def diverse_topk(scores, table, k: int, alpha: float, mask=None):
         sel.append(i[..., 0])
     vals = torch.stack(vals, -1)
     return vals, torch.stack(sel, -1), torch.isfinite(vals)
+
+
+class StreamedTopk:
+    """``diverse_topk(scores, table, S, alpha)`` (alpha > 0; at alpha <= 0
+    ``masked_topk(scores, S)``, as ``select_and_generate`` chooses) over a
+    table that comes a piece at a time in increasing row order (``add``),
+    never holding the whole score vector; ``result`` gives the same picks,
+    bit for bit, with global indices, and the picked rows.
+
+    Why a threshold is exact (alpha > 0): each pick adds at most kk index
+    matches to a candidate's penalty (a row's indices are distinct), so
+    before pick j <= S a candidate's penalty is at most P = kk (S - 1).  Of
+    the S largest raw scores (the S-th is s_S) one is still unpicked at pick
+    j, and its effective score fl(raw - fl(alpha pen)) is at least tau =
+    fl(s_S - fl(alpha P)), rounding being monotone; so every pick p has
+    raw(p) >= eff(p) >= tau, computed in float32 as the greedy computes
+    eff.  The running top S raw values only rise, and tau with them: each
+    piece's rows with raw >= tau survive (finite ones only: where fewer than
+    S scores are finite tau is -inf), the earlier survivors are pruned to
+    the new tau, and ``result`` runs ``diverse_topk`` itself over the
+    survivors in increasing global index, so argmax's first-index tie-break
+    picks what it picks on the whole table; a -inf pick is global row 0 (and
+    the table's row 0, 0..kk-1), as torch.argmax gives it there.  At alpha
+    <= 0 the survivors are the running top S by (score, lower index), which
+    ``masked_topk``'s stable sort picks alike.  Scores are float32 without
+    NaN (a NaN raises).  ``most`` is the largest number of survivors held."""
+
+    def __init__(self, S: int, alpha: float, kk: int, device):
+        self.S, self.alpha, self.kk = S, alpha, kk
+        self.device = torch.device(device)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.top = torch.empty(0, **f32)                 # the running top S raw values
+        self.vals = torch.empty(0, **f32)                # the survivors, in global order
+        self.idx = torch.empty(0, dtype=torch.int64, device=self.device)
+        self.rows = torch.empty((0, kk), dtype=torch.int32, device=self.device)
+        self.pmax = torch.full((1,), kk * (S - 1), **f32)  # P, the largest penalty
+        self.most = 0
+
+    def _tau(self) -> torch.Tensor:
+        """(1,): the threshold from the running top S (-inf before S rows)."""
+        if self.top.numel() < self.S:
+            return torch.full((1,), -torch.inf, dtype=torch.float32, device=self.device)
+        s_S = self.top[self.S - 1:self.S]
+        if self.alpha <= 0.0:
+            return s_S
+        return s_S - torch.mul(self.pmax, self.alpha)     # fl(s_S - fl(P alpha))
+
+    def add(self, scores: torch.Tensor, rows: torch.Tensor, offset: int):
+        """The next piece: its (T,) float32 scores, its (T, kk) int32 rows,
+        and the global index of its first row (the pieces in order)."""
+        if scores.dtype != torch.float32 or rows.shape != (scores.shape[0], self.kk):
+            raise ValueError("StreamedTopk.add takes (T,) float32 scores and (T, kk) rows")
+        if bool(torch.isnan(scores).any()):
+            raise ValueError("StreamedTopk: a score is NaN")
+        both = torch.cat([self.top, scores])
+        self.top = torch.topk(both, min(self.S, both.numel())).values
+        tau = self._tau()
+        keep = scores >= tau
+        if self.alpha > 0.0:
+            keep &= scores > -torch.inf
+            old = self.vals >= tau
+            self.vals, self.idx, self.rows = self.vals[old], self.idx[old], self.rows[old]
+        at = torch.nonzero(keep)[:, 0]
+        vals = torch.cat([self.vals, scores[at]])
+        idx = torch.cat([self.idx, at + offset])
+        rows_ = torch.cat([self.rows, rows[at]])
+        self.most = max(self.most, vals.numel())
+        if self.alpha <= 0.0:          # the running top S by (score, lower index)
+            best = torch.sort(torch.sort(-vals, stable=True).indices[:self.S]).values
+            vals, idx, rows_ = vals[best], idx[best], rows_[best]
+        self.vals, self.idx, self.rows = vals, idx, rows_
+
+    def result(self):
+        """(values, global indices, valid, picked rows), each (S,) ((S, kk)
+        for the rows), as the whole table's selection gives them."""
+        S, dev = self.S, self.device
+        row0 = torch.arange(self.kk, dtype=torch.int32, device=dev)
+        if self.alpha <= 0.0:
+            vals, local, valid = masked_topk(self.vals, S)
+            return vals, self.idx[local], valid, self.rows[local]
+        if self.vals.numel() == 0:
+            vals = torch.full((S,), -torch.inf, dtype=torch.float32, device=dev)
+            return (vals, torch.zeros(S, dtype=torch.int64, device=dev),
+                    torch.zeros(S, dtype=torch.bool, device=dev), row0.expand(S, -1).clone())
+        vals, local, valid = diverse_topk(self.vals, self.rows, S, self.alpha)
+        dead = vals == -torch.inf
+        idx = torch.where(dead, 0, self.idx[local])
+        rows = torch.where(dead[:, None], row0, self.rows[local])
+        return vals, idx, valid, rows

@@ -6,8 +6,11 @@
         [--out chiprun_out]
 
 The main paths are chip_smoke.py's:
-  * a BoxQP name (default spar125-100-1): CutSolver, strategy neural,
-    default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds;
+  * a BoxQP name (default spar125-100-1; one data/boxqp lacks is generated
+    from its name): CutSolver, strategy neural, default cuts,
+    LPConfig(max_iters=20000, tol=2e-6), 10 rounds; past n = 2048 the
+    round goes by pieces of the table, and the split then also times each
+    piece's rows written, the survivors' filter and the final greedy;
     ``--pair-layout packed --scan`` is chip_smoke.py's packed scan path
     (CutConfig(pair_layout="packed"), LoopConfig(use_scan=True));
   * a QCQP name (qcqp...; qcqpband100-5-25-1 in chip_smoke.py):
@@ -70,13 +73,14 @@ import numpy as np
 import torch
 
 from .config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
-from .instances import load_or_generate_qcqp, parse_boxqp
+from .instances import load_or_generate, load_or_generate_qcqp, parse_boxqp
 from .loop import solver as solver_mod
 from .lp import pdhg as pdhg_mod
 from .lp import pdhg_check as pdhg_check_mod
 from .lp import pdhg_kernel as pdhg_kernel_mod
 from .lp import pdhg_norm as pdhg_norm_mod
 from .models import labels as labels_mod
+from .ops import topk as topk_mod
 from .parallel import round as round_mod
 from .qcqp import solver as qcqp_mod
 from .relax import batched as batched_mod
@@ -117,6 +121,13 @@ STAGES = [
         ("cut_residuals", "purge: residuals"),
         ("purge_pool", "purge: compact"),
         ("append_cuts", "append_cuts"))),
+    # the k = 3 round by pieces past n = 2048 (K1 above is each piece's
+    # scoring): the rows written, the survivors' filter, the final greedy
+    # over the survivors, and the cut rows of the picks
+    (solver_mod, "combinations_rows_on", "pieces: rows written"),
+    (topk_mod.StreamedTopk, "add", "pieces: survivors' filter"),
+    (topk_mod.StreamedTopk, "result", "pieces: final greedy"),
+    (solver_mod, "cut_rows_at", "eigh + cut rows (in the selection above, or by pieces)"),
 ]
 
 
@@ -176,7 +187,7 @@ def load(name: str, pair_layout: str = "auto", scan: bool = False,
         cfg = RunConfig(lp=LP, cuts=CutConfig(k=5, sel_size=16, capacity=1024),
                         scorer=scorer, loop=loop)
         return load_or_generate_qcqp(name), qcqp_mod.CutSolverQCQP, cfg, 8
-    inst = parse_boxqp(os.path.join(DATA, f"{name}.in"), name=name)
+    inst = load_or_generate(name, data_dir=DATA)
     cfg = RunConfig(lp=LP, cuts=CutConfig(pair_layout=pair_layout), scorer=scorer, loop=loop)
     return inst, solver_mod.CutSolver, cfg, 10
 
@@ -407,7 +418,8 @@ def device_time(path, dev, rounds: int, table_path: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--instance", default="spar125-100-1",
-                    help="a BoxQP name from data/boxqp or a QCQP name (qcqp...)")
+                    help="a BoxQP name from data/boxqp (else generated from its name, as "
+                         "spar4096-100-1) or a QCQP name (qcqp...)")
     ap.add_argument("--rounds", type=int, default=None,
                     help="default: 10 for BoxQP, 8 for QCQP")
     ap.add_argument("--pair-layout", default="auto", choices=("auto", "packed"),

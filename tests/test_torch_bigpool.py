@@ -151,14 +151,16 @@ def test_the_certifier_past_its_shared_rows_takes_the_far_form(n, m):
 
 @pytest.mark.parametrize("M,k,m", [(1024, 3, 0), (81920, 5, 6000), (1, 1, 23000)])
 def test_only_n_and_k_are_refused(M, k, m):
-    """n = 2049 (and 0) is refused by every route, naming n <= 2048; cuts of
-    width 6 by the grid route's k = 2..5; nothing else (n = 1025 is taken)."""
-    for n in (0, 2049):
+    """n = 46,341 (and 0) is refused by every route, naming n <= 46340; cuts
+    of width 6 by the grid route's k = 2..5; nothing else (n = 1025 and
+    n = 2049 are taken)."""
+    for n in (0, 46341):
         route, why = route_refusal(n, M, k, m)
-        assert "n <= 2048" in why
-        with pytest.raises(ValueError, match="n <= 2048"):
+        assert "n <= 46340" in why
+        with pytest.raises(ValueError, match="n <= 46340"):
             kernel_route("auto", CUDA, n, M, k, m)
     assert route_refusal(1025, M, k, m)[1] is None
+    assert route_refusal(2049, M, k, m)[1] is None
     if (M, k) != (1, 1):
         route, why = route_refusal(300, M, 6, m)
         assert route == "grid" and "k = 2..5" in why

@@ -119,18 +119,20 @@ def test_dense_route_takes_the_certifier_past_n256(n, m):
 
 @pytest.mark.parametrize("M,k,m", [(1024, 3, 0), (1024, 5, 25), (1, 1, 368)])
 def test_n513_is_refused_by_every_route(M, k, m):
-    """n = 2049, past the 2048-column form, is refused on CUDA under "auto"
-    and "on", naming n <= 2048, with no fall back to the plain loop; "off"
-    runs plain.  n = 513 and n = 1025 are taken now, on the route that
-    takes n = 2048."""
-    route, why = route_refusal(2049, M, k, m)
-    assert "n <= 2048" in why
+    """n = 46,341, past the open form's 32-bit bound, is refused on CUDA
+    under "auto" and "on", naming n <= 46340, with no fall back to the plain
+    loop; "off" runs plain.  n = 513, 1025 and 2049 are taken now, on the
+    route that takes n = 2048."""
+    n = tkernel.OPEN_NMAX + 1
+    route, why = route_refusal(n, M, k, m)
+    assert "n <= 46340" in why
     if route == "grid":                # every route's reason: K2's first
         assert why.startswith("pdhg_block kernel takes 1 <= n <= 256")
     for use_kernel in ("auto", "on"):
-        with pytest.raises(ValueError, match="n <= 2048"):
-            kernel_route(use_kernel, CUDA, 2049, M, k, m)
-    assert kernel_route("off", CUDA, 2049, M, k, m) == "plain"
+        with pytest.raises(ValueError, match="n <= 46340"):
+            kernel_route(use_kernel, CUDA, n, M, k, m)
+    assert kernel_route("off", CUDA, n, M, k, m) == "plain"
+    assert route_refusal(2049, M, k, m) == (route, None)
     assert route_refusal(513, M, k, m)[1] is None
     assert route_refusal(1025, M, k, m) == (route, None)
     assert kernel_route("auto", CUDA, 1025, M, k, m) == route
@@ -138,11 +140,12 @@ def test_n513_is_refused_by_every_route(M, k, m):
 
 def test_grid_refusal_reasons():
     """Past a CTA's shared memory the route takes the pool in its far form;
-    cuts of width 1..6 and n outside 1..2048 are refused by name; K2's
+    cuts of width 1..6 and n outside 1..46340 are refused by name; K2's
     reason comes first where neither takes a shape."""
     assert "k = 2..5" in tgrid.grid_refusal(300, 1024, 6, 0)
-    assert "n <= 2048" in tgrid.grid_refusal(0, 1024, 3, 0)
-    assert "n <= 2048" in tgrid.grid_refusal(2049, 1024, 3, 0)
+    assert "n <= 46340" in tgrid.grid_refusal(0, 1024, 3, 0)
+    assert "n <= 46340" in tgrid.grid_refusal(46341, 1024, 3, 0)
+    assert tgrid.grid_refusal(2049, 1024, 3, 0) is None
     assert tgrid.grid_refusal(1025, 1024, 3, 0) is None
     top = max(M for M in range(1024, 40000, 64)
               if 4 * tgrid.block_words(512, M, 0, True) <= SMEM_MAX)
@@ -158,7 +161,7 @@ def test_grid_refusal_reasons():
 def test_batched_setup_refuses_the_grid_route():
     """A batch refuses the grid route only where the route refuses the shape:
     at n = 257 with "on" its setup takes it (the batched norm's twin on the
-    CPU), at n = 2049 it raises with the route's reason; n = 1025 is the
+    CPU), at n = 46,341 it raises with the route's reason; n = 1025 is the
     grid route's."""
     inst = generate_spar(257, 100, 1)
     pool = tcb.empty_pool(64, 3, "cpu")
@@ -169,8 +172,8 @@ def test_batched_setup_refuses_the_grid_route():
     assert setup.route == "grid"
     assert torch.equal(setup.normK, tpdhg.estimate_norm_batched_plain(batch, 257, 30, None,
                                                                       setup.index))
-    with pytest.raises(ValueError, match="n <= 2048"):
-        tpdhg.solve_setup_batched(torch.zeros(1, 2049), batch, LPConfig(use_kernel="on"))
+    with pytest.raises(ValueError, match="n <= 46340"):
+        tpdhg.solve_setup_batched(torch.zeros(1, 46341), batch, LPConfig(use_kernel="on"))
     assert route_refusal(1025, 64, 3, 0) == ("grid", None)
 
 
@@ -183,7 +186,8 @@ def _source(name: str) -> str:
 
 def _forms_from_source() -> dict:
     """GridForm<Cols>'s constants of csrc/pdhg_grid.cuh by column width."""
-    widths = {"kNarrow": 128, "kWide": 256, "kWidest": 512, "kHuge": 1024, "kVast": 2048}
+    widths = {"kNarrow": 128, "kWide": 256, "kWidest": 512, "kHuge": 1024, "kVast": 2048,
+              "kOpen": 65536}
     out = {}
     for name, body in re.findall(r"struct GridForm<(\w+)> \{\s*static constexpr int ([^;]*);",
                                  _source("pdhg_grid.cuh")):

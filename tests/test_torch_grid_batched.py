@@ -105,17 +105,19 @@ def test_batched_setup_takes_the_grid_route(n, M, k, m, monkeypatch):
 
 def test_batched_setup_still_refuses_the_certifier_and_n513():
     """A batch of the certifier's pools raises (both packages solve it one
-    instance at a time), and so does n = 2049, with the routes' reason;
-    n = 1025 is the grid route's."""
+    instance at a time), and so does n = 46,341, past the open form's
+    32-bit bound, with the routes' reason; n = 1025 and 2049 are the grid
+    route's."""
     n, m = 300, 4
     pool = rb.empty_pool(2, 1, 1, "cpu")
     dense = DenseRows(torch.zeros(2, m, n, n), torch.zeros(2, m, n), torch.zeros(2, m))
     with pytest.raises(ValueError, match="dense route solves one instance"):
         tpdhg.solve_setup_batched(torch.zeros(2, n), pool, LPConfig(use_kernel="on"), dense)
-    with pytest.raises(ValueError, match="n <= 2048"):
-        tpdhg.solve_setup_batched(torch.zeros(2, 2049), rb.empty_pool(2, CAP, 3, "cpu"),
+    with pytest.raises(ValueError, match="n <= 46340"):
+        tpdhg.solve_setup_batched(torch.zeros(2, 46341), rb.empty_pool(2, CAP, 3, "cpu"),
                                   LPConfig(use_kernel="on"))
     assert route_refusal(1025, CAP, 3, 0) == ("grid", None)
+    assert route_refusal(2049, CAP, 3, 0) == ("grid", None)
 
 
 # ---- the batched wrappers against the library's signatures ---------------------

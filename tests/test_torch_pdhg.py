@@ -200,7 +200,8 @@ def test_launch_plan_refuses_n_outside_the_kernel(n):
     ("auto", 125, 1024, 3, 0, "k2"),      # the BoxQP main paths
     ("auto", 100, 1024, 5, 25, "k2"),     # the QCQP main path
     ("auto", 257, 1024, 3, 0, "grid"),    # n > 256: the grid route (K2 not launched)
-    ("auto", 2049, 1024, 3, 0, None),     # n > 2048: raises, no kernel launched
+    ("auto", 46341, 1024, 3, 0, None),    # n > 46,340: raises, no kernel launched
+    ("auto", 2049, 1024, 3, 0, "grid"),   # n > 2048: the grid route's open form
     ("auto", 1025, 1024, 3, 0, "grid"),   # 1024 < n <= 2048: the grid route's 2048 columns
     ("auto", 513, 1024, 3, 0, "grid"),    # 512 < n <= 1024: the grid route's 1024 columns
     ("auto", 128, 1 << 16, 5, 25, "grid"),  # a pool past K2's shared memory: the grid route
@@ -232,7 +233,7 @@ def test_kernel_route_auto_is_plain_off_cuda():
     assert kernel_route("auto", torch.device("cpu"), 125, 1024, 3, 0) == "plain"
 
 
-@pytest.mark.parametrize("n,M,k,m", [(2049, 1024, 3, 0), (300, 1024, 6, 0)])
+@pytest.mark.parametrize("n,M,k,m", [(46341, 1024, 3, 0), (300, 1024, 6, 0)])
 def test_kernel_route_auto_outside_the_plan(n, M, k, m):
     """Outside the plan "auto" is the plain loop on the CPU (the twin's
     arithmetic either way) and refuses on CUDA, naming "off"."""
@@ -241,7 +242,7 @@ def test_kernel_route_auto_outside_the_plan(n, M, k, m):
         kernel_route("auto", torch.device("cuda"), n, M, k, m)
 
 
-@pytest.mark.parametrize("n,M,k,m,why", [(2049, 1024, 3, 0, "n <= 256"),
+@pytest.mark.parametrize("n,M,k,m,why", [(46341, 1024, 3, 0, "n <= 256"),
                                          (200, 1024, 6, 0, "k = 2..5")])
 def test_kernel_route_on_raises_outside_the_plan(n, M, k, m, why):
     for device in ("cuda", "cpu"):
@@ -257,15 +258,16 @@ def test_kernel_route_on_raises_outside_the_plan(n, M, k, m, why):
 
 
 def test_solve_lp_on_refuses_n513_before_solving():
-    """n = 2049, past every route (n = 513 and n = 1025 are the grid
-    route's now), raises before any iteration."""
-    inst = generate_spar(2049, 100, 1)
-    Q, c = (torch.as_tensor(a, dtype=torch.float32) for a in (inst.Q, inst.c))
+    """n = 46,341, past every route (n = 513, 1025 and 2049 are the grid
+    route's now), raises before any iteration: the route refuses before the
+    objective or the warm start is read (neither is made here: at this n
+    they would take tens of GB)."""
+    c = torch.zeros(46341)
     pool = tcb.empty_pool(64, 3, "cpu")
     with pytest.raises(ValueError, match="use_kernel='on'"):
-        tpdhg.solve_lp(Q, c, pool, tpdhg.init_state(2049, 64, "cpu"),
-                       LPConfig(use_kernel="on"))
+        tpdhg.solve_lp(None, c, pool, None, LPConfig(use_kernel="on"))
     assert route_refusal(1025, 64, 3, 0) == ("grid", None)
+    assert route_refusal(2049, 64, 3, 0) == ("grid", None)
 
 
 def test_solve_lp_counts_plain_blocks_only_on_cuda():

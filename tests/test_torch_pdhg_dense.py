@@ -57,21 +57,21 @@ def test_dense_route_for_the_certifier_on_cuda(n, m):
     assert kernel_route("auto", torch.device("cpu"), n, 1, 1, m) == "plain"
 
 
-@pytest.mark.parametrize("n", [0, 2049, 2100])
+@pytest.mark.parametrize("n", [0, 46341, 50000])
 def test_dense_route_refuses_n_outside_the_kernels(n):
-    """n > 2048 (or 0): "auto" on CUDA raises with the reason and names
+    """n > 46,340 (or 0): "auto" on CUDA raises with the reason and names
     "off"; "on" raises on every device; "off" and "auto" on the CPU run
-    plain.  n = 1025 and 1100 are the dense route's now."""
-    for taken in (1025, 1100):
+    plain.  n = 1025, 1100, 2049 and 2100 are the dense route's now."""
+    for taken in (1025, 1100, 2049, 2100):
         assert route_refusal(taken, 1, 1, 368) == ("dense", None)
     route, why = route_refusal(n, 1, 1, 368)
-    assert route == "dense" and "n <= 2048" in why
+    assert route == "dense" and "n <= 46340" in why
     with pytest.raises(ValueError, match=re.escape(why)):
         kernel_route("auto", torch.device("cuda"), n, 1, 1, 368)
     with pytest.raises(ValueError, match="use_kernel='off'"):
         kernel_route("auto", torch.device("cuda"), n, 1, 1, 368)
     for device in ("cuda", "cpu"):
-        with pytest.raises(ValueError, match="n <= 2048"):
+        with pytest.raises(ValueError, match="n <= 46340"):
             kernel_route("on", torch.device(device), n, 1, 1, 368)
     assert kernel_route("off", torch.device("cuda"), n, 1, 1, 368) == "plain"
     assert kernel_route("auto", torch.device("cpu"), n, 1, 1, 368) == "plain"

@@ -90,16 +90,20 @@ def test_the_certifier_takes_the_dense_route_to_n2048(n, m):
 @pytest.mark.parametrize("M,k,m", [(1024, 3, 0), (1024, 5, 25), (65536, 3, 0), (1, 1, 64),
                                    (1, 1, 40000)])
 def test_n2049_is_refused_by_every_route(M, k, m):
-    """n = 2049 is refused on CUDA under "auto" and "on" with "n <= 2048",
-    the pool's route named; "off" runs plain; n = 2048 is taken."""
-    route, why = route_refusal(2049, M, k, m)
+    """n = 2049 and n = 2048 are taken on the pool's route (the open form
+    past n = 2048); the refusal moved to the open form's 32-bit bound:
+    n = 46,341 is refused on CUDA under "auto" and "on" with "n <= 46340",
+    the pool's route named; "off" runs plain."""
+    n = tkernel.OPEN_NMAX + 1
+    route, why = route_refusal(n, M, k, m)
     assert route == ("dense" if (M, k) == (1, 1) else "grid")
-    assert "n <= 2048" in why
+    assert "n <= 46340" in why
     for use_kernel in ("auto", "on"):
-        with pytest.raises(ValueError, match="n <= 2048"):
-            kernel_route(use_kernel, CUDA, 2049, M, k, m)
-    assert kernel_route("off", CUDA, 2049, M, k, m) == "plain"
+        with pytest.raises(ValueError, match="n <= 46340"):
+            kernel_route(use_kernel, CUDA, n, M, k, m)
+    assert kernel_route("off", CUDA, n, M, k, m) == "plain"
     assert route_refusal(2048, M, k, m) == (route, None)
+    assert route_refusal(2049, M, k, m) == (route, None)
 
 
 # ---- the width and the layout, from the kernel source ------------------------------
@@ -115,16 +119,18 @@ def _cols_for(n: int) -> int:
 
 def test_columns_match_the_kernel_source():
     """kVast is 2048 in the header and in the Python mirrors, columns(n) is
-    cols_for(n) from 1 to 2049 (0 past 2048, which no kernel takes), and
-    the forms' constants are the header's at all five widths."""
+    cols_for(n) from 1 to 2049 (the open form's tag past 2048, 0 past its
+    bound, which no kernel takes), and the forms' constants are the
+    header's at all six widths."""
     assert "constexpr int kVast = 2048;" in _source("pdhg_common.cuh")
-    assert tkernel.VAST == tgrid.GRID_NMAX == 2048
-    for n in range(1, 2049):
+    assert tkernel.VAST == 2048 and tgrid.GRID_NMAX == tkernel.OPEN_NMAX
+    for n in range(1, 2050):
         assert _cols_for(n) == tkernel.columns(n), n
-    assert _cols_for(2049) == 0 and _cols_for(0) == 0
+    assert _cols_for(2049) == tkernel.OPEN and _cols_for(0) == 0
+    assert _cols_for(tkernel.OPEN_NMAX + 1) == 0
     assert {tkernel.columns(n) for n in VAST_N} == {2048}
     forms = _forms_from_source()
-    assert forms == tgrid.FORMS and set(forms) == {128, 256, 512, 1024, 2048}
+    assert forms == tgrid.FORMS and set(forms) == {128, 256, 512, 1024, 2048, tkernel.OPEN}
 
 
 def test_2048_columns_hold_a_ctas_entries():

@@ -88,8 +88,8 @@ def test_wide_plan_takes_few_dense_rows(n, most):
 
 def test_n257_is_refused():
     """K2's cluster refuses n = 257 (the grid route takes it, and the dense
-    route its certifier's pool); past n = 2048 the dense route refuses too,
-    and n = 1025 is taken."""
+    route its certifier's pool); past n = 46,340 the dense route refuses
+    too, and n = 1025 and 2049 are taken."""
     why = plan_refusal(257, 1024, 3, 0)
     assert "n <= 256" in why
     with pytest.raises(ValueError, match="n <= 256"):
@@ -97,7 +97,8 @@ def test_n257_is_refused():
     assert tdense.dense_refusal(257, 1, 1, 368) is None
     assert tdense.dense_refusal(513, 1, 1, 368) is None
     assert tdense.dense_refusal(1025, 1, 1, 368) is None
-    assert "n <= 2048" in tdense.dense_refusal(2049, 1, 1, 368)
+    assert "n <= 46340" in tdense.dense_refusal(46341, 1, 1, 368)
+    assert tdense.dense_refusal(2049, 1, 1, 368) is None
 
 
 @pytest.mark.parametrize("n", [150, 256])
