@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--parent DIR] [--phases GROUPS]
 
---phases runs some of the groups 3, 4, 5-13, 15-17, 18-21, 22, 23 and 24
-(comma-separated; the default runs every one, and only then prints the
+--phases runs some of the groups 3, 4, 5-13, 15-17, 18-21, 22, 23, 24 and
+25 (comma-separated; the default runs every one, and only then prints the
 kernels line; the build and phase 1 always run).
 
 Phases, each printed on its own lines; any failure exits non-zero:
@@ -274,19 +274,39 @@ Phases, each printed on its own lines; any failure exits non-zero:
      timed in turns with it; (b) K1 over the first piece of C(4096, 3) (its
      rows written on the card) against the twin on its first and last 8M
      rows, twice bit for bit; (c) CutSolver on generate_spar(4096, 100, 1)
-     with the defaults, 2 rounds by pieces (K1 over all 11,444,858,880
-     triples a round, a launch a piece; the open form for every LP and
-     norm), every certificate at least a feasible point's objective, the
-     bound never rising, a fresh solver's round 0 bit for bit, rounds/s,
+     with the defaults but LPConfig(3000, 1e-5) (cut from LPConfig() for
+     phase 25), 1 round (cut from 2 for phase 25) by pieces (K1
+     over all 11,444,858,880 triples a round, a launch a piece; the open
+     form for every LP and norm), every certificate at least a feasible
+     point's objective, a fresh solver's round 0 bit for bit, rounds/s,
      the card's peak memory and the survivors' largest count; at n = 2100
-     round 0 by pieces and on the whole table (18.5 GB), the picks and the
-     cut rows bit for bit; (d) CutSolverQCQP on generate_qcqp_band(3000, 5,
-     25, 1) at phase 19's settings, 2 rounds twice bit for bit; (e) the
+     round 0 by pieces and on the whole table (18.5 GB) at
+     LPConfig(3000, 1e-5) (cut from LPConfig() for phase 25), the picks and
+     the cut rows bit for bit; (d) CutSolverQCQP on generate_qcqp_band(3000, 5,
+     25, 1) at phase 19's settings, 1 round (cut from 2 for phase 25)
+     twice bit for bit; (e) the
      certifier at n = 2100, capacity 64, one eigencut round on the open
      form without cuts, every certificate at least the Burer-Monteiro lb
      (host references, compared at the end of the run); (f) n = 46,341,
      past the open form's 32-bit bound, refused by the solve's set-up with
      the route's reason for a pool of cuts and for the certifier's pool;
+ 25. random, triangle and optimality at k = 3 by pieces of the table (run
+     after phase 24; loop/solver.py's piecewise route past each strategy's
+     n, every round at LPConfig(3000, 1e-5), counters reset before each and
+     read after: the grid route's kernels, or K2, K5 and K6 at n = 125; no
+     plain block or twin): (a) generate_spar(1024, 100, 1), round 0 of
+     random and of triangle by forced pieces (2^25 rows at most) and on the
+     whole table: the picks, the cut rows, the pool, the outcome and the
+     generator's state bit for bit, each route's peak on the card a table
+     row; (b) optimality on spar125-100-1, round 0 by 8 forced pieces of
+     whole eigh chunks against the whole table: the ADMM's scores, picks,
+     cut rows and round bit for bit; one default-size piece of C(1024, 3)
+     through the ADMM, its time by events and the card's peak a row; (c) the
+     default route past n = 2048, twice from a fresh solver bit for bit:
+     triangle on generate_spar(4096, 100, 1), random on
+     generate_spar(2100, 100, 1) (the host draw's seconds printed), each
+     certificate at least a feasible point's objective, the card's peak and
+     the survivors' largest count printed;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -405,7 +425,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      blocks and the twin-scored calls 0 on each) join the kernels line;
  14. one JSON line of kernel results (twenty-one entries), each kernel's
      launches summed over the main paths 5-13, 15-17 and the wide, grid,
-     1024-, 2048-column and open paths of phases 4, 18-24 (each counted from 0;
+     1024-, 2048-column, open and pieces paths of phases 4, 18-25 (each
+     counted from 0;
      the sums over the paths at n <= 128 alone are printed before the line);
      the grid route's entries hold spar512's shape, every shape under
      "shapes", phase 20's batched launches under "batched"; its 1024-column
@@ -462,8 +483,10 @@ import torch
 
 from sdpcutsel_tpu_torch import _build, cli
 from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfig, ScorerConfig
-from sdpcutsel_tpu_torch.cuts.enumerate import (combinations_rows_on, combinations_table,
-                                                combinations_table_on, first_index_pieces)
+from sdpcutsel_tpu_torch.cuts import triangle as triangle_mod
+from sdpcutsel_tpu_torch.cuts.enumerate import (combinations_range_on, combinations_rows_on,
+                                                combinations_table, combinations_table_on,
+                                                first_index_pieces)
 from sdpcutsel_tpu_torch.instances import (generate_qcqp_family, generate_spar,
                                            load_or_generate, load_or_generate_qcqp, parse_boxqp)
 from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp, generate_qcqp_band
@@ -499,7 +522,7 @@ from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, max_active_clusters
                                                 pdhg_block_batched, pdhg_block_batched_plain,
                                                 pdhg_block_plain, plan_refusal)
 from sdpcutsel_tpu_torch.models import train as train_mod
-from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK
+from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK, exact_score_fn
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.multichip_dryrun import dryrun_multichip
 from sdpcutsel_tpu_torch.ops.fused_score import fused_score, fused_score_plain, launch_ranges
@@ -6008,10 +6031,10 @@ OPEN_BATCH = 2
 OPEN_BATCH_SHAPES = {"n=4096 k=3 m=0": (4096, 3, 0)}
 OPEN_FORCED = {"n=2048 m=0": (2048, 3, 0), "n=1500 k=5 m=25": (1500, 5, 25)}  # against kVast
 OPEN_INSTANCE = (4096, 100, 1)         # CutSolver with the defaults, by pieces
-OPEN_ROUNDS = 2
+OPEN_ROUNDS = 1                        # cut from 2 for phase 25
 OPEN_PIECES = (2100, 100, 1)           # round 0 by pieces and on the whole table; the certifier's
 OPEN_BAND = (3000, 5, 25, 1)           # generate_qcqp_band, at the grid QCQP's settings
-OPEN_BAND_ROUNDS = 2
+OPEN_BAND_ROUNDS = 1                   # cut from 2 for phase 25
 OPEN_CERT_ROUNDS, OPEN_CERT_CAPACITY = 1, 64
 OPEN_BM = dict(stages=3, iters_per_stage=30)   # the BM lb at n = 2100 (certified from stage 3)
 OPEN_REFUSED = pdhg_kernel.OPEN_NMAX + 1        # past the open form's 32-bit bound
@@ -6185,8 +6208,9 @@ def k1_piece_check(dev) -> dict:
 
 def open_solve(dev) -> tuple:
     """Phase 24 (c): CutSolver on generate_spar(4096, 100, 1) with the
-    defaults (k = 3, neural, sel_size 20, capacity 1024, LPConfig()),
-    OPEN_ROUNDS rounds by pieces: K1 over all 11,444,858,880 triples a
+    defaults (k = 3, neural, sel_size 20, capacity 1024) but PIECES_LP (cut
+    from LPConfig() for phase 25), OPEN_ROUNDS round by pieces: K1 over all
+    11,444,858,880 triples a
     round, a launch a piece, and the open form for every LP and norm, no
     K2, no plain block, twin check or twin-scored call; every certificate
     reaches a feasible point's objective and the bound never rises; a fresh
@@ -6194,7 +6218,7 @@ def open_solve(dev) -> tuple:
     peak memory and the survivors' largest count.  Returns (launch counts,
     checks)."""
     inst = generate_spar(*OPEN_INSTANCE)
-    cfg = RunConfig()
+    cfg = RunConfig(lp=PIECES_LP)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6249,14 +6273,15 @@ def open_solve(dev) -> tuple:
 
 
 def open_pieces_vs_whole(dev) -> tuple:
-    """Phase 24 (c) at n = 2100: round 0 of CutSolver's defaults by pieces
-    (the default past n = 2048) and on the whole table (the private
-    _pieces=False; C(2100, 3) = 1,538,606,700 rows, 18.5 GB, fits): the
-    picks (global indices and rows) and the pool's cut rows bit for bit, and
-    the round's outcome.  Returns (the piecewise run's launch counts,
+    """Phase 24 (c) at n = 2100: round 0 of CutSolver's defaults but
+    PIECES_LP (cut from LPConfig() for phase 25: both routes share the LP)
+    by pieces (the default past n = 2048) and on the whole table (the
+    private _pieces=False; C(2100, 3) = 1,538,606,700 rows, 18.5 GB, fits):
+    the picks (global indices and rows) and the pool's cut rows bit for bit,
+    and the round's outcome.  Returns (the piecewise run's launch counts,
     checks)."""
     inst = generate_spar(*OPEN_PIECES)
-    cfg = RunConfig()
+    cfg = RunConfig(lp=PIECES_LP)
     whole_sel = []
     select = solver_mod.select_and_generate
 
@@ -6434,7 +6459,268 @@ def open_phase(dev) -> dict:
     return out
 
 
-GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23", "24")   # the groups --phases selects
+# ---- phase 25: random, triangle and optimality by pieces of the table ------------------
+
+PIECES_LP = LPConfig(max_iters=3000, tol=1e-5)   # phase 25's rounds (both routes share the LP)
+PIECES_N = (1024, 100, 1)              # (a): forced pieces against the whole table
+PIECES_FORCED = 1 << 25                # (a): rows a forced piece holds at most (6 of C(1024, 3))
+OPT_FORCED = 5 * EIGH_CHUNK            # (b): optimality's forced pieces at n = 125 (8 of them)
+TRIANGLE_OPEN = OPEN_INSTANCE          # (c): triangle on the default route past n = 2048
+RANDOM_OPEN = OPEN_PIECES              # (c): random on the default route past its threshold
+
+
+def strategy_cfg(strategy: str) -> RunConfig:
+    return RunConfig(lp=PIECES_LP, scorer=ScorerConfig(strategy=strategy))
+
+
+def route_round(inst, strategy: str, dev, pieces) -> dict:
+    """Round 0 of CutSolver with ``strategy`` at PIECES_LP on the route
+    ``pieces`` (the private _pieces: None the default, False the whole
+    table, an int forced pieces), counters reset before and read after:
+    the history, the cut rows (append_cuts's arguments), the picks (global
+    indices: StreamedTopk's by pieces; on the whole table
+    select_and_generate's, or the flat ones triangle's masked_topk takes),
+    the scores handed to the selection (optimality), the pool, the
+    generator's state, the host seconds the scores took (random: the draw
+    and its upload), the card's peak above what was allocated before the
+    solver, and the survivors' largest count."""
+    rows, picks, scores, score_s = [], [], [], [0.0]
+    patched = [(solver_mod, "append_cuts"), (solver_mod, "select_and_generate"),
+               (triangle_mod, "masked_topk")]
+    saved = [getattr(mod, name) for mod, name in patched]
+
+    def keep_rows(pool, *r):
+        rows.append([t.clone() for t in r])
+        return saved[0](pool, *r)
+
+    def keep_picks(*a):
+        out = saved[1](*a)
+        picks.append(out[1].clone())
+        return out
+
+    def keep_flat(*a):
+        out = saved[2](*a)
+        picks.append(out[1].clone())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for (mod, name), fn in zip(patched, (keep_rows, keep_picks, keep_flat)):
+        setattr(mod, name, fn)
+    try:
+        solver = CutSolver(inst, strategy_cfg(strategy), device=dev, _pieces=pieces)
+        method = solver._scores
+
+        def timed_scores(x, X, table=None):
+            t0 = time.perf_counter()
+            out = method(x, X, table)
+            score_s[0] += time.perf_counter() - t0
+            scores.append(out)
+            return out
+
+        solver._scores = timed_scores
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = solver.run(rounds=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+    peak = torch.cuda.max_memory_allocated() - base
+    sel = solver.last_selection
+    out = {"hist": hist, "rows": rows[0], "launches": launches, "wall": wall, "peak": peak,
+           "score_s": score_s[0], "generator": solver.generator.get_state(),
+           "pool": [t.clone() for t in (solver.pool.idx, solver.pool.lin, solver.pool.quad,
+                                        solver.pool.rhs, solver.pool.active)],
+           "pieces": None if solver.pieces is None else len(solver.pieces),
+           "picks": picks[0] if picks else sel.result()[1],
+           "most": None if sel is None else sel.most, "x": solver.state.x.cpu().numpy()}
+    if strategy == "optimality":
+        out["scores"] = torch.cat(scores) if len(scores) > 1 else scores[0]
+    del solver, scores
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_round(a: dict, b: dict) -> dict:
+    """Two runs of route_round bit for bit: outcome, picks, cut rows, pool,
+    the generator's state."""
+    return {
+        "the round's outcome": outcome(a["hist"]) == outcome(b["hist"]),
+        "the picks": torch.equal(a["picks"], b["picks"]),
+        "the cut rows": all(torch.equal(u, v) for u, v in zip(a["rows"], b["rows"])),
+        "the pool": all(torch.equal(u, v) for u, v in zip(a["pool"], b["pool"])),
+        "the generator's state": torch.equal(a["generator"], b["generator"]),
+    }
+
+
+def pieces_against_whole(dev) -> tuple:
+    """Phase 25 (a): generate_spar(1024, 100, 1) (C(1024, 3) = 178,433,024
+    rows) at PIECES_LP, round 0 of random and of triangle by pieces (forced:
+    both take the whole table by default at n = 1024) and on the whole
+    table: picks, cut rows, pool, outcome and generator's state bit for bit;
+    each route's peak on the card a table row.  Returns ({path: launch
+    counts}, checks, {strategy: bytes a row of each route})."""
+    inst = generate_spar(*PIECES_N)
+    T = math.comb(inst.n, 3)
+    launches, checks, per_row = {}, {}, {}
+    for strategy in ("random", "triangle"):
+        pieced = route_round(inst, strategy, dev, PIECES_FORCED)
+        whole = route_round(inst, strategy, dev, False)
+        same = same_round(pieced, whole)
+        per_row[strategy] = {"pieces": pieced["peak"] / T, "whole": whole["peak"] / T}
+        launches[f"pieces {strategy} n={inst.n}"] = pieced["launches"]
+        launches[f"pieces {strategy} n={inst.n} whole table"] = whole["launches"]
+        floor = feasible_objective(inst, whole["x"])
+        drawn = (f" (the draws and their uploads {pieced['score_s']:.3f}s, "
+                 f"{whole['score_s']:.3f}s)" if strategy == "random" else "")
+        log(f"[pieces {strategy} {inst.name}] round 0 by {pieced['pieces']} forced pieces and "
+            f"on the whole table: bounds {pieced['hist'][0].bound!r}, {whole['hist'][0].bound!r} "
+            f"(cuts {whole['hist'][0].cuts_added}, lp_iters {whole['hist'][0].lp_iters}); "
+            f"{pieced['wall']:.3f}s and {whole['wall']:.3f}s{drawn}; the card's peak above the "
+            f"set-up's start "
+            f"{pieced['peak']} and {whole['peak']} bytes = {pieced['peak'] / T:.2f} and "
+            f"{whole['peak'] / T:.2f} B a table row; the survivors' largest count "
+            f"{pieced['most']}; picks {pieced['picks'].tolist()}; {same}; a feasible point's f "
+            f"{floor!r} ({SMI})")
+        checks.update({f"{strategy}: {k} by pieces are the whole table's, bit for bit": v
+                       for k, v in same.items()})
+        checks[f"{strategy}: the whole route holds the table, the pieces do not"] = (
+            whole["pieces"] is None and pieced["pieces"] > 1)
+        checks[f"{strategy}: the certificate >= a feasible point's f {floor}"] = bool(
+            np.isfinite(whole["hist"][0].certificate) and whole["hist"][0].certificate >= floor)
+        for path in (f"pieces {strategy} n={inst.n}", f"pieces {strategy} n={inst.n} whole table"):
+            checks.update({f"{path}: {k}": v for k, v in
+                           dense_route_checks(path, launches[path], GRID_NAMES).items()})
+    return launches, checks, per_row
+
+
+def optimality_pieces(dev) -> tuple:
+    """Phase 25 (b): optimality on spar125-100-1 at PIECES_LP, round 0 by 8
+    forced pieces of OPT_FORCED rows (whole eigh chunks) against the whole
+    table: the ADMM's scores, the picks, the cut rows and the round bit for
+    bit; then a quarter and a whole default-size piece (OPTIMALITY_PIECE_ROWS
+    rows) of C(1024, 3) through the ADMM at a random point: each one's time
+    by events, the card's peak above its start (bytes a row, and from the
+    two, what grows with the rows and what does not), its scores finite and
+    >= 0, and a round's time at n = 1024 and 4096 by rows.  Returns (launch
+    counts, checks, numbers)."""
+    inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
+    pieced = route_round(inst, "optimality", dev, OPT_FORCED)
+    whole = route_round(inst, "optimality", dev, False)
+    same = same_round(pieced, whole)
+    same["the ADMM's scores"] = torch.equal(pieced["scores"], whole["scores"])
+    log(f"[pieces optimality {inst.name}] round 0 by {pieced['pieces']} forced pieces and on "
+        f"the whole table: bounds {pieced['hist'][0].bound!r}, {whole['hist'][0].bound!r} "
+        f"(cuts {whole['hist'][0].cuts_added}); {pieced['wall']:.3f}s and {whole['wall']:.3f}s "
+        f"(the ADMM {pieced['score_s']:.3f}s, {whole['score_s']:.3f}s); the card's peak above "
+        f"the set-up's start {pieced['peak']} and {whole['peak']} bytes = "
+        f"{whole['peak'] / whole['scores'].numel():.1f} B a table row on the whole table; blocks "
+        f"that improve {int((whole['scores'] > 0).sum())}; the survivors' largest count "
+        f"{pieced['most']}; {same} ({SMI})")
+    checks = {f"optimality: {k} by pieces are the whole table's, bit for bit": v
+              for k, v in same.items()}
+    checks.update({f"optimality n=125: {k}": v for k, v in
+                   control_checks("pieces optimality", pieced["launches"]).items()})
+    big = generate_spar(*PIECES_N)
+    x, X, Q = scoring_point(big, dev)
+    fn, numbers = exact_score_fn(Q), {}
+    for R in (solver_mod.OPTIMALITY_PIECE_ROWS // 4, solver_mod.OPTIMALITY_PIECE_ROWS):
+        rows, got = combinations_range_on(big.n, 3, 0, R, dev), []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: got.append(fn(x, X, rows=rows)), reps=1, warmup=0)
+        peak = torch.cuda.max_memory_allocated() - base
+        sc = got[0]
+        numbers[R] = {"ms": ms, "peak": peak, "round_s n=1024": ms * math.comb(1024, 3) / R / 1e3,
+                      "round_s n=4096": ms * math.comb(4096, 3) / R / 1e3}
+        log(f"[pieces optimality {big.name}] a piece of {R} rows through the ADMM (300 "
+            f"iterations, {EIGH_CHUNK} blocks an eigh call): {ms:.2f} ms by events, the card's "
+            f"peak above its start {peak} bytes = {peak / R:.1f} B a row; {int((sc > 0).sum())} "
+            f"blocks improve; a round's ADMM by rows at n = 1024 "
+            f"{numbers[R]['round_s n=1024']:.1f}s, at n = 4096 {numbers[R]['round_s n=4096']:.1f}s "
+            f"({SMI})")
+        checks[f"the ADMM's piece of {R} rows: scores finite and >= 0"] = bool(
+            torch.isfinite(sc).all() and (sc >= 0).all())
+        del got, sc, rows
+    (r0, a), (r1, b) = numbers.items()
+    per_row = (b["peak"] - a["peak"]) / (r1 - r0)
+    log(f"[pieces optimality {big.name}] the ADMM's peak by rows: {per_row:.1f} B a row and "
+        f"{a['peak'] - per_row * r0:.0f} bytes fixed ({SMI})")
+    torch.cuda.empty_cache()
+    return pieced["launches"], checks, numbers
+
+
+def pieces_past_2048(dev) -> tuple:
+    """Phase 25 (c): the default route past n = 2048 at PIECES_LP, each run
+    twice from a fresh solver, bit for bit: triangle on
+    generate_spar(4096, 100, 1) (its streamed flat selection over
+    4 C(4096, 3) = 45,779,435,520 candidates) and random on
+    generate_spar(2100, 100, 1) (one CPU draw a piece); the certificate at
+    least a feasible point's objective; the seconds, the host draw's, the
+    card's peak and the survivors' largest count printed.  Returns ({path:
+    launch counts}, checks, numbers)."""
+    launches, checks, numbers = {}, {}, {}
+    for strategy, shape in (("triangle", TRIANGLE_OPEN), ("random", RANDOM_OPEN)):
+        inst = generate_spar(*shape)
+        first = route_round(inst, strategy, dev, None)
+        again = route_round(inst, strategy, dev, None)
+        same = same_round(first, again)
+        path = f"pieces {strategy} n={inst.n}"
+        launches[path] = first["launches"]
+        cert = first["hist"][0].certificate
+        floor = feasible_objective(inst, first["x"])
+        rows = math.comb(inst.n, 3)
+        numbers[strategy] = {"n": inst.n, "seconds": first["wall"], "score_s": first["score_s"],
+                             "peak": first["peak"], "most": first["most"],
+                             "pieces": first["pieces"]}
+        drawn = (f" (the host draw and its upload {first['score_s']:.3f}s = "
+                 f"{first['score_s'] / rows * 1e9:.3f} ns a row)" if strategy == "random" else "")
+        log(f"[{path}] the default route: {first['pieces']} pieces; round 0 in "
+            f"{first['wall']:.3f}s and {again['wall']:.3f}s{drawn}; bound {first['hist'][0].bound!r} "
+            f"(cuts {first['hist'][0].cuts_added}, lp_iters {first['hist'][0].lp_iters}); the "
+            f"card's peak above the set-up's start {first['peak']} bytes "
+            f"({first['peak'] / 2 ** 30:.2f} GiB); the survivors' largest count "
+            f"{first['most']}; a second run {same}; a feasible point's f {floor!r} ({SMI})")
+        checks.update({f"{strategy} n={inst.n}: a second run repeats {k}": v
+                       for k, v in same.items()})
+        checks[f"{strategy} n={inst.n}: by pieces by default"] = first["pieces"] is not None
+        checks[f"{strategy} n={inst.n}: the certificate >= a feasible point's f {floor}"] = bool(
+            np.isfinite(cert) and cert >= floor)
+        checks.update({f"{path}: {k}": v for k, v in
+                       dense_route_checks(path, launches[path], GRID_NAMES).items()})
+    return launches, checks, numbers
+
+
+def pieces_phase(dev) -> dict:
+    """Phase 25: random, triangle and optimality at k = 3 by pieces of the
+    candidate table (pieces_against_whole, optimality_pieces,
+    pieces_past_2048), each path's launches into PATH_LAUNCHES.  Returns
+    the numbers it measured."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in (("against the whole table", pieces_against_whole),
+                      ("optimality", optimality_pieces), ("past n = 2048", pieces_past_2048)):
+        t1 = time.perf_counter()
+        launches, checks, out[name] = run(dev)
+        if name == "optimality":
+            PATH_LAUNCHES["pieces optimality n=125"] = launches
+        else:
+            PATH_LAUNCHES.update(launches)
+        finish(f"pieces {name}", checks)
+        log(f"[pieces] {name} took {time.perf_counter() - t1:.1f}s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[pieces] phase 25 took {out['seconds']:.1f}s ({SMI})")
+    return out
+
+
+GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23", "24", "25")   # --phases
 
 
 def main(argv=None) -> int:
@@ -6577,6 +6863,9 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
     if "24" in groups:
         opened = open_phase(dev)
         mark("phase 24")
+    if "25" in groups:
+        pieces_phase(dev)
+        mark("phase 25")
     main_hist = None
     if "5-13" in groups:
         PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
@@ -6619,10 +6908,11 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
         log(f"[launches] {path}: {counts}")
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
     narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items()
-                        if not p.startswith(("wide", "grid", "huge", "big", "vast", "open")))
+                        if not p.startswith(("wide", "grid", "huge", "big", "vast", "open",
+                                             "pieces")))
               for name in WRAPPERS}
-    log(f"[launches] the paths at n <= 128 (every path but the wide, grid, huge, big, vast and "
-        f"open ones): {narrow}")
+    log(f"[launches] the paths at n <= 128 (every path but the wide, grid, huge, big, vast, "
+        f"open and pieces ones): {narrow}")
     if set(groups) != set(GROUPS):
         log(f"[done] the kernels line needs every phase group; these ran: {', '.join(groups)}")
         print(smi)

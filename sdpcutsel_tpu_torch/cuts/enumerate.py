@@ -8,11 +8,14 @@ same rows straight into a tensor on a device, with no host copy and no
 cache (at n = 2048, k = 3 the table takes 17.2 GB).  Past what a card
 holds (137 GB at n = 4096), ``first_index_pieces`` cuts the table into
 pieces of whole first indices and ``combinations_rows_on`` writes one
-piece's rows, in the table's order, with their global row offset.
+piece's rows, in the table's order, with their global row offset;
+``range_pieces`` cuts it into pieces of a fixed number of rows and
+``combinations_range_on`` writes any run of its rows.
 """
 
 from __future__ import annotations
 
+import bisect
 import functools
 import math
 
@@ -99,4 +102,50 @@ def combinations_rows_on(n: int, k: int, i0: int, i1: int, device,
         out[s:s + rows, 0] = i
         out[s:s + rows, 1:] = sub[sub.shape[0] - rows:]
         s += rows
+    return out
+
+
+def range_pieces(n: int, k: int, rows: int) -> list[tuple[int, int, int, int]]:
+    """``combinations_table(n, k)`` cut into runs of ``rows`` rows (the last
+    one shorter), as ``first_index_pieces`` gives them: (i0, i1, offset,
+    count), the run the rows [offset, offset + count), i0 .. i1 - 1 the
+    first indices it touches.  Each offset is a multiple of ``rows``."""
+    if not 1 <= k <= n or rows < 1:
+        raise ValueError(f"range_pieces takes 1 <= k <= n and rows >= 1, got n={n}, k={k}, "
+                         f"rows={rows}")
+    total = math.comb(n, k)
+    return [(_first_index(n, k, s), _first_index(n, k, min(s + rows, total) - 1) + 1, s,
+             min(rows, total - s)) for s in range(0, total, rows)]
+
+
+def _first_index(n: int, k: int, row: int) -> int:
+    """The first index of ``combinations_table(n, k)``'s row ``row``: the
+    largest i whose rows start at C(n, k) - C(n - i, k) <= row."""
+    total = math.comb(n, k)
+    return bisect.bisect_right(range(n - k + 1), row,
+                               key=lambda i: total - math.comb(n - i, k)) - 1
+
+
+def combinations_range_on(n: int, k: int, start: int, stop: int, device,
+                          sub: torch.Tensor | None = None) -> torch.Tensor:
+    """Rows [start, stop) of ``combinations_table(n, k)``, in its order, as
+    an int32 tensor written on ``device`` from the table of width k - 1
+    (``sub``, as in ``combinations_rows_on``, whose rows these are where the
+    run holds whole first indices)."""
+    if not 2 <= k <= n or not 0 <= start <= stop <= math.comb(n, k):
+        raise ValueError(f"combinations_range_on takes 2 <= k <= n and 0 <= start <= stop <= "
+                         f"C(n, k), got n={n}, k={k}, start={start}, stop={stop}")
+    if sub is None:
+        sub = combinations_table_on(n, k - 1, device)
+    out = torch.empty((stop - start, k), dtype=torch.int32, device=device)
+    total, s = math.comb(n, k), start
+    i = _first_index(n, k, start) if start < stop else 0
+    while s < stop:
+        first = total - math.comb(n - i, k)        # the global row of i's first row
+        rows = math.comb(n - i - 1, k - 1)
+        a, b = s - first, min(stop - first, rows)
+        out[s - start:s - start + b - a, 0] = i
+        out[s - start:s - start + b - a, 1:] = sub[sub.shape[0] - rows + a:sub.shape[0] - rows + b]
+        s += b - a
+        i += 1
     return out

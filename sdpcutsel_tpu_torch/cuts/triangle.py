@@ -15,6 +15,13 @@ eigendecomposition: a gather and a top-k over the 4 T flat (triple, type)
 candidates, scored by violation at the LP point.  Rows take the pool's form
 ``lin . x_rho + <quad, X_rho_rho> >= rhs`` (relax/cutbuffer.py), unit-l2
 normalised like every other cut row.
+
+``triangle_select_and_generate`` takes the whole table.  Past what a card
+holds (``loop/solver.py``), ``triangle_selection`` is fed one piece of the
+table at a time (``triangle_add_piece``: its rows and the global index of
+the first) and ``triangle_cut_rows`` gives the same picks and rows, bit for
+bit, from (triple, type) of each pick; flat indices run past 2^31 from
+n = 1,480 and are int64 throughout.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.topk import masked_topk
+from ..ops.topk import StreamedTopk, masked_topk
 
 # Coefficients per type in ">=" form (the "<=" inequalities above negated).
 # quad is symmetric with each off-diagonal weight split over both entries.
@@ -85,10 +92,34 @@ def triangle_select_and_generate(x, X, table, sel_size: int, viol_tol: float,
     if table_mask is not None:
         viol = torch.where(table_mask[:, None], viol, torch.full_like(viol, -torch.inf))
     vals, sel, finite = masked_topk(viol.reshape(-1), sel_size)
-    tri, typ = sel // 4, sel % 4
+    return _cut_rows(x, table[sel // 4].long(), sel % 4, finite & (vals > viol_tol))
+
+
+def _cut_rows(x, idx, typ, valid):
+    """The rows for ``append_cuts`` of the picks' triples ``idx`` (S, 3) and
+    types ``typ`` (S,)."""
     coef = {"dtype": x.dtype, "device": x.device}
-    idx = table[tri].long()
     lin = torch.as_tensor(_LIN_N, **coef)[typ]
     quad = torch.as_tensor(_QUAD_N, **coef)[typ]
     rhs = torch.as_tensor(_RHS_N, **coef)[typ]
-    return idx, lin, quad, rhs, finite & (vals > viol_tol)
+    return idx, lin, quad, rhs, valid
+
+
+def triangle_selection(sel_size: int, device) -> StreamedTopk:
+    """The streamed form of ``triangle_select_and_generate``'s top
+    ``sel_size`` over the 4 T flat candidates (``masked_topk``: alpha 0),
+    four a triple."""
+    return StreamedTopk(sel_size, 0.0, 3, device, group=4)
+
+
+def triangle_add_piece(sel: StreamedTopk, x, X, rows, offset: int):
+    """One piece of the table: its (R, 3) rows, ``offset`` the global index
+    of its first row (the pieces in order)."""
+    sel.add(triangle_violations(x, X, rows).reshape(-1), rows, 4 * offset)
+
+
+def triangle_cut_rows(x, sel: StreamedTopk, viol_tol: float):
+    """``triangle_select_and_generate``'s result from the streamed
+    selection once every piece is in."""
+    vals, flat, finite, rows = sel.result()
+    return _cut_rows(x, rows.long(), flat % 4, finite & (vals > viol_tol))

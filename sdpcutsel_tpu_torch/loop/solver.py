@@ -10,13 +10,13 @@ One round (``do_round``):
      the steered point; the certificate and the next warm start are the
      unsteered solve's;
   3. certify the f64 dual bound on the host (``dual_bound_f64``);
-  4. score every candidate of the route's table by the strategy (past
-     n = 2048 at k = 3 the kernel-scored strategies take the piecewise
-     route: the table written, scored and selected a piece of whole first
-     indices at a time, ``PIECE_ROWS`` rows at most, ``ops/topk.py``
-     StreamedTopk keeping only the rows that can still be picked, so the
-     table is never whole on the card; the picks are the whole table's, bit
-     for bit):
+  4. score every candidate of the route's table by the strategy (at k = 3
+     past a threshold of each strategy's, ``PIECE_N`` and beside it, every
+     strategy but a custom score_fn takes the piecewise route: the table
+     written, scored and selected a piece at a time, ``ops/topk.py``
+     StreamedTopk keeping only the rows that can still be picked, so no
+     tensor of the whole table exists on any device; the picks are the
+     whole table's, bit for bit):
        neural, feasibility, combined: a scoring kernel wrapper (the route is
                the reference's, ``loop/solver.py:173-186``):
                packed  k = 3, 66 <= n <= 128, ``pair_layout="packed"``: the
@@ -31,13 +31,16 @@ One round (``do_round``):
                        feasibility and combined.
                ``feasibility`` ranks by feas, ``neural`` by nn,
                ``combined`` by nn where feas > 0;
-       random: uniform [0, 1) from the solver's generator;
-       optimality: the exact subproblem improvement (models/labels.py);
+       random: uniform [0, 1) from the solver's generator (by pieces, one
+               draw a piece in the table's order: the whole draw's stream);
+       optimality: the exact subproblem improvement (models/labels.py; by
+               pieces of ``OPTIMALITY_PIECE_ROWS`` rows, whole eigh chunks);
        a custom ``score_fn(x, X, generator)``: one score a table row;
      the table is lexicographic for all but the first three;
   5. support-diverse (or plain) top ``sel_size``, eigh of the selected
      Z(rho), unit-norm cut rows; strategy ``triangle`` (k = 3) instead takes
-     the most violated RLT-3 inequalities (cuts/triangle.py);
+     the most violated RLT-3 inequalities (cuts/triangle.py, by pieces its
+     streamed form over the flat (triple, type) candidates);
   6. purge slack cuts and append the new rows.
 ``run_scan`` (``LoopConfig.use_scan``) runs the same device operations for
 all rounds with no per-round certificate or early stop, and certifies every
@@ -52,8 +55,10 @@ resumes from one, bit for bit.  Scan mode writes none, as in the reference.
 Randomness: one CPU ``torch.Generator`` a solver, seeded with
 ``RunConfig.seed``.  A round draws from it in one order, the same in both
 modes: the steering signs (x, then X) when steering, then the random scores
-under ``random``.  Draws on the CPU make both devices see the same numbers;
-they are not ``jax.random``'s stream.
+under ``random`` (by pieces, one draw a piece, in the table's order: CPU
+draws in turn continue one stream, so the numbers and the generator's state
+after the round are the whole draw's).  Draws on the CPU make both devices
+see the same numbers; they are not ``jax.random``'s stream.
 
 Everything runs in float32, the kernels' one type.  On CUDA the round does
 no cuBLAS matrix product (the MLP runs inside the scoring kernel), so the
@@ -75,9 +80,11 @@ import torch
 from ..config import CutConfig, LPConfig, RunConfig
 from ..cuts.assemble import assemble_Z
 from ..cuts.eigen import batched_eigh_small
-from ..cuts.enumerate import combinations_rows_on, combinations_table_on, first_index_pieces
+from ..cuts.enumerate import (combinations_range_on, combinations_table_on, first_index_pieces,
+                              range_pieces)
 from ..cuts.generate import cuts_from_selected
-from ..cuts.triangle import triangle_select_and_generate
+from ..cuts.triangle import (triangle_add_piece, triangle_cut_rows, triangle_select_and_generate,
+                             triangle_selection)
 from ..instances import BoxQPInstance
 from ..lp.pdhg import (PDHGState, dual_bound_f64, init_state, solve_lp, solve_setup,
                        steer_to_vertex)
@@ -95,8 +102,17 @@ from ..utils.debug import check_round_state
 KERNEL_SCORED = ("neural", "feasibility", "combined")   # scored by K1, K3 or K4
 STRATEGIES = (*KERNEL_SCORED, "random", "optimality", "triangle")
 LEX_SWEEPS = 6      # the reference's CPU feasibility and combined scoring (cuts/eigen.py)
-PIECE_N = 2048      # past it a k = 3 round of a kernel-scored strategy goes by pieces
+# past these n a k = 3 round goes by pieces: below them the whole route's
+# peak on the card (an H100's bytes a table row, the table included) stays
+# under about half of its 80 GB
+PIECE_N = 2048              # neural, feasibility, combined: the table's 12 B + K1's scores
+RANDOM_PIECE_N = 1920       # random: 32.7 B (the scores, diverse_topk's three rows)
+TRIANGLE_PIECE_N = 1100     # triangle: 172.5 B (the (T, 4) violations, the stable sort)
+OPTIMALITY_PIECE_N = 720    # optimality: 506 B (the ADMM's blocks) + a fixed 4.47 GB
+PIECE_N_OF = {"random": RANDOM_PIECE_N, "triangle": TRIANGLE_PIECE_N,
+              "optimality": OPTIMALITY_PIECE_N}
 PIECE_ROWS = 1 << 27  # table rows a piece holds at most (1.5 GB of rows, 0.5 GB a score)
+OPTIMALITY_PIECE_ROWS = 1 << 20   # optimality's pieces: 128 EIGH_CHUNKs of the ADMM
 
 
 @dataclasses.dataclass
@@ -305,13 +321,17 @@ class CutSolver(CheckpointableSolver):
     on the card unless ``device`` names another (the CPU takes the twins).
     ``score_fn(x, X, generator)``, when given, replaces the strategy's
     scores (one a row of the lexicographic ``table``); ``triangle`` still
-    takes its own path, as in the reference.  Past n = ``PIECE_N`` a k = 3
-    kernel-scored strategy takes the piecewise route (``table`` is then
-    None; ``pieces`` lists them); ``_pieces`` forces a route (tests and
-    measurements only): an int, the piecewise one with pieces of at most
-    that many rows; False, the whole table.  The
-    strategies random, optimality, triangle and a custom score_fn keep the
-    whole table at any n (torch refuses it where the card cannot hold it)."""
+    takes its own path, as in the reference.  At k = 3 past its strategy's
+    n (``PIECE_N_OF``, else ``PIECE_N``) every strategy takes the piecewise
+    route (``table`` is then None; ``pieces`` lists them as (i0, i1,
+    offset, rows): whole first indices, at most ``PIECE_ROWS`` rows, and
+    for optimality runs of ``OPTIMALITY_PIECE_ROWS`` rows, so that its
+    ADMM sees the whole call's eigh chunks); ``_pieces`` forces a route
+    (tests and measurements only): an int, the piecewise one with pieces
+    of at most that many rows (optimality: of that many); False, the whole
+    table.  A custom score_fn (one score a table row) and every strategy
+    at k != 3 keep the whole table at any n (torch refuses it where the
+    card cannot hold it)."""
 
     def __init__(self, inst: BoxQPInstance, cfg: RunConfig, device="cuda",
                  score_fn: Optional[Callable] = None, *, _pieces: int | bool | None = None):
@@ -328,14 +348,18 @@ class CutSolver(CheckpointableSolver):
         kernel_scored = score_fn is None and strat in KERNEL_SCORED
         mode = cfg.cuts.pair_layout
         self._use_packed = kernel_scored and k == 3 and 66 <= n <= 128 and mode == "packed"
-        piecewise = kernel_scored and k == 3 and not self._use_packed and (
-            n > PIECE_N if _pieces is None else _pieces is not False)
+        piecewise = score_fn is None and k == 3 and not self._use_packed and (
+            n > PIECE_N_OF.get(strat, PIECE_N) if _pieces is None else _pieces is not False)
         self.pieces = None
         self.last_selection = None      # the piecewise route's last StreamedTopk
         if piecewise:
-            # (i0, i1, offset, rows) by first index; each piece's rows are
-            # written from the pair table, once a round
-            self.pieces = first_index_pieces(n, 3, PIECE_ROWS if _pieces is None else _pieces)
+            # (i0, i1, offset, rows); each piece's rows are written from the
+            # pair table, once a round
+            if strat == "optimality":
+                self.pieces = range_pieces(n, 3, OPTIMALITY_PIECE_ROWS if _pieces is None
+                                           else _pieces)
+            else:
+                self.pieces = first_index_pieces(n, 3, PIECE_ROWS if _pieces is None else _pieces)
             self._pairs = combinations_table_on(n, 2, self.device)
             self.table = None
         elif self._use_packed:
@@ -362,15 +386,16 @@ class CutSolver(CheckpointableSolver):
         self.polish_info: dict | None = None
 
     def _scores(self, x, X, table=None):
-        """The strategy's score of every slot of the route's table (a
-        kernel-scored strategy: of ``table``'s rows where given, a piece)."""
+        """The strategy's score of every slot of the route's table, or of
+        ``table``'s rows where given (a piece)."""
         strat = self.cfg.scorer.strategy
         if self._score_fn is not None:
             return self._score_fn(x, X, self.generator)
         if strat == "random":
-            return torch.rand((self.table.shape[0],), generator=self.generator).to(self.device)
+            rows = (self.table if table is None else table).shape[0]
+            return torch.rand((rows,), generator=self.generator).to(self.device)
         if strat == "optimality":
-            return self._exact(x, X)
+            return self._exact(x, X, rows=table)
         if self._use_packed:
             nn, feas = packed_score(x, X, self.Q, self.layout, self.mlp)
         elif self.cfg.cuts.k == 3:
@@ -388,15 +413,25 @@ class CutSolver(CheckpointableSolver):
 
     def _select_pieces(self, x, X):
         """The piecewise route's selection and cut rows: each piece's rows
-        written on the card (``combinations_rows_on``), scored by K1 (its own
-        launches) and fed to StreamedTopk; the whole table's picks, bit for
-        bit.  Returns (rows for append_cuts, the selection)."""
+        written on the device (``combinations_range_on``), scored by the
+        strategy (K1's own launches; random's draw; optimality's ADMM) and
+        fed to StreamedTopk, or for triangle its violations to the streamed
+        flat selection; the whole table's picks, bit for bit.  Returns (rows
+        for append_cuts, the selection)."""
         cuts = self.cfg.cuts
-        sel = StreamedTopk(cuts.sel_size, cuts.diversity_alpha, 3, self.device)
-        for i0, i1, offset, _ in self.pieces:
-            rows = combinations_rows_on(self.inst.n, 3, i0, i1, self.device, self._pairs)
-            sel.add(self._scores(x, X, rows), rows, offset)
+        triangle = self.cfg.scorer.strategy == "triangle"
+        sel = (triangle_selection(cuts.sel_size, self.device) if triangle else
+               StreamedTopk(cuts.sel_size, cuts.diversity_alpha, 3, self.device))
+        for _, _, offset, count in self.pieces:
+            rows = combinations_range_on(self.inst.n, 3, offset, offset + count, self.device,
+                                         self._pairs)
+            if triangle:
+                triangle_add_piece(sel, x, X, rows, offset)
+            else:
+                sel.add(self._scores(x, X, rows), rows, offset)
             del rows
+        if triangle:
+            return triangle_cut_rows(x, sel, cuts.viol_tol), sel
         _, _, valid, picked = sel.result()
         return cut_rows_at(x, X, picked.long(), valid, cuts), sel
 

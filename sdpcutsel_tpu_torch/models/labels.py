@@ -85,15 +85,18 @@ def exact_improvement(Q_sub, x_sub, X_sub, iters: int = 300):
     return (current - s).clamp(min=0.0)
 
 
-def exact_score_fn(Q, table, iters: int = 300):
+def exact_score_fn(Q, table=None, iters: int = 300):
     """Strategy ``optimality``: the exact improvement of every row of
-    ``table`` (T, k).  Returns score(x, X, generator) -> (T,); the generator
-    is not drawn from."""
-    table = table.long()
-    Qr = Q[table[:, :, None], table[:, None, :]]     # (T, k, k), once
+    ``table`` (T, k), or of ``rows`` where given (a piece of a table that is
+    never whole, ``loop/solver.py``).  Returns score(x, X, generator=None,
+    rows=None) -> (T,); the generator is not drawn from.  Each call gathers
+    its rows' Q, X and x blocks, so nothing of size T outlives it.  A piece
+    whose first row is a multiple of EIGH_CHUNK into the table splits into
+    the whole call's eigh chunks (``_eigh``)."""
 
-    def score(x, X, generator=None):
-        Xr = X[table[:, :, None], table[:, None, :]]
-        return exact_improvement(Qr, x[table], Xr, iters=iters)
+    def score(x, X, generator=None, rows=None):
+        idx = (table if rows is None else rows).long()
+        blocks = (idx[:, :, None], idx[:, None, :])
+        return exact_improvement(Q[blocks], x[idx], X[blocks], iters=iters)
 
     return score

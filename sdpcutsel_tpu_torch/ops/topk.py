@@ -8,8 +8,9 @@ maximum.
 
 ``StreamedTopk`` gives ``diverse_topk``'s (or, at alpha 0, ``masked_topk``'s)
 picks over a table seen a piece at a time, bit for bit, holding only the
-rows that can still be picked (the k = 3 round past n = 2048,
-``loop/solver.py``).
+rows that can still be picked (the k = 3 round past the table's memory,
+``loop/solver.py``); with ``group`` > 1 a row carries that many flat
+candidates (triangle's four inequalities a triple, ``cuts/triangle.py``).
 """
 
 from __future__ import annotations
@@ -100,10 +101,14 @@ class StreamedTopk:
     the table's row 0, 0..kk-1), as torch.argmax gives it there.  At alpha
     <= 0 the survivors are the running top S by (score, lower index), which
     ``masked_topk``'s stable sort picks alike.  Scores are float32 without
-    NaN (a NaN raises).  ``most`` is the largest number of survivors held."""
+    NaN (a NaN raises).  ``most`` is the largest number of survivors held.
+    ``group``: the flat candidates a row carries (scores g r .. g r + g - 1
+    are row r's, global indices g times the row's); the picks' global
+    indices are flat ones, as ``masked_topk(scores.reshape(-1), S)`` gives
+    them on the whole (T, g) table (int64 past 2^31)."""
 
-    def __init__(self, S: int, alpha: float, kk: int, device):
-        self.S, self.alpha, self.kk = S, alpha, kk
+    def __init__(self, S: int, alpha: float, kk: int, device, group: int = 1):
+        self.S, self.alpha, self.kk, self.group = S, alpha, kk, group
         self.device = torch.device(device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self.top = torch.empty(0, **f32)                 # the running top S raw values
@@ -123,10 +128,13 @@ class StreamedTopk:
         return s_S - torch.mul(self.pmax, self.alpha)     # fl(s_S - fl(P alpha))
 
     def add(self, scores: torch.Tensor, rows: torch.Tensor, offset: int):
-        """The next piece: its (T,) float32 scores, its (T, kk) int32 rows,
-        and the global index of its first row (the pieces in order)."""
-        if scores.dtype != torch.float32 or rows.shape != (scores.shape[0], self.kk):
-            raise ValueError("StreamedTopk.add takes (T,) float32 scores and (T, kk) rows")
+        """The next piece: its (T,) float32 scores, its (T / group, kk)
+        int32 rows, and the global (flat) index of its first score (the
+        pieces in order)."""
+        g = self.group
+        if (scores.dtype != torch.float32 or scores.shape[0] % g
+                or rows.shape != (scores.shape[0] // g, self.kk)):
+            raise ValueError("StreamedTopk.add takes (T,) float32 scores and (T / group, kk) rows")
         if bool(torch.isnan(scores).any()):
             raise ValueError("StreamedTopk: a score is NaN")
         both = torch.cat([self.top, scores])
@@ -140,7 +148,7 @@ class StreamedTopk:
         at = torch.nonzero(keep)[:, 0]
         vals = torch.cat([self.vals, scores[at]])
         idx = torch.cat([self.idx, at + offset])
-        rows_ = torch.cat([self.rows, rows[at]])
+        rows_ = torch.cat([self.rows, rows[at // g]])
         self.most = max(self.most, vals.numel())
         if self.alpha <= 0.0:          # the running top S by (score, lower index)
             best = torch.sort(torch.sort(-vals, stable=True).indices[:self.S]).values

@@ -121,10 +121,10 @@ STAGES = [
         ("cut_residuals", "purge: residuals"),
         ("purge_pool", "purge: compact"),
         ("append_cuts", "append_cuts"))),
-    # the k = 3 round by pieces past n = 2048 (K1 above is each piece's
-    # scoring): the rows written, the survivors' filter, the final greedy
-    # over the survivors, and the cut rows of the picks
-    (solver_mod, "combinations_rows_on", "pieces: rows written"),
+    # the k = 3 round by pieces (K1, random's draw or the ADMM above is each
+    # piece's scoring): the rows written, the survivors' filter, the final
+    # greedy over the survivors, and the cut rows of the picks
+    (solver_mod, "combinations_range_on", "pieces: rows written"),
     (topk_mod.StreamedTopk, "add", "pieces: survivors' filter"),
     (topk_mod.StreamedTopk, "result", "pieces: final greedy"),
     (solver_mod, "cut_rows_at", "eigh + cut rows (in the selection above, or by pieces)"),

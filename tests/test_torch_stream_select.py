@@ -186,8 +186,10 @@ def test_cut_solver_by_pieces_feasibility_and_combined(strategy):
 
 def test_route_by_n():
     """Past PIECE_N a k = 3 kernel-scored strategy goes by pieces of at most
-    PIECE_ROWS rows (C(4096, 3) in ~86); random, optimality, triangle and a
-    custom score_fn keep the whole table; _pieces=False forces it."""
+    PIECE_ROWS rows (C(4096, 3) in ~86); random and triangle take the same
+    pieces where forced (tests/test_torch_strategy_pieces.py holds their
+    own thresholds); a custom score_fn keeps the whole table; _pieces=False
+    forces it."""
     assert tsolver.PIECE_N == 2048
     pieces = first_index_pieces(4096, 3, tsolver.PIECE_ROWS)
     assert sum(p[3] for p in pieces) == math.comb(4096, 3) == 11_444_858_880
@@ -196,4 +198,8 @@ def test_route_by_n():
     assert CutSolver(inst, CFG, device="cpu", _pieces=False).pieces is None
     for strategy in ("random", "triangle"):
         cfg = RunConfig(lp=CFG.lp, scorer=ScorerConfig(strategy=strategy))
-        assert CutSolver(inst, cfg, device="cpu", _pieces=50).pieces is None
+        assert CutSolver(inst, cfg, device="cpu", _pieces=50).pieces == first_index_pieces(
+            inst.n, 3, 50)
+    custom = RunConfig(lp=CFG.lp, scorer=ScorerConfig(strategy="custom"))
+    assert CutSolver(inst, custom, device="cpu", _pieces=50,
+                     score_fn=lambda x, X, g: torch.zeros(1140)).pieces is None
