@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py [--parent DIR] [--phases GROUPS]
 
---phases runs some of the groups 3, 4, 5-13, 15-17, 18-21, 22, 23, 24 and
-25 (comma-separated; the default runs every one, and only then prints the
-kernels line; the build and phase 1 always run).
+--phases runs some of the groups 3, 4, 5-13, 15-17, 18-21, 22, 23, 24, 25
+and 26 (comma-separated; the default runs every one, and only then prints
+the kernels line; the build and phase 1 always run).
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
@@ -307,6 +307,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
      generate_spar(2100, 100, 1) (the host draw's seconds printed), each
      certificate at least a feasible point's objective, the card's peak and
      the survivors' largest count printed;
+ 26. BoxQP at k = 4 and 5 by pieces of the table (run after phase 25;
+     loop/solver.py's piecewise route past PIECE_N_OF[strategy, k]: each
+     piece's rows written on the card from the pair table, its features
+     and K4 each round; every round at LPConfig(3000, 1e-5), counters reset
+     before each and read after; no plain block or twin): (a) round 0 by
+     forced pieces (2^24 rows) and on the whole table, bit for bit (picks,
+     cut rows, pool, outcome, generator's state), K4 once a piece, each
+     route's peak on the card a table row: k = 4 neural and random on
+     generate_spar(200, 100, 1), k = 5 neural on generate_spar(80, 100, 1);
+     k = 4 optimality on spar020-100-1 by pieces of whole eigh chunks (the
+     ADMM's scores too), and the ADMM's peak a row at k = 4 and 5; (b) the
+     default route, neural, twice from a fresh solver bit for bit: k = 4 on
+     generate_spar(512, 100, 1) (past 2^31 rows), k = 5 (sel_size 10) on
+     generate_spar(200, 100, 1); each certificate at least a feasible
+     point's objective, the survivors' largest count under a cap, the
+     card's peak (under 10 GB at k = 4); K4 over the piece at row 2^31
+     against its twin at both ends, timed by events beside its bound, with
+     the rows' and the features' times; (c) spar125-100-1 at k = 5,
+     sel_size 10, by the route its threshold picks, at phase 5's LP: round
+     0 within 1e-2 of McCormick, the certificate at least the best known
+     objective;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -460,9 +481,11 @@ only in full float32.  The solver itself does no cuBLAS product on CUDA.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import glob
 import hashlib
 import importlib
@@ -521,7 +544,9 @@ from sdpcutsel_tpu_torch.lp import pdhg_kernel
 from sdpcutsel_tpu_torch.lp.pdhg_kernel import (launch_plan, max_active_clusters, pdhg_block,
                                                 pdhg_block_batched, pdhg_block_batched_plain,
                                                 pdhg_block_plain, plan_refusal)
+from sdpcutsel_tpu_torch.models import labels as labels_mod
 from sdpcutsel_tpu_torch.models import train as train_mod
+from sdpcutsel_tpu_torch.models.features import candidate_q_features
 from sdpcutsel_tpu_torch.models.labels import EIGH_CHUNK, exact_score_fn
 from sdpcutsel_tpu_torch.models.scorer import MLPScorer, load_params
 from sdpcutsel_tpu_torch.multichip_dryrun import dryrun_multichip
@@ -3561,22 +3586,69 @@ def same_bits(got, state, cert, iters) -> bool:
             and np.array_equal(got["cert"], cert) and np.array_equal(got["lp_iters"], iters))
 
 
+def timed_dryrun(data: int) -> tuple:
+    """dryrun_multichip over 2 ranks at 'data' = ``data``: (outputs, seconds)."""
+    t0 = time.perf_counter()
+    return dryrun_multichip(2, data, timeout=RANK_TIMEOUT), time.perf_counter() - t0
+
+
+def suite_runner(cmd: list) -> list:
+    """run_suite_incremental twice in turn (``cmd``): each call's output."""
+    said = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=RANK_TIMEOUT)
+        if run.returncode:
+            raise AssertionError(f"run_suite_incremental failed:\n{run.stdout}{run.stderr}")
+        said.append(run.stdout)
+        log(f"[runner] run_suite_incremental in {time.perf_counter() - t0:.1f}s: "
+            f"{run.stdout.strip()!r}")
+    return said
+
+
 def multi_process(dev) -> dict:
     """Phase 17: the multi-process paths, each rank a subprocess; returns
-    the launches summed over every rank."""
+    the launches summed over every rank.  The rank groups of (a)-(d) and
+    the runner of (e) start together (each group its own file store; they
+    share the card and the host's cores), and each is waited for where its
+    checks are; the gathers' timing of (b) runs alone after them."""
     t_phase = time.perf_counter()
     checks, launches = {}, []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+    with (tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp,
+          concurrent.futures.ThreadPoolExecutor(6) as jobs):
+        n, B = BENCH_BATCH
+        data = os.path.join(tmp, "boxqp")
+        os.makedirs(data)
+        for name in ("spar020-100-1.in", "bounds.json"):
+            shutil.copy(os.path.join(DATA, name), data)
+        out_path = os.path.join(tmp, "suite_torch.jsonl")
+        started = {
+            "dry": {d: jobs.submit(timed_dryrun, d) for d in (2, 1)},
+            "full": jobs.submit(multihost, [
+                "--instances", INSTANCE, "--data", "1", "--cand", "2", "--capacity", "1024",
+                "--rounds", str(BATCH_ROUNDS), "--lp-iters", "400", "--sel-size", "16"], 2,
+                os.path.join(tmp, "full.npz")),
+            "scan": jobs.submit(multihost, [
+                "--n", str(n), "--batch", str(B), "--rounds", str(BATCH_ROUNDS), "--data", "2",
+                "--cand", "1", "--capacity", "1024", "--lp-iters", "400", "--sel-size", "16",
+                "--use-scan"], 2, os.path.join(tmp, "scan.npz")),
+            "nccl": jobs.submit(multihost, ["--data", "1", "--cand", "1"], 1,
+                                os.path.join(tmp, "nccl.npz")),
+            "runner": jobs.submit(suite_runner, [
+                sys.executable, "-m", "sdpcutsel_tpu_torch.run_suite_incremental", "--sizes",
+                "20", "--densities", "100", "--seeds", "1", "--strategies", "feasibility",
+                "--rounds", "2", "--data-dir", data, "--out", out_path]),
+        }
         # (a) the dry run's two shapes of 2 ranks
-        for data in (2, 1):
-            t0 = time.perf_counter()
-            outs = dryrun_multichip(2, data, timeout=RANK_TIMEOUT)
+        for data_ in (2, 1):
+            outs, seconds = started["dry"][data_].result()
             counts = rank_lines("dryrun", outs)
             launches += counts
             line = next((ln for ln in outs[0].splitlines()
                          if ln.startswith("dryrun_multichip ok")), "")
-            shape = f"{data}x{2 // data}"
-            log(f"[dryrun] {shape} in {time.perf_counter() - t0:.1f}s ({SMI})")
+            shape = f"{data_}x{2 // data_}"
+            log(f"[dryrun] {shape} in {seconds:.1f}s, beside the other groups ({SMI})")
             checks[f"(a) dry run {shape}: its checks, bit for bit per shard"] = (
                 f"mesh=({shape})" in line and "bit_equal_to_per_shard_batches=True" in line)
             checks.update({f"(a) {shape}: {k}": v for k, v in clean_ranks(
@@ -3584,10 +3656,7 @@ def multi_process(dev) -> dict:
 
         # (b) spar125-100-1 alone, 'cand' across two ranks
         inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
-        outs, got = multihost(["--instances", INSTANCE, "--data", "1", "--cand", "2",
-                               "--capacity", "1024", "--rounds", str(BATCH_ROUNDS),
-                               "--lp-iters", "400", "--sel-size", "16"], 2,
-                              os.path.join(tmp, "full.npz"))
+        outs, got = started["full"].result()
         counts = rank_lines("multi-full", outs)
         launches += counts
         half = "158875 of 317750 candidate rows"
@@ -3606,11 +3675,6 @@ def multi_process(dev) -> dict:
             log(f"[multi-full] in-process Mesh(1, {cand}): {BATCH_ROUNDS} rounds in "
                 f"{time.perf_counter() - t0:.4f} s after a warm-up round ({SMI})")
             runs[cand] = (state, certify_batched_f64(state), info["lp_iters"])
-        gathers = [json.loads(out.strip().splitlines()[-1])
-                   for out in distributed.spawn(["-c", GATHER_TIMING], 2, RANK_TIMEOUT)]
-        log(f"[multi-full] gloo's two gathers of a round at 1 x 2 on one card, us per round "
-            f"by rank, of card tensors (through the host) and of host tensors: "
-            f"{[g['us_per_round'] for g in gathers]} ({SMI})")
         one_rel = float(np.abs(got["cert"] - runs[1][1]).max() / np.abs(runs[1][1]).max())
         log(f"[multi-full] {INSTANCE} at 1 x 2 over 2 ranks: certified {got['cert'].tolist()} "
             f"cuts {got['count'].tolist()}; in-process Mesh(1, 2) {runs[2][1].tolist()}, "
@@ -3631,11 +3695,7 @@ def multi_process(dev) -> dict:
         })
 
         # (c) bench.py's batched scan, 'data' across two ranks
-        n, B = BENCH_BATCH
-        outs, got = multihost(["--n", str(n), "--batch", str(B), "--rounds", str(BATCH_ROUNDS),
-                               "--data", "2", "--cand", "1", "--capacity", "1024", "--lp-iters",
-                               "400", "--sel-size", "16", "--use-scan"], 2,
-                              os.path.join(tmp, "scan.npz"))
+        outs, got = started["scan"].result()
         counts = rank_lines("multi-scan", outs)
         launches += counts
         insts = [generate_spar(n, 100, s + 1) for s in range(B)]
@@ -3662,8 +3722,7 @@ def multi_process(dev) -> dict:
         })
 
         # (d) NCCL at world size 1, the backend by the rule (a rank with its own card)
-        outs, got = multihost(["--data", "1", "--cand", "1"], 1,
-                              os.path.join(tmp, "nccl.npz"))
+        outs, got = started["nccl"].result()
         counts = rank_lines("multi-nccl", outs)
         launches += counts
         result = json.loads([ln for ln in outs[0].splitlines() if ln.startswith("{")][-1])
@@ -3674,30 +3733,19 @@ def multi_process(dev) -> dict:
         })
 
         # (e) a runner on the card: one cell, then a second call skips it
-        data = os.path.join(tmp, "boxqp")
-        os.makedirs(data)
-        for name in ("spar020-100-1.in", "bounds.json"):
-            shutil.copy(os.path.join(DATA, name), data)
-        out_path = os.path.join(tmp, "suite_torch.jsonl")
-        cmd = [sys.executable, "-m", "sdpcutsel_tpu_torch.run_suite_incremental", "--sizes",
-               "20", "--densities", "100", "--seeds", "1", "--strategies", "feasibility",
-               "--rounds", "2", "--data-dir", data, "--out", out_path]
-        said = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                                 timeout=RANK_TIMEOUT)
-            if run.returncode:
-                raise AssertionError(f"run_suite_incremental failed:\n{run.stdout}{run.stderr}")
-            said.append(run.stdout)
-            log(f"[runner] run_suite_incremental in {time.perf_counter() - t0:.1f}s: "
-                f"{run.stdout.strip()!r}")
+        said = started["runner"].result()
         rows = [json.loads(line) for line in open(out_path)]
         checks.update({
             "(e) one record, platform cuda": len(rows) == 1 and rows[0]["platform"] == "cuda"
                 and rows[0]["final_gap_closed"] > 0,
             "(e) the second call skips the cell": "[suite] spar020-100-1" not in said[1],
         })
+        # (b)'s gathers timed once every other group has ended
+        gathers = [json.loads(out.strip().splitlines()[-1])
+                   for out in distributed.spawn(["-c", GATHER_TIMING], 2, RANK_TIMEOUT)]
+        log(f"[multi-full] gloo's two gathers of a round at 1 x 2 on one card, us per round "
+            f"by rank, of card tensors (through the host) and of host tensors: "
+            f"{[g['us_per_round'] for g in gathers]} ({SMI})")
     total = {k: sum(c[k] for c in launches) for k in launches[0]}
     log(f"[multi] phase 17 in {time.perf_counter() - t_phase:.1f}s ({SMI}); launches over "
         f"{len(launches)} ranks {total}")
@@ -6473,10 +6521,11 @@ def strategy_cfg(strategy: str) -> RunConfig:
     return RunConfig(lp=PIECES_LP, scorer=ScorerConfig(strategy=strategy))
 
 
-def route_round(inst, strategy: str, dev, pieces) -> dict:
-    """Round 0 of CutSolver with ``strategy`` at PIECES_LP on the route
-    ``pieces`` (the private _pieces: None the default, False the whole
-    table, an int forced pieces), counters reset before and read after:
+def route_round(inst, strategy: str, dev, pieces, cfg: RunConfig | None = None) -> dict:
+    """Round 0 of CutSolver with ``strategy`` at PIECES_LP (or in ``cfg``)
+    on the route ``pieces`` (the private _pieces: None the default, False
+    the whole table, an int forced pieces), counters reset before and read
+    after:
     the history, the cut rows (append_cuts's arguments), the picks (global
     indices: StreamedTopk's by pieces; on the whole table
     select_and_generate's, or the flat ones triangle's masked_topk takes),
@@ -6504,20 +6553,22 @@ def route_round(inst, strategy: str, dev, pieces) -> dict:
         return out
 
     torch.cuda.synchronize()
+    gc.collect()                  # an earlier solver (its _scores wrapper is a cycle)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for (mod, name), fn in zip(patched, (keep_rows, keep_picks, keep_flat)):
         setattr(mod, name, fn)
     try:
-        solver = CutSolver(inst, strategy_cfg(strategy), device=dev, _pieces=pieces)
+        solver = CutSolver(inst, cfg or strategy_cfg(strategy), device=dev, _pieces=pieces)
         method = solver._scores
 
         def timed_scores(x, X, table=None):
             t0 = time.perf_counter()
             out = method(x, X, table)
             score_s[0] += time.perf_counter() - t0
-            scores.append(out)
+            if strategy == "optimality":      # kept to compare; a piece's scores else go
+                scores.append(out)
             return out
 
         solver._scores = timed_scores
@@ -6541,7 +6592,8 @@ def route_round(inst, strategy: str, dev, pieces) -> dict:
            "most": None if sel is None else sel.most, "x": solver.state.x.cpu().numpy()}
     if strategy == "optimality":
         out["scores"] = torch.cat(scores) if len(scores) > 1 else scores[0]
-    del solver, scores
+    del solver, scores, method, timed_scores
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -6720,7 +6772,307 @@ def pieces_phase(dev) -> dict:
     return out
 
 
-GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23", "24", "25")   # --phases
+# ---- phase 26: BoxQP at k = 4 and 5 by pieces of the table ----------------------------
+
+KPIECES_WHOLE = ((4, "neural", (200, 100, 1)), (4, "random", (200, 100, 1)),
+                 (5, "neural", (80, 100, 1)), (5, "random", (80, 100, 1)))
+                                       # (a): forced pieces against the whole table
+KPIECES_FORCED = 1 << 24               # (a): rows a forced piece holds (4 of C(200, 4))
+KOPT_CHUNK = 1024                      # (a): optimality's eigh chunk at spar020, k = 4
+KOPT_FORCED = 2 * KOPT_CHUNK           # (a): its forced pieces, whole chunks (3 of C(20, 4))
+KADMM_ROWS = (1 << 14, 1 << 16)        # (a): ADMM pieces at k = 4, 5: its bytes a row
+KPIECES_DEFAULT = ((4, (512, 100, 1)), (5, (200, 100, 1)))   # (b): the default route
+KPIECES_MOST = 1 << 20                 # (b): the survivors' largest count stays under it
+KPIECES_PEAK = 10 * 10 ** 9            # (b): the card's peak above the set-up at n = 512, k = 4
+K4_WINDOW = 1 << 16                    # rows of a K4 piece held to the twin, at each end
+
+
+def kcfg(k: int, strategy: str) -> RunConfig:
+    """Phase 26's rounds: PIECES_LP, CutConfig(k=k) (sel_size 10 at k = 5)."""
+    return RunConfig(lp=PIECES_LP, cuts=CutConfig(k=k, sel_size=10 if k == 5 else 20),
+                     scorer=ScorerConfig(strategy=strategy))
+
+
+def solve_route_checks(path: str, launches: dict, n: int, k: int) -> dict:
+    """The LP's route at n, k with the default pool: K2 (its control,
+    control_checks) or the grid route (dense_route_checks)."""
+    if pdhg_kernel.route_refusal(n, CutConfig().capacity, k, 0)[0] == "k2":
+        return control_checks(path, launches)
+    return dense_route_checks(path, launches, GRID_NAMES)
+
+
+def k4_launches(rows: int, k: int) -> int:
+    """K4's launches over ``rows`` candidates of width k (launch_ranges)."""
+    return len(launch_ranges(rows, k * (k + 1) // 2))
+
+
+def kpieces_against_whole(dev) -> tuple:
+    """Phase 26 (a): round 0 at k = 4 (neural, random) on
+    generate_spar(200, 100, 1) (64,684,950 rows) and at k = 5 (neural) on
+    generate_spar(80, 100, 1) (24,040,016 rows), by forced pieces of
+    KPIECES_FORCED rows and on the whole table: picks, cut rows, pool,
+    outcome and generator's state bit for bit, each route's peak a table
+    row, K4 once a piece; k = 4 optimality on spar020-100-1 (eigh chunks of
+    KOPT_CHUNK blocks) by pieces of two chunks against the whole table, its
+    scores too; the ADMM's peak a row at k = 4 and 5 from pieces of
+    KADMM_ROWS rows.  Returns ({path: launch counts}, checks, numbers)."""
+    launches, checks, numbers = {}, {}, {}
+    for k, strategy, shape in KPIECES_WHOLE:
+        inst = generate_spar(*shape)
+        T, cfg = math.comb(inst.n, k), kcfg(k, strategy)
+        pieced = route_round(inst, strategy, dev, KPIECES_FORCED, cfg)
+        whole = route_round(inst, strategy, dev, False, cfg)
+        same = same_round(pieced, whole)
+        path = f"kpieces {strategy} k={k} n={inst.n}"
+        launches[path], launches[f"{path} whole table"] = pieced["launches"], whole["launches"]
+        numbers[path] = {"rows": T, "pieces B a row": pieced["peak"] / T,
+                         "whole B a row": whole["peak"] / T, "pieces s": pieced["wall"],
+                         "whole s": whole["wall"], "pieces": pieced["pieces"]}
+        floor = feasible_objective(inst, whole["x"])
+        log(f"[{path}] round 0 by {pieced['pieces']} forced pieces and on the whole table: "
+            f"bounds {pieced['hist'][0].bound!r}, {whole['hist'][0].bound!r} (cuts "
+            f"{whole['hist'][0].cuts_added}, lp_iters {whole['hist'][0].lp_iters}); "
+            f"{pieced['wall']:.3f}s and {whole['wall']:.3f}s; the card's peak above the "
+            f"set-up's start {pieced['peak']} and {whole['peak']} bytes = "
+            f"{pieced['peak'] / T:.2f} and {whole['peak'] / T:.2f} B a table row; the "
+            f"survivors' largest count {pieced['most']}; K4 launches {pieced['launches']['fused_score']}"
+            f" and {whole['launches']['fused_score']}; {same}; a feasible point's f {floor!r} "
+            f"({SMI})")
+        tag = f"k={k} {strategy}"
+        checks.update({f"{tag}: {key} by pieces are the whole table's, bit for bit": v
+                       for key, v in same.items()})
+        checks[f"{tag}: the whole route holds the table, the pieces do not"] = (
+            whole["pieces"] is None and pieced["pieces"] == -(-T // KPIECES_FORCED) > 1)
+        checks[f"{tag}: the certificate >= a feasible point's f {floor}"] = bool(
+            np.isfinite(whole["hist"][0].certificate) and whole["hist"][0].certificate >= floor)
+        scored = strategy == "neural"
+        checks[f"{tag}: K4 once a piece, and over the whole table in its launches"] = (
+            pieced["launches"]["fused_score"] == (pieced["pieces"] if scored else 0)
+            and whole["launches"]["fused_score"] == (k4_launches(T, k) if scored else 0)
+            and pieced["launches"][TWIN_SCORED] == whole["launches"][TWIN_SCORED] == 0)
+        for p in (path, f"{path} whole table"):
+            checks.update({f"{p}: {key}": v for key, v in
+                           solve_route_checks(p, launches[p], inst.n, k).items()})
+    # optimality at k = 4: pieces of whole (patched) eigh chunks
+    inst = parse_boxqp(os.path.join(DATA, "spar020-100-1.in"), name="spar020-100-1")
+    chunk, labels_mod.EIGH_CHUNK = labels_mod.EIGH_CHUNK, KOPT_CHUNK
+    try:
+        pieced = route_round(inst, "optimality", dev, KOPT_FORCED, kcfg(4, "optimality"))
+        whole = route_round(inst, "optimality", dev, False, kcfg(4, "optimality"))
+    finally:
+        labels_mod.EIGH_CHUNK = chunk
+    same = same_round(pieced, whole)
+    same["the ADMM's scores"] = torch.equal(pieced["scores"], whole["scores"])
+    path = "kpieces optimality k=4 n=20"
+    launches[path] = pieced["launches"]
+    log(f"[{path}] round 0 by {pieced['pieces']} forced pieces (eigh chunks of {KOPT_CHUNK}) "
+        f"and on the whole table: bounds {pieced['hist'][0].bound!r}, "
+        f"{whole['hist'][0].bound!r} (cuts {whole['hist'][0].cuts_added}); "
+        f"{pieced['wall']:.3f}s and {whole['wall']:.3f}s; {same} ({SMI})")
+    checks.update({f"k=4 optimality: {key} by pieces are the whole table's, bit for bit": v
+                   for key, v in same.items()})
+    checks.update({f"{path}: {key}": v for key, v in control_checks(path, pieced["launches"]).items()})
+    # the ADMM's bytes a row at k = 4 and 5
+    for k, shape in ((4, (200, 100, 1)), (5, (80, 100, 1))):
+        big = generate_spar(*shape)
+        x, X, Q = scoring_point(big, dev)
+        fn, peaks = exact_score_fn(Q), []
+        for R in KADMM_ROWS:
+            rows, got = combinations_range_on(big.n, k, 0, R, dev), []
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: got.append(fn(x, X, rows=rows)), reps=1, warmup=0)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            checks[f"k={k}: the ADMM's piece of {R} rows: scores finite and >= 0"] = bool(
+                torch.isfinite(got[0]).all() and (got[0] >= 0).all())
+            log(f"[kpieces optimality k={k} {big.name}] a piece of {R} rows through the ADMM: "
+                f"{ms:.2f} ms by events, the card's peak above its start {peaks[-1]} bytes ({SMI})")
+            del rows, got
+        (r0, r1), (p0, p1) = KADMM_ROWS, peaks
+        per_row = (p1 - p0) / (r1 - r0)
+        numbers[f"optimality k={k}"] = {"B a row": per_row, "fixed": p0 - per_row * r0,
+                                        "ms a row": ms / r1}
+        log(f"[kpieces optimality k={k}] the ADMM's peak by rows: {per_row:.1f} B a row and "
+            f"{p0 - per_row * r0:.0f} bytes fixed; {ms / r1 * 1e3:.3f} us a row ({SMI})")
+    torch.cuda.empty_cache()
+    return launches, checks, numbers
+
+
+def k4_piece_check(inst, k: int, dev) -> dict:
+    """K4 over the default route's piece that starts at row 2^31 of
+    C(n, k) (PIECE_ROWS_WIDE[k] rows, written on the card from the pair
+    table, its features by candidate_q_features) at the scoring point,
+    neural's sweeps: the first and last K4_WINDOW rows against the twin
+    (feas atol 5e-4 as check_fused_score; nn rtol = atol = 2e-4, as K1 over
+    its pieces, k1_piece_check: over 131,072 random rows the tensor cores'
+    truncated sums (nn_precision.py) reach 1.2 times check_fused_score's
+    atol 2e-5 at k = 5, printed beside), two calls bit for bit, its time by
+    events beside the bound, and the rows' and features' times."""
+    x, X, Q = scoring_point(inst, dev)
+    R = solver_mod.PIECE_ROWS_WIDE[k]
+    start = 1 << 31 if math.comb(inst.n, k) >= (1 << 31) + R else 0
+    pairs = combinations_table_on(inst.n, 2, dev)
+    rows_ms = cuda_ms(lambda: combinations_range_on(inst.n, k, start, start + R, dev, pairs),
+                      reps=2, warmup=1)
+    table = combinations_range_on(inst.n, k, start, start + R, dev, pairs)
+    feat_ms = cuda_ms(lambda: candidate_q_features(Q, table), reps=2, warmup=1)
+    triQ, scale = candidate_q_features(Q, table)
+    mlp = MLPScorer(load_params(k), dev)
+    before = fused_score.launches
+    nn_k, feas_k = fused_score(x, X, table, triQ, scale, mlp, SWEEPS)
+    launched = fused_score.launches - before
+    again = fused_score(x, X, table, triQ, scale, mlp, SWEEPS)
+    repeat = torch.equal(nn_k, again[0]) and torch.equal(feas_k, again[1])
+    del again
+    windows, errs = [(0, K4_WINDOW), (R - K4_WINDOW, R)], []
+
+    def twin_pass():
+        for s, e in windows:
+            nn_p, feas_p = fused_score_plain(x, X, table[s:e], triQ[s:e], scale[s:e], mlp, SWEEPS)
+            errs.append((*excess(feas_k[s:e], feas_p, 0.0, 5e-4),
+                         *excess(nn_k[s:e], nn_p, 2e-4, 2e-4),
+                         excess(nn_k[s:e], nn_p, 2e-4, 2e-5)[1]))
+
+    plain_ms = cuda_ms(twin_pass, reps=1, warmup=0)
+    worst = max(max(e[0], e[2]) for e in errs)
+    ratio = max(max(e[1], e[3]) for e in errs)
+    small_atol = max(e[4] for e in errs)
+    moved = nbytes(x, X, table, triQ, scale, nn_k, feas_k) + mlp_bytes(mlp)
+    del nn_k, feas_k
+    ms = cuda_ms(lambda: fused_score(x, X, table, triQ, scale, mlp, SWEEPS), reps=3, warmup=1)
+    b, parts = scoring_bound(R, moved, ms, k, SWEEPS)
+    log(f"[kpieces fused_score k={k} {inst.name}] the piece at row {start}: {R} rows written on "
+        f"the card in {rows_ms:.3f} ms, their features in {feat_ms:.3f} ms; {launched} "
+        f"launches: max|err| {worst:.3e}, {ratio:.3f} of the limit (feas atol 5e-4, nn rtol "
+        f"= atol = 2e-4, K1's piece tolerance: the same tensor-core body; {small_atol:.3f} of "
+        f"nn rtol 2e-4 / atol 2e-5) over the rows {windows}; two calls bit for bit: {repeat}; "
+        f"{ms:.4f} ms by events ({R / ms / 1e3:.1f} M cand/s); the twin on {2 * K4_WINDOW} rows "
+        f"{plain_ms:.4f} ms; {share(ms, b)}; {parts} ({SMI})")
+    if ratio > 1.0 or not repeat or launched != k4_launches(R, k):
+        raise AssertionError(f"K4 over a piece of C({inst.n}, {k}) disagrees with its twin or "
+                             f"does not repeat")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "plain_rows": 2 * K4_WINDOW,
+            "candidates": R, "rows_ms": rows_ms, "features_ms": feat_ms,
+            "of the limit": ratio, "of nn atol 2e-5": small_atol, **b}
+
+
+def kpieces_default(dev) -> tuple:
+    """Phase 26 (b): the default route at k = 4 on generate_spar(512, 100, 1)
+    (2,829,877,120 rows, past 2^31) and at k = 5 on generate_spar(200, 100,
+    1) (2,535,650,040 rows), neural, round 0 twice from a fresh solver bit
+    for bit; the certificate at least a feasible point's objective; K4 once
+    a piece; the survivors' largest count under KPIECES_MOST; the card's
+    peak (at k = 4 under KPIECES_PEAK); K4 over a piece against its twin,
+    timed (k4_piece_check).  Returns ({path: launch counts}, checks,
+    numbers, {k: the piece check})."""
+    launches, checks, numbers, k4 = {}, {}, {}, {}
+    for k, shape in KPIECES_DEFAULT:
+        inst = generate_spar(*shape)
+        k4[k] = k4_piece_check(inst, k, dev)
+        torch.cuda.empty_cache()
+        first = route_round(inst, "neural", dev, None, kcfg(k, "neural"))
+        again = route_round(inst, "neural", dev, None, kcfg(k, "neural"))
+        same = same_round(first, again)
+        path = f"kpieces neural k={k} n={inst.n}"
+        launches[path] = first["launches"]
+        cert, rows = first["hist"][0].certificate, math.comb(inst.n, k)
+        floor = feasible_objective(inst, first["x"])
+        numbers[path] = {"rows": rows, "pieces": first["pieces"], "seconds": first["wall"],
+                         "again": again["wall"], "peak": first["peak"], "most": first["most"],
+                         "s a piece": first["wall"] / first["pieces"]}
+        log(f"[{path}] the default route: {first['pieces']} pieces of "
+            f"{solver_mod.PIECE_ROWS_WIDE[k]} rows over {rows}; round 0 in {first['wall']:.3f}s "
+            f"and {again['wall']:.3f}s = {first['wall'] / first['pieces'] * 1e3:.1f} ms a piece "
+            f"(K4 {k4[k]['ms']:.2f}, its rows {k4[k]['rows_ms']:.2f}, their features "
+            f"{k4[k]['features_ms']:.2f} ms a piece); bound {first['hist'][0].bound!r} (cuts "
+            f"{first['hist'][0].cuts_added}, lp_iters {first['hist'][0].lp_iters}); the card's "
+            f"peak above the set-up's start {first['peak']} bytes "
+            f"({first['peak'] / 2 ** 30:.2f} GiB); the survivors' largest count "
+            f"{first['most']}; K4 launches {first['launches']['fused_score']}; a second run "
+            f"{same}; a feasible point's f {floor!r} ({SMI})")
+        tag = f"k={k} n={inst.n}"
+        checks.update({f"{tag}: a second run repeats {key}": v for key, v in same.items()})
+        checks[f"{tag}: by pieces by default"] = first["pieces"] == -(
+            -rows // solver_mod.PIECE_ROWS_WIDE[k])
+        checks[f"{tag}: the certificate >= a feasible point's f {floor}"] = bool(
+            np.isfinite(cert) and cert >= floor)
+        checks[f"{tag}: K4 once a piece, no twin"] = (
+            first["launches"]["fused_score"] == first["pieces"]
+            and first["launches"][TWIN_SCORED] == 0)
+        checks[f"{tag}: the survivors' largest count under {KPIECES_MOST}"] = (
+            0 < first["most"] < KPIECES_MOST)
+        if k == 4:
+            checks[f"{tag}: the card's peak above the set-up under {KPIECES_PEAK} bytes"] = (
+                first["peak"] < KPIECES_PEAK)
+        checks.update({f"{path}: {key}": v for key, v in
+                       solve_route_checks(path, launches[path], inst.n, k).items()})
+        del first, again
+        torch.cuda.empty_cache()
+    return launches, checks, numbers, k4
+
+
+def kpieces_registry(dev) -> tuple:
+    """Phase 26 (c): spar125-100-1 at k = 5, sel_size 10, neural, round 0
+    by the route its threshold picks (C(125, 5) = 234,531,275 rows), at the
+    BoxQP main path's LP (BOXQP_LP: at PIECES_LP round 0's LP stops 1.07%
+    above McCormick, the LP's accuracy, not the route's): round 0 within
+    1e-2 of McCormick, the certificate at least the best known objective.
+    Returns (launch counts, checks, numbers)."""
+    inst = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
+    reg = registry("boxqp", INSTANCE)
+    k = 5
+    run = route_round(inst, "neural", dev, None,
+                      dataclasses.replace(kcfg(k, "neural"), lp=BOXQP_LP))
+    h = run["hist"][0]
+    rows = math.comb(inst.n, k)
+    pieced = inst.n > solver_mod.PIECE_N_OF["neural", k]
+    rel0 = (h.bound - reg["mc"]) / abs(reg["mc"])
+    path = f"kpieces neural k=5 {INSTANCE}"
+    log(f"[{path}] the route its threshold ({solver_mod.PIECE_N_OF['neural', k]}) picks: "
+        f"{run['pieces']} pieces over {rows} rows; round 0 in {run['wall']:.3f}s: bound "
+        f"{h.bound!r} certificate {h.certificate!r} (cuts {h.cuts_added}, lp_iters "
+        f"{h.lp_iters}); McCormick {reg['mc']!r}: rel {rel0!r}; best known {reg['floor']!r}; "
+        f"the card's peak above the set-up's start {run['peak']} bytes; the survivors' largest "
+        f"count {run['most']} ({SMI})")
+    checks = {
+        "by the route the threshold picks": (run["pieces"] is not None) == pieced,
+        "round 0 within 1e-2 of McCormick": bool(abs(rel0) <= 1e-2),
+        f"the certificate >= the best known {reg['floor']}": bool(
+            np.isfinite(h.certificate) and h.certificate >= reg["floor"]),
+        "K4 launched, no twin": (run["launches"]["fused_score"]
+                                 == (run["pieces"] if pieced else k4_launches(rows, k))
+                                 and run["launches"][TWIN_SCORED] == 0),
+        **solve_route_checks(path, run["launches"], inst.n, k),
+    }
+    return {path: run["launches"]}, checks, {"seconds": run["wall"], "pieces": run["pieces"],
+                                              "peak": run["peak"], "most": run["most"]}
+
+
+def kpieces_phase(dev) -> dict:
+    """Phase 26: BoxQP at k = 4 and 5 by pieces of the candidate table
+    (kpieces_against_whole, kpieces_default, kpieces_registry), each path's
+    launches into PATH_LAUNCHES.  Returns the numbers it measured, K4's
+    piece checks under "fused_score"."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in (("against the whole table", kpieces_against_whole),
+                      ("the default route", kpieces_default),
+                      ("spar125-100-1 at k = 5", kpieces_registry)):
+        t1 = time.perf_counter()
+        launches, checks, out[name], *k4 = run(dev)
+        if k4:
+            out["fused_score"] = k4[0]
+        PATH_LAUNCHES.update(launches)
+        finish(f"kpieces {name}", checks)
+        log(f"[kpieces] {name} took {time.perf_counter() - t1:.1f}s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[kpieces] phase 26 took {out['seconds']:.1f}s ({SMI})")
+    return out
+
+
+GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23", "24", "25", "26")   # --phases
 
 
 def main(argv=None) -> int:
@@ -6866,6 +7218,9 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
     if "25" in groups:
         pieces_phase(dev)
         mark("phase 25")
+    if "26" in groups:
+        kpieces = kpieces_phase(dev)
+        mark("phase 26")
     main_hist = None
     if "5-13" in groups:
         PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
@@ -6909,10 +7264,10 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
     narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items()
                         if not p.startswith(("wide", "grid", "huge", "big", "vast", "open",
-                                             "pieces")))
+                                             "pieces", "kpieces")))
               for name in WRAPPERS}
     log(f"[launches] the paths at n <= 128 (every path but the wide, grid, huge, big, vast, "
-        f"open and pieces ones): {narrow}")
+        f"open, pieces and kpieces ones): {narrow}")
     if set(groups) != set(GROUPS):
         log(f"[done] the kernels line needs every phase group; these ran: {', '.join(groups)}")
         print(smi)
@@ -7048,6 +7403,14 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
                                  "launches": opened["pair_score launches"]}
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     opened["pair_score"]["max_abs_err"])
+    # K4 over a piece of the k = 4 and 5 default routes (phase 26), with its
+    # launches on phase 26's paths
+    k4_entry = kernels[3]
+    for k, piece in kpieces["fused_score"].items():
+        k4_entry[f"k={k} piece"] = {**piece, "launches": sum(
+            c["fused_score"] for p, c in PATH_LAUNCHES.items()
+            if p.startswith("kpieces") and f"k={k}" in p)}
+        k4_entry["max_abs_err"] = max(k4_entry["max_abs_err"], piece["max_abs_err"])
     log(f"[grid] phase 19: {grid['seconds']:.1f}s; phase 20: {batch['seconds']:.1f}s; phase 21: "
         f"{huge['seconds']:.1f}s; phase 22: {big['seconds']:.1f}s; phase 23: "
         f"{vast['seconds']:.1f}s; phase 24: {opened['seconds']:.1f}s")

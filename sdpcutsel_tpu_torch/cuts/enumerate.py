@@ -10,7 +10,9 @@ holds (137 GB at n = 4096), ``first_index_pieces`` cuts the table into
 pieces of whole first indices and ``combinations_rows_on`` writes one
 piece's rows, in the table's order, with their global row offset;
 ``range_pieces`` cuts it into pieces of a fixed number of rows and
-``combinations_range_on`` writes any run of its rows.
+``combinations_range_on`` writes any run of its rows, at k >= 4 from the
+pair table alone (``combinations_table_on(n, 3)`` is already 2.1 GB at
+n = 1024, the table of width 4 45 GB at n = 512).
 """
 
 from __future__ import annotations
@@ -126,18 +128,56 @@ def _first_index(n: int, k: int, row: int) -> int:
                                key=lambda i: total - math.comb(n - i, k)) - 1
 
 
+def _level_shifts(n: int, j: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rule of one level, as two (n - j + 1,) int64 tensors on
+    ``device``: ``firsts[i]`` = C(n, j) - C(n - i, j), the global row of the
+    first row of the table of width j that starts with i, and ``shift[i]``,
+    what takes a row r that starts with i to the row of the table of width
+    j - 1 beside which it is written (C(n, j - 1) - C(n - i - 1, j - 1) -
+    firsts[i]: the rows that start with i are i beside the last
+    C(n - i - 1, j - 1) rows of that table)."""
+    firsts = [math.comb(n, j) - math.comb(n - i, j) for i in range(n - j + 1)]
+    shift = [math.comb(n, j - 1) - math.comb(n - i - 1, j - 1) - f for i, f in enumerate(firsts)]
+    return (torch.tensor(firsts, dtype=torch.int64, device=device),
+            torch.tensor(shift, dtype=torch.int64, device=device))
+
+
 def combinations_range_on(n: int, k: int, start: int, stop: int, device,
                           sub: torch.Tensor | None = None) -> torch.Tensor:
     """Rows [start, stop) of ``combinations_table(n, k)``, in its order, as
-    an int32 tensor written on ``device`` from the table of width k - 1
-    (``sub``, as in ``combinations_rows_on``, whose rows these are where the
-    run holds whole first indices)."""
+    an int32 tensor written on ``device`` from ``sub``, the table of some
+    width w < k over the same n on ``device`` (by default the pair table,
+    made here).  Where w = k - 1 (the pair table at k = 3) the run is
+    written by first index, as ``combinations_rows_on`` writes whole first
+    indices, whose rows these are where the run holds whole ones.  Above
+    that, the table's rule is applied to every row of the run at once, one
+    level a column: row r of the table of width j starts with the largest
+    i whose rows start at or before r (``torch.searchsorted`` over the
+    n - j + 1 starts), and goes on with a row of the table of width j - 1
+    (``_level_shifts``), down to width w, whose rows ``sub`` gives.  All
+    in int64, exact: no tensor of a wider table than the run is made."""
     if not 2 <= k <= n or not 0 <= start <= stop <= math.comb(n, k):
         raise ValueError(f"combinations_range_on takes 2 <= k <= n and 0 <= start <= stop <= "
                          f"C(n, k), got n={n}, k={k}, start={start}, stop={stop}")
+    if math.comb(n, k) >= 2 ** 63:
+        raise ValueError(f"combinations_range_on: C({n}, {k}) rows leave int64")
     if sub is None:
-        sub = combinations_table_on(n, k - 1, device)
+        sub = combinations_table_on(n, min(2, k - 1), device)
+    w = sub.shape[1]
+    if not 1 <= w < k or sub.shape[0] != math.comb(n, w):
+        raise ValueError(f"combinations_range_on takes the table of a width w < k = {k} over "
+                         f"n = {n}, got {tuple(sub.shape)}")
     out = torch.empty((stop - start, k), dtype=torch.int32, device=device)
+    if w < k - 1:
+        r = torch.arange(start, stop, dtype=torch.int64, device=device)
+        for j in range(k, w, -1):                    # column k - j
+            firsts, shift = _level_shifts(n, j, device)
+            i = torch.searchsorted(firsts, r, right=True) - 1
+            out[:, k - j] = i
+            r += shift[i]
+            del i
+        out[:, k - w:] = sub[r]
+        return out
     total, s = math.comb(n, k), start
     i = _first_index(n, k, start) if start < stop else 0
     while s < stop:

@@ -10,13 +10,14 @@ One round (``do_round``):
      the steered point; the certificate and the next warm start are the
      unsteered solve's;
   3. certify the f64 dual bound on the host (``dual_bound_f64``);
-  4. score every candidate of the route's table by the strategy (at k = 3
-     past a threshold of each strategy's, ``PIECE_N`` and beside it, every
-     strategy but a custom score_fn takes the piecewise route: the table
-     written, scored and selected a piece at a time, ``ops/topk.py``
+  4. score every candidate of the route's table by the strategy (past a
+     threshold of each strategy's and k's, ``PIECE_N_OF``, every strategy
+     but a custom score_fn takes the piecewise route at k = 3, 4 and 5: the
+     table written, scored and selected a piece at a time, ``ops/topk.py``
      StreamedTopk keeping only the rows that can still be picked, so no
      tensor of the whole table exists on any device; the picks are the
-     whole table's, bit for bit):
+     whole table's, bit for bit; at k = 4, 5 K4's features are computed
+     for each piece's rows each round):
        neural, feasibility, combined: a scoring kernel wrapper (the route is
                the reference's, ``loop/solver.py:173-186``):
                packed  k = 3, 66 <= n <= 128, ``pair_layout="packed"``: the
@@ -102,16 +103,29 @@ from ..utils.debug import check_round_state
 KERNEL_SCORED = ("neural", "feasibility", "combined")   # scored by K1, K3 or K4
 STRATEGIES = (*KERNEL_SCORED, "random", "optimality", "triangle")
 LEX_SWEEPS = 6      # the reference's CPU feasibility and combined scoring (cuts/eigen.py)
-# past these n a k = 3 round goes by pieces: below them the whole route's
-# peak on the card (an H100's bytes a table row, the table included) stays
-# under about half of its 80 GB
-PIECE_N = 2048              # neural, feasibility, combined: the table's 12 B + K1's scores
-RANDOM_PIECE_N = 1920       # random: 32.7 B (the scores, diverse_topk's three rows)
+# past these n a round at width k goes by pieces: below them the whole
+# route's peak on the card (an H100's bytes a table row, the table included)
+# stays under about half of its 80 GB
+PIECE_N = 2048              # k = 3 neural, feasibility, combined: the table's 12 B + K1's scores
+RANDOM_PIECE_N = 1920       # k = 3 random: 32.7 B (the scores, diverse_topk's three rows)
 TRIANGLE_PIECE_N = 1100     # triangle: 172.5 B (the (T, 4) violations, the stable sort)
-OPTIMALITY_PIECE_N = 720    # optimality: 506 B (the ADMM's blocks) + a fixed 4.47 GB
-PIECE_N_OF = {"random": RANDOM_PIECE_N, "triangle": TRIANGLE_PIECE_N,
-              "optimality": OPTIMALITY_PIECE_N}
-PIECE_ROWS = 1 << 27  # table rows a piece holds at most (1.5 GB of rows, 0.5 GB a score)
+OPTIMALITY_PIECE_N = 720    # k = 3 optimality: 506 B (the ADMM's blocks) + a fixed 4.47 GB
+PIECE_N_OF = {
+    **{(s, 3): PIECE_N for s in KERNEL_SCORED},
+    ("random", 3): RANDOM_PIECE_N, ("triangle", 3): TRIANGLE_PIECE_N,
+    ("optimality", 3): OPTIMALITY_PIECE_N,
+    # k = 4, 5, each from its whole route's bytes a table row on an H100; the
+    # kernel-scored ones hold the table, K4's triQ and scale and the
+    # (T, k, k) gather they are made from, with its int64 indices
+    **{(s, k): n for s in KERNEL_SCORED for k, n in ((4, 224), (5, 97))},  # 368.0, 560.1 B
+    ("random", 4): 380, ("random", 5): 158,                                # 44.1, 48.0 B
+    ("optimality", 4): 170, ("optimality", 5): 78,   # the ADMM's 980, 1,517 B + a fixed 4.5 GB
+}
+PIECE_ROWS = 1 << 27  # k = 3: table rows a piece holds at most (1.5 GB of rows, 0.5 GB a score)
+# k = 4, 5: a piece's rows (runs of the table, range_pieces), so that its
+# features (the (T, k, k) gather with its int64 indices, its copy divided by
+# the scale: 368 B a row at k = 4, 560 B at k = 5) stay under ~6.5 GB
+PIECE_ROWS_WIDE = {4: 1 << 24, 5: 1 << 23}
 OPTIMALITY_PIECE_ROWS = 1 << 20   # optimality's pieces: 128 EIGH_CHUNKs of the ADMM
 
 
@@ -321,17 +335,22 @@ class CutSolver(CheckpointableSolver):
     on the card unless ``device`` names another (the CPU takes the twins).
     ``score_fn(x, X, generator)``, when given, replaces the strategy's
     scores (one a row of the lexicographic ``table``); ``triangle`` still
-    takes its own path, as in the reference.  At k = 3 past its strategy's
-    n (``PIECE_N_OF``, else ``PIECE_N``) every strategy takes the piecewise
-    route (``table`` is then None; ``pieces`` lists them as (i0, i1,
-    offset, rows): whole first indices, at most ``PIECE_ROWS`` rows, and
-    for optimality runs of ``OPTIMALITY_PIECE_ROWS`` rows, so that its
-    ADMM sees the whole call's eigh chunks); ``_pieces`` forces a route
-    (tests and measurements only): an int, the piecewise one with pieces
-    of at most that many rows (optimality: of that many); False, the whole
-    table.  A custom score_fn (one score a table row) and every strategy
-    at k != 3 keep the whole table at any n (torch refuses it where the
-    card cannot hold it)."""
+    takes its own path, as in the reference.  Past its strategy's n at its
+    k (``PIECE_N_OF[strategy, k]``, k = 3, 4, 5) every strategy takes the
+    piecewise route (``table`` is then None, and at k = 4, 5 so are K4's
+    ``triQ`` and ``scale``: each piece's are computed each round;
+    ``pieces`` lists them as (i0, i1, offset, rows): at k = 3 whole first
+    indices, at most ``PIECE_ROWS`` rows, at k = 4, 5 runs of
+    ``PIECE_ROWS_WIDE[k]`` rows, and for optimality runs of
+    ``OPTIMALITY_PIECE_ROWS`` rows, so that its ADMM sees the whole call's
+    eigh chunks); ``_pieces`` forces a route (tests and measurements only):
+    an int, the piecewise one with pieces of at most that many rows
+    (optimality and k = 4, 5: of that many); False, the whole table.  A
+    custom score_fn (one score a table row) and k = 2 keep the whole table
+    at any n (torch refuses it where the card cannot hold it).  The
+    piecewise route has no fallback: a piece that a kernel or the card
+    refuses raises, and so do more than ``ops/topk.py`` SURVIVOR_CAP
+    survivors."""
 
     def __init__(self, inst: BoxQPInstance, cfg: RunConfig, device="cuda",
                  score_fn: Optional[Callable] = None, *, _pieces: int | bool | None = None):
@@ -348,18 +367,21 @@ class CutSolver(CheckpointableSolver):
         kernel_scored = score_fn is None and strat in KERNEL_SCORED
         mode = cfg.cuts.pair_layout
         self._use_packed = kernel_scored and k == 3 and 66 <= n <= 128 and mode == "packed"
-        piecewise = score_fn is None and k == 3 and not self._use_packed and (
-            n > PIECE_N_OF.get(strat, PIECE_N) if _pieces is None else _pieces is not False)
+        piecewise = score_fn is None and (strat, k) in PIECE_N_OF and not self._use_packed and (
+            n > PIECE_N_OF[strat, k] if _pieces is None else _pieces is not False)
         self.pieces = None
         self.last_selection = None      # the piecewise route's last StreamedTopk
         if piecewise:
             # (i0, i1, offset, rows); each piece's rows are written from the
             # pair table, once a round
             if strat == "optimality":
-                self.pieces = range_pieces(n, 3, OPTIMALITY_PIECE_ROWS if _pieces is None
+                self.pieces = range_pieces(n, k, OPTIMALITY_PIECE_ROWS if _pieces is None
                                            else _pieces)
-            else:
+            elif k == 3:
                 self.pieces = first_index_pieces(n, 3, PIECE_ROWS if _pieces is None else _pieces)
+            else:
+                self.pieces = range_pieces(n, k, PIECE_ROWS_WIDE[k] if _pieces is None
+                                           else _pieces)
             self._pairs = combinations_table_on(n, 2, self.device)
             self.table = None
         elif self._use_packed:
@@ -374,7 +396,7 @@ class CutSolver(CheckpointableSolver):
             pair_route = k == 3 and n <= 128 and mode == "on"
             self._sweeps = LEX_SWEEPS if strat != "neural" and not pair_route else SWEEPS
             self.mlp = MLPScorer(load_params(k, cfg.scorer.weights_path), self.device)
-            if k != 3:
+            if k != 3 and self.table is not None:
                 self.triQ, self.scale = candidate_q_features(self.Q, self.table)
         if strat == "optimality" and score_fn is None:
             self._exact = exact_score_fn(self.Q, self.table)
@@ -401,9 +423,13 @@ class CutSolver(CheckpointableSolver):
         elif self.cfg.cuts.k == 3:
             nn, feas = pair_score(x, X, self.Q, self.table if table is None else table, self.mlp,
                                   self._sweeps)
-        else:
+        elif table is None:
             nn, feas = fused_score(x, X, self.table, self.triQ, self.scale,
                                    self.mlp, self._sweeps)
+        else:                       # a piece: its rows' features, row by row the table's
+            triQ, scale = candidate_q_features(self.Q, table)
+            nn, feas = fused_score(x, X, table, triQ, scale, self.mlp, self._sweeps)
+            del triQ, scale
         if strat == "feasibility":
             return feas
         if strat == "combined":
@@ -414,16 +440,18 @@ class CutSolver(CheckpointableSolver):
     def _select_pieces(self, x, X):
         """The piecewise route's selection and cut rows: each piece's rows
         written on the device (``combinations_range_on``), scored by the
-        strategy (K1's own launches; random's draw; optimality's ADMM) and
+        strategy (K1's or K4's own launches, K4's after the piece's
+        features; random's draw; optimality's ADMM) and
         fed to StreamedTopk, or for triangle its violations to the streamed
         flat selection; the whole table's picks, bit for bit.  Returns (rows
         for append_cuts, the selection)."""
         cuts = self.cfg.cuts
         triangle = self.cfg.scorer.strategy == "triangle"
+        k = cuts.k
         sel = (triangle_selection(cuts.sel_size, self.device) if triangle else
-               StreamedTopk(cuts.sel_size, cuts.diversity_alpha, 3, self.device))
+               StreamedTopk(cuts.sel_size, cuts.diversity_alpha, k, self.device))
         for _, _, offset, count in self.pieces:
-            rows = combinations_range_on(self.inst.n, 3, offset, offset + count, self.device,
+            rows = combinations_range_on(self.inst.n, k, offset, offset + count, self.device,
                                          self._pairs)
             if triangle:
                 triangle_add_piece(sel, x, X, rows, offset)

@@ -26,7 +26,9 @@ def feature_dim(k: int) -> int:
 
 def candidate_q_features(Q, table):
     """Per-candidate objective features: (triQ: (..., T, k(k+1)/2), scale:
-    (..., T,)); Q (..., n, n), leading axes a batch of instances."""
+    (..., T,)); Q (..., n, n), leading axes a batch of instances.  Row by
+    row (a gather, a max, a divide), so a piece of a table's rows gets the
+    whole table's bits (``loop/solver.py``'s k = 4, 5 route by pieces)."""
     table = table.long()
     i0, i1 = tri_indices(table.shape[1], Q.device)
     Qr = Q[..., table[:, :, None], table[:, None, :]]   # (..., T, k, k)

@@ -9,8 +9,9 @@ maximum.
 ``StreamedTopk`` gives ``diverse_topk``'s (or, at alpha 0, ``masked_topk``'s)
 picks over a table seen a piece at a time, bit for bit, holding only the
 rows that can still be picked (the k = 3 round past the table's memory,
-``loop/solver.py``); with ``group`` > 1 a row carries that many flat
-candidates (triangle's four inequalities a triple, ``cuts/triangle.py``).
+``loop/solver.py``; at k = 4 and 5 too); with ``group`` > 1 a row carries
+that many flat candidates (triangle's four inequalities a triple,
+``cuts/triangle.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ def masked_topk(scores, k: int, mask=None):
 
 
 PENALTY_ROWS = 1 << 26      # table rows a step of the penalty's update reads at once
+SURVIVOR_CAP = 1 << 28      # StreamedTopk's survivors (4 + 8 + 4 kk bytes each) at most
 
 
 def diverse_topk(scores, table, k: int, alpha: float, mask=None):
@@ -105,7 +107,10 @@ class StreamedTopk:
     ``group``: the flat candidates a row carries (scores g r .. g r + g - 1
     are row r's, global indices g times the row's); the picks' global
     indices are flat ones, as ``masked_topk(scores.reshape(-1), S)`` gives
-    them on the whole (T, g) table (int64 past 2^31)."""
+    them on the whole (T, g) table (int64 past 2^31).  Past SURVIVOR_CAP
+    survivors ``add`` raises (where fewer than S scores lie above alpha P,
+    every row from tau up survives, zero rows included, and the survivors
+    grow with the table) rather than change a pick."""
 
     def __init__(self, S: int, alpha: float, kk: int, device, group: int = 1):
         self.S, self.alpha, self.kk, self.group = S, alpha, kk, group
@@ -150,6 +155,10 @@ class StreamedTopk:
         idx = torch.cat([self.idx, at + offset])
         rows_ = torch.cat([self.rows, rows[at // g]])
         self.most = max(self.most, vals.numel())
+        if vals.numel() > SURVIVOR_CAP:
+            raise RuntimeError(f"StreamedTopk: {vals.numel()} survivors pass the cap of "
+                               f"{SURVIVOR_CAP} (the threshold {float(tau)!r}: fewer than "
+                               f"{self.S} scores lie above alpha P)")
         if self.alpha <= 0.0:          # the running top S by (score, lower index)
             best = torch.sort(torch.sort(-vals, stable=True).indices[:self.S]).values
             vals, idx, rows_ = vals[best], idx[best], rows_[best]

@@ -2,15 +2,19 @@
 
     python3 -m sdpcutsel_tpu_torch.profile_round [--instance spar125-100-1]
         [--rounds N] [--pair-layout {auto,packed}] [--scan] [--strategy NAME]
-        [--steer-eps EPS] [--batch] [--groups 1,2,4,8,16] [--spread RUNS]
-        [--out chiprun_out]
+        [--k K] [--sel-size S] [--steer-eps EPS] [--batch] [--groups 1,2,4,8,16]
+        [--spread RUNS] [--out chiprun_out]
 
 The main paths are chip_smoke.py's:
   * a BoxQP name (default spar125-100-1; one data/boxqp lacks is generated
     from its name): CutSolver, strategy neural, default cuts,
-    LPConfig(max_iters=20000, tol=2e-6), 10 rounds; past n = 2048 the
-    round goes by pieces of the table, and the split then also times each
-    piece's rows written, the survivors' filter and the final greedy;
+    LPConfig(max_iters=20000, tol=2e-6), 10 rounds; ``--k`` and
+    ``--sel-size`` set CutConfig's k and sel_size (chip_smoke.py's phase 26:
+    k = 4, or k = 5 with sel_size 10).  Past its threshold
+    (``loop/solver.py`` PIECE_N_OF: n = 2048 at k = 3) the round goes by
+    pieces of the table, and the split then also times each piece's rows
+    written, at k = 4 and 5 its features (K4's triQ and scale), the
+    survivors' filter and the final greedy;
     ``--pair-layout packed --scan`` is chip_smoke.py's packed scan path
     (CutConfig(pair_layout="packed"), LoopConfig(use_scan=True));
   * a QCQP name (qcqp...; qcqpband100-5-25-1 in chip_smoke.py):
@@ -121,10 +125,13 @@ STAGES = [
         ("cut_residuals", "purge: residuals"),
         ("purge_pool", "purge: compact"),
         ("append_cuts", "append_cuts"))),
-    # the k = 3 round by pieces (K1, random's draw or the ADMM above is each
-    # piece's scoring): the rows written, the survivors' filter, the final
-    # greedy over the survivors, and the cut rows of the picks
+    # the round by pieces (K1 or K4, random's draw or the ADMM above is each
+    # piece's scoring): the rows written, at k = 4, 5 each piece's features
+    # (also the whole table's, once, in the solver's set-up), the survivors'
+    # filter, the final greedy over the survivors, and the cut rows of the
+    # picks
     (solver_mod, "combinations_range_on", "pieces: rows written"),
+    (solver_mod, "candidate_q_features", "pieces: features (k = 4, 5)"),
     (topk_mod.StreamedTopk, "add", "pieces: survivors' filter"),
     (topk_mod.StreamedTopk, "result", "pieces: final greedy"),
     (solver_mod, "cut_rows_at", "eigh + cut rows (in the selection above, or by pieces)"),
@@ -179,8 +186,10 @@ class BatchPath:
 
 
 def load(name: str, pair_layout: str = "auto", scan: bool = False,
-         strategy: str = "neural", steer_eps: float = 0.0):
-    """(instance, solver class, config, default rounds) of a main path."""
+         strategy: str = "neural", steer_eps: float = 0.0, k: int = 3,
+         sel_size: int | None = None):
+    """(instance, solver class, config, default rounds) of a main path
+    (``k`` and ``sel_size``: BoxQP's CutConfig; None the default)."""
     scorer = ScorerConfig(strategy=strategy)
     loop = LoopConfig(use_scan=scan, steer_eps=steer_eps)
     if name.startswith("qcqp"):
@@ -188,7 +197,10 @@ def load(name: str, pair_layout: str = "auto", scan: bool = False,
                         scorer=scorer, loop=loop)
         return load_or_generate_qcqp(name), qcqp_mod.CutSolverQCQP, cfg, 8
     inst = load_or_generate(name, data_dir=DATA)
-    cfg = RunConfig(lp=LP, cuts=CutConfig(pair_layout=pair_layout), scorer=scorer, loop=loop)
+    cuts = CutConfig(pair_layout=pair_layout, k=k)
+    if sel_size is not None:
+        cuts = dataclasses.replace(cuts, sel_size=sel_size)
+    cfg = RunConfig(lp=LP, cuts=cuts, scorer=scorer, loop=loop)
     return inst, solver_mod.CutSolver, cfg, 10
 
 
@@ -426,6 +438,9 @@ def main(argv=None) -> int:
                     help="BoxQP only: the candidate table's layout (CutConfig.pair_layout)")
     ap.add_argument("--scan", action="store_true", help="scan mode (LoopConfig.use_scan)")
     ap.add_argument("--strategy", default="neural", help="ScorerConfig.strategy")
+    ap.add_argument("--k", type=int, default=3, help="BoxQP only: CutConfig.k")
+    ap.add_argument("--sel-size", type=int, default=None,
+                    help="BoxQP only: CutConfig.sel_size (default: its default)")
     ap.add_argument("--steer-eps", type=float, default=0.0,
                     help="LoopConfig.steer_eps (0: no vertex steering)")
     ap.add_argument("--batch", action="store_true",
@@ -464,7 +479,8 @@ def main(argv=None) -> int:
               f"rounds/s = {B * rounds / wall:.4f} instance-rounds/s", flush=True)
         stage_list = BATCH_STAGES
     else:
-        path = load(args.instance, args.pair_layout, args.scan, args.strategy, args.steer_eps)
+        path = load(args.instance, args.pair_layout, args.scan, args.strategy, args.steer_eps,
+                    args.k, args.sel_size)
         rounds = args.rounds or path[3]
         print(f"[path] {args.instance} with {path[1].__name__}, {rounds} rounds, cuts "
               f"{path[2].cuts}, scorer {path[2].scorer}, loop {path[2].loop}", flush=True)
@@ -493,6 +509,7 @@ def main(argv=None) -> int:
     tag += "" if args.pair_layout == "auto" else f"_{args.pair_layout}"
     tag += "_scan" if args.scan else ""
     tag += "" if args.strategy == "neural" else f"_{args.strategy}"
+    tag += "" if args.k == 3 else f"_k{args.k}"
     tag += f"_steer{args.steer_eps:g}" if args.steer_eps > 0 else ""
     prof_wall, busy, rows = device_time(path, dev, rounds,
                                         os.path.join(args.out, f"profile_table_{tag}.txt"))

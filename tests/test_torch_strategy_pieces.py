@@ -361,20 +361,24 @@ def test_route_past_the_table_at_n_4096(strategy):
 
 @pytest.mark.parametrize("strategy", PIECEWISE)
 def test_route_by_strategy_threshold(strategy, monkeypatch):
-    """Each strategy's threshold decides its route: at n = 20 whole at a
-    threshold of 20, by pieces at 19; a custom score_fn and k != 3 keep the
-    whole table; the thresholds lie below PIECE_N (their whole routes hold
-    more a row than the kernel-scored ones')."""
-    assert tsolver.PIECE_N_OF[strategy] < tsolver.PIECE_N
+    """Each strategy's threshold at k = 3 (``PIECE_N_OF[strategy, 3]``)
+    decides its route: at n = 20 whole at a threshold of 20, by pieces at
+    19; a custom score_fn and k = 2 keep the whole table, and k = 4 takes
+    its own route (tests/test_torch_kpieces.py); the thresholds lie below
+    PIECE_N (their whole routes hold more a row than the kernel-scored
+    ones')."""
+    assert tsolver.PIECE_N_OF[strategy, 3] < tsolver.PIECE_N
     inst = _spar020()
-    monkeypatch.setitem(tsolver.PIECE_N_OF, strategy, 20)
+    monkeypatch.setitem(tsolver.PIECE_N_OF, (strategy, 3), 20)
     solver = CutSolver(inst, _cfg(strategy), device="cpu")
     assert solver.pieces is None and solver.table.shape == (1140, 3)
-    monkeypatch.setitem(tsolver.PIECE_N_OF, strategy, 19)
+    monkeypatch.setitem(tsolver.PIECE_N_OF, (strategy, 3), 19)
     assert CutSolver(inst, _cfg(strategy), device="cpu").table is None
     custom = CutSolver(inst, _cfg("custom"), device="cpu", _pieces=50,
                        score_fn=lambda x, X, g: torch.zeros(1140))
     assert custom.pieces is None
     if strategy != "triangle":
+        k2 = dataclasses.replace(_cfg(strategy), cuts=CutConfig(k=2))
+        assert CutSolver(inst, k2, device="cpu", _pieces=50).pieces is None
         k4 = dataclasses.replace(_cfg(strategy), cuts=CutConfig(k=4))
-        assert CutSolver(inst, k4, device="cpu", _pieces=50).pieces is None
+        assert CutSolver(inst, k4, device="cpu", _pieces=50).pieces == range_pieces(20, 4, 50)
