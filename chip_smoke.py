@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--parent DIR] [--phases GROUPS]
 
---phases runs some of the groups 3, 4, 5-13, 15-17, 18-21, 22, 23, 24, 25
-and 26 (comma-separated; the default runs every one, and only then prints
+--phases runs some of the groups 3, 4, 5-13, 15-17, 18-21, 22, 23, 24, 25,
+26 and 27 (comma-separated; the default runs every one, and only then prints
 the kernels line; the build and phase 1 always run).
 
 Phases, each printed on its own lines; any failure exits non-zero:
@@ -303,8 +303,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      cut rows and round bit for bit; one default-size piece of C(1024, 3)
      through the ADMM, its time by events and the card's peak a row; (c) the
      default route past n = 2048, twice from a fresh solver bit for bit:
-     triangle on generate_spar(4096, 100, 1), random on
-     generate_spar(2100, 100, 1) (the host draw's seconds printed), each
+     triangle and random on generate_spar(2100, 100, 1) (the host draw's
+     seconds printed), each
      certificate at least a feasible point's objective, the card's peak and
      the survivors' largest count printed;
  26. BoxQP at k = 4 and 5 by pieces of the table (run after phase 25;
@@ -328,6 +328,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
      sel_size 10, by the route its threshold picks, at phase 5's LP: round
      0 within 1e-2 of McCormick, the certificate at least the best known
      objective;
+ 27. the batched round by pieces of the table (run after phase 26;
+     parallel/round.py with BATCH_KNOBS at kmax k, capacity 1024, 4 x
+     generate_spar(n, 100, s + 1), round 0 from a fresh state, counters
+     reset before and read after; no plain block or twin): (a) by forced
+     pieces (BPIECES_FORCED rows, shard edges inside them) and on the whole
+     batched route, bit for bit (picks, cut rows, pools, PDHG states, f32
+     bounds, generators' states), at mesh cand 1 and 3, neural and random:
+     n = 512 at k = 3 (a padded row in the last of 3 shards), n = 80 at
+     k = 4, n = 40 at k = 5; K1 or K4 once an instance a piece; each route's
+     peak on the card an instance-row; (b) n = 2100 at k = 3 on the default
+     route (shard_combinations writes no table, the LP on the grid route's
+     open form) and (c) n = 200 at k = 4 (the written table by pieces),
+     neural, twice bit for bit, each certify_batched_f64 at least a
+     feasible point's objective, the card's peak and one piece's split
+     (its rows, the scores, the merge); (d) K4 against its twin at the
+     shapes of every path that launches it (the band100 clique table at
+     k = 5, a piece of C(125, 5), phase 26's and this phase's pieces,
+     131,072 random rows of C(200, k) at k = 2..5): nn within the north
+     star's rtol = atol = 2e-4, its share of the reference kernel's rtol
+     2e-4 / atol 2e-5 printed beside;
   5. the BoxQP main path: CutSolver on spar125-100-1, strategy neural,
      default cuts, LPConfig(max_iters=20000, tol=2e-6), 10 rounds, with the
      launch counters reset before and read after; the bounds are held to
@@ -446,7 +466,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
      blocks and the twin-scored calls 0 on each) join the kernels line;
  14. one JSON line of kernel results (twenty-one entries), each kernel's
      launches summed over the main paths 5-13, 15-17 and the wide, grid,
-     1024-, 2048-column, open and pieces paths of phases 4, 18-25 (each
+     1024-, 2048-column, open and pieces paths of phases 4, 18-27 (each
      counted from 0;
      the sums over the paths at n <= 128 alone are printed before the line);
      the grid route's entries hold spar512's shape, every shape under
@@ -455,7 +475,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      2048-column form's three n = 2048's and phase 23's, its open form's
      three n = 4096's and phase 24's (the forced comparison under "forced");
      K1's the n = 512, n = 1024 and n = 2048 numbers ("n512", "n1024",
-     "n2048") and a piece of C(4096, 3)'s ("n4096 piece"); the grid entries
+     "n2048") and a piece of C(4096, 3)'s ("n4096 piece"); K1's and K4's
+     phase 27's launches and split of a piece under "batched pieces", K4's
+     largest shares of its two nn tolerances over every path's shape under
+     "every path's shape"; the grid entries
      also hold phase 22's shapes of the far form under "far" (with its
      launches on phase 22's solve and, in the block's, the forced form
      against the shared one); K2's entry also holds the
@@ -556,7 +579,10 @@ from sdpcutsel_tpu_torch.ops.launches import (PLAIN_BLOCKS, PLAIN_CONTROL, READS
                                               reset_launches)
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import SWEEPS, pair_score, pair_score_plain
+from sdpcutsel_tpu_torch.ops.topk import RunningTopk
 from sdpcutsel_tpu_torch.parallel import Mesh, distributed, make_mesh, shard_candidates
+from sdpcutsel_tpu_torch.parallel import round as round_mod
+from sdpcutsel_tpu_torch.parallel.sharding import shard_combinations
 from sdpcutsel_tpu_torch.parallel.round import (certify_batched_f64, certify_scan_f64,
                                                 init_batched_state, instances_of,
                                                 make_sharded_round_step, make_sharded_scan_step)
@@ -6513,7 +6539,8 @@ PIECES_LP = LPConfig(max_iters=3000, tol=1e-5)   # phase 25's rounds (both route
 PIECES_N = (1024, 100, 1)              # (a): forced pieces against the whole table
 PIECES_FORCED = 1 << 25                # (a): rows a forced piece holds at most (6 of C(1024, 3))
 OPT_FORCED = 5 * EIGH_CHUNK            # (b): optimality's forced pieces at n = 125 (8 of them)
-TRIANGLE_OPEN = OPEN_INSTANCE          # (c): triangle on the default route past n = 2048
+TRIANGLE_OPEN = OPEN_PIECES            # (c): triangle on the default route past n = 2048
+                                       # (cut from n = 4096 to keep the run under its limit)
 RANDOM_OPEN = OPEN_PIECES              # (c): random on the default route past its threshold
 
 
@@ -6711,10 +6738,9 @@ def optimality_pieces(dev) -> tuple:
 
 def pieces_past_2048(dev) -> tuple:
     """Phase 25 (c): the default route past n = 2048 at PIECES_LP, each run
-    twice from a fresh solver, bit for bit: triangle on
-    generate_spar(4096, 100, 1) (its streamed flat selection over
-    4 C(4096, 3) = 45,779,435,520 candidates) and random on
-    generate_spar(2100, 100, 1) (one CPU draw a piece); the certificate at
+    twice from a fresh solver, bit for bit: triangle (its streamed flat
+    selection over 4 C(2100, 3) = 6,165,182,800 candidates) and random (one
+    CPU draw a piece) on generate_spar(2100, 100, 1); the certificate at
     least a feasible point's objective; the seconds, the host draw's, the
     card's peak and the survivors' largest count printed.  Returns ({path:
     launch counts}, checks, numbers)."""
@@ -7072,7 +7098,327 @@ def kpieces_phase(dev) -> dict:
     return out
 
 
-GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23", "24", "25", "26")   # --phases
+BPIECES_B = 4                          # instances a batch: generate_spar(n, 100, s + 1), s < 4
+BPIECES_WHOLE = ((3, 512), (4, 80), (5, 40))   # (a): forced pieces against the whole route
+BPIECES_CANDS = (1, 3)                 # (a): the meshes' cand (C(512, 3) leaves 2 padded rows)
+BPIECES_FORCED = {3: 3_000_001, 4: 200_003, 5: 100_003}   # (a): rows a forced piece holds
+BPIECES_OPEN = 2100                    # (b): k = 3 past the table's memory, no table written
+BPIECES_K4 = 200                       # (c): k = 4, 4 x C(200, 4) rows past the whole route
+K4_RANDOM_ROWS = 1 << 17               # (d): random rows of C(200, k), k = 2..5
+
+
+def bpieces_insts(n: int) -> list:
+    return [generate_spar(n, 100, s + 1) for s in range(BPIECES_B)]
+
+
+def bpiece_count(table, cand: int, P: int) -> int:
+    """The pieces of at most P rows a round takes over a one-process table:
+    each shard's runs between multiples of P."""
+    per = table.shape[0] // cand
+    return sum(-(-(lo + per) // P) - lo // P for lo in range(0, table.shape[0], per))
+
+
+def bround(insts, k: int, strategy: str, mesh, table, valid, pieces, dev) -> dict:
+    """Round 0 of ``insts`` from a fresh batched state (capacity 1024,
+    BATCH_KNOBS at ``strategy``, kmax k) on ``table`` by the route
+    ``pieces`` (the step's private _pieces: None the default, False the
+    whole route, an int forced pieces), counters reset before and read
+    after: the state, the picks, the cut rows (append_cuts' arguments), the
+    generators' states, the launches, the seconds and the card's peak above
+    what was allocated before the step."""
+    picks, rows = [], []
+    select, append = round_mod._Round.select, rb.append_cuts
+
+    def keep_picks(self, *a):
+        out = select(self, *a)
+        picks.append([t.clone() for t in out])
+        return out
+
+    def keep_rows(pool, *r):
+        rows.append([t.clone() for t in r])
+        return append(pool, *r)
+
+    state = init_batched_state(np.stack([i.Q for i in insts]), np.stack([i.c for i in insts]),
+                               1024, k, device=dev)
+    step = make_sharded_round_step(mesh, **{**BATCH_KNOBS, "strategy": strategy}, kmax=k,
+                                   _pieces=pieces)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    round_mod._Round.select, rb.append_cuts = keep_picks, keep_rows
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        state, info = step(state, table, valid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        round_mod._Round.select, rb.append_cuts = select, append
+    return {"state": state, "picks": picks[0], "rows": rows[0], "launches": launches,
+            "gens": [g.get_state() for g in state.generators], "wall": wall,
+            "peak": torch.cuda.max_memory_allocated() - base, "lp_iters": info["lp_iters"]}
+
+
+def same_bround(a: dict, b: dict) -> dict:
+    """Two runs of bround bit for bit."""
+    return {
+        "the picks": all(torch.equal(u, v) for u, v in zip(a["picks"], b["picks"])),
+        "the cut rows": all(torch.equal(u, v) for u, v in zip(a["rows"], b["rows"])),
+        "the pools, PDHG states and f32 bounds": batched_states_equal(a["state"], b["state"]),
+        "the generators' states": all(torch.equal(u, v) for u, v in zip(a["gens"], b["gens"])),
+    }
+
+
+def bpieces_against_whole(dev) -> tuple:
+    """Phase 27 (a): round 0 of 4 x generate_spar(512, 100, s + 1) at k = 3,
+    4 x spar80 at k = 4 and 4 x spar40 at k = 5, neural and random, at mesh
+    cand 1 and 3, by forced pieces (BPIECES_FORCED rows: shard edges fall
+    inside pieces, C(512, 3) leaves a padded row in the last of 3 shards)
+    and on the whole batched route: picks, cut rows, pools, PDHG states,
+    f32 bounds and generators' states bit for bit; K1 or K4 once an
+    instance a piece; each route's peak an instance-row.  Returns ({path:
+    launch counts}, checks, numbers)."""
+    launches, checks, numbers = {}, {}, {}
+    for k, n in BPIECES_WHOLE:
+        insts = bpieces_insts(n)
+        scorer = "pair_score" if k == 3 else "fused_score"
+        for cand in BPIECES_CANDS:
+            mesh = make_mesh(1, cand)
+            table, valid = shard_combinations(n, k, mesh, device=dev)
+            per = table.shape[0] // cand
+            rows = BPIECES_B * table.shape[0]
+            for strategy in ("neural", "random"):
+                P = BPIECES_FORCED[k]
+                pieced = bround(insts, k, strategy, mesh, table, valid, P, dev)
+                whole = bround(insts, k, strategy, mesh, table, valid, False, dev)
+                same = same_bround(pieced, whole)
+                path = f"bpieces {strategy} k={k} n={n} cand={cand}"
+                launches[path] = pieced["launches"]
+                launches[f"{path} whole route"] = whole["launches"]
+                count = bpiece_count(table, cand, P)
+                numbers[path] = {"instance-rows": rows, "pieces": count,
+                                 "pieces B an instance-row": pieced["peak"] / rows,
+                                 "whole B an instance-row": whole["peak"] / rows,
+                                 "pieces s": pieced["wall"], "whole s": whole["wall"]}
+                log(f"[{path}] round 0 by {count} forced pieces of <= {P} rows and on the whole "
+                    f"route ({BPIECES_B} x {table.shape[0]} rows, {cand} shards of {per}): "
+                    f"f32 bounds {pieced['state'].bound.tolist()} and "
+                    f"{whole['state'].bound.tolist()}; lp_iters {whole['lp_iters'].tolist()}; "
+                    f"{pieced['wall']:.3f}s and {whole['wall']:.3f}s; the card's peak above the "
+                    f"step's start {pieced['peak']} and {whole['peak']} bytes = "
+                    f"{pieced['peak'] / rows:.2f} and {whole['peak'] / rows:.2f} B an "
+                    f"instance-row; {scorer} launches {pieced['launches'][scorer]} and "
+                    f"{whole['launches'][scorer]}; {same} ({SMI})")
+                tag = f"k={k} {strategy} cand={cand}"
+                checks.update({f"{tag}: {key} by pieces are the whole route's, bit for bit": v
+                               for key, v in same.items()})
+                scored = strategy != "random"
+                whole_launches = sum(k4_launches(per, k) for _ in range(cand)) if k != 3 else cand
+                checks[f"{tag}: {scorer} once an instance a piece, and a shard on the whole "
+                       f"route"] = (
+                    pieced["launches"][scorer] == (BPIECES_B * count if scored else 0)
+                    and whole["launches"][scorer] == (BPIECES_B * whole_launches if scored else 0)
+                    and pieced["launches"][TWIN_SCORED] == whole["launches"][TWIN_SCORED] == 0)
+                for p in (path, f"{path} whole route"):
+                    checks.update({f"{p}: {key}": v for key, v in
+                                   solve_route_checks(p, launches[p], n, k).items()})
+                del pieced, whole
+            del table, valid
+    torch.cuda.empty_cache()
+    return launches, checks, numbers
+
+
+def piece_split(state, k: int, table, valid, dev) -> dict:
+    """The first piece of the default route at the point ``state`` holds
+    (round 0's), timed by events: its rows written (a CombinationShards) or
+    viewed, the instances' scores (K1, or each instance's features then
+    K4), the running top-k's merge (these launches are not counted on any
+    path)."""
+    rnd = round_mod._build_round(make_mesh(1, 1), None, BATCH_KNOBS["lp_iters"],
+                                 BATCH_KNOBS["sel_size"], None, "neural", None, 0, k, False, None)
+    rnd.mlp = rnd.mlp.to(dev)
+    x, X = state.pdhg.x, state.pdhg.X
+    P = rnd.piece_rows(table, x.shape[0])
+    _, get = rnd.spans(table, valid, dev)
+    rows_ms = cuda_ms(lambda: get(0, P), reps=2, warmup=1)
+    rows, ok = get(0, P)
+    score_ms = cuda_ms(lambda: rnd.scores(state, x, X, rows, []), reps=2, warmup=1)
+    scores = rnd.scores(state, x, X, rows, [])
+    top = RunningTopk(BATCH_KNOBS["sel_size"])
+    top.add(scores, ok, rows, 0)
+    merge_ms = cuda_ms(lambda: top.add(scores, ok, rows, P), reps=2, warmup=1)
+    return {"rows": P, "rows_ms": rows_ms, "score_ms": score_ms, "merge_ms": merge_ms}
+
+
+def bpieces_default(dev) -> tuple:
+    """Phase 27 (b) and (c): the default route past the table's memory,
+    neural, round 0 twice from fresh states bit for bit: (b) 4 x
+    generate_spar(2100, 100, s + 1) at k = 3 (4 x 1,541,295,700
+    instance-rows; shard_combinations writes no table, the LP on the grid
+    route's open form); (c) 4 x generate_spar(200, 100, s + 1) at k = 4 (4
+    x 64,684,950; the written table scored by pieces, its views); each
+    certify_batched_f64 at least a feasible point's objective; K1 or K4 once
+    an instance a piece; the card's peak and the split of a piece.
+    Returns ({path: launch counts}, checks, numbers)."""
+    launches, checks, numbers = {}, {}, {}
+    for k, n in ((3, BPIECES_OPEN), (4, BPIECES_K4)):
+        insts = bpieces_insts(n)
+        mesh = make_mesh(1, 1)
+        table, valid = shard_combinations(n, k, mesh, device=dev)
+        lazy = isinstance(table, round_mod.CombinationShards)
+        scorer = "pair_score" if k == 3 else "fused_score"
+        first = bround(insts, k, "neural", mesh, table, valid, None, dev)
+        again = bround(insts, k, "neural", mesh, table, valid, None, dev)
+        same = same_bround(first, again)
+        cert = certify_batched_f64(first["state"])
+        floors = [feasible_objective(inst, first["state"].pdhg.x[b].cpu().numpy())
+                  for b, inst in enumerate(insts)]
+        P = round_mod.PIECE_ROWS_OF[k] // BPIECES_B
+        count = bpiece_count(table, 1, P)
+        split = piece_split(first["state"], k, table, valid, dev)
+        rows = BPIECES_B * table.shape[0]
+        path = f"bpieces neural k={k} n={n}"
+        launches[path] = first["launches"]
+        numbers[path] = {"instance-rows": rows, "pieces": count, "seconds": first["wall"],
+                         "again": again["wall"], "peak": first["peak"],
+                         "peak B an instance-row": first["peak"] / rows,
+                         "certificates": cert.tolist(), "floors": floors, **split}
+        log(f"[{path}] the default route ({'no table written' if lazy else 'the written table'}"
+            f", {count} pieces of {P} rows over {table.shape[0]}): round 0 in {first['wall']:.3f}s "
+            f"and {again['wall']:.3f}s; a piece: its rows {split['rows_ms']:.3f} ms, "
+            f"{BPIECES_B} instances' {scorer} {split['score_ms']:.3f} ms, the merge "
+            f"{split['merge_ms']:.3f} ms; f64 certificates {cert.tolist()} against feasible "
+            f"points' f {floors}; lp_iters {first['lp_iters'].tolist()}; the card's peak above "
+            f"the step's start {first['peak']} bytes ({first['peak'] / 2 ** 30:.2f} GiB, "
+            f"{first['peak'] / rows:.3f} B an instance-row); {scorer} launches "
+            f"{first['launches'][scorer]}; a second run {same} ({SMI})")
+        tag = f"k={k} n={n}"
+        checks.update({f"{tag}: a second run repeats {key}": v for key, v in same.items()})
+        checks[f"{tag}: {'no table written' if k == 3 else 'the written table'}, by pieces"] = (
+            lazy == (k == 3) and count > 1)
+        checks[f"{tag}: every certificate >= its feasible point's f"] = bool(
+            np.isfinite(cert).all() and all(c >= f for c, f in zip(cert, floors)))
+        checks[f"{tag}: {scorer} once an instance a piece, no twin"] = (
+            first["launches"][scorer] == BPIECES_B * count
+            and first["launches"][TWIN_SCORED] == 0)
+        checks.update({f"{path}: {key}": v for key, v in
+                       solve_route_checks(path, launches[path], n, k).items()})
+        del first, again, table, valid
+        torch.cuda.empty_cache()
+    return launches, checks, numbers
+
+
+def k4_window_check(label: str, x, X, Q, table, sweeps: int, dev) -> dict:
+    """K4 over ``table`` (a path's shape) against its twin on the first and
+    last K4_WINDOW rows (all of them where fewer): feas at atol 5e-4, nn as
+    the largest share of the north star's per-candidate tolerance (rtol =
+    atol = 2e-4) and of the reference's fused-kernel one (rtol 2e-4, atol
+    2e-5)."""
+    T, k = table.shape
+    triQ, scale = candidate_q_features(Q, table)
+    mlp = MLPScorer(load_params(k), dev)
+    nn_k, feas_k = fused_score(x, X, table, triQ, scale, mlp, sweeps)
+    windows = [(0, T)] if T <= 2 * K4_WINDOW else [(0, K4_WINDOW), (T - K4_WINDOW, T)]
+    r_feas = r_star = r_kernel = err = 0.0
+    for s, e in windows:
+        nn_p, feas_p = fused_score_plain(x, X, table[s:e], triQ[s:e], scale[s:e], mlp, sweeps)
+        e_f, f = excess(feas_k[s:e], feas_p, 0.0, 5e-4)
+        e_n, n_star = excess(nn_k[s:e], nn_p, 2e-4, 2e-4)
+        r_feas, r_star, err = max(r_feas, f), max(r_star, n_star), max(err, e_f, e_n)
+        r_kernel = max(r_kernel, excess(nn_k[s:e], nn_p, 2e-4, 2e-5)[1])
+    log(f"[k4 tolerance {label}] k={k}, {T} rows, {sweeps} sweeps, the rows {windows}: max|err| "
+        f"{err:.3e}; feas {r_feas:.4f} of atol 5e-4; nn {r_star:.4f} of rtol = atol = 2e-4 (the "
+        f"north star's), {r_kernel:.4f} of rtol 2e-4 / atol 2e-5 (the reference's fused kernel) "
+        f"({SMI})")
+    return {"rows": T, "k": k, "max_abs_err": err, "feas": r_feas, "of (2e-4, 2e-4)": r_star,
+            "of (2e-4, 2e-5)": r_kernel}
+
+
+def random_rows(n: int, k: int, count: int, dev) -> torch.Tensor:
+    """``count`` random sorted k-subsets of range(n) (int32, on ``dev``),
+    from a seeded CPU generator."""
+    g = torch.Generator().manual_seed(n * 10 + k)
+    pick = torch.rand((count, n), generator=g).argsort(dim=1)[:, :k]
+    return pick.sort(dim=1).values.to(torch.int32).to(dev)
+
+
+def k4_tolerance(dev) -> tuple:
+    """Phase 27 (d): K4 against its twin at the shapes of every path that
+    launches it: the QCQP band100 clique table at k = 5 (6 sweeps); a piece
+    of C(125, 5) at spar125-100-1's Q; phase 26's pieces (C(512, 4) and
+    C(200, 5) at row 2^31); phase 27's batched pieces (the forced ones of
+    spar80 at k = 4 and spar40 at k = 5, the default ones of spar200 at
+    k = 4, each instance's Q); K4_RANDOM_ROWS random rows of C(200, k),
+    k = 2..5; the pieces at 5 sweeps (neural), each at scoring_point's
+    (x, X).  Returns (checks, {path: ratios})."""
+    out = {}
+    band = load_or_generate_qcqp(QCQP_INSTANCE)
+    x, X, table, _, _, _, sweeps = fused_args(band.Q0, clique_table(band, 5), 6, dev)
+    Q = torch.as_tensor(band.Q0, dtype=torch.float32, device=dev)
+    out["qcqp band100 k=5"] = k4_window_check("qcqp band100", x, X, Q, table, sweeps, dev)
+    spar125 = parse_boxqp(os.path.join(DATA, f"{INSTANCE}.in"), name=INSTANCE)
+    pieces = [(f"{INSTANCE} k=5 piece", spar125, 5, 0, solver_mod.PIECE_ROWS_WIDE[5])]
+    for k, shape in KPIECES_DEFAULT:
+        inst = generate_spar(*shape)
+        R_ = solver_mod.PIECE_ROWS_WIDE[k]
+        start = 1 << 31 if math.comb(inst.n, k) >= (1 << 31) + R_ else 0
+        pieces.append((f"phase 26 {inst.name} k={k} piece", inst, k, start, R_))
+    for k, n in BPIECES_WHOLE[1:]:
+        pieces += [(f"phase 27 {inst.name} k={k} forced piece", inst, k, BPIECES_FORCED[k],
+                    BPIECES_FORCED[k]) for inst in bpieces_insts(n)]
+    pieces += [(f"phase 27 {inst.name} k=4 piece", inst, 4, 0,
+                round_mod.PIECE_ROWS_OF[4] // BPIECES_B) for inst in bpieces_insts(BPIECES_K4)]
+    for label, inst, k, start, R_ in pieces:
+        x, X, Q = scoring_point(inst, dev)
+        rows = combinations_range_on(inst.n, k, start, start + R_, dev)
+        out[label] = k4_window_check(label, x, X, Q, rows, SWEEPS, dev)
+        del rows
+    inst = generate_spar(200, 100, 1)
+    x, X, Q = scoring_point(inst, dev)
+    for k in (2, 3, 4, 5):
+        label = f"{K4_RANDOM_ROWS} random rows of C(200, {k})"
+        out[label] = k4_window_check(label, x, X, Q, random_rows(200, k, K4_RANDOM_ROWS, dev),
+                                     SWEEPS, dev)
+    torch.cuda.empty_cache()
+    star = max(r["of (2e-4, 2e-4)"] for r in out.values())
+    kernel = max(r["of (2e-4, 2e-5)"] for r in out.values())
+    log(f"[k4 tolerance] over {len(out)} shapes: nn at most {star:.4f} of rtol = atol = 2e-4 (the "
+        f"north star's per-candidate tolerance) and {kernel:.4f} of rtol 2e-4 / atol 2e-5; feas "
+        f"at most {max(r['feas'] for r in out.values()):.4f} of atol 5e-4 ({SMI})")
+    return {"K4 within the north star's nn tolerance (rtol = atol = 2e-4) on every path's "
+            "shape": star <= 1.0,
+            "K4's feas within atol 5e-4 on every path's shape":
+                max(r["feas"] for r in out.values()) <= 1.0}, out
+
+
+def bpieces_phase(dev) -> dict:
+    """Phase 27: the batched round past the table's memory
+    (bpieces_against_whole, bpieces_default) and K4's tolerance on every
+    path (k4_tolerance), each path's launches into PATH_LAUNCHES.  Returns
+    the numbers it measured."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in (("against the whole route", bpieces_against_whole),
+                      ("the default route", bpieces_default)):
+        t1 = time.perf_counter()
+        launches, checks, out[name] = run(dev)
+        PATH_LAUNCHES.update(launches)
+        finish(f"bpieces {name}", checks)
+        log(f"[bpieces] {name} took {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    checks, out["k4 tolerance"] = k4_tolerance(dev)
+    finish("k4 tolerance", checks)
+    log(f"[bpieces] K4's tolerance took {time.perf_counter() - t1:.1f}s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[bpieces] phase 27 took {out['seconds']:.1f}s ({SMI})")
+    return out
+
+
+GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23", "24", "25", "26",
+          "27")                        # --phases
 
 
 def main(argv=None) -> int:
@@ -7221,6 +7567,9 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
     if "26" in groups:
         kpieces = kpieces_phase(dev)
         mark("phase 26")
+    if "27" in groups:
+        bpieces = bpieces_phase(dev)
+        mark("phase 27")
     main_hist = None
     if "5-13" in groups:
         PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)
@@ -7264,10 +7613,10 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
     total = {name: sum(c[name] for c in PATH_LAUNCHES.values()) for name in WRAPPERS}
     narrow = {name: sum(c[name] for p, c in PATH_LAUNCHES.items()
                         if not p.startswith(("wide", "grid", "huge", "big", "vast", "open",
-                                             "pieces", "kpieces")))
+                                             "pieces", "kpieces", "bpieces")))
               for name in WRAPPERS}
     log(f"[launches] the paths at n <= 128 (every path but the wide, grid, huge, big, vast, "
-        f"open, pieces and kpieces ones): {narrow}")
+        f"open, pieces, kpieces and bpieces ones): {narrow}")
     if set(groups) != set(GROUPS):
         log(f"[done] the kernels line needs every phase group; these ran: {', '.join(groups)}")
         print(smi)
@@ -7411,9 +7760,25 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
             c["fused_score"] for p, c in PATH_LAUNCHES.items()
             if p.startswith("kpieces") and f"k={k}" in p)}
         k4_entry["max_abs_err"] = max(k4_entry["max_abs_err"], piece["max_abs_err"])
+    # the batched round by pieces (phase 27): K1's and K4's launches on its
+    # paths and the split of a piece past the table's memory; K4 on every
+    # path's shape against its twin
+    default = bpieces["the default route"]
+    for entry, k, scorer in ((kernels[0], 3, "pair_score"), (k4_entry, 4, "fused_score")):
+        entry["batched pieces"] = {
+            "launches": sum(c[scorer] for p, c in PATH_LAUNCHES.items()
+                            if p.startswith("bpieces")),
+            **next(v for p, v in default.items() if f"k={k}" in p)}
+    tolerance = bpieces["k4 tolerance"]
+    k4_entry["every path's shape"] = {
+        "of (2e-4, 2e-4)": max(r["of (2e-4, 2e-4)"] for r in tolerance.values()),
+        "of (2e-4, 2e-5)": max(r["of (2e-4, 2e-5)"] for r in tolerance.values())}
+    k4_entry["max_abs_err"] = max(k4_entry["max_abs_err"],
+                                  *(r["max_abs_err"] for r in tolerance.values()))
     log(f"[grid] phase 19: {grid['seconds']:.1f}s; phase 20: {batch['seconds']:.1f}s; phase 21: "
         f"{huge['seconds']:.1f}s; phase 22: {big['seconds']:.1f}s; phase 23: "
-        f"{vast['seconds']:.1f}s; phase 24: {opened['seconds']:.1f}s")
+        f"{vast['seconds']:.1f}s; phase 24: {opened['seconds']:.1f}s; phase 26: "
+        f"{kpieces['seconds']:.1f}s; phase 27: {bpieces['seconds']:.1f}s")
     for entry in kernels:
         entry["library_ms"] = None       # no single PyTorch call computes any of them
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,10 @@ Ties break toward the lowest candidate index, as ``jax.lax.top_k`` and
 ``masked_topk`` sorts stably instead; ``torch.argmax`` returns the first
 maximum.
 
-``StreamedTopk`` gives ``diverse_topk``'s (or, at alpha 0, ``masked_topk``'s)
+``RunningTopk`` gives ``masked_topk``'s top k, with the rows, over scores
+seen a piece at a time, for a batch of instances at once (the batched
+round's local top-k by pieces, ``parallel/round.py``).  ``StreamedTopk``
+gives ``diverse_topk``'s (or, at alpha 0, ``masked_topk``'s)
 picks over a table seen a piece at a time, bit for bit, holding only the
 rows that can still be picked (the k = 3 round past the table's memory,
 ``loop/solver.py``; at k = 4 and 5 too); with ``group`` > 1 a row carries
@@ -181,3 +184,43 @@ class StreamedTopk:
         idx = torch.where(dead, 0, self.idx[local])
         rows = torch.where(dead[:, None], row0, self.rows[local])
         return vals, idx, valid, rows
+
+
+class RunningTopk:
+    """``masked_topk(scores, S, valid)`` along the last axis, with the
+    picked rows, over scores that come a piece at a time in increasing
+    position (``add``), never holding more than a piece: the batched
+    round's local top-k of a shard (``parallel/sharding.py::local_topk``),
+    leading axes a batch of instances.  It keeps the running top S values,
+    their global positions and their rows; each piece's own top S joins
+    them in a stable sort with the running winners first.  The order is a
+    total one (-score, NaN last, then position), and every earlier winner
+    lies at a lower position than the piece's rows, so the merge keeps the
+    whole sort's top S bit for bit, the -inf entries of a shard with fewer
+    than S finite scores included (the lowest such positions).  It keeps
+    exactly S rows a batch entry, so ``SURVIVOR_CAP`` (``StreamedTopk``'s
+    limit under the diversity penalty, which runs only after the shards'
+    winners are gathered) has nothing to bound here."""
+
+    def __init__(self, S: int):
+        self.S = S
+        self.vals = self.pos = self.rows = None
+
+    def add(self, scores: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor, offset: int):
+        """The next piece: its (..., P) scores, its (P,) valid mask (invalid
+        rows score -inf), its (P, k) rows, and the global position of its
+        first row."""
+        vals, at, _ = masked_topk(scores, self.S, valid)
+        pos, won = at + offset, rows[at]                           # (..., s), (..., s, k)
+        if self.vals is not None:
+            vals = torch.cat([self.vals, vals], -1)
+            pos = torch.cat([self.pos, pos], -1)
+            won = torch.cat([self.rows, won], -2)
+            vals, at, _ = masked_topk(vals, self.S)
+            pos = torch.gather(pos, -1, at)
+            won = torch.gather(won, -2, at[..., None].expand(*at.shape, won.shape[-1]))
+        self.vals, self.pos, self.rows = vals, pos, won
+
+    def result(self):
+        """(values (..., S), rows (..., S, k)), as ``local_topk`` gives them."""
+        return self.vals, self.rows

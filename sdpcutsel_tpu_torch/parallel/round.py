@@ -29,7 +29,11 @@ instances at the logical ``Mesh(1, cand)``.  One round, for every instance:
      reference's CPU route); ``pair_layout=True`` scores the pair layout's
      rows (``sharding.shard_pair_candidates``) through K1 with 5 sweeps for
      all three; random draws uniform [0, 1) scores from the instance's own
-     CPU generator;
+     CPU generator.  By pieces (below) a shard is scored a piece at a time,
+     one launch per instance and piece (at k = 4, 5 after that instance's
+     features of the piece), and ``ops/topk.py::RunningTopk`` keeps the
+     shard's running top ``sel_size``: the whole route's winners, bit for
+     bit;
   5. the shards' winners are gathered in shard order (``gather_cand``) and
      the global pick is the support-diverse greedy (``diversity_alpha`` >
      0) or a plain top-k over them: the sharded rule, which differs from
@@ -43,10 +47,26 @@ PDHG loop.  The scan step runs the same round ``rounds`` times and stacks,
 per round, the pool each LP was solved on and the solve's duals, so that
 ``certify_scan_f64`` certifies every round afterwards in f64 on the host.
 
+Pieces.  A table from ``sharding.shard_combinations`` past the size at
+which ``CutSolver`` takes pieces is a ``CombinationShards``: nothing is
+written until a piece's rows are, on the state's device from one pair
+table made for the round (``combinations_range_on``).  Such a table always
+goes by pieces; a written table goes by pieces (views of it) when B times
+its rows passes ``WHOLE_ROWS_OF[strategy, k]``, and ``pair_layout=True``
+never does (with a ``CombinationShards`` it raises).  A piece holds at
+most ``PIECE_ROWS_OF[k]`` instance-rows (B times its rows, as one
+``CutSolver`` piece holds rows); pieces are the runs of a shard between
+multiples of that row count in the padded table, so a shard's edges may
+fall inside one.  No tensor of the whole (B, T) scores exists on that
+route.  It has no fallback: a piece that a kernel or the card refuses
+raises.
+
 Randomness (strategy random): each instance has its own CPU
 ``torch.Generator`` (``init_batched_state``: seeds drawn from one generator
 seeded with ``seed``).  A round draws, for each instance, its shards' scores
-in shard order, one float a row of the padded table; a distributed rank
+in shard order, one float a row of the padded table (by pieces, one draw
+a piece, in order: CPU draws in turn continue one stream, so the numbers
+and the generators' states are the whole draw's); a distributed rank
 draws every shard's and keeps its own, so the stream is the one-process
 stream.  The stream is not the reference's ``jax.random`` one.  A step
 copies the generators, so the state it was given is left as it was.
@@ -62,20 +82,37 @@ import torch
 
 from ..config import CutConfig, LPConfig, RunConfig, ScorerConfig
 from ..cuts.assemble import assemble_Z
+from ..cuts.enumerate import combinations_table_on
 from ..cuts.generate import cuts_from_selected
 from ..lp.pdhg import (PDHGState, _dual_bound_batched, _solve_batched, dual_bound_f64,
                        init_state, solve_setup_batched)
-from ..loop.solver import KERNEL_SCORED, LEX_SWEEPS
+from ..loop.solver import KERNEL_SCORED, LEX_SWEEPS, PIECE_ROWS, PIECE_ROWS_WIDE
 from ..models.features import candidate_q_features
 from ..models.scorer import MLPScorer, load_params
 from ..ops.fused_score import fused_score, fused_score_plain
 from ..ops.pair_score import SWEEPS, pair_score, pair_score_plain
-from ..ops.topk import diverse_topk, masked_topk
+from ..ops.topk import RunningTopk, diverse_topk, masked_topk
 from ..relax import batched as rb
 from ..relax.cutbuffer import CutPool
 from ..relax.denserows import DenseRows
 from .mesh import Mesh
-from .sharding import gather_cand, local_shards, local_topk
+from .sharding import CombinationShards, gather_cand, local_shards, local_topk
+
+# past these instance-rows (B times the rows of the written table this
+# process holds) a batched round goes by pieces: below them the whole
+# route's peak on the card stays under about 40 GB, half of an H100's 80 GB.
+# Each from the whole route's peak an instance-row at B = 4 (the table's
+# share and the solve's included), measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: 29.32 B at k = 3 (neural and random), 184.21 B (neural) and
+# 29.14 B (random) at k = 4, 279.25 B and 56.28 B at k = 5
+WHOLE_ROWS_OF = {
+    **{(s, 3): 1_360_000_000 for s in KERNEL_SCORED}, ("random", 3): 1_360_000_000,
+    **{(s, k): r for s in KERNEL_SCORED for k, r in ((4, 217_000_000), (5, 143_000_000))},
+    ("random", 4): 1_370_000_000, ("random", 5): 710_000_000,
+}
+# instance-rows a piece holds at most: one CutSolver piece's rows at k
+PIECE_ROWS_OF = {3: PIECE_ROWS, **PIECE_ROWS_WIDE}
+DRAW_ROWS = 1 << 24          # floats a generator draws at once to pass another shard's
 
 
 @dataclasses.dataclass
@@ -140,6 +177,14 @@ def batched_state_from_numpy(leaves, seed: int = 0, device="cuda") -> BatchedRou
                              t(leaves.best_bound))
 
 
+def _pass(gens, count: int):
+    """Each generator draws ``count`` floats and drops them (another shard's),
+    DRAW_ROWS at a time."""
+    for s in range(0, count, DRAW_ROWS):
+        for g in gens:
+            torch.rand((min(DRAW_ROWS, count - s),), generator=g)
+
+
 def _copy_generator(g: torch.Generator) -> torch.Generator:
     out = torch.Generator(device="cpu")
     out.set_state(g.get_state())
@@ -159,16 +204,16 @@ class _Round:
     pair_layout: bool
     mlp: Optional[MLPScorer] = None
     sweeps: int = SWEEPS
+    pieces: int | bool | None = None     # the private _pieces of the step makers
 
-    def scores(self, state: BatchedRoundState, x, X, table, gens, qfeat) -> torch.Tensor:
-        """(B, Ts): every instance's scores of one shard's rows."""
+    def scores(self, state: BatchedRoundState, x, X, table, gens, qfeat=None) -> torch.Tensor:
+        """(B, T): every instance's scores of ``table``'s rows (a shard, or a
+        piece of one).  K4's features: ``qfeat``, the batched ones of the
+        rows (the whole route), or with None each instance's, made and freed
+        around its launch (row by row, so the batched tensor's bits)."""
         B, T = x.shape[0], table.shape[0]
         if self.strategy == "random":
-            # a distributed rank draws every shard's floats, in shard order,
-            # and keeps its own: the one-process stream
-            draws = [torch.stack([torch.rand((T,), generator=g) for g in gens])
-                     for _ in range(self.mesh.cand if self.mesh.distributed else 1)]
-            return draws[self.mesh.cand_index].to(x.device)
+            return torch.stack([torch.rand((T,), generator=g) for g in gens]).to(x.device)
         out = []
         card = x.device.type == "cuda"
         for b in range(B):
@@ -179,8 +224,10 @@ class _Round:
                     pair_score.plain_launches += 1
             else:
                 fn = fused_score if self.use_fused else fused_score_plain
-                nn, feas = fn(x[b], X[b], table, qfeat[0][b], qfeat[1][b], self.mlp,
-                              self.sweeps)
+                triQ, scale = (candidate_q_features(state.Q[b], table) if qfeat is None
+                               else (qfeat[0][b], qfeat[1][b]))
+                nn, feas = fn(x[b], X[b], table, triQ, scale, self.mlp, self.sweeps)
+                del triQ, scale
                 if card and not self.use_fused:
                     fused_score.plain_launches += 1
             if self.strategy == "feasibility":
@@ -189,18 +236,80 @@ class _Round:
                 out.append(torch.where(feas > 0.0, nn, torch.full_like(nn, -torch.inf)))
             else:
                 out.append(nn)
+            del nn, feas
         return torch.stack(out)
+
+    def piece_rows(self, table, B: int):
+        """The rows a piece of ``table`` holds at most, or None for the whole
+        route (module docstring)."""
+        lazy = isinstance(table, CombinationShards)
+        if lazy and (self.pair_layout or self.pieces is False):
+            raise ValueError("a CombinationShards table is scored a piece at a time: not with "
+                             "pair_layout or the whole route")
+        if self.pair_layout or self.pieces is False:
+            return None
+        if self.pieces is not None:
+            return int(self.pieces)
+        k = table.shape[1]
+        limit = WHOLE_ROWS_OF.get((self.strategy, k))
+        if not lazy and (limit is None or B * table.shape[0] <= limit):
+            return None
+        return max(1, PIECE_ROWS_OF.get(k, PIECE_ROWS) // B)
+
+    def spans(self, table, valid, dev):
+        """(the shards this process scores as padded row ranges [(lo, hi)] in
+        shard order, get(start, stop) -> (rows, valid) of a run of them): a
+        CombinationShards writes the run from a pair table made here; a
+        written table gives views."""
+        if isinstance(table, CombinationShards):
+            pairs = combinations_table_on(table.n, min(2, table.k - 1), dev)
+            return table.local(), lambda s, e: table.write(s, e, pairs)
+        dist = self.mesh.distributed
+        per = table.shape[0] // (1 if dist else self.mesh.cand)
+        base = self.mesh.cand_index * per if dist else 0
+        return ([(base + s, base + s + per) for s in range(0, table.shape[0], per)],
+                lambda s, e: (table[s - base:e - base], valid[s - base:e - base]))
+
+    def pieces_topk(self, state: BatchedRoundState, x, X, table, valid, gens, P: int) -> list:
+        """Every local shard's (values (B, S), rows (B, S, k)), as local_topk
+        gives them, scored a piece of at most ``P`` rows at a time."""
+        S = self.cuts.sel_size
+        spans, get = self.spans(table, valid, x.device)
+        won = []
+        for lo, hi in spans:
+            if hi - lo < S:
+                raise ValueError(f"a shard of {hi - lo} rows cannot give {S} winners")
+            top, s = RunningTopk(S), lo
+            while s < hi:
+                e = min(hi, (s // P + 1) * P)
+                rows, ok = get(s, e)
+                top.add(self.scores(state, x, X, rows, gens), ok, rows, s)
+                del rows, ok
+                s = e
+            won.append(top.result())
+        return won
 
     def select(self, state: BatchedRoundState, x, X, table, valid, gens):
         """Local top-k of every shard, gathered in shard order, then the
         global pick.  Returns (picked rows (B, S, k), valid (B, S))."""
         B, n = x.shape
         S = self.cuts.sel_size
-        q_features = self.strategy != "random" and not self.pair_layout and self.kmax != 3
-        won = []
-        for tab, val in local_shards(table, valid, self.mesh):
-            qf = candidate_q_features(state.Q, tab) if q_features else None    # row by row
-            won.append(local_topk(self.scores(state, x, X, tab, gens, qf), val, tab, S))
+        P = self.piece_rows(table, B)
+        skip = self.strategy == "random" and self.mesh.distributed
+        per = table.shape[0]                   # a distributed rank's rows: its shard
+        if skip:                               # the shards before this rank's
+            _pass(gens, self.mesh.cand_index * per)
+        if P is not None:
+            won = self.pieces_topk(state, x, X, table, valid, gens, P)
+        else:
+            q_features = self.strategy != "random" and not self.pair_layout and self.kmax != 3
+            won = []
+            for tab, val in local_shards(table, valid, self.mesh):
+                qf = candidate_q_features(state.Q, tab) if q_features else None    # row by row
+                won.append(local_topk(self.scores(state, x, X, tab, gens, qf), val, tab, S))
+                del qf
+        if skip:                               # and after it: the one-process stream
+            _pass(gens, (self.mesh.cand - 1 - self.mesh.cand_index) * per)
         gv = gather_cand([w[0] for w in won], 1, self.mesh)       # (B, cand S)
         gr = gather_cand([w[1] for w in won], 1, self.mesh)       # (B, cand S, k)
         if self.cuts.diversity_alpha > 0.0:
@@ -219,6 +328,8 @@ class _Round:
         if dense is None and self.m_dense:
             B, n = state.c.shape
             dense = empty_batched_dense(B, n, self.m_dense, dev)
+        if isinstance(table, CombinationShards):
+            return table, None, dense
         return table.to(dev), valid.to(dev), dense
 
     def __call__(self, state: BatchedRoundState, table, valid, dense):
@@ -255,7 +366,7 @@ class _Round:
 
 
 def _build_round(mesh: Mesh, cfg: Optional[RunConfig], lp_iters, sel_size, viol_tol,
-                 strategy, use_fused, m_dense, kmax, pair_layout) -> _Round:
+                 strategy, use_fused, m_dense, kmax, pair_layout, pieces) -> _Round:
     cfg = cfg or RunConfig()
     lp = cfg.lp if lp_iters is None else dataclasses.replace(cfg.lp, max_iters=lp_iters)
     cuts = cfg.cuts
@@ -270,7 +381,7 @@ def _build_round(mesh: Mesh, cfg: Optional[RunConfig], lp_iters, sel_size, viol_
     if strat not in (*KERNEL_SCORED, "random"):
         raise ValueError(f"unsupported sharded strategy: {strat}")
     r = _Round(mesh, lp, cuts, strat, kmax, m_dense,
-               True if use_fused is None else bool(use_fused), pair_layout)
+               True if use_fused is None else bool(use_fused), pair_layout, pieces=pieces)
     if strat in KERNEL_SCORED:
         r.mlp = MLPScorer(load_params(3 if pair_layout else kmax, scorer.weights_path), "cpu")
         r.sweeps = SWEEPS if pair_layout or strat == "neural" else LEX_SWEEPS
@@ -281,18 +392,20 @@ def make_sharded_round_step(mesh: Mesh, cfg: Optional[RunConfig] = None, *,
                             lp_iters: Optional[int] = None, sel_size: Optional[int] = None,
                             viol_tol: Optional[float] = None, strategy: Optional[str] = None,
                             use_fused: Optional[bool] = None, m_dense: int = 0, kmax: int = 3,
-                            pair_layout: bool = False):
+                            pair_layout: bool = False, _pieces: int | bool | None = None):
     """The batched round step over ``mesh``.  Knobs come from ``cfg``
     (default ``RunConfig()``); the keywords override them as in the
     reference.  ``use_fused``: None or True scores through the kernel
     wrappers (the kernels on CUDA, their twins on the CPU), False through
     the twins on either device.  ``pair_layout``: the table comes from
-    ``sharding.shard_pair_candidates``.
+    ``sharding.shard_pair_candidates``.  ``_pieces`` forces a route (tests
+    and measurements only): an int, pieces of at most that many rows;
+    False, the whole route (which a ``CombinationShards`` refuses).
 
     Returns step(state, table, valid, dense=None) -> (state, info), info =
     per-instance {'lp_iters', 'kkt_error'} numpy arrays (B,)."""
     rnd = _build_round(mesh, cfg, lp_iters, sel_size, viol_tol, strategy, use_fused,
-                       m_dense, kmax, pair_layout)
+                       m_dense, kmax, pair_layout, _pieces)
 
     def step(state: BatchedRoundState, table, valid, dense: Optional[DenseRows] = None):
         state, info = rnd(state, *rnd.prepare(state, table, valid, dense))
@@ -305,18 +418,18 @@ def make_sharded_scan_step(mesh: Mesh, cfg: Optional[RunConfig] = None, *, round
                            lp_iters: Optional[int] = None, sel_size: Optional[int] = None,
                            viol_tol: Optional[float] = None, strategy: Optional[str] = None,
                            use_fused: Optional[bool] = None, m_dense: int = 0, kmax: int = 3,
-                           pair_layout: bool = False):
+                           pair_layout: bool = False, _pieces: int | bool | None = None):
     """``rounds`` rounds in one call, the round step's device operations in
-    the same order (so it repeats a per-round run bit for bit).  Per round
-    it stacks each instance's solve-time pool (the pool the LP was solved
-    on), the solve's yA, yB, yC (before the purge) and yD, lp_iters,
-    kkt_error and the pool's count after the append.
+    the same order, on the same route (so it repeats a per-round run bit
+    for bit).  Per round it stacks each instance's solve-time pool (the
+    pool the LP was solved on), the solve's yA, yB, yC (before the purge)
+    and yD, lp_iters, kkt_error and the pool's count after the append.
 
     Returns scan(state, table, valid, dense=None) -> (state, outs) where
     outs' leaves have a leading round axis (rounds, B, ...): 'pool' a
     ``CutPool`` of such tensors, the others tensors."""
     rnd = _build_round(mesh, cfg, lp_iters, sel_size, viol_tol, strategy, use_fused,
-                       m_dense, kmax, pair_layout)
+                       m_dense, kmax, pair_layout, _pieces)
 
     def scan(state: BatchedRoundState, table, valid, dense: Optional[DenseRows] = None):
         args = rnd.prepare(state, table, valid, dense)

@@ -18,14 +18,24 @@ exchange of a round.
 
 Tables are placed on the card unless the caller names another device (a
 distributed mesh's default is the rank's device).
+
+Past the size at which ``CutSolver`` stops writing the whole table
+(``loop/solver.py`` PIECE_N at k = 3, neural's ``PIECE_N_OF`` entry at
+k = 4, 5), ``shard_combinations`` writes nothing: it returns a
+``CombinationShards``, the padded sharded table's description, whose rows
+the batched round (``parallel/round.py``) writes a piece at a time.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
 import torch
 
-from ..cuts.enumerate import combinations_table, combinations_table_on
+from ..cuts.enumerate import combinations_range_on, combinations_table_on
+from ..loop.solver import PIECE_N_OF
 from ..ops.pair_score import build_pair_layout
 from ..ops.topk import masked_topk
 from . import distributed
@@ -59,19 +69,78 @@ def shard_candidates(table: np.ndarray, mesh: Mesh, block: int = 1, device=None)
     return _place(np.ascontiguousarray(padded, dtype=np.int32), valid, mesh, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class CombinationShards:
+    """The padded, sharded C(n, k) table, never written whole: ``total`` =
+    C(n, k) rows padded to ``rows``, a multiple of ``cand``, split into
+    ``cand`` contiguous shards of ``rows / cand``; this process scores the
+    padded rows [lo, hi) (every shard on one process, a distributed rank's
+    own).  ``write`` gives any run of them, as ``shard_candidates``' table
+    and mask hold them: padded rows beyond C(n, k) repeat row 0 and are
+    invalid."""
+    n: int
+    k: int
+    total: int
+    rows: int
+    cand: int
+    lo: int
+    hi: int
+
+    @property
+    def shard_rows(self) -> int:
+        return self.rows // self.cand
+
+    @property
+    def shape(self) -> tuple:
+        """(the rows this process scores, k)."""
+        return self.hi - self.lo, self.k
+
+    def local(self) -> list:
+        """[(start, stop)] of the shards this process scores, in shard order."""
+        return [(s, s + self.shard_rows) for s in range(self.lo, self.hi, self.shard_rows)]
+
+    def write(self, start: int, stop: int, pairs: torch.Tensor):
+        """Padded rows [start, stop) as (int32 rows (stop - start, k), valid
+        (stop - start,)), written on ``pairs``' device from ``pairs``, the pair
+        table over n (``combinations_range_on``)."""
+        end = min(stop, self.total)
+        dev = pairs.device
+        rows = combinations_range_on(self.n, self.k, min(start, end), end, dev, pairs)
+        if stop > end:
+            row0 = torch.arange(self.k, dtype=torch.int32, device=dev)
+            rows = torch.cat([rows, row0.expand(stop - max(start, end), self.k)])
+        valid = torch.arange(start, stop, device=dev) < self.total
+        return rows, valid
+
+
+def writes_whole(n: int, k: int) -> bool:
+    """Whether ``shard_combinations`` writes the table: up to the n past which
+    ``CutSolver`` takes pieces at k (neural's threshold; k without one, such
+    as 2, always)."""
+    return ("neural", k) not in PIECE_N_OF or n <= PIECE_N_OF["neural", k]
+
+
 def shard_combinations(n: int, k: int, mesh: Mesh, device=None):
-    """``shard_candidates(combinations_table(n, k), mesh, device=device)``:
-    on a one-process mesh the table is written on the device
-    (``combinations_table_on``, no host copy), padded there; a distributed
-    rank takes its shard of the host's table."""
+    """``shard_candidates(combinations_table(n, k), mesh, device=device)``,
+    written on the device (``combinations_table_on``, no host copy), padded
+    there; a distributed rank writes only its own shard's rows
+    (``combinations_range_on``).  Past ``writes_whole`` it writes nothing and
+    returns (``CombinationShards``, None): the rows this process scores,
+    described."""
+    T = math.comb(n, k)
+    Tp = -(-T // mesh.cand) * mesh.cand
+    lo, hi = (mesh.cand_index * (Tp // mesh.cand), (mesh.cand_index + 1) * (Tp // mesh.cand)) \
+        if mesh.distributed else (0, Tp)
+    if not writes_whole(n, k):
+        return CombinationShards(n, k, T, Tp, mesh.cand, lo, hi), None
+    dev = device or mesh.device or "cuda"
     if mesh.distributed:
-        return shard_candidates(combinations_table(n, k), mesh, device=device)
-    table = combinations_table_on(n, k, device or mesh.device or "cuda")
-    T = table.shape[0]
-    pad = -(-T // mesh.cand) * mesh.cand - T
-    if pad:
-        table = torch.cat([table, table[:1].expand(pad, k)])
-    valid = torch.ones(T + pad, dtype=torch.bool, device=table.device)
+        return CombinationShards(n, k, T, Tp, mesh.cand, lo, hi).write(
+            lo, hi, combinations_table_on(n, min(2, k - 1), dev))
+    table = combinations_table_on(n, k, dev)
+    if Tp > T:
+        table = torch.cat([table, table[:1].expand(Tp - T, k)])
+    valid = torch.ones(Tp, dtype=torch.bool, device=table.device)
     valid[T:] = False
     return table, valid
 
