@@ -532,7 +532,7 @@ from sdpcutsel_tpu_torch.config import CutConfig, LoopConfig, LPConfig, RunConfi
 from sdpcutsel_tpu_torch.cuts import triangle as triangle_mod
 from sdpcutsel_tpu_torch.cuts.enumerate import (combinations_range_on, combinations_rows_on,
                                                 combinations_table, combinations_table_on,
-                                                first_index_pieces)
+                                                first_index_pieces, range_pieces)
 from sdpcutsel_tpu_torch.instances import (generate_qcqp_family, generate_spar,
                                            load_or_generate, load_or_generate_qcqp, parse_boxqp)
 from sdpcutsel_tpu_torch.instances.qcqp import generate_qcqp, generate_qcqp_band
@@ -579,7 +579,7 @@ from sdpcutsel_tpu_torch.ops.launches import (PLAIN_BLOCKS, PLAIN_CONTROL, READS
                                               reset_launches)
 from sdpcutsel_tpu_torch.ops.pair_packed import packed_layout, packed_score, packed_score_plain
 from sdpcutsel_tpu_torch.ops.pair_score import SWEEPS, pair_score, pair_score_plain
-from sdpcutsel_tpu_torch.ops.topk import RunningTopk
+from sdpcutsel_tpu_torch.ops.topk import RunningTopk, StreamedTopk, diverse_topk
 from sdpcutsel_tpu_torch.parallel import Mesh, distributed, make_mesh, shard_candidates
 from sdpcutsel_tpu_torch.parallel import round as round_mod
 from sdpcutsel_tpu_torch.parallel.sharding import shard_combinations
@@ -6350,7 +6350,7 @@ def open_pieces_vs_whole(dev) -> tuple:
     """Phase 24 (c) at n = 2100: round 0 of CutSolver's defaults but
     PIECES_LP (cut from LPConfig() for phase 25: both routes share the LP)
     by pieces (the default past n = 2048) and on the whole table (the
-    private _pieces=False; C(2100, 3) = 1,538,606,700 rows, 18.5 GB, fits):
+    private _pieces=False; C(2100, 3) = 1,541,295,700 rows, 18.5 GB, fits):
     the picks (global indices and rows) and the pool's cut rows bit for bit,
     and the round's outcome.  Returns (the piecewise run's launch counts,
     checks)."""
@@ -6542,6 +6542,7 @@ OPT_FORCED = 5 * EIGH_CHUNK            # (b): optimality's forced pieces at n = 
 TRIANGLE_OPEN = OPEN_PIECES            # (c): triangle on the default route past n = 2048
                                        # (cut from n = 4096 to keep the run under its limit)
 RANDOM_OPEN = OPEN_PIECES              # (c): random on the default route past its threshold
+RANDOM_MOST = 878_134                  # (c): a tenth of the 8,781,343 that tau's band alone kept
 
 
 def strategy_cfg(strategy: str) -> RunConfig:
@@ -6769,6 +6770,9 @@ def pieces_past_2048(dev) -> tuple:
         checks.update({f"{strategy} n={inst.n}: a second run repeats {k}": v
                        for k, v in same.items()})
         checks[f"{strategy} n={inst.n}: by pieces by default"] = first["pieces"] is not None
+        if strategy == "random":
+            checks[f"random n={inst.n}: the survivors' largest count <= {RANDOM_MOST}"] = (
+                first["most"] <= RANDOM_MOST)
         checks[f"{strategy} n={inst.n}: the certificate >= a feasible point's f {floor}"] = bool(
             np.isfinite(cert) and cert >= floor)
         checks.update({f"{path}: {k}": v for k, v in
@@ -7417,8 +7421,244 @@ def bpieces_phase(dev) -> dict:
     return out
 
 
+# ---- phase 28: the survivors' dominance rules on the card ---------------------------
+
+SURV_ZERO = OPEN_PIECES                # (a): neural on an all-zero MLP, by pieces and whole
+SURV_TIED = (4096, 3, 1 << 28)         # (b): C(4096, 3) zeros, pieces of 2^28 rows
+SURV_UNIFORM = (330, 5, 1 << 27, 3 * (1 << 24) + 7)  # (c): C(330, 5), two piece bounds
+
+
+def survivors_zero_mlp(dev, tmp: str) -> tuple:
+    """Phase 28 (a): neural at k = 3 on an MLP of zero weights (every score
+    scale relu(0) = 0, so tau falls below 0) on generate_spar(2100, 100, 1)
+    at a fixed point x ~ U(0.2, 0.8) seeded, X = x x^T (no LP): the default
+    route by pieces (StreamedTopk's floor keeps C(60, 3) = 34,220 rows)
+    against the whole table (C(2100, 3) = 1,541,295,700 rows, 18.5 GB):
+    picks and cut rows bit for bit.  Returns (the pieces' launch counts,
+    checks, numbers)."""
+    inst = generate_spar(*SURV_ZERO)
+    path = os.path.join(tmp, "mlp_k3_zero.npz")
+    np.savez(path, **{k: np.zeros_like(v) for k, v in load_params(3).items()})
+    cfg = RunConfig(lp=PIECES_LP, scorer=ScorerConfig(strategy="neural", weights_path=path))
+    x = torch.as_tensor(np.random.default_rng(4).uniform(0.2, 0.8, inst.n), dtype=torch.float32,
+                        device=dev)
+    X = torch.outer(x, x)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pieced = CutSolver(inst, cfg, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows_p, sel = pieced._select_pieces(x, X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    _, idx_p, valid_p, picked = sel.result()
+    n_pieces = len(pieced.pieces)
+    del pieced
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = CutSolver(inst, cfg, device=dev, _pieces=False)
+    t1 = time.perf_counter()
+    scores = whole._scores(x, X)
+    zeros = bool((scores == 0).all())
+    rows_w, idx_w, _ = solver_mod.select_and_generate(x, X, whole.table, scores, cfg.cuts)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t1
+    same_picks = torch.equal(idx_p, idx_w) and torch.equal(picked, whole.table[idx_w])
+    same_rows = len(rows_p) == len(rows_w) and all(torch.equal(a, b)
+                                                   for a, b in zip(rows_p, rows_w))
+    del whole, scores, rows_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = 3 * (cfg.cuts.sel_size - 1)
+    log(f"[survivors zero MLP {inst.name}] by {n_pieces} pieces in {wall:.3f}s (the survivors' "
+        f"largest count {sel.most}, the floor's bound C({m + 3}, 3) = {math.comb(m + 3, 3)}; "
+        f"the card's peak above the start {peak} bytes = {peak / 2 ** 30:.2f} GiB) and on the "
+        f"whole table in {wall_w:.3f}s: every score 0 {zeros}; picks bit for bit {same_picks} "
+        f"({idx_p.tolist()}); cut rows bit for bit {same_rows}; launches {launches} ({SMI})")
+    return launches, {
+        "every score of the zero MLP is 0": zeros,
+        "the picks by pieces are the whole table's, bit for bit": same_picks,
+        "the cut rows by pieces are the whole table's, bit for bit": same_rows,
+        "every pick valid": bool(valid_p.all()),
+        f"the floor keeps C({m + 3}, 3) rows": sel.most == math.comb(m + 3, 3),
+        "K1 launched a piece at a time": launches["pair_score"] == sum(
+            len(launch_ranges(p[3], 3)) for p in first_index_pieces(inst.n, 3,
+                                                                     solver_mod.PIECE_ROWS)),
+        "no twin-scored call on the card": launches[TWIN_SCORED] == 0,
+    }, {"seconds": wall, "whole s": wall_w, "most": sel.most, "peak": peak, "pieces": n_pieces}
+
+
+def survivors_tied(dev) -> tuple:
+    """Phase 28 (b): StreamedTopk (S = 20, alpha 1e-4, the table's n) over
+    C(4096, 3) = 11,444,858,880 zero scores, its rows written on the card
+    by combinations_range_on a piece of 2^28 rows at a time: the picks are
+    the lexicographic disjoint rows (0, 1, 2) .. (57, 58, 59) at their
+    global indices, every value 0 and valid; the survivors' largest count
+    is the floor's C(60, 3) = 34,220.  Returns (checks, numbers)."""
+    n, k, R = SURV_TIED
+    S = CutConfig().sel_size
+    pairs = combinations_table_on(n, 2, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel = StreamedTopk(S, CutConfig().diversity_alpha, k, dev, n=n)
+    pieces = range_pieces(n, k, R)
+    for _, _, off, cnt in pieces:
+        rows = combinations_range_on(n, k, off, off + cnt, dev, pairs)
+        sel.add(torch.zeros(cnt, device=dev), rows, off)
+        del rows
+    vals, idx, valid, picked = sel.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    want = torch.arange(S * k, dtype=torch.int32, device=dev).reshape(S, k)
+    total = math.comb(n, k)
+    ranks = [total - math.comb(n - a, k) + (math.comb(n - a - 1, 2) - math.comb(n - b, 2))
+             + (c - b - 1) for a, b, c in want.tolist()]          # lexicographic ranks
+    m = k * (S - 1)
+    log(f"[survivors tied C({n}, {k})] {len(pieces)} pieces of {R} rows in {wall:.3f}s; picks "
+        f"{picked.tolist()} at {idx.tolist()}; the survivors' largest count {sel.most} (the "
+        f"floor's C({m + k}, {k}) = {math.comb(m + k, k)}); the card's peak above the start "
+        f"{peak} bytes = {peak / 2 ** 30:.2f} GiB ({SMI})")
+    return {
+        f"the picks are (0, 1, 2) .. ({S * k - 3}, {S * k - 2}, {S * k - 1})":
+            torch.equal(picked, want),
+        "at their lexicographic ranks": idx.tolist() == ranks,
+        "every pick 0 and valid": bool((vals == 0).all() and valid.all()),
+        f"the survivors' largest count is C({m + k}, {k})": sel.most == math.comb(m + k, k),
+    }, {"seconds": wall, "most": sel.most, "peak": peak, "pieces": len(pieces)}
+
+
+def survivors_uniform(dev) -> tuple:
+    """Phase 28 (c): uniform on-card scores over C(330, 5) =
+    31,634,996,316 rows at S = 20 (alpha 1e-4: tau's band alpha P = 9.5e-3
+    of the range, reckoned 3.0e8 rows, past SURVIVOR_CAP), the rows written
+    by combinations_range_on a piece of 2^27 at a time, fed to three
+    selections: a reference written here (each piece's rows at or above the
+    running tau kept, the kept ones pruned to the last tau, then the port's
+    diverse_topk over them: the threshold alone, with no cap), and
+    StreamedTopk with the table's n (the packings of core size 2) on these
+    pieces and on pieces cut again at 3 2^24 + 7 rows.  The three picks
+    (values, global indices, validity, rows) bit for bit; the reference
+    keeps more than 2^28 rows.  Returns (checks, numbers)."""
+    n, k, R1, R2 = SURV_UNIFORM
+    S, alpha = CutConfig().sel_size, CutConfig().diversity_alpha
+    pairs = combinations_table_on(n, 2, dev)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    pmax = torch.full((1,), k * (S - 1), dtype=torch.float32, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sels = [StreamedTopk(S, alpha, k, dev, n=n) for _ in range(2)]
+    secs = [0.0, 0.0, 0.0]
+    kept, top = [], torch.empty(0, dtype=torch.float32, device=dev)
+
+    def stream():
+        for _, _, off, cnt in range_pieces(n, k, R1):
+            yield (torch.rand(cnt, generator=gen, device=dev),
+                   combinations_range_on(n, k, off, off + cnt, dev, pairs), off)
+
+    def timed(i, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[i] += time.perf_counter() - t
+
+    def reference(scores, rows, off):
+        nonlocal top
+        top = torch.topk(torch.cat([top, scores]), min(S, top.numel() + scores.numel())).values
+        tau = top[S - 1:S] - torch.mul(pmax, alpha)
+        at = torch.nonzero(scores >= tau)[:, 0]
+        kept.append((scores[at], at + off, rows[at]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = None
+    for scores, rows, off in stream():
+        timed(0, lambda: reference(scores, rows, off))
+        timed(1, lambda: sels[0].add(scores, rows, off))
+        # the second bounds: this piece joined to the last one's tail, cut at multiples of R2
+        def second_add():
+            nonlocal carry
+            s, r, o = (scores, rows, off) if carry is None else (
+                torch.cat([carry[0], scores]), torch.cat([carry[1], rows]), carry[2])
+            cut = (o + s.shape[0]) // R2 * R2 - o
+            if cut > 0:
+                sels[1].add(s[:cut], r[:cut], o)
+            carry = (s[cut:], r[cut:], o + cut) if cut < s.shape[0] else None
+        timed(2, second_add)
+    if carry is not None:
+        timed(2, lambda: sels[1].add(*carry))
+    tau = top[S - 1:S] - torch.mul(pmax, alpha)
+    held = sum(int((v >= tau).sum()) for v, _, _ in kept)
+
+    def reference_result():
+        vals = torch.cat([v[v >= tau] for v, _, _ in kept])
+        idx = torch.cat([i[v >= tau] for v, i, _ in kept])
+        rows = torch.cat([r[v >= tau] for v, _, r in kept])
+        kept.clear()
+        got = diverse_topk(vals, rows, S, alpha)
+        return got[0], idx[got[1]], got[2], rows[got[1]]
+
+    want = []
+    timed(0, lambda: want.append(reference_result()))
+    results = []
+    for i, sel in enumerate(sels):
+        timed(i + 1, lambda: results.append(sel.result()))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    want = want[0]
+    same = [all(torch.equal(a, b) for a, b in zip(got, want)) for got in results]
+    log(f"[survivors uniform C({n}, {k})] S = {S}, alpha {alpha}: {-(-math.comb(n, k) // R1)} "
+        f"pieces of {R1} rows in {wall:.3f}s; the reference keeps {held} rows (2^28 = "
+        f"{1 << 28}) in {secs[0]:.3f}s; StreamedTopk (cores {[p.c for p in sels[0].packs]}) on "
+        f"them: the survivors' largest count {sels[0].most}, {sels[0].vals.numel()} at the end, "
+        f"{sels[0].rebuilds} rebuilds, {secs[1]:.3f}s; on pieces cut at {R2}: {sels[1].most}, "
+        f"{sels[1].vals.numel()}, {sels[1].rebuilds}, {secs[2]:.3f}s; picks {want[1].tolist()}; the same bit for bit {same}; the card's peak "
+        f"above the start {peak} bytes = {peak / 2 ** 30:.2f} GiB ({SMI})")
+    return {
+        "the reference keeps more than 2^28 rows": held > (1 << 28),
+        "StreamedTopk gives the reference's picks, bit for bit": same[0],
+        f"and on pieces cut at {R2}": same[1],
+        "every pick valid": bool(want[2].all()),
+    }, {"held": held, "most": [s.most for s in sels], "end": [s.vals.numel() for s in sels],
+        "rebuilds": [s.rebuilds for s in sels], "seconds": secs, "peak": peak}
+
+
+def survivors_phase(dev) -> dict:
+    """Phase 28: StreamedTopk's dominance rules on the card (survivors_zero_mlp,
+    survivors_tied, survivors_uniform), no fallback: a failed check fails
+    the run.  Returns the numbers it measured."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        launches, checks, out["zero MLP"] = survivors_zero_mlp(dev, tmp)
+    PATH_LAUNCHES["survivors neural zero MLP n=2100"] = launches
+    finish("survivors zero MLP", checks)
+    log(f"[survivors] the zero MLP took {time.perf_counter() - t1:.1f}s")
+    for name, run in (("tied", survivors_tied), ("uniform", survivors_uniform)):
+        t1 = time.perf_counter()
+        checks, out[name] = run(dev)
+        finish(f"survivors {name}", checks)
+        log(f"[survivors] {name} took {time.perf_counter() - t1:.1f}s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[survivors] phase 28 took {out['seconds']:.1f}s ({SMI})")
+    return out
+
+
 GROUPS = ("3", "4", "5-13", "15-17", "18-21", "22", "23", "24", "25", "26",
-          "27")                        # --phases
+          "27", "28")                  # --phases
 
 
 def main(argv=None) -> int:
@@ -7570,6 +7810,9 @@ def run_phases(args, groups, dev, smi: str, t_start: float, unguarded, refs) -> 
     if "27" in groups:
         bpieces = bpieces_phase(dev)
         mark("phase 27")
+    if "28" in groups:
+        survivors_phase(dev)
+        mark("phase 28")
     main_hist = None
     if "5-13" in groups:
         PATH_LAUNCHES["boxqp main"], main_hist = main_path(inst, dev)

@@ -14,7 +14,8 @@ One round (``do_round``):
      threshold of each strategy's and k's, ``PIECE_N_OF``, every strategy
      but a custom score_fn takes the piecewise route at k = 3, 4 and 5: the
      table written, scored and selected a piece at a time, ``ops/topk.py``
-     StreamedTopk keeping only the rows that can still be picked, so no
+     StreamedTopk keeping only the rows that can still be picked (its
+     threshold and its exact dominance rules), so no
      tensor of the whole table exists on any device; the picks are the
      whole table's, bit for bit; at k = 4, 5 K4's features are computed
      for each piece's rows each round):
@@ -350,7 +351,13 @@ class CutSolver(CheckpointableSolver):
     at any n (torch refuses it where the card cannot hold it).  The
     piecewise route has no fallback: a piece that a kernel or the card
     refuses raises, and so do more than ``ops/topk.py`` SURVIVOR_CAP
-    survivors."""
+    survivors.  StreamedTopk gets the table's n, so that besides its
+    threshold it drops the rows its dominance rules prove unpickable (the
+    floor: a tie at the least score keeps C(m + k, k) rows, m = k (sel_size
+    - 1), whatever n; and the packings), so that a round whose scores are
+    0 on every row that does not improve (neural, optimality) or spread
+    uniformly (random) picks where the threshold alone would pass the
+    cap."""
 
     def __init__(self, inst: BoxQPInstance, cfg: RunConfig, device="cuda",
                  score_fn: Optional[Callable] = None, *, _pieces: int | bool | None = None):
@@ -449,7 +456,7 @@ class CutSolver(CheckpointableSolver):
         triangle = self.cfg.scorer.strategy == "triangle"
         k = cuts.k
         sel = (triangle_selection(cuts.sel_size, self.device) if triangle else
-               StreamedTopk(cuts.sel_size, cuts.diversity_alpha, k, self.device))
+               StreamedTopk(cuts.sel_size, cuts.diversity_alpha, k, self.device, n=self.inst.n))
         for _, _, offset, count in self.pieces:
             rows = combinations_range_on(self.inst.n, k, offset, offset + count, self.device,
                                          self._pairs)

@@ -128,7 +128,7 @@ def _streamed(scores, table, S: int, alpha: float, seed: int, base: int = 0):
     of the table), the global rows shifted by ``base``."""
     rng = np.random.default_rng(seed)
     T, kk = table.shape
-    sel = StreamedTopk(S, alpha, kk, "cpu")
+    sel = StreamedTopk(S, alpha, kk, "cpu", n=int(table.max()) + 1)
     at = 0
     while at < T:
         r = int(rng.integers(1, max(2, T // 5)))
@@ -174,16 +174,19 @@ def test_streamed_offsets_past_2_31(kk):
 
 def test_streamed_cap_raises(monkeypatch):
     """Past SURVIVOR_CAP survivors add raises (zero scores below alpha P:
-    every row survives), never changing a pick; at the cap it keeps going."""
+    every row survives, as no dominance rule prunes C(10, 4) at S = 5: no
+    packing fits and every index lies below the floor's m + kk = 20),
+    never changing a pick; at the cap it keeps going."""
     from sdpcutsel_tpu_torch.ops import topk
     table = torch.as_tensor(combinations_table(10, 4))
     scores = torch.zeros(table.shape[0])
+    assert topk.choose_cores(10, 4, 5) == () and 10 <= 4 * 4 + 4
     monkeypatch.setattr(topk, "SURVIVOR_CAP", table.shape[0])
-    sel = StreamedTopk(5, 1e-4, 4, "cpu")
+    sel = StreamedTopk(5, 1e-4, 4, "cpu", n=10)
     sel.add(scores, table, 0)
     assert sel.most == table.shape[0]
     monkeypatch.setattr(topk, "SURVIVOR_CAP", 100)
-    sel = StreamedTopk(5, 1e-4, 4, "cpu")
+    sel = StreamedTopk(5, 1e-4, 4, "cpu", n=10)
     with pytest.raises(RuntimeError, match="cap of 100"):
         for at in range(0, table.shape[0], 60):
             sel.add(scores[at:at + 60], table[at:at + 60], at)

@@ -27,7 +27,7 @@ from sdpcutsel_tpu_torch.instances import generate_spar, load_or_generate
 from sdpcutsel_tpu_torch.loop import CutSolver
 from sdpcutsel_tpu_torch.loop import solver as tsolver
 from sdpcutsel_tpu_torch.models import labels as tlab
-from sdpcutsel_tpu_torch.ops.topk import masked_topk
+from sdpcutsel_tpu_torch.ops.topk import choose_cores, masked_topk
 from test_torch_solver import JaxCutSolver, _assert_rounds_match, _outcome
 
 LP = LPConfig(max_iters=6000, tol=1e-5)
@@ -288,9 +288,12 @@ def test_admm_scores_by_pieces_are_one_call(monkeypatch):
 def test_optimality_with_fewer_improving_blocks_than_picks():
     """Where fewer than sel_size blocks improve (x x^T at every other pair,
     one pair at its upper bound: its n - 2 triples), the threshold falls
-    below 0 and every zero row survives (the route's memory limit: the
-    survivors grow to the table); the picks and cut rows stay the whole
-    table's, bit for bit."""
+    below 0; the picks and cut rows stay the whole table's, bit for bit.
+    StreamedTopk's dominance rules bound the zero rows by C(m + k, k),
+    m = k (sel_size - 1) (the floor), but at n = 20 every index lies below
+    m + k = 60 and no packing fits (choose_cores), so every row survives:
+    the survivors are the table, within that bound
+    (tests/test_torch_survivors.py holds the rules where they drop rows)."""
     inst = _spar020()
     n = inst.n
     cfg = _cfg("optimality")
@@ -307,7 +310,9 @@ def test_optimality_with_fewer_improving_blocks_than_picks():
     rows, sel = pieced._select_pieces(x, X)
     assert _same(rows, want[0])
     assert torch.equal(sel.result()[1], want[1])
-    assert sel.most >= whole.table.shape[0] - cfg.cuts.sel_size
+    m = 3 * (cfg.cuts.sel_size - 1)
+    assert choose_cores(n, 3, cfg.cuts.sel_size) == () and n <= m + 3
+    assert sel.most == whole.table.shape[0] <= math.comb(m + 3, 3)
 
 
 # ---- the rows of any run of the table --------------------------------------------

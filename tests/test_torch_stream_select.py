@@ -94,7 +94,7 @@ def _scores(kind: str, seed: int) -> np.ndarray:
 
 
 def _streamed(scores: torch.Tensor, S: int, alpha: float, cap: int):
-    sel = StreamedTopk(S, alpha, 3, "cpu")
+    sel = StreamedTopk(S, alpha, 3, "cpu", n=N)
     sub = combinations_table_on(N, 2, "cpu")
     for i0, i1, offset, rows in first_index_pieces(N, 3, cap):
         sel.add(scores[offset:offset + rows], combinations_rows_on(N, 3, i0, i1, "cpu", sub),
@@ -152,7 +152,7 @@ def test_streamed_gives_the_jax_packages_picks(kind, alpha):
 
 
 def test_streamed_refuses_nan():
-    sel = StreamedTopk(5, 1e-4, 3, "cpu")
+    sel = StreamedTopk(5, 1e-4, 3, "cpu", n=3)
     with pytest.raises(ValueError, match="NaN"):
         sel.add(torch.tensor([1.0, float("nan")]), torch.zeros(2, 3, dtype=torch.int32), 0)
 
